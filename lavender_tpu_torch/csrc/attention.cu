@@ -5,7 +5,12 @@
 // lavender_tpu/ops/swin_block_attn.py _block_kernel_wm and the per-head part
 // of lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask.  Input is
 // the packed qkv slab [nSeq * N, 3C] that the qkv GEMM writes (columns
-// s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C].
+// s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C].  It is also
+// the forward of the Swin window-attention core K8a
+// (lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel): there it also
+// writes each query row's log-sum-exp of its scores (f32 [nSeq, nH, N]),
+// which the backward (attention_bwd.cu) uses instead of recomputing the
+// row sums.
 //
 // Differences from the TPU kernels, on purpose: natural-unit exponent with
 // a running max (the TPU kernels skip the max subtraction and clamp exp2 at
@@ -53,8 +58,8 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      const bf16* __restrict__ bias, const bf16* __restrict__ mask,
-                     const uint8_t* __restrict__ keep, int N, int nH, int nW, float scale,
-                     int rows_per_block) {
+                     const uint8_t* __restrict__ keep, float* __restrict__ lse, int N, int nH,
+                     int nW, float scale, int rows_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + (size_t)N * HD;
@@ -129,6 +134,7 @@ __global__ void __launch_bounds__(kThreads)
       m = mn;
     }
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // all keys dropped -> 0
+    if (lse != nullptr) lse[((size_t)seq * nH + h) * N + i] = l > 0.0f ? m + logf(l) : INFINITY;
     bf16* orow = out + ((size_t)seq * N + i) * C + h * HD;
 #pragma unroll
     for (int d = 0; d < HD; d += 8) {
@@ -142,7 +148,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HD>
 int launch(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
-           int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream) {
+           void* lse, int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)N * HD * sizeof(bf16) + (size_t)((N + 15) / 16) * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
@@ -174,7 +180,8 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
   dim3 grid(nSeq, nH, tiles);
   attention_kernel<HD><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(mask), static_cast<const uint8_t*>(keep), N, nH, nW, scale, rows);
+      static_cast<const bf16*>(mask), static_cast<const uint8_t*>(keep), static_cast<float*>(lse),
+      N, nH, nW, scale, rows);
   return (int)cudaGetLastError();
 }
 
@@ -182,16 +189,17 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
 
 // qkv [nSeq * N, 3 * nH * hd] -> out [nSeq * N, nH * hd].  Optional (null):
 // bias [nH, N, N] per head, mask [nW, N, N] for sequence s's window s % nW,
-// keep [nSeq, N] uint8 (0 = key dropped).  hd in {16, 32, 64}.
+// keep [nSeq, N] uint8 (0 = key dropped), lse [nSeq, nH, N] f32 (written
+// when given; +inf for a row whose keys are all dropped).  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
-                                  const void* keep, int nSeq, int N, int nH, int hd, int nW,
-                                  float scale, void* stream) {
+                                  const void* keep, void* lse, int nSeq, int N, int nH, int hd,
+                                  int nW, float scale, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s);
-    case 32: return launch<32>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s);
-    case 64: return launch<64>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s);
+    case 16: return launch<16>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s);
+    case 32: return launch<32>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s);
+    case 64: return launch<64>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

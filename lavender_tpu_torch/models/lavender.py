@@ -1,12 +1,16 @@
-"""LAVENDER core model, serving forward (port of
-lavender_tpu/models/lavender.py): Video Swin + adapter over uint8 clips,
-BERT text embeddings, the fusion encoder over [video; text] and the MLM
-head on the text slice.
+"""LAVENDER core model (port of lavender_tpu/models/lavender.py): Video
+Swin + adapter over uint8 clips, BERT text embeddings (``go_feat``), the
+fusion encoder over [video; text] (``go_cross``) and the MLM head
+(``mlm_head``).  ``forward`` is the serving composition; the task losses
+call the three parts separately (``tasks/retrieval.py``).  In ``train()``
+mode dropout and drop-path draw from the ``generator`` the parts take.
 
 Ported variants: the default EncVideo (no ``odr``/``vt_mask``, not the
 SwinBERT adapter), the embeddings-only EncTxt and the "full" cross mask.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -15,6 +19,20 @@ from lavender_tpu_torch.models.bert import (
     BertEmbeddings, BertEncoder, BertMLMHead, extended_attention_mask)
 from lavender_tpu_torch.models.swin3d import VideoSwin3D
 from lavender_tpu_torch.ops import layer_norm
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random weights from ``generator``: LayerNorms at unit scale and zero
+    shift, every other parameter N(0, 0.02^2) (BERT's initializer range)."""
+    for mod in model.modules():
+        if isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            continue
+        for p in mod.parameters(recurse=False):
+            p.normal_(0.0, 0.02, generator=generator)
+    return model
 
 
 def build_cross_mask(mask_img: torch.Tensor, mask_txt: torch.Tensor,
@@ -46,11 +64,12 @@ class EncVideo(nn.Module):
         self.emb_odr = nn.Parameter(torch.zeros(1, 1, 1, hidden))
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
 
-    def forward(self, img: torch.Tensor):
+    def forward(self, img: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
         """img uint8 [B, T, H, W, 3] -> (features [B, Lv, H], mask [B, Lv])."""
         B, T, H, W, _ = img.shape
         hw = (H // 32) * (W // 32)
-        f = self.swin(img).reshape(B, T, hw, -1)
+        f = self.swin(img, generator).reshape(B, T, hw, -1)
         if self.fc is not None:
             f = self.fc(f)
         cls = self.emb_cls.to(f.dtype).expand(B, T, 1, f.shape[-1])
@@ -70,8 +89,9 @@ class EncTxt(nn.Module):
             raise NotImplementedError("the text transformer is not ported")
         self.emb_txt = BertEmbeddings(config.bert)
 
-    def forward(self, txt: torch.Tensor) -> torch.Tensor:
-        return self.emb_txt(txt)
+    def forward(self, txt: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.emb_txt(txt, generator)
 
 
 class LavenderModel(nn.Module):
@@ -93,11 +113,28 @@ class LavenderModel(nn.Module):
         dtype (call after ``.to``; rebuild after changing the weights)."""
         self.enc_img.swin.build_serving_cache(frames, height, width)
 
+    def go_feat(self, img: torch.Tensor, txt: torch.Tensor,
+                mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """Encode both modalities -> (feat_img [B, Lv, H], mask_img [B, Lv],
+        feat_txt [B, Lt, H], mask [B, Lt])."""
+        feat_img, mask_img = self.enc_img(img, generator)
+        return feat_img, mask_img, self.enc_txt(txt, generator), mask
+
+    def go_cross(self, feat_img: torch.Tensor, mask_img: torch.Tensor,
+                 feat_txt: torch.Tensor, mask_txt: torch.Tensor,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """The fusion encoder over [video; text] ("full" mask)."""
+        feat = torch.cat([feat_img, feat_txt.to(feat_img.dtype)], dim=1)
+        bias = extended_attention_mask(build_cross_mask(mask_img, mask_txt))
+        return self.trsfr(feat, bias, generator)
+
+    def mlm_head(self, hidden: torch.Tensor) -> torch.Tensor:
+        return self.fc_mtm(hidden)
+
     def forward(self, img: torch.Tensor, txt: torch.Tensor,
                 mask: torch.Tensor) -> torch.Tensor:
-        feat_img, mask_img = self.enc_img(img)
-        feat_txt = self.enc_txt(txt)
-        feat = torch.cat([feat_img, feat_txt.to(feat_img.dtype)], dim=1)
-        bias = extended_attention_mask(build_cross_mask(mask_img, mask))
-        out = self.trsfr(feat, bias)
-        return self.fc_mtm(out[:, feat_img.shape[1]:])
+        feat_img, mask_img, feat_txt, mask_txt = self.go_feat(img, txt, mask)
+        out = self.go_cross(feat_img, mask_img, feat_txt, mask_txt)
+        return self.mlm_head(out[:, feat_img.shape[1]:])

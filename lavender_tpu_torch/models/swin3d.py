@@ -1,17 +1,22 @@
-"""Video Swin Transformer 3D, serving forward (port of
-lavender_tpu/models/swin3d.py).
+"""Video Swin Transformer 3D (port of lavender_tpu/models/swin3d.py).
 
 Channels-last ``[B, T, H, W, C]`` throughout; each stage runs
 window-major ``[B, nW, Npad, C]`` (N = wd*wh*ww tokens per window, padded
-to a multiple of 8) through ``fused_swin_block_wm`` and, at stage 4,
-``fused_ln_mlp_chunked``.  The cyclic shift of every second block is the
-plain-torch ``wm_shift``.  Parameter names follow the reference's torch
-modules (``layers.0.blocks.1.attn.qkv.weight``), which is also what
+to a multiple of 8).  Serving (``eval()``) runs each block as
+``fused_swin_block_wm`` and, at stage 4, ``fused_ln_mlp_chunked``.
+Training (``train()``) runs the JAX package's drop-path route
+(``SwinBlockWM.__call__`` with ``use_dp``): x <- drop_path_lerp(x,
+K1 attention half); x <- x + drop_path(K9 ``fused_ln_mlp``), with the
+rel-pos biases gathered from the tables on every forward under autograd.
+The cyclic shift around every second block is ``wm_shift`` (K2) in both.
+Parameter names follow the reference's torch modules
+(``layers.0.blocks.1.attn.qkv.weight``), which is also what
 ``convert.from_flax`` produces from the JAX package's scan layout.
 
 What runs where: the uint8 patch embed (normalize folded into the conv
 weights), PatchMerging, the window partition/reverse and the final LN are
-plain torch (plain XLA in JAX); the blocks are the ported kernels.
+plain torch (plain XLA in JAX); the blocks and the shift are the ported
+kernels.
 """
 from __future__ import annotations
 
@@ -22,10 +27,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from lavender_tpu.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from lavender_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from lavender_tpu_torch.ops import layer_norm
 from lavender_tpu_torch.ops._build import select
-from lavender_tpu_torch.ops.fused_mlp import fused_ln_mlp_chunked
+from lavender_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_chunked
 from lavender_tpu_torch.ops.swin_block_attn import (
     fused_swin_block_wm, mlp_in_block, pad_window_mask, rel_pos_bias_wm,
     round8, wm_partition, wm_reverse, wm_shift)
@@ -87,6 +92,36 @@ def compute_shift_mask(D: int, H: int, W: int,
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
+def _keep_coef(x: torch.Tensor, rate: float,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Per-sample stochastic-depth factor [B, 1, ..., 1]: bernoulli(1 -
+    rate) / (1 - rate), drawn from ``generator``."""
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    u = torch.rand(shape, generator=generator, device=x.device)
+    return (u < keep).to(x.dtype) / keep
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth per sample (video_swin.py:46-54): x / keep for a
+    kept sample, 0 for a dropped one (JAX ``drop_path``)."""
+    if rate == 0.0:
+        return x
+    return x * _keep_coef(x, rate, generator)
+
+
+def drop_path_lerp(x: torch.Tensor, full: torch.Tensor, rate: float,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """Stochastic depth on a residual-folded output ``full = x + f(x)``:
+    x + coef * (full - x), the same per-sample coef as ``drop_path`` (JAX
+    ``drop_path_lerp``), i.e. x + drop_path(f(x))."""
+    if rate == 0.0:
+        return full
+    return x + _keep_coef(x, rate, generator) * (full - x)
+
+
 def supports_wm(D: int, H: int, W: int, window: Sequence[int]) -> bool:
     """The window-major path needs the temporal window to cover D and H, W
     divisible by the window (as the JAX package's supports_fused_block)."""
@@ -120,9 +155,11 @@ class Mlp(nn.Module):
 class SwinBlockWM(nn.Module):
     """One Swin block on window-major tokens [B, nW, Npad, C].
 
-    The whole block is ``fused_swin_block_wm``; when the MLP does not run
-    inside it (``mlp_in_block``: Swin-B stage 4) the LN2 + MLP + residual
-    is ``fused_ln_mlp_chunked``."""
+    Serving: the whole block is ``fused_swin_block_wm``; when the MLP does
+    not run inside it (``mlp_in_block``: Swin-B stage 4) the LN2 + MLP +
+    residual is ``fused_ln_mlp_chunked``.  Training: the attention half
+    ``fused_swin_block_wm`` under ``drop_path_lerp``, then
+    x + drop_path(``fused_ln_mlp``) (the JAX ``use_dp`` route)."""
 
     def __init__(self, dim: int, num_heads: int,
                  window_size: Tuple[int, int, int], mlp_ratio: float = 4.0,
@@ -134,9 +171,13 @@ class SwinBlockWM(nn.Module):
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
     def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
+                mask: Optional[torch.Tensor], n_valid: int,
+                dp_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, nW, Npad, C]; bias [nH, Npad, Npad] (rel_pos_bias_wm);
-        mask [nW, Npad, Npad] for a shifted block, else None."""
+        mask [nW, Npad, Npad] for a shifted block, else None; ``n_valid``
+        the real rows of a window; ``dp_rate`` and ``generator`` the
+        drop-path rate and random stream in training."""
         Npad, C = x.shape[2:]
         nH = self.attn.num_heads
         block = select(fused_swin_block_wm)
@@ -146,6 +187,12 @@ class SwinBlockWM(nn.Module):
                 self.norm1.eps)
         mlp = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        if self.training:
+            x = drop_path_lerp(x, block(x, *args, n_valid=n_valid), dp_rate,
+                               generator)
+            out = select(fused_ln_mlp)(x.reshape(-1, C), *mlp,
+                                       self.norm2.eps).reshape(x.shape)
+            return x + drop_path(out, dp_rate, generator)
         if mlp_in_block(C, self.mlp.fc1.out_features, nH, Npad):
             return block(x, *args, mlp=mlp)
         x = block(x, *args)
@@ -176,15 +223,19 @@ class PatchMerging(nn.Module):
 class BasicLayer(nn.Module):
     """One Swin stage on the window-major path: ``depth`` blocks as
     (no-shift, shift) pairs — the JAX package's ``_BlockPairWM``, here the
-    loop in ``forward`` — then optional PatchMerging."""
+    loop in ``forward`` — then optional PatchMerging.  ``drop_path_rates``:
+    one per block (training only)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: Tuple[int, int, int], mlp_ratio: float = 4.0,
                  qk_scale: Optional[float] = None, has_downsample: bool = False,
-                 eps: float = 1e-5):
+                 eps: float = 1e-5,
+                 drop_path_rates: Optional[Sequence[float]] = None):
         super().__init__()
         if depth % 2 != 0:
             raise ValueError(f"stage depth must be even, got {depth}")
+        self.drop_path_rates = tuple(float(r) for r in (
+            drop_path_rates or (0.0,) * depth))
         self.window_size = tuple(window_size)
         self.shift = tuple(w // 2 for w in window_size)
         self.blocks = nn.ModuleList(
@@ -193,12 +244,18 @@ class BasicLayer(nn.Module):
         self.downsample = PatchMerging(dim, eps) if has_downsample else None
         self._cache: Dict = {}
 
+    def train(self, mode: bool = True):
+        """Also drops the serving cache: training changes the tables."""
+        self._cache = {}
+        return super().train(mode)
+
     def _geometry(self, D: int, H: int, W: int, device, dtype):
         """Per-block rel-pos biases and the padded shift mask of one input
         geometry.  Built once by ``build_serving_cache``; a geometry (or
-        device/dtype) without a cache entry is built on the fly."""
+        device/dtype) without a cache entry is built on the fly, and in
+        training always (the biases are gathered under autograd)."""
         key = (D, H, W, device, dtype)
-        if key in self._cache:
+        if key in self._cache and not self.training:
             return self._cache[key]
         window, shift = get_window_size((D, H, W), self.window_size, self.shift)
         if not supports_wm(D, H, W, window):
@@ -215,7 +272,7 @@ class BasicLayer(nn.Module):
             m = torch.as_tensor(compute_shift_mask(D, H, W, window, shift),
                                 device=device)
             mask = pad_window_mask(m, Npad).to(dtype)
-        return window, shift, Npad, biases, mask
+        return window, shift, N, Npad, biases, mask
 
     @torch.no_grad()
     def build_serving_cache(self, D: int, H: int, W: int):
@@ -227,17 +284,20 @@ class BasicLayer(nn.Module):
         self._cache[(D, H, W, p.device, p.dtype)] = self._geometry(
             D, H, W, p.device, p.dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, D, H, W, C = x.shape
-        window, shift, Npad, biases, mask = self._geometry(
+        window, shift, N, Npad, biases, mask = self._geometry(
             D, H, W, x.device, x.dtype)
         shifted = mask is not None
+        dpr = self.drop_path_rates
         t = wm_partition(x, window, Npad)
         for k in range(0, len(self.blocks), 2):
-            t = self.blocks[k](t, biases[k], None)
+            t = self.blocks[k](t, biases[k], None, N, dpr[k], generator)
             if shifted:
                 t = wm_shift(t, window, D, H, W, shift)
-            t = self.blocks[k + 1](t, biases[k + 1], mask)
+            t = self.blocks[k + 1](t, biases[k + 1], mask, N, dpr[k + 1],
+                                   generator)
             if shifted:
                 t = wm_shift(t, window, D, H, W, shift, inverse=True)
         x = wm_reverse(t, window, D, H, W)
@@ -310,11 +370,14 @@ class VideoSwin3D(nn.Module):
                                         cfg.embed_dim, cfg.patch_norm,
                                         cfg.layer_norm_eps)
         n = len(cfg.depths)
+        # stochastic depth spread linearly over all blocks (swin3d.py:1443)
+        dpr = np.linspace(0, cfg.drop_path_rate, sum(cfg.depths)).tolist()
+        starts = np.cumsum((0,) + tuple(cfg.depths))
         self.layers = nn.ModuleList(
             BasicLayer(int(cfg.embed_dim * 2 ** i), cfg.depths[i],
                        cfg.num_heads[i], tuple(cfg.window_size),
                        cfg.mlp_ratio, cfg.qk_scale, i < n - 1,
-                       cfg.layer_norm_eps)
+                       cfg.layer_norm_eps, dpr[starts[i]:starts[i + 1]])
             for i in range(n))
         self.norm = nn.LayerNorm(cfg.num_features, eps=cfg.layer_norm_eps)
 
@@ -326,8 +389,10 @@ class VideoSwin3D(nn.Module):
             if layer.downsample is not None:
                 h, w = (h + 1) // 2, (w + 1) // 2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator``: the drop-path random stream in training."""
         x = self.patch_embed(x)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, generator)
         return layer_norm(x, self.norm.weight, self.norm.bias, self.norm.eps)

@@ -6,9 +6,10 @@ The sources under ``lavender_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 ``build/`` at the repository root, and is keyed by a hash of the sources and
 flags, so an edited source rebuilds and an unchanged one is loaded as is.
 
-The three primitives bound here (tiled GEMM with fused epilogues, row
-LayerNorm, attention core) are what the ports of the TPU kernels are
-composed from, see ``swin_block_attn.py``, ``fused_mlp.py`` and
+The primitives bound here (tiled GEMM with fused epilogues, row
+LayerNorm, attention core and its backward, row permutation) are what the
+ports of the TPU kernels are composed from, see ``swin_block_attn.py``,
+``swin_core_attn.py``, ``wm_permute.py``, ``fused_mlp.py`` and
 ``encoder_attention.py``.  Each launch goes on PyTorch's current stream,
 allocates nothing inside the kernel (outputs come from ``torch.empty``
 here) and raises if the C entry reports a CUDA error.
@@ -36,7 +37,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "lvt_gemm_bf16": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
-    "lvt_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                           _P],
+    "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _F, _P],
+    "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
 }
 
 _EPI_BIAS, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
@@ -111,18 +116,34 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _cast(v, dtype: torch.dtype):
+    """``v`` with its floating tensors (also inside tuples) cast to dtype."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype) if v.is_floating_point() else v
+    if isinstance(v, (tuple, list)):
+        return type(v)(_cast(e, dtype) for e in v)
+    return v
+
+
 class KernelOp:
     """Entry point of one ported TPU kernel.
 
     A CPU tensor goes to ``plain`` (the plain PyTorch version, which the
     CPU tests compare with the JAX package); any other tensor goes to the
     CUDA ``launch``, which runs the hand-written kernels or raises: there
-    is no fallback.  ``launches`` counts the calls that launched."""
+    is no fallback.  ``launches`` counts the calls that launched.
 
-    def __init__(self, name: str, plain: Callable, launch: Callable):
+    ``casts``: under CUDA autocast the kernel takes its floating inputs in
+    the autocast dtype (its autograd Function is
+    ``torch.amp.custom_fwd(cast_inputs=...)``); ``plain_as_launched`` then
+    casts the same way, so that both paths see the same inputs."""
+
+    def __init__(self, name: str, plain: Callable, launch: Callable,
+                 casts: bool = True):
         self.name = name
         self.plain = plain
         self._launch = launch
+        self.casts = casts
         self.launches = 0
         self.__doc__ = plain.__doc__
 
@@ -132,6 +153,14 @@ class KernelOp:
         out = self._launch(x, *args, **kwargs)
         self.launches += 1
         return out
+
+    def plain_as_launched(self, *args, **kwargs):
+        """``plain`` on the inputs the kernel would get (see ``casts``)."""
+        if not (self.casts and torch.is_autocast_enabled("cuda")):
+            return self.plain(*args, **kwargs)
+        dt = torch.get_autocast_dtype("cuda")
+        with torch.autocast("cuda", enabled=False):
+            return self.plain(*_cast(args, dt), **_cast(kwargs, dt))
 
 
 _plain_path = False
@@ -151,14 +180,20 @@ def plain_path():
         _plain_path = prev
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on these arguments (None allowed)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def select(op: KernelOp) -> Callable:
     """What a model calls for ``op``: the op, or its plain version inside
     ``plain_path()``."""
-    return op.plain if _plain_path else op
+    return op.plain_as_launched if _plain_path else op
 
 
 # --------------------------------------------------------------------------
-# Launchers of the three primitives (CUDA tensors only).
+# Launchers of the primitives (CUDA tensors only).
 # --------------------------------------------------------------------------
 
 
@@ -247,34 +282,59 @@ def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return out
 
 
-def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
-              scale: float, bias: Optional[torch.Tensor] = None,
-              mask: Optional[torch.Tensor] = None,
-              keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Attention core on the packed qkv slab [n_seq * n_tok, 3C].
-
-    bias [nH, N, N], mask [nW, N, N] (sequence s uses window s % nW), keep
-    [n_seq, N] bool; all optional.  Returns [n_seq * n_tok, C]."""
-    _check(qkv, "attention qkv")
+def _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask, what):
+    """Checks shared by the attention core and its backward; returns
+    (C, hd, nW)."""
+    _check(qkv, f"{what} qkv")
     if not qkv.is_contiguous() or qkv.shape[0] != n_seq * n_tok:
-        raise ValueError("attention: qkv must be a contiguous "
+        raise ValueError(f"{what}: qkv must be a contiguous "
                          f"[{n_seq * n_tok}, 3C] slab, got {tuple(qkv.shape)}")
     C = qkv.shape[1] // 3
     hd = C // n_heads
     if 3 * C != qkv.shape[1] or hd * n_heads != C or hd not in (16, 32, 64):
-        raise ValueError(f"attention: head dim {hd} unsupported (16/32/64)")
+        raise ValueError(f"{what}: head dim {hd} unsupported (16/32/64)")
     n_win = 1
-    for t, what, lead in ((bias, "bias", n_heads), (mask, "mask", None)):
+    for t, name, lead in ((bias, "bias", n_heads), (mask, "mask", None)):
         if t is None:
             continue
-        _check(t, f"attention {what}", ndim=3)
+        _check(t, f"{what} {name}", ndim=3)
         if not t.is_contiguous() or tuple(t.shape[1:]) != (n_tok, n_tok) or (
                 lead is not None and t.shape[0] != lead):
-            raise ValueError(f"attention {what}: bad shape {tuple(t.shape)}")
+            raise ValueError(f"{what} {name}: bad shape {tuple(t.shape)}")
     if mask is not None:
         n_win = mask.shape[0]
         if n_seq % n_win != 0:
-            raise ValueError("attention: n_seq must be a multiple of nW")
+            raise ValueError(f"{what}: n_seq must be a multiple of nW")
+    return C, hd, n_win
+
+
+def _check_lse(lse, qkv, n_seq, n_heads, n_tok, what):
+    if (lse.dtype != torch.float32 or lse.device != qkv.device
+            or not lse.is_contiguous()
+            or tuple(lse.shape) != (n_seq, n_heads, n_tok)):
+        raise ValueError(f"{what} lse: expected contiguous f32 "
+                         f"[{n_seq}, {n_heads}, {n_tok}]")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
+              scale: float, bias: Optional[torch.Tensor] = None,
+              mask: Optional[torch.Tensor] = None,
+              keep: Optional[torch.Tensor] = None,
+              lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention core on the packed qkv slab [n_seq * n_tok, 3C].
+
+    bias [nH, N, N], mask [nW, N, N] (sequence s uses window s % nW), keep
+    [n_seq, N] bool; all optional.  ``lse``, when given, is a contiguous
+    f32 [n_seq, nH, N] that receives each query row's log-sum-exp of its
+    scores (what ``attention_bwd`` takes).  Returns [n_seq * n_tok, C]."""
+    C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
+                                   "attention")
+    if lse is not None:
+        _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention")
     keep_ptr = None
     if keep is not None:
         if keep.device != qkv.device or tuple(keep.shape) != (n_seq, n_tok):
@@ -284,9 +344,72 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
         keep_ptr = keep.data_ptr()
     out = torch.empty(qkv.shape[0], C, dtype=qkv.dtype, device=qkv.device)
     err = library().lvt_attention_bf16(
-        qkv.data_ptr(), out.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), keep_ptr,
-        n_seq, n_tok, n_heads, hd, n_win, float(scale), _stream(qkv))
+        qkv.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(mask), keep_ptr,
+        _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale),
+        _stream(qkv))
     _raise_on(err, "lvt_attention_bf16")
+    return out
+
+
+def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
+                  n_seq: int, n_tok: int, n_heads: int, scale: float,
+                  bias: torch.Tensor, mask: Optional[torch.Tensor] = None):
+    """Backward of ``attention`` with a bias (no keep vector).
+
+    qkv [n_seq * N, 3C], dout [n_seq * N, C] (bf16), lse the forward's f32
+    [n_seq, nH, N].  Returns (dqkv [n_seq * N, 3C] bf16,
+    dbias [nH, N, N] f32 summed over every sequence); the mask gets no
+    gradient."""
+    C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
+                                   "attention_bwd")
+    if bias is None:
+        raise ValueError("attention_bwd: the bias is required")
+    _check(dout, "attention_bwd dout")
+    if not dout.is_contiguous() or tuple(dout.shape) != (qkv.shape[0], C):
+        raise ValueError(f"attention_bwd dout: expected contiguous "
+                         f"[{qkv.shape[0]}, {C}], got {tuple(dout.shape)}")
+    _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention_bwd")
+    # sequences are split into chunks, one block per (chunk, head); each
+    # chunk sums its dbias into its own f32 slice, a second pass adds the
+    # slices (no atomics; the sum is the same on every run)
+    n_chunks = max(1, min(n_seq, -(-264 // n_heads)))
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty(n_chunks, n_heads, n_tok, n_tok, dtype=torch.float32,
+                       device=qkv.device)
+    dbias = torch.empty(n_heads, n_tok, n_tok, dtype=torch.float32,
+                        device=qkv.device)
+    err = library().lvt_attention_bwd_bf16(
+        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), bias.data_ptr(),
+        _ptr(mask), dqkv.data_ptr(), dbias.data_ptr(),
+        part.data_ptr(), n_seq, n_tok, n_heads, hd, n_win, n_chunks,
+        float(scale), _stream(qkv))
+    _raise_on(err, "lvt_attention_bwd_bf16")
+    return dqkv, dbias
+
+
+def permute_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """out[b, r] = x[b, index[r]], or zeros where index[r] < 0.
+
+    x [B, R, C] contiguous (any dtype whose row is a multiple of 16
+    bytes), index int32 [R] on x's device."""
+    if x.device.type != "cuda":
+        raise ValueError(f"permute_rows: expected a CUDA tensor, got "
+                         f"{x.device}")
+    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("permute_rows: x must be a contiguous, 16-byte "
+                         f"aligned [B, R, C], got {tuple(x.shape)}")
+    B, R, C = x.shape
+    row_bytes = C * x.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"permute_rows: a row of {row_bytes} bytes is not a "
+                         "multiple of 16")
+    if (index.dtype != torch.int32 or index.device != x.device
+            or tuple(index.shape) != (R,) or not index.is_contiguous()):
+        raise ValueError(f"permute_rows: index must be int32 [{R}] on "
+                         f"{x.device}")
+    out = torch.empty_like(x)
+    err = library().lvt_permute_rows(
+        x.data_ptr(), out.data_ptr(), index.data_ptr(), B, R, row_bytes,
+        _stream(x))
+    _raise_on(err, "lvt_permute_rows")
     return out

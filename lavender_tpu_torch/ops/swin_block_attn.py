@@ -1,8 +1,9 @@
 """Window-major Swin block (port of lavender_tpu/ops/swin_block_attn.py).
 
 Layout ops of the window-major ("wm") stages — ``wm_partition``,
-``wm_reverse``, ``wm_shift``, ``rel_pos_bias_wm`` — as plain torch (they
-were plain XLA in JAX), and the whole-block kernel ``fused_swin_block_wm``.
+``wm_reverse``, ``rel_pos_bias_wm`` — as plain torch (they were plain XLA
+in JAX), the cyclic shift ``wm_shift`` (the K2 kernel, ``wm_permute.py``)
+and the whole-block kernel ``fused_swin_block_wm``.
 
 ``fused_swin_block_wm`` replaces the TPU kernel ``_block_kernel_wm``
 (lavender_tpu/ops/swin_block_attn.py:954, host wrapper
@@ -15,6 +16,12 @@ each step reads and writes device memory once, which bounds the LN and
 attention launches by bandwidth and the GEMMs by tensor-core rate.  The
 TPU-only tiling (128-lane head groups, G windows per grid step, exp2
 pre-scaling) has no counterpart.
+
+Training runs the attention half (no ``mlp``) under autograd: its
+backward (the JAX ``custom_vjp`` ``_wm_bwd`` :1663) recomputes LN1 -> qkv
+-> the window-attention core ``swin_core_attn`` (K8a forward, K8b
+backward) -> proj, with the pad rows passed through as identity
+(``_wm_ref_core`` :1565), and differentiates that.
 """
 from __future__ import annotations
 
@@ -25,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, layer_norm
+from lavender_tpu_torch.ops.swin_core_attn import swin_core_attn
+from lavender_tpu_torch.ops.wm_permute import wm_shift  # noqa: F401 (K2)
 
 
 def round8(n: int) -> int:
@@ -59,17 +68,6 @@ def wm_reverse(t: torch.Tensor, window: Sequence[int], D: int, H: int,
     return s.permute(0, 3, 1, 4, 2, 5, 6).reshape(B, D, H, W, C)
 
 
-def wm_shift(t: torch.Tensor, window: Sequence[int], D: int, H: int, W: int,
-             shift: Sequence[int], inverse: bool = False) -> torch.Tensor:
-    """Cyclic shift in window-major coordinates: reverse -> roll ->
-    partition (the JAX package's XLA fallback; its Pallas permutation
-    kernel is not ported yet)."""
-    xs = wm_reverse(t, window, D, H, W)
-    sh = tuple(int(s) if inverse else -int(s) for s in shift)
-    xs = torch.roll(xs, shifts=sh, dims=(1, 2, 3))
-    return wm_partition(xs, window, t.shape[2])
-
-
 def rel_pos_bias_wm(table: torch.Tensor, rel_index: np.ndarray, N: int,
                     Npad: int, dtype: torch.dtype) -> torch.Tensor:
     """Tail-padded rel-pos bias [nH, Npad, Npad] gathered from ``table``
@@ -95,7 +93,7 @@ def pad_window_mask(mask: torch.Tensor, Npad: int) -> torch.Tensor:
 
 
 def _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
-                 scale, eps, mlp=None):
+                 scale, eps, mlp=None, n_valid=None):
     """Plain PyTorch version of ``fused_swin_block_wm``.
 
     x [B, nW, Npad, C]; wqkv [3C, C] and wproj [C, C] in torch Linear
@@ -103,7 +101,10 @@ def _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
     Npad] additive or None; mlp = (ln2_w, ln2_b, w1 [HD, C], b1, w2
     [C, HD], b2) or None.  Returns x + proj(attn(LN1(x))) (then + MLP(LN2)
     when ``mlp``).  Pad query rows hold finite garbage that the stage exit
-    drops; scores and softmax in f32."""
+    drops; scores and softmax in f32.  ``n_valid`` (the real rows of a
+    window) is read only by the kernel's backward, which passes the pad
+    rows through as identity; here autograd sees the whole slab (the pad
+    rows' cotangents are zero either way)."""
     B, nW, Npad, C = x.shape
     hd = C // nH
     h = layer_norm(x, ln_w, ln_b, eps)
@@ -142,8 +143,58 @@ def _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
     return y.view(B, nW, Npad, C)
 
 
+def _block_attn_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                          mask, nH, scale, eps, N):
+    """The attention half x + proj(attn(LN1(x))) as the backward recomputes
+    it: the core through ``swin_core_attn`` (K8 on the card), the pad rows
+    (>= N) passed through as identity (JAX ``_wm_ref_core``)."""
+    B, nW, Npad, C = x.shape
+    qkv = F.linear(layer_norm(x, ln_w, ln_b, eps), wqkv, bqkv)
+    o = swin_core_attn(qkv, bias, mask, nH, scale)
+    y = x[:, :, :N] + F.linear(o[:, :, :N], wproj, bproj)
+    return torch.cat([y, x[:, :, N:]], dim=2) if Npad > N else y
+
+
+class _BlockAttnFn(torch.autograd.Function):
+    """K1's attention half under autograd: the kernel forward, and a
+    backward that recomputes through K8 (see the module notes)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
+                scale, eps, N):
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                              mask)
+        ctx.args = (nH, scale, eps, N)
+        return _block_cuda(x.contiguous(), ln_w, ln_b, wqkv, bqkv, wproj,
+                           bproj, bias.contiguous(), mask, nH, scale, eps)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        *inputs, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in inputs]
+            y = _block_attn_recompute(*inputs, mask, *ctx.args)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None, None, None, None, None)
+
+
+def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
+                  scale, eps, mlp=None, n_valid=None):
+    """The kernel; ``_BlockAttnFn`` when autograd records the call."""
+    if not _build.needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias):
+        return _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                           mask, nH, scale, eps, mlp)
+    if mlp is not None:
+        raise NotImplementedError("fused_swin_block_wm: gradients flow only "
+                                  "through the attention half (mlp=None)")
+    return _BlockAttnFn.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                              mask, nH, scale, eps, n_valid or x.shape[2])
+
+
 fused_swin_block_wm = _build.KernelOp(
-    "K1 fused_swin_block_wm", _block_plain, _block_cuda)
+    "K1 fused_swin_block_wm", _block_plain, _block_launch)
 
 
 def mlp_in_block(C: int, HD: int, nH: int, Npad: int,

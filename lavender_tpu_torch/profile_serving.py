@@ -1,7 +1,8 @@
-"""Where the serving forward's time goes, on one CUDA GPU.
+"""Where the serving forward's (or the train step's) time goes, on one
+CUDA GPU.
 
     python -m lavender_tpu_torch.profile_serving [--batch 4 8 16 32]
-        [--iters 5] [--top 15]
+        [--iters 5] [--top 15] [--train]
 
 Builds the default server (Swin-B + BERT-base, seeded random weights,
 bf16, clips of 5 x 224 x 224, 26 text tokens) and prints, after the
@@ -17,6 +18,10 @@ card's name and power limit as nvidia-smi reports them:
    over their span in the trace (the profiler's own host cost widens the
    gaps), and the device time per forward over the unprofiled host-clock
    time per forward of step 1.
+
+With ``--train`` the same for the retrieval-MLM train step instead
+(``train.trainer``: f32 weights, bf16 autocast, AdamW, B x B pairs with
+``fused_attn_train=False``, seeded dropout), per step and train clips/s.
 
 Needs a CUDA device; raises without one.
 """
@@ -77,14 +82,15 @@ def busy_share(events) -> float:
     return busy / (spans[-1][1] - spans[0][0])
 
 
-def profile(server: LavenderServer, request, iters: int, top: int,
-            host_ms: float):
+def profile(run, iters: int, top: int, host_ms: float, unit: str):
+    """Trace ``iters`` calls of ``run`` and print the device time per call
+    by kernel and the device's busy share."""
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "trace.json")
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
-                server(*request)
+                run()
             torch.cuda.synchronize()
         prof.export_chrome_trace(path)
         events = device_events(path)
@@ -96,7 +102,7 @@ def profile(server: LavenderServer, request, iters: int, top: int,
         per[name][1] += dur
     total = sum(d for _, d in per.values())
     dev_ms = total / iters / 1e3
-    print(f"device time per forward: {dev_ms:.4f} ms in "
+    print(f"device time per {unit}: {dev_ms:.4f} ms in "
           f"{len(events) / iters:.0f} launches; busy "
           f"{100 * busy_share(events):.1f}% of the traced span, "
           f"{100 * dev_ms / host_ms:.1f}% of the unprofiled {host_ms:.3f} ms")
@@ -105,11 +111,32 @@ def profile(server: LavenderServer, request, iters: int, top: int,
               f"x{n / iters:5.0f}  {_short(name)}")
 
 
+def _train_runner(batch: int):
+    """(step closure, "step") for the retrieval-MLM train step at B clips."""
+    from lavender_tpu_torch.config import BertConfig, ModelConfig, TrainConfig
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    cfg = ModelConfig(bert=BertConfig(fused_attn_train=False))
+    state = create_train_state(cfg, TrainConfig(max_iter=1000,
+                                                max_grad_norm=1.0), seed=0)
+    step = make_train_step(retrieval.make_loss_fn(2081, 6270), state)
+    img, txt, mask = _requests(batch, cfg.bert.vocab_size)
+    data = {"img": torch.as_tensor(img, device="cuda"),
+            "txt": torch.as_tensor(txt, device="cuda"),
+            "mask": torch.as_tensor(mask, device="cuda"),
+            "vid": torch.arange(batch, device="cuda")}
+    return lambda: step(data), "step"
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[4])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the retrieval-MLM train step")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA device")
@@ -118,25 +145,30 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
-    server = LavenderServer(device="cuda", seed=0, frames=FRAMES, size=SIZE)
-    vocab = server.config.bert.vocab_size
+    if args.train:
+        runners = [(b, *_train_runner(b)) for b in args.batch[:1]]
+    else:
+        server = LavenderServer(seed=0, frames=FRAMES, size=SIZE)
+        vocab = server.config.bert.vocab_size
+        runners = [(b, (lambda r=_requests(b, vocab): server(*r)), "forward")
+                   for b in args.batch]
     host_ms = []
-    for b in args.batch:
-        request = _requests(b, vocab)
-        server(*request)  # warm-up
+    for b, run, unit in runners:
+        run()  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         for _ in range(args.iters):
-            server(*request)
+            run()
         torch.cuda.synchronize()
         dt = (time.perf_counter() - t0) / args.iters
         host_ms.append(dt * 1e3)
-        print(f"B={b}: {dt * 1e3:.3f} ms per forward, {b / dt:.2f} clips/s, "
-              f"peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+        print(f"B={b}: {dt * 1e3:.3f} ms per {unit}, {b / dt:.2f} "
+              f"{'train ' if args.train else ''}clips/s, peak "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
               flush=True)
-    profile(server, _requests(args.batch[0], vocab), args.iters, args.top,
-            host_ms[0])
+    b, run, unit = runners[0]
+    profile(run, args.iters, args.top, host_ms[0], unit)
     return 0
 
 

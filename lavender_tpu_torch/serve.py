@@ -1,13 +1,13 @@
 """Serving entry of the port: uint8 clips + text -> MLM logits.
 
 The counterpart of the forward that ``bench.py`` times for the JAX
-package: build ``LavenderModel`` on an explicit device, load the weights
-(converted from JAX params with ``convert.from_flax``, or a seeded random
-init), cast to bf16, precompute the serving caches once, then answer
-requests ``(img_u8 [B, T, H, W, 3], txt [B, Lt], mask [B, Lt]) -> logits
+package: build ``LavenderModel`` on the card (or the CPU when asked),
+load the weights (converted from JAX params with ``convert.from_flax``,
+or a seeded random init), cast to bf16, precompute the serving caches
+once, then answer requests ``(img_u8 [B, T, H, W, 3], txt [B, Lt], mask [B, Lt]) -> logits
 [B, Lt, vocab]``.
 
-    server = LavenderServer(device="cuda", seed=0)  # Swin-B + BERT-base
+    server = LavenderServer(seed=0)  # Swin-B + BERT-base, on "cuda"
     logits = server(img_u8, txt, mask)
 """
 from __future__ import annotations
@@ -15,37 +15,25 @@ from __future__ import annotations
 from typing import Mapping, Optional
 
 import torch
-from torch import nn
 
-from lavender_tpu.config import ModelConfig
+from lavender_tpu_torch.config import ModelConfig
 from lavender_tpu_torch.convert import from_flax
-from lavender_tpu_torch.models.lavender import LavenderModel
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Random weights from ``generator``: LayerNorms at unit scale and zero
-    shift, every other parameter N(0, 0.02^2) (BERT's initializer range)."""
-    for mod in model.modules():
-        if isinstance(mod, nn.LayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-            continue
-        for p in mod.parameters(recurse=False):
-            p.normal_(0.0, 0.02, generator=generator)
-    return model
+from lavender_tpu_torch.models.lavender import LavenderModel, init_weights
 
 
 class LavenderServer:
     """A loaded, cast and precomputed ``LavenderModel`` answering requests.
 
-    ``config``: a ``lavender_tpu.config.ModelConfig``, by default
-    ``ModelConfig()`` (Swin-B + BERT-base).  ``params``: the JAX package's params (nested dict of float32 arrays);
-    without them the weights come from ``seed``.  The serving caches are
+    ``config``: a ``lavender_tpu_torch.config.ModelConfig``, by default
+    ``ModelConfig()`` (Swin-B + BERT-base).  ``device``: "cuda" unless
+    the caller asks for "cpu" (the plain versions).  ``params``: the JAX
+    package's params (nested dict of float32 arrays); without them the
+    weights come from ``seed``.  The serving caches are
     built for clips of ``frames`` x ``size`` x ``size``; other clip sizes
     are served too, with the caches computed per call."""
 
-    def __init__(self, config: Optional[ModelConfig] = None, *, device,
+    def __init__(self, config: Optional[ModelConfig] = None, *,
+                 device="cuda",
                  params: Optional[Mapping] = None, seed: int = 0,
                  dtype: torch.dtype = torch.bfloat16, frames: int = 5,
                  size: int = 224):

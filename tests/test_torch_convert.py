@@ -1,6 +1,11 @@
-"""The PyTorch port's packaging: JAX params -> state dict, no JAX import,
-no CPU fallback for a tensor that is not on the CPU, and the switch that
-sends the models to the plain versions."""
+"""The PyTorch port's packaging: its own copy of the config (equal to the
+JAX package's), JAX params -> state dict, no import of the JAX package, no
+CPU fallback for a tensor that is not on the CPU, and the switch that
+sends the models to the plain versions.
+
+``port_config`` is the one place where the tests turn a JAX config into
+the port's."""
+import dataclasses
 import os
 import subprocess
 import sys
@@ -12,7 +17,9 @@ import pytest
 import torch
 
 from lavender_tpu import config as jcfg
+from lavender_tpu.data import transforms as jtransforms
 from lavender_tpu.models.lavender import LavenderModel as JaxLavender
+from lavender_tpu_torch import config as tcfg
 from lavender_tpu_torch.convert import from_flax
 from lavender_tpu_torch.models.bert import BertEncoder
 from lavender_tpu_torch.models.lavender import LavenderModel
@@ -20,10 +27,45 @@ from lavender_tpu_torch.ops import _build
 from lavender_tpu_torch.ops.encoder_attention import (
     fused_bert_attn_block_kmask)
 from lavender_tpu_torch.ops.fused_mlp import (
-    fused_ffn_post_ln, fused_ln_mlp_chunked)
+    fused_ffn_post_ln, fused_ln_mlp, fused_ln_mlp_chunked)
 from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
+from lavender_tpu_torch.ops.swin_core_attn import (
+    swin_core_attn, swin_core_attn_bwd)
+from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def port_config(cfg):
+    """The port's config equal to the JAX package's ``cfg`` (a
+    ModelConfig, SwinConfig, BertConfig or TrainConfig)."""
+    d = dataclasses.asdict(cfg)
+    if isinstance(cfg, jcfg.ModelConfig):
+        d["swin"] = tcfg.SwinConfig(**d["swin"])
+        d["bert"] = tcfg.BertConfig(**d["bert"])
+    return getattr(tcfg, type(cfg).__name__)(**d)
+
+
+@pytest.mark.parametrize("name", ["SwinConfig", "BertConfig", "ModelConfig",
+                                  "TrainConfig", "SWIN_PRESETS",
+                                  "IMAGENET"])
+def test_port_config_equals_jax(name):
+    """The port's copy: same defaults and presets as the JAX package."""
+    if name == "IMAGENET":
+        for k in ("IMAGENET_MEAN", "IMAGENET_STD"):
+            np.testing.assert_array_equal(getattr(tcfg, k),
+                                          getattr(jtransforms, k))
+        return
+    if name == "SWIN_PRESETS":
+        assert tcfg.SWIN_PRESETS.keys() == jcfg.SWIN_PRESETS.keys()
+        pairs = [(tcfg.SWIN_PRESETS[k], jcfg.SWIN_PRESETS[k])
+                 for k in jcfg.SWIN_PRESETS]
+    else:
+        pairs = [(getattr(tcfg, name)(), getattr(jcfg, name)())]
+    for mine, theirs in pairs:
+        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        assert port_config(theirs) == mine
+
 
 TINY = jcfg.ModelConfig(
     swin=jcfg.SwinConfig(embed_dim=16, depths=(2, 2, 2, 2),
@@ -48,7 +90,7 @@ def test_from_flax_consumes_every_leaf_and_loads_strict(tiny_params):
     sd = from_flax(tiny_params)
     leaves = jax.tree_util.tree_leaves(tiny_params)
     assert sum(t.numel() for t in sd.values()) == sum(l.size for l in leaves)
-    LavenderModel(TINY).load_state_dict(sd, strict=True)
+    LavenderModel(port_config(TINY)).load_state_dict(sd, strict=True)
 
     swin = tiny_params["enc_img"]["swin"]
     scan = swin["layers_2"]["blocks_scan"]
@@ -91,6 +133,8 @@ def test_from_flax_rejects_colliding_leaves():
 
 
 def test_port_imports_no_jax():
+    """Neither the port nor chip_smoke.py loads JAX or any module of the
+    JAX package (not even its framework-free ones)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import lavender_tpu_torch\n"
@@ -98,8 +142,8 @@ def test_port_imports_no_jax():
         "                               'lavender_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        "bad = sorted(k for k in sys.modules\n"
-        "             if k.split('.')[0] in ('jax', 'jaxlib', 'flax'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'lavender_tpu'))\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -137,8 +181,17 @@ def _meta_args(op):
     if op is fused_swin_block_wm:
         return (t(1, 2, 8, C), *ln, t(3 * C, C), t(3 * C), t(C, C), t(C),
                 t(nH, 8, 8), None, nH, 0.25, 1e-5), {"mlp": mlp}
-    if op is fused_ln_mlp_chunked:
+    if op in (fused_ln_mlp_chunked, fused_ln_mlp):
         return (x, *mlp, 1e-5), {}
+    if op is wm_shift_rows:
+        idx = torch.zeros(16, dtype=torch.int32, device="meta")
+        return (t(1, 2, 8, C), idx, idx), {}
+    if op is swin_core_attn:
+        return (t(1, 2, 8, 3 * C), t(nH, 8, 8), None, nH, 0.25), {}
+    if op is swin_core_attn_bwd:
+        lse = torch.zeros(2, nH, 8, device="meta")
+        return (t(1, 2, 8, 3 * C), lse, t(1, 2, 8, C), t(nH, 8, 8), None, nH,
+                0.25), {}
     if op is fused_bert_attn_block_kmask:
         keep = torch.ones(2, 8, dtype=torch.bool, device="meta")
         return (t(2, 8, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),
@@ -148,7 +201,8 @@ def _meta_args(op):
 
 @pytest.mark.parametrize("op", [
     fused_swin_block_wm, fused_ln_mlp_chunked, fused_bert_attn_block_kmask,
-    fused_ffn_post_ln], ids=lambda op: op.name.split()[0])
+    fused_ffn_post_ln, wm_shift_rows, swin_core_attn, swin_core_attn_bwd,
+    fused_ln_mlp], ids=lambda op: op.name.split()[0])
 def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
     args, kw = _meta_args(op)
     before = op.launches
@@ -163,15 +217,16 @@ def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
 def test_plain_path_sends_the_models_to_the_plain_versions():
     """Inside ``plain_path()`` the modules call each op's plain version on
     any device; outside it they call the wrapper."""
-    cfg = jcfg.BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
+    cfg = tcfg.BertConfig(vocab_size=64, hidden_size=32, num_hidden_layers=1,
                           num_attention_heads=2, intermediate_size=64)
-    enc = BertEncoder(cfg).to(device="meta", dtype=torch.bfloat16)
+    enc = BertEncoder(cfg).to(device="meta", dtype=torch.bfloat16).eval()
     x = torch.zeros(2, 8, 32, dtype=torch.bfloat16, device="meta")
     bias = torch.zeros(2, 1, 1, 8, device="meta")
     with pytest.raises(ValueError, match="CUDA tensor"):
         enc(x, bias)
     with _build.plain_path():
-        assert _build.select(fused_ffn_post_ln) == fused_ffn_post_ln.plain
+        assert (_build.select(fused_ffn_post_ln)
+                == fused_ffn_post_ln.plain_as_launched)
         assert enc(x, bias).shape == x.shape
     assert _build.select(fused_ffn_post_ln) is fused_ffn_post_ln
 

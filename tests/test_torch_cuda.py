@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-at small and ragged shapes the serving forward does not reach (M and N off
-the 128-row tiles, odd token counts, head dims 16/32/64, query-row tiles,
-fully masked sequences, strided GEMM outputs).
+at small and ragged shapes the main paths do not reach (M and N off the
+128-row tiles, odd token counts, head dims 16/32/64, query-row tiles,
+fully masked sequences, strided GEMM outputs, odd shift geometries, 1 to
+600 sequences in the attention backward), and the gradients of the train
+route's autograd Functions against autograd of the plain versions.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -9,8 +11,12 @@ so on a machine without it run it without the suite's conftest:
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance, as in chip_smoke.py: bf16 on both sides, rounded at different
-points, so max|kernel - plain| <= 2e-2 * max(1, max|plain|).
+points, so max|kernel - plain| <= 2e-2 * max(1, max|plain|); gradients,
+which sum over many more bf16 terms, also within relative L2 5e-2 (a
+wrong head, window or transposition gives O(1)).  The row permutation is
+exact.
 """
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
@@ -19,8 +25,11 @@ from lavender_tpu_torch.ops import _build, layer_norm
 from lavender_tpu_torch.ops.encoder_attention import (
     fused_bert_attn_block_kmask)
 from lavender_tpu_torch.ops.fused_mlp import (
-    fused_ffn_post_ln, fused_ln_mlp_chunked)
+    fused_ffn_post_ln, fused_ln_mlp, fused_ln_mlp_chunked)
 from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
+from lavender_tpu_torch.ops.swin_core_attn import (
+    swin_core_attn, swin_core_attn_bwd)
+from lavender_tpu_torch.ops.wm_permute import shift_index, wm_shift_rows
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -39,11 +48,14 @@ def _rnd(g, *shape, std=1.0):
         torch.bfloat16)
 
 
-def _close(got, want):
+def _close(got, want, rel_l2=None):
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     err = float((got - want).abs().max())
     assert err <= TOL * max(1.0, float(want.abs().max())), err
+    if rel_l2 is not None:
+        rel = float((got - want).norm() / want.norm().clamp_min(1e-30))
+        assert rel <= rel_l2, rel
 
 
 @pytest.mark.parametrize("M,N,K", [(1, 8, 32), (130, 136, 64),
@@ -152,3 +164,150 @@ def test_wrappers_reject_what_the_kernels_do_not_take(gen):
         _build.gemm(a.float()[:, :32], _rnd(gen, 8, 32).float())
     with pytest.raises(ValueError):  # head dim 48
         _build.attention(_rnd(gen, 10, 3 * 96), 1, 10, 2, 1.0)
+
+
+@pytest.mark.parametrize("geom", [
+    # window, D, H, W, Npad, shift: Swin-B stages, a d-shift, no tail pad,
+    # a non-square map
+    ((5, 7, 7), 5, 56, 56, 248, (0, 3, 3)), ((5, 7, 7), 5, 14, 14, 248,
+                                              (0, 3, 3)),
+    ((2, 7, 7), 2, 14, 21, 104, (1, 3, 3)), ((1, 12, 12), 1, 24, 24, 144,
+                                              (0, 6, 6)),
+    ((3, 5, 5), 3, 10, 15, 80, (1, 2, 2))])
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wm_shift_rows_matches_plain(gen, geom, inverse, dtype):
+    window, D, H, W, Npad, shift = geom
+    nW = (H // window[1]) * (W // window[2])
+    N = int(np.prod(window))
+    idx = torch.as_tensor(shift_index(window, D, H, W, Npad, shift, inverse),
+                          device="cuda")
+    inv = torch.as_tensor(shift_index(window, D, H, W, Npad, shift,
+                                      not inverse), device="cuda")
+    t = torch.randn(3, nW, Npad, 24, generator=gen, device="cuda").to(dtype)
+    t.requires_grad_(True)
+    before = wm_shift_rows.launches
+    got = wm_shift_rows(t, idx, inv)
+    want = wm_shift_rows.plain(t, idx, inv)
+    assert torch.equal(got, want) and not got[:, :, N:].any()
+    w = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+    (g_got,) = torch.autograd.grad(got, t, w)
+    (g_want,) = torch.autograd.grad(want, t, w)
+    assert torch.equal(g_got, g_want)
+    assert wm_shift_rows.launches == before + 2  # forward + backward
+
+
+def _core_inputs(g, B, nW, N, Npad, nH, hd, all_masked=False):
+    C = nH * hd
+    qkv = _rnd(g, B, nW, Npad, 3 * C)
+    bias = _rnd(g, nH, Npad, Npad)
+    bias[:, :, N:] = -100.0  # pad keys dead, as rel_pos_bias_wm writes
+    mask = (torch.rand(nW, Npad, Npad, generator=g, device="cuda") < 0.3)
+    mask = (mask.float() * -100.0).to(torch.bfloat16)
+    if all_masked:
+        mask[0] = -100.0  # a window whose every key is masked
+    return qkv, bias, mask, hd ** -0.5
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("B,nW,N,Npad,nH,masked", [
+    (1, 1, 5, 8, 1, False), (2, 4, 49, 56, 2, True), (1, 3, 245, 248, 2,
+                                                         True),
+    (150, 4, 27, 32, 3, True), (600, 1, 12, 16, 2, False)])
+def test_core_backward_matches_plain(gen, hd, B, nW, N, Npad, nH, masked):
+    """K8a + K8b through the autograd Function vs autograd of the plain
+    core: dq, dk, dv and dbias separately (1 to 600 sequences)."""
+    qkv, bias, mask, scale = _core_inputs(gen, B, nW, N, Npad, nH, hd,
+                                          all_masked=masked)
+    mask = mask if masked else None
+    dout = _rnd(gen, B, nW, Npad, nH * hd)
+    dout[:, :, N:] = 0.0  # the caller's pad rows carry no cotangent
+    got, dgot = [], []
+    # as in training: an f32 bias leaf, cast to bf16 by autocast
+    for f in (swin_core_attn, swin_core_attn.plain_as_launched):
+        q = qkv.clone().requires_grad_(True)
+        b = bias.float().requires_grad_(True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            o = f(q, b, mask, nH, scale)
+        dq, db = torch.autograd.grad(o, (q, b), dout)
+        got.append(o)
+        dgot.append((dq, db))
+    C = nH * hd
+    _close(got[0][:, :, :N], got[1][:, :, :N])
+    (dq_k, db_k), (dq_p, db_p) = dgot
+    for part in range(3):  # dq, dk, dv
+        sl = slice(part * C, (part + 1) * C)
+        _close(dq_k[:, :, :N, sl], dq_p[:, :, :N, sl], rel_l2=5e-2)
+    _close(db_k[:, :N, :N], db_p[:, :N, :N], rel_l2=5e-2)
+
+
+def test_core_dbias_sum_matches_f64(gen):
+    """dbias, summed over 64 sequences by chunks, against an f64 sum of the
+    plain per-sequence gradients."""
+    B, nW, N, Npad, nH, hd = 16, 4, 49, 56, 2, 32
+    qkv, bias, mask, scale = _core_inputs(gen, B, nW, N, Npad, nH, hd)
+    dout = _rnd(gen, B, nW, Npad, nH * hd)
+    lse = torch.empty(B * nW, nH, Npad, device="cuda")
+    _build.attention(qkv.view(-1, 3 * nH * hd), B * nW, Npad, nH, scale,
+                     bias=bias, mask=mask, lse=lse)
+    before = swin_core_attn_bwd.launches
+    _, dbias = swin_core_attn_bwd(qkv, lse, dout, bias, mask, nH, scale)
+    assert swin_core_attn_bwd.launches == before + 1
+    want = torch.zeros(nH, Npad, Npad, dtype=torch.float64, device="cuda")
+    for b in range(B):  # each batch row separately, summed in f64
+        _, db = swin_core_attn_bwd.plain(qkv[b:b + 1], lse, dout[b:b + 1],
+                                         bias, mask, nH, scale)
+        want += db.double()
+    err = (dbias.double() - want).abs().max()
+    assert float(err) <= 1e-2 * max(1.0, float(want.abs().max())), err
+
+
+@pytest.mark.parametrize("M", [1, 130, 1984, 7937])
+def test_ln_mlp_forward_and_backward_match_plain(gen, M):
+    C, HD = 128, 512
+    x = _rnd(gen, M, C, std=2.0)
+    args = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+            _rnd(gen, HD, C, std=C ** -0.5), _rnd(gen, HD),
+            _rnd(gen, C, HD, std=HD ** -0.5), _rnd(gen, C)]
+    w = _rnd(gen, M, C)
+    outs, grads = [], []
+    for f in (fused_ln_mlp, fused_ln_mlp.plain):
+        ins = [t.clone().requires_grad_(True) for t in [x] + args]
+        y = f(*ins, 1e-5)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, ins, w))
+    _close(outs[0], outs[1])
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_block_attention_half_gradient_matches_plain(gen, masked):
+    """K1's attention half under autograd (backward through K8) vs
+    autograd of the plain block, on the valid rows."""
+    B, nW, N, Npad, C, nH = 2, 4, 49, 56, 64, 2
+    x = _rnd(gen, B, nW, Npad, C)
+    ln = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)]
+    lin = [_rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C),
+           _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C)]
+    bias = _rnd(gen, nH, Npad, Npad)
+    bias[:, :, N:] = -100.0
+    mask = None
+    if masked:
+        mask = ((torch.rand(nW, Npad, Npad, generator=gen, device="cuda")
+                 < 0.3).float() * -100.0).to(torch.bfloat16)
+    w = _rnd(gen, B, nW, Npad, C)
+    w[:, :, N:] = 0.0
+    grads = []
+    before = swin_core_attn.launches, swin_core_attn_bwd.launches
+    for f in (fused_swin_block_wm, fused_swin_block_wm.plain):
+        ins = [t.clone().requires_grad_(True) for t in [x, *ln, *lin, bias]]
+        y = f(*ins[:7], ins[7], mask, nH, (C // nH) ** -0.5, 1e-5,
+              n_valid=N)
+        grads.append(torch.autograd.grad(y, ins, w))
+    assert (swin_core_attn.launches, swin_core_attn_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    for i, (gk, gp) in enumerate(zip(*grads)):
+        if i == 0:
+            gk, gp = gk[:, :, :N], gp[:, :, :N]
+        _close(gk, gp, rel_l2=5e-2)

@@ -1,5 +1,6 @@
-"""K3 (Swin stage-4 LN + MLP + residual) and K5 (BERT post-LN FFN): the
-port's plain PyTorch versions against the JAX package, f32 on the CPU.
+"""K3 (Swin stage-4 LN + MLP + residual), K9 (Swin LN + MLP, the train
+route) and K5 (BERT post-LN FFN): the port's plain PyTorch versions (and
+for K9 its gradient) against the JAX package, f32 on the CPU.
 
 The JAX kernels run in Pallas interpret mode (K3 with its HD axis split into
 4 chunks and a token count that is not a multiple of its tile), and against
@@ -7,6 +8,7 @@ their pure-JAX references.  Tolerance 1e-4: f32, but the JAX kernels take LN
 variance as E[x^2] - mean^2 and an erf polynomial (|err| < 1.5e-7), and sum
 the fc2 chunks in another order.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -82,3 +84,50 @@ def test_ffn_post_ln_matches_jax_reference():
         1e-12)
     np.testing.assert_allclose(_port_ffn(p), np.asarray(want),
                                atol=ATOL, rtol=RTOL)
+
+
+def _k9_args(p):
+    return (p["x"], p["s"], p["b"], p["w1"], p["b1"], p["w2"], p["b2"])
+
+
+def _port_k9(p):
+    """K9 on the port side: inputs requiring grad, weights in torch
+    Linear layout."""
+    ins = [_t(p[k]) for k in ("x", "s", "b", "w1", "b1", "w2", "b2")]
+    ins[3], ins[5] = ins[3].t().contiguous(), ins[5].t().contiguous()
+    ins = [t.requires_grad_(True) for t in ins]
+    return ins, tmlp.fused_ln_mlp(*ins, 1e-5)
+
+
+@pytest.mark.parametrize("M", [40, 300])
+def test_ln_mlp_without_residual_matches_jax_kernel_interpret(M):
+    """K9 forward (no residual) against the Pallas kernel, f32 (the
+    kernel's precise erf path), M off its 256-row tile."""
+    p = _params(M, 32, 128, seed=4)
+    with pltpu.force_tpu_interpret_mode():
+        want = jmlp.fused_ln_mlp(*(jnp.asarray(a) for a in _k9_args(p)),
+                                 1e-5)
+    _, got = _port_k9(p)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_ln_mlp_gradient_matches_jax_vjp():
+    """K9's gradient (x, LN and both Linear layers) against the JAX
+    custom_vjp (the ln_mlp_reference recompute)."""
+    p = _params(48, 32, 128, seed=5)
+    w = np.random.RandomState(6).randn(48, 32).astype(np.float32)
+
+    def f(*a):
+        return jnp.sum(jmlp.fused_ln_mlp(*a, 1e-5) * w)
+
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.grad(f, argnums=tuple(range(7)))(
+            *(jnp.asarray(a) for a in _k9_args(p)))
+    ins, out = _port_k9(p)
+    got = [g.numpy() for g in torch.autograd.grad(out, ins, _t(w))]
+    got[3], got[5] = got[3].T, got[5].T
+    for g, wnt in zip(got, want):
+        wnt = np.asarray(wnt)
+        np.testing.assert_allclose(g, wnt, rtol=RTOL,
+                                   atol=ATOL * float(np.abs(wnt).max()))

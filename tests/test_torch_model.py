@@ -23,6 +23,7 @@ from lavender_tpu_torch.convert import from_flax
 from lavender_tpu_torch.models.bert import BertEncoder, extended_attention_mask
 from lavender_tpu_torch.models.swin3d import VideoSwin3D
 from lavender_tpu_torch.serve import LavenderServer
+from tests.test_torch_convert import port_config
 
 SWIN = jcfg.SwinConfig(embed_dim=16, depths=(2, 2, 2, 2),
                        num_heads=(1, 2, 2, 4), window_size=(8, 7, 7),
@@ -49,7 +50,8 @@ def test_serving_slice_matches_jax_lavender():
                                  mask[:1])
     want = np.asarray(jax.jit(jm.apply)(variables, img, txt, mask))
 
-    server = LavenderServer(cfg, device="cpu", params=_np_params(variables),
+    server = LavenderServer(port_config(cfg), device="cpu",
+                            params=_np_params(variables),
                             dtype=torch.float32, frames=5, size=224)
     got = server(img, txt, mask)
     assert got.shape == (2, 26, BERT.vocab_size) and got.dtype == torch.float32
@@ -67,7 +69,7 @@ def test_video_swin_matches_jax_and_serves_uncached_geometry():
     jm = JaxSwin(SWIN)
     variables = jax.jit(jm.init)(jax.random.PRNGKey(1), img[:1])
     want = np.asarray(jax.jit(jm.apply)(variables, img))
-    model = VideoSwin3D(SWIN)
+    model = VideoSwin3D(port_config(SWIN)).eval()
     model.load_state_dict(from_flax(_np_params(variables)), strict=True)
     model.build_serving_cache(5, 224, 224)
     with torch.no_grad():
@@ -88,7 +90,7 @@ def test_bert_encoder_matches_jax(padded):
     bias = jax_ext_mask(jnp.asarray(mask))
     variables = jax.jit(jm.init)(jax.random.PRNGKey(2), x, bias)
     want = np.asarray(jax.jit(jm.apply)(variables, x, bias))
-    model = BertEncoder(BERT)
+    model = BertEncoder(port_config(BERT)).eval()
     model.load_state_dict(from_flax(_np_params(variables)), strict=True)
     t_bias = extended_attention_mask(torch.from_numpy(mask))
     np.testing.assert_array_equal(t_bias.numpy(), np.asarray(bias))

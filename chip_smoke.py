@@ -19,26 +19,35 @@ nothing is ever run on the CPU instead:
    call; for the blocks that end in a residual (K1, K3) also the block's
    output minus its input, so that an error in the attention or MLP is
    not hidden under the O(1) residual; for K8b dq, dk, dv and dbias each;
+   the BERT train kernels with dropout on and the same seed on both sides
+   (K10a at rate 0.1 and 0.5, K10b's dq, dk and dv each, K11's and K12's
+   keep masks exactly equal), on a key mask with padded captions;
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
    kernel path's logits against the plain path's (the same server inside
    ``plain_path()``); prints clips/s;
-5. train slice: ``create_train_state`` + ``make_train_step`` on Swin-B +
-   BERT-base (``fused_attn_train=False``), B=8 clips and 26 tokens:
-   (a) one step's loss and gradients through the kernels against the
-   plain path under the same dropout and drop-path masks; (b) the launch
-   counts of one step; (c) ten steps on one batch at a constant LR of 1e-4
-   on both paths, each loss finite and the loss down by at least 1 nat;
-   (d) step time, train clips/s and peak memory of both paths.
+5. train slice: ``create_train_state`` + ``make_train_step`` on the
+   default ``ModelConfig()`` (Swin-B + BERT-base, the fusion encoder on
+   its default train route ``fused_attn_train=True``: K10a/K10b + K11),
+   B=8 clips and 26 tokens: (a) one step's loss and gradients through the
+   kernels against the plain path under the same dropout and drop-path
+   masks; (b) the launch counts of one step; (c) ten steps on one batch at
+   a constant LR of 1e-4 on both paths, each loss finite and the loss down
+   by at least 1 nat; (d) step time, train clips/s and peak memory of both
+   paths and of the module-math route (``fused_attn_train=False``), in
+   turns; (e) ``fused_ffn_train=True``: one step's loss and gradients,
+   kernels vs plain, and the launch counts of one step (K12 12 times);
+   (f) dropout and drop-path 0 on the same weights: the default route
+   against the module-math route, loss and gradients.
 
 The last lines: the card's name and power limit, then a JSON line of the
-kernels (per kernel: launches in the phase-4 and phase-5 runs; its
-largest error in phase 3; ``ms``, ``plain_ms``, ``library_ms`` and
-``bound_ms``, each the time per call x its calls in one serving forward
-plus one train step, summed over the shapes; ``bound_ms`` is the larger
-of the bytes over 3.35 TB/s and the FLOPs over 989 TFLOP/s), then the
-device line.
+kernels (per kernel: launches in the phase-4 and phase-5 (b) runs, K12's
+in 5 (e); its largest error in phase 3; ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms``, each the time per call x its calls in
+one serving forward plus one train step, summed over the shapes;
+``bound_ms`` is the larger of the bytes over 3.35 TB/s and the FLOPs over
+989 TFLOP/s), then the device line.
 """
 from __future__ import annotations
 
@@ -71,9 +80,9 @@ TOL, REL_L2 = 2e-2, 1e-2
 # smaller branch, so the bound is looser; a dropped or misplaced rel-pos
 # bias, mask or head gives O(1) relative errors here
 DELTA_REL_L2 = 5e-2
-# K8b's gradients sum N = 248 bf16-rounded products per entry (dbias over
-# up to 512 sequences more), and both sides round P and dS to bf16 at
-# other points: relative L2 per gradient
+# K8b's and K10b's gradients sum N = 248 / 276 bf16-rounded products per
+# entry (dbias over up to 512 sequences more), and both sides round P and
+# dS to bf16 at other points: relative L2 per gradient
 GRAD_REL_L2 = 5e-2
 # the whole forward: 24 Swin blocks + 12 BERT layers of such differences
 SLICE_TOL, SLICE_REL_L2 = 5e-2, 5e-2
@@ -321,6 +330,101 @@ def _kernel_cases(g):
         fused_ffn_post_ln, f"M={M} C={C} HD=3072", 12,
         (x.reshape(-1, C), w1, b1, w2, b2, lw, lb, 1e-12),
         4.0 * M * C * 3072, 2 * M * C * 2 + 2 * C * 3072 * 2))
+    cases += _bert_train_cases(g, lin, ln)
+    return cases
+
+
+def _keep_compare(got, want):
+    """K11 / K12: the output within the kernel gate, the keep masks
+    exactly equal."""
+    (out_k, keep_k), (out_p, keep_p) = got, want
+    err, rel, ok = _compare(out_k, out_p, TOL, REL_L2)
+    n_diff = int((keep_k != keep_p).sum())
+    return (err, rel, ok and n_diff == 0,
+            f" (keep masks: {n_diff} of {keep_p.numel()} differ, kept "
+            f"{float(keep_p.float().mean()):.4f})")
+
+
+def _grads_compare(got, want):
+    """K10b: dq, dk and dv each against the plain version's."""
+    results = [(nm, *_compare(a, b, TOL, GRAD_REL_L2))
+               for nm, a, b in zip(("dq", "dk", "dv"), got, want)]
+    detail = ", ".join(f"{nm} {e:.3g}/{r:.3g}" for nm, e, r, _ in results)
+    return (max(e for _, e, _, _ in results),
+            max(r for _, _, r, _ in results), all(ok for *_, ok in results),
+            f" (max_abs/rel_l2: {detail}; rel_l2 <= {GRAD_REL_L2})")
+
+
+def _bert_train_cases(g, lin, ln):
+    """The fusion encoder's train kernels at the train step's shapes: 64
+    (clip, text) pairs at L = 276, C = 768, 12 heads, dropout on (the
+    same seed for kernel and plain version).  The step's own key mask
+    is all ones (every caption 26 tokens), so the mask here pads some
+    captions, as a batch of shorter ones would."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.encoder_attention import (
+        encoder_attention_train_lanes_bwd, fused_encoder_attention_train_lanes)
+    from lavender_tpu_torch.ops.fused_mlp import (
+        fused_ffn_post_ln_train, fused_out_ln_train)
+
+    B, C, nH, L = TRAIN_BATCH ** 2, 768, 12, FRAMES * 50 + TXT_LEN
+    hd, M, layers = C // nH, TRAIN_BATCH ** 2 * L, 12
+    scale = hd ** -0.5
+    slab = _rnd(g, B, L, 3 * C)  # the model's one qkv GEMM
+    q, k, v = slab.split(C, dim=-1)
+    n_txt = torch.randint(5, TXT_LEN + 1, (B,), generator=g, device="cuda")
+    n_txt[0] = TXT_LEN
+    pad = torch.arange(L, device="cuda")[None] >= L - TXT_LEN + n_txt[:, None]
+    # the model's mask after its clamp and the bf16 cast
+    mask = (pad.float() * -1e4)[:, None, :].expand(B, L, L).to(
+        torch.bfloat16).contiguous()
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    sdpa = [t.view(B, L, nH, hd).transpose(1, 2) for t in (q, k, v)]
+    sdpa_mask = mask[:, None]
+    core_flops = 4.0 * B * nH * L * L * hd
+    slab_bytes, mask_bytes, lse_bytes = B * L * C * 2, mask.numel() * 2, (
+        B * nH * L * 4)
+    cases = []
+    for rate, count in ((0.1, layers), (0.5, 0)):
+        cases.append(Case(
+            fused_encoder_attention_train_lanes, f"B={B} L={L} C={C} "
+            f"nH={nH} rate {rate}, padded keys", count,
+            (q, k, v, mask, seed, scale, rate, nH), core_flops,
+            4 * slab_bytes + mask_bytes + lse_bytes,
+            library=lambda r=rate: F.scaled_dot_product_attention(
+                *sdpa, attn_mask=sdpa_mask, dropout_p=r, scale=scale)))
+    lse = torch.empty(B, nH, L, device="cuda")
+    _build.attention(slab.view(B * L, 3 * C), B, L, nH, scale, mask=mask,
+                     lse=lse, seed=seed, rate=0.1)
+    dout = _rnd(g, B, L, C)
+    # SDPA's backward alone: autograd of one forward, replayed
+    leaves = [t.detach().requires_grad_(True) for t in sdpa]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
+                                       dropout_p=0.1, scale=scale)
+    d_heads = dout.view(B, L, nH, hd).transpose(1, 2)
+    cases.append(Case(
+        encoder_attention_train_lanes_bwd, f"B={B} L={L} C={C} nH={nH} "
+        "rate 0.1, padded keys", layers,
+        (q, k, v, mask, seed, dout, scale, 0.1, nH), 2.5 * core_flops,
+        7 * slab_bytes + mask_bytes + lse_bytes, kw={"lse": lse},
+        compare=_grads_compare,
+        library=lambda: torch.autograd.grad(o, leaves, d_heads,
+                                            retain_graph=True)))
+    x, res = _rnd(g, M, C), _rnd(g, M, C)
+    wo, bo = lin(C, C)
+    lw, lb = ln(C)
+    cases.append(Case(
+        fused_out_ln_train, f"M={M} C={C} rate 0.1", layers,
+        (x, res, wo, bo, lw, lb, seed, 1e-12, 0.1), 2.0 * M * C * C,
+        3 * M * C * 2 + M * C + C * C * 2, compare=_keep_compare))
+    w1, b1 = lin(3072, C)
+    w2, b2 = lin(C, 3072)
+    cases.append(Case(
+        fused_ffn_post_ln_train, f"M={M} C={C} HD=3072 rate 0.1", layers,
+        (x, w1, b1, w2, b2, lw, lb, seed, 1e-12, 0.1), 4.0 * M * C * 3072,
+        2 * M * C * 2 + M * C + 2 * C * 3072 * 2, compare=_keep_compare))
     return cases
 
 
@@ -534,15 +638,59 @@ def _grad_groups(model):
     return groups
 
 
+def _loss_and_grads(state, loss_fn, batch, plain: bool):
+    """One forward + backward outside the optimizer, with a fixed dropout
+    and drop-path stream: (loss, {name: gradient})."""
+    from lavender_tpu_torch.ops._build import plain_path
+
+    state.model.zero_grad(set_to_none=True)
+    gen = torch.Generator("cuda").manual_seed(1234)
+    with (plain_path() if plain else contextlib.nullcontext()), \
+            torch.autocast("cuda", dtype=torch.bfloat16):
+        loss = loss_fn(state.model, batch, gen)
+    loss.backward()
+    grads = {n: p.grad.detach().clone()
+             for n, p in state.model.named_parameters() if p.grad is not None}
+    state.model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def _check_step(label, a, b, groups):
+    """Loss within LOSS_TOL and each gradient group within STEP_GRAD_REL_L2
+    of the reference (a, b: (loss, grads) of the two sides)."""
+    (loss_k, grads_k), (loss_p, grads_p) = a, b
+    dl = abs(loss_k - loss_p)
+    print(f"[train] {label} loss {loss_k:.6f} vs {loss_p:.6f}: |diff| "
+          f"{dl:.4g} (<= {LOSS_TOL} max(1, |loss|))", flush=True)
+    ok = np.isfinite(loss_k) and dl <= LOSS_TOL * max(1.0, abs(loss_p))
+    if grads_k.keys() != grads_p.keys():
+        raise AssertionError(f"{label}: the two sides give gradients to "
+                             "other params")
+    for group, names in groups.items():
+        k = torch.cat([grads_k[n].flatten() for n in names if n in grads_k])
+        p = torch.cat([grads_p[n].flatten() for n in names if n in grads_p])
+        rel = float((k - p).norm() / p.norm().clamp_min(1e-30))
+        finite = bool(torch.isfinite(k).all())
+        print(f"[train] {label} gradients {group} ({len(names)} tensors, "
+              f"{k.numel()} values): rel_l2 {rel:.4g} (<= "
+              f"{STEP_GRAD_REL_L2}), finite {finite}", flush=True)
+        ok = ok and finite and rel <= STEP_GRAD_REL_L2
+    if not ok:
+        raise AssertionError(f"train step {label}: the two sides disagree")
+
+
 def run_train(ops):
-    """Phase 5: the retrieval-MLM train step through the kernels."""
+    """Phase 5: the retrieval-MLM train step through the kernels, on the
+    default configuration and on the other fusion-encoder routes."""
     from lavender_tpu_torch.config import BertConfig, ModelConfig, TrainConfig
     from lavender_tpu_torch.ops._build import plain_path
     from lavender_tpu_torch.tasks import retrieval
     from lavender_tpu_torch.train.trainer import (create_train_state,
                                                   make_train_step)
 
-    cfg = ModelConfig(bert=BertConfig(fused_attn_train=False))
+    cfg = ModelConfig()  # the default: fused_attn_train=True (K10, K11)
+    module_cfg = dataclasses.replace(
+        cfg, bert=BertConfig(fused_attn_train=False))
     loss_fn = retrieval.make_loss_fn(TRUE_ID, FALSE_ID)
     batch = _train_batch(cfg.bert.vocab_size)
     t0 = time.perf_counter()
@@ -550,49 +698,24 @@ def run_train(ops):
                                                 max_grad_norm=1.0), seed=0)
     step = make_train_step(loss_fn, state)
     torch.cuda.synchronize()
-    print(f"[train] state built (Swin-B + BERT-base, f32 weights, AdamW) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[train] state built (Swin-B + BERT-base, f32 weights, AdamW, "
+          f"fused_attn_train={cfg.bert.fused_attn_train}, fused_ffn_train="
+          f"{cfg.bert.fused_ffn_train}) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # (a) one step's loss and gradients, kernels vs plain, same masks
-    def loss_and_grads(plain: bool):
-        state.model.zero_grad(set_to_none=True)
-        gen = torch.Generator("cuda").manual_seed(1234)
-        with (plain_path() if plain else contextlib.nullcontext()), \
-                torch.autocast("cuda", dtype=torch.bfloat16):
-            loss = loss_fn(state.model, batch, gen)
-        loss.backward()
-        return float(loss.detach()), {n: p.grad.detach().clone()
-                             for n, p in state.model.named_parameters()
-                             if p.grad is not None}
-
-    loss_k, grads_k = loss_and_grads(False)
-    loss_p, grads_p = loss_and_grads(True)
-    dl = abs(loss_k - loss_p)
-    print(f"[train] (a) loss kernels {loss_k:.6f} vs plain {loss_p:.6f}: "
-          f"|diff| {dl:.4g} (<= {LOSS_TOL} max(1, |loss|))", flush=True)
-    ok = np.isfinite(loss_k) and dl <= LOSS_TOL * max(1.0, abs(loss_p))
-    if grads_k.keys() != grads_p.keys():
-        raise AssertionError("the two paths give gradients to other params")
-    for group, names in _grad_groups(state.model).items():
-        k = torch.cat([grads_k[n].flatten() for n in names if n in grads_k])
-        p = torch.cat([grads_p[n].flatten() for n in names if n in grads_p])
-        rel = float((k - p).norm() / p.norm().clamp_min(1e-30))
-        finite = bool(torch.isfinite(k).all())
-        print(f"[train] (a) gradients {group} ({len(names)} tensors, "
-              f"{k.numel()} values): rel_l2 {rel:.4g} (<= "
-              f"{STEP_GRAD_REL_L2}), finite {finite}", flush=True)
-        ok = ok and finite and rel <= STEP_GRAD_REL_L2
-    del grads_k, grads_p
-    state.model.zero_grad(set_to_none=True)
-    if not ok:
-        raise AssertionError("train step: kernel path disagrees with the "
-                             "plain path")
+    groups = _grad_groups(state.model)
+    _check_step("(a) kernels vs plain:",
+                _loss_and_grads(state, loss_fn, batch, False),
+                _loss_and_grads(state, loss_fn, batch, True), groups)
 
     # (b) one step through the entry point, with launch counts
     n_shift = _shifted_blocks(cfg.swin)
-    depth = sum(cfg.swin.depths)
+    depth, layers = sum(cfg.swin.depths), cfg.bert.num_hidden_layers
     per_step = {ops["K1"]: depth, ops["K2"]: 4 * n_shift,
-                ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth}
+                ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth,
+                ops["K10a"]: layers, ops["K10b"]: layers,
+                ops["K11"]: layers}
     _reset(ops.values())
     loss = step(batch)
     counts = _check_counts(ops.values(), per_step, 1, "train")
@@ -601,7 +724,7 @@ def run_train(ops):
     torch.cuda.empty_cache()
 
     # (c) ten steps on one batch at a constant LR on both paths, then (d)
-    # their step times in turns (plain, kernels, kernels, plain)
+    # their step times and the module-math route's, in turns
     const = TrainConfig(lr=TRAIN_LR, warmup_ratio=0.0, max_iter=10 ** 9,
                         max_grad_norm=1.0)
     runs = {}
@@ -619,26 +742,68 @@ def run_train(ops):
             raise AssertionError(f"{label} path: the loss did not fall by "
                                  f"{MIN_LOSS_DROP} nat in {TRAIN_STEPS} steps")
         runs[label] = (stp, ctx)
-    times = {"kernels": [], "plain": []}
+    label = "kernels, fused_attn_train=False"
+    stp = make_train_step(loss_fn, create_train_state(module_cfg, const,
+                                                      seed=0))
+    stp(batch)  # warm-up
+    runs[label] = (stp, contextlib.nullcontext)
+    times = {name: [] for name in runs}
     torch.cuda.reset_peak_memory_stats()
-    for label in ("plain", "kernels", "kernels", "plain"):
-        stp, ctx = runs[label]
+    order = list(runs)
+    for name in order + order[::-1]:
+        stp, ctx = runs[name]
         with ctx():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(2):
                 stp(batch)
             torch.cuda.synchronize()
-        times[label].append((time.perf_counter() - t0) / 2)
-    for label, ts in times.items():
+        times[name].append((time.perf_counter() - t0) / 2)
+    for name, ts in times.items():
         dt = sum(ts) / len(ts)
-        print(f"[train] (d) {label} path: {dt * 1e3:.2f} ms per step "
+        print(f"[train] (d) {name} path: {dt * 1e3:.2f} ms per step "
               f"({', '.join(f'{t * 1e3:.2f}' for t in ts)}), "
               f"{TRAIN_BATCH / dt:.2f} train clips/s at B={TRAIN_BATCH} "
               f"({TRAIN_BATCH ** 2} pairs) ({_nvidia_smi()})", flush=True)
     print(f"[train] (d) peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (both "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (three "
           f"states resident)", flush=True)
+    del runs, stp
+    torch.cuda.empty_cache()
+
+    # (e) fused_ffn_train=True: kernels vs plain, and K12's launches
+    ffn_cfg = dataclasses.replace(cfg, bert=BertConfig(fused_ffn_train=True))
+    state = create_train_state(ffn_cfg, TrainConfig(max_iter=1000,
+                                                    max_grad_norm=1.0),
+                               seed=0)
+    _check_step("(e) fused_ffn_train=True, kernels vs plain:",
+                _loss_and_grads(state, loss_fn, batch, False),
+                _loss_and_grads(state, loss_fn, batch, True), groups)
+    step = make_train_step(loss_fn, state)
+    _reset(ops.values())
+    step(batch)
+    ffn_counts = _check_counts(ops.values(), {**per_step,
+                                              ops["K12"]: layers}, 1,
+                               "train (e)")
+    counts[ops["K12"]] = ffn_counts[ops["K12"]]
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (f) without dropout and drop-path, on the same weights: the default
+    # route (K10, K11) against the module math it replaces
+    def no_dropout(c):
+        return dataclasses.replace(
+            c, swin=dataclasses.replace(c.swin, drop_path_rate=0.0),
+            bert=dataclasses.replace(c.bert, hidden_dropout_prob=0.0,
+                                     attention_probs_dropout_prob=0.0))
+    sides = []
+    for c in (cfg, module_cfg):
+        st = create_train_state(no_dropout(c), TrainConfig(max_iter=1000),
+                                seed=0)
+        sides.append(_loss_and_grads(st, loss_fn, batch, False))
+        del st
+    _check_step("(f) no dropout, fused_attn_train=True vs False:", *sides,
+                groups)
     return counts
 
 
@@ -648,9 +813,11 @@ def main() -> int:
                          "this check runs only on a CUDA GPU")
     from lavender_tpu_torch.ops import _build
     from lavender_tpu_torch.ops.encoder_attention import (
-        fused_bert_attn_block_kmask)
+        encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+        fused_encoder_attention_train_lanes)
     from lavender_tpu_torch.ops.fused_mlp import (
-        fused_ffn_post_ln, fused_ln_mlp, fused_ln_mlp_chunked)
+        fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
+        fused_ln_mlp_chunked, fused_out_ln_train)
     from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
     from lavender_tpu_torch.ops.swin_core_attn import (
         swin_core_attn, swin_core_attn_bwd)
@@ -670,7 +837,10 @@ def main() -> int:
     ops = {"K1": fused_swin_block_wm, "K2": wm_shift_rows,
            "K3": fused_ln_mlp_chunked, "K4": fused_bert_attn_block_kmask,
            "K5": fused_ffn_post_ln, "K8a": swin_core_attn,
-           "K8b": swin_core_attn_bwd, "K9": fused_ln_mlp}
+           "K8b": swin_core_attn_bwd, "K9": fused_ln_mlp,
+           "K10a": fused_encoder_attention_train_lanes,
+           "K10b": encoder_attention_train_lanes_bwd,
+           "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train}
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     serve_counts = run_serving(ops)
@@ -694,6 +864,14 @@ def main() -> int:
                 "lavender_tpu/ops/swin_core_attn.py:147"),
         "K9": ("lavender_tpu_torch/csrc/gemm.cu",
                "lavender_tpu/ops/fused_mlp.py:91"),
+        "K10a": ("lavender_tpu_torch/csrc/attention.cu",
+                 "lavender_tpu/ops/encoder_attention.py:750"),
+        "K10b": ("lavender_tpu_torch/csrc/attention_bwd.cu",
+                 "lavender_tpu/ops/encoder_attention.py:780"),
+        "K11": ("lavender_tpu_torch/csrc/layernorm.cu",
+                "lavender_tpu/ops/fused_mlp.py:505"),
+        "K12": ("lavender_tpu_torch/csrc/layernorm.cu",
+                "lavender_tpu/ops/fused_mlp.py:379"),
     }
     kernels = []
     for key, op in ops.items():

@@ -7,4 +7,4 @@ by hand-written CUDA kernels under ``csrc/``.  Imports nothing of the JAX
 package.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

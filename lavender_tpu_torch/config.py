@@ -8,8 +8,9 @@ imports nothing of the JAX package.  Field names and defaults are the
 same, so a JAX config converts with ``dataclasses.asdict`` and a test
 holds the two sets of defaults equal.  Fields that only steer the JAX
 package's kernel routing (``attn_impl``, ``scan_blocks``, ``remat``,
-``fused_*``) are kept so that such a conversion is lossless; the port
-reads ``fused_attn_train`` only to refuse the route it has not ported.
+``fused_ffn``, ``fused_attn``) are kept so that such a conversion is
+lossless; the port reads ``fused_attn_train`` and ``fused_ffn_train`` to
+route the fusion encoder's train step as the JAX package does.
 """
 from __future__ import annotations
 
@@ -80,8 +81,9 @@ class BertConfig:
     remat: bool = False
     fused_ffn: bool = True
     fused_attn: bool = True
-    # the JAX package's train attention kernels (in-kernel dropout); not
-    # ported yet: the port trains with the module math (False)
+    # train route of the fusion encoder: the attention (K10a/K10b) and
+    # attention-output (K11) kernels with in-kernel dropout, and the FFN
+    # kernel (K12); False runs the module math
     fused_attn_train: bool = True
     fused_ffn_train: bool = False
 

@@ -20,6 +20,15 @@
 // Bias and mask stay additive and finite (-100 pad keys / shift mask), as in
 // the reference.
 //
+// It is also the forward of the BERT train attention K10a
+// (lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_kernel): a
+// per-sequence [B, N, N] mask (nW = B, clamped at -1e4 by the caller) and
+// dropout on the probabilities with its bits drawn from the counter hash of
+// dropout.cuh (stream seq * nH + h, index i * N + j), so the backward
+// regenerates them.  As in the TPU kernel, the mask multiplies p only in the
+// P.V sum: the row sum l and the log-sum-exp are those of the undropped
+// softmax, o = ((m * p) v) / l.
+//
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
 // first version runs them on the f32 pipes, one query row per thread (rows
 // split over several blocks where the (sequence, head) grid is too small
@@ -32,6 +41,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "dropout.cuh"
 
 namespace {
 
@@ -54,12 +64,13 @@ __device__ __forceinline__ float dot_k(const float* q, const bf16* k) {
   return s0 + s1;
 }
 
-template <int HD>
+template <int HD, bool DROP>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      const bf16* __restrict__ bias, const bf16* __restrict__ mask,
                      const uint8_t* __restrict__ keep, float* __restrict__ lse, int N, int nH,
-                     int nW, float scale, int rows_per_block) {
+                     int nW, float scale, int rows_per_block, const int64_t* __restrict__ seed,
+                     uint32_t thresh, float drop_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + (size_t)N * HD;
@@ -83,6 +94,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const bf16* bias_h = bias == nullptr ? nullptr : bias + (size_t)h * N * N;
   const bf16* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
+  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*seed, (uint32_t)(seq * nH + h)) : 0u;
 
   const int row_end = min(N, (blockIdx.z + 1) * rows_per_block);
   for (int i = blockIdx.z * rows_per_block + threadIdx.x; i < row_end; i += blockDim.x) {
@@ -122,6 +134,8 @@ __global__ void __launch_bounds__(kThreads)
         if (s[t] == -INFINITY) continue;
         const float p = __expf(s[t] - mn);
         l += p;
+        // a dropped probability counts in l but not in the P.V sum
+        if (DROP && lvt::dropout_bits(key, (uint32_t)(i * N + j0 + t)) < thresh) continue;
         const bf16* vr = vs + (j0 + t) * HD;
 #pragma unroll
         for (int d = 0; d < HD; d += 8) {
@@ -133,7 +147,8 @@ __global__ void __launch_bounds__(kThreads)
       }
       m = mn;
     }
-    const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // all keys dropped -> 0
+    // all keys dropped -> 0; dropout scales the kept by 1 / (1 - rate)
+    const float inv = l > 0.0f ? (DROP ? drop_scale : 1.0f) / l : 0.0f;
     if (lse != nullptr) lse[((size_t)seq * nH + h) * N + i] = l > 0.0f ? m + logf(l) : INFINITY;
     bf16* orow = out + ((size_t)seq * N + i) * C + h * HD;
 #pragma unroll
@@ -146,20 +161,23 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD>
+template <int HD, bool DROP>
 int launch(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
-           void* lse, int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream) {
+           void* lse, int nSeq, int N, int nH, int nW, float scale, const void* seed,
+           uint32_t thresh, float drop_scale, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)N * HD * sizeof(bf16) + (size_t)((N + 15) / 16) * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD>,
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  // A (sequence, head) grid smaller than the card (the BERT grid of B x 12
-  // blocks leaves most of the 132 SMs idle) splits the query rows over
-  // blockIdx.z, as many tiles as minimise the rows the busiest SM runs (one
-  // row per thread).  Each extra tile reloads K/V of its window from L2.
+  // The query rows are split over blockIdx.z into tiles of at most kThreads
+  // rows, so that each thread runs one row (N = 276 would otherwise run a
+  // second round of 20 rows on one warp).  A (sequence, head) grid smaller
+  // than the card (the BERT serving grid of B x 12 blocks leaves most of the
+  // 132 SMs idle) splits further, into as many tiles as minimise the rows
+  // the busiest SM runs.  Each extra tile reloads K/V of its window from L2.
   static int n_sm = 0;
   if (n_sm == 0) {
     int dev = 0;
@@ -168,9 +186,10 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
     if (e != cudaSuccess) return (int)e;
   }
   const long blocks = (long)nSeq * nH;
-  int tiles = 1, rows = (N + 31) / 32 * 32;
-  long best = (blocks + n_sm - 1) / n_sm * rows;
-  for (int t = 2; blocks < n_sm && t <= (N + 31) / 32; ++t) {
+  int tiles = (N + kThreads - 1) / kThreads;
+  int rows = ((N + tiles - 1) / tiles + 31) / 32 * 32;
+  long best = (blocks * tiles + n_sm - 1) / n_sm * rows;
+  for (int t = tiles + 1; blocks < n_sm && t <= (N + 31) / 32; ++t) {
     const int r = ((N + t - 1) / t + 31) / 32 * 32;
     const long per_sm = (blocks * t + n_sm - 1) / n_sm * r;
     if (per_sm < best) best = per_sm, tiles = t, rows = r;
@@ -178,11 +197,22 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
   tiles = (N + rows - 1) / rows;
   const int threads = rows < kThreads ? rows : kThreads;
   dim3 grid(nSeq, nH, tiles);
-  attention_kernel<HD><<<grid, threads, smem, stream>>>(
+  attention_kernel<HD, DROP><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<const bf16*>(bias),
       static_cast<const bf16*>(mask), static_cast<const uint8_t*>(keep), static_cast<float*>(lse),
-      N, nH, nW, scale, rows);
+      N, nH, nW, scale, rows, static_cast<const int64_t*>(seed), thresh, drop_scale);
   return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_hd(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
+              void* lse, int nSeq, int N, int nH, int nW, float scale, const void* seed,
+              uint32_t thresh, float drop_scale, cudaStream_t s) {
+  if (seed != nullptr)
+    return launch<HD, true>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
+                            drop_scale, s);
+  return launch<HD, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
+                           drop_scale, s);
 }
 
 }  // namespace
@@ -190,16 +220,25 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
 // qkv [nSeq * N, 3 * nH * hd] -> out [nSeq * N, nH * hd].  Optional (null):
 // bias [nH, N, N] per head, mask [nW, N, N] for sequence s's window s % nW,
 // keep [nSeq, N] uint8 (0 = key dropped), lse [nSeq, nH, N] f32 (written
-// when given; +inf for a row whose keys are all dropped).  hd in {16, 32, 64}.
+// when given; +inf for a row whose keys are all dropped), seed (int64 on the
+// device: dropout of the probabilities, element (i, j) kept iff its bits >=
+// thresh, kept ones scaled by drop_scale).  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
-                                  int nW, float scale, void* stream) {
+                                  int nW, float scale, const void* seed, uint32_t thresh,
+                                  float drop_scale, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch<16>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s);
-    case 32: return launch<32>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s);
-    case 64: return launch<64>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s);
+    case 16:
+      return launch_hd<16>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
+                           drop_scale, s);
+    case 32:
+      return launch_hd<32>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
+                           drop_scale, s);
+    case 64:
+      return launch_hd<64>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
+                           drop_scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

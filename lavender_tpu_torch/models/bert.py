@@ -4,12 +4,22 @@ lavender_tpu/models/bert.py).
 Module and parameter names are HuggingFace's (``layer.3.attention.self.
 query.weight``), the layout the reference checkpoints use.  Serving
 (``eval()``): the attention sub-block is ``fused_bert_attn_block_kmask``
-and the FFN sub-block is ``fused_ffn_post_ln``.  Training (``train()``):
-the module math with dropout, plain torch (the JAX package's route with
-``BertConfig.fused_attn_train=False``; its train kernels are not ported
-yet).  Embeddings and the MLM head are plain torch.  Only key-padding
-masks ([B, 1, 1, L] from ``extended_attention_mask`` on a [B, L] mask) are
-taken; the full [B, L, L] mask path is not ported yet.
+and the FFN sub-block is ``fused_ffn_post_ln``.  Training (``train()``),
+as the JAX package routes it:
+
+- ``BertConfig.fused_attn_train`` (default True): one qkv GEMM (plain
+  torch, as JAX leaves it to XLA) -> ``fused_encoder_attention_train_lanes``
+  (K10a, its backward K10b) -> ``fused_out_ln_train`` (K11); False: the
+  module math with dropout, plain torch;
+- ``BertConfig.fused_ffn_train`` (default False): ``fused_ffn_post_ln_train``
+  (K12); False: the module math with dropout.
+
+Each train kernel draws its own dropout seed from the step's generator
+(``dropout.draw_seed``, an int64 [1] left on the device), in the model, so
+the kernel path and ``plain_path()`` draw the same masks.  Embeddings and
+the MLM head are plain torch.  Only key-padding masks ([B, 1, 1, L] from
+``extended_attention_mask`` on a [B, L] mask) are taken; the full
+[B, L, L] mask path is not ported yet.
 """
 from __future__ import annotations
 
@@ -21,9 +31,11 @@ from torch import nn
 
 from lavender_tpu_torch.ops import layer_norm
 from lavender_tpu_torch.ops._build import select
+from lavender_tpu_torch.ops.dropout import draw_seed
 from lavender_tpu_torch.ops.encoder_attention import (
-    fused_bert_attn_block_kmask)
-from lavender_tpu_torch.ops.fused_mlp import fused_ffn_post_ln
+    fused_bert_attn_block_kmask, fused_encoder_attention_train_lanes)
+from lavender_tpu_torch.ops.fused_mlp import (
+    fused_ffn_post_ln, fused_ffn_post_ln_train, fused_out_ln_train)
 
 
 def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -94,8 +106,10 @@ class BertSelfOutput(nn.Module):
 class BertAttention(nn.Module):
     """Self-attention + output projection + residual + post-LN: in serving
     one ``fused_bert_attn_block_kmask`` call (the JAX kmask serving
-    branch), in training the module math with attention-probability and
-    hidden dropout (JAX ``_attend``'s XLA branch and ``BertSelfOutput``)."""
+    branch); in training with ``fused_attn_train`` K10 + K11 (the JAX
+    lanes train kernels), else the module math with attention-probability
+    and hidden dropout (JAX ``_attend``'s XLA branch and
+    ``BertSelfOutput``)."""
 
     def __init__(self, config):
         super().__init__()
@@ -105,8 +119,28 @@ class BertAttention(nn.Module):
         self.scale = float(config.hidden_size // self.num_heads) ** -0.5
         self.attn_dropout_p = config.attention_probs_dropout_prob
         self.hidden_dropout_p = config.hidden_dropout_prob
+        self.fused_train = config.fused_attn_train
+
+    def _fused_train_forward(self, x, attn_bias, generator):
+        B, L, C = x.shape
+        s, o = self.self, self.output
+        w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
+        b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
+        q, k, v = F.linear(x, w, b).split(C, dim=-1)  # views of one slab
+        ctx = select(fused_encoder_attention_train_lanes)(
+            q, k, v, attn_bias[:, 0].expand(B, L, L),
+            draw_seed(generator, x.device), self.scale,
+            self.attn_dropout_p, self.num_heads)
+        out, _ = select(fused_out_ln_train)(
+            ctx.reshape(B * L, C), x.reshape(B * L, C), o.dense.weight,
+            o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
+            draw_seed(generator, x.device), o.LayerNorm.eps,
+            self.hidden_dropout_p)
+        return out.view(B, L, C)
 
     def _train_forward(self, x, attn_bias, generator):
+        if self.fused_train:
+            return self._fused_train_forward(x, attn_bias, generator)
         B, L, C = x.shape
         s, o = self.self, self.output
 
@@ -153,7 +187,8 @@ class BertOutput(nn.Module):
 class BertLayer(nn.Module):
     """Post-LN layer: attention sub-block, then the FFN sub-block
     LN(x + fc2(GELU(fc1 x))), in serving as one ``fused_ffn_post_ln``
-    call, in training as the module math with hidden dropout."""
+    call, in training as one ``fused_ffn_post_ln_train`` call with
+    ``fused_ffn_train``, else as the module math with hidden dropout."""
 
     def __init__(self, config):
         super().__init__()
@@ -161,11 +196,19 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(config)
         self.output = BertOutput(config)
         self.dropout_p = config.hidden_dropout_prob
+        self.fused_train = config.fused_ffn_train
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         x = self.attention(x, attn_bias, generator)
         i, o = self.intermediate.dense, self.output
+        if self.training and self.fused_train:
+            out, _ = select(fused_ffn_post_ln_train)(
+                x.reshape(-1, x.shape[-1]), i.weight, i.bias, o.dense.weight,
+                o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
+                draw_seed(generator, x.device), o.LayerNorm.eps,
+                self.dropout_p)
+            return out.reshape(x.shape)
         if self.training:
             h = o.dense(F.gelu(i(x)))
             h = dropout(h, self.dropout_p, True, generator)

@@ -7,10 +7,11 @@ The sources under ``lavender_tpu_torch/csrc/`` are compiled by ``nvcc`` for
 flags, so an edited source rebuilds and an unchanged one is loaded as is.
 
 The primitives bound here (tiled GEMM with fused epilogues, row
-LayerNorm, attention core and its backward, row permutation) are what the
-ports of the TPU kernels are composed from, see ``swin_block_attn.py``,
-``swin_core_attn.py``, ``wm_permute.py``, ``fused_mlp.py`` and
-``encoder_attention.py``.  Each launch goes on PyTorch's current stream,
+LayerNorm and its dropout + residual variant, attention core and its
+backward, both with optional dropout, row permutation, and a probe of the
+dropout hash) are what the ports of the TPU kernels are composed from, see
+``swin_block_attn.py``, ``swin_core_attn.py``, ``wm_permute.py``,
+``fused_mlp.py``, ``encoder_attention.py`` and ``dropout.py``.  Each launch goes on PyTorch's current stream,
 allocates nothing inside the kernel (outputs come from ``torch.empty``
 here) and raises if the C entry reports a CUDA error.
 """
@@ -28,20 +29,28 @@ from typing import Callable, Optional
 
 import torch
 
+from lavender_tpu_torch.ops.dropout import threshold
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# the dropout arguments of a kernel: seed pointer (null = no dropout), the
+# keep threshold of the bits, the scale of the kept values
+_DROP = [_P, _U, _F]
 _SIGNATURES = {
     "lvt_gemm_bf16": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
     "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "lvt_dropout_add_ln_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP,
+                                _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                           _P],
+                           *_DROP, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _F, _P],
+                               _I, _I, _I, _F, *_DROP, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "lvt_dropout_bits": [_P, _P, _I, _I, _P],
 }
 
 _EPI_BIAS, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
@@ -266,6 +275,61 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     return out
 
 
+def _dropout_args(seed: Optional[torch.Tensor], rate: float, device):
+    """(seed pointer, threshold, scale) for a kernel; no dropout (null
+    seed) at rate 0.  The seed is an int64 [1] on the data's device, read
+    by the kernel (nothing syncs with the host)."""
+    thresh = threshold(rate)
+    if rate == 0.0:
+        return None, 0, 1.0
+    if (seed is None or seed.dtype != torch.int64 or seed.numel() != 1
+            or seed.device != device):
+        raise ValueError(f"dropout seed: expected an int64 [1] on {device}")
+    return seed.data_ptr(), thresh, 1.0 / (1.0 - rate)
+
+
+def dropout_add_ln(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor, eps: float,
+                   seed: Optional[torch.Tensor], rate: float):
+    """``(LN(res + dropout(x)), keep)`` on contiguous bf16 rows [M, C],
+    C <= 1024: the dropout of element (row, col) from the counter hash of
+    ``seed`` (``dropout.row_keep``), the bool keep mask [M, C] returned
+    (all True at rate 0)."""
+    for t, what in ((x, "x"), (res, "res")):
+        _check(t, f"dropout_add_ln {what}")
+        if not t.is_contiguous() or t.shape[1] > 1024:
+            raise ValueError(f"dropout_add_ln {what}: must be contiguous with "
+                             "C <= 1024")
+    if res.shape != x.shape:
+        raise ValueError(f"dropout_add_ln: res {tuple(res.shape)} != x "
+                         f"{tuple(x.shape)}")
+    M, C = x.shape
+    seed_ptr, thresh, scale = _dropout_args(seed, rate, x.device)
+    out = torch.empty_like(x)
+    keep = torch.empty(M, C, dtype=torch.bool, device=x.device)
+    err = library().lvt_dropout_add_ln_bf16(
+        x.data_ptr(), res.data_ptr(), _vec(weight, C, "dropout_add_ln weight"),
+        _vec(bias, C, "dropout_add_ln bias"), out.data_ptr(), keep.data_ptr(),
+        M, C, float(eps), seed_ptr, thresh, scale, _stream(x))
+    _raise_on(err, "lvt_dropout_add_ln_bf16")
+    return out, keep
+
+
+def dropout_bits(seed: torch.Tensor, n_stream: int,
+                 n_index: int) -> torch.Tensor:
+    """The kernels' dropout bits of every (stream, index) counter, as int64
+    [n_stream, n_index] in [0, 2^32) (a probe for the tests)."""
+    if seed.device.type != "cuda" or seed.dtype != torch.int64 or (
+            seed.numel() != 1):
+        raise ValueError("dropout_bits: seed must be a CUDA int64 [1]")
+    out = torch.empty(n_stream, n_index, dtype=torch.int32,
+                      device=seed.device)
+    err = library().lvt_dropout_bits(seed.data_ptr(), out.data_ptr(),
+                                     n_stream, n_index, _stream(seed))
+    _raise_on(err, "lvt_dropout_bits")
+    return out.to(torch.int64) & 0xFFFFFFFF
+
+
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
               eps: float) -> torch.Tensor:
     """Row LayerNorm of contiguous x [M, C], C <= 1024."""
@@ -324,13 +388,18 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
               scale: float, bias: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
               keep: Optional[torch.Tensor] = None,
-              lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+              lse: Optional[torch.Tensor] = None,
+              seed: Optional[torch.Tensor] = None,
+              rate: float = 0.0) -> torch.Tensor:
     """Attention core on the packed qkv slab [n_seq * n_tok, 3C].
 
     bias [nH, N, N], mask [nW, N, N] (sequence s uses window s % nW), keep
     [n_seq, N] bool; all optional.  ``lse``, when given, is a contiguous
     f32 [n_seq, nH, N] that receives each query row's log-sum-exp of its
-    scores (what ``attention_bwd`` takes).  Returns [n_seq * n_tok, C]."""
+    scores (what ``attention_bwd`` takes).  At ``rate`` > 0 the
+    probabilities are dropped by the counter hash of ``seed`` (an int64
+    [1] on the device; ``dropout.attention_keep``) in the P.V sum only.
+    Returns [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
     if lse is not None:
@@ -342,47 +411,53 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
                              f"{qkv.device}, got {tuple(keep.shape)}")
         keep = keep.to(torch.uint8).contiguous()
         keep_ptr = keep.data_ptr()
+    seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, qkv.device)
     out = torch.empty(qkv.shape[0], C, dtype=qkv.dtype, device=qkv.device)
     err = library().lvt_attention_bf16(
         qkv.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(mask), keep_ptr,
-        _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale),
-        _stream(qkv))
+        _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale), seed_ptr,
+        thresh, drop_scale, _stream(qkv))
     _raise_on(err, "lvt_attention_bf16")
     return out
 
 
 def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   n_seq: int, n_tok: int, n_heads: int, scale: float,
-                  bias: torch.Tensor, mask: Optional[torch.Tensor] = None):
-    """Backward of ``attention`` with a bias (no keep vector).
+                  bias: Optional[torch.Tensor] = None,
+                  mask: Optional[torch.Tensor] = None,
+                  seed: Optional[torch.Tensor] = None, rate: float = 0.0):
+    """Backward of ``attention`` (no keep vector).
 
     qkv [n_seq * N, 3C], dout [n_seq * N, C] (bf16), lse the forward's f32
-    [n_seq, nH, N].  Returns (dqkv [n_seq * N, 3C] bf16,
-    dbias [nH, N, N] f32 summed over every sequence); the mask gets no
-    gradient."""
+    [n_seq, nH, N]; ``seed`` and ``rate`` the forward's dropout, whose bits
+    are regenerated.  Returns (dqkv [n_seq * N, 3C] bf16, dbias [nH, N, N]
+    f32 summed over every sequence, or None without a bias); the mask gets
+    no gradient."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention_bwd")
-    if bias is None:
-        raise ValueError("attention_bwd: the bias is required")
     _check(dout, "attention_bwd dout")
     if not dout.is_contiguous() or tuple(dout.shape) != (qkv.shape[0], C):
         raise ValueError(f"attention_bwd dout: expected contiguous "
                          f"[{qkv.shape[0]}, {C}], got {tuple(dout.shape)}")
     _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention_bwd")
-    # sequences are split into chunks, one block per (chunk, head); each
-    # chunk sums its dbias into its own f32 slice, a second pass adds the
-    # slices (no atomics; the sum is the same on every run)
-    n_chunks = max(1, min(n_seq, -(-264 // n_heads)))
+    seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, qkv.device)
     dqkv = torch.empty_like(qkv)
-    part = torch.empty(n_chunks, n_heads, n_tok, n_tok, dtype=torch.float32,
-                       device=qkv.device)
-    dbias = torch.empty(n_heads, n_tok, n_tok, dtype=torch.float32,
-                        device=qkv.device)
+    part = dbias = None
+    n_chunks = n_seq  # without a bias: one sequence per block
+    if bias is not None:
+        # sequences are split into chunks, one block per (chunk, head);
+        # each chunk sums its dbias into its own f32 slice, a second pass
+        # adds the slices (no atomics; the sum is the same on every run)
+        n_chunks = max(1, min(n_seq, -(-264 // n_heads)))
+        part = torch.empty(n_chunks, n_heads, n_tok, n_tok,
+                           dtype=torch.float32, device=qkv.device)
+        dbias = torch.empty(n_heads, n_tok, n_tok, dtype=torch.float32,
+                            device=qkv.device)
     err = library().lvt_attention_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), bias.data_ptr(),
-        _ptr(mask), dqkv.data_ptr(), dbias.data_ptr(),
-        part.data_ptr(), n_seq, n_tok, n_heads, hd, n_win, n_chunks,
-        float(scale), _stream(qkv))
+        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), _ptr(bias),
+        _ptr(mask), dqkv.data_ptr(), _ptr(dbias), _ptr(part), n_seq, n_tok,
+        n_heads, hd, n_win, n_chunks, float(scale), seed_ptr, thresh,
+        drop_scale, _stream(qkv))
     _raise_on(err, "lvt_attention_bwd_bf16")
     return dqkv, dbias
 

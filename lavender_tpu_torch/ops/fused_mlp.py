@@ -26,6 +26,21 @@ short, so the fc1 grid of 128x128 tiles only partly fills the card).
 GEMM (+bias, GELU) -> fc2 GEMM (+bias, +residual) -> LN.  Bound: the
 GEMMs at M = B*276 rows, again too short for full occupancy.
 
+``fused_out_ln_train`` replaces ``_out_ln_train_kernel`` (K11, :505,
+wrapper ``fused_out_ln_train`` :577): the train route's BERT attention
+output LN(res + dropout(x W + b)); ``fused_ffn_post_ln_train`` replaces
+``_ffn_post_ln_train_kernel`` (K12, :379, wrapper
+``fused_ffn_post_ln_train`` :462): LN(x + dropout(fc2(GELU(fc1 x)))).
+Both return the output and the bool keep mask they drew from ``seed``
+(``dropout.row_keep``: the counter hash of (row, col)).  On the card K11 is
+the proj GEMM (+bias) and K12 the fc1 GEMM (+bias, GELU) -> fc2 GEMM
+(+bias), each followed by the row kernel ``dropout_add_ln``
+(``csrc/layernorm.cu``: dropout, + residual, LN in f32, the keep mask
+written as one byte per element).  Their backward is, as in JAX
+(``_out_ln_bwd`` :592, ``_ffn_train_bwd`` :477), autograd of the plain
+version with the saved keep mask replayed.  Bound: K11 device memory (x,
+res, out, the mask), K12 the two GEMMs.
+
 GELU is the exact erf form (the TPU kernels used a clamped polynomial in
 bf16; the JAX oracles use erf).
 """
@@ -34,7 +49,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from lavender_tpu_torch.ops import _build, layer_norm
+from lavender_tpu_torch.ops import _build, dropout, layer_norm
 
 
 def _mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
@@ -105,3 +120,98 @@ def _ffn_cuda(x, w1, b1, w2, b2, ln_w, ln_b, eps=1e-12):
 
 fused_ffn_post_ln = _build.KernelOp(
     "K5 fused_ffn_post_ln", _ffn_plain, _ffn_cuda)
+
+
+def _dropout_add_ln(o, res, ln_w, ln_b, keep, eps, rate):
+    """LN(res + keep * o / (1 - rate)) in f32, in res's dtype."""
+    o = o.float()
+    if rate > 0.0:
+        o = o * keep.float() * (1.0 / (1.0 - rate))
+    return layer_norm(o + res.float(), ln_w, ln_b, eps).to(res.dtype)
+
+
+def _out_ln_masked(x, res, w, b, ln_w, ln_b, keep, eps, rate):
+    """``fused_out_ln_train`` with a given keep mask (its backward)."""
+    return _dropout_add_ln(F.linear(x, w, b), res, ln_w, ln_b, keep, eps,
+                           rate)
+
+
+def _out_ln_train_plain(x, res, w, b, ln_w, ln_b, seed, eps=1e-12,
+                        rate=0.1):
+    """Plain PyTorch version of ``fused_out_ln_train``: x, res [M, C], w
+    [C, C] (torch Linear) -> (LN(res + dropout(x w^T + b)), keep [M, C]
+    bool), the dropout of (row, col) from ``seed`` (int64 [1])."""
+    keep = dropout.row_keep(seed, x.shape[0], w.shape[0], rate)
+    return _out_ln_masked(x, res, w, b, ln_w, ln_b, keep, eps, rate), keep
+
+
+class _ReplayFn(torch.autograd.Function):
+    """Forward: a train kernel's launcher (returns out, keep).  Backward:
+    autograd of its plain version ``masked`` with the forward's keep mask
+    replayed (the JAX custom_vjp backward of K11 and K12)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, launch, masked, seed, eps, rate, *tensors):
+        out, keep = launch(*(t.contiguous() for t in tensors), seed, eps,
+                           rate)
+        ctx.save_for_backward(keep, *tensors)
+        ctx.masked, ctx.eps, ctx.rate = masked, eps, rate
+        ctx.mark_non_differentiable(keep)
+        return out, keep
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g, _g_keep):
+        keep, *saved = ctx.saved_tensors
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True) for t in saved]
+            y = ctx.masked(*ins, keep, ctx.eps, ctx.rate)
+            grads = torch.autograd.grad(y, ins, g)
+        return (None, None, None, None, None, *grads)
+
+
+def _out_ln_launch(x, res, w, b, ln_w, ln_b, seed, eps, rate):
+    return _build.dropout_add_ln(_build.gemm(x, w, b), res, ln_w, ln_b, eps,
+                                 seed, rate)
+
+
+def _out_ln_train_cuda(x, res, w, b, ln_w, ln_b, seed, eps=1e-12, rate=0.1):
+    return _ReplayFn.apply(_out_ln_launch, _out_ln_masked, seed, eps, rate,
+                           x, res, w, b, ln_w, ln_b)
+
+
+fused_out_ln_train = _build.KernelOp(
+    "K11 fused_out_ln_train", _out_ln_train_plain, _out_ln_train_cuda)
+
+
+def _ffn_masked(x, w1, b1, w2, b2, ln_w, ln_b, keep, eps, rate):
+    """``fused_ffn_post_ln_train`` with a given keep mask (its backward)."""
+    h = F.gelu(F.linear(x, w1, b1).float()).to(x.dtype)
+    return _dropout_add_ln(F.linear(h, w2, b2), x, ln_w, ln_b, keep, eps,
+                           rate)
+
+
+def _ffn_train_plain(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps=1e-12,
+                     rate=0.1):
+    """Plain PyTorch version of ``fused_ffn_post_ln_train``: x [M, C] ->
+    (LN(x + dropout(fc2(GELU(fc1 x)))), keep [M, C] bool), the dropout of
+    (row, col) from ``seed`` (int64 [1])."""
+    keep = dropout.row_keep(seed, x.shape[0], x.shape[1], rate)
+    return _ffn_masked(x, w1, b1, w2, b2, ln_w, ln_b, keep, eps, rate), keep
+
+
+def _ffn_train_launch(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps, rate):
+    h = _build.gemm(x, w1, b1, gelu=True)
+    return _build.dropout_add_ln(_build.gemm(h, w2, b2), x, ln_w, ln_b, eps,
+                                 seed, rate)
+
+
+def _ffn_train_cuda(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps=1e-12,
+                    rate=0.1):
+    return _ReplayFn.apply(_ffn_train_launch, _ffn_masked, seed, eps, rate,
+                           x, w1, b1, w2, b2, ln_w, ln_b)
+
+
+fused_ffn_post_ln_train = _build.KernelOp(
+    "K12 fused_ffn_post_ln_train", _ffn_train_plain, _ffn_train_cuda)

@@ -20,8 +20,9 @@ card's name and power limit as nvidia-smi reports them:
    time per forward of step 1.
 
 With ``--train`` the same for the retrieval-MLM train step instead
-(``train.trainer``: f32 weights, bf16 autocast, AdamW, B x B pairs with
-``fused_attn_train=False``, seeded dropout), per step and train clips/s.
+(``train.trainer`` on the default ``ModelConfig()``: f32 weights, bf16
+autocast, AdamW, B x B pairs, the fusion encoder on its default train
+route through K10 and K11, seeded dropout), per step and train clips/s.
 
 Needs a CUDA device; raises without one.
 """
@@ -113,12 +114,12 @@ def profile(run, iters: int, top: int, host_ms: float, unit: str):
 
 def _train_runner(batch: int):
     """(step closure, "step") for the retrieval-MLM train step at B clips."""
-    from lavender_tpu_torch.config import BertConfig, ModelConfig, TrainConfig
+    from lavender_tpu_torch.config import ModelConfig, TrainConfig
     from lavender_tpu_torch.tasks import retrieval
     from lavender_tpu_torch.train.trainer import (create_train_state,
                                                   make_train_step)
 
-    cfg = ModelConfig(bert=BertConfig(fused_attn_train=False))
+    cfg = ModelConfig()
     state = create_train_state(cfg, TrainConfig(max_iter=1000,
                                                 max_grad_norm=1.0), seed=0)
     step = make_train_step(retrieval.make_loss_fn(2081, 6270), state)

@@ -46,14 +46,9 @@ def create_train_state(config: ModelConfig, train_config: TrainConfig, *,
     """A ``LavenderModel`` in train mode on ``device`` ("cuda" unless the
     caller asks for "cpu"), float32, with the JAX package's params
     (``convert.from_flax``) or a seeded random init, and its optimizer.
-
-    The port trains with the fusion encoder's module math: a config that
-    asks for the JAX train attention kernels (``fused_attn_train``, not
-    ported yet) is refused rather than silently run another way."""
-    if config.bert.fused_attn_train:
-        raise NotImplementedError(
-            "BertConfig.fused_attn_train=True (the JAX train attention "
-            "kernels) is not ported; train with fused_attn_train=False")
+    The fusion encoder trains on the route ``config.bert`` names, as the
+    JAX package does: ``fused_attn_train`` (default True) K10 + K11,
+    ``fused_ffn_train`` (default False) K12, else the module math."""
     device = torch.device(device)
     model = LavenderModel(config)
     if params is not None:

@@ -25,9 +25,11 @@ from lavender_tpu_torch.models.bert import BertEncoder
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.ops import _build
 from lavender_tpu_torch.ops.encoder_attention import (
-    fused_bert_attn_block_kmask)
+    encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+    fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
-    fused_ffn_post_ln, fused_ln_mlp, fused_ln_mlp_chunked)
+    fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
+    fused_ln_mlp_chunked, fused_out_ln_train)
 from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
 from lavender_tpu_torch.ops.swin_core_attn import (
     swin_core_attn, swin_core_attn_bwd)
@@ -196,13 +198,27 @@ def _meta_args(op):
         keep = torch.ones(2, 8, dtype=torch.bool, device="meta")
         return (t(2, 8, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),
                 t(C, C), t(C), *ln, keep, nH, 0.25, 1e-12), {}
+    seed = torch.zeros(1, dtype=torch.int64, device="meta")
+    if op is fused_encoder_attention_train_lanes:
+        return (t(2, 8, C), t(2, 8, C), t(2, 8, C), t(2, 8, 8), seed, 0.25,
+                0.1, nH), {}
+    if op is encoder_attention_train_lanes_bwd:
+        lse = torch.zeros(2, nH, 8, device="meta")
+        return (t(2, 8, C), t(2, 8, C), t(2, 8, C), t(2, 8, 8), seed,
+                t(2, 8, C), 0.25, 0.1, nH), {"lse": lse}
+    if op is fused_out_ln_train:
+        return (x, x, t(C, C), t(C), *ln, seed, 1e-12, 0.1), {}
+    if op is fused_ffn_post_ln_train:
+        return (x, w1, t(HD), w2, t(C), *ln, seed, 1e-12, 0.1), {}
     return (x, w1, t(HD), w2, t(C), *ln, 1e-12), {}
 
 
 @pytest.mark.parametrize("op", [
     fused_swin_block_wm, fused_ln_mlp_chunked, fused_bert_attn_block_kmask,
     fused_ffn_post_ln, wm_shift_rows, swin_core_attn, swin_core_attn_bwd,
-    fused_ln_mlp], ids=lambda op: op.name.split()[0])
+    fused_ln_mlp, fused_encoder_attention_train_lanes,
+    encoder_attention_train_lanes_bwd, fused_out_ln_train,
+    fused_ffn_post_ln_train], ids=lambda op: op.name.split()[0])
 def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
     args, kw = _meta_args(op)
     before = op.launches

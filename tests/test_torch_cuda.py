@@ -3,7 +3,11 @@ at small and ragged shapes the main paths do not reach (M and N off the
 128-row tiles, odd token counts, head dims 16/32/64, query-row tiles,
 fully masked sequences, strided GEMM outputs, odd shift geometries, 1 to
 600 sequences in the attention backward), and the gradients of the train
-route's autograd Functions against autograd of the plain versions.
+route's autograd Functions against autograd of the plain versions; the
+BERT train kernels (K10a/K10b, K11, K12) with dropout on, where kernel and
+plain version draw the same mask from the same seed (K11/K12's keep masks
+exactly equal), and the kernels' dropout hash against the PyTorch one bit
+for bit.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -21,11 +25,13 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from lavender_tpu_torch.ops import _build, layer_norm
+from lavender_tpu_torch.ops import _build, dropout, layer_norm
 from lavender_tpu_torch.ops.encoder_attention import (
-    fused_bert_attn_block_kmask)
+    encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+    fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
-    fused_ffn_post_ln, fused_ln_mlp, fused_ln_mlp_chunked)
+    fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
+    fused_ln_mlp_chunked, fused_out_ln_train)
 from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
 from lavender_tpu_torch.ops.swin_core_attn import (
     swin_core_attn, swin_core_attn_bwd)
@@ -311,3 +317,105 @@ def test_block_attention_half_gradient_matches_plain(gen, masked):
         if i == 0:
             gk, gp = gk[:, :, :N], gp[:, :, :N]
         _close(gk, gp, rel_l2=5e-2)
+
+
+def test_dropout_hash_matches_torch(gen):
+    """The kernels' bits (probe entry) equal ``dropout.bits`` bit for bit."""
+    for seed in (0, 7, 2 ** 31 - 2):
+        t = torch.tensor([seed], device="cuda")
+        got = _build.dropout_bits(t, 768, 276 * 5)
+        want = dropout.bits(t, torch.arange(768, device="cuda")[:, None],
+                            torch.arange(276 * 5, device="cuda")[None])
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("L", [29, 276])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_train_attention_matches_plain(gen, L, rate):
+    """K10a + K10b through the autograd Function under bf16 autocast (f32
+    leaves, as in training) vs autograd of the plain version with the same
+    seed: a padded key tail at finfo(f32).min and one fully masked row."""
+    B, nH, hd = 3, 4, 64
+    C = nH * hd
+    q, k, v = (torch.randn(B, L, C, generator=gen, device="cuda")
+               for _ in range(3))
+    mask = torch.zeros(B, L, L, device="cuda")
+    mask[1, :, L - 7:] = torch.finfo(torch.float32).min
+    mask[2, 5, :] = torch.finfo(torch.float32).min  # every key masked
+    seed = torch.tensor([4321], device="cuda")
+    w = torch.randn(B, L, C, generator=gen, device="cuda")
+    outs, grads = [], []
+    before = (fused_encoder_attention_train_lanes.launches,
+              encoder_attention_train_lanes_bwd.launches)
+    for f in (fused_encoder_attention_train_lanes,
+              fused_encoder_attention_train_lanes.plain_as_launched):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            o = f(*ins, mask, seed, hd ** -0.5, rate, nH)
+        outs.append(o)
+        grads.append(torch.autograd.grad(o, ins, w))
+    assert (fused_encoder_attention_train_lanes.launches,
+            encoder_attention_train_lanes_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(outs[0], outs[1], rel_l2=1e-2)
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("which", ["K11", "K12"])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_out_ln_and_ffn_train_match_plain(gen, which, rate):
+    """K11 / K12 vs plain under the same seed: keep masks exactly equal,
+    outputs and gradients (the mask-replay backward) within tolerance."""
+    M, C, HD = 1000, 768, 3072
+    x = _rnd(gen, M, C)
+    ln = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)]
+    if which == "K11":
+        op = fused_out_ln_train
+        args = [x, _rnd(gen, M, C), _rnd(gen, C, C, std=C ** -0.5),
+                _rnd(gen, C), *ln]
+    else:
+        op = fused_ffn_post_ln_train
+        args = [x, _rnd(gen, HD, C, std=C ** -0.5), _rnd(gen, HD),
+                _rnd(gen, C, HD, std=HD ** -0.5), _rnd(gen, C), *ln]
+    seed = torch.tensor([99], device="cuda")
+    w = _rnd(gen, M, C)
+    res = []
+    before = op.launches
+    for f in (op, op.plain):
+        ins = [t.clone().requires_grad_(True) for t in args]
+        out, keep = f(*ins, seed, 1e-12, rate)
+        res.append((out, keep, torch.autograd.grad(out, ins, w)))
+    assert op.launches == before + 1
+    (ok, kk, gk), (op_, kp, gp) = res
+    assert kk.dtype == torch.bool and torch.equal(kk, kp)
+    assert bool(kk.all()) if rate == 0.0 else 0.85 < kk.float().mean() < 0.95
+    _close(ok, op_, rel_l2=1e-2)
+    for a, b in zip(gk, gp):
+        _close(a, b, rel_l2=5e-2)
+
+
+def test_train_wrappers_reject_what_the_kernels_do_not_take(gen):
+    x, seed = _rnd(gen, 16, 64), torch.tensor([1], device="cuda")
+    ln = (_rnd(gen, 64), _rnd(gen, 64))
+    with pytest.raises(ValueError):  # float32 operands
+        fused_out_ln_train(x.float(), x.float(), _rnd(gen, 64, 64).float(),
+                           _rnd(gen, 64).float(), *ln, seed, 1e-12, 0.1)
+    with pytest.raises(ValueError):  # a non-contiguous residual
+        _build.dropout_add_ln(x, _rnd(gen, 64, 16).t(), *ln, 1e-12, seed,
+                              0.1)
+    with pytest.raises(ValueError):  # a seed that is not int64 [1]
+        _build.dropout_add_ln(x, x, *ln, 1e-12, seed.int(), 0.1)
+    with pytest.raises(ValueError):  # a rate outside [0, 1)
+        _build.dropout_add_ln(x, x, *ln, 1e-12, seed, 1.0)
+    q = _rnd(gen, 2, 8, 64)
+    with pytest.raises(ValueError):  # a mask of the wrong shape
+        fused_encoder_attention_train_lanes(q, q, q, _rnd(gen, 2, 8, 9),
+                                            seed, 0.25, 0.1, 1)
+    with pytest.raises(ValueError):  # head dim 48
+        fused_encoder_attention_train_lanes(
+            _rnd(gen, 2, 8, 96), _rnd(gen, 2, 8, 96), _rnd(gen, 2, 8, 96),
+            _rnd(gen, 2, 8, 8), seed, 0.25, 0.1, 2)
+    with pytest.raises(ValueError):  # the backward needs the forward's lse
+        encoder_attention_train_lanes_bwd(q, q, q, _rnd(gen, 2, 8, 8), seed,
+                                          q, 0.25, 0.1, 1)

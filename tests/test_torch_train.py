@@ -8,8 +8,9 @@ The loss test runs the PR 1 tiny config (Swin embed 16, BERT 64 wide) at
 B = 2 clips of 2 x 224 x 224 (window 2x7x7: 98 tokens padded to 104) with
 dropout and drop-path 0; the JAX side runs its module math
 (``attn_impl="xla"``) on ``device_normalize``d clips and the float conv,
-the port its train route (plain versions of K1, K2, K8 and K9) on the raw
-uint8 clips through the folded patch embed.  Tolerances:
+the port its train route (plain versions of K1, K2, K8 and K9, and on the
+fused fusion-encoder route those of K10, K11 and K12) on the raw uint8
+clips through the folded patch embed.  Tolerances:
 loss 1e-4 relative, each gradient relative L2 1e-3 (f32, ~30 ops deep in
 both directions, other summation orders, the normalize folded into the
 conv weights on one side only).
@@ -64,26 +65,42 @@ def _batch(B=2, Lt=8):
             "mask": mask, "vid": np.array([0, 1], np.int32)}
 
 
-def test_train_loss_and_gradients_match_jax(params):
-    batch = _batch()
-    loss_fn = jretrieval.make_loss_fn(JaxLavender(CFG), TRUE_ID, FALSE_ID)
-    jbatch = dict(batch, img=device_normalize(jnp.asarray(batch["img"])))
-    want_loss, want_grads = jax.jit(jax.value_and_grad(loss_fn))(
-        params, jbatch, jax.random.PRNGKey(1))
-    want = from_flax(jax.tree_util.tree_map(np.asarray, want_grads))
+def _route(cfg, attn, ffn):
+    """The port's ``cfg`` with the fusion encoder's train route set."""
+    return dataclasses.replace(cfg, bert=dataclasses.replace(
+        cfg.bert, fused_attn_train=attn, fused_ffn_train=ffn))
 
-    pcfg = dataclasses.replace(
-        port_config(CFG), bert=dataclasses.replace(
-            port_config(CFG.bert), fused_attn_train=False))
-    state = create_train_state(pcfg, port_config(jcfg.TrainConfig()),
+
+@pytest.fixture(scope="module")
+def jax_loss_and_grads(params):
+    """The JAX loss and gradients on ``_batch()`` (its module math: the
+    train kernels run on a TPU only, and at dropout 0 every route is the
+    same function)."""
+    loss_fn = jretrieval.make_loss_fn(JaxLavender(CFG), TRUE_ID, FALSE_ID)
+    batch = _batch()
+    jbatch = dict(batch, img=device_normalize(jnp.asarray(batch["img"])))
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(
+        params, jbatch, jax.random.PRNGKey(1))
+    return float(loss), from_flax(jax.tree_util.tree_map(np.asarray, grads))
+
+
+@pytest.mark.parametrize("attn,ffn", [(False, False), (True, True)],
+                         ids=["module-math", "fused"])
+def test_train_loss_and_gradients_match_jax(params, jax_loss_and_grads,
+                                            attn, ffn):
+    """The whole loss and every gradient on both fusion-encoder routes
+    against the same JAX loss (same tolerances)."""
+    batch = _batch()
+    want_loss, want = jax_loss_and_grads
+    state = create_train_state(_route(port_config(CFG), attn, ffn),
+                               port_config(jcfg.TrainConfig()),
                                device="cpu", params=params)
     model = state.model
     assert model.training
     loss = tretrieval.make_loss_fn(TRUE_ID, FALSE_ID)(
         model, {k: torch.from_numpy(v) for k, v in batch.items()})
     loss.backward()
-    np.testing.assert_allclose(float(loss.detach()), float(want_loss),
-                               rtol=1e-4)
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=1e-4)
     grads = dict(model.named_parameters())
     assert grads.keys() == want.keys()
     # a gradient that is zero in exact arithmetic (the key biases: softmax
@@ -209,20 +226,25 @@ def test_drop_path_keep_rate_and_lerp_identity(rate):
     assert drop_path_lerp(x, full, 0.0) is full
 
 
-def test_train_step_runs_and_refuses_unported_route():
-    """Two CPU steps through ``make_train_step`` (finite, parameters
-    move); the JAX default ``fused_attn_train=True`` is refused."""
-    with pytest.raises(NotImplementedError, match="fused_attn_train"):
-        create_train_state(port_config(TINY), port_config(_tcfg()),
-                           device="cpu")
-    cfg = dataclasses.replace(port_config(CFG), bert=dataclasses.replace(
-        port_config(CFG.bert), fused_attn_train=False))
-    state = create_train_state(cfg, port_config(_tcfg()), device="cpu",
-                               seed=0)
+@pytest.mark.parametrize("attn,ffn", [(False, False), (True, False),
+                                      (True, True)],
+                         ids=["module-math", "default", "fused-ffn"])
+def test_train_step_runs_on_every_route(attn, ffn):
+    """Two CPU steps through ``make_train_step`` with dropout 0.1 on each
+    fusion-encoder route (the default ``ModelConfig`` route among them):
+    the config builds, the losses are finite, the parameters move."""
+    cfg = port_config(TINY)
+    assert (cfg.bert.fused_attn_train, cfg.bert.fused_ffn_train) == (
+        True, False)  # the JAX defaults
+    state = create_train_state(_route(cfg, attn, ffn), port_config(_tcfg()),
+                               device="cpu", seed=0)
     step = make_train_step(tretrieval.make_loss_fn(TRUE_ID, FALSE_ID), state)
     batch = {k: torch.from_numpy(v) for k, v in _batch().items()}
     before = state.model.fc_mtm.predictions.decoder.weight.detach().clone()
+    qkv = state.model.trsfr.layer[0].attention.self.query.weight
+    q_before = qkv.detach().clone()
     losses = [float(step(batch)) for _ in range(2)]
     assert all(np.isfinite(losses)) and state.step == 2
     assert not torch.equal(before,
                            state.model.fc_mtm.predictions.decoder.weight)
+    assert not torch.equal(q_before, qkv)  # gradients reach the encoder

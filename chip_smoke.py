@@ -21,7 +21,14 @@ nothing is ever run on the CPU instead:
    not hidden under the O(1) residual; for K8b dq, dk, dv and dbias each;
    the BERT train kernels with dropout on and the same seed on both sides
    (K10a at rate 0.1 and 0.5, K10b's dq, dk and dv each, K11's and K12's
-   keep masks exactly equal), on a key mask with padded captions;
+   keep masks exactly equal), on a key mask with padded captions; K6 (the
+   sub-block under a full mask) and K7 (the heads-layout core) at the
+   seq2seq forward's B=4, L=275 under the seq2seq mask and a random 0/1
+   mask, K6 also at the re-encode decoder's first and last L (252, 270);
+   K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
+   rows); K8b's and K7's one-call counterparts are
+   scaled_dot_product_attention's backward with a bias that requires
+   grad and its forward with the additive mask;
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
@@ -39,13 +46,28 @@ nothing is ever run on the CPU instead:
    turns; (e) ``fused_ffn_train=True``: one step's loss and gradients,
    kernels vs plain, and the launch counts of one step (K12 12 times);
    (f) dropout and drop-path 0 on the same weights: the default route
-   against the module-math route, loss and gradients.
+   against the module-math route, loss and gradients;
+6. captioning, on the phase-4 server and on ModelConfig(): (a) the
+   seq2seq serving forward (B=4 clips, 25 text tokens) against the plain
+   path, K6 in every layer and no K4; (b) ``make_generate_fn``, greedy,
+   20 tokens, its logits at each of the 19 steps against the re-encode
+   decoder teacher-forced on its tokens (kernel and plain path), its
+   tokens against the plain re-encode decoder's wherever the top-1/top-2
+   gap is more than twice the gate, the launches of the KV decode (K4 and
+   K5 in the prefill, K5 per step) and of the re-encode (K6 per step), ms
+   per generated token of both decoders; (c) the caption train step
+   (``make_caption_loss_fn``, B=8, ``caption_masking``): loss and gradients
+   kernels vs plain, launches (K10a/K10b/K11 under the seq2seq mask), ten
+   steps on one batch lowering the loss >= 1 nat on both paths, step time.
 
 The last lines: the card's name and power limit, then a JSON line of the
-kernels (per kernel: launches in the phase-4 and phase-5 (b) runs, K12's
-in 5 (e); its largest error in phase 3; ``ms``, ``plain_ms``,
-``library_ms`` and ``bound_ms``, each the time per call x its calls in
-one serving forward plus one train step, summed over the shapes;
+kernels (per kernel: launches in the phase-4, phase-5 (b) and the checked
+phase-6 runs, K12's in 5 (e); its largest error in phase 3; ``ms``,
+``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per call x
+its calls in one serving forward plus one train step plus one seq2seq
+forward (K7: as if in each of its 12 layers) plus the text part of one
+KV decode (K4 and K5 in the prefill, K5 in the 19 steps), summed over
+the shapes;
 ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the FLOPs over
 989 TFLOP/s), then the device line.
 """
@@ -64,6 +86,12 @@ import torch
 
 BATCH, FRAMES, SIZE, TXT_LEN = 4, 5, 224, 26
 TRAIN_BATCH = 8
+# captioning: 25 text tokens (L = 250 + 25), GenerateConfig()'s 20 (its
+# re-encode decoder runs L = 250 + 2 .. 250 + 20), and
+# the BERT-base uncased vocabulary's special tokens
+CAP_LEN = 25
+GEN_LEN = 20
+CLS_ID, SEP_ID, PAD_ID, MASK_ID = 101, 102, 0, 103
 N_REQUESTS = 3
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel is the
 # larger of its bytes over the memory rate and its FLOPs over the bf16
@@ -133,7 +161,8 @@ def _compare(got, want, tol, rel_l2_max):
 @dataclasses.dataclass
 class Case:
     """One shape of one kernel: called ``count`` times in one serving
-    forward plus one train step; ``flops`` and ``bytes`` of one call."""
+    forward, one train step, one seq2seq forward and one KV decode
+    together (0: checked only); ``flops`` and ``bytes`` of one call."""
     op: object
     name: str
     count: int
@@ -171,9 +200,96 @@ def _core_compare(C):
     return compare
 
 
+def _sdpa_bias_backward(qkv_heads, bias, mask, dout, B, nW, nH, hd):
+    """K8b's one-call counterpart: the backward of
+    scaled_dot_product_attention with a float attn_mask built from the
+    rel-pos bias [nH, N, N] (+ the shift mask per window) that requires
+    grad, giving dq, dk, dv and the bias gradient summed over sequences."""
+    import torch.nn.functional as F
+
+    leaves = [t.detach().requires_grad_(True) for t in (*qkv_heads, bias)]
+    full = leaves[3][None].expand(B * nW, -1, -1, -1)
+    if mask is not None:
+        full = (full.reshape(B, nW, nH, *bias.shape[1:])
+                + mask[None, :, None]).reshape(B * nW, nH, *bias.shape[1:])
+    o = F.scaled_dot_product_attention(*leaves[:3],
+                                       attn_mask=full.contiguous(),
+                                       scale=hd ** -0.5)
+    d_heads = dout.view(B * nW, -1, nH, hd).transpose(1, 2)
+    return lambda: torch.autograd.grad(o, leaves, d_heads,
+                                       retain_graph=True)
+
+
+def _seq2seq_keep(batch: int, n_video: int, n_txt: int):
+    """The captioning mask [B, L, L] (1 = attend): every row sees the
+    video, the text rows see the text causally."""
+    L = n_video + n_txt
+    keep = torch.zeros(batch, L, L, dtype=torch.bool, device="cuda")
+    keep[:, :, :n_video] = True
+    keep[:, n_video:, n_video:] = torch.ones(
+        n_txt, n_txt, dtype=torch.bool, device="cuda").tril()
+    return keep
+
+
+def _full_mask_cases(g, lin, ln):
+    """K6 and K7 at the seq2seq serving forward's shapes (B=4, L = 250 +
+    25): the seq2seq mask as the model passes it (f32, 0 / finfo.min) and
+    a random 0/1 mask with at least one open key per row; inputs std 1.
+    K6 runs 12 times per seq2seq forward; K7 lies on no model path and is
+    counted as if it ran in each of the 12 layers."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops.encoder_attention import (
+        fused_bert_attn_block, fused_encoder_attention)
+
+    C, nH, n_txt = 768, 12, CAP_LEN
+    hd, L = C // nH, FRAMES * 50 + n_txt
+    x = _rnd(g, BATCH, L, C)
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin(C, C) for _ in range(4))
+    lw, lb = ln(C)
+    q, k, v = (_rnd(g, BATCH, nH, L, hd) for _ in range(3))
+    random_keep = torch.rand(BATCH, L, L, generator=g, device="cuda") < 0.5
+    random_keep[:, :, 0] = True  # at least one open key per row
+    cases = []
+    n_video = L - n_txt
+
+    def block_case(x, mask, kind, count):
+        B, Lx, _ = x.shape
+        return Case(
+            fused_bert_attn_block, f"B={B} L={Lx} C={C} nH={nH}, {kind}",
+            count, (x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, mask, nH,
+                    hd ** -0.5, 1e-12),
+            8.0 * B * Lx * C * C + 4.0 * B * Lx * Lx * C,
+            2 * B * Lx * C * 2 + 4 * C * C * 2 + mask.numel() * 4)
+
+    for kind, keep, count in (
+            ("seq2seq mask", _seq2seq_keep(BATCH, n_video, n_txt), 12),
+            ("random 0/1 mask", random_keep, 0)):
+        mask = torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+        mask_bytes = mask.numel() * 4
+        cases.append(block_case(x, mask, kind, count))
+        sdpa_mask = mask.clamp_min(-1e4)[:, None].to(torch.bfloat16)
+        cases.append(Case(
+            fused_encoder_attention, f"B={BATCH} nH={nH} L={L} hd={hd}, "
+            f"{kind}", count, (q, k, v, mask, hd ** -0.5),
+            4.0 * BATCH * nH * L * L * hd, 4 * q.numel() * 2 + mask_bytes,
+            library=lambda m=sdpa_mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, scale=hd ** -0.5)))
+    # the re-encode decoder's first and last steps: [video; text; MASK] of
+    # 2 and GEN_LEN tokens, neither a multiple of 8 long (checked, not
+    # timed into the kernels line)
+    for n in (2, GEN_LEN):
+        keep = _seq2seq_keep(BATCH, n_video, n)
+        mask = torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+        cases.append(block_case(_rnd(g, BATCH, n_video + n, C), mask,
+                                "seq2seq mask, re-encode step", 0))
+    return cases
+
+
 def _kernel_cases(g):
-    """Every distinct shape the serving forward (B=4) and the train step
-    (B=8) give the kernels."""
+    """Every distinct shape the serving forward (B=4), the train step
+    (B=8), the seq2seq forward and the caption decoders (B=4) give the
+    kernels."""
     import torch.nn.functional as F
 
     from lavender_tpu_torch.models.swin3d import (
@@ -275,7 +391,10 @@ def _kernel_cases(g):
                                         hd ** -0.5),
                     2.5 * core_flops, 2 * qkv_bytes + M * C * 2
                     + M * nH * 4 + bias.numel() * 6 + mask_bytes,
-                    compare=_core_compare(C)))
+                    compare=_core_compare(C),
+                    library=_sdpa_bias_backward(
+                        (sdpa_q, sdpa_k, sdpa_v), bias, mask, dout, B, nW,
+                        nH, hd)))
             rows = x.reshape(-1, C)
             if train:  # K9: the MLP of every train block, no residual
                 cases.append(Case(
@@ -330,6 +449,27 @@ def _kernel_cases(g):
         fused_ffn_post_ln, f"M={M} C={C} HD=3072", 12,
         (x.reshape(-1, C), w1, b1, w2, b2, lw, lb, 1e-12),
         4.0 * M * C * 3072, 2 * M * C * 2 + 2 * C * 3072 * 2))
+    # the KV decoder of 4 clips (phase 6 (b)): the prefill runs K4 and K5
+    # over the 250 video tokens (every key open), each of the 19 steps K5
+    # over 2 rows a clip
+    Lp, n_steps = FRAMES * 50, GEN_LEN - 1
+    xp = _rnd(g, BATCH, Lp, C)
+    cases.append(Case(
+        fused_bert_attn_block_kmask, f"B={BATCH} L={Lp} C={C} nH={nH}, "
+        "prefill (all keys open)", 12,
+        (xp, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb,
+         torch.ones(BATCH, Lp, dtype=torch.bool, device="cuda"), nH,
+         (C // nH) ** -0.5, 1e-12),
+        8.0 * BATCH * Lp * C * C + 4.0 * BATCH * Lp * Lp * C,
+        2 * BATCH * Lp * C * 2 + 4 * C * C * 2 + BATCH * Lp))
+    for rows, count, what in ((BATCH * Lp, 12, "prefill"),
+                              (2 * BATCH, 12 * n_steps, "decode step")):
+        xr = _rnd(g, rows, C)
+        cases.append(Case(
+            fused_ffn_post_ln, f"M={rows} C={C} HD=3072, {what}", count,
+            (xr, w1, b1, w2, b2, lw, lb, 1e-12), 4.0 * rows * C * 3072,
+            2 * rows * C * 2 + 2 * C * 3072 * 2))
+    cases += _full_mask_cases(g, lin, ln)
     cases += _bert_train_cases(g, lin, ln)
     return cases
 
@@ -452,7 +592,7 @@ def _bert_core_vs_sdpa(g):
 def check_kernels():
     """Phase 3: each kernel vs its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound by bytes
-    time / FLOP time} summed over one serving forward + one train step."""
+    time / FLOP time} summed over the calls of ``Case.count``."""
     g = torch.Generator(device="cuda").manual_seed(0)
     per_kernel = {}
     for c in _kernel_cases(g):
@@ -488,7 +628,7 @@ def check_kernels():
               f"{rel:.3g} (tol {TOL} max(1,max|ref|), {REL_L2}){branch}; "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'FLOPs'})"
-              f", x{c.count} per forward + step", flush=True)
+              f", x{c.count} in the counted runs", flush=True)
         if not ok:
             raise AssertionError(f"{c.op.name} {c.name}: kernel disagrees "
                                  f"with its plain version (max_abs_err {err})")
@@ -542,19 +682,36 @@ def _shifted_blocks(swin) -> int:
     return n
 
 
-def run_serving(ops):
-    """Phase 4: the serving forward through the kernels, with counts."""
-    from lavender_tpu_torch.ops._build import plain_path
+def _video_counts(ops, cfg):
+    """Launches of one Swin-B pass over B clips in serving (go_feat)."""
     from lavender_tpu_torch.ops.swin_block_attn import mlp_in_block
+
+    s = cfg.swin
+    return {ops["K1"]: sum(s.depths), ops["K2"]: 2 * _shifted_blocks(s),
+            ops["K3"]: sum(d for i, d in enumerate(s.depths)
+                           if not mlp_in_block(s.embed_dim * 2 ** i,
+                                               int(s.embed_dim * 2 ** i
+                                                   * s.mlp_ratio),
+                                               s.num_heads[i], 248))}
+
+
+def build_server():
     from lavender_tpu_torch.serve import LavenderServer
 
     t0 = time.perf_counter()
     # the default model: Swin-B + BERT-base, full depth and width
     server = LavenderServer(seed=0, frames=FRAMES, size=SIZE)
-    cfg = server.config
     torch.cuda.synchronize()
     print(f"[serve] server built (seeded init, bf16, serving caches) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return server
+
+
+def run_serving(ops, server):
+    """Phase 4: the serving forward through the kernels, with counts."""
+    from lavender_tpu_torch.ops._build import plain_path
+
+    cfg = server.config
 
     def plain(*request):
         with plain_path():
@@ -570,14 +727,7 @@ def run_serving(ops):
         txt = rs.randint(1, cfg.bert.vocab_size, (BATCH, TXT_LEN)) * mask
         requests.append((img, txt, mask))
 
-    s = cfg.swin
-    per_fwd = {ops["K1"]: sum(s.depths),
-               ops["K2"]: 2 * _shifted_blocks(s),
-               ops["K3"]: sum(d for i, d in enumerate(s.depths)
-                              if not mlp_in_block(s.embed_dim * 2 ** i,
-                                                  int(s.embed_dim * 2 ** i
-                                                      * s.mlp_ratio),
-                                                  s.num_heads[i], 248)),
+    per_fwd = {**_video_counts(ops, cfg),
                ops["K4"]: cfg.bert.num_hidden_layers,
                ops["K5"]: cfg.bert.num_hidden_layers}
     server(*requests[0])  # warm-up: allocator, first launches
@@ -807,13 +957,270 @@ def run_train(ops):
     return counts
 
 
+def _caption_text(rs, batch: int, vocab: int):
+    """Captions of [CLS] + words + [SEP], padded to CAP_LEN (lengths 5 to
+    25, the first full): (ids, mask) int64 arrays."""
+    lens = rs.randint(5, CAP_LEN + 1, batch)
+    lens[0] = CAP_LEN
+    pos = np.arange(CAP_LEN)[None]
+    txt = rs.randint(1000, vocab, (batch, CAP_LEN))
+    txt[:, 0] = CLS_ID
+    txt = np.where(pos == lens[:, None] - 1, SEP_ID, txt)
+    mask = (pos < lens[:, None]).astype(np.int64)
+    return txt * mask, mask
+
+
+def _ms(fn, iters: int) -> float:
+    """Host milliseconds per call of ``fn`` (synchronised)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def _device_profile(fn):
+    """One call of ``fn`` under torch.profiler: (host ms of the call,
+    device-busy ms = the union of the device activities' intervals, number
+    of device activities: kernels, copies, sets).  (ms, None, 0) when the
+    profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        return host_ms, None, 0
+    busy_us, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy_us, lo, hi = busy_us + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    return host_ms, (busy_us + hi - lo) / 1e3, len(spans)
+
+
+def run_captioning(ops, server):
+    """Phase 6: captioning on the serving model ((a) the seq2seq forward,
+    (b) the KV-cache decoder against the re-encode decoder) and the
+    caption train step on ModelConfig() ((c)).  Returns the launches of
+    the runs whose counts were checked."""
+    from lavender_tpu_torch.config import ModelConfig, TrainConfig
+    from lavender_tpu_torch.models import captioning
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    cfg, model = server.config, server.model
+    layers, vocab = cfg.bert.num_hidden_layers, cfg.bert.vocab_size
+    rs = np.random.RandomState(3)
+    img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(np.uint8)
+    txt, mask = _caption_text(rs, BATCH, vocab)
+    total = {op: 0 for op in ops.values()}
+
+    def add(counts):
+        for op, n in counts.items():
+            total[op] += n
+
+    # (a) the seq2seq serving forward: K6 in every layer, no K4
+    server(img, txt, mask, "seq2seq")  # warm-up
+    _reset(ops.values())
+    out = server(img, txt, mask, "seq2seq")
+    add(_check_counts(ops.values(), {**_video_counts(ops, cfg),
+                                     ops["K5"]: layers, ops["K6"]: layers},
+                      1, "caption (a)"))
+    with plain_path():
+        ref = server(img, txt, mask, "seq2seq")
+    err, rel, ok = _compare(out, ref, SLICE_TOL, SLICE_REL_L2)
+    ms_k = _ms(lambda: server(img, txt, mask, "seq2seq"), 10)
+    with plain_path():
+        ms_p = _ms(lambda: server(img, txt, mask, "seq2seq"), 3)
+    print(f"[caption] (a) seq2seq forward, B={BATCH} L="
+          f"{FRAMES * 50 + CAP_LEN}: logits {tuple(out.shape)}; vs plain "
+          f"path max_abs_err {err:.4g} rel_l2 {rel:.3g} (tol {SLICE_TOL} "
+          f"max(1,max|ref|), {SLICE_REL_L2}), max|ref| "
+          f"{float(ref.float().abs().max()):.3g}; {ms_k:.2f} ms per forward "
+          f"vs plain {ms_p:.2f} ms ({_nvidia_smi()})", flush=True)
+    if not (ok and tuple(out.shape) == (BATCH, CAP_LEN, vocab)):
+        raise AssertionError("(a) seq2seq forward: kernel path logits "
+                             "disagree with the plain path")
+    gate = SLICE_TOL * max(1.0, float(ref.float().abs().max()))
+
+    # (b) the KV-cache decoder, greedy, GenerateConfig(): its logits at
+    # every step against the re-encode decoder teacher-forced on its ids
+    gen_cfg = captioning.GenerateConfig(max_gen_length=GEN_LEN)
+    n_steps = gen_cfg.max_gen_length - 1
+    generate = captioning.make_generate_fn(model, CLS_ID, SEP_ID, PAD_ID,
+                                           MASK_ID, gen_cfg)
+    generate(img)  # warm-up
+    steps = []
+    hook = model.fc_mtm.register_forward_hook(
+        lambda mod, inp, o: steps.append(o[:, 0].float()))
+    _reset(ops.values())
+    try:
+        ids, logp = generate(img)
+    finally:
+        hook.remove()
+    add(_check_counts(ops.values(), {
+        **_video_counts(ops, cfg), ops["K4"]: layers,
+        ops["K5"]: layers * (1 + n_steps)}, 1, "caption (b) KV decode"))
+    if len(steps) != n_steps or not bool(torch.isfinite(logp).all()):
+        raise AssertionError("(b) the KV decoder ran the wrong number of "
+                             "steps or gave a non-finite log-prob")
+    dummy = torch.ones(BATCH, 1, dtype=torch.long, device="cuda")
+    img_t = torch.as_tensor(img, device="cuda")
+    re_k, re_p = [], []
+    with torch.inference_mode():
+        fi, mi, _, _ = model.go_feat(img_t, dummy, dummy)
+        _reset(ops.values())
+        for t in range(1, n_steps + 1):
+            re_k.append(captioning.rencode_logits(model, fi, mi, ids[:, :t],
+                                                  MASK_ID))
+        add(_check_counts(ops.values(), {ops["K5"]: layers,
+                                         ops["K6"]: layers}, n_steps,
+                          "caption (b) re-encode"))
+        with plain_path():
+            fi_p, mi_p, _, _ = model.go_feat(img_t, dummy, dummy)
+            for t in range(1, n_steps + 1):
+                re_p.append(captioning.rencode_logits(
+                    model, fi_p, mi_p, ids[:, :t], MASK_ID))
+    kv, re_k, re_p = torch.stack(steps), torch.stack(re_k), torch.stack(re_p)
+    results = {"KV decoder": _compare(kv, re_p, SLICE_TOL, SLICE_REL_L2),
+               "re-encode decoder": _compare(re_k, re_p, SLICE_TOL,
+                                             SLICE_REL_L2)}
+    # a token must match wherever the plain top-1 / top-2 gap leaves no
+    # room for a near-tie; rows past their [SEP] are padding
+    top2 = re_p.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > 2 * gate
+    running = torch.ones(n_steps, BATCH, dtype=torch.bool, device="cuda")
+    running[1:] = (ids[:, 1:n_steps] != SEP_ID).cumprod(1).bool().T
+    checked = decided & running
+    mismatch = int(((kv.argmax(-1) != re_p.argmax(-1)) & checked).sum())
+    for name, (e, r, good) in results.items():
+        print(f"[caption] (b) {name} vs the plain re-encode decoder, "
+              f"teacher-forced, {n_steps} steps x {BATCH} clips: "
+              f"max_abs_err {e:.4g} rel_l2 {r:.3g} (tol {SLICE_TOL} "
+              f"max(1,max|ref|), {SLICE_REL_L2})", flush=True)
+    print(f"[caption] (b) tokens (informational beside the logits gate: "
+          f"random weights make near-ties): {int(checked.sum())} of "
+          f"{int(running.sum())} running steps decided by a top-1/top-2 gap "
+          f"> {2 * gate:.3g}, {mismatch} differ; "
+          f"{int((running & ~decided).sum())} near-ties exempt; captions "
+          f"{ids.tolist()}", flush=True)
+    if mismatch or not all(good for *_, good in results.values()):
+        raise AssertionError("(b) the caption decoders disagree with the "
+                             "plain re-encode decoder")
+    ms_kv = _ms(lambda: generate(img), 3)
+    _reset(ops.values())
+    ms_re = _ms(lambda: captioning.rencode_generate_reference(
+        model, img, CLS_ID, SEP_ID, PAD_ID, MASK_ID, gen_cfg.max_gen_length),
+        1)
+    re_steps = max(ops["K6"].launches // layers, 1)
+    with torch.inference_mode():
+        ms_feat = _ms(lambda: model.go_feat(img_t, dummy, dummy), 3)
+    print(f"[caption] (b) greedy captions of {BATCH} clips, "
+          f"{gen_cfg.max_gen_length} tokens: KV-cache decoder {ms_kv:.2f} ms "
+          f"({ms_kv / n_steps:.3f} ms per generated token; "
+          f"{(ms_kv - ms_feat) / n_steps:.3f} without the Swin pass, "
+          f"prefill included); re-encode decoder {ms_re:.2f} ms for "
+          f"{re_steps} steps ({ms_re / re_steps:.3f} ms per generated "
+          f"token; {(ms_re - ms_feat) / re_steps:.3f} without the Swin "
+          f"pass); the clips' Swin pass (go_feat) {ms_feat:.2f} ms "
+          f"({_nvidia_smi()})", flush=True)
+    # where a decoder's time goes: the device's busy share of one call
+    def rencode():
+        captioning.rencode_generate_reference(
+            model, img, CLS_ID, SEP_ID, PAD_ID, MASK_ID, GEN_LEN)
+
+    for name, fn, n_tok in (("KV-cache", lambda: generate(img), n_steps),
+                            ("re-encode", rencode, re_steps)):
+        host_ms, busy_ms, n_dev = _device_profile(fn)
+        busy = ("device time not measured (the profiler recorded no device "
+                "activity)" if busy_ms is None else
+                f"device busy {busy_ms:.2f} ms ({busy_ms / host_ms:.1%} of "
+                f"the profiled call), {n_dev} device activities "
+                f"({n_dev / n_tok:.1f} per generated token)")
+        print(f"[caption] (b) {name} decoder under torch.profiler: "
+              f"{host_ms:.2f} ms host; {busy} ({_nvidia_smi()})", flush=True)
+
+    # (c) the caption train step on ModelConfig(): B=8, seq2seq mask
+    tcfg = ModelConfig()
+    loss_fn = captioning.make_caption_loss_fn(label_smoothing=0.1)
+    rs = np.random.RandomState(4)
+    clips = rs.randint(0, 256, (TRAIN_BATCH, FRAMES, SIZE, SIZE, 3))
+    words, tmask = _caption_text(rs, TRAIN_BATCH, vocab)
+    masked, ans = captioning.caption_masking(words, PAD_ID, MASK_ID, 0.15,
+                                             rs)
+    batch = {"img": torch.as_tensor(clips.astype(np.uint8), device="cuda"),
+             **{k: torch.as_tensor(v, device="cuda").long() for k, v in
+                (("txt", masked), ("mask", tmask), ("ans_mtm", ans))}}
+    print(f"[caption] (c) batch: {TRAIN_BATCH} clips, {CAP_LEN} tokens, "
+          f"{int((ans >= 0).sum())} masked by caption_masking", flush=True)
+    state = create_train_state(tcfg, TrainConfig(max_iter=1000,
+                                                 max_grad_norm=1.0), seed=0)
+    _check_step("(c) caption step, kernels vs plain:",
+                _loss_and_grads(state, loss_fn, batch, False),
+                _loss_and_grads(state, loss_fn, batch, True),
+                _grad_groups(state.model))
+    step = make_train_step(loss_fn, state)
+    depth, n_shift = sum(tcfg.swin.depths), _shifted_blocks(tcfg.swin)
+    _reset(ops.values())
+    step(batch)
+    add(_check_counts(ops.values(), {
+        ops["K1"]: depth, ops["K2"]: 4 * n_shift, ops["K8a"]: depth,
+        ops["K8b"]: depth, ops["K9"]: depth, ops["K10a"]: layers,
+        ops["K10b"]: layers, ops["K11"]: layers}, 1, "caption (c)"))
+    del state, step
+    torch.cuda.empty_cache()
+    const = TrainConfig(lr=TRAIN_LR, warmup_ratio=0.0, max_iter=10 ** 9,
+                        max_grad_norm=1.0)
+    runs = {}
+    for label in ("kernels", "plain"):
+        stp = make_train_step(loss_fn, create_train_state(tcfg, const,
+                                                          seed=0))
+        ctx = plain_path if label == "plain" else contextlib.nullcontext
+        with ctx():
+            losses = [float(stp(batch)) for _ in range(TRAIN_STEPS)]
+        drop = losses[0] - losses[-1]
+        print(f"[caption] (c) {label} path, {TRAIN_STEPS} steps at lr "
+              f"{TRAIN_LR}: loss {' '.join(f'{v:.4f}' for v in losses)}; "
+              f"down {drop:.4f} nat (>= {MIN_LOSS_DROP})", flush=True)
+        if not (all(np.isfinite(losses)) and drop >= MIN_LOSS_DROP):
+            raise AssertionError(f"(c) {label} path: the caption loss did "
+                                 f"not fall by {MIN_LOSS_DROP} nat")
+        runs[label] = (stp, ctx)
+    times = {name: [] for name in runs}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        stp, ctx = runs[name]
+        with ctx():
+            times[name].append(_ms(lambda: stp(batch), 3))
+    for name, ts in times.items():
+        dt = sum(ts) / len(ts)
+        print(f"[caption] (c) {name} path: {dt:.2f} ms per caption train "
+              f"step ({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{TRAIN_BATCH / dt * 1e3:.2f} train clips/s at "
+              f"B={TRAIN_BATCH} ({_nvidia_smi()})", flush=True)
+    del runs
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs only on a CUDA GPU")
     from lavender_tpu_torch.ops import _build
     from lavender_tpu_torch.ops.encoder_attention import (
-        encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+        encoder_attention_train_lanes_bwd, fused_bert_attn_block,
+        fused_bert_attn_block_kmask, fused_encoder_attention,
         fused_encoder_attention_train_lanes)
     from lavender_tpu_torch.ops.fused_mlp import (
         fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
@@ -836,16 +1243,20 @@ def main() -> int:
 
     ops = {"K1": fused_swin_block_wm, "K2": wm_shift_rows,
            "K3": fused_ln_mlp_chunked, "K4": fused_bert_attn_block_kmask,
-           "K5": fused_ffn_post_ln, "K8a": swin_core_attn,
+           "K5": fused_ffn_post_ln, "K6": fused_bert_attn_block,
+           "K7": fused_encoder_attention, "K8a": swin_core_attn,
            "K8b": swin_core_attn_bwd, "K9": fused_ln_mlp,
            "K10a": fused_encoder_attention_train_lanes,
            "K10b": encoder_attention_train_lanes_bwd,
            "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train}
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
-    serve_counts = run_serving(ops)
+    server = build_server()
+    serve_counts = run_serving(ops, server)
     torch.cuda.empty_cache()
     train_counts = run_train(ops)
+    torch.cuda.empty_cache()
+    caption_counts = run_captioning(ops, server)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/attention.cu",
@@ -858,6 +1269,10 @@ def main() -> int:
                "lavender_tpu/ops/encoder_attention.py:322"),
         "K5": ("lavender_tpu_torch/csrc/gemm.cu",
                "lavender_tpu/ops/fused_mlp.py:283"),
+        "K6": ("lavender_tpu_torch/csrc/attention.cu",
+               "lavender_tpu/ops/encoder_attention.py:242"),
+        "K7": ("lavender_tpu_torch/csrc/attention.cu",
+               "lavender_tpu/ops/encoder_attention.py:75"),
         "K8a": ("lavender_tpu_torch/csrc/attention.cu",
                 "lavender_tpu/ops/swin_core_attn.py:112"),
         "K8b": ("lavender_tpu_torch/csrc/attention_bwd.cu",
@@ -880,9 +1295,11 @@ def main() -> int:
         kernels.append({
             "name": op.name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": serve_counts[op] + train_counts[op],
+            "launches": (serve_counts[op] + train_counts[op]
+                         + caption_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
+            "launches_captioning": caption_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

@@ -1,5 +1,6 @@
-"""lavender-tpu on PyTorch and CUDA: the serving forward and the
-retrieval-MLM train step on one NVIDIA H100.
+"""lavender-tpu on PyTorch and CUDA: the serving forward, the
+retrieval-MLM train step and captioning (caption train step, seq2seq
+forward, KV-cache decoding) on one NVIDIA H100.
 
 A port of the JAX package ``lavender_tpu`` (which stays the reference): the
 same model, parameters and layouts, with the TPU's Pallas kernels replaced
@@ -7,4 +8,4 @@ by hand-written CUDA kernels under ``csrc/``.  Imports nothing of the JAX
 package.
 """
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -2,8 +2,9 @@
 ImageNet normalize constants.
 
 The port's own copy of ``lavender_tpu/config.py`` (``SwinConfig``,
-``BertConfig``, ``ModelConfig``, ``SWIN_PRESETS``, ``TrainConfig``) and of
-``IMAGENET_MEAN/STD`` from ``lavender_tpu/data/transforms.py``: the port
+``BertConfig``, ``ModelConfig``, ``SWIN_PRESETS``, ``TrainConfig``,
+``TASK_TOK2ID``) and of ``IMAGENET_MEAN/STD`` from
+``lavender_tpu/data/transforms.py``: the port
 imports nothing of the JAX package.  Field names and defaults are the
 same, so a JAX config converts with ``dataclasses.asdict`` and a test
 holds the two sets of defaults equal.  Fields that only steer the JAX
@@ -21,6 +22,8 @@ import numpy as np
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+# row of ``LavenderModel.emb_task`` per task token
+TASK_TOK2ID = {"vtm": 0, "mc": 1, "oe": 2, "cap": 3}
 
 
 @dataclass(frozen=True)

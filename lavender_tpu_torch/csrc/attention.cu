@@ -3,9 +3,14 @@
 //
 // Replaces the per-(window, head) score / softmax / pv part of
 // lavender_tpu/ops/swin_block_attn.py _block_kernel_wm and the per-head part
-// of lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask.  Input is
-// the packed qkv slab [nSeq * N, 3C] that the qkv GEMM writes (columns
-// s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C].  It is also
+// of lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask and
+// _attn_block_kernel (the latter with a per-sequence [B, N, N] mask).  Input
+// is the packed qkv slab [nSeq * N, 3C] that the qkv GEMM writes (columns
+// s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C].  A second
+// instantiation (HEADS) reads q, k and v and writes o in the heads layout
+// [B, nH, N, hd] of lavender_tpu/ops/encoder_attention.py _enc_attn_kernel,
+// each by its own (sequence, head, row) strides, under an f32 [B, N, N]
+// mask as there; the packed one keeps its fixed slab addressing.  It is also
 // the forward of the Swin window-attention core K8a
 // (lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel): there it also
 // writes each query row's log-sum-exp of its scores (f32 [nSeq, nH, N]),
@@ -40,6 +45,8 @@
 // never leave registers.  Tensor-core (mma) tiles are the next step.
 #include <math.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -64,42 +71,75 @@ __device__ __forceinline__ float dot_k(const float* q, const bf16* k) {
   return s0 + s1;
 }
 
-template <int HD, bool DROP>
+// The heads layout's operands: k and v (q is the kernel's qkv argument) and
+// the element strides (sequence, head, row) of q, k, v and o, the head dim
+// contiguous.  Unused by the packed instantiation.
+struct HeadsLayout {
+  const bf16* k_ptr;
+  const bf16* v_ptr;
+  long long q[3], k[3], v[3], o[3];
+};
+
+// bf16 mask on the packed slab (K1/K4/K6/K8a/K10a), f32 in the heads layout
+template <bool HEADS>
+using mask_t = std::conditional_t<HEADS, float, bf16>;
+
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+template <int HD, bool DROP, bool HEADS>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     const bf16* __restrict__ bias, const bf16* __restrict__ mask,
+                     const bf16* __restrict__ bias, const mask_t<HEADS>* __restrict__ mask,
                      const uint8_t* __restrict__ keep, float* __restrict__ lse, int N, int nH,
                      int nW, float scale, int rows_per_block, const int64_t* __restrict__ seed,
-                     uint32_t thresh, float drop_scale) {
+                     uint32_t thresh, float drop_scale, HeadsLayout hl) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + (size_t)N * HD;
   uint8_t* kp = reinterpret_cast<uint8_t*>(vs + (size_t)N * HD);
 
   const int seq = blockIdx.x, h = blockIdx.y;
-  const int C = nH * HD;
-  const size_t ld = 3 * (size_t)C;
-  const bf16* base = qkv + (size_t)seq * N * ld;
+  // row r of q, k, v, o of this (sequence, head) at qb/kb/vb/ob + r * ld
+  const bf16 *qb, *kb, *vb;
+  bf16* ob;
+  size_t q_ld, k_ld, v_ld, o_ld;
+  if constexpr (HEADS) {
+    qb = qkv + seq * hl.q[0] + h * hl.q[1];
+    kb = hl.k_ptr + seq * hl.k[0] + h * hl.k[1];
+    vb = hl.v_ptr + seq * hl.v[0] + h * hl.v[1];
+    ob = out + seq * hl.o[0] + h * hl.o[1];
+    q_ld = hl.q[2], k_ld = hl.k[2], v_ld = hl.v[2], o_ld = hl.o[2];
+  } else {
+    const int C = nH * HD;
+    const size_t ld = 3 * (size_t)C;
+    qb = qkv + (size_t)seq * N * ld + h * HD;
+    kb = qb + C;
+    vb = qb + 2 * C;
+    ob = out + (size_t)seq * N * C + h * HD;
+    q_ld = k_ld = v_ld = ld, o_ld = C;
+  }
 
   constexpr int V8 = HD / 8;
   for (int c = threadIdx.x; c < N * V8; c += blockDim.x) {
     const int r = c / V8, k8 = (c % V8) * 8;
-    const bf16* src = base + r * ld + h * HD + k8;
-    *reinterpret_cast<uint4*>(ks + r * HD + k8) = *reinterpret_cast<const uint4*>(src + C);
-    *reinterpret_cast<uint4*>(vs + r * HD + k8) = *reinterpret_cast<const uint4*>(src + 2 * C);
+    *reinterpret_cast<uint4*>(ks + r * HD + k8) =
+        *reinterpret_cast<const uint4*>(kb + r * k_ld + k8);
+    *reinterpret_cast<uint4*>(vs + r * HD + k8) =
+        *reinterpret_cast<const uint4*>(vb + r * v_ld + k8);
   }
   for (int j = threadIdx.x; j < N; j += blockDim.x)
     kp[j] = keep == nullptr ? 1 : (keep[(size_t)seq * N + j] != 0);
   __syncthreads();
 
   const bf16* bias_h = bias == nullptr ? nullptr : bias + (size_t)h * N * N;
-  const bf16* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
+  const mask_t<HEADS>* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
   const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*seed, (uint32_t)(seq * nH + h)) : 0u;
 
   const int row_end = min(N, (blockIdx.z + 1) * rows_per_block);
   for (int i = blockIdx.z * rows_per_block + threadIdx.x; i < row_end; i += blockDim.x) {
     float q[HD], acc[HD];
-    const bf16* qrow = base + (size_t)i * ld + h * HD;
+    const bf16* qrow = qb + (size_t)i * q_ld;
 #pragma unroll
     for (int d = 0; d < HD; d += 8) lvt::unpack8(*reinterpret_cast<const uint4*>(qrow + d), q + d);
 #pragma unroll
@@ -118,7 +158,7 @@ __global__ void __launch_bounds__(kThreads)
         if (j < N && kp[j]) {  // uniform across the block: no divergence
           sv = dot_k<HD>(q, ks + j * HD);
           if (bias_h != nullptr) sv += __bfloat162float(bias_h[(size_t)i * N + j]);
-          if (mask_w != nullptr) sv += __bfloat162float(mask_w[(size_t)i * N + j]);
+          if (mask_w != nullptr) sv += to_float(mask_w[(size_t)i * N + j]);
         }
         s[t] = sv;
         cmax = fmaxf(cmax, sv);
@@ -150,7 +190,7 @@ __global__ void __launch_bounds__(kThreads)
     // all keys dropped -> 0; dropout scales the kept by 1 / (1 - rate)
     const float inv = l > 0.0f ? (DROP ? drop_scale : 1.0f) / l : 0.0f;
     if (lse != nullptr) lse[((size_t)seq * nH + h) * N + i] = l > 0.0f ? m + logf(l) : INFINITY;
-    bf16* orow = out + ((size_t)seq * N + i) * C + h * HD;
+    bf16* orow = ob + (size_t)i * o_ld;
 #pragma unroll
     for (int d = 0; d < HD; d += 8) {
       float f[8];
@@ -161,14 +201,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD, bool DROP>
+template <int HD, bool DROP, bool HEADS>
 int launch(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
            void* lse, int nSeq, int N, int nH, int nW, float scale, const void* seed,
-           uint32_t thresh, float drop_scale, cudaStream_t stream) {
+           uint32_t thresh, float drop_scale, cudaStream_t stream, const HeadsLayout& hl) {
   const size_t smem = 2 * (size_t)N * HD * sizeof(bf16) + (size_t)((N + 15) / 16) * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD, DROP>,
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD, DROP, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -197,10 +237,11 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
   tiles = (N + rows - 1) / rows;
   const int threads = rows < kThreads ? rows : kThreads;
   dim3 grid(nSeq, nH, tiles);
-  attention_kernel<HD, DROP><<<grid, threads, smem, stream>>>(
+  attention_kernel<HD, DROP, HEADS><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(mask), static_cast<const uint8_t*>(keep), static_cast<float*>(lse),
-      N, nH, nW, scale, rows, static_cast<const int64_t*>(seed), thresh, drop_scale);
+      static_cast<const mask_t<HEADS>*>(mask), static_cast<const uint8_t*>(keep),
+      static_cast<float*>(lse), N, nH, nW, scale, rows, static_cast<const int64_t*>(seed), thresh,
+      drop_scale, hl);
   return (int)cudaGetLastError();
 }
 
@@ -209,10 +250,20 @@ int launch_hd(const void* qkv, void* out, const void* bias, const void* mask, co
               void* lse, int nSeq, int N, int nH, int nW, float scale, const void* seed,
               uint32_t thresh, float drop_scale, cudaStream_t s) {
   if (seed != nullptr)
-    return launch<HD, true>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
-                            drop_scale, s);
-  return launch<HD, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
-                           drop_scale, s);
+    return launch<HD, true, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed,
+                                   thresh, drop_scale, s, HeadsLayout{});
+  return launch<HD, false, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed,
+                                  thresh, drop_scale, s, HeadsLayout{});
+}
+
+template <int HD>
+int launch_heads(const void* q, const void* k, const void* v, void* out, const long long* st,
+                 const void* mask, int B, int N, int nH, float scale, cudaStream_t s) {
+  HeadsLayout hl{static_cast<const bf16*>(k), static_cast<const bf16*>(v)};
+  for (int a = 0; a < 3; ++a)
+    hl.q[a] = st[a], hl.k[a] = st[3 + a], hl.v[a] = st[6 + a], hl.o[a] = st[9 + a];
+  return launch<HD, false, true>(q, out, nullptr, mask, nullptr, nullptr, B, N, nH, B, scale,
+                                 nullptr, 0u, 1.0f, s, hl);
 }
 
 }  // namespace
@@ -239,6 +290,24 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
     case 64:
       return launch_hd<64>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
                            drop_scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The heads layout: q, k, v -> out, each [B, nH, N, hd] addressed by the
+// element strides st[12] (host memory): (sequence, head, row) of q, k, v
+// and out in turn, the head dim contiguous, every stride a multiple of 8 and
+// every pointer 16-byte aligned; mask [B, N, N] f32 (null: none).  No bias,
+// key-keep, log-sum-exp or dropout.  hd in {16, 32, 64}.
+LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void* v, void* out,
+                                        const long long* st, const void* mask, int B, int N,
+                                        int nH, int hd, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || nH <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_heads<16>(q, k, v, out, st, mask, B, N, nH, scale, s);
+    case 32: return launch_heads<32>(q, k, v, out, st, mask, B, N, nH, scale, s);
+    case 64: return launch_heads<64>(q, k, v, out, st, mask, B, N, nH, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

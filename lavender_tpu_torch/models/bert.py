@@ -17,13 +17,22 @@ as the JAX package routes it:
 Each train kernel draws its own dropout seed from the step's generator
 (``dropout.draw_seed``, an int64 [1] left on the device), in the model, so
 the kernel path and ``plain_path()`` draw the same masks.  Embeddings and
-the MLM head are plain torch.  Only key-padding masks ([B, 1, 1, L] from
-``extended_attention_mask`` on a [B, L] mask) are taken; the full
-[B, L, L] mask path is not ported yet.
+the MLM head are plain torch.  Masks: a key-padding bias [B, 1, 1, L]
+(``extended_attention_mask`` on a [B, L] mask) takes the serving kernel
+``fused_bert_attn_block_kmask`` (K4), a full bias [B, 1, L, L] (on a
+[B, L, L] mask: seq2seq, captioning) ``fused_bert_attn_block`` (K6); both
+train routes take either.
+
+Incremental decoding with a static KV cache, as the JAX package has it:
+``BertEncoder.prefill`` runs the prefix (serving route) and returns each
+layer's K/V in a cache preallocated to its full length; ``decode_step``
+writes the new positions' K/V at a slot, in place, and attends over the
+whole cache with the module math (the JAX decode is plain XLA too), the
+FFN through K5.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,20 +42,24 @@ from lavender_tpu_torch.ops import layer_norm
 from lavender_tpu_torch.ops._build import select
 from lavender_tpu_torch.ops.dropout import draw_seed
 from lavender_tpu_torch.ops.encoder_attention import (
-    fused_bert_attn_block_kmask, fused_encoder_attention_train_lanes)
+    fused_bert_attn_block, fused_bert_attn_block_kmask,
+    fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_out_ln_train)
 
 
 def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
-    """[B, L] (1 = attend, 0 = masked) -> additive [B, 1, 1, L] f32 with
-    0 / finfo(f32).min (HF ``get_extended_attention_mask``)."""
-    if mask.dim() != 2:
-        raise NotImplementedError(
-            "only [B, L] key-padding masks are ported; [B, L, L] masks "
-            "(seq2seq, captioning) are not")
-    ext = mask[:, None, None, :].float()
-    return (1.0 - ext) * torch.finfo(torch.float32).min
+    """[B, L] or [B, Lq, Lk] (1 = attend, 0 = masked) -> additive
+    [B, 1, 1, L] or [B, 1, Lq, Lk] f32 with 0 / finfo(f32).min (HF
+    ``get_extended_attention_mask``)."""
+    if mask.dim() == 2:
+        ext = mask[:, None, None, :]
+    elif mask.dim() == 3:
+        ext = mask[:, None]
+    else:
+        raise ValueError(f"mask must be [B, L] or [B, Lq, Lk], got "
+                         f"{tuple(mask.shape)}")
+    return (1.0 - ext.float()) * torch.finfo(torch.float32).min
 
 
 def _ln(x, mod: nn.LayerNorm):
@@ -77,13 +90,24 @@ class BertEmbeddings(nn.Module):
         self.dropout_p = config.hidden_dropout_prob
 
     def forward(self, input_ids: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        L = input_ids.shape[1]
-        pos = torch.arange(L, device=input_ids.device)
-        x = (self.word_embeddings(input_ids) + self.position_embeddings(pos)
-             + self.token_type_embeddings(torch.zeros_like(input_ids)))
+                generator: Optional[torch.Generator] = None, *,
+                token_type_ids: Optional[torch.Tensor] = None,
+                position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """input_ids [B, L]; positions 0..L-1 and token type 0 unless given
+        (the KV-cache decode feeds positions (t-1, t))."""
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)
+        if token_type_ids is None:
+            token_type_ids = torch.zeros_like(input_ids)
+        x = (self.word_embeddings(input_ids)
+             + self.position_embeddings(position_ids)
+             + self.token_type_embeddings(token_type_ids))
         return dropout(_ln(x, self.LayerNorm), self.dropout_p, self.training,
                        generator)
+
+
+KVCache = Tuple[torch.Tensor, torch.Tensor]  # k, v: [B, nH, Lcache, hd]
 
 
 class BertSelfAttention(nn.Module):
@@ -93,6 +117,32 @@ class BertSelfAttention(nn.Module):
         self.query = nn.Linear(H, H)
         self.key = nn.Linear(H, H)
         self.value = nn.Linear(H, H)
+        self.num_heads = config.num_attention_heads
+
+    def heads(self, t: torch.Tensor) -> torch.Tensor:
+        B, L, C = t.shape
+        return t.view(B, L, self.num_heads, C // self.num_heads).transpose(
+            1, 2)
+
+    def kv(self, x: torch.Tensor) -> KVCache:
+        """K/V of ``x`` [B, L, C] in heads layout, for the cache prefill."""
+        return self.heads(self.key(x)), self.heads(self.value(x))
+
+    def decode_step(self, x_new: torch.Tensor, cache: KVCache, slot: int,
+                    attn_bias: torch.Tensor) -> torch.Tensor:
+        """Write the K/V of ``x_new`` [B, n, C] into ``cache`` at positions
+        slot..slot+n-1 (in place) and attend over the whole cache with
+        ``attn_bias`` [B, 1, n, Lcache]: scores and softmax in f32, as the
+        JAX ``_attend``'s XLA branch.  Returns [B, n, C]."""
+        B, n, C = x_new.shape
+        ck, cv = cache
+        q = self.heads(self.query(x_new))
+        ck[:, :, slot:slot + n] = self.heads(self.key(x_new))
+        cv[:, :, slot:slot + n] = self.heads(self.value(x_new))
+        s = (q.float() @ ck.float().transpose(-1, -2)) * (
+            C // self.num_heads) ** -0.5
+        p = torch.softmax(s + attn_bias.float(), dim=-1).to(cv.dtype)
+        return (p @ cv).transpose(1, 2).reshape(B, n, C)
 
 
 class BertSelfOutput(nn.Module):
@@ -105,11 +155,12 @@ class BertSelfOutput(nn.Module):
 
 class BertAttention(nn.Module):
     """Self-attention + output projection + residual + post-LN: in serving
-    one ``fused_bert_attn_block_kmask`` call (the JAX kmask serving
-    branch); in training with ``fused_attn_train`` K10 + K11 (the JAX
-    lanes train kernels), else the module math with attention-probability
-    and hidden dropout (JAX ``_attend``'s XLA branch and
-    ``BertSelfOutput``)."""
+    one ``fused_bert_attn_block_kmask`` call under a key-padding bias (the
+    JAX kmask serving branch) or one ``fused_bert_attn_block`` call under
+    a full [B, 1, L, L] bias (its full-mask branch); in training with
+    ``fused_attn_train`` K10 + K11 (the JAX lanes train kernels), else the
+    module math with attention-probability and hidden dropout (JAX
+    ``_attend``'s XLA branch and ``BertSelfOutput``)."""
 
     def __init__(self, config):
         super().__init__()
@@ -143,11 +194,7 @@ class BertAttention(nn.Module):
             return self._fused_train_forward(x, attn_bias, generator)
         B, L, C = x.shape
         s, o = self.self, self.output
-
-        def heads(t):
-            return t.reshape(B, L, self.num_heads, -1).transpose(1, 2)
-
-        q, k, v = heads(s.query(x)), heads(s.key(x)), heads(s.value(x))
+        q, k, v = s.heads(s.query(x)), s.heads(s.key(x)), s.heads(s.value(x))
         scores = (q @ k.transpose(-1, -2)) * self.scale + attn_bias
         p = torch.softmax(scores.float(), dim=-1)
         p = dropout(p, self.attn_dropout_p, True, generator)
@@ -157,17 +204,34 @@ class BertAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        if attn_bias.dim() != 4 or attn_bias.shape[-2] != 1:
-            raise NotImplementedError("only key-padding masks are ported")
+        """attn_bias: [B, 1, 1, L] (key padding) or [B, 1, L, L]."""
+        B, L, _ = x.shape
+        if attn_bias.dim() != 4 or tuple(attn_bias.shape[2:]) not in (
+                (1, L), (L, L)):
+            raise ValueError(f"attn_bias must be [B, 1, 1, {L}] or "
+                             f"[B, 1, {L}, {L}], got {tuple(attn_bias.shape)}")
         if self.training:
             return self._train_forward(x, attn_bias, generator)
-        keep = attn_bias[:, 0, 0, :] >= -0.5
         s, o = self.self, self.output
-        return select(fused_bert_attn_block_kmask)(
+        if attn_bias.shape[2] == 1:
+            op, mask = fused_bert_attn_block_kmask, attn_bias[:, 0, 0] >= -0.5
+        else:
+            op, mask = fused_bert_attn_block, attn_bias[:, 0].expand(B, L, L)
+        return select(op)(
             x, s.query.weight, s.key.weight, s.value.weight, s.query.bias,
             s.key.bias, s.value.bias, o.dense.weight, o.dense.bias,
-            o.LayerNorm.weight, o.LayerNorm.bias, keep, self.num_heads,
+            o.LayerNorm.weight, o.LayerNorm.bias, mask, self.num_heads,
             self.scale, o.LayerNorm.eps)
+
+    def kv(self, x: torch.Tensor) -> KVCache:
+        return self.self.kv(x)
+
+    def decode_step(self, x_new: torch.Tensor, cache: KVCache, slot: int,
+                    attn_bias: torch.Tensor) -> torch.Tensor:
+        """``BertSelfAttention.decode_step`` -> dense -> LN(+ x_new)."""
+        o = self.output
+        h = o.dense(self.self.decode_step(x_new, cache, slot, attn_bias))
+        return _ln(h + x_new, o.LayerNorm)
 
 
 class BertIntermediate(nn.Module):
@@ -198,26 +262,38 @@ class BertLayer(nn.Module):
         self.dropout_p = config.hidden_dropout_prob
         self.fused_train = config.fused_ffn_train
 
+    def _serve_ffn(self, x: torch.Tensor) -> torch.Tensor:
+        i, o = self.intermediate.dense, self.output
+        out = select(fused_ffn_post_ln)(
+            x.reshape(-1, x.shape[-1]), i.weight, i.bias, o.dense.weight,
+            o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
+            o.LayerNorm.eps)
+        return out.reshape(x.shape)
+
+    def kv(self, x: torch.Tensor) -> KVCache:
+        return self.attention.kv(x)
+
+    def decode_step(self, x_new: torch.Tensor, cache: KVCache, slot: int,
+                    attn_bias: torch.Tensor) -> torch.Tensor:
+        return self._serve_ffn(
+            self.attention.decode_step(x_new, cache, slot, attn_bias))
+
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         x = self.attention(x, attn_bias, generator)
+        if not self.training:
+            return self._serve_ffn(x)
         i, o = self.intermediate.dense, self.output
-        if self.training and self.fused_train:
+        if self.fused_train:
             out, _ = select(fused_ffn_post_ln_train)(
                 x.reshape(-1, x.shape[-1]), i.weight, i.bias, o.dense.weight,
                 o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
                 draw_seed(generator, x.device), o.LayerNorm.eps,
                 self.dropout_p)
             return out.reshape(x.shape)
-        if self.training:
-            h = o.dense(F.gelu(i(x)))
-            h = dropout(h, self.dropout_p, True, generator)
-            return _ln(h + x, o.LayerNorm)
-        out = select(fused_ffn_post_ln)(
-            x.reshape(-1, x.shape[-1]), i.weight, i.bias, o.dense.weight,
-            o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
-            o.LayerNorm.eps)
-        return out.reshape(x.shape)
+        h = o.dense(F.gelu(i(x)))
+        h = dropout(h, self.dropout_p, True, generator)
+        return _ln(h + x, o.LayerNorm)
 
 
 class BertEncoder(nn.Module):
@@ -233,6 +309,30 @@ class BertEncoder(nn.Module):
         for layer in self.layer:
             x = layer(x, attn_bias, generator)
         return x
+
+    def prefill(self, x: torch.Tensor, attn_bias: torch.Tensor,
+                cache_len: int) -> Tuple[torch.Tensor, List[KVCache]]:
+        """Run the prefix x [B, Lp, C] through the stack (serving route);
+        return its output and each layer's K/V cache [B, nH, cache_len, hd]
+        with the prefix at slots [0, Lp) and zeros after."""
+        caches = []
+        Lp = x.shape[1]
+        for layer in self.layer:
+            k, v = layer.kv(x)
+            ck = k.new_zeros(k.shape[:2] + (cache_len, k.shape[3]))
+            cv = torch.zeros_like(ck)
+            ck[:, :, :Lp], cv[:, :, :Lp] = k, v
+            caches.append((ck, cv))
+            x = layer(x, attn_bias)
+        return x, caches
+
+    def decode_step(self, x_new: torch.Tensor, caches: List[KVCache],
+                    slot: int, attn_bias: torch.Tensor) -> torch.Tensor:
+        """The new positions x_new [B, n, C] through every layer, each
+        writing its K/V into its cache at ``slot`` (in place)."""
+        for layer, cache in zip(self.layer, caches):
+            x_new = layer.decode_step(x_new, cache, slot, attn_bias)
+        return x_new
 
 
 class BertPredictionHeadTransform(nn.Module):

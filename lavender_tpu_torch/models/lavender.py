@@ -1,12 +1,15 @@
 """LAVENDER core model (port of lavender_tpu/models/lavender.py): Video
 Swin + adapter over uint8 clips, BERT text embeddings (``go_feat``), the
-fusion encoder over [video; text] (``go_cross``) and the MLM head
-(``mlm_head``).  ``forward`` is the serving composition; the task losses
-call the three parts separately (``tasks/retrieval.py``).  In ``train()``
-mode dropout and drop-path draw from the ``generator`` the parts take.
+fusion encoder over [video; (pretext); text] (``go_cross``) and the MLM
+head (``mlm_head``), plus the pretext features (``task_feat``,
+``encode_prompt``).  ``forward`` is the serving composition; the task
+losses call the parts separately (``tasks/``, ``models/captioning.py``).
+In ``train()`` mode dropout and drop-path draw from the ``generator`` the
+parts take.
 
 Ported variants: the default EncVideo (no ``odr``/``vt_mask``, not the
-SwinBERT adapter), the embeddings-only EncTxt and the "full" cross mask.
+SwinBERT adapter), the embeddings-only EncTxt, and the "full" and
+"seq2seq" cross masks.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from lavender_tpu_torch.config import TASK_TOK2ID
 from lavender_tpu_torch.models.bert import (
     BertEmbeddings, BertEncoder, BertMLMHead, extended_attention_mask)
 from lavender_tpu_torch.models.swin3d import VideoSwin3D
@@ -36,12 +40,29 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def build_cross_mask(mask_img: torch.Tensor, mask_txt: torch.Tensor,
-                     attn_mask_type: str = "full") -> torch.Tensor:
-    """Joint [B, Lv + Lt] key mask over [video; text] ("full" only)."""
-    if attn_mask_type != "full":
-        raise NotImplementedError(f"attn_mask_type {attn_mask_type!r} is not "
-                                  "ported (only 'full')")
-    return torch.cat([mask_img, mask_txt.to(mask_img.dtype)], dim=1)
+                     attn_mask_type: str = "full",
+                     mask_pretxt: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Joint mask over [video; (pretext); text] (reference model.py:194-221):
+    the key mask [B, L] for "full"; for "seq2seq" [B, L, L] int32, where
+    every row sees the video and pretext keys that their masks keep and
+    the text rows see the text causally (video and pretext rows see no
+    text; the text's own mask is not read, as in the reference)."""
+    full = mask_img if mask_pretxt is None else torch.cat(
+        [mask_img, mask_pretxt.to(mask_img.dtype)], dim=1)
+    if attn_mask_type == "full":
+        return torch.cat([full, mask_txt.to(full.dtype)], dim=1)
+    if attn_mask_type != "seq2seq":
+        raise ValueError(f"attn_mask_type must be 'full' or 'seq2seq', got "
+                         f"{attn_mask_type!r}")
+    B, Lf = full.shape
+    Lt = mask_txt.shape[1]
+    mask = torch.zeros(B, Lf + Lt, Lf + Lt, dtype=torch.int32,
+                       device=full.device)
+    mask[:, :, :Lf] = full[:, None, :].to(torch.int32)
+    mask[:, Lf:, Lf:] = torch.ones(Lt, Lt, dtype=torch.int32,
+                                   device=full.device).tril()
+    return mask
 
 
 class EncVideo(nn.Module):
@@ -123,18 +144,58 @@ class LavenderModel(nn.Module):
 
     def go_cross(self, feat_img: torch.Tensor, mask_img: torch.Tensor,
                  feat_txt: torch.Tensor, mask_txt: torch.Tensor,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None, *,
+                 attn_mask_type: str = "full",
+                 feat_pretxt: Optional[torch.Tensor] = None,
+                 mask_pretxt: Optional[torch.Tensor] = None
                  ) -> torch.Tensor:
-        """The fusion encoder over [video; text] ("full" mask)."""
-        feat = torch.cat([feat_img, feat_txt.to(feat_img.dtype)], dim=1)
-        bias = extended_attention_mask(build_cross_mask(mask_img, mask_txt))
-        return self.trsfr(feat, bias, generator)
+        """The fusion encoder over [video; (pretext); text] under the
+        ``attn_mask_type`` mask (reference model.py:223-243).  Pretext
+        features given alone are counted in ``mask_txt``; with
+        ``mask_pretxt`` they already lead ``feat_txt`` and their mask joins
+        the video's (the seq2seq prefix)."""
+        parts = [feat_img, feat_txt]
+        if feat_pretxt is not None and mask_pretxt is None:
+            parts.insert(1, feat_pretxt)
+            mask = build_cross_mask(mask_img, mask_txt, attn_mask_type)
+        else:
+            mask = build_cross_mask(mask_img, mask_txt, attn_mask_type,
+                                    mask_pretxt)
+        feat = torch.cat([t.to(feat_img.dtype) for t in parts], dim=1)
+        if feat.shape[1] != mask.shape[-1]:
+            raise ValueError(f"features ({feat.shape[1]}) and mask "
+                             f"({mask.shape[-1]}) differ in length")
+        return self.trsfr(feat, extended_attention_mask(mask), generator)
 
     def mlm_head(self, hidden: torch.Tensor) -> torch.Tensor:
         return self.fc_mtm(hidden)
 
+    def task_feat(self, task_name: str, batch_size: int):
+        """The learned task token of ``task_name`` and its mask: ([B, 1, H],
+        [B, 1]) (reference model.py:248-265)."""
+        feat = self.emb_task[TASK_TOK2ID[task_name]]
+        feat = feat.expand(batch_size, 1, feat.shape[-1])
+        return feat, torch.ones(batch_size, 1, dtype=torch.long,
+                                device=feat.device)
+
+    def encode_prompt(self, prompt_txt: torch.Tensor, batch_size: int,
+                      generator: Optional[torch.Generator] = None
+                      ) -> torch.Tensor:
+        """Prompt token ids [Lp] or [1, Lp] (or [B, Lp]) through the text
+        encoder, broadcast over the batch (reference model.py:266-288)."""
+        if prompt_txt.dim() == 1:
+            prompt_txt = prompt_txt[None]
+        feat = self.enc_txt(prompt_txt, generator)
+        if feat.shape[0] == 1 and batch_size > 1:
+            feat = feat.expand(batch_size, *feat.shape[1:])
+        return feat
+
     def forward(self, img: torch.Tensor, txt: torch.Tensor,
-                mask: torch.Tensor) -> torch.Tensor:
+                mask: torch.Tensor, attn_mask_type: str = "full"
+                ) -> torch.Tensor:
+        """MLM logits on the text slice [B, Lt, vocab] under the "full" or
+        "seq2seq" mask."""
         feat_img, mask_img, feat_txt, mask_txt = self.go_feat(img, txt, mask)
-        out = self.go_cross(feat_img, mask_img, feat_txt, mask_txt)
+        out = self.go_cross(feat_img, mask_img, feat_txt, mask_txt,
+                            attn_mask_type=attn_mask_type)
         return self.mlm_head(out[:, feat_img.shape[1]:])

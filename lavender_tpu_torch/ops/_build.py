@@ -1,14 +1,16 @@
 """Build, bind and launch the port's hand-written CUDA kernels.
 
 The sources under ``lavender_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into ONE shared library with a plain C interface, loaded with
-``ctypes``.  The build runs at first use (never at import), writes into
-``build/`` at the repository root, and is keyed by a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one is loaded as is.
+``sm_90a``, one process per source, all at once, and linked into ONE shared
+library with a plain C interface, loaded with ``ctypes``.  The build runs
+at first use (never at import), writes into ``build/`` at the repository
+root, and is keyed by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one is loaded as is.
 
 The primitives bound here (tiled GEMM with fused epilogues, row
-LayerNorm and its dropout + residual variant, attention core and its
-backward, both with optional dropout, row permutation, and a probe of the
+LayerNorm and its dropout + residual variant, attention core (on the
+packed qkv slab, or on strided heads-layout q, k, v) and its backward, both
+with optional dropout, row permutation, and a probe of the
 dropout hash) are what the ports of the TPU kernels are composed from, see
 ``swin_block_attn.py``, ``swin_core_attn.py``, ``wm_permute.py``,
 ``fused_mlp.py``, ``encoder_attention.py`` and ``dropout.py``.  Each launch goes on PyTorch's current stream,
@@ -34,9 +36,11 @@ from lavender_tpu_torch.ops.dropout import threshold
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
+# the heads-layout attention core's 12 element strides (host memory)
+_STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # the dropout arguments of a kernel: seed pointer (null = no dropout), the
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
@@ -47,6 +51,8 @@ _SIGNATURES = {
                                 _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                            *_DROP, _P],
+    "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _I, _I, _I,
+                                 _F, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, *_DROP, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
@@ -89,7 +95,8 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the library for their hash exists.
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, all started together, then one link.
 
     nvcc's output (with ``-Xptxas -v``: registers, shared memory and spills
     per kernel) is kept beside the library as ``<name>.log``."""
@@ -99,15 +106,32 @@ def build() -> Path:
     nvcc = find_nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
+    log = []
     with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = [Path(tmp) / f"{f.stem}.o" for f in cu]
+        jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                for f, o in zip(cu, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for cmd in jobs]
+        results = [p.communicate() + (p.returncode,) for p in procs]
         tmp_so = Path(tmp) / so.name
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp_so), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        so.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        link = [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                "-o", str(tmp_so), *map(str, objs)]
+        failed = [(cmd, err) for cmd, (_, err, rc) in zip(jobs, results)
+                  if rc != 0]
+        if not failed:
+            proc = subprocess.run(link, capture_output=True, text=True)
+            results.append((proc.stdout, proc.stderr, proc.returncode))
+            jobs.append(link)
+            if proc.returncode != 0:
+                failed.append((link, proc.stderr))
+        for cmd, (out, err, _) in zip(jobs, results):
+            log.append(" ".join(cmd) + "\n" + out + err)
+        so.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            cmd, err = failed[0]
+            raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{err[-4000:]}")
         os.replace(tmp_so, so)  # atomic: a reader never sees half a file
     return so
 
@@ -418,6 +442,39 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
         _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale), seed_ptr,
         thresh, drop_scale, _stream(qkv))
     _raise_on(err, "lvt_attention_bf16")
+    return out
+
+
+def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """The attention core on heads-layout q, k, v [B, nH, L, hd] (bf16, any
+    strides with the head dim contiguous, e.g. transposed views of
+    [B, L, nH, hd]) under an additive per-sequence f32 mask [B, L, L]
+    (contiguous), read in place.  Returns a contiguous [B, nH, L, hd]."""
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _check(t, f"attention_heads {what}", ndim=4)
+        if t.shape != q.shape or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
+            raise ValueError(f"attention_heads {what}: expected "
+                             f"{tuple(q.shape)} with strides that are "
+                             f"multiples of 8, got {tuple(t.shape)}, "
+                             f"{t.stride()}")
+    B, nH, L, hd = q.shape
+    if hd not in (16, 32, 64):
+        raise ValueError(f"attention_heads: head dim {hd} unsupported "
+                         "(16/32/64)")
+    if (mask.device != q.device or mask.dtype != torch.float32
+            or not mask.is_contiguous() or tuple(mask.shape) != (B, L, L)):
+        raise ValueError(f"attention_heads mask: expected a contiguous f32 "
+                         f"[{B}, {L}, {L}] on {q.device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+    out = torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *sum((t.stride()[:3] for t in (q, k, v, out)), ()))
+    err = library().lvt_attention_heads_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        mask.data_ptr(), B, L, nH, hd, float(scale), _stream(q))
+    _raise_on(err, "lvt_attention_heads_bf16")
     return out
 
 

@@ -1,5 +1,6 @@
 """BERT attention (port of lavender_tpu/ops/encoder_attention.py): the
-serving sub-block K4 and the train attention K10a / K10b.
+serving sub-blocks K4 and K6, the heads-layout core K7 and the train
+attention K10a / K10b.
 
 ``fused_bert_attn_block_kmask`` replaces the TPU kernel
 ``_attn_block_kernel_kmask`` (lavender_tpu/ops/encoder_attention.py:322,
@@ -13,6 +14,26 @@ softmax denominator, which holds only without max-subtraction; the port's
 attention core runs a stable softmax and skips masked keys instead.  L is
 not padded (the TPU padded it to a multiple of 8 for its tiles).  Bound:
 the qkv/proj GEMMs at M = B*276 rows and the attention core's f32 FLOPs.
+
+``fused_bert_attn_block`` replaces ``_attn_block_kernel`` (K6, :242,
+wrapper ``fused_bert_attn_block_forward`` :261): the same sub-block under
+a full additive [B, L, L] mask (the seq2seq / captioning masks), which the
+wrapper clamps at -1e4 before its bf16 cast (``finfo(f32).min`` would
+become -inf there) and the core adds per sequence.  Masked keys are not
+skipped: a row whose keys are all masked gets the softmax over its -1e4
+scores, as the JAX oracle ``bert_attn_block_reference`` computes (the TPU
+kernel, which pads L to a multiple of 8, lets its pad keys into such a
+row).  Bound: as K4's, plus the mask read.
+
+``fused_encoder_attention`` replaces ``_enc_attn_kernel`` (K7, :75, wrapper
+``fused_encoder_attention`` :192): softmax(q k^T * scale + max(mask, -1e4))
+v on q, k, v in heads layout [B, nH, L, hd] under an f32 [B, L, L] mask.
+On the card it is the same attention core, which reads each operand by its
+own (sequence, head, row) strides, so a transposed [B, L, nH, hd] view is
+read in place.  It lies on no model path, as in JAX (``BertAttention``
+takes the whole sub-block first).  Bound: device memory (q, k, v, o and
+the mask, each once).  K6 and K7 have the JAX custom_vjps' backward:
+autograd of the plain version, recomputed from the saved inputs.
 
 ``fused_encoder_attention_train_lanes`` replaces the TPU kernel
 ``_enc_attn_train_lanes_kernel`` (K10a, lavender_tpu/ops/
@@ -63,22 +84,131 @@ def _attn_block_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
     return layer_norm(x + F.linear(o, wproj, bproj), ln_w, ln_b, eps)
 
 
-def _attn_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
-                     keep, nH, scale, eps=1e-12):
+def _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
+                    nH, scale, eps, **core):
+    """q/k/v GEMMs into one slab -> attention core (``core``: its keep
+    vector or mask) -> proj GEMM + residual -> LN."""
     B, L, C = x.shape
     if not x.is_contiguous():
-        raise ValueError("fused_bert_attn_block_kmask: x must be contiguous")
+        raise ValueError("BERT attention sub-block: x must be contiguous")
     x2 = x.view(B * L, C)
     qkv = torch.empty(B * L, 3 * C, dtype=x.dtype, device=x.device)
     for i, (w, b) in enumerate(((wq, bq), (wk, bk), (wv, bv))):
         _build.gemm(x2, w, b, out=qkv[:, i * C:(i + 1) * C])
-    o = _build.attention(qkv, B, L, nH, scale, keep=keep)
+    o = _build.attention(qkv, B, L, nH, scale, **core)
     y = _build.gemm(o, wproj, bproj, residual=x2)
     return _build.layernorm(y, ln_w, ln_b, eps).view(B, L, C)
 
 
+def _attn_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
+                     keep, nH, scale, eps=1e-12):
+    return _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
+                           ln_b, nH, scale, eps, keep=keep)
+
+
 fused_bert_attn_block_kmask = _build.KernelOp(
     "K4 fused_bert_attn_block_kmask", _attn_block_plain, _attn_block_cuda)
+
+
+class _RecomputeVjp(torch.autograd.Function):
+    """``launch(*args)`` forward; backward = autograd of ``plain(*args)``
+    recomputed from the saved inputs (the JAX custom_vjps of K6 and K7)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.pos = [i for i, a in enumerate(args) if torch.is_tensor(a)]
+        ctx.args = list(args)
+        for i in ctx.pos:
+            ctx.args[i] = None
+        ctx.save_for_backward(*(args[i] for i in ctx.pos))
+        return launch(*args)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        args, leaves = list(ctx.args), []
+        for i, t in zip(ctx.pos, ctx.saved_tensors):
+            if ctx.needs_input_grad[i + 2]:
+                t = t.detach().requires_grad_(True)
+                leaves.append((i, t))
+            args[i] = t
+        grads = [None] * len(args)
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+            got = torch.autograd.grad(out, [t for _, t in leaves],
+                                      g.to(out.dtype), allow_unused=True)
+        for (i, _), d in zip(leaves, got):
+            grads[i] = d
+        return (None, None, *grads)
+
+
+def _core_plain(q, k, v, mask, scale):
+    """Plain PyTorch version of ``fused_encoder_attention`` (JAX
+    ``encoder_attention_reference``).
+
+    q, k, v [B, nH, L, hd]; mask [B, L, L] additive, clamped at -1e4;
+    scores, softmax and the P.V sum in f32.  Returns [B, nH, L, hd] in q's
+    dtype."""
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s + mask.float().clamp_min(-1e4)[:, None], dim=-1)
+    return (p @ v.float()).to(q.dtype)
+
+
+def _core_cuda(q, k, v, mask, scale):
+    # an f32 mask (the JAX kernel's), clamped before the Function, whose
+    # cast under autocast would take finfo(f32).min to -inf in bf16
+    return _RecomputeVjp.apply(
+        _build.attention_heads, _core_plain, q, k, v,
+        mask.float().clamp_min(-1e4).contiguous(), scale)
+
+
+fused_encoder_attention = _build.KernelOp(
+    "K7 fused_encoder_attention", _core_plain, _core_cuda)
+
+
+def _attn_block_mask_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
+                           ln_b, mask, nH, scale, eps=1e-12):
+    """Plain PyTorch version of ``fused_bert_attn_block`` (JAX
+    ``bert_attn_block_reference``): LN(x + proj(attention(q, k, v))) with
+    q/k/v = x W + b, 12 heads of ``_core_plain`` under the [B, L, L]
+    additive mask, clamped at -1e4 and cast to x's dtype as the kernel
+    takes it.  Weights in torch Linear layout; returns [B, L, C]."""
+    B, L, C = x.shape
+
+    def heads(t):
+        return t.view(B, L, nH, C // nH).transpose(1, 2)
+
+    q, k, v = (heads(F.linear(x, w, b))
+               for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+    o = _core_plain(q, k, v, mask.clamp_min(-1e4).to(x.dtype), scale)
+    o = o.transpose(1, 2).reshape(B, L, C)
+    return layer_norm(x + F.linear(o, wproj, bproj), ln_w, ln_b, eps)
+
+
+def _attn_block_mask_launch(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
+                            ln_b, mask, nH, scale, eps=1e-12):
+    B, L, _ = x.shape
+    if tuple(mask.shape) != (B, L, L):
+        raise ValueError(f"fused_bert_attn_block: mask must be [{B}, {L}, "
+                         f"{L}], got {tuple(mask.shape)}")
+    return _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
+                           ln_b, nH, scale, eps,
+                           mask=mask.to(x.dtype).contiguous())
+
+
+def _attn_block_mask_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
+                          ln_b, mask, nH, scale, eps=1e-12):
+    # clamped before any bf16 cast, where finfo(f32).min would become -inf
+    return _RecomputeVjp.apply(
+        _attn_block_mask_launch, _attn_block_mask_plain, x, wq, wk, wv, bq,
+        bk, bv, wproj, bproj, ln_w, ln_b, mask.clamp_min(-1e4), nH, scale,
+        eps)
+
+
+fused_bert_attn_block = _build.KernelOp(
+    "K6 fused_bert_attn_block", _attn_block_mask_plain, _attn_block_mask_cuda)
 
 
 def _lanes_plain(q, k, v, mask, seed, scale, rate, nH):

@@ -5,10 +5,14 @@ package: build ``LavenderModel`` on the card (or the CPU when asked),
 load the weights (converted from JAX params with ``convert.from_flax``,
 or a seeded random init), cast to bf16, precompute the serving caches
 once, then answer requests ``(img_u8 [B, T, H, W, 3], txt [B, Lt], mask [B, Lt]) -> logits
-[B, Lt, vocab]``.
+[B, Lt, vocab]`` under the "full" mask or, for captioning, the "seq2seq"
+one.  The caption decoder runs on the same model:
 
     server = LavenderServer(seed=0)  # Swin-B + BERT-base, on "cuda"
     logits = server(img_u8, txt, mask)
+    logits = server(img_u8, txt, mask, attn_mask_type="seq2seq")
+    generate = captioning.make_generate_fn(server.model, cls, sep, pad, msk)
+    ids, logprob = generate(img_u8)
 """
 from __future__ import annotations
 
@@ -48,13 +52,15 @@ class LavenderServer:
         self.model.build_serving_cache(frames, size, size)
 
     @torch.inference_mode()
-    def __call__(self, img_u8, txt, mask) -> torch.Tensor:
+    def __call__(self, img_u8, txt, mask,
+                 attn_mask_type: str = "full") -> torch.Tensor:
         """img_u8 uint8 [B, T, H, W, 3]; txt int [B, Lt]; mask [B, Lt]
-        (1 = token, 0 = padding).  Arrays or tensors; returns logits
-        [B, Lt, vocab] on the server's device, in its dtype."""
+        (1 = token, 0 = padding); ``attn_mask_type`` "full" or "seq2seq".
+        Arrays or tensors; returns logits [B, Lt, vocab] on the server's
+        device, in its dtype."""
         img = torch.as_tensor(img_u8, device=self.device)
         if img.dtype != torch.uint8:
             raise ValueError(f"clips must be uint8, got {img.dtype}")
         txt = torch.as_tensor(txt, device=self.device).long()
         mask = torch.as_tensor(mask, device=self.device).long()
-        return self.model(img, txt, mask)
+        return self.model(img, txt, mask, attn_mask_type)

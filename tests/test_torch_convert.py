@@ -25,7 +25,8 @@ from lavender_tpu_torch.models.bert import BertEncoder
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.ops import _build
 from lavender_tpu_torch.ops.encoder_attention import (
-    encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+    encoder_attention_train_lanes_bwd, fused_bert_attn_block,
+    fused_bert_attn_block_kmask, fused_encoder_attention,
     fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
@@ -50,9 +51,12 @@ def port_config(cfg):
 
 @pytest.mark.parametrize("name", ["SwinConfig", "BertConfig", "ModelConfig",
                                   "TrainConfig", "SWIN_PRESETS",
-                                  "IMAGENET"])
+                                  "IMAGENET", "TASK_TOK2ID"])
 def test_port_config_equals_jax(name):
     """The port's copy: same defaults and presets as the JAX package."""
+    if name == "TASK_TOK2ID":
+        assert tcfg.TASK_TOK2ID == jcfg.TASK_TOK2ID
+        return
     if name == "IMAGENET":
         for k in ("IMAGENET_MEAN", "IMAGENET_STD"):
             np.testing.assert_array_equal(getattr(tcfg, k),
@@ -144,6 +148,9 @@ def test_port_imports_no_jax():
         "                               'lavender_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('models.captioning', 'tasks.common', 'tasks.retrieval',\n"
+        "          'ops.encoder_attention', 'serve', 'train.trainer'):\n"
+        "    assert 'lavender_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'lavender_tpu'))\n"
         "assert 'jax' not in sys.modules and not bad, bad\n"
@@ -198,6 +205,12 @@ def _meta_args(op):
         keep = torch.ones(2, 8, dtype=torch.bool, device="meta")
         return (t(2, 8, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),
                 t(C, C), t(C), *ln, keep, nH, 0.25, 1e-12), {}
+    if op is fused_bert_attn_block:
+        return (t(2, 8, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),
+                t(C, C), t(C), *ln, t(2, 8, 8).float(), nH, 0.25, 1e-12), {}
+    if op is fused_encoder_attention:
+        q = t(2, nH, 8, C // nH)
+        return (q, q, q, t(2, 8, 8).float(), 0.25), {}
     seed = torch.zeros(1, dtype=torch.int64, device="meta")
     if op is fused_encoder_attention_train_lanes:
         return (t(2, 8, C), t(2, 8, C), t(2, 8, C), t(2, 8, 8), seed, 0.25,
@@ -218,7 +231,8 @@ def _meta_args(op):
     fused_ffn_post_ln, wm_shift_rows, swin_core_attn, swin_core_attn_bwd,
     fused_ln_mlp, fused_encoder_attention_train_lanes,
     encoder_attention_train_lanes_bwd, fused_out_ln_train,
-    fused_ffn_post_ln_train], ids=lambda op: op.name.split()[0])
+    fused_ffn_post_ln_train, fused_bert_attn_block, fused_encoder_attention],
+    ids=lambda op: op.name.split()[0])
 def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
     args, kw = _meta_args(op)
     before = op.launches

@@ -7,7 +7,10 @@ route's autograd Functions against autograd of the plain versions; the
 BERT train kernels (K10a/K10b, K11, K12) with dropout on, where kernel and
 plain version draw the same mask from the same seed (K11/K12's keep masks
 exactly equal), and the kernels' dropout hash against the PyTorch one bit
-for bit.
+for bit; the full-mask sub-block K6 and the heads-layout core K7 at odd
+lengths, head dims 32 and 64, finfo(f32).min masks (clamped) with a fully
+masked row, transposed (non-contiguous) heads-layout views for K7, their
+recompute-vjp gradients, and the raise on a CPU / CUDA mix.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -27,7 +30,8 @@ import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, dropout, layer_norm
 from lavender_tpu_torch.ops.encoder_attention import (
-    encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+    encoder_attention_train_lanes_bwd, fused_bert_attn_block,
+    fused_bert_attn_block_kmask, fused_encoder_attention,
     fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
@@ -419,3 +423,90 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # the backward needs the forward's lse
         encoder_attention_train_lanes_bwd(q, q, q, _rnd(gen, 2, 8, 8), seed,
                                           q, 0.25, 0.1, 1)
+
+
+def _full_mask(gen, B, L):
+    """An additive [B, L, L] f32 mask at 0 / finfo(f32).min (the model's,
+    before the wrappers' clamp): a seq2seq-like block structure, random
+    holes, one row that sees no key."""
+    keep = torch.rand(B, L, L, generator=gen, device="cuda") < 0.7
+    keep[:, :, :L // 2] = True
+    keep[:, L // 2:, L // 2:] &= torch.ones(L - L // 2, L - L // 2,
+                                            dtype=torch.bool,
+                                            device="cuda").tril()
+    keep[0, 1] = False
+    return torch.where(keep, 0.0, torch.finfo(torch.float32).min)
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("B,L,nH", [(1, 7, 2), (3, 33, 4), (2, 275, 12)])
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+def test_encoder_attention_matches_plain(gen, hd, B, L, nH, layout):
+    """K7 on [B, nH, L, hd] tensors or on transposed views of
+    [B, L, nH, hd] (read in place), forward and gradients."""
+    def heads():
+        if layout == "transposed":
+            return _rnd(gen, B, L, nH, hd).transpose(1, 2)
+        return _rnd(gen, B, nH, L, hd)
+
+    q, k, v = heads(), heads(), heads()
+    mask = _full_mask(gen, B, L)
+    w = _rnd(gen, B, nH, L, hd)
+    before = fused_encoder_attention.launches
+    res = []
+    for f in (fused_encoder_attention, fused_encoder_attention.plain):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = f(*ins, mask, hd ** -0.5)
+        res.append((o, torch.autograd.grad(o, ins, w)))
+    assert fused_encoder_attention.launches == before + 1
+    (ok, gk), (op_, gp) = res
+    assert ok.shape == (B, nH, L, hd) and ok.dtype == torch.bfloat16
+    _close(ok, op_, rel_l2=1e-2)
+    for a, b in zip(gk, gp):
+        _close(a, b, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("B,L,nH,C", [(1, 9, 2, 64), (2, 33, 4, 256),
+                                      (4, 275, 12, 768)])
+def test_full_mask_block_matches_plain(gen, B, L, nH, C):
+    """K6 under a [B, L, L] mask at finfo(f32).min, forward and the
+    recompute-vjp gradients of every input but the mask."""
+    lin = lambda o, i: (_rnd(gen, o, i, std=i ** -0.5), _rnd(gen, o))
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin(C, C) for _ in range(4))
+    args = [_rnd(gen, B, L, C), wq, wk, wv, bq, bk, bv, wo, bo,
+            1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)]
+    mask = _full_mask(gen, B, L)
+    w = _rnd(gen, B, L, C)
+    before = fused_bert_attn_block.launches
+    res = []
+    for f in (fused_bert_attn_block, fused_bert_attn_block.plain):
+        ins = [t.clone().requires_grad_(True) for t in args]
+        o = f(*ins, mask, nH, (C // nH) ** -0.5, 1e-12)
+        res.append((o, torch.autograd.grad(o, ins, w)))
+    assert fused_bert_attn_block.launches == before + 1
+    (ok, gk), (op_, gp) = res
+    _close(ok, op_, rel_l2=1e-2)
+    for a, b in zip(gk, gp):
+        _close(a, b, rel_l2=5e-2)
+
+
+def test_full_mask_wrappers_reject_a_device_mix(gen):
+    B, L, nH, hd = 2, 9, 2, 32
+    q = _rnd(gen, B, nH, L, hd)
+    cpu_mask = torch.zeros(B, L, L)
+    with pytest.raises(ValueError):  # the mask on the CPU
+        fused_encoder_attention(q, q, q, cpu_mask, 0.25)
+    with pytest.raises(ValueError):  # head dim 48
+        q48 = _rnd(gen, B, nH, L, 48)
+        fused_encoder_attention(q48, q48, q48, cpu_mask.cuda(), 0.25)
+    with pytest.raises(ValueError):  # a misaligned row stride
+        q_odd = _rnd(gen, B, nH, L, hd + 4)[..., :hd]
+        fused_encoder_attention(q_odd, q_odd, q_odd, cpu_mask.cuda(), 0.25)
+    C = nH * hd
+    x, w, b = _rnd(gen, B, L, C), _rnd(gen, C, C), _rnd(gen, C)
+    with pytest.raises(ValueError):
+        fused_bert_attn_block(x, w, w, w, b, b, b, w, b, b, b, cpu_mask, nH,
+                              0.25, 1e-12)
+    with pytest.raises(ValueError):  # a mask of the wrong shape
+        fused_bert_attn_block(x, w, w, w, b, b, b, w, b, b, b,
+                              cpu_mask.cuda()[:, :, :5], nH, 0.25, 1e-12)

@@ -28,12 +28,18 @@ nothing is ever run on the CPU instead:
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
    rows); K8b's and K7's one-call counterparts are
    scaled_dot_product_attention's backward with a bias that requires
-   grad and its forward with the additive mask;
+   grad and its forward with the additive mask; K14 (the spatial Swin
+   block, whole and attention half, also minus its residual) and K15
+   (the per-window attention, its yardstick SDPA with bias + shift mask
+   as one additive mask) at the four Swin-B stages at B=4 and B=8,
+   shifted and unshifted;
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
    kernel path's logits against the plain path's (the same server inside
-   ``plain_path()``); prints clips/s;
+   ``plain_path()``); prints clips/s; then the same model in eval() mode
+   under autograd: one request's loss and every gradient, kernel path
+   against plain path (K1, K2, K3, K4, K5 pass their gradients on);
 5. train slice: ``create_train_state`` + ``make_train_step`` on the
    default ``ModelConfig()`` (Swin-B + BERT-base, the fusion encoder on
    its default train route ``fused_attn_train=True``: K10a/K10b + K11),
@@ -58,16 +64,26 @@ nothing is ever run on the CPU instead:
    per generated token of both decoders; (c) the caption train step
    (``make_caption_loss_fn``, B=8, ``caption_masking``): loss and gradients
    kernels vs plain, launches (K10a/K10b/K11 under the seq2seq mask), ten
-   steps on one batch lowering the loss >= 1 nat on both paths, step time.
+   steps on one batch lowering the loss >= 1 nat on both paths, step time;
+7. the spatial Swin routes: (b) serving under ``attn_impl="fused"`` (K14)
+   and ``"pallas"`` (K15), 3 requests of B=4 each against the plain path,
+   the launch counts, clips/s beside the window-major route's, in turns;
+   (c) the ``remat=True`` train step on ModelConfig() (Swin-B + remat:
+   the wm route falls back to K14 everywhere, each block pair recomputed),
+   B=8: loss and gradients kernels vs plain, launches, ten steps lowering
+   the loss >= 1 nat, step time and peak memory beside the default
+   step's and beside remat with ``BertConfig.remat`` too; each serving
+   route's device-busy share under torch.profiler.
 
 The last lines: the card's name and power limit, then a JSON line of the
-kernels (per kernel: launches in the phase-4, phase-5 (b) and the checked
-phase-6 runs, K12's in 5 (e); its largest error in phase 3; ``ms``,
-``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per call x
-its calls in one serving forward plus one train step plus one seq2seq
-forward (K7: as if in each of its 12 layers) plus the text part of one
-KV decode (K4 and K5 in the prefill, K5 in the 19 steps), summed over
-the shapes;
+kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
+phase-6 and phase-7 runs, K12's in 5 (e); its largest error in phase 3;
+``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
+call x its calls in one serving forward plus one train step plus one
+seq2seq forward (K7: as if in each of its 12 layers) plus the text part
+of one KV decode (K4 and K5 in the prefill, K5 in the 19 steps) plus one
+"fused" and one "pallas" serving forward and one remat train step (K14,
+K15), summed over the shapes;
 ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the FLOPs over
 989 TFLOP/s), then the device line.
 """
@@ -161,7 +177,8 @@ def _compare(got, want, tol, rel_l2_max):
 @dataclasses.dataclass
 class Case:
     """One shape of one kernel: called ``count`` times in one serving
-    forward, one train step, one seq2seq forward and one KV decode
+    forward, one train step, one seq2seq forward, one KV decode, one
+    "fused" and one "pallas" serving forward and one remat train step
     together (0: checked only); ``flops`` and ``bytes`` of one call."""
     op: object
     name: str
@@ -471,6 +488,89 @@ def _kernel_cases(g):
             2 * rows * C * 2 + 2 * C * 3072 * 2))
     cases += _full_mask_cases(g, lin, ln)
     cases += _bert_train_cases(g, lin, ln)
+    cases += _spatial_cases(g, lin, ln)
+    return cases
+
+
+def _spatial_cases(g, lin, ln):
+    """K14 (both variants) and K15 at the four Swin-B stages' shapes on the
+    spatial layout [B, 5, side, side, C], B=4 and B=8, unshifted and (at
+    stages 1-3) shifted.  Counted: the "fused" serving forward (B=4: the
+    whole block at stages 1-3, the attention half at stage 4), the remat
+    train step (B=8: the attention half of every block, once in the
+    forward and once in its recomputation) and the "pallas" serving
+    forward (B=4: K15 in every block); the other cases are checked only.
+    K15's q, k, v are the strided views of one qkv product that the module
+    path passes; its library yardstick is scaled_dot_product_attention
+    with bias + shift mask as one additive [W, nH, N, N] mask."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_attn, fused_swin_block_full, rel_pos_bias_wm)
+    from lavender_tpu_torch.ops.window_attention import (
+        fused_window_attention)
+
+    window, shift, N = (5, 7, 7), (0, 3, 3), 245
+    cases = []
+    for stage, nW, C, nH, side, n_pairs in SWIN_STAGES:
+        hd, HD = C // nH, 4 * C
+        table = _rnd(g, 15 * 13 * 13, nH, std=1.0)
+        bias = rel_pos_bias_wm(table, relative_position_index((8, 7, 7)), N,
+                               N, torch.bfloat16)
+        (wqkv, bqkv), (wproj, bproj) = lin(3 * C, C), lin(C, C)
+        (n1w, n1b), (n2w, n2b) = ln(C), ln(C)
+        (w1, b1), (w2, b2) = lin(HD, C), lin(C, HD)
+        mlp = (n2w, n2b, w1, b1, w2, b2)
+        masks = [None]
+        if stage < 4:  # stage 4's 7 x 7 map fills its window: no shift
+            masks.append(torch.as_tensor(compute_shift_mask(
+                5, side, side, window, shift), device="cuda"))
+        w_bytes, mlp_bytes = (4 * C * C + 4 * C) * 2, (8 * C * C + 7 * C) * 2
+        for B, train in ((BATCH, False), (TRAIN_BATCH, True)):
+            M = B * 5 * side * side
+            x = _rnd(g, B, 5, side, side, C)
+            core_flops = 4.0 * B * nW * nH * N * N * hd
+            qkv = _rnd(g, B * nW, N, 3, nH, hd)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)  # [B * nW, nH, N, hd] views
+            for mask in masks:
+                kind = "shifted" if mask is not None else "unshifted"
+                # blocks of this kind in one forward
+                n_kind = n_pairs if stage < 4 else 2 * n_pairs
+                mask_b = None if mask is None else mask.to(torch.bfloat16)
+                mask_bytes = 0 if mask is None else mask.numel() * 2
+                args = (x, n1w, n1b, wqkv, bqkv, wproj, bproj, bias, mask_b)
+                statics = (window, shift if mask is not None else (0, 0, 0),
+                           nH, hd ** -0.5, 1e-5)
+                flops = 2.0 * M * C * 4 * C + core_flops
+                nbytes = 2 * M * C * 2 + w_bytes + bias.numel() * 2 + (
+                    mask_bytes)
+                name = f"B={B} stage {stage} C={C} nH={nH} {kind}"
+                cases.append(Case(
+                    fused_swin_block_full, name + " +MLP",
+                    n_kind if not train and stage < 4 else 0,
+                    (*args, *mlp, *statics), flops + 16.0 * M * C * C,
+                    nbytes + mlp_bytes, residual=x))
+                cases.append(Case(
+                    fused_swin_block_attn, name + " attention half",
+                    2 * n_kind if train else (n_kind if stage == 4 else 0),
+                    (*args, *statics), flops, nbytes, residual=x))
+                full = bias.float()[None].expand(B * nW, nH, N, N)
+                if mask is not None:
+                    full = (full.reshape(B, nW, nH, N, N)
+                            + mask[None, :, None]).reshape(B * nW, nH, N, N)
+                lib_mask = full.to(torch.bfloat16).contiguous()
+                cases.append(Case(
+                    fused_window_attention, f"W={B * nW} nH={nH} N={N} "
+                    f"hd={hd} {kind} (B={B} stage {stage})",
+                    0 if train else n_kind,
+                    (q, k, v, bias, mask, hd ** -0.5), core_flops,
+                    4 * B * nW * nH * N * hd * 2 + bias.numel() * 2
+                    + (0 if mask is None else mask.numel() * 4),
+                    library=lambda q=q, k=k, v=v, m=lib_mask, s=hd ** -0.5:
+                    F.scaled_dot_product_attention(q, k, v, attn_mask=m,
+                                                   scale=s)))
     return cases
 
 
@@ -764,7 +864,33 @@ def run_serving(ops, server):
               flush=True)
     print(f"[serve] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    _check_step("(eval-mode gradients, one request) kernels vs plain:",
+                _eval_loss_and_grads(server, requests[0], False),
+                _eval_loss_and_grads(server, requests[0], True),
+                _grad_groups(server.model), tag="serve")
     return counts
+
+
+def _eval_loss_and_grads(server, request, plain: bool):
+    """The serving model in eval() mode under autograd (JAX's
+    deterministic forward under jax.grad): (loss, {name: gradient}) of
+    the mean log-sum-exp of one request's logits.  Every kernel of the
+    serving path (K1 whole block, K2, K3, K4, K5) must pass its gradient
+    on."""
+    from lavender_tpu_torch.ops._build import plain_path
+
+    model = server.model
+    img, txt, mask = (torch.as_tensor(np.asarray(a), device="cuda")
+                      for a in request)
+    model.zero_grad(set_to_none=True)
+    with plain_path(plain):
+        logits = model(img, txt.long(), mask.long())
+    loss = logits.float().logsumexp(-1).mean()
+    loss.backward()
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
 
 
 def _train_batch(vocab: int):
@@ -805,23 +931,25 @@ def _loss_and_grads(state, loss_fn, batch, plain: bool):
     return float(loss.detach()), grads
 
 
-def _check_step(label, a, b, groups):
+def _check_step(label, a, b, groups, tag="train"):
     """Loss within LOSS_TOL and each gradient group within STEP_GRAD_REL_L2
     of the reference (a, b: (loss, grads) of the two sides)."""
     (loss_k, grads_k), (loss_p, grads_p) = a, b
     dl = abs(loss_k - loss_p)
-    print(f"[train] {label} loss {loss_k:.6f} vs {loss_p:.6f}: |diff| "
+    print(f"[{tag}] {label} loss {loss_k:.6f} vs {loss_p:.6f}: |diff| "
           f"{dl:.4g} (<= {LOSS_TOL} max(1, |loss|))", flush=True)
     ok = np.isfinite(loss_k) and dl <= LOSS_TOL * max(1.0, abs(loss_p))
     if grads_k.keys() != grads_p.keys():
+        odd = sorted(grads_k.keys() ^ grads_p.keys())
         raise AssertionError(f"{label}: the two sides give gradients to "
-                             "other params")
+                             f"other params: {odd[:8]}")
     for group, names in groups.items():
-        k = torch.cat([grads_k[n].flatten() for n in names if n in grads_k])
-        p = torch.cat([grads_p[n].flatten() for n in names if n in grads_p])
+        names = [n for n in names if n in grads_p]
+        k = torch.cat([grads_k[n].flatten() for n in names])
+        p = torch.cat([grads_p[n].flatten() for n in names])
         rel = float((k - p).norm() / p.norm().clamp_min(1e-30))
         finite = bool(torch.isfinite(k).all())
-        print(f"[train] {label} gradients {group} ({len(names)} tensors, "
+        print(f"[{tag}] {label} gradients {group} ({len(names)} tensors, "
               f"{k.numel()} values): rel_l2 {rel:.4g} (<= "
               f"{STEP_GRAD_REL_L2}), finite {finite}", flush=True)
         ok = ok and finite and rel <= STEP_GRAD_REL_L2
@@ -1213,6 +1341,160 @@ def run_captioning(ops, server):
     return total
 
 
+# The spatial routes' launches per Swin-B forward at T=5, 224 x 224, from
+# the JAX package's gates (full_block_fits_vmem holds at stages 1-3,
+# weights_fit_vmem fails at stage 4): "fused" runs the whole block K14 at
+# stages 1-3 (22 blocks), its attention half + K3 at stage 4 (2); "pallas"
+# runs K15 in all 24 blocks and K9 in the 22 blocks of stages 1-3.
+FUSED_SERVE = {"K14f": 22, "K14a": 2, "K3": 2}
+PALLAS_SERVE = {"K15": 24, "K9": 22}
+# one remat train step (B=8): the attention half and K9 (stages 1-3) in
+# the forward and again in the recomputation; the attention half's
+# backward recomputes through K8a / K8b once per block
+REMAT_STEP = {"K14a": 48, "K9": 44, "K8a": 24, "K8b": 24}
+
+
+def run_spatial(ops, wm_server):
+    """Phase 7: the spatial routes.  (b) serving under attn_impl="fused"
+    and "pallas": 3 requests of B=4 each against the plain path, launch
+    counts, clips/s beside the window-major route's in turns; (c) the
+    remat train step on ModelConfig(swin=Swin-B + remat=True), B=8: loss
+    and gradients kernels vs plain, launches, ten steps lowering the loss
+    >= 1 nat, step time and peak memory beside the default step's.
+    Returns the launches of the counted runs."""
+    from lavender_tpu_torch.config import (
+        SWIN_PRESETS, ModelConfig, TrainConfig)
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.serve import LavenderServer
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    total = {op: 0 for op in ops.values()}
+    layers = wm_server.config.bert.num_hidden_layers
+    rs = np.random.RandomState(5)
+    requests = []
+    for _ in range(N_REQUESTS):
+        img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(
+            np.uint8)
+        lens = rs.randint(5, TXT_LEN + 1, BATCH)
+        mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
+        txt = rs.randint(1, wm_server.config.bert.vocab_size,
+                         (BATCH, TXT_LEN)) * mask
+        requests.append((img, txt, mask))
+    servers = {"wm": wm_server}
+    for impl, per_fwd in (("fused", FUSED_SERVE), ("pallas", PALLAS_SERVE)):
+        cfg = ModelConfig(swin=dataclasses.replace(SWIN_PRESETS["base"],
+                                                   attn_impl=impl))
+        server = LavenderServer(cfg, seed=0, frames=FRAMES, size=SIZE)
+        servers[impl] = server
+        server(*requests[0])  # warm-up
+        expected = {ops[k]: n for k, n in per_fwd.items()}
+        expected[ops["K4"]] = expected[ops["K5"]] = layers
+        _reset(ops.values())
+        outs = [server(*r) for r in requests]
+        for op, n in _check_counts(ops.values(), expected, N_REQUESTS,
+                                   f"spatial (b) {impl}").items():
+            total[op] += n
+        for i, (out, req) in enumerate(zip(outs, requests)):
+            with plain_path():
+                ref = server(*req)
+            err, rel, ok = _compare(out, ref, SLICE_TOL, SLICE_REL_L2)
+            print(f"[spatial] (b) {impl} request {i}: logits "
+                  f"{tuple(out.shape)}; vs plain path max_abs_err {err:.4g} "
+                  f"rel_l2 {rel:.3g} (tol {SLICE_TOL} max(1,max|ref|), "
+                  f"{SLICE_REL_L2}), max|ref| "
+                  f"{float(ref.float().abs().max()):.3g}", flush=True)
+            if not (ok and tuple(out.shape) == (BATCH, TXT_LEN,
+                                                cfg.bert.vocab_size)):
+                raise AssertionError(f"(b) {impl} request {i}: kernel path "
+                                     "logits disagree with the plain path")
+    times = {name: [] for name in servers}
+    order = list(servers)
+    for name in order + order[::-1]:
+        times[name].append(_ms(lambda: servers[name](*requests[0]), 10))
+    for name, ts in times.items():
+        dt = sum(ts) / len(ts)
+        host_ms, busy_ms, n_dev = _device_profile(
+            lambda: servers[name](*requests[0]))
+        busy = ("device time not measured (the profiler recorded no device "
+                "activity)" if busy_ms is None else
+                f"device busy {busy_ms:.2f} ms of {host_ms:.2f} "
+                f"({busy_ms / host_ms:.1%}), {n_dev} device activities")
+        print(f"[spatial] (b) attn_impl={name!r} serving: {dt:.2f} ms per "
+              f"forward ({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{BATCH / dt * 1e3:.2f} clips/s at B={BATCH}; one forward "
+              f"under torch.profiler: {busy} ({_nvidia_smi()})", flush=True)
+    del servers["fused"], servers["pallas"], server
+    torch.cuda.empty_cache()
+
+    # (c) the remat train step: the wm route falls back to K14 in every
+    # stage, each block pair recomputed in the backward
+    cfg = ModelConfig(swin=dataclasses.replace(SWIN_PRESETS["base"],
+                                               remat=True))
+    loss_fn = retrieval.make_loss_fn(TRUE_ID, FALSE_ID)
+    batch = _train_batch(cfg.bert.vocab_size)
+    state = create_train_state(cfg, TrainConfig(max_iter=1000,
+                                                max_grad_norm=1.0), seed=0)
+    _check_step("(c) remat=True, kernels vs plain:",
+                _loss_and_grads(state, loss_fn, batch, False),
+                _loss_and_grads(state, loss_fn, batch, True),
+                _grad_groups(state.model), tag="spatial")
+    step = make_train_step(loss_fn, state)
+    expected = {ops[k]: n for k, n in REMAT_STEP.items()}
+    for k in ("K10a", "K10b", "K11"):
+        expected[ops[k]] = layers
+    _reset(ops.values())
+    step(batch)
+    for op, n in _check_counts(ops.values(), expected, 1,
+                               "spatial (c) remat step").items():
+        total[op] += n
+    del state, step
+    torch.cuda.empty_cache()
+    const = TrainConfig(lr=TRAIN_LR, warmup_ratio=0.0, max_iter=10 ** 9,
+                        max_grad_norm=1.0)
+    steps = {}
+    both = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert,
+                                                             remat=True))
+    for name, c in (("remat=True", cfg), ("default (wm)", ModelConfig()),
+                    ("remat=True + BertConfig.remat=True", both)):
+        steps[name] = make_train_step(loss_fn, create_train_state(
+            c, const, seed=0))
+    losses = [float(steps["remat=True"](batch)) for _ in range(TRAIN_STEPS)]
+    drop = losses[0] - losses[-1]
+    print(f"[spatial] (c) remat=True, {TRAIN_STEPS} steps at lr {TRAIN_LR}: "
+          f"loss {' '.join(f'{v:.4f}' for v in losses)}; down {drop:.4f} "
+          f"nat (>= {MIN_LOSS_DROP})", flush=True)
+    if not (all(np.isfinite(losses)) and drop >= MIN_LOSS_DROP):
+        raise AssertionError(f"(c) remat: the loss did not fall by "
+                             f"{MIN_LOSS_DROP} nat in {TRAIN_STEPS} steps")
+    for name in list(steps)[1:]:  # warm-up
+        if not np.isfinite(float(steps[name](batch))):
+            raise AssertionError(f"(c) {name}: non-finite loss")
+    times = {name: [] for name in steps}
+    peaks = {name: [] for name in steps}
+    order = list(steps)
+    for name in order + order[::-1]:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[name].append(_ms(lambda: steps[name](batch), 2))
+        peaks[name].append(torch.cuda.max_memory_allocated() - base)
+    for name in steps:
+        dt = sum(times[name]) / len(times[name])
+        print(f"[spatial] (c) {name} train step: {dt:.2f} ms per step "
+              f"({', '.join(f'{t:.2f}' for t in times[name])}), "
+              f"{TRAIN_BATCH / dt * 1e3:.2f} train clips/s at "
+              f"B={TRAIN_BATCH}; peak device memory above the resident "
+              f"states {max(peaks[name]) / 2 ** 30:.3f} GiB "
+              f"({_nvidia_smi()})", flush=True)
+    print(f"[spatial] (c) resident (three train states) "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    del steps
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1225,9 +1507,11 @@ def main() -> int:
     from lavender_tpu_torch.ops.fused_mlp import (
         fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
         fused_ln_mlp_chunked, fused_out_ln_train)
-    from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm)
     from lavender_tpu_torch.ops.swin_core_attn import (
         swin_core_attn, swin_core_attn_bwd)
+    from lavender_tpu_torch.ops.window_attention import fused_window_attention
     from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
 
     print(_nvidia_smi(), flush=True)  # the card's name and power limit
@@ -1248,7 +1532,9 @@ def main() -> int:
            "K8b": swin_core_attn_bwd, "K9": fused_ln_mlp,
            "K10a": fused_encoder_attention_train_lanes,
            "K10b": encoder_attention_train_lanes_bwd,
-           "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train}
+           "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train,
+           "K14a": fused_swin_block_attn, "K14f": fused_swin_block_full,
+           "K15": fused_window_attention}
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     server = build_server()
@@ -1257,6 +1543,8 @@ def main() -> int:
     train_counts = run_train(ops)
     torch.cuda.empty_cache()
     caption_counts = run_captioning(ops, server)
+    torch.cuda.empty_cache()
+    spatial_counts = run_spatial(ops, server)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/attention.cu",
@@ -1287,6 +1575,12 @@ def main() -> int:
                 "lavender_tpu/ops/fused_mlp.py:505"),
         "K12": ("lavender_tpu_torch/csrc/layernorm.cu",
                 "lavender_tpu/ops/fused_mlp.py:379"),
+        "K14a": ("lavender_tpu_torch/csrc/layernorm.cu",
+                 "lavender_tpu/ops/swin_block_attn.py:468"),
+        "K14f": ("lavender_tpu_torch/csrc/layernorm.cu",
+                 "lavender_tpu/ops/swin_block_attn.py:468"),
+        "K15": ("lavender_tpu_torch/csrc/attention.cu",
+                "lavender_tpu/ops/window_attention.py:49"),
     }
     kernels = []
     for key, op in ops.items():
@@ -1296,10 +1590,11 @@ def main() -> int:
             "name": op.name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": (serve_counts[op] + train_counts[op]
-                         + caption_counts[op]),
+                         + caption_counts[op] + spatial_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
+            "launches_spatial": spatial_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

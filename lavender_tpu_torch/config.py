@@ -7,11 +7,11 @@ The port's own copy of ``lavender_tpu/config.py`` (``SwinConfig``,
 ``lavender_tpu/data/transforms.py``: the port
 imports nothing of the JAX package.  Field names and defaults are the
 same, so a JAX config converts with ``dataclasses.asdict`` and a test
-holds the two sets of defaults equal.  Fields that only steer the JAX
-package's kernel routing (``attn_impl``, ``scan_blocks``, ``remat``,
-``fused_ffn``, ``fused_attn``) are kept so that such a conversion is
-lossless; the port reads ``fused_attn_train`` and ``fused_ffn_train`` to
-route the fusion encoder's train step as the JAX package does.
+holds the two sets of defaults equal.  The fields that steer the JAX
+package's routes steer the port's alike: ``SwinConfig.attn_impl``,
+``remat`` and ``scan_blocks`` (``models/swin3d.py``), ``BertConfig.
+remat``, ``fused_attn``, ``fused_ffn``, ``fused_attn_train`` and
+``fused_ffn_train`` (``models/bert.py``).
 """
 from __future__ import annotations
 

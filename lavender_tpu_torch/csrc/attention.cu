@@ -10,7 +10,12 @@
 // instantiation (HEADS) reads q, k and v and writes o in the heads layout
 // [B, nH, N, hd] of lavender_tpu/ops/encoder_attention.py _enc_attn_kernel,
 // each by its own (sequence, head, row) strides, under an f32 [B, N, N]
-// mask as there; the packed one keeps its fixed slab addressing.  It is also
+// mask as there; the packed one keeps its fixed slab addressing.  The
+// same heads-layout instantiation, given a per-head bias and a per-window
+// f32 mask (sequence w reads mask[w % nW]), is the per-window attention K15
+// (lavender_tpu/ops/window_attention.py _attn_kernel): q, k, v [W, nH, N,
+// hd], which the Swin module path passes as strided views of its qkv
+// product, read in place.  It is also
 // the forward of the Swin window-attention core K8a
 // (lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel): there it also
 // writes each query row's log-sum-exp of its scores (f32 [nSeq, nH, N]),
@@ -256,13 +261,16 @@ int launch_hd(const void* qkv, void* out, const void* bias, const void* mask, co
                                   thresh, drop_scale, s, HeadsLayout{});
 }
 
+// The heads layout (K7, K15): sequence s reads mask[s % nW] and the
+// per-head bias (null for K7).
 template <int HD>
 int launch_heads(const void* q, const void* k, const void* v, void* out, const long long* st,
-                 const void* mask, int B, int N, int nH, float scale, cudaStream_t s) {
+                 const void* bias, const void* mask, int B, int N, int nH, int nW, float scale,
+                 cudaStream_t s) {
   HeadsLayout hl{static_cast<const bf16*>(k), static_cast<const bf16*>(v)};
   for (int a = 0; a < 3; ++a)
     hl.q[a] = st[a], hl.k[a] = st[3 + a], hl.v[a] = st[6 + a], hl.o[a] = st[9 + a];
-  return launch<HD, false, true>(q, out, nullptr, mask, nullptr, nullptr, B, N, nH, B, scale,
+  return launch<HD, false, true>(q, out, bias, mask, nullptr, nullptr, B, N, nH, nW, scale,
                                  nullptr, 0u, 1.0f, s, hl);
 }
 
@@ -305,9 +313,28 @@ LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void
   if (B <= 0 || N <= 0 || nH <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return launch_heads<16>(q, k, v, out, st, mask, B, N, nH, scale, s);
-    case 32: return launch_heads<32>(q, k, v, out, st, mask, B, N, nH, scale, s);
-    case 64: return launch_heads<64>(q, k, v, out, st, mask, B, N, nH, scale, s);
+    case 16: return launch_heads<16>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s);
+    case 32: return launch_heads<32>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s);
+    case 64: return launch_heads<64>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// Per-window attention (K15): q, k, v -> out, each [W, nH, N, hd] addressed
+// as in lvt_attention_heads_bf16 by the element strides st[12]; bias
+// [nH, N, N] bf16 (null: none), mask [nW, N, N] f32 for window w's
+// w % nW (null: none).  hd in {16, 32, 64}.
+LVT_EXPORT int lvt_window_attention_bf16(const void* q, const void* k, const void* v, void* out,
+                                         const long long* st, const void* bias, const void* mask,
+                                         int W, int N, int nH, int hd, int nW, float scale,
+                                         void* stream) {
+  if (W <= 0 || N <= 0 || nH <= 0 || nW <= 0 || W % nW != 0 || nH > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return launch_heads<16>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s);
+    case 32: return launch_heads<32>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s);
+    case 64: return launch_heads<64>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,6 +15,12 @@
 // exact-erf GELU / residual epilogue applied while the accumulators go to
 // device memory, so no f32 intermediate is ever stored.  wgmma and TMA are
 // left for a later change.
+//
+// An optional row index scatters the epilogue: output row m (and its
+// residual row) is row rows[m] of C (and R).  The spatial Swin block K14
+// (lavender_tpu/ops/swin_block_attn.py _block_kernel) computes its proj in
+// window order and stores it, residual added, straight into the spatial
+// layout this way.
 #include <mma.h>
 
 #include "common.cuh"
@@ -62,7 +68,8 @@ __device__ __forceinline__ void load_stage(bf16* st, const bf16* A, int lda, con
 __global__ void __launch_bounds__(kThreads)
     gemm_bf16_kernel(const bf16* __restrict__ A, int lda, const bf16* __restrict__ W, int ldw,
                      const bf16* __restrict__ bias, const bf16* __restrict__ R, int ldr,
-                     bf16* __restrict__ C, int ldc, int M, int N, int K, int epi) {
+                     bf16* __restrict__ C, int ldc, int M, int N, int K, int epi,
+                     const int* __restrict__ rows) {
   __shared__ __align__(128) bf16 smem[2 * kStage];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -118,6 +125,7 @@ __global__ void __launch_bounds__(kThreads)
       const int gr = m0 + wm * 32 + i * 16 + r;
       const int gc = n0 + wn * 64 + j * 16 + c;
       if (gr < M && gc < N) {  // N % 8 == 0, so all 8 columns are in range
+        const size_t orow = rows == nullptr ? gr : rows[gr];
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = scratch[r * 16 + c + e];
@@ -132,11 +140,11 @@ __global__ void __launch_bounds__(kThreads)
           for (int e = 0; e < 8; ++e) v[e] = 0.5f * v[e] * (1.0f + erff(v[e] * 0.70710678118654752f));
         } else if (epi == kBiasResidual) {
           float rv[8];
-          lvt::unpack8(*reinterpret_cast<const uint4*>(R + (size_t)gr * ldr + gc), rv);
+          lvt::unpack8(*reinterpret_cast<const uint4*>(R + orow * ldr + gc), rv);
 #pragma unroll
           for (int e = 0; e < 8; ++e) v[e] += rv[e];
         }
-        *reinterpret_cast<uint4*>(C + (size_t)gr * ldc + gc) = lvt::pack8(v);
+        *reinterpret_cast<uint4*>(C + orow * ldc + gc) = lvt::pack8(v);
       }
       __syncwarp();
     }
@@ -147,10 +155,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // C[M, N] (row stride ldc) = epi(A[M, K] @ W[N, K]^T + bias[N] [+ R[M, N]]).
 // Requires K % 32 == 0, N % 8 == 0, all strides % 8 == 0 and 16-byte
-// aligned pointers (checked by the Python wrapper).  bias may be null.
+// aligned pointers (checked by the Python wrapper).  bias may be null;
+// rows (int32 [M], a permutation of C's rows, or null) sends output row m
+// to C's and R's row rows[m].
 LVT_EXPORT int lvt_gemm_bf16(const void* A, int lda, const void* W, int ldw, const void* bias,
                              const void* R, int ldr, void* C, int ldc, int M, int N, int K,
-                             int epi, void* stream) {
+                             int epi, const void* rows, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % BK != 0 || N % 8 != 0) return (int)cudaErrorInvalidValue;
   if (epi == kBiasResidual && R == nullptr) return (int)cudaErrorInvalidValue;
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
@@ -158,6 +168,6 @@ LVT_EXPORT int lvt_gemm_bf16(const void* A, int lda, const void* W, int ldw, con
   gemm_bf16_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(A), lda, static_cast<const bf16*>(W), ldw,
       static_cast<const bf16*>(bias), static_cast<const bf16*>(R), ldr, static_cast<bf16*>(C), ldc,
-      M, N, K, epi);
+      M, N, K, epi, static_cast<const int*>(rows));
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,11 @@
 // the row, 2 bytes each).  Design: one warp per row with the row held in
 // registers (C <= 1024, 32 values per lane), so the row is read once;
 // statistics in f32, two-pass variance (no E[x^2] - mean^2 cancellation).
+// An optional row index gathers the input: output row m is the LN of input
+// row rows[m].  The spatial Swin block K14 (lavender_tpu/ops/
+// swin_block_attn.py _block_kernel) reads its LN1 this way, the cyclic
+// shift and the window partition folded into the index, so that no
+// permuted copy of the block input is ever written.
 //
 // dropout_add_ln is the row epilogue of the BERT train kernels K11
 // (lavender_tpu/ops/fused_mlp.py _out_ln_train_kernel) and K12
@@ -30,11 +35,11 @@ constexpr int kMaxPerLane = 32;   // C <= 1024
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     layernorm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                           const bf16* __restrict__ b, bf16* __restrict__ y, int M, int C,
-                          float eps) {
+                          float eps, const int* __restrict__ rows) {
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
-  const bf16* xr = x + (size_t)row * C;
+  const bf16* xr = x + (size_t)(rows == nullptr ? row : rows[row]) * C;
   float v[kMaxPerLane];
   float s = 0.0f;
 #pragma unroll
@@ -123,13 +128,14 @@ LVT_EXPORT int lvt_dropout_add_ln_bf16(const void* x, const void* res, const voi
   return (int)cudaGetLastError();
 }
 
-// y[M, C] = LayerNorm(x[M, C]) with affine g, b; rows contiguous, C <= 1024.
+// y[M, C] = LayerNorm(x[M, C]) with affine g, b; rows contiguous, C <= 1024;
+// rows (int32 [M], indices of x's rows, or null): y[m] = LayerNorm(x[rows[m]]).
 LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
-                                  int C, float eps, void* stream) {
+                                  int C, float eps, const void* rows, void* stream) {
   if (M <= 0 || C <= 0 || C > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
   const int blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
   layernorm_bf16_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), M, C, eps);
+      static_cast<bf16*>(y), M, C, eps, static_cast<const int*>(rows));
   return (int)cudaGetLastError();
 }

@@ -4,8 +4,9 @@ lavender_tpu/models/bert.py).
 Module and parameter names are HuggingFace's (``layer.3.attention.self.
 query.weight``), the layout the reference checkpoints use.  Serving
 (``eval()``): the attention sub-block is ``fused_bert_attn_block_kmask``
-and the FFN sub-block is ``fused_ffn_post_ln``.  Training (``train()``),
-as the JAX package routes it:
+(``BertConfig.fused_attn``) and the FFN sub-block is ``fused_ffn_post_ln``
+(``fused_ffn``); with either off, the module math, as in JAX.  Training
+(``train()``), as the JAX package routes it:
 
 - ``BertConfig.fused_attn_train`` (default True): one qkv GEMM (plain
   torch, as JAX leaves it to XLA) -> ``fused_encoder_attention_train_lanes``
@@ -16,7 +17,9 @@ as the JAX package routes it:
 
 Each train kernel draws its own dropout seed from the step's generator
 (``dropout.draw_seed``, an int64 [1] left on the device), in the model, so
-the kernel path and ``plain_path()`` draw the same masks.  Embeddings and
+the kernel path and ``plain_path()`` draw the same masks.
+``BertConfig.remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``), replaying its draws.  Embeddings and
 the MLM head are plain torch.  Masks: a key-padding bias [B, 1, 1, L]
 (``extended_attention_mask`` on a [B, L] mask) takes the serving kernel
 ``fused_bert_attn_block_kmask`` (K4), a full bias [B, 1, L, L] (on a
@@ -37,8 +40,9 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from lavender_tpu_torch.ops import layer_norm
+from lavender_tpu_torch.ops import _build, layer_norm
 from lavender_tpu_torch.ops._build import select
 from lavender_tpu_torch.ops.dropout import draw_seed
 from lavender_tpu_torch.ops.encoder_attention import (
@@ -155,12 +159,13 @@ class BertSelfOutput(nn.Module):
 
 class BertAttention(nn.Module):
     """Self-attention + output projection + residual + post-LN: in serving
-    one ``fused_bert_attn_block_kmask`` call under a key-padding bias (the
-    JAX kmask serving branch) or one ``fused_bert_attn_block`` call under
-    a full [B, 1, L, L] bias (its full-mask branch); in training with
-    ``fused_attn_train`` K10 + K11 (the JAX lanes train kernels), else the
-    module math with attention-probability and hidden dropout (JAX
-    ``_attend``'s XLA branch and ``BertSelfOutput``)."""
+    (with ``fused_attn``, the default) one ``fused_bert_attn_block_kmask``
+    call under a key-padding bias (the JAX kmask serving branch) or one
+    ``fused_bert_attn_block`` call under a full [B, 1, L, L] bias (its
+    full-mask branch); in training with ``fused_attn_train`` K10 + K11
+    (the JAX lanes train kernels); else the module math, in training with
+    attention-probability and hidden dropout (JAX ``_attend``'s XLA branch
+    and ``BertSelfOutput``)."""
 
     def __init__(self, config):
         super().__init__()
@@ -170,6 +175,7 @@ class BertAttention(nn.Module):
         self.scale = float(config.hidden_size // self.num_heads) ** -0.5
         self.attn_dropout_p = config.attention_probs_dropout_prob
         self.hidden_dropout_p = config.hidden_dropout_prob
+        self.fused_serve = config.fused_attn
         self.fused_train = config.fused_attn_train
 
     def _fused_train_forward(self, x, attn_bias, generator):
@@ -189,17 +195,17 @@ class BertAttention(nn.Module):
             self.hidden_dropout_p)
         return out.view(B, L, C)
 
-    def _train_forward(self, x, attn_bias, generator):
-        if self.fused_train:
-            return self._fused_train_forward(x, attn_bias, generator)
+    def _module_forward(self, x, attn_bias, generator):
+        """The module math (dropout in training only)."""
         B, L, C = x.shape
         s, o = self.self, self.output
         q, k, v = s.heads(s.query(x)), s.heads(s.key(x)), s.heads(s.value(x))
         scores = (q @ k.transpose(-1, -2)) * self.scale + attn_bias
         p = torch.softmax(scores.float(), dim=-1)
-        p = dropout(p, self.attn_dropout_p, True, generator)
+        p = dropout(p, self.attn_dropout_p, self.training, generator)
         ctx = (p.to(v.dtype) @ v).transpose(1, 2).reshape(B, L, C)
-        h = dropout(o.dense(ctx), self.hidden_dropout_p, True, generator)
+        h = dropout(o.dense(ctx), self.hidden_dropout_p, self.training,
+                    generator)
         return _ln(h + x, o.LayerNorm)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
@@ -210,8 +216,10 @@ class BertAttention(nn.Module):
                 (1, L), (L, L)):
             raise ValueError(f"attn_bias must be [B, 1, 1, {L}] or "
                              f"[B, 1, {L}, {L}], got {tuple(attn_bias.shape)}")
-        if self.training:
-            return self._train_forward(x, attn_bias, generator)
+        if self.training and self.fused_train:
+            return self._fused_train_forward(x, attn_bias, generator)
+        if self.training or not self.fused_serve:
+            return self._module_forward(x, attn_bias, generator)
         s, o = self.self, self.output
         if attn_bias.shape[2] == 1:
             op, mask = fused_bert_attn_block_kmask, attn_bias[:, 0, 0] >= -0.5
@@ -251,8 +259,9 @@ class BertOutput(nn.Module):
 class BertLayer(nn.Module):
     """Post-LN layer: attention sub-block, then the FFN sub-block
     LN(x + fc2(GELU(fc1 x))), in serving as one ``fused_ffn_post_ln``
-    call, in training as one ``fused_ffn_post_ln_train`` call with
-    ``fused_ffn_train``, else as the module math with hidden dropout."""
+    call with ``fused_ffn`` (the default), in training as one
+    ``fused_ffn_post_ln_train`` call with ``fused_ffn_train``, else as the
+    module math (with hidden dropout in training)."""
 
     def __init__(self, config):
         super().__init__()
@@ -260,9 +269,20 @@ class BertLayer(nn.Module):
         self.intermediate = BertIntermediate(config)
         self.output = BertOutput(config)
         self.dropout_p = config.hidden_dropout_prob
+        self.fused_serve = config.fused_ffn
         self.fused_train = config.fused_ffn_train
 
+    def _module_ffn(self, x: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+        """LN(x + dropout(fc2(GELU(fc1 x)))), dropout in training only."""
+        i, o = self.intermediate.dense, self.output
+        h = dropout(o.dense(F.gelu(i(x))), self.dropout_p, self.training,
+                    generator)
+        return _ln(h + x, o.LayerNorm)
+
     def _serve_ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.fused_serve:
+            return self._module_ffn(x, None)
         i, o = self.intermediate.dense, self.output
         out = select(fused_ffn_post_ln)(
             x.reshape(-1, x.shape[-1]), i.weight, i.bias, o.dense.weight,
@@ -291,23 +311,55 @@ class BertLayer(nn.Module):
                 draw_seed(generator, x.device), o.LayerNorm.eps,
                 self.dropout_p)
             return out.reshape(x.shape)
-        h = o.dense(F.gelu(i(x)))
-        h = dropout(h, self.dropout_p, True, generator)
-        return _ln(h + x, o.LayerNorm)
+        return self._module_ffn(x, generator)
+
+
+def _replayed(layer: nn.Module, x: torch.Tensor, attn_bias: torch.Tensor,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """``layer(x, attn_bias, generator)`` under ``checkpoint``, its random
+    draws replayed by the recomputation: the layer draws from a copy of
+    the generator's state taken before it ran (the dropout masks of the
+    module math and the seeds of the train kernels alike), and the
+    generator then advances as far as the first run took it, as it would
+    without the checkpoint."""
+    plain = _build.in_plain_path()
+    state = None if generator is None else generator.get_state()
+    runs = []
+
+    def run(x, attn_bias):
+        g = None
+        if generator is not None:
+            g = torch.Generator(generator.device)
+            g.set_state(state)
+        runs.append(g)
+        with _build.plain_path(plain):
+            return layer(x, attn_bias, g)
+
+    out = checkpoint(run, x, attn_bias, use_reentrant=False,
+                     preserve_rng_state=generator is None)
+    if generator is not None:
+        generator.set_state(runs[0].get_state())
+    return out
 
 
 class BertEncoder(nn.Module):
-    """Stack of BertLayers (the fusion encoder ``trsfr``)."""
+    """Stack of BertLayers (the fusion encoder ``trsfr``).  With
+    ``BertConfig.remat`` a training forward under autograd recomputes
+    each layer in the backward instead of storing its activations (JAX
+    ``nn.remat`` per layer, bert.py:426)."""
 
     def __init__(self, config):
         super().__init__()
         self.layer = nn.ModuleList(
             BertLayer(config) for _ in range(config.num_hidden_layers))
+        self.remat = config.remat
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for layer in self.layer:
-            x = layer(x, attn_bias, generator)
+            x = (_replayed(layer, x, attn_bias, generator) if remat
+                 else layer(x, attn_bias, generator))
         return x
 
     def prefill(self, x: torch.Tensor, attn_bias: torch.Tensor,

@@ -72,7 +72,8 @@ class EncVideo(nn.Module):
     def __init__(self, config):
         super().__init__()
         if config.swinbert:
-            raise NotImplementedError("the SwinBERT adapter is not ported")
+            raise NotImplementedError("ModelConfig.swinbert: the SwinBERT "
+                                      "adapter is not ported")
         self.swin = VideoSwin3D(config.swin)
         hidden = config.hidden_size
         latent = config.swin.num_features
@@ -107,7 +108,9 @@ class EncTxt(nn.Module):
     def __init__(self, config):
         super().__init__()
         if not config.txt_backbone_embed_only:
-            raise NotImplementedError("the text transformer is not ported")
+            raise NotImplementedError(
+                "ModelConfig.txt_backbone_embed_only=False: the text "
+                "transformer is not ported")
         self.emb_txt = BertEmbeddings(config.bert)
 
     def forward(self, txt: torch.Tensor,

@@ -1,17 +1,43 @@
 """Video Swin Transformer 3D (port of lavender_tpu/models/swin3d.py).
 
-Channels-last ``[B, T, H, W, C]`` throughout; each stage runs
-window-major ``[B, nW, Npad, C]`` (N = wd*wh*ww tokens per window, padded
-to a multiple of 8).  Serving (``eval()``) runs each block as
-``fused_swin_block_wm`` and, at stage 4, ``fused_ln_mlp_chunked``.
-Training (``train()``) runs the JAX package's drop-path route
-(``SwinBlockWM.__call__`` with ``use_dp``): x <- drop_path_lerp(x,
-K1 attention half); x <- x + drop_path(K9 ``fused_ln_mlp``), with the
-rel-pos biases gathered from the tables on every forward under autograd.
-The cyclic shift around every second block is ``wm_shift`` (K2) in both.
-Parameter names follow the reference's torch modules
-(``layers.0.blocks.1.attn.qkv.weight``), which is also what
-``convert.from_flax`` produces from the JAX package's scan layout.
+Channels-last ``[B, T, H, W, C]`` throughout.  Each stage picks its route
+from ``SwinConfig`` and its geometry exactly as the JAX package's
+``BasicLayer`` does (``resolve_attn_impl``, ``wm_ok``, ``fused_ok``):
+
+- ``attn_impl`` "auto" or "wm" (the default): the window-major route, when
+  the window tiles the stage (``supports_fused_block``), the depth is even,
+  ``scan_blocks`` and not ``remat``: the stage runs on [B, nW, Npad, C]
+  (N = wd*wh*ww tokens per window, padded to a multiple of 8).  Serving
+  (``eval()``) runs each block as ``fused_swin_block_wm`` (K1) and, at
+  Swin-B's stage 4, ``fused_ln_mlp_chunked`` (K3).  Training
+  (``train()``) runs the JAX package's drop-path route
+  (``SwinBlockWM.__call__`` with ``use_dp``): x <- drop_path_lerp(x, K1
+  attention half); x <- x + drop_path(K9 ``fused_ln_mlp``).  The cyclic
+  shift around every second block is ``wm_shift`` (K2).  A stage the wm
+  route refuses falls back, stage by stage, to "fused".
+- "fused": the spatial route (JAX ``SwinBlock3D``): where the window tiles
+  the stage, the whole block ``fused_swin_block_full`` (K14) or its
+  attention half ``fused_swin_block_attn`` (K14, under drop-path in
+  training) + the MLP through K9 / K3 / plain torch by the JAX package's
+  VMEM gates (``full_block_fits_vmem``, ``weights_fit_vmem``, kept as
+  routing predicates); elsewhere the module path below, its MLP through K9
+  where the weights fit.
+- "pallas": the module path with the per-window attention
+  ``fused_window_attention`` (K15), its MLP through K9 where the weights
+  fit.
+- "xla": the module path in plain torch: LN1, zero pad to the window,
+  roll, ``window_partition``, window attention, reverse, roll back, crop;
+  then LN2 + MLP.  No kernel.
+
+The non-wm stages run their blocks as (no-shift, shift) pairs (the JAX
+``_BlockPair`` scan) or, under ``scan_blocks=False`` or an odd depth, one
+by one, each unit under ``torch.utils.checkpoint`` with ``remat`` (the
+JAX ``nn.remat``).  The drop-path coefficients of a stage are drawn from
+the step's generator before any of its blocks runs and passed in, so that
+a recomputation replays them.  Parameter names follow the reference's
+torch modules (``layers.0.blocks.1.attn.qkv.weight``), which is also what
+``convert.from_flax`` produces from the JAX package's scan layout and from
+its per-block one (``layers_0/blocks_1``).
 
 What runs where: the uint8 patch embed (normalize folded into the conv
 weights), PatchMerging, the window partition/reverse and the final LN are
@@ -21,19 +47,26 @@ kernels.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from lavender_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
-from lavender_tpu_torch.ops import layer_norm
+from lavender_tpu_torch.ops import _build, layer_norm
 from lavender_tpu_torch.ops._build import select
-from lavender_tpu_torch.ops.fused_mlp import fused_ln_mlp, fused_ln_mlp_chunked
+from lavender_tpu_torch.ops.fused_mlp import (
+    _mlp_plain, fused_ln_mlp, fused_ln_mlp_chunked, weights_fit_vmem)
 from lavender_tpu_torch.ops.swin_block_attn import (
-    fused_swin_block_wm, mlp_in_block, pad_window_mask, rel_pos_bias_wm,
-    round8, wm_partition, wm_reverse, wm_shift)
+    fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
+    mlp_in_block, pad_window_mask, rel_pos_bias_wm, round8, window_msa,
+    window_partition, window_reverse, wm_partition, wm_reverse, wm_shift)
+from lavender_tpu_torch.ops.window_attention import (
+    fused_window_attention, window_attention_reference)
 
 
 def get_window_size(x_size: Sequence[int], window_size: Sequence[int],
@@ -122,27 +155,67 @@ def drop_path_lerp(x: torch.Tensor, full: torch.Tensor, rate: float,
     return x + _keep_coef(x, rate, generator) * (full - x)
 
 
-def supports_wm(D: int, H: int, W: int, window: Sequence[int]) -> bool:
-    """The window-major path needs the temporal window to cover D and H, W
-    divisible by the window (as the JAX package's supports_fused_block)."""
+ATTN_IMPLS = ("auto", "wm", "fused", "pallas", "xla")
+
+
+def resolve_attn_impl(impl: str) -> str:
+    """"auto" -> "wm", as the JAX package resolves it on its accelerator
+    (swin3d.py:201; it takes "xla" off the TPU only because its kernels
+    lower there alone, while the port's run on the card and, as their
+    plain versions, on the CPU).  The JAX package's other "auto" case,
+    tensor parallelism, has no counterpart in the port."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"SwinConfig.attn_impl must be one of {ATTN_IMPLS}, "
+                         f"got {impl!r}")
+    return "wm" if impl == "auto" else impl
+
+
+def supports_fused_block(D: int, H: int, W: int, window: Sequence[int]
+                         ) -> bool:
+    """Whether the window tiles the stage without a temporal shift: the
+    temporal window covers D (after ``get_window_size``) and H, W are
+    multiples of the window (JAX ``supports_fused_block``,
+    ops/swin_block_attn.py:163).  Gates both the wm and the K14 routes."""
     return D <= window[0] and H % window[1] == 0 and W % window[2] == 0
 
 
+def full_block_fits_vmem(C: int, HD: int, nH: int, window: Sequence[int]
+                         ) -> bool:
+    """Whether a spatial ``"fused"`` block runs whole
+    (``fused_swin_block_full``) or as its attention half + a separate MLP:
+    the JAX package's VMEM gate (ops/swin_block_attn.py:843) at its padded
+    window Np = wd*wh*round8(ww), kept as a routing predicate."""
+    return mlp_in_block(C, HD, nH, window[0] * window[1] * round8(window[2]))
+
+
 class WindowAttention3D(nn.Module):
-    """Parameters of one block's window attention (the op itself is
-    ``fused_swin_block_wm``)."""
+    """Parameters of one block's window attention, and the module path's
+    attention over windows [B * nW, N, C] (JAX ``WindowAttention3D``).
+    The window-major and K14 routes pass the parameters to their kernels
+    instead."""
 
     def __init__(self, dim: int, window_size: Tuple[int, int, int],
-                 num_heads: int, qk_scale: Optional[float] = None):
+                 num_heads: int, qkv_bias: bool = True,
+                 qk_scale: Optional[float] = None):
         super().__init__()
         self.num_heads = num_heads
         self.scale = qk_scale or (dim // num_heads) ** -0.5
-        self.qkv = nn.Linear(dim, 3 * dim)
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
         n = ((2 * window_size[0] - 1) * (2 * window_size[1] - 1)
              * (2 * window_size[2] - 1))
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros(n, num_heads))
+
+    def forward(self, x: torch.Tensor, bias: torch.Tensor,
+                mask: Optional[torch.Tensor], attn_impl: str) -> torch.Tensor:
+        """x [B * nW, N, C]; bias [nH, N, N]; mask [nW, N, N] or None;
+        "pallas" runs K15, anything else the plain attention."""
+        core = (select(fused_window_attention) if attn_impl == "pallas"
+                else window_attention_reference)
+        return window_msa(x, self.qkv.weight, self.qkv.bias, self.proj.weight,
+                          self.proj.bias, bias, mask, self.num_heads,
+                          self.scale, core)
 
 
 class Mlp(nn.Module):
@@ -152,28 +225,55 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, dim)
 
 
-class SwinBlockWM(nn.Module):
-    """One Swin block on window-major tokens [B, nW, Npad, C].
+@dataclass
+class SpatialGeometry:
+    """What the spatial blocks of one stage share at one input size: the
+    (shrunk) window and shift, the padded map, the route of the attention
+    (K14 or the module path) and the shift mask of the shifted blocks
+    ([nW, N, N] over the padded map, None where nothing shifts)."""
+    window: Tuple[int, int, int]
+    shift: Tuple[int, int, int]
+    padded: Tuple[int, int, int]
+    fused: bool
+    mask: Optional[torch.Tensor]
 
-    Serving: the whole block is ``fused_swin_block_wm``; when the MLP does
-    not run inside it (``mlp_in_block``: Swin-B stage 4) the LN2 + MLP +
-    residual is ``fused_ln_mlp_chunked``.  Training: the attention half
-    ``fused_swin_block_wm`` under ``drop_path_lerp``, then
-    x + drop_path(``fused_ln_mlp``) (the JAX ``use_dp`` route)."""
+
+def _scaled(t: torch.Tensor, coef: Optional[torch.Tensor]) -> torch.Tensor:
+    """Drop-path of a branch by its drawn per-sample coefficient."""
+    return t if coef is None else t * coef
+
+
+class SwinBlock3D(nn.Module):
+    """One Swin block: one parameter set, two forwards.
+
+    ``wm``: the block on window-major tokens [B, nW, Npad, C] (JAX
+    ``SwinBlockWM``).  Serving: the whole block is ``fused_swin_block_wm``;
+    when the MLP does not run inside it (``mlp_in_block``: Swin-B stage 4)
+    the LN2 + MLP + residual is ``fused_ln_mlp_chunked``.  Training: the
+    attention half ``fused_swin_block_wm`` under ``drop_path_lerp``, then
+    x + drop_path(``fused_ln_mlp``) (the JAX ``use_dp`` route).
+
+    ``spatial``: the block on [B, D, H, W, C] (JAX ``SwinBlock3D``), see
+    the module notes."""
 
     def __init__(self, dim: int, num_heads: int,
                  window_size: Tuple[int, int, int], mlp_ratio: float = 4.0,
-                 qk_scale: Optional[float] = None, eps: float = 1e-5):
+                 qkv_bias: bool = True, qk_scale: Optional[float] = None,
+                 eps: float = 1e-5):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=eps)
-        self.attn = WindowAttention3D(dim, window_size, num_heads, qk_scale)
+        self.attn = WindowAttention3D(dim, window_size, num_heads, qkv_bias,
+                                      qk_scale)
         self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x: torch.Tensor, bias: torch.Tensor,
-                mask: Optional[torch.Tensor], n_valid: int,
-                dp_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _mlp_args(self):
+        return (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
+
+    def wm(self, x: torch.Tensor, bias: torch.Tensor,
+           mask: Optional[torch.Tensor], n_valid: int, dp_rate: float = 0.0,
+           generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x [B, nW, Npad, C]; bias [nH, Npad, Npad] (rel_pos_bias_wm);
         mask [nW, Npad, Npad] for a shifted block, else None; ``n_valid``
         the real rows of a window; ``dp_rate`` and ``generator`` the
@@ -185,8 +285,7 @@ class SwinBlockWM(nn.Module):
                 self.attn.qkv.bias, self.attn.proj.weight,
                 self.attn.proj.bias, bias, mask, nH, self.attn.scale,
                 self.norm1.eps)
-        mlp = (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
-               self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        mlp = self._mlp_args()
         if self.training:
             x = drop_path_lerp(x, block(x, *args, n_valid=n_valid), dp_rate,
                                generator)
@@ -198,6 +297,63 @@ class SwinBlockWM(nn.Module):
         x = block(x, *args)
         return select(fused_ln_mlp_chunked)(x.reshape(-1, C), *mlp,
                                             self.norm2.eps).reshape(x.shape)
+
+    def spatial(self, x: torch.Tensor, bias: torch.Tensor,
+                geo: SpatialGeometry, shifted: bool, attn_impl: str,
+                use_dp: bool, coef1: Optional[torch.Tensor] = None,
+                coef2: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, D, H, W, C]; bias [nH, N, N] (the full window's index
+        sliced [:N, :N]); ``geo`` the stage's geometry, ``shifted`` whether
+        this block takes its shift; ``use_dp`` the JAX block's drop-path
+        switch (training: always in scanned pairs, at a rate > 0 one by
+        one), which picks the attention half + separate MLP over the whole
+        block; ``coef1`` / ``coef2`` the drawn drop-path coefficients of
+        the attention and MLP branches (None: kept)."""
+        C = x.shape[-1]
+        nH, HD = self.attn.num_heads, self.mlp.fc1.out_features
+        eps = self.norm1.eps
+        mask = geo.mask if shifted else None
+        shift = geo.shift if shifted else (0, 0, 0)
+        mlp = self._mlp_args()
+        fits = weights_fit_vmem(C, HD)
+        if geo.fused:
+            args = (x, self.norm1.weight, self.norm1.bias,
+                    self.attn.qkv.weight, self.attn.qkv.bias,
+                    self.attn.proj.weight, self.attn.proj.bias, bias, mask)
+            statics = (geo.window, shift, nH, self.attn.scale, eps)
+            if not use_dp and full_block_fits_vmem(C, HD, nH, geo.window):
+                return select(fused_swin_block_full)(
+                    *args, *mlp, *statics).to(x.dtype)
+            full = select(fused_swin_block_attn)(*args, *statics).to(x.dtype)
+            x = full if coef1 is None else x + coef1 * (full - x)
+            flat = x.reshape(-1, C)
+            if use_dp:
+                out = (select(fused_ln_mlp)(flat, *mlp, eps) if fits
+                       else _mlp_plain(flat, *mlp, eps))
+                return x + _scaled(out.reshape(x.shape).to(x.dtype), coef2)
+            if fits:
+                out = select(fused_ln_mlp)(flat, *mlp, eps, True)
+            else:
+                out = select(fused_ln_mlp_chunked)(flat, *mlp, eps)
+            return out.reshape(x.shape).to(x.dtype)
+        # the module path: zero pad AFTER LN1 (pad tokens are unmasked keys)
+        B, D, H, W, _ = x.shape
+        Dp, Hp, Wp = geo.padded
+        h = layer_norm(x, self.norm1.weight, self.norm1.bias, eps)
+        if (Dp, Hp, Wp) != (D, H, W):
+            h = nn.functional.pad(h, (0, 0, 0, Wp - W, 0, Hp - H, 0, Dp - D))
+        if shifted:
+            h = torch.roll(h, tuple(-s for s in shift), (1, 2, 3))
+        h = self.attn(window_partition(h, geo.window), bias, mask, attn_impl)
+        h = window_reverse(h, geo.window, B, Dp, Hp, Wp)
+        if shifted:
+            h = torch.roll(h, tuple(shift), (1, 2, 3))
+        x = x + _scaled(h[:, :D, :H, :W].to(x.dtype), coef1)
+        flat = x.reshape(-1, C)
+        out = (select(fused_ln_mlp)(flat, *mlp, eps)
+               if attn_impl in ("pallas", "fused") and fits
+               else _mlp_plain(flat, *mlp, eps))
+        return x + _scaled(out.reshape(x.shape).to(x.dtype), coef2)
 
 
 class PatchMerging(nn.Module):
@@ -221,46 +377,68 @@ class PatchMerging(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    """One Swin stage on the window-major path: ``depth`` blocks as
-    (no-shift, shift) pairs — the JAX package's ``_BlockPairWM``, here the
-    loop in ``forward`` — then optional PatchMerging.  ``drop_path_rates``:
-    one per block (training only)."""
+    """One Swin stage: ``depth`` blocks alternating no-shift / shift, then
+    optional PatchMerging; the route per call from the config fields and
+    the input's geometry (see the module notes).  ``drop_path_rates``: one
+    per block (training only)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: Tuple[int, int, int], mlp_ratio: float = 4.0,
                  qk_scale: Optional[float] = None, has_downsample: bool = False,
                  eps: float = 1e-5,
-                 drop_path_rates: Optional[Sequence[float]] = None):
+                 drop_path_rates: Optional[Sequence[float]] = None,
+                 qkv_bias: bool = True, attn_impl: str = "auto",
+                 remat: bool = False, scan_blocks: bool = True):
         super().__init__()
-        if depth % 2 != 0:
-            raise ValueError(f"stage depth must be even, got {depth}")
         self.drop_path_rates = tuple(float(r) for r in (
             drop_path_rates or (0.0,) * depth))
         self.window_size = tuple(window_size)
         self.shift = tuple(w // 2 for w in window_size)
+        self.qkv_bias = qkv_bias
+        self.attn_impl = resolve_attn_impl(attn_impl)
+        # the non-wm route: a "wm" stage the wm path refuses runs "fused"
+        self.spatial_impl = ("fused" if self.attn_impl == "wm"
+                             else self.attn_impl)
+        self.remat = remat
+        # the JAX scan over (no-shift, shift) pairs; else one block at a time
+        self.paired = scan_blocks and depth % 2 == 0 and depth >= 2
         self.blocks = nn.ModuleList(
-            SwinBlockWM(dim, num_heads, self.window_size, mlp_ratio, qk_scale,
-                        eps) for _ in range(depth))
+            SwinBlock3D(dim, num_heads, self.window_size, mlp_ratio, qkv_bias,
+                        qk_scale, eps) for _ in range(depth))
         self.downsample = PatchMerging(dim, eps) if has_downsample else None
         self._cache: Dict = {}
+        self._geometries: Dict = {}
 
     def train(self, mode: bool = True):
         """Also drops the serving cache: training changes the tables."""
         self._cache = {}
         return super().train(mode)
 
+    def wm_ok(self, D: int, H: int, W: int) -> bool:
+        """Whether the stage runs window-major at this input size (the JAX
+        ``BasicLayer``'s ``wm_ok``, swin3d.py:1006)."""
+        window, _ = get_window_size((D, H, W), self.window_size, self.shift)
+        return (self.attn_impl == "wm" and self.qkv_bias and not self.remat
+                and supports_fused_block(D, H, W, window) and self.paired)
+
+    def _cached(self, key):
+        """The serving cache's entry for ``key``, or None where the biases
+        must be gathered from the tables under autograd (training, or a
+        forward whose gradients are taken)."""
+        if self.training or torch.is_grad_enabled():
+            return None
+        return self._cache.get(key)
+
     def _geometry(self, D: int, H: int, W: int, device, dtype):
         """Per-block rel-pos biases and the padded shift mask of one input
-        geometry.  Built once by ``build_serving_cache``; a geometry (or
-        device/dtype) without a cache entry is built on the fly, and in
-        training always (the biases are gathered under autograd)."""
+        geometry on the wm route.  Built once by ``build_serving_cache``; a
+        geometry (or device/dtype) without a cache entry is built on the
+        fly, and always under autograd (see ``_cached``)."""
         key = (D, H, W, device, dtype)
-        if key in self._cache and not self.training:
-            return self._cache[key]
+        cached = self._cached(key)
+        if cached is not None:
+            return cached
         window, shift = get_window_size((D, H, W), self.window_size, self.shift)
-        if not supports_wm(D, H, W, window):
-            raise ValueError(f"stage geometry {(D, H, W)} unsupported by the "
-                             f"window-major path (window {window})")
         N = int(np.prod(window))
         Npad = round8(N)
         rel_index = relative_position_index(self.window_size)
@@ -274,6 +452,38 @@ class BasicLayer(nn.Module):
             mask = pad_window_mask(m, Npad).to(dtype)
         return window, shift, N, Npad, biases, mask
 
+    def _spatial_geometry(self, D: int, H: int, W: int, device, dtype
+                          ) -> SpatialGeometry:
+        """The stage's ``SpatialGeometry`` at this input size, built once
+        per (size, device, dtype), outside inference mode (a training step
+        saves the mask for its backward)."""
+        key = (D, H, W, device, dtype)
+        if key not in self._geometries:
+            window, shift = get_window_size((D, H, W), self.window_size,
+                                            self.shift)
+            padded = tuple(-(-n // w) * w for n, w in zip((D, H, W), window))
+            fused = (self.spatial_impl == "fused" and self.qkv_bias
+                     and supports_fused_block(D, H, W, window))
+            mask = None
+            if any(s > 0 for s in shift):
+                with torch.inference_mode(False):
+                    mask = torch.as_tensor(
+                        compute_shift_mask(*padded, window, shift),
+                        device=device).to(dtype)
+            self._geometries[key] = SpatialGeometry(window, shift, padded,
+                                                    fused, mask)
+        return self._geometries[key]
+
+    def _spatial_biases(self, geo: SpatialGeometry, dtype
+                        ) -> List[torch.Tensor]:
+        """Each block's [nH, N, N] rel-pos bias: the full window's index
+        sliced [:N, :N] (the reference's, JAX swin3d.py:372)."""
+        N = int(np.prod(geo.window))
+        rel_index = relative_position_index(self.window_size)
+        return [rel_pos_bias_wm(blk.attn.relative_position_bias_table,
+                                rel_index, N, N, dtype)
+                for blk in self.blocks]
+
     @torch.no_grad()
     def build_serving_cache(self, D: int, H: int, W: int):
         """Precompute this stage's biases and shift mask for inputs of
@@ -281,11 +491,15 @@ class BasicLayer(nn.Module):
         cache is a function of the weights: rebuild it after changing them."""
         p = self.blocks[0].attn.relative_position_bias_table
         self._cache = {}
-        self._cache[(D, H, W, p.device, p.dtype)] = self._geometry(
-            D, H, W, p.device, p.dtype)
+        key = (D, H, W, p.device, p.dtype)
+        if self.wm_ok(D, H, W):
+            self._cache[key] = self._geometry(D, H, W, p.device, p.dtype)
+        else:
+            geo = self._spatial_geometry(D, H, W, p.device, p.dtype)
+            self._cache[key] = self._spatial_biases(geo, p.dtype)
 
-    def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def _forward_wm(self, x: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
         B, D, H, W, C = x.shape
         window, shift, N, Npad, biases, mask = self._geometry(
             D, H, W, x.device, x.dtype)
@@ -293,14 +507,61 @@ class BasicLayer(nn.Module):
         dpr = self.drop_path_rates
         t = wm_partition(x, window, Npad)
         for k in range(0, len(self.blocks), 2):
-            t = self.blocks[k](t, biases[k], None, N, dpr[k], generator)
+            t = self.blocks[k].wm(t, biases[k], None, N, dpr[k], generator)
             if shifted:
                 t = wm_shift(t, window, D, H, W, shift)
-            t = self.blocks[k + 1](t, biases[k + 1], mask, N, dpr[k + 1],
-                                   generator)
+            t = self.blocks[k + 1].wm(t, biases[k + 1], mask, N, dpr[k + 1],
+                                      generator)
             if shifted:
                 t = wm_shift(t, window, D, H, W, shift, inverse=True)
-        x = wm_reverse(t, window, D, H, W)
+        return wm_reverse(t, window, D, H, W)
+
+    def _forward_spatial(self, x: torch.Tensor,
+                         generator: Optional[torch.Generator]
+                         ) -> torch.Tensor:
+        B, D, H, W, C = x.shape
+        geo = self._spatial_geometry(D, H, W, x.device, x.dtype)
+        biases = (self._cached((D, H, W, x.device, x.dtype))
+                  or self._spatial_biases(geo, x.dtype))
+        depth, dpr = len(self.blocks), self.drop_path_rates
+        # the JAX block's drop-path switch: scanned pairs pass a rate
+        # always, the per-block modules only a nonzero one
+        use_dp = [self.training and (self.paired or r > 0.0) for r in dpr]
+        # every coefficient drawn before any block runs, attention branch
+        # then MLP branch per block, so that a recomputation replays them
+        coefs = []
+        for i in range(depth):
+            draw = use_dp[i] and dpr[i] > 0.0
+            coefs.append(tuple(_keep_coef(x, dpr[i], generator) if draw
+                               else None for _ in range(2)))
+        plain = _build.in_plain_path()
+
+        def run(x, lo, hi, *unit_coefs):
+            with _build.plain_path(plain):
+                for i in range(lo, hi):
+                    x = self.blocks[i].spatial(
+                        x, biases[i], geo, i % 2 == 1, self.spatial_impl,
+                        use_dp[i],
+                        *unit_coefs[2 * (i - lo):2 * (i - lo) + 2])
+            return x
+
+        step = 2 if self.paired else 1
+        for lo in range(0, depth, step):
+            unit = [c for pair in coefs[lo:lo + step] for c in pair]
+            if self.remat and torch.is_grad_enabled():
+                x = checkpoint(run, x, lo, lo + step, *unit,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = run(x, lo, lo + step, *unit)
+        return x
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        B, D, H, W, C = x.shape
+        if self.wm_ok(D, H, W):
+            x = self._forward_wm(x, generator)
+        else:
+            x = self._forward_spatial(x, generator)
         if self.downsample is not None:
             x = self.downsample(x)
         return x
@@ -330,9 +591,11 @@ class PatchEmbed3D(nn.Module):
         B, D, H, W, C = x.shape
         pd, ph, pw = self.patch_size
         if x.dtype != torch.uint8 or pd != 2 or H % ph or W % pw:
-            raise ValueError("PatchEmbed3D takes uint8 frames whose H, W are "
-                             "multiples of the patch (temporal patch 2), got "
-                             f"{x.dtype} {tuple(x.shape)}")
+            raise NotImplementedError(
+                "the port's patch embed takes uint8 frames whose H, W are "
+                "multiples of SwinConfig.patch_size with a temporal patch of "
+                f"2 (the float and padded inputs are not ported), got "
+                f"{x.dtype} {tuple(x.shape)}, patch {self.patch_size}")
         h2, w2 = H // ph, W // pw
         xs = x.reshape(B, D, h2, ph, w2, pw, C).permute(0, 1, 2, 4, 3, 5, 6)
         xs = xs.reshape(B, D, h2, w2, ph * pw * C)
@@ -358,13 +621,12 @@ class PatchEmbed3D(nn.Module):
 
 class VideoSwin3D(nn.Module):
     """Video Swin 3D backbone: uint8 [B, T, H, W, 3] -> [B, T, H/32, W/32, F]
-    (F = embed_dim * 8), channels-last."""
+    (F = embed_dim * 8), channels-last.  ``attn_impl``, ``remat`` and
+    ``scan_blocks`` go to every stage (JAX swin3d.py:1461-1466)."""
 
     def __init__(self, config):
         super().__init__()
         cfg = config
-        if not cfg.qkv_bias:
-            raise ValueError("the window-major blocks need qkv_bias=True")
         self.patch_size = tuple(cfg.patch_size)
         self.patch_embed = PatchEmbed3D(cfg.patch_size, cfg.in_chans,
                                         cfg.embed_dim, cfg.patch_norm,
@@ -377,7 +639,9 @@ class VideoSwin3D(nn.Module):
             BasicLayer(int(cfg.embed_dim * 2 ** i), cfg.depths[i],
                        cfg.num_heads[i], tuple(cfg.window_size),
                        cfg.mlp_ratio, cfg.qk_scale, i < n - 1,
-                       cfg.layer_norm_eps, dpr[starts[i]:starts[i + 1]])
+                       cfg.layer_norm_eps, dpr[starts[i]:starts[i + 1]],
+                       cfg.qkv_bias, cfg.attn_impl, cfg.remat,
+                       cfg.scan_blocks)
             for i in range(n))
         self.norm = nn.LayerNorm(cfg.num_features, eps=cfg.layer_norm_eps)
 

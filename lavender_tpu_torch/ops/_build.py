@@ -7,13 +7,15 @@ at first use (never at import), writes into ``build/`` at the repository
 root, and is keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as is.
 
-The primitives bound here (tiled GEMM with fused epilogues, row
-LayerNorm and its dropout + residual variant, attention core (on the
-packed qkv slab, or on strided heads-layout q, k, v) and its backward, both
-with optional dropout, row permutation, and a probe of the
-dropout hash) are what the ports of the TPU kernels are composed from, see
-``swin_block_attn.py``, ``swin_core_attn.py``, ``wm_permute.py``,
-``fused_mlp.py``, ``encoder_attention.py`` and ``dropout.py``.  Each launch goes on PyTorch's current stream,
+The primitives bound here (tiled GEMM with fused epilogues, optionally
+scattering its rows, row LayerNorm, optionally gathering its rows, and its
+dropout + residual variant, attention core (on the packed qkv slab, or on
+strided heads-layout q, k, v, with a per-head bias and a per-window mask)
+and its backward, both with optional dropout, row permutation, and a probe
+of the dropout hash) are what the ports of the TPU kernels are composed
+from, see ``swin_block_attn.py``, ``window_attention.py``,
+``swin_core_attn.py``, ``wm_permute.py``, ``fused_mlp.py``,
+``encoder_attention.py`` and ``dropout.py``.  Each launch goes on PyTorch's current stream,
 allocates nothing inside the kernel (outputs come from ``torch.empty``
 here) and raises if the C entry reports a CUDA error.
 """
@@ -45,14 +47,17 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
 _SIGNATURES = {
-    "lvt_gemm_bf16": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P],
-    "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P],
+    "lvt_gemm_bf16": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
+                      _P],
+    "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     "lvt_dropout_add_ln_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP,
                                 _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                            *_DROP, _P],
     "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _I, _I, _I,
                                  _F, _P],
+    "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _P, _I, _I, _I,
+                                  _I, _I, _F, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, *_DROP, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
@@ -158,34 +163,85 @@ def _cast(v, dtype: torch.dtype):
     return v
 
 
+class RecomputeVjp(torch.autograd.Function):
+    """``launch(*args)`` forward; backward = autograd of ``plain(*args)``
+    recomputed from the saved inputs (the JAX custom_vjps whose backward
+    differentiates the kernel's reference)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, launch, plain, *args):
+        ctx.plain = plain
+        ctx.pos = [i for i, a in enumerate(args) if torch.is_tensor(a)]
+        ctx.args = list(args)
+        for i in ctx.pos:
+            ctx.args[i] = None
+        ctx.save_for_backward(*(args[i] for i in ctx.pos))
+        return launch(*args)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        args, leaves = list(ctx.args), []
+        for i, t in zip(ctx.pos, ctx.saved_tensors):
+            if ctx.needs_input_grad[i + 2]:
+                t = t.detach().requires_grad_(True)
+                leaves.append((i, t))
+            args[i] = t
+        grads = [None] * len(args)
+        with torch.enable_grad():
+            out = ctx.plain(*args)
+            got = torch.autograd.grad(out, [t for _, t in leaves],
+                                      g.to(out.dtype), allow_unused=True)
+        for (i, _), d in zip(leaves, got):
+            grads[i] = d
+        return (None, None, *grads)
+
+
 class KernelOp:
     """Entry point of one ported TPU kernel.
 
     A CPU tensor goes to ``plain`` (the plain PyTorch version, which the
     CPU tests compare with the JAX package); any other tensor goes to the
-    CUDA ``launch``, which runs the hand-written kernels or raises: there
-    is no fallback.  ``launches`` counts the calls that launched.
+    CUDA launch (``launch``), which runs the hand-written kernels or
+    raises: there is no fallback.  ``launches`` counts the calls that
+    launched.
 
     ``casts``: under CUDA autocast the kernel takes its floating inputs in
     the autocast dtype (its autograd Function is
     ``torch.amp.custom_fwd(cast_inputs=...)``); ``plain_as_launched`` then
-    casts the same way, so that both paths see the same inputs."""
+    casts the same way, so that both paths see the same inputs.
+
+    ``recompute_vjp``: ``_launch`` is a raw launch that autograd cannot see
+    into; where autograd records the call (or autocast casts its inputs) it
+    runs inside ``RecomputeVjp``, whose backward is autograd of ``plain``
+    (takes positional arguments only)."""
 
     def __init__(self, name: str, plain: Callable, launch: Callable,
-                 casts: bool = True):
+                 casts: bool = True, recompute_vjp: bool = False):
         self.name = name
         self.plain = plain
         self._launch = launch
         self.casts = casts
+        self.recompute_vjp = recompute_vjp
         self.launches = 0
         self.__doc__ = plain.__doc__
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
         if x.device.type == "cpu":
             return self.plain(x, *args, **kwargs)
-        out = self._launch(x, *args, **kwargs)
+        out = self.launch(x, *args, **kwargs)
         self.launches += 1
         return out
+
+    def launch(self, *args, **kwargs):
+        """The kernel path on these arguments, whatever their device."""
+        if self.recompute_vjp and (needs_grad(*args)
+                                   or torch.is_autocast_enabled("cuda")):
+            if kwargs:
+                raise TypeError(f"{self.name}: positional arguments only")
+            return RecomputeVjp.apply(self._launch, self.plain, *args)
+        return self._launch(*args, **kwargs)
 
     def plain_as_launched(self, *args, **kwargs):
         """``plain`` on the inputs the kernel would get (see ``casts``)."""
@@ -200,23 +256,31 @@ _plain_path = False
 
 
 @contextlib.contextmanager
-def plain_path():
+def plain_path(enabled: bool = True):
     """Inside this block the models call every kernel's plain PyTorch
     version, on any device: the reference path that ``chip_smoke.py``
     compares the kernel path with.  The wrappers themselves stay as they
-    are (a CUDA tensor launches or raises)."""
+    are (a CUDA tensor launches or raises).  ``enabled=False`` selects the
+    kernels (a recomputation in the backward re-enters the choice of its
+    forward, ``in_plain_path()``)."""
     global _plain_path
-    prev, _plain_path = _plain_path, True
+    prev, _plain_path = _plain_path, enabled
     try:
         yield
     finally:
         _plain_path = prev
 
 
-def needs_grad(*tensors) -> bool:
-    """Whether autograd records a call on these arguments (None allowed)."""
+def in_plain_path() -> bool:
+    """Whether the models call the plain versions (inside ``plain_path()``)."""
+    return _plain_path
+
+
+def needs_grad(*args) -> bool:
+    """Whether autograd records a call on these arguments (tensors among
+    any others)."""
     return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)
+        torch.is_tensor(t) and t.requires_grad for t in args)
 
 
 def select(op: KernelOp) -> Callable:
@@ -262,13 +326,27 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _rows(rows: Optional[torch.Tensor], M: int, device, what: str):
+    """Pointer of a row index (int32 [M], contiguous, on ``device``)."""
+    if rows is None:
+        return None
+    if (rows.dtype != torch.int32 or rows.device != device
+            or not rows.is_contiguous() or tuple(rows.shape) != (M,)):
+        raise ValueError(f"{what} rows: expected a contiguous int32 [{M}] "
+                         f"on {device}")
+    return rows.data_ptr()
+
+
 def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
          *, gelu: bool = False, residual: Optional[torch.Tensor] = None,
-         out: Optional[torch.Tensor] = None) -> torch.Tensor:
+         out: Optional[torch.Tensor] = None,
+         rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = epi(a @ w.T + bias)``: epi is exact GELU or ``+ residual``.
 
     a [M, K], w [N, K] (torch Linear layout); ``out`` may be a column slice
-    of a wider tensor (its row stride is passed through)."""
+    of a wider tensor (its row stride is passed through).  ``rows`` (int32
+    [M], a permutation of range(M)) scatters: row m of the product goes to
+    ``out[rows[m]]``, with ``residual[rows[m]]`` added."""
     _check(a, "gemm a")
     _check(w, "gemm w")
     M, K = a.shape
@@ -294,7 +372,7 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
     err = library().lvt_gemm_bf16(
         a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(0),
         _vec(bias, N, "gemm bias"), r_ptr, ldr, out.data_ptr(), out.stride(0),
-        M, N, K, epi, _stream(a))
+        M, N, K, epi, _rows(rows, M, a.device, "gemm"), _stream(a))
     _raise_on(err, "lvt_gemm_bf16")
     return out
 
@@ -355,17 +433,20 @@ def dropout_bits(seed: torch.Tensor, n_stream: int,
 
 
 def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float) -> torch.Tensor:
-    """Row LayerNorm of contiguous x [M, C], C <= 1024."""
+              eps: float, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row LayerNorm of contiguous x [M, C], C <= 1024.  ``rows`` (int32
+    [M'], indices into x's rows) gathers: out[m] = LN(x[rows[m]])."""
     _check(x, "layernorm x")
     if not x.is_contiguous() or x.shape[1] > 1024:
         raise ValueError("layernorm: x must be contiguous with C <= 1024")
     M, C = x.shape
-    out = torch.empty_like(x)
+    if rows is not None:
+        M = rows.shape[0]
+    out = torch.empty(M, C, dtype=x.dtype, device=x.device)
     err = library().lvt_layernorm_bf16(
         x.data_ptr(), _vec(weight, C, "layernorm weight"),
         _vec(bias, C, "layernorm bias"), out.data_ptr(), M, C, float(eps),
-        _stream(x))
+        _rows(rows, M, x.device, "layernorm"), _stream(x))
     _raise_on(err, "lvt_layernorm_bf16")
     return out
 
@@ -445,24 +526,30 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     return out
 
 
+def _heads_operands(ts, names, what):
+    """Checks of heads-layout operands [S, nH, N, hd] (bf16, the head dim
+    contiguous, other strides multiples of 8)."""
+    q = ts[0]
+    for t, name in zip(ts, names):
+        _check(t, f"{what} {name}", ndim=4)
+        if t.shape != q.shape or any(
+                st % 8 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
+            raise ValueError(f"{what} {name}: expected {tuple(q.shape)} with "
+                             f"strides that are multiples of 8, got "
+                             f"{tuple(t.shape)}, {t.stride()}")
+    if q.shape[3] not in (16, 32, 64):
+        raise ValueError(f"{what}: head dim {q.shape[3]} unsupported "
+                         "(16/32/64)")
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, scale: float) -> torch.Tensor:
     """The attention core on heads-layout q, k, v [B, nH, L, hd] (bf16, any
     strides with the head dim contiguous, e.g. transposed views of
     [B, L, nH, hd]) under an additive per-sequence f32 mask [B, L, L]
     (contiguous), read in place.  Returns a contiguous [B, nH, L, hd]."""
-    for t, what in ((q, "q"), (k, "k"), (v, "v")):
-        _check(t, f"attention_heads {what}", ndim=4)
-        if t.shape != q.shape or any(
-                st % 8 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
-            raise ValueError(f"attention_heads {what}: expected "
-                             f"{tuple(q.shape)} with strides that are "
-                             f"multiples of 8, got {tuple(t.shape)}, "
-                             f"{t.stride()}")
+    _heads_operands((q, k, v), ("q", "k", "v"), "attention_heads")
     B, nH, L, hd = q.shape
-    if hd not in (16, 32, 64):
-        raise ValueError(f"attention_heads: head dim {hd} unsupported "
-                         "(16/32/64)")
     if (mask.device != q.device or mask.dtype != torch.float32
             or not mask.is_contiguous() or tuple(mask.shape) != (B, L, L)):
         raise ValueError(f"attention_heads mask: expected a contiguous f32 "
@@ -475,6 +562,43 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         mask.data_ptr(), B, L, nH, hd, float(scale), _stream(q))
     _raise_on(err, "lvt_attention_heads_bf16")
+    return out
+
+
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: Optional[torch.Tensor],
+                     mask: Optional[torch.Tensor], scale: float
+                     ) -> torch.Tensor:
+    """softmax(q k^T * scale + bias[h] + mask[w % nW]) v per (window, head)
+    on heads-layout q, k, v [W, nH, N, hd] (bf16, read in place by their
+    strides, as ``attention_heads``); bias [nH, N, N] bf16 and mask
+    [nW, N, N] f32, both contiguous and optional.  Returns a contiguous
+    [W, nH, N, hd]."""
+    _heads_operands((q, k, v), ("q", "k", "v"), "window_attention")
+    W, nH, N, hd = q.shape
+    if bias is not None:
+        _check(bias, "window_attention bias", ndim=3)
+        if not bias.is_contiguous() or tuple(bias.shape) != (nH, N, N):
+            raise ValueError(f"window_attention bias: expected a contiguous "
+                             f"[{nH}, {N}, {N}], got {tuple(bias.shape)}")
+    n_win = 1
+    if mask is not None:
+        n_win = mask.shape[0]
+        if (mask.device != q.device or mask.dtype != torch.float32
+                or not mask.is_contiguous() or mask.dim() != 3
+                or tuple(mask.shape[1:]) != (N, N) or W % n_win):
+            raise ValueError(f"window_attention mask: expected a contiguous "
+                             f"f32 [nW, {N}, {N}] with {W} % nW == 0 on "
+                             f"{q.device}, got {mask.dtype} "
+                             f"{tuple(mask.shape)}")
+    out = torch.empty(W, nH, N, hd, dtype=q.dtype, device=q.device)
+    strides = (ctypes.c_longlong * 12)(
+        *sum((t.stride()[:3] for t in (q, k, v, out)), ()))
+    err = library().lvt_window_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        _ptr(bias), _ptr(mask), W, N, nH, hd, n_win, float(scale),
+        _stream(q))
+    _raise_on(err, "lvt_window_attention_bf16")
     return out
 
 

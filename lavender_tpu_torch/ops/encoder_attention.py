@@ -32,8 +32,10 @@ On the card it is the same attention core, which reads each operand by its
 own (sequence, head, row) strides, so a transposed [B, L, nH, hd] view is
 read in place.  It lies on no model path, as in JAX (``BertAttention``
 takes the whole sub-block first).  Bound: device memory (q, k, v, o and
-the mask, each once).  K6 and K7 have the JAX custom_vjps' backward:
-autograd of the plain version, recomputed from the saved inputs.
+the mask, each once).  K4, K6 and K7 have the JAX custom_vjps' backward:
+autograd of the plain version, recomputed from the saved inputs
+(``_build.RecomputeVjp``), so a model in ``eval()`` mode under autograd
+gets its gradients through them.
 
 ``fused_encoder_attention_train_lanes`` replaces the TPU kernel
 ``_enc_attn_train_lanes_kernel`` (K10a, lavender_tpu/ops/
@@ -107,41 +109,8 @@ def _attn_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
 
 
 fused_bert_attn_block_kmask = _build.KernelOp(
-    "K4 fused_bert_attn_block_kmask", _attn_block_plain, _attn_block_cuda)
-
-
-class _RecomputeVjp(torch.autograd.Function):
-    """``launch(*args)`` forward; backward = autograd of ``plain(*args)``
-    recomputed from the saved inputs (the JAX custom_vjps of K6 and K7)."""
-
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
-    def forward(ctx, launch, plain, *args):
-        ctx.plain = plain
-        ctx.pos = [i for i, a in enumerate(args) if torch.is_tensor(a)]
-        ctx.args = list(args)
-        for i in ctx.pos:
-            ctx.args[i] = None
-        ctx.save_for_backward(*(args[i] for i in ctx.pos))
-        return launch(*args)
-
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, g):
-        args, leaves = list(ctx.args), []
-        for i, t in zip(ctx.pos, ctx.saved_tensors):
-            if ctx.needs_input_grad[i + 2]:
-                t = t.detach().requires_grad_(True)
-                leaves.append((i, t))
-            args[i] = t
-        grads = [None] * len(args)
-        with torch.enable_grad():
-            out = ctx.plain(*args)
-            got = torch.autograd.grad(out, [t for _, t in leaves],
-                                      g.to(out.dtype), allow_unused=True)
-        for (i, _), d in zip(leaves, got):
-            grads[i] = d
-        return (None, None, *grads)
+    "K4 fused_bert_attn_block_kmask", _attn_block_plain, _attn_block_cuda,
+    recompute_vjp=True)
 
 
 def _core_plain(q, k, v, mask, scale):
@@ -157,15 +126,15 @@ def _core_plain(q, k, v, mask, scale):
 
 
 def _core_cuda(q, k, v, mask, scale):
-    # an f32 mask (the JAX kernel's), clamped before the Function, whose
-    # cast under autocast would take finfo(f32).min to -inf in bf16
-    return _RecomputeVjp.apply(
-        _build.attention_heads, _core_plain, q, k, v,
-        mask.float().clamp_min(-1e4).contiguous(), scale)
+    # the kernel reads an f32 mask (the JAX kernel's); an autocast cast may
+    # have made it bf16, where finfo(f32).min is -inf: the clamp restores it
+    return _build.attention_heads(
+        q, k, v, mask.float().clamp_min(-1e4).contiguous(), scale)
 
 
 fused_encoder_attention = _build.KernelOp(
-    "K7 fused_encoder_attention", _core_plain, _core_cuda)
+    "K7 fused_encoder_attention", _core_plain, _core_cuda,
+    recompute_vjp=True)
 
 
 def _attn_block_mask_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
@@ -187,28 +156,22 @@ def _attn_block_mask_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
     return layer_norm(x + F.linear(o, wproj, bproj), ln_w, ln_b, eps)
 
 
-def _attn_block_mask_launch(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
-                            ln_b, mask, nH, scale, eps=1e-12):
+def _attn_block_mask_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
+                          ln_b, mask, nH, scale, eps=1e-12):
     B, L, _ = x.shape
     if tuple(mask.shape) != (B, L, L):
         raise ValueError(f"fused_bert_attn_block: mask must be [{B}, {L}, "
                          f"{L}], got {tuple(mask.shape)}")
+    # clamped as the plain version does (an autocast cast may already have
+    # taken finfo(f32).min to -inf in bf16)
     return _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
                            ln_b, nH, scale, eps,
-                           mask=mask.to(x.dtype).contiguous())
-
-
-def _attn_block_mask_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
-                          ln_b, mask, nH, scale, eps=1e-12):
-    # clamped before any bf16 cast, where finfo(f32).min would become -inf
-    return _RecomputeVjp.apply(
-        _attn_block_mask_launch, _attn_block_mask_plain, x, wq, wk, wv, bq,
-        bk, bv, wproj, bproj, ln_w, ln_b, mask.clamp_min(-1e4), nH, scale,
-        eps)
+                           mask=mask.clamp_min(-1e4).to(x.dtype).contiguous())
 
 
 fused_bert_attn_block = _build.KernelOp(
-    "K6 fused_bert_attn_block", _attn_block_mask_plain, _attn_block_mask_cuda)
+    "K6 fused_bert_attn_block", _attn_block_mask_plain, _attn_block_mask_cuda,
+    recompute_vjp=True)
 
 
 def _lanes_plain(q, k, v, mask, seed, scale, rate, nH):

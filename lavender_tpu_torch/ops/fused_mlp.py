@@ -2,12 +2,15 @@
 
 ``fused_ln_mlp`` replaces the TPU kernel ``_kernel`` (K9,
 lavender_tpu/ops/fused_mlp.py:91, wrapper ``fused_ln_mlp`` :153): the
-Swin MLP fc2(GELU(fc1(LN(x)))) without the residual, which the train
-route runs after the attention half under drop-path.  On the card it is
-the launcher of K3 without its residual epilogue: LN -> fc1 GEMM (+bias,
-exact GELU) -> fc2 GEMM (+bias).  The TPU split between weights resident
+Swin MLP fc2(GELU(fc1(LN(x)))), + x with ``add_residual``, which the
+train routes run after the attention half under drop-path and the
+spatial serving routes after their attention.  On the card it is the
+launcher of K3: LN -> fc1 GEMM (+bias, exact GELU) -> fc2 GEMM (+bias,
++residual with ``add_residual``).  The TPU split between weights resident
 in VMEM (K9) and streamed in HD chunks (K3) is a VMEM budget with no
-counterpart on the card, so K9 runs at every stage.  Bound: the two
+counterpart on the card; the window-major train route runs K9 at every
+stage, the spatial routes keep the JAX split (``weights_fit_vmem``) as
+a routing predicate, so that their launches are JAX's.  Bound: the two
 GEMMs' tensor-core rate at M = B*nW*Npad rows.  Its backward is the plain
 recompute under autograd, as the JAX ``custom_vjp`` (:164) does.
 
@@ -42,7 +45,9 @@ version with the saved keep mask replayed.  Bound: K11 device memory (x,
 res, out, the mask), K12 the two GEMMs.
 
 GELU is the exact erf form (the TPU kernels used a clamped polynomial in
-bf16; the JAX oracles use erf).
+bf16; the JAX oracles use erf).  K3 and K5 launch outside autograd, so
+they carry the JAX custom_vjps' backward: autograd of the plain version,
+recomputed from the saved inputs (``_build.RecomputeVjp``).
 """
 from __future__ import annotations
 
@@ -52,18 +57,29 @@ import torch.nn.functional as F
 from lavender_tpu_torch.ops import _build, dropout, layer_norm
 
 
-def _mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
+def weights_fit_vmem(C: int, HD: int, bytes_per: int = 2,
+                     budget: int = 10 * 1024 * 1024) -> bool:
+    """The JAX package's VMEM gate of K9 (lavender_tpu/ops/fused_mlp.py:178),
+    kept as a routing predicate of the spatial Swin routes: whether a
+    block's MLP runs as ``fused_ln_mlp`` (stages 1-3 of Swin-B) or, at
+    stage 4, as K3 (serving) or plain torch (training)."""
+    return 2 * C * HD * bytes_per <= budget
+
+
+def _mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, add_residual=False):
     """Plain PyTorch version of ``fused_ln_mlp``: x [M, C] ->
-    fc2(GELU(fc1(LN(x)))); w1 [HD, C], w2 [C, HD] (torch Linear)."""
+    fc2(GELU(fc1(LN(x)))) (+ x with ``add_residual``); w1 [HD, C], w2
+    [C, HD] (torch Linear)."""
     h = F.linear(layer_norm(x, ln_w, ln_b, eps), w1, b1)
     h = F.gelu(h.float()).to(x.dtype)
-    return F.linear(h, w2, b2)
+    out = F.linear(h, w2, b2)
+    return x + out if add_residual else out
 
 
 def _ln_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
     """Plain PyTorch version of ``fused_ln_mlp_chunked``: x [M, C] ->
     x + fc2(GELU(fc1(LN(x)))); w1 [HD, C], w2 [C, HD] (torch Linear)."""
-    return x + _mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps)
+    return _mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, True)
 
 
 def _ln_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, residual=True):
@@ -72,37 +88,17 @@ def _ln_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, residual=True):
 
 
 fused_ln_mlp_chunked = _build.KernelOp(
-    "K3 fused_ln_mlp_chunked", _ln_mlp_plain, _ln_mlp_cuda)
+    "K3 fused_ln_mlp_chunked", _ln_mlp_plain, _ln_mlp_cuda,
+    recompute_vjp=True)
 
 
-class _MlpFn(torch.autograd.Function):
-    @staticmethod
-    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
-    def forward(ctx, x, ln_w, ln_b, w1, b1, w2, b2, eps):
-        ctx.save_for_backward(x, ln_w, ln_b, w1, b1, w2, b2)
-        ctx.eps = eps
-        return _ln_mlp_cuda(x.contiguous(), ln_w, ln_b, w1, b1, w2, b2, eps,
-                            residual=False)
-
-    @staticmethod
-    @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, g):
-        with torch.enable_grad():
-            inputs = [t.detach().requires_grad_(True)
-                      for t in ctx.saved_tensors]
-            y = _mlp_plain(*inputs, ctx.eps)
-            grads = torch.autograd.grad(y, inputs, g)
-        return (*grads, None)
+def _mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, add_residual=False):
+    return _ln_mlp_cuda(x.contiguous(), ln_w, ln_b, w1, b1, w2, b2, eps,
+                        residual=add_residual)
 
 
-def _mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
-    if not _build.needs_grad(x, ln_w, ln_b, w1, b1, w2, b2):
-        return _ln_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps,
-                            residual=False)
-    return _MlpFn.apply(x, ln_w, ln_b, w1, b1, w2, b2, eps)
-
-
-fused_ln_mlp = _build.KernelOp("K9 fused_ln_mlp", _mlp_plain, _mlp_cuda)
+fused_ln_mlp = _build.KernelOp("K9 fused_ln_mlp", _mlp_plain, _mlp_cuda,
+                               recompute_vjp=True)
 
 
 def _ffn_plain(x, w1, b1, w2, b2, ln_w, ln_b, eps=1e-12):
@@ -119,7 +115,7 @@ def _ffn_cuda(x, w1, b1, w2, b2, ln_w, ln_b, eps=1e-12):
 
 
 fused_ffn_post_ln = _build.KernelOp(
-    "K5 fused_ffn_post_ln", _ffn_plain, _ffn_cuda)
+    "K5 fused_ffn_post_ln", _ffn_plain, _ffn_cuda, recompute_vjp=True)
 
 
 def _dropout_add_ln(o, res, ln_w, ln_b, keep, eps, rate):

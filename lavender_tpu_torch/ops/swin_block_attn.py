@@ -1,4 +1,5 @@
-"""Window-major Swin block (port of lavender_tpu/ops/swin_block_attn.py).
+"""Swin blocks (port of lavender_tpu/ops/swin_block_attn.py): the
+window-major block K1 and the spatial block K14.
 
 Layout ops of the window-major ("wm") stages — ``wm_partition``,
 ``wm_reverse``, ``rel_pos_bias_wm`` — as plain torch (they were plain XLA
@@ -21,18 +22,50 @@ Training runs the attention half (no ``mlp``) under autograd: its
 backward (the JAX ``custom_vjp`` ``_wm_bwd`` :1663) recomputes LN1 -> qkv
 -> the window-attention core ``swin_core_attn`` (K8a forward, K8b
 backward) -> proj, with the pad rows passed through as identity
-(``_wm_ref_core`` :1565), and differentiates that.
+(``_wm_ref_core`` :1565), and differentiates that.  The whole block under
+autograd (a model in ``eval()`` mode whose gradients are taken)
+differentiates its plain version.
+
+``fused_swin_block_attn`` and ``fused_swin_block_full`` replace the TPU
+kernel ``_block_kernel`` (K14, :468, host wrapper ``_fused_block_forward``
+:565, entries :746 / :798): x + proj(window_attn(LN1(x))), and in the full
+variant + fc2(GELU(fc1(LN2(.)))), on the SPATIAL layout x [B, D, H, W, C]
+of the ``attn_impl="fused"`` stages (and of every stage that the wm route
+refuses).  The TPU kernel cut the rolled, 7 -> 8 lane-padded map into
+(batch, window-row) slabs by its BlockSpec.  On the card the spatial layout
+is read and written through one int32 row index (``window_rows``: window
+row -> spatial row, with the cyclic roll folded in): the LN1 launch gathers
+its input rows by it, so the window-major rows exist only as LN1's output,
+and the proj GEMM's epilogue scatters its rows back by it, adding the
+residual it reads at the same spatial row.  Between the two run the qkv
+GEMM and the attention core on N = D*wh*ww tokens a window (no pad rows,
+no lane pad, no exp2 pre-scale, no head groups).  The MLP of the full
+variant is pointwise, so it runs on the spatial rows as K3's launcher.
+Bound: the GEMMs' tensor-core rate, the attention core's f32 FLOPs; device
+memory sees x once on the way in and the output once on the way out, plus
+the qkv and attention slabs.  The bias is the reference's: the FULL
+window's relative-position index sliced ``[:N, :N]`` (the wm path's
+``rel_pos_bias_wm`` without pad rows); the shift mask is the finite -100
+of ``compute_shift_mask``.  Backward: the attention half recomputes the
+gather -> LN1 -> qkv -> ``swin_core_attn`` (K8a / K8b) -> proj -> scatter
+under autograd (the JAX custom_vjp recomputes its XLA reference, :786);
+the full variant differentiates its plain version (``_full_bwd`` :834).
 """
 from __future__ import annotations
 
 from typing import Sequence
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, layer_norm
+from lavender_tpu_torch.ops.fused_mlp import _ln_mlp_cuda, _mlp_plain
 from lavender_tpu_torch.ops.swin_core_attn import swin_core_attn
+from lavender_tpu_torch.ops.window_attention import (
+    window_attention_reference)
 from lavender_tpu_torch.ops.wm_permute import wm_shift  # noqa: F401 (K2)
 
 
@@ -180,15 +213,32 @@ class _BlockAttnFn(torch.autograd.Function):
         return (*grads, None, None, None, None, None)
 
 
+def _block_full_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                      n2_w, n2_b, w1, b1, w2, b2, nH, scale, eps):
+    return _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                        nH, scale, eps, mlp=(n2_w, n2_b, w1, b1, w2, b2))
+
+
+def _block_full_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                     n2_w, n2_b, w1, b1, w2, b2, nH, scale, eps):
+    return _block_cuda(x.contiguous(), ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                       bias.contiguous(), mask, nH, scale, eps,
+                       mlp=(n2_w, n2_b, w1, b1, w2, b2))
+
+
 def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
                   scale, eps, mlp=None, n_valid=None):
-    """The kernel; ``_BlockAttnFn`` when autograd records the call."""
-    if not _build.needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias):
+    """The kernel; under autograd ``_BlockAttnFn`` (the attention half), or
+    with ``mlp`` the whole block in ``RecomputeVjp`` (the JAX custom_vjp
+    ``_wm_full_bwd`` :1712 differentiates its reference)."""
+    if not _build.needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                             *(mlp or ())):
         return _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
                            mask, nH, scale, eps, mlp)
     if mlp is not None:
-        raise NotImplementedError("fused_swin_block_wm: gradients flow only "
-                                  "through the attention half (mlp=None)")
+        return _build.RecomputeVjp.apply(
+            _block_full_cuda, _block_full_plain, x, ln_w, ln_b, wqkv, bqkv,
+            wproj, bproj, bias, mask, *mlp, nH, scale, eps)
     return _BlockAttnFn.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
                               mask, nH, scale, eps, n_valid or x.shape[2])
 
@@ -209,3 +259,205 @@ def mlp_in_block(C: int, HD: int, nH: int, Npad: int,
     mlp_w = 2 * C * HD * 2
     bias_b = nH * Npad * Npad * 2
     return attn_w + mlp_w + bias_b + 4 * 1024 * 1024 <= budget
+
+
+# --------------------------------------------------------------------------
+# The spatial layout: the module path's helpers and K14.
+# --------------------------------------------------------------------------
+
+
+def window_partition(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """[B, D, H, W, C] -> [B * nW, wd * wh * ww, C]: windows in (b, d, h, w)
+    order (window w of a clip takes the shift mask's row w), tokens
+    row-major (d, i, j) inside (JAX ``window_partition``, swin3d.py:74)."""
+    B, D, H, W, C = x.shape
+    wd, wh, ww = window
+    t = x.reshape(B, D // wd, wd, H // wh, wh, W // ww, ww, C)
+    return t.permute(0, 1, 3, 5, 2, 4, 6, 7).reshape(-1, wd * wh * ww, C)
+
+
+def window_reverse(windows: torch.Tensor, window: Sequence[int], B: int,
+                   D: int, H: int, W: int) -> torch.Tensor:
+    """[B * nW, N, C] -> [B, D, H, W, C] (JAX ``window_reverse``, :82)."""
+    wd, wh, ww = window
+    t = windows.reshape(B, D // wd, H // wh, W // ww, wd, wh, ww, -1)
+    return t.permute(0, 1, 4, 2, 5, 3, 6, 7).reshape(B, D, H, W, -1)
+
+
+def window_msa(x: torch.Tensor, wqkv: torch.Tensor,
+               bqkv: Optional[torch.Tensor], wproj: torch.Tensor,
+               bproj: torch.Tensor, bias: torch.Tensor,
+               mask: Optional[torch.Tensor], nH: int, scale: float,
+               core: Callable = window_attention_reference) -> torch.Tensor:
+    """Window multi-head self-attention of windows x [B * nW, N, C]: qkv
+    -> heads [B * nW, nH, N, hd] -> ``core(q, k, v, bias, mask, scale)``
+    -> proj (JAX ``WindowAttention3D``, swin3d.py:340; ``core`` is the
+    plain attention, or K15 under ``attn_impl="pallas"``)."""
+    B_, N, C = x.shape
+    qkv = F.linear(x, wqkv, bqkv).reshape(B_, N, 3, nH, C // nH)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    o = core(q, k, v, bias, mask, scale)
+    return F.linear(o.transpose(1, 2).reshape(B_, N, C), wproj, bproj)
+
+
+@functools.lru_cache(maxsize=64)
+def window_rows(D: int, H: int, W: int, window: Tuple[int, int, int],
+                shift: Tuple[int, int, int]) -> np.ndarray:
+    """int32 [D * H * W]: the spatial row (d * H * W + h * W + w) of every
+    window row of one clip, windows in ``window_partition`` order, after
+    the cyclic roll by -shift (``roll(x, -s)[c] == x[(c + s) % size]``).
+    A permutation: the block gathers its LN1 input by it and scatters its
+    output back by it, which also undoes the roll."""
+    wd, wh, ww = window
+    cd, ch, cw = np.meshgrid(np.arange(D), np.arange(H), np.arange(W),
+                             indexing="ij")
+    src = (((cd + shift[0]) % D) * H + (ch + shift[1]) % H) * W \
+        + (cw + shift[2]) % W
+    t = src.reshape(D // wd, wd, H // wh, wh, W // ww, ww)
+    return t.transpose(0, 2, 4, 1, 3, 5).reshape(-1).astype(np.int32)
+
+
+_rows_on_device: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _device_rows(B: int, D: int, H: int, W: int, window, shift, device):
+    """(rows int32 [B * L], inverse int64 [B * L]) of ``window_rows`` over
+    a batch (row b * L + r, L = D * H * W) on ``device``, built once, outside
+    inference mode (a training step may save them for its backward)."""
+    key = (B, D, H, W, tuple(window), tuple(shift), str(device))
+    if key not in _rows_on_device:
+        L = D * H * W
+        rows = window_rows(D, H, W, tuple(window), tuple(shift))
+        full = (np.arange(B)[:, None] * L + rows[None]).reshape(-1)
+        inv = np.empty_like(full)
+        inv[full] = np.arange(full.size)
+        with torch.inference_mode(False):
+            _rows_on_device[key] = (
+                torch.as_tensor(full.astype(np.int32), device=device),
+                torch.as_tensor(inv.astype(np.int64), device=device))
+    return _rows_on_device[key]
+
+
+def _spatial_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                   window, shift, nH, scale, eps, mlp=None):
+    """Plain PyTorch version of K14 (JAX ``swin_block_attn_reference`` and
+    ``_full_ref``): x [B, D, H, W, C] -> x + proj(attn(LN1(x))) in rolled
+    windows, rolled back (then + MLP(LN2(.)) with ``mlp`` = (ln2_w, ln2_b,
+    w1, b1, w2, b2)).  Weights in torch Linear layout; bias [nH, N, N]
+    (N = wd * wh * ww); mask [nW, N, N] additive (the shift mask) or
+    None.  The window must tile the map (``supports_fused_block``)."""
+    B, D, H, W, C = x.shape
+    h = layer_norm(x, ln_w, ln_b, eps)
+    shifted = any(s > 0 for s in shift)
+    if shifted:
+        h = torch.roll(h, tuple(-s for s in shift), (1, 2, 3))
+    o = window_msa(window_partition(h, window), wqkv, bqkv, wproj, bproj,
+                   bias, mask, nH, scale)
+    o = window_reverse(o, window, B, D, H, W)
+    if shifted:
+        o = torch.roll(o, tuple(shift), (1, 2, 3))
+    y = x + o.to(x.dtype)
+    if mlp is not None:
+        y = _mlp_plain(y.reshape(-1, C), *mlp, eps, True).reshape(y.shape)
+    return y
+
+
+def _spatial_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                  window, shift, nH, scale, eps, mlp=None):
+    """K14 on the card: gathered LN1 -> qkv GEMM -> attention core ->
+    proj GEMM scattered into the spatial rows (+ residual) [-> K3's LN2 +
+    MLP + residual launcher]."""
+    B, D, H, W, C = x.shape
+    N = int(np.prod(window))
+    rows, _ = _device_rows(B, D, H, W, window, shift, x.device)
+    x2 = x.contiguous().view(-1, C)
+    h = _build.layernorm(x2, ln_w, ln_b, eps, rows=rows)
+    qkv = _build.gemm(h, wqkv, bqkv)
+    o = _build.attention(qkv, x2.shape[0] // N, N, nH, scale,
+                         bias=bias.contiguous(),
+                         mask=None if mask is None else mask.contiguous())
+    y = _build.gemm(o, wproj, bproj, residual=x2, rows=rows,
+                    out=torch.empty_like(x2))
+    if mlp is not None:
+        y = _ln_mlp_cuda(y, *mlp, eps)
+    return y.view(B, D, H, W, C)
+
+
+def _spatial_attn_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                            mask, window, shift, nH, scale, eps):
+    """K14's attention half as its backward recomputes it: the gather by
+    ``window_rows`` -> LN1 -> qkv -> ``swin_core_attn`` (K8a, whose
+    backward is K8b, on the card) -> proj -> the inverse gather, + x."""
+    B, D, H, W, C = x.shape
+    N = int(np.prod(window))
+    rows, inv = _device_rows(B, D, H, W, window, shift, x.device)
+    h = layer_norm(x, ln_w, ln_b, eps).reshape(-1, C)
+    qkv = F.linear(h.index_select(0, rows.long()), wqkv, bqkv)
+    o = swin_core_attn(qkv.view(B, -1, N, 3 * C), bias, mask, nH, scale)
+    o = F.linear(o.reshape(-1, C), wproj, bproj).index_select(0, inv)
+    return x + o.view_as(x).to(x.dtype)
+
+
+class _SpatialAttnFn(torch.autograd.Function):
+    """K14's attention half under autograd: the kernel forward, and a
+    backward that recomputes through K8 (``_spatial_attn_recompute``)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                window, shift, nH, scale, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                              mask)
+        ctx.args = (window, shift, nH, scale, eps)
+        return _spatial_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                             mask, window, shift, nH, scale, eps)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        *inputs, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in inputs]
+            y = _spatial_attn_recompute(*inputs, mask, *ctx.args)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None, None, None, None, None, None)
+
+
+def _attn_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, window,
+                shift, nH, scale, eps):
+    """Plain PyTorch version of ``fused_swin_block_attn``: see
+    ``_spatial_plain`` (no MLP)."""
+    return _spatial_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                          mask, window, shift, nH, scale, eps)
+
+
+def _attn_launch(x, *args):
+    """The kernel; ``_SpatialAttnFn`` when autograd records the call."""
+    if not _build.needs_grad(x, *args):
+        return _spatial_cuda(x, *args)
+    return _SpatialAttnFn.apply(x, *args)
+
+
+fused_swin_block_attn = _build.KernelOp(
+    "K14 fused_swin_block_attn", _attn_plain, _attn_launch)
+
+
+def _full_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, n2_w,
+                n2_b, w1, b1, w2, b2, window, shift, nH, scale, eps):
+    """Plain PyTorch version of ``fused_swin_block_full``: see
+    ``_spatial_plain``, with the MLP (w1 [HD, C], w2 [C, HD])."""
+    return _spatial_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                          mask, window, shift, nH, scale, eps,
+                          mlp=(n2_w, n2_b, w1, b1, w2, b2))
+
+
+def _full_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, n2_w,
+                 n2_b, w1, b1, w2, b2, window, shift, nH, scale, eps):
+    return _spatial_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                         window, shift, nH, scale, eps,
+                         mlp=(n2_w, n2_b, w1, b1, w2, b2))
+
+
+fused_swin_block_full = _build.KernelOp(
+    "K14 fused_swin_block_full", _full_plain, _full_launch,
+    recompute_vjp=True)

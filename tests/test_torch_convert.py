@@ -31,9 +31,11 @@ from lavender_tpu_torch.ops.encoder_attention import (
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
     fused_ln_mlp_chunked, fused_out_ln_train)
-from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
+from lavender_tpu_torch.ops.swin_block_attn import (
+    fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm)
 from lavender_tpu_torch.ops.swin_core_attn import (
     swin_core_attn, swin_core_attn_bwd)
+from lavender_tpu_torch.ops.window_attention import fused_window_attention
 from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -71,6 +73,21 @@ def test_port_config_equals_jax(name):
     for mine, theirs in pairs:
         assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
         assert port_config(theirs) == mine
+
+
+def random_params(module, *example_args, seed: int = 0):
+    """Params of a flax ``module`` drawn with numpy (no JAX init compile):
+    LayerNorm scales 1 + N(0, 0.1^2), every other leaf N(0, 0.05^2)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0),
+                            *example_args)["params"]
+    g = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        x = g.randn(*leaf.shape).astype(np.float32)
+        if getattr(path[-1], "key", None) == "scale":
+            return 1.0 + 0.1 * x
+        return 0.05 * x
+    return jax.tree_util.tree_map_with_path(draw, shapes)
 
 
 TINY = jcfg.ModelConfig(
@@ -149,7 +166,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('models.captioning', 'tasks.common', 'tasks.retrieval',\n"
-        "          'ops.encoder_attention', 'serve', 'train.trainer'):\n"
+        "          'ops.encoder_attention', 'ops.window_attention', 'serve',\n"
+        "          'train.trainer'):\n"
         "    assert 'lavender_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'lavender_tpu'))\n"
@@ -211,6 +229,14 @@ def _meta_args(op):
     if op is fused_encoder_attention:
         q = t(2, nH, 8, C // nH)
         return (q, q, q, t(2, 8, 8).float(), 0.25), {}
+    if op in (fused_swin_block_attn, fused_swin_block_full):
+        blk = (t(1, 2, 7, 7, C), *ln, t(3 * C, C), t(3 * C), t(C, C), t(C),
+               t(nH, 98, 98), None)
+        mlp_args = mlp if op is fused_swin_block_full else ()
+        return (*blk, *mlp_args, (2, 7, 7), (0, 0, 0), nH, 0.25, 1e-5), {}
+    if op is fused_window_attention:
+        q = t(4, nH, 98, C // nH)
+        return (q, q, q, t(nH, 98, 98), t(2, 98, 98).float(), 0.25), {}
     seed = torch.zeros(1, dtype=torch.int64, device="meta")
     if op is fused_encoder_attention_train_lanes:
         return (t(2, 8, C), t(2, 8, C), t(2, 8, C), t(2, 8, 8), seed, 0.25,
@@ -231,8 +257,10 @@ def _meta_args(op):
     fused_ffn_post_ln, wm_shift_rows, swin_core_attn, swin_core_attn_bwd,
     fused_ln_mlp, fused_encoder_attention_train_lanes,
     encoder_attention_train_lanes_bwd, fused_out_ln_train,
-    fused_ffn_post_ln_train, fused_bert_attn_block, fused_encoder_attention],
-    ids=lambda op: op.name.split()[0])
+    fused_ffn_post_ln_train, fused_bert_attn_block, fused_encoder_attention,
+    fused_swin_block_attn, fused_swin_block_full, fused_window_attention],
+    ids=lambda op: op.name.split()[0] + (
+        "-full" if op is fused_swin_block_full else ""))
 def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
     args, kw = _meta_args(op)
     before = op.launches
@@ -242,6 +270,64 @@ def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
         with pytest.raises(ValueError, match="CUDA tensor"):
             op(*args, **kw)
     assert op.launches == before
+
+
+def _grad_args(op):
+    """Small f32 CPU arguments of ``op`` (the float tensors its leaves)."""
+    g = torch.Generator().manual_seed(0)
+    t = lambda *shape: torch.randn(*shape, generator=g) * 0.5
+    C, nH = 16, 2
+    ln, mlp = (1 + t(C), t(C)), (1 + t(C), t(C), t(4 * C, C), t(4 * C),
+                                 t(C, 4 * C), t(C))
+    if op in (fused_ln_mlp_chunked, fused_ln_mlp):
+        return (t(10, C), *mlp, 1e-5)
+    mask = torch.where(torch.rand(2, 6, 6, generator=g) < 0.3,
+                       torch.finfo(torch.float32).min, 0.0)
+    mask[:, :, 0] = 0.0  # an open key in every row
+    if op is fused_bert_attn_block:
+        return (t(2, 6, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),
+                t(C, C), t(C), *ln, mask, nH, (C // nH) ** -0.5, 1e-12)
+    if op is fused_encoder_attention:
+        return (t(2, nH, 6, 8), t(2, nH, 6, 8), t(2, nH, 6, 8), mask,
+                8 ** -0.5)
+    if op is fused_ffn_post_ln:
+        return (t(10, C), *mlp[2:], *ln, 1e-12)
+    if op is fused_bert_attn_block_kmask:
+        keep = torch.ones(2, 6, dtype=torch.bool)
+        keep[1, 4:] = False
+        return (t(2, 6, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),
+                t(C, C), t(C), *ln, keep, nH, (C // nH) ** -0.5, 1e-12)
+    if op is fused_window_attention:
+        return (t(4, nH, 18, 8), t(4, nH, 18, 8), t(4, nH, 18, 8),
+                t(nH, 18, 18), t(2, 18, 18), 8 ** -0.5)
+    return (t(2, 2, 6, 6, C), *ln, t(3 * C, C), t(3 * C), t(C, C), t(C),
+            t(nH, 18, 18), t(4, 18, 18), *mlp, (2, 3, 3), (0, 1, 1), nH,
+            (C // nH) ** -0.5, 1e-5)
+
+
+@pytest.mark.parametrize("op", [
+    fused_ln_mlp_chunked, fused_bert_attn_block_kmask, fused_ffn_post_ln,
+    fused_bert_attn_block, fused_encoder_attention, fused_ln_mlp,
+    fused_swin_block_full, fused_window_attention],
+    ids=lambda op: op.name.split()[0])
+def test_raw_launch_gets_gradients_through_recompute_vjp(op, monkeypatch):
+    """K3, K4, K5 (and K6, K7, K9, K14's full block, K15) launch raw CUDA,
+    which autograd cannot see into: their kernel path runs the launch inside
+    ``RecomputeVjp``.  With the launch replaced by the plain version under
+    ``torch.no_grad()`` (what a raw launch is to autograd) the kernel path
+    still gives every input its gradient, equal to autograd of the plain
+    version (1e-5), as a model in ``eval()`` mode under autograd needs."""
+    args = _grad_args(op)
+    monkeypatch.setattr(op, "_launch", torch.no_grad()(op.plain))
+    leaves = [a for a in args if torch.is_tensor(a) and a.is_floating_point()]
+    for a in leaves:
+        a.requires_grad_(True)
+    out = op.launch(*args)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(1))
+    got = torch.autograd.grad(out, leaves, cot)
+    want = torch.autograd.grad(op.plain(*args), leaves, cot)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 def test_plain_path_sends_the_models_to_the_plain_versions():

@@ -10,7 +10,12 @@ exactly equal), and the kernels' dropout hash against the PyTorch one bit
 for bit; the full-mask sub-block K6 and the heads-layout core K7 at odd
 lengths, head dims 32 and 64, finfo(f32).min masks (clamped) with a fully
 masked row, transposed (non-contiguous) heads-layout views for K7, their
-recompute-vjp gradients, and the raise on a CPU / CUDA mix.
+recompute-vjp gradients, and the raise on a CPU / CUDA mix; the GEMM's
+row scatter and the LN's row gather, the spatial Swin block K14 (whole
+and attention half, shifted, on windows that are not multiples of 8) and
+its gradients (the attention half's through K8), the per-window attention
+K15 on strided views and its gradient, and K1's whole block under
+autograd.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -36,9 +41,12 @@ from lavender_tpu_torch.ops.encoder_attention import (
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
     fused_ln_mlp_chunked, fused_out_ln_train)
-from lavender_tpu_torch.ops.swin_block_attn import fused_swin_block_wm
+from lavender_tpu_torch.models.swin3d import compute_shift_mask
+from lavender_tpu_torch.ops.swin_block_attn import (
+    fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm)
 from lavender_tpu_torch.ops.swin_core_attn import (
     swin_core_attn, swin_core_attn_bwd)
+from lavender_tpu_torch.ops.window_attention import fused_window_attention
 from lavender_tpu_torch.ops.wm_permute import shift_index, wm_shift_rows
 
 pytestmark = pytest.mark.cuda
@@ -510,3 +518,126 @@ def test_full_mask_wrappers_reject_a_device_mix(gen):
     with pytest.raises(ValueError):  # a mask of the wrong shape
         fused_bert_attn_block(x, w, w, w, b, b, b, w, b, b, b,
                               cpu_mask.cuda()[:, :, :5], nH, 0.25, 1e-12)
+
+
+def test_gemm_row_scatter_and_layernorm_row_gather(gen):
+    """K14's two layout primitives against their plain meaning."""
+    M, K, N = 300, 64, 96
+    perm = torch.randperm(M, generator=gen, device="cuda").to(torch.int32)
+    a, w, b = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5), _rnd(gen, N)
+    r = _rnd(gen, M, N)
+    out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
+    _build.gemm(a, w, b, residual=r, rows=perm, out=out)
+    want = torch.empty_like(out)
+    p = perm.long()
+    want[p] = (F.linear(a.float(), w.float(), b.float())
+               + r[p].float()).to(torch.bfloat16)
+    _close(out, want)
+    x = _rnd(gen, M, 96, std=2.0)
+    lw, lb = 1 + _rnd(gen, 96, std=0.1), _rnd(gen, 96, std=0.1)
+    rows = perm[: M // 2].contiguous()
+    got = _build.layernorm(x, lw, lb, 1e-5, rows=rows)
+    _close(got, layer_norm(x[rows.long()], lw, lb, 1e-5))
+
+
+def _spatial_args(gen, B, D, H, W, C, nH, window, shift):
+    N = window[0] * window[1] * window[2]
+    nW = (D // window[0]) * (H // window[1]) * (W // window[2])
+    x = _rnd(gen, B, D, H, W, C)
+    params = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+              _rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C),
+              _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C),
+              _rnd(gen, nH, N, N)]
+    mask = None
+    if any(shift):
+        mask = torch.as_tensor(compute_shift_mask(D, H, W, window, shift),
+                               device="cuda").to(torch.bfloat16)
+        assert mask.shape[0] == nW
+    mlp = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+           _rnd(gen, 4 * C, C, std=C ** -0.5), _rnd(gen, 4 * C),
+           _rnd(gen, C, 4 * C, std=(4 * C) ** -0.5), _rnd(gen, C)]
+    return x, params, mask, mlp
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("geom", [
+    # B, D, H, W, window, shift: odd windows (N = 40, 45), a non-square map
+    (2, 2, 8, 10, (2, 4, 5), (0, 2, 2)), (1, 3, 15, 9, (3, 5, 3), (0, 2, 1)),
+    (2, 5, 14, 14, (5, 7, 7), (0, 0, 0))])
+def test_spatial_block_and_gradients_match_plain(gen, full, geom):
+    """K14 forward vs plain, and under autograd its gradients (attention
+    half: backward through K8; whole block: the plain recompute)."""
+    B, D, H, W, window, shift = geom
+    C, nH = 64, 2
+    x, params, mask, mlp = _spatial_args(gen, B, D, H, W, C, nH, window,
+                                         shift)
+    op = fused_swin_block_full if full else fused_swin_block_attn
+    statics = (window, shift, nH, (C // nH) ** -0.5, 1e-5)
+    w = _rnd(gen, *x.shape)
+    outs, grads = [], []
+    before = swin_core_attn.launches, swin_core_attn_bwd.launches
+    for f in (op, op.plain):
+        ins = [t.clone().requires_grad_(True)
+               for t in [x, *params] + (mlp if full else [])]
+        y = f(*ins[:8], mask, *ins[8:], *statics)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, ins, w))
+    through_k8 = 0 if full else 1
+    assert (swin_core_attn.launches, swin_core_attn_bwd.launches) == (
+        before[0] + through_k8, before[1] + through_k8)
+    _close(outs[0], outs[1])
+    _close((outs[0] - x).float(), (outs[1] - x).float(), rel_l2=5e-2)
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("N,masked", [(45, True), (98, False), (245, True)])
+def test_window_attention_and_gradient_match_plain(gen, N, masked):
+    """K15 on the strided q, k, v views of one qkv product (the module
+    path's), 6 windows, mask over 3; gradients through the recompute."""
+    W, nH, hd, nW = 6, 2, 32, 3
+    qkv = _rnd(gen, W, N, 3, nH, hd)
+    bias = _rnd(gen, nH, N, N)
+    mask = None
+    if masked:
+        mask = (torch.rand(nW, N, N, generator=gen, device="cuda")
+                < 0.3).float() * -100.0
+    g = _rnd(gen, W, nH, N, hd)
+    outs, grads = [], []
+    for f in (fused_window_attention, fused_window_attention.plain):
+        qkv_l = qkv.clone().requires_grad_(True)
+        b = bias.clone().requires_grad_(True)
+        q, k, v = qkv_l.permute(2, 0, 3, 1, 4)
+        y = f(q, k, v, b, mask, hd ** -0.5)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, (qkv_l, b), g))
+    _close(outs[0], outs[1], rel_l2=1e-2)
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+
+
+def test_window_block_full_gradient_matches_plain(gen):
+    """K1's whole block (serving) under autograd: the recompute vjp."""
+    B, nW, N, Npad, C, nH = 2, 4, 49, 56, 64, 2
+    x = _rnd(gen, B, nW, Npad, C)
+    ln = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)]
+    lin = [_rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C),
+           _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C)]
+    mlp = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+           _rnd(gen, 4 * C, C, std=C ** -0.5), _rnd(gen, 4 * C),
+           _rnd(gen, C, 4 * C, std=(4 * C) ** -0.5), _rnd(gen, C)]
+    bias = _rnd(gen, nH, Npad, Npad)
+    bias[:, :, N:] = -100.0
+    w = _rnd(gen, B, nW, Npad, C)
+    w[:, :, N:] = 0.0
+    grads = []
+    for f in (fused_swin_block_wm, fused_swin_block_wm.plain):
+        ins = [t.clone().requires_grad_(True)
+               for t in [x, *ln, *lin, bias, *mlp]]
+        y = f(*ins[:8], None, nH, (C // nH) ** -0.5, 1e-5,
+              mlp=tuple(ins[8:]))
+        grads.append(torch.autograd.grad(y, ins, w))
+    for i, (gk, gp) in enumerate(zip(*grads)):
+        if i == 0:
+            gk, gp = gk[:, :, :N], gp[:, :, :N]
+        _close(gk, gp, rel_l2=5e-2)

@@ -66,9 +66,13 @@ def _batch(B=2, Lt=8):
 
 
 def _route(cfg, attn, ffn):
-    """The port's ``cfg`` with the fusion encoder's train route set."""
-    return dataclasses.replace(cfg, bert=dataclasses.replace(
-        cfg.bert, fused_attn_train=attn, fused_ffn_train=ffn))
+    """The port's ``cfg`` with the fusion encoder's train route set and the
+    Swin on its default route ("auto": the window-major train kernels; the
+    JAX side's "xla" computes the same function)."""
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, attn_impl="auto"),
+        bert=dataclasses.replace(cfg.bert, fused_attn_train=attn,
+                                 fused_ffn_train=ffn))
 
 
 @pytest.fixture(scope="module")

@@ -32,7 +32,10 @@ nothing is ever run on the CPU instead:
    block, whole and attention half, also minus its residual) and K15
    (the per-window attention, its yardstick SDPA with bias + shift mask
    as one additive mask) at the four Swin-B stages at B=4 and B=8,
-   shifted and unshifted;
+   shifted and unshifted; K17 (the uint8 patch embed) on the B=4 and
+   B=8 clips, its yardstick F.conv3d on the padded normalized bf16 clip;
+   K16 (the shifted wm block with the shift inside) at Swin-B stage 3,
+   B=4 and B=8, also minus its residual, its output's pad rows exactly 0;
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
@@ -73,17 +76,31 @@ nothing is ever run on the CPU instead:
    B=8: loss and gradients kernels vs plain, launches, ten steps lowering
    the loss >= 1 nat, step time and peak memory beside the default
    step's and beside remat with ``BertConfig.remat`` too; each serving
-   route's device-busy share under torch.profiler.
+   route's device-busy share under torch.profiler;
+8. the JAX switches' routes (the port's ``_FOLDCACHE`` / ``_PEK`` /
+   ``_IKS``): (a) the fold cache's logits (the default, phase 4's route)
+   against the uncached, unfolded ones; no fingerprint on an unchanged
+   model; ``load_state_dict`` of new weights into the built server, whose
+   next request must equal a fresh server's; (b) serving under ``_PEK``
+   (K17 once a forward) and ``_IKS`` (K16 9x, K1 15x, K2 4x, K9 9x), 3
+   requests of B=4 each against the plain path, launches, clips/s beside
+   the default route in turns, each route's device-busy share; (c) the
+   ``_IKS`` train step on ModelConfig(): loss and gradients kernels vs
+   plain, launches, ten steps lowering the loss >= 1 nat, step time beside
+   the default step's; (d) K16 against the K2 + K1 attention half + K2^-1
+   composition it replaces, at stage 3, B=4 and B=8, in turns.
 
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
-phase-6 and phase-7 runs, K12's in 5 (e); its largest error in phase 3;
+phase-6, phase-7 and phase-8 runs, K12's in 5 (e); its largest error in
+phase 3;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
 call x its calls in one serving forward plus one train step plus one
 seq2seq forward (K7: as if in each of its 12 layers) plus the text part
 of one KV decode (K4 and K5 in the prefill, K5 in the 19 steps) plus one
 "fused" and one "pallas" serving forward and one remat train step (K14,
-K15), summed over the shapes;
+K15) plus one ``_PEK`` serving forward (K17) and one ``_IKS`` serving
+forward and train step (K16), summed over the shapes;
 ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the FLOPs over
 989 TFLOP/s), then the device line.
 """
@@ -489,6 +506,94 @@ def _kernel_cases(g):
     cases += _full_mask_cases(g, lin, ln)
     cases += _bert_train_cases(g, lin, ln)
     cases += _spatial_cases(g, lin, ln)
+    cases += _route_cases(g, lin, ln)
+    return cases
+
+
+def _shifted_compare(x, N):
+    """K16: the valid rows within the kernel gate, their residual-free part
+    within DELTA_REL_L2, and the kernel's pad rows exactly 0."""
+    def compare(got, want):
+        v = (slice(None), slice(None), slice(0, N))
+        err, rel, ok = _compare(got[v], want[v], TOL, REL_L2)
+        r = x[v].float()
+        d_got, d_want = got[v].float() - r, want[v].float() - r
+        d_rel = float((d_got - d_want).norm() / d_want.norm())
+        pad = float(got[:, :, N:].float().abs().max())
+        ok = ok and d_rel <= DELTA_REL_L2 and pad == 0.0
+        return err, rel, ok, (f", minus residual rel_l2 {d_rel:.3g} (<= "
+                              f"{DELTA_REL_L2}), pad rows max|k| {pad} (== 0)")
+    return compare
+
+
+def _stage3_block(g, lin, ln):
+    """Swin-B stage 3's shifted-block operands: x [B, 4, 248, 512] per
+    batch size, the block's parameters, rel-pos bias and padded shift mask,
+    and the statics."""
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        pad_window_mask, rel_pos_bias_wm)
+
+    _, nW, C, nH, side, n_blocks = SWIN_STAGES[2]
+    window, shift, N, Npad = (5, 7, 7), (0, 3, 3), 245, 248
+    table = _rnd(g, 15 * 13 * 13, nH, std=1.0)
+    bias = rel_pos_bias_wm(table, relative_position_index((8, 7, 7)), N,
+                           Npad, torch.bfloat16)
+    mask = pad_window_mask(torch.as_tensor(compute_shift_mask(
+        FRAMES, side, side, window, shift), device="cuda"), Npad).to(
+        torch.bfloat16)
+    (wqkv, bqkv), (wproj, bproj), (n1w, n1b) = lin(3 * C, C), lin(C, C), ln(C)
+    params = (n1w, n1b, wqkv, bqkv, wproj, bproj, bias, mask)
+    statics = ((FRAMES, side, side), window, shift, nH, (C // nH) ** -0.5,
+               1e-5)
+    return params, statics, (nW, C, nH, N, Npad, n_blocks)
+
+
+def _route_cases(g, lin, ln):
+    """K17 on the serving clips (B=4, once in a ``_PEK`` serving forward)
+    and the train step's (B=8, checked only), its yardstick F.conv3d on the
+    padded, normalized bf16 clip (the normalize left out of its time); K16
+    at Swin-B stage 3, B=4 and B=8 (9 blocks in a ``_IKS`` serving forward
+    and in a ``_IKS`` train step), its input's pad rows random (the
+    kernel reads none of them)."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
+    from lavender_tpu_torch.ops.patch_embed_u8 import fused_patch_embed_u8
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_wm_shifted)
+
+    cases = []
+    E = 128
+    weight, bias = _rnd(g, E, 3, 2, 4, 4, std=0.05), _rnd(g, E, std=0.05)
+    mean = torch.tensor(IMAGENET_MEAN, device="cuda")
+    std = torch.tensor(IMAGENET_STD, device="cuda")
+    for B, count in ((BATCH, 1), (TRAIN_BATCH, 0)):
+        x = torch.randint(0, 256, (B, FRAMES, SIZE, SIZE, 3), generator=g,
+                          device="cuda", dtype=torch.uint8)
+        xn = F.pad((x.float() / 255.0 - mean) / std, (0, 0, 0, 0, 0, 0, 0, 1))
+        xn = xn.permute(0, 4, 1, 2, 3).contiguous().to(torch.bfloat16)
+        n_out = B * FRAMES * (SIZE // 4) ** 2
+        cases.append(Case(
+            fused_patch_embed_u8, f"B={B} D={FRAMES} {SIZE}x{SIZE} E={E}",
+            count, (x, weight, bias), 2.0 * n_out * 96 * E,
+            x.numel() + n_out * E * 2 + 96 * E * 2 + FRAMES * E * 4,
+            library=lambda xn=xn: F.conv3d(xn, weight, bias,
+                                           stride=(1, 4, 4))))
+    params, statics, (nW, C, nH, N, Npad, n_blocks) = _stage3_block(g, lin,
+                                                                     ln)
+    hd = C // nH
+    for B in (BATCH, TRAIN_BATCH):
+        x = _rnd(g, B, nW, Npad, C)
+        M = B * nW * Npad
+        cases.append(Case(
+            fused_swin_block_wm_shifted, f"B={B} stage 3 C={C} nH={nH} "
+            "shifted, shift inside", n_blocks, (x, *params, *statics),
+            2.0 * M * C * 4 * C + 4.0 * B * nW * nH * Npad * Npad * hd,
+            2 * M * C * 2 + (4 * C * C + 4 * C) * 2
+            + (nH + nW) * Npad * Npad * 2,
+            compare=_shifted_compare(x, N)))
     return cases
 
 
@@ -795,12 +900,27 @@ def _video_counts(ops, cfg):
                                                s.num_heads[i], 248))}
 
 
+@torch.no_grad()
+def _swin_layer_norms(server, seed: int):
+    """Seeded Swin LayerNorm affines (scale 1 + N(0, 0.1^2), shift
+    N(0, 0.1^2)) in place of the init's 1 and 0, under which the serving
+    fold would change no number; the server's guard rebuilds its cache."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for mod in server.model.enc_img.swin.modules():
+        if isinstance(mod, torch.nn.LayerNorm):
+            mod.weight.copy_(1.0 + _rnd(g, *mod.weight.shape, std=0.1))
+            mod.bias.copy_(_rnd(g, *mod.bias.shape, std=0.1))
+    return server
+
+
 def build_server():
     from lavender_tpu_torch.serve import LavenderServer
 
     t0 = time.perf_counter()
     # the default model: Swin-B + BERT-base, full depth and width
-    server = LavenderServer(seed=0, frames=FRAMES, size=SIZE)
+    server = _swin_layer_norms(LavenderServer(seed=0, frames=FRAMES,
+                                              size=SIZE), 10)
+    server.model.build_serving_cache(FRAMES, SIZE, SIZE)
     torch.cuda.synchronize()
     print(f"[serve] server built (seeded init, bf16, serving caches) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -1134,6 +1254,26 @@ def _device_profile(fn):
         else:
             hi = max(hi, b)
     return host_ms, (busy_us + hi - lo) / 1e3, len(spans)
+
+
+def _kernel_times(fn, n: int):
+    """ms of device time per call of ``fn`` by device activity name (the
+    sum of each activity's duration, over ``n`` calls under
+    torch.profiler, divided by ``n``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dur = (e.time_range.end - e.time_range.start) / 1e3 / n
+            out[e.name] = out.get(e.name, 0.0) + dur
+    return out
 
 
 def run_captioning(ops, server):
@@ -1495,6 +1635,279 @@ def run_spatial(ops, wm_server):
     return total
 
 
+# The JAX switches' routes, launches per Swin-B + BERT-base serving forward
+# at T=5, 224 x 224 (JAX _BlockPairWM / SwinBlockWM / PatchEmbed3D): _IKS
+# takes stage 3's 9 shifted blocks (nW = 4) into K16, with K9 (+residual)
+# after each, and leaves K2 around stages 1 and 2; _PEK adds K17 once.
+ROUTE_SERVE = {
+    "default": {"K1": 24, "K2": 22, "K3": 2},
+    "_PEK": {"K1": 24, "K2": 22, "K3": 2, "K17": 1},
+    "_IKS": {"K16": 9, "K1": 15, "K2": 4, "K9": 9, "K3": 2}}
+# one _IKS train step (B=8): K16's backward recomputes through K2 (two
+# shifts and their transposes) and K8; stages 1-2 shift around K1 as before
+IKS_STEP = {"K16": 9, "K1": 15, "K2": 44, "K8a": 24, "K8b": 24, "K9": 24}
+
+
+@contextlib.contextmanager
+def _switches(pek: bool = False, iks: bool = False):
+    """The port's LVT_PEK / LVT_IKS module constants, for a block."""
+    from lavender_tpu_torch.models import swin3d
+
+    prev = swin3d._PEK, swin3d._IKS
+    swin3d._PEK, swin3d._IKS = pek, iks
+    try:
+        yield
+    finally:
+        swin3d._PEK, swin3d._IKS = prev
+
+
+ROUTE_FLAGS = {"default": {}, "_PEK": {"pek": True}, "_IKS": {"iks": True}}
+
+
+def run_routes(ops, server):
+    """Phase 8: the JAX switches' routes.  (a) the fold cache's logits
+    against the uncached, unfolded ones, the guard's cost on an unchanged
+    model, and new weights loaded into the built server; (b) serving under
+    _PEK and _IKS against the plain path, launches, clips/s beside the
+    default route in turns, device-busy share per route; (c) the _IKS
+    train step: loss and gradients kernels vs plain, launches, ten steps,
+    step time beside the default step's; (d) K16 against the K2 + K1
+    attention half + K2^-1 composition it replaces.  Returns the launches
+    of the counted runs."""
+    from lavender_tpu_torch.config import ModelConfig, TrainConfig
+    from lavender_tpu_torch.models import swin3d
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_wm, fused_swin_block_wm_shifted)
+    from lavender_tpu_torch.ops.wm_permute import shift_indices, wm_shift_rows
+    from lavender_tpu_torch.serve import LavenderServer
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    total = {op: 0 for op in ops.values()}
+    layers = server.config.bert.num_hidden_layers
+    swin = server.model.enc_img.swin
+    rs = np.random.RandomState(8)
+    requests = []
+    for _ in range(N_REQUESTS):
+        img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(
+            np.uint8)
+        lens = rs.randint(5, TXT_LEN + 1, BATCH)
+        mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
+        txt = rs.randint(1, server.config.bert.vocab_size,
+                         (BATCH, TXT_LEN)) * mask
+        requests.append((img, txt, mask))
+
+    # (a) the fold cache against no cache, then the guard
+    folds = next(iter(swin.layers[0]._cache.values()))[6]
+    if folds[0] is None:
+        raise AssertionError("(a) the server's cache holds no fold")
+    cached = server(*requests[0])
+    swin.clear_serving_cache()
+    uncached = server(*requests[0])
+    swin.build_serving_cache(FRAMES, SIZE, SIZE)
+    err, rel, ok = _compare(cached, uncached, SLICE_TOL, SLICE_REL_L2)
+    print(f"[routes] (a) fold cache vs no cache (unfolded): max_abs_err "
+          f"{err:.4g} rel_l2 {rel:.3g} (tol {SLICE_TOL} max(1,max|ref|), "
+          f"{SLICE_REL_L2})", flush=True)
+    if not ok:
+        raise AssertionError("(a) the folded serving logits disagree")
+    # device time of the cache with and without the fold, in turns
+    fold_ms = {True: [], False: []}
+    try:
+        for fold in (True, False, False, True):
+            swin3d._FOLDCACHE = fold
+            swin.build_serving_cache(FRAMES, SIZE, SIZE)
+            fold_ms[fold].append(sum(_kernel_times(
+                lambda: server(*requests[0]), 3).values()))
+    finally:
+        swin3d._FOLDCACHE = True
+        swin.build_serving_cache(FRAMES, SIZE, SIZE)
+    print(f"[routes] (a) device activities' time per forward: fold cache "
+          f"{sum(fold_ms[True]) / 2:.3f} ms ({fold_ms[True]}), cache "
+          f"without the fold {sum(fold_ms[False]) / 2:.3f} ms "
+          f"({fold_ms[False]}) ({_nvidia_smi()})", flush=True)
+    other = _swin_layer_norms(LavenderServer(seed=1, frames=FRAMES,
+                                             size=SIZE), 11)
+    other.model.build_serving_cache(FRAMES, SIZE, SIZE)
+    calls = []
+    fingerprint = swin3d.BasicLayer.fingerprint
+    swin3d.BasicLayer.fingerprint = (
+        lambda self, fold: calls.append(1) or fingerprint(self, fold))
+    try:
+        server(*requests[0])
+        if calls:
+            raise AssertionError("(a) the guard ran a fingerprint on an "
+                                 "unchanged model")
+        server.model.load_state_dict(other.model.state_dict())
+        got = server(*requests[0])
+        n_fp = len(calls)
+    finally:
+        swin3d.BasicLayer.fingerprint = fingerprint
+    want = other(*requests[0])
+    err, rel, ok = _compare(got, want, SLICE_TOL, SLICE_REL_L2)
+    moved = float((want.float() - cached.float()).abs().max())
+    print(f"[routes] (a) guard: 0 fingerprints on an unchanged model; after "
+          f"load_state_dict of seed-1 weights {n_fp} stage fingerprints "
+          f"(check and rebuild), the next request vs a fresh seed-1 server: "
+          f"max_abs_err {err:.4g} rel_l2 {rel:.3g}; the old weights' logits "
+          f"differ by {moved:.4g}", flush=True)
+    if not (ok and err < moved and n_fp > 0):
+        raise AssertionError("(a) the server served a stale cache")
+    del other
+    torch.cuda.empty_cache()
+
+    # (b) serving under _PEK and _IKS against the plain path, launches
+    for name, flags in ROUTE_FLAGS.items():
+        expected = {ops[k]: n for k, n in ROUTE_SERVE[name].items()}
+        expected[ops["K4"]] = expected[ops["K5"]] = layers
+        with _switches(**flags):
+            server(*requests[0])  # warm-up
+            _reset(ops.values())
+            outs = [server(*r) for r in requests]
+            for op, n in _check_counts(ops.values(), expected, N_REQUESTS,
+                                       f"routes (b) {name}").items():
+                total[op] += n
+            for i, (out, req) in enumerate(zip(outs, requests)):
+                with plain_path():
+                    ref = server(*req)
+                err, rel, ok = _compare(out, ref, SLICE_TOL, SLICE_REL_L2)
+                print(f"[routes] (b) {name} request {i}: vs plain path "
+                      f"max_abs_err {err:.4g} rel_l2 {rel:.3g} (tol "
+                      f"{SLICE_TOL} max(1,max|ref|), {SLICE_REL_L2}), "
+                      f"max|ref| {float(ref.float().abs().max()):.3g}",
+                      flush=True)
+                if not (ok and bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"(b) {name} request {i}: kernel "
+                                         "path logits disagree")
+    times = {name: [] for name in ROUTE_FLAGS}
+    order = list(ROUTE_FLAGS)
+    for name in order + order[::-1]:
+        with _switches(**ROUTE_FLAGS[name]):
+            times[name].append(_ms(lambda: server(*requests[0]), 10))
+    for name, ts in times.items():
+        dt = sum(ts) / len(ts)
+        with _switches(**ROUTE_FLAGS[name]):
+            host_ms, busy_ms, n_dev = _device_profile(
+                lambda: [server(*requests[0]) for _ in range(3)])
+        busy = ("device time not measured (the profiler recorded no device "
+                "activity)" if busy_ms is None else
+                f"device busy {busy_ms / 3:.3f} ms of {host_ms / 3:.3f} "
+                f"({busy_ms / host_ms:.1%}), {n_dev / 3:.0f} device "
+                f"activities")
+        print(f"[routes] (b) {name} serving: {dt:.2f} ms per forward "
+              f"({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{BATCH / dt * 1e3:.2f} clips/s at B={BATCH}; per forward of "
+              f"3 under torch.profiler: {busy} ({_nvidia_smi()})",
+              flush=True)
+    # where a route's device time goes against the default's: the device
+    # activities' time by name, 3 forwards a route, the routes in turns
+    by_name = {name: {} for name in ROUTE_FLAGS}
+    for name in order + order[::-1]:
+        with _switches(**ROUTE_FLAGS[name]):
+            for k, v in _kernel_times(lambda: server(*requests[0]),
+                                      3).items():
+                by_name[name][k] = by_name[name].get(k, 0.0) + v / 2
+    base = by_name["default"]
+    for name in order:
+        kt = by_name[name]
+        line = (f"[routes] (b) {name}: device activities' time "
+                f"{sum(kt.values()):.3f} ms per forward")
+        if name != "default":
+            diff = sorted(((kt.get(k, 0.0) - base.get(k, 0.0), k)
+                           for k in set(kt) | set(base)),
+                          key=lambda d: -abs(d[0]))[:6]
+            line += "; vs default: " + "; ".join(
+                f"{d:+.4f} ms {k[:70]}" for d, k in diff)
+        print(line, flush=True)
+
+    # (c) the _IKS train step on ModelConfig()
+    cfg = ModelConfig()
+    loss_fn = retrieval.make_loss_fn(TRUE_ID, FALSE_ID)
+    batch = _train_batch(cfg.bert.vocab_size)
+    state = create_train_state(cfg, TrainConfig(max_iter=1000,
+                                                max_grad_norm=1.0), seed=0)
+    with _switches(iks=True):
+        _check_step("(c) _IKS, kernels vs plain:",
+                    _loss_and_grads(state, loss_fn, batch, False),
+                    _loss_and_grads(state, loss_fn, batch, True),
+                    _grad_groups(state.model), tag="routes")
+        step = make_train_step(loss_fn, state)
+        expected = {ops[k]: n for k, n in IKS_STEP.items()}
+        for k in ("K10a", "K10b", "K11"):
+            expected[ops[k]] = layers
+        _reset(ops.values())
+        step(batch)
+        for op, n in _check_counts(ops.values(), expected, 1,
+                                   "routes (c) _IKS step").items():
+            total[op] += n
+    del state, step
+    torch.cuda.empty_cache()
+    const = TrainConfig(lr=TRAIN_LR, warmup_ratio=0.0, max_iter=10 ** 9,
+                        max_grad_norm=1.0)
+    steps = {name: make_train_step(loss_fn, create_train_state(
+        cfg, const, seed=0)) for name in ("_IKS", "default")}
+    with _switches(iks=True):
+        losses = [float(steps["_IKS"](batch)) for _ in range(TRAIN_STEPS)]
+    drop = losses[0] - losses[-1]
+    print(f"[routes] (c) _IKS, {TRAIN_STEPS} steps at lr {TRAIN_LR}: loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; down {drop:.4f} nat (>= "
+          f"{MIN_LOSS_DROP})", flush=True)
+    if not (all(np.isfinite(losses)) and drop >= MIN_LOSS_DROP):
+        raise AssertionError(f"(c) _IKS: the loss did not fall by "
+                             f"{MIN_LOSS_DROP} nat in {TRAIN_STEPS} steps")
+    steps["default"](batch)  # warm-up
+    times = {name: [] for name in steps}
+    for name in ("_IKS", "default", "default", "_IKS", "_IKS", "default"):
+        with _switches(iks=name == "_IKS"):
+            times[name].append(_ms(lambda: steps[name](batch), 3))
+    for name, ts in times.items():
+        dt = sum(ts) / len(ts)
+        print(f"[routes] (c) {name} train step: {dt:.2f} ms per step "
+              f"({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{TRAIN_BATCH / dt * 1e3:.2f} train clips/s at "
+              f"B={TRAIN_BATCH} ({_nvidia_smi()})", flush=True)
+    del steps
+    torch.cuda.empty_cache()
+
+    # (d) K16 against the composition it replaces, at stage 3
+    g = torch.Generator(device="cuda").manual_seed(8)
+
+    def lin(n_out, n_in):
+        return _rnd(g, n_out, n_in, std=n_in ** -0.5), _rnd(g, n_out,
+                                                            std=0.02)
+
+    def ln(c):
+        return 1.0 + _rnd(g, c, std=0.1), _rnd(g, c, std=0.1)
+
+    params, statics, (nW, C, nH, N, Npad, _) = _stage3_block(g, lin, ln)
+    spatial, window, shift, _, scale, eps = statics
+    fwd, inv = shift_indices(window, *spatial, Npad, shift, "cuda")
+    for B in (BATCH, TRAIN_BATCH):
+        x = _rnd(g, B, nW, Npad, C)
+
+        def composition():
+            xs = wm_shift_rows(x, fwd, inv)
+            ys = fused_swin_block_wm(xs, *params, nH, scale, eps)
+            return wm_shift_rows(ys, inv, fwd)
+        k16 = lambda: fused_swin_block_wm_shifted(x, *params, *statics)
+        err, rel, ok = _compare(k16()[:, :, :N], composition()[:, :, :N],
+                                TOL, REL_L2)
+        ms = {"K16": [], "K2 + K1 + K2^-1": []}
+        for name in ("K16", "K2 + K1 + K2^-1", "K2 + K1 + K2^-1", "K16"):
+            ms[name].append(_time_ms(k16 if name == "K16" else composition,
+                                     20))
+        print(f"[routes] (d) stage 3 B={B}: K16 "
+              f"{sum(ms['K16']) / 2:.4f} ms vs K2 + K1 attention half + "
+              f"K2^-1 {sum(ms['K2 + K1 + K2^-1']) / 2:.4f} ms per block "
+              f"({ms}); outputs max_abs_err {err:.4g} rel_l2 {rel:.3g} "
+              f"({_nvidia_smi()})", flush=True)
+        if not ok:
+            raise AssertionError("(d) K16 disagrees with the composition")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1507,8 +1920,10 @@ def main() -> int:
     from lavender_tpu_torch.ops.fused_mlp import (
         fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
         fused_ln_mlp_chunked, fused_out_ln_train)
+    from lavender_tpu_torch.ops.patch_embed_u8 import fused_patch_embed_u8
     from lavender_tpu_torch.ops.swin_block_attn import (
-        fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm)
+        fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
+        fused_swin_block_wm_shifted)
     from lavender_tpu_torch.ops.swin_core_attn import (
         swin_core_attn, swin_core_attn_bwd)
     from lavender_tpu_torch.ops.window_attention import fused_window_attention
@@ -1534,7 +1949,8 @@ def main() -> int:
            "K10b": encoder_attention_train_lanes_bwd,
            "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train,
            "K14a": fused_swin_block_attn, "K14f": fused_swin_block_full,
-           "K15": fused_window_attention}
+           "K15": fused_window_attention,
+           "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     server = build_server()
@@ -1545,6 +1961,8 @@ def main() -> int:
     caption_counts = run_captioning(ops, server)
     torch.cuda.empty_cache()
     spatial_counts = run_spatial(ops, server)
+    torch.cuda.empty_cache()
+    route_counts = run_routes(ops, server)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/attention.cu",
@@ -1581,6 +1999,10 @@ def main() -> int:
                  "lavender_tpu/ops/swin_block_attn.py:468"),
         "K15": ("lavender_tpu_torch/csrc/attention.cu",
                 "lavender_tpu/ops/window_attention.py:49"),
+        "K16": ("lavender_tpu_torch/csrc/layernorm.cu",
+                "lavender_tpu/ops/swin_block_attn.py:1137"),
+        "K17": ("lavender_tpu_torch/csrc/patch_embed.cu",
+                "lavender_tpu/ops/patch_embed_u8.py:76"),
     }
     kernels = []
     for key, op in ops.items():
@@ -1590,11 +2012,13 @@ def main() -> int:
             "name": op.name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": (serve_counts[op] + train_counts[op]
-                         + caption_counts[op] + spatial_counts[op]),
+                         + caption_counts[op] + spatial_counts[op]
+                         + route_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
             "launches_spatial": spatial_counts[op],
+            "launches_routes": route_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

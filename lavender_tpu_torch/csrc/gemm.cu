@@ -17,10 +17,12 @@
 // left for a later change.
 //
 // An optional row index scatters the epilogue: output row m (and its
-// residual row) is row rows[m] of C (and R).  The spatial Swin block K14
-// (lavender_tpu/ops/swin_block_attn.py _block_kernel) computes its proj in
-// window order and stores it, residual added, straight into the spatial
-// layout this way.
+// residual row) is row rows[m] of C (and R), and is dropped where rows[m] <
+// 0.  The spatial Swin block K14 (lavender_tpu/ops/swin_block_attn.py
+// _block_kernel) computes its proj in window order and stores it, residual
+// added, straight into the spatial layout this way; the shifted wm block
+// K16 (_block_kernel_wm_shift) stores through the wm shift, whose window
+// tail-pad rows (-1) have no destination.
 #include <mma.h>
 
 #include "common.cuh"
@@ -124,8 +126,9 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
       const int gr = m0 + wm * 32 + i * 16 + r;
       const int gc = n0 + wn * 64 + j * 16 + c;
-      if (gr < M && gc < N) {  // N % 8 == 0, so all 8 columns are in range
-        const size_t orow = rows == nullptr ? gr : rows[gr];
+      const int dst = gr < M ? (rows == nullptr ? gr : rows[gr]) : -1;
+      if (dst >= 0 && gc < N) {  // N % 8 == 0, so all 8 columns are in range
+        const size_t orow = dst;
         float v[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) v[e] = scratch[r * 16 + c + e];
@@ -156,8 +159,8 @@ __global__ void __launch_bounds__(kThreads)
 // C[M, N] (row stride ldc) = epi(A[M, K] @ W[N, K]^T + bias[N] [+ R[M, N]]).
 // Requires K % 32 == 0, N % 8 == 0, all strides % 8 == 0 and 16-byte
 // aligned pointers (checked by the Python wrapper).  bias may be null;
-// rows (int32 [M], a permutation of C's rows, or null) sends output row m
-// to C's and R's row rows[m].
+// rows (int32 [M], distinct rows of C, or null) sends output row m to C's
+// and R's row rows[m], and drops it where rows[m] < 0.
 LVT_EXPORT int lvt_gemm_bf16(const void* A, int lda, const void* W, int ldw, const void* bias,
                              const void* R, int ldr, void* C, int ldc, int M, int N, int K,
                              int epi, const void* rows, void* stream) {

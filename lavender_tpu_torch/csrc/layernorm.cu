@@ -9,10 +9,15 @@
 // registers (C <= 1024, 32 values per lane), so the row is read once;
 // statistics in f32, two-pass variance (no E[x^2] - mean^2 cancellation).
 // An optional row index gathers the input: output row m is the LN of input
-// row rows[m].  The spatial Swin block K14 (lavender_tpu/ops/
-// swin_block_attn.py _block_kernel) reads its LN1 this way, the cyclic
-// shift and the window partition folded into the index, so that no
-// permuted copy of the block input is ever written.
+// row rows[m], and a zero row where rows[m] < 0.  The spatial Swin block K14
+// (lavender_tpu/ops/swin_block_attn.py _block_kernel) reads its LN1 this
+// way, the cyclic shift and the window partition folded into the index, so
+// that no permuted copy of the block input is ever written; the shifted wm
+// block K16 (_block_kernel_wm_shift) gathers through the wm shift, whose
+// window tail-pad rows are -1 (the TPU kernel's literal zero pad rows).
+// Without an affine (g and b null) the launch is the pure normalize that
+// the serving fold cache leaves (the LN affine folded into the next GEMM's
+// weights, lavender_tpu/models/swin3d.py foldfn).
 //
 // dropout_add_ln is the row epilogue of the BERT train kernels K11
 // (lavender_tpu/ops/fused_mlp.py _out_ln_train_kernel) and K12
@@ -39,7 +44,13 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= M) return;
-  const bf16* xr = x + (size_t)(rows == nullptr ? row : rows[row]) * C;
+  const int src = rows == nullptr ? row : rows[row];
+  bf16* yr = y + (size_t)row * C;
+  if (src < 0) {  // a gathered pad row: zeros
+    for (int c = lane; c < C; c += 32) yr[c] = __float2bfloat16(0.0f);
+    return;
+  }
+  const bf16* xr = x + (size_t)src * C;
   float v[kMaxPerLane];
   float s = 0.0f;
 #pragma unroll
@@ -57,12 +68,14 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     q += d * d;
   }
   const float rstd = rsqrtf(lvt::warp_sum(q) / C + eps);
-  bf16* yr = y + (size_t)row * C;
+  const bool affine = g != nullptr;
 #pragma unroll
   for (int t = 0; t < kMaxPerLane; ++t) {
     const int c = lane + t * 32;
-    if (c < C)
-      yr[c] = __float2bfloat16((v[t] - mean) * rstd * __bfloat162float(g[c]) + __bfloat162float(b[c]));
+    if (c < C) {
+      const float n = (v[t] - mean) * rstd;
+      yr[c] = __float2bfloat16(affine ? n * __bfloat162float(g[c]) + __bfloat162float(b[c]) : n);
+    }
   }
 }
 
@@ -120,6 +133,7 @@ LVT_EXPORT int lvt_dropout_add_ln_bf16(const void* x, const void* res, const voi
                                        const void* seed, uint32_t thresh, float drop_scale,
                                        void* stream) {
   if (M <= 0 || C <= 0 || C > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
+  if (g == nullptr || b == nullptr) return (int)cudaErrorInvalidValue;
   const int blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
   dropout_add_ln_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(res), static_cast<const bf16*>(g),
@@ -128,11 +142,13 @@ LVT_EXPORT int lvt_dropout_add_ln_bf16(const void* x, const void* res, const voi
   return (int)cudaGetLastError();
 }
 
-// y[M, C] = LayerNorm(x[M, C]) with affine g, b; rows contiguous, C <= 1024;
-// rows (int32 [M], indices of x's rows, or null): y[m] = LayerNorm(x[rows[m]]).
+// y[M, C] = LayerNorm(x[M, C]) with affine g, b, or the pure normalize when
+// both are null; rows contiguous, C <= 1024; rows (int32 [M], indices of x's
+// rows, or null): y[m] = LayerNorm(x[rows[m]]), zeros where rows[m] < 0.
 LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
                                   int C, float eps, const void* rows, void* stream) {
   if (M <= 0 || C <= 0 || C > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
+  if ((g == nullptr) != (b == nullptr)) return (int)cudaErrorInvalidValue;
   const int blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
   layernorm_bf16_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(b),

@@ -40,13 +40,42 @@ torch modules (``layers.0.blocks.1.attn.qkv.weight``), which is also what
 its per-block one (``layers_0/blocks_1``).
 
 What runs where: the uint8 patch embed (normalize folded into the conv
-weights), PatchMerging, the window partition/reverse and the final LN are
-plain torch (plain XLA in JAX); the blocks and the shift are the ported
-kernels.
+weights; ``fused_patch_embed_u8``, K17, under ``LVT_PEK=1``), PatchMerging,
+the window partition/reverse and the final LN are plain torch (plain XLA in
+JAX); the blocks and the shift are the ported kernels.
+
+The JAX package's environment switches, read at import into module
+constants that the routes read at call time (tests flip the constants):
+
+- ``LVT_FOLDCACHE`` (default "1", ``_FOLDCACHE``): ``build_serving_cache``
+  also folds each wm block's LN1 and LN2 affines into its qkv and fc1
+  weights (JAX ``foldfn``); a serving forward that reads the cache passes
+  them to K1, which then applies the pure normalize.  Never in training or
+  under autograd, never to a K16 block, and the stage-4 MLP (K3) stays
+  unfolded, as in JAX.
+- ``LVT_PEK`` (default "0", ``_PEK``): the patch embed takes K17 in
+  ``eval()`` on uint8 clips where ``supports_fused_patch_embed`` holds.
+- ``LVT_IKS`` (default "0", ``_IKS``): a shifted wm block takes K16 (the
+  shift inside the block, no ``wm_shift`` pair around it) where
+  ``supports_inkernel_shift`` holds (Swin-B at 5 x 224 x 224: stage 3);
+  its MLP then runs as K9 (with the residual in serving) where
+  ``weights_fit_vmem``, else K3 in serving and plain torch in training.
+
+The serving cache is a function of the weights.  Each cached stage keeps
+a fingerprint of its sources (sum and sum of squares of the rel-pos
+tables, and of the fold's LN, qkv and fc1 weights and biases) and a
+record of their ``(data_ptr, _version)``.  A forward that would read the
+cache first compares the record on the host (no device work for an
+unchanged model); where it moved, the fingerprints decide, and a stale
+stage is rebuilt before anything runs (``VideoSwin3D.refresh_serving_cache``).
+``check_serving_cache`` raises on a stale stage instead.  A write that
+bypasses the version counter (``p.data.copy_``) is not seen: rebuild by
+hand after one.
 """
 from __future__ import annotations
 
 import functools
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -56,17 +85,25 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
-from lavender_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
 from lavender_tpu_torch.ops import _build, layer_norm
 from lavender_tpu_torch.ops._build import select
 from lavender_tpu_torch.ops.fused_mlp import (
     _mlp_plain, fused_ln_mlp, fused_ln_mlp_chunked, weights_fit_vmem)
+from lavender_tpu_torch.ops.patch_embed_u8 import (
+    _pe_plain, fused_patch_embed_u8, supports_fused_patch_embed)
 from lavender_tpu_torch.ops.swin_block_attn import (
     fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
-    mlp_in_block, pad_window_mask, rel_pos_bias_wm, round8, window_msa,
+    fused_swin_block_wm_shifted, mlp_in_block, pad_window_mask,
+    rel_pos_bias_wm, round8, supports_inkernel_shift, window_msa,
     window_partition, window_reverse, wm_partition, wm_reverse, wm_shift)
 from lavender_tpu_torch.ops.window_attention import (
     fused_window_attention, window_attention_reference)
+
+# the JAX package's switches (lavender_tpu/models/swin3d.py:36-69), same
+# variables and defaults; see the module notes
+_IKS = os.environ.get("LVT_IKS", "0") == "1"
+_FOLDCACHE = os.environ.get("LVT_FOLDCACHE", "1") == "1"
+_PEK = os.environ.get("LVT_PEK", "0") == "1"
 
 
 def get_window_size(x_size: Sequence[int], window_size: Sequence[int],
@@ -271,21 +308,42 @@ class SwinBlock3D(nn.Module):
         return (self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias)
 
+    def fold(self, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
+        """The serving fold cache's tensors of this block (JAX ``foldfn``,
+        swin3d.py:1073), in f32, cast to ``dtype``: (wqkv * s1[None, :],
+        wqkv @ b1_ln + bqkv, w1 * s2[None, :], w1 @ b2_ln + b1) in torch
+        Linear layout."""
+        s1, b1_ln = self.norm1.weight.float(), self.norm1.bias.float()
+        s2, b2_ln = self.norm2.weight.float(), self.norm2.bias.float()
+        wq, bq = self.attn.qkv.weight.float(), self.attn.qkv.bias.float()
+        w1, b1 = self.mlp.fc1.weight.float(), self.mlp.fc1.bias.float()
+        return tuple(t.to(dtype).contiguous() for t in (
+            wq * s1[None, :], wq @ b1_ln + bq, w1 * s2[None, :],
+            w1 @ b2_ln + b1))
+
     def wm(self, x: torch.Tensor, bias: torch.Tensor,
            mask: Optional[torch.Tensor], n_valid: int, dp_rate: float = 0.0,
-           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+           generator: Optional[torch.Generator] = None,
+           folded: Optional[Tuple[torch.Tensor, ...]] = None,
+           inkernel_shift: Optional[tuple] = None) -> torch.Tensor:
         """x [B, nW, Npad, C]; bias [nH, Npad, Npad] (rel_pos_bias_wm);
         mask [nW, Npad, Npad] for a shifted block, else None; ``n_valid``
         the real rows of a window; ``dp_rate`` and ``generator`` the
-        drop-path rate and random stream in training."""
+        drop-path rate and random stream in training; ``folded`` the
+        serving fold cache's tensors (``fold``; serving only);
+        ``inkernel_shift`` ((D, H, W), window, shift) for a shifted block
+        that takes K16 on the UNSHIFTED layout."""
         Npad, C = x.shape[2:]
         nH = self.attn.num_heads
         block = select(fused_swin_block_wm)
-        args = (self.norm1.weight, self.norm1.bias, self.attn.qkv.weight,
+        attn = (self.norm1.weight, self.norm1.bias, self.attn.qkv.weight,
                 self.attn.qkv.bias, self.attn.proj.weight,
-                self.attn.proj.bias, bias, mask, nH, self.attn.scale,
-                self.norm1.eps)
+                self.attn.proj.bias, bias, mask)
+        args = (*attn, nH, self.attn.scale, self.norm1.eps)
         mlp = self._mlp_args()
+        if inkernel_shift is not None:
+            return self._wm_inkernel_shift(x, attn, mlp, inkernel_shift,
+                                           dp_rate, generator)
         if self.training:
             x = drop_path_lerp(x, block(x, *args, n_valid=n_valid), dp_rate,
                                generator)
@@ -293,10 +351,35 @@ class SwinBlock3D(nn.Module):
                                        self.norm2.eps).reshape(x.shape)
             return x + drop_path(out, dp_rate, generator)
         if mlp_in_block(C, self.mlp.fc1.out_features, nH, Npad):
-            return block(x, *args, mlp=mlp)
-        x = block(x, *args)
+            return block(x, *args, mlp=mlp, folded=folded)
+        x = block(x, *args, folded=folded)
         return select(fused_ln_mlp_chunked)(x.reshape(-1, C), *mlp,
                                             self.norm2.eps).reshape(x.shape)
+
+    def _wm_inkernel_shift(self, x, attn, mlp, inkernel_shift, dp_rate,
+                           generator):
+        """The JAX ``SwinBlockWM`` ``inkernel_shift`` branch
+        (swin3d.py:677-686 and the MLP after it): K16, then the MLP as a
+        separate call, K9 where ``weights_fit_vmem`` (with the residual in
+        serving), else K3 in serving and plain torch in training."""
+        C = x.shape[-1]
+        eps = self.norm1.eps
+        full = select(fused_swin_block_wm_shifted)(
+            x, *attn, *inkernel_shift, self.attn.num_heads, self.attn.scale,
+            eps)
+        fits = weights_fit_vmem(C, self.mlp.fc1.out_features)
+        if self.training:
+            x = drop_path_lerp(x, full, dp_rate, generator)
+            flat = x.reshape(-1, C)
+            out = (select(fused_ln_mlp)(flat, *mlp, self.norm2.eps) if fits
+                   else _mlp_plain(flat, *mlp, self.norm2.eps))
+            return x + drop_path(out.reshape(x.shape), dp_rate, generator)
+        flat = full.reshape(-1, C)
+        if fits:
+            out = select(fused_ln_mlp)(flat, *mlp, self.norm2.eps, True)
+        else:
+            out = select(fused_ln_mlp_chunked)(flat, *mlp, self.norm2.eps)
+        return out.reshape(full.shape)
 
     def spatial(self, x: torch.Tensor, bias: torch.Tensor,
                 geo: SpatialGeometry, shifted: bool, attn_impl: str,
@@ -408,10 +491,20 @@ class BasicLayer(nn.Module):
         self.downsample = PatchMerging(dim, eps) if has_downsample else None
         self._cache: Dict = {}
         self._geometries: Dict = {}
+        # the cache's spatial size, whether it holds the fold, its source
+        # parameters, their fingerprint and (data_ptr, _version) record
+        # (see the module notes)
+        self._cache_size: Optional[Tuple[int, int, int]] = None
+        self._cache_fold = False
+        self._cache_sources: List[torch.Tensor] = []
+        self._cache_fp: Optional[torch.Tensor] = None
+        self._cache_record: tuple = ()
 
     def train(self, mode: bool = True):
-        """Also drops the serving cache: training changes the tables."""
-        self._cache = {}
+        """Entering training also drops the serving cache: training changes
+        the weights (``eval()`` keeps it)."""
+        if mode:
+            self._cache = {}
         return super().train(mode)
 
     def wm_ok(self, D: int, H: int, W: int) -> bool:
@@ -431,9 +524,10 @@ class BasicLayer(nn.Module):
 
     def _geometry(self, D: int, H: int, W: int, device, dtype):
         """Per-block rel-pos biases and the padded shift mask of one input
-        geometry on the wm route.  Built once by ``build_serving_cache``; a
-        geometry (or device/dtype) without a cache entry is built on the
-        fly, and always under autograd (see ``_cached``)."""
+        geometry on the wm route, and each block's fold (None unless the
+        cache holds it).  Built once by ``build_serving_cache``; a geometry
+        (or device/dtype) without a cache entry is built on the fly, and
+        always under autograd (see ``_cached``)."""
         key = (D, H, W, device, dtype)
         cached = self._cached(key)
         if cached is not None:
@@ -450,7 +544,7 @@ class BasicLayer(nn.Module):
             m = torch.as_tensor(compute_shift_mask(D, H, W, window, shift),
                                 device=device)
             mask = pad_window_mask(m, Npad).to(dtype)
-        return window, shift, N, Npad, biases, mask
+        return window, shift, N, Npad, biases, mask, [None] * len(self.blocks)
 
     def _spatial_geometry(self, D: int, H: int, W: int, device, dtype
                           ) -> SpatialGeometry:
@@ -484,35 +578,94 @@ class BasicLayer(nn.Module):
                                 rel_index, N, N, dtype)
                 for blk in self.blocks]
 
-    @torch.no_grad()
     def build_serving_cache(self, D: int, H: int, W: int):
         """Precompute this stage's biases and shift mask for inputs of
-        spatial size (D, H, W) on the parameters' device and dtype.  The
-        cache is a function of the weights: rebuild it after changing them."""
+        spatial size (D, H, W) on the parameters' device and dtype, on the
+        wm route also each block's fold (under ``_FOLDCACHE``), with the
+        fingerprints and the record of their sources.  The cache is a
+        function of the weights (see ``refresh_serving_cache``)."""
         p = self.blocks[0].attn.relative_position_bias_table
         self._cache = {}
         key = (D, H, W, p.device, p.dtype)
-        if self.wm_ok(D, H, W):
-            self._cache[key] = self._geometry(D, H, W, p.device, p.dtype)
-        else:
-            geo = self._spatial_geometry(D, H, W, p.device, p.dtype)
-            self._cache[key] = self._spatial_biases(geo, p.dtype)
+        fold = False
+        # outside inference mode (the server may rebuild inside it), and
+        # inference_mode(False) enables autograd again
+        with torch.inference_mode(False), torch.no_grad():
+            if self.wm_ok(D, H, W):
+                fold = _FOLDCACHE
+                *geo, _ = self._geometry(D, H, W, p.device, p.dtype)
+                folds = [blk.fold(p.dtype) if fold else None
+                         for blk in self.blocks]
+                self._cache[key] = (*geo, folds)
+            else:
+                geo = self._spatial_geometry(D, H, W, p.device, p.dtype)
+                self._cache[key] = self._spatial_biases(geo, p.dtype)
+            self._cache_size, self._cache_fold = (D, H, W), fold
+            self._cache_sources = self._sources(fold)
+            self._cache_fp = self.fingerprint(fold)
+        self._cache_record = _record(self._cache_sources)
+
+    def _sources(self, fold: bool) -> List[torch.Tensor]:
+        """The parameters the cache is computed from."""
+        out = [blk.attn.relative_position_bias_table for blk in self.blocks]
+        if fold:
+            out += [t for blk in self.blocks for t in _fold_sources(blk)]
+        return out
+
+    def fingerprint(self, fold: bool) -> torch.Tensor:
+        """f32 staleness fingerprint of the cache's sources on the device:
+        ``bias_fingerprint`` of the (no-shift, shift) sides' tables, then
+        with ``fold`` ``fold_fingerprint`` of the blocks."""
+        ta = [blk.attn.relative_position_bias_table for blk in self.blocks[0::2]]
+        tb = [blk.attn.relative_position_bias_table for blk in self.blocks[1::2]]
+        fp = bias_fingerprint(torch.stack(ta), torch.stack(tb))
+        if fold:
+            fp = torch.cat([fp, fold_fingerprint(self.blocks)])
+        return fp
+
+    def cache_is_stale(self) -> bool:
+        """Whether the cache's sources no longer give its fingerprint (False
+        without a cache).  Reads the fingerprint back to the host."""
+        if not self._cache:
+            return False
+        with torch.no_grad():
+            now = self.fingerprint(self._cache_fold)
+        return not torch.equal(now.cpu(), self._cache_fp.cpu())
+
+    def refresh_serving_cache(self) -> bool:
+        """Where the sources' record moved since the build: rebuild a stale
+        cache (True), or take the new record of a fresh one.  An unchanged
+        record costs host time only."""
+        if not self._cache or _record(self._cache_sources) == self._cache_record:
+            return False
+        if self.cache_is_stale():
+            self.build_serving_cache(*self._cache_size)
+            return True
+        self._cache_record = _record(self._cache_sources)
+        return False
 
     def _forward_wm(self, x: torch.Tensor,
                     generator: Optional[torch.Generator]) -> torch.Tensor:
         B, D, H, W, C = x.shape
-        window, shift, N, Npad, biases, mask = self._geometry(
+        window, shift, N, Npad, biases, mask, folds = self._geometry(
             D, H, W, x.device, x.dtype)
         shifted = mask is not None
         dpr = self.drop_path_rates
         t = wm_partition(x, window, Npad)
+        nW = t.shape[1]
+        # JAX _BlockPairWM: K16 for the shifted block where the gate holds,
+        # and then no wm_shift pair around it (swin3d.py:952-965)
+        iks = (shifted and _IKS and supports_inkernel_shift(
+            window, (D, H, W), Npad, C, self.blocks[0].attn.num_heads, nW))
+        inkernel = ((D, H, W), window, shift) if iks else None
         for k in range(0, len(self.blocks), 2):
-            t = self.blocks[k].wm(t, biases[k], None, N, dpr[k], generator)
-            if shifted:
+            t = self.blocks[k].wm(t, biases[k], None, N, dpr[k], generator,
+                                  folds[k])
+            if shifted and not iks:
                 t = wm_shift(t, window, D, H, W, shift)
             t = self.blocks[k + 1].wm(t, biases[k + 1], mask, N, dpr[k + 1],
-                                      generator)
-            if shifted:
+                                      generator, folds[k + 1], inkernel)
+            if shifted and not iks:
                 t = wm_shift(t, window, D, H, W, shift, inverse=True)
         return wm_reverse(t, window, D, H, W)
 
@@ -567,15 +720,72 @@ class BasicLayer(nn.Module):
         return x
 
 
+def _record(sources: List[torch.Tensor]) -> tuple:
+    """(data_ptr, _version) of each tensor: moves with any in-place update
+    (``load_state_dict``, an optimizer step) or a new storage (``.to``)."""
+    return tuple((p.data_ptr(), p._version) for p in sources)
+
+
+def _fold_sources(blk: SwinBlock3D) -> Tuple[torch.Tensor, ...]:
+    return (blk.norm1.weight, blk.norm1.bias, blk.attn.qkv.weight,
+            blk.attn.qkv.bias, blk.norm2.weight, blk.norm2.bias,
+            blk.mlp.fc1.weight, blk.mlp.fc1.bias)
+
+
+def _sum_sumsq(t: torch.Tensor) -> List[torch.Tensor]:
+    f = t.float()
+    return [f.sum(), f.square().sum()]
+
+
+def bias_fingerprint(ta: torch.Tensor, tb: torch.Tensor) -> torch.Tensor:
+    """f32 [4]: sum and sum of squares of the stacked rel-pos tables of the
+    (no-shift, shift) blocks of a stage (JAX ``_bias_fingerprint``,
+    swin3d.py:741)."""
+    return torch.stack(_sum_sumsq(ta) + _sum_sumsq(tb))
+
+
+def fold_fingerprint(blocks: Sequence[SwinBlock3D]) -> torch.Tensor:
+    """f32 [32]: per side (the no-shift blocks, then the shift blocks), sum
+    and sum of squares of the stacked norm1 weight and bias, qkv weight and
+    bias, norm2 weight and bias, fc1 weight and bias (JAX
+    ``_fold_fingerprint``, swin3d.py:751, which leaves out the qkv and fc1
+    biases that the fold reads too)."""
+    parts = []
+    for side in (blocks[0::2], blocks[1::2]):
+        for tensors in zip(*(_fold_sources(b) for b in side)):
+            parts += _sum_sumsq(torch.stack(tensors))
+    return torch.stack(parts)
+
+
+def check_serving_cache(model: nn.Module) -> bool:
+    """Staleness check of every serving cache in ``model`` (JAX
+    ``check_serving_cache``, swin3d.py:789): raises ValueError naming the
+    first stage whose cache was built from other weights than its current
+    ones; True when a cache is present and fresh, False when none is."""
+    found = False
+    for name, mod in model.named_modules():
+        if isinstance(mod, BasicLayer) and mod._cache:
+            found = True
+            if mod.cache_is_stale():
+                raise ValueError(
+                    f"stale serving cache at {name}: it was built from other "
+                    f"weights than the current ones (rel-pos tables or the "
+                    f"fold's sources).  Rebuild it with build_serving_cache.")
+    return found
+
+
 class PatchEmbed3D(nn.Module):
     """Patch embedding, kernel (2, 4, 4), stride (1, 4, 4), temporal
     end-pad, on raw uint8 frames [B, D, H, W, 3] -> [B, D, H/4, W/4, E].
 
     The ImageNet normalize (u/255 - mean)/std is folded into the conv
     weights and the convolution runs as one [*, 96] @ [96, E] product
-    (the JAX package's ``_u8_embed``).  The end-pad frame must contribute a
-    NORMALIZED zero, so the kd=1 tap's folded shift is left out at the
-    last time step through a [D, E] bias table."""
+    (the JAX package's ``_u8_embed``, ``patch_embed_u8._pe_plain``).  The
+    end-pad frame must contribute a NORMALIZED zero, so the kd=1 tap's
+    folded shift is left out at the last time step through a [D, E] bias
+    table.  Under ``_PEK`` in ``eval()`` the product is K17
+    (``fused_patch_embed_u8``) where ``supports_fused_patch_embed`` holds
+    (JAX swin3d.py:1213-1230)."""
 
     def __init__(self, patch_size=(2, 4, 4), in_chans: int = 3,
                  embed_dim: int = 96, patch_norm: bool = True,
@@ -596,23 +806,12 @@ class PatchEmbed3D(nn.Module):
                 "multiples of SwinConfig.patch_size with a temporal patch of "
                 f"2 (the float and padded inputs are not ported), got "
                 f"{x.dtype} {tuple(x.shape)}, patch {self.patch_size}")
-        h2, w2 = H // ph, W // pw
-        xs = x.reshape(B, D, h2, ph, w2, pw, C).permute(0, 1, 2, 4, 3, 5, 6)
-        xs = xs.reshape(B, D, h2, w2, ph * pw * C)
-        xp = torch.cat([xs, xs.new_zeros(B, 1, h2, w2, ph * pw * C)], dim=1)
-        feat = torch.cat([xp[:, :D], xp[:, 1:D + 1]], dim=-1)
-        # fold n = a_c * u + b_c into the kernel (f32), feat order (kd, ph, pw, c)
-        kern = self.proj.weight.float().permute(2, 3, 4, 1, 0)  # [pd,ph,pw,c,E]
-        std = torch.tensor(IMAGENET_STD, device=x.device)
-        mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-        kmat = (kern / (255.0 * std)[:, None]).reshape(-1, self.embed_dim)
-        shift = torch.einsum("dhwce,c->de", kern, -mean / std)  # [pd, E]
-        last = (torch.arange(D, device=x.device) < D - 1).float()
-        bias_t = (self.proj.bias.float() + shift[0])[None] \
-            + last[:, None] * shift[1][None]  # [D, E]
-        dt = self.proj.weight.dtype
-        out = torch.matmul(feat.to(dt), kmat.to(dt)).float()
-        out = (out + bias_t[None, :, None, None, :]).to(dt)
+        if (_PEK and not self.training and supports_fused_patch_embed(
+                B, D, H, W, C, self.patch_size)):
+            out = select(fused_patch_embed_u8)(x, self.proj.weight,
+                                               self.proj.bias)
+        else:
+            out = _pe_plain(x, self.proj.weight, self.proj.bias)
         if self.norm is not None:
             out = layer_norm(out, self.norm.weight, self.norm.bias,
                              self.norm.eps)
@@ -646,16 +845,33 @@ class VideoSwin3D(nn.Module):
         self.norm = nn.LayerNorm(cfg.num_features, eps=cfg.layer_norm_eps)
 
     def build_serving_cache(self, T: int, H: int, W: int):
-        """Precompute every stage's biases and masks for [*, T, H, W, 3]."""
+        """Precompute every stage's biases and masks (and, on the wm route
+        under ``_FOLDCACHE``, the folded weights) for [*, T, H, W, 3]."""
         D, h, w = T, H // self.patch_size[1], W // self.patch_size[2]
         for layer in self.layers:
             layer.build_serving_cache(D, h, w)
             if layer.downsample is not None:
                 h, w = (h + 1) // 2, (w + 1) // 2
 
+    def clear_serving_cache(self):
+        for layer in self.layers:
+            layer._cache = {}
+
+    def refresh_serving_cache(self) -> List[str]:
+        """The staleness guard: each stage whose sources' record moved is
+        rebuilt where its fingerprint no longer matches (the names of the
+        rebuilt stages are returned).  Host work only for an unchanged
+        model."""
+        return [f"layers.{i}" for i, layer in enumerate(self.layers)
+                if layer.refresh_serving_cache()]
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``generator``: the drop-path random stream in training."""
+        """``generator``: the drop-path random stream in training.  A
+        forward that reads the serving cache (``eval()``, no autograd)
+        first runs the staleness guard."""
+        if not (self.training or torch.is_grad_enabled()):
+            self.refresh_serving_cache()
         x = self.patch_embed(x)
         for layer in self.layers:
             x = layer(x, generator)

@@ -8,14 +8,15 @@ root, and is keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as is.
 
 The primitives bound here (tiled GEMM with fused epilogues, optionally
-scattering its rows, row LayerNorm, optionally gathering its rows, and its
-dropout + residual variant, attention core (on the packed qkv slab, or on
-strided heads-layout q, k, v, with a per-head bias and a per-window mask)
-and its backward, both with optional dropout, row permutation, and a probe
-of the dropout hash) are what the ports of the TPU kernels are composed
-from, see ``swin_block_attn.py``, ``window_attention.py``,
-``swin_core_attn.py``, ``wm_permute.py``, ``fused_mlp.py``,
-``encoder_attention.py`` and ``dropout.py``.  Each launch goes on PyTorch's current stream,
+scattering its rows, row LayerNorm, with or without its affine, optionally
+gathering its rows, and its dropout + residual variant, attention core (on
+the packed qkv slab, or on strided heads-layout q, k, v, with a per-head
+bias and a per-window mask) and its backward, both with optional dropout,
+row permutation, and a probe of the dropout hash) are what the ports of
+the TPU kernels are composed from, see ``swin_block_attn.py``,
+``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
+``fused_mlp.py``, ``encoder_attention.py`` and ``dropout.py``; the uint8
+patch embed (``patch_embed_u8.py``) is a kernel of its own.  Each launch goes on PyTorch's current stream,
 allocates nothing inside the kernel (outputs come from ``torch.empty``
 here) and raises if the C entry reports a CUDA error.
 """
@@ -61,6 +62,7 @@ _SIGNATURES = {
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, *_DROP, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
+    "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
 }
 
@@ -308,8 +310,13 @@ def _check(t: torch.Tensor, what: str, ndim: int = 2):
         raise ValueError(f"{what}: row stride must be a multiple of 8")
 
 
-def _vec(t: Optional[torch.Tensor], n: int, what: str):
+def _vec(t: Optional[torch.Tensor], n: int, what: str,
+         optional: bool = True):
+    """Pointer of a bf16 vector [n], or null for None where the kernel takes
+    none (``optional``; otherwise None raises)."""
     if t is None:
+        if not optional:
+            raise ValueError(f"{what}: required, got None")
         return None
     _check(t, what, ndim=1)
     if t.shape[0] != n:
@@ -327,7 +334,9 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _rows(rows: Optional[torch.Tensor], M: int, device, what: str):
-    """Pointer of a row index (int32 [M], contiguous, on ``device``)."""
+    """Pointer of a row index (int32 [M], contiguous, on ``device``; a
+    negative entry is a pad row: zeros where it gathers, dropped where it
+    scatters)."""
     if rows is None:
         return None
     if (rows.dtype != torch.int32 or rows.device != device
@@ -345,8 +354,9 @@ def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
 
     a [M, K], w [N, K] (torch Linear layout); ``out`` may be a column slice
     of a wider tensor (its row stride is passed through).  ``rows`` (int32
-    [M], a permutation of range(M)) scatters: row m of the product goes to
-    ``out[rows[m]]``, with ``residual[rows[m]]`` added."""
+    [M], distinct rows of ``out``) scatters: row m of the product goes to
+    ``out[rows[m]]``, with ``residual[rows[m]]`` added, and is dropped where
+    ``rows[m] < 0`` (those rows of ``out`` keep what they held)."""
     _check(a, "gemm a")
     _check(w, "gemm w")
     M, K = a.shape
@@ -410,8 +420,10 @@ def dropout_add_ln(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
     out = torch.empty_like(x)
     keep = torch.empty(M, C, dtype=torch.bool, device=x.device)
     err = library().lvt_dropout_add_ln_bf16(
-        x.data_ptr(), res.data_ptr(), _vec(weight, C, "dropout_add_ln weight"),
-        _vec(bias, C, "dropout_add_ln bias"), out.data_ptr(), keep.data_ptr(),
+        x.data_ptr(), res.data_ptr(),
+        _vec(weight, C, "dropout_add_ln weight", optional=False),
+        _vec(bias, C, "dropout_add_ln bias", optional=False), out.data_ptr(),
+        keep.data_ptr(),
         M, C, float(eps), seed_ptr, thresh, scale, _stream(x))
     _raise_on(err, "lvt_dropout_add_ln_bf16")
     return out, keep
@@ -432,13 +444,19 @@ def dropout_bits(seed: torch.Tensor, n_stream: int,
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
-def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Row LayerNorm of contiguous x [M, C], C <= 1024.  ``rows`` (int32
-    [M'], indices into x's rows) gathers: out[m] = LN(x[rows[m]])."""
+def layernorm(x: torch.Tensor, weight: Optional[torch.Tensor],
+              bias: Optional[torch.Tensor], eps: float,
+              rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Row LayerNorm of contiguous x [M, C], C <= 1024; ``weight`` and
+    ``bias`` both None: the pure normalize (the serving fold cache's LN).
+    ``rows`` (int32 [M'], indices into x's rows) gathers: out[m] =
+    LN(x[rows[m]]), a zero row where rows[m] < 0."""
     _check(x, "layernorm x")
     if not x.is_contiguous() or x.shape[1] > 1024:
         raise ValueError("layernorm: x must be contiguous with C <= 1024")
+    if (weight is None) != (bias is None):
+        raise ValueError("layernorm: weight and bias are both given or both "
+                         "None")
     M, C = x.shape
     if rows is not None:
         M = rows.shape[0]
@@ -668,4 +686,37 @@ def permute_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), out.data_ptr(), index.data_ptr(), B, R, row_bytes,
         _stream(x))
     _raise_on(err, "lvt_permute_rows")
+    return out
+
+
+def patch_embed_u8(x: torch.Tensor, w: torch.Tensor,
+                   bias_t: torch.Tensor) -> torch.Tensor:
+    """The uint8 patch embed, kernel (2, 4, 4), stride (1, 4, 4), temporal
+    end pad: x uint8 [B, D, H, W, 3] (contiguous, H and W multiples of 4),
+    w bf16 [96, E] the folded conv weights (rows in (kd, kh, kw, c) order),
+    bias_t f32 [D, E] the per-time bias table.  Returns bf16
+    [B, D, H / 4, W / 4, E]."""
+    if (x.device.type != "cuda" or x.dtype != torch.uint8 or x.dim() != 5
+            or not x.is_contiguous() or x.data_ptr() % 4 or x.shape[-1] != 3
+            or x.shape[2] % 4 or x.shape[3] % 4):
+        raise ValueError(f"patch_embed_u8: x must be a contiguous, 4-byte "
+                         f"aligned CUDA uint8 [B, D, H, W, 3] with H, W "
+                         f"multiples of 4, got {x.dtype} {tuple(x.shape)} on "
+                         f"{x.device}")
+    B, D, H, W, _ = x.shape
+    _check(w, "patch_embed_u8 w")
+    E = w.shape[1]
+    if w.shape[0] != 96 or E % 16 or E > 256 or not w.is_contiguous():
+        raise ValueError(f"patch_embed_u8 w: expected a contiguous [96, E], "
+                         f"E % 16 == 0, E <= 256, got {tuple(w.shape)}")
+    if (bias_t.dtype != torch.float32 or bias_t.device != x.device
+            or not bias_t.is_contiguous() or tuple(bias_t.shape) != (D, E)):
+        raise ValueError(f"patch_embed_u8 bias_t: expected a contiguous f32 "
+                         f"[{D}, {E}] on {x.device}")
+    out = torch.empty(B, D, H // 4, W // 4, E, dtype=torch.bfloat16,
+                      device=x.device)
+    err = library().lvt_patch_embed_u8(
+        x.data_ptr(), w.data_ptr(), bias_t.data_ptr(), out.data_ptr(), B, D,
+        H, W, E, _stream(x))
+    _raise_on(err, "lvt_patch_embed_u8")
     return out

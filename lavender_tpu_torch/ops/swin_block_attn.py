@@ -18,6 +18,12 @@ attention launches by bandwidth and the GEMMs by tensor-core rate.  The
 TPU-only tiling (128-lane head groups, G windows per grid step, exp2
 pre-scaling) has no counterpart.
 
+``folded`` (serving only, never under autograd): the LN1 affine (and,
+with ``mlp``, the LN2 affine) already folded into the qkv (and fc1)
+weights by the serving fold cache (JAX ``foldfn``, models/swin3d.py:1073,
+used by ``_fused_block_forward_wm(..., folded=)`` :1369); the LN launches
+then apply the pure normalize only.
+
 Training runs the attention half (no ``mlp``) under autograd: its
 backward (the JAX ``custom_vjp`` ``_wm_bwd`` :1663) recomputes LN1 -> qkv
 -> the window-attention core ``swin_core_attn`` (K8a forward, K8b
@@ -50,6 +56,26 @@ of ``compute_shift_mask``.  Backward: the attention half recomputes the
 gather -> LN1 -> qkv -> ``swin_core_attn`` (K8a / K8b) -> proj -> scatter
 under autograd (the JAX custom_vjp recomputes its XLA reference, :786);
 the full variant differentiates its plain version (``_full_bwd`` :834).
+
+``fused_swin_block_wm_shifted`` replaces the TPU kernel
+``_block_kernel_wm_shift`` (K16, :1137, wrapper
+``fused_swin_block_wm_shifted`` :1290): the SHIFTED attention half of a wm
+block pair with the cyclic shift inside, ``wm_shift^-1(x' + proj(attn(
+LN1(x'))))`` for ``x' = wm_shift(x)``, input and output in the UNSHIFTED
+window-major layout, the output's window pad rows zero.  The TPU kernel
+held the whole window axis of a clip in VMEM and moved rows through a
+static run decomposition; on the card it is K1's composition with K14's
+row index: the LN1 launch gathers its rows through the forward shift index
+(``wm_permute.shift_index``, -1 at pad rows: a zero row), then the qkv
+GEMM, the attention core at ``n_tok = Npad`` with bias and padded shift
+mask, and the proj GEMM whose epilogue scatters each row back through the
+same index with the residual added (pad rows dropped; the output's pad
+rows are zeroed beforehand).  So neither shifted copy of the slab (K2's
+two permutes) is written.  Bound: as K1's attention half, the GEMMs'
+tensor-core rate and the core.  Backward (the JAX ``_wms_bwd`` :1313
+differentiates ``_wm_shifted_ref``): ``wm_shift`` (K2) ->
+``_block_attn_recompute`` (through K8a / K8b) -> ``wm_shift^-1``, under
+autograd.
 """
 from __future__ import annotations
 
@@ -66,7 +92,8 @@ from lavender_tpu_torch.ops.fused_mlp import _ln_mlp_cuda, _mlp_plain
 from lavender_tpu_torch.ops.swin_core_attn import swin_core_attn
 from lavender_tpu_torch.ops.window_attention import (
     window_attention_reference)
-from lavender_tpu_torch.ops.wm_permute import wm_shift  # noqa: F401 (K2)
+from lavender_tpu_torch.ops.wm_permute import (  # noqa: F401 (K2)
+    _permute_plain, shift_indices, wm_shift, wm_shift_rows)
 
 
 def round8(n: int) -> int:
@@ -125,8 +152,20 @@ def pad_window_mask(mask: torch.Tensor, Npad: int) -> torch.Tensor:
     return F.pad(mask, (0, Npad - N, 0, Npad - N)).contiguous()
 
 
+def _fold_in(ln_w, ln_b, wqkv, bqkv, mlp, folded):
+    """The block's LN1 affine, qkv weights and MLP with ``folded`` =
+    (wqkv', bqkv', w1', b1') substituted: no LN affine, the folded qkv
+    and fc1 (the pure normalize of the serving fold cache)."""
+    if folded is None:
+        return ln_w, ln_b, wqkv, bqkv, mlp
+    wqkv, bqkv, w1, b1 = folded
+    if mlp is not None:
+        mlp = (None, None, w1, b1, mlp[4], mlp[5])
+    return None, None, wqkv, bqkv, mlp
+
+
 def _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
-                 scale, eps, mlp=None, n_valid=None):
+                 scale, eps, mlp=None, n_valid=None, folded=None):
     """Plain PyTorch version of ``fused_swin_block_wm``.
 
     x [B, nW, Npad, C]; wqkv [3C, C] and wproj [C, C] in torch Linear
@@ -137,7 +176,11 @@ def _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
     drops; scores and softmax in f32.  ``n_valid`` (the real rows of a
     window) is read only by the kernel's backward, which passes the pad
     rows through as identity; here autograd sees the whole slab (the pad
-    rows' cotangents are zero either way)."""
+    rows' cotangents are zero either way).  ``folded`` = (wqkv' [3C, C],
+    bqkv', w1' [HD, C], b1') replaces the LN affines and the qkv / fc1
+    weights (see the module notes)."""
+    ln_w, ln_b, wqkv, bqkv, mlp = _fold_in(ln_w, ln_b, wqkv, bqkv, mlp,
+                                           folded)
     B, nW, Npad, C = x.shape
     hd = C // nH
     h = layer_norm(x, ln_w, ln_b, eps)
@@ -227,12 +270,21 @@ def _block_full_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
 
 
 def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
-                  scale, eps, mlp=None, n_valid=None):
+                  scale, eps, mlp=None, n_valid=None, folded=None):
     """The kernel; under autograd ``_BlockAttnFn`` (the attention half), or
     with ``mlp`` the whole block in ``RecomputeVjp`` (the JAX custom_vjp
-    ``_wm_full_bwd`` :1712 differentiates its reference)."""
-    if not _build.needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
-                             *(mlp or ())):
+    ``_wm_full_bwd`` :1712 differentiates its reference).  ``folded`` is
+    serving-only: under autograd it raises (the folded weights are no
+    parameters)."""
+    grad = _build.needs_grad(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                             *(mlp or ()), *(folded or ()))
+    if folded is not None:
+        if grad:
+            raise ValueError("fused_swin_block_wm: the folded weights are "
+                             "serving-only (no gradient)")
+        ln_w, ln_b, wqkv, bqkv, mlp = _fold_in(ln_w, ln_b, wqkv, bqkv, mlp,
+                                               folded)
+    if not grad:
         return _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
                            mask, nH, scale, eps, mlp)
     if mlp is not None:
@@ -245,6 +297,134 @@ def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
 
 fused_swin_block_wm = _build.KernelOp(
     "K1 fused_swin_block_wm", _block_plain, _block_launch)
+
+
+# --------------------------------------------------------------------------
+# K16: the shifted wm attention half with the cyclic shift inside.
+# --------------------------------------------------------------------------
+
+
+def supports_inkernel_shift(window, spatial, Npad: int, C: int, nH: int,
+                            nW: int, dtype_size: int = 2) -> bool:
+    """Whether a shifted wm block takes K16 (JAX ``supports_inkernel_shift``,
+    ops/swin_block_attn.py:1259, kept as a routing predicate): the temporal
+    window covers D, the window tiles H and W, at most 4 windows a clip (the
+    TPU kernel's unroll bound) and the TPU kernel's 11 MiB VMEM budget."""
+    D, H, W = spatial
+    wd, wh, ww = window
+    if wd != D or H % wh or W % ww or Npad % 8:
+        return False
+    if nW > 4:
+        return False
+    weights = (4 * C * C) * dtype_size
+    bias_b = nH * Npad * Npad * dtype_size
+    mask_b = nW * Npad * Npad * dtype_size
+    slabs = 4 * nW * Npad * C * dtype_size
+    return weights + bias_b + mask_b + slabs <= 11 * 1024 * 1024
+
+
+def _shifted_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                   spatial, window, shift, nH, scale, eps):
+    """Plain PyTorch version of ``fused_swin_block_wm_shifted`` (JAX
+    ``_wm_shifted_ref``): the shift, ``fused_swin_block_wm``'s plain
+    attention half, the inverse shift, on x [B, nW, Npad, C] unshifted
+    window-major; bias [nH, Npad, Npad]; mask [nW, Npad, Npad] the padded
+    shift mask.  The output's pad rows are zero (the inverse shift's)."""
+    D, H, W = spatial
+    fwd, inv = shift_indices(window, D, H, W, x.shape[2], shift, x.device)
+    xs = _permute_plain(x, fwd, inv)
+    ys = _block_plain(xs, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                      nH, scale, eps)
+    return _permute_plain(ys, inv, fwd)
+
+
+_batch_rows_on_device: Dict[tuple, torch.Tensor] = {}
+
+
+def _batch_shift_rows(B: int, index: torch.Tensor) -> torch.Tensor:
+    """int32 [B * R]: row b * R + index[r] of a [B * R, C] slab, -1 where
+    index[r] < 0; built once per (B, index), outside inference mode."""
+    key = (B, index.data_ptr(), str(index.device))
+    if key not in _batch_rows_on_device:
+        R = index.shape[0]
+        with torch.inference_mode(False):
+            off = torch.arange(B, device=index.device, dtype=torch.int32)
+            rows = (off[:, None] * R + index[None]).reshape(-1)
+            _batch_rows_on_device[key] = torch.where(
+                index[None].expand(B, R).reshape(-1) >= 0, rows,
+                torch.full_like(rows, -1)).contiguous()
+    return _batch_rows_on_device[key]
+
+
+def _shifted_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                  spatial, window, shift, nH, scale, eps):
+    """K16 on the card: gathered LN1 -> qkv GEMM -> attention core ->
+    proj GEMM scattered back (+ residual) into an output whose pad rows
+    are zeroed first."""
+    B, nW, Npad, C = x.shape
+    D, H, W = spatial
+    N = int(np.prod(window))
+    fwd, _ = shift_indices(window, D, H, W, Npad, shift, x.device)
+    rows = _batch_shift_rows(B, fwd)
+    x2 = x.contiguous().view(-1, C)
+    h = _build.layernorm(x2, ln_w, ln_b, eps, rows=rows)
+    qkv = _build.gemm(h, wqkv, bqkv)
+    o = _build.attention(qkv, B * nW, Npad, nH, scale,
+                         bias=bias.contiguous(), mask=mask.contiguous())
+    out = torch.empty_like(x2)
+    if Npad > N:
+        out.view(B, nW, Npad, C)[:, :, N:].zero_()
+    _build.gemm(o, wproj, bproj, residual=x2, rows=rows, out=out)
+    return out.view(B, nW, Npad, C)
+
+
+def _shifted_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                       spatial, window, shift, nH, scale, eps):
+    """K16 as its backward recomputes it: ``wm_shift_rows`` (K2) ->
+    ``_block_attn_recompute`` (the core through K8) -> the inverse shift."""
+    D, H, W = spatial
+    fwd, inv = shift_indices(window, D, H, W, x.shape[2], shift, x.device)
+    ys = _block_attn_recompute(wm_shift_rows(x, fwd, inv), ln_w, ln_b, wqkv,
+                               bqkv, wproj, bproj, bias, mask, nH, scale, eps,
+                               int(np.prod(window)))
+    return wm_shift_rows(ys, inv, fwd)
+
+
+class _BlockShiftFn(torch.autograd.Function):
+    """K16 under autograd: the kernel forward, and a backward that
+    recomputes K2 -> the attention half through K8 -> K2^-1 (see the module
+    notes)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                spatial, window, shift, nH, scale, eps):
+        ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                              mask)
+        ctx.args = (spatial, window, shift, nH, scale, eps)
+        return _shifted_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
+                             mask, spatial, window, shift, nH, scale, eps)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        *inputs, mask = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(True) for t in inputs]
+            y = _shifted_recompute(*inputs, mask, *ctx.args)
+            grads = torch.autograd.grad(y, inputs, g)
+        return (*grads, None, None, None, None, None, None, None)
+
+
+def _shifted_launch(x, *args):
+    """The kernel; ``_BlockShiftFn`` when autograd records the call."""
+    if not _build.needs_grad(x, *args):
+        return _shifted_cuda(x, *args)
+    return _BlockShiftFn.apply(x, *args)
+
+
+fused_swin_block_wm_shifted = _build.KernelOp(
+    "K16 fused_swin_block_wm_shifted", _shifted_plain, _shifted_launch)
 
 
 def mlp_in_block(C: int, HD: int, nH: int, Npad: int,

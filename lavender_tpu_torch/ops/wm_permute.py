@@ -65,6 +65,17 @@ def _device_index(key: tuple, device: torch.device) -> torch.Tensor:
     return _on_device[k]
 
 
+def shift_indices(window: Sequence[int], D: int, H: int, W: int, Npad: int,
+                  shift: Sequence[int], device, inverse: bool = False
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(index, inverse index) of the shift (of its inverse with
+    ``inverse``) on ``device``: int32 [nW * Npad] each, built once."""
+    key = (tuple(int(w) for w in window), int(D), int(H), int(W), int(Npad),
+           tuple(int(s) for s in shift))
+    return (_device_index(key + (bool(inverse),), device),
+            _device_index(key + (not inverse,), device))
+
+
 def _permute_plain(t: torch.Tensor, index: torch.Tensor,
                    inv_index: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of ``wm_shift_rows``: t [B, nW, Npad, C] ->
@@ -104,8 +115,6 @@ def wm_shift(t: torch.Tensor, window: Sequence[int], D: int, H: int, W: int,
     """Cyclic shift of window-major t [B, nW, Npad, C] (the inverse with
     ``inverse``), through ``wm_shift_rows`` (or its plain version inside
     ``plain_path()``).  Pad rows of the result are zero."""
-    key = (tuple(int(w) for w in window), int(D), int(H), int(W),
-           int(t.shape[2]), tuple(int(s) for s in shift))
-    index = _device_index(key + (bool(inverse),), t.device)
-    inv_index = _device_index(key + (not inverse,), t.device)
+    index, inv_index = shift_indices(window, D, H, W, t.shape[2], shift,
+                                     t.device, inverse)
     return _build.select(wm_shift_rows)(t, index, inv_index)

@@ -4,7 +4,9 @@ The counterpart of the forward that ``bench.py`` times for the JAX
 package: build ``LavenderModel`` on the card (or the CPU when asked),
 load the weights (converted from JAX params with ``convert.from_flax``,
 or a seeded random init), cast to bf16, precompute the serving caches
-once, then answer requests ``(img_u8 [B, T, H, W, 3], txt [B, Lt], mask [B, Lt]) -> logits
+once (the rel-pos biases and shift masks and, under ``LVT_FOLDCACHE=1``,
+the default, the LN-folded qkv and fc1 weights of the window-major
+blocks), then answer requests ``(img_u8 [B, T, H, W, 3], txt [B, Lt], mask [B, Lt]) -> logits
 [B, Lt, vocab]`` under the "full" mask or, for captioning, the "seq2seq"
 one.  The caption decoder runs on the same model:
 
@@ -34,7 +36,15 @@ class LavenderServer:
     package's params (nested dict of float32 arrays); without them the
     weights come from ``seed``.  The serving caches are
     built for clips of ``frames`` x ``size`` x ``size``; other clip sizes
-    are served too, with the caches computed per call."""
+    are served too, with the caches computed per call.
+
+    A stale cache is never served: each request first compares a host
+    record of the cache's source parameters (``data_ptr``, ``_version``);
+    where weights changed (``load_state_dict``, an optimizer step on
+    ``server.model``), the stages whose fingerprint moved are rebuilt
+    before anything runs (``VideoSwin3D.refresh_serving_cache``, called by
+    the backbone's forward, so the caption decoders on ``server.model``
+    are guarded too).  An unchanged model costs no device work."""
 
     def __init__(self, config: Optional[ModelConfig] = None, *,
                  device="cuda",

@@ -15,7 +15,12 @@ row scatter and the LN's row gather, the spatial Swin block K14 (whole
 and attention half, shifted, on windows that are not multiples of 8) and
 its gradients (the attention half's through K8), the per-window attention
 K15 on strided views and its gradient, and K1's whole block under
-autograd.
+autograd; the LN without its affine (the serving fold's pure normalize)
+and K1's folded mode, the LN gather's and the GEMM scatter's negative
+(pad) rows, the uint8 patch embed K17 (ragged w2, two column tiles,
+E = 192) and its eval-mode gradient, and the shifted wm block K16 (Npad >
+N, Npad == N, the Swin-B stage-3 window) with its pad rows exactly zero
+and its gradients through K2 and K8.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -42,8 +47,10 @@ from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
     fused_ln_mlp_chunked, fused_out_ln_train)
 from lavender_tpu_torch.models.swin3d import compute_shift_mask
+from lavender_tpu_torch.ops.patch_embed_u8 import fused_patch_embed_u8
 from lavender_tpu_torch.ops.swin_block_attn import (
-    fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm)
+    fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
+    fused_swin_block_wm_shifted, pad_window_mask, round8)
 from lavender_tpu_torch.ops.swin_core_attn import (
     swin_core_attn, swin_core_attn_bwd)
 from lavender_tpu_torch.ops.window_attention import fused_window_attention
@@ -640,4 +647,146 @@ def test_window_block_full_gradient_matches_plain(gen):
     for i, (gk, gp) in enumerate(zip(*grads)):
         if i == 0:
             gk, gp = gk[:, :, :N], gp[:, :, :N]
+        _close(gk, gp, rel_l2=5e-2)
+
+
+def test_layernorm_pure_normalize_and_pad_rows(gen):
+    """No affine: the pure normalize (the kernel reads no null pointer);
+    a negative gather row gives a zero row; a half-given affine raises, as
+    does a missing one for dropout_add_ln."""
+    x = _rnd(gen, 37, 96, std=2.0)
+    _close(_build.layernorm(x, None, None, 1e-5),
+           layer_norm(x, None, None, 1e-5))
+    rows = torch.tensor([3, -1, 0, -1, 36], dtype=torch.int32, device="cuda")
+    lw, lb = 1 + _rnd(gen, 96, std=0.1), _rnd(gen, 96, std=0.1)
+    for w, b in ((lw, lb), (None, None)):
+        got = _build.layernorm(x, w, b, 1e-5, rows=rows)
+        _close(got[[0, 2, 4]], layer_norm(x[[3, 0, 36]], w, b, 1e-5))
+        assert float(got[[1, 3]].abs().max()) == 0.0
+    with pytest.raises(ValueError, match="both"):
+        _build.layernorm(x, lw, None, 1e-5)
+    with pytest.raises(ValueError, match="required"):
+        _build.dropout_add_ln(x, x, None, lb, 1e-5, None, 0.0)
+
+
+def test_gemm_scatter_drops_negative_rows(gen):
+    M, K, N = 130, 64, 72
+    a, w, b = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5), _rnd(gen, N)
+    r = _rnd(gen, M, N)
+    rows = torch.randperm(M, generator=gen, device="cuda").to(torch.int32)
+    rows[::3] = -1
+    out = torch.full((M, N), 7.0, dtype=torch.bfloat16, device="cuda")
+    _build.gemm(a, w, b, residual=r, rows=rows, out=out)
+    keep = rows >= 0
+    dst = rows[keep].long()
+    want = out.clone()
+    want[dst] = (F.linear(a[keep].float(), w.float(), b.float())
+                 + r[dst].float()).to(torch.bfloat16)
+    untouched = torch.ones(M, dtype=torch.bool, device="cuda")
+    untouched[dst] = False
+    assert bool((want[untouched] == 7.0).all())
+    _close(out, want)
+
+
+def test_block_folded_mode_matches_plain(gen):
+    """K1 with the serving fold (pure-normalize LNs, folded qkv and fc1),
+    whole block and attention half, against its plain version and against
+    the unfolded block; under autograd the fold raises."""
+    B, nW, N, Npad, C, nH = 2, 4, 49, 56, 64, 2
+    x = _rnd(gen, B, nW, Npad, C)
+    ln = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)]
+    lin = [_rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C),
+           _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C)]
+    mlp = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+           _rnd(gen, 4 * C, C, std=C ** -0.5), _rnd(gen, 4 * C),
+           _rnd(gen, C, 4 * C, std=(4 * C) ** -0.5), _rnd(gen, C)]
+    bias = _rnd(gen, nH, Npad, Npad)
+    bias[:, :, N:] = -100.0
+    f32 = [t.float() for t in (*ln, lin[0], lin[1], *mlp[:4])]
+    s1, b1, wq, bq, s2, b2, w1, bb1 = f32
+    folded = tuple(t.to(torch.bfloat16) for t in (
+        wq * s1[None], wq @ b1 + bq, w1 * s2[None], w1 @ b2 + bb1))
+    args = (x, *ln, *lin, bias, None, nH, (C // nH) ** -0.5, 1e-5)
+    for kw in ({"mlp": tuple(mlp)}, {}):
+        got = fused_swin_block_wm(*args, folded=folded, **kw)
+        want = fused_swin_block_wm.plain(*args, folded=folded, **kw)
+        _close(got[:, :, :N], want[:, :, :N], rel_l2=1e-2)
+        _close(got[:, :, :N], fused_swin_block_wm.plain(*args, **kw)
+               [:, :, :N], rel_l2=2e-2)
+    with pytest.raises(ValueError, match="serving-only"):
+        fused_swin_block_wm(x.clone().requires_grad_(True), *args[1:],
+                            folded=folded)
+
+
+@pytest.mark.parametrize("B,D,H,W,E", [(1, 2, 32, 32, 16),
+                                       (2, 5, 64, 96, 96),
+                                       (1, 3, 16, 288, 128),
+                                       (2, 2, 32, 64, 192)])
+def test_patch_embed_matches_plain_and_gradient(gen, B, D, H, W, E):
+    """K17 at w2 = 8, 24, 72 (two column tiles) and E = 192 (dynamic shared
+    memory above 48 KB); in eval() under autograd the plain gradient."""
+    x = torch.randint(0, 256, (B, D, H, W, 3), generator=gen, device="cuda",
+                      dtype=torch.uint8)
+    weight, bias = _rnd(gen, E, 3, 2, 4, 4, std=0.05), _rnd(gen, E, std=0.05)
+    before = fused_patch_embed_u8.launches
+    got = fused_patch_embed_u8(x, weight, bias)
+    assert fused_patch_embed_u8.launches == before + 1
+    assert got.shape == (B, D, H // 4, W // 4, E)
+    _close(got, fused_patch_embed_u8.plain(x, weight, bias), rel_l2=1e-2)
+    weight.mul_(-0.5)  # the kernel's folded weights follow the change
+    _close(fused_patch_embed_u8(x, weight, bias),
+           fused_patch_embed_u8.plain(x, weight, bias), rel_l2=1e-2)
+    g = _rnd(gen, *got.shape)
+    grads = []
+    for f in (fused_patch_embed_u8, fused_patch_embed_u8.plain):
+        w, b = (t.clone().requires_grad_(True) for t in (weight, bias))
+        grads.append(torch.autograd.grad(f(x, w, b), (w, b), g))
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("window,spatial,C,nH", [
+    ((2, 2, 3), (2, 4, 6), 64, 2), ((2, 2, 4), (2, 4, 8), 64, 2),
+    ((5, 7, 7), (5, 14, 14), 128, 4)], ids=["npad-gt-n", "npad-eq-n",
+                                             "stage3-window"])
+def test_wm_shifted_block_and_gradients_match_plain(gen, window, spatial, C,
+                                                    nH):
+    """K16: forward vs plain (also minus the residual), pad rows exactly
+    zero, and under autograd every gradient, the backward through K2 (two
+    shifts and their two transposes) and K8."""
+    from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
+    D, H, W = spatial
+    N = window[0] * window[1] * window[2]
+    Npad, nW, B = round8(N), (H // window[1]) * (W // window[2]), 2
+    x = _rnd(gen, B, nW, Npad, C)
+    x[:, :, N:] = 0.0
+    params = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+              _rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C),
+              _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C),
+              _rnd(gen, nH, Npad, Npad)]
+    params[-1][:, :, N:] = -100.0
+    shift = (0, window[1] // 2, window[2] // 2)
+    mask = pad_window_mask(torch.as_tensor(compute_shift_mask(
+        D, H, W, window, shift), device="cuda"), Npad).to(torch.bfloat16)
+    statics = (spatial, window, shift, nH, (C // nH) ** -0.5, 1e-5)
+    g = _rnd(gen, B, nW, Npad, C)
+    g[:, :, N:] = 0.0
+    ops = (fused_swin_block_wm_shifted, wm_shift_rows, swin_core_attn,
+           swin_core_attn_bwd)
+    outs, grads = [], []
+    for f in (fused_swin_block_wm_shifted, fused_swin_block_wm_shifted.plain):
+        before = [op.launches for op in ops]
+        ins = [t.clone().requires_grad_(True) for t in [x, *params]]
+        y = f(*ins, mask, *statics)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, ins, g))
+        if f is fused_swin_block_wm_shifted:
+            assert [op.launches - n for op, n in zip(ops, before)] == [
+                1, 4, 1, 1]
+    if Npad > N:
+        assert float(outs[0].detach()[:, :, N:].abs().max()) == 0.0
+    v = (slice(None), slice(None), slice(0, N))
+    _close(outs[0][v], outs[1][v], rel_l2=1e-2)
+    _close((outs[0] - x)[v].float(), (outs[1] - x)[v].float(), rel_l2=5e-2)
+    for gk, gp in zip(*grads):
         _close(gk, gp, rel_l2=5e-2)

@@ -36,6 +36,14 @@ nothing is ever run on the CPU instead:
    B=8 clips, its yardstick F.conv3d on the padded normalized bf16 clip;
    K16 (the shifted wm block with the shift inside) at Swin-B stage 3,
    B=4 and B=8, also minus its residual, its output's pad rows exactly 0;
+   K13a / K13b (the heads-layout train attention of LVT_ATTNLANES=0) at
+   the retrieval step's 64 pairs, L=276, rate 0.1, on heads views of one
+   qkv slab, under a padding and a seq2seq mask (f32), K13b also with the
+   mask's gradient; the keep masks K13a and K10a draw from one seed, read
+   back from the kernels, each exactly ``dropout.attention_keep``, and
+   their outputs equal to bf16 rounding; K13's one-call yardstick is
+   scaled_dot_product_attention with the float mask and dropout_p (and
+   its backward);
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
@@ -88,19 +96,32 @@ nothing is ever run on the CPU instead:
    ``_IKS`` train step on ModelConfig(): loss and gradients kernels vs
    plain, launches, ten steps lowering the loss >= 1 nat, step time beside
    the default step's; (d) K16 against the K2 + K1 attention half + K2^-1
-   composition it replaces, at stage 3, B=4 and B=8, in turns.
+   composition it replaces, at stage 3, B=4 and B=8, in turns;
+9. the tasks on ModelConfig(), B=8 clips, 26 tokens (``run_tasks``): (a)
+   one train step each of QA-MC, QA-OE, RetMC (5 options: 40 pairs),
+   pretraining (vtm_batch=4: 8 MLM + 32 VTM sequences) and the
+   task-specific head (``make_cls_loss``), loss and gradients kernels vs
+   plain, launches; ten QA-MC steps lowering the loss >= 1 nat; the
+   multi-task dispatch, each kind's step once (captioning and retrieval
+   included); (b) the retrieval-MLM and pretraining steps under
+   LVT_ATTNLANES=0 (K13a/K13b 12 per fusion pass, no K10), kernels vs
+   plain, launches on both routes, step time and device time of the
+   retrieval step on both routes in turns; (c) each task's eval step,
+   kernels vs plain on the logits it reads (the serving gate), and QA-MC's
+   eval launches under LVT_KMASK=1 (K4) and =0 (K6).
 
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
-phase-6, phase-7 and phase-8 runs, K12's in 5 (e); its largest error in
-phase 3;
+phase-6, phase-7, phase-8 and phase-9 runs, K12's in 5 (e); its largest
+error in phase 3;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
 call x its calls in one serving forward plus one train step plus one
 seq2seq forward (K7: as if in each of its 12 layers) plus the text part
 of one KV decode (K4 and K5 in the prefill, K5 in the 19 steps) plus one
 "fused" and one "pallas" serving forward and one remat train step (K14,
 K15) plus one ``_PEK`` serving forward (K17) and one ``_IKS`` serving
-forward and train step (K16), summed over the shapes;
+forward and train step (K16) plus one retrieval step under
+LVT_ATTNLANES=0 (K13a, K13b), summed over the shapes;
 ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the FLOPs over
 989 TFLOP/s), then the device line.
 """
@@ -505,6 +526,7 @@ def _kernel_cases(g):
             2 * rows * C * 2 + 2 * C * 3072 * 2))
     cases += _full_mask_cases(g, lin, ln)
     cases += _bert_train_cases(g, lin, ln)
+    cases += _heads_train_cases(g)
     cases += _spatial_cases(g, lin, ln)
     cases += _route_cases(g, lin, ln)
     return cases
@@ -773,6 +795,155 @@ def _bert_train_cases(g, lin, ln):
     return cases
 
 
+def _heads_grads_compare(got, want):
+    """K13b: dq, dk, dv and, where formed, dmask each against the plain
+    version's."""
+    names = ("dq", "dk", "dv", "dmask")
+    if (got[3] is None) != (want[3] is None):
+        raise AssertionError("K13b: dmask formed on one side only")
+    results = [(nm, *_compare(a, b, TOL, GRAD_REL_L2))
+               for nm, a, b in zip(names, got, want) if b is not None]
+    detail = ", ".join(f"{nm} {e:.3g}/{r:.3g}" for nm, e, r, _ in results)
+    return (max(e for _, e, _, _ in results),
+            max(r for _, _, r, _ in results), all(ok for *_, ok in results),
+            f" (max_abs/rel_l2: {detail}; rel_l2 <= {GRAD_REL_L2})")
+
+
+def _heads_train_cases(g):
+    """K13a / K13b, the fusion encoder's train attention under
+    LVT_ATTNLANES=0, at the retrieval train step's shapes: 64 pairs at
+    L = 276, 12 heads of 64, rate 0.1 (the same seed for kernel and plain
+    version), q, k and v the [B, nH, L, hd] views of one qkv slab that the
+    model passes; the key mask padding some captions and the seq2seq mask,
+    both f32 at 0 / finfo(f32).min as the model passes them; K13b also with
+    the mask's gradient (dmask, checked only: the model's mask never
+    requires grad).  Timed into the kernels line: the padded-keys shape,
+    12 calls a step.  The one-call yardstick: scaled_dot_product_attention
+    on the same heads views with the float mask and dropout_p, and its
+    backward."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.encoder_attention import (
+        encoder_attention_train_bwd, fused_encoder_attention_train)
+
+    B, C, nH, L = TRAIN_BATCH ** 2, 768, 12, FRAMES * 50 + TXT_LEN
+    hd, rate, layers = C // nH, 0.1, 12
+    scale = hd ** -0.5
+    slab = _rnd(g, B, L, 3 * C)
+    q, k, v = slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    n_txt = torch.randint(5, TXT_LEN + 1, (B,), generator=g, device="cuda")
+    n_txt[0] = TXT_LEN
+    pad = torch.arange(L, device="cuda")[None] >= L - TXT_LEN + n_txt[:, None]
+    big_neg = torch.finfo(torch.float32).min
+    masks = {"padded keys": torch.where(pad, big_neg, 0.0)[:, None, :].expand(
+        B, L, L).contiguous(), "seq2seq mask": torch.where(
+            _seq2seq_keep(B, L - TXT_LEN, TXT_LEN), 0.0, big_neg)}
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    dout = _rnd(g, B, nH, L, hd)
+    core_flops = 4.0 * B * nH * L * L * hd
+    slab_bytes, mask_bytes, lse_bytes = B * L * C * 2, B * L * L * 4, (
+        B * nH * L * 4)
+    cases = []
+    for kind, mask in masks.items():
+        count = layers if kind == "padded keys" else 0
+        sdpa_mask = mask.clamp_min(-1e4)[:, None].to(torch.bfloat16)
+        cases.append(Case(
+            fused_encoder_attention_train, f"B={B} nH={nH} L={L} hd={hd} "
+            f"rate {rate}, {kind}, heads views of the qkv slab", count,
+            (q, k, v, mask, seed, scale, rate), core_flops,
+            4 * slab_bytes + mask_bytes + lse_bytes,
+            library=lambda m=sdpa_mask: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=m, dropout_p=rate, scale=scale)))
+        lse = torch.empty(B, nH, L, device="cuda")
+        _build.attention_heads(q, k, v, mask.clamp_min(-1e4), scale, lse=lse,
+                               seed=seed, rate=rate)
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
+                                           dropout_p=rate, scale=scale)
+        cases.append(Case(
+            encoder_attention_train_bwd, f"B={B} nH={nH} L={L} hd={hd} "
+            f"rate {rate}, {kind}", count,
+            (q, k, v, mask, seed, dout, scale, rate), 2.5 * core_flops,
+            7 * slab_bytes + mask_bytes + lse_bytes, kw={"lse": lse},
+            compare=_heads_grads_compare,
+            library=lambda o=o, leaves=leaves: torch.autograd.grad(
+                o, leaves, dout, retain_graph=True)))
+        if kind == "padded keys":
+            cases.append(Case(
+                encoder_attention_train_bwd, f"B={B} nH={nH} L={L} hd={hd} "
+                f"rate {rate}, {kind}, with dmask", 0,
+                (q, k, v, mask, seed, dout, scale, rate), 2.5 * core_flops,
+                7 * slab_bytes + 2 * mask_bytes + lse_bytes,
+                kw={"lse": lse, "dmask": True},
+                compare=_heads_grads_compare))
+    return cases
+
+
+def _probe_keep(run, B, nH, L, hd):
+    """The keep mask [B, nH, L, L] a train attention kernel drew, read back
+    exactly: with q = k = 0 every probability is 1 / L, and v one-hot in
+    key j = offset + d puts probability (i, j), 0 where dropped, at output
+    column d.  ``run(q, k, v)`` takes [B, nH, L, hd] bf16 heads views."""
+    keep = torch.zeros(B, nH, L, L, dtype=torch.bool, device="cuda")
+    slab = torch.zeros(B, L, 3, nH, hd, dtype=torch.bfloat16, device="cuda")
+    q, k, v = slab.permute(2, 0, 3, 1, 4)
+    for off in range(0, L, hd):
+        n = min(hd, L - off)
+        v.zero_()
+        v[:, :, off:off + n].copy_(torch.eye(n, hd, device="cuda"))
+        keep[..., off:off + n] = run(q, k, v)[..., :n] > 0
+    return keep
+
+
+def _heads_vs_lanes(g):
+    """K13a on heads views of a qkv slab against K10a on the slab itself,
+    one seed, at the train step's shape (64 pairs, L = 276, rate 0.1): the
+    keep masks both kernels drew, read back exactly, each equal to
+    ``dropout.attention_keep``; the outputs equal to bf16 rounding."""
+    from lavender_tpu_torch.ops import dropout
+    from lavender_tpu_torch.ops.encoder_attention import (
+        fused_encoder_attention_train, fused_encoder_attention_train_lanes)
+
+    B, C, nH, L, rate = TRAIN_BATCH ** 2, 768, 12, FRAMES * 50 + TXT_LEN, 0.1
+    hd = C // nH
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    # the probe's mask opens every key; the outputs' pads some captions
+    open_keys = torch.zeros(B, L, L, device="cuda")
+    padded = open_keys.clone()
+    padded[1:, :, L - 10:] = torch.finfo(torch.float32).min
+
+    def heads(q, k, v, mask=open_keys, scale=1.0):
+        return fused_encoder_attention_train(q, k, v, mask, seed, scale, rate)
+
+    def lanes(q, k, v, mask=open_keys, scale=1.0):
+        t = [x.transpose(1, 2).reshape(B, L, C) for x in (q, k, v)]
+        o = fused_encoder_attention_train_lanes(
+            *t, mask.clamp_min(-1e4).to(torch.bfloat16), seed, scale, rate,
+            nH)
+        return o.view(B, L, nH, hd).transpose(1, 2)
+
+    want = dropout.attention_keep(seed, B, nH, L, rate)
+    n_diff = {name: int((_probe_keep(run, B, nH, L, hd) != want).sum())
+              for name, run in (("K13a", heads), ("K10a", lanes))}
+    slab = _rnd(g, B, L, 3 * C)
+    q, k, v = slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    o13 = heads(q, k, v, padded, hd ** -0.5)
+    o10 = lanes(q, k, v, padded, hd ** -0.5)
+    err, rel, ok = _compare(o13, o10, TOL, REL_L2)
+    n_out = int((o13 != o10).sum())
+    print(f"[kernel] K13a vs K10a, B={B} L={L} rate {rate}, one seed: keep "
+          f"masks read back from the kernels differ from "
+          f"dropout.attention_keep in {n_diff['K13a']} (K13a) and "
+          f"{n_diff['K10a']} (K10a) of {want.numel()} (kept "
+          f"{float(want.float().mean()):.4f}); outputs differ in {n_out} of "
+          f"{o13.numel()} elements, max_abs_err {err:.4g} rel_l2 {rel:.3g}",
+          flush=True)
+    if n_diff["K13a"] or n_diff["K10a"] or not ok:
+        raise AssertionError("K13a and K10a draw other keep masks or "
+                             "disagree")
+
+
 def _bert_core_vs_sdpa(g):
     """K4's attention core alone (the part one PyTorch call computes) at
     the serving shape: the port's core vs scaled_dot_product_attention
@@ -849,6 +1020,7 @@ def check_kernels():
         k["t_flops"] += c.count * t_flops
         if lib_ms is not None:
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
+    _heads_vs_lanes(g)
     core_ms, sdpa_ms = _bert_core_vs_sdpa(g)
     print(f"[kernel] K4's attention core alone, B={BATCH} L=276 (kernel "
           f"core vs scaled_dot_product_attention): {core_ms:.4f} ms vs "
@@ -1908,14 +2080,316 @@ def run_routes(ops, server):
     return total
 
 
+# phase 9: the BERT-base uncased ids of the option digits "0".."4" (QA-MC's
+# answers at the [MASK]); RetMC's options (B * O = 40 pairs); pretraining's
+# VTM pairs a clip (O = min(B, 4): 32 VTM sequences beside the 8 MLM ones)
+DIGIT_IDS = (1014, 1015, 1016, 1017, 1018)
+N_OPT, VTM_BATCH = 5, 4
+
+
+@contextlib.contextmanager
+def _bert_switches(attnlanes: bool = True, kmask: bool = True):
+    """The port's LVT_ATTNLANES / LVT_KMASK module constants, for a block."""
+    from lavender_tpu_torch.models import bert
+
+    prev = bert._ATTNLANES, bert._KMASK
+    bert._ATTNLANES, bert._KMASK = attnlanes, kmask
+    try:
+        yield
+    finally:
+        bert._ATTNLANES, bert._KMASK = prev
+
+
+def _task_text(rs, n: int, vocab: int):
+    """[CLS] words [MASK] [SEP], padded to TXT_LEN (lengths 6 to 26, the
+    first full): (ids, mask) int64 arrays."""
+    lens = rs.randint(6, TXT_LEN + 1, n)
+    lens[0] = TXT_LEN
+    pos = np.arange(TXT_LEN)[None]
+    txt = rs.randint(1000, vocab, (n, TXT_LEN))
+    txt[:, 0] = CLS_ID
+    txt = np.where(pos == lens[:, None] - 2, MASK_ID, txt)
+    txt = np.where(pos == lens[:, None] - 1, SEP_ID, txt)
+    mask = (pos < lens[:, None]).astype(np.int64)
+    return txt * mask, mask
+
+
+def _task_batches(vocab: int):
+    """One batch of each task at the train shape: B=8 clips of 5 x 224 x
+    224, 26 tokens; RetMC 8 x 5 option texts."""
+    from lavender_tpu_torch.models import captioning
+    from lavender_tpu_torch.tasks import pretrain
+
+    rs = np.random.RandomState(9)
+    B = TRAIN_BATCH
+    img = rs.randint(0, 256, (B, FRAMES, SIZE, SIZE, 3)).astype(np.uint8)
+    txt, mask = _task_text(rs, B, vocab)
+    at_mask = txt == MASK_ID
+    ans_idx = rs.randint(0, N_OPT, B)
+    qamc_ans = np.where(at_mask, np.asarray(DIGIT_IDS)[ans_idx][:, None], -1)
+    qaoe_ans = np.where(at_mask, rs.randint(1000, vocab, (B, 1)), -1)
+    qaoe_ans[B - 1] = -1  # an answer outside the vocabulary: no target
+    opt_txt, opt_mask = _task_text(rs, B * N_OPT, vocab)
+    opt_txt, opt_mask = (a.reshape(B, N_OPT, TXT_LEN)
+                         for a in (opt_txt, opt_mask))
+    right = rs.randint(0, N_OPT, B)
+    truth = np.where(np.arange(N_OPT)[None] == right[:, None], TRUE_ID,
+                     FALSE_ID)[..., None]
+    retmc_ans = np.where(opt_txt == MASK_ID, truth, -1)
+    pre_txt, pre_ans = pretrain.mask_tokens(
+        txt, (PAD_ID, CLS_ID, SEP_ID, MASK_ID), MASK_ID, 0.15, rs)
+    cap_txt, cap_ans = captioning.caption_masking(txt, PAD_ID, MASK_ID, 0.15,
+                                                  rs)
+    raw = {
+        "qamc": {"txt": txt, "mask": mask, "mask_ans": qamc_ans,
+                 "ans_idx": ans_idx},
+        "qaoe": {"txt": txt, "mask": mask, "mask_ans": qaoe_ans},
+        "retmc": {"txt": opt_txt, "mask": opt_mask, "mask_ans": retmc_ans,
+                  "ans_idx": right},
+        "pretrain": {"txt": pre_txt, "mask": mask, "ans_mtm": pre_ans},
+        "cls": {"txt": txt, "mask": mask, "ans": ans_idx},
+        "retrieval": {"txt": txt, "mask": mask, "vid": np.arange(B)},
+        "captioning": {"txt": cap_txt, "mask": mask, "ans_mtm": cap_ans}}
+    clips = torch.as_tensor(img, device="cuda")
+    return {task: {"img": clips, **{k: torch.as_tensor(
+        np.asarray(v), device="cuda").long() for k, v in b.items()}}
+        for task, b in raw.items()}
+
+
+def _first(loss_fn):
+    """A loss with aux (loss, metrics) as a plain loss."""
+    return lambda model, batch, gen: loss_fn(model, batch, gen)[0]
+
+
+def run_tasks(ops):
+    """Phase 9: the fine-tuning and pretraining tasks on ModelConfig(), B=8.
+    (a) one train step each of QA-MC, QA-OE, RetMC, pretraining
+    (vtm_batch=4) and the task-specific head (``make_cls_loss``): loss and
+    gradients kernels vs plain, launches; ten QA-MC steps lowering the loss
+    >= 1 nat; the multi-task dispatch, each kind's step once, launches.
+    (b) the retrieval-MLM and the pretraining step under LVT_ATTNLANES=0:
+    loss and gradients kernels vs plain, launches (K13 in place of K10);
+    step time and device time of both routes, in turns.  (c) each task's
+    eval step, kernels vs plain on the logits it reads, and the launches
+    of QA-MC's under LVT_KMASK=1 (K4) and =0 (K6).  Returns the launches
+    of the counted runs."""
+    from lavender_tpu_torch.config import ModelConfig, TrainConfig
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.tasks import (common, multi_task, pretrain, qamc,
+                                          qaoe, retmc, retrieval,
+                                          task_specific)
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    cfg = ModelConfig()
+    layers, vocab = cfg.bert.num_hidden_layers, cfg.bert.vocab_size
+    depth, n_shift = sum(cfg.swin.depths), _shifted_blocks(cfg.swin)
+    batches = _task_batches(vocab)
+    total = {op: 0 for op in ops.values()}
+
+    def add(counts):
+        for op, n in counts.items():
+            total[op] += n
+
+    def step_counts(passes: int, lanes: bool = True):
+        attn = ("K10a", "K10b") if lanes else ("K13a", "K13b")
+        return {ops["K1"]: depth, ops["K2"]: 4 * n_shift,
+                ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth,
+                ops[attn[0]]: passes * layers, ops[attn[1]]: passes * layers,
+                ops["K11"]: passes * layers}
+
+    t0 = time.perf_counter()
+    tc = TrainConfig(max_iter=1000, max_grad_norm=1.0)
+    state = create_train_state(cfg, tc, seed=0)
+    ts_state = create_train_state(
+        cfg, tc, seed=0, model=task_specific.LavenderTS(cfg, head_out=N_OPT))
+    torch.cuda.synchronize()
+    print(f"[tasks] states built (ModelConfig(); LavenderTS with a {N_OPT}-way "
+          f"head) in {time.perf_counter() - t0:.1f} s", flush=True)
+    groups = _grad_groups(state.model)
+    ts_groups = _grad_groups(ts_state.model)
+
+    # (a) one step of each task: kernels vs plain, then its launches
+    tasks = {
+        "qamc": (qamc.make_loss_fn(), state, 1, False),
+        "qaoe": (qaoe.make_loss_fn(), state, 1, False),
+        "retmc": (retmc.make_loss_fn(), state, 1, False),
+        "pretrain": (pretrain.make_loss_fn(TRUE_ID, FALSE_ID, VTM_BATCH),
+                     state, 2, True),
+        "cls": (task_specific.make_cls_loss(), ts_state, 1, False)}
+    for name, (loss_fn, st, passes, aux) in tasks.items():
+        fn = _first(loss_fn) if aux else loss_fn
+        b = batches[name]
+        _check_step(f"(a) {name} step, kernels vs plain:",
+                    _loss_and_grads(st, fn, b, False),
+                    _loss_and_grads(st, fn, b, True),
+                    ts_groups if st is ts_state else groups, tag="tasks")
+        step = make_train_step(loss_fn, st, has_aux=aux)
+        _reset(ops.values())
+        out = step(b)
+        add(_check_counts(ops.values(), step_counts(passes), 1,
+                          f"tasks (a) {name}"))
+        loss, metrics = out if aux else (out, {})
+        parts = "".join(f", {k} {float(v):.4f}" for k, v in metrics.items())
+        print(f"[tasks] (a) {name}: one step, loss {float(loss):.6f}{parts}",
+              flush=True)
+    const = TrainConfig(lr=TRAIN_LR, warmup_ratio=0.0, max_iter=10 ** 9,
+                        max_grad_norm=1.0)
+    stp = make_train_step(qamc.make_loss_fn(),
+                          create_train_state(cfg, const, seed=0))
+    losses = [float(stp(batches["qamc"])) for _ in range(TRAIN_STEPS)]
+    drop = losses[0] - losses[-1]
+    print(f"[tasks] (a) QA-MC, {TRAIN_STEPS} steps at lr {TRAIN_LR}: loss "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; down {drop:.4f} nat "
+          f"(>= {MIN_LOSS_DROP})", flush=True)
+    if not (all(np.isfinite(losses)) and drop >= MIN_LOSS_DROP):
+        raise AssertionError(f"(a) the QA-MC loss did not fall by "
+                             f"{MIN_LOSS_DROP} nat in {TRAIN_STEPS} steps")
+    del stp
+    torch.cuda.empty_cache()
+    steps = multi_task.make_multi_task_train_steps(
+        multi_task.build_multi_task_losses(TRUE_ID, FALSE_ID), state)
+    for kind, step in steps.items():
+        _reset(ops.values())
+        loss = step(batches[kind])
+        add(_check_counts(ops.values(), step_counts(1), 1,
+                          f"tasks (a) multi-task {kind}"))
+        print(f"[tasks] (a) multi-task dispatch, {kind}: loss "
+              f"{float(loss):.6f}", flush=True)
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"(a) multi-task {kind}: non-finite loss")
+
+    # (b) LVT_ATTNLANES=0: the heads route (K13) in the fusion encoder
+    heads_runs = {
+        "retrieval": (retrieval.make_loss_fn(TRUE_ID, FALSE_ID), 1, False),
+        "pretrain": (pretrain.make_loss_fn(TRUE_ID, FALSE_ID, VTM_BATCH), 2,
+                     True)}
+    timed = {}
+    for name, (loss_fn, passes, aux) in heads_runs.items():
+        fn = _first(loss_fn) if aux else loss_fn
+        b = batches[name]
+        with _bert_switches(attnlanes=False):
+            _check_step(f"(b) {name} step under LVT_ATTNLANES=0, kernels vs "
+                        "plain:", _loss_and_grads(state, fn, b, False),
+                        _loss_and_grads(state, fn, b, True), groups,
+                        tag="tasks")
+        step = make_train_step(loss_fn, state, has_aux=aux)
+        for lanes in (False, True):
+            with _bert_switches(attnlanes=lanes):
+                _reset(ops.values())
+                step(b)
+                counts = _check_counts(
+                    ops.values(), step_counts(passes, lanes), 1,
+                    f"tasks (b) {name}, LVT_ATTNLANES={int(lanes)}")
+            if not lanes:
+                add(counts)
+        timed[name] = (step, b)
+    step, b = timed["retrieval"]
+    times = {True: [], False: []}
+    device = {True: [], False: []}
+    for lanes in (True, False, False, True):
+        with _bert_switches(attnlanes=lanes):
+            times[lanes].append(_ms(lambda: step(b), 3))
+            per_kernel = _kernel_times(lambda: step(b), 1)
+            device[lanes].append((sum(per_kernel.values()), sum(
+                ms for name, ms in per_kernel.items()
+                if "attention" in name)))
+    for lanes in (True, False):
+        ms = sum(times[lanes]) / 2
+        dev = " / ".join(f"{a:.3f} ({c:.3f} in the attention kernels)"
+                         for a, c in device[lanes])
+        print(f"[tasks] (b) retrieval step, LVT_ATTNLANES={int(lanes)} "
+              f"({'K10' if lanes else 'K13'}): {ms:.2f} ms per step "
+              f"({', '.join(f'{t:.2f}' for t in times[lanes])}); device "
+              f"time per step (sum of device activities) {dev} ms "
+              f"({_nvidia_smi()})", flush=True)
+    del steps, timed, step
+    torch.cuda.empty_cache()
+
+    # (c) the eval steps: kernels vs plain on the logits each reads
+    def eval_cases():
+        bq, be, br = batches["qamc"], batches["qaoe"], batches["retmc"]
+        bp, bt, bc = batches["pretrain"], batches["retrieval"], batches["cls"]
+        neg = lambda: torch.Generator("cuda").manual_seed(5)
+        return {
+            "qamc": (state.model, lambda m: qamc.make_eval_step(DIGIT_IDS)(
+                m, bq["img"], bq["txt"], bq["mask"], bq["mask_ans"],
+                bq["ans_idx"]), lambda m: common.fused_mlm_logits(
+                    m, bq["img"], bq["txt"], bq["mask"])[0]),
+            "qaoe": (state.model, lambda m: qaoe.make_eval_step(5)(
+                m, be["img"], be["txt"], be["mask"], be["mask_ans"]),
+                lambda m: common.fused_mlm_logits(
+                    m, be["img"], be["txt"], be["mask"])[0]),
+            "retmc": (state.model, lambda m: retmc.make_eval_step(
+                TRUE_ID, FALSE_ID)(m, br["img"], br["txt"], br["mask"],
+                                   br["mask_ans"], br["ans_idx"]),
+                lambda m: retmc.option_logits(m, br["img"], br["txt"],
+                                              br["mask"], last_only=True)),
+            "retrieval": (state.model, lambda m: retrieval.make_eval_step(
+                TRUE_ID, FALSE_ID)(m, bt["img"], bt["txt"], bt["mask"],
+                                   bt["vid"]),
+                lambda m: retrieval.pairwise_mlm_logits(
+                    m, bt["img"], bt["txt"], bt["mask"])[0]),
+            "pretrain": (state.model, lambda m: pretrain.make_eval_step(
+                TRUE_ID, FALSE_ID, VTM_BATCH)(m, bp["img"], bp["txt"],
+                                              bp["mask"], bp["ans_mtm"],
+                                              neg()),
+                lambda m: torch.cat([o.flatten() for o in (
+                    pretrain.pretrain_forward(
+                        m, bp["img"], bp["txt"], bp["mask"],
+                        pretrain.sample_negatives(
+                            neg(), TRAIN_BATCH,
+                            min(TRAIN_BATCH, VTM_BATCH) - 1)))])),
+            "cls": (ts_state.model, lambda m: task_specific.make_cls_eval()(
+                m, bc["img"], bc["txt"], bc["mask"], bc["ans"]),
+                lambda m: m.cls_head(bc["img"], bc["txt"], bc["mask"]))}
+
+    for name, (model, eval_fn, logits_fn) in eval_cases().items():
+        outs = []
+        for plain in (False, True):
+            with plain_path(plain):
+                ev = eval_fn(model)
+                with common.evaluating(model):
+                    outs.append((ev, logits_fn(model)))
+        (ev_k, lk), (ev_p, lp) = outs
+        err, rel, ok = _compare(lk, lp, SLICE_TOL, SLICE_REL_L2)
+        same = [bool(torch.equal(a, b)) for a, b in zip(ev_k, ev_p)
+                if a.dtype == torch.bool or a.dim() == 0]
+        print(f"[tasks] (c) {name} eval step: its logits {tuple(lk.shape)} "
+              f"kernels vs plain max_abs_err {err:.4g} rel_l2 {rel:.3g} "
+              f"(tol {SLICE_TOL} max(1,max|ref|), {SLICE_REL_L2}); outputs "
+              f"{[tuple(t.shape) for t in ev_k]}, "
+              f"{[round(float(t.float().mean()), 4) for t in ev_k]} vs plain "
+              f"{[round(float(t.float().mean()), 4) for t in ev_p]}"
+              + (f", equal {same}" if same else ""), flush=True)
+        if not ok:
+            raise AssertionError(f"(c) {name} eval: kernels disagree with "
+                                 "the plain path")
+    bq = batches["qamc"]
+    serve = {**_video_counts(ops, cfg), ops["K5"]: layers}
+    for kmask in (True, False):
+        with _bert_switches(kmask=kmask):
+            _reset(ops.values())
+            qamc.make_eval_step(DIGIT_IDS)(state.model, bq["img"], bq["txt"],
+                                           bq["mask"], bq["mask_ans"],
+                                           bq["ans_idx"])
+            add(_check_counts(ops.values(), {
+                **serve, ops["K4" if kmask else "K6"]: layers}, 1,
+                f"tasks (c) QA-MC eval, LVT_KMASK={int(kmask)}"))
+    del state, ts_state
+    torch.cuda.empty_cache()
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs only on a CUDA GPU")
     from lavender_tpu_torch.ops import _build
     from lavender_tpu_torch.ops.encoder_attention import (
-        encoder_attention_train_lanes_bwd, fused_bert_attn_block,
-        fused_bert_attn_block_kmask, fused_encoder_attention,
+        encoder_attention_train_bwd, encoder_attention_train_lanes_bwd,
+        fused_bert_attn_block, fused_bert_attn_block_kmask,
+        fused_encoder_attention, fused_encoder_attention_train,
         fused_encoder_attention_train_lanes)
     from lavender_tpu_torch.ops.fused_mlp import (
         fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
@@ -1948,6 +2422,8 @@ def main() -> int:
            "K10a": fused_encoder_attention_train_lanes,
            "K10b": encoder_attention_train_lanes_bwd,
            "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train,
+           "K13a": fused_encoder_attention_train,
+           "K13b": encoder_attention_train_bwd,
            "K14a": fused_swin_block_attn, "K14f": fused_swin_block_full,
            "K15": fused_window_attention,
            "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
@@ -1963,6 +2439,9 @@ def main() -> int:
     spatial_counts = run_spatial(ops, server)
     torch.cuda.empty_cache()
     route_counts = run_routes(ops, server)
+    del server
+    torch.cuda.empty_cache()
+    task_counts = run_tasks(ops)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/attention.cu",
@@ -1993,6 +2472,10 @@ def main() -> int:
                 "lavender_tpu/ops/fused_mlp.py:505"),
         "K12": ("lavender_tpu_torch/csrc/layernorm.cu",
                 "lavender_tpu/ops/fused_mlp.py:379"),
+        "K13a": ("lavender_tpu_torch/csrc/attention.cu",
+                 "lavender_tpu/ops/encoder_attention.py:526"),
+        "K13b": ("lavender_tpu_torch/csrc/attention_bwd.cu",
+                 "lavender_tpu/ops/encoder_attention.py:555"),
         "K14a": ("lavender_tpu_torch/csrc/layernorm.cu",
                  "lavender_tpu/ops/swin_block_attn.py:468"),
         "K14f": ("lavender_tpu_torch/csrc/layernorm.cu",
@@ -2013,12 +2496,13 @@ def main() -> int:
             "replaces": replaces,
             "launches": (serve_counts[op] + train_counts[op]
                          + caption_counts[op] + spatial_counts[op]
-                         + route_counts[op]),
+                         + route_counts[op] + task_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
             "launches_spatial": spatial_counts[op],
             "launches_routes": route_counts[op],
+            "launches_tasks": task_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

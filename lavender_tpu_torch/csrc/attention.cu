@@ -37,7 +37,12 @@
 // dropout.cuh (stream seq * nH + h, index i * N + j), so the backward
 // regenerates them.  As in the TPU kernel, the mask multiplies p only in the
 // P.V sum: the row sum l and the log-sum-exp are those of the undropped
-// softmax, o = ((m * p) v) / l.
+// softmax, o = ((m * p) v) / l.  The heads-layout instantiation with the
+// same dropout and log-sum-exp is the heads-layout train attention K13a
+// (_enc_attn_train_kernel): its counter is the logical (sequence, head,
+// row, key), never an address, so K13a on heads views of q, k, v and K10a
+// on the [B, N, C] tensors they view draw the same mask from one seed.
+// The ragged N (276) is masked in the loops, not padded as on the TPU.
 //
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
 // first version runs them on the f32 pipes, one query row per thread (rows
@@ -261,17 +266,21 @@ int launch_hd(const void* qkv, void* out, const void* bias, const void* mask, co
                                   thresh, drop_scale, s, HeadsLayout{});
 }
 
-// The heads layout (K7, K15): sequence s reads mask[s % nW] and the
-// per-head bias (null for K7).
+// The heads layout (K7, K13a, K15): sequence s reads mask[s % nW] and the
+// per-head bias (null for K7 and K13a); K13a also writes lse and drops.
 template <int HD>
 int launch_heads(const void* q, const void* k, const void* v, void* out, const long long* st,
-                 const void* bias, const void* mask, int B, int N, int nH, int nW, float scale,
+                 const void* bias, const void* mask, void* lse, int B, int N, int nH, int nW,
+                 float scale, const void* seed, uint32_t thresh, float drop_scale,
                  cudaStream_t s) {
   HeadsLayout hl{static_cast<const bf16*>(k), static_cast<const bf16*>(v)};
   for (int a = 0; a < 3; ++a)
     hl.q[a] = st[a], hl.k[a] = st[3 + a], hl.v[a] = st[6 + a], hl.o[a] = st[9 + a];
-  return launch<HD, false, true>(q, out, bias, mask, nullptr, nullptr, B, N, nH, nW, scale,
-                                 nullptr, 0u, 1.0f, s, hl);
+  if (seed != nullptr)
+    return launch<HD, true, true>(q, out, bias, mask, nullptr, lse, B, N, nH, nW, scale, seed,
+                                  thresh, drop_scale, s, hl);
+  return launch<HD, false, true>(q, out, bias, mask, nullptr, lse, B, N, nH, nW, scale, nullptr,
+                                 0u, 1.0f, s, hl);
 }
 
 }  // namespace
@@ -305,19 +314,26 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
 // The heads layout: q, k, v -> out, each [B, nH, N, hd] addressed by the
 // element strides st[12] (host memory): (sequence, head, row) of q, k, v
 // and out in turn, the head dim contiguous, every stride a multiple of 8 and
-// every pointer 16-byte aligned; mask [B, N, N] f32 (null: none).  No bias,
-// key-keep, log-sum-exp or dropout.  hd in {16, 32, 64}.
+// every pointer 16-byte aligned; mask [B, N, N] f32 (null: none).  lse
+// [B, nH, N] f32 (null: not written), seed, thresh and drop_scale as in
+// lvt_attention_bf16 (null seed: no dropout; K7 passes neither, the train
+// attention K13a both).  No bias or key-keep.  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void* v, void* out,
-                                        const long long* st, const void* mask, int B, int N,
-                                        int nH, int hd, float scale, void* stream) {
+                                        const long long* st, const void* mask, void* lse, int B,
+                                        int N, int nH, int hd, float scale, const void* seed,
+                                        uint32_t thresh, float drop_scale, void* stream) {
   if (B <= 0 || N <= 0 || nH <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LVT_HEADS(HD)                                                                           \
+  launch_heads<HD>(q, k, v, out, st, nullptr, mask, lse, B, N, nH, B, scale, seed, thresh, \
+                   drop_scale, s)
   switch (hd) {
-    case 16: return launch_heads<16>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s);
-    case 32: return launch_heads<32>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s);
-    case 64: return launch_heads<64>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s);
+    case 16: return LVT_HEADS(16);
+    case 32: return LVT_HEADS(32);
+    case 64: return LVT_HEADS(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LVT_HEADS
 }
 
 // Per-window attention (K15): q, k, v -> out, each [W, nH, N, hd] addressed
@@ -331,10 +347,14 @@ LVT_EXPORT int lvt_window_attention_bf16(const void* q, const void* k, const voi
   if (W <= 0 || N <= 0 || nH <= 0 || nW <= 0 || W % nW != 0 || nH > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LVT_WINDOWS(HD)                                                                  \
+  launch_heads<HD>(q, k, v, out, st, bias, mask, nullptr, W, N, nH, nW, scale, nullptr, 0u, \
+                   1.0f, s)
   switch (hd) {
-    case 16: return launch_heads<16>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s);
-    case 32: return launch_heads<32>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s);
-    case 64: return launch_heads<64>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s);
+    case 16: return LVT_WINDOWS(16);
+    case 32: return LVT_WINDOWS(32);
+    case 64: return LVT_WINDOWS(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LVT_WINDOWS
 }

@@ -17,6 +17,15 @@
 // Output is dqkv [nSeq * N, 3C] bf16 and dbias [nH, N, N] f32; the mask gets
 // no gradient (it is geometry, never a parameter).
 //
+// A second instantiation (HEADS) is the heads-layout train attention's
+// backward K13b (_enc_attn_train_bwd_kernel): q, k, v, do, dq, dk and dv
+// [B, nH, N, hd], each by its own (sequence, head, row) strides (strided
+// views of one qkv product are read in place), the f32 [B, N, N] mask the
+// forward read (the same buffer: a bf16 copy would round -1e4 otherwise,
+// and p = exp(s - lse) would no longer sum to 1), the bits regenerated as in
+// K10b, and, where the caller asks, dmask[b] = sum over heads of ds (the TPU
+// kernel's; the caller zeroes it where the mask is <= -1e4).
+//
 // The TPU kernel summed dbias over its grid, which runs in order.  Blocks here
 // run in no order, and an atomic add per (sequence, element) would serialise
 // (stage 1 at B = 8: 512 sequences onto each of 4 heads' 248 x 248 entries).
@@ -24,6 +33,8 @@
 // chunk's running sum in its own f32 slice of a scratch buffer (each entry
 // touched only by the thread that owns its key column: no atomics, coalesced
 // rows), and a second kernel adds the slices.  The sum is the same on every run.
+// dmask takes the same scheme with the roles swapped: each block takes one
+// sequence and a contiguous chunk of heads.
 //
 // Bound on the card: the recompute and the four products, on the f32 pipes in
 // this first version (the forward's design: one row per thread, Q, K, V and do
@@ -36,6 +47,8 @@
 // hd = 64 (BERT) four rows of 64 floats per thread would spill, so each pass
 // sweeps twice: D then dq, and dk then dv (three rows of registers each).
 #include <math.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "dropout.cuh"
@@ -90,15 +103,33 @@ __device__ __forceinline__ void store_row(bf16* dst, const float* v, float scale
   }
 }
 
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(float x) { return x; }
+
+// bf16 mask on the packed slab (K8b/K10b), f32 in the heads layout (K13b)
+template <bool HEADS>
+using mask_t = std::conditional_t<HEADS, float, bf16>;
+
 // score (i, j) from its q.k term, the bias and mask added in the forward's
 // order (so it equals the forward's bit for bit); e = i * N + j.
-template <bool BIAS>
-__device__ __forceinline__ float score_of(float qk, const bf16* bias_h, const bf16* mask_w,
-                                          size_t e) {
+template <bool BIAS, typename M>
+__device__ __forceinline__ float score_of(float qk, const bf16* bias_h, const M* mask_w, size_t e) {
   if constexpr (BIAS) qk += __bfloat162float(bias_h[e]);
-  if (mask_w != nullptr) qk += __bfloat162float(mask_w[e]);
+  if (mask_w != nullptr) qk += to_float(mask_w[e]);
   return qk;
 }
+
+// The heads layout's operands (HEADS): k, v, dk and dv (q, do and dq are
+// the kernel's qkv, dout and dqkv arguments) and the element strides
+// (sequence, head, row) of q, k, v, do, dq, dk and dv, the head dim
+// contiguous.  Unused by the packed instantiation.
+struct BwdHeads {
+  const bf16* k;
+  const bf16* v;
+  bf16* dk;
+  bf16* dv;
+  long long st[7][3];
+};
 
 // The dropout factor m of probability (i, j): 1 without dropout, else 0 or
 // 1 / (1 - rate), the forward's bits regenerated from the seed (index
@@ -113,18 +144,23 @@ __device__ __forceinline__ float mfac_of(uint32_t key, uint32_t index, uint32_t 
 // One query row (pass 1) or key row (pass 2) per thread, 256 threads: at
 // most 8 warps keep the whole register file of 255 a thread (9 to 12 warps
 // share an SM sub-partition three to one and get 168, which spills the
-// hd = 64 rows).  DROP and BIAS are compile-time, so the Swin backward
+// hd = 64 rows).  DROP, SUM and HEADS are compile-time, so the Swin backward
 // (no dropout, a bias) runs the same inner loop as without the options.
 constexpr int kThreads = 256;
 
-template <int HD, bool DROP, bool BIAS>
+// SUM: accumulate ds into the block's slice of ``part`` (dbias over
+// sequences, packed with a bias; dmask over heads, HEADS).  The grid is
+// (chunk, outer): packed, outer is the head and the block walks its chunk of
+// sequences; HEADS, outer is the sequence and it walks its chunk of heads.
+template <int HD, bool DROP, bool SUM, bool HEADS>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const bf16* __restrict__ bias,
-                         const bf16* __restrict__ mask, bf16* __restrict__ dqkv,
+                         const mask_t<HEADS>* __restrict__ mask, bf16* __restrict__ dqkv,
                          float* __restrict__ part, int nSeq, int N, int nH, int nW, int nChunks,
                          float scale, const int64_t* __restrict__ seed, uint32_t thresh,
-                         float drop_scale) {
+                         float drop_scale, BwdHeads hb) {
+  constexpr bool BIAS = SUM && !HEADS;  // the heads layout has no bias
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + (size_t)N * HD;
@@ -133,32 +169,58 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* lse_s = reinterpret_cast<float*>(dos + (size_t)N * HD);
   float* dd = lse_s + N;
 
-  const int chunk = blockIdx.x, h = blockIdx.y;
+  const int chunk = blockIdx.x, outer = blockIdx.y;
   const int C = nH * HD;
-  const size_t ld = 3 * (size_t)C;
-  const int s_begin = (int)((long)chunk * nSeq / nChunks);
-  const int s_end = (int)((long)(chunk + 1) * nSeq / nChunks);
-  float* part_c = BIAS ? part + ((size_t)chunk * nH + h) * N * N : nullptr;
-  const bf16* bias_h = BIAS ? bias + (size_t)h * N * N : nullptr;
+  const int n_inner = HEADS ? nH : nSeq;
+  const int it_begin = (int)((long)chunk * n_inner / nChunks);
+  const int it_end = (int)((long)(chunk + 1) * n_inner / nChunks);
+  float* part_c = SUM ? part + ((size_t)chunk * gridDim.y + outer) * N * N : nullptr;
+  const bf16* bias_h = BIAS ? bias + (size_t)outer * N * N : nullptr;
   const uint32_t seed32 = DROP ? (uint32_t)*seed : 0u;
   constexpr int V8 = HD / 8;
 
-  for (int seq = s_begin; seq < s_end; ++seq) {
-    const bf16* base = qkv + (size_t)seq * N * ld + h * HD;
-    const bf16* dbase = dout + (size_t)seq * N * C + h * HD;
+  for (int it = it_begin; it < it_end; ++it) {
+    const int seq = HEADS ? outer : it, h = HEADS ? it : outer;
+    // row r of q, k, v, do, dq, dk, dv of this (sequence, head) at base + r * ld
+    const bf16 *qb, *kb, *vb, *gb;
+    bf16 *dqb, *dkb, *dvb;
+    size_t q_ld, k_ld, v_ld, g_ld, dq_ld, dk_ld, dv_ld;
+    if constexpr (HEADS) {
+      qb = qkv + seq * hb.st[0][0] + h * hb.st[0][1];
+      kb = hb.k + seq * hb.st[1][0] + h * hb.st[1][1];
+      vb = hb.v + seq * hb.st[2][0] + h * hb.st[2][1];
+      gb = dout + seq * hb.st[3][0] + h * hb.st[3][1];
+      dqb = dqkv + seq * hb.st[4][0] + h * hb.st[4][1];
+      dkb = hb.dk + seq * hb.st[5][0] + h * hb.st[5][1];
+      dvb = hb.dv + seq * hb.st[6][0] + h * hb.st[6][1];
+      q_ld = hb.st[0][2], k_ld = hb.st[1][2], v_ld = hb.st[2][2], g_ld = hb.st[3][2];
+      dq_ld = hb.st[4][2], dk_ld = hb.st[5][2], dv_ld = hb.st[6][2];
+    } else {
+      const size_t ld = 3 * (size_t)C;
+      qb = qkv + (size_t)seq * N * ld + h * HD;
+      kb = qb + C;
+      vb = qb + 2 * C;
+      gb = dout + (size_t)seq * N * C + h * HD;
+      dqb = dqkv + (size_t)seq * N * ld + h * HD;
+      dkb = dqb + C;
+      dvb = dqb + 2 * C;
+      q_ld = k_ld = v_ld = dq_ld = dk_ld = dv_ld = ld;
+      g_ld = C;
+    }
     for (int c = threadIdx.x; c < N * V8; c += blockDim.x) {
       const int r = c / V8, k8 = (c % V8) * 8;
-      const bf16* src = base + r * ld + k8;
-      *reinterpret_cast<uint4*>(qs + r * HD + k8) = *reinterpret_cast<const uint4*>(src);
-      *reinterpret_cast<uint4*>(ks + r * HD + k8) = *reinterpret_cast<const uint4*>(src + C);
-      *reinterpret_cast<uint4*>(vs + r * HD + k8) = *reinterpret_cast<const uint4*>(src + 2 * C);
+      *reinterpret_cast<uint4*>(qs + r * HD + k8) =
+          *reinterpret_cast<const uint4*>(qb + r * q_ld + k8);
+      *reinterpret_cast<uint4*>(ks + r * HD + k8) =
+          *reinterpret_cast<const uint4*>(kb + r * k_ld + k8);
+      *reinterpret_cast<uint4*>(vs + r * HD + k8) =
+          *reinterpret_cast<const uint4*>(vb + r * v_ld + k8);
       *reinterpret_cast<uint4*>(dos + r * HD + k8) =
-          *reinterpret_cast<const uint4*>(dbase + (size_t)r * C + k8);
+          *reinterpret_cast<const uint4*>(gb + r * g_ld + k8);
     }
     for (int j = threadIdx.x; j < N; j += blockDim.x) lse_s[j] = lse[((size_t)seq * nH + h) * N + j];
     __syncthreads();
-    const bf16* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
-    bf16* dbase_out = dqkv + (size_t)seq * N * ld + h * HD;
+    const mask_t<HEADS>* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
     const uint32_t key = DROP ? lvt::dropout_key(seed32, (uint32_t)(seq * nH + h)) : 0u;
 #define LVT_SCORE(qk, i, j) score_of<BIAS>((qk), bias_h, mask_w, (size_t)(i) * N + (j))
 #define LVT_MFAC(i, j) mfac_of<DROP>(key, (uint32_t)((i) * N + (j)), thresh, drop_scale)
@@ -172,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int d = 0; d < HD; ++d) q[d] *= scale;
       const float li = lse_s[i];
       float D = 0.0f;
-      bf16* orow = dbase_out + (size_t)i * ld;
+      bf16* orow = dqb + (size_t)i * dq_ld;
       if constexpr (HD <= 32) {
         // one sweep: dq = scale * (sum p dp k - D sum p k)
         float a[HD], bsum[HD];
@@ -209,15 +271,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // Pass 2: one key row per thread -> dk, dv and its column of dbias.
-    const bool first = seq == s_begin;
+    // Pass 2: one key row per thread -> dk, dv and its column of the sum.
+    const bool first = it == it_begin;
     for (int j = threadIdx.x; j < N; j += blockDim.x) {
       float k[HD], v[HD], dk[HD];
       load_row<HD>(ks + j * HD, k);
       load_row<HD>(vs + j * HD, v);
 #pragma unroll
       for (int d = 0; d < HD; ++d) dk[d] = 0.0f;
-      bf16* orow = dbase_out + (size_t)j * ld;
+      bf16* dk_row = dkb + (size_t)j * dk_ld;
+      bf16* dv_row = dvb + (size_t)j * dv_ld;
       if constexpr (HD <= 32) {
         float dv[HD];
 #pragma unroll
@@ -228,26 +291,26 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float ds = p * (m * dot_row<HD>(v, dos + i * HD) - dd[i]);
           axpy_row<HD>(p * m, dos + i * HD, dv);
           axpy_row<HD>(ds, qs + i * HD, dk);
-          if constexpr (BIAS) {
+          if constexpr (SUM) {
             float* pe = part_c + (size_t)i * N + j;
             *pe = first ? ds : *pe + ds;
           }
         }
-        store_row<HD>(orow + 2 * C, dv, 1.0f);
-        store_row<HD>(orow + C, dk, scale);
+        store_row<HD>(dv_row, dv, 1.0f);
+        store_row<HD>(dk_row, dk, scale);
       } else {
-        // dk (and dbias) first, stored before the sweep for dv = sum_i m p
+        // dk (and the sum) first, stored before the sweep for dv = sum_i m p
         // do_i, so that at most three rows of registers are live at once
         for (int i = 0; i < N; ++i) {
           const float p = __expf(LVT_SCORE(dot_row<HD>(k, qs + i * HD, scale), i, j) - lse_s[i]);
           const float ds = p * (LVT_MFAC(i, j) * dot_row<HD>(v, dos + i * HD) - dd[i]);
           axpy_row<HD>(ds, qs + i * HD, dk);
-          if constexpr (BIAS) {
+          if constexpr (SUM) {
             float* pe = part_c + (size_t)i * N + j;
             *pe = first ? ds : *pe + ds;
           }
         }
-        store_row<HD>(orow + C, dk, scale);
+        store_row<HD>(dk_row, dk, scale);
         float dv[HD];
 #pragma unroll
         for (int d = 0; d < HD; ++d) dv[d] = 0.0f;
@@ -255,64 +318,68 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float p = __expf(LVT_SCORE(dot_row<HD>(k, qs + i * HD, scale), i, j) - lse_s[i]);
           axpy_row<HD>(p * LVT_MFAC(i, j), dos + i * HD, dv);
         }
-        store_row<HD>(orow + 2 * C, dv, 1.0f);
+        store_row<HD>(dv_row, dv, 1.0f);
       }
     }
 #undef LVT_SCORE
 #undef LVT_MFAC
-    __syncthreads();  // the next sequence overwrites the tiles
+    __syncthreads();  // the next (sequence, head) overwrites the tiles
   }
 }
 
-// dbias[e] = sum over chunks of part[chunk][e], e over nH * N * N.
-__global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ dbias,
+// out[e] = sum over chunks of part[chunk][e]: dbias (e over nH * N * N) or
+// dmask (e over nSeq * N * N).
+__global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out,
                                   int nChunks, size_t n) {
   for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
        e += (size_t)gridDim.x * blockDim.x) {
     float s = 0.0f;
     for (int c = 0; c < nChunks; ++c) s += part[(size_t)c * n + e];
-    dbias[e] = s;
+    out[e] = s;
   }
 }
 
-template <int HD, bool DROP, bool BIAS>
+// grid (nChunks, nH) packed, (nChunks, nSeq) in the heads layout; with SUM
+// the chunks' slices of ``part`` are added into ``sum`` (dbias / dmask).
+template <int HD, bool DROP, bool SUM, bool HEADS>
 int launch(const void* qkv, const void* dout, const void* lse, const void* bias, const void* mask,
-           void* dqkv, void* dbias, void* part, int nSeq, int N, int nH, int nW, int nChunks,
-           float scale, const void* seed, uint32_t thresh, float drop_scale,
-           cudaStream_t stream) {
+           void* dqkv, void* sum, void* part, int nSeq, int N, int nH, int nW, int nChunks,
+           float scale, const void* seed, uint32_t thresh, float drop_scale, cudaStream_t stream,
+           const BwdHeads& hb) {
   const size_t smem = 4 * (size_t)N * HD * sizeof(bf16) + 2 * (size_t)N * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, DROP, BIAS>,
+    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, DROP, SUM, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int rows = (N + 31) / 32 * 32;
   const int threads = rows < kThreads ? rows : kThreads;
-  attention_bwd_kernel<HD, DROP, BIAS><<<dim3(nChunks, nH), threads, smem, stream>>>(
+  const int outer = HEADS ? nSeq : nH;
+  attention_bwd_kernel<HD, DROP, SUM, HEADS><<<dim3(nChunks, outer), threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const bf16*>(bias), static_cast<const bf16*>(mask), static_cast<bf16*>(dqkv),
-      static_cast<float*>(part), nSeq, N, nH, nW, nChunks, scale,
-      static_cast<const int64_t*>(seed), thresh, drop_scale);
+      static_cast<const bf16*>(bias), static_cast<const mask_t<HEADS>*>(mask),
+      static_cast<bf16*>(dqkv), static_cast<float*>(part), nSeq, N, nH, nW, nChunks, scale,
+      static_cast<const int64_t*>(seed), thresh, drop_scale, hb);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !BIAS) return (int)e;
-  const size_t n = (size_t)nH * N * N;
+  if (e != cudaSuccess || !SUM) return (int)e;
+  const size_t n = (size_t)outer * N * N;
   const int blocks = (int)((n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8);
   sum_chunks_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
-                                                static_cast<float*>(dbias), nChunks, n);
+                                                static_cast<float*>(sum), nChunks, n);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool HEADS>
 int launch_hd(const void* qkv, const void* dout, const void* lse, const void* bias,
-              const void* mask, void* dqkv, void* dbias, void* part, int nSeq, int N, int nH,
+              const void* mask, void* dqkv, void* sum, void* part, int nSeq, int N, int nH,
               int nW, int nChunks, float scale, const void* seed, uint32_t thresh,
-              float drop_scale, cudaStream_t s) {
-#define LVT_LAUNCH(DROP, BIAS)                                                                  \
-  launch<HD, DROP, BIAS>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW, nChunks, \
-                         scale, seed, thresh, drop_scale, s)
-  if (seed != nullptr) return bias != nullptr ? LVT_LAUNCH(true, true) : LVT_LAUNCH(true, false);
-  return bias != nullptr ? LVT_LAUNCH(false, true) : LVT_LAUNCH(false, false);
+              float drop_scale, cudaStream_t s, const BwdHeads& hb) {
+#define LVT_LAUNCH(DROP, SUM)                                                                    \
+  launch<HD, DROP, SUM, HEADS>(qkv, dout, lse, bias, mask, dqkv, sum, part, nSeq, N, nH, nW,    \
+                               nChunks, scale, seed, thresh, drop_scale, s, hb)
+  if (seed != nullptr) return sum != nullptr ? LVT_LAUNCH(true, true) : LVT_LAUNCH(true, false);
+  return sum != nullptr ? LVT_LAUNCH(false, true) : LVT_LAUNCH(false, false);
 #undef LVT_LAUNCH
 }
 
@@ -334,17 +401,50 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
       (bias == nullptr) != (part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LVT_PACKED(HD)                                                                        \
+  launch_hd<HD, false>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW, nChunks, \
+                       scale, seed, thresh, drop_scale, s, BwdHeads{})
   switch (hd) {
-    case 16:
-      return launch_hd<16>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW,
-                           nChunks, scale, seed, thresh, drop_scale, s);
-    case 32:
-      return launch_hd<32>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW,
-                           nChunks, scale, seed, thresh, drop_scale, s);
-    case 64:
-      return launch_hd<64>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW,
-                           nChunks, scale, seed, thresh, drop_scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 16: return LVT_PACKED(16);
+    case 32: return LVT_PACKED(32);
+    case 64: return LVT_PACKED(64);
+    default: return (int)cudaErrorInvalidValue;
   }
+#undef LVT_PACKED
+}
+
+// The heads layout (K13b): q, k, v, dout -> dq, dk, dv, each [B, nH, N, hd]
+// addressed by the element strides st[21] (host memory): (sequence, head,
+// row) of q, k, v, dout, dq, dk and dv in turn, the head dim contiguous,
+// every stride a multiple of 8 and every pointer 16-byte aligned; lse
+// [B, nH, N] f32 (the forward's), mask [B, N, N] f32 (the forward's) or
+// null.  dmask [B, N, N] f32 = the sum over heads of ds (null: not formed),
+// using part [nChunks, B, N, N] f32 as scratch (null exactly when dmask is):
+// each block takes one sequence and a chunk of its heads, 1 <= nChunks <= nH
+// (without dmask nChunks = nH, one head a block).  seed, thresh, drop_scale
+// as in lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
+LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const void* v,
+                                            const void* dout, const void* lse, const void* mask,
+                                            void* dq, void* dk, void* dv, void* dmask, void* part,
+                                            const long long* st, int B, int N, int nH, int hd,
+                                            int nChunks, float scale, const void* seed,
+                                            uint32_t thresh, float drop_scale, void* stream) {
+  if (B <= 0 || N <= 0 || nH <= 0 || B > 65535 || nChunks < 1 || nChunks > nH ||
+      (dmask == nullptr) != (part == nullptr) || (dmask == nullptr && nChunks != nH))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdHeads hb{static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(dk),
+              static_cast<bf16*>(dv)};
+  for (int t = 0; t < 7; ++t)
+    for (int a = 0; a < 3; ++a) hb.st[t][a] = st[3 * t + a];
+#define LVT_HEADS(HD)                                                                           \
+  launch_hd<HD, true>(q, dout, lse, nullptr, mask, dq, dmask, part, B, N, nH, B, nChunks, scale, \
+                      seed, thresh, drop_scale, s, hb)
+  switch (hd) {
+    case 16: return LVT_HEADS(16);
+    case 32: return LVT_HEADS(32);
+    case 64: return LVT_HEADS(64);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef LVT_HEADS
 }

@@ -10,8 +10,11 @@ query.weight``), the layout the reference checkpoints use.  Serving
 
 - ``BertConfig.fused_attn_train`` (default True): one qkv GEMM (plain
   torch, as JAX leaves it to XLA) -> ``fused_encoder_attention_train_lanes``
-  (K10a, its backward K10b) -> ``fused_out_ln_train`` (K11); False: the
-  module math with dropout, plain torch;
+  (K10a, its backward K10b) -> ``fused_out_ln_train`` (K11); under
+  ``LVT_ATTNLANES=0`` (``_ATTNLANES`` False) the heads route of JAX
+  ``_attend``: the same qkv product taken as [B, nH, L, hd] views ->
+  ``fused_encoder_attention_train`` (K13a, its backward K13b) -> K11;
+  False: the module math with dropout, plain torch;
 - ``BertConfig.fused_ffn_train`` (default False): ``fused_ffn_post_ln_train``
   (K12); False: the module math with dropout.
 
@@ -23,8 +26,11 @@ the kernel path and ``plain_path()`` draw the same masks.
 the MLM head are plain torch.  Masks: a key-padding bias [B, 1, 1, L]
 (``extended_attention_mask`` on a [B, L] mask) takes the serving kernel
 ``fused_bert_attn_block_kmask`` (K4), a full bias [B, 1, L, L] (on a
-[B, L, L] mask: seq2seq, captioning) ``fused_bert_attn_block`` (K6); both
-train routes take either.
+[B, L, L] mask: seq2seq, captioning) ``fused_bert_attn_block`` (K6), and
+under ``LVT_KMASK=0`` (``_KMASK`` False) a key-padding bias too, broadcast
+to [B, L, L]; both train routes take either.  The two switches are read
+at import, as JAX reads them (bert.py:173, :285), into module constants
+that tests and ``chip_smoke.py`` flip.
 
 Incremental decoding with a static KV cache, as the JAX package has it:
 ``BertEncoder.prefill`` runs the prefix (serving route) and returns each
@@ -35,6 +41,7 @@ FFN through K5.
 """
 from __future__ import annotations
 
+import os
 from typing import List, Optional, Tuple
 
 import torch
@@ -47,9 +54,15 @@ from lavender_tpu_torch.ops._build import select
 from lavender_tpu_torch.ops.dropout import draw_seed
 from lavender_tpu_torch.ops.encoder_attention import (
     fused_bert_attn_block, fused_bert_attn_block_kmask,
-    fused_encoder_attention_train_lanes)
+    fused_encoder_attention_train, fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_out_ln_train)
+
+# the JAX package's switches (lavender_tpu/models/bert.py:173, :285), same
+# variables and defaults: the train attention in lanes layout (K10) or in
+# heads layout (K13), and a key-padding bias served by K4 or by K6
+_ATTNLANES = os.environ.get("LVT_ATTNLANES", "1") == "1"
+_KMASK = os.environ.get("LVT_KMASK", "1") == "1"
 
 
 def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
@@ -160,12 +173,15 @@ class BertSelfOutput(nn.Module):
 class BertAttention(nn.Module):
     """Self-attention + output projection + residual + post-LN: in serving
     (with ``fused_attn``, the default) one ``fused_bert_attn_block_kmask``
-    call under a key-padding bias (the JAX kmask serving branch) or one
+    call under a key-padding bias (the JAX kmask serving branch; with
+    ``_KMASK`` off the bias goes to the full-mask branch instead) or one
     ``fused_bert_attn_block`` call under a full [B, 1, L, L] bias (its
     full-mask branch); in training with ``fused_attn_train`` K10 + K11
-    (the JAX lanes train kernels); else the module math, in training with
-    attention-probability and hidden dropout (JAX ``_attend``'s XLA branch
-    and ``BertSelfOutput``)."""
+    (the JAX lanes train kernels) or, with ``_ATTNLANES`` off, q, k and v
+    as heads views of one product -> K13 -> K11 (the JAX heads train
+    kernel); else the module math, in training with attention-probability
+    and hidden dropout (JAX ``_attend``'s XLA branch and
+    ``BertSelfOutput``)."""
 
     def __init__(self, config):
         super().__init__()
@@ -183,11 +199,21 @@ class BertAttention(nn.Module):
         s, o = self.self, self.output
         w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
         b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
-        q, k, v = F.linear(x, w, b).split(C, dim=-1)  # views of one slab
-        ctx = select(fused_encoder_attention_train_lanes)(
-            q, k, v, attn_bias[:, 0].expand(B, L, L),
-            draw_seed(generator, x.device), self.scale,
-            self.attn_dropout_p, self.num_heads)
+        qkv = F.linear(x, w, b)
+        mask, seed = attn_bias[:, 0].expand(B, L, L), draw_seed(generator,
+                                                                x.device)
+        if _ATTNLANES:
+            q, k, v = qkv.split(C, dim=-1)  # views of one slab
+            ctx = select(fused_encoder_attention_train_lanes)(
+                q, k, v, mask, seed, self.scale, self.attn_dropout_p,
+                self.num_heads)
+        else:
+            # [B, nH, L, hd] views of the slab, read in place
+            nH = self.num_heads
+            q, k, v = qkv.view(B, L, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+            ctx = select(fused_encoder_attention_train)(
+                q, k, v, mask, seed, self.scale, self.attn_dropout_p)
+            ctx = ctx.transpose(1, 2)
         out, _ = select(fused_out_ln_train)(
             ctx.reshape(B * L, C), x.reshape(B * L, C), o.dense.weight,
             o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
@@ -221,7 +247,7 @@ class BertAttention(nn.Module):
         if self.training or not self.fused_serve:
             return self._module_forward(x, attn_bias, generator)
         s, o = self.self, self.output
-        if attn_bias.shape[2] == 1:
+        if attn_bias.shape[2] == 1 and _KMASK:
             op, mask = fused_bert_attn_block_kmask, attn_bias[:, 0, 0] >= -0.5
         else:
             op, mask = fused_bert_attn_block, attn_bias[:, 0].expand(B, L, L)

@@ -7,9 +7,11 @@ losses call the parts separately (``tasks/``, ``models/captioning.py``).
 In ``train()`` mode dropout and drop-path draw from the ``generator`` the
 parts take.
 
-Ported variants: the default EncVideo (no ``odr``/``vt_mask``, not the
-SwinBERT adapter), the embeddings-only EncTxt, and the "full" and
-"seq2seq" cross masks.
+Ported variants: EncVideo with the frame-order (``odr``) and per-frame
+visual mask (``vt_mask``) inputs of pretraining (not the SwinBERT
+adapter), EncTxt embeddings-only or with its text transformer
+(``txt_backbone_embed_only=False``, under a full or a causal mask), and
+the "full" and "seq2seq" cross masks.
 """
 from __future__ import annotations
 
@@ -87,8 +89,15 @@ class EncVideo(nn.Module):
         self.norm = nn.LayerNorm(hidden, eps=1e-5)
 
     def forward(self, img: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
-        """img uint8 [B, T, H, W, 3] -> (features [B, Lv, H], mask [B, Lv])."""
+                generator: Optional[torch.Generator] = None, *,
+                odr: Optional[torch.Tensor] = None,
+                vt_mask: Optional[torch.Tensor] = None):
+        """img uint8 [B, T, H, W, 3] -> (features [B, Lv, H], mask [B, Lv]).
+
+        ``odr`` [B, T] (frame-order pretraining, reference model.py:72-81):
+        frame t takes its ``emb_len`` row where odr[b, t] == t, else
+        ``emb_odr``.  ``vt_mask`` (broadcast to [B, T, 1 + hw]) multiplies
+        the visual mask."""
         B, T, H, W, _ = img.shape
         hw = (H // 32) * (W // 32)
         f = self.swin(img, generator).reshape(B, T, hw, -1)
@@ -96,26 +105,46 @@ class EncVideo(nn.Module):
             f = self.fc(f)
         cls = self.emb_cls.to(f.dtype).expand(B, T, 1, f.shape[-1])
         f = torch.cat([cls, f], dim=2)
-        f = f + self.emb_pos[:, :, :1 + hw] + self.emb_len[:, :T]
-        f = layer_norm(f, self.norm.weight, self.norm.bias, self.norm.eps)
-        m = torch.ones(B, T * (1 + hw), dtype=torch.long, device=img.device)
-        return f.reshape(B, T * (1 + hw), -1), m
+        f = f + self.emb_pos[:, :, :1 + hw]
+        emb_len = self.emb_len[:, :T]
+        if odr is not None:
+            match = (odr == torch.arange(T, device=odr.device)).to(
+                f.dtype)[:, :, None, None]
+            emb_len = match * emb_len + (1.0 - match) * self.emb_odr
+        f = layer_norm(f + emb_len, self.norm.weight, self.norm.bias,
+                       self.norm.eps)
+        m = torch.ones(B, T, 1 + hw, dtype=torch.long, device=img.device)
+        if vt_mask is not None:
+            m = m * vt_mask.long()
+        return f.reshape(B, T * (1 + hw), -1), m.reshape(B, T * (1 + hw))
 
 
 class EncTxt(nn.Module):
-    """Text encoder: BERT embeddings only (txt_backbone_embed_only)."""
+    """Text encoder: BERT embeddings, then with
+    ``txt_backbone_embed_only=False`` a BERT encoder ``txt_trsfr`` (the
+    fusion encoder's layers, its own weights) under the text mask, or
+    causally under "seq2seq" (reference model.py:96-142)."""
 
     def __init__(self, config):
         super().__init__()
-        if not config.txt_backbone_embed_only:
-            raise NotImplementedError(
-                "ModelConfig.txt_backbone_embed_only=False: the text "
-                "transformer is not ported")
         self.emb_txt = BertEmbeddings(config.bert)
+        self.txt_trsfr = (None if config.txt_backbone_embed_only
+                          else BertEncoder(config.bert))
 
     def forward(self, txt: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return self.emb_txt(txt, generator)
+                generator: Optional[torch.Generator] = None, *,
+                mask_txt: Optional[torch.Tensor] = None,
+                attn_mask_type: str = "full") -> torch.Tensor:
+        f = self.emb_txt(txt, generator)
+        if self.txt_trsfr is None:
+            return f
+        if attn_mask_type == "seq2seq":
+            B, Lt = txt.shape
+            m = torch.ones(Lt, Lt, dtype=torch.long,
+                           device=txt.device).tril().expand(B, Lt, Lt)
+        else:
+            m = torch.ones_like(txt) if mask_txt is None else mask_txt
+        return self.txt_trsfr(f, extended_attention_mask(m), generator)
 
 
 class LavenderModel(nn.Module):
@@ -139,11 +168,19 @@ class LavenderModel(nn.Module):
 
     def go_feat(self, img: torch.Tensor, txt: torch.Tensor,
                 mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, *,
+                odr: Optional[torch.Tensor] = None,
+                vt_mask: Optional[torch.Tensor] = None,
+                attn_mask_type: str = "full"):
         """Encode both modalities -> (feat_img [B, Lv, H], mask_img [B, Lv],
-        feat_txt [B, Lt, H], mask [B, Lt])."""
-        feat_img, mask_img = self.enc_img(img, generator)
-        return feat_img, mask_img, self.enc_txt(txt, generator), mask
+        feat_txt [B, Lt, H], mask [B, Lt]) (reference model.py:185-192);
+        ``odr`` and ``vt_mask`` go to ``EncVideo``, ``attn_mask_type`` to
+        the text transformer."""
+        feat_img, mask_img = self.enc_img(img, generator, odr=odr,
+                                          vt_mask=vt_mask)
+        feat_txt = self.enc_txt(txt, generator, mask_txt=mask,
+                                attn_mask_type=attn_mask_type)
+        return feat_img, mask_img, feat_txt, mask
 
     def go_cross(self, feat_img: torch.Tensor, mask_img: torch.Tensor,
                  feat_txt: torch.Tensor, mask_txt: torch.Tensor,
@@ -198,7 +235,8 @@ class LavenderModel(nn.Module):
                 ) -> torch.Tensor:
         """MLM logits on the text slice [B, Lt, vocab] under the "full" or
         "seq2seq" mask."""
-        feat_img, mask_img, feat_txt, mask_txt = self.go_feat(img, txt, mask)
+        feat_img, mask_img, feat_txt, mask_txt = self.go_feat(
+            img, txt, mask, attn_mask_type=attn_mask_type)
         out = self.go_cross(feat_img, mask_img, feat_txt, mask_txt,
                             attn_mask_type=attn_mask_type)
         return self.mlm_head(out[:, feat_img.shape[1]:])

@@ -55,12 +55,15 @@ _SIGNATURES = {
                                 _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                            *_DROP, _P],
-    "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _I, _I, _I,
-                                 _F, _P],
+    "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _P, _I, _I, _I,
+                                 _I, _F, *_DROP, _P],
     "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _P, _I, _I, _I,
                                   _I, _I, _F, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _F, *_DROP, _P],
+    "lvt_attention_heads_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _STRIDES, _I, _I, _I, _I, _I, _F,
+                                     *_DROP, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
     "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
@@ -157,12 +160,25 @@ def library() -> ctypes.CDLL:
 
 
 def _cast(v, dtype: torch.dtype):
-    """``v`` with its floating tensors (also inside tuples) cast to dtype."""
+    """``v`` with its floating tensors (also inside tuples and the values
+    of dicts, such as keyword arguments) cast to dtype."""
     if isinstance(v, torch.Tensor):
         return v.to(dtype) if v.is_floating_point() else v
     if isinstance(v, (tuple, list)):
         return type(v)(_cast(e, dtype) for e in v)
+    if isinstance(v, dict):
+        return {k: _cast(e, dtype) for k, e in v.items()}
     return v
+
+
+def autocast_inputs(*args):
+    """``args`` as a ``custom_fwd(cast_inputs=...)`` Function takes them:
+    under CUDA autocast their floating tensors (also inside tuples) in the
+    autocast dtype, else as they are.  For the raw launches outside
+    autograd (a model in ``eval()`` mode over f32 weights)."""
+    if not torch.is_autocast_enabled("cuda"):
+        return args
+    return _cast(args, torch.get_autocast_dtype("cuda"))
 
 
 class RecomputeVjp(torch.autograd.Function):
@@ -560,27 +576,89 @@ def _heads_operands(ts, names, what):
                          "(16/32/64)")
 
 
+def _heads_mask(mask: torch.Tensor, q: torch.Tensor, what: str):
+    """Check of a heads-layout mask: a contiguous f32 [B, L, L] on q's
+    device."""
+    B, _, L, _ = q.shape
+    if (mask.device != q.device or mask.dtype != torch.float32
+            or not mask.is_contiguous() or tuple(mask.shape) != (B, L, L)):
+        raise ValueError(f"{what} mask: expected a contiguous f32 "
+                         f"[{B}, {L}, {L}] on {q.device}, got {mask.dtype} "
+                         f"{tuple(mask.shape)} on {mask.device}")
+
+
+def _strides(*ts) -> ctypes.Array:
+    """The (sequence, head, row) element strides of heads-layout tensors,
+    in turn (host memory, the kernels' ``st``)."""
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *sum((t.stride()[:3] for t in ts), ()))
+
+
 def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: torch.Tensor, scale: float) -> torch.Tensor:
+                    mask: torch.Tensor, scale: float,
+                    lse: Optional[torch.Tensor] = None,
+                    seed: Optional[torch.Tensor] = None,
+                    rate: float = 0.0) -> torch.Tensor:
     """The attention core on heads-layout q, k, v [B, nH, L, hd] (bf16, any
     strides with the head dim contiguous, e.g. transposed views of
     [B, L, nH, hd]) under an additive per-sequence f32 mask [B, L, L]
-    (contiguous), read in place.  Returns a contiguous [B, nH, L, hd]."""
+    (contiguous), read in place.  ``lse`` (a contiguous f32 [B, nH, L]),
+    when given, receives each query row's log-sum-exp; at ``rate`` > 0 the
+    probabilities are dropped in the P.V sum by the counter hash of
+    ``seed`` at the logical (sequence, head, row, key) (the same bits as
+    ``attention`` on the packed slab).  Returns a contiguous
+    [B, nH, L, hd]."""
     _heads_operands((q, k, v), ("q", "k", "v"), "attention_heads")
     B, nH, L, hd = q.shape
-    if (mask.device != q.device or mask.dtype != torch.float32
-            or not mask.is_contiguous() or tuple(mask.shape) != (B, L, L)):
-        raise ValueError(f"attention_heads mask: expected a contiguous f32 "
-                         f"[{B}, {L}, {L}] on {q.device}, got {mask.dtype} "
-                         f"{tuple(mask.shape)} on {mask.device}")
+    _heads_mask(mask, q, "attention_heads")
+    if lse is not None:
+        _check_lse(lse, q, B, nH, L, "attention_heads")
+    seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, q.device)
     out = torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *sum((t.stride()[:3] for t in (q, k, v, out)), ()))
     err = library().lvt_attention_heads_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        mask.data_ptr(), B, L, nH, hd, float(scale), _stream(q))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _strides(q, k, v, out), mask.data_ptr(), _ptr(lse), B, L, nH, hd,
+        float(scale), seed_ptr, thresh, drop_scale, _stream(q))
     _raise_on(err, "lvt_attention_heads_bf16")
     return out
+
+
+def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        dout: torch.Tensor, lse: torch.Tensor,
+                        mask: torch.Tensor, scale: float,
+                        seed: Optional[torch.Tensor] = None,
+                        rate: float = 0.0, dmask: bool = False):
+    """Backward of ``attention_heads`` with dropout: q, k, v and the
+    cotangent ``dout`` [B, nH, L, hd] (bf16, strides as there), the
+    forward's lse [B, nH, L] and mask [B, L, L] (f32, the same buffer).
+    Returns (dq, dk, dv) contiguous [B, nH, L, hd] bf16 and, with
+    ``dmask``, the f32 [B, L, L] sum over heads of the scores' gradient
+    (the same on every run: per-chunk partial sums, then one pass adding
+    them), else None."""
+    _heads_operands((q, k, v, dout), ("q", "k", "v", "dout"),
+                    "attention_heads_bwd")
+    B, nH, L, hd = q.shape
+    _heads_mask(mask, q, "attention_heads_bwd")
+    _check_lse(lse, q, B, nH, L, "attention_heads_bwd")
+    seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, q.device)
+    dq, dk, dv = (torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
+                  for _ in range(3))
+    n_chunks, part, dm = nH, None, None
+    if dmask:
+        # one block per (sequence, chunk of heads): enough chunks for two
+        # blocks per SM, each summing its heads into its own f32 slice
+        n_chunks = max(1, min(nH, -(-264 // B)))
+        part = torch.empty(n_chunks, B, L, L, dtype=torch.float32,
+                           device=q.device)
+        dm = torch.empty(B, L, L, dtype=torch.float32, device=q.device)
+    err = library().lvt_attention_heads_bwd_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), _ptr(dm), _ptr(part),
+        _strides(q, k, v, dout, dq, dk, dv), B, L, nH, hd, n_chunks,
+        float(scale), seed_ptr, thresh, drop_scale, _stream(q))
+    _raise_on(err, "lvt_attention_heads_bwd_bf16")
+    return dq, dk, dv, dm
 
 
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -610,10 +688,9 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{q.device}, got {mask.dtype} "
                              f"{tuple(mask.shape)}")
     out = torch.empty(W, nH, N, hd, dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *sum((t.stride()[:3] for t in (q, k, v, out)), ()))
     err = library().lvt_window_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        _strides(q, k, v, out),
         _ptr(bias), _ptr(mask), W, N, nH, hd, n_win, float(scale),
         _stream(q))
     _raise_on(err, "lvt_window_attention_bf16")

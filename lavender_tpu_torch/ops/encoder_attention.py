@@ -1,6 +1,6 @@
 """BERT attention (port of lavender_tpu/ops/encoder_attention.py): the
 serving sub-blocks K4 and K6, the heads-layout core K7 and the train
-attention K10a / K10b.
+attention in lanes layout K10a / K10b and in heads layout K13a / K13b.
 
 ``fused_bert_attn_block_kmask`` replaces the TPU kernel
 ``_attn_block_kernel_kmask`` (lavender_tpu/ops/encoder_attention.py:322,
@@ -54,6 +54,25 @@ row's log-sum-exp of the undropped scores; the backward takes it and the
 seed, so nothing [L, L]-shaped is stored between the two.  Bound: device
 memory (q, k, v, o and the [B, L, L] mask, each once) at the f32 pipes'
 speed of this first version, which runs far from it.
+
+``fused_encoder_attention_train`` replaces the TPU kernel
+``_enc_attn_train_kernel`` (K13a, lavender_tpu/ops/encoder_attention.py:526,
+wrapper ``fused_encoder_attention_train`` :670) and
+``encoder_attention_train_bwd`` its backward ``_enc_attn_train_bwd_kernel``
+(K13b, :555, ``_train_bwd`` :696): the same train attention and vjp on q,
+k, v in heads layout [B, nH, L, hd], which the fusion encoder runs under
+``LVT_ATTNLANES=0``.  On the card: the heads-layout instantiations of the
+attention core and its backward, each operand read by its own (sequence,
+head, row) strides (strided views of one qkv product in place), under the
+f32 [B, L, L] mask that forward and backward both read (never a bf16
+copy: its -1e4 would round), with the bits of K10's hash at the logical
+(sequence, head, row, key), so K13 on heads views and K10 on the [B, L, C]
+tensors they view drop the same probabilities.  K13b also forms, where the
+mask requires grad, the TPU kernel's dmask = the sum over heads of the
+scores' gradient, zeroed where the mask is <= -1e4 (its wrapper's rule,
+:715); the model's mask never does, so its step pays nothing for it.
+Bound: device memory (q, k, v, o and the mask, each once; the backward
+also g, dq, dk, dv).
 """
 from __future__ import annotations
 
@@ -287,3 +306,113 @@ def _lanes_cuda(q, k, v, mask, seed, scale, rate, nH):
 
 fused_encoder_attention_train_lanes = _build.KernelOp(
     "K10a fused_encoder_attention_train_lanes", _lanes_plain, _lanes_cuda)
+
+
+def _heads_train_plain(q, k, v, mask, seed, scale, rate):
+    """Plain PyTorch version of ``fused_encoder_attention_train``.
+
+    q, k, v [B, nH, L, hd]; mask [B, L, L] additive, taken as max(mask,
+    -1e4) with its gradient only above -1e4 (the JAX kernel's clamp and
+    its wrapper's dmask rule); seed int64 [1]; rate the dropout of the
+    probabilities (``dropout.attention_keep``: stream b * nH + h, index
+    row * L + key), kept ones scaled by 1 / (1 - rate).  Scores, softmax
+    and products in f32; returns [B, nH, L, hd] in q's dtype."""
+    B, nH, L, _ = q.shape
+    s = (q.float() @ k.float().transpose(-1, -2)) * scale
+    m = mask.float()
+    p = torch.softmax(s + torch.where(m > -1e4, m, -1e4)[:, None], dim=-1)
+    if rate > 0.0:
+        keep = dropout.attention_keep(seed, B, nH, L, rate)
+        p = p * keep.float() * (1.0 / (1.0 - rate))
+    return (p @ v.float()).to(q.dtype)
+
+
+def _heads_train_bwd_plain(q, k, v, mask, seed, g, scale, rate, lse=None,
+                           dmask=False):
+    """Plain PyTorch version of ``encoder_attention_train_bwd``: autograd of
+    ``_heads_train_plain`` (``lse``, the kernel forward's row log-sum-exp,
+    is not needed here).  Returns (dq, dk, dv, dmask [B, L, L] f32 or
+    None)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        m = mask.detach().float().requires_grad_(dmask)
+        o = _heads_train_plain(*ins, m, seed, scale, rate)
+        got = torch.autograd.grad(o, ins + ([m] if dmask else []),
+                                  g.to(o.dtype))
+    return (*got[:3], got[3] if dmask else None)
+
+
+def _check_heads(q, k, v, mask, what):
+    if k.shape != q.shape or v.shape != q.shape or q.dim() != 4:
+        raise ValueError(f"{what}: q, k, v must be one [B, nH, L, hd] shape")
+    B, _, L, _ = q.shape
+    if tuple(mask.shape) != (B, L, L):
+        raise ValueError(f"{what}: mask must be [{B}, {L}, {L}], got "
+                         f"{tuple(mask.shape)}")
+
+
+def _clamped_mask(mask):
+    """The f32 [B, L, L] mask the K13 kernels read, clamped at -1e4."""
+    return mask.float().clamp_min(-1e4).contiguous()
+
+
+def _heads_train_bwd_cuda(q, k, v, mask, seed, g, scale, rate, lse=None,
+                          dmask=False):
+    _check_heads(q, k, v, mask, "encoder_attention_train_bwd")
+    if lse is None:
+        raise ValueError("encoder_attention_train_bwd: the forward's lse is "
+                         "required on the card")
+    m = _clamped_mask(mask)
+    bf = torch.bfloat16
+    dq, dk, dv, dm = _build.attention_heads_bwd(
+        q.to(bf), k.to(bf), v.to(bf), g.to(bf), lse, m, scale, seed=seed,
+        rate=rate, dmask=dmask)
+    if dm is not None:
+        dm.masked_fill_(m <= -1e4, 0.0)
+    return dq, dk, dv, dm
+
+
+encoder_attention_train_bwd = _build.KernelOp(
+    "K13b encoder_attention_train_bwd", _heads_train_bwd_plain,
+    _heads_train_bwd_cuda)
+
+
+class _HeadsTrainFn(torch.autograd.Function):
+    """K13a with K13b as its backward.  Casts q, k and v to bf16 itself
+    and keeps the mask f32 (``custom_fwd(cast_inputs=bfloat16)`` would
+    round -1e4 and take finfo(f32).min to -inf); saves q, k, v (views, in
+    place), the clamped f32 mask, the rows' log-sum-exp and the seed
+    tensor, never an [L, L] dropout mask."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, q, k, v, mask, seed, scale, rate):
+        _check_heads(q, k, v, mask, "fused_encoder_attention_train")
+        B, nH, L, _ = q.shape
+        bf = torch.bfloat16
+        q, k, v, m = q.to(bf), k.to(bf), v.to(bf), _clamped_mask(mask)
+        lse = torch.empty(B, nH, L, dtype=torch.float32, device=q.device)
+        out = _build.attention_heads(q, k, v, m, scale, lse=lse, seed=seed,
+                                     rate=rate)
+        ctx.save_for_backward(q, k, v, m, lse, seed)
+        ctx.args = (scale, rate)
+        return out
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g):
+        q, k, v, m, lse, seed = ctx.saved_tensors
+        scale, rate = ctx.args
+        dq, dk, dv, dm = encoder_attention_train_bwd(
+            q, k, v, m, seed, g, scale, rate, lse=lse,
+            dmask=ctx.needs_input_grad[3])
+        return dq, dk, dv, dm, None, None, None
+
+
+def _heads_train_cuda(q, k, v, mask, seed, scale, rate):
+    return _HeadsTrainFn.apply(q, k, v, mask, seed, scale, rate)
+
+
+fused_encoder_attention_train = _build.KernelOp(
+    "K13a fused_encoder_attention_train", _heads_train_plain,
+    _heads_train_cuda)

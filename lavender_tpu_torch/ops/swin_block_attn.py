@@ -285,8 +285,9 @@ def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
         ln_w, ln_b, wqkv, bqkv, mlp = _fold_in(ln_w, ln_b, wqkv, bqkv, mlp,
                                                folded)
     if not grad:
-        return _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
-                           mask, nH, scale, eps, mlp)
+        *tensors, mlp = _build.autocast_inputs(
+            x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, mlp)
+        return _block_cuda(*tensors, nH, scale, eps, mlp)
     if mlp is not None:
         return _build.RecomputeVjp.apply(
             _block_full_cuda, _block_full_plain, x, ln_w, ln_b, wqkv, bqkv,
@@ -419,7 +420,7 @@ class _BlockShiftFn(torch.autograd.Function):
 def _shifted_launch(x, *args):
     """The kernel; ``_BlockShiftFn`` when autograd records the call."""
     if not _build.needs_grad(x, *args):
-        return _shifted_cuda(x, *args)
+        return _shifted_cuda(*_build.autocast_inputs(x, *args))
     return _BlockShiftFn.apply(x, *args)
 
 

@@ -1,8 +1,10 @@
 """Shared task utilities (port of lavender_tpu/tasks/common.py): the
-cross-entropy with an ignore index, the captioning loss (label-smoothed
-KL), the pretext (task token or prompt) and the shared MLM forward."""
+cross-entropy with an ignore index, the bidirectional InfoNCE of the
+task-specific retrieval head, the captioning loss (label-smoothed KL), the
+pretext (task token or prompt) and the shared MLM forward."""
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional, Tuple
 
 import torch
@@ -19,6 +21,16 @@ def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
     nll = F.cross_entropy(flat, torch.where(valid, labels, 0),
                           reduction="none")
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
+
+
+def norm_softmax_loss(sim: torch.Tensor,
+                      temperature: float = 0.05) -> torch.Tensor:
+    """Bidirectional InfoNCE over a square similarity matrix, in f32
+    (reference agent.py:46-65): minus the mean log-softmax of the diagonal
+    over rows and over columns."""
+    sim = sim.float() / temperature
+    return -(F.log_softmax(sim, dim=1).diagonal().mean()
+             + F.log_softmax(sim, dim=0).diagonal().mean())
 
 
 def prepend_pretxt(feat_txt: torch.Tensor, mask_txt: torch.Tensor,
@@ -115,7 +127,8 @@ def fused_mlm_logits(model, img: torch.Tensor, txt: torch.Tensor,
     stream and its mask joins the video's, so that under "seq2seq" it is
     part of the fully visible prefix.  Returns (logits [B, Lp + Lt, V],
     Lp)."""
-    fi, mi, ft, mt = model.go_feat(img, txt, mask, generator)
+    fi, mi, ft, mt = model.go_feat(img, txt, mask, generator,
+                                   attn_mask_type=attn_mask_type)
     lp = 0
     if feat_pre is not None:
         lp = feat_pre.shape[1]
@@ -125,3 +138,30 @@ def fused_mlm_logits(model, img: torch.Tensor, txt: torch.Tensor,
                          mask_pretxt=mask_pre if feat_pre is not None
                          else None)
     return model.mlm_head(out[:, fi.shape[1]:]), lp
+
+
+@contextlib.contextmanager
+def evaluating(model: torch.nn.Module):
+    """The eval steps' context: ``model`` in ``eval()`` mode (the serving
+    route, no dropout: JAX ``deterministic=True``) under ``no_grad`` and,
+    on a CUDA device, bf16 autocast (the train step's precision over its
+    f32 weights); its mode restored after."""
+    dev = next(model.parameters()).device.type
+    was = model.training
+    model.eval()
+    try:
+        with torch.no_grad(), torch.autocast(dev, dtype=torch.bfloat16,
+                                             enabled=dev == "cuda"):
+            yield
+    finally:
+        model.train(was)
+
+
+def true_score(logits: torch.Tensor, true_id: int,
+               false_id: int) -> torch.Tensor:
+    """The VTM score of MLM logits [..., V] at the [MASK]: the "true" logit
+    over the sum of the "true" and "false" logits (the reference's, on
+    logits, not probabilities), in f32."""
+    logits = logits.float()
+    p_true, p_false = logits[..., true_id], logits[..., false_id]
+    return p_true / (p_true + p_false)

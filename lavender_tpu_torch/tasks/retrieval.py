@@ -1,6 +1,6 @@
 """Text-to-video retrieval as video-text-matching MLM (port of
-lavender_tpu/tasks/retrieval.py): the B x B (clip, text) pair product and
-its training loss.
+lavender_tpu/tasks/retrieval.py): the B x B (clip, text) pair product, its
+training loss, the in-batch eval step and the full-corpus recall metrics.
 
 ``go_feat`` runs once per batch; the clip features are repeated and the
 text features tiled to form every (clip_i, text_j) pair, which go through
@@ -9,12 +9,30 @@ the fusion encoder in one batch; the MLM head scores the appended [MASK]
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.tasks import common
+
+
+def grouped_pairs(x: torch.Tensor, group: int,
+                  repeat_clip: bool) -> torch.Tensor:
+    """x [B, ...] -> [B * b, ...] (b = B / group): every (i, j) pair within
+    each of ``group`` batch groups at row (g*b + i)*b + j, taking x[g*b + i]
+    (``repeat_clip``, the clip side) or x[g*b + j] (the text side)."""
+    B = x.shape[0]
+    if B % group:
+        raise ValueError(f"batch {B} is not a multiple of group {group}")
+    b = B // group
+    g = x.reshape((group, b) + x.shape[1:])
+    if repeat_clip:
+        g = g.repeat_interleave(b, dim=1)
+    else:
+        g = g.repeat((1, b) + (1,) * (x.dim() - 1))
+    return g.reshape((B * b,) + x.shape[1:])
 
 
 def pairwise_mlm_logits(model: LavenderModel, img: torch.Tensor,
@@ -28,30 +46,46 @@ def pairwise_mlm_logits(model: LavenderModel, img: torch.Tensor,
     pretext length).  Pair (g, i, j) is row (g*b + i)*b + j.  The head runs
     on the last position only, the appended [MASK] that the retrieval loss
     reads (the JAX ``last_only=True``)."""
-    B = img.shape[0]
-    if B % group:
-        raise ValueError(f"batch {B} is not a multiple of group {group}")
-    b = B // group
     fi, mi, ft, mt = model.go_feat(img, txt, mask, generator)
     ft, mt, lp = common.prepend_pretxt(ft, mt, feat_pre, mask_pre)
-
-    def pairs(x: torch.Tensor, repeat_clip: bool) -> torch.Tensor:
-        g = x.reshape((group, b) + x.shape[1:])
-        if repeat_clip:
-            g = g.repeat_interleave(b, dim=1)
-        else:
-            g = g.repeat((1, b) + (1,) * (x.dim() - 1))
-        return g.reshape((B * b,) + x.shape[1:])
-
-    out = model.go_cross(pairs(fi, True), pairs(mi, True), pairs(ft, False),
-                         pairs(mt, False), generator)
+    out = model.go_cross(grouped_pairs(fi, group, True),
+                         grouped_pairs(mi, group, True),
+                         grouped_pairs(ft, group, False),
+                         grouped_pairs(mt, group, False), generator)
     return model.mlm_head(out[:, -1:]), lp
 
 
-def make_loss_fn(true_id: int, false_id: int, group: int = 1) -> Callable:
+def make_eval_step(true_id: int, false_id: int,
+                   pretext: Optional[Callable] = None) -> Callable:
+    """In-batch retrieval eval (Agent_Retrieval_MLM.step eval branch,
+    main_retrieval_mlm.py:108-118): every (clip_i, text_j) pair scored at
+    the appended [MASK] by ``common.true_score``, texts ranked per clip.
+
+    Returns ``step(model, img, txt, mask, vid) -> (score [B, B], hit [B])``
+    with hit 1.0 where the best text of clip i is the first of its video;
+    the model runs in ``eval()`` mode (restored after) without autograd."""
+
+    def step(model: LavenderModel, img, txt, mask, vid):
+        B = img.shape[0]
+        with common.evaluating(model):
+            fp, mp = common.apply_pretext(pretext, model, B)
+            logits, _ = pairwise_mlm_logits(model, img, txt, mask, fp, mp)
+        score = common.true_score(logits[:, -1], true_id,
+                                  false_id).reshape(B, B)
+        gt = (vid[:, None] == vid[None, :]).int().argmax(-1)
+        return score, (score.argmax(-1) == gt).float()
+
+    return step
+
+
+def make_loss_fn(true_id: int, false_id: int,
+                 pretext: Optional[Callable] = None,
+                 group: int = 1) -> Callable:
     """Training loss (Agent_Retrieval_MLM.step train branch): the
     cross-entropy at the appended [MASK] against "true" for the pairs of
     the same video (``batch["vid"]``) and "false" for the others.
+    ``pretext`` (a ``common.make_pretext_fn`` result) leads every text;
+    ``group`` independent in-batch pools (per data shard).
 
     Returns ``loss_fn(model, batch, generator) -> scalar``; batch holds
     img uint8 [B, T, H, W, 3], txt and mask [B, Lt], vid [B]."""
@@ -60,8 +94,10 @@ def make_loss_fn(true_id: int, false_id: int, group: int = 1) -> Callable:
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         img, txt, mask, vid = (batch["img"], batch["txt"], batch["mask"],
                                batch["vid"])
-        b = img.shape[0] // group
-        logits, _ = pairwise_mlm_logits(model, img, txt, mask,
+        B = img.shape[0]
+        b = B // group
+        fp, mp = common.apply_pretext(pretext, model, B, generator)
+        logits, _ = pairwise_mlm_logits(model, img, txt, mask, fp, mp,
                                         generator=generator, group=group)
         gv = vid.reshape(group, b)
         same = gv[:, :, None] == gv[:, None, :]
@@ -69,3 +105,17 @@ def make_loss_fn(true_id: int, false_id: int, group: int = 1) -> Callable:
         return common.cross_entropy_ignore(logits[:, -1, :], labels)
 
     return loss_fn
+
+
+def recall_at_k(score: np.ndarray, gt: np.ndarray,
+                ks: Sequence[int] = (1, 5, 10)) -> Dict[str, float]:
+    """Full-corpus retrieval metrics (eval_retrieval_mlm.py:220-241): score
+    [n_txt, n_vid], gt [n_txt] the index of each text's video ->
+    {"R@k": percent of texts whose video ranks below k, "MedR": median
+    rank, from 1}."""
+    order = np.argsort(-score, axis=1)
+    rank = np.array([int(np.where(order[i] == gt[i])[0][0])
+                     for i in range(len(gt))], dtype=np.int64)
+    out = {f"R@{k}": float(np.mean(rank < k) * 100) for k in ks}
+    out["MedR"] = float(np.median(rank + 1))
+    return out

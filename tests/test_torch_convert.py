@@ -25,8 +25,9 @@ from lavender_tpu_torch.models.bert import BertEncoder
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.ops import _build
 from lavender_tpu_torch.ops.encoder_attention import (
-    encoder_attention_train_lanes_bwd, fused_bert_attn_block,
-    fused_bert_attn_block_kmask, fused_encoder_attention,
+    encoder_attention_train_bwd, encoder_attention_train_lanes_bwd,
+    fused_bert_attn_block, fused_bert_attn_block_kmask,
+    fused_encoder_attention, fused_encoder_attention_train,
     fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
@@ -149,6 +150,40 @@ def test_from_flax_consumes_every_leaf_and_loads_strict(tiny_params):
         tiny_params["fc_mtm"]["decoder"]["kernel"].T)
 
 
+def test_from_flax_carries_the_task_trees():
+    """The task-specific heads (``fc``, ``fc_<task>`` with '-' as '_') and
+    the text transformer ``enc_txt.txt_trsfr`` of the JAX multi-head model
+    map leaf for leaf and load strictly into the port's; q, k and v stay
+    three Linears (the heads route takes one product of them)."""
+    from lavender_tpu.tasks import task_specific as jts
+    from lavender_tpu_torch.tasks.task_specific import LavenderMultiHead
+
+    cfg = dataclasses.replace(TINY, txt_backbone_embed_only=False)
+    heads = (("qamc", 3), ("tgif-action", 5))
+    model = jts.LavenderMultiHead(cfg, head_out=2, heads=heads)
+    img = jnp.zeros((1, 2, 64, 64, 3), jnp.uint8)
+    txt = jnp.ones((1, 6), jnp.int32)
+    shapes = jax.eval_shape(lambda r: model.init(
+        r, img, txt, txt, method=jts.LavenderMultiHead.init_forward),
+        jax.random.PRNGKey(0))["params"]
+    params = jax.tree_util.tree_map(
+        lambda s: np.random.RandomState(s.size % 97).randn(*s.shape).astype(
+            np.float32), shapes)
+    sd = from_flax(params)
+    leaves = jax.tree_util.tree_leaves(params)
+    assert sum(t.numel() for t in sd.values()) == sum(l.size for l in leaves)
+    LavenderMultiHead(port_config(cfg), heads=heads, head_out=2
+                      ).load_state_dict(sd, strict=True)
+    np.testing.assert_array_equal(sd["fc_tgif_action.fc2.weight"],
+                                  params["fc_tgif_action"]["fc2"]["kernel"].T)
+    np.testing.assert_array_equal(sd["fc.fc1.bias"],
+                                  params["fc"]["fc1"]["bias"])
+    layer = params["enc_txt"]["txt_trsfr"]["layer_0"]["attention"]["self"]
+    np.testing.assert_array_equal(
+        sd["enc_txt.txt_trsfr.layer.0.attention.self.value.weight"],
+        layer["value"]["kernel"].T)
+
+
 def test_from_flax_rejects_colliding_leaves():
     x = np.zeros((2, 3), np.float32)
     with pytest.raises(ValueError, match="two JAX leaves"):
@@ -167,7 +202,9 @@ def test_port_imports_no_jax():
         "import chip_smoke\n"
         "for m in ('models.captioning', 'tasks.common', 'tasks.retrieval',\n"
         "          'ops.encoder_attention', 'ops.window_attention', 'serve',\n"
-        "          'train.trainer'):\n"
+        "          'train.trainer', 'models.heads', 'tasks.qamc',\n"
+        "          'tasks.qaoe', 'tasks.retmc', 'tasks.pretrain',\n"
+        "          'tasks.task_specific', 'tasks.multi_task'):\n"
         "    assert 'lavender_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'lavender_tpu'))\n"
@@ -245,6 +282,13 @@ def _meta_args(op):
         lse = torch.zeros(2, nH, 8, device="meta")
         return (t(2, 8, C), t(2, 8, C), t(2, 8, C), t(2, 8, 8), seed,
                 t(2, 8, C), 0.25, 0.1, nH), {"lse": lse}
+    q = t(2, nH, 8, C // nH)
+    if op is fused_encoder_attention_train:
+        return (q, q, q, t(2, 8, 8).float(), seed, 0.25, 0.1), {}
+    if op is encoder_attention_train_bwd:
+        lse = torch.zeros(2, nH, 8, device="meta")
+        return (q, q, q, t(2, 8, 8).float(), seed, q, 0.25, 0.1), {
+            "lse": lse, "dmask": True}
     if op is fused_out_ln_train:
         return (x, x, t(C, C), t(C), *ln, seed, 1e-12, 0.1), {}
     if op is fused_ffn_post_ln_train:
@@ -258,7 +302,8 @@ def _meta_args(op):
     fused_ln_mlp, fused_encoder_attention_train_lanes,
     encoder_attention_train_lanes_bwd, fused_out_ln_train,
     fused_ffn_post_ln_train, fused_bert_attn_block, fused_encoder_attention,
-    fused_swin_block_attn, fused_swin_block_full, fused_window_attention],
+    fused_swin_block_attn, fused_swin_block_full, fused_window_attention,
+    fused_encoder_attention_train, encoder_attention_train_bwd],
     ids=lambda op: op.name.split()[0] + (
         "-full" if op is fused_swin_block_full else ""))
 def test_every_kernel_wrapper_launches_or_raises_off_the_cpu(op):
@@ -345,6 +390,25 @@ def test_plain_path_sends_the_models_to_the_plain_versions():
                 == fused_ffn_post_ln.plain_as_launched)
         assert enc(x, bias).shape == x.shape
     assert _build.select(fused_ffn_post_ln) is fused_ffn_post_ln
+
+
+def test_plain_as_launched_casts_keyword_arguments(monkeypatch):
+    """Under CUDA autocast the plain reference takes its inputs cast as the
+    kernel's autograd Function takes them, keyword arguments included
+    (K1's ``mlp=``, a tuple of weights): ``_build.autocast_inputs`` and
+    ``plain_as_launched`` walk tuples and dicts alike."""
+    monkeypatch.setattr(torch, "is_autocast_enabled",
+                        lambda device=None: device == "cuda")
+    monkeypatch.setattr(torch, "get_autocast_dtype",
+                        lambda device=None: torch.bfloat16)
+    seen = []
+    op = _build.KernelOp("K0 probe", lambda x, mlp=None: seen.append(
+        (x.dtype, [t.dtype for t in mlp])), lambda *a, **k: None)
+    t, i = torch.zeros(2), torch.zeros(2, dtype=torch.long)
+    op.plain_as_launched(t, mlp=(t, i))
+    assert seen == [(torch.bfloat16, [torch.bfloat16, torch.long])]
+    x, mlp = _build.autocast_inputs(t, (t, None))
+    assert x.dtype == mlp[0].dtype == torch.bfloat16 and mlp[1] is None
 
 
 def test_kernel_path_without_nvcc_raises(monkeypatch, tmp_path):

@@ -20,7 +20,14 @@ and K1's folded mode, the LN gather's and the GEMM scatter's negative
 (pad) rows, the uint8 patch embed K17 (ragged w2, two column tiles,
 E = 192) and its eval-mode gradient, and the shifted wm block K16 (Npad >
 N, Npad == N, the Swin-B stage-3 window) with its pad rows exactly zero
-and its gradients through K2 and K8.
+and its gradients through K2 and K8; the heads-layout train attention K13a /
+K13b (strided heads views of one qkv slab and contiguous tensors, L = 29
+and 276, dropout on and off, the mask's gradient dmask where the mask
+requires it), the keep masks K13a and K10a draw, read back from the
+kernels and equal to ``dropout.attention_keep`` bit for bit, and the raise
+on what the K13 kernels do not take or cannot launch; K1 launched
+outside autograd under bf16 autocast on f32 inputs (a model in ``eval()``
+mode over f32 weights), cast as its autograd Function casts.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -40,8 +47,9 @@ import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, dropout, layer_norm
 from lavender_tpu_torch.ops.encoder_attention import (
-    encoder_attention_train_lanes_bwd, fused_bert_attn_block,
-    fused_bert_attn_block_kmask, fused_encoder_attention,
+    encoder_attention_train_bwd, encoder_attention_train_lanes_bwd,
+    fused_bert_attn_block, fused_bert_attn_block_kmask,
+    fused_encoder_attention, fused_encoder_attention_train,
     fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_ln_mlp,
@@ -718,6 +726,30 @@ def test_block_folded_mode_matches_plain(gen):
                             folded=folded)
 
 
+def test_block_outside_autograd_takes_f32_inputs_under_autocast(gen):
+    """K1 (whole block and attention half) launched outside autograd under
+    bf16 autocast on f32 inputs, as a model in ``eval()`` mode over f32
+    weights calls it: cast as its autograd Function casts, equal to the
+    plain version on the cast inputs."""
+    B, nW, N, Npad, C, nH = 2, 4, 49, 56, 64, 2
+    f = lambda *shape, std=1.0: torch.randn(
+        *shape, generator=gen, device="cuda") * std
+    x = f(B, nW, Npad, C)
+    ln = [1 + f(C, std=0.1), f(C, std=0.1)]
+    lin = [f(3 * C, C, std=C ** -0.5), f(3 * C), f(C, C, std=C ** -0.5),
+           f(C)]
+    mlp = (1 + f(C, std=0.1), f(C, std=0.1), f(4 * C, C, std=C ** -0.5),
+           f(4 * C), f(C, 4 * C, std=(4 * C) ** -0.5), f(C))
+    bias = f(nH, Npad, Npad)
+    args = (x, *ln, *lin, bias, None, nH, (C // nH) ** -0.5, 1e-5)
+    for kw in ({"mlp": mlp}, {}):
+        with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+            got = fused_swin_block_wm(*args, **kw)
+            want = fused_swin_block_wm.plain_as_launched(*args, **kw)
+        assert got.dtype == torch.bfloat16
+        _close(got[:, :, :N], want[:, :, :N], rel_l2=1e-2)
+
+
 @pytest.mark.parametrize("B,D,H,W,E", [(1, 2, 32, 32, 16),
                                        (2, 5, 64, 96, 96),
                                        (1, 3, 16, 288, 128),
@@ -790,3 +822,119 @@ def test_wm_shifted_block_and_gradients_match_plain(gen, window, spatial, C,
     _close((outs[0] - x)[v].float(), (outs[1] - x)[v].float(), rel_l2=5e-2)
     for gk, gp in zip(*grads):
         _close(gk, gp, rel_l2=5e-2)
+
+
+def _heads_train_inputs(gen, B, L, nH, hd, layout):
+    """q, k, v [B, nH, L, hd] in f32: heads views of one [B, L, 3C] slab
+    (the model's) or three contiguous tensors."""
+    if layout == "slab":
+        slab = torch.randn(B, L, 3 * nH * hd, generator=gen, device="cuda")
+        return list(slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4))
+    return [torch.randn(B, nH, L, hd, generator=gen, device="cuda")
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("L", [29, 276])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["slab", "contiguous"])
+def test_heads_train_attention_matches_plain(gen, L, rate, layout):
+    """K13a + K13b through the autograd Function under bf16 autocast (f32
+    leaves, as in training) vs autograd of the plain version with the same
+    seed: a padded key tail at finfo(f32).min, one fully masked row, and a
+    mask that requires grad (dmask: the sum over heads, zero where the mask
+    is <= -1e4)."""
+    B, nH, hd = 3, 4, 64
+    q, k, v = _heads_train_inputs(gen, B, L, nH, hd, layout)
+    mask = torch.randn(B, L, L, generator=gen, device="cuda")
+    mask[1, :, L - 7:] = torch.finfo(torch.float32).min
+    mask[2, 5, :] = torch.finfo(torch.float32).min  # every key masked
+    seed = torch.tensor([4321], device="cuda")
+    w = torch.randn(B, nH, L, hd, generator=gen, device="cuda")
+    outs, grads = [], []
+    before = (fused_encoder_attention_train.launches,
+              encoder_attention_train_bwd.launches)
+    for f in (fused_encoder_attention_train,
+              fused_encoder_attention_train.plain_as_launched):
+        ins = [t.detach().clone().requires_grad_(True) for t in (q, k, v,
+                                                                mask)]
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            o = f(*ins, seed, hd ** -0.5, rate)
+        outs.append(o)
+        grads.append(torch.autograd.grad(o, ins, w))
+    assert (fused_encoder_attention_train.launches,
+            encoder_attention_train_bwd.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert outs[0].dtype == torch.bfloat16
+    _close(outs[0], outs[1], rel_l2=1e-2)
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+    dmask = grads[0][3]
+    assert not dmask[mask <= -1e4].any()
+
+
+def _probe_keep(run, B, nH, L, hd):
+    """The keep mask [B, nH, L, L] a train attention kernel drew, read back
+    exactly: with q = k = 0 every probability is 1 / L, and v one-hot in
+    key j = offset + d puts probability (i, j), 0 where dropped, at output
+    column d.  ``run(q, k, v)`` takes [B, nH, L, hd] bf16 heads views and
+    returns [B, nH, L, hd]."""
+    keep = torch.zeros(B, nH, L, L, dtype=torch.bool, device="cuda")
+    slab = torch.zeros(B, L, 3, nH, hd, dtype=torch.bfloat16, device="cuda")
+    q, k, v = slab.permute(2, 0, 3, 1, 4)
+    for off in range(0, L, hd):
+        n = min(hd, L - off)
+        v.zero_()
+        v[:, :, off:off + n].copy_(torch.eye(n, hd, device="cuda"))
+        keep[..., off:off + n] = run(q, k, v)[..., :n] > 0
+    return keep
+
+
+def test_heads_and_lanes_kernels_draw_the_same_mask(gen):
+    """At the logical (sequence, head, row, key): the keep masks of K13a on
+    heads views and of K10a on the [B, L, C] slab they view, read back from
+    the kernels, equal ``dropout.attention_keep`` bit for bit; on random
+    inputs the two kernels agree to bf16 rounding."""
+    B, nH, L, hd, rate = 3, 4, 276, 64, 0.1
+    seed = torch.tensor([77], device="cuda")
+    mask = torch.zeros(B, L, L, device="cuda")
+
+    def heads(q, k, v):
+        return fused_encoder_attention_train(q, k, v, mask, seed, 1.0, rate)
+
+    def lanes(q, k, v):
+        t = [x.transpose(1, 2).reshape(B, L, nH * hd) for x in (q, k, v)]
+        o = fused_encoder_attention_train_lanes(*t, mask.bfloat16(), seed,
+                                                1.0, rate, nH)
+        return o.view(B, L, nH, hd).transpose(1, 2)
+
+    want = dropout.attention_keep(seed, B, nH, L, rate)
+    for run in (heads, lanes):
+        assert torch.equal(_probe_keep(run, B, nH, L, hd), want)
+    slab = _rnd(gen, B, L, 3 * nH * hd)
+    q, k, v = slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    _close(heads(q, k, v), lanes(q, k, v), rel_l2=1e-2)
+
+
+def test_heads_train_wrappers_raise(gen):
+    """What the K13 kernels do not take raises before a launch; a launch
+    the card refuses (L = 1000: K and V of a (sequence, head) do not fit
+    in shared memory) raises after it; nothing falls back."""
+    B, nH, L, hd = 2, 2, 16, 64
+    q, seed = _rnd(gen, B, nH, L, hd), torch.tensor([1], device="cuda")
+    mask = torch.zeros(B, L, L, device="cuda")
+    with pytest.raises(ValueError):  # a mask of the wrong shape
+        fused_encoder_attention_train(q, q, q, mask[:, :, :5], seed, 0.25,
+                                      0.1)
+    with pytest.raises(ValueError):  # head dim 48
+        q48 = _rnd(gen, B, nH, L, 48)
+        fused_encoder_attention_train(q48, q48, q48, mask, seed, 0.25, 0.1)
+    with pytest.raises(ValueError):  # a seed that is not int64 [1]
+        fused_encoder_attention_train(q, q, q, mask, seed.int(), 0.25, 0.1)
+    with pytest.raises(ValueError):  # the backward needs the forward's lse
+        encoder_attention_train_bwd(q, q, q, mask, seed, q, 0.25, 0.1)
+    long_q = _rnd(gen, 1, 1, 1000, hd)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        fused_encoder_attention_train(long_q, long_q, long_q,
+                                      torch.zeros(1, 1000, 1000,
+                                                  device="cuda"),
+                                      seed, 0.25, 0.1)

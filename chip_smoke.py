@@ -21,7 +21,10 @@ nothing is ever run on the CPU instead:
    not hidden under the O(1) residual; for K8b dq, dk, dv and dbias each;
    the BERT train kernels with dropout on and the same seed on both sides
    (K10a at rate 0.1 and 0.5, K10b's dq, dk and dv each, K11's and K12's
-   keep masks exactly equal), on a key mask with padded captions; K6 (the
+   keep masks exactly equal), on a key mask with padded captions; K10b
+   (the tensor-core backward) also at rate 0.5 and under the seq2seq mask
+   at L=276 and the caption step's L=275, each call repeated and
+   required bitwise equal; K6 (the
    sub-block under a full mask) and K7 (the heads-layout core) at the
    seq2seq forward's B=4, L=275 under the seq2seq mask and a random 0/1
    mask, K6 also at the re-encode decoder's first and last L (252, 270);
@@ -38,9 +41,12 @@ nothing is ever run on the CPU instead:
    B=4 and B=8, also minus its residual, its output's pad rows exactly 0;
    K13a / K13b (the heads-layout train attention of LVT_ATTNLANES=0) at
    the retrieval step's 64 pairs, L=276, rate 0.1, on heads views of one
-   qkv slab, under a padding and a seq2seq mask (f32), K13b also with the
-   mask's gradient; the keep masks K13a and K10a draw from one seed, read
-   back from the kernels, each exactly ``dropout.attention_keep``, and
+   qkv slab, under a padding and a seq2seq mask (f32), K13b (the
+   tensor-core backward) also at rate 0.5 and at L=275 under the seq2seq
+   mask, each call repeated and required bitwise equal, and with the
+   mask's gradient (the f32-pipe kernel); the keep masks K13a and K10a
+   draw from one seed, read back from the kernels, each exactly
+   ``dropout.attention_keep``, and
    their outputs equal to bf16 rounding; K13's one-call yardstick is
    scaled_dot_product_attention with the float mask and dropout_p (and
    its backward);
@@ -110,6 +116,7 @@ nothing is ever run on the CPU instead:
    kernels vs plain on the logits it reads (the serving gate), and QA-MC's
    eval launches under LVT_KMASK=1 (K4) and =0 (K6).
 
+Every time is the median of five CUDA-event windows of five calls.
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
 phase-6, phase-7, phase-8 and phase-9 runs, K12's in 5 (e); its largest
@@ -130,6 +137,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -187,17 +195,22 @@ def _nvidia_smi() -> str:
     return out.stdout.strip()
 
 
-def _time_ms(fn, iters: int = 10) -> float:
+def _time_ms(fn, iters: int = 5, windows: int = 5) -> float:
+    """ms per call of ``fn``: the median of ``windows`` CUDA-event windows
+    of ``iters`` calls each, after one warm-up call (one window can catch
+    a stall of the host that launches the calls)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(windows)]
+    for start, end in marks:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(start.elapsed_time(end) / iters
+                             for start, end in marks)
 
 
 def _compare(got, want, tol, rel_l2_max):
@@ -229,6 +242,7 @@ class Case:
     residual: Optional[torch.Tensor] = None
     library: Optional[Callable] = None
     compare: Optional[Callable] = None
+    bitwise_repeat: bool = False  # a second call must give the same bits
 
 
 def _rnd(g, *shape, std=1.0, dtype=torch.bfloat16):
@@ -762,23 +776,41 @@ def _bert_train_cases(g, lin, ln):
             4 * slab_bytes + mask_bytes + lse_bytes,
             library=lambda r=rate: F.scaled_dot_product_attention(
                 *sdpa, attn_mask=sdpa_mask, dropout_p=r, scale=scale)))
-    lse = torch.empty(B, nH, L, device="cuda")
-    _build.attention(slab.view(B * L, 3 * C), B, L, nH, scale, mask=mask,
-                     lse=lse, seed=seed, rate=0.1)
-    dout = _rnd(g, B, L, C)
+    def bwd_case(n_tok, kind, mask, rate, count, library=None):
+        """K10b (the tensor-core backward) on a slab of n_tok tokens, its
+        lse from K10a's forward; checked twice for the same bits."""
+        slab_t = slab if n_tok == L else _rnd(g, B, n_tok, 3 * C)
+        lse = torch.empty(B, nH, n_tok, device="cuda")
+        out = _build.attention(slab_t.view(B * n_tok, 3 * C), B, n_tok, nH,
+                               scale, mask=mask, lse=lse, seed=seed,
+                               rate=rate).view(B, n_tok, C)
+        dout = dout_l if n_tok == L else _rnd(g, B, n_tok, C)
+        flops = 10.0 * B * nH * n_tok * n_tok * hd  # the five products
+        return Case(
+            encoder_attention_train_lanes_bwd, f"B={B} L={n_tok} C={C} "
+            f"nH={nH} rate {rate}, {kind}", count,
+            (*slab_t.split(C, dim=-1), mask, seed, dout, scale, rate, nH),
+            flops, 7 * B * n_tok * C * 2 + mask.numel() * 2 + B * nH * n_tok
+            * 4, kw={"lse": lse, "o": out}, compare=_grads_compare,
+            library=library, bitwise_repeat=True)
+
+    dout_l = _rnd(g, B, L, C)
     # SDPA's backward alone: autograd of one forward, replayed
     leaves = [t.detach().requires_grad_(True) for t in sdpa]
     o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
                                        dropout_p=0.1, scale=scale)
-    d_heads = dout.view(B, L, nH, hd).transpose(1, 2)
-    cases.append(Case(
-        encoder_attention_train_lanes_bwd, f"B={B} L={L} C={C} nH={nH} "
-        "rate 0.1, padded keys", layers,
-        (q, k, v, mask, seed, dout, scale, 0.1, nH), 2.5 * core_flops,
-        7 * slab_bytes + mask_bytes + lse_bytes, kw={"lse": lse},
-        compare=_grads_compare,
-        library=lambda: torch.autograd.grad(o, leaves, d_heads,
-                                            retain_graph=True)))
+    d_heads = dout_l.view(B, L, nH, hd).transpose(1, 2)
+    cases.append(bwd_case(L, "padded keys", mask, 0.1, layers, library=(
+        lambda: torch.autograd.grad(o, leaves, d_heads, retain_graph=True))))
+    cases.append(bwd_case(L, "padded keys", mask, 0.5, 0))
+    # the caption step's seq2seq mask (a row per text token sees the video
+    # and the text before it), at L = 250 + 26 and its own 250 + 25
+    for n_txt in (TXT_LEN, CAP_LEN):
+        keep = _seq2seq_keep(B, L - TXT_LEN, n_txt)
+        s2s = torch.where(keep, 0.0, -1e4).to(torch.bfloat16)
+        for rate in (0.1, 0.5):
+            cases.append(bwd_case(L - TXT_LEN + n_txt, "seq2seq mask", s2s,
+                                  rate, 0))
     x, res = _rnd(g, M, C), _rnd(g, M, C)
     wo, bo = lin(C, C)
     lw, lb = ln(C)
@@ -856,27 +888,48 @@ def _heads_train_cases(g):
             library=lambda m=sdpa_mask: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=m, dropout_p=rate, scale=scale)))
         lse = torch.empty(B, nH, L, device="cuda")
-        _build.attention_heads(q, k, v, mask.clamp_min(-1e4), scale, lse=lse,
-                               seed=seed, rate=rate)
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
                                            dropout_p=rate, scale=scale)
-        cases.append(Case(
-            encoder_attention_train_bwd, f"B={B} nH={nH} L={L} hd={hd} "
-            f"rate {rate}, {kind}", count,
-            (q, k, v, mask, seed, dout, scale, rate), 2.5 * core_flops,
-            7 * slab_bytes + mask_bytes + lse_bytes, kw={"lse": lse},
-            compare=_heads_grads_compare,
-            library=lambda o=o, leaves=leaves: torch.autograd.grad(
-                o, leaves, dout, retain_graph=True)))
-        if kind == "padded keys":
+        for r in (rate, 0.5):  # the tensor-core backward; 0.5 checked only
+            # its D = rowsum(out * dout) needs the output of this rate
+            out = _build.attention_heads(q, k, v, mask.clamp_min(-1e4), scale,
+                                         lse=lse, seed=seed, rate=r)
+            cases.append(Case(
+                encoder_attention_train_bwd, f"B={B} nH={nH} L={L} hd={hd} "
+                f"rate {r}, {kind}", count if r == rate else 0,
+                (q, k, v, mask, seed, dout, scale, r), 2.5 * core_flops,
+                7 * slab_bytes + mask_bytes + lse_bytes,
+                kw={"lse": lse, "o": out},
+                compare=_heads_grads_compare, bitwise_repeat=True,
+                library=None if r != rate else (
+                    lambda o=o, leaves=leaves: torch.autograd.grad(
+                        o, leaves, dout, retain_graph=True))))
+        if kind == "padded keys":  # the f32-pipe kernel, which forms dmask
             cases.append(Case(
                 encoder_attention_train_bwd, f"B={B} nH={nH} L={L} hd={hd} "
                 f"rate {rate}, {kind}, with dmask", 0,
                 (q, k, v, mask, seed, dout, scale, rate), 2.5 * core_flops,
                 7 * slab_bytes + 2 * mask_bytes + lse_bytes,
                 kw={"lse": lse, "dmask": True},
-                compare=_heads_grads_compare))
+                compare=_heads_grads_compare, bitwise_repeat=True))
+    # the caption step's L = 250 + 25 under its seq2seq mask
+    n_tok = L - TXT_LEN + CAP_LEN
+    slab_c = _rnd(g, B, n_tok, 3 * C)
+    qc, kc, vc = slab_c.view(B, n_tok, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    mask_c = torch.where(_seq2seq_keep(B, L - TXT_LEN, CAP_LEN), 0.0,
+                         big_neg)
+    lse_c = torch.empty(B, nH, n_tok, device="cuda")
+    out_c = _build.attention_heads(qc, kc, vc, mask_c.clamp_min(-1e4), scale,
+                                   lse=lse_c, seed=seed, rate=rate)
+    cases.append(Case(
+        encoder_attention_train_bwd, f"B={B} nH={nH} L={n_tok} hd={hd} "
+        f"rate {rate}, seq2seq mask", 0,
+        (qc, kc, vc, mask_c, seed, _rnd(g, B, nH, n_tok, hd), scale, rate),
+        10.0 * B * nH * n_tok * n_tok * hd,
+        7 * B * n_tok * C * 2 + B * n_tok * n_tok * 4 + B * nH * n_tok * 4,
+        kw={"lse": lse_c, "o": out_c}, compare=_heads_grads_compare,
+        bitwise_repeat=True))
     return cases
 
 
@@ -988,6 +1041,14 @@ def check_kernels():
                 ok = ok and d_rel <= DELTA_REL_L2
                 branch = (f", minus residual rel_l2 {d_rel:.3g} "
                           f"(<= {DELTA_REL_L2})")
+        if c.bitwise_repeat:
+            again = c.op(*c.args, **c.kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again)
+                       if a is not None)
+            ok = ok and same
+            branch += f", a second call {'bitwise equal' if same else 'DIFFERS'}"
+            del again
         del got, want
         # plain, kernel, kernel, plain: drift cancels in the means
         t_p1 = _time_ms(lambda: c.op.plain(*c.args, **c.kw))

@@ -1,30 +1,32 @@
-// Backward of the attention core (attention.cu):
+// Backward of the attention core (attention.cu) where it also forms the
+// gradient of an additive [N, N] input (the f32-pipe kernel):
 //   s = q k^T * scale + bias[h] + mask[w],  p = softmax(s),  o = (m * p) v
 //   dv = (m * p)^T do,  dp = m * (do v^T),  ds = p * (dp - rowsum(p * dp)),
 //   dq = ds k * scale,  dk = ds^T q * scale,  dbias[h] = sum over sequences of ds.
 // m is the dropout factor of each probability (1 without dropout).
 //
 // Replaces lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel (K8b, with
-// the rel-pos bias and its dbias) and the BERT train attention backward
-// lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_bwd_kernel
-// (K10b: no bias, a per-sequence [B, N, N] mask, and dropout whose bits are
-// regenerated from the forward's seed by the counter hash of dropout.cuh, so
-// no [N, N] mask is ever stored; the mask's gradient, which the TPU kernel
-// summed and the model discards, is not formed).  Input is the
-// packed qkv slab [nSeq * N, 3C] (sequence s = b * nW + w uses window w of the
-// mask), the cotangent do [nSeq * N, C] and the forward's per-row log-sum-exp
-// (attention.cu), so p = exp(s - lse) needs no second pass for the row sums.
-// Output is dqkv [nSeq * N, 3C] bf16 and dbias [nH, N, N] f32; the mask gets
-// no gradient (it is geometry, never a parameter).
+// the rel-pos bias and its dbias).  Input is the packed qkv slab
+// [nSeq * N, 3C] (sequence s = b * nW + w uses window w of the mask), the
+// cotangent do [nSeq * N, C] and the forward's per-row log-sum-exp
+// (attention.cu), so p = exp(s - lse) needs no second pass for the row
+// sums.  Output is dqkv [nSeq * N, 3C] bf16 and dbias [nH, N, N] f32; the
+// mask gets no gradient (it is geometry, never a parameter).
 //
 // A second instantiation (HEADS) is the heads-layout train attention's
-// backward K13b (_enc_attn_train_bwd_kernel): q, k, v, do, dq, dk and dv
-// [B, nH, N, hd], each by its own (sequence, head, row) strides (strided
-// views of one qkv product are read in place), the f32 [B, N, N] mask the
-// forward read (the same buffer: a bf16 copy would round -1e4 otherwise,
-// and p = exp(s - lse) would no longer sum to 1), the bits regenerated as in
-// K10b, and, where the caller asks, dmask[b] = sum over heads of ds (the TPU
-// kernel's; the caller zeroes it where the mask is <= -1e4).
+// backward K13b (lavender_tpu/ops/encoder_attention.py
+// _enc_attn_train_bwd_kernel) where the caller asks for the mask's gradient
+// dmask[b] = sum over heads of ds (the TPU kernel's; the caller zeroes it
+// where the mask is <= -1e4): q, k, v, do, dq, dk and dv [B, nH, N, hd],
+// each by its own (sequence, head, row) strides, the f32 [B, N, N] mask the
+// forward read, and dropout whose bits are regenerated from the forward's
+// seed by the counter hash of dropout.cuh.
+//
+// The C entries route by their arguments: a call without a bias (the
+// packed slab: K10b, _enc_attn_train_lanes_bwd_kernel) or without dmask
+// (K13b on the model path) goes to the tensor-core kernels of
+// attention_bwd_tc.cu, which form no [N, N] gradient; only K8b and K13b's
+// dmask option run the kernel below.
 //
 // The TPU kernel summed dbias over its grid, which runs in order.  Blocks here
 // run in no order, and an atomic add per (sequence, element) would serialise
@@ -36,20 +38,22 @@
 // dmask takes the same scheme with the roles swapped: each block takes one
 // sequence and a contiguous chunk of heads.
 //
-// Bound on the card: the recompute and the four products, on the f32 pipes in
-// this first version (the forward's design: one row per thread, Q, K, V and do
-// of the (sequence, head) in shared memory, read as warp-broadcast 16-byte
-// vectors).  Pass 1 runs one query row per thread and forms dq; it also forms
-// rowsum(p * dp) exactly in f32 as dq's companion sums (dq = scale * (sum p dp k
-// - D sum p k)), which avoids the rounding of D = do . o from the bf16 output.
-// Pass 2 runs one key row per thread and forms dk, dv and the dbias column.
-// Both passes recompute s and p; tensor-core tiles are the next step.  At
-// hd = 64 (BERT) four rows of 64 floats per thread would spill, so each pass
-// sweeps twice: D then dq, and dk then dv (three rows of registers each).
+// Bound on the card: the recompute and the four products, on the f32 pipes
+// (the forward's design: one row per thread, Q, K, V and do of the
+// (sequence, head) in shared memory, read as warp-broadcast 16-byte
+// vectors); moving K8b to tensor-core tiles as attention_bwd_tc.cu did for
+// K10b / K13b is queued.  Pass 1 runs one query row per thread and forms dq;
+// it also forms rowsum(p * dp) exactly in f32 as dq's companion sums (dq =
+// scale * (sum p dp k - D sum p k)), which avoids the rounding of D = do . o
+// from the bf16 output.  Pass 2 runs one key row per thread and forms dk, dv
+// and the [N, N] sum's column.  Both passes recompute s and p.  At hd = 64
+// four rows of 64 floats per thread would spill, so each pass sweeps twice:
+// D then dq, and dk then dv (three rows of registers each).
 #include <math.h>
 
 #include <type_traits>
 
+#include "attention_bwd_tc.cuh"
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -144,15 +148,15 @@ __device__ __forceinline__ float mfac_of(uint32_t key, uint32_t index, uint32_t 
 // One query row (pass 1) or key row (pass 2) per thread, 256 threads: at
 // most 8 warps keep the whole register file of 255 a thread (9 to 12 warps
 // share an SM sub-partition three to one and get 168, which spills the
-// hd = 64 rows).  DROP, SUM and HEADS are compile-time, so the Swin backward
+// hd = 64 rows).  DROP and HEADS are compile-time, so the Swin backward
 // (no dropout, a bias) runs the same inner loop as without the options.
 constexpr int kThreads = 256;
 
-// SUM: accumulate ds into the block's slice of ``part`` (dbias over
+// Every call accumulates ds into the block's slice of ``part`` (dbias over
 // sequences, packed with a bias; dmask over heads, HEADS).  The grid is
 // (chunk, outer): packed, outer is the head and the block walks its chunk of
 // sequences; HEADS, outer is the sequence and it walks its chunk of heads.
-template <int HD, bool DROP, bool SUM, bool HEADS>
+template <int HD, bool DROP, bool HEADS>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, const bf16* __restrict__ bias,
@@ -160,7 +164,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                          float* __restrict__ part, int nSeq, int N, int nH, int nW, int nChunks,
                          float scale, const int64_t* __restrict__ seed, uint32_t thresh,
                          float drop_scale, BwdHeads hb) {
-  constexpr bool BIAS = SUM && !HEADS;  // the heads layout has no bias
+  constexpr bool BIAS = !HEADS;  // the heads layout has no bias
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + (size_t)N * HD;
@@ -174,7 +178,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n_inner = HEADS ? nH : nSeq;
   const int it_begin = (int)((long)chunk * n_inner / nChunks);
   const int it_end = (int)((long)(chunk + 1) * n_inner / nChunks);
-  float* part_c = SUM ? part + ((size_t)chunk * gridDim.y + outer) * N * N : nullptr;
+  float* part_c = part + ((size_t)chunk * gridDim.y + outer) * N * N;
   const bf16* bias_h = BIAS ? bias + (size_t)outer * N * N : nullptr;
   const uint32_t seed32 = DROP ? (uint32_t)*seed : 0u;
   constexpr int V8 = HD / 8;
@@ -291,10 +295,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float ds = p * (m * dot_row<HD>(v, dos + i * HD) - dd[i]);
           axpy_row<HD>(p * m, dos + i * HD, dv);
           axpy_row<HD>(ds, qs + i * HD, dk);
-          if constexpr (SUM) {
-            float* pe = part_c + (size_t)i * N + j;
-            *pe = first ? ds : *pe + ds;
-          }
+          float* pe = part_c + (size_t)i * N + j;
+          *pe = first ? ds : *pe + ds;
         }
         store_row<HD>(dv_row, dv, 1.0f);
         store_row<HD>(dk_row, dk, scale);
@@ -305,10 +307,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           const float p = __expf(LVT_SCORE(dot_row<HD>(k, qs + i * HD, scale), i, j) - lse_s[i]);
           const float ds = p * (LVT_MFAC(i, j) * dot_row<HD>(v, dos + i * HD) - dd[i]);
           axpy_row<HD>(ds, qs + i * HD, dk);
-          if constexpr (SUM) {
-            float* pe = part_c + (size_t)i * N + j;
-            *pe = first ? ds : *pe + ds;
-          }
+          float* pe = part_c + (size_t)i * N + j;
+          *pe = first ? ds : *pe + ds;
         }
         store_row<HD>(dk_row, dk, scale);
         float dv[HD];
@@ -339,9 +339,9 @@ __global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restr
   }
 }
 
-// grid (nChunks, nH) packed, (nChunks, nSeq) in the heads layout; with SUM
-// the chunks' slices of ``part`` are added into ``sum`` (dbias / dmask).
-template <int HD, bool DROP, bool SUM, bool HEADS>
+// grid (nChunks, nH) packed, (nChunks, nSeq) in the heads layout; the
+// chunks' slices of ``part`` are added into ``sum`` (dbias / dmask).
+template <int HD, bool DROP, bool HEADS>
 int launch(const void* qkv, const void* dout, const void* lse, const void* bias, const void* mask,
            void* dqkv, void* sum, void* part, int nSeq, int N, int nH, int nW, int nChunks,
            float scale, const void* seed, uint32_t thresh, float drop_scale, cudaStream_t stream,
@@ -349,20 +349,20 @@ int launch(const void* qkv, const void* dout, const void* lse, const void* bias,
   const size_t smem = 4 * (size_t)N * HD * sizeof(bf16) + 2 * (size_t)N * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, DROP, SUM, HEADS>,
+    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, DROP, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int rows = (N + 31) / 32 * 32;
   const int threads = rows < kThreads ? rows : kThreads;
   const int outer = HEADS ? nSeq : nH;
-  attention_bwd_kernel<HD, DROP, SUM, HEADS><<<dim3(nChunks, outer), threads, smem, stream>>>(
+  attention_bwd_kernel<HD, DROP, HEADS><<<dim3(nChunks, outer), threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const bf16*>(bias), static_cast<const mask_t<HEADS>*>(mask),
       static_cast<bf16*>(dqkv), static_cast<float*>(part), nSeq, N, nH, nW, nChunks, scale,
       static_cast<const int64_t*>(seed), thresh, drop_scale, hb);
   cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || !SUM) return (int)e;
+  if (e != cudaSuccess) return (int)e;
   const size_t n = (size_t)outer * N * N;
   const int blocks = (int)((n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8);
   sum_chunks_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
@@ -375,11 +375,10 @@ int launch_hd(const void* qkv, const void* dout, const void* lse, const void* bi
               const void* mask, void* dqkv, void* sum, void* part, int nSeq, int N, int nH,
               int nW, int nChunks, float scale, const void* seed, uint32_t thresh,
               float drop_scale, cudaStream_t s, const BwdHeads& hb) {
-#define LVT_LAUNCH(DROP, SUM)                                                                    \
-  launch<HD, DROP, SUM, HEADS>(qkv, dout, lse, bias, mask, dqkv, sum, part, nSeq, N, nH, nW,    \
-                               nChunks, scale, seed, thresh, drop_scale, s, hb)
-  if (seed != nullptr) return sum != nullptr ? LVT_LAUNCH(true, true) : LVT_LAUNCH(true, false);
-  return sum != nullptr ? LVT_LAUNCH(false, true) : LVT_LAUNCH(false, false);
+#define LVT_LAUNCH(DROP)                                                                        \
+  launch<HD, DROP, HEADS>(qkv, dout, lse, bias, mask, dqkv, sum, part, nSeq, N, nH, nW, nChunks, \
+                          scale, seed, thresh, drop_scale, s, hb)
+  return seed != nullptr ? LVT_LAUNCH(true) : LVT_LAUNCH(false);
 #undef LVT_LAUNCH
 }
 
@@ -387,10 +386,12 @@ int launch_hd(const void* qkv, const void* dout, const void* lse, const void* bi
 
 // qkv [nSeq * N, 3C], dout [nSeq * N, C], lse [nSeq, nH, N] f32, bias [nH, N, N]
 // or null, mask [nW, N, N] or null -> dqkv [nSeq * N, 3C] and, with a bias,
-// dbias [nH, N, N] f32, using part [nChunks, nH, N, N] f32 as scratch (dbias
-// and part are null exactly when the bias is).  seed (int64 on the device) or
-// null: the forward's dropout (bits >= thresh kept, scaled by drop_scale).
-// 1 <= nChunks <= nSeq; hd in {16, 32, 64}.
+// dbias [nH, N, N] f32 (null exactly when the bias is).  part is f32: with
+// a bias scratch [nChunks, nH, N, N] (this file's kernel), without one the
+// tensor-core kernels' D [nSeq, nH, N] as lvt_attention_row_dot_bf16 wrote
+// it (nChunks is then unused).
+// seed (int64 on the device) or null: the forward's dropout (bits >= thresh
+// kept, scaled by drop_scale).  1 <= nChunks <= nSeq; hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const void* lse,
                                       const void* bias, const void* mask, void* dqkv, void* dbias,
                                       void* part, int nSeq, int N, int nH, int hd, int nW,
@@ -398,9 +399,21 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
                                       float drop_scale, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535 || nChunks < 1 ||
       nChunks > nSeq || nSeq % nW != 0 || (bias == nullptr) != (dbias == nullptr) ||
-      (bias == nullptr) != (part == nullptr))
+      part == nullptr)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bias == nullptr) {  // K10b: the tensor cores
+    const long long C = (long long)nH * hd, ld = 3 * C;
+    const bf16* x = static_cast<const bf16*>(qkv);
+    bf16* dx = static_cast<bf16*>(dqkv);
+    lvt::TcBwd a{{x, x + C, x + 2 * C, static_cast<const bf16*>(dout)},
+                 {dx, dx + C, dx + 2 * C},
+                 {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {N * C, hd, C},
+                  {N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}},
+                 static_cast<const float*>(lse), mask, static_cast<const float*>(part),
+                 static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW};
+    return lvt::attention_bwd_tc(a, hd, false, s);
+  }
 #define LVT_PACKED(HD)                                                                        \
   launch_hd<HD, false>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW, nChunks, \
                        scale, seed, thresh, drop_scale, s, BwdHeads{})
@@ -418,11 +431,13 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
 // row) of q, k, v, dout, dq, dk and dv in turn, the head dim contiguous,
 // every stride a multiple of 8 and every pointer 16-byte aligned; lse
 // [B, nH, N] f32 (the forward's), mask [B, N, N] f32 (the forward's) or
-// null.  dmask [B, N, N] f32 = the sum over heads of ds (null: not formed),
-// using part [nChunks, B, N, N] f32 as scratch (null exactly when dmask is):
-// each block takes one sequence and a chunk of its heads, 1 <= nChunks <= nH
-// (without dmask nChunks = nH, one head a block).  seed, thresh, drop_scale
-// as in lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
+// null.  dmask [B, N, N] f32 = the sum over heads of ds, or null: not
+// formed, and the call runs on the tensor cores.  part is f32: with dmask
+// scratch [nChunks, B, N, N] (each block takes one sequence and a chunk of
+// its heads, 1 <= nChunks <= nH), without it the tensor-core kernels' D
+// [B, nH, N] as lvt_attention_row_dot_bf16 wrote it (nChunks = nH).  seed,
+// thresh, drop_scale as in
+// lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* mask,
                                             void* dq, void* dk, void* dv, void* dmask, void* part,
@@ -430,9 +445,20 @@ LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const 
                                             int nChunks, float scale, const void* seed,
                                             uint32_t thresh, float drop_scale, void* stream) {
   if (B <= 0 || N <= 0 || nH <= 0 || B > 65535 || nChunks < 1 || nChunks > nH ||
-      (dmask == nullptr) != (part == nullptr) || (dmask == nullptr && nChunks != nH))
+      part == nullptr || (dmask == nullptr && nChunks != nH))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dmask == nullptr) {  // K13b on the model path: the tensor cores
+    lvt::TcBwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v), static_cast<const bf16*>(dout)},
+                 {static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv)},
+                 {},
+                 static_cast<const float*>(lse), mask, static_cast<const float*>(part),
+                 static_cast<const int64_t*>(seed), thresh, drop_scale, scale, B, N, nH, B};
+    for (int t = 0; t < 7; ++t)
+      for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
+    return lvt::attention_bwd_tc(a, hd, true, s);
+  }
   BwdHeads hb{static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(dk),
               static_cast<bf16*>(dv)};
   for (int t = 0; t < 7; ++t)
@@ -447,4 +473,22 @@ LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const 
     default: return (int)cudaErrorInvalidValue;
   }
 #undef LVT_HEADS
+}
+
+// The tensor-core backward's D = rowsum(o * g) in f32 per (sequence, head,
+// row), the pass before lvt_attention_bwd_bf16 without a bias and
+// lvt_attention_heads_bwd_bf16 without dmask, which read it as their part:
+// o the forward's output and g its cotangent [nSeq, nH, N, hd] by the
+// element strides st[6] (host memory): (sequence, head, row) of o, then
+// of g, the head dim contiguous, every stride a multiple of 8 and every
+// pointer 16-byte aligned (the packed slab's columns: (N * C, hd, C)).
+// dd [nSeq, nH, N] f32.  hd in {16, 32, 64}.
+LVT_EXPORT int lvt_attention_row_dot_bf16(const void* o, const void* g, const long long* st,
+                                          void* dd, int nSeq, int N, int nH, int hd,
+                                          void* stream) {
+  lvt::RowDot a{static_cast<const bf16*>(o), static_cast<const bf16*>(g), {},
+                static_cast<float*>(dd), nSeq, N, nH};
+  for (int t = 0; t < 2; ++t)
+    for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
+  return lvt::attention_row_dot(a, hd, static_cast<cudaStream_t>(stream));
 }

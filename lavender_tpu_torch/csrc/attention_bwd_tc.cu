@@ -1,0 +1,579 @@
+// Tensor-core backward of the fusion encoder's train attention:
+//   s = q k^T * scale + mask,  p = exp(s - lse),  o = (m * p) v
+//   dv = (m * p)^T g,  dp = m * (g v^T),  D = rowsum(p * dp) = rowsum(o * g),
+//   ds = p * (dp - D),  dq = ds k * scale,  dk = ds^T q * scale,
+// m the dropout factor of each probability, regenerated from the forward's
+// seed by the counter hash of dropout.cuh (stream sequence * nH + head,
+// index row * N + key), lse the forward's row log-sum-exp (attention.cu).
+//
+// Replaces lavender_tpu/ops/encoder_attention.py
+// _enc_attn_train_lanes_bwd_kernel (:780, K10b: q, k, v column slices of
+// the packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask) and
+// _enc_attn_train_bwd_kernel (:555, K13b without the mask's gradient: q, k,
+// v and g [B, nH, L, hd] by their strides, the f32 [B, L, L] mask the
+// forward read).  Both reach it through the C entries of attention_bwd.cu,
+// which keep the f32-pipe kernel for what this one does not form (K8b's
+// dbias, K13b's dmask).
+//
+// Bound on the card, at the train step's 64 pairs, L = 276, 12 heads of
+// 64: device memory.  Each input read once and each output written once is
+// 7 bf16 [B*L, C] slabs (q, k, v, g, dq, dk, dv) + the mask + lse, 200.5 MB
+// (K10b; the f32 mask of K13b 210.3 MB): 0.060 ms at 3.35 TB/s; the five
+// products are 37.4 GFLOP, 0.038 ms at 989 TFLOP/s in bf16.  (The design
+// below also reads the forward's output o, an eighth slab.)
+//
+// Design.  Every product runs on the tensor cores (mma.sync m16n8k16, bf16
+// operands, f32 accumulation; operands from shared memory by ldmatrix,
+// .trans where the product contracts over rows), in 64 x 64 tiles: a block
+// of 4 warps owns 64 rows, each warp 16, and sweeps the other side's tiles
+// through a two-stage cp.async ring (the next tiles, their mask tile
+// included, load while the current ones multiply).  p, m and ds are formed
+// on the accumulator fragments in registers and rounded to bf16 as the next
+// product's A operand (as the JAX kernel rounds p * m and ds), so nothing
+// [N, N]-shaped leaves registers.  FlashAttention-2's two loops as two
+// kernels, so that every output element is summed by one thread in a fixed
+// order (no atomics: the same bits on every run), after a pass forming D:
+//   row_dot_kernel: D = rowsum(o * g) in f32 (FlashAttention-2's D; equal
+//     to rowsum(p * dp) up to o's bf16 rounding; the JAX kernel sums the
+//     latter exactly, and a first sweep of the dq kernel over the keys for
+//     it measured slower on the card, PERF.md);
+//   dq kernel, a block per (query tile, sequence, head): one sweep over the
+//     key tiles (3 products);
+//   dk/dv kernel, a block per (key tile, sequence, head): one sweep over the
+//     query tiles, each taken in two halves of 32 so that half the score
+//     accumulators are live (4 products).
+// Both recompute s and p from lse.  The ragged edge (N = 276 = 4 * 64 + 20)
+// is zero-filled by the copies' source size and predicated: p = 0 for a row
+// or key >= N (never by -inf arithmetic), and rows >= N are never stored
+// (in the packed slab they are the next sequence's); a warp whose 16 rows
+// all lie past N skips its products.  S is scaled in f32 after the
+// product, so p differs from the forward's by rounding only.  Registers
+// are cut to 168 a thread, so 3 blocks (12 warps) share an SM (72-75 KB of
+// shared memory each with a bf16 mask; an f32 mask's tiles take 90 KB, so
+// K13b runs 2).
+#include "attention_bwd_tc.cuh"
+#include "dropout.cuh"
+
+namespace {
+
+constexpr int kRows = 64;      // rows of a block's own tile
+constexpr int kCols = 64;      // rows of each swept tile
+constexpr int kThreads = 128;  // 4 warps of 16 rows
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Blocks an SM the registers are cut for: 3 (at most 168 registers a
+// thread) with a bf16 mask; with an f32 mask only 2 fit in shared memory,
+// and the registers stay at 255.
+template <typename M>
+constexpr int kBlocks = sizeof(M) == 2 ? 3 : 2;
+
+// exp2 on the special-function unit (the __expf path without its multiply)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// V bytes global -> shared, the first n of them from src and the rest
+// (all V where n = 0) zero-filled; V = 16 bypasses L1.
+template <int V>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int n) {
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "n"(V), "r"(n)
+                 : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, f32) += a (16 x 16, bf16) . b (16 x 8, bf16)
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A mask tile: rows r0.. (64) x columns c0.. (64) of the mask of window w
+// in shared memory.  Its rows are copied in the widest of 16, 8 or 4 bytes
+// that divides the mask's row pitch (N * sizeof(M)): at odd N a bf16 row
+// starts on a 2-byte boundary, which no asynchronous copy can, so there
+// each row is fetched as the 4-byte words around it and its elements
+// start at byte (start & 3) of the row (the lead; 0 on the wider paths).
+// A row holds kWords words: 64 elements + 16 bytes, a multiple of 16 bytes.
+template <typename M>
+struct MaskTile {
+  static constexpr int kWords = (kCols * (int)sizeof(M) + 16) / 4;
+  static constexpr int kBytes = kRows * kWords * 4;
+};
+
+// byte offset in the mask buffer of element (row, col) of window w
+template <typename M>
+__device__ __forceinline__ long long mask_byte(int w, int row, int col, int N) {
+  return (((long long)w * N + row) * N + col) * (long long)sizeof(M);
+}
+
+// kRows rows of the tile in V-byte copies, row r from byte row0 + r * pitch
+// of the buffer; copies past its end (m_bytes) are cut or zero-filled.
+template <typename M, int V>
+__device__ __forceinline__ void copy_mask_rows(uint32_t* s, const char* base, long long m_bytes,
+                                               long long row0, long long pitch) {
+  constexpr int W = MaskTile<M>::kWords;
+  constexpr int PER = kCols * (int)sizeof(M) / V + (V == 4 ? 1 : 0);  // copies a row
+#pragma unroll
+  for (int u = 0; u < (kRows * PER + kThreads - 1) / kThreads; ++u) {
+    const int c = threadIdx.x + u * kThreads;
+    if (c >= kRows * PER) break;
+    const int r = c / PER, k = c - r * PER;
+    const long long b = ((row0 + r * pitch) & ~(long long)(V - 1)) + (long long)V * k;
+    const long long left = m_bytes - b;
+    const int n = left >= V ? V : (left > 0 ? (int)left : 0);
+    cp_async<V>(s + r * W + k * (V / 4), base + (n > 0 ? b : 0), n);
+  }
+}
+
+// Stage a mask tile; m_bytes is the buffer's size.
+template <typename M>
+__device__ __forceinline__ void load_mask(uint32_t* s, const void* m, long long m_bytes, int w,
+                                          int r0, int c0, int N) {
+  const char* base = static_cast<const char*>(m);
+  const long long row0 = mask_byte<M>(w, r0, c0, N), pitch = (long long)N * sizeof(M);
+  if (pitch % 16 == 0)
+    copy_mask_rows<M, 16>(s, base, m_bytes, row0, pitch);
+  else if (pitch % 8 == 0)
+    copy_mask_rows<M, 8>(s, base, m_bytes, row0, pitch);
+  else
+    copy_mask_rows<M, 4>(s, base, m_bytes, row0, pitch);
+}
+
+// Element (r, col) of a staged tile whose row r starts at byte lead (0..3)
+// of its first word.
+template <typename M>
+__device__ __forceinline__ float mask_in(const uint32_t* s, int r, int lead, int col) {
+  const char* p = reinterpret_cast<const char*>(s + r * MaskTile<M>::kWords) + lead +
+                  col * (int)sizeof(M);
+  if constexpr (sizeof(M) == 2)
+    return __bfloat162float(*reinterpret_cast<const bf16*>(p));
+  else
+    return *reinterpret_cast<const float*>(p);
+}
+
+// Fragment coordinates (lane = 4 * g + t): accumulator element e of n-tile
+// n is (row g + 8 * (e / 2), column 8 * n + 2 * t + e % 2) of the warp's
+// 16 x 64 (or 16 x hd) block.
+
+// A tile of 64 rows x HD from rows row0.. of a (sequence, head) with row
+// stride ld into shared memory (row stride HD + 8: ldmatrix's 8 rows fall
+// in distinct banks); rows >= N are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, long long ld, int row0, int N) {
+  constexpr int LD = HD + 8, V = HD / 8;
+#pragma unroll
+  for (int u = 0; u < kRows * V / kThreads; ++u) {
+    const int c = threadIdx.x + u * kThreads, r = c / V, k8 = (c % V) * 8;
+    const bool ok = row0 + r < N;
+    cp_async<16>(s + r * LD + k8, g + (ok ? (row0 + r) * ld + k8 : 0), ok ? 16 : 0);
+  }
+}
+
+// The warp's 16 rows of a [64, HD] tile as A fragments, one per 16 columns.
+template <int HD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[HD / 16][4], const bf16* t, int warp,
+                                       int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldsm4(a[kk], t + (warp * 16 + (lane & 15)) * LD + kk * 16 + ((lane >> 4) << 3));
+}
+
+// acc (16 x 8 NT) = A (16 x HD, fragments a) . T^T, T an [8 NT, HD] tile:
+// the warp's rows against the rows of T.
+template <int HD, int NT = 8>
+__device__ __forceinline__ void mma_abt(float (&acc)[NT][4], const uint32_t (&a)[HD / 16][4],
+                                        const bf16* t, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np) {
+      uint32_t b[4];
+      ldsm4(b, t + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD + kk * 16 +
+                   (((lane >> 3) & 1) << 3));
+      mma(acc[2 * np], a[kk], b[0], b[1]);
+      mma(acc[2 * np + 1], a[kk], b[2], b[3]);
+    }
+  }
+}
+
+// acc (16 x HD) += P (16 x 8 NT, an accumulator rounded to bf16) . T, T
+// an [8 NT, HD] tile: the accumulator's fragments are the A operand's.
+template <int HD, int NT = 8>
+__device__ __forceinline__ void mma_ab(float (&acc)[HD / 8][4], const float (&p)[NT][4],
+                                       const bf16* t, int lane) {
+  constexpr int LD = HD + 8;
+#pragma unroll
+  for (int kk = 0; kk < NT / 2; ++kk) {
+    const uint32_t a[4] = {pack2(p[2 * kk][0], p[2 * kk][1]), pack2(p[2 * kk][2], p[2 * kk][3]),
+                           pack2(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack2(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < HD / 16; ++dp) {
+      uint32_t b[4];
+      ldsm4_t(b, t + (kk * 16 + (lane & 15)) * LD + dp * 16 + ((lane >> 4) << 3));
+      mma(acc[2 * dp], a, b[0], b[1]);
+      mma(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// rows row[0], row[1] (< N only) of a [*, HD] output at base + row * ld:
+// acc (16 x HD) * scale in bf16
+template <int HD>
+__device__ __forceinline__ void store_rows(bf16* base, long long ld, const int (&row)[2], int N,
+                                           const float (&acc)[HD / 8][4], float scale, int tq) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= N) continue;
+    bf16* dst = base + row[r] * ld + 2 * tq;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + n * 8) =
+          pack2(acc[n][2 * r] * scale, acc[n][2 * r + 1] * scale);
+  }
+}
+
+// The dropout factor of element index e: 1 without dropout.
+template <bool DROP>
+__device__ __forceinline__ float drop_factor(uint32_t key, uint32_t e, uint32_t thresh,
+                                             float drop_scale) {
+  if constexpr (!DROP) return 1.0f;
+  return lvt::dropout_bits(key, e) >= thresh ? drop_scale : 0.0f;
+}
+
+// dq of one 64-row query tile of one (sequence, head), from D of
+// row_dot_kernel.
+template <int HD, typename M, bool DROP>
+__global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt::TcBwd a) {
+  constexpr int LD = HD + 8, TILE = kRows * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sG = sQ + TILE;
+  bf16* sKV = sG + TILE;                                       // two stages of (K, V)
+  uint32_t* sM = reinterpret_cast<uint32_t*>(sKV + 4 * TILE);  // two stages of the mask
+  constexpr int MT = MaskTile<M>::kBytes / 4;
+  const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
+  const int N = a.N, i0 = blockIdx.y * kRows, w = seq % a.nW;
+  const bool has_mask = a.mask != nullptr;
+  const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(M);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+  const bf16* qb = a.x[0] + seq * a.st[0][0] + h * a.st[0][1];
+  const bf16* kb = a.x[1] + seq * a.st[1][0] + h * a.st[1][1];
+  const bf16* vb = a.x[2] + seq * a.st[2][0] + h * a.st[2][1];
+  const bf16* gb = a.x[3] + seq * a.st[3][0] + h * a.st[3][1];
+  load_tile<HD>(sQ, qb, a.st[0][2], i0, N);
+  load_tile<HD>(sG, gb, a.st[3][2], i0, N);
+  load_tile<HD>(sKV, kb, a.st[1][2], 0, N);
+  load_tile<HD>(sKV + TILE, vb, a.st[2][2], 0, N);
+  if (has_mask) load_mask<M>(sM, a.mask, m_bytes, w, i0, 0, N);
+  cp_async_commit();
+
+  const int wr = warp * 16 + (lane >> 2);  // the thread's first row in the tile
+  const int row[2] = {i0 + wr, i0 + wr + 8};
+  const bool live = i0 + warp * 16 < N;  // the warp has rows to form
+  // p = exp2(s * scale * log2(e) + mask * log2(e) - lse * log2(e)), 0 off the rows
+  float lse2[2], D[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = row[r] < N ? a.lse[(size_t)bh * N + row[r]] * kLog2e : 0.0f;
+    D[r] = row[r] < N ? a.dd[(size_t)bh * N + row[r]] : 0.0f;
+  }
+  const float sl2 = a.scale * kLog2e;
+  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*a.seed, (uint32_t)bh) : 0u;
+
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+  const int nT = (N + kCols - 1) / kCols;
+  for (int t = 0; t < nT; ++t) {
+    const int j0 = t * kCols;
+    const bf16* cur = sKV + (t & 1) * 2 * TILE;
+    const uint32_t* cM = sM + (t & 1) * MT;
+    if (t + 1 < nT) {
+      bf16* nxt = sKV + ((t + 1) & 1) * 2 * TILE;
+      load_tile<HD>(nxt, kb, a.st[1][2], j0 + kCols, N);
+      load_tile<HD>(nxt + TILE, vb, a.st[2][2], j0 + kCols, N);
+      if (has_mask) load_mask<M>(sM + ((t + 1) & 1) * MT, a.mask, m_bytes, w, i0, j0 + kCols, N);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int cn = N - j0;  // columns < cn are keys
+    if (live) {
+      float s[8][4], dp[8][4];
+      {  // the warp's rows of Q and G as A fragments, reloaded (registers are scarcer)
+        uint32_t f[HD / 16][4];
+        load_a<HD>(f, sQ, warp, lane);
+        mma_abt<HD>(s, f, cur, lane);
+        load_a<HD>(f, sG, warp, lane);
+        mma_abt<HD>(dp, f, cur + TILE, lane);
+      }
+      const int lead[2] = {(int)(mask_byte<M>(w, row[0], j0, N) & 3),
+                           (int)(mask_byte<M>(w, row[1], j0, N) & 3)};
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, i = row[r], c = n * 8 + 2 * tq + (e & 1);
+          float p = 0.0f;
+          if (i < N && c < cn) {
+            const float b = has_mask
+                                ? fmaf(mask_in<M>(cM, wr + 8 * r, lead[r], c), kLog2e, -lse2[r])
+                                : -lse2[r];
+            p = ex2(fmaf(s[n][e], sl2, b));
+          }
+          const float d =
+              dp[n][e] * drop_factor<DROP>(key, (uint32_t)(i * N + j0 + c), a.thresh, a.drop_scale);
+          s[n][e] = p * (d - D[r]);  // ds
+        }
+      }
+      mma_ab<HD>(dq, s, cur, lane);
+    }
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+  store_rows<HD>(a.dx[0] + seq * a.st[4][0] + h * a.st[4][1], a.st[4][2], row, N, dq, a.scale, tq);
+}
+
+// D = rowsum(o * g) of each (sequence, head, row) in f32, o the forward's
+// output: HD / 8 lanes a row, 8 products each, then a fixed butterfly (the
+// same bits on every run).
+template <int HD>
+__global__ void __launch_bounds__(256) row_dot_kernel(const lvt::RowDot a) {
+  constexpr int LANES = HD / 8;
+  const long long rows = (long long)a.nSeq * a.nH * a.N;
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  const int l = threadIdx.x % LANES;
+  float acc = 0.0f;
+  if (r < rows) {
+    const long long bh = r / a.N;
+    const int i = (int)(r - bh * a.N), seq = (int)(bh / a.nH), h = (int)(bh - (long long)seq * a.nH);
+    float fo[8], fg[8];
+    lvt::unpack8(*reinterpret_cast<const uint4*>(a.o + seq * a.st[0][0] + h * a.st[0][1] +
+                                                 i * a.st[0][2] + l * 8),
+                 fo);
+    lvt::unpack8(*reinterpret_cast<const uint4*>(a.g + seq * a.st[1][0] + h * a.st[1][1] +
+                                                 i * a.st[1][2] + l * 8),
+                 fg);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(fo[e], fg[e], acc);
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && l == 0) a.dd[r] = acc;
+}
+
+// dk and dv of one 64-row key tile of one (sequence, head), from D of
+// row_dot_kernel.
+template <int HD, typename M, bool DROP>
+__global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lvt::TcBwd a) {
+  constexpr int LD = HD + 8, TILE = kRows * LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sK = reinterpret_cast<bf16*>(smem);
+  bf16* sV = sK + TILE;
+  bf16* sQG = sV + TILE;                                   // two stages of (Q, G)
+  float* sLD = reinterpret_cast<float*>(sQG + 4 * TILE);  // two stages of (lse, D) rows
+  uint32_t* sM = reinterpret_cast<uint32_t*>(sLD + 4 * kCols);  // two stages of the mask
+  constexpr int MT = MaskTile<M>::kBytes / 4;
+  const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
+  const int N = a.N, j0 = blockIdx.y * kRows, w = seq % a.nW;
+  const bool has_mask = a.mask != nullptr;
+  const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(M);
+  const void* mask = a.mask;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+  const bf16* qb = a.x[0] + seq * a.st[0][0] + h * a.st[0][1];
+  const bf16* kb = a.x[1] + seq * a.st[1][0] + h * a.st[1][1];
+  const bf16* vb = a.x[2] + seq * a.st[2][0] + h * a.st[2][1];
+  const bf16* gb = a.x[3] + seq * a.st[3][0] + h * a.st[3][1];
+  const float* lse_bh = a.lse + (size_t)bh * N;
+  const float* dd_bh = a.dd + (size_t)bh * N;
+  const long long q_ld = a.st[0][2], g_ld = a.st[3][2];
+  // the query tile at rows i0.. with its lse, D and mask rows into stage buf
+  auto load_stage = [=](int buf, int i0) {
+    bf16* q = sQG + buf * 2 * TILE;
+    load_tile<HD>(q, qb, q_ld, i0, N);
+    load_tile<HD>(q + TILE, gb, g_ld, i0, N);
+    const int c = threadIdx.x, r = c % kCols;  // kThreads == 2 * kCols
+    const bool ok = i0 + r < N;
+    cp_async<4>(sLD + buf * 2 * kCols + c, (c < kCols ? lse_bh : dd_bh) + (ok ? i0 + r : 0),
+                ok ? 4 : 0);
+    if (has_mask) load_mask<M>(sM + buf * MT, mask, m_bytes, w, i0, j0, N);
+  };
+  load_tile<HD>(sK, kb, a.st[1][2], j0, N);
+  load_tile<HD>(sV, vb, a.st[2][2], j0, N);
+  load_stage(0, 0);
+  cp_async_commit();
+
+  const int wc = warp * 16 + (lane >> 2);  // the thread's first key in the tile
+  const int col[2] = {j0 + wc, j0 + wc + 8};
+  const bool live = j0 + warp * 16 < N;  // the warp has keys to form
+  const float sl2 = a.scale * kLog2e;
+  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*a.seed, (uint32_t)bh) : 0u;
+
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.0f;
+  const int nT = (N + kCols - 1) / kCols;
+  for (int t = 0; t < nT; ++t) {
+    const int buf = t & 1, i0 = t * kCols;
+    if (t + 1 < nT) {
+      load_stage(buf ^ 1, i0 + kCols);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* cQ = sQG + buf * 2 * TILE;
+    const bf16* cG = cQ + TILE;
+    const float* cL = sLD + buf * 2 * kCols;
+    const uint32_t* cM = sM + buf * MT;
+    const int lead0 = (int)(mask_byte<M>(w, i0, j0, N) & 3);  // row c's: + c * N * sizeof(M)
+    const int cn = N - i0;                                     // columns < cn are queries
+    // the tile's queries in two halves of 32: half the accumulators live
+#pragma unroll 1
+    for (int half = 0; half < 2 && live; ++half) {
+      const int c0 = half * 32;
+      float s[4][4], dp[4][4];  // transposed: the warp's keys x 32 of the tile's queries
+      {  // the warp's rows of K and V as A fragments, reloaded (registers are scarcer)
+        uint32_t f[HD / 16][4];
+        load_a<HD>(f, sK, warp, lane);
+        mma_abt<HD, 4>(s, f, cQ + c0 * LD, lane);
+        load_a<HD>(f, sV, warp, lane);
+        mma_abt<HD, 4>(dp, f, cG + c0 * LD, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = c0 + n * 8 + 2 * tq + (e & 1), r = e >> 1, j = col[r];
+          float p = 0.0f;
+          if (c < cn && j < N) {
+            const float b =
+                has_mask ? mask_in<M>(cM, c, (lead0 + c * N * (int)sizeof(M)) & 3, wc + 8 * r)
+                         : 0.0f;
+            p = ex2(fmaf(s[n][e], sl2, (b - cL[c]) * kLog2e));
+          }
+          const float m =
+              drop_factor<DROP>(key, (uint32_t)((i0 + c) * N + j), a.thresh, a.drop_scale);
+          s[n][e] = p * (dp[n][e] * m - cL[kCols + c]);  // ds
+          dp[n][e] = p * m;
+        }
+      }
+      mma_ab<HD, 4>(dv, dp, cG + c0 * LD, lane);
+      mma_ab<HD, 4>(dk, s, cQ + c0 * LD, lane);
+    }
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+  store_rows<HD>(a.dx[1] + seq * a.st[5][0] + h * a.st[5][1], a.st[5][2], col, N, dk, a.scale, tq);
+  store_rows<HD>(a.dx[2] + seq * a.st[6][0] + h * a.st[6][1], a.st[6][2], col, N, dv, 1.0f, tq);
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+template <int HD, typename M, bool DROP>
+int launch(const lvt::TcBwd& a, cudaStream_t stream) {
+  constexpr size_t kTile = kRows * (HD + 8) * sizeof(bf16);
+  constexpr size_t kMask = 2 * MaskTile<M>::kBytes;  // two stages
+  constexpr size_t smem_dq = 6 * kTile + kMask;  // Q, G and two stages of K, V
+  constexpr size_t smem_dkdv = 6 * kTile + 4 * kCols * sizeof(float) + kMask;
+  cudaError_t e = allow_smem(bwd_dq_kernel<HD, M, DROP>, smem_dq);
+  if (e == cudaSuccess) e = allow_smem(bwd_dkdv_kernel<HD, M, DROP>, smem_dkdv);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(a.nSeq * a.nH, (a.N + kRows - 1) / kRows);
+  bwd_dq_kernel<HD, M, DROP><<<grid, kThreads, smem_dq, stream>>>(a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  bwd_dkdv_kernel<HD, M, DROP><<<grid, kThreads, smem_dkdv, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_row_dot(const lvt::RowDot& a, cudaStream_t stream) {
+  const long long threads = (long long)a.nSeq * a.nH * a.N * (HD / 8);
+  row_dot_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int HD, typename M>
+int launch_drop(const lvt::TcBwd& a, cudaStream_t stream) {
+  return a.seed != nullptr ? launch<HD, M, true>(a, stream) : launch<HD, M, false>(a, stream);
+}
+
+template <typename M>
+int launch_hd(const lvt::TcBwd& a, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_drop<16, M>(a, stream);
+    case 32: return launch_drop<32, M>(a, stream);
+    case 64: return launch_drop<64, M>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+int lvt::attention_bwd_tc(const TcBwd& a, int hd, bool mask_f32, cudaStream_t stream) {
+  if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.nW <= 0 || a.nSeq % a.nW != 0 ||
+      (long long)a.nSeq * a.nH > 0x7fffffffLL || a.N > 65535 || a.dd == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return mask_f32 ? launch_hd<float>(a, hd, stream) : launch_hd<bf16>(a, hd, stream);
+}
+
+int lvt::attention_row_dot(const RowDot& a, int hd, cudaStream_t stream) {
+  if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.dd == nullptr) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch_row_dot<16>(a, stream);
+    case 32: return launch_row_dot<32>(a, stream);
+    case 64: return launch_row_dot<64>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}

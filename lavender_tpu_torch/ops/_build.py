@@ -64,6 +64,7 @@ _SIGNATURES = {
     "lvt_attention_heads_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _STRIDES, _I, _I, _I, _I, _I, _F,
                                      *_DROP, _P],
+    "lvt_attention_row_dot_bf16": [_P, _P, _STRIDES, _P, _I, _I, _I, _I, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
     "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
@@ -623,18 +624,40 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def _row_dot(out: Optional[torch.Tensor], dout: torch.Tensor,
+             what: str) -> torch.Tensor:
+    """D = rowsum(out * dout) in f32 [S, nH, L] of heads-layout out and dout
+    [S, nH, L, hd] (bf16, strides as in ``attention_heads``): the
+    tensor-core backward's D = rowsum(p * dp), from the forward's output."""
+    if out is None:
+        raise ValueError(f"{what}: the forward's output is required on the "
+                         "tensor-core route")
+    _heads_operands((out, dout), ("out", "dout"), what)
+    S, nH, L, hd = dout.shape
+    dd = torch.empty(S, nH, L, dtype=torch.float32, device=dout.device)
+    err = library().lvt_attention_row_dot_bf16(
+        out.data_ptr(), dout.data_ptr(), _strides(out, dout), dd.data_ptr(),
+        S, L, nH, hd, _stream(dout))
+    _raise_on(err, "lvt_attention_row_dot_bf16")
+    return dd
+
+
 def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dout: torch.Tensor, lse: torch.Tensor,
                         mask: torch.Tensor, scale: float,
                         seed: Optional[torch.Tensor] = None,
-                        rate: float = 0.0, dmask: bool = False):
+                        rate: float = 0.0, dmask: bool = False,
+                        out: Optional[torch.Tensor] = None):
     """Backward of ``attention_heads`` with dropout: q, k, v and the
     cotangent ``dout`` [B, nH, L, hd] (bf16, strides as there), the
     forward's lse [B, nH, L] and mask [B, L, L] (f32, the same buffer).
     Returns (dq, dk, dv) contiguous [B, nH, L, hd] bf16 and, with
     ``dmask``, the f32 [B, L, L] sum over heads of the scores' gradient
     (the same on every run: per-chunk partial sums, then one pass adding
-    them), else None."""
+    them), else None.  Without ``dmask`` the tensor-core kernels run
+    (``csrc/attention_bwd_tc.cu``) and need the forward's output ``out``
+    [B, nH, L, hd] (for D = rowsum(out * dout)); with it the f32-pipe
+    kernel."""
     _heads_operands((q, k, v, dout), ("q", "k", "v", "dout"),
                     "attention_heads_bwd")
     B, nH, L, hd = q.shape
@@ -643,8 +666,10 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, q.device)
     dq, dk, dv = (torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    n_chunks, part, dm = nH, None, None
-    if dmask:
+    if not dmask:
+        n_chunks, dm = nH, None
+        part = _row_dot(out, dout, "attention_heads_bwd")
+    else:
         # one block per (sequence, chunk of heads): enough chunks for two
         # blocks per SM, each summing its heads into its own f32 slice
         n_chunks = max(1, min(nH, -(-264 // B)))
@@ -701,14 +726,18 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   n_seq: int, n_tok: int, n_heads: int, scale: float,
                   bias: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
-                  seed: Optional[torch.Tensor] = None, rate: float = 0.0):
+                  seed: Optional[torch.Tensor] = None, rate: float = 0.0,
+                  out: Optional[torch.Tensor] = None):
     """Backward of ``attention`` (no keep vector).
 
     qkv [n_seq * N, 3C], dout [n_seq * N, C] (bf16), lse the forward's f32
     [n_seq, nH, N]; ``seed`` and ``rate`` the forward's dropout, whose bits
     are regenerated.  Returns (dqkv [n_seq * N, 3C] bf16, dbias [nH, N, N]
     f32 summed over every sequence, or None without a bias); the mask gets
-    no gradient."""
+    no gradient.  Without a bias the tensor-core kernels run
+    (``csrc/attention_bwd_tc.cu``) and need the forward's output ``out``
+    [n_seq * N, C] (for D = rowsum(out * dout)); with one the f32-pipe
+    kernel."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention_bwd")
     _check(dout, "attention_bwd dout")
@@ -718,9 +747,19 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention_bwd")
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, qkv.device)
     dqkv = torch.empty_like(qkv)
-    part = dbias = None
-    n_chunks = n_seq  # without a bias: one sequence per block
-    if bias is not None:
+    dbias = None
+    if bias is None:
+        n_chunks = n_seq
+        if (out is None or tuple(out.shape) != tuple(dout.shape)
+                or not out.is_contiguous()):
+            raise ValueError(f"attention_bwd: the forward's out, a "
+                             f"contiguous {tuple(dout.shape)}, is required "
+                             f"without a bias")
+
+        def heads(t):
+            return t.view(n_seq, n_tok, n_heads, hd).transpose(1, 2)
+        part = _row_dot(heads(out), heads(dout), "attention_bwd")
+    else:
         # sequences are split into chunks, one block per (chunk, head);
         # each chunk sums its dbias into its own f32 slice, a second pass
         # adds the slices (no atomics; the sum is the same on every run)

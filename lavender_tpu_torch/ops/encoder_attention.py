@@ -46,14 +46,17 @@ train route's attention o = (m * softmax(q k^T * scale + max(mask, -1e4)))
 v on q, k, v in lanes layout [B, L, C] (head h = columns h*hd..), with
 dropout m on the probabilities drawn from ``seed`` by the counter hash of
 ``dropout.py``, and its vjp, which regenerates m from the seed.  On the
-card both are the port's attention core and its backward
-(``csrc/attention.cu``, ``csrc/attention_bwd.cu``) on the packed qkv slab
-[B*L, 3C]: where q, k and v are column views of one such slab (the model's
-single qkv GEMM) it is passed without a copy.  The forward writes each
-row's log-sum-exp of the undropped scores; the backward takes it and the
-seed, so nothing [L, L]-shaped is stored between the two.  Bound: device
-memory (q, k, v, o and the [B, L, L] mask, each once) at the f32 pipes'
-speed of this first version, which runs far from it.
+card the forward is the port's attention core (``csrc/attention.cu``) and
+the backward the tensor-core kernels of ``csrc/attention_bwd_tc.cu``
+(mma.sync tiles; D = rowsum(o * g) from the forward's output, as
+FlashAttention-2 forms it), both on the packed qkv slab [B*L, 3C]: where
+q, k and v are column views of one such slab (the model's single qkv
+GEMM) it is passed without a copy.  The forward writes each row's
+log-sum-exp of the undropped scores; the backward takes it, the output
+and the seed, so nothing [L, L]-shaped is stored between the two.  Bound:
+device memory (the forward: q, k, v, o and the [B, L, L] mask, each once;
+the backward also g, dq, dk, dv); the forward's f32-pipe core runs far
+from it.
 
 ``fused_encoder_attention_train`` replaces the TPU kernel
 ``_enc_attn_train_kernel`` (K13a, lavender_tpu/ops/encoder_attention.py:526,
@@ -61,16 +64,17 @@ wrapper ``fused_encoder_attention_train`` :670) and
 ``encoder_attention_train_bwd`` its backward ``_enc_attn_train_bwd_kernel``
 (K13b, :555, ``_train_bwd`` :696): the same train attention and vjp on q,
 k, v in heads layout [B, nH, L, hd], which the fusion encoder runs under
-``LVT_ATTNLANES=0``.  On the card: the heads-layout instantiations of the
-attention core and its backward, each operand read by its own (sequence,
-head, row) strides (strided views of one qkv product in place), under the
-f32 [B, L, L] mask that forward and backward both read (never a bf16
-copy: its -1e4 would round), with the bits of K10's hash at the logical
+``LVT_ATTNLANES=0``.  On the card: the heads-layout instantiation of the
+attention core and the tensor-core backward, each operand read by its own
+(sequence, head, row) strides (strided views of one qkv product in place),
+under the f32 [B, L, L] mask that forward and backward both read (never a
+bf16 copy: its -1e4 would round), with the bits of K10's hash at the logical
 (sequence, head, row, key), so K13 on heads views and K10 on the [B, L, C]
 tensors they view drop the same probabilities.  K13b also forms, where the
 mask requires grad, the TPU kernel's dmask = the sum over heads of the
 scores' gradient, zeroed where the mask is <= -1e4 (its wrapper's rule,
-:715); the model's mask never does, so its step pays nothing for it.
+:715), on the f32-pipe backward of ``csrc/attention_bwd.cu``; the model's
+mask never does, so its step pays nothing for it.
 Bound: device memory (q, k, v, o and the mask, each once; the backward
 also g, dq, dk, dv).
 """
@@ -216,10 +220,12 @@ def _lanes_plain(q, k, v, mask, seed, scale, rate, nH):
     return o.to(q.dtype)
 
 
-def _lanes_bwd_plain(q, k, v, mask, seed, g, scale, rate, nH, lse=None):
+def _lanes_bwd_plain(q, k, v, mask, seed, g, scale, rate, nH, lse=None,
+                     o=None):
     """Plain PyTorch version of ``encoder_attention_train_lanes_bwd``:
-    autograd of ``_lanes_plain`` (``lse``, the kernel forward's row
-    log-sum-exp, is not needed here).  Returns (dq, dk, dv)."""
+    autograd of ``_lanes_plain`` (``lse`` and ``o``, the kernel forward's
+    row log-sum-exp and output, are not needed here).  Returns (dq, dk,
+    dv)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = _lanes_plain(*ins, mask, seed, scale, rate, nH)
@@ -248,15 +254,17 @@ def _check_lanes(q, k, v, mask, nH, what):
 
 
 def _lanes_bwd_cuda(q, k, v, mask, seed, g, scale, rate, nH,
-                    lse: Optional[torch.Tensor] = None):
+                    lse: Optional[torch.Tensor] = None,
+                    o: Optional[torch.Tensor] = None):
     _check_lanes(q, k, v, mask, nH, "encoder_attention_train_lanes_bwd")
-    if lse is None:
+    if lse is None or o is None:
         raise ValueError("encoder_attention_train_lanes_bwd: the forward's "
-                         "lse is required on the card")
+                         "lse and output are required on the card")
     B, L, C = q.shape
     dqkv, _ = _build.attention_bwd(
         _packed(q, k, v), lse, g.contiguous().view(B * L, C), B, L, nH, scale,
-        mask=mask.contiguous(), seed=seed, rate=rate)
+        mask=mask.contiguous(), seed=seed, rate=rate,
+        out=o.contiguous().view(B * L, C))
     d = dqkv.view(B, L, 3 * C)
     return d[..., :C], d[..., C:2 * C], d[..., 2 * C:]
 
@@ -268,9 +276,10 @@ encoder_attention_train_lanes_bwd = _build.KernelOp(
 
 class _LanesFn(torch.autograd.Function):
     """K10a with K10b as its backward.  Saves the qkv slab, the mask, the
-    rows' log-sum-exp and the seed tensor (never an [L, L] dropout mask);
-    the mask gets no gradient (it is built from token masks, never a
-    leaf; the JAX backward computes one and the model discards it)."""
+    rows' log-sum-exp, the output (the tensor the out-proj K11 saves too)
+    and the seed tensor (never an [L, L] dropout mask); the mask gets no
+    gradient (it is built from token masks, never a leaf; the JAX
+    backward computes one and the model discards it)."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
@@ -281,19 +290,21 @@ class _LanesFn(torch.autograd.Function):
         lse = torch.empty(B, nH, L, dtype=torch.float32, device=q.device)
         out = _build.attention(qkv, B, L, nH, scale, mask=mask, lse=lse,
                                seed=seed, rate=rate)
-        ctx.save_for_backward(qkv, mask, lse, seed)
+        out = out.view(B, L, C)
+        ctx.save_for_backward(qkv, mask, lse, out, seed)
         ctx.args = (scale, rate, nH)
-        return out.view(B, L, C)
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        qkv, mask, lse, seed = ctx.saved_tensors
+        qkv, mask, lse, out, seed = ctx.saved_tensors
         scale, rate, nH = ctx.args
         B, L, C = g.shape
         q, k, v = qkv.view(B, L, 3 * C).split(C, dim=-1)
         dq, dk, dv = encoder_attention_train_lanes_bwd(
-            q, k, v, mask, seed, g.to(qkv.dtype), scale, rate, nH, lse=lse)
+            q, k, v, mask, seed, g.to(qkv.dtype), scale, rate, nH, lse=lse,
+            o=out)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -328,11 +339,11 @@ def _heads_train_plain(q, k, v, mask, seed, scale, rate):
 
 
 def _heads_train_bwd_plain(q, k, v, mask, seed, g, scale, rate, lse=None,
-                           dmask=False):
+                           dmask=False, o=None):
     """Plain PyTorch version of ``encoder_attention_train_bwd``: autograd of
-    ``_heads_train_plain`` (``lse``, the kernel forward's row log-sum-exp,
-    is not needed here).  Returns (dq, dk, dv, dmask [B, L, L] f32 or
-    None)."""
+    ``_heads_train_plain`` (``lse`` and ``o``, the kernel forward's row
+    log-sum-exp and output, are not needed here).  Returns (dq, dk, dv,
+    dmask [B, L, L] f32 or None)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         m = mask.detach().float().requires_grad_(dmask)
@@ -357,16 +368,17 @@ def _clamped_mask(mask):
 
 
 def _heads_train_bwd_cuda(q, k, v, mask, seed, g, scale, rate, lse=None,
-                          dmask=False):
+                          dmask=False, o=None):
     _check_heads(q, k, v, mask, "encoder_attention_train_bwd")
-    if lse is None:
-        raise ValueError("encoder_attention_train_bwd: the forward's lse is "
-                         "required on the card")
+    if lse is None or (o is None and not dmask):
+        raise ValueError("encoder_attention_train_bwd: the forward's lse "
+                         "(and, without dmask, its output) is required on "
+                         "the card")
     m = _clamped_mask(mask)
     bf = torch.bfloat16
     dq, dk, dv, dm = _build.attention_heads_bwd(
         q.to(bf), k.to(bf), v.to(bf), g.to(bf), lse, m, scale, seed=seed,
-        rate=rate, dmask=dmask)
+        rate=rate, dmask=dmask, out=o)
     if dm is not None:
         dm.masked_fill_(m <= -1e4, 0.0)
     return dq, dk, dv, dm
@@ -381,8 +393,8 @@ class _HeadsTrainFn(torch.autograd.Function):
     """K13a with K13b as its backward.  Casts q, k and v to bf16 itself
     and keeps the mask f32 (``custom_fwd(cast_inputs=bfloat16)`` would
     round -1e4 and take finfo(f32).min to -inf); saves q, k, v (views, in
-    place), the clamped f32 mask, the rows' log-sum-exp and the seed
-    tensor, never an [L, L] dropout mask."""
+    place), the clamped f32 mask, the rows' log-sum-exp, the output and
+    the seed tensor, never an [L, L] dropout mask."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
@@ -394,18 +406,18 @@ class _HeadsTrainFn(torch.autograd.Function):
         lse = torch.empty(B, nH, L, dtype=torch.float32, device=q.device)
         out = _build.attention_heads(q, k, v, m, scale, lse=lse, seed=seed,
                                      rate=rate)
-        ctx.save_for_backward(q, k, v, m, lse, seed)
+        ctx.save_for_backward(q, k, v, m, lse, out, seed)
         ctx.args = (scale, rate)
         return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        q, k, v, m, lse, seed = ctx.saved_tensors
+        q, k, v, m, lse, out, seed = ctx.saved_tensors
         scale, rate = ctx.args
         dq, dk, dv, dm = encoder_attention_train_bwd(
             q, k, v, m, seed, g, scale, rate, lse=lse,
-            dmask=ctx.needs_input_grad[3])
+            dmask=ctx.needs_input_grad[3], o=out)
         return dq, dk, dv, dm, None, None, None
 
 

@@ -7,7 +7,9 @@ serving).
 Pallas interpret mode stubs the TPU's random bits to zero (rate > 0 drops
 everything there), so at rate 0 the port goes against the JAX kernel
 ``fused_encoder_attention_train`` in interpret mode (4 heads of 16, L = 29,
-which the JAX kernel pads to 32) and its custom_vjp, dmask included; at
+which the JAX kernel pads to 32; also L = 65 and 130, across the 64-row
+tiles of the CUDA backward, whose plain version is checked there) and its
+custom_vjp, dmask included; at
 rate 0.3 against a JAX oracle fed the port's own keep mask, forward and
 vjp.  Tolerance 1e-4: f32, but the JAX kernel runs an exp2 softmax without
 max-subtraction.  K13 and K10 on the same q, k, v (heads views and the
@@ -44,24 +46,25 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _inputs(seed):
+def _inputs(seed, n_tok=L):
     g = np.random.RandomState(seed)
-    return [g.randn(B, NH, L, HD).astype(np.float32) for _ in range(4)]
+    return [g.randn(B, NH, n_tok, HD).astype(np.float32) for _ in range(4)]
 
 
-def _mask(kind, seed):
-    """Additive [B, L, L]: key padding at finfo(f32).min, or a random full
-    mask at exactly -1e4 (the clamp's edge), each row keeping its
-    diagonal key."""
+def _mask(kind, seed, n_tok=L):
+    """Additive [B, n_tok, n_tok]: key padding at finfo(f32).min, or a
+    random full mask at exactly -1e4 (the clamp's edge), each row keeping
+    its diagonal key."""
     g = np.random.RandomState(seed)
     if kind == "padding":
-        keep = np.ones((B, L), bool)
+        keep = np.ones((B, n_tok), bool)
         keep[1, 20:] = False
         keep[0, 4] = False
         m = np.where(keep, 0.0, np.finfo(np.float32).min)[:, None, :]
-        return np.broadcast_to(m, (B, L, L)).astype(np.float32)
-    m = np.where(g.rand(B, L, L) < 0.3, -1e4, g.randn(B, L, L))
-    m[:, np.arange(L), np.arange(L)] = 0.0
+        return np.broadcast_to(m, (B, n_tok, n_tok)).astype(np.float32)
+    m = np.where(g.rand(B, n_tok, n_tok) < 0.3, -1e4,
+                 g.randn(B, n_tok, n_tok))
+    m[:, np.arange(n_tok), np.arange(n_tok)] = 0.0
     return m.astype(np.float32)
 
 
@@ -86,13 +89,16 @@ def _close(got, want, tol=TOL, name=""):
                                err_msg=name)
 
 
-@pytest.mark.parametrize("kind", ["padding", "full"])
-def test_rate0_matches_jax_kernel_and_vjp_interpret(kind):
+@pytest.mark.parametrize("kind,n_tok", [
+    pytest.param("padding", L, id="padding"), pytest.param("full", L, id="full"),
+    pytest.param("padding", 65, id="padding-L65"),
+    pytest.param("full", 130, id="full-L130")])
+def test_rate0_matches_jax_kernel_and_vjp_interpret(kind, n_tok):
     """Output, dq, dk, dv and dmask (the JAX backward's sum over heads,
     zeroed where the mask is <= -1e4) against the interpret-mode kernel
     and its custom_vjp."""
-    q, k, v, g = _inputs(0)
-    mask = _mask(kind, 1)
+    q, k, v, g = _inputs(0, n_tok)
+    mask = _mask(kind, 1, n_tok)
 
     @jax.jit
     def out_and_grads(*a):

@@ -5,7 +5,9 @@ counter-based dropout hash they share with the CUDA kernels.
 
 Pallas interpret mode stubs the TPU's random bits to zero (rate > 0 drops
 everything there), so at rate 0 the port goes against the JAX kernels in
-interpret mode (C = 64, 4 heads, L = 29, which the JAX kernel pads to 32),
+interpret mode (C = 64, 4 heads, L = 29, which the JAX kernel pads to 32;
+the attention also at L = 65 and 130, across the 64-row tiles of the CUDA
+backward, so that the plain version it is held to is checked there),
 and at rate > 0 against the JAX oracles fed the port's own keep mask: the
 softmax-dropout-PV oracle of ``tests/test_encoder_attention.py`` for K10,
 ``_out_ln_reference_masked`` and ``_ffn_reference_masked`` for K11 and K12,
@@ -37,23 +39,23 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _qkv(seed):
+def _qkv(seed, n_tok=L):
     g = np.random.RandomState(seed)
-    return [g.randn(B, L, C).astype(np.float32) for _ in range(4)]
+    return [g.randn(B, n_tok, C).astype(np.float32) for _ in range(4)]
 
 
-def _mask(kind, seed):
-    """Additive [B, L, L]: a key-padding mask at finfo(f32).min, or a
-    random full mask at -1e4 (every row keeps its diagonal key)."""
+def _mask(kind, seed, n_tok=L):
+    """Additive [B, n_tok, n_tok]: a key-padding mask at finfo(f32).min, or
+    a random full mask at -1e4 (every row keeps its diagonal key)."""
     g = np.random.RandomState(seed)
     if kind == "padding":
-        keep = np.ones((B, L), bool)
+        keep = np.ones((B, n_tok), bool)
         keep[1, 17:] = False
         keep[0, 3] = False
         m = np.where(keep, 0.0, np.finfo(np.float32).min)[:, None, :]
-        return np.broadcast_to(m, (B, L, L)).astype(np.float32)
-    m = np.where(g.rand(B, L, L) < 0.3, -1e4, 0.0)
-    m[:, np.arange(L), np.arange(L)] = 0.0
+        return np.broadcast_to(m, (B, n_tok, n_tok)).astype(np.float32)
+    m = np.where(g.rand(B, n_tok, n_tok) < 0.3, -1e4, 0.0)
+    m[:, np.arange(n_tok), np.arange(n_tok)] = 0.0
     return m.astype(np.float32)
 
 
@@ -74,10 +76,13 @@ def _close(got, want):
     np.testing.assert_allclose(got, np.asarray(want), atol=TOL, rtol=TOL)
 
 
-@pytest.mark.parametrize("kind", ["padding", "full"])
-def test_attention_rate0_matches_jax_kernel_interpret(kind):
-    q, k, v, g = _qkv(0)
-    mask = _mask(kind, 1)
+@pytest.mark.parametrize("kind,n_tok", [
+    pytest.param("padding", L, id="padding"), pytest.param("full", L, id="full"),
+    pytest.param("padding", 65, id="padding-L65"),
+    pytest.param("full", 130, id="full-L130")])
+def test_attention_rate0_matches_jax_kernel_interpret(kind, n_tok):
+    q, k, v, g = _qkv(0, n_tok)
+    mask = _mask(kind, 1, n_tok)
     jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
     with pltpu.force_tpu_interpret_mode():
         want, vjp = jax.vjp(

@@ -281,7 +281,7 @@ def _meta_args(op):
     if op is encoder_attention_train_lanes_bwd:
         lse = torch.zeros(2, nH, 8, device="meta")
         return (t(2, 8, C), t(2, 8, C), t(2, 8, C), t(2, 8, 8), seed,
-                t(2, 8, C), 0.25, 0.1, nH), {"lse": lse}
+                t(2, 8, C), 0.25, 0.1, nH), {"lse": lse, "o": t(2, 8, C)}
     q = t(2, nH, 8, C // nH)
     if op is fused_encoder_attention_train:
         return (q, q, q, t(2, 8, 8).float(), seed, 0.25, 0.1), {}

@@ -27,7 +27,11 @@ requires it), the keep masks K13a and K10a draw, read back from the
 kernels and equal to ``dropout.attention_keep`` bit for bit, and the raise
 on what the K13 kernels do not take or cannot launch; K1 launched
 outside autograd under bf16 autocast on f32 inputs (a model in ``eval()``
-mode over f32 weights), cast as its autograd Function casts.
+mode over f32 weights), cast as its autograd Function casts; the
+tensor-core backward of K10b / K13b at lengths across its 64-row tiles
+(1 to 276), head dims 16/32/64, the packed slab, heads views and
+contiguous heads, rates 0 / 0.1 / 0.5, padded-key and seq2seq masks with
+a fully masked row, each call repeated and bitwise equal.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -938,3 +942,74 @@ def test_heads_train_wrappers_raise(gen):
                                       torch.zeros(1, 1000, 1000,
                                                   device="cuda"),
                                       seed, 0.25, 0.1)
+
+
+def _train_bwd_masks(B, L):
+    """{kind: f32 [B, L, L] additive mask at finfo(f32).min}: padded keys
+    (sequence 1 loses its last third of keys) and the seq2seq mask (every
+    row sees the first ~2/3 "video" keys, the rest causally) with one
+    fully masked row."""
+    big_neg = torch.finfo(torch.float32).min
+    pad = torch.zeros(B, L, L, device="cuda")
+    pad[1 % B, :, L - L // 3:] = big_neg
+    n_vid = L - L // 3
+    keep = torch.zeros(L, L, dtype=torch.bool, device="cuda")
+    keep[:, :n_vid] = True
+    keep[n_vid:, n_vid:] = torch.ones(L - n_vid, L - n_vid, dtype=torch.bool,
+                                      device="cuda").tril()
+    s2s = torch.where(keep, 0.0, big_neg).expand(B, L, L).contiguous()
+    s2s[0, L // 2] = big_neg  # every key masked
+    return {"padded keys": pad, "seq2seq": s2s}
+
+
+@pytest.mark.parametrize("L", [1, 17, 63, 64, 65, 275, 276])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("layout", ["packed", "heads views", "heads"])
+def test_train_attention_bwd_tensor_cores_match_plain(gen, L, hd, layout):
+    """K10b (the packed slab, bf16 mask) and K13b without dmask (heads
+    views of a slab or contiguous heads, f32 mask) on the tensor-core
+    kernels: at lengths that cross the 64-row tiles' edges, each head dim,
+    rates 0, 0.1 and 0.5, a padded-key and a seq2seq mask with a fully
+    masked row: dq, dk and dv each against the plain version, and a second
+    call bitwise equal (no atomics).  At L = 1 dq and dk are exactly 0 (a
+    softmax over one key has no gradient), both sides round to ~1e-8, and
+    only their largest error is held to the bound."""
+    B, nH = 3, 2
+    C = nH * hd
+    scale = hd ** -0.5
+    slab = _rnd(gen, B, L, 3 * C)
+    g = _rnd(gen, B, L, C)
+    seed = torch.tensor([8642], device="cuda")
+    if layout == "packed":
+        q, k, v = slab.split(C, dim=-1)
+    elif layout == "heads views":
+        q, k, v = slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4)
+        g = g.view(B, L, nH, hd).transpose(1, 2).contiguous()
+    else:
+        q, k, v = (t.view(B, L, nH, hd).transpose(1, 2).contiguous()
+                   for t in slab.split(C, dim=-1))
+        g = g.view(B, L, nH, hd).transpose(1, 2).contiguous()
+    for kind, mask in _train_bwd_masks(B, L).items():
+        for rate in (0.0, 0.1, 0.5):
+            lse = torch.empty(B, nH, L, device="cuda")
+            if layout == "packed":
+                m = mask.clamp_min(-1e4).to(torch.bfloat16)
+                o = _build.attention(slab.view(B * L, 3 * C), B, L, nH, scale,
+                                     mask=m, lse=lse, seed=seed, rate=rate)
+                op, args = encoder_attention_train_lanes_bwd, (
+                    q, k, v, m, seed, g, scale, rate, nH)
+                o = o.view(B, L, C)
+            else:
+                o = _build.attention_heads(q, k, v, mask.clamp_min(-1e4),
+                                           scale, lse=lse, seed=seed,
+                                           rate=rate)
+                op, args = encoder_attention_train_bwd, (
+                    q, k, v, mask, seed, g, scale, rate)
+            before = op.launches
+            got = op(*args, lse=lse, o=o)[:3]
+            again = op(*args, lse=lse, o=o)[:3]
+            assert op.launches == before + 2
+            want = op.plain(*args, lse=lse, o=o)[:3]
+            for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
+                assert torch.equal(a, b), (kind, rate, name)
+                _close(a, c, rel_l2=5e-2 if L > 1 or name == "dv" else None)

@@ -21,10 +21,10 @@ nothing is ever run on the CPU instead:
    not hidden under the O(1) residual; for K8b dq, dk, dv and dbias each;
    the BERT train kernels with dropout on and the same seed on both sides
    (K10a at rate 0.1 and 0.5, K10b's dq, dk and dv each, K11's and K12's
-   keep masks exactly equal), on a key mask with padded captions; K10b
-   (the tensor-core backward) also at rate 0.5 and under the seq2seq mask
-   at L=276 and the caption step's L=275, each call repeated and
-   required bitwise equal; K6 (the
+   keep masks exactly equal), on a key mask with padded captions; K10a
+   and K10b (the tensor-core forward and backward) also at rate 0.5 and
+   under the seq2seq mask at L=276 and the caption step's L=275, each
+   call repeated and required bitwise equal; K6 (the
    sub-block under a full mask) and K7 (the heads-layout core) at the
    seq2seq forward's B=4, L=275 under the seq2seq mask and a random 0/1
    mask, K6 also at the re-encode decoder's first and last L (252, 270);
@@ -41,10 +41,13 @@ nothing is ever run on the CPU instead:
    B=4 and B=8, also minus its residual, its output's pad rows exactly 0;
    K13a / K13b (the heads-layout train attention of LVT_ATTNLANES=0) at
    the retrieval step's 64 pairs, L=276, rate 0.1, on heads views of one
-   qkv slab, under a padding and a seq2seq mask (f32), K13b (the
-   tensor-core backward) also at rate 0.5 and at L=275 under the seq2seq
-   mask, each call repeated and required bitwise equal, and with the
-   mask's gradient (the f32-pipe kernel); the keep masks K13a and K10a
+   qkv slab, under a padding and a seq2seq mask (f32), K13a and K13b
+   (the tensor-core forward and backward) also at rate 0.5 and at L=275
+   under the seq2seq mask, each call repeated and required bitwise
+   equal, K13b also with the mask's gradient (the f32-pipe kernel); the
+   lse K10a and K13a write against the logsumexp of the plain scores
+   (f64, within 1e-3) at rates 0.1 and 0.5 under both masks and at
+   L=275, a second call bitwise equal; the keep masks K13a and K10a
    draw from one seed, read back from the kernels, each exactly
    ``dropout.attention_keep``, and
    their outputs equal to bf16 rounding; K13's one-call yardstick is
@@ -741,7 +744,9 @@ def _bert_train_cases(g, lin, ln):
     (clip, text) pairs at L = 276, C = 768, 12 heads, dropout on (the
     same seed for kernel and plain version).  The step's own key mask
     is all ones (every caption 26 tokens), so the mask here pads some
-    captions, as a batch of shorter ones would."""
+    captions, as a batch of shorter ones would; K10a and K10b also under
+    the caption step's seq2seq mask at L = 276 and 275, and at rate 0.5,
+    each call repeated and bitwise equal."""
     import torch.nn.functional as F
 
     from lavender_tpu_torch.ops import _build
@@ -773,9 +778,26 @@ def _bert_train_cases(g, lin, ln):
             fused_encoder_attention_train_lanes, f"B={B} L={L} C={C} "
             f"nH={nH} rate {rate}, padded keys", count,
             (q, k, v, mask, seed, scale, rate, nH), core_flops,
-            4 * slab_bytes + mask_bytes + lse_bytes,
+            4 * slab_bytes + mask_bytes + lse_bytes, bitwise_repeat=True,
             library=lambda r=rate: F.scaled_dot_product_attention(
                 *sdpa, attn_mask=sdpa_mask, dropout_p=r, scale=scale)))
+    # the caption step's seq2seq mask (a row per text token sees the video
+    # and the text before it), at L = 250 + 26 and its own 250 + 25
+    s2s_masks = {n_txt: torch.where(
+        _seq2seq_keep(B, L - TXT_LEN, n_txt), 0.0, -1e4).to(torch.bfloat16)
+        for n_txt in (TXT_LEN, CAP_LEN)}
+    for n_txt, s2s in s2s_masks.items():
+        n_tok = L - TXT_LEN + n_txt
+        slab_t = slab if n_tok == L else _rnd(g, B, n_tok, 3 * C)
+        for rate in (0.1, 0.5):
+            cases.append(Case(
+                fused_encoder_attention_train_lanes, f"B={B} L={n_tok} "
+                f"C={C} nH={nH} rate {rate}, seq2seq mask", 0,
+                (*slab_t.split(C, dim=-1), s2s, seed, scale, rate, nH),
+                4.0 * B * nH * n_tok * n_tok * hd,
+                4 * B * n_tok * C * 2 + s2s.numel() * 2 + B * nH * n_tok * 4,
+                bitwise_repeat=True))
+
     def bwd_case(n_tok, kind, mask, rate, count, library=None):
         """K10b (the tensor-core backward) on a slab of n_tok tokens, its
         lse from K10a's forward; checked twice for the same bits."""
@@ -803,11 +825,7 @@ def _bert_train_cases(g, lin, ln):
     cases.append(bwd_case(L, "padded keys", mask, 0.1, layers, library=(
         lambda: torch.autograd.grad(o, leaves, d_heads, retain_graph=True))))
     cases.append(bwd_case(L, "padded keys", mask, 0.5, 0))
-    # the caption step's seq2seq mask (a row per text token sees the video
-    # and the text before it), at L = 250 + 26 and its own 250 + 25
-    for n_txt in (TXT_LEN, CAP_LEN):
-        keep = _seq2seq_keep(B, L - TXT_LEN, n_txt)
-        s2s = torch.where(keep, 0.0, -1e4).to(torch.bfloat16)
+    for n_txt, s2s in s2s_masks.items():
         for rate in (0.1, 0.5):
             cases.append(bwd_case(L - TXT_LEN + n_txt, "seq2seq mask", s2s,
                                   rate, 0))
@@ -847,7 +865,9 @@ def _heads_train_cases(g):
     L = 276, 12 heads of 64, rate 0.1 (the same seed for kernel and plain
     version), q, k and v the [B, nH, L, hd] views of one qkv slab that the
     model passes; the key mask padding some captions and the seq2seq mask,
-    both f32 at 0 / finfo(f32).min as the model passes them; K13b also with
+    both f32 at 0 / finfo(f32).min as the model passes them; K13a and K13b
+    also at rate 0.5 and at the caption step's L = 275 (seq2seq), each
+    call repeated and bitwise equal; K13b also with
     the mask's gradient (dmask, checked only: the model's mask never
     requires grad).  Timed into the kernels line: the padded-keys shape,
     12 calls a step.  The one-call yardstick: scaled_dot_product_attention
@@ -880,13 +900,16 @@ def _heads_train_cases(g):
     for kind, mask in masks.items():
         count = layers if kind == "padded keys" else 0
         sdpa_mask = mask.clamp_min(-1e4)[:, None].to(torch.bfloat16)
-        cases.append(Case(
-            fused_encoder_attention_train, f"B={B} nH={nH} L={L} hd={hd} "
-            f"rate {rate}, {kind}, heads views of the qkv slab", count,
-            (q, k, v, mask, seed, scale, rate), core_flops,
-            4 * slab_bytes + mask_bytes + lse_bytes,
-            library=lambda m=sdpa_mask: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=m, dropout_p=rate, scale=scale)))
+        for r in (rate, 0.5):  # 0.5 checked only
+            cases.append(Case(
+                fused_encoder_attention_train, f"B={B} nH={nH} L={L} "
+                f"hd={hd} rate {r}, {kind}, heads views of the qkv slab",
+                count if r == rate else 0,
+                (q, k, v, mask, seed, scale, r), core_flops,
+                4 * slab_bytes + mask_bytes + lse_bytes, bitwise_repeat=True,
+                library=None if r != rate else (
+                    lambda m=sdpa_mask: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=m, dropout_p=rate, scale=scale))))
         lse = torch.empty(B, nH, L, device="cuda")
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
@@ -922,6 +945,13 @@ def _heads_train_cases(g):
     lse_c = torch.empty(B, nH, n_tok, device="cuda")
     out_c = _build.attention_heads(qc, kc, vc, mask_c.clamp_min(-1e4), scale,
                                    lse=lse_c, seed=seed, rate=rate)
+    cases.append(Case(
+        fused_encoder_attention_train, f"B={B} nH={nH} L={n_tok} hd={hd} "
+        f"rate {rate}, seq2seq mask, heads views of the qkv slab", 0,
+        (qc, kc, vc, mask_c, seed, scale, rate),
+        4.0 * B * nH * n_tok * n_tok * hd,
+        4 * B * n_tok * C * 2 + B * n_tok * n_tok * 4 + B * nH * n_tok * 4,
+        bitwise_repeat=True))
     cases.append(Case(
         encoder_attention_train_bwd, f"B={B} nH={nH} L={n_tok} hd={hd} "
         f"rate {rate}, seq2seq mask", 0,
@@ -995,6 +1025,57 @@ def _heads_vs_lanes(g):
     if n_diff["K13a"] or n_diff["K10a"] or not ok:
         raise AssertionError("K13a and K10a draw other keep masks or "
                              "disagree")
+
+
+def _train_fwd_lse(g):
+    """The row log-sum-exp that K10a and K13a (the tensor-core forward)
+    write for their backward, against torch.logsumexp of the plain scores
+    in f64, at the train step's 64 pairs and 12 heads of 64, rates 0.1 and
+    0.5: padded keys and the seq2seq mask at L = 276, the seq2seq mask at
+    the caption step's L = 275 (K10a's mask bf16, K13a's f32, both at
+    -1e4 as the Functions clamp them); max |lse - want| <= 1e-3 and a
+    second call bitwise equal."""
+    from lavender_tpu_torch.ops import _build
+
+    B, C, nH, L = TRAIN_BATCH ** 2, 768, 12, FRAMES * 50 + TXT_LEN
+    hd = C // nH
+    scale = hd ** -0.5
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    n_txt = torch.randint(5, TXT_LEN + 1, (B,), generator=g, device="cuda")
+    pad = torch.arange(L, device="cuda")[None] >= L - TXT_LEN + n_txt[:, None]
+    masks = [(L, "padded keys", torch.where(pad, -1e4, 0.0)[:, None, :]
+              .expand(B, L, L).contiguous())]
+    masks += [(L - TXT_LEN + n, "seq2seq mask", torch.where(
+        _seq2seq_keep(B, L - TXT_LEN, n), 0.0, -1e4)) for n in (TXT_LEN,
+                                                               CAP_LEN)]
+    for n_tok, kind, mask in masks:
+        slab = _rnd(g, B, n_tok, 3 * C)
+        q, k, v = slab.view(B, n_tok, 3, nH, hd).permute(2, 0, 3, 1, 4)
+        for name, m in (("K10a", mask.to(torch.bfloat16)), ("K13a", mask)):
+            want = torch.logsumexp(
+                (q.double() @ k.double().transpose(-1, -2)) * scale
+                + m.double()[:, None], dim=-1)
+            for rate in (0.1, 0.5):
+                got = [torch.empty(B, nH, n_tok, device="cuda")
+                       for _ in range(2)]
+                for lse in got:
+                    if name == "K10a":
+                        _build.attention(slab.view(B * n_tok, 3 * C), B,
+                                         n_tok, nH, scale, mask=m, lse=lse,
+                                         seed=seed, rate=rate)
+                    else:
+                        _build.attention_heads(q, k, v, m, scale, lse=lse,
+                                               seed=seed, rate=rate)
+                err = float((got[0].double() - want).abs().max())
+                same = torch.equal(got[0], got[1])
+                print(f"[kernel] {name} lse, B={B} L={n_tok} rate {rate}, "
+                      f"{kind}: max |lse - logsumexp of the plain scores| "
+                      f"{err:.3g} (<= 1e-3), a second call "
+                      f"{'bitwise equal' if same else 'DIFFERS'}",
+                      flush=True)
+                if err > 1e-3 or not same:
+                    raise AssertionError(f"{name} lse, L={n_tok} rate {rate}"
+                                         f", {kind}: off or not repeatable")
 
 
 def _bert_core_vs_sdpa(g):
@@ -1082,6 +1163,7 @@ def check_kernels():
         if lib_ms is not None:
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
     _heads_vs_lanes(g)
+    _train_fwd_lse(g)
     core_ms, sdpa_ms = _bert_core_vs_sdpa(g)
     print(f"[kernel] K4's attention core alone, B={BATCH} L=276 (kernel "
           f"core vs scaled_dot_product_attention): {core_ms:.4f} ms vs "
@@ -2525,17 +2607,17 @@ def main() -> int:
                 "lavender_tpu/ops/swin_core_attn.py:147"),
         "K9": ("lavender_tpu_torch/csrc/gemm.cu",
                "lavender_tpu/ops/fused_mlp.py:91"),
-        "K10a": ("lavender_tpu_torch/csrc/attention.cu",
+        "K10a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:750"),
-        "K10b": ("lavender_tpu_torch/csrc/attention_bwd.cu",
+        "K10b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:780"),
         "K11": ("lavender_tpu_torch/csrc/layernorm.cu",
                 "lavender_tpu/ops/fused_mlp.py:505"),
         "K12": ("lavender_tpu_torch/csrc/layernorm.cu",
                 "lavender_tpu/ops/fused_mlp.py:379"),
-        "K13a": ("lavender_tpu_torch/csrc/attention.cu",
+        "K13a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:526"),
-        "K13b": ("lavender_tpu_torch/csrc/attention_bwd.cu",
+        "K13b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:555"),
         "K14a": ("lavender_tpu_torch/csrc/layernorm.cu",
                  "lavender_tpu/ops/swin_block_attn.py:468"),

@@ -30,35 +30,29 @@
 // Bias and mask stay additive and finite (-100 pad keys / shift mask), as in
 // the reference.
 //
-// It is also the forward of the BERT train attention K10a
-// (lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_kernel): a
-// per-sequence [B, N, N] mask (nW = B, clamped at -1e4 by the caller) and
-// dropout on the probabilities with its bits drawn from the counter hash of
-// dropout.cuh (stream seq * nH + h, index i * N + j), so the backward
-// regenerates them.  As in the TPU kernel, the mask multiplies p only in the
-// P.V sum: the row sum l and the log-sum-exp are those of the undropped
-// softmax, o = ((m * p) v) / l.  The heads-layout instantiation with the
-// same dropout and log-sum-exp is the heads-layout train attention K13a
-// (_enc_attn_train_kernel): its counter is the logical (sequence, head,
-// row, key), never an address, so K13a on heads views of q, k, v and K10a
-// on the [B, N, C] tensors they view draw the same mask from one seed.
-// The ragged N (276) is masked in the loops, not padded as on the TPU.
+// The fusion encoder's train attention (K10a, _enc_attn_train_lanes_kernel,
+// and K13a, _enc_attn_train_kernel: the calls that write lse without a
+// bias or key-keep, with or without dropout) runs on the tensor cores
+// instead: the C entries below hand those calls to attention_fwd_tc.cu.
+// This core takes no dropout; the ragged N is masked in the loops, not
+// padded as on the TPU.
 //
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
-// first version runs them on the f32 pipes, one query row per thread (rows
+// core runs them on the f32 pipes, one query row per thread (rows
 // split over several blocks where the (sequence, head) grid is too small
 // for the card), with
 // K and V of the (window, head) in shared memory (2 * N * hd * 2 bytes: 31 KB
 // for a Swin window, 71 KB for a 276-token BERT sequence) read as
 // warp-broadcast 16-byte vectors, and keys taken in chunks of 16 so the
 // running-max rescale of the accumulator is paid once per chunk.  Scores
-// never leave registers.  Tensor-core (mma) tiles are the next step.
+// never leave registers.  Tensor-core (mma) tiles are attention_fwd_tc.cu's;
+// moving this core's calls onto them is the next step.
 #include <math.h>
 
 #include <type_traits>
 
+#include "attention_tc.cuh"
 #include "common.cuh"
-#include "dropout.cuh"
 
 namespace {
 
@@ -90,20 +84,19 @@ struct HeadsLayout {
   long long q[3], k[3], v[3], o[3];
 };
 
-// bf16 mask on the packed slab (K1/K4/K6/K8a/K10a), f32 in the heads layout
+// bf16 mask on the packed slab (K1/K4/K6/K8a), f32 in the heads layout
 template <bool HEADS>
 using mask_t = std::conditional_t<HEADS, float, bf16>;
 
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_float(float x) { return x; }
 
-template <int HD, bool DROP, bool HEADS>
+template <int HD, bool HEADS>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      const bf16* __restrict__ bias, const mask_t<HEADS>* __restrict__ mask,
                      const uint8_t* __restrict__ keep, float* __restrict__ lse, int N, int nH,
-                     int nW, float scale, int rows_per_block, const int64_t* __restrict__ seed,
-                     uint32_t thresh, float drop_scale, HeadsLayout hl) {
+                     int nW, float scale, int rows_per_block, HeadsLayout hl) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + (size_t)N * HD;
@@ -144,7 +137,6 @@ __global__ void __launch_bounds__(kThreads)
 
   const bf16* bias_h = bias == nullptr ? nullptr : bias + (size_t)h * N * N;
   const mask_t<HEADS>* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
-  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*seed, (uint32_t)(seq * nH + h)) : 0u;
 
   const int row_end = min(N, (blockIdx.z + 1) * rows_per_block);
   for (int i = blockIdx.z * rows_per_block + threadIdx.x; i < row_end; i += blockDim.x) {
@@ -184,8 +176,6 @@ __global__ void __launch_bounds__(kThreads)
         if (s[t] == -INFINITY) continue;
         const float p = __expf(s[t] - mn);
         l += p;
-        // a dropped probability counts in l but not in the P.V sum
-        if (DROP && lvt::dropout_bits(key, (uint32_t)(i * N + j0 + t)) < thresh) continue;
         const bf16* vr = vs + (j0 + t) * HD;
 #pragma unroll
         for (int d = 0; d < HD; d += 8) {
@@ -197,8 +187,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       m = mn;
     }
-    // all keys dropped -> 0; dropout scales the kept by 1 / (1 - rate)
-    const float inv = l > 0.0f ? (DROP ? drop_scale : 1.0f) / l : 0.0f;
+    const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // all keys dropped -> 0
     if (lse != nullptr) lse[((size_t)seq * nH + h) * N + i] = l > 0.0f ? m + logf(l) : INFINITY;
     bf16* orow = ob + (size_t)i * o_ld;
 #pragma unroll
@@ -211,14 +200,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD, bool DROP, bool HEADS>
+template <int HD, bool HEADS>
 int launch(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
-           void* lse, int nSeq, int N, int nH, int nW, float scale, const void* seed,
-           uint32_t thresh, float drop_scale, cudaStream_t stream, const HeadsLayout& hl) {
+           void* lse, int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream,
+           const HeadsLayout& hl) {
   const size_t smem = 2 * (size_t)N * HD * sizeof(bf16) + (size_t)((N + 15) / 16) * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD, DROP, HEADS>,
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD, HEADS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -247,40 +236,23 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
   tiles = (N + rows - 1) / rows;
   const int threads = rows < kThreads ? rows : kThreads;
   dim3 grid(nSeq, nH, tiles);
-  attention_kernel<HD, DROP, HEADS><<<grid, threads, smem, stream>>>(
+  attention_kernel<HD, HEADS><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<const bf16*>(bias),
       static_cast<const mask_t<HEADS>*>(mask), static_cast<const uint8_t*>(keep),
-      static_cast<float*>(lse), N, nH, nW, scale, rows, static_cast<const int64_t*>(seed), thresh,
-      drop_scale, hl);
+      static_cast<float*>(lse), N, nH, nW, scale, rows, hl);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
-int launch_hd(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
-              void* lse, int nSeq, int N, int nH, int nW, float scale, const void* seed,
-              uint32_t thresh, float drop_scale, cudaStream_t s) {
-  if (seed != nullptr)
-    return launch<HD, true, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed,
-                                   thresh, drop_scale, s, HeadsLayout{});
-  return launch<HD, false, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed,
-                                  thresh, drop_scale, s, HeadsLayout{});
-}
-
-// The heads layout (K7, K13a, K15): sequence s reads mask[s % nW] and the
-// per-head bias (null for K7 and K13a); K13a also writes lse and drops.
+// The heads layout (K7, K15): sequence s reads mask[s % nW] and the
+// per-head bias (null for K7).
 template <int HD>
 int launch_heads(const void* q, const void* k, const void* v, void* out, const long long* st,
-                 const void* bias, const void* mask, void* lse, int B, int N, int nH, int nW,
-                 float scale, const void* seed, uint32_t thresh, float drop_scale,
+                 const void* bias, const void* mask, int B, int N, int nH, int nW, float scale,
                  cudaStream_t s) {
   HeadsLayout hl{static_cast<const bf16*>(k), static_cast<const bf16*>(v)};
   for (int a = 0; a < 3; ++a)
     hl.q[a] = st[a], hl.k[a] = st[3 + a], hl.v[a] = st[6 + a], hl.o[a] = st[9 + a];
-  if (seed != nullptr)
-    return launch<HD, true, true>(q, out, bias, mask, nullptr, lse, B, N, nH, nW, scale, seed,
-                                  thresh, drop_scale, s, hl);
-  return launch<HD, false, true>(q, out, bias, mask, nullptr, lse, B, N, nH, nW, scale, nullptr,
-                                 0u, 1.0f, s, hl);
+  return launch<HD, true>(q, out, bias, mask, nullptr, nullptr, B, N, nH, nW, scale, s, hl);
 }
 
 }  // namespace
@@ -290,25 +262,35 @@ int launch_heads(const void* q, const void* k, const void* v, void* out, const l
 // keep [nSeq, N] uint8 (0 = key dropped), lse [nSeq, nH, N] f32 (written
 // when given; +inf for a row whose keys are all dropped), seed (int64 on the
 // device: dropout of the probabilities, element (i, j) kept iff its bits >=
-// thresh, kept ones scaled by drop_scale).  hd in {16, 32, 64}.
+// thresh, kept ones scaled by drop_scale).  hd in {16, 32, 64}.  A call
+// with lse and neither bias nor keep (K10a) runs on the tensor cores
+// (attention_fwd_tc.cu; nW must divide nSeq); dropout is taken on that
+// route only.
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
                                   float drop_scale, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (lse != nullptr && bias == nullptr && keep == nullptr) {  // K10a: the tensor cores
+    const long long C = (long long)nH * hd, ld = 3 * C;
+    const bf16* x = static_cast<const bf16*>(qkv);
+    lvt::TcFwd a{{x, x + C, x + 2 * C}, static_cast<bf16*>(out),
+                 {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {N * C, hd, C}},
+                 static_cast<float*>(lse), mask, static_cast<const int64_t*>(seed), thresh,
+                 drop_scale, scale, nSeq, N, nH, nW};
+    return lvt::attention_fwd_tc(a, hd, false, s);
+  }
+  if (seed != nullptr) return (int)cudaErrorInvalidValue;
+#define LVT_PACKED(HD) \
+  launch<HD, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s, HeadsLayout{})
   switch (hd) {
-    case 16:
-      return launch_hd<16>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
-                           drop_scale, s);
-    case 32:
-      return launch_hd<32>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
-                           drop_scale, s);
-    case 64:
-      return launch_hd<64>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, seed, thresh,
-                           drop_scale, s);
+    case 16: return LVT_PACKED(16);
+    case 32: return LVT_PACKED(32);
+    case 64: return LVT_PACKED(64);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef LVT_PACKED
 }
 
 // The heads layout: q, k, v -> out, each [B, nH, N, hd] addressed by the
@@ -317,16 +299,26 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
 // every pointer 16-byte aligned; mask [B, N, N] f32 (null: none).  lse
 // [B, nH, N] f32 (null: not written), seed, thresh and drop_scale as in
 // lvt_attention_bf16 (null seed: no dropout; K7 passes neither, the train
-// attention K13a both).  No bias or key-keep.  hd in {16, 32, 64}.
+// attention K13a both).  No bias or key-keep.  hd in {16, 32, 64}.  A call
+// with lse (K13a) runs on the tensor cores (attention_fwd_tc.cu), the only
+// route that takes dropout; one without (K7) on the f32 pipes.
 LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void* v, void* out,
                                         const long long* st, const void* mask, void* lse, int B,
                                         int N, int nH, int hd, float scale, const void* seed,
                                         uint32_t thresh, float drop_scale, void* stream) {
   if (B <= 0 || N <= 0 || nH <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LVT_HEADS(HD)                                                                           \
-  launch_heads<HD>(q, k, v, out, st, nullptr, mask, lse, B, N, nH, B, scale, seed, thresh, \
-                   drop_scale, s)
+  if (lse != nullptr) {  // K13a: the tensor cores
+    lvt::TcFwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                  static_cast<const bf16*>(v)},
+                 static_cast<bf16*>(out), {}, static_cast<float*>(lse), mask,
+                 static_cast<const int64_t*>(seed), thresh, drop_scale, scale, B, N, nH, B};
+    for (int t = 0; t < 4; ++t)
+      for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
+    return lvt::attention_fwd_tc(a, hd, true, s);
+  }
+  if (seed != nullptr) return (int)cudaErrorInvalidValue;
+#define LVT_HEADS(HD) launch_heads<HD>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s)
   switch (hd) {
     case 16: return LVT_HEADS(16);
     case 32: return LVT_HEADS(32);
@@ -347,9 +339,7 @@ LVT_EXPORT int lvt_window_attention_bf16(const void* q, const void* k, const voi
   if (W <= 0 || N <= 0 || nH <= 0 || nW <= 0 || W % nW != 0 || nH > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LVT_WINDOWS(HD)                                                                  \
-  launch_heads<HD>(q, k, v, out, st, bias, mask, nullptr, W, N, nH, nW, scale, nullptr, 0u, \
-                   1.0f, s)
+#define LVT_WINDOWS(HD) launch_heads<HD>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s)
   switch (hd) {
     case 16: return LVT_WINDOWS(16);
     case 32: return LVT_WINDOWS(32);

@@ -20,7 +20,8 @@
 // where the mask is <= -1e4): q, k, v, do, dq, dk and dv [B, nH, N, hd],
 // each by its own (sequence, head, row) strides, the f32 [B, N, N] mask the
 // forward read, and dropout whose bits are regenerated from the forward's
-// seed by the counter hash of dropout.cuh.
+// seed by the counter hash of dropout.cuh, and the lse of its tensor-core
+// forward (attention_fwd_tc.cu).
 //
 // The C entries route by their arguments: a call without a bias (the
 // packed slab: K10b, _enc_attn_train_lanes_bwd_kernel) or without dmask
@@ -53,7 +54,7 @@
 
 #include <type_traits>
 
-#include "attention_bwd_tc.cuh"
+#include "attention_tc.cuh"
 #include "common.cuh"
 #include "dropout.cuh"
 
@@ -67,7 +68,8 @@ __device__ __forceinline__ void load_row(const bf16* src, float* dst) {
 
 // sum_d a[d] * (row[d] * rscale), row in shared memory, in the order of
 // attention.cu's dot_k (even terms into s0, odd into s1), so a recomputed
-// score equals the forward's bit for bit.
+// score equals K8a's forward bit for bit (K13a's tensor-core forward sums
+// in another order: equal up to rounding).
 template <int HD>
 __device__ __forceinline__ float dot_row(const float* a, const bf16* row, float rscale = 1.0f) {
   float s0 = 0.0f, s1 = 0.0f;

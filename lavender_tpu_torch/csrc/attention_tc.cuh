@@ -1,0 +1,66 @@
+// The tensor-core forward (attention_fwd_tc.cu) and backward
+// (attention_bwd_tc.cu) of the fusion encoder's train attention, as the C
+// entries of attention.cu and attention_bwd.cu call them.
+#pragma once
+
+#include "common.cuh"
+
+namespace lvt {
+
+// Operands of one forward call.  Row r of operand t of (sequence s, head
+// h) starts at x[t] + s * st[t][0] + h * st[t][1] + r * st[t][2]
+// (elements), the head dim contiguous; t in order q, k, v, o.  Every
+// stride a multiple of 8, every pointer 16-byte aligned.
+struct TcFwd {
+  const bf16* x[3];     // q, k, v
+  bf16* o;
+  long long st[4][3];   // (sequence, head, row) strides of q, k, v, o
+  float* lse;           // [nSeq, nH, N] f32: each row's log-sum-exp of its scores
+  const void* mask;     // [nW, N, N] (sequence s reads s % nW) or null
+  const int64_t* seed;  // dropout seed, or null: no dropout
+  uint32_t thresh;      // bits >= thresh are kept ...
+  float drop_scale;     // ... and scaled by 1 / (1 - rate)
+  float scale;
+  int nSeq, N, nH, nW;
+};
+
+// o = ((m * p) v) / l and lse of softmax(q k^T * scale + mask) with
+// dropout m on the probabilities (l the undropped row sum), on the tensor
+// cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32.
+// Returns a cudaError_t.
+int attention_fwd_tc(const TcFwd& a, int hd, bool mask_f32, cudaStream_t stream);
+
+// Operands of one backward call, addressed as TcFwd's; t in order q, k,
+// v, g (the cotangent of o), dq, dk, dv.
+struct TcBwd {
+  const bf16* x[4];     // q, k, v, g
+  bf16* dx[3];          // dq, dk, dv
+  long long st[7][3];   // (sequence, head, row) strides of q, k, v, g, dq, dk, dv
+  const float* lse;     // [nSeq, nH, N] f32, the forward's row log-sum-exp
+  const void* mask;     // [nW, N, N] (sequence s reads s % nW) or null
+  const float* dd;      // [nSeq, nH, N] f32: D = rowsum(o * g), from attention_row_dot
+  const int64_t* seed;  // the forward's dropout seed, or null: no dropout
+  uint32_t thresh;      // bits >= thresh are kept ...
+  float drop_scale;     // ... and scaled by 1 / (1 - rate)
+  float scale;
+  int nSeq, N, nH, nW;
+};
+
+// dq, dk, dv of softmax(q k^T * scale + mask) with dropout, on the tensor
+// cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32.
+// Returns a cudaError_t.
+int attention_bwd_tc(const TcBwd& a, int hd, bool mask_f32, cudaStream_t stream);
+
+// D = rowsum(o * g) in f32 per (sequence, head, row): o the forward's
+// output and g its cotangent, each by (sequence, head, row) strides st,
+// into dd [nSeq, nH, N] (D = rowsum(p * dp) up to o's rounding to bf16).
+struct RowDot {
+  const bf16* o;
+  const bf16* g;
+  long long st[2][3];
+  float* dd;
+  int nSeq, N, nH;
+};
+int attention_row_dot(const RowDot& a, int hd, cudaStream_t stream);
+
+}  // namespace lvt

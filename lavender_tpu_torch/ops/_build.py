@@ -11,7 +11,8 @@ The primitives bound here (tiled GEMM with fused epilogues, optionally
 scattering its rows, row LayerNorm, with or without its affine, optionally
 gathering its rows, and its dropout + residual variant, attention core (on
 the packed qkv slab, or on strided heads-layout q, k, v, with a per-head
-bias and a per-window mask) and its backward, both with optional dropout,
+bias and a per-window mask; the train attention's forward, with dropout,
+on the tensor cores) and its backward, both with optional dropout,
 row permutation, and a probe of the dropout hash) are what the ports of
 the TPU kernels are composed from, see ``swin_block_attn.py``,
 ``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
@@ -539,11 +540,17 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     scores (what ``attention_bwd`` takes).  At ``rate`` > 0 the
     probabilities are dropped by the counter hash of ``seed`` (an int64
     [1] on the device; ``dropout.attention_keep``) in the P.V sum only.
+    A call with ``lse`` and neither ``bias`` nor ``keep`` (K10a) runs on
+    the tensor cores (``csrc/attention_fwd_tc.cu``), the only route that
+    takes dropout; every other on the f32-pipe core (``csrc/attention.cu``).
     Returns [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
     if lse is not None:
         _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention")
+    if rate > 0.0 and (lse is None or bias is not None or keep is not None):
+        raise ValueError("attention: dropout needs lse and neither bias nor "
+                         "keep (the tensor-core route)")
     keep_ptr = None
     if keep is not None:
         if keep.device != qkv.device or tuple(keep.shape) != (n_seq, n_tok):
@@ -607,13 +614,19 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when given, receives each query row's log-sum-exp; at ``rate`` > 0 the
     probabilities are dropped in the P.V sum by the counter hash of
     ``seed`` at the logical (sequence, head, row, key) (the same bits as
-    ``attention`` on the packed slab).  Returns a contiguous
+    ``attention`` on the packed slab).  With ``lse`` (K13a) the call runs
+    on the tensor cores (``csrc/attention_fwd_tc.cu``, any L); without it
+    (K7) on the f32-pipe core, which holds K and V of a whole (sequence,
+    head) in shared memory and takes no dropout.  Returns a contiguous
     [B, nH, L, hd]."""
     _heads_operands((q, k, v), ("q", "k", "v"), "attention_heads")
     B, nH, L, hd = q.shape
     _heads_mask(mask, q, "attention_heads")
     if lse is not None:
         _check_lse(lse, q, B, nH, L, "attention_heads")
+    elif rate > 0.0:
+        raise ValueError("attention_heads: dropout needs lse (the "
+                         "tensor-core route)")
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, q.device)
     out = torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
     err = library().lvt_attention_heads_bf16(

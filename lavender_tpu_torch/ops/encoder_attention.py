@@ -46,17 +46,17 @@ train route's attention o = (m * softmax(q k^T * scale + max(mask, -1e4)))
 v on q, k, v in lanes layout [B, L, C] (head h = columns h*hd..), with
 dropout m on the probabilities drawn from ``seed`` by the counter hash of
 ``dropout.py``, and its vjp, which regenerates m from the seed.  On the
-card the forward is the port's attention core (``csrc/attention.cu``) and
-the backward the tensor-core kernels of ``csrc/attention_bwd_tc.cu``
-(mma.sync tiles; D = rowsum(o * g) from the forward's output, as
-FlashAttention-2 forms it), both on the packed qkv slab [B*L, 3C]: where
+card both run on the tensor cores (mma.sync tiles): the forward in
+``csrc/attention_fwd_tc.cu`` (FlashAttention-2's forward, the online
+softmax on the accumulator fragments), the backward in
+``csrc/attention_bwd_tc.cu`` (D = rowsum(o * g) from the forward's output,
+as FlashAttention-2 forms it), both on the packed qkv slab [B*L, 3C]: where
 q, k and v are column views of one such slab (the model's single qkv
 GEMM) it is passed without a copy.  The forward writes each row's
 log-sum-exp of the undropped scores; the backward takes it, the output
 and the seed, so nothing [L, L]-shaped is stored between the two.  Bound:
 device memory (the forward: q, k, v, o and the [B, L, L] mask, each once;
-the backward also g, dq, dk, dv); the forward's f32-pipe core runs far
-from it.
+the backward also g, dq, dk, dv).
 
 ``fused_encoder_attention_train`` replaces the TPU kernel
 ``_enc_attn_train_kernel`` (K13a, lavender_tpu/ops/encoder_attention.py:526,
@@ -64,8 +64,8 @@ wrapper ``fused_encoder_attention_train`` :670) and
 ``encoder_attention_train_bwd`` its backward ``_enc_attn_train_bwd_kernel``
 (K13b, :555, ``_train_bwd`` :696): the same train attention and vjp on q,
 k, v in heads layout [B, nH, L, hd], which the fusion encoder runs under
-``LVT_ATTNLANES=0``.  On the card: the heads-layout instantiation of the
-attention core and the tensor-core backward, each operand read by its own
+``LVT_ATTNLANES=0``.  On the card: the same tensor-core forward and
+backward, each operand read by its own
 (sequence, head, row) strides (strided views of one qkv product in place),
 under the f32 [B, L, L] mask that forward and backward both read (never a
 bf16 copy: its -1e4 would round), with the bits of K10's hash at the logical

@@ -25,13 +25,16 @@ K13b (strided heads views of one qkv slab and contiguous tensors, L = 29
 and 276, dropout on and off, the mask's gradient dmask where the mask
 requires it), the keep masks K13a and K10a draw, read back from the
 kernels and equal to ``dropout.attention_keep`` bit for bit, and the raise
-on what the K13 kernels do not take or cannot launch; K1 launched
+on what the K13 kernels do not take (and on a launch K7's core cannot
+make); K1 launched
 outside autograd under bf16 autocast on f32 inputs (a model in ``eval()``
 mode over f32 weights), cast as its autograd Function casts; the
 tensor-core backward of K10b / K13b at lengths across its 64-row tiles
 (1 to 276), head dims 16/32/64, the packed slab, heads views and
 contiguous heads, rates 0 / 0.1 / 0.5, padded-key and seq2seq masks with
-a fully masked row, each call repeated and bitwise equal.
+a fully masked row, each call repeated and bitwise equal; the same for
+the tensor-core forward of K10a / K13a (1 to 1000 tokens), its output,
+its lse against an f64 logsumexp and its keep masks at rates 0.1 and 0.5.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -921,8 +924,10 @@ def test_heads_and_lanes_kernels_draw_the_same_mask(gen):
 
 def test_heads_train_wrappers_raise(gen):
     """What the K13 kernels do not take raises before a launch; a launch
-    the card refuses (L = 1000: K and V of a (sequence, head) do not fit
-    in shared memory) raises after it; nothing falls back."""
+    the card refuses raises after it, nothing falls back: K7's f32-pipe
+    core at L = 1000, where K and V of a (sequence, head) do not fit in
+    shared memory (K13a's tensor-core forward streams them and takes that
+    length: ``test_train_attention_fwd_tensor_cores_match_plain``)."""
     B, nH, L, hd = 2, 2, 16, 64
     q, seed = _rnd(gen, B, nH, L, hd), torch.tensor([1], device="cuda")
     mask = torch.zeros(B, L, L, device="cuda")
@@ -938,10 +943,9 @@ def test_heads_train_wrappers_raise(gen):
         encoder_attention_train_bwd(q, q, q, mask, seed, q, 0.25, 0.1)
     long_q = _rnd(gen, 1, 1, 1000, hd)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        fused_encoder_attention_train(long_q, long_q, long_q,
-                                      torch.zeros(1, 1000, 1000,
-                                                  device="cuda"),
-                                      seed, 0.25, 0.1)
+        fused_encoder_attention(long_q, long_q, long_q,
+                                torch.zeros(1, 1000, 1000, device="cuda"),
+                                0.25)
 
 
 def _train_bwd_masks(B, L):
@@ -1013,3 +1017,93 @@ def test_train_attention_bwd_tensor_cores_match_plain(gen, L, hd, layout):
             for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
                 assert torch.equal(a, b), (kind, rate, name)
                 _close(a, c, rel_l2=5e-2 if L > 1 or name == "dv" else None)
+
+
+def _train_fwd_operands(gen, B, L, nH, hd, layout):
+    """A bf16 [B, L, 3C] qkv slab and q, k, v as the K10a / K13a Functions
+    take them: column slices of the slab ("packed"), its [B, nH, L, hd]
+    views ("heads views") or contiguous heads copies ("heads")."""
+    C = nH * hd
+    slab = _rnd(gen, B, L, 3 * C)
+    if layout == "packed":
+        return slab, slab.split(C, dim=-1)
+    if layout == "heads views":
+        return slab, slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    return slab, [t.view(B, L, nH, hd).transpose(1, 2).contiguous()
+                  for t in slab.split(C, dim=-1)]
+
+
+@pytest.mark.parametrize("L", [1, 17, 63, 64, 65, 275, 276, 1000])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("layout", ["packed", "heads views", "heads"])
+def test_train_attention_fwd_tensor_cores_match_plain(gen, L, hd, layout):
+    """K10a (the packed slab, bf16 mask) and K13a (heads views of a slab or
+    contiguous heads, f32 mask) on the tensor-core forward: at lengths that
+    cross the 64-row tiles' edges and L = 1000 (more than the f32-pipe core
+    held in shared memory), each head dim, rates 0, 0.1 and 0.5, a
+    padded-key and a seq2seq mask with a fully masked row: o against the
+    plain version (same seed, so a misplaced dropout bit is an O(1)
+    error); lse against the logsumexp of the plain scores in f64, within
+    1e-3 + 1e-6 |lse| (the fully masked row's lse lies near -1e4, where
+    f32 resolves 2^-10); a second call bitwise equal (no atomics)."""
+    B, nH = 3, 2
+    scale = hd ** -0.5
+    slab, (q, k, v) = _train_fwd_operands(gen, B, L, nH, hd, layout)
+    qh, kh = (slab.double().view(B, L, 3, nH, hd)[:, :, i].transpose(1, 2)
+              for i in range(2))
+    seed = torch.tensor([2468], device="cuda")
+    for kind, mask in _train_bwd_masks(B, L).items():
+        m = mask.clamp_min(-1e4)
+        if layout == "packed":
+            m = m.to(torch.bfloat16)
+        s = (qh @ kh.transpose(-1, -2)) * scale + m.double()[:, None]
+        want_lse = torch.logsumexp(s, dim=-1)
+        for rate in (0.0, 0.1, 0.5):
+            got = []
+            for _ in range(2):
+                lse = torch.empty(B, nH, L, device="cuda")
+                if layout == "packed":
+                    o = _build.attention(slab.view(B * L, -1), B, L, nH,
+                                         scale, mask=m, lse=lse, seed=seed,
+                                         rate=rate).view(B, L, -1)
+                else:
+                    o = _build.attention_heads(q, k, v, m, scale, lse=lse,
+                                               seed=seed, rate=rate)
+                got.append((o, lse))
+            (o, lse), (o2, lse2) = got
+            assert torch.equal(o, o2) and torch.equal(lse, lse2), (kind, rate)
+            if layout == "packed":
+                want = fused_encoder_attention_train_lanes.plain(
+                    q, k, v, m, seed, scale, rate, nH)
+            else:
+                want = fused_encoder_attention_train.plain(
+                    q, k, v, mask, seed, scale, rate)
+            _close(o, want, rel_l2=1e-2)
+            err = (lse.double() - want_lse).abs()
+            assert (err <= 1e-3 + 1e-6 * want_lse.abs()).all(), (
+                kind, rate, float(err.max()))
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_train_attention_fwd_keep_masks_read_back(gen, rate):
+    """The keep masks the tensor-core forward draws for K13a (heads views)
+    and K10a (the slab they view), read back from the kernels across two
+    key tiles and a ragged edge, equal ``dropout.attention_keep`` bit for
+    bit at rates 0.1 and 0.5 (a wrong fragment-to-(row, key) mapping
+    passes at rate 0 only)."""
+    B, nH, L, hd = 2, 3, 77, 32
+    seed = torch.tensor([13579], device="cuda")
+    mask = torch.zeros(B, L, L, device="cuda")
+
+    def heads(q, k, v):
+        return fused_encoder_attention_train(q, k, v, mask, seed, 1.0, rate)
+
+    def lanes(q, k, v):
+        t = [x.transpose(1, 2).reshape(B, L, nH * hd) for x in (q, k, v)]
+        o = fused_encoder_attention_train_lanes(*t, mask.bfloat16(), seed,
+                                                1.0, rate, nH)
+        return o.view(B, L, nH, hd).transpose(1, 2)
+
+    want = dropout.attention_keep(seed, B, nH, L, rate)
+    for run in (heads, lanes):
+        assert torch.equal(_probe_keep(run, B, nH, L, hd), want)

@@ -52,7 +52,13 @@ nothing is ever run on the CPU instead:
    ``dropout.attention_keep``, and
    their outputs equal to bf16 rounding; K13's one-call yardstick is
    scaled_dot_product_attention with the float mask and dropout_p (and
-   its backward);
+   its backward); K8a and K8b (the Swin window core on the tensor cores,
+   its per-head bias and dbias) each call repeated and required bitwise
+   equal, the lse K8a writes against the f64 logsumexp of the plain scores
+   (within 1e-3) at every stage, shifted and unshifted, and at the spatial
+   route's unpadded N=245, and K8b's dbias at B=8, stage 1, shifted (512
+   windows) against an f64 sum of the plain per-clip dbias (within 1e-2 x
+   max(1, max|dbias|));
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
@@ -451,10 +457,12 @@ def _kernel_cases(g):
                     + mask_bytes + M * nH * 4, valid=x_rows,
                     library=lambda q=sdpa_q, k=sdpa_k, v=sdpa_v, m=full_mask,
                     s=hd ** -0.5: F.scaled_dot_product_attention(
-                        q, k, v, attn_mask=m, scale=s)))
+                        q, k, v, attn_mask=m, scale=s),
+                    bitwise_repeat=True))
                 lse = torch.empty(B * nW, nH, Npad, device="cuda")
-                _build.attention(qkv.view(-1, 3 * C), B * nW, Npad, nH,
-                                 hd ** -0.5, bias=bias, mask=mask, lse=lse)
+                out = _build.attention(qkv.view(-1, 3 * C), B * nW, Npad, nH,
+                                       hd ** -0.5, bias=bias, mask=mask,
+                                       lse=lse).view(B, nW, Npad, C)
                 dout = _rnd(g, B, nW, Npad, C)
                 dout[:, :, N:] = 0.0  # the recompute's pad rows: identity
                 cases.append(Case(
@@ -463,10 +471,10 @@ def _kernel_cases(g):
                                         hd ** -0.5),
                     2.5 * core_flops, 2 * qkv_bytes + M * C * 2
                     + M * nH * 4 + bias.numel() * 6 + mask_bytes,
-                    compare=_core_compare(C),
+                    kw={"out": out}, compare=_core_compare(C),
                     library=_sdpa_bias_backward(
                         (sdpa_q, sdpa_k, sdpa_v), bias, mask, dout, B, nW,
-                        nH, hd)))
+                        nH, hd), bitwise_repeat=True))
             rows = x.reshape(-1, C)
             if train:  # K9: the MLP of every train block, no residual
                 cases.append(Case(
@@ -1078,6 +1086,85 @@ def _train_fwd_lse(g):
                                          f", {kind}: off or not repeatable")
 
 
+def _swin_core_lse_and_dbias(g):
+    """K8a's row log-sum-exp (the tensor-core forward with the per-head
+    bias) against torch.logsumexp of the plain scores q k^T * scale + bias
+    + mask in f64, at the train step's B=8 at every Swin-B stage, shifted
+    and unshifted, and at the spatial route's unpadded N = 245 (stages 1
+    and 3, shifted): max |lse - want| <= 1e-3 and a second call bitwise
+    equal.  Then K8b's dbias at B=8, stage 1, shifted (512 windows)
+    against the f64 sum of the plain version's per-clip dbias (each over
+    its 64 windows in f32): max |dbias - want| <= 1e-2 * max(1, max|want|).
+    The bias is drawn as in ``_kernel_cases`` (std 1), the mask is
+    Swin-B's shift mask."""
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        pad_window_mask, rel_pos_bias_wm)
+    from lavender_tpu_torch.ops.swin_core_attn import swin_core_attn_bwd
+
+    window, shift, N, B = (5, 7, 7), (0, 3, 3), 245, TRAIN_BATCH
+    rel_index = relative_position_index((8, 7, 7))
+    runs = [(st, n_tok, shifted) for st in SWIN_STAGES
+            for n_tok, shifted in ((248, False), (248, True))
+            if shifted is False or st[0] < 4]
+    runs += [(SWIN_STAGES[i], N, True) for i in (0, 2)]
+    for (stage, nW, C, nH, side, _), n_tok, shifted in runs:
+        hd = C // nH
+        scale = hd ** -0.5
+        table = _rnd(g, 15 * 13 * 13, nH, std=1.0)
+        bias = rel_pos_bias_wm(table, rel_index, N, n_tok, torch.bfloat16)
+        mask = None
+        if shifted:
+            mask = torch.as_tensor(compute_shift_mask(5, side, side, window,
+                                                      shift), device="cuda")
+            mask = pad_window_mask(mask, n_tok).to(torch.bfloat16)
+        qkv = _rnd(g, B, nW, n_tok, 3 * C)
+        q, k, _ = qkv.view(B, nW, n_tok, 3, nH, hd).permute(3, 0, 1, 4, 2, 5)
+        s = (q.double() @ k.double().transpose(-1, -2)) * scale
+        s += bias.double()
+        if mask is not None:
+            s += mask.double()[None, :, None]
+        want = torch.logsumexp(s, dim=-1).reshape(B * nW, nH, n_tok)
+        del s
+        got = [torch.empty(B * nW, nH, n_tok, device="cuda")
+               for _ in range(2)]
+        outs = [_build.attention(qkv.view(-1, 3 * C), B * nW, n_tok, nH,
+                                 scale, bias=bias, mask=mask, lse=lse)
+                for lse in got]
+        err = float((got[0].double() - want).abs().max())
+        same = torch.equal(got[0], got[1]) and torch.equal(*outs)
+        kind = "shifted" if shifted else "unshifted"
+        print(f"[kernel] K8a lse, B={B} stage {stage} N={n_tok} {kind}: max "
+              f"|lse - logsumexp of the plain scores| {err:.3g} (<= 1e-3), "
+              f"a second call {'bitwise equal' if same else 'DIFFERS'}",
+              flush=True)
+        if err > 1e-3 or not same:
+            raise AssertionError(f"K8a lse, stage {stage} N={n_tok} {kind}: "
+                                 "off or not repeatable")
+        if stage != 1 or not shifted or n_tok != 248:
+            continue
+        dout = _rnd(g, B, nW, n_tok, C)
+        dout[:, :, N:] = 0.0
+        _, dbias = swin_core_attn_bwd(qkv, got[0], dout, bias, mask, nH,
+                                      scale, out=outs[0].view(dout.shape))
+        want = torch.zeros(nH, n_tok, n_tok, dtype=torch.float64,
+                           device="cuda")
+        for b in range(B):
+            _, db = swin_core_attn_bwd.plain(qkv[b:b + 1], None,
+                                             dout[b:b + 1], bias, mask, nH,
+                                             scale)
+            want += db.double()
+        err = float((dbias.double() - want).abs().max())
+        bound = 1e-2 * max(1.0, float(want.abs().max()))
+        print(f"[kernel] K8b dbias, B={B} stage 1 shifted ({B * nW} "
+              f"windows): max |dbias - f64 sum of the plain per-clip dbias| "
+              f"{err:.4g} (<= {bound:.4g})", flush=True)
+        if err > bound:
+            raise AssertionError("K8b dbias off the f64 sum")
+
+
 def _bert_core_vs_sdpa(g):
     """K4's attention core alone (the part one PyTorch call computes) at
     the serving shape: the port's core vs scaled_dot_product_attention
@@ -1164,6 +1251,7 @@ def check_kernels():
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
     _heads_vs_lanes(g)
     _train_fwd_lse(g)
+    _swin_core_lse_and_dbias(g)
     core_ms, sdpa_ms = _bert_core_vs_sdpa(g)
     print(f"[kernel] K4's attention core alone, B={BATCH} L=276 (kernel "
           f"core vs scaled_dot_product_attention): {core_ms:.4f} ms vs "
@@ -1569,6 +1657,12 @@ def _device_profile(fn):
         else:
             hi = max(hi, b)
     return host_ms, (busy_us + hi - lo) / 1e3, len(spans)
+
+
+# the attention cores' device activities by name: the f32-pipe cores
+# (attention_*) and the tensor-core ones (taking lvt::TcFwd / lvt::TcBwd /
+# lvt::RowDot, and K8b's dbias chunk sum)
+ATTENTION_KERNELS = ("attention", "lvt::Tc", "lvt::RowDot", "sum_chunks")
 
 
 def _kernel_times(fn, n: int):
@@ -2436,7 +2530,7 @@ def run_tasks(ops):
             per_kernel = _kernel_times(lambda: step(b), 1)
             device[lanes].append((sum(per_kernel.values()), sum(
                 ms for name, ms in per_kernel.items()
-                if "attention" in name)))
+                if any(k in name for k in ATTENTION_KERNELS))))
     for lanes in (True, False):
         ms = sum(times[lanes]) / 2
         dev = " / ".join(f"{a:.3f} ({c:.3f} in the attention kernels)"
@@ -2601,9 +2695,9 @@ def main() -> int:
                "lavender_tpu/ops/encoder_attention.py:242"),
         "K7": ("lavender_tpu_torch/csrc/attention.cu",
                "lavender_tpu/ops/encoder_attention.py:75"),
-        "K8a": ("lavender_tpu_torch/csrc/attention.cu",
+        "K8a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                 "lavender_tpu/ops/swin_core_attn.py:112"),
-        "K8b": ("lavender_tpu_torch/csrc/attention_bwd.cu",
+        "K8b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
                 "lavender_tpu/ops/swin_core_attn.py:147"),
         "K9": ("lavender_tpu_torch/csrc/gemm.cu",
                "lavender_tpu/ops/fused_mlp.py:91"),

@@ -15,12 +15,7 @@
 // f32 mask (sequence w reads mask[w % nW]), is the per-window attention K15
 // (lavender_tpu/ops/window_attention.py _attn_kernel): q, k, v [W, nH, N,
 // hd], which the Swin module path passes as strided views of its qkv
-// product, read in place.  It is also
-// the forward of the Swin window-attention core K8a
-// (lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel): there it also
-// writes each query row's log-sum-exp of its scores (f32 [nSeq, nH, N]),
-// which the backward (attention_bwd.cu) uses instead of recomputing the
-// row sums.
+// product, read in place.
 //
 // Differences from the TPU kernels, on purpose: natural-unit exponent with
 // a running max (the TPU kernels skip the max subtraction and clamp exp2 at
@@ -30,12 +25,14 @@
 // Bias and mask stay additive and finite (-100 pad keys / shift mask), as in
 // the reference.
 //
-// The fusion encoder's train attention (K10a, _enc_attn_train_lanes_kernel,
-// and K13a, _enc_attn_train_kernel: the calls that write lse without a
-// bias or key-keep, with or without dropout) runs on the tensor cores
-// instead: the C entries below hand those calls to attention_fwd_tc.cu.
-// This core takes no dropout; the ragged N is masked in the loops, not
-// padded as on the TPU.
+// The train attention cores, the calls that write each row's log-sum-exp
+// for a backward (K10a, _enc_attn_train_lanes_kernel, and K13a,
+// _enc_attn_train_kernel, with dropout; the Swin window core K8a,
+// lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel, with its per-head
+// bias), run on the tensor cores instead: the C entries below hand them to
+// attention_fwd_tc.cu.  This core takes no dropout and writes no lse: it
+// serves K1, K4, K6, K7, K14, K15 and K16.  The ragged N is masked in the
+// loops, not padded as on the TPU.
 //
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
 // core runs them on the f32 pipes, one query row per thread (rows
@@ -46,7 +43,7 @@
 // warp-broadcast 16-byte vectors, and keys taken in chunks of 16 so the
 // running-max rescale of the accumulator is paid once per chunk.  Scores
 // never leave registers.  Tensor-core (mma) tiles are attention_fwd_tc.cu's;
-// moving this core's calls onto them is the next step.
+// moving this core's calls onto them is queued (K1's first).
 #include <math.h>
 
 #include <type_traits>
@@ -84,7 +81,7 @@ struct HeadsLayout {
   long long q[3], k[3], v[3], o[3];
 };
 
-// bf16 mask on the packed slab (K1/K4/K6/K8a), f32 in the heads layout
+// bf16 mask on the packed slab (K1/K4/K6/K14/K16), f32 in the heads layout
 template <bool HEADS>
 using mask_t = std::conditional_t<HEADS, float, bf16>;
 
@@ -95,8 +92,8 @@ template <int HD, bool HEADS>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
                      const bf16* __restrict__ bias, const mask_t<HEADS>* __restrict__ mask,
-                     const uint8_t* __restrict__ keep, float* __restrict__ lse, int N, int nH,
-                     int nW, float scale, int rows_per_block, HeadsLayout hl) {
+                     const uint8_t* __restrict__ keep, int N, int nH, int nW, float scale,
+                     int rows_per_block, HeadsLayout hl) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + (size_t)N * HD;
@@ -188,7 +185,6 @@ __global__ void __launch_bounds__(kThreads)
       m = mn;
     }
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // all keys dropped -> 0
-    if (lse != nullptr) lse[((size_t)seq * nH + h) * N + i] = l > 0.0f ? m + logf(l) : INFINITY;
     bf16* orow = ob + (size_t)i * o_ld;
 #pragma unroll
     for (int d = 0; d < HD; d += 8) {
@@ -202,7 +198,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int HD, bool HEADS>
 int launch(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
-           void* lse, int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream,
+           int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream,
            const HeadsLayout& hl) {
   const size_t smem = 2 * (size_t)N * HD * sizeof(bf16) + (size_t)((N + 15) / 16) * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
@@ -238,8 +234,8 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
   dim3 grid(nSeq, nH, tiles);
   attention_kernel<HD, HEADS><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<const bf16*>(bias),
-      static_cast<const mask_t<HEADS>*>(mask), static_cast<const uint8_t*>(keep),
-      static_cast<float*>(lse), N, nH, nW, scale, rows, hl);
+      static_cast<const mask_t<HEADS>*>(mask), static_cast<const uint8_t*>(keep), N, nH, nW,
+      scale, rows, hl);
   return (int)cudaGetLastError();
 }
 
@@ -252,38 +248,39 @@ int launch_heads(const void* q, const void* k, const void* v, void* out, const l
   HeadsLayout hl{static_cast<const bf16*>(k), static_cast<const bf16*>(v)};
   for (int a = 0; a < 3; ++a)
     hl.q[a] = st[a], hl.k[a] = st[3 + a], hl.v[a] = st[6 + a], hl.o[a] = st[9 + a];
-  return launch<HD, true>(q, out, bias, mask, nullptr, nullptr, B, N, nH, nW, scale, s, hl);
+  return launch<HD, true>(q, out, bias, mask, nullptr, B, N, nH, nW, scale, s, hl);
 }
 
 }  // namespace
 
 // qkv [nSeq * N, 3 * nH * hd] -> out [nSeq * N, nH * hd].  Optional (null):
 // bias [nH, N, N] per head, mask [nW, N, N] for sequence s's window s % nW,
-// keep [nSeq, N] uint8 (0 = key dropped), lse [nSeq, nH, N] f32 (written
-// when given; +inf for a row whose keys are all dropped), seed (int64 on the
-// device: dropout of the probabilities, element (i, j) kept iff its bits >=
-// thresh, kept ones scaled by drop_scale).  hd in {16, 32, 64}.  A call
-// with lse and neither bias nor keep (K10a) runs on the tensor cores
-// (attention_fwd_tc.cu; nW must divide nSeq); dropout is taken on that
-// route only.
+// keep [nSeq, N] uint8 (0 = key dropped), lse [nSeq, nH, N] f32 (each row's
+// log-sum-exp of its scores), seed (int64 on the device: dropout of the
+// probabilities, element (i, j) kept iff its bits >= thresh, kept ones
+// scaled by drop_scale).  hd in {16, 32, 64}.  A call with lse runs on the
+// tensor cores (attention_fwd_tc.cu; nW must divide nSeq; no keep, and no
+// bias with dropout): K10a with dropout, K8a with a bias; one without on
+// the f32 pipes, which take neither lse nor dropout.
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
                                   float drop_scale, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr && bias == nullptr && keep == nullptr) {  // K10a: the tensor cores
+  if (lse != nullptr) {  // K10a, K8a: the tensor cores
+    if (keep != nullptr) return (int)cudaErrorInvalidValue;
     const long long C = (long long)nH * hd, ld = 3 * C;
     const bf16* x = static_cast<const bf16*>(qkv);
     lvt::TcFwd a{{x, x + C, x + 2 * C}, static_cast<bf16*>(out),
                  {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {N * C, hd, C}},
-                 static_cast<float*>(lse), mask, static_cast<const int64_t*>(seed), thresh,
-                 drop_scale, scale, nSeq, N, nH, nW};
+                 static_cast<float*>(lse), mask, static_cast<const bf16*>(bias),
+                 static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW};
     return lvt::attention_fwd_tc(a, hd, false, s);
   }
   if (seed != nullptr) return (int)cudaErrorInvalidValue;
 #define LVT_PACKED(HD) \
-  launch<HD, false>(qkv, out, bias, mask, keep, lse, nSeq, N, nH, nW, scale, s, HeadsLayout{})
+  launch<HD, false>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s, HeadsLayout{})
   switch (hd) {
     case 16: return LVT_PACKED(16);
     case 32: return LVT_PACKED(32);
@@ -311,7 +308,7 @@ LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void
   if (lse != nullptr) {  // K13a: the tensor cores
     lvt::TcFwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v)},
-                 static_cast<bf16*>(out), {}, static_cast<float*>(lse), mask,
+                 static_cast<bf16*>(out), {}, static_cast<float*>(lse), mask, nullptr,
                  static_cast<const int64_t*>(seed), thresh, drop_scale, scale, B, N, nH, B};
     for (int t = 0; t < 4; ++t)
       for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];

@@ -1,58 +1,42 @@
-// Backward of the attention core (attention.cu) where it also forms the
-// gradient of an additive [N, N] input (the f32-pipe kernel):
-//   s = q k^T * scale + bias[h] + mask[w],  p = softmax(s),  o = (m * p) v
+// The C entries of the attention backwards, and the f32-pipe kernel that
+// forms the mask's gradient dmask of the heads-layout train attention:
+//   s = q k^T * scale + mask[b],  p = softmax(s),  o = (m * p) v
 //   dv = (m * p)^T do,  dp = m * (do v^T),  ds = p * (dp - rowsum(p * dp)),
-//   dq = ds k * scale,  dk = ds^T q * scale,  dbias[h] = sum over sequences of ds.
-// m is the dropout factor of each probability (1 without dropout).
+//   dq = ds k * scale,  dk = ds^T q * scale,  dmask[b] = sum over heads of ds,
+// m the dropout factor of each probability.
 //
-// Replaces lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel (K8b, with
-// the rel-pos bias and its dbias).  Input is the packed qkv slab
-// [nSeq * N, 3C] (sequence s = b * nW + w uses window w of the mask), the
-// cotangent do [nSeq * N, C] and the forward's per-row log-sum-exp
-// (attention.cu), so p = exp(s - lse) needs no second pass for the row
-// sums.  Output is dqkv [nSeq * N, 3C] bf16 and dbias [nH, N, N] f32; the
-// mask gets no gradient (it is geometry, never a parameter).
+// Every call on a model path runs on the tensor cores (attention_bwd_tc.cu):
+// lvt_attention_bwd_bf16 on the packed qkv slab (K10b,
+// lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_bwd_kernel,
+// and K8b, lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel, with its
+// dbias) and lvt_attention_heads_bwd_bf16 without dmask (K13b,
+// _enc_attn_train_bwd_kernel).  The kernel below is K13b's dmask option
+// (the TPU kernel's; on no model path: the caller zeroes it where the mask
+// is <= -1e4): q, k, v, do, dq, dk and dv [B, nH, N, hd], each by its own
+// (sequence, head, row) strides, the f32 [B, N, N] mask the forward read,
+// dropout whose bits are regenerated from the forward's seed by the counter
+// hash of dropout.cuh, and the lse of the tensor-core forward
+// (attention_fwd_tc.cu), so p = exp(s - lse) needs no second pass for the
+// row sums.
 //
-// A second instantiation (HEADS) is the heads-layout train attention's
-// backward K13b (lavender_tpu/ops/encoder_attention.py
-// _enc_attn_train_bwd_kernel) where the caller asks for the mask's gradient
-// dmask[b] = sum over heads of ds (the TPU kernel's; the caller zeroes it
-// where the mask is <= -1e4): q, k, v, do, dq, dk and dv [B, nH, N, hd],
-// each by its own (sequence, head, row) strides, the f32 [B, N, N] mask the
-// forward read, and dropout whose bits are regenerated from the forward's
-// seed by the counter hash of dropout.cuh, and the lse of its tensor-core
-// forward (attention_fwd_tc.cu).
-//
-// The C entries route by their arguments: a call without a bias (the
-// packed slab: K10b, _enc_attn_train_lanes_bwd_kernel) or without dmask
-// (K13b on the model path) goes to the tensor-core kernels of
-// attention_bwd_tc.cu, which form no [N, N] gradient; only K8b and K13b's
-// dmask option run the kernel below.
-//
-// The TPU kernel summed dbias over its grid, which runs in order.  Blocks here
-// run in no order, and an atomic add per (sequence, element) would serialise
-// (stage 1 at B = 8: 512 sequences onto each of 4 heads' 248 x 248 entries).
-// So each block takes one head and a contiguous chunk of sequences, keeps its
-// chunk's running sum in its own f32 slice of a scratch buffer (each entry
-// touched only by the thread that owns its key column: no atomics, coalesced
-// rows), and a second kernel adds the slices.  The sum is the same on every run.
-// dmask takes the same scheme with the roles swapped: each block takes one
-// sequence and a contiguous chunk of heads.
+// Blocks run in no order, and an atomic add per (head, element) would
+// serialise.  So each block takes one sequence and a contiguous chunk of
+// heads, keeps its chunk's running sum in its own f32 slice of a scratch
+// buffer (each entry touched only by the thread that owns its key column:
+// no atomics, coalesced rows), and sum_chunks adds the slices.  The sum is
+// the same on every run.
 //
 // Bound on the card: the recompute and the four products, on the f32 pipes
-// (the forward's design: one row per thread, Q, K, V and do of the
-// (sequence, head) in shared memory, read as warp-broadcast 16-byte
-// vectors); moving K8b to tensor-core tiles as attention_bwd_tc.cu did for
-// K10b / K13b is queued.  Pass 1 runs one query row per thread and forms dq;
-// it also forms rowsum(p * dp) exactly in f32 as dq's companion sums (dq =
-// scale * (sum p dp k - D sum p k)), which avoids the rounding of D = do . o
-// from the bf16 output.  Pass 2 runs one key row per thread and forms dk, dv
-// and the [N, N] sum's column.  Both passes recompute s and p.  At hd = 64
-// four rows of 64 floats per thread would spill, so each pass sweeps twice:
-// D then dq, and dk then dv (three rows of registers each).
+// (one row per thread, Q, K, V and do of the (sequence, head) in shared
+// memory, read as warp-broadcast 16-byte vectors).  Pass 1 runs one query
+// row per thread and forms dq; it also forms rowsum(p * dp) exactly in f32
+// as dq's companion sums (dq = scale * (sum p dp k - D sum p k)), which
+// avoids the rounding of D = do . o from the bf16 output.  Pass 2 runs one
+// key row per thread and forms dk, dv and the [N, N] sum's column.  Both
+// passes recompute s and p.  At hd = 64 four rows of 64 floats per thread
+// would spill, so each pass sweeps twice: D then dq, and dk then dv (three
+// rows of registers each).
 #include <math.h>
-
-#include <type_traits>
 
 #include "attention_tc.cuh"
 #include "common.cuh"
@@ -66,10 +50,9 @@ __device__ __forceinline__ void load_row(const bf16* src, float* dst) {
   for (int d = 0; d < HD; d += 8) lvt::unpack8(*reinterpret_cast<const uint4*>(src + d), dst + d);
 }
 
-// sum_d a[d] * (row[d] * rscale), row in shared memory, in the order of
-// attention.cu's dot_k (even terms into s0, odd into s1), so a recomputed
-// score equals K8a's forward bit for bit (K13a's tensor-core forward sums
-// in another order: equal up to rounding).
+// sum_d a[d] * (row[d] * rscale), row in shared memory (even terms into
+// s0, odd into s1; the tensor-core forward sums in another order: equal up
+// to rounding).
 template <int HD>
 __device__ __forceinline__ float dot_row(const float* a, const bf16* row, float rscale = 1.0f) {
   float s0 = 0.0f, s1 = 0.0f;
@@ -109,26 +92,9 @@ __device__ __forceinline__ void store_row(bf16* dst, const float* v, float scale
   }
 }
 
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-// bf16 mask on the packed slab (K8b/K10b), f32 in the heads layout (K13b)
-template <bool HEADS>
-using mask_t = std::conditional_t<HEADS, float, bf16>;
-
-// score (i, j) from its q.k term, the bias and mask added in the forward's
-// order (so it equals the forward's bit for bit); e = i * N + j.
-template <bool BIAS, typename M>
-__device__ __forceinline__ float score_of(float qk, const bf16* bias_h, const M* mask_w, size_t e) {
-  if constexpr (BIAS) qk += __bfloat162float(bias_h[e]);
-  if (mask_w != nullptr) qk += to_float(mask_w[e]);
-  return qk;
-}
-
-// The heads layout's operands (HEADS): k, v, dk and dv (q, do and dq are
-// the kernel's qkv, dout and dqkv arguments) and the element strides
-// (sequence, head, row) of q, k, v, do, dq, dk and dv, the head dim
-// contiguous.  Unused by the packed instantiation.
+// The heads layout's operands: k, v, dk and dv (q, do and dq are the
+// kernel's q, dout and dq arguments) and the element strides (sequence,
+// head, row) of q, k, v, do, dq, dk and dv, the head dim contiguous.
 struct BwdHeads {
   const bf16* k;
   const bf16* v;
@@ -150,23 +116,18 @@ __device__ __forceinline__ float mfac_of(uint32_t key, uint32_t index, uint32_t 
 // One query row (pass 1) or key row (pass 2) per thread, 256 threads: at
 // most 8 warps keep the whole register file of 255 a thread (9 to 12 warps
 // share an SM sub-partition three to one and get 168, which spills the
-// hd = 64 rows).  DROP and HEADS are compile-time, so the Swin backward
-// (no dropout, a bias) runs the same inner loop as without the options.
+// hd = 64 rows).
 constexpr int kThreads = 256;
 
-// Every call accumulates ds into the block's slice of ``part`` (dbias over
-// sequences, packed with a bias; dmask over heads, HEADS).  The grid is
-// (chunk, outer): packed, outer is the head and the block walks its chunk of
-// sequences; HEADS, outer is the sequence and it walks its chunk of heads.
-template <int HD, bool DROP, bool HEADS>
+// Each block accumulates ds into its slice of ``part``: the grid is (chunk,
+// sequence), and the block walks its chunk of the sequence's heads.
+template <int HD, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
-    attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse, const bf16* __restrict__ bias,
-                         const mask_t<HEADS>* __restrict__ mask, bf16* __restrict__ dqkv,
-                         float* __restrict__ part, int nSeq, int N, int nH, int nW, int nChunks,
-                         float scale, const int64_t* __restrict__ seed, uint32_t thresh,
-                         float drop_scale, BwdHeads hb) {
-  constexpr bool BIAS = !HEADS;  // the heads layout has no bias
+    attention_bwd_kernel(const bf16* __restrict__ q_ptr, const bf16* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ mask,
+                         bf16* __restrict__ dq_ptr, float* __restrict__ part, int N, int nH,
+                         int nChunks, float scale, const int64_t* __restrict__ seed,
+                         uint32_t thresh, float drop_scale, BwdHeads hb) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + (size_t)N * HD;
@@ -175,44 +136,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* lse_s = reinterpret_cast<float*>(dos + (size_t)N * HD);
   float* dd = lse_s + N;
 
-  const int chunk = blockIdx.x, outer = blockIdx.y;
-  const int C = nH * HD;
-  const int n_inner = HEADS ? nH : nSeq;
-  const int it_begin = (int)((long)chunk * n_inner / nChunks);
-  const int it_end = (int)((long)(chunk + 1) * n_inner / nChunks);
-  float* part_c = part + ((size_t)chunk * gridDim.y + outer) * N * N;
-  const bf16* bias_h = BIAS ? bias + (size_t)outer * N * N : nullptr;
+  const int chunk = blockIdx.x, seq = blockIdx.y;
+  const int it_begin = (int)((long)chunk * nH / nChunks);
+  const int it_end = (int)((long)(chunk + 1) * nH / nChunks);
+  float* part_c = part + ((size_t)chunk * gridDim.y + seq) * N * N;
   const uint32_t seed32 = DROP ? (uint32_t)*seed : 0u;
   constexpr int V8 = HD / 8;
 
-  for (int it = it_begin; it < it_end; ++it) {
-    const int seq = HEADS ? outer : it, h = HEADS ? it : outer;
+  for (int h = it_begin; h < it_end; ++h) {
     // row r of q, k, v, do, dq, dk, dv of this (sequence, head) at base + r * ld
-    const bf16 *qb, *kb, *vb, *gb;
-    bf16 *dqb, *dkb, *dvb;
-    size_t q_ld, k_ld, v_ld, g_ld, dq_ld, dk_ld, dv_ld;
-    if constexpr (HEADS) {
-      qb = qkv + seq * hb.st[0][0] + h * hb.st[0][1];
-      kb = hb.k + seq * hb.st[1][0] + h * hb.st[1][1];
-      vb = hb.v + seq * hb.st[2][0] + h * hb.st[2][1];
-      gb = dout + seq * hb.st[3][0] + h * hb.st[3][1];
-      dqb = dqkv + seq * hb.st[4][0] + h * hb.st[4][1];
-      dkb = hb.dk + seq * hb.st[5][0] + h * hb.st[5][1];
-      dvb = hb.dv + seq * hb.st[6][0] + h * hb.st[6][1];
-      q_ld = hb.st[0][2], k_ld = hb.st[1][2], v_ld = hb.st[2][2], g_ld = hb.st[3][2];
-      dq_ld = hb.st[4][2], dk_ld = hb.st[5][2], dv_ld = hb.st[6][2];
-    } else {
-      const size_t ld = 3 * (size_t)C;
-      qb = qkv + (size_t)seq * N * ld + h * HD;
-      kb = qb + C;
-      vb = qb + 2 * C;
-      gb = dout + (size_t)seq * N * C + h * HD;
-      dqb = dqkv + (size_t)seq * N * ld + h * HD;
-      dkb = dqb + C;
-      dvb = dqb + 2 * C;
-      q_ld = k_ld = v_ld = dq_ld = dk_ld = dv_ld = ld;
-      g_ld = C;
-    }
+    const bf16* qb = q_ptr + seq * hb.st[0][0] + h * hb.st[0][1];
+    const bf16* kb = hb.k + seq * hb.st[1][0] + h * hb.st[1][1];
+    const bf16* vb = hb.v + seq * hb.st[2][0] + h * hb.st[2][1];
+    const bf16* gb = dout + seq * hb.st[3][0] + h * hb.st[3][1];
+    bf16* dqb = dq_ptr + seq * hb.st[4][0] + h * hb.st[4][1];
+    bf16* dkb = hb.dk + seq * hb.st[5][0] + h * hb.st[5][1];
+    bf16* dvb = hb.dv + seq * hb.st[6][0] + h * hb.st[6][1];
+    const size_t q_ld = hb.st[0][2], k_ld = hb.st[1][2], v_ld = hb.st[2][2], g_ld = hb.st[3][2];
+    const size_t dq_ld = hb.st[4][2], dk_ld = hb.st[5][2], dv_ld = hb.st[6][2];
     for (int c = threadIdx.x; c < N * V8; c += blockDim.x) {
       const int r = c / V8, k8 = (c % V8) * 8;
       *reinterpret_cast<uint4*>(qs + r * HD + k8) =
@@ -226,9 +167,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     for (int j = threadIdx.x; j < N; j += blockDim.x) lse_s[j] = lse[((size_t)seq * nH + h) * N + j];
     __syncthreads();
-    const mask_t<HEADS>* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
+    const float* mask_b = mask == nullptr ? nullptr : mask + (size_t)seq * N * N;
     const uint32_t key = DROP ? lvt::dropout_key(seed32, (uint32_t)(seq * nH + h)) : 0u;
-#define LVT_SCORE(qk, i, j) score_of<BIAS>((qk), bias_h, mask_w, (size_t)(i) * N + (j))
+#define LVT_SCORE(qk, i, j) \
+  ((qk) + (mask_b != nullptr ? mask_b[(size_t)(i) * N + (j)] : 0.0f))
 #define LVT_MFAC(i, j) mfac_of<DROP>(key, (uint32_t)((i) * N + (j)), thresh, drop_scale)
 
     // Pass 1: one query row per thread -> dq and D = rowsum(p * m * dp).
@@ -278,7 +220,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
 
     // Pass 2: one key row per thread -> dk, dv and its column of the sum.
-    const bool first = it == it_begin;
+    const bool first = h == it_begin;
     for (int j = threadIdx.x; j < N; j += blockDim.x) {
       float k[HD], v[HD], dk[HD];
       load_row<HD>(ks + j * HD, k);
@@ -329,103 +271,76 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// out[e] = sum over chunks of part[chunk][e]: dbias (e over nH * N * N) or
-// dmask (e over nSeq * N * N).
-__global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out,
-                                  int nChunks, size_t n) {
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
-       e += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.0f;
-    for (int c = 0; c < nChunks; ++c) s += part[(size_t)c * n + e];
-    out[e] = s;
-  }
-}
-
-// grid (nChunks, nH) packed, (nChunks, nSeq) in the heads layout; the
-// chunks' slices of ``part`` are added into ``sum`` (dbias / dmask).
-template <int HD, bool DROP, bool HEADS>
-int launch(const void* qkv, const void* dout, const void* lse, const void* bias, const void* mask,
-           void* dqkv, void* sum, void* part, int nSeq, int N, int nH, int nW, int nChunks,
-           float scale, const void* seed, uint32_t thresh, float drop_scale, cudaStream_t stream,
+// grid (nChunks, B); the chunks' slices of ``part`` are added into dmask.
+template <int HD, bool DROP>
+int launch(const void* q, const void* dout, const void* lse, const void* mask, void* dq,
+           void* dmask, void* part, int B, int N, int nH, int nChunks, float scale,
+           const void* seed, uint32_t thresh, float drop_scale, cudaStream_t stream,
            const BwdHeads& hb) {
   const size_t smem = 4 * (size_t)N * HD * sizeof(bf16) + 2 * (size_t)N * sizeof(float);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, DROP, HEADS>,
+    cudaError_t e = cudaFuncSetAttribute(attention_bwd_kernel<HD, DROP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const int rows = (N + 31) / 32 * 32;
   const int threads = rows < kThreads ? rows : kThreads;
-  const int outer = HEADS ? nSeq : nH;
-  attention_bwd_kernel<HD, DROP, HEADS><<<dim3(nChunks, outer), threads, smem, stream>>>(
-      static_cast<const bf16*>(qkv), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const bf16*>(bias), static_cast<const mask_t<HEADS>*>(mask),
-      static_cast<bf16*>(dqkv), static_cast<float*>(part), nSeq, N, nH, nW, nChunks, scale,
-      static_cast<const int64_t*>(seed), thresh, drop_scale, hb);
+  attention_bwd_kernel<HD, DROP><<<dim3(nChunks, B), threads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(mask), static_cast<bf16*>(dq), static_cast<float*>(part), N, nH,
+      nChunks, scale, static_cast<const int64_t*>(seed), thresh, drop_scale, hb);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const size_t n = (size_t)outer * N * N;
-  const int blocks = (int)((n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8);
-  sum_chunks_kernel<<<blocks, 256, 0, stream>>>(static_cast<const float*>(part),
-                                                static_cast<float*>(sum), nChunks, n);
-  return (int)cudaGetLastError();
+  return lvt::sum_chunks(static_cast<const float*>(part), static_cast<float*>(dmask), nChunks,
+                         (size_t)B * N * N, stream);
 }
 
-template <int HD, bool HEADS>
-int launch_hd(const void* qkv, const void* dout, const void* lse, const void* bias,
-              const void* mask, void* dqkv, void* sum, void* part, int nSeq, int N, int nH,
-              int nW, int nChunks, float scale, const void* seed, uint32_t thresh,
-              float drop_scale, cudaStream_t s, const BwdHeads& hb) {
-#define LVT_LAUNCH(DROP)                                                                        \
-  launch<HD, DROP, HEADS>(qkv, dout, lse, bias, mask, dqkv, sum, part, nSeq, N, nH, nW, nChunks, \
-                          scale, seed, thresh, drop_scale, s, hb)
+template <int HD>
+int launch_drop(const void* q, const void* dout, const void* lse, const void* mask, void* dq,
+                void* dmask, void* part, int B, int N, int nH, int nChunks, float scale,
+                const void* seed, uint32_t thresh, float drop_scale, cudaStream_t s,
+                const BwdHeads& hb) {
+#define LVT_LAUNCH(DROP)                                                                    \
+  launch<HD, DROP>(q, dout, lse, mask, dq, dmask, part, B, N, nH, nChunks, scale, seed, thresh, \
+                   drop_scale, s, hb)
   return seed != nullptr ? LVT_LAUNCH(true) : LVT_LAUNCH(false);
 #undef LVT_LAUNCH
 }
 
 }  // namespace
 
-// qkv [nSeq * N, 3C], dout [nSeq * N, C], lse [nSeq, nH, N] f32, bias [nH, N, N]
-// or null, mask [nW, N, N] or null -> dqkv [nSeq * N, 3C] and, with a bias,
-// dbias [nH, N, N] f32 (null exactly when the bias is).  part is f32: with
-// a bias scratch [nChunks, nH, N, N] (this file's kernel), without one the
-// tensor-core kernels' D [nSeq, nH, N] as lvt_attention_row_dot_bf16 wrote
-// it (nChunks is then unused).
-// seed (int64 on the device) or null: the forward's dropout (bits >= thresh
-// kept, scaled by drop_scale).  1 <= nChunks <= nSeq; hd in {16, 32, 64}.
+// qkv [nSeq * N, 3C], dout [nSeq * N, C], lse [nSeq, nH, N] f32, dd the
+// tensor-core kernels' D [nSeq, nH, N] f32 as lvt_attention_row_dot_bf16
+// wrote it, bias [nH, N, N] bf16 or null, mask [nW, N, N] bf16 or null ->
+// dqkv [nSeq * N, 3C] and, with a bias (K8b), dbias [nH, N, N] f32 (null
+// exactly when the bias is), summed in nChunks partial sums of sequences
+// (1 <= nChunks <= nSeq) into part [nChunks, nH, N, N] f32 scratch (both
+// unused without a bias: K10b).  seed (int64 on the device) or null: the
+// forward's dropout (bits >= thresh kept, scaled by drop_scale), never with
+// a bias.  hd in {16, 32, 64}.  Runs on the tensor cores
+// (attention_bwd_tc.cu).
 LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const void* lse,
-                                      const void* bias, const void* mask, void* dqkv, void* dbias,
-                                      void* part, int nSeq, int N, int nH, int hd, int nW,
-                                      int nChunks, float scale, const void* seed, uint32_t thresh,
-                                      float drop_scale, void* stream) {
-  if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535 || nChunks < 1 ||
-      nChunks > nSeq || nSeq % nW != 0 || (bias == nullptr) != (dbias == nullptr) ||
-      part == nullptr)
+                                      const void* dd, const void* bias, const void* mask,
+                                      void* dqkv, void* dbias, void* part, int nSeq, int N,
+                                      int nH, int hd, int nW, int nChunks, float scale,
+                                      const void* seed, uint32_t thresh, float drop_scale,
+                                      void* stream) {
+  if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535 || nSeq % nW != 0 ||
+      (bias == nullptr) != (dbias == nullptr) || dd == nullptr)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bias == nullptr) {  // K10b: the tensor cores
-    const long long C = (long long)nH * hd, ld = 3 * C;
-    const bf16* x = static_cast<const bf16*>(qkv);
-    bf16* dx = static_cast<bf16*>(dqkv);
-    lvt::TcBwd a{{x, x + C, x + 2 * C, static_cast<const bf16*>(dout)},
-                 {dx, dx + C, dx + 2 * C},
-                 {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {N * C, hd, C},
-                  {N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}},
-                 static_cast<const float*>(lse), mask, static_cast<const float*>(part),
-                 static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW};
-    return lvt::attention_bwd_tc(a, hd, false, s);
-  }
-#define LVT_PACKED(HD)                                                                        \
-  launch_hd<HD, false>(qkv, dout, lse, bias, mask, dqkv, dbias, part, nSeq, N, nH, nW, nChunks, \
-                       scale, seed, thresh, drop_scale, s, BwdHeads{})
-  switch (hd) {
-    case 16: return LVT_PACKED(16);
-    case 32: return LVT_PACKED(32);
-    case 64: return LVT_PACKED(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LVT_PACKED
+  const long long C = (long long)nH * hd, ld = 3 * C;
+  const bf16* x = static_cast<const bf16*>(qkv);
+  bf16* dx = static_cast<bf16*>(dqkv);
+  lvt::TcBwd a{{x, x + C, x + 2 * C, static_cast<const bf16*>(dout)},
+               {dx, dx + C, dx + 2 * C},
+               {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {N * C, hd, C},
+                {N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}},
+               static_cast<const float*>(lse), mask, static_cast<const float*>(dd),
+               static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW,
+               static_cast<const bf16*>(bias), static_cast<float*>(dbias),
+               static_cast<float*>(part), nChunks};
+  return lvt::attention_bwd_tc(a, hd, false, static_cast<cudaStream_t>(stream));
 }
 
 // The heads layout (K13b): q, k, v, dout -> dq, dk, dv, each [B, nH, N, hd]
@@ -438,8 +353,7 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
 // scratch [nChunks, B, N, N] (each block takes one sequence and a chunk of
 // its heads, 1 <= nChunks <= nH), without it the tensor-core kernels' D
 // [B, nH, N] as lvt_attention_row_dot_bf16 wrote it (nChunks = nH).  seed,
-// thresh, drop_scale as in
-// lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
+// thresh, drop_scale as in lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* mask,
                                             void* dq, void* dk, void* dv, void* dmask, void* part,
@@ -465,9 +379,9 @@ LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const 
               static_cast<bf16*>(dv)};
   for (int t = 0; t < 7; ++t)
     for (int a = 0; a < 3; ++a) hb.st[t][a] = st[3 * t + a];
-#define LVT_HEADS(HD)                                                                           \
-  launch_hd<HD, true>(q, dout, lse, nullptr, mask, dq, dmask, part, B, N, nH, B, nChunks, scale, \
-                      seed, thresh, drop_scale, s, hb)
+#define LVT_HEADS(HD) \
+  launch_drop<HD>(q, dout, lse, mask, dq, dmask, part, B, N, nH, nChunks, scale, seed, thresh, \
+                  drop_scale, s, hb)
   switch (hd) {
     case 16: return LVT_HEADS(16);
     case 32: return LVT_HEADS(32);
@@ -478,8 +392,8 @@ LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const 
 }
 
 // The tensor-core backward's D = rowsum(o * g) in f32 per (sequence, head,
-// row), the pass before lvt_attention_bwd_bf16 without a bias and
-// lvt_attention_heads_bwd_bf16 without dmask, which read it as their part:
+// row), the pass before lvt_attention_bwd_bf16 (its dd) and
+// lvt_attention_heads_bwd_bf16 without dmask (its part):
 // o the forward's output and g its cotangent [nSeq, nH, N, hd] by the
 // element strides st[6] (host memory): (sequence, head, row) of o, then
 // of g, the head dim contiguous, every stride a multiple of 8 and every

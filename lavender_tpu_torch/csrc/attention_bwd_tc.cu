@@ -1,7 +1,8 @@
-// Tensor-core backward of the fusion encoder's train attention:
-//   s = q k^T * scale + mask,  p = exp(s - lse),  o = (m * p) v
+// Tensor-core backward of the train attention cores:
+//   s = q k^T * scale + bias[h] + mask[w],  p = exp(s - lse),  o = (m * p) v
 //   dv = (m * p)^T g,  dp = m * (g v^T),  D = rowsum(p * dp) = rowsum(o * g),
 //   ds = p * (dp - D),  dq = ds k * scale,  dk = ds^T q * scale,
+//   dbias[h] = sum over sequences of ds (with a bias),
 // m the dropout factor of each probability, regenerated from the forward's
 // seed by the counter hash of dropout.cuh (stream sequence * nH + head,
 // index row * N + key), lse the forward's row log-sum-exp
@@ -9,31 +10,40 @@
 //
 // Replaces lavender_tpu/ops/encoder_attention.py
 // _enc_attn_train_lanes_bwd_kernel (:780, K10b: q, k, v column slices of
-// the packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask) and
+// the packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask, dropout),
 // _enc_attn_train_bwd_kernel (:555, K13b without the mask's gradient: q, k,
 // v and g [B, nH, L, hd] by their strides, the f32 [B, L, L] mask the
-// forward read).  Both reach it through the C entries of attention_bwd.cu,
-// which keep the f32-pipe kernel for what this one does not form (K8b's
-// dbias, K13b's dmask).
+// forward read, dropout) and lavender_tpu/ops/swin_core_attn.py
+// _core_bwd_kernel (:147, K8b: the packed slab of the Swin backward's
+// recompute, a bf16 rel-pos bias [nH, Npad, Npad] and its gradient summed
+// over every (batch, window) in f32, a bf16 shift mask or none, no
+// dropout).  All reach it through the C entries of attention_bwd.cu, which
+// keep the f32-pipe kernel only for K13b's dmask option (on no model path).
 //
-// Bound on the card, at the train step's 64 pairs, L = 276, 12 heads of
-// 64: device memory.  Each input read once and each output written once is
-// 7 bf16 [B*L, C] slabs (q, k, v, g, dq, dk, dv) + the mask + lse, 200.5 MB
-// (K10b; the f32 mask of K13b 210.3 MB): 0.060 ms at 3.35 TB/s; the five
-// products are 37.4 GFLOP, 0.038 ms at 989 TFLOP/s in bf16.  (The design
-// below also reads the forward's output o, an eighth slab.)
+// Bound on the card: device memory.  At the train step's 64 pairs, L =
+// 276, 12 heads of 64 (K10b), each input read once and each output written
+// once is 7 bf16 [B*L, C] slabs (q, k, v, g, dq, dk, dv) + the mask + lse,
+// 200.5 MB (K10b; the f32 mask of K13b 210.3 MB): 0.060 ms at 3.35 TB/s;
+// the five products are 37.4 GFLOP, 0.038 ms at 989 TFLOP/s in bf16.  K8b
+// at B = 8, Swin-B stage 1 (512 windows of 248 rows, 4 heads of 32): 7
+// slabs of C = 128 columns + lse, bias and dbias, 231 MB unshifted and 239
+// MB with the shift mask (0.069 / 0.071 ms); 40.3 GFLOP in its five
+// products.  (The design below also reads the forward's output
+// o, an eighth slab.)
 //
 // Design.  Every product runs on the tensor cores (mma.sync m16n8k16, bf16
 // operands, f32 accumulation; operands from shared memory by ldmatrix,
 // .trans where the product contracts over rows), in 64 x 64 tiles: a block
 // of 4 warps owns 64 rows, each warp 16, and sweeps the other side's tiles
-// through a two-stage cp.async ring (the next tiles, their mask tile
-// included, load while the current ones multiply).  p, m and ds are formed
-// on the accumulator fragments in registers and rounded to bf16 as the next
-// product's A operand (as the JAX kernel rounds p * m and ds), so nothing
-// [N, N]-shaped leaves registers.  FlashAttention-2's two loops as two
-// kernels, so that every output element is summed by one thread in a fixed
-// order (no atomics: the same bits on every run), after a pass forming D:
+// through a two-stage cp.async ring (the next tiles, their mask and bias
+// tiles included, load while the current ones multiply; the bias tile is
+// staged as a mask tile of the [nH, N, N] buffer, the head in the window's
+// place).  p, m and ds are formed on the accumulator fragments in
+// registers and rounded to bf16 as the next product's A operand (as the
+// JAX kernel rounds p * m and ds), so nothing [N, N]-shaped leaves
+// registers.  FlashAttention-2's two loops as two kernels, so that every
+// output element is summed by one thread in a fixed order (no atomics: the
+// same bits on every run), after a pass forming D:
 //   row_dot_kernel: D = rowsum(o * g) in f32 (FlashAttention-2's D; equal
 //     to rowsum(p * dp) up to o's bf16 rounding; the JAX kernel sums the
 //     latter exactly, and a first sweep of the dq kernel over the keys for
@@ -42,20 +52,27 @@
 //     key tiles (3 products);
 //   dk/dv kernel, a block per (key tile, sequence, head): one sweep over the
 //     query tiles, each taken in two halves of 32 so that half the score
-//     accumulators are live (4 products).
-// Both recompute s and p from lse.  The ragged edge (N = 276 = 4 * 64 + 20)
-// is zero-filled by the copies' source size and predicated: p = 0 for a row
-// or key >= N (never by -inf arithmetic), and rows >= N are never stored
-// (in the packed slab they are the next sequence's); a warp whose 16 rows
-// all lie past N skips its products.  The dq kernel forms S as the
-// forward forms it (the same mma_abt, Q against a key tile, scaled in f32
-// after the product): the same bits, so its p differs from the forward's
-// only through lse against the forward's running max; the dk/dv kernel
-// forms S^T, equal up to the order of the tensor cores' sums.  The tile
-// helpers are mma_tile.cuh's.  Registers
-// are cut to 168 a thread, so 3 blocks (12 warps) share an SM (72-75 KB of
-// shared memory each with a bf16 mask; an f32 mask's tiles take 90 KB, so
-// K13b runs 2).
+//     accumulators are live (4 products);
+//   with a bias, dbias kernel, a block per (query tile x key tile, head,
+//     chunk of sequences): S and dP once more (2 products) for each
+//     sequence of the chunk, dS summed in f32 registers in the chunk's
+//     order into the chunk's slice of a scratch buffer, then sum_chunks
+//     adds the slices in chunk order.  dbias is the same on every run; no
+//     atomics, and no [N, 64] f32 accumulator in shared memory (which
+//     folding dS into the dk/dv kernel would need, at one block an SM).
+// All recompute s and p from lse.  The ragged edge (N = 276 = 4 * 64 + 20,
+// Npad = 248) is zero-filled by the copies' source size and predicated: p
+// = 0 for a row or key >= N (never by -inf arithmetic), and rows >= N are
+// never stored (in the packed slab they are the next sequence's); a warp
+// whose 16 rows all lie past N skips its products.  The dq and dbias
+// kernels form S as the forward forms it (the same mma_abt, Q against a
+// key tile, scaled in f32 after the product): the same bits, so their p
+// differs from the forward's only through lse against the forward's
+// running max; the dk/dv kernel forms S^T, equal up to the order of the
+// tensor cores' sums.  The tile helpers are mma_tile.cuh's.  Registers are
+// cut to 168 a thread, so 3 blocks (12 warps) share an SM (72-75 KB of
+// shared memory each with a bf16 mask at hd 64; an f32 mask's tiles take
+// 90 KB, so K13b runs 2).
 #include "attention_tc.cuh"
 #include "mma_tile.cuh"
 
@@ -63,9 +80,23 @@ namespace {
 
 using namespace lvt::tc;
 
+// (bias + mask) * log2(e) - lse2 of element (r, col) of the staged tiles
+// (row leads lead / blead), as the forward adds them; without BIAS the
+// mask alone, as before the bias existed.
+template <typename M, bool BIAS>
+__device__ __forceinline__ float bias_mask_l2(const uint32_t* cM, int lead, const uint32_t* cB,
+                                              int blead, bool has_mask, int r, int col,
+                                              float lse2) {
+  if constexpr (BIAS)
+    return fmaf(mask_in<bf16>(cB, r, blead, col) + (has_mask ? mask_in<M>(cM, r, lead, col) : 0.0f),
+                kLog2e, -lse2);
+  else
+    return has_mask ? fmaf(mask_in<M>(cM, r, lead, col), kLog2e, -lse2) : -lse2;
+}
+
 // dq of one 64-row query tile of one (sequence, head), from D of
-// row_dot_kernel.
-template <int HD, typename M, bool DROP>
+// row_dot_kernel.  BIAS: a per-head bf16 bias tile staged beside the mask.
+template <int HD, typename M, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt::TcBwd a) {
   constexpr int LD = HD + 8, TILE = kRows * LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -73,11 +104,13 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt:
   bf16* sG = sQ + TILE;
   bf16* sKV = sG + TILE;                                       // two stages of (K, V)
   uint32_t* sM = reinterpret_cast<uint32_t*>(sKV + 4 * TILE);  // two stages of the mask
-  constexpr int MT = MaskTile<M>::kBytes / 4;
+  constexpr int MT = MaskTile<M>::kBytes / 4, BT = MaskTile<bf16>::kBytes / 4;
+  uint32_t* sB = sM + 2 * MT;  // BIAS: two stages of the bias
   const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
   const int N = a.N, i0 = blockIdx.y * kRows, w = seq % a.nW;
   const bool has_mask = a.mask != nullptr;
   const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(M);
+  const long long b_bytes = (long long)a.nH * N * N * (long long)sizeof(bf16);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
   const bf16* qb = a.x[0] + seq * a.st[0][0] + h * a.st[0][1];
   const bf16* kb = a.x[1] + seq * a.st[1][0] + h * a.st[1][1];
@@ -88,6 +121,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt:
   load_tile<HD>(sKV, kb, a.st[1][2], 0, N);
   load_tile<HD>(sKV + TILE, vb, a.st[2][2], 0, N);
   if (has_mask) load_mask<M>(sM, a.mask, m_bytes, w, i0, 0, N);
+  if constexpr (BIAS) load_mask<bf16>(sB, a.bias, b_bytes, h, i0, 0, N);
   cp_async_commit();
 
   const int wr = warp * 16 + (lane >> 2);  // the thread's first row in the tile
@@ -111,11 +145,14 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt:
     const int j0 = t * kCols;
     const bf16* cur = sKV + (t & 1) * 2 * TILE;
     const uint32_t* cM = sM + (t & 1) * MT;
+    const uint32_t* cB = sB + (t & 1) * BT;
     if (t + 1 < nT) {
       bf16* nxt = sKV + ((t + 1) & 1) * 2 * TILE;
       load_tile<HD>(nxt, kb, a.st[1][2], j0 + kCols, N);
       load_tile<HD>(nxt + TILE, vb, a.st[2][2], j0 + kCols, N);
       if (has_mask) load_mask<M>(sM + ((t + 1) & 1) * MT, a.mask, m_bytes, w, i0, j0 + kCols, N);
+      if constexpr (BIAS)
+        load_mask<bf16>(sB + ((t + 1) & 1) * BT, a.bias, b_bytes, h, i0, j0 + kCols, N);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -134,6 +171,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt:
       }
       const int lead[2] = {(int)(mask_byte<M>(w, row[0], j0, N) & 3),
                            (int)(mask_byte<M>(w, row[1], j0, N) & 3)};
+      const int blead[2] = {(int)(mask_byte<bf16>(h, row[0], j0, N) & 3),
+                            (int)(mask_byte<bf16>(h, row[1], j0, N) & 3)};
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
 #pragma unroll
@@ -141,9 +180,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt:
           const int r = e >> 1, i = row[r], c = n * 8 + 2 * tq + (e & 1);
           float p = 0.0f;
           if (i < N && c < cn) {
-            const float b = has_mask
-                                ? fmaf(mask_in<M>(cM, wr + 8 * r, lead[r], c), kLog2e, -lse2[r])
-                                : -lse2[r];
+            const float b = bias_mask_l2<M, BIAS>(cM, lead[r], cB, blead[r], has_mask,
+                                                  wr + 8 * r, c, lse2[r]);
             p = ex2(fmaf(s[n][e], sl2, b));
           }
           const float d =
@@ -187,8 +225,8 @@ __global__ void __launch_bounds__(256) row_dot_kernel(const lvt::RowDot a) {
 }
 
 // dk and dv of one 64-row key tile of one (sequence, head), from D of
-// row_dot_kernel.
-template <int HD, typename M, bool DROP>
+// row_dot_kernel.  BIAS as in bwd_dq_kernel.
+template <int HD, typename M, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lvt::TcBwd a) {
   constexpr int LD = HD + 8, TILE = kRows * LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -197,12 +235,15 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lv
   bf16* sQG = sV + TILE;                                   // two stages of (Q, G)
   float* sLD = reinterpret_cast<float*>(sQG + 4 * TILE);  // two stages of (lse, D) rows
   uint32_t* sM = reinterpret_cast<uint32_t*>(sLD + 4 * kCols);  // two stages of the mask
-  constexpr int MT = MaskTile<M>::kBytes / 4;
+  constexpr int MT = MaskTile<M>::kBytes / 4, BT = MaskTile<bf16>::kBytes / 4;
+  uint32_t* sB = sM + 2 * MT;  // BIAS: two stages of the bias
   const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
   const int N = a.N, j0 = blockIdx.y * kRows, w = seq % a.nW;
   const bool has_mask = a.mask != nullptr;
   const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(M);
+  const long long b_bytes = (long long)a.nH * N * N * (long long)sizeof(bf16);
   const void* mask = a.mask;
+  const bf16* bias = a.bias;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
   const bf16* qb = a.x[0] + seq * a.st[0][0] + h * a.st[0][1];
   const bf16* kb = a.x[1] + seq * a.st[1][0] + h * a.st[1][1];
@@ -221,6 +262,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lv
     cp_async<4>(sLD + buf * 2 * kCols + c, (c < kCols ? lse_bh : dd_bh) + (ok ? i0 + r : 0),
                 ok ? 4 : 0);
     if (has_mask) load_mask<M>(sM + buf * MT, mask, m_bytes, w, i0, j0, N);
+    if constexpr (BIAS) load_mask<bf16>(sB + buf * BT, bias, b_bytes, h, i0, j0, N);
   };
   load_tile<HD>(sK, kb, a.st[1][2], j0, N);
   load_tile<HD>(sV, vb, a.st[2][2], j0, N);
@@ -253,7 +295,9 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lv
     const bf16* cG = cQ + TILE;
     const float* cL = sLD + buf * 2 * kCols;
     const uint32_t* cM = sM + buf * MT;
+    const uint32_t* cB = sB + buf * BT;
     const int lead0 = (int)(mask_byte<M>(w, i0, j0, N) & 3);  // row c's: + c * N * sizeof(M)
+    const int blead0 = (int)(mask_byte<bf16>(h, i0, j0, N) & 3);
     const int cn = N - i0;                                     // columns < cn are queries
     // the tile's queries in two halves of 32: half the accumulators live
 #pragma unroll 1
@@ -274,9 +318,11 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lv
           const int c = c0 + n * 8 + 2 * tq + (e & 1), r = e >> 1, j = col[r];
           float p = 0.0f;
           if (c < cn && j < N) {
-            const float b =
+            float b =
                 has_mask ? mask_in<M>(cM, c, (lead0 + c * N * (int)sizeof(M)) & 3, wc + 8 * r)
                          : 0.0f;
+            if constexpr (BIAS)
+              b = mask_in<bf16>(cB, c, (blead0 + c * N * (int)sizeof(bf16)) & 3, wc + 8 * r) + b;
             p = ex2(fmaf(s[n][e], sl2, (b - cL[c]) * kLog2e));
           }
           const float m =
@@ -294,21 +340,164 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lv
   store_rows<HD>(a.dx[2] + seq * a.st[6][0] + h * a.st[6][1], a.st[6][2], col, N, dv, 1.0f, tq);
 }
 
-template <int HD, typename M, bool DROP>
+// The partial dbias of one 64 x 64 tile (query tile, key tile) of one head
+// over one chunk of sequences: sum over the chunk of ds = p * (dp - D), S
+// and dP recomputed on the tensor cores as the dq kernel forms them (the
+// same mma_abt, the same f32 expression for p: the same bits), dS summed
+// on the accumulator fragments in f32 (32 floats a thread) in the chunk's
+// fixed order and written once into the chunk's slice of part.  The chunk
+// takes its sequences window-major (entry u is sequence (u % nb) * nW +
+// u / nb, nb = nSeq / nW), so a stage's mask tile is copied only where its
+// window changes; the bias tile, the head's, is copied once.
+template <int HD>
+__global__ void __launch_bounds__(kThreads, kBlocks<bf16>) bwd_dbias_kernel(const lvt::TcBwd a) {
+  constexpr int LD = HD + 8, TILE = kRows * LD, MT = MaskTile<bf16>::kBytes / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* sT = reinterpret_cast<bf16*>(smem);               // two stages of (Q, G, K, V)
+  float* sLD = reinterpret_cast<float*>(sT + 8 * TILE);  // two stages of (lse, D) rows
+  uint32_t* sM = reinterpret_cast<uint32_t*>(sLD + 4 * kRows);  // two stages of the mask
+  uint32_t* sB = sM + 2 * MT;                                   // the bias
+  const int N = a.N, nT = (N + kRows - 1) / kRows;
+  const int qt = blockIdx.x / nT, i0 = qt * kRows, j0 = (blockIdx.x - qt * nT) * kCols;
+  const int h = blockIdx.y, nb = a.nSeq / a.nW;
+  const int u0 = (int)((long long)blockIdx.z * a.nSeq / a.nChunks);
+  const int u1 = (int)((long long)(blockIdx.z + 1) * a.nSeq / a.nChunks);
+  const bool has_mask = a.mask != nullptr;
+  const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(bf16);
+  const long long b_bytes = (long long)a.nH * N * N * (long long)sizeof(bf16);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
+  int held0 = -1, held1 = -1;  // the window whose mask tile stage 0 / 1 holds
+  // sequence u's Q, G rows i0.. and K, V rows j0.., its lse and D rows, and
+  // (where the stage holds another window's) its mask tile into stage buf
+  auto load_stage = [&](int buf, int u) {
+    const int w = u / nb, seq = (u - w * nb) * a.nW + w;
+    bf16* t = sT + buf * 4 * TILE;
+    load_tile<HD>(t, a.x[0] + seq * a.st[0][0] + h * a.st[0][1], a.st[0][2], i0, N);
+    load_tile<HD>(t + TILE, a.x[3] + seq * a.st[3][0] + h * a.st[3][1], a.st[3][2], i0, N);
+    load_tile<HD>(t + 2 * TILE, a.x[1] + seq * a.st[1][0] + h * a.st[1][1], a.st[1][2], j0, N);
+    load_tile<HD>(t + 3 * TILE, a.x[2] + seq * a.st[2][0] + h * a.st[2][1], a.st[2][2], j0, N);
+    const int c = threadIdx.x, r = c % kRows;  // kThreads == 2 * kRows
+    const bool ok = i0 + r < N;
+    const size_t bh = (size_t)seq * a.nH + h;
+    cp_async<4>(sLD + buf * 2 * kRows + c, (c < kRows ? a.lse : a.dd) + bh * N + (ok ? i0 + r : 0),
+                ok ? 4 : 0);
+    int& held = buf ? held1 : held0;
+    if (has_mask && held != w) {
+      load_mask<bf16>(sM + buf * MT, a.mask, m_bytes, w, i0, j0, N);
+      held = w;
+    }
+  };
+  load_mask<bf16>(sB, a.bias, b_bytes, h, i0, j0, N);
+  load_stage(0, u0);
+  cp_async_commit();
+
+  const int wr = warp * 16 + (lane >> 2);  // the thread's first row in the tile
+  const int row[2] = {i0 + wr, i0 + wr + 8};
+  const bool live = i0 + warp * 16 < N;  // the warp has rows to form
+  const int cn = N - j0;                 // columns < cn are keys
+  const int blead[2] = {(int)(mask_byte<bf16>(h, row[0], j0, N) & 3),
+                        (int)(mask_byte<bf16>(h, row[1], j0, N) & 3)};
+  const float sl2 = a.scale * kLog2e;
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
+  for (int u = u0; u < u1; ++u) {
+    const int buf = (u - u0) & 1, w = u / nb;
+    if (u + 1 < u1) {
+      load_stage(buf ^ 1, u + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (live) {
+      const bf16* cT = sT + buf * 4 * TILE;
+      const float* cL = sLD + buf * 2 * kRows;
+      const uint32_t* cM = sM + buf * MT;
+      const int lead[2] = {(int)(mask_byte<bf16>(w, row[0], j0, N) & 3),
+                           (int)(mask_byte<bf16>(w, row[1], j0, N) & 3)};
+      const float lse2[2] = {cL[wr] * kLog2e, cL[wr + 8] * kLog2e};
+      const float D[2] = {cL[kRows + wr], cL[kRows + wr + 8]};
+      // the tile's keys in two halves of 32: half the score accumulators
+      // live (each n-tile's S is summed as mma_abt<HD> sums it: the same bits)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float s[4][4], dp[4][4];
+        {
+          uint32_t f[HD / 16][4];
+          load_a<HD>(f, cT, warp, lane);
+          mma_abt<HD, 4>(s, f, cT + (2 * kRows + half * 32) * LD, lane);
+          load_a<HD>(f, cT + TILE, warp, lane);
+          mma_abt<HD, 4>(dp, f, cT + (3 * kRows + half * 32) * LD, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = half * 32 + n * 8 + 2 * tq + (e & 1);
+            if (row[r] < N && c < cn) {
+              const float b = bias_mask_l2<bf16, true>(cM, lead[r], sB, blead[r], has_mask,
+                                                       wr + 8 * r, c, lse2[r]);
+              acc[half * 4 + n][e] += ex2(fmaf(s[n][e], sl2, b)) * (dp[n][e] - D[r]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's copies overwrite this stage
+  }
+  if (!live) return;
+  float* out = a.part + ((size_t)blockIdx.z * a.nH + h) * N * N;
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1, c = n * 8 + 2 * tq + (e & 1);
+      if (row[r] < N && c < cn) out[(size_t)row[r] * N + j0 + c] = acc[n][e];
+    }
+}
+
+// sum_chunks' pass: out[e] = sum over chunks of part[chunk][e], in order.
+__global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  int nChunks, size_t n) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int c = 0; c < nChunks; ++c) s += part[(size_t)c * n + e];
+    out[e] = s;
+  }
+}
+
+template <int HD, typename M, bool DROP, bool BIAS>
 int launch(const lvt::TcBwd& a, cudaStream_t stream) {
   constexpr size_t kTile = kRows * (HD + 8) * sizeof(bf16);
-  constexpr size_t kMask = 2 * MaskTile<M>::kBytes;  // two stages
+  // two stages of the mask and of the bias
+  constexpr size_t kMask = 2 * MaskTile<M>::kBytes + (BIAS ? 2 * MaskTile<bf16>::kBytes : 0);
   constexpr size_t smem_dq = 6 * kTile + kMask;  // Q, G and two stages of K, V
   constexpr size_t smem_dkdv = 6 * kTile + 4 * kCols * sizeof(float) + kMask;
-  cudaError_t e = allow_smem(bwd_dq_kernel<HD, M, DROP>, smem_dq);
-  if (e == cudaSuccess) e = allow_smem(bwd_dkdv_kernel<HD, M, DROP>, smem_dkdv);
+  cudaError_t e = allow_smem(bwd_dq_kernel<HD, M, DROP, BIAS>, smem_dq);
+  if (e == cudaSuccess) e = allow_smem(bwd_dkdv_kernel<HD, M, DROP, BIAS>, smem_dkdv);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(a.nSeq * a.nH, (a.N + kRows - 1) / kRows);
-  bwd_dq_kernel<HD, M, DROP><<<grid, kThreads, smem_dq, stream>>>(a);
+  const int nT = (a.N + kRows - 1) / kRows;
+  const dim3 grid(a.nSeq * a.nH, nT);
+  bwd_dq_kernel<HD, M, DROP, BIAS><<<grid, kThreads, smem_dq, stream>>>(a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  bwd_dkdv_kernel<HD, M, DROP><<<grid, kThreads, smem_dkdv, stream>>>(a);
-  return (int)cudaGetLastError();
+  bwd_dkdv_kernel<HD, M, DROP, BIAS><<<grid, kThreads, smem_dkdv, stream>>>(a);
+  e = cudaGetLastError();
+  if constexpr (BIAS) {
+    if (e != cudaSuccess) return (int)e;
+    // two stages of (Q, G, K, V), of the (lse, D) rows and of the mask; the bias
+    constexpr size_t smem_db = 8 * kTile + 4 * kRows * sizeof(float) + 3 * MaskTile<bf16>::kBytes;
+    e = allow_smem(bwd_dbias_kernel<HD>, smem_db);
+    if (e != cudaSuccess) return (int)e;
+    bwd_dbias_kernel<HD><<<dim3(nT * nT, a.nH, a.nChunks), kThreads, smem_db, stream>>>(a);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    return lvt::sum_chunks(a.part, a.dbias, a.nChunks, (size_t)a.nH * a.N * a.N, stream);
+  }
+  return (int)e;
 }
 
 template <int HD>
@@ -318,9 +507,16 @@ int launch_row_dot(const lvt::RowDot& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// A bias (K8b) comes with a bf16 mask or none and no dropout.
 template <int HD, typename M>
 int launch_drop(const lvt::TcBwd& a, cudaStream_t stream) {
-  return a.seed != nullptr ? launch<HD, M, true>(a, stream) : launch<HD, M, false>(a, stream);
+  if (a.bias != nullptr) {
+    if constexpr (sizeof(M) == 2)
+      if (a.seed == nullptr) return launch<HD, M, false, true>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  return a.seed != nullptr ? launch<HD, M, true, false>(a, stream)
+                           : launch<HD, M, false, false>(a, stream);
 }
 
 template <typename M>
@@ -339,7 +535,17 @@ int lvt::attention_bwd_tc(const TcBwd& a, int hd, bool mask_f32, cudaStream_t st
   if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.nW <= 0 || a.nSeq % a.nW != 0 ||
       (long long)a.nSeq * a.nH > 0x7fffffffLL || a.N > 65535 || a.dd == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (a.bias != nullptr &&
+      (a.dbias == nullptr || a.part == nullptr || a.nChunks < 1 || a.nChunks > a.nSeq ||
+       a.nChunks > 65535 || a.nH > 65535))
+    return (int)cudaErrorInvalidValue;
   return mask_f32 ? launch_hd<float>(a, hd, stream) : launch_hd<bf16>(a, hd, stream);
+}
+
+int lvt::sum_chunks(const float* part, float* out, int nChunks, size_t n, cudaStream_t stream) {
+  const size_t blocks = (n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8;
+  sum_chunks_kernel<<<(unsigned)blocks, 256, 0, stream>>>(part, out, nChunks, n);
+  return (int)cudaGetLastError();
 }
 
 int lvt::attention_row_dot(const RowDot& a, int hd, cudaStream_t stream) {

@@ -1,5 +1,5 @@
-// Tensor-core forward of the fusion encoder's train attention:
-//   s = q k^T * scale + mask,  p = softmax(s) over the keys,
+// Tensor-core forward of the train attention cores:
+//   s = q k^T * scale + bias[h] + mask[w],  p = softmax(s) over the keys,
 //   o = ((m * p) v) / l,  lse = log(l) + max,
 // l the row sum of the undropped p, m the dropout factor of each
 // probability (0 or 1 / (1 - rate)) from the counter hash of dropout.cuh
@@ -10,44 +10,54 @@
 //
 // Replaces lavender_tpu/ops/encoder_attention.py
 // _enc_attn_train_lanes_kernel (:750, K10a: q, k, v column slices of the
-// packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask) and
+// packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask, dropout),
 // _enc_attn_train_kernel (:526, K13a: q, k, v [B, nH, L, hd] by their
-// strides, views of one qkv product, an f32 [B, L, L] mask).  Both reach
-// it through the C entries of attention.cu: the calls that write lse
-// without a bias or a key-keep.  Every other call (K1, K4, K6, K7, K8a,
-// K15) stays on attention.cu's f32-pipe core.
+// strides, views of one qkv product, an f32 [B, L, L] mask, dropout) and
+// lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel (:112, K8a: the
+// packed slab [B*nW*Npad, 3C] of the Swin backward's recompute, a bf16
+// rel-pos bias [nH, Npad, Npad] and a bf16 shift mask [nW, Npad, Npad] or
+// none, no dropout).  All reach it through the C entries of attention.cu:
+// every call that writes lse.  The calls without lse (K1, K4, K6, K7, K14,
+// K15, K16) stay on attention.cu's f32-pipe core.
 //
-// Bound on the card, at the train step's 64 pairs, L = 276, 12 heads of
-// 64: device memory.  Each input read once and each output written once is
-// 4 bf16 [B*L, C] slabs (q, k, v, o) + the mask + lse, 119.1 MB with
-// K10a's bf16 mask (0.036 ms at 3.35 TB/s) and 128.9 MB with K13a's f32
-// one (0.038 ms); the two products are 15.0 GFLOP, 0.015 ms at 989
-// TFLOP/s in bf16.
+// Bound on the card: device memory.  At the train step's 64 pairs, L =
+// 276, 12 heads of 64 (K10a / K13a) each input read once and each output
+// written once is 4 bf16 [B*L, C] slabs (q, k, v, o) + the mask + lse,
+// 119.1 MB with K10a's bf16 mask (0.036 ms at 3.35 TB/s) and 128.9 MB with
+// K13a's f32 one (0.038 ms); the two products are 15.0 GFLOP, 0.015 ms at
+// 989 TFLOP/s in bf16.  K8a at B = 8, Swin-B stage 1 (512 windows of 248
+// rows, 4 heads of 32): 132.5 MB of slabs, lse and bias unshifted (0.040
+// ms), 16.1 GFLOP (0.016 ms);
+// hd 32 halves the products per byte staged, and the bias is one more
+// tile a stage.
 //
 // Design: FlashAttention-2's forward, shaped as the backward's dq kernel.
 // A block of 4 warps owns one 64-row query tile of one (sequence, head),
 // each warp 16 rows, the warp's Q A-fragments loaded once into registers
 // by ldmatrix; the grid is (sequence x head, query tile), the heads of a
 // sequence adjacent so that they read one mask from L2.  The block sweeps
-// 64-key tiles of K, V and the mask through a two-stage cp.async ring (the
-// next tile loads while the current one multiplies); no whole sequence
-// sits in shared memory, so N is not capped by it.  S = Q K^T and
-// O += (m * P) V run on the tensor cores (mma.sync m16n8k16, bf16
-// operands, f32 accumulation); S comes from the backward's mma_abt in the
-// same tile order and is scaled in f32 after the product, so both form the
-// same S bits.  The online softmax runs on the accumulator fragments, the
-// mask added before the max: the row max over the quad of lanes that
-// share a row (shfl_xor), the rescale of l and O, p = ex2(fmaf(s, scale *
-// log2(e), mask * log2(e) - max2)) (max2 the running max in log2 units),
-// the dropout factor, and m * p rounded to bf16 as the next product's A
-// operand (the JAX kernel's (p * m).astype(v.dtype)); nothing [N, N]-shaped
-// leaves registers.  The ragged edge (N = 276 = 4 * 64 + 20): the copies
-// zero-fill rows >= N, p = 0 by predicate for a row or key >= N (never by
-// -inf arithmetic: such a row's max stays -inf and its rescale is 1), rows
-// >= N are never stored (in the packed slab they are the next sequence's),
-// and a warp whose 16 rows all lie past N skips its products.  One thread
-// owns each output element and sums it in a fixed order (the row sums
-// over the quad by a fixed butterfly): the same bits on every run.
+// 64-key tiles of K, V, the mask and the bias through a two-stage cp.async
+// ring (the next tile loads while the current one multiplies); the bias
+// tile is staged as a mask tile of the [nH, N, N] buffer, the head in the
+// window's place.  No whole sequence sits in shared memory, so N is not
+// capped by it.  S = Q K^T and O += (m * P) V run on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 accumulation); S comes from the
+// backward's mma_abt in the same tile order and is scaled in f32 after the
+// product, so both form the same S bits.  The online softmax runs on the
+// accumulator fragments, bias + mask added in f32 (in that order, as the
+// backward adds them) before the max: the row max over the quad of lanes
+// that share a row (shfl_xor), the rescale of l and O, p = ex2(fmaf(s,
+// scale * log2(e), (bias + mask) * log2(e) - max2)) (max2 the running max
+// in log2 units), the dropout factor, and m * p rounded to bf16 as the next
+// product's A operand (the JAX kernel's (p * m).astype(v.dtype)); nothing
+// [N, N]-shaped leaves registers.  The ragged edge (N = 276 = 4 * 64 + 20,
+// Npad = 248 = 3 * 64 + 56): the copies zero-fill rows >= N, p = 0 by
+// predicate for a row or key >= N (never by -inf arithmetic: such a row's
+// max stays -inf and its rescale is 1), rows >= N are never stored (in the
+// packed slab they are the next sequence's), and a warp whose 16 rows all
+// lie past N skips its products.  One thread owns each output element and
+// sums it in a fixed order (the row sums over the quad by a fixed
+// butterfly): the same bits on every run.
 #include <math.h>
 
 #include "attention_tc.cuh"
@@ -59,18 +69,21 @@ using namespace lvt::tc;
 
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int HD, typename M, bool DROP>
+// BIAS: a per-head bf16 bias tile staged beside the mask tile.
+template <int HD, typename M, bool DROP, bool BIAS>
 __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::TcFwd a) {
   constexpr int LD = HD + 8, TILE = kRows * LD;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem);
   bf16* sKV = sQ + TILE;                                       // two stages of (K, V)
   uint32_t* sM = reinterpret_cast<uint32_t*>(sKV + 4 * TILE);  // two stages of the mask
-  constexpr int MT = MaskTile<M>::kBytes / 4;
+  constexpr int MT = MaskTile<M>::kBytes / 4, BT = MaskTile<bf16>::kBytes / 4;
+  uint32_t* sB = sM + 2 * MT;  // BIAS: two stages of the bias
   const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
   const int N = a.N, i0 = blockIdx.y * kRows, w = seq % a.nW;
   const bool has_mask = a.mask != nullptr;
   const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(M);
+  const long long b_bytes = (long long)a.nH * N * N * (long long)sizeof(bf16);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
   const bf16* kb = a.x[1] + seq * a.st[1][0] + h * a.st[1][1];
   const bf16* vb = a.x[2] + seq * a.st[2][0] + h * a.st[2][1];
@@ -78,6 +91,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   load_tile<HD>(sKV, kb, a.st[1][2], 0, N);
   load_tile<HD>(sKV + TILE, vb, a.st[2][2], 0, N);
   if (has_mask) load_mask<M>(sM, a.mask, m_bytes, w, i0, 0, N);
+  if constexpr (BIAS) load_mask<bf16>(sB, a.bias, b_bytes, h, i0, 0, N);
   cp_async_commit();
 
   const int wr = warp * 16 + (lane >> 2);  // the thread's first row in the tile
@@ -90,7 +104,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   float o[HD / 8][4];
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-  // per row: the running max of s * scale + mask in log2 units and the
+  // per row: the running max of s * scale + bias + mask in log2 units and the
   // thread's part of the row sum, relative to it
   float mx[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
   const int nT = (N + kCols - 1) / kCols;
@@ -98,11 +112,14 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
     const int j0 = t * kCols;
     const bf16* cur = sKV + (t & 1) * 2 * TILE;
     const uint32_t* cM = sM + (t & 1) * MT;
+    const uint32_t* cB = sB + (t & 1) * BT;
     if (t + 1 < nT) {
       bf16* nxt = sKV + ((t + 1) & 1) * 2 * TILE;
       load_tile<HD>(nxt, kb, a.st[1][2], j0 + kCols, N);
       load_tile<HD>(nxt + TILE, vb, a.st[2][2], j0 + kCols, N);
       if (has_mask) load_mask<M>(sM + ((t + 1) & 1) * MT, a.mask, m_bytes, w, i0, j0 + kCols, N);
+      if constexpr (BIAS)
+        load_mask<bf16>(sB + ((t + 1) & 1) * BT, a.bias, b_bytes, h, i0, j0 + kCols, N);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -112,17 +129,25 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
     const int cn = N - j0;  // columns < cn are keys
     if (live) {
       if (t == 0) load_a<HD>(qf, sQ, warp, lane);
-      float s[8][4], b[8][4];  // the scores and mask * log2(e) of the warp's 16 x 64
+      // the scores and (bias + mask) * log2(e) of the warp's 16 x 64
+      float s[8][4], b[8][4];
       mma_abt<HD>(s, qf, cur, lane);
       const int lead[2] = {(int)(mask_byte<M>(w, row[0], j0, N) & 3),
                            (int)(mask_byte<M>(w, row[1], j0, N) & 3)};
+      const int blead[2] = {(int)(mask_byte<bf16>(h, row[0], j0, N) & 3),
+                            (int)(mask_byte<bf16>(h, row[1], j0, N) & 3)};
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, c = n * 8 + 2 * tq + (e & 1);
-          b[n][e] = has_mask ? mask_in<M>(cM, wr + 8 * r, lead[r], c) * kLog2e : 0.0f;
+          if constexpr (BIAS)
+            b[n][e] = (mask_in<bf16>(cB, wr + 8 * r, blead[r], c) +
+                       (has_mask ? mask_in<M>(cM, wr + 8 * r, lead[r], c) : 0.0f)) *
+                      kLog2e;
+          else
+            b[n][e] = has_mask ? mask_in<M>(cM, wr + 8 * r, lead[r], c) * kLog2e : 0.0f;
           if (row[r] < N && c < cn) tmax[r] = fmaxf(tmax[r], fmaf(s[n][e], sl2, b[n][e]));
         }
       }
@@ -170,20 +195,28 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   store_rows<HD>(a.o + seq * a.st[3][0] + h * a.st[3][1], a.st[3][2], row, N, o, 1.0f, tq);
 }
 
-template <int HD, typename M, bool DROP>
+template <int HD, typename M, bool DROP, bool BIAS>
 int launch(const lvt::TcFwd& a, cudaStream_t stream) {
-  // Q and two stages of K, V and the mask
-  constexpr size_t smem = 5 * kRows * (HD + 8) * sizeof(bf16) + 2 * MaskTile<M>::kBytes;
-  const cudaError_t e = allow_smem(fwd_kernel<HD, M, DROP>, smem);
+  // Q and two stages of K, V, the mask and the bias
+  constexpr size_t smem = 5 * kRows * (HD + 8) * sizeof(bf16) + 2 * MaskTile<M>::kBytes +
+                          (BIAS ? 2 * MaskTile<bf16>::kBytes : 0);
+  const cudaError_t e = allow_smem(fwd_kernel<HD, M, DROP, BIAS>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.nSeq * a.nH, (a.N + kRows - 1) / kRows);
-  fwd_kernel<HD, M, DROP><<<grid, kThreads, smem, stream>>>(a);
+  fwd_kernel<HD, M, DROP, BIAS><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// A bias (K8a) comes with a bf16 mask or none and no dropout.
 template <int HD, typename M>
 int launch_drop(const lvt::TcFwd& a, cudaStream_t stream) {
-  return a.seed != nullptr ? launch<HD, M, true>(a, stream) : launch<HD, M, false>(a, stream);
+  if (a.bias != nullptr) {
+    if constexpr (sizeof(M) == 2)
+      if (a.seed == nullptr) return launch<HD, M, false, true>(a, stream);
+    return (int)cudaErrorInvalidValue;
+  }
+  return a.seed != nullptr ? launch<HD, M, true, false>(a, stream)
+                           : launch<HD, M, false, false>(a, stream);
 }
 
 template <typename M>

@@ -1,5 +1,6 @@
 // The tensor-core forward (attention_fwd_tc.cu) and backward
-// (attention_bwd_tc.cu) of the fusion encoder's train attention, as the C
+// (attention_bwd_tc.cu) of the train attention cores (the fusion encoder's
+// K10 and K13, the Swin window core K8 with its per-head bias), as the C
 // entries of attention.cu and attention_bwd.cu call them.
 #pragma once
 
@@ -17,6 +18,7 @@ struct TcFwd {
   long long st[4][3];   // (sequence, head, row) strides of q, k, v, o
   float* lse;           // [nSeq, nH, N] f32: each row's log-sum-exp of its scores
   const void* mask;     // [nW, N, N] (sequence s reads s % nW) or null
+  const bf16* bias;     // [nH, N, N] (head h reads bias[h]) or null
   const int64_t* seed;  // dropout seed, or null: no dropout
   uint32_t thresh;      // bits >= thresh are kept ...
   float drop_scale;     // ... and scaled by 1 / (1 - rate)
@@ -24,9 +26,10 @@ struct TcFwd {
   int nSeq, N, nH, nW;
 };
 
-// o = ((m * p) v) / l and lse of softmax(q k^T * scale + mask) with
-// dropout m on the probabilities (l the undropped row sum), on the tensor
-// cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32.
+// o = ((m * p) v) / l and lse of softmax(q k^T * scale + bias + mask)
+// with dropout m on the probabilities (l the undropped row sum), on the
+// tensor cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32;
+// a bias only with a bf16 mask (or none) and no dropout.
 // Returns a cudaError_t.
 int attention_fwd_tc(const TcFwd& a, int hd, bool mask_f32, cudaStream_t stream);
 
@@ -44,12 +47,24 @@ struct TcBwd {
   float drop_scale;     // ... and scaled by 1 / (1 - rate)
   float scale;
   int nSeq, N, nH, nW;
+  // With a bias (as the forward's): dbias [nH, N, N] f32 = the sum over
+  // sequences of ds, formed as nChunks partial sums into part [nChunks,
+  // nH, N, N] f32 (1 <= nChunks <= nSeq), then added in chunk order.
+  const bf16* bias;
+  float* dbias;
+  float* part;
+  int nChunks;
 };
 
-// dq, dk, dv of softmax(q k^T * scale + mask) with dropout, on the tensor
-// cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32.
+// dq, dk, dv (and dbias) of softmax(q k^T * scale + bias + mask) with
+// dropout, on the tensor cores; hd in {16, 32, 64}; the mask bf16, or f32
+// where mask_f32; a bias only with a bf16 mask (or none) and no dropout.
 // Returns a cudaError_t.
 int attention_bwd_tc(const TcBwd& a, int hd, bool mask_f32, cudaStream_t stream);
+
+// out[e] = sum over c < nChunks of part[c * n + e], c in order (the same
+// bits on every run), e < n.  Returns a cudaError_t.
+int sum_chunks(const float* part, float* out, int nChunks, size_t n, cudaStream_t stream);
 
 // D = rowsum(o * g) in f32 per (sequence, head, row): o the forward's
 // output and g its cotangent, each by (sequence, head, row) strides st,

@@ -11,8 +11,9 @@ The primitives bound here (tiled GEMM with fused epilogues, optionally
 scattering its rows, row LayerNorm, with or without its affine, optionally
 gathering its rows, and its dropout + residual variant, attention core (on
 the packed qkv slab, or on strided heads-layout q, k, v, with a per-head
-bias and a per-window mask; the train attention's forward, with dropout,
-on the tensor cores) and its backward, both with optional dropout,
+bias and a per-window mask; the train attention cores' forward, with
+dropout or a per-head bias, on the tensor cores) and its backward (with
+the bias's gradient), both with optional dropout,
 row permutation, and a probe of the dropout hash) are what the ports of
 the TPU kernels are composed from, see ``swin_block_attn.py``,
 ``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
@@ -60,8 +61,8 @@ _SIGNATURES = {
                                  _I, _F, *_DROP, _P],
     "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _P, _I, _I, _I,
                                   _I, _I, _F, _P],
-    "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _F, *_DROP, _P],
+    "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                               _I, _I, _I, _I, _F, *_DROP, _P],
     "lvt_attention_heads_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _STRIDES, _I, _I, _I, _I, _I, _F,
                                      *_DROP, _P],
@@ -540,17 +541,20 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     scores (what ``attention_bwd`` takes).  At ``rate`` > 0 the
     probabilities are dropped by the counter hash of ``seed`` (an int64
     [1] on the device; ``dropout.attention_keep``) in the P.V sum only.
-    A call with ``lse`` and neither ``bias`` nor ``keep`` (K10a) runs on
-    the tensor cores (``csrc/attention_fwd_tc.cu``), the only route that
-    takes dropout; every other on the f32-pipe core (``csrc/attention.cu``).
-    Returns [n_seq * n_tok, C]."""
+    A call with ``lse`` (K10a, K8a) runs on the tensor cores
+    (``csrc/attention_fwd_tc.cu``), the only route that takes dropout (not
+    with a bias) and writes lse (not with ``keep``); every other on the
+    f32-pipe core (``csrc/attention.cu``).  Returns [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
     if lse is not None:
         _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention")
-    if rate > 0.0 and (lse is None or bias is not None or keep is not None):
-        raise ValueError("attention: dropout needs lse and neither bias nor "
-                         "keep (the tensor-core route)")
+        if keep is not None:
+            raise ValueError("attention: lse is written on the tensor-core "
+                             "route, which takes no keep")
+    if rate > 0.0 and (lse is None or bias is not None):
+        raise ValueError("attention: dropout needs lse and no bias (the "
+                         "tensor-core route)")
     keep_ptr = None
     if keep is not None:
         if keep.device != qkv.device or tuple(keep.shape) != (n_seq, n_tok):
@@ -737,55 +741,51 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   n_seq: int, n_tok: int, n_heads: int, scale: float,
-                  bias: Optional[torch.Tensor] = None,
+                  out: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
-                  seed: Optional[torch.Tensor] = None, rate: float = 0.0,
-                  out: Optional[torch.Tensor] = None):
-    """Backward of ``attention`` (no keep vector).
+                  seed: Optional[torch.Tensor] = None, rate: float = 0.0):
+    """Backward of ``attention`` with ``lse`` (no keep vector), on the
+    tensor cores (``csrc/attention_bwd_tc.cu``).
 
-    qkv [n_seq * N, 3C], dout [n_seq * N, C] (bf16), lse the forward's f32
-    [n_seq, nH, N]; ``seed`` and ``rate`` the forward's dropout, whose bits
-    are regenerated.  Returns (dqkv [n_seq * N, 3C] bf16, dbias [nH, N, N]
-    f32 summed over every sequence, or None without a bias); the mask gets
-    no gradient.  Without a bias the tensor-core kernels run
-    (``csrc/attention_bwd_tc.cu``) and need the forward's output ``out``
-    [n_seq * N, C] (for D = rowsum(out * dout)); with one the f32-pipe
-    kernel."""
+    qkv [n_seq * N, 3C], dout and the forward's output ``out`` [n_seq * N,
+    C] (bf16; D = rowsum(out * dout)), lse the forward's f32 [n_seq, nH,
+    N]; ``seed`` and ``rate`` the forward's dropout, whose bits are
+    regenerated.  Returns (dqkv [n_seq * N, 3C] bf16, dbias [nH, N, N] f32
+    summed over every sequence, or None without a bias); the mask gets no
+    gradient."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention_bwd")
-    _check(dout, "attention_bwd dout")
-    if not dout.is_contiguous() or tuple(dout.shape) != (qkv.shape[0], C):
-        raise ValueError(f"attention_bwd dout: expected contiguous "
-                         f"[{qkv.shape[0]}, {C}], got {tuple(dout.shape)}")
+    for t, name in ((dout, "dout"), (out, "out")):
+        _check(t, f"attention_bwd {name}")
+        if not t.is_contiguous() or tuple(t.shape) != (qkv.shape[0], C):
+            raise ValueError(f"attention_bwd {name}: expected contiguous "
+                             f"[{qkv.shape[0]}, {C}], got {tuple(t.shape)}")
     _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention_bwd")
+    if rate > 0.0 and bias is not None:
+        raise ValueError("attention_bwd: dropout with a bias is not taken")
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, qkv.device)
     dqkv = torch.empty_like(qkv)
-    dbias = None
-    if bias is None:
-        n_chunks = n_seq
-        if (out is None or tuple(out.shape) != tuple(dout.shape)
-                or not out.is_contiguous()):
-            raise ValueError(f"attention_bwd: the forward's out, a "
-                             f"contiguous {tuple(dout.shape)}, is required "
-                             f"without a bias")
 
-        def heads(t):
-            return t.view(n_seq, n_tok, n_heads, hd).transpose(1, 2)
-        part = _row_dot(heads(out), heads(dout), "attention_bwd")
-    else:
-        # sequences are split into chunks, one block per (chunk, head);
-        # each chunk sums its dbias into its own f32 slice, a second pass
-        # adds the slices (no atomics; the sum is the same on every run)
-        n_chunks = max(1, min(n_seq, -(-264 // n_heads)))
+    def heads(t):
+        return t.view(n_seq, n_tok, n_heads, hd).transpose(1, 2)
+    dd = _row_dot(heads(out), heads(dout), "attention_bwd")
+    n_chunks, dbias, part = 1, None, None
+    if bias is not None:
+        # dbias: one block per (64 x 64 tile, head, chunk of sequences), each
+        # chunk summed into its own f32 slice, then the slices added in order
+        # (no atomics: the same bits on every run); about 4 waves of 3
+        # blocks on each of the H100's 132 SMs
+        n_t = -(-n_tok // 64)
+        n_chunks = max(1, min(n_seq, -(-1584 // (n_heads * n_t * n_t))))
         part = torch.empty(n_chunks, n_heads, n_tok, n_tok,
                            dtype=torch.float32, device=qkv.device)
         dbias = torch.empty(n_heads, n_tok, n_tok, dtype=torch.float32,
                             device=qkv.device)
     err = library().lvt_attention_bwd_bf16(
-        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), _ptr(bias),
-        _ptr(mask), dqkv.data_ptr(), _ptr(dbias), _ptr(part), n_seq, n_tok,
-        n_heads, hd, n_win, n_chunks, float(scale), seed_ptr, thresh,
-        drop_scale, _stream(qkv))
+        qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
+        _ptr(bias), _ptr(mask), dqkv.data_ptr(), _ptr(dbias), _ptr(part),
+        n_seq, n_tok, n_heads, hd, n_win, n_chunks, float(scale), seed_ptr,
+        thresh, drop_scale, _stream(qkv))
     _raise_on(err, "lvt_attention_bwd_bf16")
     return dqkv, dbias
 

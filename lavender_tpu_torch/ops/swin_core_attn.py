@@ -9,14 +9,18 @@ on the packed qkv slab [B, nW, Npad, 3C], and its vjp.  The K1 block's
 backward recomputes through it (``swin_block_attn._block_attn_recompute``,
 the JAX ``_wm_ref_core``).
 
-On the card K8a is the port's attention core (``csrc/attention.cu``),
-which also writes each query row's log-sum-exp; K8b
-(``csrc/attention_bwd.cu``) takes it instead of recomputing the row sums.
+On the card both run on the tensor cores: K8a is the forward of
+``csrc/attention_fwd_tc.cu`` with the per-head bias tile, which also writes
+each query row's log-sum-exp; K8b is ``csrc/attention_bwd_tc.cu``'s dq and
+dk/dv kernels and its dbias kernel, which take the lse instead of
+recomputing the row sums and D = rowsum(o * g) from the forward's output
+(which the autograd Function saves: the proj that follows holds it anyway).
 Scores and probabilities stay on chip in both directions; device memory
 sees the qkv, output and cotangent slabs and the [nH, Npad, Npad] dbias.
-dbias is summed over every (batch, window) in f32; the mask's cotangent is
-zero (it is geometry).  Pad keys must carry a strongly negative bias
-(``rel_pos_bias_wm`` writes -100), as in the JAX package.
+dbias is summed over every (batch, window) in f32, in chunks of sequences
+added in a fixed order; the mask's cotangent is zero (it is geometry).  Pad
+keys must carry a strongly negative bias (``rel_pos_bias_wm`` writes -100),
+as in the JAX package.
 """
 from __future__ import annotations
 
@@ -49,10 +53,11 @@ def _core_plain(qkv: torch.Tensor, bias: torch.Tensor,
 
 def _core_bwd_plain(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                     bias: torch.Tensor, mask: Optional[torch.Tensor], nH: int,
-                    scale: float):
+                    scale: float, out: Optional[torch.Tensor] = None):
     """Plain PyTorch version of ``swin_core_attn_bwd``: autograd of
-    ``_core_plain``.  ``lse`` (the kernel forward's row log-sum-exp) is
-    not needed here.  Returns (dqkv in qkv's dtype, dbias f32)."""
+    ``_core_plain``.  ``lse`` and ``out`` (the kernel forward's row
+    log-sum-exp and output) are not needed here.  Returns (dqkv in qkv's
+    dtype, dbias f32)."""
     with torch.enable_grad():
         q = qkv.detach().requires_grad_(True)
         b = bias.detach().float().requires_grad_(True)
@@ -61,11 +66,15 @@ def _core_bwd_plain(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     return dq, db
 
 
-def _core_bwd_cuda(qkv, lse, dout, bias, mask, nH, scale):
+def _core_bwd_cuda(qkv, lse, dout, bias, mask, nH, scale, out=None):
     B, nW, Npad, C3 = qkv.shape
+    if out is None:
+        raise ValueError("swin_core_attn_bwd: the forward's output is "
+                         "required on the card")
     dqkv, dbias = _build.attention_bwd(
         qkv.reshape(-1, C3), lse, dout.contiguous().reshape(-1, C3 // 3),
-        B * nW, Npad, nH, scale, bias, mask)
+        B * nW, Npad, nH, scale, out.contiguous().reshape(-1, C3 // 3),
+        bias=bias, mask=mask)
     return dqkv.view(qkv.shape), dbias
 
 
@@ -83,16 +92,17 @@ class _CoreFn(torch.autograd.Function):
                           device=qkv.device)
         out = _build.attention(qkv.view(-1, C3), B * nW, Npad, nH, scale,
                                bias=bias, mask=mask, lse=lse)
-        ctx.save_for_backward(qkv, bias, mask, lse)
+        out = out.view(B, nW, Npad, C3 // 3)
+        ctx.save_for_backward(qkv, bias, mask, lse, out)
         ctx.nH, ctx.scale = nH, scale
-        return out.view(B, nW, Npad, C3 // 3)
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        qkv, bias, mask, lse = ctx.saved_tensors
+        qkv, bias, mask, lse, out = ctx.saved_tensors
         dqkv, dbias = swin_core_attn_bwd(qkv, lse, g.to(qkv.dtype), bias,
-                                         mask, ctx.nH, ctx.scale)
+                                         mask, ctx.nH, ctx.scale, out=out)
         return dqkv, dbias.to(bias.dtype), None, None, None
 
 

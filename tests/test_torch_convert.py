@@ -255,7 +255,7 @@ def _meta_args(op):
     if op is swin_core_attn_bwd:
         lse = torch.zeros(2, nH, 8, device="meta")
         return (t(1, 2, 8, 3 * C), lse, t(1, 2, 8, C), t(nH, 8, 8), None, nH,
-                0.25), {}
+                0.25), {"out": t(1, 2, 8, C)}
     if op is fused_bert_attn_block_kmask:
         keep = torch.ones(2, 8, dtype=torch.bool, device="meta")
         return (t(2, 8, C), t(C, C), t(C, C), t(C, C), t(C), t(C), t(C),

@@ -34,7 +34,11 @@ tensor-core backward of K10b / K13b at lengths across its 64-row tiles
 contiguous heads, rates 0 / 0.1 / 0.5, padded-key and seq2seq masks with
 a fully masked row, each call repeated and bitwise equal; the same for
 the tensor-core forward of K10a / K13a (1 to 1000 tokens), its output,
-its lse against an f64 logsumexp and its keep masks at rates 0.1 and 0.5.
+its lse against an f64 logsumexp and its keep masks at rates 0.1 and 0.5;
+and the tensor-core Swin window core K8a / K8b (per-head bias, dbias) at
+Npad 8 to 248 and the unpadded N = 245, 1 to 600 sequences, each call
+repeated and bitwise equal, its lse against an f64 logsumexp and dbias
+against an f64 sum over up to 512 windows.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -253,10 +257,14 @@ def _core_inputs(g, B, nW, N, Npad, nH, hd, all_masked=False):
 @pytest.mark.parametrize("B,nW,N,Npad,nH,masked", [
     (1, 1, 5, 8, 1, False), (2, 4, 49, 56, 2, True), (1, 3, 245, 248, 2,
                                                          True),
-    (150, 4, 27, 32, 3, True), (600, 1, 12, 16, 2, False)])
+    (2, 4, 245, 245, 2, True), (150, 4, 27, 32, 3, True),
+    (600, 1, 12, 16, 2, False)])
 def test_core_backward_matches_plain(gen, hd, B, nW, N, Npad, nH, masked):
-    """K8a + K8b through the autograd Function vs autograd of the plain
-    core: dq, dk, dv and dbias separately (1 to 600 sequences)."""
+    """K8a + K8b (the tensor cores) through the autograd Function vs
+    autograd of the plain core: o, dq, dk, dv and dbias separately (1 to
+    600 sequences; Npad = N = 245 is the spatial route's unpadded window,
+    whose bf16 rows have a 490-byte pitch), and a second call of the kernel
+    path bitwise equal in each."""
     qkv, bias, mask, scale = _core_inputs(gen, B, nW, N, Npad, nH, hd,
                                           all_masked=masked)
     mask = mask if masked else None
@@ -264,7 +272,8 @@ def test_core_backward_matches_plain(gen, hd, B, nW, N, Npad, nH, masked):
     dout[:, :, N:] = 0.0  # the caller's pad rows carry no cotangent
     got, dgot = [], []
     # as in training: an f32 bias leaf, cast to bf16 by autocast
-    for f in (swin_core_attn, swin_core_attn.plain_as_launched):
+    for f in (swin_core_attn, swin_core_attn,
+              swin_core_attn.plain_as_launched):
         q = qkv.clone().requires_grad_(True)
         b = bias.float().requires_grad_(True)
         with torch.autocast("cuda", dtype=torch.bfloat16):
@@ -273,25 +282,57 @@ def test_core_backward_matches_plain(gen, hd, B, nW, N, Npad, nH, masked):
         got.append(o)
         dgot.append((dq, db))
     C = nH * hd
-    _close(got[0][:, :, :N], got[1][:, :, :N])
-    (dq_k, db_k), (dq_p, db_p) = dgot
+    assert torch.equal(got[0], got[1])
+    assert all(torch.equal(x, y) for x, y in zip(dgot[0], dgot[1]))
+    _close(got[0][:, :, :N], got[2][:, :, :N], rel_l2=1e-2)
+    (dq_k, db_k), _, (dq_p, db_p) = dgot
     for part in range(3):  # dq, dk, dv
         sl = slice(part * C, (part + 1) * C)
         _close(dq_k[:, :, :N, sl], dq_p[:, :, :N, sl], rel_l2=5e-2)
     _close(db_k[:, :N, :N], db_p[:, :N, :N], rel_l2=5e-2)
 
 
-def test_core_dbias_sum_matches_f64(gen):
-    """dbias, summed over 64 sequences by chunks, against an f64 sum of the
-    plain per-sequence gradients."""
-    B, nW, N, Npad, nH, hd = 16, 4, 49, 56, 2, 32
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("B,nW,N,Npad,nH,masked", [
+    (1, 1, 5, 8, 1, False), (2, 4, 49, 56, 2, True), (2, 4, 245, 248, 4,
+                                                         True),
+    (2, 4, 245, 245, 2, True), (600, 1, 12, 16, 2, False)])
+def test_core_forward_lse_matches_f64(gen, hd, B, nW, N, Npad, nH, masked):
+    """The row log-sum-exp K8a writes for K8b against torch.logsumexp of the
+    plain scores (q k^T * scale + bias + mask) in f64, within 1e-3, and a
+    second call bitwise equal."""
+    qkv, bias, mask, scale = _core_inputs(gen, B, nW, N, Npad, nH, hd,
+                                          all_masked=masked)
+    mask = mask if masked else None
+    n_seq = B * nW
+    q, k, _ = qkv.view(B, nW, Npad, 3, nH, hd).permute(3, 0, 1, 4, 2, 5)
+    s = (q.double() @ k.double().transpose(-1, -2)) * scale + bias.double()
+    if mask is not None:
+        s = s + mask.double()[None, :, None]
+    want = torch.logsumexp(s, dim=-1).reshape(n_seq, nH, Npad)
+    got = [torch.empty(n_seq, nH, Npad, device="cuda") for _ in range(2)]
+    for lse in got:
+        _build.attention(qkv.view(-1, 3 * nH * hd), n_seq, Npad, nH, scale,
+                         bias=bias, mask=mask, lse=lse)
+    assert torch.equal(got[0], got[1])
+    err = float((got[0].double() - want).abs().max())
+    assert err <= 1e-3, err
+
+
+@pytest.mark.parametrize("B,nW,N,Npad,nH,hd", [
+    (16, 4, 49, 56, 2, 32), (8, 64, 245, 248, 4, 32)])
+def test_core_dbias_sum_matches_f64(gen, B, nW, N, Npad, nH, hd):
+    """dbias, summed by chunks over 64 sequences and over Swin-B stage 1's
+    512 windows at B = 8 (shifted), against an f64 sum of the plain
+    per-batch gradients."""
     qkv, bias, mask, scale = _core_inputs(gen, B, nW, N, Npad, nH, hd)
     dout = _rnd(gen, B, nW, Npad, nH * hd)
     lse = torch.empty(B * nW, nH, Npad, device="cuda")
-    _build.attention(qkv.view(-1, 3 * nH * hd), B * nW, Npad, nH, scale,
-                     bias=bias, mask=mask, lse=lse)
+    out = _build.attention(qkv.view(-1, 3 * nH * hd), B * nW, Npad, nH,
+                           scale, bias=bias, mask=mask, lse=lse)
     before = swin_core_attn_bwd.launches
-    _, dbias = swin_core_attn_bwd(qkv, lse, dout, bias, mask, nH, scale)
+    _, dbias = swin_core_attn_bwd(qkv, lse, dout, bias, mask, nH, scale,
+                                  out=out)
     assert swin_core_attn_bwd.launches == before + 1
     want = torch.zeros(nH, Npad, Npad, dtype=torch.float64, device="cuda")
     for b in range(B):  # each batch row separately, summed in f64

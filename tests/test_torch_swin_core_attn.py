@@ -60,7 +60,8 @@ def test_core_forward_matches_jax_kernel(use_mask):
 @pytest.mark.parametrize("use_mask", [False, True])
 def test_core_backward_matches_jax_kernel(use_mask):
     """dqkv and dbias of the plain K8b against the Pallas backward, with a
-    cotangent on the valid rows only (the caller's pad rows carry none)."""
+    cotangent on the valid rows only (the caller's pad rows carry none),
+    given the forward's output as the autograd Function passes it."""
     qkv, bias, mask, mask_pad, scale, nH, N = _core_inputs(1)
     do = np.random.RandomState(2).randn(*qkv.shape[:3], qkv.shape[3] // 3)
     do = do.astype(np.float32)
@@ -74,9 +75,10 @@ def test_core_backward_matches_jax_kernel(use_mask):
     with pltpu.force_tpu_interpret_mode():
         dq_want, db_want = jax.grad(f, argnums=(0, 1))(jnp.asarray(qkv),
                                                        jnp.asarray(bias))
-    dq, db = tcore.swin_core_attn_bwd(
-        _t(qkv), None, _t(do), _t(bias), _t(mask_pad) if use_mask else None,
-        nH, scale)
+    mask_t = _t(mask_pad) if use_mask else None
+    out = tcore.swin_core_attn(_t(qkv), _t(bias), mask_t, nH, scale)
+    dq, db = tcore.swin_core_attn_bwd(_t(qkv), None, _t(do), _t(bias), mask_t,
+                                      nH, scale, out=out)
     _close(dq[:, :, :N], np.asarray(dq_want)[:, :, :N])
     _close(db[:, :N, :N], np.asarray(db_want)[:, :N, :N])
     assert float(db[:, :, N:].abs().max()) < 1e-6  # pad keys: ~e^-100

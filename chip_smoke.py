@@ -35,7 +35,11 @@ nothing is ever run on the CPU instead:
    block, whole and attention half, also minus its residual) and K15
    (the per-window attention, its yardstick SDPA with bias + shift mask
    as one additive mask) at the four Swin-B stages at B=4 and B=8,
-   shifted and unshifted; K17 (the uint8 patch embed) on the B=4 and
+   shifted and unshifted; K7 and K15 (the tensor-core forward without
+   lse) each call repeated and required bitwise equal, and each at its
+   mask and bias rows' own pitch against rows padded to 16 bytes (K15 at
+   N=245 with a bf16 and an f32 mask, K7 at L=275; event and device
+   time, outputs bitwise equal); K17 (the uint8 patch embed) on the B=4 and
    B=8 clips, its yardstick F.conv3d on the padded normalized bf16 clip;
    K16 (the shifted wm block with the shift inside) at Swin-B stage 3,
    B=4 and B=8, also minus its residual, its output's pad rows exactly 0;
@@ -146,6 +150,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -352,7 +357,8 @@ def _full_mask_cases(g, lin, ln):
             f"{kind}", count, (q, k, v, mask, hd ** -0.5),
             4.0 * BATCH * nH * L * L * hd, 4 * q.numel() * 2 + mask_bytes,
             library=lambda m=sdpa_mask: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=m, scale=hd ** -0.5)))
+                q, k, v, attn_mask=m, scale=hd ** -0.5),
+            bitwise_repeat=True))
     # the re-encode decoder's first and last steps: [video; text; MASK] of
     # 2 and GEN_LEN tokens, neither a multiple of 8 long (checked, not
     # timed into the kernels line)
@@ -653,12 +659,15 @@ def _spatial_cases(g, lin, ln):
     forward and once in its recomputation) and the "pallas" serving
     forward (B=4: K15 in every block); the other cases are checked only.
     K15's q, k, v are the strided views of one qkv product that the module
-    path passes; its library yardstick is scaled_dot_product_attention
-    with bias + shift mask as one additive [W, nH, N, N] mask."""
+    path passes, at B=4 with the bias and shift mask as that forward
+    passes them (bf16, rows padded to 16 bytes), at B=8 with the f32 mask;
+    its library yardstick is scaled_dot_product_attention with bias +
+    shift mask as one additive [W, nH, N, N] mask."""
     import torch.nn.functional as F
 
     from lavender_tpu_torch.models.swin3d import (
         compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
     from lavender_tpu_torch.ops.swin_block_attn import (
         fused_swin_block_attn, fused_swin_block_full, rel_pos_bias_wm)
     from lavender_tpu_torch.ops.window_attention import (
@@ -713,16 +722,28 @@ def _spatial_cases(g, lin, ln):
                     full = (full.reshape(B, nW, nH, N, N)
                             + mask[None, :, None]).reshape(B * nW, nH, N, N)
                 lib_mask = full.to(torch.bfloat16).contiguous()
+                # the "pallas" serving forward (B=4) passes the bias and the
+                # mask in bf16 in rows padded to 16 bytes (BasicLayer's
+                # cache and geometry); B=8 (checked only) the f32 mask at
+                # the rows' own pitch
+                k_bias, k_mask = bias, mask
+                if not train:
+                    k_bias, k_mask = (
+                        None if t is None else _build.with_padded_rows(
+                            t.to(torch.bfloat16)) for t in (bias, mask))
                 cases.append(Case(
                     fused_window_attention, f"W={B * nW} nH={nH} N={N} "
-                    f"hd={hd} {kind} (B={B} stage {stage})",
+                    f"hd={hd} {kind} (B={B} stage {stage}"
+                    f"{', bf16 padded rows' if not train else ''})",
                     0 if train else n_kind,
-                    (q, k, v, bias, mask, hd ** -0.5), core_flops,
+                    (q, k, v, k_bias, k_mask, hd ** -0.5), core_flops,
                     4 * B * nW * nH * N * hd * 2 + bias.numel() * 2
-                    + (0 if mask is None else mask.numel() * 4),
+                    + (0 if k_mask is None
+                       else k_mask.numel() * k_mask.element_size()),
                     library=lambda q=q, k=k, v=v, m=lib_mask, s=hd ** -0.5:
                     F.scaled_dot_product_attention(q, k, v, attn_mask=m,
-                                                   scale=s)))
+                                                   scale=s),
+                    bitwise_repeat=True))
     return cases
 
 
@@ -1186,6 +1207,68 @@ def _bert_core_vs_sdpa(g):
     return ms[0], ms[1]
 
 
+def _heads_tc_pitch(g):
+    """K15 at N = 245 (B=4, stage 1, shifted: the bias and the shift mask
+    in bf16, as the model path passes them, and the mask in f32) and K7 at
+    L = 275 (B=4, 12 heads of 64, the clamped f32 seq2seq mask), their
+    mask and bias rows at their own pitch (N elements: 4-byte copies) and
+    padded to 16 bytes (``_build.padded_rows``: 16-byte copies), launched
+    directly: event ms per call (in turns: own, padded, padded, own) and
+    device ms per call under torch.profiler, beside the one-call library
+    yardstick's (scaled_dot_product_attention with the additive mask in
+    bf16).  The outputs at the two pitches must be bitwise equal."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.models.swin3d import compute_shift_mask
+    from lavender_tpu_torch.ops import _build
+
+    def device_ms(fn, match="lvt::TcFwd"):
+        return sum(ms for name, ms in _kernel_times(fn, 5).items()
+                   if match in name)
+
+    N, W, nH, hd = 245, BATCH * 64, 4, 32
+    q, k, v = _rnd(g, W, N, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    bias = _rnd(g, nH, N, N)
+    shift = torch.as_tensor(compute_shift_mask(5, 56, 56, (5, 7, 7),
+                                               (0, 3, 3)), device="cuda")
+    full = (bias.float()[None, None] + shift[None, :, None]).expand(
+        BATCH, -1, -1, -1, -1).reshape(W, nH, N, N).to(torch.bfloat16)
+    cases = []
+    for m in (shift.to(torch.bfloat16), shift):
+        dt = str(m.dtype).replace("torch.", "")
+        cases.append((
+            f"K15 W={W} nH={nH} N={N} hd={hd}, bf16 bias + {dt} mask",
+            lambda b=bias, m=m: _build.window_attention(q, k, v, b, m,
+                                                        hd ** -0.5),
+            lambda b=_build.with_padded_rows(bias),
+            m=_build.with_padded_rows(m): _build.window_attention(
+                q, k, v, b, m, hd ** -0.5),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=full,
+                                                   scale=hd ** -0.5)))
+    L, nH7, hd7 = FRAMES * 50 + CAP_LEN, 12, 64
+    q7, k7, v7 = (_rnd(g, BATCH, nH7, L, hd7) for _ in range(3))
+    keep = _seq2seq_keep(BATCH, L - CAP_LEN, CAP_LEN)
+    m7 = torch.where(keep, 0.0, -1e4)
+    m7_lib = m7[:, None].to(torch.bfloat16)
+    cases.append((
+        f"K7 B={BATCH} nH={nH7} L={L} hd={hd7}, f32 seq2seq mask",
+        lambda: _build.attention_heads(q7, k7, v7, m7, hd7 ** -0.5),
+        lambda m=_build.with_padded_rows(m7): _build.attention_heads(
+            q7, k7, v7, m, hd7 ** -0.5),
+        lambda: F.scaled_dot_product_attention(q7, k7, v7, attn_mask=m7_lib,
+                                               scale=hd7 ** -0.5)))
+    for name, own, pad, lib in cases:
+        if not torch.equal(own(), pad()):
+            raise AssertionError(f"{name}: the two row pitches differ")
+        t = [_time_ms(f) for f in (own, pad, pad, own)]
+        print(f"[kernel] pitch {name}: rows of N elements "
+              f"{(t[0] + t[3]) / 2:.4f} ms ({device_ms(own):.4f} device) vs "
+              f"padded to 16 bytes {(t[1] + t[2]) / 2:.4f} ms "
+              f"({device_ms(pad):.4f} device) per call, outputs bitwise "
+              f"equal; library {_time_ms(lib):.4f} ms ({device_ms(lib, ''):.4f}"
+              f" device) ({_nvidia_smi()})", flush=True)
+
+
 def check_kernels():
     """Phase 3: each kernel vs its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound by bytes
@@ -1252,6 +1335,7 @@ def check_kernels():
     _heads_vs_lanes(g)
     _train_fwd_lse(g)
     _swin_core_lse_and_dbias(g)
+    _heads_tc_pitch(g)
     core_ms, sdpa_ms = _bert_core_vs_sdpa(g)
     print(f"[kernel] K4's attention core alone, B={BATCH} L=276 (kernel "
           f"core vs scaled_dot_product_attention): {core_ms:.4f} ms vs "
@@ -2326,15 +2410,20 @@ N_OPT, VTM_BATCH = 5, 4
 
 @contextlib.contextmanager
 def _bert_switches(attnlanes: bool = True, kmask: bool = True):
-    """The port's LVT_ATTNLANES / LVT_KMASK module constants, for a block."""
-    from lavender_tpu_torch.models import bert
-
-    prev = bert._ATTNLANES, bert._KMASK
-    bert._ATTNLANES, bert._KMASK = attnlanes, kmask
+    """LVT_ATTNLANES / LVT_KMASK in the environment for a block (the port
+    reads them per call), restored after it."""
+    names = ("LVT_ATTNLANES", "LVT_KMASK")
+    prev = [os.environ.get(n) for n in names]
+    os.environ.update({n: str(int(on)) for n, on in zip(names, (attnlanes,
+                                                                 kmask))})
     try:
         yield
     finally:
-        bert._ATTNLANES, bert._KMASK = prev
+        for n, p in zip(names, prev):
+            if p is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = p
 
 
 def _task_text(rs, n: int, vocab: int):
@@ -2693,7 +2782,7 @@ def main() -> int:
                "lavender_tpu/ops/fused_mlp.py:283"),
         "K6": ("lavender_tpu_torch/csrc/attention.cu",
                "lavender_tpu/ops/encoder_attention.py:242"),
-        "K7": ("lavender_tpu_torch/csrc/attention.cu",
+        "K7": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                "lavender_tpu/ops/encoder_attention.py:75"),
         "K8a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                 "lavender_tpu/ops/swin_core_attn.py:112"),
@@ -2717,7 +2806,7 @@ def main() -> int:
                  "lavender_tpu/ops/swin_block_attn.py:468"),
         "K14f": ("lavender_tpu_torch/csrc/layernorm.cu",
                  "lavender_tpu/ops/swin_block_attn.py:468"),
-        "K15": ("lavender_tpu_torch/csrc/attention.cu",
+        "K15": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                 "lavender_tpu/ops/window_attention.py:49"),
         "K16": ("lavender_tpu_torch/csrc/layernorm.cu",
                 "lavender_tpu/ops/swin_block_attn.py:1137"),

@@ -6,16 +6,8 @@
 // of lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask and
 // _attn_block_kernel (the latter with a per-sequence [B, N, N] mask).  Input
 // is the packed qkv slab [nSeq * N, 3C] that the qkv GEMM writes (columns
-// s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C].  A second
-// instantiation (HEADS) reads q, k and v and writes o in the heads layout
-// [B, nH, N, hd] of lavender_tpu/ops/encoder_attention.py _enc_attn_kernel,
-// each by its own (sequence, head, row) strides, under an f32 [B, N, N]
-// mask as there; the packed one keeps its fixed slab addressing.  The
-// same heads-layout instantiation, given a per-head bias and a per-window
-// f32 mask (sequence w reads mask[w % nW]), is the per-window attention K15
-// (lavender_tpu/ops/window_attention.py _attn_kernel): q, k, v [W, nH, N,
-// hd], which the Swin module path passes as strided views of its qkv
-// product, read in place.
+// s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C]; the bias and
+// the mask are bf16.
 //
 // Differences from the TPU kernels, on purpose: natural-unit exponent with
 // a running max (the TPU kernels skip the max subtraction and clamp exp2 at
@@ -25,14 +17,19 @@
 // Bias and mask stay additive and finite (-100 pad keys / shift mask), as in
 // the reference.
 //
-// The train attention cores, the calls that write each row's log-sum-exp
-// for a backward (K10a, _enc_attn_train_lanes_kernel, and K13a,
-// _enc_attn_train_kernel, with dropout; the Swin window core K8a,
-// lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel, with its per-head
-// bias), run on the tensor cores instead: the C entries below hand them to
-// attention_fwd_tc.cu.  This core takes no dropout and writes no lse: it
-// serves K1, K4, K6, K7, K14, K15 and K16.  The ragged N is masked in the
-// loops, not padded as on the TPU.
+// Every other attention call runs on the tensor cores
+// (attention_fwd_tc.cu), which the C entries below hand it to: the calls
+// that write each row's log-sum-exp for a backward (K10a,
+// _enc_attn_train_lanes_kernel, and K13a, _enc_attn_train_kernel, with
+// dropout; the Swin window core K8a, lavender_tpu/ops/swin_core_attn.py
+// _core_fwd_kernel, with its per-head bias), and the heads-layout calls
+// without lse: K7 (lavender_tpu/ops/encoder_attention.py _enc_attn_kernel,
+// q, k, v [B, nH, N, hd] by their strides under an f32 [B, N, N] mask) and
+// K15 (lavender_tpu/ops/window_attention.py _attn_kernel, q, k, v
+// [W, nH, N, hd] under a per-head bias and a per-window mask, bf16 or f32).
+// This core takes no dropout and writes no lse: it serves the packed slab
+// of K1, K4, K6, K14 and K16.  The ragged N is masked in the loops, not
+// padded as on the TPU.
 //
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
 // core runs them on the f32 pipes, one query row per thread (rows
@@ -42,11 +39,9 @@
 // for a Swin window, 71 KB for a 276-token BERT sequence) read as
 // warp-broadcast 16-byte vectors, and keys taken in chunks of 16 so the
 // running-max rescale of the accumulator is paid once per chunk.  Scores
-// never leave registers.  Tensor-core (mma) tiles are attention_fwd_tc.cu's;
-// moving this core's calls onto them is queued (K1's first).
+// never leave registers.  Moving these calls onto the tensor-core tiles
+// of attention_fwd_tc.cu is queued (K1's first).
 #include <math.h>
-
-#include <type_traits>
 
 #include "attention_tc.cuh"
 #include "common.cuh"
@@ -72,73 +67,46 @@ __device__ __forceinline__ float dot_k(const float* q, const bf16* k) {
   return s0 + s1;
 }
 
-// The heads layout's operands: k and v (q is the kernel's qkv argument) and
-// the element strides (sequence, head, row) of q, k, v and o, the head dim
-// contiguous.  Unused by the packed instantiation.
-struct HeadsLayout {
-  const bf16* k_ptr;
-  const bf16* v_ptr;
-  long long q[3], k[3], v[3], o[3];
-};
-
-// bf16 mask on the packed slab (K1/K4/K6/K14/K16), f32 in the heads layout
-template <bool HEADS>
-using mask_t = std::conditional_t<HEADS, float, bf16>;
-
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <int HD, bool HEADS>
+template <int HD>
 __global__ void __launch_bounds__(kThreads)
     attention_kernel(const bf16* __restrict__ qkv, bf16* __restrict__ out,
-                     const bf16* __restrict__ bias, const mask_t<HEADS>* __restrict__ mask,
+                     const bf16* __restrict__ bias, const bf16* __restrict__ mask,
                      const uint8_t* __restrict__ keep, int N, int nH, int nW, float scale,
-                     int rows_per_block, HeadsLayout hl) {
+                     int rows_per_block) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);
   bf16* vs = ks + (size_t)N * HD;
   uint8_t* kp = reinterpret_cast<uint8_t*>(vs + (size_t)N * HD);
 
   const int seq = blockIdx.x, h = blockIdx.y;
-  // row r of q, k, v, o of this (sequence, head) at qb/kb/vb/ob + r * ld
-  const bf16 *qb, *kb, *vb;
-  bf16* ob;
-  size_t q_ld, k_ld, v_ld, o_ld;
-  if constexpr (HEADS) {
-    qb = qkv + seq * hl.q[0] + h * hl.q[1];
-    kb = hl.k_ptr + seq * hl.k[0] + h * hl.k[1];
-    vb = hl.v_ptr + seq * hl.v[0] + h * hl.v[1];
-    ob = out + seq * hl.o[0] + h * hl.o[1];
-    q_ld = hl.q[2], k_ld = hl.k[2], v_ld = hl.v[2], o_ld = hl.o[2];
-  } else {
-    const int C = nH * HD;
-    const size_t ld = 3 * (size_t)C;
-    qb = qkv + (size_t)seq * N * ld + h * HD;
-    kb = qb + C;
-    vb = qb + 2 * C;
-    ob = out + (size_t)seq * N * C + h * HD;
-    q_ld = k_ld = v_ld = ld, o_ld = C;
-  }
+  // row r of q, k, v of this (sequence, head) at qb/kb/vb + r * ld, of o
+  // at ob + r * C
+  const int C = nH * HD;
+  const size_t ld = 3 * (size_t)C;
+  const bf16* qb = qkv + (size_t)seq * N * ld + h * HD;
+  const bf16* kb = qb + C;
+  const bf16* vb = qb + 2 * C;
+  bf16* ob = out + (size_t)seq * N * C + h * HD;
 
   constexpr int V8 = HD / 8;
   for (int c = threadIdx.x; c < N * V8; c += blockDim.x) {
     const int r = c / V8, k8 = (c % V8) * 8;
     *reinterpret_cast<uint4*>(ks + r * HD + k8) =
-        *reinterpret_cast<const uint4*>(kb + r * k_ld + k8);
+        *reinterpret_cast<const uint4*>(kb + r * ld + k8);
     *reinterpret_cast<uint4*>(vs + r * HD + k8) =
-        *reinterpret_cast<const uint4*>(vb + r * v_ld + k8);
+        *reinterpret_cast<const uint4*>(vb + r * ld + k8);
   }
   for (int j = threadIdx.x; j < N; j += blockDim.x)
     kp[j] = keep == nullptr ? 1 : (keep[(size_t)seq * N + j] != 0);
   __syncthreads();
 
   const bf16* bias_h = bias == nullptr ? nullptr : bias + (size_t)h * N * N;
-  const mask_t<HEADS>* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
+  const bf16* mask_w = mask == nullptr ? nullptr : mask + (size_t)(seq % nW) * N * N;
 
   const int row_end = min(N, (blockIdx.z + 1) * rows_per_block);
   for (int i = blockIdx.z * rows_per_block + threadIdx.x; i < row_end; i += blockDim.x) {
     float q[HD], acc[HD];
-    const bf16* qrow = qb + (size_t)i * q_ld;
+    const bf16* qrow = qb + (size_t)i * ld;
 #pragma unroll
     for (int d = 0; d < HD; d += 8) lvt::unpack8(*reinterpret_cast<const uint4*>(qrow + d), q + d);
 #pragma unroll
@@ -157,7 +125,7 @@ __global__ void __launch_bounds__(kThreads)
         if (j < N && kp[j]) {  // uniform across the block: no divergence
           sv = dot_k<HD>(q, ks + j * HD);
           if (bias_h != nullptr) sv += __bfloat162float(bias_h[(size_t)i * N + j]);
-          if (mask_w != nullptr) sv += to_float(mask_w[(size_t)i * N + j]);
+          if (mask_w != nullptr) sv += __bfloat162float(mask_w[(size_t)i * N + j]);
         }
         s[t] = sv;
         cmax = fmaxf(cmax, sv);
@@ -185,7 +153,7 @@ __global__ void __launch_bounds__(kThreads)
       m = mn;
     }
     const float inv = l > 0.0f ? 1.0f / l : 0.0f;  // all keys dropped -> 0
-    bf16* orow = ob + (size_t)i * o_ld;
+    bf16* orow = ob + (size_t)i * C;
 #pragma unroll
     for (int d = 0; d < HD; d += 8) {
       float f[8];
@@ -196,14 +164,13 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int HD, bool HEADS>
+template <int HD>
 int launch(const void* qkv, void* out, const void* bias, const void* mask, const void* keep,
-           int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream,
-           const HeadsLayout& hl) {
+           int nSeq, int N, int nH, int nW, float scale, cudaStream_t stream) {
   const size_t smem = 2 * (size_t)N * HD * sizeof(bf16) + (size_t)((N + 15) / 16) * 16;
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD, HEADS>,
+    cudaError_t e = cudaFuncSetAttribute(attention_kernel<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
@@ -232,23 +199,27 @@ int launch(const void* qkv, void* out, const void* bias, const void* mask, const
   tiles = (N + rows - 1) / rows;
   const int threads = rows < kThreads ? rows : kThreads;
   dim3 grid(nSeq, nH, tiles);
-  attention_kernel<HD, HEADS><<<grid, threads, smem, stream>>>(
+  attention_kernel<HD><<<grid, threads, smem, stream>>>(
       static_cast<const bf16*>(qkv), static_cast<bf16*>(out), static_cast<const bf16*>(bias),
-      static_cast<const mask_t<HEADS>*>(mask), static_cast<const uint8_t*>(keep), N, nH, nW,
-      scale, rows, hl);
+      static_cast<const bf16*>(mask), static_cast<const uint8_t*>(keep), N, nH, nW, scale, rows);
   return (int)cudaGetLastError();
 }
 
-// The heads layout (K7, K15): sequence s reads mask[s % nW] and the
-// per-head bias (null for K7).
-template <int HD>
-int launch_heads(const void* q, const void* k, const void* v, void* out, const long long* st,
-                 const void* bias, const void* mask, int B, int N, int nH, int nW, float scale,
-                 cudaStream_t s) {
-  HeadsLayout hl{static_cast<const bf16*>(k), static_cast<const bf16*>(v)};
-  for (int a = 0; a < 3; ++a)
-    hl.q[a] = st[a], hl.k[a] = st[3 + a], hl.v[a] = st[6 + a], hl.o[a] = st[9 + a];
-  return launch<HD, true>(q, out, bias, mask, nullptr, B, N, nH, nW, scale, s, hl);
+// The heads layout (K7, K13a, K15) on the tensor cores: q, k, v and out by
+// the element strides st[12] (host memory) of (sequence, head, row) in
+// turn.
+int heads_tc(const void* q, const void* k, const void* v, void* out, const long long* st,
+             const void* bias, int bias_ld, const void* mask, int mask_ld, bool mask_f32,
+             void* lse, int nSeq, int N, int nH, int hd, int nW, float scale, const void* seed,
+             uint32_t thresh, float drop_scale, cudaStream_t s) {
+  lvt::TcFwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                static_cast<const bf16*>(v)},
+               static_cast<bf16*>(out), {}, static_cast<float*>(lse), mask,
+               static_cast<const bf16*>(bias), static_cast<const int64_t*>(seed), thresh,
+               drop_scale, scale, nSeq, N, nH, nW, mask_ld, bias_ld};
+  for (int t = 0; t < 4; ++t)
+    for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
+  return lvt::attention_fwd_tc(a, hd, mask_f32, s);
 }
 
 }  // namespace
@@ -279,69 +250,45 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
     return lvt::attention_fwd_tc(a, hd, false, s);
   }
   if (seed != nullptr) return (int)cudaErrorInvalidValue;
-#define LVT_PACKED(HD) \
-  launch<HD, false>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s, HeadsLayout{})
   switch (hd) {
-    case 16: return LVT_PACKED(16);
-    case 32: return LVT_PACKED(32);
-    case 64: return LVT_PACKED(64);
+    case 16: return launch<16>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s);
+    case 32: return launch<32>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s);
+    case 64: return launch<64>(qkv, out, bias, mask, keep, nSeq, N, nH, nW, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef LVT_PACKED
 }
 
-// The heads layout: q, k, v -> out, each [B, nH, N, hd] addressed by the
-// element strides st[12] (host memory): (sequence, head, row) of q, k, v
-// and out in turn, the head dim contiguous, every stride a multiple of 8 and
-// every pointer 16-byte aligned; mask [B, N, N] f32 (null: none).  lse
-// [B, nH, N] f32 (null: not written), seed, thresh and drop_scale as in
-// lvt_attention_bf16 (null seed: no dropout; K7 passes neither, the train
-// attention K13a both).  No bias or key-keep.  hd in {16, 32, 64}.  A call
-// with lse (K13a) runs on the tensor cores (attention_fwd_tc.cu), the only
-// route that takes dropout; one without (K7) on the f32 pipes.
+// The heads layout on the tensor cores: q, k, v -> out, each [B, nH, N, hd]
+// addressed by the element strides st[12] (host memory): (sequence, head,
+// row) of q, k, v and out in turn, the head dim contiguous, every stride a
+// multiple of 8 and every pointer 16-byte aligned; mask [B, N, N] f32, its
+// rows mask_ld elements apart (null: none).  lse [B, nH, N] f32 (null: not
+// written), seed, thresh and drop_scale as in lvt_attention_bf16 (null
+// seed: no dropout; K7 passes neither, the train attention K13a both).  No
+// bias or key-keep.  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void* v, void* out,
-                                        const long long* st, const void* mask, void* lse, int B,
-                                        int N, int nH, int hd, float scale, const void* seed,
-                                        uint32_t thresh, float drop_scale, void* stream) {
+                                        const long long* st, const void* mask, int mask_ld,
+                                        void* lse, int B, int N, int nH, int hd, float scale,
+                                        const void* seed, uint32_t thresh, float drop_scale,
+                                        void* stream) {
   if (B <= 0 || N <= 0 || nH <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr) {  // K13a: the tensor cores
-    lvt::TcFwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                  static_cast<const bf16*>(v)},
-                 static_cast<bf16*>(out), {}, static_cast<float*>(lse), mask, nullptr,
-                 static_cast<const int64_t*>(seed), thresh, drop_scale, scale, B, N, nH, B};
-    for (int t = 0; t < 4; ++t)
-      for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
-    return lvt::attention_fwd_tc(a, hd, true, s);
-  }
-  if (seed != nullptr) return (int)cudaErrorInvalidValue;
-#define LVT_HEADS(HD) launch_heads<HD>(q, k, v, out, st, nullptr, mask, B, N, nH, B, scale, s)
-  switch (hd) {
-    case 16: return LVT_HEADS(16);
-    case 32: return LVT_HEADS(32);
-    case 64: return LVT_HEADS(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LVT_HEADS
+  return heads_tc(q, k, v, out, st, nullptr, 0, mask, mask_ld, true, lse, B, N, nH, hd, B, scale,
+                  seed, thresh, drop_scale, static_cast<cudaStream_t>(stream));
 }
 
-// Per-window attention (K15): q, k, v -> out, each [W, nH, N, hd] addressed
-// as in lvt_attention_heads_bf16 by the element strides st[12]; bias
-// [nH, N, N] bf16 (null: none), mask [nW, N, N] f32 for window w's
-// w % nW (null: none).  hd in {16, 32, 64}.
+// Per-window attention (K15) on the tensor cores: q, k, v -> out, each
+// [W, nH, N, hd] addressed as in lvt_attention_heads_bf16 by the element
+// strides st[12]; bias [nH, N, N] bf16 (null: none), mask [nW, N, N] for
+// window w's w % nW, f32 where mask_f32 and bf16 otherwise (null: none),
+// the rows of each bias_ld and mask_ld elements apart.  hd in {16, 32,
+// 64}.
 LVT_EXPORT int lvt_window_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                         const long long* st, const void* bias, const void* mask,
-                                         int W, int N, int nH, int hd, int nW, float scale,
+                                         const long long* st, const void* bias, int bias_ld,
+                                         const void* mask, int mask_ld, int mask_f32, int W,
+                                         int N, int nH, int hd, int nW, float scale,
                                          void* stream) {
   if (W <= 0 || N <= 0 || nH <= 0 || nW <= 0 || W % nW != 0 || nH > 65535)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LVT_WINDOWS(HD) launch_heads<HD>(q, k, v, out, st, bias, mask, W, N, nH, nW, scale, s)
-  switch (hd) {
-    case 16: return LVT_WINDOWS(16);
-    case 32: return LVT_WINDOWS(32);
-    case 64: return LVT_WINDOWS(64);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef LVT_WINDOWS
+  return heads_tc(q, k, v, out, st, bias, bias_ld, mask, mask_ld, mask_f32 != 0, nullptr, W, N,
+                  nH, hd, nW, scale, nullptr, 0, 1.0f, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-// Tensor-core forward of the train attention cores:
+// Tensor-core forward of the attention cores:
 //   s = q k^T * scale + bias[h] + mask[w],  p = softmax(s) over the keys,
 //   o = ((m * p) v) / l,  lse = log(l) + max,
 // l the row sum of the undropped p, m the dropout factor of each
@@ -6,19 +6,27 @@
 // (stream sequence * nH + head, index row * N + key, the logical
 // coordinates, never an address): the bits the backward
 // (attention_bwd_tc.cu) regenerates from the seed, which also reads lse
-// and o as this kernel writes them.
+// and o as this kernel writes them.  lse is stored only where the call
+// gives it a buffer.
 //
 // Replaces lavender_tpu/ops/encoder_attention.py
 // _enc_attn_train_lanes_kernel (:750, K10a: q, k, v column slices of the
 // packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask, dropout),
 // _enc_attn_train_kernel (:526, K13a: q, k, v [B, nH, L, hd] by their
-// strides, views of one qkv product, an f32 [B, L, L] mask, dropout) and
-// lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel (:112, K8a: the
-// packed slab [B*nW*Npad, 3C] of the Swin backward's recompute, a bf16
-// rel-pos bias [nH, Npad, Npad] and a bf16 shift mask [nW, Npad, Npad] or
-// none, no dropout).  All reach it through the C entries of attention.cu:
-// every call that writes lse.  The calls without lse (K1, K4, K6, K7, K14,
-// K15, K16) stay on attention.cu's f32-pipe core.
+// strides, views of one qkv product, an f32 [B, L, L] mask, dropout),
+// _enc_attn_kernel (:75, K7: the same layout and mask, no dropout, no
+// lse), lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel (:112, K8a:
+// the packed slab [B*nW*Npad, 3C] of the Swin backward's recompute, a
+// bf16 rel-pos bias [nH, Npad, Npad] and a bf16 shift mask [nW, Npad,
+// Npad] or none, no dropout) and lavender_tpu/ops/window_attention.py
+// _attn_kernel (:49, K15: q, k, v [W, nH, N, hd], strided views of the
+// module path's qkv product, a bf16 rel-pos bias [nH, N, N] and a bf16 or
+// f32 shift mask [nW, N, N] or none, no lse).  All reach it through the C
+// entries of attention.cu: every call that writes lse and every
+// heads-layout call.  The packed calls without lse (K1, K4, K6, K14, K16)
+// stay on attention.cu's f32-pipe core.  The rows of the mask and of the
+// bias lie mask_ld / bias_ld elements apart (N, or a pitch a wrapper
+// rounded up to 16 bytes so that the widest copy runs).
 //
 // Bound on the card: device memory.  At the train step's 64 pairs, L =
 // 276, 12 heads of 64 (K10a / K13a) each input read once and each output
@@ -27,9 +35,11 @@
 // K13a's f32 one (0.038 ms); the two products are 15.0 GFLOP, 0.015 ms at
 // 989 TFLOP/s in bf16.  K8a at B = 8, Swin-B stage 1 (512 windows of 248
 // rows, 4 heads of 32): 132.5 MB of slabs, lse and bias unshifted (0.040
-// ms), 16.1 GFLOP (0.016 ms);
-// hd 32 halves the products per byte staged, and the bias is one more
-// tile a stage.
+// ms), 16.1 GFLOP (0.016 ms); K15 at the "pallas" serving forward's B = 4,
+// stage 1 (256 windows of 245 rows, 4 heads of 32, the f32 shift mask):
+// 80.1 MB (0.024 ms), 7.9 GFLOP; K7 at B = 4, L = 275, 12 heads of 64: 8.0
+// MB (0.0024 ms).  hd 32 halves the products per byte staged, and the bias
+// is one more tile a stage.
 //
 // Design: FlashAttention-2's forward, shaped as the backward's dq kernel.
 // A block of 4 warps owns one 64-row query tile of one (sequence, head),
@@ -82,16 +92,17 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
   const int N = a.N, i0 = blockIdx.y * kRows, w = seq % a.nW;
   const bool has_mask = a.mask != nullptr;
-  const long long m_bytes = (long long)a.nW * N * N * (long long)sizeof(M);
-  const long long b_bytes = (long long)a.nH * N * N * (long long)sizeof(bf16);
+  const int m_ld = a.mask_ld, b_ld = a.bias_ld;
+  const long long m_bytes = mask_span<M>(a.nW, N, m_ld);
+  const long long b_bytes = mask_span<bf16>(a.nH, N, b_ld);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, tq = lane & 3;
   const bf16* kb = a.x[1] + seq * a.st[1][0] + h * a.st[1][1];
   const bf16* vb = a.x[2] + seq * a.st[2][0] + h * a.st[2][1];
   load_tile<HD>(sQ, a.x[0] + seq * a.st[0][0] + h * a.st[0][1], a.st[0][2], i0, N);
   load_tile<HD>(sKV, kb, a.st[1][2], 0, N);
   load_tile<HD>(sKV + TILE, vb, a.st[2][2], 0, N);
-  if (has_mask) load_mask<M>(sM, a.mask, m_bytes, w, i0, 0, N);
-  if constexpr (BIAS) load_mask<bf16>(sB, a.bias, b_bytes, h, i0, 0, N);
+  if (has_mask) load_mask<M>(sM, a.mask, m_bytes, w, i0, 0, N, m_ld);
+  if constexpr (BIAS) load_mask<bf16>(sB, a.bias, b_bytes, h, i0, 0, N, b_ld);
   cp_async_commit();
 
   const int wr = warp * 16 + (lane >> 2);  // the thread's first row in the tile
@@ -117,9 +128,10 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
       bf16* nxt = sKV + ((t + 1) & 1) * 2 * TILE;
       load_tile<HD>(nxt, kb, a.st[1][2], j0 + kCols, N);
       load_tile<HD>(nxt + TILE, vb, a.st[2][2], j0 + kCols, N);
-      if (has_mask) load_mask<M>(sM + ((t + 1) & 1) * MT, a.mask, m_bytes, w, i0, j0 + kCols, N);
+      if (has_mask)
+        load_mask<M>(sM + ((t + 1) & 1) * MT, a.mask, m_bytes, w, i0, j0 + kCols, N, m_ld);
       if constexpr (BIAS)
-        load_mask<bf16>(sB + ((t + 1) & 1) * BT, a.bias, b_bytes, h, i0, j0 + kCols, N);
+        load_mask<bf16>(sB + ((t + 1) & 1) * BT, a.bias, b_bytes, h, i0, j0 + kCols, N, b_ld);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -132,10 +144,10 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
       // the scores and (bias + mask) * log2(e) of the warp's 16 x 64
       float s[8][4], b[8][4];
       mma_abt<HD>(s, qf, cur, lane);
-      const int lead[2] = {(int)(mask_byte<M>(w, row[0], j0, N) & 3),
-                           (int)(mask_byte<M>(w, row[1], j0, N) & 3)};
-      const int blead[2] = {(int)(mask_byte<bf16>(h, row[0], j0, N) & 3),
-                            (int)(mask_byte<bf16>(h, row[1], j0, N) & 3)};
+      const int lead[2] = {(int)(mask_byte<M>(w, row[0], j0, N, m_ld) & 3),
+                           (int)(mask_byte<M>(w, row[1], j0, N, m_ld) & 3)};
+      const int blead[2] = {(int)(mask_byte<bf16>(h, row[0], j0, N, b_ld) & 3),
+                            (int)(mask_byte<bf16>(h, row[1], j0, N, b_ld) & 3)};
       float tmax[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < 8; ++n) {
@@ -190,14 +202,18 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
     const float inv = row[r] < N ? 1.0f / l[r] : 0.0f;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) o[n][2 * r] *= inv, o[n][2 * r + 1] *= inv;
-    if (tq == 0 && row[r] < N) a.lse[(size_t)bh * N + row[r]] = (mx[r] + log2f(l[r])) * kLn2;
+    if (a.lse != nullptr && tq == 0 && row[r] < N)
+      a.lse[(size_t)bh * N + row[r]] = (mx[r] + log2f(l[r])) * kLn2;
   }
   store_rows<HD>(a.o + seq * a.st[3][0] + h * a.st[3][1], a.st[3][2], row, N, o, 1.0f, tq);
 }
 
 template <int HD, typename M, bool DROP, bool BIAS>
 int launch(const lvt::TcFwd& a, cudaStream_t stream) {
-  // Q and two stages of K, V, the mask and the bias
+  // Q and two stages of K, V, the mask and the bias: at hd 32 Q and the
+  // K/V ring take 25.6 KB, the mask ring 18.4 KB in bf16 and 34.8 KB in
+  // f32, the bias ring 18.4 KB, so K15's bias under an f32 mask takes
+  // 78.8 KB (99.3 KB at hd 64): 2 blocks an SM, as kBlocks<float> says
   constexpr size_t smem = 5 * kRows * (HD + 8) * sizeof(bf16) + 2 * MaskTile<M>::kBytes +
                           (BIAS ? 2 * MaskTile<bf16>::kBytes : 0);
   const cudaError_t e = allow_smem(fwd_kernel<HD, M, DROP, BIAS>, smem);
@@ -207,14 +223,12 @@ int launch(const lvt::TcFwd& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// A bias (K8a) comes with a bf16 mask or none and no dropout.
+// A bias (K8a, K15) comes without dropout.
 template <int HD, typename M>
 int launch_drop(const lvt::TcFwd& a, cudaStream_t stream) {
-  if (a.bias != nullptr) {
-    if constexpr (sizeof(M) == 2)
-      if (a.seed == nullptr) return launch<HD, M, false, true>(a, stream);
-    return (int)cudaErrorInvalidValue;
-  }
+  if (a.bias != nullptr)
+    return a.seed == nullptr ? launch<HD, M, false, true>(a, stream)
+                             : (int)cudaErrorInvalidValue;
   return a.seed != nullptr ? launch<HD, M, true, false>(a, stream)
                            : launch<HD, M, false, false>(a, stream);
 }
@@ -231,9 +245,13 @@ int launch_hd(const lvt::TcFwd& a, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-int lvt::attention_fwd_tc(const TcFwd& a, int hd, bool mask_f32, cudaStream_t stream) {
+int lvt::attention_fwd_tc(const TcFwd& call, int hd, bool mask_f32, cudaStream_t stream) {
+  TcFwd a = call;
+  if (a.mask_ld == 0) a.mask_ld = a.N;
+  if (a.bias_ld == 0) a.bias_ld = a.N;
   if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.nW <= 0 || a.nSeq % a.nW != 0 ||
-      (long long)a.nSeq * a.nH > 0x7fffffffLL || a.N > 65535 || a.lse == nullptr)
+      (long long)a.nSeq * a.nH > 0x7fffffffLL || a.N > 65535 || a.mask_ld < a.N ||
+      a.bias_ld < a.N)
     return (int)cudaErrorInvalidValue;
   return mask_f32 ? launch_hd<float>(a, hd, stream) : launch_hd<bf16>(a, hd, stream);
 }

@@ -1,7 +1,8 @@
 // The tensor-core forward (attention_fwd_tc.cu) and backward
 // (attention_bwd_tc.cu) of the train attention cores (the fusion encoder's
-// K10 and K13, the Swin window core K8 with its per-head bias), as the C
-// entries of attention.cu and attention_bwd.cu call them.
+// K10 and K13, the Swin window core K8 with its per-head bias), the
+// forward also of the heads-layout cores K7 and K15, as the C entries of
+// attention.cu and attention_bwd.cu call them.
 #pragma once
 
 #include "common.cuh"
@@ -16,7 +17,7 @@ struct TcFwd {
   const bf16* x[3];     // q, k, v
   bf16* o;
   long long st[4][3];   // (sequence, head, row) strides of q, k, v, o
-  float* lse;           // [nSeq, nH, N] f32: each row's log-sum-exp of its scores
+  float* lse;           // [nSeq, nH, N] f32: each row's log-sum-exp of its scores, or null
   const void* mask;     // [nW, N, N] (sequence s reads s % nW) or null
   const bf16* bias;     // [nH, N, N] (head h reads bias[h]) or null
   const int64_t* seed;  // dropout seed, or null: no dropout
@@ -24,13 +25,13 @@ struct TcFwd {
   float drop_scale;     // ... and scaled by 1 / (1 - rate)
   float scale;
   int nSeq, N, nH, nW;
+  int mask_ld = 0, bias_ld = 0;  // elements between rows of the mask / bias; 0: N
 };
 
 // o = ((m * p) v) / l and lse of softmax(q k^T * scale + bias + mask)
 // with dropout m on the probabilities (l the undropped row sum), on the
 // tensor cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32;
-// a bias only with a bf16 mask (or none) and no dropout.
-// Returns a cudaError_t.
+// a bias only without dropout.  Returns a cudaError_t.
 int attention_fwd_tc(const TcFwd& a, int hd, bool mask_f32, cudaStream_t stream);
 
 // Operands of one backward call, addressed as TcFwd's; t in order q, k,

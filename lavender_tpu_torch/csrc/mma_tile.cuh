@@ -82,11 +82,13 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 
 // A mask tile: rows r0.. (64) x columns c0.. (64) of the mask of window w
 // in shared memory.  Its rows are copied in the widest of 16, 8 or 4 bytes
-// that divides the mask's row pitch (N * sizeof(M)): at odd N a bf16 row
-// starts on a 2-byte boundary, which no asynchronous copy can, so there
+// that divides the mask's row pitch (ld * sizeof(M), ld the elements
+// between rows: N, or more where a caller pads the rows): at odd N a bf16
+// row starts on a 2-byte boundary, which no asynchronous copy can, so there
 // each row is fetched as the 4-byte words around it and its elements
 // start at byte (start & 3) of the row (the lead; 0 on the wider paths).
 // A row holds kWords words: 64 elements + 16 bytes, a multiple of 16 bytes.
+// An ld of 0 stands for N.
 template <typename M>
 struct MaskTile {
   static constexpr int kWords = (kCols * (int)sizeof(M) + 16) / 4;
@@ -95,8 +97,15 @@ struct MaskTile {
 
 // byte offset in the mask buffer of element (row, col) of window w
 template <typename M>
-__device__ __forceinline__ long long mask_byte(int w, int row, int col, int N) {
-  return (((long long)w * N + row) * N + col) * (long long)sizeof(M);
+__device__ __forceinline__ long long mask_byte(int w, int row, int col, int N, int ld = 0) {
+  return (((long long)w * N + row) * (ld ? ld : N) + col) * (long long)sizeof(M);
+}
+
+// bytes of an [n, N, N] mask buffer with row pitch ld, up to its last
+// element
+template <typename M>
+__device__ __forceinline__ long long mask_span(int n, int N, int ld) {
+  return (((long long)n * N - 1) * ld + N) * (long long)sizeof(M);
 }
 
 // kRows rows of the tile in V-byte copies, row r from byte row0 + r * pitch
@@ -121,9 +130,10 @@ __device__ __forceinline__ void copy_mask_rows(uint32_t* s, const char* base, lo
 // Stage a mask tile; m_bytes is the buffer's size.
 template <typename M>
 __device__ __forceinline__ void load_mask(uint32_t* s, const void* m, long long m_bytes, int w,
-                                          int r0, int c0, int N) {
+                                          int r0, int c0, int N, int ld = 0) {
   const char* base = static_cast<const char*>(m);
-  const long long row0 = mask_byte<M>(w, r0, c0, N), pitch = (long long)N * sizeof(M);
+  const long long row0 = mask_byte<M>(w, r0, c0, N, ld),
+                  pitch = (long long)(ld ? ld : N) * sizeof(M);
   if (pitch % 16 == 0)
     copy_mask_rows<M, 16>(s, base, m_bytes, row0, pitch);
   else if (pitch % 8 == 0)

@@ -11,7 +11,7 @@ query.weight``), the layout the reference checkpoints use.  Serving
 - ``BertConfig.fused_attn_train`` (default True): one qkv GEMM (plain
   torch, as JAX leaves it to XLA) -> ``fused_encoder_attention_train_lanes``
   (K10a, its backward K10b) -> ``fused_out_ln_train`` (K11); under
-  ``LVT_ATTNLANES=0`` (``_ATTNLANES`` False) the heads route of JAX
+  ``LVT_ATTNLANES=0`` the heads route of JAX
   ``_attend``: the same qkv product taken as [B, nH, L, hd] views ->
   ``fused_encoder_attention_train`` (K13a, its backward K13b) -> K11;
   False: the module math with dropout, plain torch;
@@ -27,10 +27,9 @@ the MLM head are plain torch.  Masks: a key-padding bias [B, 1, 1, L]
 (``extended_attention_mask`` on a [B, L] mask) takes the serving kernel
 ``fused_bert_attn_block_kmask`` (K4), a full bias [B, 1, L, L] (on a
 [B, L, L] mask: seq2seq, captioning) ``fused_bert_attn_block`` (K6), and
-under ``LVT_KMASK=0`` (``_KMASK`` False) a key-padding bias too, broadcast
-to [B, L, L]; both train routes take either.  The two switches are read
-at import, as JAX reads them (bert.py:173, :285), into module constants
-that tests and ``chip_smoke.py`` flip.
+under ``LVT_KMASK=0`` a key-padding bias too, broadcast to [B, L, L]; both
+train routes take either.  The two switches are read from the environment
+at each call, as JAX reads them each time it traces (bert.py:173, :285).
 
 Incremental decoding with a static KV cache, as the JAX package has it:
 ``BertEncoder.prefill`` runs the prefix (serving route) and returns each
@@ -57,13 +56,6 @@ from lavender_tpu_torch.ops.encoder_attention import (
     fused_encoder_attention_train, fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
     fused_ffn_post_ln, fused_ffn_post_ln_train, fused_out_ln_train)
-
-# the JAX package's switches (lavender_tpu/models/bert.py:173, :285), same
-# variables and defaults: the train attention in lanes layout (K10) or in
-# heads layout (K13), and a key-padding bias served by K4 or by K6
-_ATTNLANES = os.environ.get("LVT_ATTNLANES", "1") == "1"
-_KMASK = os.environ.get("LVT_KMASK", "1") == "1"
-
 
 def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
     """[B, L] or [B, Lq, Lk] (1 = attend, 0 = masked) -> additive
@@ -174,10 +166,10 @@ class BertAttention(nn.Module):
     """Self-attention + output projection + residual + post-LN: in serving
     (with ``fused_attn``, the default) one ``fused_bert_attn_block_kmask``
     call under a key-padding bias (the JAX kmask serving branch; with
-    ``_KMASK`` off the bias goes to the full-mask branch instead) or one
+    ``LVT_KMASK=0`` the bias goes to the full-mask branch instead) or one
     ``fused_bert_attn_block`` call under a full [B, 1, L, L] bias (its
     full-mask branch); in training with ``fused_attn_train`` K10 + K11
-    (the JAX lanes train kernels) or, with ``_ATTNLANES`` off, q, k and v
+    (the JAX lanes train kernels) or, under ``LVT_ATTNLANES=0``, q, k and v
     as heads views of one product -> K13 -> K11 (the JAX heads train
     kernel); else the module math, in training with attention-probability
     and hidden dropout (JAX ``_attend``'s XLA branch and
@@ -202,7 +194,9 @@ class BertAttention(nn.Module):
         qkv = F.linear(x, w, b)
         mask, seed = attn_bias[:, 0].expand(B, L, L), draw_seed(generator,
                                                                 x.device)
-        if _ATTNLANES:
+        # the JAX package's switch (lavender_tpu/models/bert.py:173), read
+        # per call: the train attention in lanes (K10) or heads layout (K13)
+        if os.environ.get("LVT_ATTNLANES", "1") == "1":
             q, k, v = qkv.split(C, dim=-1)  # views of one slab
             ctx = select(fused_encoder_attention_train_lanes)(
                 q, k, v, mask, seed, self.scale, self.attn_dropout_p,
@@ -247,7 +241,10 @@ class BertAttention(nn.Module):
         if self.training or not self.fused_serve:
             return self._module_forward(x, attn_bias, generator)
         s, o = self.self, self.output
-        if attn_bias.shape[2] == 1 and _KMASK:
+        # JAX's (bert.py:285), read per call: a key-padding bias to K4, or
+        # broadcast to the full-mask K6
+        if (attn_bias.shape[2] == 1
+                and os.environ.get("LVT_KMASK", "1") == "1"):
             op, mask = fused_bert_attn_block_kmask, attn_bias[:, 0, 0] >= -0.5
         else:
             op, mask = fused_bert_attn_block, attn_bias[:, 0].expand(B, L, L)

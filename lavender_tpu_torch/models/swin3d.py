@@ -24,7 +24,9 @@ from ``SwinConfig`` and its geometry exactly as the JAX package's
   where the weights fit.
 - "pallas": the module path with the per-window attention
   ``fused_window_attention`` (K15), its MLP through K9 where the weights
-  fit.
+  fit; the stage's shift mask and its serving cache's biases are kept in
+  rows padded to 16 bytes (at N = 245 the rows' own 490 bytes would take
+  K15's 4-byte copies, and their 16-byte ones halve its time).
 - "xla": the module path in plain torch: LN1, zero pad to the window,
   roll, ``window_partition``, window attention, reverse, roll back, crop;
   then LN2 + MLP.  No kernel.
@@ -564,6 +566,8 @@ class BasicLayer(nn.Module):
                     mask = torch.as_tensor(
                         compute_shift_mask(*padded, window, shift),
                         device=device).to(dtype)
+                    if self.spatial_impl == "pallas":  # K15's 16-byte copies
+                        mask = _build.with_padded_rows(mask)
             self._geometries[key] = SpatialGeometry(window, shift, padded,
                                                     fused, mask)
         return self._geometries[key]
@@ -599,7 +603,10 @@ class BasicLayer(nn.Module):
                 self._cache[key] = (*geo, folds)
             else:
                 geo = self._spatial_geometry(D, H, W, p.device, p.dtype)
-                self._cache[key] = self._spatial_biases(geo, p.dtype)
+                biases = self._spatial_biases(geo, p.dtype)
+                if self.spatial_impl == "pallas":  # K15's 16-byte copies
+                    biases = [_build.with_padded_rows(b) for b in biases]
+                self._cache[key] = biases
             self._cache_size, self._cache_fold = (D, H, W), fold
             self._cache_sources = self._sources(fold)
             self._cache_fp = self.fingerprint(fold)

@@ -10,10 +10,11 @@ rebuilds and an unchanged one is loaded as is.
 The primitives bound here (tiled GEMM with fused epilogues, optionally
 scattering its rows, row LayerNorm, with or without its affine, optionally
 gathering its rows, and its dropout + residual variant, attention core (on
-the packed qkv slab, or on strided heads-layout q, k, v, with a per-head
-bias and a per-window mask; the train attention cores' forward, with
-dropout or a per-head bias, on the tensor cores) and its backward (with
-the bias's gradient), both with optional dropout,
+the packed qkv slab, on the f32 pipes; and on the tensor cores, the
+packed slab or strided heads-layout q, k, v, with a per-head bias and a
+per-window mask whose rows may be padded, with dropout and the rows'
+log-sum-exp where asked) and its backward (with the bias's gradient),
+both with optional dropout,
 row permutation, and a probe of the dropout hash) are what the ports of
 the TPU kernels are composed from, see ``swin_block_attn.py``,
 ``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
@@ -57,10 +58,10 @@ _SIGNATURES = {
                                 _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                            *_DROP, _P],
-    "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _P, _I, _I, _I,
-                                 _I, _F, *_DROP, _P],
-    "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _P, _I, _I, _I,
-                                  _I, _I, _F, _P],
+    "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
+                                 _I, _I, _F, *_DROP, _P],
+    "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _F, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                _I, _I, _I, _I, _F, *_DROP, _P],
     "lvt_attention_heads_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -249,7 +250,7 @@ class KernelOp:
         self.__doc__ = plain.__doc__
 
     def __call__(self, x: torch.Tensor, *args, **kwargs):
-        if x.device.type == "cpu":
+        if x.is_cpu:
             return self.plain(x, *args, **kwargs)
         out = self.launch(x, *args, **kwargs)
         self.launches += 1
@@ -316,7 +317,7 @@ def select(op: KernelOp) -> Callable:
 
 
 def _check(t: torch.Tensor, what: str, ndim: int = 2):
-    if t.device.type != "cuda":
+    if not t.is_cuda:
         raise ValueError(f"{what}: expected a CUDA tensor, got {t.device}")
     if t.dtype != torch.bfloat16:
         raise ValueError(f"{what}: expected bfloat16, got {t.dtype}")
@@ -573,18 +574,23 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
 
 
 def _heads_operands(ts, names, what):
-    """Checks of heads-layout operands [S, nH, N, hd] (bf16, the head dim
-    contiguous, other strides multiples of 8)."""
-    q = ts[0]
+    """Checks of heads-layout operands [S, nH, N, hd]: bf16 on the card,
+    one shape, the head dim contiguous, 16-byte aligned, the other strides
+    multiples of 8 (one pass of cheap attribute reads: the checks run on
+    every launch)."""
+    shape = ts[0].shape
     for t, name in zip(ts, names):
-        _check(t, f"{what} {name}", ndim=4)
-        if t.shape != q.shape or any(
-                st % 8 for st, n in zip(t.stride()[:3], t.shape) if n > 1):
-            raise ValueError(f"{what} {name}: expected {tuple(q.shape)} with "
-                             f"strides that are multiples of 8, got "
-                             f"{tuple(t.shape)}, {t.stride()}")
-    if q.shape[3] not in (16, 32, 64):
-        raise ValueError(f"{what}: head dim {q.shape[3]} unsupported "
+        st = t.stride()
+        if not (t.is_cuda and t.dtype == torch.bfloat16 and len(st) == 4
+                and t.shape == shape and st[3] == 1 and t.data_ptr() % 16 == 0
+                and all(s % 8 == 0 or n == 1 for s, n in zip(st, shape[:3]))):
+            raise ValueError(
+                f"{what} {name}: expected a bf16 CUDA tensor of shape "
+                f"{tuple(shape)}, the head dim contiguous and 16-byte "
+                f"aligned, the other strides multiples of 8; got {t.dtype} "
+                f"{tuple(t.shape)} strides {st} on {t.device}")
+    if shape[3] not in (16, 32, 64):
+        raise ValueError(f"{what}: head dim {shape[3]} unsupported "
                          "(16/32/64)")
 
 
@@ -597,6 +603,42 @@ def _heads_mask(mask: torch.Tensor, q: torch.Tensor, what: str):
         raise ValueError(f"{what} mask: expected a contiguous f32 "
                          f"[{B}, {L}, {L}] on {q.device}, got {mask.dtype} "
                          f"{tuple(mask.shape)} on {mask.device}")
+
+
+def padded_rows(n: int, N: int, dtype: torch.dtype,
+                device) -> torch.Tensor:
+    """An uninitialised [n, N, N] view of an [n, N, ld] buffer, ld = N
+    rounded up to 16 bytes: rows that the tensor-core forward stages by
+    its widest (16-byte) copy, where N's own pitch would take 4-byte
+    copies (N = 275: 1100 bytes in f32)."""
+    per = 16 // dtype.itemsize
+    ld = -(-N // per) * per
+    return torch.empty_strided((n, N, N), (N * ld, ld, 1), dtype=dtype,
+                               device=device)
+
+
+def with_padded_rows(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` [n, N, N] in ``padded_rows``."""
+    return padded_rows(*t.shape[:2], t.dtype, t.device).copy_(t)
+
+
+def _row_pitch(t: torch.Tensor, lead: Optional[int], N: int, dtypes,
+               device, what: str) -> int:
+    """Check of a mask or bias [lead, N, N] for the tensor-core forward
+    (one of ``dtypes``, on ``device``, rows contiguous and 16-byte
+    aligned, each [N, N] slice rows of one buffer: contiguous, or a view
+    of ``padded_rows``); returns the elements between its rows."""
+    sh, st = t.shape, t.stride()
+    if (t.dtype not in dtypes or len(sh) != 3 or sh[1] != N or sh[2] != N
+            or (lead is not None and sh[0] != lead) or st[2] != 1
+            or st[1] < N or (sh[0] > 1 and st[0] != N * st[1])
+            or t.data_ptr() % 16 or t.device != device):
+        raise ValueError(f"{what}: expected {'/'.join(map(str, dtypes))} "
+                         f"[{'nW' if lead is None else lead}, {N}, {N}] on "
+                         f"{device}, rows contiguous and 16-byte aligned, "
+                         f"got {t.dtype} {tuple(sh)} strides {st} on "
+                         f"{t.device}")
+    return st[1]
 
 
 def _strides(*ts) -> ctypes.Array:
@@ -614,28 +656,25 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The attention core on heads-layout q, k, v [B, nH, L, hd] (bf16, any
     strides with the head dim contiguous, e.g. transposed views of
     [B, L, nH, hd]) under an additive per-sequence f32 mask [B, L, L]
-    (contiguous), read in place.  ``lse`` (a contiguous f32 [B, nH, L]),
-    when given, receives each query row's log-sum-exp; at ``rate`` > 0 the
+    (its rows contiguous: contiguous, or a view of ``padded_rows``), read
+    in place, on the tensor cores (``csrc/attention_fwd_tc.cu``, any L).
+    ``lse`` (a contiguous f32 [B, nH, L]), when given, receives each query
+    row's log-sum-exp (K13a; K7 passes none); at ``rate`` > 0 the
     probabilities are dropped in the P.V sum by the counter hash of
     ``seed`` at the logical (sequence, head, row, key) (the same bits as
-    ``attention`` on the packed slab).  With ``lse`` (K13a) the call runs
-    on the tensor cores (``csrc/attention_fwd_tc.cu``, any L); without it
-    (K7) on the f32-pipe core, which holds K and V of a whole (sequence,
-    head) in shared memory and takes no dropout.  Returns a contiguous
+    ``attention`` on the packed slab).  Returns a contiguous
     [B, nH, L, hd]."""
     _heads_operands((q, k, v), ("q", "k", "v"), "attention_heads")
     B, nH, L, hd = q.shape
-    _heads_mask(mask, q, "attention_heads")
+    ld = _row_pitch(mask, B, L, (torch.float32,), q.device,
+                    "attention_heads mask")
     if lse is not None:
         _check_lse(lse, q, B, nH, L, "attention_heads")
-    elif rate > 0.0:
-        raise ValueError("attention_heads: dropout needs lse (the "
-                         "tensor-core route)")
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, q.device)
     out = torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
     err = library().lvt_attention_heads_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _strides(q, k, v, out), mask.data_ptr(), _ptr(lse), B, L, nH, hd,
+        _strides(q, k, v, out), mask.data_ptr(), ld, _ptr(lse), B, L, nH, hd,
         float(scale), seed_ptr, thresh, drop_scale, _stream(q))
     _raise_on(err, "lvt_attention_heads_bf16")
     return out
@@ -709,32 +748,29 @@ def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      ) -> torch.Tensor:
     """softmax(q k^T * scale + bias[h] + mask[w % nW]) v per (window, head)
     on heads-layout q, k, v [W, nH, N, hd] (bf16, read in place by their
-    strides, as ``attention_heads``); bias [nH, N, N] bf16 and mask
-    [nW, N, N] f32, both contiguous and optional.  Returns a contiguous
-    [W, nH, N, hd]."""
+    strides, as ``attention_heads``), on the tensor cores; bias [nH, N, N]
+    bf16 and mask [nW, N, N] bf16 or f32 (read in its own dtype), both
+    optional, each with its rows contiguous (contiguous, or a view of
+    ``padded_rows``).  Returns a contiguous [W, nH, N, hd]."""
     _heads_operands((q, k, v), ("q", "k", "v"), "window_attention")
     W, nH, N, hd = q.shape
+    bias_ld, mask_ld, n_win = 0, 0, 1
     if bias is not None:
-        _check(bias, "window_attention bias", ndim=3)
-        if not bias.is_contiguous() or tuple(bias.shape) != (nH, N, N):
-            raise ValueError(f"window_attention bias: expected a contiguous "
-                             f"[{nH}, {N}, {N}], got {tuple(bias.shape)}")
-    n_win = 1
+        bias_ld = _row_pitch(bias, nH, N, (torch.bfloat16,), q.device,
+                             "window_attention bias")
     if mask is not None:
+        mask_ld = _row_pitch(mask, None, N, (torch.bfloat16, torch.float32),
+                             q.device, "window_attention mask")
         n_win = mask.shape[0]
-        if (mask.device != q.device or mask.dtype != torch.float32
-                or not mask.is_contiguous() or mask.dim() != 3
-                or tuple(mask.shape[1:]) != (N, N) or W % n_win):
-            raise ValueError(f"window_attention mask: expected a contiguous "
-                             f"f32 [nW, {N}, {N}] with {W} % nW == 0 on "
-                             f"{q.device}, got {mask.dtype} "
-                             f"{tuple(mask.shape)}")
+        if W % n_win:
+            raise ValueError(f"window_attention mask: {W} windows are not a "
+                             f"multiple of its {n_win}")
     out = torch.empty(W, nH, N, hd, dtype=q.dtype, device=q.device)
     err = library().lvt_window_attention_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        _strides(q, k, v, out),
-        _ptr(bias), _ptr(mask), W, N, nH, hd, n_win, float(scale),
-        _stream(q))
+        _strides(q, k, v, out), _ptr(bias), bias_ld, _ptr(mask), mask_ld,
+        int(mask is not None and mask.dtype == torch.float32), W, N, nH, hd,
+        n_win, float(scale), _stream(q))
     _raise_on(err, "lvt_window_attention_bf16")
     return out
 

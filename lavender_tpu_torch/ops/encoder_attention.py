@@ -28,9 +28,11 @@ row).  Bound: as K4's, plus the mask read.
 ``fused_encoder_attention`` replaces ``_enc_attn_kernel`` (K7, :75, wrapper
 ``fused_encoder_attention`` :192): softmax(q k^T * scale + max(mask, -1e4))
 v on q, k, v in heads layout [B, nH, L, hd] under an f32 [B, L, L] mask.
-On the card it is the same attention core, which reads each operand by its
-own (sequence, head, row) strides, so a transposed [B, L, nH, hd] view is
-read in place.  It lies on no model path, as in JAX (``BertAttention``
+On the card it is the tensor-core forward of K13a below without dropout
+and without the lse store, which reads each operand by its own
+(sequence, head, row) strides, so a transposed [B, L, nH, hd] view is
+read in place; the wrapper's clamped copy of the mask has its rows padded
+to 16 bytes.  It lies on no model path, as in JAX (``BertAttention``
 takes the whole sub-block first).  Bound: device memory (q, k, v, o and
 the mask, each once).  K4, K6 and K7 have the JAX custom_vjps' backward:
 autograd of the plain version, recomputed from the saved inputs
@@ -148,11 +150,20 @@ def _core_plain(q, k, v, mask, scale):
     return (p @ v.float()).to(q.dtype)
 
 
+def padded_clamped_mask(mask: torch.Tensor) -> torch.Tensor:
+    """The f32 [B, L, L] mask K7's kernel reads: ``mask`` clamped at -1e4
+    (an autocast cast may have made it bf16, where finfo(f32).min is -inf;
+    the clamp restores it and keeps the kernel's (mask * log2(e) - max)
+    finite), written into rows padded to 16 bytes
+    (``_build.padded_rows``), which the kernel stages by its widest copy."""
+    B, L, _ = mask.shape
+    m = _build.padded_rows(B, L, torch.float32, mask.device)
+    return torch.clamp_min(mask.float(), -1e4, out=m)
+
+
 def _core_cuda(q, k, v, mask, scale):
-    # the kernel reads an f32 mask (the JAX kernel's); an autocast cast may
-    # have made it bf16, where finfo(f32).min is -inf: the clamp restores it
-    return _build.attention_heads(
-        q, k, v, mask.float().clamp_min(-1e4).contiguous(), scale)
+    _check_heads(q, k, v, mask, "fused_encoder_attention")
+    return _build.attention_heads(q, k, v, padded_clamped_mask(mask), scale)
 
 
 fused_encoder_attention = _build.KernelOp(

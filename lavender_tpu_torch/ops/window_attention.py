@@ -8,16 +8,18 @@ head h) on q, k, v in heads layout [W, nH, N, hd], the rel-pos bias
 runs it under ``attn_impl="pallas"`` (``models/swin3d.py
 WindowAttention3D``).
 
-On the card it is the heads-layout instantiation of the port's attention
-core (``csrc/attention.cu``, K7's) given a per-head bias and a per-window
-f32 mask: one block per (window, head), K and V of the window in shared
-memory, one query row per thread with a running max (the TPU kernel took
-a plain exp after subtracting the row max too), scores never leaving
-registers.  q, k and v arrive as strided views of the module's qkv
-product and are read in place.  Bound: device memory (q, k, v, o, the
-bias and the mask, each once) at the f32 pipes' speed of this first
-version, which runs far from it.  Its backward is the JAX custom_vjp's
-(:157): autograd of the plain version, recomputed from the saved inputs.
+On the card it is the tensor-core forward of ``csrc/attention_fwd_tc.cu``
+(K8a's and K13a's, without the lse store): a block of 4 warps per 64-row
+query tile of one (window, head), 64-key tiles of K, V, the bias and the
+mask streamed through a two-stage cp.async ring, S = Q K^T and O += P V
+on mma.sync, the online softmax on the accumulator fragments, bias + mask
+added in f32.  q, k and v arrive as strided views of the module's qkv
+product and are read in place; the mask is read in the dtype it arrives
+in (bf16 under the Function's autocast cast, where the shift mask's 0 and
+-100 are exact; an f32 mask given outside autocast keeps its values, the
+JAX kernel adding it in f32).  Bound: device memory (q, k, v, o, the bias
+and the mask, each once).  Its backward is the JAX custom_vjp's (:157):
+autograd of the plain version, recomputed from the saved inputs.
 """
 from __future__ import annotations
 
@@ -48,14 +50,7 @@ def window_attention_reference(q: torch.Tensor, k: torch.Tensor,
     return (torch.softmax(s, dim=-1) @ v.float()).to(q.dtype)
 
 
-def _launch(q, k, v, bias, mask, scale):
-    # the kernel reads the mask in f32 (the autocast cast of the Function
-    # may have made it bf16; its values, 0 and -100, are exact in both)
-    return _build.window_attention(
-        q, k, v, None if bias is None else bias.contiguous(),
-        None if mask is None else mask.float().contiguous(), scale)
-
-
 fused_window_attention = _build.KernelOp(
-    "K15 fused_window_attention", window_attention_reference, _launch,
+    "K15 fused_window_attention", window_attention_reference,
+    _build.window_attention,
     recompute_vjp=True)

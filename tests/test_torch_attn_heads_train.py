@@ -193,7 +193,7 @@ def _attention_params(seed):
 
 
 def test_heads_route_module_matches_jax_heads_kernel(monkeypatch):
-    """``BertAttention`` in train mode with ``_ATTNLANES`` off (q, k, v as
+    """``BertAttention`` in train mode under ``LVT_ATTNLANES=0`` (q, k, v as
     heads views of one product -> K13 -> K11) against the JAX module under
     ``LVT_ATTNLANES=0`` and ``LVT_FORCE_FUSED=1`` (its heads-layout train
     kernel and K11, interpret mode), rate 0, a padded key tail, in bf16 on
@@ -212,7 +212,6 @@ def test_heads_route_module_matches_jax_heads_kernel(monkeypatch):
             {"params": p}, x, b, deterministic=False,
             rngs={"dropout": jax.random.PRNGKey(5)}))(
             params, jnp.asarray(x, jnp.bfloat16), jnp.asarray(bias))
-    monkeypatch.setattr(tbert, "_ATTNLANES", False)
     port = tbert.BertAttention(port_config(BERT))
     sd = {}
     for path in ("self.query", "self.key", "self.value", "output.dense"):
@@ -247,7 +246,7 @@ def _count(monkeypatch):
 @pytest.mark.parametrize("lanes", [True, False], ids=["lanes", "heads"])
 def test_train_route_calls_k13_or_k10(monkeypatch, lanes):
     """A 12-layer encoder's train pass calls K10 12 times and K13 never
-    (default), or the reverse (``_ATTNLANES`` off), with the same loss
+    (default), or the reverse (``LVT_ATTNLANES=0``), with the same loss
     and gradients (the same keep masks) at dropout 0.1."""
     cfg = port_config(dataclasses.replace(
         BERT, num_hidden_layers=12, attention_probs_dropout_prob=0.1))
@@ -262,12 +261,12 @@ def test_train_route_calls_k13_or_k10(monkeypatch, lanes):
         out.square().mean().backward()
         return out.detach(), [p.grad.clone() for p in enc.parameters()]
 
-    monkeypatch.setattr(tbert, "_ATTNLANES", lanes)
+    monkeypatch.setenv("LVT_ATTNLANES", "1" if lanes else "0")
     counts = _count(monkeypatch)
     out, grads = run()
     assert counts == {"K4": 0, "K6": 0, "K10a": 12 * lanes,
                       "K13a": 12 * (not lanes)}
-    monkeypatch.setattr(tbert, "_ATTNLANES", not lanes)
+    monkeypatch.setenv("LVT_ATTNLANES", "0" if lanes else "1")
     out2, grads2 = run()
     _close(out.numpy(), out2.numpy(), 1e-5)
     for a, b in zip(grads, grads2):
@@ -277,7 +276,7 @@ def test_train_route_calls_k13_or_k10(monkeypatch, lanes):
 @pytest.mark.parametrize("kmask", [True, False])
 def test_serving_key_padding_bias_takes_k4_or_k6(monkeypatch, kmask):
     """Serving under a [B, 1, 1, L] key-padding bias: K4 (default) or,
-    with ``_KMASK`` off, K6 on the bias broadcast to [B, L, L] (JAX
+    under ``LVT_KMASK=0``, K6 on the bias broadcast to [B, L, L] (JAX
     bert.py:283-309); the same output (1e-5), no other attention op."""
     cfg = port_config(dataclasses.replace(BERT, num_hidden_layers=2))
     torch.manual_seed(0)
@@ -288,10 +287,35 @@ def test_serving_key_padding_bias_takes_k4_or_k6(monkeypatch, kmask):
     bias = tbert.extended_attention_mask(keep)
     with torch.no_grad():
         want = enc(x, bias)
-    monkeypatch.setattr(tbert, "_KMASK", kmask)
+    monkeypatch.setenv("LVT_KMASK", "1" if kmask else "0")
     counts = _count(monkeypatch)
     with torch.no_grad():
         got = enc(x, bias)
     assert counts == {"K4": 2 * kmask, "K6": 2 * (not kmask), "K10a": 0,
                       "K13a": 0}
     _close(got[keep.bool()].numpy(), want[keep.bool()].numpy(), 1e-5)
+
+
+def test_switches_are_read_per_call(monkeypatch):
+    """``LVT_ATTNLANES`` and ``LVT_KMASK`` set after the port's bert module
+    was imported choose the route of the next call, as the JAX package
+    reads them each time it traces (its own test flips ``LVT_ATTNLANES``
+    between two applies): one train forward takes K10 or K13, one serving
+    forward K4 or K6, call by call in one process."""
+    cfg = port_config(dataclasses.replace(BERT, num_hidden_layers=1))
+    torch.manual_seed(0)
+    enc = tbert.BertEncoder(cfg)
+    x = torch.randn(B, L, C, generator=torch.Generator().manual_seed(1))
+    bias = tbert.extended_attention_mask(torch.ones(B, L))
+    counts = _count(monkeypatch)
+    for lanes, kmask in (("1", "0"), ("0", "1"), ("1", "1"), ("0", "0")):
+        monkeypatch.setenv("LVT_ATTNLANES", lanes)
+        monkeypatch.setenv("LVT_KMASK", kmask)
+        for k in counts:
+            counts[k] = 0
+        with torch.no_grad():
+            enc.train()(x, bias, torch.Generator().manual_seed(2))
+            enc.eval()(x, bias)
+        assert counts == {"K4": int(kmask == "1"), "K6": int(kmask == "0"),
+                          "K10a": int(lanes == "1"),
+                          "K13a": int(lanes == "0")}, (lanes, kmask, counts)

@@ -178,6 +178,25 @@ def test_encoder_attention_matches_jax(oracle):
                                rtol=RTOL)
 
 
+@pytest.mark.parametrize("L", [21, 275, 276])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_mask_copy_has_padded_rows(L, dtype):
+    """The mask K7's kernel reads (``padded_clamped_mask``): the mask as the
+    model passes it (0 / finfo(f32).min, a fully masked row; bf16 after an
+    autocast cast, where finfo.min is -inf) clamped at -1e4 as the JAX
+    wrapper clamps it, f32, its rows a multiple of 16 bytes apart (the
+    pad columns are not read)."""
+    B = 2
+    mask = _t(_seq2seq_bias(B, L, n_txt=8, fully_masked_row=True))
+    want = np.maximum(mask.to(dtype).float().numpy(), -1e4)
+    got = tatt.padded_clamped_mask(mask.to(dtype))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (B, L, L)
+    ld = got.stride(1)
+    assert got.stride(2) == 1 and ld >= L and (ld * 4) % 16 == 0
+    assert ld - L < 4 and got.stride(0) == L * ld
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 # ------------------------------------------------------------ the model
 
 

@@ -10,11 +10,15 @@ exactly equal), and the kernels' dropout hash against the PyTorch one bit
 for bit; the full-mask sub-block K6 and the heads-layout core K7 at odd
 lengths, head dims 32 and 64, finfo(f32).min masks (clamped) with a fully
 masked row, transposed (non-contiguous) heads-layout views for K7, their
-recompute-vjp gradients, and the raise on a CPU / CUDA mix; the GEMM's
+recompute-vjp gradients, and the raise on a CPU / CUDA mix; K7 (the
+tensor-core forward without lse) at L = 275 and 276 under the seq2seq
+mask with a fully masked row, a second call bitwise equal; the GEMM's
 row scatter and the LN's row gather, the spatial Swin block K14 (whole
 and attention half, shifted, on windows that are not multiples of 8) and
 its gradients (the attention half's through K8), the per-window attention
-K15 on strided views and its gradient, and K1's whole block under
+K15 on strided views (head dims 16/32/64, N = 45/98/245, a bf16, an f32
+or no mask, bias and mask in rows padded to 16 bytes, a second call
+bitwise equal) and its gradient, and K1's whole block under
 autograd; the LN without its affine (the serving fold's pure normalize)
 and K1's folded mode, the LN gather's and the GEMM scatter's negative
 (pad) rows, the uint8 patch embed K17 (ragged w2, two column tiles,
@@ -25,8 +29,7 @@ K13b (strided heads views of one qkv slab and contiguous tensors, L = 29
 and 276, dropout on and off, the mask's gradient dmask where the mask
 requires it), the keep masks K13a and K10a draw, read back from the
 kernels and equal to ``dropout.attention_keep`` bit for bit, and the raise
-on what the K13 kernels do not take (and on a launch K7's core cannot
-make); K1 launched
+on what the K13 kernels do not take (and K7 at L = 1000); K1 launched
 outside autograd under bf16 autocast on f32 inputs (a model in ``eval()``
 mode over f32 weights), cast as its autograd Function casts; the
 tensor-core backward of K10b / K13b at lengths across its 64-row tiles
@@ -537,6 +540,29 @@ def test_encoder_attention_matches_plain(gen, hd, B, L, nH, layout):
         _close(a, b, rel_l2=5e-2)
 
 
+@pytest.mark.parametrize("L", [275, 276])
+@pytest.mark.parametrize("layout", ["contiguous", "transposed"])
+def test_encoder_attention_seq2seq_masked_row(gen, L, layout):
+    """K7 at the seq2seq lengths under the seq2seq mask at finfo(f32).min
+    with one fully masked row (clamped at -1e4 by the wrapper: that row's
+    softmax is over finite scores), 12 heads of 64, forward within the
+    gate of its plain version and a second call bitwise equal."""
+    B, nH, hd = 2, 12, 64
+
+    def heads():
+        if layout == "transposed":
+            return _rnd(gen, B, L, nH, hd).transpose(1, 2)
+        return _rnd(gen, B, nH, L, hd)
+
+    q, k, v = heads(), heads(), heads()
+    mask = _train_bwd_masks(B, L)["seq2seq"]
+    got = [fused_encoder_attention(q, k, v, mask, hd ** -0.5)
+           for _ in range(2)]
+    assert torch.equal(*got)
+    _close(got[0], fused_encoder_attention.plain(q, k, v, mask, hd ** -0.5),
+           rel_l2=1e-2)
+
+
 @pytest.mark.parametrize("B,L,nH,C", [(1, 9, 2, 64), (2, 33, 4, 256),
                                       (4, 275, 12, 768)])
 def test_full_mask_block_matches_plain(gen, B, L, nH, C):
@@ -654,22 +680,31 @@ def test_spatial_block_and_gradients_match_plain(gen, full, geom):
         _close(gk, gp, rel_l2=5e-2)
 
 
-@pytest.mark.parametrize("N,masked", [(45, True), (98, False), (245, True)])
-def test_window_attention_and_gradient_match_plain(gen, N, masked):
-    """K15 on the strided q, k, v views of one qkv product (the module
-    path's), 6 windows, mask over 3; gradients through the recompute."""
-    W, nH, hd, nW = 6, 2, 32, 3
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("N", [45, 98, 245])
+@pytest.mark.parametrize("masked", ["bf16", "f32", "none", "padded rows"])
+def test_window_attention_and_gradient_match_plain(gen, hd, N, masked):
+    """K15 (the tensor-core forward without lse) on the strided q, k, v
+    views of one qkv product (the module path's), 6 windows, the shift
+    mask (0 / -100) over 3 read in bf16 or f32, or none, or both bias and
+    mask in rows padded to 16 bytes; a second call bitwise equal;
+    gradients through the recompute."""
+    W, nH, nW = 6, 2, 3
     qkv = _rnd(gen, W, N, 3, nH, hd)
     bias = _rnd(gen, nH, N, N)
     mask = None
-    if masked:
+    if masked != "none":
         mask = (torch.rand(nW, N, N, generator=gen, device="cuda")
                 < 0.3).float() * -100.0
+        if masked == "bf16":
+            mask = mask.to(torch.bfloat16)
+    if masked == "padded rows":
+        bias, mask = map(_build.with_padded_rows, (bias, mask))
     g = _rnd(gen, W, nH, N, hd)
     outs, grads = [], []
     for f in (fused_window_attention, fused_window_attention.plain):
         qkv_l = qkv.clone().requires_grad_(True)
-        b = bias.clone().requires_grad_(True)
+        b = bias.detach().clone().requires_grad_(True)
         q, k, v = qkv_l.permute(2, 0, 3, 1, 4)
         y = f(q, k, v, b, mask, hd ** -0.5)
         outs.append(y)
@@ -677,6 +712,11 @@ def test_window_attention_and_gradient_match_plain(gen, N, masked):
     _close(outs[0], outs[1], rel_l2=1e-2)
     for gk, gp in zip(*grads):
         _close(gk, gp, rel_l2=5e-2)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    again = [fused_window_attention(q, k, v, bias, mask, hd ** -0.5)
+             for _ in range(2)]
+    assert torch.equal(*again)
+    _close(again[0], outs[1], rel_l2=1e-2)
 
 
 def test_window_block_full_gradient_matches_plain(gen):
@@ -964,11 +1004,11 @@ def test_heads_and_lanes_kernels_draw_the_same_mask(gen):
 
 
 def test_heads_train_wrappers_raise(gen):
-    """What the K13 kernels do not take raises before a launch; a launch
-    the card refuses raises after it, nothing falls back: K7's f32-pipe
-    core at L = 1000, where K and V of a (sequence, head) do not fit in
-    shared memory (K13a's tensor-core forward streams them and takes that
-    length: ``test_train_attention_fwd_tensor_cores_match_plain``)."""
+    """What the K13 kernels do not take raises before a launch, nothing
+    falls back; K7 at L = 1000, which its former f32-pipe core refused (K
+    and V of a (sequence, head) did not fit in shared memory), runs on the
+    tensor-core forward, which streams them, and matches its plain
+    version."""
     B, nH, L, hd = 2, 2, 16, 64
     q, seed = _rnd(gen, B, nH, L, hd), torch.tensor([1], device="cuda")
     mask = torch.zeros(B, L, L, device="cuda")
@@ -983,10 +1023,10 @@ def test_heads_train_wrappers_raise(gen):
     with pytest.raises(ValueError):  # the backward needs the forward's lse
         encoder_attention_train_bwd(q, q, q, mask, seed, q, 0.25, 0.1)
     long_q = _rnd(gen, 1, 1, 1000, hd)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        fused_encoder_attention(long_q, long_q, long_q,
-                                torch.zeros(1, 1000, 1000, device="cuda"),
-                                0.25)
+    long_mask = _train_bwd_masks(1, 1000)["seq2seq"]
+    _close(fused_encoder_attention(long_q, long_q, long_q, long_mask, 0.25),
+           fused_encoder_attention.plain(long_q, long_q, long_q, long_mask,
+                                         0.25), rel_l2=1e-2)
 
 
 def _train_bwd_masks(B, L):

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``lavender_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only K2 K5   # phases 1-3 for these kernels
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -29,7 +30,10 @@ nothing is ever run on the CPU instead:
    seq2seq forward's B=4, L=275 under the seq2seq mask and a random 0/1
    mask, K6 also at the re-encode decoder's first and last L (252, 270);
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
-   rows); K8b's and K7's one-call counterparts are
+   rows), K5 each call repeated and required bitwise equal; K2 and K5
+   also with their device time a call under torch.profiler beside the
+   event time, K2's beside index_select's device time, K5's beside its
+   plain version's; K8b's and K7's one-call counterparts are
    scaled_dot_product_attention's backward with a bias that requires
    grad and its forward with the additive mask; K14 (the spatial Swin
    block, whole and attention half, also minus its residual) and K15
@@ -257,6 +261,7 @@ class Case:
     library: Optional[Callable] = None
     compare: Optional[Callable] = None
     bitwise_repeat: bool = False  # a second call must give the same bits
+    device_ms: bool = False  # also the device time a call (torch.profiler)
 
 
 def _rnd(g, *shape, std=1.0, dtype=torch.bfloat16):
@@ -513,7 +518,8 @@ def _kernel_cases(g):
                     + ("inverse" if inverse else "forward"),
                     n_blocks * (2 if train else 1), (t, idx, inv),
                     0.0, 2 * t.numel() * t.element_size() + idx.numel() * 4,
-                    library=lambda s=src, i=rows_idx: s.index_select(1, i)))
+                    library=lambda s=src, i=rows_idx: s.index_select(1, i),
+                    device_ms=True))
 
     C, nH, L = 768, 12, FRAMES * 50 + TXT_LEN
     x = _rnd(g, BATCH, L, C)
@@ -534,7 +540,8 @@ def _kernel_cases(g):
     cases.append(Case(
         fused_ffn_post_ln, f"M={M} C={C} HD=3072", 12,
         (x.reshape(-1, C), w1, b1, w2, b2, lw, lb, 1e-12),
-        4.0 * M * C * 3072, 2 * M * C * 2 + 2 * C * 3072 * 2))
+        4.0 * M * C * 3072, 2 * M * C * 2 + 2 * C * 3072 * 2,
+        bitwise_repeat=True, device_ms=True))
     # the KV decoder of 4 clips (phase 6 (b)): the prefill runs K4 and K5
     # over the 250 video tokens (every key open), each of the 19 steps K5
     # over 2 rows a clip
@@ -554,7 +561,8 @@ def _kernel_cases(g):
         cases.append(Case(
             fused_ffn_post_ln, f"M={rows} C={C} HD=3072, {what}", count,
             (xr, w1, b1, w2, b2, lw, lb, 1e-12), 4.0 * rows * C * 3072,
-            2 * rows * C * 2 + 2 * C * 3072 * 2))
+            2 * rows * C * 2 + 2 * C * 3072 * 2, bitwise_repeat=True,
+            device_ms=True))
     cases += _full_mask_cases(g, lin, ln)
     cases += _bert_train_cases(g, lin, ln)
     cases += _heads_train_cases(g)
@@ -1269,13 +1277,23 @@ def _heads_tc_pitch(g):
               f" device) ({_nvidia_smi()})", flush=True)
 
 
-def check_kernels():
+def _device_ms(fn, n: int = 20) -> float:
+    """ms of device time per call of ``fn``: all its device activities
+    over ``n`` calls under torch.profiler, divided by ``n``."""
+    return sum(_kernel_times(fn, n).values())
+
+
+def check_kernels(only=None):
     """Phase 3: each kernel vs its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound by bytes
-    time / FLOP time} summed over the calls of ``Case.count``."""
+    time / FLOP time} summed over the calls of ``Case.count``.  ``only``
+    (kernel ids such as "K2") keeps those kernels' cases and skips the
+    checks beside them."""
     g = torch.Generator(device="cuda").manual_seed(0)
     per_kernel = {}
     for c in _kernel_cases(g):
+        if only and c.op.name.split()[0] not in only:
+            continue
         got = c.op(*c.args, **c.kw)
         want = c.op.plain(*c.args, **c.kw)
         torch.cuda.synchronize()
@@ -1317,6 +1335,15 @@ def check_kernels():
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'FLOPs'})"
               f", x{c.count} in the counted runs", flush=True)
+        if c.device_ms:  # the call's device time, without its host time
+            dev = _device_ms(lambda: c.op(*c.args, **c.kw))
+            other = (f"library {_device_ms(c.library):.4f} ms" if c.library
+                     else "plain version "
+                     f"{_device_ms(lambda: c.op.plain(*c.args, **c.kw)):.4f}"
+                     " ms")
+            print(f"[kernel] {c.op.name} {c.name}: device {dev:.4f} ms a "
+                  f"call (event {ms:.4f} ms) vs {other} of device time "
+                  f"({_nvidia_smi()})", flush=True)
         if not ok:
             raise AssertionError(f"{c.op.name} {c.name}: kernel disagrees "
                                  f"with its plain version (max_abs_err {err})")
@@ -1332,6 +1359,8 @@ def check_kernels():
         k["t_flops"] += c.count * t_flops
         if lib_ms is not None:
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
+    if only:
+        return per_kernel
     _heads_vs_lanes(g)
     _train_fwd_lse(g)
     _swin_core_lse_and_dbias(g)
@@ -2753,6 +2782,10 @@ def main() -> int:
            "K14a": fused_swin_block_attn, "K14f": fused_swin_block_full,
            "K15": fused_window_attention,
            "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
+    if sys.argv[1:2] == ["--only"]:  # phase 3 for these kernels alone
+        check_kernels(set(sys.argv[2:]))
+        print(_nvidia_smi(), flush=True)
+        return 0
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     server = build_server()
@@ -2778,7 +2811,7 @@ def main() -> int:
                "lavender_tpu/ops/fused_mlp.py:183"),
         "K4": ("lavender_tpu_torch/csrc/attention.cu",
                "lavender_tpu/ops/encoder_attention.py:322"),
-        "K5": ("lavender_tpu_torch/csrc/gemm.cu",
+        "K5": ("lavender_tpu_torch/csrc/ffn_post_ln.cu",
                "lavender_tpu/ops/fused_mlp.py:283"),
         "K6": ("lavender_tpu_torch/csrc/attention.cu",
                "lavender_tpu/ops/encoder_attention.py:242"),

@@ -68,6 +68,8 @@ _SIGNATURES = {
                                      _P, _STRIDES, _I, _I, _I, _I, _I, _F,
                                      *_DROP, _P],
     "lvt_attention_row_dot_bf16": [_P, _P, _STRIDES, _P, _I, _I, _I, _I, _P],
+    "lvt_ffn_post_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _F, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
     "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
@@ -350,7 +352,9 @@ def _raise_on(err: int, name: str):
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's device, as the raw handle a C entry takes
+    (without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _rows(rows: Optional[torch.Tensor], M: int, device, what: str):
@@ -826,30 +830,87 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     return dqkv, dbias
 
 
-def permute_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
-    """out[b, r] = x[b, index[r]], or zeros where index[r] < 0.
+# the K depth of ffn_post_ln.cu's 128 x 128 tiles (BK)
+FFN_TILE_K = 64
+# scratch of ffn_post_ln per (device, stream): one uint8 buffer, grown on
+# demand (the calls on one stream run in order, so they can share it)
+_ffn_scratch: dict = {}
 
-    x [B, R, C] contiguous (any dtype whose row is a multiple of 16
-    bytes), index int32 [R] on x's device."""
-    if x.device.type != "cuda":
-        raise ValueError(f"permute_rows: expected a CUDA tensor, got "
-                         f"{x.device}")
-    if x.dim() != 3 or not x.is_contiguous() or x.data_ptr() % 16:
-        raise ValueError("permute_rows: x must be a contiguous, 16-byte "
-                         f"aligned [B, R, C], got {tuple(x.shape)}")
-    B, R, C = x.shape
-    row_bytes = C * x.element_size()
-    if row_bytes % 16:
-        raise ValueError(f"permute_rows: a row of {row_bytes} bytes is not a "
-                         "multiple of 16")
-    if (index.dtype != torch.int32 or index.device != x.device
-            or tuple(index.shape) != (R,) or not index.is_contiguous()):
-        raise ValueError(f"permute_rows: index must be int32 [{R}] on "
-                         f"{x.device}")
+
+def ffn_post_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                w2: torch.Tensor, b2: torch.Tensor, ln_w: torch.Tensor,
+                ln_b: torch.Tensor, eps: float, short: bool,
+                splits: int) -> torch.Tensor:
+    """``LN(x + fc2(GELU(fc1 x)))`` (``csrc/ffn_post_ln.cu``): x [M, C],
+    w1 [HD, C], b1 [HD], w2 [C, HD], b2, ln_w, ln_b [C], all bf16,
+    contiguous and on one card, C <= 1024.
+    ``short`` (M <= 64) and ``splits`` (fc2's K-slices) are the plan of
+    ``fused_mlp.ffn_plan``.  The checks run on every launch: x's device
+    check, then one pass of cheap attribute reads over the weights."""
+    _check(x, "ffn_post_ln x")
+    lib = library()
+    M, C = x.shape
+    HD = w1.shape[0]
+    dev = x.device
+    if not x.is_contiguous():
+        raise ValueError("ffn_post_ln x: must be contiguous")
+    for t, shape, what in ((w1, (HD, C), "w1"), (b1, (HD,), "b1"),
+                           (w2, (C, HD), "w2"), (b2, (C,), "b2"),
+                           (ln_w, (C,), "ln_w"), (ln_b, (C,), "ln_b")):
+        if not (t.dtype == torch.bfloat16 and t.device == dev
+                and t.shape == shape and t.is_contiguous()
+                and t.data_ptr() % 16 == 0):
+            raise ValueError(
+                f"ffn_post_ln {what}: expected a contiguous, 16-byte aligned "
+                f"bf16 {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
+                f"{t.device}")
+    unit = 32 if short else FFN_TILE_K  # K-steps: a chunk, a tile's depth
+    if C % unit or C > 1024 or HD % (unit * splits) or (short and M > 64):
+        raise ValueError(f"ffn_post_ln: unsupported M={M}, C={C}, HD={HD}, "
+                         f"{splits} K-slices (C and HD / slices multiples "
+                         f"of {unit}, C <= 1024, M <= 64 when short)")
+    stream = _stream(x)
+    h_bytes = -(-M * HD * 2 // 16) * 16
+    need = h_bytes + splits * M * C * 4
+    key = (x.get_device(), stream)
+    buf = _ffn_scratch.get(key)
+    if buf is None or buf.numel() < need:
+        with torch.inference_mode(False):
+            buf = _ffn_scratch[key] = torch.empty(need, dtype=torch.uint8,
+                                                  device=dev)
+    out = torch.empty_like(x)
+    ws = buf.data_ptr()
+    err = lib.lvt_ffn_post_ln_bf16(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), ws, ws + h_bytes,
+        out.data_ptr(), M, C, HD, splits, int(short), float(eps), stream)
+    _raise_on(err, "lvt_ffn_post_ln_bf16")
+    return out
+
+
+def permute_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """out[b, r] = x[b, index[r]], or zeros where index[r] < 0, over the R
+    rows of each batch: x [B, ..., C] contiguous (the dims between B and C
+    flattened into R; any dtype whose row is a multiple of 16 bytes),
+    index int32 [R] on x's device.  The checks are one pass of cheap
+    attribute reads: they run on every launch."""
+    if not (x.is_cuda and x.dim() >= 2 and x.is_contiguous()
+            and x.data_ptr() % 16 == 0
+            and x.shape[-1] * x.element_size() % 16 == 0):
+        raise ValueError(f"permute_rows: expected a contiguous, 16-byte "
+                         f"aligned CUDA tensor [B, ..., C] whose rows are "
+                         f"multiples of 16 bytes, got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+    B, C = x.shape[0], x.shape[-1]
+    R = x.numel() // (B * C) if B * C else 0
+    if not (index.dtype == torch.int32 and index.device == x.device
+            and index.shape == (R,) and index.is_contiguous()):
+        raise ValueError(f"permute_rows: index must be a contiguous int32 "
+                         f"[{R}] on {x.device}")
     out = torch.empty_like(x)
     err = library().lvt_permute_rows(
-        x.data_ptr(), out.data_ptr(), index.data_ptr(), B, R, row_bytes,
-        _stream(x))
+        x.data_ptr(), out.data_ptr(), index.data_ptr(), B, R,
+        C * x.element_size(), _stream(x))
     _raise_on(err, "lvt_permute_rows")
     return out
 

@@ -24,10 +24,16 @@ whole HD in one pass, so the bf16 results differ slightly from the TPU's.
 Bound on the card: tensor-core rate of the two GEMMs (M = B*248 rows is
 short, so the fc1 grid of 128x128 tiles only partly fills the card).
 
-``fused_ffn_post_ln`` replaces ``_ffn_post_ln_kernel`` (:283, wrapper
-``_ffn_forward`` :304): the BERT FFN LN(x + fc2(GELU(fc1 x))), as fc1
-GEMM (+bias, GELU) -> fc2 GEMM (+bias, +residual) -> LN.  Bound: the
-GEMMs at M = B*276 rows, again too short for full occupancy.
+``fused_ffn_post_ln`` replaces ``_ffn_post_ln_kernel`` (K5, :283,
+wrapper ``_ffn_forward`` :304): the BERT FFN LN(x + fc2(GELU(fc1 x))),
+on the card ``csrc/ffn_post_ln.cu``: fc1 (+bias, GELU) -> fc2 in f32
+K-slices -> one row kernel summing the slices in order, + bias +
+residual, LN.  ``ffn_plan`` picks the regime by M: at most 64 rows (the
+KV decoder's step) the weights take mma.sync's 16-row side and the
+tokens the 8-wide one, else 128 x 128 wgmma tiles fed by the Tensor
+Memory Accelerator; fc2 is cut into the fewest K-slices that give the
+card's 132 SMs a block each.  Bound: the 9.4 MB of weights at M = 8, the
+two products at M = B*276.
 
 ``fused_out_ln_train`` replaces ``_out_ln_train_kernel`` (K11, :505,
 wrapper ``fused_out_ln_train`` :577): the train route's BERT attention
@@ -51,10 +57,15 @@ recomputed from the saved inputs (``_build.RecomputeVjp``).
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, dropout, layer_norm
+
+H100_SMS = 132
 
 
 def weights_fit_vmem(C: int, HD: int, bytes_per: int = 2,
@@ -108,10 +119,39 @@ def _ffn_plain(x, w1, b1, w2, b2, ln_w, ln_b, eps=1e-12):
     return layer_norm(x + F.linear(h, w2, b2), ln_w, ln_b, eps)
 
 
+class FfnPlan(NamedTuple):
+    short: bool       # M <= 64: weights on the 16-row side, tokens on the 8
+    splits: int       # fc2's K-slices, summed in order by the row kernel
+    fc1_blocks: int
+    fc2_blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def ffn_plan(M: int, C: int, HD: int, sms: int = H100_SMS) -> FfnPlan:
+    """The launch plan of ``fused_ffn_post_ln`` on the card for x [M, C],
+    w1 [HD, C].  Short M: fc1 is HD / 16 blocks of 16 features, fc2 C / 16
+    column blocks x ``splits``, a K-slice whole 32-wide chunks; long M:
+    128 x 128 tiles, fc2's x ``splits``, a K-slice whole tile steps
+    (``_build.FFN_TILE_K``).  ``splits`` is the least of 1..8 that divides
+    HD into such slices and gives fc2 ``sms`` blocks, else the largest
+    such divisor.  Pure arithmetic: the kernel's wrapper checks the
+    shapes."""
+    short = M <= 64
+    if short:
+        fc1, tiles, unit = HD // 16, C // 16, 32
+    else:
+        bands = -(-M // 128)
+        fc1, tiles = bands * -(-HD // 128), bands * -(-C // 128)
+        unit = _build.FFN_TILE_K
+    fits = [s for s in range(1, 9) if (HD // unit) % s == 0]
+    splits = next((s for s in fits if tiles * s >= sms), fits[-1])
+    return FfnPlan(short, splits, fc1, tiles * splits)
+
+
 def _ffn_cuda(x, w1, b1, w2, b2, ln_w, ln_b, eps=1e-12):
-    h = _build.gemm(x, w1, b1, gelu=True)
-    return _build.layernorm(_build.gemm(h, w2, b2, residual=x), ln_w, ln_b,
-                            eps)
+    plan = ffn_plan(x.shape[0], x.shape[-1], w1.shape[0])
+    return _build.ffn_post_ln(x, w1, b1, w2, b2, ln_w, ln_b, eps, plan.short,
+                              plan.splits)
 
 
 fused_ffn_post_ln = _build.KernelOp(

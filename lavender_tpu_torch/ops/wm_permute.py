@@ -11,7 +11,9 @@ per (geometry, shift, direction) as an int32 index (-1 for a pad row) and
 keeps it on the device; on the card ``csrc/permute.cu`` gathers the rows
 in one read and one write of the tensor.  Its gradient is the same gather
 with the inverse index (a permutation with zeroed pads transposes to the
-inverse shift), so the backward is another launch of the same kernel.
+inverse shift), so the backward is another launch of the same kernel;
+only a call that autograd records goes through that Function, a serving
+call launches directly.
 """
 from __future__ import annotations
 
@@ -51,29 +53,27 @@ def shift_index(window: Tuple[int, int, int], D: int, H: int, W: int,
     return index.reshape(-1)
 
 
-_on_device: Dict[tuple, torch.Tensor] = {}
-
-
-def _device_index(key: tuple, device: torch.device) -> torch.Tensor:
-    """``shift_index(*key)`` on ``device``, built once.  Built outside
-    inference mode, so that a training step may save the index for its
-    backward after a serving call (under ``inference_mode``) built it."""
-    k = key + (str(device),)
-    if k not in _on_device:
-        with torch.inference_mode(False):
-            _on_device[k] = torch.as_tensor(shift_index(*key), device=device)
-    return _on_device[k]
+_on_device: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def shift_indices(window: Sequence[int], D: int, H: int, W: int, Npad: int,
                   shift: Sequence[int], device, inverse: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(index, inverse index) of the shift (of its inverse with
-    ``inverse``) on ``device``: int32 [nW * Npad] each, built once."""
-    key = (tuple(int(w) for w in window), int(D), int(H), int(W), int(Npad),
-           tuple(int(s) for s in shift))
-    return (_device_index(key + (bool(inverse),), device),
-            _device_index(key + (not inverse,), device))
+    ``inverse``) on ``device``: int32 [nW * Npad] each, built once per
+    geometry (one dict lookup a call).  Built outside inference mode, so
+    that a training step may save them for its backward after a serving
+    call (under ``inference_mode``) built them."""
+    key = (tuple(window), D, H, W, Npad, tuple(shift), device)
+    pair = _on_device.get(key)
+    if pair is None:
+        geom = (tuple(int(w) for w in window), int(D), int(H), int(W),
+                int(Npad), tuple(int(s) for s in shift))
+        with torch.inference_mode(False):
+            pair = _on_device[key] = tuple(
+                torch.as_tensor(shift_index(*geom, inv), device=device)
+                for inv in (False, True))
+    return pair[::-1] if inverse else pair
 
 
 def _permute_plain(t: torch.Tensor, index: torch.Tensor,
@@ -92,9 +92,7 @@ class _PermuteFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, index, inv_index):
         ctx.save_for_backward(index, inv_index)
-        B, nW, Npad, C = t.shape
-        out = _build.permute_rows(t.contiguous().view(B, nW * Npad, C), index)
-        return out.view(B, nW, Npad, C)
+        return _build.permute_rows(t.contiguous(), index)
 
     @staticmethod
     def backward(ctx, g):
@@ -103,7 +101,9 @@ class _PermuteFn(torch.autograd.Function):
 
 
 def _permute_cuda(t, index, inv_index):
-    return _PermuteFn.apply(t, index, inv_index)
+    if _build.needs_grad(t):  # autograd records the call: the Function
+        return _PermuteFn.apply(t, index, inv_index)
+    return _build.permute_rows(t.contiguous(), index)
 
 
 wm_shift_rows = _build.KernelOp("K2 wm_shift_rows", _permute_plain,

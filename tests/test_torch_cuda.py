@@ -41,7 +41,10 @@ its lse against an f64 logsumexp and its keep masks at rates 0.1 and 0.5;
 and the tensor-core Swin window core K8a / K8b (per-head bias, dbias) at
 Npad 8 to 248 and the unpadded N = 245, 1 to 600 sequences, each call
 repeated and bitwise equal, its lse against an f64 logsumexp and dbias
-against an f64 sum over up to 512 windows.
+against an f64 sum over up to 512 windows; K2 at Swin-B's three shifted
+stages (bf16 and f32, both directions, with and without autograd, exact,
+pad rows 0); K5 at BERT-base's widths over 1 to 1104 rows (both regimes
+of its plan), a second call bitwise equal, and its gradients.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -76,7 +79,8 @@ from lavender_tpu_torch.ops.swin_block_attn import (
 from lavender_tpu_torch.ops.swin_core_attn import (
     swin_core_attn, swin_core_attn_bwd)
 from lavender_tpu_torch.ops.window_attention import fused_window_attention
-from lavender_tpu_torch.ops.wm_permute import shift_index, wm_shift_rows
+from lavender_tpu_torch.ops.wm_permute import (
+    shift_index, shift_indices, wm_shift, wm_shift_rows)
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-2
@@ -242,6 +246,62 @@ def test_wm_shift_rows_matches_plain(gen, geom, inverse, dtype):
     (g_want,) = torch.autograd.grad(want, t, w)
     assert torch.equal(g_got, g_want)
     assert wm_shift_rows.launches == before + 2  # forward + backward
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3])  # Swin-B's shifted stages
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("grad", [False, True])
+def test_wm_shift_swin_b_stages_exact(gen, stage, inverse, dtype, grad):
+    """K2 through ``wm_shift`` at Swin-B's stage maps and widths (T=5,
+    window (5, 7, 7), Npad 248): exact, its pad rows 0 whatever the input's
+    hold, launched directly outside autograd and through its Function (the
+    backward the same gather with the inverse index) under it."""
+    side, C = {1: (56, 128), 2: (28, 256), 3: (14, 512)}[stage]
+    window, Npad, shift, N = (5, 7, 7), 248, (0, 3, 3), 245
+    nW = (side // 7) ** 2
+    t = torch.randn(2, nW, Npad, C, generator=gen, device="cuda").to(dtype)
+    t.requires_grad_(grad)
+    before = wm_shift_rows.launches
+    got = wm_shift(t, window, 5, side, side, shift, inverse)
+    idx, inv = shift_indices(window, 5, side, side, Npad, shift, t.device,
+                             inverse)
+    want = wm_shift_rows.plain(t, idx, inv)
+    assert torch.equal(got, want) and not got[:, :, N:].any()
+    assert got.requires_grad == grad
+    if grad:
+        w = torch.randn(got.shape, generator=gen, device="cuda").to(dtype)
+        (g_got,) = torch.autograd.grad(got, t, w)
+        (g_want,) = torch.autograd.grad(want, t, w)
+        assert torch.equal(g_got, g_want) and not g_got[:, :, N:].any()
+    assert wm_shift_rows.launches == before + 1 + grad
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 64, 65, 250, 1000, 1104])
+def test_ffn_post_ln_matches_plain(gen, M):
+    """K5 at BERT-base's widths, across both regimes of ``ffn_plan`` (the
+    decoder's 8 rows, the prefill's 1000, serving's 1104): within the
+    kernel gate, a second call bitwise equal, and under autograd the
+    gradients of every input equal to the plain version's (its backward
+    recomputes through it)."""
+    C, HD = 768, 3072
+    args = (_rnd(gen, M, C), _rnd(gen, HD, C, std=C ** -0.5),
+            _rnd(gen, HD, std=0.02), _rnd(gen, C, HD, std=HD ** -0.5),
+            _rnd(gen, C, std=0.02), 1 + _rnd(gen, C, std=0.1),
+            _rnd(gen, C, std=0.1))
+    before = fused_ffn_post_ln.launches
+    got = fused_ffn_post_ln(*args, 1e-12)
+    _close(got, fused_ffn_post_ln.plain(*args, 1e-12), rel_l2=1e-2)
+    assert torch.equal(got, fused_ffn_post_ln(*args, 1e-12))
+    assert fused_ffn_post_ln.launches == before + 2
+    leaves = [t.detach().requires_grad_(True) for t in args]
+    cot = _rnd(gen, M, C)
+    got_g = torch.autograd.grad(fused_ffn_post_ln(*leaves, 1e-12), leaves,
+                                cot)
+    want_g = torch.autograd.grad(fused_ffn_post_ln.plain(*leaves, 1e-12),
+                                 leaves, cot)
+    for a, b in zip(got_g, want_g):
+        _close(a, b, rel_l2=5e-2)
 
 
 def _core_inputs(g, B, nW, N, Npad, nH, hd, all_masked=False):

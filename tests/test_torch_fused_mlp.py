@@ -1,6 +1,7 @@
 """K3 (Swin stage-4 LN + MLP + residual), K9 (Swin LN + MLP, the train
 route) and K5 (BERT post-LN FFN): the port's plain PyTorch versions (and
-for K9 its gradient) against the JAX package, f32 on the CPU.
+for K9 its gradient) against the JAX package, f32 on the CPU; and K5's
+launch plan on the card (``ffn_plan``).
 
 The JAX kernels run in Pallas interpret mode (K3 with its HD axis split into
 4 chunks and a token count that is not a multiple of its tile), and against
@@ -16,7 +17,7 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from lavender_tpu.ops import fused_mlp as jmlp
-from lavender_tpu_torch.ops import fused_mlp as tmlp
+from lavender_tpu_torch.ops import _build, fused_mlp as tmlp
 
 ATOL = RTOL = 1e-4
 
@@ -66,7 +67,7 @@ def _port_ffn(p):
         _t(p["s"]), _t(p["b"]), 1e-12).numpy()
 
 
-@pytest.mark.parametrize("M", [40, 300])
+@pytest.mark.parametrize("M", [8, 40, 300])  # 8: the KV decoder's step
 def test_ffn_post_ln_matches_jax_kernel_interpret(M):
     p = _params(M, 32, 128, seed=2)
     with pltpu.force_tpu_interpret_mode():
@@ -84,6 +85,34 @@ def test_ffn_post_ln_matches_jax_reference():
         1e-12)
     np.testing.assert_allclose(_port_ffn(p), np.asarray(want),
                                atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("M", [1, 7, 8, 16, 17, 64, 65, 250, 1000, 1104,
+                               4416])
+def test_ffn_plan_covers_k_and_fills_the_card(M):
+    """K5's launch plan at BERT-base's widths: the regime by M, every one
+    of fc2's K-steps taken exactly once (the kernels' assignment: slice s
+    of ``splits``, warp w of 4 takes the slice's 32-wide chunks w, w + 4,
+    ...; a long-M tile block its whole slice of tile steps), every output
+    covered, and
+    at the decoder's step (8 rows), the prefill (1000) and serving (1104)
+    a block for each of the H100's 132 SMs in both products."""
+    C, HD = 768, 3072
+    plan = tmlp.ffn_plan(M, C, HD)
+    assert plan.short == (M <= 64)
+    unit = 32 if plan.short else _build.FFN_TILE_K
+    per = HD // plan.splits // unit  # whole K-steps a slice
+    assert per * plan.splits * unit == HD
+    warps = range(4) if plan.short else range(1)
+    taken = sorted(s * per + c for s in range(plan.splits) for w in warps
+                   for c in range(w, per, len(warps)))
+    assert taken == list(range(HD // unit))
+    rows = 1 if plan.short else -(-M // 128)
+    side = 16 if plan.short else 128
+    assert plan.fc1_blocks * side == rows * HD
+    assert plan.fc2_blocks * side == rows * C * plan.splits
+    if M in (8, 1000, 1104):
+        assert min(plan.fc1_blocks, plan.fc2_blocks) >= tmlp.H100_SMS
 
 
 def _k9_args(p):

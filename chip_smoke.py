@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only K2 K5   # phases 1-3 for these kernels
+    python3 chip_smoke.py --only K1 K4   # and K1's and K4's parts
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -66,7 +67,15 @@ nothing is ever run on the CPU instead:
    (within 1e-3) at every stage, shifted and unshifted, and at the spatial
    route's unpadded N=245, and K8b's dbias at B=8, stage 1, shifted (512
    windows) against an f64 sum of the plain per-clip dbias (within 1e-2 x
-   max(1, max|dbias|));
+   max(1, max|dbias|)); K1 (every stage, shifted and unshifted, B=4 and
+   B=8) and K4 (L=276 with padded captions, the prefill's L=250 with every
+   key open and with padded keys) each call repeated and required bitwise
+   equal, with their device time a call in a CUDA graph beside the event
+   time; and their parts against one PyTorch call each (``_k1_k4_parts``,
+   also under ``--only K1`` / ``K4``): every product of the tile GEMM
+   against F.linear at its shape, K1's core against
+   scaled_dot_product_attention with bias + shift mask as one additive
+   mask, K4's against it with the key-padding mask;
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
@@ -262,6 +271,7 @@ class Case:
     compare: Optional[Callable] = None
     bitwise_repeat: bool = False  # a second call must give the same bits
     device_ms: bool = False  # also the device time a call (torch.profiler)
+    graph_ms: bool = False  # also the device time a call (a CUDA graph)
 
 
 def _rnd(g, *shape, std=1.0, dtype=torch.bfloat16):
@@ -448,7 +458,7 @@ def _kernel_cases(g):
                     f"{kind}" + (" +MLP" if with_mlp else " attention half"),
                     blocks, args, flops, nbytes,
                     kw={"mlp": mlp} if with_mlp else {}, valid=x_rows,
-                    residual=x))
+                    residual=x, bitwise_repeat=True, graph_ms=True))
                 if not train:
                     continue
                 # K8a / K8b on the qkv slab of the backward's recompute
@@ -534,7 +544,8 @@ def _kernel_cases(g):
         "keys", 12, (x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, keep, nH,
                      (C // nH) ** -0.5, 1e-12),
         8.0 * M * C * C + 4.0 * BATCH * L * L * C,
-        2 * M * C * 2 + 4 * C * C * 2 + BATCH * L))
+        2 * M * C * 2 + 4 * C * C * 2 + BATCH * L, bitwise_repeat=True,
+        graph_ms=True))
     w1, b1 = lin(3072, C)
     w2, b2 = lin(C, 3072)
     cases.append(Case(
@@ -547,14 +558,22 @@ def _kernel_cases(g):
     # over 2 rows a clip
     Lp, n_steps = FRAMES * 50, GEN_LEN - 1
     xp = _rnd(g, BATCH, Lp, C)
-    cases.append(Case(
-        fused_bert_attn_block_kmask, f"B={BATCH} L={Lp} C={C} nH={nH}, "
-        "prefill (all keys open)", 12,
-        (xp, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb,
-         torch.ones(BATCH, Lp, dtype=torch.bool, device="cuda"), nH,
-         (C // nH) ** -0.5, 1e-12),
-        8.0 * BATCH * Lp * C * C + 4.0 * BATCH * Lp * Lp * C,
-        2 * BATCH * Lp * C * 2 + 4 * C * C * 2 + BATCH * Lp))
+    # the prefill (every key open), and at its L = 250 (keep rows off
+    # 4-byte boundaries) with padded keys, checked, not counted
+    keep_p = torch.ones(BATCH, Lp, dtype=torch.bool, device="cuda")
+    keep_pad = keep_p.clone()
+    for i, n in enumerate((0, 6, 14, Lp - 1)):  # one clip keeps one key
+        keep_pad[i, Lp - n:] = False
+    for kp, what, count in ((keep_p, "prefill (all keys open)", 12),
+                            (keep_pad, "padded keys", 0)):
+        cases.append(Case(
+            fused_bert_attn_block_kmask, f"B={BATCH} L={Lp} C={C} nH={nH}, "
+            f"{what}", count,
+            (xp, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, kp, nH,
+             (C // nH) ** -0.5, 1e-12),
+            8.0 * BATCH * Lp * C * C + 4.0 * BATCH * Lp * Lp * C,
+            2 * BATCH * Lp * C * 2 + 4 * C * C * 2 + BATCH * Lp,
+            bitwise_repeat=True, graph_ms=count > 0))
     for rows, count, what in ((BATCH * Lp, 12, "prefill"),
                               (2 * BATCH, 12 * n_steps, "decode step")):
         xr = _rnd(g, rows, C)
@@ -1194,25 +1213,140 @@ def _swin_core_lse_and_dbias(g):
             raise AssertionError("K8b dbias off the f64 sum")
 
 
-def _bert_core_vs_sdpa(g):
-    """K4's attention core alone (the part one PyTorch call computes) at
-    the serving shape: the port's core vs scaled_dot_product_attention
-    with the same key-padding mask.  Returns (kernel ms, SDPA ms)."""
+def _bert_core_vs_sdpa(g, L=FRAMES * 50 + TXT_LEN, padded=True):
+    """K4's attention core alone (the part one PyTorch call computes): the
+    tensor-core forward on the packed slab with the key-keep vector vs
+    scaled_dot_product_attention with the same key-padding mask, B=4, L
+    tokens (serving's 276 with padded captions; the prefill's 250, every
+    key open).  Returns the two callables."""
     import torch.nn.functional as F
 
     from lavender_tpu_torch.ops import _build
 
-    C, nH, L = 768, 12, FRAMES * 50 + TXT_LEN
+    C, nH = 768, 12
     qkv = _rnd(g, BATCH * L, 3 * C)
     keep = torch.ones(BATCH, L, dtype=torch.bool, device="cuda")
-    keep[1:, L - 10:] = False
+    if padded:
+        keep[1:, L - 10:] = False
     q, k, v = qkv.view(BATCH, L, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
     m = keep[:, None, None, :]
-    ms = [_time_ms(lambda: _build.attention(qkv, BATCH, L, nH,
-                                            (C // nH) ** -0.5, keep=keep)),
-          _time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          attn_mask=m))]
-    return ms[0], ms[1]
+    return (lambda: _build.attention(qkv, BATCH, L, nH, (C // nH) ** -0.5,
+                                     keep=keep, tensor_cores=True),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m))
+
+
+def _k1_k4_parts(g):
+    """K1's and K4's parts, each against one PyTorch call, at the shapes
+    of the B=4 serving forward and the B=8 train step (K1) and of serving
+    and the KV prefill (K4): each product of the tile GEMM
+    (``_build.gemm_tc``; K4's proj + residual + LN ``_build.gemm_tc_ln``,
+    its K-slices and row kernel) against F.linear at its shape (K4's q |
+    k | v, one launch, against one F.linear of the three weights stacked),
+    and each core on the tensor cores against
+    scaled_dot_product_attention: K1's with the rel-pos bias + shift mask
+    as one additive mask (as K8a's case builds it), K4's with the
+    key-padding mask (``_bert_core_vs_sdpa``).  Prints event and device ms
+    a call (``_graph_ms``), in turns, and their ratios, and per group the
+    worst device ratio and the ratio of the device times summed over the
+    shapes' calls in the counted runs (the cores: the shifted ones at
+    stages 1-3)."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        pad_window_mask, rel_pos_bias_wm)
+
+    worst, sums = {}, {}
+
+    def part(group, name, kernel, library, count):
+        t = [_time_ms(f) for f in (library, kernel, kernel, library)]
+        ev_k, ev_l = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        g = [_graph_ms(f) for f in (library, kernel, kernel, library)]
+        dev_k, dev_l = (g[1] + g[2]) / 2, (g[0] + g[3]) / 2
+        worst[group] = max(worst.get(group, 0.0), dev_k / dev_l)
+        k, l = sums.get(group, (0.0, 0.0))
+        sums[group] = (k + count * dev_k, l + count * dev_l)
+        print(f"[part] {name}: {ev_k:.4f} ms ({dev_k:.4f} device) vs "
+              f"{ev_l:.4f} ms ({dev_l:.4f} device): {ev_k / ev_l:.2f}x "
+              f"event, {dev_k / dev_l:.2f}x device, x{count}", flush=True)
+
+    window, shift, N, Npad = (5, 7, 7), (0, 3, 3), 245, 248
+    for stage, nW, C, nH, side, pairs in SWIN_STAGES:
+        hd = C // nH
+        bias = rel_pos_bias_wm(_rnd(g, 15 * 13 * 13, nH),
+                               relative_position_index((8, 7, 7)), N, Npad,
+                               torch.bfloat16)
+        ws = {n: (_rnd(g, o, i, std=i ** -0.5), _rnd(g, o, std=0.02))
+              for n, o, i in (("qkv", 3 * C, C), ("proj", C, C),
+                              ("fc1", 4 * C, C), ("fc2", C, 4 * C))}
+        mask = None
+        if stage < 4:
+            mask = pad_window_mask(torch.as_tensor(compute_shift_mask(
+                5, side, side, window, shift), device="cuda"),
+                Npad).to(torch.bfloat16)
+        for B in (BATCH, TRAIN_BATCH):
+            M = B * nW * Npad
+            a, r = _rnd(g, M, C), _rnd(g, M, C)
+            names = ["qkv", "proj"] + (
+                ["fc1", "fc2"] if stage < 4 and B == BATCH else [])
+            for n in names:
+                w, b = ws[n]
+                x = _rnd(g, M, 4 * C) if n == "fc2" else a
+                kw = {"gelu": n == "fc1",
+                      "residual": r if n in ("proj", "fc2") else None}
+                part("K1 products", f"K1 B={B} stage {stage} {n} M={M} "
+                     f"N={w.shape[0]} K={w.shape[1]}"
+                     f"{' +GELU' if kw['gelu'] else ''}"
+                     f"{' +residual' if kw['residual'] is not None else ''}"
+                     " vs F.linear",
+                     lambda x=x, w=w, b=b, kw=kw: _build.gemm_tc(x, w, b,
+                                                                  **kw),
+                     lambda x=x, w=w, b=b: F.linear(x, w, b), 2 * pairs)
+                del x
+            qkv = _rnd(g, M, 3 * C)
+            q, k, v = qkv.view(B * nW, Npad, 3, nH, hd).permute(2, 0, 3, 1, 4)
+            full = bias[None].expand(B * nW, nH, Npad, Npad)
+            if mask is not None:
+                full = (full.view(B, nW, nH, Npad, Npad)
+                        + mask[None, :, None]).view_as(full)
+            full = full.contiguous()
+            part("K1 cores", f"K1 B={B} stage {stage} core nH={nH} "
+                 f"{'shifted' if mask is not None else 'unshifted'} vs SDPA "
+                 "(bias + mask as one additive mask)",
+                 lambda qkv=qkv, B=B: _build.attention(
+                     qkv, B * nW, Npad, nH, hd ** -0.5, bias=bias, mask=mask,
+                     tensor_cores=True),
+                 lambda q=q, k=k, v=v, m=full: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=m, scale=hd ** -0.5),
+                 pairs if mask is not None else 2 * pairs)
+            del a, r, qkv, q, k, v, full
+    C = 768
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (
+        (_rnd(g, C, C, std=C ** -0.5), _rnd(g, C, std=0.02))
+        for _ in range(4))
+    w3, b3 = torch.cat([wq, wk, wv]), torch.cat([bq, bk, bv])
+    lw, lb = 1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1)
+    for L, what, padded in ((FRAMES * 50 + TXT_LEN, "serving", True),
+                            (FRAMES * 50, "prefill", False)):
+        M = BATCH * L
+        x, o = _rnd(g, M, C), _rnd(g, M, C)
+        part("K4 products", f"K4 {what} qkv (3 weights, 1 launch) M={M} "
+             f"N={C}x3 K={C} vs F.linear of the stacked weights",
+             lambda x=x: _build.gemm_tc(x, (wq, wk, wv), (bq, bk, bv)),
+             lambda x=x: F.linear(x, w3, b3), 12)
+        part("K4 products", f"K4 {what} proj + residual + LN (K-slices, "
+             f"row kernel) M={M} N={C} K={C} vs F.linear",
+             lambda x=x, o=o: _build.gemm_tc_ln(o, wo, bo, x, lw, lb, 1e-12),
+             lambda o=o: F.linear(o, wo, bo), 12)
+        part("K4 cores", f"K4 {what} core B={BATCH} L={L} nH=12 vs SDPA "
+             "(key-padding mask)", *_bert_core_vs_sdpa(g, L, padded), 12)
+    print("[part] device ratio, worst shape / summed over the counted "
+          "runs' calls of these shapes: " + ", ".join(
+              f"{k} {v:.2f}x / {sums[k][0] / sums[k][1]:.2f}x"
+              for k, v in worst.items())
+          + f" (gate 1.25x; {_nvidia_smi()})", flush=True)
 
 
 def _heads_tc_pitch(g):
@@ -1283,6 +1417,24 @@ def _device_ms(fn, n: int = 20) -> float:
     return sum(_kernel_times(fn, n).values())
 
 
+def _graph_ms(fn, n: int = 10) -> float:
+    """ms of device time per call of ``fn`` without its host time: ``n``
+    calls captured in one CUDA graph (after a warm-up call, so that no
+    scratch grows inside it), the replay timed as ``_time_ms`` times a
+    call, divided by ``n``.  The profiler's sums under-count once it has
+    traced many windows in one process; a graph's replay has no host gaps
+    to hide."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = _time_ms(graph.replay) / n
+    del graph
+    return ms
+
+
 def check_kernels(only=None):
     """Phase 3: each kernel vs its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound by bytes
@@ -1335,6 +1487,11 @@ def check_kernels(only=None):
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms{lib}, bound "
               f"{bound:.4f} ms ({'bytes' if t_bytes >= t_flops else 'FLOPs'})"
               f", x{c.count} in the counted runs", flush=True)
+        if c.graph_ms:  # the call's device time, without its host time
+            dev = _graph_ms(lambda: c.op(*c.args, **c.kw))
+            print(f"[kernel] {c.op.name} {c.name}: device {dev:.4f} ms a "
+                  f"call in a CUDA graph (event {ms:.4f} ms) "
+                  f"({_nvidia_smi()})", flush=True)
         if c.device_ms:  # the call's device time, without its host time
             dev = _device_ms(lambda: c.op(*c.args, **c.kw))
             other = (f"library {_device_ms(c.library):.4f} ms" if c.library
@@ -1359,16 +1516,14 @@ def check_kernels(only=None):
         k["t_flops"] += c.count * t_flops
         if lib_ms is not None:
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
+    if not only or only & {"K1", "K4"}:
+        _k1_k4_parts(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
     _train_fwd_lse(g)
     _swin_core_lse_and_dbias(g)
     _heads_tc_pitch(g)
-    core_ms, sdpa_ms = _bert_core_vs_sdpa(g)
-    print(f"[kernel] K4's attention core alone, B={BATCH} L=276 (kernel "
-          f"core vs scaled_dot_product_attention): {core_ms:.4f} ms vs "
-          f"{sdpa_ms:.4f} ms per call", flush=True)
     return per_kernel
 
 
@@ -2803,13 +2958,13 @@ def main() -> int:
     task_counts = run_tasks(ops)
 
     meta = {
-        "K1": ("lavender_tpu_torch/csrc/attention.cu",
+        "K1": ("lavender_tpu_torch/csrc/gemm_tc.cu",
                "lavender_tpu/ops/swin_block_attn.py:954"),
         "K2": ("lavender_tpu_torch/csrc/permute.cu",
                "lavender_tpu/ops/wm_permute.py:127"),
         "K3": ("lavender_tpu_torch/csrc/gemm.cu",
                "lavender_tpu/ops/fused_mlp.py:183"),
-        "K4": ("lavender_tpu_torch/csrc/attention.cu",
+        "K4": ("lavender_tpu_torch/csrc/gemm_tc.cu",
                "lavender_tpu/ops/encoder_attention.py:322"),
         "K5": ("lavender_tpu_torch/csrc/ffn_post_ln.cu",
                "lavender_tpu/ops/fused_mlp.py:283"),

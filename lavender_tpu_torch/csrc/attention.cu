@@ -1,10 +1,12 @@
 // Attention core for one window (Swin) or one sequence (BERT) and one head:
 //   o = softmax(q k^T * scale + bias[h] + mask[w], keys with keep == 0 dropped) v
 //
-// Replaces the per-(window, head) score / softmax / pv part of
-// lavender_tpu/ops/swin_block_attn.py _block_kernel_wm and the per-head part
-// of lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask and
-// _attn_block_kernel (the latter with a per-sequence [B, N, N] mask).  Input
+// Replaces the per-head part of lavender_tpu/ops/encoder_attention.py
+// _attn_block_kernel (K6, with a per-sequence [B, N, N] mask) and the
+// per-(window, head) part of lavender_tpu/ops/swin_block_attn.py
+// _block_kernel (K14) and _block_kernel_wm_shift (K16); _block_kernel_wm
+// (K1) and _attn_block_kernel_kmask (K4) ran here until their wrappers
+// selected the tensor-core forward, and the key-keep vector stays.  Input
 // is the packed qkv slab [nSeq * N, 3C] that the qkv GEMM writes (columns
 // s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C]; the bias and
 // the mask are bf16.
@@ -22,14 +24,18 @@
 // that write each row's log-sum-exp for a backward (K10a,
 // _enc_attn_train_lanes_kernel, and K13a, _enc_attn_train_kernel, with
 // dropout; the Swin window core K8a, lavender_tpu/ops/swin_core_attn.py
-// _core_fwd_kernel, with its per-head bias), and the heads-layout calls
+// _core_fwd_kernel, with its per-head bias), the heads-layout calls
 // without lse: K7 (lavender_tpu/ops/encoder_attention.py _enc_attn_kernel,
 // q, k, v [B, nH, N, hd] by their strides under an f32 [B, N, N] mask) and
 // K15 (lavender_tpu/ops/window_attention.py _attn_kernel, q, k, v
-// [W, nH, N, hd] under a per-head bias and a per-window mask, bf16 or f32).
-// This core takes no dropout and writes no lse: it serves the packed slab
-// of K1, K4, K6, K14 and K16.  The ragged N is masked in the loops, not
-// padded as on the TPU.
+// [W, nH, N, hd] under a per-head bias and a per-window mask, bf16 or f32),
+// and the packed calls whose wrapper selects the tensor cores: K1
+// (_block_kernel_wm, bias + shift mask) and K4 (_attn_block_kernel_kmask,
+// the key-keep vector).  The selection is an argument, never inferred:
+// K14 and K16 pass the same bias and mask as K1.  This core takes no
+// dropout and writes no lse: it serves the packed slab of K6 (a [B, N, N]
+// mask), K14 and K16, until they move too.  The ragged N is masked in the
+// loops, not padded as on the TPU.
 //
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
 // core runs them on the f32 pipes, one query row per thread (rows
@@ -39,8 +45,9 @@
 // for a Swin window, 71 KB for a 276-token BERT sequence) read as
 // warp-broadcast 16-byte vectors, and keys taken in chunks of 16 so the
 // running-max rescale of the accumulator is paid once per chunk.  Scores
-// never leave registers.  Moving these calls onto the tensor-core tiles
-// of attention_fwd_tc.cu is queued (K1's first).
+// never leave registers.  Moving K6's, K14's and K16's calls onto the
+// tensor-core tiles of attention_fwd_tc.cu, as K1's and K4's moved, is
+// queued; the core goes when its last caller does.
 #include <math.h>
 
 #include "attention_tc.cuh"
@@ -226,27 +233,31 @@ int heads_tc(const void* q, const void* k, const void* v, void* out, const long 
 
 // qkv [nSeq * N, 3 * nH * hd] -> out [nSeq * N, nH * hd].  Optional (null):
 // bias [nH, N, N] per head, mask [nW, N, N] for sequence s's window s % nW,
-// keep [nSeq, N] uint8 (0 = key dropped), lse [nSeq, nH, N] f32 (each row's
-// log-sum-exp of its scores), seed (int64 on the device: dropout of the
-// probabilities, element (i, j) kept iff its bits >= thresh, kept ones
-// scaled by drop_scale).  hd in {16, 32, 64}.  A call with lse runs on the
-// tensor cores (attention_fwd_tc.cu; nW must divide nSeq; no keep, and no
-// bias with dropout): K10a with dropout, K8a with a bias; one without on
-// the f32 pipes, which take neither lse nor dropout.
+// keep [nSeq, N] uint8 (0 = key dropped; 4-byte aligned), lse [nSeq, nH,
+// N] f32 (each row's log-sum-exp of its scores), seed (int64 on the
+// device: dropout of the probabilities, element (i, j) kept iff its bits
+// >= thresh, kept ones scaled by drop_scale).  hd in {16, 32, 64}.  A call
+// with lse or tensor_cores != 0 runs on the tensor cores
+// (attention_fwd_tc.cu; nW must divide nSeq; no bias with dropout; keep
+// only without lse, dropout and bias): K10a with dropout, K8a with a bias,
+// K1 (tensor_cores) with a bias, K4 (tensor_cores) with keep; any other on
+// the f32 pipes, which take neither lse nor dropout (K6, K14, K16).
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
-                                  float drop_scale, void* stream) {
+                                  float drop_scale, int tensor_cores, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (lse != nullptr) {  // K10a, K8a: the tensor cores
-    if (keep != nullptr) return (int)cudaErrorInvalidValue;
+  if (lse != nullptr || tensor_cores) {  // K10a, K8a, K1, K4: the tensor cores
+    if (keep != nullptr && (lse != nullptr || seed != nullptr || bias != nullptr))
+      return (int)cudaErrorInvalidValue;
     const long long C = (long long)nH * hd, ld = 3 * C;
     const bf16* x = static_cast<const bf16*>(qkv);
     lvt::TcFwd a{{x, x + C, x + 2 * C}, static_cast<bf16*>(out),
                  {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {N * C, hd, C}},
                  static_cast<float*>(lse), mask, static_cast<const bf16*>(bias),
                  static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW};
+    a.keep = static_cast<const uint8_t*>(keep);
     return lvt::attention_fwd_tc(a, hd, false, s);
   }
   if (seed != nullptr) return (int)cudaErrorInvalidValue;

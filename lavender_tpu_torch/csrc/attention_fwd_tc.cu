@@ -21,12 +21,18 @@
 // Npad] or none, no dropout) and lavender_tpu/ops/window_attention.py
 // _attn_kernel (:49, K15: q, k, v [W, nH, N, hd], strided views of the
 // module path's qkv product, a bf16 rel-pos bias [nH, N, N] and a bf16 or
-// f32 shift mask [nW, N, N] or none, no lse).  All reach it through the C
-// entries of attention.cu: every call that writes lse and every
-// heads-layout call.  The packed calls without lse (K1, K4, K6, K14, K16)
-// stay on attention.cu's f32-pipe core.  The rows of the mask and of the
-// bias lie mask_ld / bias_ld elements apart (N, or a pitch a wrapper
-// rounded up to 16 bytes so that the widest copy runs).
+// f32 shift mask [nW, N, N] or none, no lse), and the cores of two
+// whole-block kernels: lavender_tpu/ops/swin_block_attn.py
+// _block_kernel_wm (:954, K1: the packed slab with the rel-pos bias and
+// the bf16 shift mask or none, K8a's instantiation without lse) and
+// lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask (:322,
+// K4: the packed slab [B*L, 3C] with a key-keep vector [B, L], the KEEP
+// variant).  All reach it through the C entries of attention.cu: every
+// call that writes lse, every heads-layout call, and the packed calls
+// that select it (K1 and K4).  The packed calls of K6, K14 and K16 stay on
+// attention.cu's f32-pipe core.  The rows of the mask and of the bias lie
+// mask_ld / bias_ld elements apart (N, or a pitch a wrapper rounded up to
+// 16 bytes so that the widest copy runs).
 //
 // Bound on the card: device memory.  At the train step's 64 pairs, L =
 // 276, 12 heads of 64 (K10a / K13a) each input read once and each output
@@ -38,8 +44,10 @@
 // ms), 16.1 GFLOP (0.016 ms); K15 at the "pallas" serving forward's B = 4,
 // stage 1 (256 windows of 245 rows, 4 heads of 32, the f32 shift mask):
 // 80.1 MB (0.024 ms), 7.9 GFLOP; K7 at B = 4, L = 275, 12 heads of 64: 8.0
-// MB (0.0024 ms).  hd 32 halves the products per byte staged, and the bias
-// is one more tile a stage.
+// MB (0.0024 ms); K1 at B = 4, stage 1 (256 windows of 248 rows, bias
+// and shift mask): 73 MB (0.022 ms), 8.1 GFLOP; K4 at B = 4, L = 276: 6.8
+// MB (0.0020 ms).  hd 32 halves the products per byte staged, and the
+// bias is one more tile a stage.
 //
 // Design: FlashAttention-2's forward, shaped as the backward's dq kernel.
 // A block of 4 warps owns one 64-row query tile of one (sequence, head),
@@ -70,6 +78,8 @@
 // butterfly): the same bits on every run.
 #include <math.h>
 
+#include <type_traits>
+
 #include "attention_tc.cuh"
 #include "mma_tile.cuh"
 
@@ -78,9 +88,34 @@ namespace {
 using namespace lvt::tc;
 
 constexpr float kLn2 = 0.6931471805599453f;
+// a tile's 64 keep bytes from any byte offset: 17 words, rounded up to
+// whole 16 bytes
+constexpr int kKeepWords = 20;
 
-// BIAS: a per-head bf16 bias tile staged beside the mask tile.
-template <int HD, typename M, bool DROP, bool BIAS>
+// Stage keep bytes [start, start + 64) of a buffer of `bytes` bytes: the
+// 17 words from the one that holds byte start, cut or zero-filled past the
+// buffer's end (cp.async takes no source under 4-byte alignment); the
+// tile's first byte is byte start & 3 of the staged words.
+__device__ __forceinline__ void load_keep(uint32_t* s, const uint8_t* keep, long long bytes,
+                                          long long start) {
+  if (threadIdx.x < 17) {
+    const long long b = (start & ~3LL) + 4 * (long long)threadIdx.x;
+    const long long left = bytes - b;
+    const int n = left >= 4 ? 4 : (left > 0 ? (int)left : 0);
+    cp_async<4>(s + threadIdx.x, keep + (n > 0 ? b : 0), n);
+  }
+}
+
+// Whether the thread's column 8n + 2tq + e of the tile is a kept key
+// (the ballots of fwd_kernel, n and e unrolled: a constant bit).
+__device__ __forceinline__ bool kept(uint32_t klo, uint32_t khi, int n, int e) {
+  return ((n < 4 ? klo : khi) >> (8 * (n & 3) + e)) & 1u;
+}
+
+// BIAS: a per-head bf16 bias tile staged beside the mask tile.  KEEP: the
+// key-keep bytes of each K/V tile staged with it; a key whose byte is 0
+// gets p = 0 by predicate, as a key >= N does.
+template <int HD, typename M, bool DROP, bool BIAS, bool KEEP>
 __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::TcFwd a) {
   constexpr int LD = HD + 8, TILE = kRows * LD;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -89,6 +124,7 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   uint32_t* sM = reinterpret_cast<uint32_t*>(sKV + 4 * TILE);  // two stages of the mask
   constexpr int MT = MaskTile<M>::kBytes / 4, BT = MaskTile<bf16>::kBytes / 4;
   uint32_t* sB = sM + 2 * MT;  // BIAS: two stages of the bias
+  uint32_t* sKp = sB + (BIAS ? 2 * BT : 0);  // KEEP: two stages of keep bytes
   const int bh = blockIdx.x, seq = bh / a.nH, h = bh - seq * a.nH;
   const int N = a.N, i0 = blockIdx.y * kRows, w = seq % a.nW;
   const bool has_mask = a.mask != nullptr;
@@ -103,6 +139,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   load_tile<HD>(sKV + TILE, vb, a.st[2][2], 0, N);
   if (has_mask) load_mask<M>(sM, a.mask, m_bytes, w, i0, 0, N, m_ld);
   if constexpr (BIAS) load_mask<bf16>(sB, a.bias, b_bytes, h, i0, 0, N, b_ld);
+  const long long keep0 = (long long)seq * N, keep_bytes = (long long)a.nSeq * N;
+  if constexpr (KEEP) load_keep(sKp, a.keep, keep_bytes, keep0);
   cp_async_commit();
 
   const int wr = warp * 16 + (lane >> 2);  // the thread's first row in the tile
@@ -132,6 +170,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
         load_mask<M>(sM + ((t + 1) & 1) * MT, a.mask, m_bytes, w, i0, j0 + kCols, N, m_ld);
       if constexpr (BIAS)
         load_mask<bf16>(sB + ((t + 1) & 1) * BT, a.bias, b_bytes, h, i0, j0 + kCols, N, b_ld);
+      if constexpr (KEEP)
+        load_keep(sKp + ((t + 1) & 1) * kKeepWords, a.keep, keep_bytes, keep0 + j0 + kCols);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -139,6 +179,15 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
     }
     __syncthreads();
     const int cn = N - j0;  // columns < cn are keys
+    // KEEP: the tile's keep bits by warp ballot, shifted so that bit 8 (n
+    // % 4) + e is the thread's column 8n + 2tq + e (n < 4 in klo, else khi)
+    uint32_t klo = 0u, khi = 0u;
+    if constexpr (KEEP) {
+      const uint8_t* kp =
+          reinterpret_cast<const uint8_t*>(sKp + (t & 1) * kKeepWords) + ((keep0 + j0) & 3);
+      klo = __ballot_sync(0xffffffffu, kp[lane] != 0) >> (2 * tq);
+      khi = __ballot_sync(0xffffffffu, kp[lane + 32] != 0) >> (2 * tq);
+    }
     if (live) {
       if (t == 0) load_a<HD>(qf, sQ, warp, lane);
       // the scores and (bias + mask) * log2(e) of the warp's 16 x 64
@@ -160,7 +209,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
                       kLog2e;
           else
             b[n][e] = has_mask ? mask_in<M>(cM, wr + 8 * r, lead[r], c) * kLog2e : 0.0f;
-          if (row[r] < N && c < cn) tmax[r] = fmaxf(tmax[r], fmaf(s[n][e], sl2, b[n][e]));
+          if (row[r] < N && c < cn && (!KEEP || kept(klo, khi, n, e & 1)))
+            tmax[r] = fmaxf(tmax[r], fmaf(s[n][e], sl2, b[n][e]));
         }
       }
       float corr[2];
@@ -184,7 +234,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
         for (int e = 0; e < 4; ++e) {
           const int r = e >> 1, i = row[r], c = n * 8 + 2 * tq + (e & 1);
           float p = 0.0f;
-          if (i < N && c < cn) p = ex2(fmaf(s[n][e], sl2, b[n][e] - mx[r]));
+          if (i < N && c < cn && (!KEEP || kept(klo, khi, n, e & 1)))
+            p = ex2(fmaf(s[n][e], sl2, b[n][e] - mx[r]));
           l[r] += p;  // the undropped p
           s[n][e] = p * drop_factor<DROP>(key, (uint32_t)i * (uint32_t)N + (uint32_t)(j0 + c),
                                           a.thresh, a.drop_scale);
@@ -199,7 +250,8 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const float inv = row[r] < N ? 1.0f / l[r] : 0.0f;
+    // KEEP: a row whose keys are all dropped has l = 0 and writes 0
+    const float inv = row[r] < N && (!KEEP || l[r] > 0.0f) ? 1.0f / l[r] : 0.0f;
 #pragma unroll
     for (int n = 0; n < HD / 8; ++n) o[n][2 * r] *= inv, o[n][2 * r + 1] *= inv;
     if (a.lse != nullptr && tq == 0 && row[r] < N)
@@ -208,29 +260,37 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   store_rows<HD>(a.o + seq * a.st[3][0] + h * a.st[3][1], a.st[3][2], row, N, o, 1.0f, tq);
 }
 
-template <int HD, typename M, bool DROP, bool BIAS>
+template <int HD, typename M, bool DROP, bool BIAS, bool KEEP>
 int launch(const lvt::TcFwd& a, cudaStream_t stream) {
   // Q and two stages of K, V, the mask and the bias: at hd 32 Q and the
   // K/V ring take 25.6 KB, the mask ring 18.4 KB in bf16 and 34.8 KB in
   // f32, the bias ring 18.4 KB, so K15's bias under an f32 mask takes
   // 78.8 KB (99.3 KB at hd 64): 2 blocks an SM, as kBlocks<float> says
   constexpr size_t smem = 5 * kRows * (HD + 8) * sizeof(bf16) + 2 * MaskTile<M>::kBytes +
-                          (BIAS ? 2 * MaskTile<bf16>::kBytes : 0);
-  const cudaError_t e = allow_smem(fwd_kernel<HD, M, DROP, BIAS>, smem);
+                          (BIAS ? 2 * MaskTile<bf16>::kBytes : 0) + (KEEP ? 2 * kKeepWords * 4 : 0);
+  const cudaError_t e = allow_smem(fwd_kernel<HD, M, DROP, BIAS, KEEP>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(a.nSeq * a.nH, (a.N + kRows - 1) / kRows);
-  fwd_kernel<HD, M, DROP, BIAS><<<grid, kThreads, smem, stream>>>(a);
+  fwd_kernel<HD, M, DROP, BIAS, KEEP><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// A bias (K8a, K15) comes without dropout.
+// A bias (K1, K8a, K15) comes without dropout; a keep vector (K4) without
+// bias, dropout or lse, under a bf16 mask or none.
 template <int HD, typename M>
 int launch_drop(const lvt::TcFwd& a, cudaStream_t stream) {
+  if (a.keep != nullptr) {
+    if constexpr (std::is_same_v<M, bf16>) {
+      if (a.bias == nullptr && a.seed == nullptr && a.lse == nullptr)
+        return launch<HD, M, false, false, true>(a, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   if (a.bias != nullptr)
-    return a.seed == nullptr ? launch<HD, M, false, true>(a, stream)
+    return a.seed == nullptr ? launch<HD, M, false, true, false>(a, stream)
                              : (int)cudaErrorInvalidValue;
-  return a.seed != nullptr ? launch<HD, M, true, false>(a, stream)
-                           : launch<HD, M, false, false>(a, stream);
+  return a.seed != nullptr ? launch<HD, M, true, false, false>(a, stream)
+                           : launch<HD, M, false, false, false>(a, stream);
 }
 
 template <typename M>

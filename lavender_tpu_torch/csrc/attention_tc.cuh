@@ -26,12 +26,15 @@ struct TcFwd {
   float scale;
   int nSeq, N, nH, nW;
   int mask_ld = 0, bias_ld = 0;  // elements between rows of the mask / bias; 0: N
+  const uint8_t* keep = nullptr;  // [nSeq, N]: key j of sequence s dropped where 0, or null
 };
 
 // o = ((m * p) v) / l and lse of softmax(q k^T * scale + bias + mask)
 // with dropout m on the probabilities (l the undropped row sum), on the
 // tensor cores; hd in {16, 32, 64}; the mask bf16, or f32 where mask_f32;
-// a bias only without dropout.  Returns a cudaError_t.
+// a bias only without dropout; a key-keep vector only without bias,
+// dropout or lse, under a bf16 mask or none (a row whose keys are all
+// dropped is 0).  Returns a cudaError_t.
 int attention_fwd_tc(const TcFwd& a, int hd, bool mask_f32, cudaStream_t stream);
 
 // Operands of one backward call, addressed as TcFwd's; t in order q, k,

@@ -1,0 +1,138 @@
+// The two whole-block kernels K1 and K4 as one C entry each: their
+// primitives launched back to back on one stream from one call, so that
+// the host pays one crossing into the library a block instead of one a
+// launch (at B = 4 serving, K1's stage-3 block and K4 were bound by those
+// crossings: 0.23-0.28 ms of host time against 0.14 and 0.04 ms of device
+// time).  The kernels are the primitives' own; nothing is fused here.
+//
+// K1, lavender_tpu/ops/swin_block_attn.py _block_kernel_wm (:954): LN1
+// (layernorm.cu) -> qkv + bias (gemm_tc.cu) -> the window core on the
+// tensor cores with the rel-pos bias and the shift mask
+// (attention_fwd_tc.cu through lvt_attention_bf16) -> proj + bias +
+// residual, and with the MLP LN2 -> fc1 + bias + GELU -> fc2 + bias +
+// residual.  K4, lavender_tpu/ops/encoder_attention.py
+// _attn_block_kernel_kmask (:322): q | k | v in one tile-GEMM launch ->
+// the core on the tensor cores with the key-keep vector -> proj as f32
+// K-slices -> the row kernel (+ bias + residual, LN).  The intermediates
+// live in one scratch buffer that the caller passes; the tile heights and
+// K-slices are the caller's plan (lavender_tpu_torch/ops/_build.py
+// gemm_tc_plan).
+#include "gemm_tc.cuh"
+
+LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
+                                  int C, float eps, const void* rows, void* stream);
+LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
+                                  const void* keep, void* lse, int nSeq, int N, int nH, int hd,
+                                  int nW, float scale, const void* seed, uint32_t thresh,
+                                  float drop_scale, int tensor_cores, void* stream);
+
+namespace {
+
+// The next 256-byte aligned piece of `bytes` bytes of the scratch.
+char* take(char*& at, size_t bytes) {
+  char* p = at;
+  at += (bytes + 255) / 256 * 256;
+  return p;
+}
+
+}  // namespace
+
+// K1: out [M, C] for x [M, C] = [nSeq * N, C] (window-major rows), all bf16
+// and contiguous: ln_w, ln_b (both null: the pure normalize), wqkv [3C, C],
+// bqkv, wproj [C, C], bproj, bias [nH, N, N], mask [nW, N, N] or null; with
+// w1 non-null the MLP: n2w, n2b (both null: pure), w1 [HD, C], b1, w2 [C,
+// HD], b2.  bm[4]: the tile heights of qkv, proj, fc1, fc2 (host memory).
+// scratch: lvt_swin_block_wm_scratch(M, C, HD) bytes.
+LVT_EXPORT long long lvt_swin_block_wm_scratch(int M, int C, int HD) {
+  const long long r = ((long long)M * C * 2 + 255) / 256 * 256;  // h, qkv (3), o, y
+  return 6 * r + (HD > 0 ? ((long long)M * HD * 2 + 255) / 256 * 256 : 0);
+}
+
+LVT_EXPORT int lvt_swin_block_wm_bf16(const void* x, const void* ln_w, const void* ln_b,
+                                      const void* wqkv, const void* bqkv, const void* wproj,
+                                      const void* bproj, const void* bias, const void* mask,
+                                      const void* n2w, const void* n2b, const void* w1,
+                                      const void* b1, const void* w2, const void* b2,
+                                      void* scratch, void* out, int nSeq, int N, int C, int nH,
+                                      int HD, int nW, float scale, float eps, const int* bm,
+                                      void* stream) {
+  if (nSeq <= 0 || N <= 0 || C <= 0 || nH <= 0 || C % nH) return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int M = nSeq * N;
+  const size_t row = (size_t)M * C * 2;
+  char* at = static_cast<char*>(scratch);
+  bf16* h = reinterpret_cast<bf16*>(take(at, row));
+  bf16* qkv = reinterpret_cast<bf16*>(take(at, 3 * row));
+  bf16* o = reinterpret_cast<bf16*>(take(at, row));
+  const bool mlp = w1 != nullptr;
+  bf16* y = mlp ? reinterpret_cast<bf16*>(take(at, row)) : static_cast<bf16*>(out);
+  const auto X = static_cast<const bf16*>(x);
+  int err = lvt_layernorm_bf16(x, ln_w, ln_b, h, M, C, eps, nullptr, stream);
+  if (err) return err;
+  lvt::GemmTc g{h, C, {static_cast<const bf16*>(wqkv)}, {static_cast<const bf16*>(bqkv)}, 1,
+                qkv, 3 * C, nullptr, 0, M, 3 * C, C, lvt::kEpiBias, bm[0], 1};
+  if ((err = lvt::gemm_tc(g, st))) return err;
+  if ((err = lvt_attention_bf16(qkv, o, bias, mask, nullptr, nullptr, nSeq, N, nH, C / nH, nW,
+                                scale, nullptr, 0u, 1.0f, 1, stream)))
+    return err;
+  g = {o, C, {static_cast<const bf16*>(wproj)}, {static_cast<const bf16*>(bproj)}, 1, y, C, X, C,
+       M, C, C, lvt::kEpiResidual, bm[1], 1};
+  if ((err = lvt::gemm_tc(g, st)) || !mlp) return err;
+  bf16* hid = reinterpret_cast<bf16*>(take(at, (size_t)M * HD * 2));
+  if ((err = lvt_layernorm_bf16(y, n2w, n2b, h, M, C, eps, nullptr, stream))) return err;
+  g = {h, C, {static_cast<const bf16*>(w1)}, {static_cast<const bf16*>(b1)}, 1, hid, HD, nullptr,
+       0, M, HD, C, lvt::kEpiGelu, bm[2], 1};
+  if ((err = lvt::gemm_tc(g, st))) return err;
+  g = {hid, HD, {static_cast<const bf16*>(w2)}, {static_cast<const bf16*>(b2)}, 1, out, C, y, C,
+       M, C, HD, lvt::kEpiResidual, bm[3], 1};
+  return lvt::gemm_tc(g, st);
+}
+
+// K4: out [M, C] = LN(x + proj(attention(q, k, v))) for x [M, C] = [B * L,
+// C]: wq, wk, wv, wproj [C, C], bq, bk, bv (each may be null), bproj, ln_w,
+// ln_b, keep [B, L] uint8 (4-byte aligned), all contiguous; bm_qkv the q |
+// k | v launch's tile height, bm_proj and S the proj's and its K-slices.
+// scratch: lvt_bert_attn_block_scratch(M, C, S) bytes.
+LVT_EXPORT long long lvt_bert_attn_block_scratch(int M, int C, int S) {
+  const long long r = ((long long)M * C * 2 + 255) / 256 * 256;
+  return 4 * r + ((long long)S * M * C * 4 + 255) / 256 * 256;  // qkv (3), o, part
+}
+
+LVT_EXPORT int lvt_bert_attn_block_bf16(const void* x, const void* wq, const void* wk,
+                                        const void* wv, const void* bq, const void* bk,
+                                        const void* bv, const void* wproj, const void* bproj,
+                                        const void* ln_w, const void* ln_b, const void* keep,
+                                        void* scratch, void* out, int B, int L, int C, int nH,
+                                        float scale, float eps, int bm_qkv, int bm_proj, int S,
+                                        void* stream) {
+  if (B <= 0 || L <= 0 || C <= 0 || nH <= 0 || C % nH) return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int M = B * L;
+  char* at = static_cast<char*>(scratch);
+  bf16* qkv = reinterpret_cast<bf16*>(take(at, (size_t)M * 3 * C * 2));
+  bf16* o = reinterpret_cast<bf16*>(take(at, (size_t)M * C * 2));
+  float* part = reinterpret_cast<float*>(take(at, (size_t)S * M * C * 4));
+  const auto X = static_cast<const bf16*>(x);
+  lvt::GemmTc g{X,
+                C,
+                {static_cast<const bf16*>(wq), static_cast<const bf16*>(wk),
+                 static_cast<const bf16*>(wv)},
+                {static_cast<const bf16*>(bq), static_cast<const bf16*>(bk),
+                 static_cast<const bf16*>(bv)},
+                3,
+                qkv,
+                3 * C,
+                nullptr,
+                0,
+                M, C, C, lvt::kEpiBias, bm_qkv, 1};
+  int err = lvt::gemm_tc(g, st);
+  if (err) return err;
+  if ((err = lvt_attention_bf16(qkv, o, nullptr, nullptr, keep, nullptr, B, L, nH, C / nH, 1,
+                                scale, nullptr, 0u, 1.0f, 1, stream)))
+    return err;
+  g = {o, C, {static_cast<const bf16*>(wproj)}, {nullptr}, 1, part, C, nullptr, 0, M, C, C,
+       lvt::kEpiPartial, bm_proj, S};
+  if ((err = lvt::gemm_tc(g, st))) return err;
+  return lvt::rows_ln(part, S, X, static_cast<const bf16*>(bproj), static_cast<const bf16*>(ln_w),
+                      static_cast<const bf16*>(ln_b), static_cast<bf16*>(out), M, C, eps, st);
+}

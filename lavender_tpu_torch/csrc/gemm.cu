@@ -1,20 +1,22 @@
 // Tiled bf16 GEMM with fused epilogues:  C = epi(A @ W^T + bias [, R]).
 //
-// The dense products that the TPU kernels ran inside one pallas_call (the
-// qkv / proj / fc1 / fc2 dots of lavender_tpu/ops/swin_block_attn.py
-// _block_kernel_wm, fused_mlp.py _chunked_kernel and _ffn_post_ln_kernel,
-// encoder_attention.py _attn_block_kernel_kmask) run here.  A is [M, K]
-// row-major, W is a torch Linear weight [N, K] row-major (so both operands
-// are K-contiguous: the tensor cores' row.col form), f32 accumulation.
+// The dense products that the TPU kernels ran inside one pallas_call run
+// here for K3 and K9 (lavender_tpu/ops/fused_mlp.py _chunked_kernel and
+// _kernel), K11 and K12 (_out_ln_train_kernel, _ffn_post_ln_train_kernel),
+// K6 (encoder_attention.py _attn_block_kernel), K14 and K16
+// (swin_block_attn.py _block_kernel, _block_kernel_wm_shift).  K1's, K4's
+// and K5's long-M products run on the wgmma + TMA tiles of gemm_tc.cu; the
+// products above are queued to follow them there.  A is [M, K] row-major, W
+// is a torch Linear weight [N, K] row-major (so both operands are
+// K-contiguous: the tensor cores' row.col form), f32 accumulation.
 //
-// Bound on the card: tensor-core throughput for the Swin stage 1-3 products
-// (M = B*nW*248 rows, K and N of 128..4096); the BERT products (M = B*276)
-// are too short to fill 132 SMs with 128-row tiles.  Design: 128x128x32
-// block tiles, 8 warps of 32x64 each on nvcuda::wmma 16x16x16 fragments,
-// a two-stage cp.async pipeline (zero-filled past M and N), and the bias /
+// Bound on the card: tensor-core throughput for the Swin products (M =
+// B*nW*248 rows, K and N of 128..4096); the BERT products (M = B*276) are
+// too short to fill 132 SMs with 128-row tiles.  Design: 128x128x32 block
+// tiles, 8 warps of 32x64 each on nvcuda::wmma 16x16x16 fragments, a
+// two-stage cp.async pipeline (zero-filled past M and N), and the bias /
 // exact-erf GELU / residual epilogue applied while the accumulators go to
-// device memory, so no f32 intermediate is ever stored.  wgmma and TMA are
-// left for a later change.
+// device memory, so no f32 intermediate is ever stored.
 //
 // An optional row index scatters the epilogue: output row m (and its
 // residual row) is row rows[m] of C (and R), and is dropped where rows[m] <

@@ -8,13 +8,15 @@ root, and is keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as is.
 
 The primitives bound here (tiled GEMM with fused epilogues, optionally
-scattering its rows, row LayerNorm, with or without its affine, optionally
+scattering its rows; the wgmma + TMA tile GEMM with its split-K row-LN
+epilogue; row LayerNorm, with or without its affine, optionally
 gathering its rows, and its dropout + residual variant, attention core (on
-the packed qkv slab, on the f32 pipes; and on the tensor cores, the
-packed slab or strided heads-layout q, k, v, with a per-head bias and a
-per-window mask whose rows may be padded, with dropout and the rows'
-log-sum-exp where asked) and its backward (with the bias's gradient),
-both with optional dropout,
+the packed qkv slab, on the f32 pipes or, where the caller selects them,
+the tensor cores; and on the tensor cores, the
+packed slab or strided heads-layout q, k, v, with a per-head bias, a
+per-window mask whose rows may be padded or a key-keep vector, with
+dropout and the rows' log-sum-exp where asked) and its backward (with the
+bias's gradient), both with optional dropout,
 row permutation, and a probe of the dropout hash) are what the ports of
 the TPU kernels are composed from, see ``swin_block_attn.py``,
 ``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
@@ -27,13 +29,14 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -47,6 +50,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint32
 # the heads-layout attention core's 12 element strides (host memory)
 _STRIDES = ctypes.POINTER(ctypes.c_longlong)
+# K1's four tile heights (host memory)
+_INTS = ctypes.POINTER(ctypes.c_int)
+# the entries that return a size, not a cudaError_t
+_SIZES = ("lvt_swin_block_wm_scratch", "lvt_bert_attn_block_scratch")
 # the dropout arguments of a kernel: seed pointer (null = no dropout), the
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
@@ -57,7 +64,7 @@ _SIGNATURES = {
     "lvt_dropout_add_ln_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP,
                                 _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                           *_DROP, _P],
+                           *_DROP, _I, _P],
     "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
                                  _I, _I, _F, *_DROP, _P],
     "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
@@ -70,12 +77,25 @@ _SIGNATURES = {
     "lvt_attention_row_dot_bf16": [_P, _P, _STRIDES, _P, _I, _I, _I, _I, _P],
     "lvt_ffn_post_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _F, _P],
+    "lvt_gemm_tc_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
+                         _I, _I, _I, _I, _I, _I, _P],
+    "lvt_gemm_tc_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _F, _P],
+    "lvt_swin_block_wm_scratch": [_I, _I, _I],
+    "lvt_swin_block_wm_bf16": [_P] * 17 + [_I] * 6 + [_F, _F, _INTS, _P],
+    "lvt_bert_attn_block_scratch": [_I, _I, _I],
+    "lvt_bert_attn_block_bf16": [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _I,
+                                                       _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
     "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
 }
 
 _EPI_BIAS, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
+# gemm_tc.cu's epilogues (lvt::GemmEpi)
+_TC_BIAS, _TC_GELU, _TC_RESIDUAL, _TC_PARTIAL = 0, 1, 2, 3
+# the H100 SXM's streaming multiprocessors: the launch plans fill them
+H100_SMS = 132
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -160,7 +180,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = ctypes.c_longlong if name in _SIZES else ctypes.c_int
         _lib = lib
     return _lib
 
@@ -531,48 +551,73 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def attention_route(*, tensor_cores: bool = False, lse: bool = False,
+                    keep: bool = False, bias: bool = False,
+                    dropout: bool = False) -> str:
+    """The core a packed-slab ``attention`` call runs on, from what it
+    carries: "tensor_cores" (``csrc/attention_fwd_tc.cu``) where the caller
+    selects them (K1, K4) or asks for lse (K8a, K10a), else "f32" (the
+    f32-pipe core of ``csrc/attention.cu``: K6, K14, K16).  The selection
+    is the caller's and never inferred from the other arguments: K14 and
+    K16 pass the same bias and mask as K1.  Raises on what neither core
+    takes: dropout without lse or with a bias; on the tensor cores a keep
+    vector with lse, dropout or a bias."""
+    if dropout and (not lse or bias):
+        raise ValueError("attention: dropout needs lse and no bias (the "
+                         "tensor-core route)")
+    on_tc = tensor_cores or lse
+    if on_tc and keep and (lse or dropout or bias):
+        raise ValueError("attention: the tensor cores take a keep vector "
+                         "only without lse, dropout and bias")
+    return "tensor_cores" if on_tc else "f32"
+
+
 def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
               scale: float, bias: Optional[torch.Tensor] = None,
               mask: Optional[torch.Tensor] = None,
               keep: Optional[torch.Tensor] = None,
               lse: Optional[torch.Tensor] = None,
               seed: Optional[torch.Tensor] = None,
-              rate: float = 0.0) -> torch.Tensor:
+              rate: float = 0.0, tensor_cores: bool = False) -> torch.Tensor:
     """Attention core on the packed qkv slab [n_seq * n_tok, 3C].
 
     bias [nH, N, N], mask [nW, N, N] (sequence s uses window s % nW), keep
-    [n_seq, N] bool; all optional.  ``lse``, when given, is a contiguous
-    f32 [n_seq, nH, N] that receives each query row's log-sum-exp of its
-    scores (what ``attention_bwd`` takes).  At ``rate`` > 0 the
-    probabilities are dropped by the counter hash of ``seed`` (an int64
-    [1] on the device; ``dropout.attention_keep``) in the P.V sum only.
-    A call with ``lse`` (K10a, K8a) runs on the tensor cores
-    (``csrc/attention_fwd_tc.cu``), the only route that takes dropout (not
-    with a bias) and writes lse (not with ``keep``); every other on the
-    f32-pipe core (``csrc/attention.cu``).  Returns [n_seq * n_tok, C]."""
+    [n_seq, N] bool or uint8 (0: the key is dropped for every query; a row
+    with every key dropped is 0); all optional.  ``lse``, when given, is a
+    contiguous f32 [n_seq, nH, N] that receives each query row's
+    log-sum-exp of its scores (what ``attention_bwd`` takes).  At ``rate``
+    > 0 the probabilities are dropped by the counter hash of ``seed`` (an
+    int64 [1] on the device; ``dropout.attention_keep``) in the P.V sum
+    only.  ``attention_route`` picks the core: the tensor cores
+    (``csrc/attention_fwd_tc.cu``) for a call with ``lse`` (K10a, K8a) or
+    ``tensor_cores`` (K1, K4), else the f32-pipe core
+    (``csrc/attention.cu``).  Returns [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
+    attention_route(tensor_cores=tensor_cores, lse=lse is not None,
+                    keep=keep is not None, bias=bias is not None,
+                    dropout=rate > 0.0)
     if lse is not None:
         _check_lse(lse, qkv, n_seq, n_heads, n_tok, "attention")
-        if keep is not None:
-            raise ValueError("attention: lse is written on the tensor-core "
-                             "route, which takes no keep")
-    if rate > 0.0 and (lse is None or bias is not None):
-        raise ValueError("attention: dropout needs lse and no bias (the "
-                         "tensor-core route)")
     keep_ptr = None
     if keep is not None:
         if keep.device != qkv.device or tuple(keep.shape) != (n_seq, n_tok):
             raise ValueError(f"attention keep: expected [{n_seq}, {n_tok}] on "
                              f"{qkv.device}, got {tuple(keep.shape)}")
-        keep = keep.to(torch.uint8).contiguous()
+        # a contiguous bool is read in place as its bytes (no copy)
+        if keep.dtype == torch.bool and keep.is_contiguous():
+            keep = keep.view(torch.uint8)
+        else:
+            keep = keep.to(torch.uint8).contiguous()
+        if keep.data_ptr() % 4:
+            keep = keep.clone()
         keep_ptr = keep.data_ptr()
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, qkv.device)
     out = torch.empty(qkv.shape[0], C, dtype=qkv.dtype, device=qkv.device)
     err = library().lvt_attention_bf16(
         qkv.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(mask), keep_ptr,
         _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale), seed_ptr,
-        thresh, drop_scale, _stream(qkv))
+        thresh, drop_scale, int(tensor_cores), _stream(qkv))
     _raise_on(err, "lvt_attention_bf16")
     return out
 
@@ -830,11 +875,325 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     return dqkv, dbias
 
 
-# the K depth of ffn_post_ln.cu's 128 x 128 tiles (BK)
-FFN_TILE_K = 64
-# scratch of ffn_post_ln per (device, stream): one uint8 buffer, grown on
-# demand (the calls on one stream run in order, so they can share it)
-_ffn_scratch: dict = {}
+# the K depth of gemm_tc.cu's tiles (BK): K-slices are whole such steps
+TILE_K = 64
+# scratch of ffn_post_ln and gemm_tc_ln per (device, stream): one uint8
+# buffer, grown on demand (the calls on one stream run in order, so they
+# can share it)
+_scratch_bufs: dict = {}
+
+
+def _scratch(x: torch.Tensor, stream: int, nbytes: int) -> int:
+    """Address of at least ``nbytes`` of scratch on x's device for the
+    launches on ``stream``."""
+    key = (x.get_device(), stream)
+    buf = _scratch_bufs.get(key)
+    if buf is None or buf.numel() < nbytes:
+        with torch.inference_mode(False):
+            buf = _scratch_bufs[key] = torch.empty(nbytes, dtype=torch.uint8,
+                                                   device=x.device)
+    return buf.data_ptr()
+
+
+class GemmTcPlan(NamedTuple):
+    bm: int       # a tile's rows: 256, 128 or 64 (4, 2 or 1 warpgroups)
+    splits: int   # K-slices of the partial epilogue, whole TILE_K steps
+    blocks: int   # tiles (the persistent kernel runs min(tiles, the SMs'
+    #               blocks) blocks over them)
+
+
+# gemm_tc.cu's blocks an SM by tile height, and the relative rate of one
+# SM's tensor work at that height (85, 64 and 43 FLOP a byte staged; from
+# ``python -m lavender_tpu_torch.gemm_tc_sweep`` on an H100)
+_TC_BLOCKS = {256: 1, 128: 2, 64: 2}
+_TC_RATE = {256: 1.0, 128: 0.8, 64: 0.6}
+
+
+@functools.lru_cache(maxsize=512)
+def gemm_tc_plan(M: int, N: int, K: int, G: int = 1, split: bool = False,
+                 residual: bool = False,
+                 sms: int = H100_SMS) -> GemmTcPlan:
+    """The launch plan of ``gemm_tc`` (G weights) or, with ``split``,
+    ``gemm_tc_ln``, for a [M, K] x [N, K]^T product on the card; tiles
+    are bm x 128.  Without ``split``, the tile height with the least
+    waves x rows a wave / rate (``_TC_BLOCKS`` blocks an SM at ``_TC_RATE``,
+    the taller on a tie), at most 128 rows with the ``residual`` epilogue
+    (two blocks an SM hide its loads).  With ``split``, the fewest f32
+    K-slices (each costs 8 bytes an output, written and read) that keep
+    half the ``sms`` busy, 128-row tiles before 64-row ones; ``splits``
+    divides K's TILE_K steps.  Pure arithmetic."""
+    steps = -(-K // TILE_K)
+    cols = -(-N // 128) * G
+    if split:
+        fits = [s for s in range(1, 9) if steps % s == 0]
+        for s in fits:
+            for bm in (128, 64):
+                tiles = -(-M // bm) * cols * s
+                if 2 * tiles >= sms:
+                    return GemmTcPlan(bm, s, tiles)
+        return GemmTcPlan(64, fits[-1], -(-M // 64) * cols * fits[-1])
+
+    def cost(bm):
+        slots = sms * _TC_BLOCKS[bm]
+        waves = -(-(-(-M // bm) * cols) // slots)
+        return waves * bm * _TC_BLOCKS[bm] / _TC_RATE[bm]
+
+    bm = min((128, 64) if residual else (256, 128, 64), key=cost)
+    return GemmTcPlan(bm, 1, -(-M // bm) * cols)
+
+
+def _tc_operand(t: torch.Tensor, shape, dev, what: str):
+    """Check of a contiguous bf16 operand of the tile GEMM (one pass of
+    cheap attribute reads: it runs on every launch)."""
+    if not (t.dtype == torch.bfloat16 and t.device == dev
+            and t.shape == shape and t.is_contiguous()
+            and t.data_ptr() % 16 == 0):
+        raise ValueError(f"{what}: expected a contiguous, 16-byte aligned "
+                         f"bf16 {tuple(shape)} on {dev}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def tile_rows_ok(shape, strides, ptr: int, M: int, N: int) -> bool:
+    """Whether a bf16 tensor of this shape, element strides and address is
+    an [M, N] the tile GEMM reads or writes in place: its rows contiguous,
+    their pitch a multiple of 8 elements (a tensor map's row stride is
+    whole 16 bytes) and at least N, the first element 16-byte aligned; a
+    column slice of a wider slab passes (K4's q | k | v)."""
+    return (tuple(shape) == (M, N) and strides[1] == 1
+            and strides[0] % 8 == 0 and strides[0] >= N and ptr % 16 == 0)
+
+
+def _tc_rows(t: torch.Tensor, M: int, N: int, what: str):
+    """Check of a bf16 [M, N] on the card whose rows the tile GEMM takes
+    in place (``tile_rows_ok``)."""
+    if not (t.is_cuda and t.dtype == torch.bfloat16 and t.dim() == 2
+            and tile_rows_ok(t.shape, t.stride(), t.data_ptr(), M, N)):
+        raise ValueError(f"{what}: expected a bf16 CUDA [{M}, {N}], rows "
+                         f"contiguous, their pitch a multiple of 8 and >= "
+                         f"{N}, 16-byte aligned; got {t.dtype} "
+                         f"{tuple(t.shape)} strides {t.stride()} on "
+                         f"{t.device}")
+
+
+def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
+            residual: Optional[torch.Tensor] = None,
+            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out = epi(a @ w.T + bias)`` on the wgmma + TMA tiles
+    (``csrc/gemm_tc.cu``), epi the exact GELU or ``+ residual``, in ONE
+    launch: ``w`` one weight [N, K] (torch Linear layout) or a tuple of up
+    to 3, ``bias`` then one [N] (or None) or a tuple of as many (entries
+    may be None), weight g's product landing in columns g*N.. of ``out``
+    [M, G*N] (K4's q | k | v in one packed slab; ``out`` may be a column
+    slice of a wider tensor, its row stride passed through).  a [M, K] and
+    ``residual`` [M, N] with their rows contiguous and 16-byte aligned,
+    the weights contiguous; N and K multiples of 8.  ``gemm_tc_plan``
+    picks the tile's rows."""
+    ws = tuple(w) if isinstance(w, (tuple, list)) else (w,)
+    bs = tuple(bias) if isinstance(bias, (tuple, list)) else (bias,)
+    G = len(ws)
+    M, K = a.shape
+    N = ws[0].shape[0]
+    if not 1 <= G <= 3 or len(bs) != G or N % 8 or K % 8:
+        raise ValueError(f"gemm_tc: unsupported {G} weights / {len(bs)} "
+                         f"biases, N={N}, K={K} (1..3 weights, one bias "
+                         f"each, N and K multiples of 8)")
+    if gelu and residual is not None:
+        raise ValueError("gemm_tc: GELU and residual epilogues are exclusive")
+    _tc_rows(a, M, K, "gemm_tc a")
+    dev = a.device
+    for i, (wi, bi) in enumerate(zip(ws, bs)):
+        _tc_operand(wi, (N, K), dev, f"gemm_tc w[{i}]")
+        if bi is not None:
+            _tc_operand(bi, (N,), dev, f"gemm_tc bias[{i}]")
+    if out is None:
+        out = torch.empty(M, G * N, dtype=a.dtype, device=dev)
+    _tc_rows(out, M, G * N, "gemm_tc out")
+    epi, r_ptr, ldr = (_TC_GELU if gelu else _TC_BIAS), None, 0
+    if residual is not None:
+        _tc_rows(residual, M, N, "gemm_tc residual")
+        epi, r_ptr, ldr = _TC_RESIDUAL, residual.data_ptr(), residual.stride(0)
+    bm = gemm_tc_plan(M, N, K, G, False, residual is not None).bm
+    wp = [t.data_ptr() for t in ws] + [None] * (3 - G)
+    bp = [_ptr(t) for t in bs] + [None] * (3 - G)
+    err = library().lvt_gemm_tc_bf16(
+        a.data_ptr(), a.stride(0), *wp, *bp, G, r_ptr, ldr, out.data_ptr(),
+        out.stride(0), M, N, K, epi, bm, 1, _stream(a))
+    _raise_on(err, "lvt_gemm_tc_bf16")
+    return out
+
+
+def gemm_tc_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               residual: torch.Tensor, ln_w: torch.Tensor,
+               ln_b: torch.Tensor, eps: float) -> torch.Tensor:
+    """``LN(residual + a @ w.T + bias)`` (K4's proj + residual + LN): the
+    product as f32 K-slices (the tile GEMM's partial epilogue, the slices
+    of ``gemm_tc_plan(..., split=True)``) into scratch, then gemm_tc.cu's
+    row kernel sums them in slice order, adds bias and residual and applies
+    the LN in f32.  a [M, K] (rows contiguous), w [C, K], residual [M, C]
+    contiguous, bias, ln_w, ln_b [C]; C % 8 == 0, C <= 1024.  Two
+    launches, one C call."""
+    M, K = a.shape
+    C = w.shape[0]
+    if C % 8 or K % 8 or C > 1024:
+        raise ValueError(f"gemm_tc_ln: unsupported C={C}, K={K} (multiples "
+                         "of 8, C <= 1024)")
+    _tc_rows(a, M, K, "gemm_tc_ln a")
+    dev = a.device
+    _tc_operand(w, (C, K), dev, "gemm_tc_ln w")
+    _tc_operand(residual, (M, C), dev, "gemm_tc_ln residual")
+    for t, what in ((bias, "bias"), (ln_w, "ln_w"), (ln_b, "ln_b")):
+        _tc_operand(t, (C,), dev, f"gemm_tc_ln {what}")
+    plan = gemm_tc_plan(M, C, K, split=True)
+    stream = _stream(a)
+    part = _scratch(a, stream, plan.splits * M * C * 4)
+    out = torch.empty(M, C, dtype=a.dtype, device=dev)
+    err = library().lvt_gemm_tc_ln_bf16(
+        a.data_ptr(), a.stride(0), w.data_ptr(), bias.data_ptr(),
+        residual.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), part,
+        out.data_ptr(), M, C, K, plan.bm, plan.splits, float(eps), stream)
+    _raise_on(err, "lvt_gemm_tc_ln_bf16")
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _swin_block_plan(M: int, C: int, HD: int):
+    """K1's four tile heights (qkv, proj, fc1, fc2) as the C entry takes
+    them, and its scratch bytes."""
+    bm = (gemm_tc_plan(M, 3 * C, C).bm,
+          gemm_tc_plan(M, C, C, residual=True).bm,
+          gemm_tc_plan(M, HD, C).bm if HD else 0,
+          gemm_tc_plan(M, C, HD, residual=True).bm if HD else 0)
+    return (ctypes.c_int * 4)(*bm), library().lvt_swin_block_wm_scratch(
+        M, C, HD)
+
+
+def swin_block_wm(x: torch.Tensor, ln_w, ln_b, wqkv: torch.Tensor, bqkv,
+                  wproj: torch.Tensor, bproj, bias: torch.Tensor,
+                  mask: Optional[torch.Tensor], n_seq: int, n_tok: int,
+                  n_heads: int, scale: float, eps: float,
+                  mlp=None) -> torch.Tensor:
+    """K1's whole block in one call (``csrc/blocks.cu``): x [n_seq *
+    n_tok, C] window-major rows, out = x + proj(attn(LN1(x))) (then +
+    fc2(GELU(fc1(LN2(.))))) with ``mlp`` = (ln2_w, ln2_b, w1 [HD, C], b1,
+    w2 [C, HD], b2)): LN1, the qkv product, the window core on the tensor
+    cores (bias [nH, N, N], mask [nW, N, N] or None), proj + residual, and
+    the MLP, each the primitive ``layernorm`` / ``gemm_tc`` /
+    ``attention(tensor_cores=True)`` launches, from one C call.  LN
+    affines None: the pure normalize.  All bf16, contiguous, on one card;
+    C <= 1024 and a multiple of 8, head dim 16, 32 or 64."""
+    _check(x, "swin_block_wm x")
+    M, C = x.shape
+    hd = C // n_heads
+    dev = x.device
+    if (not x.is_contiguous() or M != n_seq * n_tok or C % 8 or C > 1024
+            or hd * n_heads != C or hd not in (16, 32, 64)):
+        raise ValueError(f"swin_block_wm: unsupported x {tuple(x.shape)} for "
+                         f"{n_seq} x {n_tok} rows, {n_heads} heads (C % 8 "
+                         f"== 0, C <= 1024, head dim 16/32/64)")
+    n2w = n2b = w1 = b1 = w2 = b2 = None
+    HD = 0
+    if mlp is not None:
+        n2w, n2b, w1, b1, w2, b2 = mlp
+        HD = w1.shape[0]
+        if HD % 8:
+            raise ValueError(f"swin_block_wm: MLP width {HD} not a multiple "
+                             "of 8")
+        _tc_operand(w1, (HD, C), dev, "swin_block_wm w1")
+        _tc_operand(w2, (C, HD), dev, "swin_block_wm w2")
+        for t, n, what in ((b1, HD, "b1"), (b2, C, "b2"), (n2w, C, "ln2_w"),
+                           (n2b, C, "ln2_b")):
+            if t is not None:
+                _tc_operand(t, (n,), dev, f"swin_block_wm {what}")
+        if (n2w is None) != (n2b is None):
+            raise ValueError("swin_block_wm: ln2 weight and bias are both "
+                             "given or both None")
+    if (ln_w is None) != (ln_b is None):
+        raise ValueError("swin_block_wm: ln1 weight and bias are both given "
+                         "or both None")
+    for t, shape, what in ((wqkv, (3 * C, C), "wqkv"), (wproj, (C, C), "wproj"),
+                           (bqkv, (3 * C,), "bqkv"), (bproj, (C,), "bproj"),
+                           (ln_w, (C,), "ln_w"), (ln_b, (C,), "ln_b"),
+                           (bias, (n_heads, n_tok, n_tok), "bias")):
+        if t is not None:
+            _tc_operand(t, shape, dev, f"swin_block_wm {what}")
+    n_win = 1
+    if mask is not None:
+        n_win = mask.shape[0]
+        _tc_operand(mask, (n_win, n_tok, n_tok), dev, "swin_block_wm mask")
+        if n_seq % n_win:
+            raise ValueError("swin_block_wm: n_seq must be a multiple of nW")
+    bm, nbytes = _swin_block_plan(M, C, HD)
+    stream = _stream(x)
+    ws = _scratch(x, stream, nbytes)
+    out = torch.empty_like(x)
+    err = library().lvt_swin_block_wm_bf16(
+        x.data_ptr(), _ptr(ln_w), _ptr(ln_b), wqkv.data_ptr(), _ptr(bqkv),
+        wproj.data_ptr(), _ptr(bproj), bias.data_ptr(), _ptr(mask),
+        _ptr(n2w), _ptr(n2b), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), ws,
+        out.data_ptr(), n_seq, n_tok, C, n_heads, HD, n_win, float(scale),
+        float(eps), bm, stream)
+    _raise_on(err, "lvt_swin_block_wm_bf16")
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def _bert_block_plan(M: int, C: int):
+    """K4's tile heights (q | k | v, proj), the proj's K-slices, and the
+    scratch bytes."""
+    proj = gemm_tc_plan(M, C, C, split=True)
+    return (gemm_tc_plan(M, C, C, 3).bm, proj.bm, proj.splits,
+            library().lvt_bert_attn_block_scratch(M, C, proj.splits))
+
+
+def bert_attn_block(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                    wv: torch.Tensor, bq, bk, bv, wproj: torch.Tensor,
+                    bproj: torch.Tensor, ln_w: torch.Tensor,
+                    ln_b: torch.Tensor, keep: torch.Tensor, B: int, L: int,
+                    n_heads: int, scale: float, eps: float) -> torch.Tensor:
+    """K4's whole sub-block in one call (``csrc/blocks.cu``): x [B * L, C]
+    -> LN(x + proj(attention(q, k, v))) under the key-keep vector keep
+    [B, L] (bool or uint8; 0 drops the key): q | k | v in one ``gemm_tc``
+    launch, the core on the tensor cores, proj + residual + LN as
+    ``gemm_tc_ln``, from one C call.  All bf16 but keep, contiguous, on one
+    card; C <= 1024 and a multiple of 8, head dim 16, 32 or 64."""
+    _check(x, "bert_attn_block x")
+    M, C = x.shape
+    hd = C // n_heads
+    dev = x.device
+    if (not x.is_contiguous() or M != B * L or C % 8 or C > 1024
+            or hd * n_heads != C or hd not in (16, 32, 64)):
+        raise ValueError(f"bert_attn_block: unsupported x {tuple(x.shape)} "
+                         f"for {B} x {L} rows, {n_heads} heads (C % 8 == 0, "
+                         f"C <= 1024, head dim 16/32/64)")
+    for t, shape, what in ((wq, (C, C), "wq"), (wk, (C, C), "wk"),
+                           (wv, (C, C), "wv"), (wproj, (C, C), "wproj"),
+                           (bproj, (C,), "bproj"), (ln_w, (C,), "ln_w"),
+                           (ln_b, (C,), "ln_b")):
+        _tc_operand(t, shape, dev, f"bert_attn_block {what}")
+    for t, what in ((bq, "bq"), (bk, "bk"), (bv, "bv")):
+        if t is not None:
+            _tc_operand(t, (C,), dev, f"bert_attn_block {what}")
+    if keep.device != dev or tuple(keep.shape) != (B, L):
+        raise ValueError(f"bert_attn_block keep: expected [{B}, {L}] on {dev}, "
+                         f"got {tuple(keep.shape)} on {keep.device}")
+    if keep.dtype == torch.bool and keep.is_contiguous():
+        keep = keep.view(torch.uint8)  # its bytes, read in place
+    else:
+        keep = keep.to(torch.uint8).contiguous()
+    if keep.data_ptr() % 4:
+        keep = keep.clone()
+    bm_qkv, bm_proj, splits, nbytes = _bert_block_plan(M, C)
+    stream = _stream(x)
+    ws = _scratch(x, stream, nbytes)
+    out = torch.empty_like(x)
+    err = library().lvt_bert_attn_block_bf16(
+        x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), _ptr(bq),
+        _ptr(bk), _ptr(bv), wproj.data_ptr(), bproj.data_ptr(),
+        ln_w.data_ptr(), ln_b.data_ptr(), keep.data_ptr(), ws, out.data_ptr(),
+        B, L, C, n_heads, float(scale), float(eps), bm_qkv, bm_proj, splits,
+        stream)
+    _raise_on(err, "lvt_bert_attn_block_bf16")
+    return out
 
 
 def ffn_post_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -864,22 +1223,15 @@ def ffn_post_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                 f"ffn_post_ln {what}: expected a contiguous, 16-byte aligned "
                 f"bf16 {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on "
                 f"{t.device}")
-    unit = 32 if short else FFN_TILE_K  # K-steps: a chunk, a tile's depth
+    unit = 32 if short else TILE_K  # K-steps: a chunk, a tile's depth
     if C % unit or C > 1024 or HD % (unit * splits) or (short and M > 64):
         raise ValueError(f"ffn_post_ln: unsupported M={M}, C={C}, HD={HD}, "
                          f"{splits} K-slices (C and HD / slices multiples "
                          f"of {unit}, C <= 1024, M <= 64 when short)")
     stream = _stream(x)
     h_bytes = -(-M * HD * 2 // 16) * 16
-    need = h_bytes + splits * M * C * 4
-    key = (x.get_device(), stream)
-    buf = _ffn_scratch.get(key)
-    if buf is None or buf.numel() < need:
-        with torch.inference_mode(False):
-            buf = _ffn_scratch[key] = torch.empty(need, dtype=torch.uint8,
-                                                  device=dev)
+    ws = _scratch(x, stream, h_bytes + splits * M * C * 4)
     out = torch.empty_like(x)
-    ws = buf.data_ptr()
     err = lib.lvt_ffn_post_ln_bf16(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         b2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), ws, ws + h_bytes,

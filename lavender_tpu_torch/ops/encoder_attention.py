@@ -6,20 +6,30 @@ attention in lanes layout K10a / K10b and in heads layout K13a / K13b.
 ``_attn_block_kernel_kmask`` (lavender_tpu/ops/encoder_attention.py:322,
 wrapper ``fused_bert_attn_block_kmask_forward`` :354): LN(x + proj(
 softmax(q k^T * scale, key-padding mask) v)) for the post-LN fusion
-encoder.  On the card: three GEMMs (+bias) write q, k and v straight into
-one packed [B*L, 3C] slab -> attention core with the key-keep vector ->
-proj GEMM (+bias, +residual) -> LN.  The TPU kernel deleted masked keys by
-zeroing their k/v rows and subtracting their exp2(0) = 1 count from the
-softmax denominator, which holds only without max-subtraction; the port's
-attention core runs a stable softmax and skips masked keys instead.  L is
-not padded (the TPU padded it to a multiple of 8 for its tiles).  Bound:
-the qkv/proj GEMMs at M = B*276 rows and the attention core's f32 FLOPs.
+encoder.  On the card, four launches from one C call
+(``_build.bert_attn_block``, ``csrc/blocks.cu``): ONE wgmma + TMA tile GEMM
+(``_build.gemm_tc``, ``csrc/gemm_tc.cu``) writes q, k and v (+bias)
+straight into one packed [B*L, 3C] slab, a grid dimension picking the
+weight (none concatenated) -> the tensor-core forward
+(``csrc/attention_fwd_tc.cu``, its KEEP variant: a key whose keep byte is
+0 gets p = 0 by predicate, a row with every key dropped is 0) -> proj as
+f32 K-slices (the 54 tiles of M = 1104, N = 768 would leave most of the
+card idle) -> a row kernel summing the slices in order, + bias +
+residual, LN (``_build.gemm_tc_ln``).  The TPU kernel deleted masked keys
+by zeroing their k/v rows and subtracting their exp2(0) = 1 count from
+the softmax denominator, which holds only without max-subtraction; the
+port's core runs an online softmax and masks keys by predicate instead.
+L is not padded (the TPU padded it to a multiple of 8 for its tiles).
+Bound: the products' tensor-core rate at M = B*276 rows.
 
 ``fused_bert_attn_block`` replaces ``_attn_block_kernel`` (K6, :242,
 wrapper ``fused_bert_attn_block_forward`` :261): the same sub-block under
 a full additive [B, L, L] mask (the seq2seq / captioning masks), which the
 wrapper clamps at -1e4 before its bf16 cast (``finfo(f32).min`` would
-become -inf there) and the core adds per sequence.  Masked keys are not
+become -inf there) and the core adds per sequence.  On the card still
+K4's earlier composition: three wmma GEMMs (``csrc/gemm.cu``) into the
+slab -> the f32-pipe core (``csrc/attention.cu``) -> proj GEMM (+bias,
++residual) -> LN.  Masked keys are not
 skipped: a row whose keys are all masked gets the softmax over its -1e4
 scores, as the JAX oracle ``bert_attn_block_reference`` computes (the TPU
 kernel, which pads L to a multiple of 8, lets its pad keys into such a
@@ -111,26 +121,16 @@ def _attn_block_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
     return layer_norm(x + F.linear(o, wproj, bproj), ln_w, ln_b, eps)
 
 
-def _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
-                    nH, scale, eps, **core):
-    """q/k/v GEMMs into one slab -> attention core (``core``: its keep
-    vector or mask) -> proj GEMM + residual -> LN."""
+def _attn_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
+                     keep, nH, scale, eps=1e-12):
+    """q/k/v in one tile-GEMM launch into one slab -> the tensor-core core
+    with the key-keep vector -> proj K-slices + residual + LN."""
     B, L, C = x.shape
     if not x.is_contiguous():
         raise ValueError("BERT attention sub-block: x must be contiguous")
-    x2 = x.view(B * L, C)
-    qkv = torch.empty(B * L, 3 * C, dtype=x.dtype, device=x.device)
-    for i, (w, b) in enumerate(((wq, bq), (wk, bk), (wv, bv))):
-        _build.gemm(x2, w, b, out=qkv[:, i * C:(i + 1) * C])
-    o = _build.attention(qkv, B, L, nH, scale, **core)
-    y = _build.gemm(o, wproj, bproj, residual=x2)
-    return _build.layernorm(y, ln_w, ln_b, eps).view(B, L, C)
-
-
-def _attn_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
-                     keep, nH, scale, eps=1e-12):
-    return _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
-                           ln_b, nH, scale, eps, keep=keep)
+    return _build.bert_attn_block(x.view(B * L, C), wq, wk, wv, bq, bk, bv,
+                                  wproj, bproj, ln_w, ln_b, keep, B, L, nH,
+                                  scale, eps).view(B, L, C)
 
 
 fused_bert_attn_block_kmask = _build.KernelOp(
@@ -192,15 +192,24 @@ def _attn_block_mask_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
 
 def _attn_block_mask_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
                           ln_b, mask, nH, scale, eps=1e-12):
-    B, L, _ = x.shape
+    """q/k/v GEMMs into one slab -> the f32-pipe core under the mask ->
+    proj GEMM + residual -> LN."""
+    B, L, C = x.shape
     if tuple(mask.shape) != (B, L, L):
         raise ValueError(f"fused_bert_attn_block: mask must be [{B}, {L}, "
                          f"{L}], got {tuple(mask.shape)}")
+    if not x.is_contiguous():
+        raise ValueError("BERT attention sub-block: x must be contiguous")
+    x2 = x.view(B * L, C)
+    qkv = torch.empty(B * L, 3 * C, dtype=x.dtype, device=x.device)
+    for i, (w, b) in enumerate(((wq, bq), (wk, bk), (wv, bv))):
+        _build.gemm(x2, w, b, out=qkv[:, i * C:(i + 1) * C])
     # clamped as the plain version does (an autocast cast may already have
     # taken finfo(f32).min to -inf in bf16)
-    return _sub_block_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
-                           ln_b, nH, scale, eps,
-                           mask=mask.clamp_min(-1e4).to(x.dtype).contiguous())
+    o = _build.attention(qkv, B, L, nH, scale,
+                         mask=mask.clamp_min(-1e4).to(x.dtype).contiguous())
+    y = _build.gemm(o, wproj, bproj, residual=x2)
+    return _build.layernorm(y, ln_w, ln_b, eps).view(B, L, C)
 
 
 fused_bert_attn_block = _build.KernelOp(

@@ -31,7 +31,8 @@ K-slices -> one row kernel summing the slices in order, + bias +
 residual, LN.  ``ffn_plan`` picks the regime by M: at most 64 rows (the
 KV decoder's step) the weights take mma.sync's 16-row side and the
 tokens the 8-wide one, else 128 x 128 wgmma tiles fed by the Tensor
-Memory Accelerator; fc2 is cut into the fewest K-slices that give the
+Memory Accelerator (``csrc/gemm_tc.cu``, shared with K1 and K4); fc2 is
+cut into the fewest K-slices that give the
 card's 132 SMs a block each.  Bound: the 9.4 MB of weights at M = 8, the
 two products at M = B*276.
 
@@ -50,8 +51,10 @@ written as one byte per element).  Their backward is, as in JAX
 version with the saved keep mask replayed.  Bound: K11 device memory (x,
 res, out, the mask), K12 the two GEMMs.
 
-GELU is the exact erf form (the TPU kernels used a clamped polynomial in
-bf16; the JAX oracles use erf).  K3 and K5 launch outside autograd, so
+GELU is the erf form (the TPU kernels used a clamped polynomial in bf16;
+the JAX oracles use erf): erff in ``gemm.cu`` and K5's short-M kernels,
+erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K5's
+long-M fc1).  K3 and K5 launch outside autograd, so
 they carry the JAX custom_vjps' backward: autograd of the plain version,
 recomputed from the saved inputs (``_build.RecomputeVjp``).
 """
@@ -65,7 +68,7 @@ import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, dropout, layer_norm
 
-H100_SMS = 132
+H100_SMS = _build.H100_SMS
 
 
 def weights_fit_vmem(C: int, HD: int, bytes_per: int = 2,
@@ -132,17 +135,17 @@ def ffn_plan(M: int, C: int, HD: int, sms: int = H100_SMS) -> FfnPlan:
     w1 [HD, C].  Short M: fc1 is HD / 16 blocks of 16 features, fc2 C / 16
     column blocks x ``splits``, a K-slice whole 32-wide chunks; long M:
     128 x 128 tiles, fc2's x ``splits``, a K-slice whole tile steps
-    (``_build.FFN_TILE_K``).  ``splits`` is the least of 1..8 that divides
-    HD into such slices and gives fc2 ``sms`` blocks, else the largest
-    such divisor.  Pure arithmetic: the kernel's wrapper checks the
-    shapes."""
+    (``_build.TILE_K``, the depth of ``csrc/gemm_tc.cu``'s tiles).
+    ``splits`` is the least of 1..8 that divides HD into such slices and
+    gives fc2 ``sms`` blocks, else the largest such divisor.  Pure
+    arithmetic: the kernel's wrapper checks the shapes."""
     short = M <= 64
     if short:
         fc1, tiles, unit = HD // 16, C // 16, 32
     else:
         bands = -(-M // 128)
         fc1, tiles = bands * -(-HD // 128), bands * -(-C // 128)
-        unit = _build.FFN_TILE_K
+        unit = _build.TILE_K
     fits = [s for s in range(1, 9) if (HD // unit) % s == 0]
     splits = next((s for s in fits if tiles * s >= sms), fits[-1])
     return FfnPlan(short, splits, fc1, tiles * splits)

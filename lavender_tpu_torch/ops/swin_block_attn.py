@@ -12,11 +12,16 @@ and the whole-block kernel ``fused_swin_block_wm``.
 port's own kernels (``_build.py``): LN1 -> qkv GEMM (+bias) -> attention
 core (rel-pos bias, shift mask) -> proj GEMM (+bias, +residual), and for
 stages 1-3 LN2 -> fc1 GEMM (+bias, exact GELU) -> fc2 GEMM (+bias,
-+residual).  The TPU kernel kept the slab in VMEM across those steps; here
-each step reads and writes device memory once, which bounds the LN and
-attention launches by bandwidth and the GEMMs by tensor-core rate.  The
-TPU-only tiling (128-lane head groups, G windows per grid step, exp2
-pre-scaling) has no counterpart.
++residual), all from one C call (``_build.swin_block_wm``,
+``csrc/blocks.cu``).  The GEMMs run on the wgmma + TMA tiles of
+``csrc/gemm_tc.cu``, the core on the tensor-core forward of
+``csrc/attention_fwd_tc.cu`` (K8a's bias variant without the lse store,
+which the call selects).  The TPU kernel kept the
+slab in VMEM across those steps; here each step reads and writes device
+memory once, which bounds the LN launches and the stage 1-2 products by
+bandwidth and the stage 3-4 products by tensor-core rate.  The TPU-only
+tiling (128-lane head groups, G windows per grid step, exp2 pre-scaling)
+has no counterpart.
 
 ``folded`` (serving only, never under autograd): the LN1 affine (and,
 with ``mlp``, the LN2 affine) already folded into the qkv (and fc1)
@@ -206,16 +211,9 @@ def _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
     B, nW, Npad, C = x.shape
     if not x.is_contiguous():
         raise ValueError("fused_swin_block_wm: x must be contiguous")
-    x2 = x.view(-1, C)
-    h = _build.layernorm(x2, ln_w, ln_b, eps)
-    qkv = _build.gemm(h, wqkv, bqkv)
-    o = _build.attention(qkv, B * nW, Npad, nH, scale, bias=bias, mask=mask)
-    y = _build.gemm(o, wproj, bproj, residual=x2)
-    if mlp is not None:
-        n2w, n2b, w1, b1, w2, b2 = mlp
-        h2 = _build.gemm(_build.layernorm(y, n2w, n2b, eps), w1, b1,
-                         gelu=True)
-        y = _build.gemm(h2, w2, b2, residual=y)
+    y = _build.swin_block_wm(x.view(-1, C), ln_w, ln_b, wqkv, bqkv, wproj,
+                             bproj, bias, mask, B * nW, Npad, nH, scale, eps,
+                             mlp)
     return y.view(B, nW, Npad, C)
 
 

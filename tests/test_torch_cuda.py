@@ -44,7 +44,17 @@ repeated and bitwise equal, its lse against an f64 logsumexp and dbias
 against an f64 sum over up to 512 windows; K2 at Swin-B's three shifted
 stages (bf16 and f32, both directions, with and without autograd, exact,
 pad rows 0); K5 at BERT-base's widths over 1 to 1104 rows (both regimes
-of its plan), a second call bitwise equal, and its gradients.
+of its plan), a second call bitwise equal, and its gradients; the wgmma +
+TMA tile GEMM at each tile height of its plan, M, N and K off the tile,
+each epilogue, three weights into a column slice of a wider slab, its
+K-slices + row LN, each a second call bitwise equal; the packed core on
+the tensor cores where the caller selects them (bias and mask, the
+key-keep vector with rows off 4-byte boundaries, a sequence with every
+key dropped); K1 at Swin-B's stages (B = 4 with the MLP, B = 8 the
+attention half) and K4 at L = 276 and 250 against their plain versions,
+a second call bitwise equal; and by kernel name that K1 and K4 run the
+tile GEMM and the tensor-core forward while K6, K14 and K16 stay on the
+wmma GEMM and the f32-pipe core.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -1248,3 +1258,221 @@ def test_train_attention_fwd_keep_masks_read_back(gen, rate):
     want = dropout.attention_keep(seed, B, nH, L, rate)
     for run in (heads, lanes):
         assert torch.equal(_probe_keep(run, B, nH, L, hd), want)
+
+
+# --------------------------------------------------------------------------
+# The wgmma + TMA tile GEMM (csrc/gemm_tc.cu) and the tensor-core core of
+# K1 and K4.
+# --------------------------------------------------------------------------
+
+
+def _linear_f32(a, w, b, epi, r=None):
+    want = F.linear(a.float(), w.float(), None if b is None else b.float())
+    if epi == "gelu":
+        want = F.gelu(want)
+    return want if r is None else want + r.float()
+
+
+@pytest.mark.parametrize("M,N,K", [
+    (1, 8, 8), (130, 136, 72), (257, 392, 96), (1104, 768, 768),
+    (4096, 1024, 128), (3968, 1536, 512)])
+@pytest.mark.parametrize("epi", ["bias", "gelu", "residual", "nobias"])
+def test_gemm_tc_matches_plain(gen, M, N, K, epi):
+    """The tile GEMM on both tiles of its plan (64 rows below 132 tiles,
+    128 above), M, N and K off the tile (zero-filled by the copies), each
+    epilogue; a second call bitwise equal."""
+    a, w = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5)
+    b = None if epi == "nobias" else _rnd(gen, N)
+    r = _rnd(gen, M, N) if epi == "residual" else None
+    got = _build.gemm_tc(a, w, b, gelu=epi == "gelu", residual=r)
+    _close(got, _linear_f32(a, w, b, epi, r), rel_l2=1e-2)
+    assert torch.equal(got, _build.gemm_tc(a, w, b, gelu=epi == "gelu",
+                                           residual=r))
+
+
+@pytest.mark.parametrize("M,C", [(45, 64), (1104, 768)])
+def test_gemm_tc_three_weights_into_a_slab(gen, M, C):
+    """K4's q | k | v: three weights in one launch into column blocks of a
+    slice of a wider slab (its row pitch passed through), a bias missing
+    on one; the columns around the slice untouched."""
+    a = _rnd(gen, M, C)
+    ws = [_rnd(gen, C, C, std=C ** -0.5) for _ in range(3)]
+    bs = [_rnd(gen, C), None, _rnd(gen, C)]
+    slab = torch.zeros(M, 3 * C + 16, dtype=torch.bfloat16, device="cuda")
+    out = slab[:, 8:8 + 3 * C]
+    _build.gemm_tc(a, ws, bs, out=out)
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        _close(out[:, i * C:(i + 1) * C], _linear_f32(a, w, b, "bias"),
+               rel_l2=1e-2)
+    assert not slab[:, :8].any() and not slab[:, 8 + 3 * C:].any()
+
+
+@pytest.mark.parametrize("M,C,K", [(37, 64, 192), (1000, 768, 768),
+                                   (1104, 768, 768), (300, 1024, 4096)])
+def test_gemm_tc_ln_matches_plain(gen, M, C, K):
+    """K4's proj: the product as f32 K-slices of the plan, summed in order
+    by the row kernel with bias and residual, then the LN; a second call
+    bitwise equal."""
+    a, w, b = _rnd(gen, M, K), _rnd(gen, C, K, std=K ** -0.5), _rnd(gen, C)
+    x = _rnd(gen, M, C)
+    lw, lb = 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)
+    got = _build.gemm_tc_ln(a, w, b, x, lw, lb, 1e-12)
+    want = layer_norm(x.float() + _linear_f32(a, w, b, "bias"), lw.float(),
+                      lb.float(), 1e-12)
+    _close(got, want, rel_l2=1e-2)
+    assert torch.equal(got, _build.gemm_tc_ln(a, w, b, x, lw, lb, 1e-12))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("n_seq,N,nH,extras", [
+    (1, 5, 1, ()), (2, 49, 2, ("bias",)), (4, 248, 2, ("bias", "mask")),
+    (3, 276, 4, ("keep",)), (5, 250, 3, ("keep",)),
+    (8, 33, 3, ("keep", "mask")), (2, 130, 2, ("keep",))])
+def test_attention_tensor_cores_match_plain(gen, hd, n_seq, N, nH, extras):
+    """The packed-slab core on the tensor cores where the caller selects
+    them (K1: bias and shift mask; K4: the key-keep vector, whose rows at
+    N = 250 and 33 start off 4-byte boundaries), a sequence with every key
+    dropped giving 0, a key tile with no key kept; a second call bitwise
+    equal."""
+    qkv = _rnd(gen, n_seq * N, 3 * nH * hd)
+    bias = _rnd(gen, nH, N, N) if "bias" in extras else None
+    mask = None
+    if "mask" in extras:
+        mask = (torch.rand(2, N, N, generator=gen, device="cuda") < 0.3)
+        mask = (mask.float() * -100.0).to(torch.bfloat16)
+    keep = None
+    if "keep" in extras:
+        keep = torch.rand(n_seq, N, generator=gen, device="cuda") < 0.7
+        keep[0] = False
+        if N > 128:
+            keep[-1, 64:128] = False  # the second key tile: nothing kept
+    scale = hd ** -0.5
+    got = _build.attention(qkv, n_seq, N, nH, scale, bias, mask, keep,
+                           tensor_cores=True)
+    _close(got, _attention_plain(qkv, n_seq, N, nH, scale, bias, mask, keep))
+    if keep is not None:
+        assert not got[:N].any()  # every key of sequence 0 dropped
+    assert torch.equal(got, _build.attention(qkv, n_seq, N, nH, scale, bias,
+                                             mask, keep, tensor_cores=True))
+
+
+def _k1_case(gen, B, stage, shifted, mlp):
+    """K1's inputs at a Swin-B stage (window 5 x 7 x 7, Npad 248)."""
+    from lavender_tpu_torch.models.swin3d import relative_position_index
+    from lavender_tpu_torch.ops.swin_block_attn import rel_pos_bias_wm
+
+    nW, C, nH, side = {1: (64, 128, 4, 56), 2: (16, 256, 8, 28),
+                       3: (4, 512, 16, 14), 4: (1, 1024, 32, 7)}[stage]
+    N, Npad = 245, 248
+    lin = lambda o, i: (_rnd(gen, o, i, std=i ** -0.5), _rnd(gen, o, std=0.02))
+    ln = lambda c: (1 + _rnd(gen, c, std=0.1), _rnd(gen, c, std=0.1))
+    bias = rel_pos_bias_wm(_rnd(gen, 15 * 13 * 13, nH),
+                           relative_position_index((8, 7, 7)), N, Npad,
+                           torch.bfloat16)
+    mask = None
+    if shifted:
+        m = compute_shift_mask(5, side, side, (5, 7, 7), (0, 3, 3))
+        mask = pad_window_mask(torch.as_tensor(m, device="cuda"),
+                               Npad).to(torch.bfloat16)
+    args = (_rnd(gen, B, nW, Npad, C), *ln(C), *lin(3 * C, C), *lin(C, C),
+            bias, mask, nH, (C // nH) ** -0.5, 1e-5)
+    kw = {"mlp": (*ln(C), *lin(4 * C, C), *lin(C, 4 * C))} if mlp else {}
+    return args, kw
+
+
+@pytest.mark.parametrize("B,stage,shifted,mlp", [
+    (4, 1, True, True), (4, 1, False, True), (4, 2, True, True),
+    (4, 3, True, True), (4, 3, False, True), (4, 4, False, False),
+    (8, 1, True, False), (8, 3, False, False)])
+def test_k1_at_swin_b_shapes_matches_plain_bitwise(gen, B, stage, shifted,
+                                                   mlp):
+    """K1 at the serving (B = 4, + MLP at stages 1-3) and train (B = 8,
+    attention half) shapes: the valid rows within the gate, their
+    residual-free part within 5e-2, a second call bitwise equal."""
+    args, kw = _k1_case(gen, B, stage, shifted, mlp)
+    got = fused_swin_block_wm(*args, **kw)
+    want = fused_swin_block_wm.plain(*args, **kw)
+    v = (slice(None), slice(None), slice(0, 245))
+    _close(got[v], want[v], rel_l2=1e-2)
+    x = args[0][v].float()
+    d = (got[v].float() - x) - (want[v].float() - x)
+    assert float(d.norm() / (want[v].float() - x).norm()) <= 5e-2
+    assert torch.equal(got, fused_swin_block_wm(*args, **kw))
+
+
+@pytest.mark.parametrize("L,padded", [(276, True), (250, True),
+                                      (250, False)])
+def test_k4_at_serving_and_prefill_shapes_matches_plain_bitwise(gen, L,
+                                                                padded):
+    """K4 at B = 4, L = 276 (serving) and the KV prefill's 250, keys
+    padded at the captions' tails (a sequence with one key left) or all
+    open; a second call bitwise equal."""
+    B, C, nH = 4, 768, 12
+    lin = lambda: (_rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.02))
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin() for _ in range(4))
+    keep = torch.ones(B, L, dtype=torch.bool, device="cuda")
+    if padded:
+        for i, n in enumerate((0, 6, 14, L - 1)):
+            keep[i, L - n:] = False
+    args = (_rnd(gen, B, L, C), wq, wk, wv, bq, bk, bv, wo, bo,
+            1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1), keep, nH,
+            (C // nH) ** -0.5, 1e-12)
+    got = fused_bert_attn_block_kmask(*args)
+    _close(got, fused_bert_attn_block_kmask.plain(*args), rel_l2=1e-2)
+    assert torch.equal(got, fused_bert_attn_block_kmask(*args))
+
+
+def _device_kernels(fn):
+    """Names of the device kernels one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def test_cores_and_gemms_each_kernel_runs(gen):
+    """K1 and K4 launch the tile GEMM and the tensor-core forward and
+    neither the wmma GEMM nor the f32-pipe core; K6, K14 and K16 stay on
+    those two."""
+    def has(names, part):
+        return any(part in n for n in names)
+
+    args, kw = _k1_case(gen, 1, 2, True, True)
+    k1 = _device_kernels(lambda: fused_swin_block_wm(*args, **kw))
+    C, L, nH = 64, 45, 4
+    lin = lambda: (_rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C))
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin() for _ in range(4))
+    x = _rnd(gen, 2, L, C)
+    lw, lb = 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)
+    keep = torch.ones(2, L, dtype=torch.bool, device="cuda")
+    keep[1, 30:] = False
+    k4 = _device_kernels(lambda: fused_bert_attn_block_kmask(
+        x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, keep, nH, 0.25, 1e-12))
+    for names in (k1, k4):
+        assert has(names, "tile_kernel") and has(names, "fwd_kernel"), names
+        assert not has(names, "gemm_bf16_kernel"), names
+        assert not has(names, "attention_kernel"), names
+    mask = torch.zeros(2, L, L, device="cuda")
+    mask[1, :, 30:] = torch.finfo(torch.float32).min
+    k6 = _device_kernels(lambda: fused_bert_attn_block(
+        x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, mask, nH, 0.25, 1e-12))
+    (xs, n1w, n1b, wqkv, bqkv, wp, bp, bias, m, nHs, scale, eps) = args
+    xs = xs[:, :4, :245].reshape(1, 5, 14, 14, 256)  # one shifted clip
+    k14 = _device_kernels(lambda: fused_swin_block_attn(
+        xs, n1w, n1b, wqkv, bqkv, wp, bp, bias[:, :245, :245].contiguous(),
+        m[:4, :245, :245].contiguous(), (5, 7, 7), (0, 3, 3), nHs, scale,
+        eps))
+    k16 = _device_kernels(lambda: fused_swin_block_wm_shifted(
+        args[0][:, :4].contiguous(), n1w, n1b, wqkv, bqkv, wp, bp, bias,
+        m[:4].contiguous(), (5, 14, 14), (5, 7, 7), (0, 3, 3), nHs, scale,
+        eps))
+    for names in (k6, k14, k16):
+        assert has(names, "gemm_bf16_kernel"), names
+        assert has(names, "attention_kernel"), names
+        assert not has(names, "tile_kernel") and not has(names,
+                                                         "fwd_kernel"), names

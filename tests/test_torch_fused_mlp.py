@@ -100,7 +100,7 @@ def test_ffn_plan_covers_k_and_fills_the_card(M):
     C, HD = 768, 3072
     plan = tmlp.ffn_plan(M, C, HD)
     assert plan.short == (M <= 64)
-    unit = 32 if plan.short else _build.FFN_TILE_K
+    unit = 32 if plan.short else _build.TILE_K
     per = HD // plan.splits // unit  # whole K-steps a slice
     assert per * plan.splits * unit == HD
     warps = range(4) if plan.short else range(1)

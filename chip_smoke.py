@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only K2 K5   # phases 1-3 for these kernels
     python3 chip_smoke.py --only K1 K4   # and K1's and K4's parts
+    python3 chip_smoke.py --only K3 K9   # and K3's and K9's parts
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -68,14 +69,18 @@ nothing is ever run on the CPU instead:
    route's unpadded N=245, and K8b's dbias at B=8, stage 1, shifted (512
    windows) against an f64 sum of the plain per-clip dbias (within 1e-2 x
    max(1, max|dbias|)); K1 (every stage, shifted and unshifted, B=4 and
-   B=8) and K4 (L=276 with padded captions, the prefill's L=250 with every
-   key open and with padded keys) each call repeated and required bitwise
-   equal, with their device time a call in a CUDA graph beside the event
-   time; and their parts against one PyTorch call each (``_k1_k4_parts``,
-   also under ``--only K1`` / ``K4``): every product of the tile GEMM
-   against F.linear at its shape, K1's core against
-   scaled_dot_product_attention with bias + shift mask as one additive
-   mask, K4's against it with the key-padding mask;
+   B=8), K4 (L=276 with padded captions, the prefill's L=250 with every
+   key open and with padded keys), K9 (the B=8 stages 1-4) and K3 (B=4
+   stage 4) each call repeated and required bitwise equal, with their
+   device time a call in a CUDA graph beside the event time; and their
+   parts against one PyTorch call each (``_k1_k4_parts``, also under
+   ``--only K1`` / ``K4``; ``_k3_k9_parts``, also under ``--only K3`` /
+   ``K9``): every product of the tile GEMM against F.linear at its shape
+   (K3's and K9's fc1 + GELU against F.gelu(F.linear), fc1 alone, fc2 as
+   their plan runs it, and their whole C call against the plain
+   version), K1's core against scaled_dot_product_attention with bias +
+   shift mask as one additive mask, K4's against it with the key-padding
+   mask;
 4. serving slice: Swin-B + BERT-base with seeded random weights answers 3
    requests of 4 uint8 clips; checks the logits' shape and finiteness,
    that each kernel was launched the expected number of times, and the
@@ -501,12 +506,14 @@ def _kernel_cases(g):
                 cases.append(Case(
                     fused_ln_mlp, f"B={B} stage {stage} M={M} C={C} "
                     f"HD={4 * C}", 2 * n_blocks, (rows, *mlp, 1e-5),
-                    16.0 * M * C * C, 2 * M * C * 2 + mlp_bytes))
+                    16.0 * M * C * C, 2 * M * C * 2 + mlp_bytes,
+                    bitwise_repeat=True, graph_ms=True))
             elif stage == 4:  # K3: the stage-4 serving MLP + residual
                 cases.append(Case(
                     fused_ln_mlp_chunked, f"B={B} stage 4 M={M} C={C} "
                     f"HD={4 * C}", 2, (rows, *mlp, 1e-5), 16.0 * M * C * C,
-                    2 * M * C * 2 + mlp_bytes, residual=rows))
+                    2 * M * C * 2 + mlp_bytes, residual=rows,
+                    bitwise_repeat=True, graph_ms=True))
             if not shifted:
                 continue
             # K2: serving shifts a bf16 stream; training an f32 one (the
@@ -1235,6 +1242,36 @@ def _bert_core_vs_sdpa(g, L=FRAMES * 50 + TXT_LEN, padded=True):
             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=m))
 
 
+class _Parts:
+    """Parts of a kernel, each against one PyTorch call: ``add`` times
+    both in turns (event and device ms a call, ``_graph_ms``) and prints
+    them; ``summary`` prints per group the worst device ratio and the
+    ratio of the device times summed over the shapes' calls in the
+    counted runs."""
+
+    def __init__(self):
+        self.worst, self.sums = {}, {}
+
+    def add(self, group, name, kernel, library, count):
+        t = [_time_ms(f) for f in (library, kernel, kernel, library)]
+        ev_k, ev_l = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        g = [_graph_ms(f) for f in (library, kernel, kernel, library)]
+        dev_k, dev_l = (g[1] + g[2]) / 2, (g[0] + g[3]) / 2
+        self.worst[group] = max(self.worst.get(group, 0.0), dev_k / dev_l)
+        k, l = self.sums.get(group, (0.0, 0.0))
+        self.sums[group] = (k + count * dev_k, l + count * dev_l)
+        print(f"[part] {name}: {ev_k:.4f} ms ({dev_k:.4f} device) vs "
+              f"{ev_l:.4f} ms ({dev_l:.4f} device): {ev_k / ev_l:.2f}x "
+              f"event, {dev_k / dev_l:.2f}x device, x{count}", flush=True)
+
+    def summary(self, gate: str):
+        print("[part] device ratio, worst shape / summed over the counted "
+              "runs' calls of these shapes: " + ", ".join(
+                  f"{k} {v:.2f}x / {self.sums[k][0] / self.sums[k][1]:.2f}x"
+                  for k, v in self.worst.items())
+              + f" ({gate}; {_nvidia_smi()})", flush=True)
+
+
 def _k1_k4_parts(g):
     """K1's and K4's parts, each against one PyTorch call, at the shapes
     of the B=4 serving forward and the B=8 train step (K1) and of serving
@@ -1258,20 +1295,8 @@ def _k1_k4_parts(g):
     from lavender_tpu_torch.ops.swin_block_attn import (
         pad_window_mask, rel_pos_bias_wm)
 
-    worst, sums = {}, {}
-
-    def part(group, name, kernel, library, count):
-        t = [_time_ms(f) for f in (library, kernel, kernel, library)]
-        ev_k, ev_l = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        g = [_graph_ms(f) for f in (library, kernel, kernel, library)]
-        dev_k, dev_l = (g[1] + g[2]) / 2, (g[0] + g[3]) / 2
-        worst[group] = max(worst.get(group, 0.0), dev_k / dev_l)
-        k, l = sums.get(group, (0.0, 0.0))
-        sums[group] = (k + count * dev_k, l + count * dev_l)
-        print(f"[part] {name}: {ev_k:.4f} ms ({dev_k:.4f} device) vs "
-              f"{ev_l:.4f} ms ({dev_l:.4f} device): {ev_k / ev_l:.2f}x "
-              f"event, {dev_k / dev_l:.2f}x device, x{count}", flush=True)
-
+    parts = _Parts()
+    part = parts.add
     window, shift, N, Npad = (5, 7, 7), (0, 3, 3), 245, 248
     for stage, nW, C, nH, side, pairs in SWIN_STAGES:
         hd = C // nH
@@ -1342,11 +1367,69 @@ def _k1_k4_parts(g):
              lambda o=o: F.linear(o, wo, bo), 12)
         part("K4 cores", f"K4 {what} core B={BATCH} L={L} nH=12 vs SDPA "
              "(key-padding mask)", *_bert_core_vs_sdpa(g, L, padded), 12)
-    print("[part] device ratio, worst shape / summed over the counted "
-          "runs' calls of these shapes: " + ", ".join(
-              f"{k} {v:.2f}x / {sums[k][0] / sums[k][1]:.2f}x"
-              for k, v in worst.items())
-          + f" (gate 1.25x; {_nvidia_smi()})", flush=True)
+    parts.summary("gate 1.25x")
+
+
+def _k3_k9_parts(g):
+    """K3's and K9's parts, each against one PyTorch call, at the shapes
+    of the B=8 train step (K9, no residual, stages 1-4) and of B=4
+    serving's stage 4 (K3, + residual): fc1 + GELU on the tile GEMM
+    (``_build.gemm_tc``) against F.gelu(F.linear(...)), fc1 with the bias
+    epilogue alone against F.linear, fc2 (+ residual) as ``ln_mlp_plan``
+    runs it against F.linear (K-slices: the tile GEMM's partial
+    epilogue alone, without the row kernel that sums them), and the whole
+    C call (``_build.ln_mlp``) against its plain version, which is LN,
+    F.linear, F.gelu, F.linear (+ x).  Prints as ``_k1_k4_parts``
+    does."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.fused_mlp import fused_ln_mlp
+
+    parts = _Parts()
+    lib = _build.library()
+    shapes = [("K9", TRAIN_BATCH, stage, nW, C, 2 * pairs, False)
+              for stage, nW, C, _, _, pairs in SWIN_STAGES]
+    shapes.append(("K3", BATCH, 4, 1, 1024, 2, True))
+    for kid, B, stage, nW, C, count, residual in shapes:
+        M, HD = B * nW * 248, 4 * C
+        x, h = _rnd(g, M, C), _rnd(g, M, HD)
+        mlp = (1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1),
+               _rnd(g, HD, C, std=C ** -0.5), _rnd(g, HD, std=0.02),
+               _rnd(g, C, HD, std=HD ** -0.5), _rnd(g, C, std=0.02))
+        w1, b1, w2, b2 = mlp[2:]
+        plan = _build.ln_mlp_plan(M, C, HD, residual)
+        at = f"{kid} B={B} stage {stage} M={M} C={C}"
+        parts.add(f"{kid} fc1", f"{at} fc1 + GELU vs F.gelu(F.linear)",
+                  lambda: _build.gemm_tc(x, w1, b1, gelu=True),
+                  lambda: F.gelu(F.linear(x, w1, b1)), count)
+        parts.add(f"{kid} fc1", f"{at} fc1 (bias alone) vs F.linear",
+                  lambda: _build.gemm_tc(x, w1, b1),
+                  lambda: F.linear(x, w1, b1), count)
+        r = x if residual else None
+        if plan.splits == 1:
+            fc2 = lambda: _build.gemm_tc(h, w2, b2, residual=r)
+            how = f"bm {plan.fc2_bm}"
+        else:
+            part = torch.empty(plan.splits * M * C, device="cuda")
+
+            def fc2(part=part):  # the partial epilogue, as ln_mlp runs it
+                _build._raise_on(lib.lvt_gemm_tc_bf16(
+                    h.data_ptr(), HD, w2.data_ptr(), None, None, None, None,
+                    None, 1, None, 0, part.data_ptr(), C, M, C, HD, 3,
+                    plan.fc2_bm, plan.splits,
+                    torch.cuda.current_stream().cuda_stream),
+                    "lvt_gemm_tc_bf16")
+            how = (f"{plan.splits} f32 K-slices at bm {plan.fc2_bm}, "
+                   "without their row sum")
+        parts.add(f"{kid} fc2", f"{at} fc2{' + residual' if residual else ''}"
+                  f" ({how}) vs F.linear", fc2,
+                  lambda: F.linear(h, w2, b2), count)
+        parts.add(f"{kid} whole", f"{at} the one C call vs the plain version",
+                  lambda: _build.ln_mlp(x, *mlp, 1e-5, residual),
+                  lambda: fused_ln_mlp.plain(x, *mlp, 1e-5, residual), count)
+        del x, h
+    parts.summary("no gate")
 
 
 def _heads_tc_pitch(g):
@@ -1518,6 +1601,8 @@ def check_kernels(only=None):
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
     if not only or only & {"K1", "K4"}:
         _k1_k4_parts(g)
+    if not only or only & {"K3", "K9"}:
+        _k3_k9_parts(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
@@ -2962,7 +3047,7 @@ def main() -> int:
                "lavender_tpu/ops/swin_block_attn.py:954"),
         "K2": ("lavender_tpu_torch/csrc/permute.cu",
                "lavender_tpu/ops/wm_permute.py:127"),
-        "K3": ("lavender_tpu_torch/csrc/gemm.cu",
+        "K3": ("lavender_tpu_torch/csrc/blocks.cu",
                "lavender_tpu/ops/fused_mlp.py:183"),
         "K4": ("lavender_tpu_torch/csrc/gemm_tc.cu",
                "lavender_tpu/ops/encoder_attention.py:322"),
@@ -2976,7 +3061,7 @@ def main() -> int:
                 "lavender_tpu/ops/swin_core_attn.py:112"),
         "K8b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
                 "lavender_tpu/ops/swin_core_attn.py:147"),
-        "K9": ("lavender_tpu_torch/csrc/gemm.cu",
+        "K9": ("lavender_tpu_torch/csrc/blocks.cu",
                "lavender_tpu/ops/fused_mlp.py:91"),
         "K10a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:750"),

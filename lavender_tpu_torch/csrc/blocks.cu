@@ -1,9 +1,10 @@
-// The two whole-block kernels K1 and K4 as one C entry each: their
-// primitives launched back to back on one stream from one call, so that
-// the host pays one crossing into the library a block instead of one a
-// launch (at B = 4 serving, K1's stage-3 block and K4 were bound by those
-// crossings: 0.23-0.28 ms of host time against 0.14 and 0.04 ms of device
-// time).  The kernels are the primitives' own; nothing is fused here.
+// The two whole-block kernels K1 and K4, and the LN + MLP of K3 and K9,
+// as one C entry each: their primitives launched back to back on one
+// stream from one call, so that the host pays one crossing into the
+// library a block instead of one a launch (at B = 4 serving, K1's stage-3
+// block and K4 were bound by those crossings: 0.23-0.28 ms of host time
+// against 0.14 and 0.04 ms of device time).  The kernels are the
+// primitives' own; nothing is fused here.
 //
 // K1, lavender_tpu/ops/swin_block_attn.py _block_kernel_wm (:954): LN1
 // (layernorm.cu) -> qkv + bias (gemm_tc.cu) -> the window core on the
@@ -13,14 +14,27 @@
 // residual.  K4, lavender_tpu/ops/encoder_attention.py
 // _attn_block_kernel_kmask (:322): q | k | v in one tile-GEMM launch ->
 // the core on the tensor cores with the key-keep vector -> proj as f32
-// K-slices -> the row kernel (+ bias + residual, LN).  The intermediates
-// live in one scratch buffer that the caller passes; the tile heights and
-// K-slices are the caller's plan (lavender_tpu_torch/ops/_build.py
-// gemm_tc_plan).
+// K-slices -> the row kernel (+ bias + residual, LN).  K9,
+// lavender_tpu/ops/fused_mlp.py _kernel (:91), and K3, _chunked_kernel
+// (:183): the MLP half of K1 on its own, LN -> fc1 + bias + GELU -> fc2 +
+// bias (+ residual), the hidden layer [M, 4C] in device memory (the TPU
+// kernels kept it in VMEM; K3 streamed the weights in HD chunks, which
+// the card's L2 does for it); where the caller's plan cuts fc2 into f32
+// K-slices, the row kernel sums them in order with bias and residual.
+// Bound: the products' 16 M C^2 FLOPs at the tensor cores' rate; at
+// Swin-B's stages 1-2 the LN output and the hidden layer, written and
+// read again, hold it to the memory rate instead.  Its LN is layernorm.cu's 16-byte-chunk kernel (lvt_layernorm_rows_bf16):
+// K1's LN2 is the scalar one, which K1 keeps, and the products after it
+// are the one composition both share (run_mlp below).
+// The intermediates live in one scratch buffer that the caller passes;
+// the tile heights and K-slices are the caller's plan
+// (lavender_tpu_torch/ops/_build.py gemm_tc_plan, ln_mlp_plan).
 #include "gemm_tc.cuh"
 
 LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
                                   int C, float eps, const void* rows, void* stream);
+LVT_EXPORT int lvt_layernorm_rows_bf16(const void* x, const void* g, const void* b, void* y,
+                                       int M, int C, float eps, void* stream);
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
@@ -33,6 +47,32 @@ char* take(char*& at, size_t bytes) {
   char* p = at;
   at += (bytes + 255) / 256 * 256;
   return p;
+}
+
+long long round256(long long bytes) { return (bytes + 255) / 256 * 256; }
+
+// The MLP after the LN that K1's MLP half, K3 and K9 run: out = fc2(GELU(
+// fc1(h))) + b2 (+ R where R is not null), h [M, C] the LN's output; hid
+// [M, HD] bf16 scratch, part [S, M, C] f32 scratch when fc2 runs as S > 1
+// K-slices; bm1 and bm2 the tile heights of fc1 and fc2.
+int run_mlp(const bf16* h, const void* w1, const void* b1, const void* w2, const void* b2,
+            const bf16* R, bf16* hid, float* part, bf16* out, int M, int C, int HD, int bm1,
+            int bm2, int S, cudaStream_t st) {
+  lvt::GemmTc g{h, C, {static_cast<const bf16*>(w1)}, {static_cast<const bf16*>(b1)}, 1, hid, HD,
+                nullptr, 0, M, HD, C, lvt::kEpiGelu, bm1, 1};
+  int err = lvt::gemm_tc(g, st);
+  if (err) return err;
+  const auto B2 = static_cast<const bf16*>(b2);
+  const bool residual = R != nullptr;
+  if (S == 1) {
+    g = {hid, HD, {static_cast<const bf16*>(w2)}, {B2}, 1, out, C, R, C, M, C, HD,
+         residual ? lvt::kEpiResidual : lvt::kEpiBias, bm2, 1};
+    return lvt::gemm_tc(g, st);
+  }
+  g = {hid, HD, {static_cast<const bf16*>(w2)}, {nullptr}, 1, part, C, nullptr, 0, M, C, HD,
+       lvt::kEpiPartial, bm2, S};
+  if ((err = lvt::gemm_tc(g, st))) return err;
+  return lvt::rows_sum(part, S, R, B2, out, M, C, st);
 }
 
 }  // namespace
@@ -80,12 +120,37 @@ LVT_EXPORT int lvt_swin_block_wm_bf16(const void* x, const void* ln_w, const voi
   if ((err = lvt::gemm_tc(g, st)) || !mlp) return err;
   bf16* hid = reinterpret_cast<bf16*>(take(at, (size_t)M * HD * 2));
   if ((err = lvt_layernorm_bf16(y, n2w, n2b, h, M, C, eps, nullptr, stream))) return err;
-  g = {h, C, {static_cast<const bf16*>(w1)}, {static_cast<const bf16*>(b1)}, 1, hid, HD, nullptr,
-       0, M, HD, C, lvt::kEpiGelu, bm[2], 1};
-  if ((err = lvt::gemm_tc(g, st))) return err;
-  g = {hid, HD, {static_cast<const bf16*>(w2)}, {static_cast<const bf16*>(b2)}, 1, out, C, y, C,
-       M, C, HD, lvt::kEpiResidual, bm[3], 1};
-  return lvt::gemm_tc(g, st);
+  return run_mlp(h, w1, b1, w2, b2, y, hid, nullptr, static_cast<bf16*>(out), M, C, HD, bm[2],
+                 bm[3], 1, st);
+}
+
+// K3 and K9: out [M, C] = fc2(GELU(fc1(LN(x)))) + b2 (+ x with residual)
+// for x [M, C] contiguous: ln_w, ln_b (both null: the pure normalize), w1
+// [HD, C], b1, w2 [C, HD], b2, all bf16, contiguous and 16-byte aligned,
+// C a multiple of 8 and <= 1024; bm1 and bm2 the
+// tile heights of fc1 and fc2, S fc2's K-slices (whole 64-deep steps
+// each).  scratch: at least lvt_ln_mlp_scratch(M, C, HD, S) bytes, given
+// as scratch_bytes.
+LVT_EXPORT long long lvt_ln_mlp_scratch(int M, int C, int HD, int S) {
+  return round256((long long)M * C * 2) + round256((long long)M * HD * 2) +
+         (S > 1 ? round256((long long)S * M * C * 4) : 0);  // h, hid, part
+}
+
+LVT_EXPORT int lvt_ln_mlp_bf16(const void* x, const void* ln_w, const void* ln_b, const void* w1,
+                               const void* b1, const void* w2, const void* b2, void* scratch,
+                               long long scratch_bytes, void* out, int M, int C, int HD, float eps,
+                               int residual, int bm1, int bm2, int S, void* stream) {
+  if (M <= 0 || C <= 0 || HD <= 0 || S < 1 || scratch_bytes < lvt_ln_mlp_scratch(M, C, HD, S))
+    return (int)cudaErrorInvalidValue;
+  char* at = static_cast<char*>(scratch);
+  bf16* h = reinterpret_cast<bf16*>(take(at, (size_t)M * C * 2));
+  bf16* hid = reinterpret_cast<bf16*>(take(at, (size_t)M * HD * 2));
+  float* part = S > 1 ? reinterpret_cast<float*>(take(at, (size_t)S * M * C * 4)) : nullptr;
+  const int err = lvt_layernorm_rows_bf16(x, ln_w, ln_b, h, M, C, eps, stream);
+  if (err) return err;
+  const auto X = static_cast<const bf16*>(x);
+  return run_mlp(h, w1, b1, w2, b2, residual ? X : nullptr, hid, part, static_cast<bf16*>(out), M,
+                 C, HD, bm1, bm2, S, static_cast<cudaStream_t>(stream));
 }
 
 // K4: out [M, C] = LN(x + proj(attention(q, k, v))) for x [M, C] = [B * L,

@@ -14,8 +14,11 @@
 // are not concatenated; proj as f32 K-slices that the row kernel below
 // sums with the bias and the residual before the LN).  K5's long-M fc1 and
 // fc2 (lavender_tpu/ops/fused_mlp.py _ffn_post_ln_kernel, ffn_post_ln.cu)
-// run here too, and its LN in the row kernel.  The other products of the
-// port (K3, K6, K9, K11, K12, K14, K16) stay on gemm.cu's wmma tiles.
+// run here too, and its LN in the row kernel; so do K3's and K9's LN +
+// MLP (lavender_tpu/ops/fused_mlp.py _chunked_kernel and _kernel, through
+// blocks.cu), whose fc2 K-slices the row kernel sums without an LN.  The
+// other products of the port (K6, K11, K12, K14, K16) stay on gemm.cu's
+// wmma tiles.
 //
 // Bound on the card: at B = 4 serving, Swin-B stages 1-2 (M = 63,488 /
 // 15,872 rows, K = C = 128 / 256) by device memory (the stage-1 qkv
@@ -311,6 +314,9 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 
 // out[row] = LN(sum_s P[s, row] + b + x[row]), 4 columns a thread (C / 4
 // threads, rounded up to whole warps; the rest add zeros to the sums).
+// Without LN: out[row] = sum_s P[s, row] + b + x[row] rounded to bf16, b
+// and x each may be null (ln_w, ln_b and eps unread).
+template <bool LN>
 __global__ void __launch_bounds__(256)
     rows_kernel(const float* __restrict__ P, int S, const bf16* __restrict__ x,
                 const bf16* __restrict__ b2, const bf16* __restrict__ ln_w,
@@ -323,6 +329,24 @@ __global__ void __launch_bounds__(256)
   for (int s = 1; s < S; ++s) {
     const float4 q = *reinterpret_cast<const float4*>(P + (size_t)s * M * C + off);
     p.x += q.x, p.y += q.y, p.z += q.z, p.w += q.w;
+  }
+  if constexpr (!LN) {
+    if (!on) return;
+    float v[4] = {p.x, p.y, p.z, p.w};
+    if (b2 != nullptr) {
+      const uint2 bv = *reinterpret_cast<const uint2*>(b2 + c);
+      const float2 b01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv.x));
+      const float2 b23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&bv.y));
+      v[0] += b01.x, v[1] += b01.y, v[2] += b23.x, v[3] += b23.y;
+    }
+    if (x != nullptr) {
+      const uint2 xv = *reinterpret_cast<const uint2*>(x + off);
+      const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.x));
+      const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.y));
+      v[0] += x01.x, v[1] += x01.y, v[2] += x23.x, v[3] += x23.y;
+    }
+    *reinterpret_cast<uint2*>(out + off) = make_uint2(tc::pack2(v[0], v[1]), tc::pack2(v[2], v[3]));
+    return;
   }
   const uint2 xv = *reinterpret_cast<const uint2*>(x + off);
   const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.x));
@@ -418,7 +442,16 @@ int lvt::gemm_tc(const GemmTc& g, cudaStream_t st) {
 int lvt::rows_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
                  const bf16* ln_b, bf16* out, int M, int C, float eps, cudaStream_t st) {
   if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1) return (int)cudaErrorInvalidValue;
-  rows_kernel<<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C, eps);
+  rows_kernel<true><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C,
+                                                          eps);
+  return (int)cudaGetLastError();
+}
+
+int lvt::rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, int M, int C,
+                  cudaStream_t st) {
+  if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1) return (int)cudaErrorInvalidValue;
+  rows_kernel<false><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, nullptr, nullptr, out, M,
+                                                           C, 0.0f);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-// The wgmma + TMA tile GEMM (gemm_tc.cu) as its users call it: K1's and
-// K4's products (through the C entries of gemm_tc.cu) and K5's long-M
-// fc1 / fc2 and row LN (ffn_post_ln.cu), and the device pieces the tile is
+// The wgmma + TMA tile GEMM (gemm_tc.cu) as its users call it: K1's, K3's,
+// K4's and K9's products (blocks.cu) and K5's long-M fc1 / fc2 and row LN
+// (ffn_post_ln.cu), and the device pieces the tile is
 // built from: the Tensor Memory Accelerator's tensor maps and copies, the
 // mbarriers that report them, the 128-byte-swizzle descriptor and the
 // m64n128k16 warpgroup product.
@@ -47,6 +47,12 @@ int gemm_tc(const GemmTc& g, cudaStream_t stream);
 // cudaError_t.
 int rows_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
             const bf16* ln_b, bf16* out, int M, int C, float eps, cudaStream_t stream);
+
+// The same row kernel without the LN: out[row] = sum_s part[s, row] + b +
+// x[row] in f32 (the slices in the order s = 0..S-1), rounded to bf16; x
+// and b each may be null.  C % 4 == 0, C <= 1024.  Returns a cudaError_t.
+int rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, int M, int C,
+             cudaStream_t stream);
 
 namespace wg {
 

@@ -10,8 +10,12 @@ tiles (128 and 64 only with the residual epilogue), each from 10 calls
 in a CUDA graph (``device_ms``), its ratio to F.linear and the plan's
 pick (``_build.gemm_tc_plan``); then K4's proj +
 residual + LN (``_build.gemm_tc_ln``'s C entry) at each (tile rows,
-K-slices).  The constants of ``_build.gemm_tc_plan`` (``_TC_RATE``) come
-from these ratios.  Needs a CUDA device; raises without one.
+K-slices); then K3's and K9's LN + MLP (``_build.ln_mlp``, one C call)
+at each fc2 (tile rows, K-slices) and each fc1 tile height beside their
+plain version.  The
+constants of ``_build.gemm_tc_plan`` (``_TC_RATE``) and the slice rule of
+``_build.ln_mlp_plan`` come from these times.  Needs a CUDA device;
+raises without one.
 """
 from __future__ import annotations
 
@@ -40,6 +44,17 @@ PRODUCTS = (
     ("stage 4 qkv B=4", 992, 3072, 1024, "bias"),
     ("stage 4 proj B=4", 992, 1024, 1024, "residual"),
     ("K4 q|k|v (one launch) B=4", 1104, 768, 768, "qkv"),
+)
+# (name, M, C, residual) of the LN + MLP (HD = 4C): K9 on the B=8 train
+# step (no residual) and the B=4 "pallas" forward (+ residual), K3 at B=4
+# serving's stage 4
+LN_MLPS = (
+    ("K9 stage 1 B=8", 126976, 128, False),
+    ("K9 stage 2 B=8", 31744, 256, False),
+    ("K9 stage 3 B=8", 7936, 512, False),
+    ("K9 stage 4 B=8", 1984, 1024, False),
+    ("K9 stage 3 B=4 +residual", 3968, 512, True),
+    ("K3 stage 4 B=4", 992, 1024, True),
 )
 
 
@@ -128,6 +143,35 @@ def main() -> int:
             row.append(f"(bm {bm}, S {S}) {device_ms(call):.4f}"
                        + (" plan" if (bm, S) == plan[:2] else ""))
         print(" | ".join(row), flush=True)
+    from lavender_tpu_torch.ops.fused_mlp import fused_ln_mlp
+
+    for name, M, C, residual in LN_MLPS:
+        HD = 4 * C
+        x = rnd(M, C)
+        mlp = (1.0 + rnd(C, std=0.1), rnd(C, std=0.1),
+               rnd(HD, C, std=C ** -0.5), rnd(HD, std=0.02),
+               rnd(C, HD, std=HD ** -0.5), rnd(C, std=0.02))
+        plan = _build.ln_mlp_plan(M, C, HD, residual)
+        plain = device_ms(lambda: fused_ln_mlp.plain(x, *mlp, 1e-5, residual))
+        row = [f"{name} LN + MLP M={M} C={C}: plain {plain:.4f} ms"]
+        options = [(bm, 1) for bm in ((64, 128) if residual
+                                      else (64, 128, 256))]
+        if M < 16384:  # the short products: fc2 as f32 K-slices too
+            options += [(bm, S) for bm in (64, 128, 256) for S in (2, 4)
+                        if (HD // _build.TILE_K) % S == 0]
+        options = [(plan.fc1_bm, bm, S) for bm, S in options] + [
+            (bm1, plan.fc2_bm, plan.splits) for bm1 in (64, 128, 256)
+            if bm1 != plan.fc1_bm]
+        for bm1, bm, S in options:
+            p = _build.LnMlpPlan(bm1, bm, S,
+                                 lib.lvt_ln_mlp_scratch(M, C, HD, S))
+            t = device_ms(lambda p=p: _build.ln_mlp(x, *mlp, 1e-5, residual,
+                                                    plan=p))
+            picked = p[:3] == plan[:3]
+            row.append(f"(fc1 bm {bm1}; bm {bm}, S {S}) {t:.4f}"
+                       + (" plan" if picked else ""))
+        print(" | ".join(row), flush=True)
+        del x
     return 0
 
 

@@ -53,7 +53,8 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 # K1's four tile heights (host memory)
 _INTS = ctypes.POINTER(ctypes.c_int)
 # the entries that return a size, not a cudaError_t
-_SIZES = ("lvt_swin_block_wm_scratch", "lvt_bert_attn_block_scratch")
+_SIZES = ("lvt_swin_block_wm_scratch", "lvt_bert_attn_block_scratch",
+          "lvt_ln_mlp_scratch")
 # the dropout arguments of a kernel: seed pointer (null = no dropout), the
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
@@ -84,6 +85,9 @@ _SIGNATURES = {
     "lvt_swin_block_wm_scratch": [_I, _I, _I],
     "lvt_swin_block_wm_bf16": [_P] * 17 + [_I] * 6 + [_F, _F, _INTS, _P],
     "lvt_bert_attn_block_scratch": [_I, _I, _I],
+    "lvt_ln_mlp_scratch": [_I, _I, _I, _I],
+    "lvt_ln_mlp_bf16": [_P] * 8 + [ctypes.c_longlong, _P, _I, _I, _I, _F,
+                                   _I, _I, _I, _I, _P],
     "lvt_bert_attn_block_bf16": [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _I,
                                                        _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
@@ -324,7 +328,7 @@ def needs_grad(*args) -> bool:
     """Whether autograd records a call on these arguments (tensors among
     any others)."""
     return torch.is_grad_enabled() and any(
-        torch.is_tensor(t) and t.requires_grad for t in args)
+        isinstance(t, torch.Tensor) and t.requires_grad for t in args)
 
 
 def select(op: KernelOp) -> Callable:
@@ -1065,6 +1069,88 @@ def _swin_block_plan(M: int, C: int, HD: int):
           gemm_tc_plan(M, C, HD, residual=True).bm if HD else 0)
     return (ctypes.c_int * 4)(*bm), library().lvt_swin_block_wm_scratch(
         M, C, HD)
+
+
+class LnMlpPlan(NamedTuple):
+    fc1_bm: int   # fc1's tile rows
+    fc2_bm: int   # fc2's tile rows
+    splits: int   # fc2's f32 K-slices (1: one launch, bias / residual
+    #               epilogue; more: summed in order by the row kernel)
+    scratch: int  # bytes: LN(x) and the hidden layer in bf16, the slices
+
+
+def _round256(n: int) -> int:
+    return -(-n // 256) * 256
+
+
+@functools.lru_cache(maxsize=256)
+def ln_mlp_plan(M: int, C: int, HD: int, residual: bool,
+                sms: int = H100_SMS) -> LnMlpPlan:
+    """The launch plan of ``ln_mlp`` for x [M, C], w1 [HD, C]: fc1's tile
+    rows from ``gemm_tc_plan``, fc2's from it too (at most 128 with the
+    residual epilogue), unless that leaves fc2 on 64-row tiles and 128-row
+    ones would not give half the SMs a tile: then fc2 runs as the fewest
+    f32 K-slices at 128 rows that give every SM a tile (each slice whole
+    TILE_K steps).  ``gemm_tc_sweep`` measured the slices 9% faster at
+    Swin-B's B=4 stage 4 (M = 992) on an H100 SXM at 700 W, and no
+    faster, or slower, at 1984 and 3968 rows.  ``scratch`` mirrors ``lvt_ln_mlp_scratch``
+    (``csrc/blocks.cu``).  Pure arithmetic."""
+    fc1 = gemm_tc_plan(M, HD, C, sms=sms).bm
+    bm2, splits = gemm_tc_plan(M, C, HD, residual=residual, sms=sms).bm, 1
+    tiles = -(-M // 128) * -(-C // 128)
+    if bm2 == 64 and 2 * tiles < sms:
+        steps = -(-HD // TILE_K)
+        fits = [s for s in range(2, 9) if steps % s == 0]
+        more = [s for s in fits if tiles * s >= sms]
+        if more:
+            bm2, splits = 128, more[0]
+    scratch = _round256(M * C * 2) + _round256(M * HD * 2) + (
+        _round256(splits * M * C * 4) if splits > 1 else 0)
+    return LnMlpPlan(fc1, bm2, splits, scratch)
+
+
+def ln_mlp(x: torch.Tensor, ln_w, ln_b, w1: torch.Tensor, b1,
+           w2: torch.Tensor, b2, eps: float, residual: bool,
+           plan: Optional[LnMlpPlan] = None) -> torch.Tensor:
+    """K3's and K9's LN + MLP in one call (``csrc/blocks.cu``): x [M, C]
+    -> fc2(GELU(fc1(LN(x)))) (+ x with ``residual``), w1 [HD, C], w2 [C,
+    HD] (torch Linear layout): the row LN on 16-byte chunks, fc1 + bias
+    + GELU and fc2 + bias (+ residual) on the wgmma + TMA tiles, fc2
+    possibly as f32 K-slices that the row kernel sums in order with bias
+    and residual; ``plan`` (default ``ln_mlp_plan``) the tile rows and
+    slices.  LN affines None: the pure normalize; biases may be None.
+    All bf16, contiguous, on one card; C <= 1024, C and HD multiples of
+    8.  The checks are one pass of cheap attribute reads: they run on
+    every launch."""
+    _check(x, "ln_mlp x")
+    M, C = x.shape
+    HD = w1.shape[0]
+    dev = x.device
+    if not x.is_contiguous() or C % 8 or C > 1024 or HD % 8:
+        raise ValueError(f"ln_mlp: unsupported x {tuple(x.shape)} "
+                         f"(contiguous), MLP width {HD} (C and HD "
+                         "multiples of 8, C <= 1024)")
+    _tc_operand(w1, (HD, C), dev, "ln_mlp w1")
+    _tc_operand(w2, (C, HD), dev, "ln_mlp w2")
+    for t, n, what in ((ln_w, C, "ln_w"), (ln_b, C, "ln_b"), (b1, HD, "b1"),
+                       (b2, C, "b2")):
+        if t is not None:
+            _tc_operand(t, (n,), dev, f"ln_mlp {what}")
+    if (ln_w is None) != (ln_b is None):
+        raise ValueError("ln_mlp: LN weight and bias are both given or both "
+                         "None")
+    if plan is None:
+        plan = ln_mlp_plan(M, C, HD, residual)
+    stream = _stream(x)
+    ws = _scratch(x, stream, plan.scratch)
+    out = torch.empty_like(x)
+    err = library().lvt_ln_mlp_bf16(
+        x.data_ptr(), _ptr(ln_w), _ptr(ln_b), w1.data_ptr(), _ptr(b1),
+        w2.data_ptr(), _ptr(b2), ws, plan.scratch, out.data_ptr(), M, C, HD,
+        float(eps), int(residual), plan.fc1_bm, plan.fc2_bm, plan.splits,
+        stream)
+    _raise_on(err, "lvt_ln_mlp_bf16")
+    return out
 
 
 def swin_block_wm(x: torch.Tensor, ln_w, ln_b, wqkv: torch.Tensor, bqkv,

@@ -4,25 +4,32 @@
 lavender_tpu/ops/fused_mlp.py:91, wrapper ``fused_ln_mlp`` :153): the
 Swin MLP fc2(GELU(fc1(LN(x)))), + x with ``add_residual``, which the
 train routes run after the attention half under drop-path and the
-spatial serving routes after their attention.  On the card it is the
-launcher of K3: LN -> fc1 GEMM (+bias, exact GELU) -> fc2 GEMM (+bias,
-+residual with ``add_residual``).  The TPU split between weights resident
-in VMEM (K9) and streamed in HD chunks (K3) is a VMEM budget with no
-counterpart on the card; the window-major train route runs K9 at every
-stage, the spatial routes keep the JAX split (``weights_fit_vmem``) as
-a routing predicate, so that their launches are JAX's.  Bound: the two
-GEMMs' tensor-core rate at M = B*nW*Npad rows.  Its backward is the plain
-recompute under autograd, as the JAX ``custom_vjp`` (:164) does.
+spatial serving routes after their attention.  ``fused_ln_mlp_chunked``
+replaces ``_chunked_kernel`` (K3, :183, wrapper ``fused_ln_mlp_chunked``
+:229): the Swin stage-4 x + fc2(GELU(fc1(LN(x)))) of serving.
 
-``fused_ln_mlp_chunked`` replaces the TPU kernel ``_chunked_kernel``
-(lavender_tpu/ops/fused_mlp.py:183, wrapper ``fused_ln_mlp_chunked``
-:229): the Swin stage-4 x + fc2(GELU(fc1(LN(x)))).  The TPU streamed the
-16.8 MB of stage-4 weights through VMEM in HD chunks and accumulated the
-fc2 partials in the bf16 output block; here it is LN -> fc1 GEMM (+bias,
-exact GELU) -> fc2 GEMM (+bias, +residual) with f32 accumulation over the
-whole HD in one pass, so the bf16 results differ slightly from the TPU's.
-Bound on the card: tensor-core rate of the two GEMMs (M = B*248 rows is
-short, so the fc1 grid of 128x128 tiles only partly fills the card).
+On the card both are ONE C call, ``_build.ln_mlp`` (``csrc/blocks.cu``):
+the row LN on 16-byte chunks (``csrc/layernorm.cu``) -> fc1 (+ bias, the
+GELU's erf form) -> fc2 (+ bias, + x where there is a residual) on the
+wgmma + TMA tiles of ``csrc/gemm_tc.cu``, the products the composition
+K1's MLP half runs after its LN2; where 128-row tiles of fc2 would give
+fewer than half the SMs a tile (K3 at B=4, M = 992) fc2 runs as f32
+K-slices that the row kernel sums in order with bias and residual
+(``_build.ln_mlp_plan``).  The hidden layer [M, 4C] lives in device
+memory (L2 at stage 3-4), where the TPU kept it in VMEM; K3's streaming
+of the 16.8 MB of stage-4 weights through VMEM in HD chunks, with the
+fc2 partials summed in the bf16 output block, has no counterpart: the
+products sum the whole HD in f32, so the bf16 results differ slightly
+from the TPU's.  The TPU's split between K9 and K3 is a VMEM budget; the
+window-major train route runs K9 at every stage, the spatial routes keep
+the JAX split (``weights_fit_vmem``) as a routing predicate, so that
+their launches are JAX's.  Bound on the card: the two products' 16 M
+C^2 FLOPs at 989 TFLOP/s at every Swin-B stage (0.034 ms at B = 8; x and
+the output once take 0.019 ms of device memory at stage 1).  The
+composition adds LN(x) and the hidden layer, each written and read again
+(325 MB at B = 8 stage 1), which holds stages 1-2 to the memory rate.
+The backward of both is the plain recompute under autograd, as the JAX
+``custom_vjp`` (:164) does.
 
 ``fused_ffn_post_ln`` replaces ``_ffn_post_ln_kernel`` (K5, :283,
 wrapper ``_ffn_forward`` :304): the BERT FFN LN(x + fc2(GELU(fc1 x))),
@@ -53,8 +60,8 @@ res, out, the mask), K12 the two GEMMs.
 
 GELU is the erf form (the TPU kernels used a clamped polynomial in bf16;
 the JAX oracles use erf): erff in ``gemm.cu`` and K5's short-M kernels,
-erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K5's
-long-M fc1).  K3 and K5 launch outside autograd, so
+erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K3, K9
+and K5's long-M fc1).  K3 and K5 launch outside autograd, so
 they carry the JAX custom_vjps' backward: autograd of the plain version,
 recomputed from the saved inputs (``_build.RecomputeVjp``).
 """
@@ -96,9 +103,8 @@ def _ln_mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
     return _mlp_plain(x, ln_w, ln_b, w1, b1, w2, b2, eps, True)
 
 
-def _ln_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, residual=True):
-    h = _build.gemm(_build.layernorm(x, ln_w, ln_b, eps), w1, b1, gelu=True)
-    return _build.gemm(h, w2, b2, residual=x if residual else None)
+def _ln_mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5):
+    return _build.ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, True)
 
 
 fused_ln_mlp_chunked = _build.KernelOp(
@@ -107,8 +113,8 @@ fused_ln_mlp_chunked = _build.KernelOp(
 
 
 def _mlp_cuda(x, ln_w, ln_b, w1, b1, w2, b2, eps=1e-5, add_residual=False):
-    return _ln_mlp_cuda(x.contiguous(), ln_w, ln_b, w1, b1, w2, b2, eps,
-                        residual=add_residual)
+    return _build.ln_mlp(x.contiguous(), ln_w, ln_b, w1, b1, w2, b2, eps,
+                         add_residual)
 
 
 fused_ln_mlp = _build.KernelOp("K9 fused_ln_mlp", _mlp_plain, _mlp_cuda,

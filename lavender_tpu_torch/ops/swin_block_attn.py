@@ -51,7 +51,9 @@ and the proj GEMM's epilogue scatters its rows back by it, adding the
 residual it reads at the same spatial row.  Between the two run the qkv
 GEMM and the attention core on N = D*wh*ww tokens a window (no pad rows,
 no lane pad, no exp2 pre-scale, no head groups).  The MLP of the full
-variant is pointwise, so it runs on the spatial rows as K3's launcher.
+variant is pointwise, so it runs on the spatial rows: LN2, fc1 + GELU and
+fc2 + residual, three launches on ``gemm.cu``'s wmma tiles
+(``_ln_mlp_wmma``; K3 and K9 moved to the tile GEMM, K14 keeps these).
 Bound: the GEMMs' tensor-core rate, the attention core's f32 FLOPs; device
 memory sees x once on the way in and the output once on the way out, plus
 the qkv and attention slabs.  The bias is the reference's: the FULL
@@ -93,7 +95,7 @@ import torch
 import torch.nn.functional as F
 
 from lavender_tpu_torch.ops import _build, layer_norm
-from lavender_tpu_torch.ops.fused_mlp import _ln_mlp_cuda, _mlp_plain
+from lavender_tpu_torch.ops.fused_mlp import _mlp_plain
 from lavender_tpu_torch.ops.swin_core_attn import swin_core_attn
 from lavender_tpu_torch.ops.window_attention import (
     window_attention_reference)
@@ -541,11 +543,19 @@ def _spatial_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
     return y
 
 
+def _ln_mlp_wmma(x, ln_w, ln_b, w1, b1, w2, b2, eps):
+    """K14f's MLP on the card: x + fc2(GELU(fc1(LN(x)))) as three
+    launches, the LN, then ``gemm.cu``'s wmma GEMMs (+ bias, GELU; +
+    bias, + residual)."""
+    h = _build.gemm(_build.layernorm(x, ln_w, ln_b, eps), w1, b1, gelu=True)
+    return _build.gemm(h, w2, b2, residual=x)
+
+
 def _spatial_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                   window, shift, nH, scale, eps, mlp=None):
     """K14 on the card: gathered LN1 -> qkv GEMM -> attention core ->
-    proj GEMM scattered into the spatial rows (+ residual) [-> K3's LN2 +
-    MLP + residual launcher]."""
+    proj GEMM scattered into the spatial rows (+ residual) [-> the LN2 +
+    MLP + residual of ``_ln_mlp_wmma``]."""
     B, D, H, W, C = x.shape
     N = int(np.prod(window))
     rows, _ = _device_rows(B, D, H, W, window, shift, x.device)
@@ -558,7 +568,7 @@ def _spatial_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
     y = _build.gemm(o, wproj, bproj, residual=x2, rows=rows,
                     out=torch.empty_like(x2))
     if mlp is not None:
-        y = _ln_mlp_cuda(y, *mlp, eps)
+        y = _ln_mlp_wmma(y, *mlp, eps)
     return y.view(B, D, H, W, C)
 
 

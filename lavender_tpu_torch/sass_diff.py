@@ -5,14 +5,17 @@ function: which kernels compiled to the same instructions.
         [--sub PATTERN=REPLACEMENT ...]
 
 Runs ``cuobjdump -sass`` on both (the CUDA toolkit's, beside ``nvcc``),
-splits the listings into functions, drops the address comments, and
+splits the listings into functions, drops the address comments and
+the column padding (whose width follows the library's size), and
 prints per function "same", "differs" or in which build alone it is, then
 the counts.  Functions are matched by mangled name with the per-build
 hash of each anonymous namespace taken out (it follows the source's
-path).  ``--sub`` rewrites the new build's names by a regular expression
-first, for a template that gained a parameter (the tensor-core forward's
-KEEP: ``--sub 'Lb0E(EEvN3lvt5TcFwdE)=\1'`` matches its KEEP = false
-instances to the old ones).  NAME filters the functions by substring.
+path, though a source's edit can change the hash that follows its name).
+``--sub`` rewrites both builds' names by a regular expression first, for
+a template that gained a parameter (the tensor-core forward's KEEP:
+``--sub 'Lb0E(EEvN3lvt5TcFwdE)=\1'`` matches its KEEP = false instances
+to the old ones) or such a hash (``--sub 'layernorm_cu_[0-9a-f]{8}=L'``).
+NAME filters the functions by substring.
 Exits 0; the verdicts are the output.
 """
 from __future__ import annotations
@@ -41,7 +44,7 @@ def functions(so: str) -> dict:
             name = _ANON.sub("_GLOBAL__N__", m.group(1))
             out[name] = []
         elif name is not None and line.strip().startswith("/*"):
-            out[name].append(_ADDR.sub("", line).strip())
+            out[name].append(" ".join(_ADDR.sub("", line).split()))
     return out
 
 
@@ -55,6 +58,7 @@ def main(argv) -> int:
         else:
             keep.append(a)
     for pattern, repl in subs:
+        old = {pattern.sub(repl, k): v for k, v in old.items()}
         new = {pattern.sub(repl, k): v for k, v in new.items()}
     counts = {"same": 0, "differs": 0, "old only": 0, "new only": 0}
     for name in sorted(set(old) | set(new)):

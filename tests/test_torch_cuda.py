@@ -52,9 +52,15 @@ the tensor cores where the caller selects them (bias and mask, the
 key-keep vector with rows off 4-byte boundaries, a sequence with every
 key dropped); K1 at Swin-B's stages (B = 4 with the MLP, B = 8 the
 attention half) and K4 at L = 276 and 250 against their plain versions,
-a second call bitwise equal; and by kernel name that K1 and K4 run the
-tile GEMM and the tensor-core forward while K6, K14 and K16 stay on the
-wmma GEMM and the f32-pipe core.
+a second call bitwise equal; K9 (with and without its residual) at
+Swin-B's four stages and K3 at its stage 4 (and its residual-free part)
+against their plain versions, a second call bitwise equal, K9's
+gradients through the recompute, their one C call at every tile and
+K-slice option of its plan (the row kernel's sum without LN, with and
+without the residual) and the raise on what it does not take; and by
+kernel name that K1, K3, K4 and K9 run the tile GEMM (K1 and K4 the
+tensor-core forward too) while K6, K14 and K16 stay on the wmma GEMM and
+the f32-pipe core.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -1476,3 +1482,139 @@ def test_cores_and_gemms_each_kernel_runs(gen):
         assert has(names, "attention_kernel"), names
         assert not has(names, "tile_kernel") and not has(names,
                                                          "fwd_kernel"), names
+
+
+_SWIN_B = {1: (64, 128), 2: (16, 256), 3: (4, 512), 4: (1, 1024)}
+
+
+def _mlp_case(gen, M, C):
+    """x [M, C] and the MLP's (ln_w, ln_b, w1, b1, w2, b2) at width C."""
+    return _rnd(gen, M, C), (
+        1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+        _rnd(gen, 4 * C, C, std=C ** -0.5), _rnd(gen, 4 * C, std=0.02),
+        _rnd(gen, C, 4 * C, std=(4 * C) ** -0.5), _rnd(gen, C, std=0.02))
+
+
+def _residual_free(got, want, x):
+    """The MLP's own part (output - x) of kernel and plain version within
+    rel_l2 5e-2."""
+    d_got, d_want = got.float() - x.float(), want.float() - x.float()
+    assert float((d_got - d_want).norm() / d_want.norm()) <= 5e-2
+
+
+@pytest.mark.parametrize("B,stage", [(2, 1), (2, 2), (2, 3), (2, 4),
+                                     (8, 3)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_k9_at_swin_b_stages_matches_plain_bitwise(gen, B, stage, residual):
+    """K9 at Swin-B's stages (M = B * nW * 248 rows; without the residual
+    on the train step, with it on the "pallas" forward): within the gate
+    and rel_l2 1e-2, the residual-free part within 5e-2, a second call
+    bitwise equal."""
+    nW, C = _SWIN_B[stage]
+    x, mlp = _mlp_case(gen, B * nW * 248, C)
+    got = fused_ln_mlp(x, *mlp, 1e-5, residual)
+    want = fused_ln_mlp.plain(x, *mlp, 1e-5, residual)
+    _close(got, want, rel_l2=1e-2)
+    if residual:
+        _residual_free(got, want, x)
+    assert torch.equal(got, fused_ln_mlp(x, *mlp, 1e-5, residual))
+
+
+def test_k3_at_serving_stage_4_matches_plain_bitwise(gen):
+    """K3 at B = 4 serving's stage 4 (M = 992, C = 1024: fc2 on the
+    plan's K-slices): within the gate and rel_l2 1e-2, its residual-free
+    part within 5e-2, a second call bitwise equal."""
+    x, mlp = _mlp_case(gen, 4 * 248, 1024)
+    got = fused_ln_mlp_chunked(x, *mlp, 1e-5)
+    want = fused_ln_mlp_chunked.plain(x, *mlp, 1e-5)
+    _close(got, want, rel_l2=1e-2)
+    _residual_free(got, want, x)
+    assert torch.equal(got, fused_ln_mlp_chunked(x, *mlp, 1e-5))
+
+
+@pytest.mark.parametrize("stage", [3, 4])
+def test_k9_gradients_at_swin_b_stages_match_plain(gen, stage):
+    """K9 under autograd (``RecomputeVjp``: the C call forward, autograd
+    of the plain version backward) against autograd of the plain
+    version, at B = 2: the output within the gate, every gradient within
+    rel_l2 5e-2."""
+    nW, C = _SWIN_B[stage]
+    x, mlp = _mlp_case(gen, 2 * nW * 248, C)
+    w = _rnd(gen, *x.shape)
+    outs, grads = [], []
+    for f in (fused_ln_mlp, fused_ln_mlp.plain):
+        ins = [t.clone().requires_grad_(True) for t in (x, *mlp)]
+        y = f(*ins, 1e-5)
+        outs.append(y)
+        grads.append(torch.autograd.grad(y, ins, w))
+    _close(outs[0], outs[1], rel_l2=1e-2)
+    for gk, gp in zip(*grads):
+        _close(gk, gp, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("M,C", [(992, 1024), (300, 64)])
+@pytest.mark.parametrize("bm2,S", [(64, 1), (128, 1), (256, 1), (128, 2),
+                                   (128, 4), (64, 4)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_ln_mlp_at_each_tile_and_slice_option(gen, M, C, bm2, S, residual):
+    """The one C call at every fc2 (tile rows, K-slices) its plan may pick,
+    the slices summed by the row kernel without LN (with and without the
+    residual), affine and pure-normalize LN: within the gate of the plain
+    version, a second call bitwise equal; the C entry's scratch size is
+    the plan's."""
+    x, mlp = _mlp_case(gen, M, C)
+    HD = 4 * C
+    nbytes = _build.library().lvt_ln_mlp_scratch(M, C, HD, S)
+    plan = _build.LnMlpPlan(256, bm2, S, nbytes)
+    for ln in (mlp[:2], (None, None)):
+        args = (x, *ln, *mlp[2:], 1e-5, residual)
+        got = _build.ln_mlp(*args, plan=plan)
+        _close(got, fused_ln_mlp.plain(*args), rel_l2=1e-2)
+        assert torch.equal(got, _build.ln_mlp(*args, plan=plan))
+    auto = _build.ln_mlp_plan(M, C, HD, residual)
+    assert auto.scratch == _build.library().lvt_ln_mlp_scratch(
+        M, C, HD, auto.splits)
+
+
+def test_ln_mlp_rejects_what_it_does_not_take(gen):
+    x, mlp = _mlp_case(gen, 64, 64)
+    for bad in (
+            lambda: _build.ln_mlp(x.float(), *mlp, 1e-5, True),
+            lambda: _build.ln_mlp(x.t(), *mlp, 1e-5, True),
+            lambda: _build.ln_mlp(x, None, *mlp[1:], 1e-5, True),
+            lambda: _build.ln_mlp(x, *mlp[:2], mlp[2][:, :32], *mlp[3:],
+                                  1e-5, True),
+            lambda: _build.ln_mlp(_rnd(gen, 8, 1032), *mlp, 1e-5, True)):
+        with pytest.raises(ValueError):
+            bad()
+    small = _build.LnMlpPlan(128, 128, 2, 1024)  # scratch too small
+    with pytest.raises(RuntimeError):
+        _build.ln_mlp(x, *mlp, 1e-5, True, plan=small)
+
+
+def test_k3_k9_run_the_tile_gemm_and_k14f_the_wmma_gemm(gen):
+    """By kernel name: K3 and K9 launch the 16-byte-chunk LN and the tile
+    GEMM (and, where the plan cuts fc2, the row kernel) and not the wmma
+    GEMM; K14's whole block
+    still runs its MLP on the wmma GEMM."""
+    def has(names, part):
+        return any(part in n for n in names)
+
+    x, mlp = _mlp_case(gen, 4 * 248, 1024)
+    for fn in (lambda: fused_ln_mlp_chunked(x, *mlp, 1e-5),
+               lambda: fused_ln_mlp(x, *mlp, 1e-5)):
+        names = _device_kernels(fn)
+        assert has(names, "tile_kernel"), names
+        assert has(names, "layernorm_rows_kernel"), names
+        assert not has(names, "gemm_bf16_kernel"), names
+    args, _ = _k1_case(gen, 1, 2, True, False)
+    (xs, n1w, n1b, wqkv, bqkv, wp, bp, bias, m, nH, scale, eps) = args
+    C = 256
+    xs = xs[:, :4, :245].reshape(1, 5, 14, 14, C)  # one shifted clip
+    _, mlp = _mlp_case(gen, 1, C)
+    names = _device_kernels(lambda: fused_swin_block_full(
+        xs, n1w, n1b, wqkv, bqkv, wp, bp, bias[:, :245, :245].contiguous(),
+        m[:4, :245, :245].contiguous(), *mlp, (5, 7, 7), (0, 3, 3), nH,
+        scale, eps))
+    assert has(names, "gemm_bf16_kernel"), names
+    assert not has(names, "tile_kernel"), names

@@ -1,7 +1,8 @@
-"""The wgmma + TMA tile GEMM's launch plan (``_build.gemm_tc_plan``) and
-its row-pitch rule (``_build.tile_rows_ok``), the packed attention core's
-selection (``_build.attention_route``), and which primitives the
-whole-block kernels' card paths call: K1 and K4 their one C call each
+"""The wgmma + TMA tile GEMM's launch plans (``_build.gemm_tc_plan``, and
+``_build.ln_mlp_plan`` of K3's and K9's LN + MLP) and its row-pitch rule
+(``_build.tile_rows_ok``), the packed attention core's selection
+(``_build.attention_route``), and which primitives the whole-block
+kernels' card paths call: K1, K3, K4 and K9 their one C call each
 (``csrc/blocks.cu``: the tile GEMM and the tensor-core core), K6, K14 and
 K16 the wmma GEMM and the f32-pipe core.
 Pure functions, or the card paths run on CPU tensors with the primitives
@@ -10,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from lavender_tpu_torch.ops import _build, encoder_attention, swin_block_attn
+from lavender_tpu_torch.ops import (_build, encoder_attention, fused_mlp,
+                                   swin_block_attn)
 
 SMS = _build.H100_SMS
 # Swin-B at T = 5, 224 x 224 (windows a clip, C): rows = B * nW * 248
@@ -71,6 +73,45 @@ def test_gemm_tc_split_plan_takes_each_k_step_once(M, N, K):
     assert plan.blocks == -(-M // plan.bm) * -(-N // 128) * plan.splits
     if M in (1104, 1000):
         assert plan.splits == 1 and 2 * plan.blocks >= SMS
+
+
+def _ln_mlps():
+    """(M, C, residual) of K9 at the B = 8 train step's stages 1-4 (no
+    residual), K3 at B = 4 serving's stage 4 and K9 at the B = 4 "pallas"
+    forward's stages 1-3 (+ residual)."""
+    return ([(8 * nW * 248, C, False) for nW, C in SWIN_B]
+            + [(4 * 248, 1024, True)]
+            + [(4 * nW * 248, C, True) for nW, C in SWIN_B[:3]])
+
+
+@pytest.mark.parametrize("M,C,residual", _ln_mlps())
+def test_ln_mlp_plan_takes_each_k_step_once_and_fills_the_card(M, C,
+                                                               residual):
+    """K3's and K9's plan: fc1 on ``gemm_tc_plan``'s tile, fc2 on its tile
+    or as K-slices of whole 64-deep steps that take every step of HD
+    exactly once (at most 128 rows under the residual epilogue), each
+    product's tiles at least half the 132 SMs, and the scratch that
+    ``csrc/blocks.cu`` lays out: LN(x) and the hidden layer in bf16, the
+    f32 slices, each rounded up to 256 bytes."""
+    HD = 4 * C
+    plan = _build.ln_mlp_plan(M, C, HD, residual)
+    assert plan.fc1_bm == _build.gemm_tc_plan(M, HD, C).bm
+    assert plan.fc2_bm in ((128, 64) if residual else (256, 128, 64))
+    steps = HD // _build.TILE_K
+    per = steps // plan.splits
+    assert per * plan.splits == steps
+    taken = sorted(s * per + c for s in range(plan.splits)
+                   for c in range(per))
+    assert taken == list(range(steps))
+    if plan.splits == 1:
+        assert plan.fc2_bm == _build.gemm_tc_plan(M, C, HD,
+                                                  residual=residual).bm
+    fc1_tiles = -(-M // plan.fc1_bm) * HD // 128
+    fc2_tiles = -(-M // plan.fc2_bm) * C // 128 * plan.splits
+    assert 2 * fc1_tiles >= SMS and 2 * fc2_tiles >= SMS
+    r = lambda n: -(-n // 256) * 256
+    assert plan.scratch == r(M * C * 2) + r(M * HD * 2) + (
+        r(plan.splits * M * C * 4) if plan.splits > 1 else 0)
 
 
 @pytest.mark.parametrize("col,pitch,ok", [
@@ -150,11 +191,16 @@ def calls(monkeypatch):
         log.append(("bert_attn_block", None))
         return torch.zeros_like(x)
 
+    def ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, plan=None):
+        log.append(("ln_mlp", residual))
+        return torch.zeros_like(x)
+
     for name, fn in (("gemm", gemm), ("gemm_tc", gemm_tc),
                      ("gemm_tc_ln", gemm_tc_ln), ("layernorm", layernorm),
                      ("attention", attention),
                      ("swin_block_wm", swin_block_wm),
-                     ("bert_attn_block", bert_attn_block)):
+                     ("bert_attn_block", bert_attn_block),
+                     ("ln_mlp", ln_mlp)):
         monkeypatch.setattr(_build, name, fn)
     return log
 
@@ -177,6 +223,25 @@ def test_k1_runs_its_block_in_one_call(calls, with_mlp):
     swin_block_attn._block_cuda(*_swin_args(C=C),
                                 mlp=mlp if with_mlp else None)
     assert calls == [("swin_block_wm", with_mlp)]
+
+
+def _mlp_args(C=32):
+    return (torch.ones(C), torch.zeros(C), torch.zeros(4 * C, C),
+            torch.zeros(4 * C), torch.zeros(C, 4 * C), torch.zeros(C))
+
+
+@pytest.mark.parametrize("kernel,residual", [("K9", False), ("K9", True),
+                                             ("K3", True)])
+def test_k3_k9_run_their_mlp_in_one_call(calls, kernel, residual):
+    """K9's card path (with and without its residual) and K3's are the one
+    C call of ``_build.ln_mlp`` (LN, fc1 + GELU and fc2 on the tile GEMM
+    inside it, ``csrc/blocks.cu``), nothing else."""
+    x = torch.zeros(2 * 56, 32)
+    if kernel == "K9":
+        fused_mlp._mlp_cuda(x, *_mlp_args(), 1e-5, residual)
+    else:
+        fused_mlp._ln_mlp_cuda(x, *_mlp_args(), 1e-5)
+    assert calls == [("ln_mlp", residual)]
 
 
 def _bert_args(last):
@@ -214,3 +279,18 @@ def test_k6_k14_k16_stay_on_the_wmma_gemm_and_the_f32_core(calls):
         run()
         assert calls == [("layernorm", None), ("gemm", None),
                          ("attention", False), ("gemm", None)]
+
+
+def test_k14f_keeps_its_mlp_on_the_wmma_gemm(calls):
+    """K14's whole block (the "fused" route's full variant) runs its MLP
+    as the LN and two ``gemm.cu`` launches after its attention half, not
+    as K3's and K9's ``ln_mlp``."""
+    C, nH, window, shift = 32, 2, (2, 3, 3), (1, 1, 1)
+    N = int(np.prod(window))
+    swin_block_attn._spatial_cuda(
+        torch.zeros(1, 2, 6, 6, C), *_swin_args(C=C)[1:7],
+        torch.zeros(nH, N, N), torch.zeros(4, N, N), window, shift, nH, 0.25,
+        1e-5, mlp=_mlp_args(C))
+    assert calls == [("layernorm", None), ("gemm", None),
+                     ("attention", False), ("gemm", None),
+                     ("layernorm", None), ("gemm", None), ("gemm", None)]

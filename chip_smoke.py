@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only K2 K5   # phases 1-3 for these kernels
     python3 chip_smoke.py --only K1 K4   # and K1's and K4's parts
     python3 chip_smoke.py --only K3 K9   # and K3's and K9's parts
+    python3 chip_smoke.py --only K6 K11  # and K6's and K11's parts
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -30,7 +31,16 @@ nothing is ever run on the CPU instead:
    call repeated and required bitwise equal; K6 (the
    sub-block under a full mask) and K7 (the heads-layout core) at the
    seq2seq forward's B=4, L=275 under the seq2seq mask and a random 0/1
-   mask, K6 also at the re-encode decoder's first and last L (252, 270);
+   mask, K6 also at the re-encode decoder's first and last L (252, 270),
+   each K6 call repeated and required bitwise equal, with its device time
+   a call in a CUDA graph beside the event time; K11 at the train step's
+   17,664 rows (rate 0.1 and 0.5) and the caption step's 2,200, each call
+   repeated and required bitwise equal (output and keep mask), with its
+   device time a call in a CUDA graph; K11's parts (``_k6_k11_parts``, also under
+   ``--only K6`` / ``K11``): the proj's K-slices against F.linear, the
+   row kernel's dropout mode against its bytes at 3.35 TB/s, at the
+   caption step's rows the plan's slices against 2, and K6's core under
+   the bf16 seq2seq mask against scaled_dot_product_attention;
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
    rows), K5 each call repeated and required bitwise equal; K2 and K5
    also with their device time a call under torch.profiler beside the
@@ -363,7 +373,8 @@ def _full_mask_cases(g, lin, ln):
             count, (x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, mask, nH,
                     hd ** -0.5, 1e-12),
             8.0 * B * Lx * C * C + 4.0 * B * Lx * Lx * C,
-            2 * B * Lx * C * 2 + 4 * C * C * 2 + mask.numel() * 4)
+            2 * B * Lx * C * 2 + 4 * C * C * 2 + mask.numel() * 4,
+            bitwise_repeat=True, graph_ms=True)
 
     for kind, keep, count in (
             ("seq2seq mask", _seq2seq_keep(BATCH, n_video, n_txt), 12),
@@ -895,10 +906,16 @@ def _bert_train_cases(g, lin, ln):
     x, res = _rnd(g, M, C), _rnd(g, M, C)
     wo, bo = lin(C, C)
     lw, lb = ln(C)
-    cases.append(Case(
-        fused_out_ln_train, f"M={M} C={C} rate 0.1", layers,
-        (x, res, wo, bo, lw, lb, seed, 1e-12, 0.1), 2.0 * M * C * C,
-        3 * M * C * 2 + M * C + C * C * 2, compare=_keep_compare))
+    # the default step's 64 pairs, also at rate 0.5, and the caption
+    # step's 8 clips of 275 tokens (checked, not counted)
+    for rows, rate, count, what in (
+            (M, 0.1, layers, "train step"), (M, 0.5, 0, "train step"),
+            (TRAIN_BATCH * (L - 1), 0.1, 0, "caption step")):
+        cases.append(Case(
+            fused_out_ln_train, f"M={rows} C={C} rate {rate}, {what}", count,
+            (x[:rows], res[:rows], wo, bo, lw, lb, seed, 1e-12, rate),
+            2.0 * rows * C * C, 3 * rows * C * 2 + rows * C + C * C * 2,
+            compare=_keep_compare, bitwise_repeat=True, graph_ms=True))
     w1, b1 = lin(3072, C)
     w2, b2 = lin(C, 3072)
     cases.append(Case(
@@ -1432,6 +1449,93 @@ def _k3_k9_parts(g):
     parts.summary("no gate")
 
 
+def _k6_k11_parts(g):
+    """K11's two parts at the default step's 64 x 276 rows and the caption
+    step's 8 x 275 (C = 768, rate 0.1): the proj as the split plan's f32
+    K-slices (the tile GEMM's partial epilogue alone) against F.linear,
+    and the row kernel's dropout mode (the whole C call less the proj)
+    against its bytes at 3.35 TB/s (the slices read, the residual read,
+    out and the keep mask written), each as device time a call in a CUDA
+    graph (``_graph_ms``), in turns; at the caption step's rows also the
+    whole call at 2 K-slices of 128 rows beside the plan's.  K6's core
+    under the clamped bf16 seq2seq mask in rows padded to 16 bytes (B=4,
+    L=275; the tensor-core forward on heads views of one qkv slab, the
+    kernel the C call launches) against scaled_dot_product_attention with
+    that mask.  Prints ``_Parts``'s lines."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.dropout import threshold
+    from lavender_tpu_torch.ops.encoder_attention import padded_clamped_mask
+
+    parts = _Parts()
+    lib = _build.library()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    C, L = 768, FRAMES * 50 + TXT_LEN
+    w, b = _rnd(g, C, C, std=C ** -0.5), _rnd(g, C, std=0.02)
+    lw, lb = 1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1)
+    seed = torch.tensor([1234], device="cuda")
+    thresh = threshold(0.1)
+    for M, what in ((TRAIN_BATCH ** 2 * L, "train step"),
+                    (TRAIN_BATCH * (L - 1), "caption step")):
+        o, res = _rnd(g, M, C), _rnd(g, M, C)
+        plan = _build.gemm_tc_plan(M, C, C, split=True)
+        part = torch.empty(2 * M * C, device="cuda")
+        keep = torch.empty(M, C, dtype=torch.bool, device="cuda")
+        out = torch.empty_like(res)
+
+        def proj(bm=plan.bm, S=plan.splits):
+            _build._raise_on(lib.lvt_gemm_tc_bf16(
+                o.data_ptr(), C, w.data_ptr(), None, None, None, None, None,
+                1, None, 0, part.data_ptr(), C, M, C, C, 3, bm, S, stream()),
+                "lvt_gemm_tc_bf16")
+
+        def whole(bm=plan.bm, S=plan.splits):
+            _build._raise_on(lib.lvt_gemm_tc_dropout_ln_bf16(
+                o.data_ptr(), C, w.data_ptr(), b.data_ptr(), res.data_ptr(),
+                lw.data_ptr(), lb.data_ptr(), part.data_ptr(),
+                out.data_ptr(), keep.data_ptr(), M, C, C, bm, S, 1e-12,
+                seed.data_ptr(), thresh, 1.0 / 0.9, stream()),
+                "lvt_gemm_tc_dropout_ln_bf16")
+
+        at = (f"K11 {what} M={M} C={C} (plan: bm {plan.bm}, "
+              f"{plan.splits} K-slice(s))")
+        count = 12 if what == "train step" else 0
+        parts.add("K11 proj", f"{at} proj K-slices vs F.linear", proj,
+                  lambda: F.linear(o, w, b), count)
+        t = [_graph_ms(f) for f in (proj, whole, whole, proj)]
+        rows_ms = (t[1] + t[2] - t[0] - t[3]) / 2
+        nbytes = plan.splits * M * C * 4 + 2 * M * C * 2 + M * C + 3 * C * 2
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"[part] {at} row kernel (dropout mode): {rows_ms:.4f} ms of "
+              f"device time (the call {(t[1] + t[2]) / 2:.4f} less the proj "
+              f"{(t[0] + t[3]) / 2:.4f}) vs {nbytes / 1e6:.1f} MB at 3.35 "
+              f"TB/s {bound:.4f} ms: {rows_ms / bound:.2f}x, "
+              f"{nbytes / rows_ms / 1e9:.2f} TB/s", flush=True)
+        if what == "caption step":
+            t = [_graph_ms(f) for f in (whole, lambda: whole(128, 2),
+                                        lambda: whole(128, 2), whole)]
+            print(f"[part] {at} the whole call, the plan's "
+                  f"{(t[0] + t[3]) / 2:.4f} ms vs 2 K-slices at bm 128 "
+                  f"{(t[1] + t[2]) / 2:.4f} ms of device time", flush=True)
+        del o, res, part, keep, out
+    nH, hd, n_txt = 12, 64, CAP_LEN
+    Lc = FRAMES * 50 + n_txt
+    mask = torch.where(_seq2seq_keep(BATCH, Lc - n_txt, n_txt), 0.0,
+                       torch.finfo(torch.float32).min)
+    bf = padded_clamped_mask(mask, torch.bfloat16)
+    qkv = _rnd(g, BATCH * Lc, 3 * C)
+    q, k, v = qkv.view(BATCH, Lc, 3, nH, hd).permute(2, 0, 3, 1, 4)
+    sdpa_mask = mask.clamp_min(-1e4).to(torch.bfloat16)[:, None]
+    parts.add("K6 core", f"K6 core B={BATCH} L={Lc} nH={nH}, seq2seq mask "
+              "(bf16, rows padded) vs SDPA (the same mask)",
+              lambda: _build.window_attention(q, k, v, None, bf,
+                                              hd ** -0.5),
+              lambda: F.scaled_dot_product_attention(
+                  q, k, v, attn_mask=sdpa_mask, scale=hd ** -0.5), 12)
+    parts.summary("no gate")
+
+
 def _heads_tc_pitch(g):
     """K15 at N = 245 (B=4, stage 1, shifted: the bias and the shift mask
     in bf16, as the model path passes them, and the mask in f32) and K7 at
@@ -1603,6 +1707,8 @@ def check_kernels(only=None):
         _k1_k4_parts(g)
     if not only or only & {"K3", "K9"}:
         _k3_k9_parts(g)
+    if not only or only & {"K6", "K11"}:
+        _k6_k11_parts(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
@@ -3053,7 +3159,7 @@ def main() -> int:
                "lavender_tpu/ops/encoder_attention.py:322"),
         "K5": ("lavender_tpu_torch/csrc/ffn_post_ln.cu",
                "lavender_tpu/ops/fused_mlp.py:283"),
-        "K6": ("lavender_tpu_torch/csrc/attention.cu",
+        "K6": ("lavender_tpu_torch/csrc/blocks.cu",
                "lavender_tpu/ops/encoder_attention.py:242"),
         "K7": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                "lavender_tpu/ops/encoder_attention.py:75"),
@@ -3067,7 +3173,7 @@ def main() -> int:
                  "lavender_tpu/ops/encoder_attention.py:750"),
         "K10b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:780"),
-        "K11": ("lavender_tpu_torch/csrc/layernorm.cu",
+        "K11": ("lavender_tpu_torch/csrc/gemm_tc.cu",
                 "lavender_tpu/ops/fused_mlp.py:505"),
         "K12": ("lavender_tpu_torch/csrc/layernorm.cu",
                 "lavender_tpu/ops/fused_mlp.py:379"),

@@ -1,12 +1,12 @@
 // Attention core for one window (Swin) or one sequence (BERT) and one head:
 //   o = softmax(q k^T * scale + bias[h] + mask[w], keys with keep == 0 dropped) v
 //
-// Replaces the per-head part of lavender_tpu/ops/encoder_attention.py
-// _attn_block_kernel (K6, with a per-sequence [B, N, N] mask) and the
-// per-(window, head) part of lavender_tpu/ops/swin_block_attn.py
-// _block_kernel (K14) and _block_kernel_wm_shift (K16); _block_kernel_wm
-// (K1) and _attn_block_kernel_kmask (K4) ran here until their wrappers
-// selected the tensor-core forward, and the key-keep vector stays.  Input
+// Replaces the per-(window, head) part of lavender_tpu/ops/
+// swin_block_attn.py _block_kernel (K14) and _block_kernel_wm_shift
+// (K16); _block_kernel_wm (K1), lavender_tpu/ops/encoder_attention.py
+// _attn_block_kernel_kmask (K4) and _attn_block_kernel (K6, a
+// per-sequence [B, N, N] mask) ran here until they moved to the
+// tensor-core forward, and the key-keep vector stays.  Input
 // is the packed qkv slab [nSeq * N, 3C] that the qkv GEMM writes (columns
 // s*C + h*hd + d, the JAX qkv layout), output [nSeq * N, C]; the bias and
 // the mask are bf16.
@@ -33,9 +33,9 @@
 // (_block_kernel_wm, bias + shift mask) and K4 (_attn_block_kernel_kmask,
 // the key-keep vector).  The selection is an argument, never inferred:
 // K14 and K16 pass the same bias and mask as K1.  This core takes no
-// dropout and writes no lse: it serves the packed slab of K6 (a [B, N, N]
-// mask), K14 and K16, until they move too.  The ragged N is masked in the
-// loops, not padded as on the TPU.
+// dropout and writes no lse: it serves the packed slab of K14 and K16,
+// until they move too (K6 calls the tensor-core forward from blocks.cu).
+// The ragged N is masked in the loops, not padded as on the TPU.
 //
 // Bound on the card: the score and pv FLOPs (4 * N^2 * hd per block).  This
 // core runs them on the f32 pipes, one query row per thread (rows
@@ -45,9 +45,9 @@
 // for a Swin window, 71 KB for a 276-token BERT sequence) read as
 // warp-broadcast 16-byte vectors, and keys taken in chunks of 16 so the
 // running-max rescale of the accumulator is paid once per chunk.  Scores
-// never leave registers.  Moving K6's, K14's and K16's calls onto the
-// tensor-core tiles of attention_fwd_tc.cu, as K1's and K4's moved, is
-// queued; the core goes when its last caller does.
+// never leave registers.  Moving K14's and K16's calls onto the
+// tensor-core tiles of attention_fwd_tc.cu, as K1's, K4's and K6's moved,
+// is queued; the core goes when its last caller does.
 #include <math.h>
 
 #include "attention_tc.cuh"
@@ -241,7 +241,7 @@ int heads_tc(const void* q, const void* k, const void* v, void* out, const long 
 // (attention_fwd_tc.cu; nW must divide nSeq; no bias with dropout; keep
 // only without lse, dropout and bias): K10a with dropout, K8a with a bias,
 // K1 (tensor_cores) with a bias, K4 (tensor_cores) with keep; any other on
-// the f32 pipes, which take neither lse nor dropout (K6, K14, K16).
+// the f32 pipes, which take neither lse nor dropout (K14, K16).
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,

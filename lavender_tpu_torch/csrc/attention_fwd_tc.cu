@@ -27,9 +27,12 @@
 // the bf16 shift mask or none, K8a's instantiation without lse) and
 // lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask (:322,
 // K4: the packed slab [B*L, 3C] with a key-keep vector [B, L], the KEEP
-// variant).  All reach it through the C entries of attention.cu: every
-// call that writes lse, every heads-layout call, and the packed calls
-// that select it (K1 and K4).  The packed calls of K6, K14 and K16 stay on
+// variant) and _attn_block_kernel (:242, K6: the packed slab under a bf16
+// [B, L, L] mask, clamped at -1e4, one mask a sequence, no key skipped).
+// All reach it through the C entries of attention.cu (every call that
+// writes lse, every heads-layout call, and the packed calls that select
+// it, K1 and K4) but K6, whose C entry in blocks.cu calls it directly
+// with the mask's pitch.  The packed calls of K14 and K16 stay on
 // attention.cu's f32-pipe core.  The rows of the mask and of the bias lie
 // mask_ld / bias_ld elements apart (N, or a pitch a wrapper rounded up to
 // 16 bytes so that the widest copy runs).

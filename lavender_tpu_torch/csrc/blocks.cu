@@ -1,4 +1,4 @@
-// The two whole-block kernels K1 and K4, and the LN + MLP of K3 and K9,
+// The whole-block kernels K1, K4 and K6, and the LN + MLP of K3 and K9,
 // as one C entry each: their primitives launched back to back on one
 // stream from one call, so that the host pays one crossing into the
 // library a block instead of one a launch (at B = 4 serving, K1's stage-3
@@ -14,7 +14,11 @@
 // residual.  K4, lavender_tpu/ops/encoder_attention.py
 // _attn_block_kernel_kmask (:322): q | k | v in one tile-GEMM launch ->
 // the core on the tensor cores with the key-keep vector -> proj as f32
-// K-slices -> the row kernel (+ bias + residual, LN).  K9,
+// K-slices -> the row kernel (+ bias + residual, LN).  K6,
+// _attn_block_kernel (:242), is K4 under a full additive [B, L, L] mask:
+// the same launches, the core reading sequence b's mask rows (bf16,
+// clamped at -1e4 by the caller, a pitch of its own) where K4 reads the
+// keep vector, and no key skipped.  K9,
 // lavender_tpu/ops/fused_mlp.py _kernel (:91), and K3, _chunked_kernel
 // (:183): the MLP half of K1 on its own, LN -> fc1 + bias + GELU -> fc2 +
 // bias (+ residual), the hidden layer [M, 4C] in device memory (the TPU
@@ -29,6 +33,7 @@
 // The intermediates live in one scratch buffer that the caller passes;
 // the tile heights and K-slices are the caller's plan
 // (lavender_tpu_torch/ops/_build.py gemm_tc_plan, ln_mlp_plan).
+#include "attention_tc.cuh"
 #include "gemm_tc.cuh"
 
 LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
@@ -153,25 +158,20 @@ LVT_EXPORT int lvt_ln_mlp_bf16(const void* x, const void* ln_w, const void* ln_b
                  C, HD, bm1, bm2, S, static_cast<cudaStream_t>(stream));
 }
 
-// K4: out [M, C] = LN(x + proj(attention(q, k, v))) for x [M, C] = [B * L,
-// C]: wq, wk, wv, wproj [C, C], bq, bk, bv (each may be null), bproj, ln_w,
-// ln_b, keep [B, L] uint8 (4-byte aligned), all contiguous; bm_qkv the q |
-// k | v launch's tile height, bm_proj and S the proj's and its K-slices.
-// scratch: lvt_bert_attn_block_scratch(M, C, S) bytes.
-LVT_EXPORT long long lvt_bert_attn_block_scratch(int M, int C, int S) {
-  const long long r = ((long long)M * C * 2 + 255) / 256 * 256;
-  return 4 * r + ((long long)S * M * C * 4 + 255) / 256 * 256;  // qkv (3), o, part
-}
+namespace {
 
-LVT_EXPORT int lvt_bert_attn_block_bf16(const void* x, const void* wq, const void* wk,
-                                        const void* wv, const void* bq, const void* bk,
-                                        const void* bv, const void* wproj, const void* bproj,
-                                        const void* ln_w, const void* ln_b, const void* keep,
-                                        void* scratch, void* out, int B, int L, int C, int nH,
-                                        float scale, float eps, int bm_qkv, int bm_proj, int S,
-                                        void* stream) {
-  if (B <= 0 || L <= 0 || C <= 0 || nH <= 0 || C % nH) return (int)cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
+// The BERT attention sub-block of K4 and K6: q | k | v in one tile-GEMM
+// launch into the packed slab, the core on the tensor cores under the
+// key-keep vector (K4) or the bf16 [B, L, L] mask, rows mask_ld apart
+// (K6; sequence b reads mask + b L mask_ld), the proj as f32 K-slices,
+// then the row kernel (+ bias + residual, LN).
+int bert_block(const void* x, const void* wq, const void* wk, const void* wv, const void* bq,
+               const void* bk, const void* bv, const void* wproj, const void* bproj,
+               const void* ln_w, const void* ln_b, const void* keep, const void* mask,
+               int mask_ld, void* scratch, void* out, int B, int L, int C, int nH, float scale,
+               float eps, int bm_qkv, int bm_proj, int S, cudaStream_t st) {
+  if (B <= 0 || L <= 0 || C <= 0 || nH <= 0 || C % nH || (keep == nullptr) == (mask == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int M = B * L;
   char* at = static_cast<char*>(scratch);
   bf16* qkv = reinterpret_cast<bf16*>(take(at, (size_t)M * 3 * C * 2));
@@ -192,12 +192,57 @@ LVT_EXPORT int lvt_bert_attn_block_bf16(const void* x, const void* wq, const voi
                 M, C, C, lvt::kEpiBias, bm_qkv, 1};
   int err = lvt::gemm_tc(g, st);
   if (err) return err;
-  if ((err = lvt_attention_bf16(qkv, o, nullptr, nullptr, keep, nullptr, B, L, nH, C / nH, 1,
-                                scale, nullptr, 0u, 1.0f, 1, stream)))
-    return err;
+  const long long ld = 3LL * C, hd = C / nH;
+  lvt::TcFwd a{{qkv, qkv + C, qkv + 2 * C}, o,
+               {{L * ld, hd, ld}, {L * ld, hd, ld}, {L * ld, hd, ld}, {(long long)L * C, hd, C}},
+               nullptr, mask, nullptr, nullptr, 0u, 1.0f, scale, B, L, nH, mask != nullptr ? B : 1,
+               mask_ld};
+  a.keep = static_cast<const uint8_t*>(keep);
+  if ((err = lvt::attention_fwd_tc(a, (int)hd, false, st))) return err;
   g = {o, C, {static_cast<const bf16*>(wproj)}, {nullptr}, 1, part, C, nullptr, 0, M, C, C,
        lvt::kEpiPartial, bm_proj, S};
   if ((err = lvt::gemm_tc(g, st))) return err;
   return lvt::rows_ln(part, S, X, static_cast<const bf16*>(bproj), static_cast<const bf16*>(ln_w),
                       static_cast<const bf16*>(ln_b), static_cast<bf16*>(out), M, C, eps, st);
+}
+
+}  // namespace
+
+// K4: out [M, C] = LN(x + proj(attention(q, k, v))) for x [M, C] = [B * L,
+// C]: wq, wk, wv, wproj [C, C], bq, bk, bv (each may be null), bproj, ln_w,
+// ln_b, keep [B, L] uint8 (4-byte aligned), all contiguous; bm_qkv the q |
+// k | v launch's tile height, bm_proj and S the proj's and its K-slices.
+// scratch: lvt_bert_attn_block_scratch(M, C, S) bytes.
+LVT_EXPORT long long lvt_bert_attn_block_scratch(int M, int C, int S) {
+  const long long r = ((long long)M * C * 2 + 255) / 256 * 256;
+  return 4 * r + ((long long)S * M * C * 4 + 255) / 256 * 256;  // qkv (3), o, part
+}
+
+LVT_EXPORT int lvt_bert_attn_block_bf16(const void* x, const void* wq, const void* wk,
+                                        const void* wv, const void* bq, const void* bk,
+                                        const void* bv, const void* wproj, const void* bproj,
+                                        const void* ln_w, const void* ln_b, const void* keep,
+                                        void* scratch, void* out, int B, int L, int C, int nH,
+                                        float scale, float eps, int bm_qkv, int bm_proj, int S,
+                                        void* stream) {
+  return bert_block(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b, keep, nullptr, 0,
+                    scratch, out, B, L, C, nH, scale, eps, bm_qkv, bm_proj, S,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// K6: the same sub-block under an additive bf16 mask [B, L, L] (clamped
+// and cast by the caller; masked keys are not skipped: a row whose every
+// key is at -1e4 takes the softmax over those scores), its rows mask_ld
+// >= L elements apart, 16-byte aligned; the rest and the scratch as K4's.
+LVT_EXPORT int lvt_bert_attn_block_mask_bf16(const void* x, const void* wq, const void* wk,
+                                             const void* wv, const void* bq, const void* bk,
+                                             const void* bv, const void* wproj, const void* bproj,
+                                             const void* ln_w, const void* ln_b, const void* mask,
+                                             int mask_ld, void* scratch, void* out, int B, int L,
+                                             int C, int nH, float scale, float eps, int bm_qkv,
+                                             int bm_proj, int S, void* stream) {
+  if (mask == nullptr || mask_ld < L) return (int)cudaErrorInvalidValue;
+  return bert_block(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b, nullptr, mask, mask_ld,
+                    scratch, out, B, L, C, nH, scale, eps, bm_qkv, bm_proj, S,
+                    static_cast<cudaStream_t>(stream));
 }

@@ -16,9 +16,14 @@
 // fc2 (lavender_tpu/ops/fused_mlp.py _ffn_post_ln_kernel, ffn_post_ln.cu)
 // run here too, and its LN in the row kernel; so do K3's and K9's LN +
 // MLP (lavender_tpu/ops/fused_mlp.py _chunked_kernel and _kernel, through
-// blocks.cu), whose fc2 K-slices the row kernel sums without an LN.  The
-// other products of the port (K6, K11, K12, K14, K16) stay on gemm.cu's
-// wmma tiles.
+// blocks.cu), whose fc2 K-slices the row kernel sums without an LN; K6's
+// (encoder_attention.py _attn_block_kernel, K4's launches under a full
+// mask, blocks.cu); and K11's proj (fused_mlp.py _out_ln_train_kernel:
+// f32 K-slices that the row kernel's dropout mode sums with the bias,
+// drops by the counter hash of dropout.cuh, adds to the residual and
+// normalizes, writing the keep mask, lvt_gemm_tc_dropout_ln_bf16 below).
+// The other products of the port (K12, K14, K16) stay on gemm.cu's wmma
+// tiles.
 //
 // Bound on the card: at B = 4 serving, Swin-B stages 1-2 (M = 63,488 /
 // 15,872 rows, K = C = 128 / 256) by device memory (the stage-1 qkv
@@ -49,6 +54,7 @@
 // Every output element is summed by one thread in a fixed order (the
 // K-slices by the row kernel in slice order); nothing is atomic, so two
 // calls give the same bits.
+#include "dropout.cuh"
 #include "gemm_tc.cuh"
 
 namespace {
@@ -312,15 +318,25 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return s;
 }
 
+// The row kernel's modes: the sum alone, + LN, or dropout + LN.
+enum RowsMode { kRowsSum = 0, kRowsLn = 1, kRowsDropLn = 2 };
+
 // out[row] = LN(sum_s P[s, row] + b + x[row]), 4 columns a thread (C / 4
 // threads, rounded up to whole warps; the rest add zeros to the sums).
-// Without LN: out[row] = sum_s P[s, row] + b + x[row] rounded to bf16, b
-// and x each may be null (ln_w, ln_b and eps unread).
-template <bool LN>
+// kRowsSum: out[row] = sum_s P[s, row] + b + x[row] rounded to bf16, b
+// and x each may be null (ln_w, ln_b and eps unread).  kRowsDropLn:
+// out[row] = LN(x[row] + m * (sum_s P[s, row] + b)), m the dropout of
+// element (row, col) from dropout.cuh's hash (stream row, index col: the
+// bits dropout_add_ln draws), kept values scaled by drop_scale, and the
+// keep mask written as one byte an element (all ones without a seed);
+// the other modes read none of keep, seed, thresh and drop_scale.
+template <int MODE>
 __global__ void __launch_bounds__(256)
     rows_kernel(const float* __restrict__ P, int S, const bf16* __restrict__ x,
                 const bf16* __restrict__ b2, const bf16* __restrict__ ln_w,
-                const bf16* __restrict__ ln_b, bf16* __restrict__ out, int M, int C, float eps) {
+                const bf16* __restrict__ ln_b, bf16* __restrict__ out, int M, int C, float eps,
+                uint8_t* __restrict__ keep, const int64_t* __restrict__ seed, uint32_t thresh,
+                float drop_scale) {
   __shared__ float red[8];
   const bool on = (int)threadIdx.x * 4 < C;
   const int c = on ? (int)threadIdx.x * 4 : 0;  // an idle thread reads column 0
@@ -330,7 +346,7 @@ __global__ void __launch_bounds__(256)
     const float4 q = *reinterpret_cast<const float4*>(P + (size_t)s * M * C + off);
     p.x += q.x, p.y += q.y, p.z += q.z, p.w += q.w;
   }
-  if constexpr (!LN) {
+  if constexpr (MODE == kRowsSum) {
     if (!on) return;
     float v[4] = {p.x, p.y, p.z, p.w};
     if (b2 != nullptr) {
@@ -351,8 +367,29 @@ __global__ void __launch_bounds__(256)
   const uint2 xv = *reinterpret_cast<const uint2*>(x + off);
   const float2 x01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.x));
   const float2 x23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xv.y));
-  float v[4] = {p.x + __bfloat162float(b2[c]) + x01.x, p.y + __bfloat162float(b2[c + 1]) + x01.y,
-                p.z + __bfloat162float(b2[c + 2]) + x23.x, p.w + __bfloat162float(b2[c + 3]) + x23.y};
+  float v[4];
+  if constexpr (MODE == kRowsLn) {
+    v[0] = p.x + __bfloat162float(b2[c]) + x01.x;
+    v[1] = p.y + __bfloat162float(b2[c + 1]) + x01.y;
+    v[2] = p.z + __bfloat162float(b2[c + 2]) + x23.x;
+    v[3] = p.w + __bfloat162float(b2[c + 3]) + x23.y;
+  } else {
+    float y[4] = {p.x + __bfloat162float(b2[c]), p.y + __bfloat162float(b2[c + 1]),
+                  p.z + __bfloat162float(b2[c + 2]), p.w + __bfloat162float(b2[c + 3])};
+    uint32_t kb = 0x01010101u;  // the four keep bytes
+    if (seed != nullptr) {
+      const uint32_t key = lvt::dropout_key((uint32_t)*seed, blockIdx.x);
+      kb = 0u;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool kp = lvt::dropout_bits(key, (uint32_t)(c + e)) >= thresh;
+        y[e] = kp ? y[e] * drop_scale : 0.0f;
+        kb |= (uint32_t)kp << (8 * e);
+      }
+    }
+    if (on) *reinterpret_cast<uint32_t*>(keep + off) = kb;
+    v[0] = y[0] + x01.x, v[1] = y[1] + x01.y, v[2] = y[2] + x23.x, v[3] = y[3] + x23.y;
+  }
   const float mean = block_sum(on ? (v[0] + v[1]) + (v[2] + v[3]) : 0.0f, red) / C;
   float q = 0.0f;
 #pragma unroll
@@ -442,16 +479,28 @@ int lvt::gemm_tc(const GemmTc& g, cudaStream_t st) {
 int lvt::rows_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
                  const bf16* ln_b, bf16* out, int M, int C, float eps, cudaStream_t st) {
   if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1) return (int)cudaErrorInvalidValue;
-  rows_kernel<true><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C,
-                                                          eps);
+  rows_kernel<kRowsLn><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C,
+                                                             eps, nullptr, nullptr, 0u, 1.0f);
   return (int)cudaGetLastError();
 }
 
 int lvt::rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, int M, int C,
                   cudaStream_t st) {
   if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1) return (int)cudaErrorInvalidValue;
-  rows_kernel<false><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, nullptr, nullptr, out, M,
-                                                           C, 0.0f);
+  rows_kernel<kRowsSum><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, nullptr, nullptr, out,
+                                                              M, C, 0.0f, nullptr, nullptr, 0u,
+                                                              1.0f);
+  return (int)cudaGetLastError();
+}
+
+int lvt::rows_dropout_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
+                         const bf16* ln_b, bf16* out, uint8_t* keep, int M, int C, float eps,
+                         const int64_t* seed, uint32_t thresh, float drop_scale,
+                         cudaStream_t st) {
+  if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1 || keep == nullptr)
+    return (int)cudaErrorInvalidValue;
+  rows_kernel<kRowsDropLn><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(
+      part, S, x, b, ln_w, ln_b, out, M, C, eps, keep, seed, thresh, drop_scale);
   return (int)cudaGetLastError();
 }
 
@@ -495,4 +544,28 @@ LVT_EXPORT int lvt_gemm_tc_ln_bf16(const void* a, int lda, const void* w, const 
   return lvt::rows_ln(static_cast<const float*>(part), S, static_cast<const bf16*>(x),
                       static_cast<const bf16*>(b), static_cast<const bf16*>(ln_w),
                       static_cast<const bf16*>(ln_b), static_cast<bf16*>(out), M, C, eps, st);
+}
+
+// (out, keep) = (LN(x + dropout(a [M, K] . w [C, K]^T + b)) * ln_w + ln_b,
+// the keep mask [M, C] as one byte an element): the product as S f32
+// K-slices into part [S, M, C] (bm-row tiles), then the row kernel's
+// dropout mode; seed an int64 on the device (null: no dropout, keep all
+// ones), element (row, col) kept iff its bits >= thresh and scaled by
+// drop_scale.  a's rows lda apart, the rest contiguous, all bf16 but
+// part and keep.
+LVT_EXPORT int lvt_gemm_tc_dropout_ln_bf16(const void* a, int lda, const void* w, const void* b,
+                                           const void* x, const void* ln_w, const void* ln_b,
+                                           void* part, void* out, void* keep, int M, int C, int K,
+                                           int bm, int S, float eps, const void* seed,
+                                           uint32_t thresh, float drop_scale, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  lvt::GemmTc g{static_cast<const bf16*>(a), lda, {static_cast<const bf16*>(w)}, {nullptr}, 1,
+                part, C, nullptr, 0, M, C, K, lvt::kEpiPartial, bm, S};
+  const int err = lvt::gemm_tc(g, st);
+  if (err != 0) return err;
+  return lvt::rows_dropout_ln(static_cast<const float*>(part), S, static_cast<const bf16*>(x),
+                              static_cast<const bf16*>(b), static_cast<const bf16*>(ln_w),
+                              static_cast<const bf16*>(ln_b), static_cast<bf16*>(out),
+                              static_cast<uint8_t*>(keep), M, C, eps,
+                              static_cast<const int64_t*>(seed), thresh, drop_scale, st);
 }

@@ -54,6 +54,17 @@ int rows_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* 
 int rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, int M, int C,
              cudaStream_t stream);
 
+// The same row kernel with the hidden dropout of K11 before the residual:
+// out[row] = LN(x[row] + m * (sum_s part[s, row] + b)) in f32, m the
+// dropout of element (row, col) from the counter hash of dropout.cuh
+// (stream row, index col), kept iff its bits >= thresh and scaled by
+// drop_scale; keep [M, C] receives m != 0 as one byte an element (all
+// ones where seed, an int64 on the device, is null: no dropout).  C % 4
+// == 0, C <= 1024.  Returns a cudaError_t.
+int rows_dropout_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
+                    const bf16* ln_b, bf16* out, uint8_t* keep, int M, int C, float eps,
+                    const int64_t* seed, uint32_t thresh, float drop_scale, cudaStream_t stream);
+
 namespace wg {
 
 constexpr int BN = 128;  // a tile's columns: the m64n128k16 product's n

@@ -27,16 +27,16 @@
 // an instruction and reached about 0.4 TB/s at C = 128 on an H100 SXM at
 // 700 W (126,976 rows, the B = 8 stage-1 LN2: 0.17 ms of K9's 0.34).
 //
-// dropout_add_ln is the row epilogue of the BERT train kernels K11
-// (lavender_tpu/ops/fused_mlp.py _out_ln_train_kernel) and K12
-// (_ffn_post_ln_train_kernel): y = LN(res + m * x) with m the hidden dropout
-// of element (row, col) drawn from the counter hash of dropout.cuh (stream
-// row, index col), in f32, and the binary keep mask written beside y as
-// uint8 for the backward to replay (the TPU kernels export it as bf16 0/1).
-// x is the bf16 output of the GEMM before it (projection + bias, or fc2 +
-// bias).  Same design and bound as the LN: one warp per row held in
-// registers; device memory sees x, res and y (2 bytes each) and the mask
-// (1 byte) once.
+// dropout_add_ln is the row epilogue of the BERT train kernel K12
+// (lavender_tpu/ops/fused_mlp.py _ffn_post_ln_train_kernel; K11,
+// _out_ln_train_kernel, ran it until its proj moved to gemm_tc.cu, whose
+// row kernel draws the same bits): y = LN(res + m * x) with m the hidden
+// dropout of element (row, col) drawn from the counter hash of dropout.cuh
+// (stream row, index col), in f32, and the binary keep mask written beside
+// y as uint8 for the backward to replay (the TPU kernels export it as bf16
+// 0/1).  x is the bf16 output of the GEMM before it (fc2 + bias).  Same
+// design and bound as the LN: one warp per row held in registers; device
+// memory sees x, res and y (2 bytes each) and the mask (1 byte) once.
 #include "common.cuh"
 #include "dropout.cuh"
 

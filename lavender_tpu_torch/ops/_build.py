@@ -9,8 +9,9 @@ rebuilds and an unchanged one is loaded as is.
 
 The primitives bound here (tiled GEMM with fused epilogues, optionally
 scattering its rows; the wgmma + TMA tile GEMM with its split-K row-LN
-epilogue; row LayerNorm, with or without its affine, optionally
-gathering its rows, and its dropout + residual variant, attention core (on
+epilogue, with or without the hidden dropout; row LayerNorm, with or
+without its affine, optionally gathering its rows, and its dropout +
+residual variant, attention core (on
 the packed qkv slab, on the f32 pipes or, where the caller selects them,
 the tensor cores; and on the tensor cores, the
 packed slab or strided heads-layout q, k, v, with a per-head bias, a
@@ -82,6 +83,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P],
     "lvt_gemm_tc_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _F, _P],
+    "lvt_gemm_tc_dropout_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _F, *_DROP, _P],
     "lvt_swin_block_wm_scratch": [_I, _I, _I],
     "lvt_swin_block_wm_bf16": [_P] * 17 + [_I] * 6 + [_F, _F, _INTS, _P],
     "lvt_bert_attn_block_scratch": [_I, _I, _I],
@@ -90,6 +93,8 @@ _SIGNATURES = {
                                    _I, _I, _I, _I, _P],
     "lvt_bert_attn_block_bf16": [_P] * 14 + [_I] * 4 + [_F, _F, _I, _I, _I,
                                                        _P],
+    "lvt_bert_attn_block_mask_bf16": [_P] * 12 + [_I, _P, _P] + [_I] * 4 + [
+        _F, _F, _I, _I, _I, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
     "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
@@ -561,7 +566,7 @@ def attention_route(*, tensor_cores: bool = False, lse: bool = False,
     """The core a packed-slab ``attention`` call runs on, from what it
     carries: "tensor_cores" (``csrc/attention_fwd_tc.cu``) where the caller
     selects them (K1, K4) or asks for lse (K8a, K10a), else "f32" (the
-    f32-pipe core of ``csrc/attention.cu``: K6, K14, K16).  The selection
+    f32-pipe core of ``csrc/attention.cu``: K14, K16).  The selection
     is the caller's and never inferred from the other arguments: K14 and
     K16 pass the same bias and mask as K1.  Raises on what neither core
     takes: dropout without lse or with a bias; on the tensor cores a keep
@@ -972,9 +977,9 @@ def _tc_rows(t: torch.Tensor, M: int, N: int, what: str):
     in place (``tile_rows_ok``)."""
     if not (t.is_cuda and t.dtype == torch.bfloat16 and t.dim() == 2
             and tile_rows_ok(t.shape, t.stride(), t.data_ptr(), M, N)):
-        raise ValueError(f"{what}: expected a bf16 CUDA [{M}, {N}], rows "
-                         f"contiguous, their pitch a multiple of 8 and >= "
-                         f"{N}, 16-byte aligned; got {t.dtype} "
+        raise ValueError(f"{what}: expected a bf16 CUDA tensor [{M}, {N}], "
+                         f"rows contiguous, their pitch a multiple of 8 and "
+                         f">= {N}, 16-byte aligned; got {t.dtype} "
                          f"{tuple(t.shape)} strides {t.stride()} on "
                          f"{t.device}")
 
@@ -1026,6 +1031,26 @@ def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
     return out
 
 
+def _gemm_tc_ln_args(a, w, bias, residual, ln_w, ln_b, what):
+    """Checks of ``gemm_tc_ln`` and ``gemm_tc_dropout_ln``; returns (M, C,
+    K, the split plan, the stream, the address of the f32 slices)."""
+    M, K = a.shape
+    C = w.shape[0]
+    if C % 8 or K % 8 or C > 1024:
+        raise ValueError(f"{what}: unsupported C={C}, K={K} (multiples of "
+                         "8, C <= 1024)")
+    _tc_rows(a, M, K, f"{what} a")
+    dev = a.device
+    _tc_operand(w, (C, K), dev, f"{what} w")
+    _tc_operand(residual, (M, C), dev, f"{what} residual")
+    for t, name in ((bias, "bias"), (ln_w, "ln_w"), (ln_b, "ln_b")):
+        _tc_operand(t, (C,), dev, f"{what} {name}")
+    plan = gemm_tc_plan(M, C, K, split=True)
+    stream = _stream(a)
+    return M, C, K, plan, stream, _scratch(a, stream,
+                                           plan.splits * M * C * 4)
+
+
 def gemm_tc_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                residual: torch.Tensor, ln_w: torch.Tensor,
                ln_b: torch.Tensor, eps: float) -> torch.Tensor:
@@ -1036,27 +1061,41 @@ def gemm_tc_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     the LN in f32.  a [M, K] (rows contiguous), w [C, K], residual [M, C]
     contiguous, bias, ln_w, ln_b [C]; C % 8 == 0, C <= 1024.  Two
     launches, one C call."""
-    M, K = a.shape
-    C = w.shape[0]
-    if C % 8 or K % 8 or C > 1024:
-        raise ValueError(f"gemm_tc_ln: unsupported C={C}, K={K} (multiples "
-                         "of 8, C <= 1024)")
-    _tc_rows(a, M, K, "gemm_tc_ln a")
-    dev = a.device
-    _tc_operand(w, (C, K), dev, "gemm_tc_ln w")
-    _tc_operand(residual, (M, C), dev, "gemm_tc_ln residual")
-    for t, what in ((bias, "bias"), (ln_w, "ln_w"), (ln_b, "ln_b")):
-        _tc_operand(t, (C,), dev, f"gemm_tc_ln {what}")
-    plan = gemm_tc_plan(M, C, K, split=True)
-    stream = _stream(a)
-    part = _scratch(a, stream, plan.splits * M * C * 4)
-    out = torch.empty(M, C, dtype=a.dtype, device=dev)
+    M, C, K, plan, stream, part = _gemm_tc_ln_args(
+        a, w, bias, residual, ln_w, ln_b, "gemm_tc_ln")
+    out = torch.empty(M, C, dtype=a.dtype, device=a.device)
     err = library().lvt_gemm_tc_ln_bf16(
         a.data_ptr(), a.stride(0), w.data_ptr(), bias.data_ptr(),
         residual.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), part,
         out.data_ptr(), M, C, K, plan.bm, plan.splits, float(eps), stream)
     _raise_on(err, "lvt_gemm_tc_ln_bf16")
     return out
+
+
+def gemm_tc_dropout_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                       residual: torch.Tensor, ln_w: torch.Tensor,
+                       ln_b: torch.Tensor, eps: float,
+                       seed: Optional[torch.Tensor], rate: float):
+    """``(LN(residual + dropout(a @ w.T + bias)), keep)`` (K11): the
+    product as ``gemm_tc_ln``'s f32 K-slices, then the row kernel's
+    dropout mode sums them in slice order with the bias, drops element
+    (row, col) by the counter hash of ``seed`` (``dropout.row_keep``, the
+    bits ``dropout_add_ln`` draws), scales the kept ones by 1 / (1 -
+    rate), adds the residual and applies the LN, all in f32; the bool keep
+    mask [M, C] is returned (all True at rate 0).  Shapes as
+    ``gemm_tc_ln``'s.  Two launches, one C call."""
+    M, C, K, plan, stream, part = _gemm_tc_ln_args(
+        a, w, bias, residual, ln_w, ln_b, "gemm_tc_dropout_ln")
+    seed_ptr, thresh, scale = _dropout_args(seed, rate, a.device)
+    out = torch.empty(M, C, dtype=a.dtype, device=a.device)
+    keep = torch.empty(M, C, dtype=torch.bool, device=a.device)
+    err = library().lvt_gemm_tc_dropout_ln_bf16(
+        a.data_ptr(), a.stride(0), w.data_ptr(), bias.data_ptr(),
+        residual.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), part,
+        out.data_ptr(), keep.data_ptr(), M, C, K, plan.bm, plan.splits,
+        float(eps), seed_ptr, thresh, scale, stream)
+    _raise_on(err, "lvt_gemm_tc_dropout_ln_bf16")
+    return out, keep
 
 
 @functools.lru_cache(maxsize=256)
@@ -1234,14 +1273,18 @@ def _bert_block_plan(M: int, C: int):
 def bert_attn_block(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
                     wv: torch.Tensor, bq, bk, bv, wproj: torch.Tensor,
                     bproj: torch.Tensor, ln_w: torch.Tensor,
-                    ln_b: torch.Tensor, keep: torch.Tensor, B: int, L: int,
-                    n_heads: int, scale: float, eps: float) -> torch.Tensor:
-    """K4's whole sub-block in one call (``csrc/blocks.cu``): x [B * L, C]
-    -> LN(x + proj(attention(q, k, v))) under the key-keep vector keep
-    [B, L] (bool or uint8; 0 drops the key): q | k | v in one ``gemm_tc``
-    launch, the core on the tensor cores, proj + residual + LN as
-    ``gemm_tc_ln``, from one C call.  All bf16 but keep, contiguous, on one
-    card; C <= 1024 and a multiple of 8, head dim 16, 32 or 64."""
+                    ln_b: torch.Tensor, keep: Optional[torch.Tensor], B: int,
+                    L: int, n_heads: int, scale: float, eps: float,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4's and K6's whole sub-block in one call (``csrc/blocks.cu``): x
+    [B * L, C] -> LN(x + proj(attention(q, k, v))) under the key-keep
+    vector keep [B, L] (bool or uint8; 0 drops the key; K4) or, with keep
+    None, the additive bf16 ``mask`` [B, L, L] (K6: clamped by the caller,
+    its rows contiguous, one pitch, 16-byte aligned, e.g. ``padded_rows``;
+    no key is skipped): q | k | v in one ``gemm_tc`` launch, the core on
+    the tensor cores, proj + residual + LN as ``gemm_tc_ln``, from one C
+    call.  All bf16 but keep, contiguous, on one card; C <= 1024 and a
+    multiple of 8, head dim 16, 32 or 64."""
     _check(x, "bert_attn_block x")
     M, C = x.shape
     hd = C // n_heads
@@ -1259,26 +1302,40 @@ def bert_attn_block(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
     for t, what in ((bq, "bq"), (bk, "bk"), (bv, "bv")):
         if t is not None:
             _tc_operand(t, (C,), dev, f"bert_attn_block {what}")
-    if keep.device != dev or tuple(keep.shape) != (B, L):
-        raise ValueError(f"bert_attn_block keep: expected [{B}, {L}] on {dev}, "
-                         f"got {tuple(keep.shape)} on {keep.device}")
-    if keep.dtype == torch.bool and keep.is_contiguous():
-        keep = keep.view(torch.uint8)  # its bytes, read in place
+    if (keep is None) == (mask is None):
+        raise ValueError("bert_attn_block: takes a keep vector or a mask, "
+                         "exactly one")
+    if mask is not None:
+        mask_ld = _row_pitch(mask, B, L, (torch.bfloat16,), dev,
+                             "bert_attn_block mask")
     else:
-        keep = keep.to(torch.uint8).contiguous()
-    if keep.data_ptr() % 4:
-        keep = keep.clone()
+        if keep.device != dev or tuple(keep.shape) != (B, L):
+            raise ValueError(f"bert_attn_block keep: expected [{B}, {L}] on "
+                             f"{dev}, got {tuple(keep.shape)} on "
+                             f"{keep.device}")
+        if keep.dtype == torch.bool and keep.is_contiguous():
+            keep = keep.view(torch.uint8)  # its bytes, read in place
+        else:
+            keep = keep.to(torch.uint8).contiguous()
+        if keep.data_ptr() % 4:
+            keep = keep.clone()
     bm_qkv, bm_proj, splits, nbytes = _bert_block_plan(M, C)
     stream = _stream(x)
     ws = _scratch(x, stream, nbytes)
     out = torch.empty_like(x)
-    err = library().lvt_bert_attn_block_bf16(
-        x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(), _ptr(bq),
-        _ptr(bk), _ptr(bv), wproj.data_ptr(), bproj.data_ptr(),
-        ln_w.data_ptr(), ln_b.data_ptr(), keep.data_ptr(), ws, out.data_ptr(),
-        B, L, C, n_heads, float(scale), float(eps), bm_qkv, bm_proj, splits,
-        stream)
-    _raise_on(err, "lvt_bert_attn_block_bf16")
+    common = (x.data_ptr(), wq.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+              _ptr(bq), _ptr(bk), _ptr(bv), wproj.data_ptr(),
+              bproj.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr())
+    shape = (B, L, C, n_heads, float(scale), float(eps), bm_qkv, bm_proj,
+             splits, stream)
+    if mask is not None:
+        err = library().lvt_bert_attn_block_mask_bf16(
+            *common, mask.data_ptr(), mask_ld, ws, out.data_ptr(), *shape)
+        _raise_on(err, "lvt_bert_attn_block_mask_bf16")
+    else:
+        err = library().lvt_bert_attn_block_bf16(
+            *common, keep.data_ptr(), ws, out.data_ptr(), *shape)
+        _raise_on(err, "lvt_bert_attn_block_bf16")
     return out
 
 

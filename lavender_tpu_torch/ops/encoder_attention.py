@@ -24,16 +24,21 @@ Bound: the products' tensor-core rate at M = B*276 rows.
 
 ``fused_bert_attn_block`` replaces ``_attn_block_kernel`` (K6, :242,
 wrapper ``fused_bert_attn_block_forward`` :261): the same sub-block under
-a full additive [B, L, L] mask (the seq2seq / captioning masks), which the
-wrapper clamps at -1e4 before its bf16 cast (``finfo(f32).min`` would
-become -inf there) and the core adds per sequence.  On the card still
-K4's earlier composition: three wmma GEMMs (``csrc/gemm.cu``) into the
-slab -> the f32-pipe core (``csrc/attention.cu``) -> proj GEMM (+bias,
-+residual) -> LN.  Masked keys are not
+a full additive [B, L, L] mask (the seq2seq / captioning masks, or the
+stride-0 expansion of a key-padding bias under ``LVT_KMASK=0``), which the
+wrapper clamps at -1e4 and casts to bf16 (``finfo(f32).min`` would become
+-inf there) into rows padded to 16 bytes (``padded_clamped_mask``: the
+core stages them by its widest copy), and the core adds per sequence.
+On the card it is K4's one C call with that mask in place of the keep
+vector (``_build.bert_attn_block(..., mask=...)``,
+``lvt_bert_attn_block_mask_bf16`` in ``csrc/blocks.cu``): the same
+q | k | v tile-GEMM launch, the tensor-core forward reading sequence b's
+mask rows, the proj K-slices and the row LN.  Masked keys are not
 skipped: a row whose keys are all masked gets the softmax over its -1e4
 scores, as the JAX oracle ``bert_attn_block_reference`` computes (the TPU
 kernel, which pads L to a multiple of 8, lets its pad keys into such a
-row).  Bound: as K4's, plus the mask read.
+row), and the tensor-core forward without its keep vector has no
+shortcut that zeroes such a row.  Bound: as K4's, plus the mask read.
 
 ``fused_encoder_attention`` replaces ``_enc_attn_kernel`` (K7, :75, wrapper
 ``fused_encoder_attention`` :192): softmax(q k^T * scale + max(mask, -1e4))
@@ -150,15 +155,25 @@ def _core_plain(q, k, v, mask, scale):
     return (p @ v.float()).to(q.dtype)
 
 
-def padded_clamped_mask(mask: torch.Tensor) -> torch.Tensor:
-    """The f32 [B, L, L] mask K7's kernel reads: ``mask`` clamped at -1e4
-    (an autocast cast may have made it bf16, where finfo(f32).min is -inf;
-    the clamp restores it and keeps the kernel's (mask * log2(e) - max)
-    finite), written into rows padded to 16 bytes
-    (``_build.padded_rows``), which the kernel stages by its widest copy."""
+# clamp_min's tensor form (a CPU scalar) computes in the mask's dtype and
+# casts into ``out``, so one launch clamps, casts and pads
+_MASK_FLOOR = torch.tensor(-1e4)
+
+
+def padded_clamped_mask(mask: torch.Tensor,
+                        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The [B, L, L] mask the tensor-core forward reads, in ``dtype`` (f32
+    for K7, bf16 for K6), in one launch: ``mask`` (any strides, a stride-0
+    expansion too) clamped at -1e4 (an autocast cast may have made it
+    bf16, where finfo(f32).min is -inf; the clamp restores it and keeps
+    the kernel's (mask * log2(e) - max) finite), written into rows padded
+    to 16 bytes (``_build.padded_rows``), which the kernel stages by its
+    widest copy.  In f32 the clamp runs in f32; in bf16 the result is the
+    plain versions' ``mask.clamp_min(-1e4).to(torch.bfloat16)``."""
     B, L, _ = mask.shape
-    m = _build.padded_rows(B, L, torch.float32, mask.device)
-    return torch.clamp_min(mask.float(), -1e4, out=m)
+    src = mask.float() if dtype == torch.float32 else mask
+    return torch.clamp_min(src, _MASK_FLOOR,
+                           out=_build.padded_rows(B, L, dtype, mask.device))
 
 
 def _core_cuda(q, k, v, mask, scale):
@@ -192,24 +207,19 @@ def _attn_block_mask_plain(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
 
 def _attn_block_mask_cuda(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w,
                           ln_b, mask, nH, scale, eps=1e-12):
-    """q/k/v GEMMs into one slab -> the f32-pipe core under the mask ->
-    proj GEMM + residual -> LN."""
+    """K4's one C call with the mask, clamped, cast to bf16 and padded, in
+    place of the keep vector."""
     B, L, C = x.shape
-    if tuple(mask.shape) != (B, L, L):
+    if tuple(mask.shape) != (B, L, L) or mask.device != x.device:
         raise ValueError(f"fused_bert_attn_block: mask must be [{B}, {L}, "
-                         f"{L}], got {tuple(mask.shape)}")
+                         f"{L}] on {x.device}, got {tuple(mask.shape)} on "
+                         f"{mask.device}")
     if not x.is_contiguous():
         raise ValueError("BERT attention sub-block: x must be contiguous")
-    x2 = x.view(B * L, C)
-    qkv = torch.empty(B * L, 3 * C, dtype=x.dtype, device=x.device)
-    for i, (w, b) in enumerate(((wq, bq), (wk, bk), (wv, bv))):
-        _build.gemm(x2, w, b, out=qkv[:, i * C:(i + 1) * C])
-    # clamped as the plain version does (an autocast cast may already have
-    # taken finfo(f32).min to -inf in bf16)
-    o = _build.attention(qkv, B, L, nH, scale,
-                         mask=mask.clamp_min(-1e4).to(x.dtype).contiguous())
-    y = _build.gemm(o, wproj, bproj, residual=x2)
-    return _build.layernorm(y, ln_w, ln_b, eps).view(B, L, C)
+    return _build.bert_attn_block(
+        x.view(B * L, C), wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b,
+        None, B, L, nH, scale, eps,
+        mask=padded_clamped_mask(mask, torch.bfloat16)).view(B, L, C)
 
 
 fused_bert_attn_block = _build.KernelOp(

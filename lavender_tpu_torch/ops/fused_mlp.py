@@ -49,14 +49,21 @@ output LN(res + dropout(x W + b)); ``fused_ffn_post_ln_train`` replaces
 ``_ffn_post_ln_train_kernel`` (K12, :379, wrapper
 ``fused_ffn_post_ln_train`` :462): LN(x + dropout(fc2(GELU(fc1 x)))).
 Both return the output and the bool keep mask they drew from ``seed``
-(``dropout.row_keep``: the counter hash of (row, col)).  On the card K11 is
-the proj GEMM (+bias) and K12 the fc1 GEMM (+bias, GELU) -> fc2 GEMM
-(+bias), each followed by the row kernel ``dropout_add_ln``
-(``csrc/layernorm.cu``: dropout, + residual, LN in f32, the keep mask
-written as one byte per element).  Their backward is, as in JAX
-(``_out_ln_bwd`` :592, ``_ffn_train_bwd`` :477), autograd of the plain
-version with the saved keep mask replayed.  Bound: K11 device memory (x,
-res, out, the mask), K12 the two GEMMs.
+(``dropout.row_keep``: the counter hash of (row, col)).  On the card K11
+is one C call, ``_build.gemm_tc_dropout_ln`` (``csrc/gemm_tc.cu``): the
+proj on the wgmma + TMA tiles as f32 K-slices (``gemm_tc_plan(...,
+split=True)``, K4's proj) -> the row kernel's dropout mode, which sums the
+slices in order with the bias, draws the same bits, scales the kept
+values, adds the residual and applies the LN in f32, writing the keep
+mask as one byte an element, 4 a thread; the proj is never rounded to
+bf16 before the dropout (the plain version rounds F.linear's output).
+K12 is still the fc1 GEMM (+bias, GELU) -> fc2 GEMM (+bias) on
+``csrc/gemm.cu``'s wmma tiles, then the scalar row kernel
+``dropout_add_ln`` (``csrc/layernorm.cu``: dropout, + residual, LN in
+f32, the keep mask as one byte per element).  Their backward is, as in
+JAX (``_out_ln_bwd`` :592, ``_ffn_train_bwd`` :477), autograd of the
+plain version with the saved keep mask replayed.  Bound: K11 device
+memory (x, res, out, the mask), K12 the two GEMMs.
 
 GELU is the erf form (the TPU kernels used a clamped polynomial in bf16;
 the JAX oracles use erf): erff in ``gemm.cu`` and K5's short-M kernels,
@@ -217,8 +224,8 @@ class _ReplayFn(torch.autograd.Function):
 
 
 def _out_ln_launch(x, res, w, b, ln_w, ln_b, seed, eps, rate):
-    return _build.dropout_add_ln(_build.gemm(x, w, b), res, ln_w, ln_b, eps,
-                                 seed, rate)
+    return _build.gemm_tc_dropout_ln(x, w, b, res, ln_w, ln_b, eps, seed,
+                                     rate)
 
 
 def _out_ln_train_cuda(x, res, w, b, ln_w, ln_b, seed, eps=1e-12, rate=0.1):

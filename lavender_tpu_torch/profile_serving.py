@@ -2,7 +2,7 @@
 CUDA GPU.
 
     python -m lavender_tpu_torch.profile_serving [--batch 4 8 16 32]
-        [--iters 5] [--top 15] [--train]
+        [--iters 5] [--top 15] [--train | --seq2seq]
 
 Builds the default server (Swin-B + BERT-base, seeded random weights,
 bf16, clips of 5 x 224 x 224, 26 text tokens) and prints, after the
@@ -19,7 +19,10 @@ card's name and power limit as nvidia-smi reports them:
    gaps), and the device time per forward over the unprofiled host-clock
    time per forward of step 1.
 
-With ``--train`` the same for the retrieval-MLM train step instead
+With ``--seq2seq`` the same for the captioning forward instead: the
+server under ``attn_mask_type="seq2seq"`` on 25 text tokens (L = 275),
+the forward that runs the full-mask sub-block K6 in every layer.  With
+``--train`` the same for the retrieval-MLM train step instead
 (``train.trainer`` on the default ``ModelConfig()``: f32 weights, bf16
 autocast, AdamW, B x B pairs, the fusion encoder on its default train
 route through K10 and K11, seeded dropout), per step and train clips/s.
@@ -43,16 +46,31 @@ import torch
 from lavender_tpu_torch.serve import LavenderServer
 
 FRAMES, SIZE, TXT_LEN = 5, 224, 26
+CAP_LEN = 25  # the caption forward's text tokens
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def _requests(batch: int, vocab: int, seed: int = 0):
+def _requests(batch: int, vocab: int, seed: int = 0,
+              txt_len: int = TXT_LEN):
     rs = np.random.RandomState(seed)
     img = rs.randint(0, 256, (batch, FRAMES, SIZE, SIZE, 3)).astype(np.uint8)
-    lens = rs.randint(5, TXT_LEN + 1, batch)
-    mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
-    txt = rs.randint(1, vocab, (batch, TXT_LEN)) * mask
+    lens = rs.randint(5, txt_len + 1, batch)
+    mask = (np.arange(txt_len)[None] < lens[:, None]).astype(np.int64)
+    txt = rs.randint(1, vocab, (batch, txt_len)) * mask
     return img, txt, mask
+
+
+def serving_runner(server, batch: int, seq2seq: bool = False):
+    """(forward closure, unit) for ``batch`` clips on ``server``: the
+    full-mask forward on TXT_LEN text tokens or, with ``seq2seq``, the
+    captioning forward on CAP_LEN (``attn_mask_type="seq2seq"``)."""
+    vocab = server.config.bert.vocab_size
+    if seq2seq:
+        req = _requests(batch, vocab, txt_len=CAP_LEN)
+        return (lambda: server(*req, attn_mask_type="seq2seq"),
+                "seq2seq forward")
+    req = _requests(batch, vocab)
+    return lambda: server(*req), "forward"
 
 
 def _short(name: str) -> str:
@@ -136,8 +154,11 @@ def main() -> int:
     ap.add_argument("--batch", type=int, nargs="+", default=[4])
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--top", type=int, default=15)
-    ap.add_argument("--train", action="store_true",
-                    help="profile the retrieval-MLM train step")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--train", action="store_true",
+                      help="profile the retrieval-MLM train step")
+    what.add_argument("--seq2seq", action="store_true",
+                      help="profile the captioning (seq2seq) forward")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA device")
@@ -150,8 +171,7 @@ def main() -> int:
         runners = [(b, *_train_runner(b)) for b in args.batch[:1]]
     else:
         server = LavenderServer(seed=0, frames=FRAMES, size=SIZE)
-        vocab = server.config.bert.vocab_size
-        runners = [(b, (lambda r=_requests(b, vocab): server(*r)), "forward")
+        runners = [(b, *serving_runner(server, b, args.seq2seq))
                    for b in args.batch]
     host_ms = []
     for b, run, unit in runners:

@@ -57,10 +57,18 @@ Swin-B's four stages and K3 at its stage 4 (and its residual-free part)
 against their plain versions, a second call bitwise equal, K9's
 gradients through the recompute, their one C call at every tile and
 K-slice option of its plan (the row kernel's sum without LN, with and
-without the residual) and the raise on what it does not take; and by
-kernel name that K1, K3, K4 and K9 run the tile GEMM (K1 and K4 the
-tensor-core forward too) while K6, K14 and K16 stay on the wmma GEMM and
-the f32-pipe core.
+without the residual) and the raise on what it does not take; K6 (K4's C
+call under a bf16 mask) at B = 4, L = 275, 252 and 270 under the seq2seq
+mask, a random 0/1 mask, a query row whose every key is masked and the
+stride-0 expansion of a key-padding bias, a second call bitwise equal;
+the tile GEMM's K-slices into the row kernel's dropout mode off the tile
+and at several slices, and K11 at the caption step's 2,200 rows and the
+default step's 17,664 at rates 0, 0.1 and 0.5, keep masks exactly equal,
+its gradients through the mask replay, a second call bitwise equal; and
+by kernel name that K1, K3, K4, K6, K9 and K11 run the tile GEMM (K1, K4
+and K6 the tensor-core forward too, K11 the row kernel) while K12 stays
+on the wmma GEMM and the scalar dropout_add_ln, K14 and K16 on the wmma
+GEMM and the f32-pipe core.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -1442,9 +1450,9 @@ def _device_kernels(fn):
 
 
 def test_cores_and_gemms_each_kernel_runs(gen):
-    """K1 and K4 launch the tile GEMM and the tensor-core forward and
-    neither the wmma GEMM nor the f32-pipe core; K6, K14 and K16 stay on
-    those two."""
+    """K1, K4 and K6 launch the tile GEMM and the tensor-core forward and
+    neither the wmma GEMM nor the f32-pipe core; K14 and K16 stay on those
+    two."""
     def has(names, part):
         return any(part in n for n in names)
 
@@ -1459,14 +1467,14 @@ def test_cores_and_gemms_each_kernel_runs(gen):
     keep[1, 30:] = False
     k4 = _device_kernels(lambda: fused_bert_attn_block_kmask(
         x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, keep, nH, 0.25, 1e-12))
-    for names in (k1, k4):
-        assert has(names, "tile_kernel") and has(names, "fwd_kernel"), names
-        assert not has(names, "gemm_bf16_kernel"), names
-        assert not has(names, "attention_kernel"), names
     mask = torch.zeros(2, L, L, device="cuda")
     mask[1, :, 30:] = torch.finfo(torch.float32).min
     k6 = _device_kernels(lambda: fused_bert_attn_block(
         x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, mask, nH, 0.25, 1e-12))
+    for names in (k1, k4, k6):
+        assert has(names, "tile_kernel") and has(names, "fwd_kernel"), names
+        assert not has(names, "gemm_bf16_kernel"), names
+        assert not has(names, "attention_kernel"), names
     (xs, n1w, n1b, wqkv, bqkv, wp, bp, bias, m, nHs, scale, eps) = args
     xs = xs[:, :4, :245].reshape(1, 5, 14, 14, 256)  # one shifted clip
     k14 = _device_kernels(lambda: fused_swin_block_attn(
@@ -1477,7 +1485,7 @@ def test_cores_and_gemms_each_kernel_runs(gen):
         args[0][:, :4].contiguous(), n1w, n1b, wqkv, bqkv, wp, bp, bias,
         m[:4].contiguous(), (5, 14, 14), (5, 7, 7), (0, 3, 3), nHs, scale,
         eps))
-    for names in (k6, k14, k16):
+    for names in (k14, k16):
         assert has(names, "gemm_bf16_kernel"), names
         assert has(names, "attention_kernel"), names
         assert not has(names, "tile_kernel") and not has(names,
@@ -1618,3 +1626,158 @@ def test_k3_k9_run_the_tile_gemm_and_k14f_the_wmma_gemm(gen):
         scale, eps))
     assert has(names, "gemm_bf16_kernel"), names
     assert not has(names, "tile_kernel"), names
+
+
+def _k6_mask(gen, B, L, kind, n_video=250):
+    """K6's f32 [B, L, L] mask at 0 / finfo(f32).min, as the model passes
+    it: the seq2seq mask (every row sees the video, the text rows the
+    text causally), that mask with one query row whose every key is
+    masked, a random 0/1 mask (at least one open key a row), or the
+    stride-0 expansion of a key-padding bias (``LVT_KMASK=0``: the
+    captions' tails padded, one sequence keeping one key)."""
+    big_neg = torch.finfo(torch.float32).min
+    if kind == "key padding":
+        pad = torch.zeros(B, 1, L, device="cuda")
+        for i, n in enumerate((0, 6, 14, L - 1)[:B]):
+            pad[i, :, L - n:] = big_neg
+        return pad.expand(B, L, L)
+    if kind == "random":
+        keep = torch.rand(B, L, L, generator=gen, device="cuda") < 0.5
+        keep[:, :, 0] = True
+    else:
+        keep = torch.zeros(B, L, L, dtype=torch.bool, device="cuda")
+        keep[:, :, :n_video] = True
+        keep[:, n_video:, n_video:] = torch.ones(
+            L - n_video, L - n_video, dtype=torch.bool, device="cuda").tril()
+        if kind == "masked row":
+            keep[1, L - 3] = False
+    return torch.where(keep, 0.0, big_neg)
+
+
+@pytest.mark.parametrize("L,kind", [
+    (275, "seq2seq"), (252, "seq2seq"), (270, "seq2seq"), (275, "random"),
+    (275, "masked row"), (275, "key padding")])
+def test_k6_at_seq2seq_shapes_matches_plain_bitwise(gen, L, kind):
+    """K6 (K4's C call under the clamped bf16 mask) at the seq2seq
+    forward's B = 4, L = 275 and the re-encode decoder's 252 and 270:
+    within the gate of its plain version, a fully masked query row taking
+    the softmax over its -1e4 scores as the plain version does, the
+    stride-0 mask of ``LVT_KMASK=0`` taken as it is; a second call
+    bitwise equal."""
+    B, C, nH = 4, 768, 12
+    lin = lambda: (_rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.02))
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin() for _ in range(4))
+    mask = _k6_mask(gen, B, L, kind)
+    args = (_rnd(gen, B, L, C), wq, wk, wv, bq, bk, bv, wo, bo,
+            1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1), mask, nH,
+            (C // nH) ** -0.5, 1e-12)
+    before = fused_bert_attn_block.launches
+    got = fused_bert_attn_block(*args)
+    assert fused_bert_attn_block.launches == before + 1
+    want = fused_bert_attn_block.plain(*args)
+    _close(got, want, rel_l2=1e-2)
+    if kind == "masked row":
+        _close(got[1, L - 3], want[1, L - 3], rel_l2=1e-2)
+    assert torch.equal(got, fused_bert_attn_block(*args))
+
+
+def test_bert_attn_block_takes_a_keep_vector_or_a_mask(gen):
+    """The launcher raises on both or neither, and on a mask the kernel
+    does not take (f32, or rows not contiguous)."""
+    B, L, C, nH = 2, 9, 64, 2
+    x, w, b = _rnd(gen, B * L, C), _rnd(gen, C, C), _rnd(gen, C)
+    keep = torch.ones(B, L, dtype=torch.bool, device="cuda")
+    mask = _build.padded_rows(B, L, torch.bfloat16, "cuda").zero_()
+    ws = (x, w, w, w, b, b, b, w, b, b, b)
+    for kw in ({"keep": keep, "mask": mask}, {"keep": None, "mask": None},
+               {"keep": None, "mask": mask.float()},
+               {"keep": None, "mask": mask.transpose(1, 2)}):
+        k = kw.pop("keep")
+        with pytest.raises(ValueError):
+            _build.bert_attn_block(*ws, k, B, L, nH, 0.25, 1e-12, **kw)
+
+
+@pytest.mark.parametrize("M,C,K", [(37, 64, 192), (300, 1024, 4096),
+                                   (2200, 768, 768)])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_gemm_tc_dropout_ln_matches_plain(gen, M, C, K, rate):
+    """K11's C call: the product as the split plan's f32 K-slices (3 at M =
+    37, 2 at 300 x 4096, 1 at 2,200), summed in order by the row kernel's
+    dropout mode with the bias, dropped by the counter hash (keep mask
+    exactly ``dropout.row_keep``), + residual, LN; against the same in
+    f32; a second call bitwise equal."""
+    a, w, b = _rnd(gen, M, K), _rnd(gen, C, K, std=K ** -0.5), _rnd(gen, C)
+    x = _rnd(gen, M, C)
+    lw, lb = 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)
+    seed = torch.tensor([12345], device="cuda")
+    got, keep = _build.gemm_tc_dropout_ln(a, w, b, x, lw, lb, 1e-12, seed,
+                                          rate)
+    want_keep = dropout.row_keep(seed, M, C, rate)
+    assert keep.dtype == torch.bool and torch.equal(keep, want_keep)
+    y = _linear_f32(a, w, b, "bias")
+    if rate > 0.0:
+        y = y * want_keep.float() / (1.0 - rate)
+    want = layer_norm(x.float() + y, lw.float(), lb.float(), 1e-12)
+    _close(got, want, rel_l2=1e-2)
+    again = _build.gemm_tc_dropout_ln(a, w, b, x, lw, lb, 1e-12, seed, rate)
+    assert torch.equal(got, again[0]) and torch.equal(keep, again[1])
+
+
+@pytest.mark.parametrize("M", [8 * 275, 64 * 276])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_k11_at_step_shapes_matches_plain_bitwise(gen, M, rate):
+    """K11 at the caption step's 8 x 275 rows and the default step's 64 x
+    276, C = 768: keep masks exactly the plain version's, the output
+    within the gate, the gradients of every input through the mask
+    replay (``_ReplayFn``) against autograd of the plain version; a
+    second call bitwise equal."""
+    C = 768
+    args = [_rnd(gen, M, C), _rnd(gen, M, C), _rnd(gen, C, C, std=C ** -0.5),
+            _rnd(gen, C, std=0.02), 1 + _rnd(gen, C, std=0.1),
+            _rnd(gen, C, std=0.1)]
+    seed = torch.tensor([4242], device="cuda")
+    dy = _rnd(gen, M, C)
+    before = fused_out_ln_train.launches
+    res = []
+    for f in (fused_out_ln_train, fused_out_ln_train.plain):
+        ins = [t.clone().requires_grad_(True) for t in args]
+        out, keep = f(*ins, seed, 1e-12, rate)
+        res.append((out, keep, torch.autograd.grad(out, ins, dy)))
+    assert fused_out_ln_train.launches == before + 1
+    (ok, kk, gk), (op_, kp, gp) = res
+    assert kk.dtype == torch.bool and torch.equal(kk, kp)
+    if rate == 0.0:
+        assert bool(kk.all())
+    else:
+        assert abs(float(kk.float().mean()) - (1.0 - rate)) < 0.01
+    _close(ok, op_, rel_l2=1e-2)
+    for a, b in zip(gk, gp):
+        _close(a, b, rel_l2=5e-2)
+    again = fused_out_ln_train(*args, seed, 1e-12, rate)
+    assert torch.equal(ok, again[0]) and torch.equal(kk, again[1])
+
+
+def test_k11_runs_the_tile_gemm_and_k12_the_wmma_gemm(gen):
+    """By kernel name: K11 launches the tile GEMM and its row kernel, and
+    neither the wmma GEMM nor the scalar dropout_add_ln; K12 still runs
+    both."""
+    def has(names, part):
+        return any(part in n for n in names)
+
+    M, C = 300, 768
+    x = _rnd(gen, M, C)
+    ln = (1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1))
+    seed = torch.tensor([5], device="cuda")
+    k11 = _device_kernels(lambda: fused_out_ln_train(
+        x, x, _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C), *ln, seed, 1e-12,
+        0.1))
+    assert has(k11, "tile_kernel") and has(k11, "rows_kernel"), k11
+    assert not has(k11, "gemm_bf16_kernel"), k11
+    assert not has(k11, "dropout_add_ln_kernel"), k11
+    k12 = _device_kernels(lambda: fused_ffn_post_ln_train(
+        x, _rnd(gen, 4 * C, C, std=C ** -0.5), _rnd(gen, 4 * C),
+        _rnd(gen, C, 4 * C, std=(4 * C) ** -0.5), _rnd(gen, C), *ln, seed,
+        1e-12, 0.1))
+    assert has(k12, "gemm_bf16_kernel"), k12
+    assert has(k12, "dropout_add_ln_kernel"), k12
+    assert not has(k12, "tile_kernel"), k12

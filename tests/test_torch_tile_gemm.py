@@ -1,10 +1,13 @@
-"""The wgmma + TMA tile GEMM's launch plans (``_build.gemm_tc_plan``, and
-``_build.ln_mlp_plan`` of K3's and K9's LN + MLP) and its row-pitch rule
-(``_build.tile_rows_ok``), the packed attention core's selection
-(``_build.attention_route``), and which primitives the whole-block
-kernels' card paths call: K1, K3, K4 and K9 their one C call each
-(``csrc/blocks.cu``: the tile GEMM and the tensor-core core), K6, K14 and
-K16 the wmma GEMM and the f32-pipe core.
+"""The wgmma + TMA tile GEMM's launch plans (``_build.gemm_tc_plan``, its
+split plan at K11's rows too, and ``_build.ln_mlp_plan`` of K3's and K9's
+LN + MLP) and its row-pitch rule (``_build.tile_rows_ok``), the packed
+attention core's selection (``_build.attention_route``), K6's mask as its
+C call takes it (``padded_clamped_mask``), and which primitives the
+kernels' card paths call: K1, K3, K4, K6 (under its mask, no keep
+vector) and K9 their one C call each (``csrc/blocks.cu``: the tile GEMM
+and the tensor-core core), K11 its one C call (the tile GEMM's K-slices
+into the row kernel's dropout mode), K12 the wmma GEMM and the scalar
+``dropout_add_ln``, K14 and K16 the wmma GEMM and the f32-pipe core.
 Pure functions, or the card paths run on CPU tensors with the primitives
 replaced by recorders; no kernel runs here."""
 import numpy as np
@@ -134,7 +137,7 @@ def test_tile_rows_take_column_slices(col, pitch, ok):
     ({"lse": True, "bias": True}, "tensor_cores"),            # K8a
     ({"lse": True, "dropout": True}, "tensor_cores"),         # K10a
     ({"bias": True}, "f32"),                                  # K14, K16
-    ({}, "f32"),                                              # K6
+    ({}, "f32"),                                # nothing selected
     ({"keep": True, "bias": True}, "f32")])
 def test_attention_route(kw, route):
     """The caller selects the tensor cores (or asks for lse); a bias, a
@@ -187,16 +190,29 @@ def calls(monkeypatch):
         log.append(("swin_block_wm", args[-1] is not None))
         return torch.zeros_like(x)
 
-    def bert_attn_block(x, *args):
-        log.append(("bert_attn_block", None))
+    def bert_attn_block(x, *args, mask=None):  # args[10]: the keep vector
+        log.append(("bert_attn_block", None if mask is None else
+                    "mask" if args[10] is None else "keep and mask"))
         return torch.zeros_like(x)
+
+    def gemm_tc_dropout_ln(a, w, *args):
+        log.append(("gemm_tc_dropout_ln", None))
+        out = a.new_zeros(a.shape[0], w.shape[0])
+        return out, out.bool()
+
+    def dropout_add_ln(x, *args):
+        log.append(("dropout_add_ln", None))
+        return torch.zeros_like(x), torch.zeros_like(x, dtype=torch.bool)
 
     def ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, plan=None):
         log.append(("ln_mlp", residual))
         return torch.zeros_like(x)
 
     for name, fn in (("gemm", gemm), ("gemm_tc", gemm_tc),
-                     ("gemm_tc_ln", gemm_tc_ln), ("layernorm", layernorm),
+                     ("gemm_tc_ln", gemm_tc_ln),
+                     ("gemm_tc_dropout_ln", gemm_tc_dropout_ln),
+                     ("dropout_add_ln", dropout_add_ln),
+                     ("layernorm", layernorm),
                      ("attention", attention),
                      ("swin_block_wm", swin_block_wm),
                      ("bert_attn_block", bert_attn_block),
@@ -258,12 +274,84 @@ def test_k4_runs_its_block_in_one_call(calls):
     assert calls == [("bert_attn_block", None)]
 
 
-def test_k6_k14_k16_stay_on_the_wmma_gemm_and_the_f32_core(calls):
-    encoder_attention._attn_block_mask_cuda(*_bert_args(torch.zeros(2, 9,
-                                                                    9)))
-    assert calls == [("gemm", None)] * 3 + [("attention", False),
-                                            ("gemm", None),
-                                            ("layernorm", None)]
+@pytest.mark.parametrize("expand", [False, True])
+def test_k6_runs_its_block_in_one_call_under_a_mask(calls, expand):
+    """K6's card path is K4's one C call (``_build.bert_attn_block``) with
+    the [B, L, L] mask and no keep vector, also for the stride-0 expansion
+    of a key-padding bias (``LVT_KMASK=0``)."""
+    mask = torch.zeros(2, 9, 9)
+    if expand:
+        mask = torch.zeros(2, 1, 9).expand(2, 9, 9)
+    encoder_attention._attn_block_mask_cuda(*_bert_args(mask))
+    assert calls == [("bert_attn_block", "mask")]
+
+
+@pytest.mark.parametrize("L", [9, 252, 270, 275])
+def test_k6_mask_is_clamped_bf16_in_padded_rows(L):
+    """The mask K6's C call reads: the plain version's clamp at -1e4 and
+    bf16 cast, bit for bit, in rows padded to 16 bytes (L = 275 -> 280),
+    from a finfo(f32).min mask and from a stride-0 expansion."""
+    B = 2
+    g = torch.Generator().manual_seed(L)
+    full = torch.where(torch.rand(B, L, L, generator=g) < 0.5, 0.0,
+                       torch.finfo(torch.float32).min)
+    full += torch.randn(B, L, L, generator=g) * 4e3  # values near -1e4 too
+    for mask in (full, full[:, :1].expand(B, L, L)):
+        m = encoder_attention.padded_clamped_mask(mask, torch.bfloat16)
+        ld = -(-L // 8) * 8
+        assert m.dtype == torch.bfloat16 and m.stride() == (L * ld, ld, 1)
+        assert torch.equal(m, mask.clamp_min(-1e4).to(torch.bfloat16))
+
+
+def _out_ln_args(M=18, C=32):
+    x = torch.zeros(M, C)
+    return (x, x, torch.zeros(C, C), torch.zeros(C), torch.ones(C),
+            torch.zeros(C), torch.zeros(1, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_k11_runs_in_one_call_and_k12_on_the_wmma_gemm(calls, rate):
+    """K11's card path is the one C call of ``_build.gemm_tc_dropout_ln``
+    (the proj's K-slices on the tile GEMM, the row kernel's dropout mode),
+    nothing else; K12 still runs fc1 and fc2 on ``gemm.cu`` and the scalar
+    ``dropout_add_ln``."""
+    out, keep = fused_mlp._out_ln_train_cuda(*_out_ln_args(), 1e-12, rate)
+    assert calls == [("gemm_tc_dropout_ln", None)]
+    assert out.shape == keep.shape == (18, 32)
+    calls.clear()
+    C = 32
+    x, *_ = _out_ln_args(C=C)
+    fused_mlp._ffn_train_cuda(x, torch.zeros(4 * C, C), torch.zeros(4 * C),
+                              torch.zeros(C, 4 * C), torch.zeros(C),
+                              torch.ones(C), torch.zeros(C),
+                              torch.zeros(1, dtype=torch.int64), 1e-12, rate)
+    assert calls == [("gemm", None), ("gemm", None), ("dropout_add_ln", None)]
+
+
+@pytest.mark.parametrize("M", [64 * 276, 40 * 276, 8 * 275])
+def test_k11_split_plan_takes_each_k_step_once_and_fills_the_card(M):
+    """K11's proj plan (``gemm_tc_plan(M, C, C, split=True)``) at the
+    default step's 64 pairs, RetMC's 40 and the caption step's 8 clips of
+    275 tokens: whole 64-deep K-slices that take every step of C = 768
+    once, tiles for at least half the 132 SMs, and one slice wherever
+    128-row tiles alone give half the SMs a tile."""
+    C = 768
+    plan = _build.gemm_tc_plan(M, C, C, split=True)
+    steps = C // _build.TILE_K
+    per = steps // plan.splits
+    assert plan.bm in (128, 64) and per * plan.splits == steps
+    taken = sorted(s * per + c for s in range(plan.splits)
+                   for c in range(per))
+    assert taken == list(range(steps))
+    assert plan.blocks == -(-M // plan.bm) * (C // 128) * plan.splits
+    assert 2 * plan.blocks >= SMS
+    if 2 * -(-M // 128) * (C // 128) >= SMS:
+        assert (plan.bm, plan.splits) == (128, 1)
+
+
+def test_k14_k16_stay_on_the_wmma_gemm_and_the_f32_core(calls):
+    """K14's and K16's card paths still record the LN, the wmma GEMM, the
+    f32-pipe core and the wmma GEMM."""
     C, nH, window, shift = 32, 2, (2, 3, 3), (1, 1, 1)
     N = int(np.prod(window))
     for run in (

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only K1 K4   # and K1's and K4's parts
     python3 chip_smoke.py --only K3 K9   # and K3's and K9's parts
     python3 chip_smoke.py --only K6 K11  # and K6's and K11's parts
+    python3 chip_smoke.py --only K12 K14a K14f  # and K12's and K14's parts
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -25,7 +26,9 @@ nothing is ever run on the CPU instead:
    not hidden under the O(1) residual; for K8b dq, dk, dv and dbias each;
    the BERT train kernels with dropout on and the same seed on both sides
    (K10a at rate 0.1 and 0.5, K10b's dq, dk and dv each, K11's and K12's
-   keep masks exactly equal), on a key mask with padded captions; K10a
+   keep masks exactly equal, K12 at rate 0.1 and 0.5, each call repeated
+   and required bitwise equal, with its device time a call in a CUDA
+   graph), on a key mask with padded captions; K10a
    and K10b (the tensor-core forward and backward) also at rate 0.5 and
    under the seq2seq mask at L=276 and the caption step's L=275, each
    call repeated and required bitwise equal; K6 (the
@@ -40,7 +43,17 @@ nothing is ever run on the CPU instead:
    ``--only K6`` / ``K11``): the proj's K-slices against F.linear, the
    row kernel's dropout mode against its bytes at 3.35 TB/s, at the
    caption step's rows the plan's slices against 2, and K6's core under
-   the bf16 seq2seq mask against scaled_dot_product_attention;
+   the bf16 seq2seq mask against scaled_dot_product_attention; K12's and
+   K14's parts (``_k12_k14_parts``, also under ``--only K12`` / ``K14a``
+   / ``K14f``): K14's gathering chunk LN1 against the scalar gathering
+   LN, its qkv product and its proj's scatter epilogue (and at B=4
+   stages 1-3 its MLP's fc1 + GELU and fc2) against F.linear, its core
+   against scaled_dot_product_attention with the bias and mask rows at
+   245 and at 248 elements; K12's fc1 + GELU and fc2 K-slices against
+   F.linear and its row kernel against its bytes at 3.35 TB/s; first in
+   the phase, by kernel name under torch.profiler, that K14a, K14f and
+   K12 launch the tile GEMM (K14 also the chunk LN and the tensor-core
+   forward) and no ``gemm.cu`` wmma GEMM, f32-pipe core or scalar LN;
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
    rows), K5 each call repeated and required bitwise equal; K2 and K5
    also with their device time a call under torch.profiler beside the
@@ -48,7 +61,10 @@ nothing is ever run on the CPU instead:
    plain version's; K8b's and K7's one-call counterparts are
    scaled_dot_product_attention's backward with a bias that requires
    grad and its forward with the additive mask; K14 (the spatial Swin
-   block, whole and attention half, also minus its residual) and K15
+   block, whole and attention half, also minus its residual, each call
+   repeated and required bitwise equal, with its device time a call in a
+   CUDA graph; the bias and mask as the model passes them, in rows padded
+   to 16 bytes) and K15
    (the per-window attention, its yardstick SDPA with bias + shift mask
    as one additive mask) at the four Swin-B stages at B=4 and B=8,
    shifted and unshifted; K7 and K15 (the tensor-core forward without
@@ -108,7 +124,9 @@ nothing is ever run on the CPU instead:
    by at least 1 nat; (d) step time, train clips/s and peak memory of both
    paths and of the module-math route (``fused_attn_train=False``), in
    turns; (e) ``fused_ffn_train=True``: one step's loss and gradients,
-   kernels vs plain, and the launch counts of one step (K12 12 times);
+   kernels vs plain, and the launch counts of one step (K12 12 times),
+   and its device-busy time under torch.profiler beside the default
+   step's;
    (f) dropout and drop-path 0 on the same weights: the default route
    against the module-math route, loss and gradients;
 6. captioning, on the phase-4 server and on ModelConfig(): (a) the
@@ -128,7 +146,8 @@ nothing is ever run on the CPU instead:
    the launch counts, clips/s beside the window-major route's, in turns;
    (c) the ``remat=True`` train step on ModelConfig() (Swin-B + remat:
    the wm route falls back to K14 everywhere, each block pair recomputed),
-   B=8: loss and gradients kernels vs plain, launches, ten steps lowering
+   B=8: loss and gradients kernels vs plain, launches, its device-busy
+   time under torch.profiler, ten steps lowering
    the loss >= 1 nat, step time and peak memory beside the default
    step's and beside remat with ``BertConfig.remat`` too; each serving
    route's device-busy share under torch.profiler;
@@ -746,7 +765,12 @@ def _spatial_cases(g, lin, ln):
                 n_kind = n_pairs if stage < 4 else 2 * n_pairs
                 mask_b = None if mask is None else mask.to(torch.bfloat16)
                 mask_bytes = 0 if mask is None else mask.numel() * 2
-                args = (x, n1w, n1b, wqkv, bqkv, wproj, bproj, bias, mask_b)
+                # K14 takes the bias and the mask as the model passes them,
+                # bf16 in rows padded to 16 bytes (the serving cache's, the
+                # stage's geometry, the remat step's gather)
+                b14, m14 = (None if t is None else _build.with_padded_rows(t)
+                            for t in (bias, mask_b))
+                args = (x, n1w, n1b, wqkv, bqkv, wproj, bproj, b14, m14)
                 statics = (window, shift if mask is not None else (0, 0, 0),
                            nH, hd ** -0.5, 1e-5)
                 flops = 2.0 * M * C * 4 * C + core_flops
@@ -757,11 +781,13 @@ def _spatial_cases(g, lin, ln):
                     fused_swin_block_full, name + " +MLP",
                     n_kind if not train and stage < 4 else 0,
                     (*args, *mlp, *statics), flops + 16.0 * M * C * C,
-                    nbytes + mlp_bytes, residual=x))
+                    nbytes + mlp_bytes, residual=x, bitwise_repeat=True,
+                    graph_ms=True))
                 cases.append(Case(
                     fused_swin_block_attn, name + " attention half",
                     2 * n_kind if train else (n_kind if stage == 4 else 0),
-                    (*args, *statics), flops, nbytes, residual=x))
+                    (*args, *statics), flops, nbytes, residual=x,
+                    bitwise_repeat=True, graph_ms=True))
                 full = bias.float()[None].expand(B * nW, nH, N, N)
                 if mask is not None:
                     full = (full.reshape(B, nW, nH, N, N)
@@ -918,10 +944,12 @@ def _bert_train_cases(g, lin, ln):
             compare=_keep_compare, bitwise_repeat=True, graph_ms=True))
     w1, b1 = lin(3072, C)
     w2, b2 = lin(C, 3072)
-    cases.append(Case(
-        fused_ffn_post_ln_train, f"M={M} C={C} HD=3072 rate 0.1", layers,
-        (x, w1, b1, w2, b2, lw, lb, seed, 1e-12, 0.1), 4.0 * M * C * 3072,
-        2 * M * C * 2 + M * C + 2 * C * 3072 * 2, compare=_keep_compare))
+    for rate, count in ((0.1, layers), (0.5, 0)):
+        cases.append(Case(
+            fused_ffn_post_ln_train, f"M={M} C={C} HD=3072 rate {rate}",
+            count, (x, w1, b1, w2, b2, lw, lb, seed, 1e-12, rate),
+            4.0 * M * C * 3072, 2 * M * C * 2 + M * C + 2 * C * 3072 * 2,
+            compare=_keep_compare, bitwise_repeat=True, graph_ms=True))
     return cases
 
 
@@ -1536,6 +1564,214 @@ def _k6_k11_parts(g):
     parts.summary("no gate")
 
 
+def _k12_k14_parts(g):
+    """K14's and K12's parts, each against one PyTorch call, and the
+    kernels each one C call launches.  K14 at the four Swin-B stages, B=4
+    (the "fused" serving forward) and B=8 (the remat step), M = B * 5 *
+    side^2 spatial rows of N = 245 windows: the gathering 16-byte-chunk
+    LN1 (``_build.layernorm_rows`` with the row index) against the scalar
+    gathering LN it replaces (``_build.layernorm``); the qkv product and
+    the proj's scatter epilogue (+ residual, ``_build.gemm_tc(...,
+    rows=)``) against F.linear; at B=4 stages 1-3 the MLP's fc1 + GELU and
+    fc2 + residual as ``swin_spatial_plan`` runs them against F.linear;
+    the core on the tensor cores (the forward the C call launches, on
+    heads views of one qkv slab) with the bias and the shift mask at their
+    own 245-element pitch and in rows padded to 248, each against
+    scaled_dot_product_attention with bias + mask as one additive mask.
+    K12 at the train step's 17,664 rows: fc1 + GELU on its plan's tile
+    against F.gelu(F.linear), fc2's f32 K-slices (the partial epilogue
+    alone) against F.linear, and the row kernel's dropout mode (the whole
+    call less the products) against its bytes at 3.35 TB/s, device time
+    in CUDA graphs."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.fused_mlp import ffn_plan
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        _device_rows, rel_pos_bias_wm)
+
+    parts = _Parts()
+    lib = _build.library()
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    window, shift, N = (5, 7, 7), (0, 3, 3), 245
+    for stage, nW, C, nH, side, pairs in SWIN_STAGES:
+        hd, HD = C // nH, 4 * C
+        bias = rel_pos_bias_wm(_rnd(g, 15 * 13 * 13, nH),
+                               relative_position_index((8, 7, 7)), N, N,
+                               torch.bfloat16)
+        sh = shift if stage < 4 else (0, 0, 0)
+        mask = None
+        if stage < 4:
+            mask = torch.as_tensor(compute_shift_mask(
+                5, side, side, window, shift), device="cuda").to(
+                torch.bfloat16)
+        ws = {n: (_rnd(g, o, i, std=i ** -0.5), _rnd(g, o, std=0.02))
+              for n, o, i in (("qkv", 3 * C, C), ("proj", C, C),
+                              ("fc1", HD, C), ("fc2", C, HD))}
+        lw, lb = 1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1)
+        for B in (BATCH, TRAIN_BATCH):
+            M = B * 5 * side * side
+            # K14 calls of this shape in the counted runs: every block of
+            # the stage once a "fused" forward (B=4), twice a remat step
+            count = 2 * pairs * (1 if B == BATCH else 2)
+            rows, _ = _device_rows(B, 5, side, side, window, sh, "cuda")
+            x, o = _rnd(g, M, C), _rnd(g, M, C)
+            at = f"K14 B={B} stage {stage} M={M} C={C}"
+            parts.add("K14 LN1", f"{at} gathering chunk LN1 vs the scalar "
+                      "gathering LN",
+                      lambda: _build.layernorm_rows(x, lw, lb, 1e-5, rows),
+                      lambda: _build.layernorm(x, lw, lb, 1e-5, rows=rows),
+                      count)
+            w, b = ws["qkv"]
+            parts.add("K14 products", f"{at} qkv N={3 * C} K={C} vs "
+                      "F.linear", lambda: _build.gemm_tc(x, w, b),
+                      lambda: F.linear(x, w, b), count)
+            w, b = ws["proj"]
+            out = torch.empty_like(x)
+            parts.add("K14 products", f"{at} proj + residual, scattered by "
+                      f"the row index, N={C} K={C} vs F.linear",
+                      lambda: _build.gemm_tc(o, w, b, residual=x, rows=rows,
+                                             out=out),
+                      lambda: F.linear(o, w, b), count)
+            if B == BATCH and stage < 4:  # K14f: the MLP of the whole block
+                plan = _build.swin_spatial_plan(M, C, HD)
+                w1, b1 = ws["fc1"]
+                w2, b2 = ws["fc2"]
+                h = _rnd(g, M, HD)
+                parts.add("K14f MLP", f"{at} fc1 + GELU N={HD} K={C} vs "
+                          "F.gelu(F.linear)",
+                          lambda: _build.gemm_tc(x, w1, b1, gelu=True),
+                          lambda: F.gelu(F.linear(x, w1, b1)), count)
+                if plan.splits != 1:
+                    raise AssertionError(f"{at}: fc2 planned as "
+                                         f"{plan.splits} K-slices")
+                parts.add("K14f MLP", f"{at} fc2 + residual N={C} K={HD} "
+                          f"(bm {plan.fc2_bm}) vs F.linear",
+                          lambda: _build.gemm_tc(h, w2, b2, residual=x),
+                          lambda: F.linear(h, w2, b2), count)
+                del h
+            qkv = _rnd(g, B * nW, N, 3, nH, hd)
+            q, k, v = qkv.permute(2, 0, 3, 1, 4)  # the slab's heads views
+            full = bias.float()[None].expand(B * nW, nH, N, N)
+            if mask is not None:
+                full = (full.reshape(B, nW, nH, N, N)
+                        + mask.float()[None, :, None]).reshape(B * nW, nH, N,
+                                                               N)
+            full = full.to(torch.bfloat16).contiguous()
+            kind = "shifted" if mask is not None else "unshifted"
+            for pitch, (bt, mt) in (
+                    (N, (bias, mask)),
+                    (248, (_build.with_padded_rows(bias),
+                           None if mask is None
+                           else _build.with_padded_rows(mask)))):
+                parts.add(f"K14 core, pitch {pitch}", f"{at} core nH={nH} "
+                          f"{kind}, bias and mask rows {pitch} elements "
+                          "apart vs SDPA (bias + mask as one additive mask)",
+                          lambda bt=bt, mt=mt: _build.window_attention(
+                              q, k, v, bt, mt, hd ** -0.5),
+                          lambda: F.scaled_dot_product_attention(
+                              q, k, v, attn_mask=full, scale=hd ** -0.5),
+                          count // 2 if mask is not None else count)
+            del x, o, out, qkv, q, k, v, full
+    C, HD, M = 768, 3072, TRAIN_BATCH ** 2 * (FRAMES * 50 + TXT_LEN)
+    x = _rnd(g, M, C)
+    w1, b1 = _rnd(g, HD, C, std=C ** -0.5), _rnd(g, HD, std=0.02)
+    w2, b2 = _rnd(g, C, HD, std=HD ** -0.5), _rnd(g, C, std=0.02)
+    lw, lb = 1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1)
+    h = _rnd(g, M, HD)
+    seed = torch.tensor([1234], device="cuda")
+    S = ffn_plan(M, C, HD, long_m=True).splits
+    bm1 = _build.gemm_tc_plan(M, HD, C).bm
+    part = torch.empty(S * M * C, device="cuda")
+    at = f"K12 train step M={M} C={C} HD={HD} (fc1 bm {bm1}, {S} K-slice(s))"
+    parts.add("K12 fc1", f"{at} fc1 + GELU vs F.gelu(F.linear)",
+              lambda: _build.gemm_tc(x, w1, b1, gelu=True),
+              lambda: F.gelu(F.linear(x, w1, b1)), 12)
+
+    def fc2():  # the partial epilogue, as the C call runs it
+        _build._raise_on(lib.lvt_gemm_tc_bf16(
+            h.data_ptr(), HD, w2.data_ptr(), None, None, None, None, None, 1,
+            None, 0, part.data_ptr(), C, M, C, HD, 3, 128, S, stream()),
+            "lvt_gemm_tc_bf16")
+
+    def products():
+        _build.gemm_tc(x, w1, b1, gelu=True)
+        fc2()
+
+    def whole():
+        return _build.ffn_dropout_ln(x, w1, b1, w2, b2, lw, lb, 1e-12, seed,
+                                     0.1, S)
+
+    parts.add("K12 fc2", f"{at} fc2 K-slices vs F.linear", fc2,
+              lambda: F.linear(h, w2, b2), 12)
+    t = [_graph_ms(f) for f in (products, whole, whole, products)]
+    rows_ms = (t[1] + t[2] - t[0] - t[3]) / 2
+    nbytes = S * M * C * 4 + 2 * M * C * 2 + M * C + 3 * C * 2
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"[part] {at} row kernel (dropout mode): {rows_ms:.4f} ms of "
+          f"device time (the call {(t[1] + t[2]) / 2:.4f} less the products "
+          f"{(t[0] + t[3]) / 2:.4f}) vs {nbytes / 1e6:.1f} MB at 3.35 TB/s "
+          f"{bound:.4f} ms: {rows_ms / bound:.2f}x, "
+          f"{nbytes / rows_ms / 1e9:.2f} TB/s", flush=True)
+    del x, h, part
+    parts.summary("no gate")
+
+
+def _k12_k14_kernel_names(g):
+    """One call each of K14a and K14f (B=4, Swin-B stage 1, shifted) and
+    K12 (1,104 rows) under torch.profiler, first in phase 3 (the
+    profiler's records thin out once a process has traced many windows):
+    their kernels' names must include the tile GEMM and (K14) the chunk
+    LN and the tensor-core forward, (K12) the row kernel, and no
+    ``gemm.cu`` wmma GEMM (gemm_bf16_kernel), f32-pipe core
+    (attention_kernel) or scalar LN (layernorm_bf16_kernel)."""
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.fused_mlp import fused_ffn_post_ln_train
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_attn, fused_swin_block_full, rel_pos_bias_rows)
+
+    _, _, C, nH, side, _ = SWIN_STAGES[0]
+    window, shift = (5, 7, 7), (0, 3, 3)
+    lin = lambda o, i: (_rnd(g, o, i, std=i ** -0.5), _rnd(g, o, std=0.02))
+    ln = (1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1))
+    bias = rel_pos_bias_rows(_rnd(g, 15 * 13 * 13, nH),
+                             relative_position_index((8, 7, 7)), 245,
+                             torch.bfloat16)
+    mask = _build.with_padded_rows(torch.as_tensor(compute_shift_mask(
+        5, side, side, window, shift), device="cuda").to(torch.bfloat16))
+    args = (_rnd(g, BATCH, 5, side, side, C), *ln, *lin(3 * C, C),
+            *lin(C, C), bias, mask)
+    statics = (window, shift, nH, (C // nH) ** -0.5, 1e-5)
+    mlp = (*ln, *lin(4 * C, C), *lin(C, 4 * C))
+    D, HD = 768, 3072
+    ffn = (_rnd(g, 1104, D), *lin(HD, D), *lin(D, HD),
+           1.0 + _rnd(g, D, std=0.1), _rnd(g, D, std=0.1),
+           torch.tensor([7], device="cuda"), 1e-12, 0.1)
+    need = ("tile_kernel", "layernorm_rows_kernel", "fwd_kernel")
+    for kid, fn, want in (
+            ("K14a", lambda: fused_swin_block_attn(*args, *statics), need),
+            ("K14f", lambda: fused_swin_block_full(*args, *mlp, *statics),
+             need),
+            ("K12", lambda: fused_ffn_post_ln_train(*ffn),
+             ("tile_kernel", "rows_kernel"))):
+        fn()  # warm: the first call builds the row index and the scratch
+        names = list(_kernel_times(fn, 1))
+        bad = [n for n in names for old in ("gemm_bf16_kernel",
+                                            "attention_kernel",
+                                            "layernorm_bf16_kernel")
+               if old in n]
+        missing = [p for p in want if not any(p in n for n in names)]
+        print(f"[kernel] {kid} one call launches {len(names)} kernel(s): "
+              f"{'; '.join(sorted(set(n[:70] for n in names)))}", flush=True)
+        if bad or missing:
+            raise AssertionError(f"{kid}: old kernels {bad}, missing "
+                                 f"{missing}")
+
+
 def _heads_tc_pitch(g):
     """K15 at N = 245 (B=4, stage 1, shifted: the bias and the shift mask
     in bf16, as the model path passes them, and the mask in f32) and K7 at
@@ -1629,6 +1865,8 @@ def check_kernels(only=None):
     (kernel ids such as "K2") keeps those kernels' cases and skips the
     checks beside them."""
     g = torch.Generator(device="cuda").manual_seed(0)
+    if not only or only & {"K12", "K14a", "K14f"}:
+        _k12_k14_kernel_names(g)
     per_kernel = {}
     for c in _kernel_cases(g):
         if only and c.op.name.split()[0] not in only:
@@ -1709,6 +1947,8 @@ def check_kernels(only=None):
         _k3_k9_parts(g)
     if not only or only & {"K6", "K11"}:
         _k6_k11_parts(g)
+    if not only or only & {"K12", "K14a", "K14f"}:
+        _k12_k14_parts(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
@@ -1980,6 +2220,7 @@ def run_train(ops):
     loss = step(batch)
     counts = _check_counts(ops.values(), per_step, 1, "train")
     print(f"[train] (b) one step: loss {float(loss):.6f}", flush=True)
+    default_busy = _device_profile(lambda: step(batch))
     del state, step
     torch.cuda.empty_cache()
 
@@ -2046,6 +2287,15 @@ def run_train(ops):
                                               ops["K12"]: layers}, 1,
                                "train (e)")
     counts[ops["K12"]] = ffn_counts[ops["K12"]]
+    for name, (host_ms, busy_ms, n_dev) in (
+            ("default", default_busy),
+            ("fused_ffn_train=True", _device_profile(lambda: step(batch)))):
+        print(f"[train] (e) one {name} step under torch.profiler: "
+              + ("device time not measured (no device activity recorded)"
+                 if busy_ms is None else
+                 f"device busy {busy_ms:.2f} ms of {host_ms:.2f} "
+                 f"({busy_ms / host_ms:.1%}), {n_dev} device activities")
+              + f" ({_nvidia_smi()})", flush=True)
     del state, step
     torch.cuda.empty_cache()
 
@@ -2457,6 +2707,13 @@ def run_spatial(ops, wm_server):
     for op, n in _check_counts(ops.values(), expected, 1,
                                "spatial (c) remat step").items():
         total[op] += n
+    host_ms, busy_ms, n_dev = _device_profile(lambda: step(batch))
+    print("[spatial] (c) one remat step under torch.profiler: "
+          + ("device time not measured (no device activity recorded)"
+             if busy_ms is None else
+             f"device busy {busy_ms:.2f} ms of {host_ms:.2f} "
+             f"({busy_ms / host_ms:.1%}), {n_dev} device activities")
+          + f" ({_nvidia_smi()})", flush=True)
     del state, step
     torch.cuda.empty_cache()
     const = TrainConfig(lr=TRAIN_LR, warmup_ratio=0.0, max_iter=10 ** 9,
@@ -3129,7 +3386,9 @@ def main() -> int:
            "K15": fused_window_attention,
            "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
     if sys.argv[1:2] == ["--only"]:  # phase 3 for these kernels alone
-        check_kernels(set(sys.argv[2:]))
+        only = set(sys.argv[2:])  # K14a / K14f: the cases named "K14"
+        check_kernels(only | {ops[k].name.split()[0] for k in only
+                              if k in ops})
         print(_nvidia_smi(), flush=True)
         return 0
     per_kernel = check_kernels()
@@ -3175,15 +3434,15 @@ def main() -> int:
                  "lavender_tpu/ops/encoder_attention.py:780"),
         "K11": ("lavender_tpu_torch/csrc/gemm_tc.cu",
                 "lavender_tpu/ops/fused_mlp.py:505"),
-        "K12": ("lavender_tpu_torch/csrc/layernorm.cu",
+        "K12": ("lavender_tpu_torch/csrc/ffn_post_ln.cu",
                 "lavender_tpu/ops/fused_mlp.py:379"),
         "K13a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:526"),
         "K13b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:555"),
-        "K14a": ("lavender_tpu_torch/csrc/layernorm.cu",
+        "K14a": ("lavender_tpu_torch/csrc/blocks.cu",
                  "lavender_tpu/ops/swin_block_attn.py:468"),
-        "K14f": ("lavender_tpu_torch/csrc/layernorm.cu",
+        "K14f": ("lavender_tpu_torch/csrc/blocks.cu",
                  "lavender_tpu/ops/swin_block_attn.py:468"),
         "K15": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                 "lavender_tpu/ops/window_attention.py:49"),

@@ -1,5 +1,5 @@
-// The whole-block kernels K1, K4 and K6, and the LN + MLP of K3 and K9,
-// as one C entry each: their primitives launched back to back on one
+// The whole-block kernels K1, K4, K6 and K14, and the LN + MLP of K3 and
+// K9, as one C entry each: their primitives launched back to back on one
 // stream from one call, so that the host pays one crossing into the
 // library a block instead of one a launch (at B = 4 serving, K1's stage-3
 // block and K4 were bound by those crossings: 0.23-0.28 ms of host time
@@ -18,7 +18,17 @@
 // _attn_block_kernel (:242), is K4 under a full additive [B, L, L] mask:
 // the same launches, the core reading sequence b's mask rows (bf16,
 // clamped at -1e4 by the caller, a pitch of its own) where K4 reads the
-// keep vector, and no key skipped.  K9,
+// keep vector, and no key skipped.  K14,
+// lavender_tpu/ops/swin_block_attn.py _block_kernel (:468), is K1 on the
+// spatial layout [B, D, H, W, C]: the 16-byte-chunk LN1 gathers the rows
+// in window order through the caller's row index (the cyclic roll folded
+// in), the qkv product, the tensor-core core at the window's own N
+// (unpadded, 245 at T = 5) with the bias and the shift mask read at their
+// row pitch, the proj's scatter epilogue writing each row back to the
+// spatial row it came from with the residual's row added; with the MLP
+// K3's path on the spatial rows (chunk LN2, fc1 + GELU, fc2 + residual).
+// The TPU kernel cut the rolled, lane-padded map into slabs by its
+// BlockSpec; here no permuted copy of the map is written.  K9,
 // lavender_tpu/ops/fused_mlp.py _kernel (:91), and K3, _chunked_kernel
 // (:183): the MLP half of K1 on its own, LN -> fc1 + bias + GELU -> fc2 +
 // bias (+ residual), the hidden layer [M, 4C] in device memory (the TPU
@@ -39,7 +49,7 @@
 LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
                                   int C, float eps, const void* rows, void* stream);
 LVT_EXPORT int lvt_layernorm_rows_bf16(const void* x, const void* g, const void* b, void* y,
-                                       int M, int C, float eps, void* stream);
+                                       int M, int C, float eps, const void* rows, void* stream);
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
@@ -151,7 +161,7 @@ LVT_EXPORT int lvt_ln_mlp_bf16(const void* x, const void* ln_w, const void* ln_b
   bf16* h = reinterpret_cast<bf16*>(take(at, (size_t)M * C * 2));
   bf16* hid = reinterpret_cast<bf16*>(take(at, (size_t)M * HD * 2));
   float* part = S > 1 ? reinterpret_cast<float*>(take(at, (size_t)S * M * C * 4)) : nullptr;
-  const int err = lvt_layernorm_rows_bf16(x, ln_w, ln_b, h, M, C, eps, stream);
+  const int err = lvt_layernorm_rows_bf16(x, ln_w, ln_b, h, M, C, eps, nullptr, stream);
   if (err) return err;
   const auto X = static_cast<const bf16*>(x);
   return run_mlp(h, w1, b1, w2, b2, residual ? X : nullptr, hid, part, static_cast<bf16*>(out), M,
@@ -245,4 +255,66 @@ LVT_EXPORT int lvt_bert_attn_block_mask_bf16(const void* x, const void* wq, cons
   return bert_block(x, wq, wk, wv, bq, bk, bv, wproj, bproj, ln_w, ln_b, nullptr, mask, mask_ld,
                     scratch, out, B, L, C, nH, scale, eps, bm_qkv, bm_proj, S,
                     static_cast<cudaStream_t>(stream));
+}
+
+// K14: out [M, C] for x [M, C] = [B * D * H * W, C] in spatial row order,
+// rows int32 [M] the spatial row of each window row (window_partition's
+// order after the roll; a permutation): out = x + proj(attn(LN1(x[rows])))
+// scattered back by rows; with w1 non-null then out = y + fc2(GELU(fc1(
+// LN2(y)))) on the spatial rows y.  All bf16 but rows, contiguous and
+// 16-byte aligned: ln_w, ln_b, wqkv [3C, C], bqkv, wproj [C, C], bproj,
+// n2w, n2b, w1 [HD, C], b1, w2 [C, HD], b2 (the LN affines both null: the
+// pure normalize); bias [nH, N, N] rows bias_ld elements apart, mask [nW,
+// N, N] (bf16, or f32 where mask_f32; sequence s reads window s % nW) rows
+// mask_ld apart, or null (nW = 1).  bm_*: the tile heights of qkv, proj,
+// fc1, fc2; S fc2's K-slices.  C a multiple of 8 and <= 1024, head dim 16,
+// 32 or 64.  scratch: at least lvt_swin_block_spatial_scratch(M, C, HD, S)
+// bytes (HD 0 without the MLP), given as scratch_bytes.
+LVT_EXPORT long long lvt_swin_block_spatial_scratch(int M, int C, int HD, int S) {
+  const long long r = round256((long long)M * C * 2);  // h, qkv (3), o
+  return 5 * r + (HD > 0 ? lvt_ln_mlp_scratch(M, C, HD, S) : 0);  // + y, hid, part
+}
+
+LVT_EXPORT int lvt_swin_block_spatial_bf16(
+    const void* x, const void* rows, const void* ln_w, const void* ln_b, const void* wqkv,
+    const void* bqkv, const void* wproj, const void* bproj, const void* bias, int bias_ld,
+    const void* mask, int mask_ld, int mask_f32, const void* n2w, const void* n2b,
+    const void* w1, const void* b1, const void* w2, const void* b2, void* scratch,
+    long long scratch_bytes, void* out, int nSeq, int N, int C, int nH, int HD, int nW,
+    float scale, float eps, int bm_qkv, int bm_proj, int bm1, int bm2, int S, void* stream) {
+  const bool mlp = w1 != nullptr;
+  if (nSeq <= 0 || N <= 0 || C <= 0 || nH <= 0 || C % nH || nW <= 0 || nSeq % nW ||
+      rows == nullptr || bias == nullptr || bias_ld < N ||
+      (mask == nullptr ? nW != 1 : mask_ld < N) || (mlp && (HD <= 0 || S < 1)))
+    return (int)cudaErrorInvalidValue;
+  const int M = nSeq * N, hd = C / nH;
+  if (scratch_bytes < lvt_swin_block_spatial_scratch(M, C, mlp ? HD : 0, S))
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const size_t row = (size_t)M * C * 2;
+  char* at = static_cast<char*>(scratch);
+  bf16* h = reinterpret_cast<bf16*>(take(at, row));
+  bf16* qkv = reinterpret_cast<bf16*>(take(at, 3 * row));
+  bf16* o = reinterpret_cast<bf16*>(take(at, row));
+  bf16* y = mlp ? reinterpret_cast<bf16*>(take(at, row)) : static_cast<bf16*>(out);
+  int err = lvt_layernorm_rows_bf16(x, ln_w, ln_b, h, M, C, eps, rows, stream);
+  if (err) return err;
+  lvt::GemmTc g{h, C, {static_cast<const bf16*>(wqkv)}, {static_cast<const bf16*>(bqkv)}, 1,
+                qkv, 3 * C, nullptr, 0, M, 3 * C, C, lvt::kEpiBias, bm_qkv, 1};
+  if ((err = lvt::gemm_tc(g, st))) return err;
+  const long long ld = 3LL * C;
+  lvt::TcFwd a{{qkv, qkv + C, qkv + 2 * C}, o,
+               {{N * ld, hd, ld}, {N * ld, hd, ld}, {N * ld, hd, ld}, {(long long)N * C, hd, C}},
+               nullptr, mask, static_cast<const bf16*>(bias), nullptr, 0u, 1.0f, scale, nSeq, N,
+               nH, nW, mask != nullptr ? mask_ld : 0, bias_ld};
+  if ((err = lvt::attention_fwd_tc(a, hd, mask_f32 != 0, st))) return err;
+  g = {o, C, {static_cast<const bf16*>(wproj)}, {static_cast<const bf16*>(bproj)}, 1, y, C,
+       static_cast<const bf16*>(x), C, M, C, C, lvt::kEpiScatter, bm_proj, 1};
+  g.rows = static_cast<const int*>(rows);
+  if ((err = lvt::gemm_tc(g, st)) || !mlp) return err;
+  bf16* hid = reinterpret_cast<bf16*>(take(at, (size_t)M * HD * 2));
+  float* part = S > 1 ? reinterpret_cast<float*>(take(at, (size_t)S * M * C * 4)) : nullptr;
+  if ((err = lvt_layernorm_rows_bf16(y, n2w, n2b, h, M, C, eps, nullptr, stream))) return err;
+  return run_mlp(h, w1, b1, w2, b2, y, hid, part, static_cast<bf16*>(out), M, C, HD, bm1, bm2, S,
+                 st);
 }

@@ -37,6 +37,20 @@
 // Every sum is taken in a fixed order and nothing is atomic, so two calls
 // give the same bits.  The wrapper passes h [M, HD] bf16 and the partials
 // [S, M, C] f32 as scratch.
+//
+// K12, the train route's FFN with the hidden dropout (replaces
+// lavender_tpu/ops/fused_mlp.py _ffn_post_ln_train_kernel (:379)):
+// (LN(x + dropout(fc2(GELU(fc1 x + b1)) + b2)), keep), one C call
+// (lvt_ffn_dropout_ln_bf16) of the long-M products above, fc1 on the
+// caller's tile height, then the row kernel's dropout mode of gemm_tc.cu
+// (K11's): it sums fc2's f32 K-slices in order with b2, drops element
+// (row, col) by dropout.cuh's counter hash (the bits of dropout.row_keep),
+// adds the residual, applies the LN in f32 and writes the keep mask, one
+// byte an element.  Two deviations from the plain version, both within the
+// kernel gate: fc2's sum is not rounded to bf16 before the dropout (K11's
+// proj neither), and the GELU's erf is gemm_tc.cu's (to 1.5e-7).  Bound at
+// the train step's 17,664 rows: the two products' 167 GFLOP (0.17 ms at
+// 989 TFLOP/s).
 #include "gemm_tc.cuh"
 
 namespace {
@@ -131,6 +145,19 @@ cudaError_t launch_skinny(int NT, dim3 grid, cudaStream_t st, const bf16* X, con
   return cudaGetLastError();
 }
 
+// The long-M products: H = GELU(X w1^T + b1) on bm1-row tiles, then fc2's
+// S f32 K-slices of H w2^T into P on 128-row tiles.
+int long_m(const bf16* X, const void* w1, const void* b1, const void* w2, bf16* H, float* P,
+           int M, int C, int HD, int bm1, int S, cudaStream_t st) {
+  lvt::GemmTc fc1{X, C, {static_cast<const bf16*>(w1)}, {static_cast<const bf16*>(b1)}, 1, H,
+                  HD, nullptr, 0, M, HD, C, lvt::kEpiGelu, bm1, 1};
+  const int err = lvt::gemm_tc(fc1, st);
+  if (err) return err;
+  lvt::GemmTc fc2{H, HD, {static_cast<const bf16*>(w2)}, {nullptr}, 1, P, C, nullptr, 0, M, C,
+                  HD, lvt::kEpiPartial, 128, S};
+  return lvt::gemm_tc(fc2, st);
+}
+
 }  // namespace
 
 // out [M, C] = LN(x + fc2(GELU(x w1^T + b1)) + b2) * ln_w + ln_b, all bf16
@@ -159,14 +186,37 @@ LVT_EXPORT int lvt_ffn_post_ln_bf16(const void* x, const void* w1, const void* b
     err = launch_skinny<false>(NT, dim3(C / 16, S), st, H, static_cast<const bf16*>(w2), nullptr,
                                nullptr, P, M, C, HD, HD / S);
   } else {  // the tile GEMM of gemm_tc.cu: fc1 + bias + GELU, fc2's K-slices
-    lvt::GemmTc fc1{X, C, {static_cast<const bf16*>(w1)}, {static_cast<const bf16*>(b1)}, 1, H,
-                    HD, nullptr, 0, M, HD, C, lvt::kEpiGelu, 128, 1};
-    if ((err = (cudaError_t)lvt::gemm_tc(fc1, st)) != cudaSuccess) return (int)err;
-    lvt::GemmTc fc2{H, HD, {static_cast<const bf16*>(w2)}, {nullptr}, 1, P, C, nullptr, 0, M, C,
-                    HD, lvt::kEpiPartial, 128, S};
-    err = (cudaError_t)lvt::gemm_tc(fc2, st);
+    err = (cudaError_t)long_m(X, w1, b1, w2, H, P, M, C, HD, 128, S, st);
   }
   if (err != cudaSuccess) return (int)err;
   return lvt::rows_ln(P, S, X, static_cast<const bf16*>(b2), static_cast<const bf16*>(ln_w),
                       static_cast<const bf16*>(ln_b), static_cast<bf16*>(out), M, C, eps, st);
+}
+
+// K12: (out, keep) = (LN(x + dropout(fc2(GELU(x w1^T + b1)) + b2)) * ln_w +
+// ln_b, the keep mask [M, C] as one byte an element): the long-M products
+// (fc1 on bm1-row tiles, 64, 128 or 256; fc2 as S f32 K-slices, HD / S a
+// multiple of 64) into h [M, HD] bf16 and part [S, M, C] f32 (scratch),
+// then the row kernel's dropout mode; seed an int64 on the device (null:
+// no dropout, keep all ones), element (row, col) kept iff its bits >=
+// thresh and scaled by drop_scale.  All bf16 but part and keep, contiguous,
+// 16-byte aligned; C % 64 == 0, C <= 1024, HD % 64 == 0.
+LVT_EXPORT int lvt_ffn_dropout_ln_bf16(const void* x, const void* w1, const void* b1,
+                                       const void* w2, const void* b2, const void* ln_w,
+                                       const void* ln_b, void* h, void* part, void* out,
+                                       void* keep, int M, int C, int HD, int bm1, int S,
+                                       float eps, const void* seed, uint32_t thresh,
+                                       float drop_scale, void* stream) {
+  if (M <= 0 || C <= 0 || C % lvt::wg::BK != 0 || C > 1024 || HD <= 0 || S < 1 ||
+      HD % (lvt::wg::BK * S) != 0 || keep == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto X = static_cast<const bf16*>(x);
+  const auto P = static_cast<float*>(part);
+  const int err = long_m(X, w1, b1, w2, static_cast<bf16*>(h), P, M, C, HD, bm1, S, st);
+  if (err) return err;
+  return lvt::rows_dropout_ln(P, S, X, static_cast<const bf16*>(b2),
+                              static_cast<const bf16*>(ln_w), static_cast<const bf16*>(ln_b),
+                              static_cast<bf16*>(out), static_cast<uint8_t*>(keep), M, C, eps,
+                              static_cast<const int64_t*>(seed), thresh, drop_scale, st);
 }

@@ -1,8 +1,8 @@
 // The tile GEMM on wgmma and the Tensor Memory Accelerator:
 //   out = epi(A [M, K] . W_g [N, K]^T + bias_g),  g < G,
 // bf16 operands, f32 accumulation; epi the bias alone, + the GELU in its
-// erf form, + a residual R, or the f32 partial sum of one K-slice (see
-// gemm_tc.cuh).
+// erf form, + a residual R (in place, or scattered through a row index), or
+// the f32 partial sum of one K-slice (see gemm_tc.cuh).
 //
 // Replaces the dense products of two TPU kernels, which ran them inside
 // one pallas_call: lavender_tpu/ops/swin_block_attn.py _block_kernel_wm
@@ -22,7 +22,13 @@
 // f32 K-slices that the row kernel's dropout mode sums with the bias,
 // drops by the counter hash of dropout.cuh, adds to the residual and
 // normalizes, writing the keep mask, lvt_gemm_tc_dropout_ln_bf16 below).
-// The other products of the port (K12, K14, K16) stay on gemm.cu's wmma
+// K12's fc1 and fc2 (fused_mlp.py _ffn_post_ln_train_kernel) are K5's,
+// into that dropout mode (ffn_post_ln.cu); K14's products
+// (swin_block_attn.py _block_kernel, blocks.cu) are K1's, its proj through
+// the scatter epilogue, which writes row m of the product, plus the
+// residual's row, to the spatial row rows[m] that K14's gathering LN read
+// it from (16-byte chunks as the residual epilogue stores them; a row
+// index below 0 drops the row).  K16's products stay on gemm.cu's wmma
 // tiles.
 //
 // Bound on the card: at B = 4 serving, Swin-B stages 1-2 (M = 63,488 /
@@ -93,6 +99,7 @@ struct TileArgs {
   long long ldr;
   int M, N, steps, S;  // steps: the 64-deep K steps of one slice
   int tiles_n, tiles_m, tiles;
+  const int* rows;  // kEpiScatter: the output row of each row
 };
 
 // bm = 64 WGS rows a tile.  WGS = 4: 48 KB a stage, 4 stages, one block an
@@ -215,6 +222,14 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
     } else {
       const bf16* bias = at.g == 0 ? p.bias[0] : (at.g == 1 ? p.bias[1] : p.bias[2]);
       uint32_t* so = reinterpret_cast<uint32_t*>(base + ST * T::kStageBytes) + warp * 256;
+      int dst[2] = {-1, -1};  // kEpiScatter: the output rows of this lane's two rows
+      if constexpr (EPI == lvt::kEpiScatter) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = row0 + lane / 4 + 8 * i;
+          dst[i] = row < M ? __ldg(p.rows + row) : -1;
+        }
+      }
 #pragma unroll
       for (int q = 0; q < BN / 32; ++q) {
         uint4 rv[2];  // the residual's two chunks, in flight while this pass stages
@@ -224,6 +239,15 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
             const int row = row0 + lane / 4 + 8 * i, col = at.n0 + 32 * q + 8 * (lane % 4);
             rv[i] = row < M && col < N
                         ? *reinterpret_cast<const uint4*>(p.r + (size_t)row * p.ldr + col)
+                        : make_uint4(0u, 0u, 0u, 0u);
+          }
+        }
+        if constexpr (EPI == lvt::kEpiScatter) {
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int col = at.n0 + 32 * q + 8 * (lane % 4);
+            rv[i] = dst[i] >= 0 && col < N
+                        ? *reinterpret_cast<const uint4*>(p.r + (size_t)dst[i] * p.ldr + col)
                         : make_uint4(0u, 0u, 0u, 0u);
           }
         }
@@ -247,7 +271,17 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
           const int r = lane / 4 + 8 * i, k = lane % 4;
           const int row = row0 + r, col = at.n0 + 32 * q + 8 * k;
           uint4 v = reinterpret_cast<const uint4*>(so)[r * 4 + (k ^ ((r >> 1) & 3))];
-          if (row < M && col < N) {  // N % 8 == 0: the whole chunk is in
+          if constexpr (EPI == lvt::kEpiScatter) {
+            if (dst[i] >= 0 && col < N) {
+              float f[8], rf[8];
+              lvt::unpack8(v, f);
+              lvt::unpack8(rv[i], rf);
+#pragma unroll
+              for (int e = 0; e < 8; ++e) f[e] += rf[e];
+              *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + (size_t)dst[i] * p.ldc +
+                                        col) = lvt::pack8(f);
+            }
+          } else if (row < M && col < N) {  // N % 8 == 0: the whole chunk is in
             if constexpr (EPI == lvt::kEpiResidual) {
               float f[8], rf[8];
               lvt::unpack8(v, f);
@@ -302,6 +336,7 @@ cudaError_t launch_epi(TileArgs& p, int epi, cudaStream_t st) {
     case lvt::kEpiGelu: return launch_tile<WGS, lvt::kEpiGelu>(p, st);
     case lvt::kEpiResidual: return launch_tile<WGS, lvt::kEpiResidual>(p, st);
     case lvt::kEpiPartial: return launch_tile<WGS, lvt::kEpiPartial>(p, st);
+    case lvt::kEpiScatter: return launch_tile<WGS, lvt::kEpiScatter>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -327,7 +362,7 @@ enum RowsMode { kRowsSum = 0, kRowsLn = 1, kRowsDropLn = 2 };
 // and x each may be null (ln_w, ln_b and eps unread).  kRowsDropLn:
 // out[row] = LN(x[row] + m * (sum_s P[s, row] + b)), m the dropout of
 // element (row, col) from dropout.cuh's hash (stream row, index col: the
-// bits dropout_add_ln draws), kept values scaled by drop_scale, and the
+// bits dropout.row_keep draws), kept values scaled by drop_scale, and the
 // keep mask written as one byte an element (all ones without a seed);
 // the other modes read none of keep, seed, thresh and drop_scale.
 template <int MODE>
@@ -454,8 +489,10 @@ int lvt::gemm_tc(const GemmTc& g, cudaStream_t st) {
   const bool partial = g.epi == kEpiPartial;
   if (g.M <= 0 || g.N <= 0 || g.K <= 0 || g.N % 8 || g.K % 8 || g.lda % 8 || g.lda < g.K ||
       g.G < 1 || g.G > 3 || g.S < 1 || KT % g.S || (g.S > 1 && (!partial || g.G != 1)) ||
-      (g.bm != 64 && g.bm != 128 && g.bm != 256) || g.epi < kEpiBias || g.epi > kEpiPartial ||
-      (g.epi == kEpiResidual && (g.r == nullptr || g.ldr % 8 || g.ldr < g.N)) ||
+      (g.bm != 64 && g.bm != 128 && g.bm != 256) || g.epi < kEpiBias || g.epi > kEpiScatter ||
+      ((g.epi == kEpiResidual || g.epi == kEpiScatter) &&
+       (g.r == nullptr || g.ldr % 8 || g.ldr < g.N)) ||
+      (g.epi == kEpiScatter && (g.rows == nullptr || g.G != 1)) ||
       (!partial && (g.ldc % 8 || g.ldc < (long long)g.G * g.N)))
     return (int)cudaErrorInvalidValue;
   TileArgs p{};
@@ -464,7 +501,7 @@ int lvt::gemm_tc(const GemmTc& g, cudaStream_t st) {
     if (!wg::tile_map(&p.w[i], g.w[i], g.N, g.K, g.K, wg::BN)) return (int)cudaErrorInvalidValue;
     p.bias[i] = g.bias[i];
   }
-  p.out = g.out, p.ldc = g.ldc, p.r = g.r, p.ldr = g.ldr;
+  p.out = g.out, p.ldc = g.ldc, p.r = g.r, p.ldr = g.ldr, p.rows = g.rows;
   p.M = g.M, p.N = g.N, p.steps = KT / g.S, p.S = g.S;
   p.tiles_n = (g.N + wg::BN - 1) / wg::BN, p.tiles_m = (g.M + g.bm - 1) / g.bm;
   const long long tiles = (long long)p.tiles_n * p.tiles_m * g.G * g.S;
@@ -526,6 +563,19 @@ LVT_EXPORT int lvt_gemm_tc_bf16(const void* a, int lda, const void* w0, const vo
                 static_cast<const bf16*>(r),
                 ldr,
                 M, N, K, epi, bm, S};
+  return lvt::gemm_tc(g, static_cast<cudaStream_t>(stream));
+}
+
+// out[rows[m]] = a [M, K] . w [N, K]^T + b + r[rows[m]] for m < M, rows
+// int32 [M] (a row below 0 dropped), r's and out's rows ldr and ldc apart:
+// the scatter epilogue at bm rows a tile (K14's proj).  All bf16 but rows.
+LVT_EXPORT int lvt_gemm_tc_scatter_bf16(const void* a, int lda, const void* w, const void* b,
+                                        const void* r, int ldr, const void* rows, void* out,
+                                        int ldc, int M, int N, int K, int bm, void* stream) {
+  lvt::GemmTc g{static_cast<const bf16*>(a), lda, {static_cast<const bf16*>(w)},
+                {static_cast<const bf16*>(b)}, 1, out, ldc, static_cast<const bf16*>(r), ldr,
+                M, N, K, lvt::kEpiScatter, bm, 1};
+  g.rows = static_cast<const int*>(rows);
   return lvt::gemm_tc(g, static_cast<cudaStream_t>(stream));
 }
 

@@ -1,6 +1,6 @@
 // The wgmma + TMA tile GEMM (gemm_tc.cu) as its users call it: K1's, K3's,
-// K4's and K9's products (blocks.cu) and K5's long-M fc1 / fc2 and row LN
-// (ffn_post_ln.cu), and the device pieces the tile is
+// K4's, K6's, K9's and K14's products (blocks.cu) and K5's and K12's long-M
+// fc1 / fc2 and row kernel (ffn_post_ln.cu), and the device pieces the tile is
 // built from: the Tensor Memory Accelerator's tensor maps and copies, the
 // mbarriers that report them, the 128-byte-swizzle descriptor and the
 // m64n128k16 warpgroup product.
@@ -15,8 +15,16 @@ namespace lvt {
 
 // Epilogues of the tile GEMM: C = A . W^T + bias, then nothing, the GELU
 // in its erf form (erf to 1.5e-7, gemm_tc.cu), or + R (bf16 out); or the
-// f32 partial sum of one K-slice, bias-free, into part [S, M, N].
-enum GemmEpi { kEpiBias = 0, kEpiGelu = 1, kEpiResidual = 2, kEpiPartial = 3 };
+// f32 partial sum of one K-slice, bias-free, into part [S, M, N]; or the
+// residual's row scatter: row m goes to out row rows[m] with R[rows[m]]
+// added, and is dropped where rows[m] < 0.
+enum GemmEpi {
+  kEpiBias = 0,
+  kEpiGelu = 1,
+  kEpiResidual = 2,
+  kEpiPartial = 3,
+  kEpiScatter = 4
+};
 
 // One tile-GEMM launch: out = epi(A [M, K] . W_g [N, K]^T + bias_g) for g
 // < G, weight g's columns at out + g * N.  A's rows lda elements apart,
@@ -24,7 +32,8 @@ enum GemmEpi { kEpiBias = 0, kEpiGelu = 1, kEpiResidual = 2, kEpiPartial = 3 };
 // bm the tile's rows (64, 128 or 256, BN = 128 columns); S the K-slices of
 // the partial epilogue (S = 1 otherwise; whole 64-deep steps a slice),
 // whose out is f32 [S, M, N].  K, N, lda, ldc, ldr multiples of 8, pointers
-// 16-byte aligned; G in 1..3, G = 1 when S > 1.
+// 16-byte aligned; G in 1..3, G = 1 when S > 1.  rows: the scatter
+// epilogue's int32 [M] (null for the others).
 struct GemmTc {
   const bf16* a;
   long long lda;
@@ -36,6 +45,7 @@ struct GemmTc {
   const bf16* r;
   long long ldr;
   int M, N, K, epi, bm, S;
+  const int* rows = nullptr;
 };
 
 // Returns a cudaError_t.

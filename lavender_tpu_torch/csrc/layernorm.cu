@@ -9,36 +9,29 @@
 // registers (C <= 1024, 32 values per lane), so the row is read once;
 // statistics in f32, two-pass variance (no E[x^2] - mean^2 cancellation).
 // An optional row index gathers the input: output row m is the LN of input
-// row rows[m], and a zero row where rows[m] < 0.  The spatial Swin block K14
-// (lavender_tpu/ops/swin_block_attn.py _block_kernel) reads its LN1 this
-// way, the cyclic shift and the window partition folded into the index, so
-// that no permuted copy of the block input is ever written; the shifted wm
-// block K16 (_block_kernel_wm_shift) gathers through the wm shift, whose
-// window tail-pad rows are -1 (the TPU kernel's literal zero pad rows).
-// Without an affine (g and b null) the launch is the pure normalize that
-// the serving fold cache leaves (the LN affine folded into the next GEMM's
-// weights, lavender_tpu/models/swin3d.py foldfn).
+// row rows[m], and a zero row where rows[m] < 0.  The shifted wm block K16
+// (lavender_tpu/ops/swin_block_attn.py _block_kernel_wm_shift) reads its
+// LN1 this way, through the wm shift, whose window tail-pad rows are -1
+// (the TPU kernel's literal zero pad rows), so that no permuted copy of the
+// block input is ever written.  Without an affine (g and b null) the launch
+// is the pure normalize that the serving fold cache leaves (the LN affine
+// folded into the next GEMM's weights, lavender_tpu/models/swin3d.py
+// foldfn).
 //
 // lvt_layernorm_rows_bf16 is the same LN on 16-byte chunks, for rows whose
-// width is a multiple of 8 (the LN of K3's and K9's LN + MLP, blocks.cu):
-// a row's chunks spread over a group of 8, 16 or 32 lanes (one to four
-// chunks a lane), so that each load and store is 16 bytes and a warp
-// moves whole 512-byte runs.  The scalar kernel above moves 2 bytes a lane
-// an instruction and reached about 0.4 TB/s at C = 128 on an H100 SXM at
-// 700 W (126,976 rows, the B = 8 stage-1 LN2: 0.17 ms of K9's 0.34).
-//
-// dropout_add_ln is the row epilogue of the BERT train kernel K12
-// (lavender_tpu/ops/fused_mlp.py _ffn_post_ln_train_kernel; K11,
-// _out_ln_train_kernel, ran it until its proj moved to gemm_tc.cu, whose
-// row kernel draws the same bits): y = LN(res + m * x) with m the hidden
-// dropout of element (row, col) drawn from the counter hash of dropout.cuh
-// (stream row, index col), in f32, and the binary keep mask written beside
-// y as uint8 for the backward to replay (the TPU kernels export it as bf16
-// 0/1).  x is the bf16 output of the GEMM before it (fc2 + bias).  Same
-// design and bound as the LN: one warp per row held in registers; device
-// memory sees x, res and y (2 bytes each) and the mask (1 byte) once.
+// width is a multiple of 8 (the LN of K3's and K9's LN + MLP and both LNs
+// of the spatial Swin block K14, blocks.cu): a row's chunks spread over a
+// group of 8, 16 or 32 lanes (one to four chunks a lane), so that each load
+// and store is 16 bytes and a warp moves whole 512-byte runs.  The scalar
+// kernel above moves 2 bytes a lane an instruction and reached about 0.4
+// TB/s at C = 128 on an H100 SXM at 700 W (126,976 rows, the B = 8 stage-1
+// LN2: 0.17 ms of K9's 0.34).  Its gathering mode (a template instance of
+// its own, so that the plain rows keep their code) takes the same row index
+// as the scalar kernel: a gathered row is still one contiguous run of C x 2
+// bytes, so the loads stay 16 bytes wide.  K14's LN1
+// (lavender_tpu/ops/swin_block_attn.py _block_kernel) gathers the spatial
+// rows [B, D, H, W] in window order, the cyclic roll folded into the index.
 #include "common.cuh"
-#include "dropout.cuh"
 
 namespace {
 
@@ -87,71 +80,35 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   }
 }
 
-__global__ void __launch_bounds__(kRowsPerBlock * 32)
-    dropout_add_ln_kernel(const bf16* __restrict__ x, const bf16* __restrict__ res,
-                          const bf16* __restrict__ g, const bf16* __restrict__ b,
-                          bf16* __restrict__ y, uint8_t* __restrict__ keep, int M, int C,
-                          float eps, const int64_t* __restrict__ seed, uint32_t thresh,
-                          float drop_scale) {
-  const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= M) return;
-  const bool drop = seed != nullptr;
-  const uint32_t key = drop ? lvt::dropout_key((uint32_t)*seed, (uint32_t)row) : 0u;
-  const size_t off = (size_t)row * C;
-  float v[kMaxPerLane];
-  float s = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
-    const int c = lane + t * 32;
-    v[t] = 0.0f;
-    if (c < C) {
-      const bool kp = !drop || lvt::dropout_bits(key, (uint32_t)c) >= thresh;
-      const float xv = __bfloat162float(x[off + c]);
-      v[t] = (drop ? (kp ? xv * drop_scale : 0.0f) : xv) + __bfloat162float(res[off + c]);
-      keep[off + c] = kp ? 1 : 0;
-    }
-    s += v[t];
-  }
-  const float mean = lvt::warp_sum(s) / C;
-  float q = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
-    const int c = lane + t * 32;
-    const float d = c < C ? v[t] - mean : 0.0f;
-    q += d * d;
-  }
-  const float rstd = rsqrtf(lvt::warp_sum(q) / C + eps);
-#pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
-    const int c = lane + t * 32;
-    if (c < C)
-      y[off + c] = __float2bfloat16((v[t] - mean) * rstd * __bfloat162float(g[c]) +
-                                    __bfloat162float(b[c]));
-  }
-}
-
 // y[row] = LN(x[row]) (* g + b) on 16-byte chunks: the row's C / 8 chunks
 // over a group of LANES lanes, CH a lane (chunk k of lane l: l + k * LANES),
 // 256 / LANES rows a block; sums over the group by xor shuffles, which
 // every lane of the warp takes part in (a lane past the rows sums zeros).
-template <int LANES, int CH>
+// GATHER: y[row] = LN(x[rows[row]]), a zero row where rows[row] < 0.
+template <int LANES, int CH, bool GATHER>
 __global__ void __launch_bounds__(256)
     layernorm_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                           const bf16* __restrict__ b, bf16* __restrict__ y, int M, int C,
-                          float eps) {
+                          float eps, const int* __restrict__ rows) {
   const int sub = threadIdx.x % LANES;
   const int row = (blockIdx.x * 256 + threadIdx.x) / LANES;
   const int n = C / 8;
   const bool live = row < M;
   const size_t off = (size_t)row * C;
+  bool in = live;  // the row has an input
+  const bf16* xr = x + off;
+  if constexpr (GATHER) {
+    const int src = live ? rows[row] : -1;
+    in = src >= 0;
+    xr = x + (size_t)(in ? src : 0) * C;
+  }
   float v[CH][8];
   float s = 0.0f;
 #pragma unroll
   for (int k = 0; k < CH; ++k) {
     const int ch = sub + k * LANES;
-    const bool on = live && ch < n;
-    const uint4 u = on ? *reinterpret_cast<const uint4*>(x + off + 8 * ch) : make_uint4(0, 0, 0, 0);
+    const bool on = in && ch < n;
+    const uint4 u = on ? *reinterpret_cast<const uint4*>(xr + 8 * ch) : make_uint4(0, 0, 0, 0);
     lvt::unpack8(u, v[k]);
 #pragma unroll
     for (int e = 0; e < 8; ++e) s += v[k][e];
@@ -174,6 +131,12 @@ __global__ void __launch_bounds__(256)
   for (int k = 0; k < CH; ++k) {
     const int ch = sub + k * LANES;
     if (ch >= n) continue;
+    if constexpr (GATHER) {
+      if (!in) {  // a gathered pad row: zeros
+        *reinterpret_cast<uint4*>(y + off + 8 * ch) = make_uint4(0, 0, 0, 0);
+        continue;
+      }
+    }
     float f[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) f[e] = (v[k][e] - mean) * rstd;
@@ -190,10 +153,13 @@ __global__ void __launch_bounds__(256)
 
 template <int LANES, int CH>
 cudaError_t launch_rows(const bf16* x, const bf16* g, const bf16* b, bf16* y, int M, int C,
-                        float eps, cudaStream_t st) {
+                        float eps, const int* rows, cudaStream_t st) {
   const long long threads = (long long)M * LANES;
-  layernorm_rows_kernel<LANES, CH><<<(int)((threads + 255) / 256), 256, 0, st>>>(x, g, b, y, M, C,
-                                                                                 eps);
+  const int blocks = (int)((threads + 255) / 256);
+  if (rows == nullptr)
+    layernorm_rows_kernel<LANES, CH, false><<<blocks, 256, 0, st>>>(x, g, b, y, M, C, eps, rows);
+  else
+    layernorm_rows_kernel<LANES, CH, true><<<blocks, 256, 0, st>>>(x, g, b, y, M, C, eps, rows);
   return cudaGetLastError();
 }
 
@@ -201,41 +167,27 @@ cudaError_t launch_rows(const bf16* x, const bf16* g, const bf16* b, bf16* y, in
 
 // y [M, C] = LayerNorm(x) (* g + b; both null: the pure normalize), rows
 // contiguous, C a multiple of 8 and <= 1024, x, y, g and b 16-byte
-// aligned, on 16-byte chunks (see layernorm_rows_kernel).
+// aligned, on 16-byte chunks (see layernorm_rows_kernel); rows (int32 [M],
+// indices of x's rows, or null): y[m] = LayerNorm(x[rows[m]]), zeros where
+// rows[m] < 0.
 LVT_EXPORT int lvt_layernorm_rows_bf16(const void* x, const void* g, const void* b, void* y,
-                                       int M, int C, float eps, void* stream) {
+                                       int M, int C, float eps, const void* rows, void* stream) {
   if (M <= 0 || C <= 0 || C % 8 || C > 1024 || (g == nullptr) != (b == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto X = static_cast<const bf16*>(x);
   const auto G = static_cast<const bf16*>(g);
   const auto B = static_cast<const bf16*>(b);
   const auto Y = static_cast<bf16*>(y);
+  const auto R = static_cast<const int*>(rows);
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = C / 8;  // chunks a row
-  const cudaError_t e = n <= 8    ? launch_rows<8, 1>(X, G, B, Y, M, C, eps, st)
-                        : n <= 16 ? launch_rows<16, 1>(X, G, B, Y, M, C, eps, st)
-                        : n <= 32 ? launch_rows<32, 1>(X, G, B, Y, M, C, eps, st)
-                        : n <= 64 ? launch_rows<32, 2>(X, G, B, Y, M, C, eps, st)
-                        : n <= 96 ? launch_rows<32, 3>(X, G, B, Y, M, C, eps, st)
-                                  : launch_rows<32, 4>(X, G, B, Y, M, C, eps, st);
+  const cudaError_t e = n <= 8    ? launch_rows<8, 1>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 16 ? launch_rows<16, 1>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 32 ? launch_rows<32, 1>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 64 ? launch_rows<32, 2>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 96 ? launch_rows<32, 3>(X, G, B, Y, M, C, eps, R, st)
+                                  : launch_rows<32, 4>(X, G, B, Y, M, C, eps, R, st);
   return (int)e;
-}
-
-// y[M, C] = LayerNorm(res + m * x) and keep[M, C] = (m != 0), rows contiguous,
-// C <= 1024; seed (int64 on the device) or null (no dropout: m = 1, keep all
-// ones); element kept iff its bits >= thresh, kept ones scaled by drop_scale.
-LVT_EXPORT int lvt_dropout_add_ln_bf16(const void* x, const void* res, const void* g, const void* b,
-                                       void* y, void* keep, int M, int C, float eps,
-                                       const void* seed, uint32_t thresh, float drop_scale,
-                                       void* stream) {
-  if (M <= 0 || C <= 0 || C > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
-  if (g == nullptr || b == nullptr) return (int)cudaErrorInvalidValue;
-  const int blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
-  dropout_add_ln_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(res), static_cast<const bf16*>(g),
-      static_cast<const bf16*>(b), static_cast<bf16*>(y), static_cast<uint8_t*>(keep), M, C, eps,
-      static_cast<const int64_t*>(seed), thresh, drop_scale);
-  return (int)cudaGetLastError();
 }
 
 // y[M, C] = LayerNorm(x[M, C]) with affine g, b, or the pure normalize when

@@ -96,7 +96,8 @@ from lavender_tpu_torch.ops.patch_embed_u8 import (
 from lavender_tpu_torch.ops.swin_block_attn import (
     fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
     fused_swin_block_wm_shifted, mlp_in_block, pad_window_mask,
-    rel_pos_bias_wm, round8, supports_inkernel_shift, window_msa,
+    rel_pos_bias_rows, rel_pos_bias_wm, round8, supports_inkernel_shift,
+    window_msa,
     window_partition, window_reverse, wm_partition, wm_reverse, wm_shift)
 from lavender_tpu_torch.ops.window_attention import (
     fused_window_attention, window_attention_reference)
@@ -565,8 +566,14 @@ class BasicLayer(nn.Module):
                 with torch.inference_mode(False):
                     mask = torch.as_tensor(
                         compute_shift_mask(*padded, window, shift),
-                        device=device).to(dtype)
-                    if self.spatial_impl == "pallas":  # K15's 16-byte copies
+                        device=device)
+                    # "fused": K14's operand dtype (0 and -100 are exact),
+                    # so that no cast copies it under autocast; K14 and K15
+                    # stage its rows with the tensor-core forward's 16-byte
+                    # copies
+                    mask = mask.to(torch.bfloat16
+                                   if self.spatial_impl == "fused" else dtype)
+                    if self.spatial_impl in ("pallas", "fused"):
                         mask = _build.with_padded_rows(mask)
             self._geometries[key] = SpatialGeometry(window, shift, padded,
                                                     fused, mask)
@@ -575,12 +582,16 @@ class BasicLayer(nn.Module):
     def _spatial_biases(self, geo: SpatialGeometry, dtype
                         ) -> List[torch.Tensor]:
         """Each block's [nH, N, N] rel-pos bias: the full window's index
-        sliced [:N, :N] (the reference's, JAX swin3d.py:372)."""
+        sliced [:N, :N] (the reference's, JAX swin3d.py:372); on the
+        "pallas" and "fused" routes in rows padded to 16 bytes
+        (``rel_pos_bias_rows``: the tensor-core forward's widest copies, K15
+        and K14), gathered so, not copied."""
         N = int(np.prod(geo.window))
         rel_index = relative_position_index(self.window_size)
-        return [rel_pos_bias_wm(blk.attn.relative_position_bias_table,
-                                rel_index, N, N, dtype)
-                for blk in self.blocks]
+        tables = [blk.attn.relative_position_bias_table for blk in self.blocks]
+        if self.spatial_impl in ("pallas", "fused"):
+            return [rel_pos_bias_rows(t, rel_index, N, dtype) for t in tables]
+        return [rel_pos_bias_wm(t, rel_index, N, N, dtype) for t in tables]
 
     def build_serving_cache(self, D: int, H: int, W: int):
         """Precompute this stage's biases and shift mask for inputs of
@@ -603,10 +614,7 @@ class BasicLayer(nn.Module):
                 self._cache[key] = (*geo, folds)
             else:
                 geo = self._spatial_geometry(D, H, W, p.device, p.dtype)
-                biases = self._spatial_biases(geo, p.dtype)
-                if self.spatial_impl == "pallas":  # K15's 16-byte copies
-                    biases = [_build.with_padded_rows(b) for b in biases]
-                self._cache[key] = biases
+                self._cache[key] = self._spatial_biases(geo, p.dtype)
             self._cache_size, self._cache_fold = (D, H, W), fold
             self._cache_sources = self._sources(fold)
             self._cache_fp = self.fingerprint(fold)
@@ -681,8 +689,15 @@ class BasicLayer(nn.Module):
                          ) -> torch.Tensor:
         B, D, H, W, C = x.shape
         geo = self._spatial_geometry(D, H, W, x.device, x.dtype)
+        # the kernels' operand dtype under autocast: the biases cast where
+        # they are gathered, into rows padded to 16 bytes, not by the
+        # kernels' autograd Functions (a copy at N's own pitch)
+        dtype = x.dtype
+        if (self.spatial_impl in ("pallas", "fused")
+                and torch.is_autocast_enabled("cuda")):
+            dtype = torch.get_autocast_dtype("cuda")
         biases = (self._cached((D, H, W, x.device, x.dtype))
-                  or self._spatial_biases(geo, x.dtype))
+                  or self._spatial_biases(geo, dtype))
         depth, dpr = len(self.blocks), self.drop_path_rates
         # the JAX block's drop-path switch: scanned pairs pass a rate
         # always, the per-block modules only a nonzero one

@@ -9,9 +9,10 @@ rebuilds and an unchanged one is loaded as is.
 
 The primitives bound here (tiled GEMM with fused epilogues, optionally
 scattering its rows; the wgmma + TMA tile GEMM with its split-K row-LN
-epilogue, with or without the hidden dropout; row LayerNorm, with or
-without its affine, optionally gathering its rows, and its dropout +
-residual variant, attention core (on
+epilogue, with or without the hidden dropout, and its residual epilogue
+scattering through a row index; row LayerNorm, with or without its
+affine, optionally gathering its rows, in scalar or 16-byte-chunk
+loads, attention core (on
 the packed qkv slab, on the f32 pipes or, where the caller selects them,
 the tensor cores; and on the tensor cores, the
 packed slab or strided heads-layout q, k, v, with a per-head bias, a
@@ -55,7 +56,7 @@ _STRIDES = ctypes.POINTER(ctypes.c_longlong)
 _INTS = ctypes.POINTER(ctypes.c_int)
 # the entries that return a size, not a cudaError_t
 _SIZES = ("lvt_swin_block_wm_scratch", "lvt_bert_attn_block_scratch",
-          "lvt_ln_mlp_scratch")
+          "lvt_ln_mlp_scratch", "lvt_swin_block_spatial_scratch")
 # the dropout arguments of a kernel: seed pointer (null = no dropout), the
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
@@ -63,8 +64,7 @@ _SIGNATURES = {
     "lvt_gemm_bf16": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
                       _P],
     "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
-    "lvt_dropout_add_ln_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _F, *_DROP,
-                                _P],
+    "lvt_layernorm_rows_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                            *_DROP, _I, _P],
     "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
@@ -81,12 +81,18 @@ _SIGNATURES = {
                              _I, _I, _I, _F, _P],
     "lvt_gemm_tc_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
                          _I, _I, _I, _I, _I, _I, _P],
+    "lvt_gemm_tc_scatter_bf16": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                 _I, _I, _P],
     "lvt_gemm_tc_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _F, _P],
     "lvt_gemm_tc_dropout_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _F, *_DROP, _P],
     "lvt_swin_block_wm_scratch": [_I, _I, _I],
     "lvt_swin_block_wm_bf16": [_P] * 17 + [_I] * 6 + [_F, _F, _INTS, _P],
+    "lvt_swin_block_spatial_scratch": [_I, _I, _I, _I],
+    "lvt_swin_block_spatial_bf16": [_P] * 9 + [_I, _P, _I, _I] + [_P] * 7 + [
+        ctypes.c_longlong, _P] + [_I] * 6 + [_F, _F] + [_I] * 5 + [_P],
+    "lvt_ffn_dropout_ln_bf16": [_P] * 11 + [_I] * 5 + [_F, *_DROP, _P],
     "lvt_bert_attn_block_scratch": [_I, _I, _I],
     "lvt_ln_mlp_scratch": [_I, _I, _I, _I],
     "lvt_ln_mlp_bf16": [_P] * 8 + [ctypes.c_longlong, _P, _I, _I, _I, _F,
@@ -453,35 +459,6 @@ def _dropout_args(seed: Optional[torch.Tensor], rate: float, device):
     return seed.data_ptr(), thresh, 1.0 / (1.0 - rate)
 
 
-def dropout_add_ln(x: torch.Tensor, res: torch.Tensor, weight: torch.Tensor,
-                   bias: torch.Tensor, eps: float,
-                   seed: Optional[torch.Tensor], rate: float):
-    """``(LN(res + dropout(x)), keep)`` on contiguous bf16 rows [M, C],
-    C <= 1024: the dropout of element (row, col) from the counter hash of
-    ``seed`` (``dropout.row_keep``), the bool keep mask [M, C] returned
-    (all True at rate 0)."""
-    for t, what in ((x, "x"), (res, "res")):
-        _check(t, f"dropout_add_ln {what}")
-        if not t.is_contiguous() or t.shape[1] > 1024:
-            raise ValueError(f"dropout_add_ln {what}: must be contiguous with "
-                             "C <= 1024")
-    if res.shape != x.shape:
-        raise ValueError(f"dropout_add_ln: res {tuple(res.shape)} != x "
-                         f"{tuple(x.shape)}")
-    M, C = x.shape
-    seed_ptr, thresh, scale = _dropout_args(seed, rate, x.device)
-    out = torch.empty_like(x)
-    keep = torch.empty(M, C, dtype=torch.bool, device=x.device)
-    err = library().lvt_dropout_add_ln_bf16(
-        x.data_ptr(), res.data_ptr(),
-        _vec(weight, C, "dropout_add_ln weight", optional=False),
-        _vec(bias, C, "dropout_add_ln bias", optional=False), out.data_ptr(),
-        keep.data_ptr(),
-        M, C, float(eps), seed_ptr, thresh, scale, _stream(x))
-    _raise_on(err, "lvt_dropout_add_ln_bf16")
-    return out, keep
-
-
 def dropout_bits(seed: torch.Tensor, n_stream: int,
                  n_index: int) -> torch.Tensor:
     """The kernels' dropout bits of every (stream, index) counter, as int64
@@ -519,6 +496,34 @@ def layernorm(x: torch.Tensor, weight: Optional[torch.Tensor],
         _vec(bias, C, "layernorm bias"), out.data_ptr(), M, C, float(eps),
         _rows(rows, M, x.device, "layernorm"), _stream(x))
     _raise_on(err, "lvt_layernorm_bf16")
+    return out
+
+
+def layernorm_rows(x: torch.Tensor, weight: Optional[torch.Tensor],
+                   bias: Optional[torch.Tensor], eps: float,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``layernorm`` on 16-byte chunks (``lvt_layernorm_rows_bf16``, the
+    LN of K3, K9 and K14): x [M, C] contiguous, C a multiple of 8 and <=
+    1024, the affine (both or neither) contiguous and 16-byte aligned;
+    ``rows`` gathers as ``layernorm``'s does."""
+    _check(x, "layernorm_rows x")
+    M, C = x.shape
+    if not x.is_contiguous() or C % 8 or C > 1024:
+        raise ValueError(f"layernorm_rows: x {tuple(x.shape)} must be "
+                         "contiguous with C % 8 == 0, C <= 1024")
+    if (weight is None) != (bias is None):
+        raise ValueError("layernorm_rows: weight and bias are both given or "
+                         "both None")
+    for t, what in ((weight, "weight"), (bias, "bias")):
+        if t is not None:
+            _tc_operand(t, (C,), x.device, f"layernorm_rows {what}")
+    if rows is not None:
+        M = rows.shape[0]
+    out = torch.empty(M, C, dtype=x.dtype, device=x.device)
+    err = library().lvt_layernorm_rows_bf16(
+        x.data_ptr(), _ptr(weight), _ptr(bias), out.data_ptr(), M, C,
+        float(eps), _rows(rows, M, x.device, "layernorm_rows"), _stream(x))
+    _raise_on(err, "lvt_layernorm_rows_bf16")
     return out
 
 
@@ -986,7 +991,8 @@ def _tc_rows(t: torch.Tensor, M: int, N: int, what: str):
 
 def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
             residual: Optional[torch.Tensor] = None,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            out: Optional[torch.Tensor] = None,
+            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = epi(a @ w.T + bias)`` on the wgmma + TMA tiles
     (``csrc/gemm_tc.cu``), epi the exact GELU or ``+ residual``, in ONE
     launch: ``w`` one weight [N, K] (torch Linear layout) or a tuple of up
@@ -996,7 +1002,10 @@ def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
     slice of a wider tensor, its row stride passed through).  a [M, K] and
     ``residual`` [M, N] with their rows contiguous and 16-byte aligned,
     the weights contiguous; N and K multiples of 8.  ``gemm_tc_plan``
-    picks the tile's rows."""
+    picks the tile's rows.  ``rows`` (int32 [M], one weight, with
+    ``residual`` and ``out``, both [R, N]): the scatter epilogue, row m of
+    the product + ``residual[rows[m]]`` into ``out[rows[m]]``, dropped
+    where rows[m] < 0 (K14's proj)."""
     ws = tuple(w) if isinstance(w, (tuple, list)) else (w,)
     bs = tuple(bias) if isinstance(bias, (tuple, list)) else (bias,)
     G = len(ws)
@@ -1014,6 +1023,20 @@ def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
         _tc_operand(wi, (N, K), dev, f"gemm_tc w[{i}]")
         if bi is not None:
             _tc_operand(bi, (N,), dev, f"gemm_tc bias[{i}]")
+    if rows is not None:
+        if G != 1 or residual is None or out is None or gelu:
+            raise ValueError("gemm_tc rows: one weight, a residual and an "
+                             "out, no GELU")
+        R = residual.shape[0]
+        _tc_rows(residual, R, N, "gemm_tc residual")
+        _tc_rows(out, R, N, "gemm_tc out")
+        err = library().lvt_gemm_tc_scatter_bf16(
+            a.data_ptr(), a.stride(0), ws[0].data_ptr(), _ptr(bs[0]),
+            residual.data_ptr(), residual.stride(0),
+            _rows(rows, M, dev, "gemm_tc"), out.data_ptr(), out.stride(0),
+            M, N, K, gemm_tc_plan(M, N, K, residual=True).bm, _stream(a))
+        _raise_on(err, "lvt_gemm_tc_scatter_bf16")
+        return out
     if out is None:
         out = torch.empty(M, G * N, dtype=a.dtype, device=dev)
     _tc_rows(out, M, G * N, "gemm_tc out")
@@ -1079,9 +1102,9 @@ def gemm_tc_dropout_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     """``(LN(residual + dropout(a @ w.T + bias)), keep)`` (K11): the
     product as ``gemm_tc_ln``'s f32 K-slices, then the row kernel's
     dropout mode sums them in slice order with the bias, drops element
-    (row, col) by the counter hash of ``seed`` (``dropout.row_keep``, the
-    bits ``dropout_add_ln`` draws), scales the kept ones by 1 / (1 -
-    rate), adds the residual and applies the LN, all in f32; the bool keep
+    (row, col) by the counter hash of ``seed`` (``dropout.row_keep``'s
+    bits), scales the kept ones by 1 / (1 - rate), adds the residual and
+    applies the LN, all in f32; the bool keep
     mask [M, C] is returned (all True at rate 0).  Shapes as
     ``gemm_tc_ln``'s.  Two launches, one C call."""
     M, C, K, plan, stream, part = _gemm_tc_ln_args(
@@ -1192,6 +1215,50 @@ def ln_mlp(x: torch.Tensor, ln_w, ln_b, w1: torch.Tensor, b1,
     return out
 
 
+def _swin_block_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, n_seq, n_tok,
+                     n_heads, mlp, what):
+    """Checks of a Swin block's C call (K1, K14): x [n_seq * n_tok, C]
+    contiguous bf16 on the card, C <= 1024 and a multiple of 8, head dim 16,
+    32 or 64, the weights contiguous and 16-byte aligned, each LN affine
+    both or neither.  Returns (M, C, HD, mlp), HD 0 and mlp six Nones
+    without the MLP."""
+    _check(x, f"{what} x")
+    M, C = x.shape
+    hd = C // n_heads
+    dev = x.device
+    if (not x.is_contiguous() or M != n_seq * n_tok or C % 8 or C > 1024
+            or hd * n_heads != C or hd not in (16, 32, 64)):
+        raise ValueError(f"{what}: unsupported x {tuple(x.shape)} for "
+                         f"{n_seq} x {n_tok} rows, {n_heads} heads (C % 8 "
+                         f"== 0, C <= 1024, head dim 16/32/64)")
+    n2w = n2b = w1 = b1 = w2 = b2 = None
+    HD = 0
+    if mlp is not None:
+        n2w, n2b, w1, b1, w2, b2 = mlp
+        HD = w1.shape[0]
+        if HD % 8:
+            raise ValueError(f"{what}: MLP width {HD} not a multiple of 8")
+        _tc_operand(w1, (HD, C), dev, f"{what} w1")
+        _tc_operand(w2, (C, HD), dev, f"{what} w2")
+        for t, n, name in ((b1, HD, "b1"), (b2, C, "b2"), (n2w, C, "ln2_w"),
+                           (n2b, C, "ln2_b")):
+            if t is not None:
+                _tc_operand(t, (n,), dev, f"{what} {name}")
+        if (n2w is None) != (n2b is None):
+            raise ValueError(f"{what}: ln2 weight and bias are both given "
+                             "or both None")
+    if (ln_w is None) != (ln_b is None):
+        raise ValueError(f"{what}: ln1 weight and bias are both given or "
+                         "both None")
+    for t, shape, name in ((wqkv, (3 * C, C), "wqkv"),
+                           (wproj, (C, C), "wproj"), (bqkv, (3 * C,), "bqkv"),
+                           (bproj, (C,), "bproj"), (ln_w, (C,), "ln_w"),
+                           (ln_b, (C,), "ln_b")):
+        if t is not None:
+            _tc_operand(t, shape, dev, f"{what} {name}")
+    return M, C, HD, (n2w, n2b, w1, b1, w2, b2)
+
+
 def swin_block_wm(x: torch.Tensor, ln_w, ln_b, wqkv: torch.Tensor, bqkv,
                   wproj: torch.Tensor, bproj, bias: torch.Tensor,
                   mask: Optional[torch.Tensor], n_seq: int, n_tok: int,
@@ -1206,41 +1273,12 @@ def swin_block_wm(x: torch.Tensor, ln_w, ln_b, wqkv: torch.Tensor, bqkv,
     ``attention(tensor_cores=True)`` launches, from one C call.  LN
     affines None: the pure normalize.  All bf16, contiguous, on one card;
     C <= 1024 and a multiple of 8, head dim 16, 32 or 64."""
-    _check(x, "swin_block_wm x")
-    M, C = x.shape
-    hd = C // n_heads
+    M, C, HD, mlp = _swin_block_args(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                                     bproj, n_seq, n_tok, n_heads, mlp,
+                                     "swin_block_wm")
+    n2w, n2b, w1, b1, w2, b2 = mlp
     dev = x.device
-    if (not x.is_contiguous() or M != n_seq * n_tok or C % 8 or C > 1024
-            or hd * n_heads != C or hd not in (16, 32, 64)):
-        raise ValueError(f"swin_block_wm: unsupported x {tuple(x.shape)} for "
-                         f"{n_seq} x {n_tok} rows, {n_heads} heads (C % 8 "
-                         f"== 0, C <= 1024, head dim 16/32/64)")
-    n2w = n2b = w1 = b1 = w2 = b2 = None
-    HD = 0
-    if mlp is not None:
-        n2w, n2b, w1, b1, w2, b2 = mlp
-        HD = w1.shape[0]
-        if HD % 8:
-            raise ValueError(f"swin_block_wm: MLP width {HD} not a multiple "
-                             "of 8")
-        _tc_operand(w1, (HD, C), dev, "swin_block_wm w1")
-        _tc_operand(w2, (C, HD), dev, "swin_block_wm w2")
-        for t, n, what in ((b1, HD, "b1"), (b2, C, "b2"), (n2w, C, "ln2_w"),
-                           (n2b, C, "ln2_b")):
-            if t is not None:
-                _tc_operand(t, (n,), dev, f"swin_block_wm {what}")
-        if (n2w is None) != (n2b is None):
-            raise ValueError("swin_block_wm: ln2 weight and bias are both "
-                             "given or both None")
-    if (ln_w is None) != (ln_b is None):
-        raise ValueError("swin_block_wm: ln1 weight and bias are both given "
-                         "or both None")
-    for t, shape, what in ((wqkv, (3 * C, C), "wqkv"), (wproj, (C, C), "wproj"),
-                           (bqkv, (3 * C,), "bqkv"), (bproj, (C,), "bproj"),
-                           (ln_w, (C,), "ln_w"), (ln_b, (C,), "ln_b"),
-                           (bias, (n_heads, n_tok, n_tok), "bias")):
-        if t is not None:
-            _tc_operand(t, shape, dev, f"swin_block_wm {what}")
+    _tc_operand(bias, (n_heads, n_tok, n_tok), dev, "swin_block_wm bias")
     n_win = 1
     if mask is not None:
         n_win = mask.shape[0]
@@ -1258,6 +1296,86 @@ def swin_block_wm(x: torch.Tensor, ln_w, ln_b, wqkv: torch.Tensor, bqkv,
         out.data_ptr(), n_seq, n_tok, C, n_heads, HD, n_win, float(scale),
         float(eps), bm, stream)
     _raise_on(err, "lvt_swin_block_wm_bf16")
+    return out
+
+
+class SpatialPlan(NamedTuple):
+    qkv_bm: int   # the qkv product's tile rows
+    proj_bm: int  # the proj's (its scatter epilogue: at most 128)
+    fc1_bm: int   # the MLP's, as ``ln_mlp_plan`` with the residual (0:
+    fc2_bm: int   # no MLP)
+    splits: int   # fc2's f32 K-slices
+    scratch: int  # bytes, as lvt_swin_block_spatial_scratch lays them out
+
+
+@functools.lru_cache(maxsize=256)
+def swin_spatial_plan(M: int, C: int, HD: int,
+                      sms: int = H100_SMS) -> SpatialPlan:
+    """K14's launch plan for M spatial rows of width C (HD the MLP's width,
+    0 for the attention half): the qkv and proj tiles from
+    ``gemm_tc_plan`` (the proj under its residual rule), the MLP's from
+    ``ln_mlp_plan(M, C, HD, residual=True)``, and the scratch: LN1's output,
+    the qkv slab and the core's output (5 bf16 [M, C] pieces, each rounded
+    up to 256 bytes), with the MLP also ``ln_mlp_plan``'s (the block's
+    output before the MLP, the hidden layer, the slices).  Pure
+    arithmetic."""
+    qkv = gemm_tc_plan(M, 3 * C, C, sms=sms).bm
+    proj = gemm_tc_plan(M, C, C, residual=True, sms=sms).bm
+    scratch = 5 * _round256(M * C * 2)
+    if not HD:
+        return SpatialPlan(qkv, proj, 0, 0, 1, scratch)
+    mlp = ln_mlp_plan(M, C, HD, True, sms)
+    return SpatialPlan(qkv, proj, mlp.fc1_bm, mlp.fc2_bm, mlp.splits,
+                       scratch + mlp.scratch)
+
+
+def swin_block_spatial(x: torch.Tensor, rows: torch.Tensor, ln_w, ln_b,
+                       wqkv: torch.Tensor, bqkv, wproj: torch.Tensor, bproj,
+                       bias: torch.Tensor, mask: Optional[torch.Tensor],
+                       n_seq: int, n_tok: int, n_heads: int, scale: float,
+                       eps: float, mlp=None) -> torch.Tensor:
+    """K14's whole block in one call (``csrc/blocks.cu``): x [n_seq *
+    n_tok, C] in spatial row order, ``rows`` (int32 [M], a permutation)
+    the spatial row of each window row; out = x + proj(attn(LN1(x[rows])))
+    scattered back by ``rows`` (then + fc2(GELU(fc1(LN2(.)))) on the
+    spatial rows with ``mlp`` = (ln2_w, ln2_b, w1 [HD, C], b1, w2 [C, HD],
+    b2)): the 16-byte-chunk LN gathering its rows, the qkv product, the
+    window core on the tensor cores (bias [nH, N, N] bf16, mask [nW, N, N]
+    bf16 or f32 or None, each with its rows contiguous: contiguous, or a
+    view of ``padded_rows``), the proj's scatter epilogue with the
+    residual, and K3's MLP path.  LN affines None: the pure normalize.
+    Plan: ``swin_spatial_plan``.  Checks run on every launch and raise."""
+    M, C, HD, mlp = _swin_block_args(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                                     bproj, n_seq, n_tok, n_heads, mlp,
+                                     "swin_block_spatial")
+    n2w, n2b, w1, b1, w2, b2 = mlp
+    dev = x.device
+    bias_ld = _row_pitch(bias, n_heads, n_tok, (torch.bfloat16,), dev,
+                         "swin_block_spatial bias")
+    n_win, mask_ld = 1, 0
+    if mask is not None:
+        mask_ld = _row_pitch(mask, None, n_tok,
+                             (torch.bfloat16, torch.float32), dev,
+                             "swin_block_spatial mask")
+        n_win = mask.shape[0]
+        if n_seq % n_win:
+            raise ValueError(f"swin_block_spatial: {n_seq} windows are not "
+                             f"a multiple of the mask's {n_win}")
+    rows_ptr = _rows(rows, M, dev, "swin_block_spatial")
+    plan = swin_spatial_plan(M, C, HD)
+    stream = _stream(x)
+    ws = _scratch(x, stream, plan.scratch)
+    out = torch.empty_like(x)
+    err = library().lvt_swin_block_spatial_bf16(
+        x.data_ptr(), rows_ptr, _ptr(ln_w), _ptr(ln_b), wqkv.data_ptr(),
+        _ptr(bqkv), wproj.data_ptr(), _ptr(bproj), bias.data_ptr(), bias_ld,
+        _ptr(mask), mask_ld,
+        int(mask is not None and mask.dtype == torch.float32), _ptr(n2w),
+        _ptr(n2b), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), ws, plan.scratch,
+        out.data_ptr(), n_seq, n_tok, C, n_heads, HD, n_win, float(scale),
+        float(eps), plan.qkv_bm, plan.proj_bm, plan.fc1_bm, plan.fc2_bm,
+        plan.splits, stream)
+    _raise_on(err, "lvt_swin_block_spatial_bf16")
     return out
 
 
@@ -1381,6 +1499,49 @@ def ffn_post_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         out.data_ptr(), M, C, HD, splits, int(short), float(eps), stream)
     _raise_on(err, "lvt_ffn_post_ln_bf16")
     return out
+
+
+def ffn_dropout_ln(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor, b2: torch.Tensor, ln_w: torch.Tensor,
+                   ln_b: torch.Tensor, eps: float,
+                   seed: Optional[torch.Tensor], rate: float,
+                   splits: int):
+    """K12 in one call (``csrc/ffn_post_ln.cu``): ``(LN(x + dropout(
+    fc2(GELU(fc1 x + b1)) + b2)), keep)`` for x [M, C], w1 [HD, C], w2 [C,
+    HD] (torch Linear layout): K5's long-M products on the tile GEMM (fc1
+    on ``gemm_tc_plan``'s tile, fc2 as ``splits`` f32 K-slices of 128-row
+    tiles, ``fused_mlp.ffn_plan``'s), then the row kernel's dropout mode
+    (K11's): element (row, col) dropped by the counter hash of ``seed``
+    (``dropout.row_keep``), the bool keep mask [M, C] returned (all True at
+    rate 0).  All bf16 but seed, contiguous, on one card; C and HD /
+    splits multiples of 64, C <= 1024.  The checks run on every launch."""
+    _check(x, "ffn_dropout_ln x")
+    M, C = x.shape
+    HD = w1.shape[0]
+    dev = x.device
+    if (not x.is_contiguous() or C % TILE_K or C > 1024
+            or HD % (TILE_K * splits)):
+        raise ValueError(f"ffn_dropout_ln: unsupported x {tuple(x.shape)} "
+                         f"(contiguous), HD={HD}, {splits} K-slices (C and "
+                         f"HD / slices multiples of {TILE_K}, C <= 1024)")
+    for t, shape, what in ((w1, (HD, C), "w1"), (b1, (HD,), "b1"),
+                           (w2, (C, HD), "w2"), (b2, (C,), "b2"),
+                           (ln_w, (C,), "ln_w"), (ln_b, (C,), "ln_b")):
+        _tc_operand(t, shape, dev, f"ffn_dropout_ln {what}")
+    seed_ptr, thresh, scale = _dropout_args(seed, rate, dev)
+    stream = _stream(x)
+    h_bytes = _round256(M * HD * 2)
+    ws = _scratch(x, stream, h_bytes + splits * M * C * 4)
+    out = torch.empty_like(x)
+    keep = torch.empty(M, C, dtype=torch.bool, device=dev)
+    err = library().lvt_ffn_dropout_ln_bf16(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), ln_w.data_ptr(), ln_b.data_ptr(), ws, ws + h_bytes,
+        out.data_ptr(), keep.data_ptr(), M, C, HD,
+        gemm_tc_plan(M, HD, C).bm, splits, float(eps), seed_ptr, thresh,
+        scale, stream)
+    _raise_on(err, "lvt_ffn_dropout_ln_bf16")
+    return out, keep
 
 
 def permute_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:

@@ -57,18 +57,20 @@ slices in order with the bias, draws the same bits, scales the kept
 values, adds the residual and applies the LN in f32, writing the keep
 mask as one byte an element, 4 a thread; the proj is never rounded to
 bf16 before the dropout (the plain version rounds F.linear's output).
-K12 is still the fc1 GEMM (+bias, GELU) -> fc2 GEMM (+bias) on
-``csrc/gemm.cu``'s wmma tiles, then the scalar row kernel
-``dropout_add_ln`` (``csrc/layernorm.cu``: dropout, + residual, LN in
-f32, the keep mask as one byte per element).  Their backward is, as in
-JAX (``_out_ln_bwd`` :592, ``_ffn_train_bwd`` :477), autograd of the
-plain version with the saved keep mask replayed.  Bound: K11 device
-memory (x, res, out, the mask), K12 the two GEMMs.
+K12 is one C call too, ``_build.ffn_dropout_ln`` (``csrc/ffn_post_ln.cu``):
+K5's long-M products on the tile GEMM (fc1 + bias + GELU on
+``gemm_tc_plan``'s tile, fc2 as ``ffn_plan``'s f32 K-slices) into K11's
+dropout mode of the row kernel, with the same two deviations: fc2's sum
+stays f32 into the dropout, and the GELU's erf is the tile GEMM's (to
+1.5e-7).  Their backward is, as in JAX (``_out_ln_bwd`` :592,
+``_ffn_train_bwd`` :477), autograd of the plain version with the saved
+keep mask replayed.  Bound: K11 device memory (x, res, out, the mask),
+K12 the two products.
 
 GELU is the erf form (the TPU kernels used a clamped polynomial in bf16;
 the JAX oracles use erf): erff in ``gemm.cu`` and K5's short-M kernels,
-erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K3, K9
-and K5's long-M fc1).  K3 and K5 launch outside autograd, so
+erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K3, K9,
+K12 and K5's long-M fc1).  K3 and K5 launch outside autograd, so
 they carry the JAX custom_vjps' backward: autograd of the plain version,
 recomputed from the saved inputs (``_build.RecomputeVjp``).
 """
@@ -143,16 +145,18 @@ class FfnPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=256)
-def ffn_plan(M: int, C: int, HD: int, sms: int = H100_SMS) -> FfnPlan:
+def ffn_plan(M: int, C: int, HD: int, sms: int = H100_SMS,
+             long_m: bool = False) -> FfnPlan:
     """The launch plan of ``fused_ffn_post_ln`` on the card for x [M, C],
     w1 [HD, C].  Short M: fc1 is HD / 16 blocks of 16 features, fc2 C / 16
     column blocks x ``splits``, a K-slice whole 32-wide chunks; long M:
     128 x 128 tiles, fc2's x ``splits``, a K-slice whole tile steps
     (``_build.TILE_K``, the depth of ``csrc/gemm_tc.cu``'s tiles).
     ``splits`` is the least of 1..8 that divides HD into such slices and
-    gives fc2 ``sms`` blocks, else the largest such divisor.  Pure
-    arithmetic: the kernel's wrapper checks the shapes."""
-    short = M <= 64
+    gives fc2 ``sms`` blocks, else the largest such divisor.  ``long_m``
+    takes the long-M regime at any M (K12's one C call has no other).
+    Pure arithmetic: the kernel's wrapper checks the shapes."""
+    short = M <= 64 and not long_m
     if short:
         fc1, tiles, unit = HD // 16, C // 16, 32
     else:
@@ -174,7 +178,7 @@ fused_ffn_post_ln = _build.KernelOp(
     "K5 fused_ffn_post_ln", _ffn_plain, _ffn_cuda, recompute_vjp=True)
 
 
-def _dropout_add_ln(o, res, ln_w, ln_b, keep, eps, rate):
+def _dropout_residual_ln(o, res, ln_w, ln_b, keep, eps, rate):
     """LN(res + keep * o / (1 - rate)) in f32, in res's dtype."""
     o = o.float()
     if rate > 0.0:
@@ -184,8 +188,8 @@ def _dropout_add_ln(o, res, ln_w, ln_b, keep, eps, rate):
 
 def _out_ln_masked(x, res, w, b, ln_w, ln_b, keep, eps, rate):
     """``fused_out_ln_train`` with a given keep mask (its backward)."""
-    return _dropout_add_ln(F.linear(x, w, b), res, ln_w, ln_b, keep, eps,
-                           rate)
+    return _dropout_residual_ln(F.linear(x, w, b), res, ln_w, ln_b, keep,
+                                eps, rate)
 
 
 def _out_ln_train_plain(x, res, w, b, ln_w, ln_b, seed, eps=1e-12,
@@ -240,8 +244,8 @@ fused_out_ln_train = _build.KernelOp(
 def _ffn_masked(x, w1, b1, w2, b2, ln_w, ln_b, keep, eps, rate):
     """``fused_ffn_post_ln_train`` with a given keep mask (its backward)."""
     h = F.gelu(F.linear(x, w1, b1).float()).to(x.dtype)
-    return _dropout_add_ln(F.linear(h, w2, b2), x, ln_w, ln_b, keep, eps,
-                           rate)
+    return _dropout_residual_ln(F.linear(h, w2, b2), x, ln_w, ln_b, keep,
+                                eps, rate)
 
 
 def _ffn_train_plain(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps=1e-12,
@@ -254,9 +258,10 @@ def _ffn_train_plain(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps=1e-12,
 
 
 def _ffn_train_launch(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps, rate):
-    h = _build.gemm(x, w1, b1, gelu=True)
-    return _build.dropout_add_ln(_build.gemm(h, w2, b2), x, ln_w, ln_b, eps,
-                                 seed, rate)
+    splits = ffn_plan(x.shape[0], x.shape[1], w1.shape[0],
+                      long_m=True).splits
+    return _build.ffn_dropout_ln(x, w1, b1, w2, b2, ln_w, ln_b, eps, seed,
+                                 rate, splits)
 
 
 def _ffn_train_cuda(x, w1, b1, w2, b2, ln_w, ln_b, seed, eps=1e-12,

@@ -43,20 +43,24 @@ kernel ``_block_kernel`` (K14, :468, host wrapper ``_fused_block_forward``
 variant + fc2(GELU(fc1(LN2(.)))), on the SPATIAL layout x [B, D, H, W, C]
 of the ``attn_impl="fused"`` stages (and of every stage that the wm route
 refuses).  The TPU kernel cut the rolled, 7 -> 8 lane-padded map into
-(batch, window-row) slabs by its BlockSpec.  On the card the spatial layout
-is read and written through one int32 row index (``window_rows``: window
-row -> spatial row, with the cyclic roll folded in): the LN1 launch gathers
-its input rows by it, so the window-major rows exist only as LN1's output,
-and the proj GEMM's epilogue scatters its rows back by it, adding the
-residual it reads at the same spatial row.  Between the two run the qkv
-GEMM and the attention core on N = D*wh*ww tokens a window (no pad rows,
-no lane pad, no exp2 pre-scale, no head groups).  The MLP of the full
-variant is pointwise, so it runs on the spatial rows: LN2, fc1 + GELU and
-fc2 + residual, three launches on ``gemm.cu``'s wmma tiles
-(``_ln_mlp_wmma``; K3 and K9 moved to the tile GEMM, K14 keeps these).
-Bound: the GEMMs' tensor-core rate, the attention core's f32 FLOPs; device
-memory sees x once on the way in and the output once on the way out, plus
-the qkv and attention slabs.  The bias is the reference's: the FULL
+(batch, window-row) slabs by its BlockSpec.  On the card it is ONE C call
+(``_build.swin_block_spatial``, ``csrc/blocks.cu``), K1's composition with
+one int32 row index (``window_rows``: window row -> spatial row, with the
+cyclic roll folded in): the 16-byte-chunk LN1 gathers its input rows by
+it, so the window-major rows exist only as LN1's output, and the proj's
+scatter epilogue on the wgmma + TMA tile GEMM (``csrc/gemm_tc.cu``)
+writes each row back by it, adding the residual it reads at the same
+spatial row.  Between the two run the qkv product and the attention core
+on the tensor cores (``csrc/attention_fwd_tc.cu``, K1's bias variant) on
+N = D*wh*ww tokens a window (no pad rows, no lane pad, no exp2
+pre-scale, no head groups), the bias and mask read at their row pitch
+(the serving cache keeps them in rows padded to 16 bytes).  The MLP of
+the full variant is pointwise, so it runs on the spatial rows: K3's path
+(the chunk LN2, fc1 + GELU and fc2 + residual on the tile GEMM, plan
+``_build.swin_spatial_plan``).  Bound: the products' tensor-core rate at
+stages 3-4, device memory at stages 1-2 (x once on the way in and the
+output once on the way out, plus the LN, qkv, attention and hidden slabs
+written and read again).  The bias is the reference's: the FULL
 window's relative-position index sliced ``[:N, :N]`` (the wm path's
 ``rel_pos_bias_wm`` without pad rows); the shift mask is the finite -100
 of ``compute_shift_mask``.  Backward: the attention half recomputes the
@@ -150,6 +154,23 @@ def rel_pos_bias_wm(table: torch.Tensor, rel_index: np.ndarray, N: int,
     out = table.to(dtype).t()[:, idx].reshape(-1, Npad, Npad)
     out[:, :, N:] = -100.0
     return out.contiguous()
+
+
+def rel_pos_bias_rows(table: torch.Tensor, rel_index: np.ndarray, N: int,
+                      dtype: torch.dtype) -> torch.Tensor:
+    """The spatial routes' rel-pos bias [nH, N, N] in ``dtype``
+    (``rel_pos_bias_wm`` without pad rows), its rows ld elements apart, ld
+    = N rounded up to 16 bytes (``_build.padded_rows``' pitch, which the
+    tensor-core forward stages with its widest copies): the view [:, :, :N]
+    of one gather into [nH, N, ld] whose pad columns repeat column N - 1,
+    in the table's dtype (under autograd its gradient sums there), then
+    cast, so that no copy pads the rows."""
+    per = 16 // dtype.itemsize
+    ld = -(-N // per) * per
+    cols = np.minimum(np.arange(ld), N - 1)
+    idx = torch.as_tensor(rel_index[:N, cols].reshape(-1),
+                          device=table.device)
+    return table.t()[:, idx].reshape(-1, N, ld).to(dtype)[:, :, :N]
 
 
 def pad_window_mask(mask: torch.Tensor, Npad: int) -> torch.Tensor:
@@ -543,32 +564,18 @@ def _spatial_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
     return y
 
 
-def _ln_mlp_wmma(x, ln_w, ln_b, w1, b1, w2, b2, eps):
-    """K14f's MLP on the card: x + fc2(GELU(fc1(LN(x)))) as three
-    launches, the LN, then ``gemm.cu``'s wmma GEMMs (+ bias, GELU; +
-    bias, + residual)."""
-    h = _build.gemm(_build.layernorm(x, ln_w, ln_b, eps), w1, b1, gelu=True)
-    return _build.gemm(h, w2, b2, residual=x)
-
-
 def _spatial_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                   window, shift, nH, scale, eps, mlp=None):
-    """K14 on the card: gathered LN1 -> qkv GEMM -> attention core ->
-    proj GEMM scattered into the spatial rows (+ residual) [-> the LN2 +
-    MLP + residual of ``_ln_mlp_wmma``]."""
+    """K14 on the card: the one C call of ``_build.swin_block_spatial``
+    (gathered LN1 -> qkv -> the tensor-core core -> proj scattered into the
+    spatial rows + residual [-> LN2 + MLP + residual])."""
     B, D, H, W, C = x.shape
     N = int(np.prod(window))
     rows, _ = _device_rows(B, D, H, W, window, shift, x.device)
     x2 = x.contiguous().view(-1, C)
-    h = _build.layernorm(x2, ln_w, ln_b, eps, rows=rows)
-    qkv = _build.gemm(h, wqkv, bqkv)
-    o = _build.attention(qkv, x2.shape[0] // N, N, nH, scale,
-                         bias=bias.contiguous(),
-                         mask=None if mask is None else mask.contiguous())
-    y = _build.gemm(o, wproj, bproj, residual=x2, rows=rows,
-                    out=torch.empty_like(x2))
-    if mlp is not None:
-        y = _ln_mlp_wmma(y, *mlp, eps)
+    y = _build.swin_block_spatial(x2, rows, ln_w, ln_b, wqkv, bqkv, wproj,
+                                  bproj, bias, mask, x2.shape[0] // N, N, nH,
+                                  scale, eps, mlp)
     return y.view(B, D, H, W, C)
 
 
@@ -582,6 +589,8 @@ def _spatial_attn_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
     rows, inv = _device_rows(B, D, H, W, window, shift, x.device)
     h = layer_norm(x, ln_w, ln_b, eps).reshape(-1, C)
     qkv = F.linear(h.index_select(0, rows.long()), wqkv, bqkv)
+    if mask is not None:  # K8 reads the mask's rows at N's own pitch
+        mask = mask.contiguous()
     o = swin_core_attn(qkv.view(B, -1, N, 3 * C), bias, mask, nH, scale)
     o = F.linear(o.reshape(-1, C), wproj, bproj).index_select(0, inv)
     return x + o.view_as(x).to(x.dtype)

@@ -2,7 +2,8 @@
 CUDA GPU.
 
     python -m lavender_tpu_torch.profile_serving [--batch 4 8 16 32]
-        [--iters 5] [--top 15] [--train | --seq2seq]
+        [--iters 5] [--top 15] [--train [--remat] [--ffn-train] |
+        --seq2seq] [--impl auto|wm|fused|pallas]
 
 Builds the default server (Swin-B + BERT-base, seeded random weights,
 bf16, clips of 5 x 224 x 224, 26 text tokens) and prints, after the
@@ -25,7 +26,12 @@ the forward that runs the full-mask sub-block K6 in every layer.  With
 ``--train`` the same for the retrieval-MLM train step instead
 (``train.trainer`` on the default ``ModelConfig()``: f32 weights, bf16
 autocast, AdamW, B x B pairs, the fusion encoder on its default train
-route through K10 and K11, seeded dropout), per step and train clips/s.
+route through K10 and K11, seeded dropout), per step and train clips/s;
+``--remat`` checkpoints the Swin stages (``SwinConfig.remat``: the wm
+route falls back to the spatial "fused" blocks, K14's attention half),
+``--ffn-train`` takes the fusion encoder's FFN through K12
+(``BertConfig.fused_ffn_train``).  ``--impl`` sets the Swin stages'
+``attn_impl`` of the serving forward ("fused": K14, "pallas": K15).
 
 Needs a CUDA device; raises without one.
 """
@@ -130,14 +136,28 @@ def profile(run, iters: int, top: int, host_ms: float, unit: str):
               f"x{n / iters:5.0f}  {_short(name)}")
 
 
-def _train_runner(batch: int):
-    """(step closure, "step") for the retrieval-MLM train step at B clips."""
-    from lavender_tpu_torch.config import ModelConfig, TrainConfig
+def _config(impl: str = "auto", remat: bool = False,
+            ffn_train: bool = False):
+    """``ModelConfig()`` with the Swin stages' ``attn_impl`` and ``remat``
+    and the fusion encoder's ``fused_ffn_train`` set."""
+    import dataclasses
+
+    from lavender_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, attn_impl=impl, remat=remat),
+        bert=dataclasses.replace(cfg.bert, fused_ffn_train=ffn_train))
+
+
+def _train_runner(batch: int, cfg):
+    """(step closure, "step") for the retrieval-MLM train step at B clips
+    on ``cfg``."""
+    from lavender_tpu_torch.config import TrainConfig
     from lavender_tpu_torch.tasks import retrieval
     from lavender_tpu_torch.train.trainer import (create_train_state,
                                                   make_train_step)
 
-    cfg = ModelConfig()
     state = create_train_state(cfg, TrainConfig(max_iter=1000,
                                                 max_grad_norm=1.0), seed=0)
     step = make_train_step(retrieval.make_loss_fn(2081, 6270), state)
@@ -159,7 +179,16 @@ def main() -> int:
                       help="profile the retrieval-MLM train step")
     what.add_argument("--seq2seq", action="store_true",
                       help="profile the captioning (seq2seq) forward")
+    ap.add_argument("--impl", default="auto",
+                    choices=("auto", "wm", "fused", "pallas"),
+                    help="the Swin stages' attn_impl")
+    ap.add_argument("--remat", action="store_true",
+                    help="--train: SwinConfig.remat (the spatial K14 route)")
+    ap.add_argument("--ffn-train", action="store_true",
+                    help="--train: BertConfig.fused_ffn_train (K12)")
     args = ap.parse_args()
+    if (args.remat or args.ffn_train) and not args.train:
+        ap.error("--remat and --ffn-train go with --train")
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA device")
     print(subprocess.run(
@@ -167,10 +196,14 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
+    cfg = _config(args.impl, args.remat, args.ffn_train)
+    print(f"attn_impl={args.impl!r}"
+          + (f" remat={args.remat} fused_ffn_train={args.ffn_train}"
+             if args.train else ""), flush=True)
     if args.train:
-        runners = [(b, *_train_runner(b)) for b in args.batch[:1]]
+        runners = [(b, *_train_runner(b, cfg)) for b in args.batch[:1]]
     else:
-        server = LavenderServer(seed=0, frames=FRAMES, size=SIZE)
+        server = LavenderServer(cfg, seed=0, frames=FRAMES, size=SIZE)
         runners = [(b, *serving_runner(server, b, args.seq2seq))
                    for b in args.batch]
     host_ms = []

@@ -65,10 +65,17 @@ the tile GEMM's K-slices into the row kernel's dropout mode off the tile
 and at several slices, and K11 at the caption step's 2,200 rows and the
 default step's 17,664 at rates 0, 0.1 and 0.5, keep masks exactly equal,
 its gradients through the mask replay, a second call bitwise equal; and
-by kernel name that K1, K3, K4, K6, K9 and K11 run the tile GEMM (K1, K4
-and K6 the tensor-core forward too, K11 the row kernel) while K12 stays
-on the wmma GEMM and the scalar dropout_add_ln, K14 and K16 on the wmma
-GEMM and the f32-pipe core.
+by kernel name that K1, K3, K4, K6, K9, K11, K12 and K14 run the tile
+GEMM (K1, K4, K6 and K14 the tensor-core forward too, K11 and K12 the
+row kernel, K14 the 16-byte-chunk LN) and none of them the wmma GEMM, the
+f32-pipe core or the scalar LN, while K16 stays on the wmma GEMM and the
+f32-pipe core; the tile GEMM's scatter epilogue and the chunk LN's
+gather (pad rows dropped, zero rows); K14's one C call at Swin-B's four
+stages against its plain version (shifted and unshifted, with and
+without its MLP, the bias and a bf16 or f32 mask in rows padded to 16
+bytes or at N's own pitch), a second call bitwise equal; K12's one C
+call off the tile and at the step's rows, rates 0, 0.1 and 0.5, its
+keep mask exactly ``dropout.row_keep``, a second call bitwise equal.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -563,13 +570,17 @@ def test_train_wrappers_reject_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError):  # float32 operands
         fused_out_ln_train(x.float(), x.float(), _rnd(gen, 64, 64).float(),
                            _rnd(gen, 64).float(), *ln, seed, 1e-12, 0.1)
-    with pytest.raises(ValueError):  # a non-contiguous residual
-        _build.dropout_add_ln(x, _rnd(gen, 64, 16).t(), *ln, 1e-12, seed,
-                              0.1)
+    ffn = (_rnd(gen, 256, 64), _rnd(gen, 256), _rnd(gen, 64, 256),
+           _rnd(gen, 64))
+    with pytest.raises(ValueError):  # a non-contiguous input
+        _build.ffn_dropout_ln(_rnd(gen, 64, 16).t(), *ffn, *ln, 1e-12, seed,
+                              0.1, 1)
     with pytest.raises(ValueError):  # a seed that is not int64 [1]
-        _build.dropout_add_ln(x, x, *ln, 1e-12, seed.int(), 0.1)
+        _build.ffn_dropout_ln(x, *ffn, *ln, 1e-12, seed.int(), 0.1, 1)
     with pytest.raises(ValueError):  # a rate outside [0, 1)
-        _build.dropout_add_ln(x, x, *ln, 1e-12, seed, 1.0)
+        _build.ffn_dropout_ln(x, *ffn, *ln, 1e-12, seed, 1.0, 1)
+    with pytest.raises(ValueError):  # K-slices that are not whole steps
+        _build.ffn_dropout_ln(x, *ffn, *ln, 1e-12, seed, 0.1, 3)
     q = _rnd(gen, 2, 8, 64)
     with pytest.raises(ValueError):  # a mask of the wrong shape
         fused_encoder_attention_train_lanes(q, q, q, _rnd(gen, 2, 8, 9),
@@ -832,21 +843,19 @@ def test_window_block_full_gradient_matches_plain(gen):
 
 def test_layernorm_pure_normalize_and_pad_rows(gen):
     """No affine: the pure normalize (the kernel reads no null pointer);
-    a negative gather row gives a zero row; a half-given affine raises, as
-    does a missing one for dropout_add_ln."""
+    a negative gather row gives a zero row; a half-given affine raises;
+    the same for the 16-byte-chunk LN (K14's)."""
     x = _rnd(gen, 37, 96, std=2.0)
-    _close(_build.layernorm(x, None, None, 1e-5),
-           layer_norm(x, None, None, 1e-5))
     rows = torch.tensor([3, -1, 0, -1, 36], dtype=torch.int32, device="cuda")
     lw, lb = 1 + _rnd(gen, 96, std=0.1), _rnd(gen, 96, std=0.1)
-    for w, b in ((lw, lb), (None, None)):
-        got = _build.layernorm(x, w, b, 1e-5, rows=rows)
-        _close(got[[0, 2, 4]], layer_norm(x[[3, 0, 36]], w, b, 1e-5))
-        assert float(got[[1, 3]].abs().max()) == 0.0
-    with pytest.raises(ValueError, match="both"):
-        _build.layernorm(x, lw, None, 1e-5)
-    with pytest.raises(ValueError, match="required"):
-        _build.dropout_add_ln(x, x, None, lb, 1e-5, None, 0.0)
+    for ln in (_build.layernorm, _build.layernorm_rows):
+        _close(ln(x, None, None, 1e-5), layer_norm(x, None, None, 1e-5))
+        for w, b in ((lw, lb), (None, None)):
+            got = ln(x, w, b, 1e-5, rows=rows)
+            _close(got[[0, 2, 4]], layer_norm(x[[3, 0, 36]], w, b, 1e-5))
+            assert float(got[[1, 3]].abs().max()) == 0.0
+        with pytest.raises(ValueError, match="both"):
+            ln(x, lw, None, 1e-5)
 
 
 def test_gemm_scatter_drops_negative_rows(gen):
@@ -1450,8 +1459,8 @@ def _device_kernels(fn):
 
 
 def test_cores_and_gemms_each_kernel_runs(gen):
-    """K1, K4 and K6 launch the tile GEMM and the tensor-core forward and
-    neither the wmma GEMM nor the f32-pipe core; K14 and K16 stay on those
+    """K1, K4, K6 and K14 launch the tile GEMM and the tensor-core forward
+    and neither the wmma GEMM nor the f32-pipe core; K16 stays on those
     two."""
     def has(names, part):
         return any(part in n for n in names)
@@ -1471,10 +1480,6 @@ def test_cores_and_gemms_each_kernel_runs(gen):
     mask[1, :, 30:] = torch.finfo(torch.float32).min
     k6 = _device_kernels(lambda: fused_bert_attn_block(
         x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, mask, nH, 0.25, 1e-12))
-    for names in (k1, k4, k6):
-        assert has(names, "tile_kernel") and has(names, "fwd_kernel"), names
-        assert not has(names, "gemm_bf16_kernel"), names
-        assert not has(names, "attention_kernel"), names
     (xs, n1w, n1b, wqkv, bqkv, wp, bp, bias, m, nHs, scale, eps) = args
     xs = xs[:, :4, :245].reshape(1, 5, 14, 14, 256)  # one shifted clip
     k14 = _device_kernels(lambda: fused_swin_block_attn(
@@ -1485,11 +1490,12 @@ def test_cores_and_gemms_each_kernel_runs(gen):
         args[0][:, :4].contiguous(), n1w, n1b, wqkv, bqkv, wp, bp, bias,
         m[:4].contiguous(), (5, 14, 14), (5, 7, 7), (0, 3, 3), nHs, scale,
         eps))
-    for names in (k14, k16):
-        assert has(names, "gemm_bf16_kernel"), names
-        assert has(names, "attention_kernel"), names
-        assert not has(names, "tile_kernel") and not has(names,
-                                                         "fwd_kernel"), names
+    for names in (k1, k4, k6, k14):
+        assert has(names, "tile_kernel") and has(names, "fwd_kernel"), names
+        assert not has(names, "gemm_bf16_kernel"), names
+        assert not has(names, "attention_kernel"), names
+    assert has(k16, "gemm_bf16_kernel") and has(k16, "attention_kernel"), k16
+    assert not has(k16, "tile_kernel") and not has(k16, "fwd_kernel"), k16
 
 
 _SWIN_B = {1: (64, 128), 2: (16, 256), 3: (4, 512), 4: (1, 1024)}
@@ -1603,8 +1609,8 @@ def test_ln_mlp_rejects_what_it_does_not_take(gen):
 def test_k3_k9_run_the_tile_gemm_and_k14f_the_wmma_gemm(gen):
     """By kernel name: K3 and K9 launch the 16-byte-chunk LN and the tile
     GEMM (and, where the plan cuts fc2, the row kernel) and not the wmma
-    GEMM; K14's whole block
-    still runs its MLP on the wmma GEMM."""
+    GEMM; so does K14's whole block (its MLP K3's path), with the
+    tensor-core forward, and no wmma GEMM, f32-pipe core or scalar LN."""
     def has(names, part):
         return any(part in n for n in names)
 
@@ -1624,8 +1630,11 @@ def test_k3_k9_run_the_tile_gemm_and_k14f_the_wmma_gemm(gen):
         xs, n1w, n1b, wqkv, bqkv, wp, bp, bias[:, :245, :245].contiguous(),
         m[:4, :245, :245].contiguous(), *mlp, (5, 7, 7), (0, 3, 3), nH,
         scale, eps))
-    assert has(names, "gemm_bf16_kernel"), names
-    assert not has(names, "tile_kernel"), names
+    for part in ("tile_kernel", "layernorm_rows_kernel", "fwd_kernel"):
+        assert has(names, part), names
+    for part in ("gemm_bf16_kernel", "attention_kernel",
+                 "layernorm_bf16_kernel"):
+        assert not has(names, part), names
 
 
 def _k6_mask(gen, B, L, kind, n_video=250):
@@ -1758,9 +1767,8 @@ def test_k11_at_step_shapes_matches_plain_bitwise(gen, M, rate):
 
 
 def test_k11_runs_the_tile_gemm_and_k12_the_wmma_gemm(gen):
-    """By kernel name: K11 launches the tile GEMM and its row kernel, and
-    neither the wmma GEMM nor the scalar dropout_add_ln; K12 still runs
-    both."""
+    """By kernel name: K11 and K12 launch the tile GEMM and its row kernel,
+    and neither the wmma GEMM nor a scalar LN."""
     def has(names, part):
         return any(part in n for n in names)
 
@@ -1772,12 +1780,114 @@ def test_k11_runs_the_tile_gemm_and_k12_the_wmma_gemm(gen):
         x, x, _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C), *ln, seed, 1e-12,
         0.1))
     assert has(k11, "tile_kernel") and has(k11, "rows_kernel"), k11
-    assert not has(k11, "gemm_bf16_kernel"), k11
-    assert not has(k11, "dropout_add_ln_kernel"), k11
     k12 = _device_kernels(lambda: fused_ffn_post_ln_train(
         x, _rnd(gen, 4 * C, C, std=C ** -0.5), _rnd(gen, 4 * C),
         _rnd(gen, C, 4 * C, std=(4 * C) ** -0.5), _rnd(gen, C), *ln, seed,
         1e-12, 0.1))
-    assert has(k12, "gemm_bf16_kernel"), k12
-    assert has(k12, "dropout_add_ln_kernel"), k12
-    assert not has(k12, "tile_kernel"), k12
+    for names in (k11, k12):
+        assert has(names, "tile_kernel") and has(names, "rows_kernel"), names
+        assert not has(names, "gemm_bf16_kernel"), names
+        assert not has(names, "layernorm_bf16_kernel"), names
+
+
+@pytest.mark.parametrize("M,N,K", [(300, 96, 64), (1000, 256, 256),
+                                   (4096, 128, 128)])
+def test_gemm_tc_scatter_and_layernorm_rows_gather(gen, M, N, K):
+    """K14's two layout primitives on the tile GEMM and the chunk LN
+    against their plain meaning: the scatter epilogue writes row m of the
+    product + residual[rows[m]] to out[rows[m]] and drops a row below 0
+    (its out row untouched); the chunk LN gathers x[rows[m]] (a zero row
+    below 0); a second call bitwise equal."""
+    rows = torch.randperm(M, generator=gen, device="cuda").to(torch.int32)
+    rows[::7] = -1
+    a, w, b = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5), _rnd(gen, N)
+    r = _rnd(gen, M, N)
+    out = torch.full((M, N), 7.0, dtype=torch.bfloat16, device="cuda")
+    _build.gemm_tc(a, w, b, residual=r, rows=rows, out=out)
+    keep = rows >= 0
+    dst = rows[keep].long()
+    want = out.clone()
+    want[dst] = (_linear_f32(a[keep], w, b, "bias") + r[dst].float()).to(
+        torch.bfloat16)
+    untouched = torch.ones(M, dtype=torch.bool, device="cuda")
+    untouched[dst] = False
+    assert bool((out[untouched] == 7.0).all())
+    _close(out, want)
+    again = out.clone()
+    _build.gemm_tc(a, w, b, residual=r, rows=rows, out=again)
+    assert torch.equal(out, again)
+    x = _rnd(gen, M, N, std=2.0)
+    lw, lb = 1 + _rnd(gen, N, std=0.1), _rnd(gen, N, std=0.1)
+    got = _build.layernorm_rows(x, lw, lb, 1e-5, rows=rows)
+    _close(got[keep], layer_norm(x[dst], lw, lb, 1e-5))
+    assert float(got[~keep].float().abs().max()) == 0.0
+    assert torch.equal(got, _build.layernorm_rows(x, lw, lb, 1e-5, rows=rows))
+
+
+@pytest.mark.parametrize("stage", [1, 2, 3, 4])
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("pitch", ["own", "padded", "f32 mask"])
+def test_k14_at_swin_b_stages_matches_plain_bitwise(gen, stage, full, pitch):
+    """K14's one C call on one clip of a Swin-B stage (T = 5, N = 245),
+    shifted at stages 1-3 (unshifted at 4), with and without its MLP, the
+    bias and a bf16 mask at N's own pitch or in rows padded to 16 bytes,
+    or an f32 mask: within the gate of its plain version, its
+    residual-free part too; a second call bitwise equal."""
+    from lavender_tpu_torch.models.swin3d import relative_position_index
+    from lavender_tpu_torch.ops.swin_block_attn import rel_pos_bias_wm
+
+    nW, C = _SWIN_B[stage]
+    side, nH = {1: 56, 2: 28, 3: 14, 4: 7}[stage], C // 32
+    window, N = (5, 7, 7), 245
+    shift = (0, 3, 3) if stage < 4 else (0, 0, 0)
+    x, params, mask, mlp = _spatial_args(gen, 1, 5, side, side, C, nH,
+                                         window, shift)
+    params[6] = rel_pos_bias_wm(_rnd(gen, 15 * 13 * 13, nH),
+                                relative_position_index((8, 7, 7)), N, N,
+                                torch.bfloat16)
+    bias = params[6]
+    if pitch == "padded":
+        bias = _build.with_padded_rows(bias)
+        mask = None if mask is None else _build.with_padded_rows(mask)
+    elif pitch == "f32 mask" and mask is not None:
+        mask = mask.float()
+    op = fused_swin_block_full if full else fused_swin_block_attn
+    args = (x, *params[:6], bias, mask, *(mlp if full else ()), window,
+            shift, nH, 32 ** -0.5, 1e-5)
+    got = op(*args)
+    want = op.plain(*args)
+    _close(got, want, rel_l2=1e-2)
+    _close((got - x).float(), (want - x).float(), rel_l2=5e-2)
+    assert torch.equal(got, op(*args))
+
+
+@pytest.mark.parametrize("M,C,HD", [(37, 64, 256), (300, 768, 3072),
+                                    (64 * 276, 768, 3072)])
+@pytest.mark.parametrize("rate", [0.0, 0.1, 0.5])
+def test_ffn_dropout_ln_matches_plain(gen, M, C, HD, rate):
+    """K12's C call: fc1 + GELU and fc2's f32 K-slices on the tile GEMM,
+    summed in order by the row kernel's dropout mode with b2, dropped by
+    the counter hash (keep mask exactly ``dropout.row_keep``), + residual,
+    LN; against the same in f32 (fc2 unrounded before the dropout, as the
+    kernel keeps it); a second call bitwise equal."""
+    from lavender_tpu_torch.ops.fused_mlp import ffn_plan
+
+    x = _rnd(gen, M, C)
+    w1, b1 = _rnd(gen, HD, C, std=C ** -0.5), _rnd(gen, HD, std=0.02)
+    w2, b2 = _rnd(gen, C, HD, std=HD ** -0.5), _rnd(gen, C, std=0.02)
+    lw, lb = 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1)
+    seed = torch.tensor([777], device="cuda")
+    S = ffn_plan(M, C, HD, long_m=True).splits
+    got, keep = _build.ffn_dropout_ln(x, w1, b1, w2, b2, lw, lb, 1e-12, seed,
+                                      rate, S)
+    want_keep = dropout.row_keep(seed, M, C, rate)
+    assert keep.dtype == torch.bool and torch.equal(keep, want_keep)
+    h = _linear_f32(x, w1, b1, "gelu").to(torch.bfloat16)
+    y = _linear_f32(h, w2, b2, "bias")
+    if rate > 0.0:
+        y = y * want_keep.float() / (1.0 - rate)
+    want = layer_norm(x.float() + y, lw.float(), lb.float(), 1e-12)
+    _close(got, want, rel_l2=1e-2)
+    again = _build.ffn_dropout_ln(x, w1, b1, w2, b2, lw, lb, 1e-12, seed,
+                                  rate, S)
+    assert torch.equal(got, again[0]) and torch.equal(keep, again[1])

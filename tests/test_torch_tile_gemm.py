@@ -1,15 +1,18 @@
 """The wgmma + TMA tile GEMM's launch plans (``_build.gemm_tc_plan``, its
-split plan at K11's rows too, and ``_build.ln_mlp_plan`` of K3's and K9's
-LN + MLP) and its row-pitch rule (``_build.tile_rows_ok``), the packed
-attention core's selection (``_build.attention_route``), K6's mask as its
-C call takes it (``padded_clamped_mask``), and which primitives the
-kernels' card paths call: K1, K3, K4, K6 (under its mask, no keep
-vector) and K9 their one C call each (``csrc/blocks.cu``: the tile GEMM
-and the tensor-core core), K11 its one C call (the tile GEMM's K-slices
-into the row kernel's dropout mode), K12 the wmma GEMM and the scalar
-``dropout_add_ln``, K14 and K16 the wmma GEMM and the f32-pipe core.
-Pure functions, or the card paths run on CPU tensors with the primitives
-replaced by recorders; no kernel runs here."""
+split plan at K11's rows too, ``_build.ln_mlp_plan`` of K3's and K9's
+LN + MLP, ``_build.swin_spatial_plan`` of K14 and K12's ``ffn_plan``) and
+its row-pitch rule (``_build.tile_rows_ok``), the packed attention core's
+selection (``_build.attention_route``), K6's mask as its C call takes it
+(``padded_clamped_mask``), K14's row index (a permutation whose inverse
+undoes the roll) and its bias and mask in rows padded to 16 bytes, and
+which primitives the kernels' card paths call: K1, K3, K4, K6 (under its
+mask, no keep vector), K9 and K14 (shifted and unshifted, with and without
+its MLP) their one C call each (``csrc/blocks.cu``: the tile GEMM and the
+tensor-core core), K11 and K12 their one C call (the tile GEMM's K-slices
+into the row kernel's dropout mode), K16 the LN, the wmma GEMM, the
+f32-pipe core and the wmma GEMM.  Pure functions, or the card paths run
+on CPU tensors with the primitives replaced by recorders; no kernel runs
+here."""
 import numpy as np
 import pytest
 import torch
@@ -154,11 +157,16 @@ def test_attention_route_refuses(kw):
         _build.attention_route(**kw)
 
 
+class _Log(list):
+    """The recorded calls; ``rows``: the row index K14's call was given."""
+    rows = None
+
+
 @pytest.fixture
 def calls(monkeypatch):
     """Replace the primitives by recorders of (name, tensor_cores) that
     return zeros of their outputs' shapes."""
-    log = []
+    log = _Log()
 
     def gemm(a, w, b=None, *, gelu=False, residual=None, out=None,
              rows=None):
@@ -200,9 +208,15 @@ def calls(monkeypatch):
         out = a.new_zeros(a.shape[0], w.shape[0])
         return out, out.bool()
 
-    def dropout_add_ln(x, *args):
-        log.append(("dropout_add_ln", None))
+    def ffn_dropout_ln(x, w1, b1, w2, b2, ln_w, ln_b, eps, seed, rate,
+                       splits):
+        log.append(("ffn_dropout_ln", splits))
         return torch.zeros_like(x), torch.zeros_like(x, dtype=torch.bool)
+
+    def swin_block_spatial(x, rows, *args):  # the last: mlp
+        log.append(("swin_block_spatial", args[-1] is not None))
+        log.rows = rows
+        return torch.zeros_like(x)
 
     def ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, plan=None):
         log.append(("ln_mlp", residual))
@@ -211,7 +225,8 @@ def calls(monkeypatch):
     for name, fn in (("gemm", gemm), ("gemm_tc", gemm_tc),
                      ("gemm_tc_ln", gemm_tc_ln),
                      ("gemm_tc_dropout_ln", gemm_tc_dropout_ln),
-                     ("dropout_add_ln", dropout_add_ln),
+                     ("ffn_dropout_ln", ffn_dropout_ln),
+                     ("swin_block_spatial", swin_block_spatial),
                      ("layernorm", layernorm),
                      ("attention", attention),
                      ("swin_block_wm", swin_block_wm),
@@ -313,8 +328,9 @@ def _out_ln_args(M=18, C=32):
 def test_k11_runs_in_one_call_and_k12_on_the_wmma_gemm(calls, rate):
     """K11's card path is the one C call of ``_build.gemm_tc_dropout_ln``
     (the proj's K-slices on the tile GEMM, the row kernel's dropout mode),
-    nothing else; K12 still runs fc1 and fc2 on ``gemm.cu`` and the scalar
-    ``dropout_add_ln``."""
+    nothing else; so is K12's that of ``_build.ffn_dropout_ln`` (K5's
+    long-M products into that dropout mode), with ``ffn_plan``'s long-M
+    K-slices, no longer ``gemm.cu``'s wmma GEMM and a scalar row kernel."""
     out, keep = fused_mlp._out_ln_train_cuda(*_out_ln_args(), 1e-12, rate)
     assert calls == [("gemm_tc_dropout_ln", None)]
     assert out.shape == keep.shape == (18, 32)
@@ -325,7 +341,8 @@ def test_k11_runs_in_one_call_and_k12_on_the_wmma_gemm(calls, rate):
                               torch.zeros(C, 4 * C), torch.zeros(C),
                               torch.ones(C), torch.zeros(C),
                               torch.zeros(1, dtype=torch.int64), 1e-12, rate)
-    assert calls == [("gemm", None), ("gemm", None), ("dropout_add_ln", None)]
+    assert calls == [("ffn_dropout_ln",
+                      fused_mlp.ffn_plan(18, C, 4 * C, long_m=True).splits)]
 
 
 @pytest.mark.parametrize("M", [64 * 276, 40 * 276, 8 * 275])
@@ -349,36 +366,169 @@ def test_k11_split_plan_takes_each_k_step_once_and_fills_the_card(M):
         assert (plan.bm, plan.splits) == (128, 1)
 
 
-def test_k14_k16_stay_on_the_wmma_gemm_and_the_f32_core(calls):
-    """K14's and K16's card paths still record the LN, the wmma GEMM, the
-    f32-pipe core and the wmma GEMM."""
-    C, nH, window, shift = 32, 2, (2, 3, 3), (1, 1, 1)
+def _spatial_run(C=32, nH=2, window=(2, 3, 3), shift=(1, 1, 1), mlp=None):
+    """K14's card path on a [1, 2, 6, 6, C] map (4 windows of N = 18)."""
     N = int(np.prod(window))
-    for run in (
-            lambda: swin_block_attn._spatial_cuda(
-                torch.zeros(1, 2, 6, 6, C), *_swin_args(C=C)[1:7],
-                torch.zeros(nH, N, N), torch.zeros(4, N, N), window, shift,
-                nH, 0.25, 1e-5),
-            lambda: swin_block_attn._shifted_cuda(
-                *_swin_args(nW=4, Npad=24, C=C)[:7], torch.zeros(nH, 24, 24),
-                torch.zeros(4, 24, 24), (2, 6, 6), window, shift, nH, 0.25,
-                1e-5)):
-        calls.clear()
-        run()
-        assert calls == [("layernorm", None), ("gemm", None),
-                         ("attention", False), ("gemm", None)]
+    swin_block_attn._spatial_cuda(
+        torch.zeros(1, 2, 6, 6, C), *_swin_args(C=C)[1:7],
+        torch.zeros(nH, N, N), torch.zeros(4, N, N) if any(shift) else None,
+        window, shift, nH, 0.25, 1e-5, mlp=mlp)
+
+
+def test_k14_k16_stay_on_the_wmma_gemm_and_the_f32_core(calls):
+    """K14's card path is its one C call (``_build.swin_block_spatial``);
+    K16's still records the LN, the wmma GEMM, the f32-pipe core and the
+    wmma GEMM."""
+    C, nH, window, shift = 32, 2, (2, 3, 3), (1, 1, 1)
+    _spatial_run(C, nH, window, shift)
+    assert calls == [("swin_block_spatial", False)]
+    calls.clear()
+    swin_block_attn._shifted_cuda(
+        *_swin_args(nW=4, Npad=24, C=C)[:7], torch.zeros(nH, 24, 24),
+        torch.zeros(4, 24, 24), (2, 6, 6), window, shift, nH, 0.25, 1e-5)
+    assert calls == [("layernorm", None), ("gemm", None),
+                     ("attention", False), ("gemm", None)]
 
 
 def test_k14f_keeps_its_mlp_on_the_wmma_gemm(calls):
     """K14's whole block (the "fused" route's full variant) runs its MLP
-    as the LN and two ``gemm.cu`` launches after its attention half, not
-    as K3's and K9's ``ln_mlp``."""
-    C, nH, window, shift = 32, 2, (2, 3, 3), (1, 1, 1)
-    N = int(np.prod(window))
-    swin_block_attn._spatial_cuda(
-        torch.zeros(1, 2, 6, 6, C), *_swin_args(C=C)[1:7],
-        torch.zeros(nH, N, N), torch.zeros(4, N, N), window, shift, nH, 0.25,
-        1e-5, mlp=_mlp_args(C))
-    assert calls == [("layernorm", None), ("gemm", None),
-                     ("attention", False), ("gemm", None),
-                     ("layernorm", None), ("gemm", None), ("gemm", None)]
+    inside its one C call (K3's path after the attention half), not as
+    separate launches."""
+    _spatial_run(mlp=_mlp_args(32))
+    assert calls == [("swin_block_spatial", True)]
+
+
+@pytest.mark.parametrize("shift", [(0, 0, 0), (1, 1, 1)])
+@pytest.mark.parametrize("with_mlp", [False, True])
+def test_k14_runs_its_block_in_one_call(calls, shift, with_mlp):
+    """K14, shifted and unshifted, with and without its MLP: one C call,
+    given the row index of ``window_rows`` over the batch."""
+    _spatial_run(shift=shift, mlp=_mlp_args(32) if with_mlp else None)
+    assert calls == [("swin_block_spatial", with_mlp)]
+    want = swin_block_attn.window_rows(2, 6, 6, (2, 3, 3), shift)
+    assert calls.rows.dtype == torch.int32
+    assert np.array_equal(calls.rows.numpy(), want)
+
+
+@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("side,C", [(56, 128), (28, 256), (14, 512),
+                                    (7, 1024)])
+@pytest.mark.parametrize("with_mlp", [False, True])
+def test_k14_plan_at_swin_b_stages(B, side, C, with_mlp):
+    """K14's plan at Swin-B's four stages (T = 5, 224 x 224: M = B * 5 *
+    side^2 spatial rows), B = 4 and 8: the qkv tile of ``gemm_tc_plan``,
+    the proj's under its residual rule (at most 128 rows), the MLP's as
+    ``ln_mlp_plan`` with the residual (K3's path), and the scratch that
+    ``csrc/blocks.cu`` lays out: LN1's output, the qkv slab and the core's
+    output, bf16 [M, C] each rounded up to 256 bytes, + the MLP's."""
+    M, HD = B * 5 * side * side, 4 * C if with_mlp else 0
+    plan = _build.swin_spatial_plan(M, C, HD)
+    assert plan.qkv_bm == _build.gemm_tc_plan(M, 3 * C, C).bm
+    assert plan.proj_bm == _build.gemm_tc_plan(M, C, C, residual=True).bm
+    assert plan.proj_bm in (128, 64)
+    r = lambda n: -(-n // 256) * 256
+    if not with_mlp:
+        assert (plan.fc1_bm, plan.fc2_bm, plan.splits) == (0, 0, 1)
+        assert plan.scratch == 5 * r(M * C * 2)
+        return
+    mlp = _build.ln_mlp_plan(M, C, HD, True)
+    assert (plan.fc1_bm, plan.fc2_bm, plan.splits) == (
+        mlp.fc1_bm, mlp.fc2_bm, mlp.splits)
+    assert plan.scratch == 6 * r(M * C * 2) + r(M * HD * 2) + (
+        r(plan.splits * M * C * 4) if plan.splits > 1 else 0)
+
+
+@pytest.mark.parametrize("B,side,shift", [
+    (2, 14, (0, 3, 3)), (1, 14, (0, 0, 0)), (2, 7, (0, 0, 0)),
+    (1, 28, (2, 3, 3))])
+def test_k14_rows_permute_and_their_inverse_undoes_the_roll(B, side, shift):
+    """The row index K14's C call takes (``_device_rows``): a permutation of
+    the batch's B * D * H * W spatial rows, in the windows of
+    ``window_partition`` of the map rolled by -shift, so that gathering by
+    it is the roll and the partition, and scattering back (its inverse)
+    undoes both."""
+    D, window = 5, (5, 7, 7)
+    C = 8
+    x = torch.randn(B, D, side, side, C, generator=torch.Generator()
+                    .manual_seed(side))
+    rows, inv = swin_block_attn._device_rows(B, D, side, side, window, shift,
+                                             torch.device("cpu"))
+    L = D * side * side
+    assert rows.dtype == torch.int32 and inv.dtype == torch.int64
+    assert torch.equal(torch.sort(rows.long()).values, torch.arange(B * L))
+    one = swin_block_attn.window_rows(D, side, side, window, shift)
+    assert np.array_equal(rows.numpy()[:L], one)
+    assert np.array_equal(rows.numpy()[L:], one + L) or B == 1
+    rolled = torch.roll(x, tuple(-s for s in shift), (1, 2, 3))
+    windows = swin_block_attn.window_partition(rolled, window)
+    flat = x.reshape(-1, C)
+    gathered = flat[rows.long()]
+    assert torch.equal(gathered, windows.reshape(-1, C))
+    assert torch.equal(gathered[inv], flat)
+    back = torch.empty_like(flat)
+    back[rows.long()] = gathered  # the scatter epilogue's write
+    assert torch.equal(back, flat)
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k14_padded_bias_and_mask_rows_equal_the_unpadded(impl, dtype):
+    """A spatial stage on the routes whose core is the tensor-core forward
+    ("fused": K14, "pallas": K15) gathers its rel-pos biases in rows
+    padded to 16 bytes (``rel_pos_bias_rows``; N = 18: 20 elements in f32,
+    24 in bf16), under autograd and in the serving cache, and keeps its
+    shift mask so (the stage's geometry): the valid columns equal the
+    unpadded bias (``rel_pos_bias_wm``, the reference's [:N, :N] slice)
+    and mask, the bias's gradient reaches the table, and the cached
+    forward equals the uncached one."""
+    from lavender_tpu_torch.models import swin3d
+
+    torch.manual_seed(0)
+    layer = swin3d.BasicLayer(16, 2, 2, (2, 3, 3), attn_impl=impl).to(dtype)
+    for blk in layer.blocks:
+        torch.nn.init.normal_(blk.attn.relative_position_bias_table)
+    D, H, W = 2, 6, 6
+    x = torch.randn(2, D, H, W, 16).to(dtype)
+    geo = layer._spatial_geometry(D, H, W, x.device, x.dtype)
+    assert geo.fused == (impl == "fused")
+    ld = 20 if dtype == torch.float32 else 24
+    N = 18
+    rel = swin3d.relative_position_index((2, 3, 3))
+    trained = layer._spatial_biases(geo, dtype)
+    for blk, got in zip(layer.blocks, trained):
+        table = blk.attn.relative_position_bias_table
+        want = swin_block_attn.rel_pos_bias_wm(table, rel, N, N, dtype)
+        assert got.stride() == (N * ld, ld, 1) and torch.equal(got, want)
+        (g,) = torch.autograd.grad(got.float().sum(), table)
+        (w,) = torch.autograd.grad(want.float().sum(), table)
+        assert torch.equal(g, w)
+    full = torch.as_tensor(swin3d.compute_shift_mask(D, H, W, geo.window,
+                                                     geo.shift))
+    # "fused": in K14's bf16 whatever the stage's dtype (0 / -100 exact)
+    mdt = torch.bfloat16 if impl == "fused" else dtype
+    mld = 8 if mdt == torch.bfloat16 else 4
+    assert geo.mask.dtype == mdt and torch.equal(geo.mask.float(), full)
+    assert geo.mask.stride()[1:] == (-(-N // mld) * mld, 1)
+    layer.eval()
+    with torch.no_grad():
+        uncached = layer(x)
+        layer.build_serving_cache(D, H, W)
+        cached_biases = layer._cache[(D, H, W, x.device, x.dtype)]
+        cached = layer(x)
+    for got, want in zip(cached_biases, trained):
+        assert got.stride() == (N * ld, ld, 1) and torch.equal(got, want)
+    assert torch.equal(cached, uncached)
+
+
+def test_k12_plan_takes_the_long_m_regime():
+    """K12's one C call runs only the long-M products: its K-slices are
+    ``ffn_plan``'s long-M ones at every M (the train step's 64 x 276 rows,
+    and 37 rows, where K5 would take mma.sync's short regime), whole
+    64-deep steps of HD = 3072."""
+    for M in (64 * 276, 37):
+        plan = fused_mlp.ffn_plan(M, 768, 3072, long_m=True)
+        assert not plan.short
+        assert (3072 // _build.TILE_K) % plan.splits == 0
+    assert fused_mlp.ffn_plan(37, 768, 3072).short
+    assert fused_mlp.ffn_plan(64 * 276, 768, 3072, long_m=True) == \
+        fused_mlp.ffn_plan(64 * 276, 768, 3072)

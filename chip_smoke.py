@@ -7,6 +7,8 @@
     python3 chip_smoke.py --only K3 K9   # and K3's and K9's parts
     python3 chip_smoke.py --only K6 K11  # and K6's and K11's parts
     python3 chip_smoke.py --only K12 K14a K14f  # and K12's and K14's parts
+    python3 chip_smoke.py --only K16 K17  # and K16's parts
+    python3 chip_smoke.py --only K16 K17 --cases  # their cases alone
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -50,10 +52,17 @@ nothing is ever run on the CPU instead:
    stages 1-3 its MLP's fc1 + GELU and fc2) against F.linear, its core
    against scaled_dot_product_attention with the bias and mask rows at
    245 and at 248 elements; K12's fc1 + GELU and fc2 K-slices against
-   F.linear and its row kernel against its bytes at 3.35 TB/s; first in
-   the phase, by kernel name under torch.profiler, that K14a, K14f and
-   K12 launch the tile GEMM (K14 also the chunk LN and the tensor-core
-   forward) and no ``gemm.cu`` wmma GEMM, f32-pipe core or scalar LN;
+   F.linear and its row kernel against its bytes at 3.35 TB/s; K16's
+   parts (``_k16_parts``, also under ``--only K16`` / ``K17``) at stage
+   3, B=4 and B=8: its gathering chunk LN1 (through the wm shift's index)
+   against the scalar gathering LN, its qkv product and its proj's
+   zeroing scatter epilogue against F.linear, its core against
+   scaled_dot_product_attention with the bias and mask rows at 248
+   elements, and the whole call's device time beside its parts' sum;
+   first in the phase, by kernel name under torch.profiler, that K14a,
+   K14f, K16 and K12 launch the tile GEMM (K14 and K16 also the chunk LN
+   and the tensor-core forward) and no wmma GEMM, f32-pipe core (both
+   gone) or scalar LN;
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
    rows), K5 each call repeated and required bitwise equal; K2 and K5
    also with their device time a call under torch.profiler beside the
@@ -73,8 +82,11 @@ nothing is ever run on the CPU instead:
    N=245 with a bf16 and an f32 mask, K7 at L=275; event and device
    time, outputs bitwise equal); K17 (the uint8 patch embed) on the B=4 and
    B=8 clips, its yardstick F.conv3d on the padded normalized bf16 clip;
-   K16 (the shifted wm block with the shift inside) at Swin-B stage 3,
-   B=4 and B=8, also minus its residual, its output's pad rows exactly 0;
+   K16 (the shifted wm block with the shift inside, K14's one C call on
+   the window-major slab) at Swin-B stage 3, B=4 and B=8, also minus its
+   residual, its input's pad rows random, its output's exactly 0; K16 and
+   K17 each call repeated and required bitwise equal, with its device time
+   a call in a CUDA graph;
    K13a / K13b (the heads-layout train attention of LVT_ATTNLANES=0) at
    the retrieval step's 64 pairs, L=276, rate 0.1, on heads views of one
    qkv slab, under a padding and a seq2seq mask (f32), K13a and K13b
@@ -161,8 +173,9 @@ nothing is ever run on the CPU instead:
    the default route in turns, each route's device-busy share; (c) the
    ``_IKS`` train step on ModelConfig(): loss and gradients kernels vs
    plain, launches, ten steps lowering the loss >= 1 nat, step time beside
-   the default step's; (d) K16 against the K2 + K1 attention half + K2^-1
-   composition it replaces, at stage 3, B=4 and B=8, in turns;
+   the default step's; (d) K16 (the shift inside) against the K2 + K1
+   attention half + K2^-1 composition, which does the same work with two
+   relayouts around it, at stage 3, B=4 and B=8, in turns;
 9. the tasks on ModelConfig(), B=8 clips, 26 tokens (``run_tasks``): (a)
    one train step each of QA-MC, QA-OE, RetMC (5 options: 40 pairs),
    pretraining (vtm_batch=4: 8 MLM + 32 VTM sequences) and the
@@ -673,7 +686,8 @@ def _route_cases(g, lin, ln):
     padded, normalized bf16 clip (the normalize left out of its time); K16
     at Swin-B stage 3, B=4 and B=8 (9 blocks in a ``_IKS`` serving forward
     and in a ``_IKS`` train step), its input's pad rows random (the
-    kernel reads none of them)."""
+    kernel reads none of them).  Each call twice, bitwise equal, and its
+    device time a call in a CUDA graph."""
     import torch.nn.functional as F
 
     from lavender_tpu_torch.config import IMAGENET_MEAN, IMAGENET_STD
@@ -697,7 +711,8 @@ def _route_cases(g, lin, ln):
             count, (x, weight, bias), 2.0 * n_out * 96 * E,
             x.numel() + n_out * E * 2 + 96 * E * 2 + FRAMES * E * 4,
             library=lambda xn=xn: F.conv3d(xn, weight, bias,
-                                           stride=(1, 4, 4))))
+                                           stride=(1, 4, 4)),
+            bitwise_repeat=True, graph_ms=True))
     params, statics, (nW, C, nH, N, Npad, n_blocks) = _stage3_block(g, lin,
                                                                      ln)
     hd = C // nH
@@ -710,7 +725,8 @@ def _route_cases(g, lin, ln):
             2.0 * M * C * 4 * C + 4.0 * B * nW * nH * Npad * Npad * hd,
             2 * M * C * 2 + (4 * C * C + 4 * C) * 2
             + (nH + nW) * Npad * Npad * 2,
-            compare=_shifted_compare(x, N)))
+            compare=_shifted_compare(x, N), bitwise_repeat=True,
+            graph_ms=True))
     return cases
 
 
@@ -1719,20 +1735,100 @@ def _k12_k14_parts(g):
     parts.summary("no gate")
 
 
-def _k12_k14_kernel_names(g):
-    """One call each of K14a and K14f (B=4, Swin-B stage 1, shifted) and
-    K12 (1,104 rows) under torch.profiler, first in phase 3 (the
-    profiler's records thin out once a process has traced many windows):
-    their kernels' names must include the tile GEMM and (K14) the chunk
-    LN and the tensor-core forward, (K12) the row kernel, and no
-    ``gemm.cu`` wmma GEMM (gemm_bf16_kernel), f32-pipe core
-    (attention_kernel) or scalar LN (layernorm_bf16_kernel)."""
+def _k16_parts(g):
+    """K16's parts, each against one PyTorch call, at Swin-B stage 3, B=4
+    (the ``_IKS`` serving forward) and B=8 (the ``_IKS`` train step), M =
+    B * 4 * 248 window-major rows: the gathering chunk LN1 through the wm
+    shift's row index (-1 at the pad rows; ``_build.layernorm_rows``)
+    against the scalar gathering LN that K16 ran before
+    (``_build.layernorm``); the qkv product and the proj's zeroing scatter
+    epilogue (+ residual, ``_build.gemm_tc(..., rows=, pad_zero=True)``)
+    against F.linear; the core on the tensor cores (the forward the C call
+    launches, on heads views of one qkv slab) with the bias and the padded
+    shift mask at their 248-element pitch against
+    scaled_dot_product_attention with bias + mask as one additive mask;
+    then the whole call's device time beside the sum of its parts'.
+    Device time in CUDA graphs."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        _batch_shift_rows, fused_swin_block_wm_shifted)
+    from lavender_tpu_torch.ops.wm_permute import shift_indices
+
+    def lin(n_out, n_in):
+        return _rnd(g, n_out, n_in, std=n_in ** -0.5), _rnd(g, n_out,
+                                                            std=0.02)
+
+    def ln(c):
+        return 1.0 + _rnd(g, c, std=0.1), _rnd(g, c, std=0.1)
+
+    parts = _Parts()
+    params, statics, (nW, C, nH, N, Npad, n_blocks) = _stage3_block(g, lin,
+                                                                     ln)
+    n1w, n1b, wqkv, bqkv, wproj, bproj, bias, mask = params
+    spatial, window, shift, _, scale, eps = statics
+    hd = C // nH
+    fwd, _ = shift_indices(window, *spatial, Npad, shift, "cuda")
+    for B in (BATCH, TRAIN_BATCH):
+        M = B * nW * Npad
+        rows = _batch_shift_rows(B, fwd)
+        x, o = _rnd(g, M, C), _rnd(g, M, C)
+        out = torch.empty_like(x)
+        qkv = _rnd(g, B * nW, Npad, 3, nH, hd)
+        q, k, v = qkv.permute(2, 0, 3, 1, 4)  # the slab's heads views
+        full = (bias.float()[None, None] + mask.float()[None, :, None]
+                ).expand(B, -1, -1, -1, -1).reshape(B * nW, nH, Npad, Npad)
+        full = full.to(torch.bfloat16).contiguous()
+        at = f"K16 B={B} stage 3 M={M} C={C}"
+        kernels = [
+            ("K16 LN1", f"{at} gathering chunk LN1 vs the scalar gathering "
+             "LN", lambda: _build.layernorm_rows(x, n1w, n1b, eps, rows),
+             lambda: _build.layernorm(x, n1w, n1b, eps, rows=rows)),
+            ("K16 products", f"{at} qkv N={3 * C} K={C} vs F.linear",
+             lambda: _build.gemm_tc(x, wqkv, bqkv),
+             lambda: F.linear(x, wqkv, bqkv)),
+            ("K16 core", f"{at} core nH={nH} shifted, bias and mask rows "
+             f"{Npad} elements apart vs SDPA (bias + mask as one additive "
+             "mask)", lambda: _build.window_attention(q, k, v, bias, mask,
+                                                      scale),
+             lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=full,
+                                                    scale=scale)),
+            ("K16 products", f"{at} proj + residual, the zeroing scatter "
+             f"by the row index, N={C} K={C} vs F.linear",
+             lambda: _build.gemm_tc(o, wproj, bproj, residual=x, rows=rows,
+                                    out=out, pad_zero=True),
+             lambda: F.linear(o, wproj, bproj))]
+        for group, name, kernel, library in kernels:
+            parts.add(group, name, kernel, library, n_blocks)
+        x4 = x.view(B, nW, Npad, C)
+        whole = _graph_ms(lambda: fused_swin_block_wm_shifted(x4, *params,
+                                                              *statics))
+        summed = sum(_graph_ms(kernel) for _, _, kernel, _ in kernels)
+        print(f"[part] {at}: the whole call {whole:.4f} ms of device time, "
+              f"its parts {summed:.4f} summed ({_nvidia_smi()})", flush=True)
+        del x, o, out, qkv, q, k, v, full
+    parts.summary("no gate")
+
+
+def _kernel_names(g, only=None):
+    """One call each of K14a and K14f (B=4, Swin-B stage 1, shifted), K16
+    (B=4, stage 3) and K12 (1,104 rows) under torch.profiler, those in
+    ``only`` where given, first in phase 3 (the profiler's records thin
+    out once a process has traced many windows): their kernels' names
+    must include the tile GEMM and (K14, K16) the chunk LN and the
+    tensor-core forward, (K12) the row kernel, and none of the wmma GEMM
+    (gemm_bf16_kernel) and the f32-pipe core (attention_kernel), both
+    gone, or the scalar LN (layernorm_bf16_kernel).  A call is traced up
+    to three times, its names the union: a process's first traced window
+    has dropped the first kernel's record (the chunk LN of K14a)."""
     from lavender_tpu_torch.models.swin3d import (
         compute_shift_mask, relative_position_index)
     from lavender_tpu_torch.ops import _build
     from lavender_tpu_torch.ops.fused_mlp import fused_ffn_post_ln_train
     from lavender_tpu_torch.ops.swin_block_attn import (
-        fused_swin_block_attn, fused_swin_block_full, rel_pos_bias_rows)
+        fused_swin_block_attn, fused_swin_block_full,
+        fused_swin_block_wm_shifted, rel_pos_bias_rows)
 
     _, _, C, nH, side, _ = SWIN_STAGES[0]
     window, shift = (5, 7, 7), (0, 3, 3)
@@ -1751,15 +1847,26 @@ def _k12_k14_kernel_names(g):
     ffn = (_rnd(g, 1104, D), *lin(HD, D), *lin(D, HD),
            1.0 + _rnd(g, D, std=0.1), _rnd(g, D, std=0.1),
            torch.tensor([7], device="cuda"), 1e-12, 0.1)
+    params16, statics16, (nW16, C16, _, _, Npad16, _) = _stage3_block(
+        g, lin, lambda c: (1.0 + _rnd(g, c, std=0.1), _rnd(g, c, std=0.1)))
+    x16 = _rnd(g, BATCH, nW16, Npad16, C16)
     need = ("tile_kernel", "layernorm_rows_kernel", "fwd_kernel")
     for kid, fn, want in (
             ("K14a", lambda: fused_swin_block_attn(*args, *statics), need),
             ("K14f", lambda: fused_swin_block_full(*args, *mlp, *statics),
              need),
+            ("K16", lambda: fused_swin_block_wm_shifted(x16, *params16,
+                                                        *statics16), need),
             ("K12", lambda: fused_ffn_post_ln_train(*ffn),
              ("tile_kernel", "rows_kernel"))):
+        if only and kid not in only:
+            continue
         fn()  # warm: the first call builds the row index and the scratch
-        names = list(_kernel_times(fn, 1))
+        names = set()
+        for _ in range(3):  # a process's first traced window can drop a record
+            names |= set(_kernel_times(fn, 1))
+            if all(any(p in n for n in names) for p in want):
+                break
         bad = [n for n in names for old in ("gemm_bf16_kernel",
                                             "attention_kernel",
                                             "layernorm_bf16_kernel")
@@ -1858,15 +1965,17 @@ def _graph_ms(fn, n: int = 10) -> float:
     return ms
 
 
-def check_kernels(only=None):
+def check_kernels(only=None, parts: bool = True):
     """Phase 3: each kernel vs its plain version; returns per-kernel
     {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound by bytes
     time / FLOP time} summed over the calls of ``Case.count``.  ``only``
     (kernel ids such as "K2") keeps those kernels' cases and skips the
-    checks beside them."""
+    checks beside them; ``parts`` False also skips their parts and
+    kernel-name checks, which call this tree's primitives (so the cases
+    alone also run on an older tree's package)."""
     g = torch.Generator(device="cuda").manual_seed(0)
-    if not only or only & {"K12", "K14a", "K14f"}:
-        _k12_k14_kernel_names(g)
+    if parts and (not only or only & {"K12", "K14a", "K14f", "K16"}):
+        _kernel_names(g, only)
     per_kernel = {}
     for c in _kernel_cases(g):
         if only and c.op.name.split()[0] not in only:
@@ -1941,14 +2050,16 @@ def check_kernels(only=None):
         k["t_flops"] += c.count * t_flops
         if lib_ms is not None:
             k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
-    if not only or only & {"K1", "K4"}:
+    if parts and (not only or only & {"K1", "K4"}):
         _k1_k4_parts(g)
-    if not only or only & {"K3", "K9"}:
+    if parts and (not only or only & {"K3", "K9"}):
         _k3_k9_parts(g)
-    if not only or only & {"K6", "K11"}:
+    if parts and (not only or only & {"K6", "K11"}):
         _k6_k11_parts(g)
-    if not only or only & {"K12", "K14a", "K14f"}:
+    if parts and (not only or only & {"K12", "K14a", "K14f"}):
         _k12_k14_parts(g)
+    if parts and (not only or only & {"K16", "K17"}):
+        _k16_parts(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
@@ -3386,9 +3497,9 @@ def main() -> int:
            "K15": fused_window_attention,
            "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
     if sys.argv[1:2] == ["--only"]:  # phase 3 for these kernels alone
-        only = set(sys.argv[2:])  # K14a / K14f: the cases named "K14"
+        only = set(sys.argv[2:]) - {"--cases"}  # K14a / K14f: "K14" cases
         check_kernels(only | {ops[k].name.split()[0] for k in only
-                              if k in ops})
+                              if k in ops}, "--cases" not in sys.argv)
         print(_nvidia_smi(), flush=True)
         return 0
     per_kernel = check_kernels()
@@ -3446,7 +3557,7 @@ def main() -> int:
                  "lavender_tpu/ops/swin_block_attn.py:468"),
         "K15": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                 "lavender_tpu/ops/window_attention.py:49"),
-        "K16": ("lavender_tpu_torch/csrc/layernorm.cu",
+        "K16": ("lavender_tpu_torch/csrc/blocks.cu",
                 "lavender_tpu/ops/swin_block_attn.py:1137"),
         "K17": ("lavender_tpu_torch/csrc/patch_embed.cu",
                 "lavender_tpu/ops/patch_embed_u8.py:76"),

@@ -31,9 +31,9 @@
 // [B, L, L] mask, clamped at -1e4, one mask a sequence, no key skipped).
 // All reach it through the C entries of attention.cu (every call that
 // writes lse, every heads-layout call, and the packed calls that select
-// it, K1 and K4) but K6, whose C entry in blocks.cu calls it directly
-// with the mask's pitch.  The packed calls of K14 and K16 stay on
-// attention.cu's f32-pipe core.  The rows of the mask and of the bias lie
+// it, K1 and K4) but K6, K14 and K16, whose C entries in blocks.cu call
+// it directly with the mask's and the bias's pitch.  The rows of the mask
+// and of the bias lie
 // mask_ld / bias_ld elements apart (N, or a pitch a wrapper rounded up to
 // 16 bytes so that the widest copy runs).
 //

@@ -1,6 +1,6 @@
-// The whole-block kernels K1, K4, K6 and K14, and the LN + MLP of K3 and
-// K9, as one C entry each: their primitives launched back to back on one
-// stream from one call, so that the host pays one crossing into the
+// The whole-block kernels K1, K4, K6, K14 and K16, and the LN + MLP of K3
+// and K9, as one C entry each (K16 is K14's): their primitives launched
+// back to back on one stream from one call, so that the host pays one crossing into the
 // library a block instead of one a launch (at B = 4 serving, K1's stage-3
 // block and K4 were bound by those crossings: 0.23-0.28 ms of host time
 // against 0.14 and 0.04 ms of device time).  The kernels are the
@@ -28,7 +28,17 @@
 // spatial row it came from with the residual's row added; with the MLP
 // K3's path on the spatial rows (chunk LN2, fc1 + GELU, fc2 + residual).
 // The TPU kernel cut the rolled, lane-padded map into slabs by its
-// BlockSpec; here no permuted copy of the map is written.  K9,
+// BlockSpec; here no permuted copy of the map is written.  K16,
+// lavender_tpu/ops/swin_block_attn.py _block_kernel_wm_shift (:1137), the
+// shifted attention half on the UNSHIFTED window-major slab [B, nW, Npad,
+// C] with the cyclic shift inside, is K14's call without the MLP on that
+// slab: n_tok = Npad, the row index the wm shift's (the slab row that each
+// shifted row comes from, -1 at the window's tail-pad rows, whose gathered
+// LN1 rows are zero as the TPU kernel's), the bias and the padded shift
+// mask at pitch Npad, and the proj's zeroing scatter instance: a pad row
+// of the shifted slab sits at the same position as one of the output, so
+// the epilogue writes zeros there and the output's pad rows come out zero
+// with no launch of their own (K14's instance keeps its code).  K9,
 // lavender_tpu/ops/fused_mlp.py _kernel (:91), and K3, _chunked_kernel
 // (:183): the MLP half of K1 on its own, LN -> fc1 + bias + GELU -> fc2 +
 // bias (+ residual), the hidden layer [M, 4C] in device memory (the TPU
@@ -261,7 +271,10 @@ LVT_EXPORT int lvt_bert_attn_block_mask_bf16(const void* x, const void* wq, cons
 // rows int32 [M] the spatial row of each window row (window_partition's
 // order after the roll; a permutation): out = x + proj(attn(LN1(x[rows])))
 // scattered back by rows; with w1 non-null then out = y + fc2(GELU(fc1(
-// LN2(y)))) on the spatial rows y.  All bf16 but rows, contiguous and
+// LN2(y)))) on the spatial rows y.  K16 (pad_zero != 0, no MLP): x the
+// unshifted window-major slab [B * nW * Npad, C], N = Npad, rows an index
+// with -1 at the pad rows (LN1 gathers a zero row there); out row m is
+// zero where rows[m] < 0, which must be the rows that no index names.  All bf16 but rows, contiguous and
 // 16-byte aligned: ln_w, ln_b, wqkv [3C, C], bqkv, wproj [C, C], bproj,
 // n2w, n2b, w1 [HD, C], b1, w2 [C, HD], b2 (the LN affines both null: the
 // pure normalize); bias [nH, N, N] rows bias_ld elements apart, mask [nW,
@@ -281,11 +294,12 @@ LVT_EXPORT int lvt_swin_block_spatial_bf16(
     const void* mask, int mask_ld, int mask_f32, const void* n2w, const void* n2b,
     const void* w1, const void* b1, const void* w2, const void* b2, void* scratch,
     long long scratch_bytes, void* out, int nSeq, int N, int C, int nH, int HD, int nW,
-    float scale, float eps, int bm_qkv, int bm_proj, int bm1, int bm2, int S, void* stream) {
+    float scale, float eps, int bm_qkv, int bm_proj, int bm1, int bm2, int S, int pad_zero,
+    void* stream) {
   const bool mlp = w1 != nullptr;
   if (nSeq <= 0 || N <= 0 || C <= 0 || nH <= 0 || C % nH || nW <= 0 || nSeq % nW ||
       rows == nullptr || bias == nullptr || bias_ld < N ||
-      (mask == nullptr ? nW != 1 : mask_ld < N) || (mlp && (HD <= 0 || S < 1)))
+      (mask == nullptr ? nW != 1 : mask_ld < N) || (mlp && (HD <= 0 || S < 1 || pad_zero)))
     return (int)cudaErrorInvalidValue;
   const int M = nSeq * N, hd = C / nH;
   if (scratch_bytes < lvt_swin_block_spatial_scratch(M, C, mlp ? HD : 0, S))
@@ -308,8 +322,9 @@ LVT_EXPORT int lvt_swin_block_spatial_bf16(
                nullptr, mask, static_cast<const bf16*>(bias), nullptr, 0u, 1.0f, scale, nSeq, N,
                nH, nW, mask != nullptr ? mask_ld : 0, bias_ld};
   if ((err = lvt::attention_fwd_tc(a, hd, mask_f32 != 0, st))) return err;
+  const int scatter = pad_zero ? lvt::kEpiScatterZero : lvt::kEpiScatter;
   g = {o, C, {static_cast<const bf16*>(wproj)}, {static_cast<const bf16*>(bproj)}, 1, y, C,
-       static_cast<const bf16*>(x), C, M, C, C, lvt::kEpiScatter, bm_proj, 1};
+       static_cast<const bf16*>(x), C, M, C, C, scatter, bm_proj, 1};
   g.rows = static_cast<const int*>(rows);
   if ((err = lvt::gemm_tc(g, st)) || !mlp) return err;
   bf16* hid = reinterpret_cast<bf16*>(take(at, (size_t)M * HD * 2));

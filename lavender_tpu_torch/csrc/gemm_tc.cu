@@ -28,8 +28,11 @@
 // the scatter epilogue, which writes row m of the product, plus the
 // residual's row, to the spatial row rows[m] that K14's gathering LN read
 // it from (16-byte chunks as the residual epilogue stores them; a row
-// index below 0 drops the row).  K16's products stay on gemm.cu's wmma
-// tiles.
+// index below 0 drops the row).  K16's products (swin_block_attn.py
+// _block_kernel_wm_shift, blocks.cu) are K14's on the window-major slab,
+// its proj through the scatter epilogue's zeroing instance, which writes
+// a zero row at out row m where rows[m] < 0: the shifted slab's pad rows,
+// which sit at the same positions in the unshifted output.
 //
 // Bound on the card: at B = 4 serving, Swin-B stages 1-2 (M = 63,488 /
 // 15,872 rows, K = C = 128 / 256) by device memory (the stage-1 qkv
@@ -136,6 +139,7 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
     tile_kernel(const __grid_constant__ TileArgs p) {
   using T = Tile<WGS>;
   constexpr int ST = T::kStages;
+  constexpr bool kScatter = EPI == lvt::kEpiScatter || EPI == lvt::kEpiScatterZero;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[ST], empty[ST];
   char* base = reinterpret_cast<char*>(smem_raw) + ((1024 - (tc::smem_addr(smem_raw) & 1023)) & 1023);
@@ -223,7 +227,7 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
       const bf16* bias = at.g == 0 ? p.bias[0] : (at.g == 1 ? p.bias[1] : p.bias[2]);
       uint32_t* so = reinterpret_cast<uint32_t*>(base + ST * T::kStageBytes) + warp * 256;
       int dst[2] = {-1, -1};  // kEpiScatter: the output rows of this lane's two rows
-      if constexpr (EPI == lvt::kEpiScatter) {
+      if constexpr (kScatter) {
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int row = row0 + lane / 4 + 8 * i;
@@ -242,7 +246,7 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
                         : make_uint4(0u, 0u, 0u, 0u);
           }
         }
-        if constexpr (EPI == lvt::kEpiScatter) {
+        if constexpr (kScatter) {
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             const int col = at.n0 + 32 * q + 8 * (lane % 4);
@@ -271,7 +275,7 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
           const int r = lane / 4 + 8 * i, k = lane % 4;
           const int row = row0 + r, col = at.n0 + 32 * q + 8 * k;
           uint4 v = reinterpret_cast<const uint4*>(so)[r * 4 + (k ^ ((r >> 1) & 3))];
-          if constexpr (EPI == lvt::kEpiScatter) {
+          if constexpr (kScatter) {
             if (dst[i] >= 0 && col < N) {
               float f[8], rf[8];
               lvt::unpack8(v, f);
@@ -280,6 +284,10 @@ __global__ void __launch_bounds__(Tile<WGS>::kThreads, Tile<WGS>::kBlocks)
               for (int e = 0; e < 8; ++e) f[e] += rf[e];
               *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + (size_t)dst[i] * p.ldc +
                                         col) = lvt::pack8(f);
+            } else if constexpr (EPI == lvt::kEpiScatterZero) {
+              if (row < M && col < N)  // rows[row] < 0: out row `row` is a pad row
+                *reinterpret_cast<uint4*>(static_cast<bf16*>(p.out) + (size_t)row * p.ldc + col) =
+                    make_uint4(0u, 0u, 0u, 0u);
             }
           } else if (row < M && col < N) {  // N % 8 == 0: the whole chunk is in
             if constexpr (EPI == lvt::kEpiResidual) {
@@ -337,6 +345,7 @@ cudaError_t launch_epi(TileArgs& p, int epi, cudaStream_t st) {
     case lvt::kEpiResidual: return launch_tile<WGS, lvt::kEpiResidual>(p, st);
     case lvt::kEpiPartial: return launch_tile<WGS, lvt::kEpiPartial>(p, st);
     case lvt::kEpiScatter: return launch_tile<WGS, lvt::kEpiScatter>(p, st);
+    case lvt::kEpiScatterZero: return launch_tile<WGS, lvt::kEpiScatterZero>(p, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -489,10 +498,11 @@ int lvt::gemm_tc(const GemmTc& g, cudaStream_t st) {
   const bool partial = g.epi == kEpiPartial;
   if (g.M <= 0 || g.N <= 0 || g.K <= 0 || g.N % 8 || g.K % 8 || g.lda % 8 || g.lda < g.K ||
       g.G < 1 || g.G > 3 || g.S < 1 || KT % g.S || (g.S > 1 && (!partial || g.G != 1)) ||
-      (g.bm != 64 && g.bm != 128 && g.bm != 256) || g.epi < kEpiBias || g.epi > kEpiScatter ||
-      ((g.epi == kEpiResidual || g.epi == kEpiScatter) &&
+      (g.bm != 64 && g.bm != 128 && g.bm != 256) || g.epi < kEpiBias ||
+      g.epi > kEpiScatterZero ||
+      ((g.epi == kEpiResidual || g.epi >= kEpiScatter) &&
        (g.r == nullptr || g.ldr % 8 || g.ldr < g.N)) ||
-      (g.epi == kEpiScatter && (g.rows == nullptr || g.G != 1)) ||
+      (g.epi >= kEpiScatter && (g.rows == nullptr || g.G != 1)) ||
       (!partial && (g.ldc % 8 || g.ldc < (long long)g.G * g.N)))
     return (int)cudaErrorInvalidValue;
   TileArgs p{};
@@ -567,14 +577,16 @@ LVT_EXPORT int lvt_gemm_tc_bf16(const void* a, int lda, const void* w0, const vo
 }
 
 // out[rows[m]] = a [M, K] . w [N, K]^T + b + r[rows[m]] for m < M, rows
-// int32 [M] (a row below 0 dropped), r's and out's rows ldr and ldc apart:
-// the scatter epilogue at bm rows a tile (K14's proj).  All bf16 but rows.
+// int32 [M] (a row below 0 dropped, or with pad_zero out[m] set to zeros),
+// r's and out's rows ldr and ldc apart: the scatter epilogue at bm rows a
+// tile (K14's proj; K16's with pad_zero).  All bf16 but rows.
 LVT_EXPORT int lvt_gemm_tc_scatter_bf16(const void* a, int lda, const void* w, const void* b,
                                         const void* r, int ldr, const void* rows, void* out,
-                                        int ldc, int M, int N, int K, int bm, void* stream) {
+                                        int ldc, int M, int N, int K, int bm, int pad_zero,
+                                        void* stream) {
   lvt::GemmTc g{static_cast<const bf16*>(a), lda, {static_cast<const bf16*>(w)},
                 {static_cast<const bf16*>(b)}, 1, out, ldc, static_cast<const bf16*>(r), ldr,
-                M, N, K, lvt::kEpiScatter, bm, 1};
+                M, N, K, pad_zero ? lvt::kEpiScatterZero : lvt::kEpiScatter, bm, 1};
   g.rows = static_cast<const int*>(rows);
   return lvt::gemm_tc(g, static_cast<cudaStream_t>(stream));
 }

@@ -1,9 +1,9 @@
 // The wgmma + TMA tile GEMM (gemm_tc.cu) as its users call it: K1's, K3's,
-// K4's, K6's, K9's and K14's products (blocks.cu) and K5's and K12's long-M
-// fc1 / fc2 and row kernel (ffn_post_ln.cu), and the device pieces the tile is
-// built from: the Tensor Memory Accelerator's tensor maps and copies, the
-// mbarriers that report them, the 128-byte-swizzle descriptor and the
-// m64n128k16 warpgroup product.
+// K4's, K6's, K9's, K14's and K16's products (blocks.cu) and K5's and
+// K12's long-M fc1 / fc2 and row kernel (ffn_post_ln.cu), and the device
+// pieces the tile is built from: the Tensor Memory Accelerator's tensor
+// maps and copies, the mbarriers that report them, the 128-byte-swizzle
+// descriptor and the m64n128k16 warpgroup product.
 #pragma once
 
 #include <cuda.h>
@@ -17,13 +17,16 @@ namespace lvt {
 // in its erf form (erf to 1.5e-7, gemm_tc.cu), or + R (bf16 out); or the
 // f32 partial sum of one K-slice, bias-free, into part [S, M, N]; or the
 // residual's row scatter: row m goes to out row rows[m] with R[rows[m]]
-// added, and is dropped where rows[m] < 0.
+// added, and is dropped where rows[m] < 0 (K14's proj), or in its zeroing
+// instance, where rows[m] < 0, a zero row goes to out row m itself (K16's
+// proj: its pad rows, which no index names, come out zero).
 enum GemmEpi {
   kEpiBias = 0,
   kEpiGelu = 1,
   kEpiResidual = 2,
   kEpiPartial = 3,
-  kEpiScatter = 4
+  kEpiScatter = 4,
+  kEpiScatterZero = 5
 };
 
 // One tile-GEMM launch: out = epi(A [M, K] . W_g [N, K]^T + bias_g) for g
@@ -33,7 +36,7 @@ enum GemmEpi {
 // the partial epilogue (S = 1 otherwise; whole 64-deep steps a slice),
 // whose out is f32 [S, M, N].  K, N, lda, ldc, ldr multiples of 8, pointers
 // 16-byte aligned; G in 1..3, G = 1 when S > 1.  rows: the scatter
-// epilogue's int32 [M] (null for the others).
+// epilogues' int32 [M] (null for the others).
 struct GemmTc {
   const bf16* a;
   long long lda;

@@ -9,11 +9,9 @@
 // registers (C <= 1024, 32 values per lane), so the row is read once;
 // statistics in f32, two-pass variance (no E[x^2] - mean^2 cancellation).
 // An optional row index gathers the input: output row m is the LN of input
-// row rows[m], and a zero row where rows[m] < 0.  The shifted wm block K16
-// (lavender_tpu/ops/swin_block_attn.py _block_kernel_wm_shift) reads its
-// LN1 this way, through the wm shift, whose window tail-pad rows are -1
-// (the TPU kernel's literal zero pad rows), so that no permuted copy of the
-// block input is ever written.  Without an affine (g and b null) the launch
+// row rows[m], and a zero row where rows[m] < 0 (no model path gathers
+// through this kernel any more: K14 and K16 take the chunk kernel's gather
+// below).  Without an affine (g and b null) the launch
 // is the pure normalize that the serving fold cache leaves (the LN affine
 // folded into the next GEMM's weights, lavender_tpu/models/swin3d.py
 // foldfn).
@@ -30,7 +28,11 @@
 // as the scalar kernel: a gathered row is still one contiguous run of C x 2
 // bytes, so the loads stay 16 bytes wide.  K14's LN1
 // (lavender_tpu/ops/swin_block_attn.py _block_kernel) gathers the spatial
-// rows [B, D, H, W] in window order, the cyclic roll folded into the index.
+// rows [B, D, H, W] in window order, the cyclic roll folded into the index;
+// the shifted wm block K16 (_block_kernel_wm_shift) gathers its window-major
+// slab's rows through the wm shift, whose window tail-pad rows are -1 (the
+// TPU kernel's literal zero pad rows), so that no permuted copy of the
+// block input is ever written.
 #include "common.cuh"
 
 namespace {

@@ -7,14 +7,11 @@ at first use (never at import), writes into ``build/`` at the repository
 root, and is keyed by a hash of the sources and flags, so an edited source
 rebuilds and an unchanged one is loaded as is.
 
-The primitives bound here (tiled GEMM with fused epilogues, optionally
-scattering its rows; the wgmma + TMA tile GEMM with its split-K row-LN
-epilogue, with or without the hidden dropout, and its residual epilogue
-scattering through a row index; row LayerNorm, with or without its
-affine, optionally gathering its rows, in scalar or 16-byte-chunk
-loads, attention core (on
-the packed qkv slab, on the f32 pipes or, where the caller selects them,
-the tensor cores; and on the tensor cores, the
+The primitives bound here (the wgmma + TMA tile GEMM with its split-K
+row-LN epilogue, with or without the hidden dropout, and its residual
+epilogue scattering through a row index; row LayerNorm, with or without
+its affine, optionally gathering its rows, in scalar or 16-byte-chunk
+loads, attention core (on the tensor cores, the
 packed slab or strided heads-layout q, k, v, with a per-head bias, a
 per-window mask whose rows may be padded or a key-keep vector, with
 dropout and the rows' log-sum-exp where asked) and its backward (with the
@@ -61,8 +58,6 @@ _SIZES = ("lvt_swin_block_wm_scratch", "lvt_bert_attn_block_scratch",
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
 _SIGNATURES = {
-    "lvt_gemm_bf16": [_P, _I, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P,
-                      _P],
     "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     "lvt_layernorm_rows_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -82,7 +77,7 @@ _SIGNATURES = {
     "lvt_gemm_tc_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I,
                          _I, _I, _I, _I, _I, _I, _P],
     "lvt_gemm_tc_scatter_bf16": [_P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                                 _I, _I, _P],
+                                 _I, _I, _I, _P],
     "lvt_gemm_tc_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _F, _P],
     "lvt_gemm_tc_dropout_ln_bf16": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -91,7 +86,7 @@ _SIGNATURES = {
     "lvt_swin_block_wm_bf16": [_P] * 17 + [_I] * 6 + [_F, _F, _INTS, _P],
     "lvt_swin_block_spatial_scratch": [_I, _I, _I, _I],
     "lvt_swin_block_spatial_bf16": [_P] * 9 + [_I, _P, _I, _I] + [_P] * 7 + [
-        ctypes.c_longlong, _P] + [_I] * 6 + [_F, _F] + [_I] * 5 + [_P],
+        ctypes.c_longlong, _P] + [_I] * 6 + [_F, _F] + [_I] * 6 + [_P],
     "lvt_ffn_dropout_ln_bf16": [_P] * 11 + [_I] * 5 + [_F, *_DROP, _P],
     "lvt_bert_attn_block_scratch": [_I, _I, _I],
     "lvt_ln_mlp_scratch": [_I, _I, _I, _I],
@@ -102,11 +97,10 @@ _SIGNATURES = {
     "lvt_bert_attn_block_mask_bf16": [_P] * 12 + [_I, _P, _P] + [_I] * 4 + [
         _F, _F, _I, _I, _I, _P],
     "lvt_permute_rows": [_P, _P, _P, _I, _I, _I, _P],
-    "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "lvt_patch_embed_u8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "lvt_dropout_bits": [_P, _P, _I, _I, _P],
 }
 
-_EPI_BIAS, _EPI_GELU, _EPI_RESIDUAL = 0, 1, 2
 # gemm_tc.cu's epilogues (lvt::GemmEpi)
 _TC_BIAS, _TC_GELU, _TC_RESIDUAL, _TC_PARTIAL = 0, 1, 2, 3
 # the H100 SXM's streaming multiprocessors: the launch plans fill them
@@ -405,47 +399,6 @@ def _rows(rows: Optional[torch.Tensor], M: int, device, what: str):
     return rows.data_ptr()
 
 
-def gemm(a: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor] = None,
-         *, gelu: bool = False, residual: Optional[torch.Tensor] = None,
-         out: Optional[torch.Tensor] = None,
-         rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out = epi(a @ w.T + bias)``: epi is exact GELU or ``+ residual``.
-
-    a [M, K], w [N, K] (torch Linear layout); ``out`` may be a column slice
-    of a wider tensor (its row stride is passed through).  ``rows`` (int32
-    [M], distinct rows of ``out``) scatters: row m of the product goes to
-    ``out[rows[m]]``, with ``residual[rows[m]]`` added, and is dropped where
-    ``rows[m] < 0`` (those rows of ``out`` keep what they held)."""
-    _check(a, "gemm a")
-    _check(w, "gemm w")
-    M, K = a.shape
-    N = w.shape[0]
-    if w.shape[1] != K or K % 32 != 0 or N % 8 != 0:
-        raise ValueError(f"gemm: unsupported shapes a {tuple(a.shape)}, "
-                         f"w {tuple(w.shape)} (need K % 32 == 0, N % 8 == 0)")
-    if gelu and residual is not None:
-        raise ValueError("gemm: GELU and residual epilogues are exclusive")
-    if out is None:
-        out = torch.empty(M, N, dtype=a.dtype, device=a.device)
-    _check(out, "gemm out")
-    if tuple(out.shape) != (M, N):
-        raise ValueError(f"gemm out: expected {(M, N)}, got {tuple(out.shape)}")
-    epi, r_ptr, ldr = _EPI_BIAS, None, 0
-    if gelu:
-        epi = _EPI_GELU
-    if residual is not None:
-        _check(residual, "gemm residual")
-        if tuple(residual.shape) != (M, N):
-            raise ValueError("gemm residual: shape mismatch")
-        epi, r_ptr, ldr = _EPI_RESIDUAL, residual.data_ptr(), residual.stride(0)
-    err = library().lvt_gemm_bf16(
-        a.data_ptr(), a.stride(0), w.data_ptr(), w.stride(0),
-        _vec(bias, N, "gemm bias"), r_ptr, ldr, out.data_ptr(), out.stride(0),
-        M, N, K, epi, _rows(rows, M, a.device, "gemm"), _stream(a))
-    _raise_on(err, "lvt_gemm_bf16")
-    return out
-
-
 def _dropout_args(seed: Optional[torch.Tensor], rate: float, device):
     """(seed pointer, threshold, scale) for a kernel; no dropout (null
     seed) at rate 0.  The seed is an int64 [1] on the data's device, read
@@ -569,21 +522,24 @@ def attention_route(*, tensor_cores: bool = False, lse: bool = False,
                     keep: bool = False, bias: bool = False,
                     dropout: bool = False) -> str:
     """The core a packed-slab ``attention`` call runs on, from what it
-    carries: "tensor_cores" (``csrc/attention_fwd_tc.cu``) where the caller
-    selects them (K1, K4) or asks for lse (K8a, K10a), else "f32" (the
-    f32-pipe core of ``csrc/attention.cu``: K14, K16).  The selection
-    is the caller's and never inferred from the other arguments: K14 and
-    K16 pass the same bias and mask as K1.  Raises on what neither core
-    takes: dropout without lse or with a bias; on the tensor cores a keep
-    vector with lse, dropout or a bias."""
+    carries: "tensor_cores" (``csrc/attention_fwd_tc.cu``), the one core
+    left, where the caller selects it (K1, K4) or asks for lse (K8a,
+    K10a).  A call that does neither raises: the f32-pipe core that took
+    such calls is gone, and a caller written for it is refused rather than
+    moved silently.  Raises also on what the core does not take: dropout
+    without lse or with a bias, a keep vector with lse, dropout or a
+    bias."""
     if dropout and (not lse or bias):
         raise ValueError("attention: dropout needs lse and no bias (the "
                          "tensor-core route)")
-    on_tc = tensor_cores or lse
-    if on_tc and keep and (lse or dropout or bias):
+    if not (tensor_cores or lse):
+        raise ValueError("attention: the packed core runs on the tensor "
+                         "cores; select them (tensor_cores=True) or ask "
+                         "for lse")
+    if keep and (lse or dropout or bias):
         raise ValueError("attention: the tensor cores take a keep vector "
                          "only without lse, dropout and bias")
-    return "tensor_cores" if on_tc else "f32"
+    return "tensor_cores"
 
 
 def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
@@ -602,10 +558,9 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     log-sum-exp of its scores (what ``attention_bwd`` takes).  At ``rate``
     > 0 the probabilities are dropped by the counter hash of ``seed`` (an
     int64 [1] on the device; ``dropout.attention_keep``) in the P.V sum
-    only.  ``attention_route`` picks the core: the tensor cores
-    (``csrc/attention_fwd_tc.cu``) for a call with ``lse`` (K10a, K8a) or
-    ``tensor_cores`` (K1, K4), else the f32-pipe core
-    (``csrc/attention.cu``).  Returns [n_seq * n_tok, C]."""
+    only.  The core is the tensor cores' (``csrc/attention_fwd_tc.cu``),
+    for a call with ``lse`` (K10a, K8a) or ``tensor_cores`` (K1, K4);
+    ``attention_route`` refuses any other.  Returns [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
     attention_route(tensor_cores=tensor_cores, lse=lse is not None,
@@ -992,7 +947,8 @@ def _tc_rows(t: torch.Tensor, M: int, N: int, what: str):
 def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
             residual: Optional[torch.Tensor] = None,
             out: Optional[torch.Tensor] = None,
-            rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+            rows: Optional[torch.Tensor] = None,
+            pad_zero: bool = False) -> torch.Tensor:
     """``out = epi(a @ w.T + bias)`` on the wgmma + TMA tiles
     (``csrc/gemm_tc.cu``), epi the exact GELU or ``+ residual``, in ONE
     launch: ``w`` one weight [N, K] (torch Linear layout) or a tuple of up
@@ -1005,7 +961,9 @@ def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
     picks the tile's rows.  ``rows`` (int32 [M], one weight, with
     ``residual`` and ``out``, both [R, N]): the scatter epilogue, row m of
     the product + ``residual[rows[m]]`` into ``out[rows[m]]``, dropped
-    where rows[m] < 0 (K14's proj)."""
+    where rows[m] < 0 (K14's proj), or with ``pad_zero`` (out [M, N])
+    a zero row into ``out[m]`` there (K16's proj, whose pad rows are the
+    rows that no index names)."""
     ws = tuple(w) if isinstance(w, (tuple, list)) else (w,)
     bs = tuple(bias) if isinstance(bias, (tuple, list)) else (bias,)
     G = len(ws)
@@ -1028,15 +986,21 @@ def gemm_tc(a: torch.Tensor, w, bias=None, *, gelu: bool = False,
             raise ValueError("gemm_tc rows: one weight, a residual and an "
                              "out, no GELU")
         R = residual.shape[0]
+        if pad_zero and R != M:
+            raise ValueError(f"gemm_tc pad_zero: out has {R} rows, the "
+                             f"product {M}")
         _tc_rows(residual, R, N, "gemm_tc residual")
         _tc_rows(out, R, N, "gemm_tc out")
         err = library().lvt_gemm_tc_scatter_bf16(
             a.data_ptr(), a.stride(0), ws[0].data_ptr(), _ptr(bs[0]),
             residual.data_ptr(), residual.stride(0),
             _rows(rows, M, dev, "gemm_tc"), out.data_ptr(), out.stride(0),
-            M, N, K, gemm_tc_plan(M, N, K, residual=True).bm, _stream(a))
+            M, N, K, gemm_tc_plan(M, N, K, residual=True).bm, int(pad_zero),
+            _stream(a))
         _raise_on(err, "lvt_gemm_tc_scatter_bf16")
         return out
+    if pad_zero:
+        raise ValueError("gemm_tc pad_zero: only with rows")
     if out is None:
         out = torch.empty(M, G * N, dtype=a.dtype, device=dev)
     _tc_rows(out, M, G * N, "gemm_tc out")
@@ -1312,7 +1276,8 @@ class SpatialPlan(NamedTuple):
 def swin_spatial_plan(M: int, C: int, HD: int,
                       sms: int = H100_SMS) -> SpatialPlan:
     """K14's launch plan for M spatial rows of width C (HD the MLP's width,
-    0 for the attention half): the qkv and proj tiles from
+    0 for the attention half; K16's with HD 0 for its M = B * nW * Npad
+    window-major rows): the qkv and proj tiles from
     ``gemm_tc_plan`` (the proj under its residual rule), the MLP's from
     ``ln_mlp_plan(M, C, HD, residual=True)``, and the scratch: LN1's output,
     the qkv slab and the core's output (5 bf16 [M, C] pieces, each rounded
@@ -1333,7 +1298,8 @@ def swin_block_spatial(x: torch.Tensor, rows: torch.Tensor, ln_w, ln_b,
                        wqkv: torch.Tensor, bqkv, wproj: torch.Tensor, bproj,
                        bias: torch.Tensor, mask: Optional[torch.Tensor],
                        n_seq: int, n_tok: int, n_heads: int, scale: float,
-                       eps: float, mlp=None) -> torch.Tensor:
+                       eps: float, mlp=None,
+                       pad_zero: bool = False) -> torch.Tensor:
     """K14's whole block in one call (``csrc/blocks.cu``): x [n_seq *
     n_tok, C] in spatial row order, ``rows`` (int32 [M], a permutation)
     the spatial row of each window row; out = x + proj(attn(LN1(x[rows])))
@@ -1344,11 +1310,17 @@ def swin_block_spatial(x: torch.Tensor, rows: torch.Tensor, ln_w, ln_b,
     bf16 or f32 or None, each with its rows contiguous: contiguous, or a
     view of ``padded_rows``), the proj's scatter epilogue with the
     residual, and K3's MLP path.  LN affines None: the pure normalize.
-    Plan: ``swin_spatial_plan``.  Checks run on every launch and raise."""
+    ``pad_zero`` (K16, no ``mlp``): x the unshifted window-major slab,
+    ``rows`` the wm shift's index with -1 at the pad rows (LN1 gathers a
+    zero row there), and out[m] = 0 where rows[m] < 0 (the proj's zeroing
+    scatter; those must be the rows no index names).  Plan:
+    ``swin_spatial_plan``.  Checks run on every launch and raise."""
     M, C, HD, mlp = _swin_block_args(x, ln_w, ln_b, wqkv, bqkv, wproj,
                                      bproj, n_seq, n_tok, n_heads, mlp,
                                      "swin_block_spatial")
     n2w, n2b, w1, b1, w2, b2 = mlp
+    if pad_zero and w1 is not None:
+        raise ValueError("swin_block_spatial: pad_zero takes no MLP")
     dev = x.device
     bias_ld = _row_pitch(bias, n_heads, n_tok, (torch.bfloat16,), dev,
                          "swin_block_spatial bias")
@@ -1374,7 +1346,7 @@ def swin_block_spatial(x: torch.Tensor, rows: torch.Tensor, ln_w, ln_b,
         _ptr(n2b), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), ws, plan.scratch,
         out.data_ptr(), n_seq, n_tok, C, n_heads, HD, n_win, float(scale),
         float(eps), plan.qkv_bm, plan.proj_bm, plan.fc1_bm, plan.fc2_bm,
-        plan.splits, stream)
+        plan.splits, int(pad_zero), stream)
     _raise_on(err, "lvt_swin_block_spatial_bf16")
     return out
 
@@ -1571,13 +1543,37 @@ def permute_rows(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
     return out
 
 
+class PatchEmbedPlan(NamedTuple):
+    units: int   # (clip, frame, patch row, 64-patch chunk) work units
+    blocks: int  # persistent blocks: the units, at most two an SM (one
+    #              at E > 128, where a warp holds twice the weights)
+    vec: int     # bytes a pixel copy: 16 where every segment is 16-byte
+    #              aligned, else 4
+
+
+@functools.lru_cache(maxsize=64)
+def patch_embed_plan(B: int, D: int, H: int, W: int, E: int, aligned16: bool,
+                     sms: int = H100_SMS) -> PatchEmbedPlan:
+    """K17's launch plan (``csrc/patch_embed.cu``) for clips [B, D, H, W,
+    3] and width E: a unit is one row of up to 64 patches of one frame,
+    B * D * (H / 4) * ceil((W / 4) / 64) of them; the persistent grid the
+    units or two blocks an SM at E <= 128 (one above); 16-byte pixel
+    copies where the clip is 16-byte aligned (``aligned16``) and a pixel
+    row's segments are too (W % 16 == 0), else 4-byte.  Pure
+    arithmetic."""
+    units = B * D * (H // 4) * -(-(W // 4) // 64)
+    per_sm = 2 if E <= 128 else 1
+    vec = 16 if aligned16 and W % 16 == 0 else 4
+    return PatchEmbedPlan(units, min(units, per_sm * sms), vec)
+
+
 def patch_embed_u8(x: torch.Tensor, w: torch.Tensor,
                    bias_t: torch.Tensor) -> torch.Tensor:
     """The uint8 patch embed, kernel (2, 4, 4), stride (1, 4, 4), temporal
     end pad: x uint8 [B, D, H, W, 3] (contiguous, H and W multiples of 4),
     w bf16 [96, E] the folded conv weights (rows in (kd, kh, kw, c) order),
     bias_t f32 [D, E] the per-time bias table.  Returns bf16
-    [B, D, H / 4, W / 4, E]."""
+    [B, D, H / 4, W / 4, E].  Plan: ``patch_embed_plan``."""
     if (x.device.type != "cuda" or x.dtype != torch.uint8 or x.dim() != 5
             or not x.is_contiguous() or x.data_ptr() % 4 or x.shape[-1] != 3
             or x.shape[2] % 4 or x.shape[3] % 4):
@@ -1588,17 +1584,21 @@ def patch_embed_u8(x: torch.Tensor, w: torch.Tensor,
     B, D, H, W, _ = x.shape
     _check(w, "patch_embed_u8 w")
     E = w.shape[1]
-    if w.shape[0] != 96 or E % 16 or E > 256 or not w.is_contiguous():
-        raise ValueError(f"patch_embed_u8 w: expected a contiguous [96, E], "
-                         f"E % 16 == 0, E <= 256, got {tuple(w.shape)}")
+    if (w.shape[0] != 96 or E % 16 or E > 256 or not w.is_contiguous()
+            or w.data_ptr() % 16):
+        raise ValueError(f"patch_embed_u8 w: expected a contiguous, 16-byte "
+                         f"aligned [96, E], E % 16 == 0, E <= 256, got "
+                         f"{tuple(w.shape)}")
     if (bias_t.dtype != torch.float32 or bias_t.device != x.device
-            or not bias_t.is_contiguous() or tuple(bias_t.shape) != (D, E)):
-        raise ValueError(f"patch_embed_u8 bias_t: expected a contiguous f32 "
-                         f"[{D}, {E}] on {x.device}")
+            or not bias_t.is_contiguous() or tuple(bias_t.shape) != (D, E)
+            or bias_t.data_ptr() % 16):
+        raise ValueError(f"patch_embed_u8 bias_t: expected a contiguous, "
+                         f"16-byte aligned f32 [{D}, {E}] on {x.device}")
+    plan = patch_embed_plan(B, D, H, W, E, x.data_ptr() % 16 == 0)
     out = torch.empty(B, D, H // 4, W // 4, E, dtype=torch.bfloat16,
                       device=x.device)
     err = library().lvt_patch_embed_u8(
         x.data_ptr(), w.data_ptr(), bias_t.data_ptr(), out.data_ptr(), B, D,
-        H, W, E, _stream(x))
+        H, W, E, plan.blocks, plan.vec, _stream(x))
     _raise_on(err, "lvt_patch_embed_u8")
     return out

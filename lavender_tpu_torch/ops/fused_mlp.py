@@ -68,8 +68,7 @@ keep mask replayed.  Bound: K11 device memory (x, res, out, the mask),
 K12 the two products.
 
 GELU is the erf form (the TPU kernels used a clamped polynomial in bf16;
-the JAX oracles use erf): erff in ``gemm.cu`` and K5's short-M kernels,
-erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K3, K9,
+the JAX oracles use erf): erff in K5's short-M kernels, erf to 1.5e-7 by Abramowitz and Stegun 7.1.26 in ``gemm_tc.cu`` (K3, K9,
 K12 and K5's long-M fc1).  K3 and K5 launch outside autograd, so
 they carry the JAX custom_vjps' backward: autograd of the plain version,
 recomputed from the saved inputs (``_build.RecomputeVjp``).

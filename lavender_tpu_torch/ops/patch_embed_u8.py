@@ -12,12 +12,16 @@ shift at t = D - 1.  Both versions share that fold (``fold_weights``, a
 few small tensor ops on the weights, as the JAX wrapper runs it outside
 its pallas_call).
 
-On the card ``csrc/patch_embed.cu`` reads the u8 pixels in place and
-builds the im2col rows in shared memory (no reshape / permute / cat
-copies); the product is a plain tiled one with f32 accumulation (the TPU's
-8x block-diagonal weights served its lane layout and are not copied).
-Bound: device-memory bandwidth, the clip read once and the bf16 tokens
-written once.  The JAX kernel has no vjp and its module gates it on
+On the card ``csrc/patch_embed.cu`` reads the u8 pixels in place (no
+reshape / permute / cat copies): persistent blocks (``_build.
+patch_embed_plan``) walk rows of 64 patches, each row's pixel segments
+brought by cp.async while the row before computes, turned into a bf16
+im2col tile in shared memory and multiplied on mma.sync against weights
+that each warp holds in registers for the block's life, f32 accumulation,
+the bias in the epilogue, the row's tokens stored as one contiguous run
+in 16-byte chunks (the TPU's 8x block-diagonal weights served its lane
+layout and are not copied).  Bound: device-memory bandwidth, the clip
+read once and the bf16 tokens written once.  The JAX kernel has no vjp and its module gates it on
 ``deterministic``; the port's gradient, where autograd records a call
 (a serving model in ``eval()`` whose gradients are taken), is the plain
 version's (``recompute_vjp``).

@@ -75,18 +75,22 @@ block pair with the cyclic shift inside, ``wm_shift^-1(x' + proj(attn(
 LN1(x'))))`` for ``x' = wm_shift(x)``, input and output in the UNSHIFTED
 window-major layout, the output's window pad rows zero.  The TPU kernel
 held the whole window axis of a clip in VMEM and moved rows through a
-static run decomposition; on the card it is K1's composition with K14's
-row index: the LN1 launch gathers its rows through the forward shift index
-(``wm_permute.shift_index``, -1 at pad rows: a zero row), then the qkv
-GEMM, the attention core at ``n_tok = Npad`` with bias and padded shift
-mask, and the proj GEMM whose epilogue scatters each row back through the
-same index with the residual added (pad rows dropped; the output's pad
-rows are zeroed beforehand).  So neither shifted copy of the slab (K2's
-two permutes) is written.  Bound: as K1's attention half, the GEMMs'
-tensor-core rate and the core.  Backward (the JAX ``_wms_bwd`` :1313
-differentiates ``_wm_shifted_ref``): ``wm_shift`` (K2) ->
-``_block_attn_recompute`` (through K8a / K8b) -> ``wm_shift^-1``, under
-autograd.
+static run decomposition; on the card it is K14's one C call
+(``_build.swin_block_spatial(..., pad_zero=True)``) on the window-major
+slab, n_tok = Npad, with the wm shift's row index
+(``_batch_shift_rows``: -1 at the window's tail-pad rows): the chunk LN1
+gathers its rows through it (a zero row at -1, the TPU kernel's literal
+zero pad rows), the qkv product, the tensor-core core with the bias and
+padded shift mask at pitch Npad, and the proj's scatter epilogue writing
+each row back through the same index with the residual added.  The shift
+maps valid rows onto valid rows and leaves each pad row where it is, so
+the rows whose index is -1 are exactly the output's pad rows: the
+epilogue's zeroing instance writes zeros there, with no launch of its
+own.  So neither shifted copy of the slab (K2's two permutes) is
+written.  Bound: as K1's attention half, the products' tensor-core rate
+and the core.  Backward (the JAX ``_wms_bwd`` :1313 differentiates
+``_wm_shifted_ref``): ``wm_shift`` (K2) -> ``_block_attn_recompute``
+(through K8a / K8b) -> ``wm_shift^-1``, under autograd.
 """
 from __future__ import annotations
 
@@ -365,7 +369,9 @@ _batch_rows_on_device: Dict[tuple, torch.Tensor] = {}
 
 def _batch_shift_rows(B: int, index: torch.Tensor) -> torch.Tensor:
     """int32 [B * R]: row b * R + index[r] of a [B * R, C] slab, -1 where
-    index[r] < 0; built once per (B, index), outside inference mode."""
+    index[r] < 0; built once per (B, index), outside inference mode.  For
+    the wm shift's index (R = nW * Npad) the -1 entries are exactly the
+    slab's pad rows w * Npad + r, r >= N (K16 zeroes its output there)."""
     key = (B, index.data_ptr(), str(index.device))
     if key not in _batch_rows_on_device:
         R = index.shape[0]
@@ -380,23 +386,17 @@ def _batch_shift_rows(B: int, index: torch.Tensor) -> torch.Tensor:
 
 def _shifted_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
                   spatial, window, shift, nH, scale, eps):
-    """K16 on the card: gathered LN1 -> qkv GEMM -> attention core ->
-    proj GEMM scattered back (+ residual) into an output whose pad rows
-    are zeroed first."""
+    """K16 on the card: K14's one C call on the window-major slab (the
+    gathering chunk LN1 -> qkv -> the tensor-core core -> the proj's
+    zeroing scatter + residual), the wm shift's row index in."""
     B, nW, Npad, C = x.shape
     D, H, W = spatial
-    N = int(np.prod(window))
     fwd, _ = shift_indices(window, D, H, W, Npad, shift, x.device)
-    rows = _batch_shift_rows(B, fwd)
     x2 = x.contiguous().view(-1, C)
-    h = _build.layernorm(x2, ln_w, ln_b, eps, rows=rows)
-    qkv = _build.gemm(h, wqkv, bqkv)
-    o = _build.attention(qkv, B * nW, Npad, nH, scale,
-                         bias=bias.contiguous(), mask=mask.contiguous())
-    out = torch.empty_like(x2)
-    if Npad > N:
-        out.view(B, nW, Npad, C)[:, :, N:].zero_()
-    _build.gemm(o, wproj, bproj, residual=x2, rows=rows, out=out)
+    out = _build.swin_block_spatial(
+        x2, _batch_shift_rows(B, fwd), ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+        bias.contiguous(), mask.contiguous(), B * nW, Npad, nH, scale, eps,
+        pad_zero=True)
     return out.view(B, nW, Npad, C)
 
 

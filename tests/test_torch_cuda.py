@@ -12,19 +12,22 @@ lengths, head dims 32 and 64, finfo(f32).min masks (clamped) with a fully
 masked row, transposed (non-contiguous) heads-layout views for K7, their
 recompute-vjp gradients, and the raise on a CPU / CUDA mix; K7 (the
 tensor-core forward without lse) at L = 275 and 276 under the seq2seq
-mask with a fully masked row, a second call bitwise equal; the GEMM's
-row scatter and the LN's row gather, the spatial Swin block K14 (whole
+mask with a fully masked row, a second call bitwise equal; the tile
+GEMM's row scatter and the LN's row gather, the spatial Swin block K14 (whole
 and attention half, shifted, on windows that are not multiples of 8) and
 its gradients (the attention half's through K8), the per-window attention
 K15 on strided views (head dims 16/32/64, N = 45/98/245, a bf16, an f32
 or no mask, bias and mask in rows padded to 16 bytes, a second call
 bitwise equal) and its gradient, and K1's whole block under
 autograd; the LN without its affine (the serving fold's pure normalize)
-and K1's folded mode, the LN gather's and the GEMM scatter's negative
-(pad) rows, the uint8 patch embed K17 (ragged w2, two column tiles,
-E = 192) and its eval-mode gradient, and the shifted wm block K16 (Npad >
-N, Npad == N, the Swin-B stage-3 window) with its pad rows exactly zero
-and its gradients through K2 and K8; the heads-layout train attention K13a /
+and K1's folded mode, the LN gather's and the scatter epilogue's
+negative (pad) rows (dropped, or zeroed by K16's instance), the uint8
+patch embed K17 (ragged w2, two 64-patch units a row, E = 16 to 256,
+D = 1, more than one wave of its persistent grid, 4-byte copies) a second
+call bitwise equal, and its eval-mode gradient, and the shifted wm block
+K16 (Npad > N, Npad == N, the Swin-B stage-3 window; at stage 3, B = 4
+and 8) with random input pad rows, its output's pad rows exactly zero, a
+second call bitwise equal, and its gradients through K2 and K8; the heads-layout train attention K13a /
 K13b (strided heads views of one qkv slab and contiguous tensors, L = 29
 and 276, dropout on and off, the mask's gradient dmask where the mask
 requires it), the keep masks K13a and K10a draw, read back from the
@@ -65,11 +68,12 @@ the tile GEMM's K-slices into the row kernel's dropout mode off the tile
 and at several slices, and K11 at the caption step's 2,200 rows and the
 default step's 17,664 at rates 0, 0.1 and 0.5, keep masks exactly equal,
 its gradients through the mask replay, a second call bitwise equal; and
-by kernel name that K1, K3, K4, K6, K9, K11, K12 and K14 run the tile
-GEMM (K1, K4, K6 and K14 the tensor-core forward too, K11 and K12 the
-row kernel, K14 the 16-byte-chunk LN) and none of them the wmma GEMM, the
-f32-pipe core or the scalar LN, while K16 stays on the wmma GEMM and the
-f32-pipe core; the tile GEMM's scatter epilogue and the chunk LN's
+by kernel name that K1, K3, K4, K6, K9, K11, K12, K14 and K16 run the
+tile GEMM (K1, K4, K6, K14 and K16 the tensor-core forward too, K11 and
+K12 the row kernel, K14 and K16 the 16-byte-chunk LN) and none of them
+the wmma GEMM, the f32-pipe core (both gone) or, K1 aside, the scalar LN;
+the packed core refusing a call that selects no core; the tile GEMM's
+scatter epilogue and the chunk LN's
 gather (pad rows dropped, zero rows); K14's one C call at Swin-B's four
 stages against its plain version (shifted and unshifted, with and
 without its MLP, the bias and a bf16 or f32 mask in rows padded to 16
@@ -140,29 +144,6 @@ def _close(got, want, rel_l2=None):
         assert rel <= rel_l2, rel
 
 
-@pytest.mark.parametrize("M,N,K", [(1, 8, 32), (130, 136, 64),
-                                   (257, 392, 96)])
-@pytest.mark.parametrize("epi", ["bias", "gelu", "residual", "nobias"])
-def test_gemm_matches_plain(gen, M, N, K, epi):
-    a, w = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5)
-    b = None if epi == "nobias" else _rnd(gen, N)
-    r = _rnd(gen, M, N) if epi == "residual" else None
-    want = F.linear(a.float(), w.float(), None if b is None else b.float())
-    if epi == "gelu":
-        want = F.gelu(want)
-    if r is not None:
-        want = want + r.float()
-    _close(_build.gemm(a, w, b, gelu=epi == "gelu", residual=r), want)
-
-
-def test_gemm_writes_a_column_slice(gen):
-    a, w, b = _rnd(gen, 70, 64), _rnd(gen, 24, 64, std=0.125), _rnd(gen, 24)
-    out = torch.zeros(70, 72, dtype=torch.bfloat16, device="cuda")
-    _build.gemm(a, w, b, out=out[:, 24:48])
-    _close(out[:, 24:48], F.linear(a.float(), w.float(), b.float()))
-    assert not out[:, :24].any() and not out[:, 48:].any()
-
-
 @pytest.mark.parametrize("M,C", [(1, 8), (37, 96), (300, 1000), (5, 1024)])
 def test_layernorm_matches_plain(gen, M, C):
     x, w, b = _rnd(gen, M, C, std=3.0), _rnd(gen, C), _rnd(gen, C)
@@ -183,26 +164,6 @@ def _attention_plain(qkv, n_seq, N, nH, scale, bias, mask, keep):
         s = s.masked_fill(~keep[:, None, None, :], float("-inf"))
     p = torch.softmax(s, dim=-1).nan_to_num(0.0)
     return (p @ v).transpose(1, 2).reshape(n_seq * N, C)
-
-
-@pytest.mark.parametrize("hd", [16, 32, 64])
-@pytest.mark.parametrize("n_seq,N,nH,extras", [
-    (1, 5, 1, ()), (2, 49, 2, ("bias",)), (4, 248, 2, ("bias", "mask")),
-    (3, 276, 4, ("keep",)), (8, 33, 3, ("bias", "mask", "keep"))])
-def test_attention_matches_plain(gen, hd, n_seq, N, nH, extras):
-    qkv = _rnd(gen, n_seq * N, 3 * nH * hd)
-    bias = _rnd(gen, nH, N, N) if "bias" in extras else None
-    mask = None
-    if "mask" in extras:  # 0 / -100 per window, 2 windows
-        mask = (torch.rand(2, N, N, generator=gen, device="cuda") < 0.3)
-        mask = (mask.float() * -100.0).to(torch.bfloat16)
-    keep = None
-    if "keep" in extras:
-        keep = torch.rand(n_seq, N, generator=gen, device="cuda") < 0.7
-        keep[0] = False  # a sequence with every key masked attends to nothing
-    scale = hd ** -0.5
-    got = _build.attention(qkv, n_seq, N, nH, scale, bias, mask, keep)
-    _close(got, _attention_plain(qkv, n_seq, N, nH, scale, bias, mask, keep))
 
 
 def test_kernel_ops_match_plain_and_count_launches(gen):
@@ -239,13 +200,16 @@ def test_kernel_ops_match_plain_and_count_launches(gen):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(gen):
-    a = _rnd(gen, 16, 40)  # K % 32 != 0
+    a = _rnd(gen, 16, 40)  # K % 8 == 0 but N % 8 != 0
     with pytest.raises(ValueError):
-        _build.gemm(a, _rnd(gen, 8, 40))
+        _build.gemm_tc(a, _rnd(gen, 12, 40))
     with pytest.raises(ValueError):  # float32 operands
-        _build.gemm(a.float()[:, :32], _rnd(gen, 8, 32).float())
+        _build.gemm_tc(a.float(), _rnd(gen, 8, 40).float())
     with pytest.raises(ValueError):  # head dim 48
-        _build.attention(_rnd(gen, 10, 3 * 96), 1, 10, 2, 1.0)
+        _build.attention(_rnd(gen, 10, 3 * 96), 1, 10, 2, 1.0,
+                         tensor_cores=True)
+    with pytest.raises(ValueError, match="select them"):  # no core chosen
+        _build.attention(_rnd(gen, 10, 3 * 64), 1, 10, 2, 1.0)
 
 
 @pytest.mark.parametrize("geom", [
@@ -705,13 +669,14 @@ def test_full_mask_wrappers_reject_a_device_mix(gen):
 
 
 def test_gemm_row_scatter_and_layernorm_row_gather(gen):
-    """K14's two layout primitives against their plain meaning."""
+    """The tile GEMM's row scatter (K14's and K16's proj) and the scalar
+    LN's row gather against their plain meaning."""
     M, K, N = 300, 64, 96
     perm = torch.randperm(M, generator=gen, device="cuda").to(torch.int32)
     a, w, b = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5), _rnd(gen, N)
     r = _rnd(gen, M, N)
     out = torch.empty(M, N, dtype=torch.bfloat16, device="cuda")
-    _build.gemm(a, w, b, residual=r, rows=perm, out=out)
+    _build.gemm_tc(a, w, b, residual=r, rows=perm, out=out)
     want = torch.empty_like(out)
     p = perm.long()
     want[p] = (F.linear(a.float(), w.float(), b.float())
@@ -858,22 +823,29 @@ def test_layernorm_pure_normalize_and_pad_rows(gen):
             ln(x, lw, None, 1e-5)
 
 
-def test_gemm_scatter_drops_negative_rows(gen):
+@pytest.mark.parametrize("pad_zero", [False, True])
+def test_gemm_scatter_drops_negative_rows(gen, pad_zero):
+    """The tile GEMM's scatter epilogue with rows below 0: K14's instance
+    leaves out[m] as it was, K16's zeroing instance (``pad_zero``) writes
+    zeros there; the rows below 0 are the ones no index names, as K16's
+    pad rows are."""
     M, K, N = 130, 64, 72
     a, w, b = _rnd(gen, M, K), _rnd(gen, N, K, std=K ** -0.5), _rnd(gen, N)
     r = _rnd(gen, M, N)
-    rows = torch.randperm(M, generator=gen, device="cuda").to(torch.int32)
-    rows[::3] = -1
+    pad = torch.zeros(M, dtype=torch.bool, device="cuda")
+    pad[::3] = True
+    live = (~pad).nonzero().flatten()
+    rows = torch.full((M,), -1, dtype=torch.int32, device="cuda")
+    rows[live] = live[torch.randperm(live.numel(), generator=gen,
+                                     device="cuda")].to(torch.int32)
     out = torch.full((M, N), 7.0, dtype=torch.bfloat16, device="cuda")
-    _build.gemm(a, w, b, residual=r, rows=rows, out=out)
-    keep = rows >= 0
-    dst = rows[keep].long()
-    want = out.clone()
-    want[dst] = (F.linear(a[keep].float(), w.float(), b.float())
+    _build.gemm_tc(a, w, b, residual=r, rows=rows, out=out,
+                   pad_zero=pad_zero)
+    dst = rows[~pad].long()
+    want = torch.full_like(out, 0.0 if pad_zero else 7.0)
+    want[dst] = (F.linear(a[~pad].float(), w.float(), b.float())
                  + r[dst].float()).to(torch.bfloat16)
-    untouched = torch.ones(M, dtype=torch.bool, device="cuda")
-    untouched[dst] = False
-    assert bool((want[untouched] == 7.0).all())
+    assert bool((out[pad] == (0.0 if pad_zero else 7.0)).all())
     _close(out, want)
 
 
@@ -931,21 +903,27 @@ def test_block_outside_autograd_takes_f32_inputs_under_autocast(gen):
         _close(got[:, :, :N], want[:, :, :N], rel_l2=1e-2)
 
 
-@pytest.mark.parametrize("B,D,H,W,E", [(1, 2, 32, 32, 16),
-                                       (2, 5, 64, 96, 96),
-                                       (1, 3, 16, 288, 128),
-                                       (2, 2, 32, 64, 192)])
-def test_patch_embed_matches_plain_and_gradient(gen, B, D, H, W, E):
-    """K17 at w2 = 8, 24, 72 (two column tiles) and E = 192 (dynamic shared
-    memory above 48 KB); in eval() under autograd the plain gradient."""
-    x = torch.randint(0, 256, (B, D, H, W, 3), generator=gen, device="cuda",
-                      dtype=torch.uint8)
+@pytest.mark.parametrize("B,D,H,W,E,offset", [
+    (1, 2, 32, 32, 16, 0), (2, 5, 64, 96, 96, 0), (1, 3, 16, 288, 128, 0),
+    (2, 2, 32, 64, 192, 0), (1, 1, 32, 32, 128, 0), (2, 5, 224, 224, 128, 0),
+    (1, 2, 16, 40, 64, 0), (1, 3, 32, 64, 256, 4)])
+def test_patch_embed_matches_plain_and_gradient(gen, B, D, H, W, E, offset):
+    """K17 at w2 = 8, 24, 72 (two 64-patch units a row), E = 16 to 256 (E
+    = 192 and 256: one block an SM, dynamic shared memory above 48 KB), D
+    = 1 (the kd = 1 tap all pad), 560 units at 224 x 224 (more than one
+    wave of the persistent grid), W = 40 (4-byte copies) and a clip 4
+    bytes off a 16-byte boundary (4-byte copies); a second call bitwise
+    equal; in eval() under autograd the plain gradient."""
+    n = B * D * H * W * 3
+    x = torch.randint(0, 256, (n + offset,), generator=gen, device="cuda",
+                      dtype=torch.uint8)[offset:].view(B, D, H, W, 3)
     weight, bias = _rnd(gen, E, 3, 2, 4, 4, std=0.05), _rnd(gen, E, std=0.05)
     before = fused_patch_embed_u8.launches
     got = fused_patch_embed_u8(x, weight, bias)
     assert fused_patch_embed_u8.launches == before + 1
     assert got.shape == (B, D, H // 4, W // 4, E)
     _close(got, fused_patch_embed_u8.plain(x, weight, bias), rel_l2=1e-2)
+    assert torch.equal(got, fused_patch_embed_u8(x, weight, bias))
     weight.mul_(-0.5)  # the kernel's folded weights follow the change
     _close(fused_patch_embed_u8(x, weight, bias),
            fused_patch_embed_u8.plain(x, weight, bias), rel_l2=1e-2)
@@ -964,15 +942,16 @@ def test_patch_embed_matches_plain_and_gradient(gen, B, D, H, W, E):
                                              "stage3-window"])
 def test_wm_shifted_block_and_gradients_match_plain(gen, window, spatial, C,
                                                     nH):
-    """K16: forward vs plain (also minus the residual), pad rows exactly
-    zero, and under autograd every gradient, the backward through K2 (two
-    shifts and their two transposes) and K8."""
+    """K16: forward vs plain (also minus the residual), the input's pad
+    rows random (the kernel reads none of them), the output's exactly
+    zero, a second call bitwise equal, and under autograd every gradient,
+    the backward through K2 (two shifts and their two transposes) and
+    K8."""
     from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
     D, H, W = spatial
     N = window[0] * window[1] * window[2]
     Npad, nW, B = round8(N), (H // window[1]) * (W // window[2]), 2
     x = _rnd(gen, B, nW, Npad, C)
-    x[:, :, N:] = 0.0
     params = [1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
               _rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C),
               _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C),
@@ -998,11 +977,40 @@ def test_wm_shifted_block_and_gradients_match_plain(gen, window, spatial, C,
                 1, 4, 1, 1]
     if Npad > N:
         assert float(outs[0].detach()[:, :, N:].abs().max()) == 0.0
+    assert torch.equal(outs[0].detach(),
+                       fused_swin_block_wm_shifted(x, *params, mask, *statics))
     v = (slice(None), slice(None), slice(0, N))
     _close(outs[0][v], outs[1][v], rel_l2=1e-2)
     _close((outs[0] - x)[v].float(), (outs[1] - x)[v].float(), rel_l2=5e-2)
     for gk, gp in zip(*grads):
         _close(gk, gp, rel_l2=5e-2)
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_k16_at_swin_b_stage_3_matches_plain_bitwise(gen, B):
+    """K16 at Swin-B's stage 3 (window (5, 7, 7) on 5 x 14 x 14: 4 windows
+    of N = 245 in Npad = 248 rows, C = 512, 16 heads), B = 4 and 8, the
+    input's pad rows random: the valid rows within the gate (and minus the
+    residual within rel_l2 5e-2), the pad rows exactly 0, a second call
+    bitwise equal."""
+    window, spatial, shift, C, nH = (5, 7, 7), (5, 14, 14), (0, 3, 3), 512, 16
+    N, Npad, nW = 245, 248, 4
+    x = _rnd(gen, B, nW, Npad, C)
+    bias = _rnd(gen, nH, Npad, Npad)
+    bias[:, :, N:] = -100.0
+    mask = pad_window_mask(torch.as_tensor(compute_shift_mask(
+        *spatial, window, shift), device="cuda"), Npad).to(torch.bfloat16)
+    args = (x, 1 + _rnd(gen, C, std=0.1), _rnd(gen, C, std=0.1),
+            _rnd(gen, 3 * C, C, std=C ** -0.5), _rnd(gen, 3 * C, std=0.02),
+            _rnd(gen, C, C, std=C ** -0.5), _rnd(gen, C, std=0.02), bias,
+            mask, spatial, window, shift, nH, (C // nH) ** -0.5, 1e-5)
+    got = fused_swin_block_wm_shifted(*args)
+    want = fused_swin_block_wm_shifted.plain(*args)
+    v = (slice(None), slice(None), slice(0, N))
+    _close(got[v], want[v], rel_l2=1e-2)
+    _close((got - x)[v].float(), (want - x)[v].float(), rel_l2=5e-2)
+    assert float(got[:, :, N:].float().abs().max()) == 0.0
+    assert torch.equal(got, fused_swin_block_wm_shifted(*args))
 
 
 def _heads_train_inputs(gen, B, L, nH, hd, layout):
@@ -1459,9 +1467,9 @@ def _device_kernels(fn):
 
 
 def test_cores_and_gemms_each_kernel_runs(gen):
-    """K1, K4, K6 and K14 launch the tile GEMM and the tensor-core forward
-    and neither the wmma GEMM nor the f32-pipe core; K16 stays on those
-    two."""
+    """K1, K4, K6, K14 and K16 launch the tile GEMM and the tensor-core
+    forward (K14 and K16 also the chunk LN, and no scalar LN); the wmma
+    GEMM and the f32-pipe core are gone."""
     def has(names, part):
         return any(part in n for n in names)
 
@@ -1490,12 +1498,13 @@ def test_cores_and_gemms_each_kernel_runs(gen):
         args[0][:, :4].contiguous(), n1w, n1b, wqkv, bqkv, wp, bp, bias,
         m[:4].contiguous(), (5, 14, 14), (5, 7, 7), (0, 3, 3), nHs, scale,
         eps))
-    for names in (k1, k4, k6, k14):
+    for names in (k1, k4, k6, k14, k16):
         assert has(names, "tile_kernel") and has(names, "fwd_kernel"), names
         assert not has(names, "gemm_bf16_kernel"), names
         assert not has(names, "attention_kernel"), names
-    assert has(k16, "gemm_bf16_kernel") and has(k16, "attention_kernel"), k16
-    assert not has(k16, "tile_kernel") and not has(k16, "fwd_kernel"), k16
+    for names in (k14, k16):
+        assert has(names, "layernorm_rows_kernel"), names
+        assert not has(names, "layernorm_bf16_kernel"), names
 
 
 _SWIN_B = {1: (64, 128), 2: (16, 256), 3: (4, 512), 4: (1, 1024)}

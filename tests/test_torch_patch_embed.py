@@ -13,6 +13,10 @@ the CPU.
 - The route's gate against JAX ``supports_fused_patch_embed`` on a grid
   of geometries, w2 % 8 != 0 among them, and the module's route: K17
   only under ``_PEK``, in ``eval()``, where the gate holds.
+- The card kernel's launch plan (``_build.patch_embed_plan``, pure
+  arithmetic): its units tile the output once, the persistent grid fills
+  the card or takes every unit, the copies are 16 bytes only where every
+  pixel segment is 16-byte aligned.
 """
 import itertools
 
@@ -27,6 +31,7 @@ from lavender_tpu.data.transforms import (IMAGENET_MEAN, IMAGENET_STD,
 from lavender_tpu.models import swin3d as jswin
 from lavender_tpu.ops import patch_embed_u8 as jpe
 from lavender_tpu_torch.models import swin3d as tswin
+from lavender_tpu_torch.ops import _build
 from lavender_tpu_torch.ops import patch_embed_u8 as tpe
 
 
@@ -127,3 +132,27 @@ def test_kernel_weights_follow_the_parameters():
     torch.testing.assert_close(again[0].float(), (2 * kmat).to(
         torch.bfloat16).float())
     assert tpe.kernel_weights(w.detach().clone(), b, 2)[0] is not again[0]
+
+
+@pytest.mark.parametrize("B,D,H,W,E,aligned", [
+    (4, 5, 224, 224, 128, True), (8, 5, 224, 224, 128, True),  # Swin-B
+    (1, 1, 32, 32, 128, True), (1, 3, 16, 288, 128, True),     # D 1, w2 72
+    (2, 2, 32, 64, 192, True), (1, 2, 16, 40, 64, True),       # E 192, W 40
+    (2, 5, 64, 96, 96, False)])                                # x off 16 B
+def test_k17_plan_tiles_the_output_once(B, D, H, W, E, aligned):
+    """K17's units (a frame's row of up to 64 patches) cover every output
+    row once; the grid is the units or two blocks an SM (one above E =
+    128), so it fills the card where there are units for it; 16-byte
+    copies only from a 16-byte aligned clip whose rows are multiples of 16
+    bytes, else 4-byte ones."""
+    plan = _build.patch_embed_plan(B, D, H, W, E, aligned)
+    h2, w2 = H // 4, W // 4
+    chunks = [(j0, min(64, w2 - j0)) for j0 in range(0, w2, 64)]
+    assert plan.units == B * D * h2 * len(chunks)
+    assert sum(n for _, n in chunks) == w2 and all(n > 0 for _, n in chunks)
+    per_sm = 2 if E <= 128 else 1
+    assert plan.blocks == min(plan.units, per_sm * _build.H100_SMS)
+    assert plan.vec == (16 if aligned and W % 16 == 0 else 4)
+    if plan.vec == 16:  # each segment, 12 bytes a patch, in whole copies
+        assert all(12 * j0 % 16 == 0 and 12 * n % 16 == 0
+                   for j0, n in chunks)

@@ -4,21 +4,22 @@ LN + MLP, ``_build.swin_spatial_plan`` of K14 and K12's ``ffn_plan``) and
 its row-pitch rule (``_build.tile_rows_ok``), the packed attention core's
 selection (``_build.attention_route``), K6's mask as its C call takes it
 (``padded_clamped_mask``), K14's row index (a permutation whose inverse
-undoes the roll) and its bias and mask in rows padded to 16 bytes, and
-which primitives the kernels' card paths call: K1, K3, K4, K6 (under its
-mask, no keep vector), K9 and K14 (shifted and unshifted, with and without
-its MLP) their one C call each (``csrc/blocks.cu``: the tile GEMM and the
-tensor-core core), K11 and K12 their one C call (the tile GEMM's K-slices
-into the row kernel's dropout mode), K16 the LN, the wmma GEMM, the
-f32-pipe core and the wmma GEMM.  Pure functions, or the card paths run
-on CPU tensors with the primitives replaced by recorders; no kernel runs
-here."""
+undoes the roll) and its bias and mask in rows padded to 16 bytes, K16's
+row index (its -1 entries exactly the slab's pad rows), and which
+primitives the kernels' card paths call: K1, K3, K4, K6 (under its mask,
+no keep vector), K9, K14 (shifted and unshifted, with and without its
+MLP) and K16 (K14's call on the window-major slab) their one C call each
+(``csrc/blocks.cu``: the tile GEMM and the tensor-core core), K11 and K12
+their one C call (the tile GEMM's K-slices into the row kernel's dropout
+mode).  Pure functions, or the card paths run on CPU tensors with the
+primitives replaced by recorders; no kernel runs here."""
 import numpy as np
 import pytest
 import torch
 
 from lavender_tpu_torch.ops import (_build, encoder_attention, fused_mlp,
                                    swin_block_attn)
+from lavender_tpu_torch.ops.wm_permute import shift_index
 
 SMS = _build.H100_SMS
 # Swin-B at T = 5, 224 x 224 (windows a clip, C): rows = B * nW * 248
@@ -139,13 +140,18 @@ def test_tile_rows_take_column_slices(col, pitch, ok):
     ({"tensor_cores": True, "keep": True}, "tensor_cores"),   # K4
     ({"lse": True, "bias": True}, "tensor_cores"),            # K8a
     ({"lse": True, "dropout": True}, "tensor_cores"),         # K10a
-    ({"bias": True}, "f32"),                                  # K14, K16
-    ({}, "f32"),                                # nothing selected
-    ({"keep": True, "bias": True}, "f32")])
+    ({"bias": True}, None),               # K14's and K16's old call
+    ({}, None),                                 # nothing selected
+    ({"keep": True, "bias": True}, None)])
 def test_attention_route(kw, route):
     """The caller selects the tensor cores (or asks for lse); a bias, a
-    mask or a keep vector alone never does."""
-    assert _build.attention_route(**kw) == route
+    mask or a keep vector alone never does, and since the f32-pipe core is
+    gone such a call raises (route None) instead of running elsewhere."""
+    if route is None:
+        with pytest.raises(ValueError, match="select them"):
+            _build.attention_route(**kw)
+    else:
+        assert _build.attention_route(**kw) == route
 
 
 @pytest.mark.parametrize("kw", [
@@ -167,12 +173,6 @@ def calls(monkeypatch):
     """Replace the primitives by recorders of (name, tensor_cores) that
     return zeros of their outputs' shapes."""
     log = _Log()
-
-    def gemm(a, w, b=None, *, gelu=False, residual=None, out=None,
-             rows=None):
-        log.append(("gemm", None))
-        return out if out is not None else a.new_zeros(a.shape[0],
-                                                       w.shape[0])
 
     def gemm_tc(a, w, bias=None, *, gelu=False, residual=None, out=None):
         ws = w if isinstance(w, (tuple, list)) else (w,)
@@ -213,16 +213,19 @@ def calls(monkeypatch):
         log.append(("ffn_dropout_ln", splits))
         return torch.zeros_like(x), torch.zeros_like(x, dtype=torch.bool)
 
-    def swin_block_spatial(x, rows, *args):  # the last: mlp
-        log.append(("swin_block_spatial", args[-1] is not None))
-        log.rows = rows
+    def swin_block_spatial(x, rows, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                           bias, mask, n_seq, n_tok, n_heads, scale, eps,
+                           mlp=None, pad_zero=False):
+        log.append(("swin_block_spatial", mlp is not None))
+        log.rows, log.pad_zero = rows, pad_zero
+        log.windows = (n_seq, n_tok, n_heads)
         return torch.zeros_like(x)
 
     def ln_mlp(x, ln_w, ln_b, w1, b1, w2, b2, eps, residual, plan=None):
         log.append(("ln_mlp", residual))
         return torch.zeros_like(x)
 
-    for name, fn in (("gemm", gemm), ("gemm_tc", gemm_tc),
+    for name, fn in (("gemm_tc", gemm_tc),
                      ("gemm_tc_ln", gemm_tc_ln),
                      ("gemm_tc_dropout_ln", gemm_tc_dropout_ln),
                      ("ffn_dropout_ln", ffn_dropout_ln),
@@ -375,19 +378,57 @@ def _spatial_run(C=32, nH=2, window=(2, 3, 3), shift=(1, 1, 1), mlp=None):
         window, shift, nH, 0.25, 1e-5, mlp=mlp)
 
 
-def test_k14_k16_stay_on_the_wmma_gemm_and_the_f32_core(calls):
+def test_k14_k16_run_their_block_in_one_call(calls):
     """K14's card path is its one C call (``_build.swin_block_spatial``);
-    K16's still records the LN, the wmma GEMM, the f32-pipe core and the
-    wmma GEMM."""
+    so is K16's, on the window-major slab: B * nW windows of n_tok = Npad
+    rows, the wm shift's row index over the batch (-1 at the pad rows) and
+    the zeroing scatter (``pad_zero``), no MLP."""
     C, nH, window, shift = 32, 2, (2, 3, 3), (1, 1, 1)
     _spatial_run(C, nH, window, shift)
     assert calls == [("swin_block_spatial", False)]
+    assert not calls.pad_zero
     calls.clear()
+    B, nW, N, Npad = 2, 4, 18, 24
     swin_block_attn._shifted_cuda(
-        *_swin_args(nW=4, Npad=24, C=C)[:7], torch.zeros(nH, 24, 24),
-        torch.zeros(4, 24, 24), (2, 6, 6), window, shift, nH, 0.25, 1e-5)
-    assert calls == [("layernorm", None), ("gemm", None),
-                     ("attention", False), ("gemm", None)]
+        *_swin_args(B=B, nW=nW, Npad=Npad, C=C)[:7],
+        torch.zeros(nH, Npad, Npad), torch.zeros(nW, Npad, Npad), (2, 6, 6),
+        window, shift, nH, 0.25, 1e-5)
+    assert calls == [("swin_block_spatial", False)] and calls.pad_zero
+    assert calls.windows == (B * nW, Npad, nH)
+    fwd = shift_index(window, 2, 6, 6, Npad, shift, False)
+    want = np.where(fwd >= 0, np.arange(B)[:, None] * nW * Npad + fwd, -1)
+    assert calls.rows.dtype == torch.int32
+    assert np.array_equal(calls.rows.numpy(), want.reshape(-1))
+    assert (calls.rows.numpy().reshape(B, nW, Npad)[:, :, N:] == -1).all()
+
+
+# (window, spatial (D, H, W), Npad, shift): Swin-B stage 3 (window (5, 7, 7)
+# on 5 x 14 x 14) and the card test's geometries
+_K16_GEOMS = [((5, 7, 7), (5, 14, 14), 248, (0, 3, 3)),
+              ((2, 2, 3), (2, 4, 6), 16, (0, 1, 1)),
+              ((2, 2, 4), (2, 4, 8), 16, (0, 1, 2))]
+
+
+@pytest.mark.parametrize("B", [1, 4])
+@pytest.mark.parametrize("window,spatial,Npad,shift", _K16_GEOMS)
+def test_k16_rows_below_0_are_exactly_the_pad_rows(B, window, spatial, Npad,
+                                                   shift):
+    """K16's row index over a batch (``_batch_shift_rows`` of the forward
+    wm shift): its -1 entries are exactly the slab's pad rows (w * Npad +
+    r, r >= N), and the others name every valid row once.  The zeroing
+    scatter relies on it: the rows whose index is -1 are the output rows
+    that no index names, so zeros written there are the output's pad
+    rows."""
+    N = int(np.prod(window))
+    nW = (spatial[1] // window[1]) * (spatial[2] // window[2])
+    fwd, _ = swin_block_attn.shift_indices(window, *spatial, Npad, shift,
+                                           "cpu")
+    rows = swin_block_attn._batch_shift_rows(B, fwd).numpy()
+    pos = np.arange(B * nW * Npad)
+    pad = pos % Npad >= N
+    assert rows.shape == pos.shape and rows.dtype == np.int32
+    assert np.array_equal(rows < 0, pad)
+    assert np.array_equal(np.sort(rows[~pad]), pos[~pad])
 
 
 def test_k14f_keeps_its_mlp_on_the_wmma_gemm(calls):

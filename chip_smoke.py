@@ -106,7 +106,11 @@ nothing is ever run on the CPU instead:
    (within 1e-3) at every stage, shifted and unshifted, and at the spatial
    route's unpadded N=245, and K8b's dbias at B=8, stage 1, shifted (512
    windows) against an f64 sum of the plain per-clip dbias (within 1e-2 x
-   max(1, max|dbias|)); K1 (every stage, shifted and unshifted, B=4 and
+   max(1, max|dbias|)); K4 (B=4, L=276), K6 (its seq2seq mask, L=275) and
+   K10a / K10b (64 pairs, L=276, rate 0.1) under phase 10's SwinBERT mask,
+   the video's [CLS] keys 0, 50, .., 200 masked INSIDE the sequence (plus
+   padded captions), each call repeated and required bitwise equal; K1
+   (every stage, shifted and unshifted, B=4 and
    B=8), K4 (L=276 with padded captions, the prefill's L=250 with every
    key open and with padded keys), K9 (the B=8 stages 1-4) and K3 (B=4
    stage 4) each call repeated and required bitwise equal, with their
@@ -170,12 +174,18 @@ nothing is ever run on the CPU instead:
    next request must equal a fresh server's; (b) serving under ``_PEK``
    (K17 once a forward) and ``_IKS`` (K16 9x, K1 15x, K2 4x, K9 9x), 3
    requests of B=4 each against the plain path, launches, clips/s beside
-   the default route in turns, each route's device-busy share; (c) the
+   the default route in turns, each route's device-busy share, and so
+   ``LVT_PSHIFT=0`` (the shift as torch.roll: K2 0x) and ``LVT_EMBING=1``
+   (stage 1's window-major layout from the patch embed); (c) the
    ``_IKS`` train step on ModelConfig(): loss and gradients kernels vs
    plain, launches, ten steps lowering the loss >= 1 nat, step time beside
    the default step's; (d) K16 (the shift inside) against the K2 + K1
    attention half + K2^-1 composition, which does the same work with two
-   relayouts around it, at stage 3, B=4 and B=8, in turns;
+   relayouts around it, at stage 3, B=4 and B=8, in turns; (e) the train
+   step under ``LVT_COREBWD=0`` (no K8) and under ``LVT_SWINTRAIN=1`` (no
+   K1, no K9; K8a / K8b 24x): loss and gradients kernels vs plain,
+   launches, step time and device busy beside the default step's, in
+   turns;
 9. the tasks on ModelConfig(), B=8 clips, 26 tokens (``run_tasks``): (a)
    one train step each of QA-MC, QA-OE, RetMC (5 options: 40 pairs),
    pretraining (vtm_batch=4: 8 MLM + 32 VTM sequences) and the
@@ -187,12 +197,30 @@ nothing is ever run on the CPU instead:
    plain, launches on both routes, step time and device time of the
    retrieval step on both routes in turns; (c) each task's eval step,
    kernels vs plain on the logits it reads (the serving gate), and QA-MC's
-   eval launches under LVT_KMASK=1 (K4) and =0 (K6).
+   eval launches under LVT_KMASK=1 (K4) and =0 (K6);
+10. SwinBERT and checkpoints (``run_swinbert``) on
+   ModelConfig(swinbert=True), Swin-B + BERT-base with seeded weights:
+   (a) the weights written as a SwinBERT-layout ``.pt`` (under build/)
+   and loaded by ``load_reference_checkpoint`` into a fresh f32 model on
+   the card, every mapped tensor equal to the written one, the unmapped
+   at their init; (b) 3 requests of B=4 against the plain path, launches,
+   clips/s, device busy a forward under torch.profiler; (c) the seq2seq
+   forward (K6 12x, no K4) against the plain path; (e) the same clips as
+   float frames normalized on the card against the uint8 path, and clips
+   of 2 x 5 x 98 x 98 (the patch embed's spatial pad) against the plain
+   path; (d) the retrieval-MLM step at B=8 from the checkpoint: loss and
+   gradients kernels vs plain, launches; 3 steps straight, twice, against
+   2 steps + ``save_train_state`` + ``restore_train_state`` into a fresh
+   state + 1 step (torch's deterministic algorithms on): loss, every
+   parameter, the AdamW moments, LR, step and generator state bitwise
+   equal where the two straight runs are, else within their largest
+   difference.
 
 Every time is the median of five CUDA-event windows of five calls.
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
-phase-6, phase-7, phase-8 and phase-9 runs, K12's in 5 (e); its largest
+phase-6, phase-7, phase-8, phase-9 and phase-10 runs, K12's in 5 (e),
+each phase's also apart (``launches_swinbert`` phase 10's); its largest
 error in phase 3;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
 call x its calls in one serving forward plus one train step plus one
@@ -211,9 +239,11 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, Optional
 
@@ -637,6 +667,95 @@ def _kernel_cases(g):
     cases += _heads_train_cases(g)
     cases += _spatial_cases(g, lin, ln)
     cases += _route_cases(g, lin, ln)
+    cases += _swinbert_mask_cases(g, lin, ln)
+    return cases
+
+
+def swinbert_video_keep(n_frames: int = FRAMES, per_frame: int = 50):
+    """The SwinBERT adapter's video key mask [T * (1 + hw)]: each frame's
+    leading zero [CLS] masked (positions 0, 50, ..., 200 at T = 5, 224 x
+    224), every patch token open: masked keys INSIDE the sequence."""
+    keep = torch.ones(n_frames, per_frame, dtype=torch.bool, device="cuda")
+    keep[:, 0] = False
+    return keep.reshape(-1)
+
+
+def _swinbert_mask_cases(g, lin, ln):
+    """The fusion encoder's kernels under the SwinBERT mask (phase 10's
+    model), checked, not counted: K4 at the serving forward's B=4, L = 250
+    + 26 with the video's [CLS] keys masked and padded captions; K6 at the
+    seq2seq forward's B=4, L = 250 + 25 under the seq2seq mask built from
+    it; K10a / K10b at the train step's 64 pairs, L = 276, rate 0.1, the
+    same keys masked (-1e4, the model's clamp, in bf16) and padded
+    captions.  Each call repeated and required bitwise equal."""
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.encoder_attention import (
+        encoder_attention_train_lanes_bwd, fused_bert_attn_block,
+        fused_bert_attn_block_kmask, fused_encoder_attention_train_lanes)
+
+    C, nH, n_video = 768, 12, FRAMES * 50
+    hd, scale = C // nH, (C // nH) ** -0.5
+    video = swinbert_video_keep()
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin(C, C) for _ in range(4))
+    lw, lb = ln(C)
+
+    def keep_rows(B, n_txt, lens):
+        """[B, n_video + n_txt]: the video keep, then each caption's
+        first lens[b] tokens."""
+        txt = torch.arange(n_txt, device="cuda")[None] < torch.as_tensor(
+            lens, device="cuda")[:, None]
+        return torch.cat([video[None].expand(B, -1), txt], dim=1)
+
+    cases = []
+    L = n_video + TXT_LEN
+    keep = keep_rows(BATCH, TXT_LEN, (26, 20, 12, 5))
+    x = _rnd(g, BATCH, L, C)
+    cases.append(Case(
+        fused_bert_attn_block_kmask, f"B={BATCH} L={L} C={C} nH={nH}, "
+        "SwinBERT keys (video [CLS] 0, 50, .., 200 masked) + padded "
+        "captions", 0, (x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, keep, nH,
+                        scale, 1e-12),
+        8.0 * BATCH * L * C * C + 4.0 * BATCH * L * L * C,
+        2 * BATCH * L * C * 2 + 4 * C * C * 2 + BATCH * L,
+        bitwise_repeat=True))
+    Ls = n_video + CAP_LEN
+    s2s = _seq2seq_keep(BATCH, n_video, CAP_LEN)
+    s2s[:, :, :n_video] &= video[None, None]
+    mask = torch.where(s2s, 0.0, torch.finfo(torch.float32).min)
+    cases.append(Case(
+        fused_bert_attn_block, f"B={BATCH} L={Ls} C={C} nH={nH}, seq2seq "
+        "mask of the SwinBERT keys", 0,
+        (_rnd(g, BATCH, Ls, C), wq, wk, wv, bq, bk, bv, wo, bo, lw, lb,
+         mask, nH, scale, 1e-12),
+        8.0 * BATCH * Ls * C * C + 4.0 * BATCH * Ls * Ls * C,
+        2 * BATCH * Ls * C * 2 + 4 * C * C * 2 + mask.numel() * 4,
+        bitwise_repeat=True))
+    B = TRAIN_BATCH ** 2
+    lens = torch.randint(5, TXT_LEN + 1, (B,), generator=g, device="cuda")
+    keep = keep_rows(B, TXT_LEN, lens)
+    bmask = ((~keep).float() * -1e4)[:, None, :].expand(B, L, L).to(
+        torch.bfloat16).contiguous()
+    slab = _rnd(g, B, L, 3 * C)
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    core_flops = 4.0 * B * nH * L * L * hd
+    cases.append(Case(
+        fused_encoder_attention_train_lanes, f"B={B} L={L} C={C} nH={nH} "
+        "rate 0.1, SwinBERT keys + padded captions", 0,
+        (*slab.split(C, dim=-1), bmask, seed, scale, 0.1, nH), core_flops,
+        4 * B * L * C * 2 + bmask.numel() * 2 + B * nH * L * 4,
+        bitwise_repeat=True))
+    lse = torch.empty(B, nH, L, device="cuda")
+    out = _build.attention(slab.view(B * L, 3 * C), B, L, nH, scale,
+                           mask=bmask, lse=lse, seed=seed, rate=0.1
+                           ).view(B, L, C)
+    cases.append(Case(
+        encoder_attention_train_lanes_bwd, f"B={B} L={L} C={C} nH={nH} "
+        "rate 0.1, SwinBERT keys + padded captions", 0,
+        (*slab.split(C, dim=-1), bmask, seed, _rnd(g, B, L, C), scale, 0.1,
+         nH), 2.5 * core_flops,
+        7 * B * L * C * 2 + bmask.numel() * 2 + B * nH * L * 4,
+        kw={"lse": lse, "o": out}, compare=_grads_compare,
+        bitwise_repeat=True))
     return cases
 
 
@@ -2874,42 +2993,77 @@ def run_spatial(ops, wm_server):
 # The JAX switches' routes, launches per Swin-B + BERT-base serving forward
 # at T=5, 224 x 224 (JAX _BlockPairWM / SwinBlockWM / PatchEmbed3D): _IKS
 # takes stage 3's 9 shifted blocks (nW = 4) into K16, with K9 (+residual)
-# after each, and leaves K2 around stages 1 and 2; _PEK adds K17 once.
+# after each, and leaves K2 around stages 1 and 2; _PEK adds K17 once;
+# LVT_PSHIFT=0 rolls instead of K2; LVT_EMBING=1 changes no launch (its
+# window-major patch embed is plain torch, as in JAX).
 ROUTE_SERVE = {
     "default": {"K1": 24, "K2": 22, "K3": 2},
     "_PEK": {"K1": 24, "K2": 22, "K3": 2, "K17": 1},
-    "_IKS": {"K16": 9, "K1": 15, "K2": 4, "K9": 9, "K3": 2}}
+    "_IKS": {"K16": 9, "K1": 15, "K2": 4, "K9": 9, "K3": 2},
+    "LVT_PSHIFT=0": {"K1": 24, "K3": 2},
+    "LVT_EMBING=1": {"K1": 24, "K2": 22, "K3": 2}}
 # one _IKS train step (B=8): K16's backward recomputes through K2 (two
 # shifts and their transposes) and K8; stages 1-2 shift around K1 as before
 IKS_STEP = {"K16": 9, "K1": 15, "K2": 44, "K8a": 24, "K8b": 24, "K9": 24}
 
 
+# one train step (B=8) under LVT_COREBWD=0 (the wm blocks' backward
+# recomputes plain: no K8) and under LVT_SWINTRAIN=1 (the attention half
+# a composition around K8a / K8b, no K1; the MLP plain, no K9)
+SWITCH_STEP = {
+    "default": {"K1": 24, "K2": 44, "K8a": 24, "K8b": 24, "K9": 24},
+    "LVT_COREBWD=0": {"K1": 24, "K2": 44, "K9": 24},
+    "LVT_SWINTRAIN=1": {"K2": 44, "K8a": 24, "K8b": 24}}
+
+
 @contextlib.contextmanager
-def _switches(pek: bool = False, iks: bool = False):
-    """The port's LVT_PEK / LVT_IKS module constants, for a block."""
+def _switches(pek: bool = False, iks: bool = False, pshift: bool = True,
+              corebwd: bool = True, embing: bool = False,
+              swintrain: bool = False):
+    """The port's LVT_PEK / LVT_IKS / LVT_PSHIFT / LVT_COREBWD module
+    constants and the LVT_EMBING / LVT_SWINTRAIN variables (read per
+    call), for a block."""
     from lavender_tpu_torch.models import swin3d
 
-    prev = swin3d._PEK, swin3d._IKS
-    swin3d._PEK, swin3d._IKS = pek, iks
+    names = ("_PEK", "_IKS", "_PSHIFT", "_COREBWD")
+    prev = [getattr(swin3d, n) for n in names]
+    env = {k: os.environ.get(k) for k in ("LVT_EMBING", "LVT_SWINTRAIN")}
+    for n, v in zip(names, (pek, iks, pshift, corebwd)):
+        setattr(swin3d, n, v)
+    os.environ["LVT_EMBING"] = "1" if embing else "0"
+    os.environ["LVT_SWINTRAIN"] = "1" if swintrain else "0"
     try:
         yield
     finally:
-        swin3d._PEK, swin3d._IKS = prev
+        for n, v in zip(names, prev):
+            setattr(swin3d, n, v)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
 
 
-ROUTE_FLAGS = {"default": {}, "_PEK": {"pek": True}, "_IKS": {"iks": True}}
+ROUTE_FLAGS = {"default": {}, "_PEK": {"pek": True}, "_IKS": {"iks": True},
+               "LVT_PSHIFT=0": {"pshift": False},
+               "LVT_EMBING=1": {"embing": True}}
+STEP_FLAGS = {"default": {}, "LVT_COREBWD=0": {"corebwd": False},
+              "LVT_SWINTRAIN=1": {"swintrain": True}}
 
 
 def run_routes(ops, server):
     """Phase 8: the JAX switches' routes.  (a) the fold cache's logits
     against the uncached, unfolded ones, the guard's cost on an unchanged
     model, and new weights loaded into the built server; (b) serving under
-    _PEK and _IKS against the plain path, launches, clips/s beside the
-    default route in turns, device-busy share per route; (c) the _IKS
-    train step: loss and gradients kernels vs plain, launches, ten steps,
-    step time beside the default step's; (d) K16 against the K2 + K1
-    attention half + K2^-1 composition it replaces.  Returns the launches
-    of the counted runs."""
+    _PEK, _IKS, LVT_PSHIFT=0 and LVT_EMBING=1 against the plain path,
+    launches, clips/s beside the default route in turns, device-busy share
+    per route; (c) the _IKS train step: loss and gradients kernels vs
+    plain, launches, ten steps, step time beside the default step's; (d)
+    K16 against the K2 + K1 attention half + K2^-1 composition it
+    replaces; (e) the train step under LVT_COREBWD=0 and under
+    LVT_SWINTRAIN=1: loss and gradients kernels vs plain, launches, step
+    time beside the default step's in turns.  Returns the launches of the
+    counted runs."""
     from lavender_tpu_torch.config import ModelConfig, TrainConfig
     from lavender_tpu_torch.models import swin3d
     from lavender_tpu_torch.ops._build import plain_path
@@ -3141,6 +3295,45 @@ def run_routes(ops, server):
               f"({_nvidia_smi()})", flush=True)
         if not ok:
             raise AssertionError("(d) K16 disagrees with the composition")
+
+    # (e) the train step under LVT_COREBWD=0 and LVT_SWINTRAIN=1
+    state = create_train_state(cfg, TrainConfig(max_iter=1000,
+                                                max_grad_norm=1.0), seed=0)
+    step = make_train_step(loss_fn, state)
+    groups = _grad_groups(state.model)
+    for name, flags in STEP_FLAGS.items():
+        expected = {ops[k]: n for k, n in SWITCH_STEP[name].items()}
+        for k in ("K10a", "K10b", "K11"):
+            expected[ops[k]] = layers
+        with _switches(**flags):
+            if name != "default":
+                _check_step(f"(e) {name}, kernels vs plain:",
+                            _loss_and_grads(state, loss_fn, batch, False),
+                            _loss_and_grads(state, loss_fn, batch, True),
+                            groups, tag="routes")
+            _reset(ops.values())
+            step(batch)
+            for op, n in _check_counts(ops.values(), expected, 1,
+                                       f"routes (e) {name} step").items():
+                total[op] += n
+    times = {name: [] for name in STEP_FLAGS}
+    order = list(STEP_FLAGS)
+    for name in order + order[::-1]:
+        with _switches(**STEP_FLAGS[name]):
+            times[name].append(_ms(lambda: step(batch), 3))
+    for name, ts in times.items():
+        dt = sum(ts) / len(ts)
+        with _switches(**STEP_FLAGS[name]):
+            host_ms, busy_ms, _ = _device_profile(lambda: step(batch))
+        busy = ("device time not measured" if busy_ms is None else
+                f"device busy {busy_ms:.2f} ms of {host_ms:.2f} under "
+                "torch.profiler")
+        print(f"[routes] (e) {name} train step: {dt:.2f} ms per step "
+              f"({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{TRAIN_BATCH / dt * 1e3:.2f} train clips/s at "
+              f"B={TRAIN_BATCH}; {busy} ({_nvidia_smi()})", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
     return total
 
 
@@ -3450,6 +3643,291 @@ def run_tasks(ops):
     return total
 
 
+def _snapshot(state, loss):
+    """What the resume check compares, copied on the device: the last
+    loss, every parameter, the AdamW moments, each group's LR, the step
+    and the generator's state."""
+    opt = state.optimizer.state_dict()
+    return {"loss": loss.detach().float().reshape(1).clone(),
+            "params": {n: p.detach().clone()
+                       for n, p in state.model.named_parameters()},
+            "exp_avg": {i: s["exp_avg"].clone()
+                        for i, s in opt["state"].items()},
+            "exp_avg_sq": {i: s["exp_avg_sq"].clone()
+                           for i, s in opt["state"].items()},
+            "lr": [g["lr"] for g in state.optimizer.param_groups],
+            "step": state.step, "generator": state.generator.get_state()}
+
+
+def _snapshot_diff(a, b):
+    """Largest |a - b| per kind of tensor of two snapshots; None where the
+    LR, step or generator state differ."""
+    if (a["lr"], a["step"]) != (b["lr"], b["step"]) or not torch.equal(
+            a["generator"], b["generator"]):
+        return None
+    out = {"loss": float((a["loss"] - b["loss"]).abs().max())}
+    for kind in ("params", "exp_avg", "exp_avg_sq"):
+        out[kind] = max(float((a[kind][k] - b[kind][k]).abs().max())
+                        for k in a[kind])
+    return out
+
+
+@torch.no_grad()
+def _seeded_layer_norms(model, seed: int):
+    """Seeded Swin LayerNorm affines (scale 1 + N(0, 0.1^2), shift
+    N(0, 0.1^2)) in place of the init's 1 and 0 (see _swin_layer_norms)."""
+    g = torch.Generator().manual_seed(seed)
+    for mod in model.enc_img.swin.modules():
+        if isinstance(mod, torch.nn.LayerNorm):
+            mod.weight.copy_(1.0 + 0.1 * torch.randn(mod.weight.shape,
+                                                     generator=g))
+            mod.bias.copy_(0.1 * torch.randn(mod.bias.shape, generator=g))
+    return model
+
+
+def run_swinbert(ops):
+    """Phase 10: ModelConfig(swinbert=True) at full width (Swin-B +
+    BERT-base, seeded random weights) from a SwinBERT-layout checkpoint.
+    (a) the weights written as a SwinBERT ``.pt`` (``swinbert_layout_keys``)
+    load through ``load_reference_checkpoint`` into a fresh f32 model on
+    the card: every mapped tensor as written, the unmapped ones at their
+    init; (b) serving, 3 requests of B=4, kernels vs plain, launches,
+    clips/s, device time a forward; (c) the seq2seq forward (K6 in every
+    layer), kernels vs plain; (d) the retrieval-MLM step at B=8 from the
+    checkpoint: loss and gradients kernels vs plain, launches, then 3
+    steps straight (twice) against 2 steps + ``save_train_state`` +
+    ``restore_train_state`` into a fresh state + 1 step; (e) the same
+    clips as float frames (``device_normalize`` on the card) against the
+    uint8 path, and clips of 98 x 98 (the patch embed's spatial pad),
+    kernels vs plain.  Returns the launches of the counted runs."""
+    from lavender_tpu_torch.config import ModelConfig, TrainConfig
+    from lavender_tpu_torch.convert import (remap_swinbert_keys,
+                                            swinbert_layout_keys)
+    from lavender_tpu_torch.data.transforms import device_normalize
+    from lavender_tpu_torch.models.lavender import LavenderModel, init_weights
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.serve import LavenderServer
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train import checkpoint
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    cfg = ModelConfig(swinbert=True)
+    layers, vocab = cfg.bert.num_hidden_layers, cfg.bert.vocab_size
+    total = {op: 0 for op in ops.values()}
+
+    def add(counts):
+        for op, n in counts.items():
+            total[op] += n
+
+    def vs_plain(label, srv, *request):
+        out = srv(*request)
+        with plain_path():
+            ref = srv(*request)
+        err, rel, ok = _compare(out, ref, SLICE_TOL, SLICE_REL_L2)
+        print(f"[swinbert] {label}: logits {tuple(out.shape)}, vs plain "
+              f"path max_abs_err {err:.4g} rel_l2 {rel:.3g} (tol "
+              f"{SLICE_TOL} max(1,max|ref|), {SLICE_REL_L2}), max|ref| "
+              f"{float(ref.float().abs().max()):.3g}", flush=True)
+        if not (ok and bool(torch.isfinite(out).all())):
+            raise AssertionError(f"{label}: kernel path disagrees")
+        return out
+
+    tmp = tempfile.mkdtemp(prefix="swinbert_", dir=str(_build.BUILD_DIR))
+    try:
+        # (a) a SwinBERT-layout checkpoint into a fresh model on the card
+        t0 = time.perf_counter()
+        src = _seeded_layer_norms(init_weights(
+            LavenderModel(cfg), torch.Generator().manual_seed(20)), 21)
+        path = os.path.join(tmp, "ckpt_swinbert_seed20.pt")
+        written = swinbert_layout_keys(src.state_dict())
+        torch.save(written, path)
+        mapped = set(remap_swinbert_keys(written))
+        model = init_weights(LavenderModel(cfg),
+                             torch.Generator().manual_seed(1)).to("cuda")
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+        checkpoint.load_reference_checkpoint(path, model)
+        n_mapped, src_sd = 0, src.state_dict()
+        for k, v in model.state_dict().items():
+            want = src_sd[k] if k in mapped else init[k]
+            n_mapped += k in mapped
+            if not (v.is_cuda and torch.equal(v.cpu(), want.cpu())):
+                raise AssertionError(f"(a) {k}: not the "
+                                     f"{'written' if k in mapped else 'init'}"
+                                     " tensor")
+        print(f"[swinbert] (a) {len(written)} tensors written as "
+              f"{os.path.basename(path)} "
+              f"({os.path.getsize(path) / 2 ** 20:.0f} MiB) loaded into a "
+              f"fresh f32 model on the card: {n_mapped} mapped tensors "
+              f"equal to the written ones, the {len(init) - n_mapped} "
+              f"unmapped ({sorted(set(init) - mapped)}) at their init; "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        server = LavenderServer(cfg, seed=2, frames=FRAMES, size=SIZE)
+        server.model.load_state_dict(model.state_dict())
+        del model, init, src, src_sd
+        torch.cuda.empty_cache()
+
+        # (b) serving: 3 requests of B=4
+        rs = np.random.RandomState(10)
+        requests = []
+        for _ in range(N_REQUESTS):
+            img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(
+                np.uint8)
+            lens = rs.randint(5, TXT_LEN + 1, BATCH)
+            lens[0] = TXT_LEN
+            mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
+            requests.append((img, rs.randint(1, vocab, (BATCH, TXT_LEN))
+                             * mask, mask))
+        per_fwd = {**_video_counts(ops, cfg), ops["K4"]: layers,
+                   ops["K5"]: layers}
+        server(*requests[0])  # warm-up; the guard rebuilds the cache
+        _reset(ops.values())
+        outs = [server(*r) for r in requests]
+        add(_check_counts(ops.values(), per_fwd, N_REQUESTS, "swinbert (b)"))
+        for i, (out, req) in enumerate(zip(outs, requests)):
+            with plain_path():
+                ref = server(*req)
+            err, rel, ok = _compare(out, ref, SLICE_TOL, SLICE_REL_L2)
+            print(f"[swinbert] (b) request {i} (text lengths "
+                  f"{req[2].sum(1).tolist()}): vs plain path max_abs_err "
+                  f"{err:.4g} rel_l2 {rel:.3g} (tol {SLICE_TOL} "
+                  f"max(1,max|ref|), {SLICE_REL_L2}), max|ref| "
+                  f"{float(ref.float().abs().max()):.3g}", flush=True)
+            if not (ok and bool(torch.isfinite(out).all())):
+                raise AssertionError(f"(b) request {i}: kernel path logits "
+                                     "disagree with the plain path")
+        ts = [_ms(lambda: server(*requests[0]), 10) for _ in range(2)]
+        host_ms, busy_ms, n_dev = _device_profile(
+            lambda: [server(*requests[0]) for _ in range(3)])
+        busy = ("device time not measured (the profiler recorded no device "
+                "activity)" if busy_ms is None else
+                f"device busy {busy_ms / 3:.3f} ms a forward of "
+                f"{host_ms / 3:.3f} ({busy_ms / host_ms:.1%}), "
+                f"{n_dev / 3:.0f} device activities")
+        print(f"[swinbert] (b) serving: {sum(ts) / 2:.2f} ms per forward "
+              f"({', '.join(f'{t:.2f}' for t in ts)}), "
+              f"{BATCH / (sum(ts) / 2) * 1e3:.2f} clips/s at B={BATCH}; "
+              f"under torch.profiler {busy} ({_nvidia_smi()})", flush=True)
+
+        # (c) the seq2seq forward: K6 in every layer, no K4
+        ctxt, cmask = _caption_text(rs, BATCH, vocab)
+        _reset(ops.values())  # the plain path launches nothing
+        vs_plain("(c) seq2seq forward", server, requests[0][0], ctxt, cmask,
+                 "seq2seq")
+        add(_check_counts(ops.values(), {**_video_counts(ops, cfg),
+                                         ops["K5"]: layers,
+                                         ops["K6"]: layers}, 1,
+                          "swinbert (c)"))
+
+        # (e) float frames normalized on the card against the uint8 path;
+        # a geometry the patch does not divide, kernels vs plain
+        img_f = device_normalize(torch.as_tensor(requests[0][0],
+                                                 device="cuda"))
+        _reset(ops.values())
+        got = server(img_f, *requests[0][1:])
+        add(_check_counts(ops.values(), per_fwd, 1, "swinbert (e) float"))
+        err, rel, ok = _compare(got, outs[0], SLICE_TOL, SLICE_REL_L2)
+        print(f"[swinbert] (e) float frames (device_normalize, the general "
+              f"patch embed) vs the uint8 path: max_abs_err {err:.4g} "
+              f"rel_l2 {rel:.3g} (tol {SLICE_TOL} max(1,max|ref|), "
+              f"{SLICE_REL_L2})", flush=True)
+        if not ok:
+            raise AssertionError("(e) float frames disagree with uint8")
+        odd = rs.randint(0, 256, (2, FRAMES, 98, 98, 3)).astype(np.uint8)
+        _reset(ops.values())
+        vs_plain("(e) clips 2 x 5 x 98 x 98 (spatial pad)", server, odd,
+                 *(a[:2] for a in requests[0][1:]))
+        torch.cuda.synchronize()
+        counts = {op: op.launches for op in ops.values()}
+        add(counts)
+        print("[swinbert] (e) 98 x 98 forward's launches: " + ", ".join(
+            f"{op.name.split()[0]} {n}" for op, n in counts.items() if n),
+            flush=True)
+        del server, outs
+        torch.cuda.empty_cache()
+
+        # (d) the retrieval-MLM step from the checkpoint, then the resume
+        loss_fn = retrieval.make_loss_fn(TRUE_ID, FALSE_ID)
+        batch = _train_batch(vocab)
+        tc = TrainConfig(lr=1e-4, max_iter=10, warmup_ratio=0.2,
+                         max_grad_norm=1.0)
+
+        def fresh(seed):
+            st = create_train_state(cfg, tc, seed=seed)
+            checkpoint.load_reference_checkpoint(path, st.model)
+            return st, make_train_step(loss_fn, st)
+
+        state, step = fresh(0)
+        _check_step("(d) SwinBERT retrieval step, kernels vs plain:",
+                    _loss_and_grads(state, loss_fn, batch, False),
+                    _loss_and_grads(state, loss_fn, batch, True),
+                    _grad_groups(state.model), tag="swinbert")
+        n_shift, depth = _shifted_blocks(cfg.swin), sum(cfg.swin.depths)
+        per_step = {ops["K1"]: depth, ops["K2"]: 4 * n_shift,
+                    ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth,
+                    ops["K10a"]: layers, ops["K10b"]: layers,
+                    ops["K11"]: layers}
+        # deterministic algorithms where torch has them (its index
+        # backward); uninitialized memory stays unfilled, as the kernels'
+        # scratch is in every other phase
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        torch.utils.deterministic.fill_uninitialized_memory = False
+        try:
+            _reset(ops.values())
+            losses = [step(batch)]
+            add(_check_counts(ops.values(), per_step, 1, "swinbert (d)"))
+            losses += [step(batch) for _ in range(2)]
+            straight = _snapshot(state, losses[-1])
+            del state, step
+            state, step = fresh(0)
+            for _ in range(3):
+                loss = step(batch)
+            again = _snapshot(state, loss)
+            del state, step
+            state, step = fresh(0)
+            step(batch)
+            step(batch)
+            ckpt = os.path.join(tmp, "train_state.pt")
+            checkpoint.save_train_state(state, ckpt)
+            del state, step
+            state, step = fresh(3)
+            checkpoint.restore_train_state(ckpt, state)
+            resumed = _snapshot(state, step(batch))
+            del state, step
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.utils.deterministic.fill_uninitialized_memory = fill
+        d_runs = _snapshot_diff(straight, again)
+        d_resume = _snapshot_diff(straight, resumed)
+        print(f"[swinbert] (d) losses of the straight run "
+              f"{' '.join(f'{float(v):.6f}' for v in losses)}; the resumed "
+              f"3rd step {float(resumed['loss']):.6f}; LR "
+              f"{resumed['lr'][0]:.3g}; largest |diff| two straight runs "
+              f"{d_runs}, straight vs resumed {d_resume} "
+              f"({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB state)",
+              flush=True)
+        if d_runs is None or d_resume is None:
+            raise AssertionError("(d) the LR, step or generator state moved")
+        if all(v == 0.0 for v in d_runs.values()):
+            print("[swinbert] (d) two straight runs agree bitwise: the "
+                  "resumed run must too", flush=True)
+            ok = all(v == 0.0 for v in d_resume.values())
+        else:
+            bound = max(d_runs.values())
+            print(f"[swinbert] (d) two straight runs differ: the resumed run "
+                  f"must agree within their largest difference {bound:.4g}",
+                  flush=True)
+            ok = all(v <= bound for v in d_resume.values())
+        if not ok:
+            raise AssertionError("(d) the resumed run left the straight one")
+        print(f"[swinbert] (d) resume: passed ({_nvidia_smi()})", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -3517,6 +3995,8 @@ def main() -> int:
     del server
     torch.cuda.empty_cache()
     task_counts = run_tasks(ops)
+    torch.cuda.empty_cache()
+    swinbert_counts = run_swinbert(ops)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/gemm_tc.cu",
@@ -3571,13 +4051,15 @@ def main() -> int:
             "replaces": replaces,
             "launches": (serve_counts[op] + train_counts[op]
                          + caption_counts[op] + spatial_counts[op]
-                         + route_counts[op] + task_counts[op]),
+                         + route_counts[op] + task_counts[op]
+                         + swinbert_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
             "launches_spatial": spatial_counts[op],
             "launches_routes": route_counts[op],
             "launches_tasks": task_counts[op],
+            "launches_swinbert": swinbert_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

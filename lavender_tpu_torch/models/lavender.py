@@ -8,8 +8,9 @@ In ``train()`` mode dropout and drop-path draw from the ``generator`` the
 parts take.
 
 Ported variants: EncVideo with the frame-order (``odr``) and per-frame
-visual mask (``vt_mask``) inputs of pretraining (not the SwinBERT
-adapter), EncTxt embeddings-only or with its text transformer
+visual mask (``vt_mask``) inputs of pretraining, and the SwinBERT adapter
+(``ModelConfig.swinbert``: fc to 512, ``img_embedding`` to the hidden
+size, a zero [CLS] per frame whose mask entry is 0), EncTxt embeddings-only or with its text transformer
 (``txt_backbone_embed_only=False``, under a full or a causal mask), and
 the "full" and "seq2seq" cross masks.
 """
@@ -69,16 +70,23 @@ def build_cross_mask(mask_img: torch.Tensor, mask_txt: torch.Tensor,
 
 class EncVideo(nn.Module):
     """Swin features -> BERT token space: fc, a per-frame [CLS], spatial
-    and temporal position embeddings, LN, flattened to [B, T*(1+hw), H]."""
+    and temporal position embeddings, LN, flattened to [B, T*(1+hw), H].
+
+    ``ModelConfig.swinbert`` (reference model.py:32-35, 52-67): fc to 512,
+    then ``img_embedding`` to the hidden size, and a zero [CLS] per frame
+    whose mask entry is 0; no position or length embeddings, no LN, and
+    ``odr`` / ``vt_mask`` are not read."""
 
     def __init__(self, config):
         super().__init__()
-        if config.swinbert:
-            raise NotImplementedError("ModelConfig.swinbert: the SwinBERT "
-                                      "adapter is not ported")
         self.swin = VideoSwin3D(config.swin)
         hidden = config.hidden_size
         latent = config.swin.num_features
+        self.swinbert = config.swinbert
+        if self.swinbert:
+            self.fc = nn.Linear(latent, 512)
+            self.img_embedding = nn.Linear(512, hidden)
+            return
         self.fc = nn.Linear(latent, hidden) if latent != hidden else None
         self.emb_cls = nn.Parameter(torch.zeros(1, 1, 1, hidden))
         self.emb_pos = nn.Parameter(
@@ -92,15 +100,23 @@ class EncVideo(nn.Module):
                 generator: Optional[torch.Generator] = None, *,
                 odr: Optional[torch.Tensor] = None,
                 vt_mask: Optional[torch.Tensor] = None):
-        """img uint8 [B, T, H, W, 3] -> (features [B, Lv, H], mask [B, Lv]).
+        """img [B, T, H, W, 3], uint8 or normalized float -> (features
+        [B, Lv, H], mask [B, Lv]).
 
         ``odr`` [B, T] (frame-order pretraining, reference model.py:72-81):
         frame t takes its ``emb_len`` row where odr[b, t] == t, else
         ``emb_odr``.  ``vt_mask`` (broadcast to [B, T, 1 + hw]) multiplies
         the visual mask."""
-        B, T, H, W, _ = img.shape
-        hw = (H // 32) * (W // 32)
-        f = self.swin(img, generator).reshape(B, T, hw, -1)
+        B, T = img.shape[:2]
+        f = self.swin(img, generator)
+        hw = f.shape[2] * f.shape[3]  # H/32 x W/32, rounded up by the pads
+        f = f.reshape(B, T, hw, -1)
+        if self.swinbert:
+            f = self.img_embedding(self.fc(f))
+            f = torch.cat([f.new_zeros(B, T, 1, f.shape[-1]), f], dim=2)
+            m = torch.ones(B, T, 1 + hw, dtype=torch.long, device=img.device)
+            m[:, :, 0] = 0
+            return f.reshape(B, T * (1 + hw), -1), m.reshape(B, T * (1 + hw))
         if self.fc is not None:
             f = self.fc(f)
         cls = self.emb_cls.to(f.dtype).expand(B, T, 1, f.shape[-1])

@@ -42,7 +42,10 @@ torch modules (``layers.0.blocks.1.attn.qkv.weight``), which is also what
 its per-block one (``layers_0/blocks_1``).
 
 What runs where: the uint8 patch embed (normalize folded into the conv
-weights; ``fused_patch_embed_u8``, K17, under ``LVT_PEK=1``), PatchMerging,
+weights; ``fused_patch_embed_u8``, K17, under ``LVT_PEK=1``), its general
+path (float clips, a spatial pad or a temporal patch other than 2: the
+device normalize of a uint8 clip, the temporal end pad, the spatial pad,
+the conv as one product), PatchMerging,
 the window partition/reverse and the final LN are plain torch (plain XLA in
 JAX); the blocks and the shift are the ported kernels.
 
@@ -62,6 +65,26 @@ constants that the routes read at call time (tests flip the constants):
   ``supports_inkernel_shift`` holds (Swin-B at 5 x 224 x 224: stage 3);
   its MLP then runs as K9 (with the residual in serving) where
   ``weights_fit_vmem``, else K3 in serving and plain torch in training.
+- ``LVT_PSHIFT`` (default "1", ``_PSHIFT``): "0" runs the wm stages'
+  cyclic shift as reverse -> ``torch.roll`` -> partition
+  (``wm_shift_roll``) instead of K2 (JAX ops/swin_block_attn.py:73).
+- ``LVT_COREBWD`` (default "1", ``_COREBWD``): "0" makes the backward of
+  the wm blocks' kernels (K1's attention half, K16) recompute the
+  attention half in plain torch on the valid rows instead of through K8
+  (JAX ``_use_core_bwd``, ops/swin_block_attn.py:1652).
+
+Two more are read at each call, as JAX reads them:
+
+- ``LVT_SWINTRAIN`` (default "0"; JAX swin3d.py:655): in training the wm
+  blocks' attention half is ``wm_attn_half_train``, a composition under
+  autograd (LN1 + qkv in torch, the K8 core, proj in torch; with
+  ``LVT_COREBWD=0`` all plain), and their MLP plain torch (JAX
+  ``ln_mlp_reference``); a K16 block takes the shift around it.
+- ``LVT_EMBING`` (default "0"; JAX swin3d.py:1396): in ``eval()``, on uint8
+  clips whose first stage runs window-major, the patch embed writes stage
+  1's [B, nW, Npad, E] layout itself (``PatchEmbed3D._u8_embed_wm``, plain
+  torch, the u8 im2col composed with the window partition; K17 is not
+  used, as in JAX) and stage 1 skips its ``wm_partition``.
 
 The serving cache is a function of the weights.  Each cached stage keeps
 a fingerprint of its sources (sum and sum of squares of the rel-pos
@@ -87,18 +110,20 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from lavender_tpu_torch.data.transforms import device_normalize
 from lavender_tpu_torch.ops import _build, layer_norm
 from lavender_tpu_torch.ops._build import select
 from lavender_tpu_torch.ops.fused_mlp import (
     _mlp_plain, fused_ln_mlp, fused_ln_mlp_chunked, weights_fit_vmem)
 from lavender_tpu_torch.ops.patch_embed_u8 import (
-    _pe_plain, fused_patch_embed_u8, supports_fused_patch_embed)
+    _pe_plain, fold_weights, fused_patch_embed_u8,
+    supports_fused_patch_embed, u8_im2col)
 from lavender_tpu_torch.ops.swin_block_attn import (
     fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
     fused_swin_block_wm_shifted, mlp_in_block, pad_window_mask,
     rel_pos_bias_rows, rel_pos_bias_wm, round8, supports_inkernel_shift,
-    window_msa,
-    window_partition, window_reverse, wm_partition, wm_reverse, wm_shift)
+    window_msa, window_partition, window_reverse, wm_attn_half_train,
+    wm_partition, wm_reverse, wm_shift, wm_shift_roll)
 from lavender_tpu_torch.ops.window_attention import (
     fused_window_attention, window_attention_reference)
 
@@ -107,6 +132,19 @@ from lavender_tpu_torch.ops.window_attention import (
 _IKS = os.environ.get("LVT_IKS", "0") == "1"
 _FOLDCACHE = os.environ.get("LVT_FOLDCACHE", "1") == "1"
 _PEK = os.environ.get("LVT_PEK", "0") == "1"
+_PSHIFT = os.environ.get("LVT_PSHIFT", "1") == "1"
+_COREBWD = os.environ.get("LVT_COREBWD", "1") == "1"
+
+
+def swin_train_composition() -> bool:
+    """``LVT_SWINTRAIN=1``, read per call (JAX ``swin_train_composition``)."""
+    return os.environ.get("LVT_SWINTRAIN", "0") == "1"
+
+
+def _shift_fn():
+    """The wm stages' cyclic shift: K2 (``wm_shift``) or, under
+    ``LVT_PSHIFT=0``, ``wm_shift_roll``."""
+    return wm_shift if _PSHIFT else wm_shift_roll
 
 
 def get_window_size(x_size: Sequence[int], window_size: Sequence[int],
@@ -347,29 +385,53 @@ class SwinBlock3D(nn.Module):
         if inkernel_shift is not None:
             return self._wm_inkernel_shift(x, attn, mlp, inkernel_shift,
                                            dp_rate, generator)
+        if self.training and swin_train_composition():
+            full = wm_attn_half_train(x, *attn, *args[-3:], n_valid, _COREBWD)
+            return self._train_plain_mlp(x, full, mlp, dp_rate, generator)
         if self.training:
-            x = drop_path_lerp(x, block(x, *args, n_valid=n_valid), dp_rate,
+            x = drop_path_lerp(x, block(x, *args, n_valid=n_valid,
+                                        core_bwd=_COREBWD), dp_rate,
                                generator)
             out = select(fused_ln_mlp)(x.reshape(-1, C), *mlp,
                                        self.norm2.eps).reshape(x.shape)
             return x + drop_path(out, dp_rate, generator)
         if mlp_in_block(C, self.mlp.fc1.out_features, nH, Npad):
             return block(x, *args, mlp=mlp, folded=folded)
-        x = block(x, *args, folded=folded)
+        x = block(x, *args, folded=folded, core_bwd=_COREBWD)
         return select(fused_ln_mlp_chunked)(x.reshape(-1, C), *mlp,
                                             self.norm2.eps).reshape(x.shape)
+
+    def _train_plain_mlp(self, x, full, mlp, dp_rate, generator):
+        """The ``LVT_SWINTRAIN`` block's end: x <- drop_path_lerp(x, full),
+        then x + drop_path(the plain LN2 + MLP) (JAX ``ln_mlp_reference``)."""
+        x = drop_path_lerp(x, full, dp_rate, generator)
+        out = _mlp_plain(x.reshape(-1, x.shape[-1]), *mlp, self.norm2.eps)
+        return x + drop_path(out.reshape(x.shape).to(x.dtype), dp_rate,
+                             generator)
 
     def _wm_inkernel_shift(self, x, attn, mlp, inkernel_shift, dp_rate,
                            generator):
         """The JAX ``SwinBlockWM`` ``inkernel_shift`` branch
         (swin3d.py:677-686 and the MLP after it): K16, then the MLP as a
         separate call, K9 where ``weights_fit_vmem`` (with the residual in
-        serving), else K3 in serving and plain torch in training."""
+        serving), else K3 in serving and plain torch in training.  Under
+        ``LVT_SWINTRAIN`` in training: the shift, ``wm_attn_half_train``,
+        the inverse shift (JAX ``wm_attn_half_train_shifted``), then the
+        plain MLP."""
         C = x.shape[-1]
         eps = self.norm1.eps
+        nH, scale = self.attn.num_heads, self.attn.scale
+        if self.training and swin_train_composition():
+            spatial, window, shift = inkernel_shift
+            shift_fn = _shift_fn()
+            xs = shift_fn(x, window, *spatial, shift)
+            ys = wm_attn_half_train(xs, *attn, nH, scale, eps,
+                                    int(np.prod(window)), _COREBWD)
+            full = shift_fn(ys, window, *spatial, shift, inverse=True)
+            return self._train_plain_mlp(x, full, mlp, dp_rate, generator)
         full = select(fused_swin_block_wm_shifted)(
-            x, *attn, *inkernel_shift, self.attn.num_heads, self.attn.scale,
-            eps)
+            x, *attn, *inkernel_shift, nH, scale, eps,
+            core_bwd=_COREBWD)
         fits = weights_fit_vmem(C, self.mlp.fc1.out_features)
         if self.training:
             x = drop_path_lerp(x, full, dp_rate, generator)
@@ -660,14 +722,20 @@ class BasicLayer(nn.Module):
         return False
 
     def _forward_wm(self, x: torch.Tensor,
-                    generator: Optional[torch.Generator]) -> torch.Tensor:
-        B, D, H, W, C = x.shape
+                    generator: Optional[torch.Generator],
+                    spatial: Optional[Tuple[int, int, int]] = None
+                    ) -> torch.Tensor:
+        """x [B, D, H, W, C], or with ``spatial`` = (D, H, W) already
+        window-major [B, nW, Npad, C] (the ``LVT_EMBING`` ingress)."""
+        D, H, W = x.shape[1:4] if spatial is None else spatial
+        C = x.shape[-1]
         window, shift, N, Npad, biases, mask, folds = self._geometry(
             D, H, W, x.device, x.dtype)
         shifted = mask is not None
         dpr = self.drop_path_rates
-        t = wm_partition(x, window, Npad)
+        t = wm_partition(x, window, Npad) if spatial is None else x
         nW = t.shape[1]
+        shift_fn = _shift_fn()
         # JAX _BlockPairWM: K16 for the shifted block where the gate holds,
         # and then no wm_shift pair around it (swin3d.py:952-965)
         iks = (shifted and _IKS and supports_inkernel_shift(
@@ -677,11 +745,11 @@ class BasicLayer(nn.Module):
             t = self.blocks[k].wm(t, biases[k], None, N, dpr[k], generator,
                                   folds[k])
             if shifted and not iks:
-                t = wm_shift(t, window, D, H, W, shift)
+                t = shift_fn(t, window, D, H, W, shift)
             t = self.blocks[k + 1].wm(t, biases[k + 1], mask, N, dpr[k + 1],
                                       generator, folds[k + 1], inkernel)
             if shifted and not iks:
-                t = wm_shift(t, window, D, H, W, shift, inverse=True)
+                t = shift_fn(t, window, D, H, W, shift, inverse=True)
         return wm_reverse(t, window, D, H, W)
 
     def _forward_spatial(self, x: torch.Tensor,
@@ -731,9 +799,15 @@ class BasicLayer(nn.Module):
         return x
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        B, D, H, W, C = x.shape
-        if self.wm_ok(D, H, W):
+                generator: Optional[torch.Generator] = None,
+                spatial: Optional[Tuple[int, int, int]] = None
+                ) -> torch.Tensor:
+        """x [B, D, H, W, C]; or, with ``spatial`` = (D, H, W), x already
+        window-major [B, nW, Npad, C] (JAX ``pre_partitioned``) for a
+        stage whose ``wm_ok`` holds at that size."""
+        if spatial is not None:
+            x = self._forward_wm(x, generator, spatial)
+        elif self.wm_ok(*x.shape[1:4]):
             x = self._forward_wm(x, generator)
         else:
             x = self._forward_spatial(x, generator)
@@ -797,17 +871,24 @@ def check_serving_cache(model: nn.Module) -> bool:
 
 
 class PatchEmbed3D(nn.Module):
-    """Patch embedding, kernel (2, 4, 4), stride (1, 4, 4), temporal
-    end-pad, on raw uint8 frames [B, D, H, W, 3] -> [B, D, H/4, W/4, E].
+    """Patch embedding, kernel (pd, ph, pw), stride (1, ph, pw), temporal
+    end-pad of one frame: [B, D, H, W, 3] -> [B, D + 2 - pd, ceil(H/ph),
+    ceil(W/pw), E] (JAX ``PatchEmbed3D``, swin3d.py:1183-1275).
 
-    The ImageNet normalize (u/255 - mean)/std is folded into the conv
-    weights and the convolution runs as one [*, 96] @ [96, E] product
-    (the JAX package's ``_u8_embed``, ``patch_embed_u8._pe_plain``).  The
-    end-pad frame must contribute a NORMALIZED zero, so the kd=1 tap's
-    folded shift is left out at the last time step through a [D, E] bias
-    table.  Under ``_PEK`` in ``eval()`` the product is K17
-    (``fused_patch_embed_u8``) where ``supports_fused_patch_embed`` holds
-    (JAX swin3d.py:1213-1230)."""
+    Raw uint8 frames with pd = 2 and no spatial pad: the ImageNet
+    normalize (u/255 - mean)/std is folded into the conv weights and the
+    convolution runs as one [*, 96] @ [96, E] product (the JAX package's
+    ``_u8_embed``, ``patch_embed_u8._pe_plain``).  The end-pad frame must
+    contribute a NORMALIZED zero, so the kd=1 tap's folded shift is left
+    out at the last time step through a [D, E] bias table.  Under ``_PEK``
+    in ``eval()`` the product is K17 (``fused_patch_embed_u8``) where
+    ``supports_fused_patch_embed`` holds (JAX swin3d.py:1213-1230).
+
+    Any other input (JAX swin3d.py:1248-1275): a uint8 clip is normalized
+    on the device (``device_normalize``), a float one taken as already
+    normalized; then the temporal end pad of one frame, zeros to the
+    patch's multiple in H and W, and the conv as one [*, pd*ph*pw*3] @
+    [., E] product of the im2col, in the weights' dtype."""
 
     def __init__(self, patch_size=(2, 4, 4), in_chans: int = 3,
                  embed_dim: int = 96, patch_norm: bool = True,
@@ -819,25 +900,69 @@ class PatchEmbed3D(nn.Module):
                               stride=(1,) + self.patch_size[1:])
         self.norm = nn.LayerNorm(embed_dim, eps=eps) if patch_norm else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                wm: Optional[Tuple[Tuple[int, int, int], int]] = None
+                ) -> torch.Tensor:
+        """``wm`` = (window, Npad): the ``LVT_EMBING`` ingress, which the
+        caller gates; the tokens come out in stage 1's window-major layout
+        [B, nW, Npad, E] (``_u8_embed_wm``)."""
         B, D, H, W, C = x.shape
         pd, ph, pw = self.patch_size
-        if x.dtype != torch.uint8 or pd != 2 or H % ph or W % pw:
-            raise NotImplementedError(
-                "the port's patch embed takes uint8 frames whose H, W are "
-                "multiples of SwinConfig.patch_size with a temporal patch of "
-                f"2 (the float and padded inputs are not ported), got "
-                f"{x.dtype} {tuple(x.shape)}, patch {self.patch_size}")
-        if (_PEK and not self.training and supports_fused_patch_embed(
-                B, D, H, W, C, self.patch_size)):
+        fold = x.dtype == torch.uint8 and pd == 2 and not (H % ph or W % pw)
+        if wm is not None:
+            out = self._u8_embed_wm(x, *wm)
+        elif (fold and _PEK and not self.training
+              and supports_fused_patch_embed(B, D, H, W, C,
+                                             self.patch_size)):
             out = select(fused_patch_embed_u8)(x, self.proj.weight,
                                                self.proj.bias)
-        else:
+        elif fold:
             out = _pe_plain(x, self.proj.weight, self.proj.bias)
+        else:
+            out = self._embed_general(x)
         if self.norm is not None:
             out = layer_norm(out, self.norm.weight, self.norm.bias,
                              self.norm.eps)
         return out
+
+    def _embed_general(self, x: torch.Tensor) -> torch.Tensor:
+        """The JAX float path: device normalize of a uint8 clip, the
+        temporal end pad of one frame, the spatial pad, the conv as one
+        product of the (kd, kh, kw, c) im2col."""
+        dt = self.proj.weight.dtype
+        x = device_normalize(x, dt) if x.dtype == torch.uint8 else x.to(dt)
+        B, D, H, W, C = x.shape
+        pd, ph, pw = self.patch_size
+        x = nn.functional.pad(x, (0, 0, 0, -W % pw, 0, -H % ph, 0, 1))
+        Dp, h2, w2 = D + 1, x.shape[2] // ph, x.shape[3] // pw
+        xs = x.reshape(B, Dp, h2, ph, w2, pw, C).permute(0, 1, 2, 4, 3, 5, 6)
+        xs = xs.reshape(B, Dp, h2, w2, ph * pw * C)
+        feat = torch.cat([xs[:, d:Dp - pd + 1 + d] for d in range(pd)], -1)
+        kmat = self.proj.weight.permute(2, 3, 4, 1, 0).reshape(
+            -1, self.embed_dim)
+        return torch.matmul(feat, kmat) + self.proj.bias
+
+    def _u8_embed_wm(self, x: torch.Tensor, window: Tuple[int, int, int],
+                     Npad: int) -> torch.Tensor:
+        """``_pe_plain`` written straight into window-major [B, nW, Npad, E]
+        (JAX ``_u8_embed_wm``): the u8 im2col composed with stage 1's
+        window partition, one product, each row's bias-table entry by its
+        time step (pad rows take the last one; their content is dead:
+        masked keys, dropped at the stage's exit)."""
+        B, D, H, W, C = x.shape
+        _, ph, pw = self.patch_size
+        wd, wh, ww = window
+        nR, nWc, N = H // ph // wh, W // pw // ww, wd * wh * ww
+        feat = u8_im2col(x, ph, pw)
+        feat = feat.reshape(B, D, nR, wh, nWc, ww, -1).permute(
+            0, 2, 4, 1, 3, 5, 6).reshape(B, nR * nWc, N, -1)
+        feat = nn.functional.pad(feat, (0, 0, 0, Npad - N))
+        kmat, bias_t = fold_weights(self.proj.weight, self.proj.bias, D)
+        d_row = (torch.arange(Npad, device=x.device) // (wh * ww)).clamp(
+            max=D - 1)
+        dt = self.proj.weight.dtype
+        out = torch.matmul(feat.to(dt), kmat.to(dt)).float()
+        return (out + bias_t[d_row]).to(dt)
 
 
 class VideoSwin3D(nn.Module):
@@ -869,7 +994,8 @@ class VideoSwin3D(nn.Module):
     def build_serving_cache(self, T: int, H: int, W: int):
         """Precompute every stage's biases and masks (and, on the wm route
         under ``_FOLDCACHE``, the folded weights) for [*, T, H, W, 3]."""
-        D, h, w = T, H // self.patch_size[1], W // self.patch_size[2]
+        pd, ph, pw = self.patch_size
+        D, h, w = T + 2 - pd, -(-H // ph), -(-W // pw)
         for layer in self.layers:
             layer.build_serving_cache(D, h, w)
             if layer.downsample is not None:
@@ -887,14 +1013,40 @@ class VideoSwin3D(nn.Module):
         return [f"layers.{i}" for i, layer in enumerate(self.layers)
                 if layer.refresh_serving_cache()]
 
+    def embed_wm_geometry(self, x: torch.Tensor):
+        """(spatial (D, h, w), window, Npad) of stage 1 where the
+        ``LVT_EMBING`` ingress applies to ``x`` (JAX swin3d.py:1396-1420: a
+        read per call, in ``eval()``, on uint8 clips with pd = 2 and no
+        spatial pad whose stage 1 runs window-major), else None."""
+        if (os.environ.get("LVT_EMBING", "0") != "1" or self.training
+                or x.dtype != torch.uint8 or self.patch_size[0] != 2):
+            return None
+        B, T, H, W, _ = x.shape
+        ph, pw = self.patch_size[1:]
+        if H % ph or W % pw:
+            return None
+        spatial = (T, H // ph, W // pw)
+        stage = self.layers[0]
+        if not stage.wm_ok(*spatial):
+            return None
+        window, _ = get_window_size(spatial, stage.window_size, stage.shift)
+        return spatial, window, round8(int(np.prod(window)))
+
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator``: the drop-path random stream in training.  A
         forward that reads the serving cache (``eval()``, no autograd)
-        first runs the staleness guard."""
+        first runs the staleness guard.  x uint8 (raw) or float (already
+        normalized) [B, T, H, W, 3]."""
         if not (self.training or torch.is_grad_enabled()):
             self.refresh_serving_cache()
-        x = self.patch_embed(x)
-        for layer in self.layers:
+        embing, spatial = self.embed_wm_geometry(x), None
+        if embing is None:
+            x = self.patch_embed(x)
+        else:
+            spatial, window, Npad = embing
+            x = self.patch_embed(x, (window, Npad))
+        x = self.layers[0](x, generator, spatial)
+        for layer in self.layers[1:]:
             x = layer(x, generator)
         return layer_norm(x, self.norm.weight, self.norm.bias, self.norm.eps)

@@ -70,6 +70,18 @@ def fold_weights(weight: torch.Tensor, bias: torch.Tensor, D: int,
     return kmat, bias_t
 
 
+def u8_im2col(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
+    """The (kd, kh, kw, c) im2col of a uint8 clip [B, D, H, W, C] for
+    kernel (2, ph, pw), stride (1, ph, pw), with the temporal end pad as a
+    u8 zero frame: [B, D, H/ph, W/pw, 2 * ph * pw * C], still uint8."""
+    B, D, H, W, C = x.shape
+    h2, w2 = H // ph, W // pw
+    xs = x.reshape(B, D, h2, ph, w2, pw, C).permute(0, 1, 2, 4, 3, 5, 6)
+    xs = xs.reshape(B, D, h2, w2, ph * pw * C)
+    xp = torch.cat([xs, xs.new_zeros(B, 1, h2, w2, ph * pw * C)], dim=1)
+    return torch.cat([xp[:, :D], xp[:, 1:D + 1]], dim=-1)
+
+
 def _pe_plain(x, weight, bias, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     """Plain PyTorch version of ``fused_patch_embed_u8``: x uint8
     [B, D, H, W, 3] (H, W multiples of the patch, temporal patch 2),
@@ -77,13 +89,8 @@ def _pe_plain(x, weight, bias, mean=IMAGENET_MEAN, std=IMAGENET_STD):
     [B, D, H/ph, W/pw, E] in the weights' dtype: the (kd, kh, kw, c) im2col
     by reshape / permute / cat, one [*, 96] @ [96, E] product in that dtype,
     the bias table added in f32 (the JAX package's ``_u8_embed``)."""
-    B, D, H, W, C = x.shape
-    _, _, pd, ph, pw = weight.shape
-    h2, w2 = H // ph, W // pw
-    xs = x.reshape(B, D, h2, ph, w2, pw, C).permute(0, 1, 2, 4, 3, 5, 6)
-    xs = xs.reshape(B, D, h2, w2, ph * pw * C)
-    xp = torch.cat([xs, xs.new_zeros(B, 1, h2, w2, ph * pw * C)], dim=1)
-    feat = torch.cat([xp[:, :D], xp[:, 1:D + 1]], dim=-1)
+    D = x.shape[1]
+    feat = u8_im2col(x, *weight.shape[3:])
     kmat, bias_t = fold_weights(weight, bias, D, mean, std)
     dt = weight.dtype
     out = torch.matmul(feat.to(dt), kmat.to(dt)).float()

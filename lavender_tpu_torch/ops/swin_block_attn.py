@@ -33,9 +33,14 @@ Training runs the attention half (no ``mlp``) under autograd: its
 backward (the JAX ``custom_vjp`` ``_wm_bwd`` :1663) recomputes LN1 -> qkv
 -> the window-attention core ``swin_core_attn`` (K8a forward, K8b
 backward) -> proj, with the pad rows passed through as identity
-(``_wm_ref_core`` :1565), and differentiates that.  The whole block under
+(``_wm_ref_core`` :1565), and differentiates that; with ``core_bwd``
+False (the model's ``LVT_COREBWD=0``) it recomputes the plain half on the
+valid rows instead (``_wm_ref_native`` :1525), and K16's backward alike.
+``wm_attn_half_train`` is the same half as a forward under autograd (JAX
+``wm_attn_half_train`` :1747, ``LVT_SWINTRAIN=1``).  The whole block under
 autograd (a model in ``eval()`` mode whose gradients are taken)
-differentiates its plain version.
+differentiates its plain version.  ``wm_shift_roll`` is the shift without
+K2 (``LVT_PSHIFT=0``).
 
 ``fused_swin_block_attn`` and ``fused_swin_block_full`` replace the TPU
 kernel ``_block_kernel`` (K14, :468, host wrapper ``_fused_block_forward``
@@ -143,6 +148,18 @@ def wm_reverse(t: torch.Tensor, window: Sequence[int], D: int, H: int,
     return s.permute(0, 3, 1, 4, 2, 5, 6).reshape(B, D, H, W, C)
 
 
+def wm_shift_roll(t: torch.Tensor, window: Sequence[int], D: int, H: int,
+                  W: int, shift: Sequence[int], inverse: bool = False
+                  ) -> torch.Tensor:
+    """The cyclic shift of window-major t [B, nW, Npad, C] as reverse ->
+    ``torch.roll`` -> partition, plain torch (the JAX ``wm_shift`` without
+    its permutation kernel: ``LVT_PSHIFT=0``).  Pad rows of the result are
+    zero, as ``wm_shift``'s."""
+    sh = tuple(int(s) if inverse else -int(s) for s in shift)
+    xs = torch.roll(wm_reverse(t, window, D, H, W), sh, (1, 2, 3))
+    return wm_partition(xs, window, t.shape[2])
+
+
 def rel_pos_bias_wm(table: torch.Tensor, rel_index: np.ndarray, N: int,
                     Npad: int, dtype: torch.dtype) -> torch.Tensor:
     """Tail-padded rel-pos bias [nH, Npad, Npad] gathered from ``table``
@@ -197,7 +214,8 @@ def _fold_in(ln_w, ln_b, wqkv, bqkv, mlp, folded):
 
 
 def _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
-                 scale, eps, mlp=None, n_valid=None, folded=None):
+                 scale, eps, mlp=None, n_valid=None, folded=None,
+                 core_bwd=True):
     """Plain PyTorch version of ``fused_swin_block_wm``.
 
     x [B, nW, Npad, C]; wqkv [3C, C] and wproj [C, C] in torch Linear
@@ -210,7 +228,9 @@ def _block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
     rows through as identity; here autograd sees the whole slab (the pad
     rows' cotangents are zero either way).  ``folded`` = (wqkv' [3C, C],
     bqkv', w1' [HD, C], b1') replaces the LN affines and the qkv / fc1
-    weights (see the module notes)."""
+    weights (see the module notes).  ``core_bwd`` picks the kernel's
+    backward recompute (see ``_block_attn_recompute``); here autograd
+    differentiates this function either way."""
     ln_w, ln_b, wqkv, bqkv, mlp = _fold_in(ln_w, ln_b, wqkv, bqkv, mlp,
                                            folded)
     B, nW, Npad, C = x.shape
@@ -245,28 +265,57 @@ def _block_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
 
 
 def _block_attn_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
-                          mask, nH, scale, eps, N):
+                          mask, nH, scale, eps, N, core=swin_core_attn):
     """The attention half x + proj(attn(LN1(x))) as the backward recomputes
-    it: the core through ``swin_core_attn`` (K8 on the card), the pad rows
-    (>= N) passed through as identity (JAX ``_wm_ref_core``)."""
+    it, the pad rows (>= N) passed through as identity: the core through
+    ``core`` (``swin_core_attn``, K8 on the card; JAX ``_wm_ref_core``) or,
+    with ``core=None``, the whole half as plain torch on the N valid rows
+    (JAX ``_wm_ref_native``, the backward under ``LVT_COREBWD=0``)."""
     B, nW, Npad, C = x.shape
+    if core is None:
+        y = _block_plain(x[:, :, :N], ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                         bias[:, :N, :N],
+                         None if mask is None else mask[:, :N, :N], nH,
+                         scale, eps)
+        return torch.cat([y, x[:, :, N:]], dim=2) if Npad > N else y
     qkv = F.linear(layer_norm(x, ln_w, ln_b, eps), wqkv, bqkv)
-    o = swin_core_attn(qkv, bias, mask, nH, scale)
+    o = core(qkv, bias, mask, nH, scale)
     y = x[:, :, :N] + F.linear(o[:, :, :N], wproj, bproj)
     return torch.cat([y, x[:, :, N:]], dim=2) if Npad > N else y
 
 
+def wm_attn_half_train(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
+                       nH, scale, eps, N, core_bwd: bool = True):
+    """The train-mode attention half as a composition under autograd (JAX
+    ``wm_attn_half_train``, ``LVT_SWINTRAIN=1``): LN1 + qkv in torch, the
+    core ``swin_core_attn`` (K8a forward, K8b backward; its plain version
+    inside ``plain_path()``), proj in torch, pad rows as identity; with
+    ``core_bwd`` False (``LVT_COREBWD=0``) all of it plain torch on the
+    valid rows.  Autograd keeps the intermediates instead of recomputing
+    the block."""
+    core = _build.select(swin_core_attn) if core_bwd else None
+    return _block_attn_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                 bias, mask, nH, scale, eps, N, core)
+
+
+def _recompute_core(core_bwd: bool):
+    """The core the kernels' backward recomputes through: K8 (the JAX
+    default ``LVT_COREBWD=1``) or none, plain torch (``LVT_COREBWD=0``)."""
+    return swin_core_attn if core_bwd else None
+
+
 class _BlockAttnFn(torch.autograd.Function):
     """K1's attention half under autograd: the kernel forward, and a
-    backward that recomputes through K8 (see the module notes)."""
+    backward that recomputes through K8, or plain under ``core_bwd=False``
+    (see the module notes)."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
     def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
-                scale, eps, N):
+                scale, eps, N, core_bwd=True):
         ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
                               mask)
-        ctx.args = (nH, scale, eps, N)
+        ctx.args = (nH, scale, eps, N, _recompute_core(core_bwd))
         return _block_cuda(x.contiguous(), ln_w, ln_b, wqkv, bqkv, wproj,
                            bproj, bias.contiguous(), mask, nH, scale, eps)
 
@@ -278,7 +327,7 @@ class _BlockAttnFn(torch.autograd.Function):
             inputs = [t.detach().requires_grad_(True) for t in inputs]
             y = _block_attn_recompute(*inputs, mask, *ctx.args)
             grads = torch.autograd.grad(y, inputs, g)
-        return (*grads, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None)
 
 
 def _block_full_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
@@ -295,7 +344,8 @@ def _block_full_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
 
 
 def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
-                  scale, eps, mlp=None, n_valid=None, folded=None):
+                  scale, eps, mlp=None, n_valid=None, folded=None,
+                  core_bwd=True):
     """The kernel; under autograd ``_BlockAttnFn`` (the attention half), or
     with ``mlp`` the whole block in ``RecomputeVjp`` (the JAX custom_vjp
     ``_wm_full_bwd`` :1712 differentiates its reference).  ``folded`` is
@@ -318,7 +368,8 @@ def _block_launch(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
             _block_full_cuda, _block_full_plain, x, ln_w, ln_b, wqkv, bqkv,
             wproj, bproj, bias, mask, *mlp, nH, scale, eps)
     return _BlockAttnFn.apply(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
-                              mask, nH, scale, eps, n_valid or x.shape[2])
+                              mask, nH, scale, eps, n_valid or x.shape[2],
+                              core_bwd)
 
 
 fused_swin_block_wm = _build.KernelOp(
@@ -350,12 +401,13 @@ def supports_inkernel_shift(window, spatial, Npad: int, C: int, nH: int,
 
 
 def _shifted_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
-                   spatial, window, shift, nH, scale, eps):
+                   spatial, window, shift, nH, scale, eps, core_bwd=True):
     """Plain PyTorch version of ``fused_swin_block_wm_shifted`` (JAX
     ``_wm_shifted_ref``): the shift, ``fused_swin_block_wm``'s plain
     attention half, the inverse shift, on x [B, nW, Npad, C] unshifted
     window-major; bias [nH, Npad, Npad]; mask [nW, Npad, Npad] the padded
-    shift mask.  The output's pad rows are zero (the inverse shift's)."""
+    shift mask.  The output's pad rows are zero (the inverse shift's).
+    ``core_bwd``: as ``fused_swin_block_wm``'s (the kernel's backward)."""
     D, H, W = spatial
     fwd, inv = shift_indices(window, D, H, W, x.shape[2], shift, x.device)
     xs = _permute_plain(x, fwd, inv)
@@ -401,14 +453,16 @@ def _shifted_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
 
 
 def _shifted_recompute(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
-                       spatial, window, shift, nH, scale, eps):
+                       spatial, window, shift, nH, scale, eps,
+                       core=swin_core_attn):
     """K16 as its backward recomputes it: ``wm_shift_rows`` (K2) ->
-    ``_block_attn_recompute`` (the core through K8) -> the inverse shift."""
+    ``_block_attn_recompute`` (the core through ``core``, K8; None: plain)
+    -> the inverse shift."""
     D, H, W = spatial
     fwd, inv = shift_indices(window, D, H, W, x.shape[2], shift, x.device)
     ys = _block_attn_recompute(wm_shift_rows(x, fwd, inv), ln_w, ln_b, wqkv,
                                bqkv, wproj, bproj, bias, mask, nH, scale, eps,
-                               int(np.prod(window)))
+                               int(np.prod(window)), core)
     return wm_shift_rows(ys, inv, fwd)
 
 
@@ -420,10 +474,11 @@ class _BlockShiftFn(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
     def forward(ctx, x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, mask,
-                spatial, window, shift, nH, scale, eps):
+                spatial, window, shift, nH, scale, eps, core_bwd=True):
         ctx.save_for_backward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
                               mask)
-        ctx.args = (spatial, window, shift, nH, scale, eps)
+        ctx.args = (spatial, window, shift, nH, scale, eps,
+                    _recompute_core(core_bwd))
         return _shifted_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias,
                              mask, spatial, window, shift, nH, scale, eps)
 
@@ -435,14 +490,14 @@ class _BlockShiftFn(torch.autograd.Function):
             inputs = [t.detach().requires_grad_(True) for t in inputs]
             y = _shifted_recompute(*inputs, mask, *ctx.args)
             grads = torch.autograd.grad(y, inputs, g)
-        return (*grads, None, None, None, None, None, None, None)
+        return (*grads, None, None, None, None, None, None, None, None)
 
 
-def _shifted_launch(x, *args):
+def _shifted_launch(x, *args, core_bwd=True):
     """The kernel; ``_BlockShiftFn`` when autograd records the call."""
     if not _build.needs_grad(x, *args):
         return _shifted_cuda(*_build.autocast_inputs(x, *args))
-    return _BlockShiftFn.apply(x, *args)
+    return _BlockShiftFn.apply(x, *args, core_bwd)
 
 
 fused_swin_block_wm_shifted = _build.KernelOp(

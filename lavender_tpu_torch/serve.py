@@ -64,13 +64,15 @@ class LavenderServer:
     @torch.inference_mode()
     def __call__(self, img_u8, txt, mask,
                  attn_mask_type: str = "full") -> torch.Tensor:
-        """img_u8 uint8 [B, T, H, W, 3]; txt int [B, Lt]; mask [B, Lt]
+        """img_u8 uint8 [B, T, H, W, 3] (or float frames already
+        normalized, e.g. by ``data.transforms.device_normalize``, which the
+        patch embed's general path takes); txt int [B, Lt]; mask [B, Lt]
         (1 = token, 0 = padding); ``attn_mask_type`` "full" or "seq2seq".
         Arrays or tensors; returns logits [B, Lt, vocab] on the server's
         device, in its dtype."""
         img = torch.as_tensor(img_u8, device=self.device)
-        if img.dtype != torch.uint8:
-            raise ValueError(f"clips must be uint8, got {img.dtype}")
+        if not (img.dtype == torch.uint8 or img.is_floating_point()):
+            raise ValueError(f"clips must be uint8 or float, got {img.dtype}")
         txt = torch.as_tensor(txt, device=self.device).long()
         mask = torch.as_tensor(mask, device=self.device).long()
         return self.model(img, txt, mask, attn_mask_type)

@@ -214,13 +214,39 @@ nothing is ever run on the CPU instead:
    state + 1 step (torch's deterministic algorithms on): loss, every
    parameter, the AdamW moments, LR, step and generator state bitwise
    equal where the two straight runs are, else within their largest
-   difference.
+   difference;
+11. the data plane and the full-corpus retrieval eval (``run_data``) on
+   the fixture corpus of ``tests/data/make_clip_tsv.py`` (8 videos of
+   6-12 JPEG frames at 320 x 240, 16 captions a split): (a) the clip
+   decode path and the host's JPEG decoder the port picked, with the
+   native library's build time where it builds; every frame decoded
+   against the generator's frames (numpy alone): each frame's mean
+   |diff| <= 3 levels, max <= 48; the native path bitwise equal to the
+   Python path where both exist; (b) ``full_retrieval_eval``'s two
+   phases on a seeded Swin-B + BERT-base server model (bf16, serving
+   caches), multi-clip (2 clips of 5 x 224 x 224), pair_batch 64, against
+   the same model under ``plain_path()``: the [MASK] logits at the
+   "true" / "false" ids within the logits gate, the scores where |p_true
+   + p_false| >= 1 within the gate carried through the ratio, R@1/5/10
+   and MedR equal unless each ranking flip lies within the gate (such
+   flips printed); launches (K1 24x, K2 22x, K3 2x a Swin pass; K4 and K5
+   12x a cross chunk); host decode clips/s with 1 and 4 workers,
+   feat-phase ms a clip (events and device busy), cross-phase pairs/s;
+   (c) the train split -> ``DataLoader`` (B=8, shuffle, 4 workers,
+   pinned) -> ``device_prefetch`` -> 3 retrieval-MLM steps on
+   ModelConfig(): each device batch bitwise equal to its host batch,
+   finite losses, phase 5 (b)'s launches a step; then, on epochs of 2
+   batches (the split) and of 16 (its items repeated 8 times), windows of
+   16 steps fed by the loader (with the time spent waiting for the first
+   batch and the mean wait for each later one) and on batches already
+   on the card, in turns, and the loader's ms a batch alone.
 
 Every time is the median of five CUDA-event windows of five calls.
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
-phase-6, phase-7, phase-8, phase-9 and phase-10 runs, K12's in 5 (e),
-each phase's also apart (``launches_swinbert`` phase 10's); its largest
+phase-6, phase-7, phase-8, phase-9, phase-10 and phase-11 runs, K12's in
+5 (e), each phase's also apart (``launches_swinbert`` phase 10's,
+``launches_data`` phase 11's (b) and (c)); its largest
 error in phase 3;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
 call x its calls in one serving forward plus one train step plus one
@@ -3928,11 +3954,330 @@ def run_swinbert(ops):
     return total
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
-                         "this check runs only on a CUDA GPU")
-    from lavender_tpu_torch.ops import _build
+# phase 11: the fixture corpus of tests/data/make_clip_tsv.py (8 videos of
+# 6-12 JPEG frames at 320 x 240, 16 captions a split); the eval's
+# multi-clip sampling keeps 2 clips of 5 frames a video
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+DATA_DIR = os.path.join(REPO_DIR, "tests", "data")
+EVAL_CLIPS, EVAL_BATCH, PAIR_BATCH, DATA_STEPS = 2, 8, 64, 3
+DATA_TIMED, DATA_EPOCH_REPS = 16, 8  # phase 11 (c)'s timed windows
+# the decoded frames against the generator's: JPEG at quality 95
+DECODE_MEAN_MAX, DECODE_MAX = 3.0, 48
+
+
+def _fixture_module():
+    """tests/data/make_clip_tsv.py, loaded by path (its frames come from
+    numpy alone)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "make_clip_tsv", os.path.join(DATA_DIR, "make_clip_tsv.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _score_tol(logits, gate):
+    """Per pair, the most the score p_t / (p_t + p_f) can move when each
+    logit moves by at most ``gate``; inf where the denominator is within
+    2 gates of 0."""
+    den = np.abs(logits.sum(-1))
+    s = np.abs(logits[:, 0] / np.where(den > 0, logits.sum(-1), 1.0))
+    room = den - 2 * gate
+    return np.where(room > 0, gate * (1 + 2 * s) / np.maximum(room, 1e-30),
+                    np.inf)
+
+
+def _rank_flips(k, p, gt, tol):
+    """The (text, video) pairs whose order against the text's true video
+    differs between the kernel scores ``k`` and the plain ``p`` [n_t, n_v],
+    with the plain gap and the gate on it (``tol`` [n_t, n_v])."""
+    flips = []
+    for t in range(k.shape[0]):
+        g = gt[t]
+        for v in range(k.shape[1]):
+            if v != g and (k[t, v] > k[t, g]) != (p[t, v] > p[t, g]):
+                flips.append((t, v, float(p[t, g] - p[t, v]),
+                              float(tol[t, g] + tol[t, v])))
+    return flips
+
+
+def run_data(ops):
+    """Phase 11: the data plane and the full-corpus retrieval eval on the
+    fixture corpus.  (a) the clip decode path and the host's JPEG decoder
+    the port picked (and the native library's build time where it builds),
+    every frame decoded against the generator's raw frames, the native
+    path bitwise against the Python path where both exist; (b)
+    ``full_retrieval_eval``'s two phases on Swin-B + BERT-base (seeded,
+    bf16, serving caches), 8 videos x 16 captions, multi-clip (2 clips of 5
+    x 224 x 224), pair_batch 64: kernels vs plain path on the [MASK]
+    logits at the "true" / "false" ids and on the scores where |p_true +
+    p_false| >= 1, R@1/5/10 and MedR equal unless a ranking flip lies
+    within the gate, launches per Swin pass and per cross chunk; host
+    decode clips/s (1 and 4 workers), feat-phase device ms a clip,
+    cross-phase pairs/s; (c) the train split -> DataLoader (B=8, shuffle,
+    4 workers, pinned) -> device_prefetch -> 3 retrieval-MLM steps on
+    ModelConfig(): each device batch bitwise its host batch, finite
+    losses, phase 5 (b)'s launches per step; the step time fed by the
+    loader beside the step time on batches already on the card, in turns.
+    Returns the launches of (b) and (c)."""
+    from lavender_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from lavender_tpu_torch.data import dataset as ds
+    from lavender_tpu_torch.data import native
+    from lavender_tpu_torch.data import transforms as TF
+    from lavender_tpu_torch.data.loader import (DataLoader,
+                                                IterationBasedBatchIter,
+                                                device_prefetch)
+    from lavender_tpu_torch.data.tokenizer import BertTokenizer
+    from lavender_tpu_torch.data.tsv import TSVFile
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.tasks import common, retrieval
+    from lavender_tpu_torch.tasks import eval_retrieval as ER
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    import base64
+    import io
+
+    fx = _fixture_module()
+    cfg = DataConfig(data_dir=DATA_DIR, dataset="fixture", task="retrieval")
+    tok = BertTokenizer(os.path.join(REPO_DIR, "assets", "vocab_30k.txt"))
+    sets = ds.load_task_data(cfg, ER.RetrievalEvalDataset, tok,
+                             multi_clip=True, max_clips=EVAL_CLIPS)
+    ev = sets["val"]
+    total = {op: 0 for op in ops.values()}
+
+    # (a) the decode
+    path, why = ds.decode_path(cfg)
+    print(f"[data] (a) clip decode: {path} ({why}); the host path's JPEG "
+          f"decoder: {TF.decoder()}", flush=True)
+    tsv = TSVFile(os.path.join(DATA_DIR, "img_fixture.tsv"))
+    worst_mean, worst, n_frames, same = 0.0, 0, 0, 0
+    try:
+        from PIL import Image
+    except ImportError as e:
+        Image = None
+        print(f"[data] (a) PIL does not import ({e})", flush=True)
+    for v in range(fx.N_VIDEOS):
+        for f, b64 in enumerate(tsv[v][2:]):
+            img = TF.str2img(b64)
+            d = np.abs(img.astype(np.int16) - fx.draw_frame(v, f))
+            worst_mean = max(worst_mean, float(d.mean()))
+            worst = max(worst, int(d.max()))
+            n_frames += 1
+            if Image is not None:
+                pil = np.asarray(Image.open(io.BytesIO(
+                    base64.b64decode(b64))).convert("RGB"))
+                same += int(np.array_equal(pil, img))
+    print(f"[data] (a) {n_frames} frames decoded against the generator's: "
+          f"worst frame mean |diff| {worst_mean:.3f} (<= {DECODE_MEAN_MAX}), "
+          f"max {worst} (<= {DECODE_MAX}); {TF.decoder()} and PIL bitwise "
+          f"equal on {same} of {n_frames}", flush=True)
+    if worst_mean > DECODE_MEAN_MAX or worst > DECODE_MAX:
+        raise AssertionError("the decoded frames are not the fixture's")
+    if path == "native":
+        t0 = time.perf_counter()
+        native.build()
+        print(f"[data] (a) native library {native.library_path().name}: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        nt = native.NativeTSV(os.path.join(DATA_DIR, "img_fixture.tsv"))
+        for v in range(fx.N_VIDEOS):
+            row = tsv[v]
+            got = nt.decode_clip(ev.id2lineidx[fx.video_id(v)],
+                                 list(range(2, len(row))), cfg.size_img)
+            want = TF.transform_clip([TF.str2img(b) for b in row[2:]],
+                                     cfg.size_img, "img_center_crop", False)
+            if not np.array_equal(got, want):
+                raise AssertionError(f"native != Python path on video {v}")
+        print("[data] (a) native path bitwise equal to the Python path",
+              flush=True)
+    else:
+        print(f"[data] (a) no native path here: {native.unavailable()}",
+              flush=True)
+
+    # (b) the eval, kernels vs plain
+    server = build_server()
+    model = server.model
+    mcfg = server.config
+    n_t = len(ev)
+    n_pairs = n_t * len(set(ev.gt_txt2vid.values()))
+    n_pass = -(-n_t // EVAL_BATCH)
+    n_chunk = -(-n_pairs // PAIR_BATCH)
+    layers = mcfg.bert.num_hidden_layers
+    expected = {op: n * n_pass for op, n in _video_counts(ops, mcfg).items()}
+    expected[ops["K4"]] = layers * n_chunk
+    expected[ops["K5"]] = layers * n_chunk
+    _reset(ops.values())
+    fv, ft = ER.feat_phase(model, ev, EVAL_BATCH)
+    out_k = ER.cross_phase(model, ev, fv, ft, PAIR_BATCH)
+    counts = _check_counts(ops.values(), expected, 1, "data")
+    for op, n in counts.items():
+        total[op] += n
+    with plain_path():
+        fv_p, ft_p = ER.feat_phase(model, ev, EVAL_BATCH)
+        out_p = ER.cross_phase(model, ev, fv_p, ft_p, PAIR_BATCH)
+    lk, lp = out_k["logits"], out_p["logits"]
+    err, rel, ok = _compare(torch.from_numpy(lk), torch.from_numpy(lp),
+                            SLICE_TOL, SLICE_REL_L2)
+    gate = SLICE_TOL * max(1.0, float(np.abs(lp).max()))
+    print(f"[data] (b) eval: {n_t} captions x {n_pairs // n_t} videos, "
+          f"{EVAL_CLIPS} clips of {ev.size_frame} x {cfg.size_img} x "
+          f"{cfg.size_img}; {n_pass} Swin passes, {n_chunk} cross chunks; "
+          f"[MASK] logits at true/false kernels vs plain: max|diff| {err:.4g}"
+          f" (<= {gate:.4g}), rel_l2 {rel:.4g} (<= {SLICE_REL_L2})",
+          flush=True)
+    if not ok:
+        raise AssertionError("eval logits: kernels vs plain disagree")
+    sk, sp = out_k["score"], out_p["score"]
+    rows, cols = out_p["t_rows"], out_p["v_cols"]
+    big = np.abs(lp.sum(-1)) >= 1.0
+    tol_pair = _score_tol(lp, gate)
+    ds_err = np.abs(sk[rows, cols] - sp[rows, cols])
+    print(f"[data] (b) scores on the {int(big.sum())} of {n_pairs} pairs "
+          f"with |p_true + p_false| >= 1: max|diff| "
+          f"{float(ds_err[big].max()) if big.any() else 0.0:.4g}, within "
+          f"each pair's gate: {bool((ds_err[big] <= tol_pair[big]).all())}",
+          flush=True)
+    if not (ds_err[big] <= tol_pair[big]).all():
+        raise AssertionError("eval scores: kernels vs plain disagree")
+    mk = retrieval.recall_at_k(sk, out_k["gt"])
+    mp = retrieval.recall_at_k(sp, out_p["gt"])
+    print(f"[data] (b) kernels {mk} | plain {mp}", flush=True)
+    if mk != mp:
+        tol = np.full(sp.shape, np.inf)
+        tol[rows, cols] = tol_pair
+        flips = _rank_flips(sk, sp, out_p["gt"], tol)
+        for t, v, gap, g in flips:
+            print(f"[data] (b) text {t} video {v}: plain gap {gap:.4g}, "
+                  f"gate {g:.4g}", flush=True)
+        if any(abs(gap) > g for _, _, gap, g in flips):
+            raise AssertionError("eval recall differs beyond the gate")
+    # times: host decode, feat-phase device time, cross-phase pairs/s
+    for workers in (1, 4):
+        dl = DataLoader(ev, EVAL_BATCH, num_workers=workers)
+        t0 = time.perf_counter()
+        n = sum(b["img"].shape[0] * b["img"].shape[1] for b in dl)
+        print(f"[data] (b) host decode, {workers} worker(s): "
+              f"{n / (time.perf_counter() - t0):.1f} clips/s ({n} clips of "
+              f"{ev.size_frame} frames)", flush=True)
+    dtype = next(model.parameters()).dtype
+    staged = [(TF.device_normalize(torch.as_tensor(b["img"], device="cuda"),
+                                   dtype),
+               torch.as_tensor(b["txt"], device="cuda").long(),
+               torch.as_tensor(b["mask"], device="cuda").long())
+              for b in DataLoader(ev, EVAL_BATCH, num_workers=4)]
+    n_clips = sum(b[0].shape[0] * b[0].shape[1] for b in staged)
+    feat_fn = ER.make_feat_fn(model)
+
+    def feat_pass():
+        for img, txt, mask in staged:
+            feat_fn(img, txt, mask)
+    with common.evaluating(model):
+        ev_ms = _time_ms(feat_pass, iters=1, windows=3)
+        host_ms, busy_ms, _ = _device_profile(feat_pass)
+    busy = "not measured" if busy_ms is None else f"{busy_ms / n_clips:.3f}"
+    cross_ms = _ms(lambda: ER.cross_phase(model, ev, fv, ft, PAIR_BATCH), 3)
+    print(f"[data] (b) feat phase: {ev_ms / n_clips:.3f} ms a clip "
+          f"(events), device busy {busy} ms a clip ({n_clips} clips); cross "
+          f"phase: {n_pairs / cross_ms * 1e3:.1f} pairs/s ({cross_ms:.1f} ms "
+          f"for {n_pairs} pairs) ({_nvidia_smi()})", flush=True)
+    del server, model, fv, ft, fv_p, ft_p, staged
+    torch.cuda.empty_cache()
+
+    # (c) loader-fed train steps
+    train = ds.load_task_data(cfg, retrieval.RetrievalDataset, tok)["train"]
+    loader = DataLoader(train, TRAIN_BATCH, shuffle=True, num_workers=4,
+                        pin_memory=True)
+    tcfg = ModelConfig()
+    state = create_train_state(tcfg, TrainConfig(max_iter=1000,
+                                                 max_grad_norm=1.0), seed=0)
+    step = make_train_step(retrieval.make_loss_fn(train.true_token_id,
+                                                  train.false_token_id),
+                           state)
+    depth, n_shift = sum(tcfg.swin.depths), _shifted_blocks(tcfg.swin)
+    per_step = {ops["K1"]: depth, ops["K2"]: 4 * n_shift,
+                ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth,
+                ops["K10a"]: layers, ops["K10b"]: layers,
+                ops["K11"]: layers}
+    host = []
+
+    def kept(batches):
+        for b in batches:
+            host.append({k: torch.as_tensor(v).clone() for k, v in b.items()})
+            yield b
+    dev, losses = [], []
+    _reset(ops.values())
+    for b in device_prefetch(kept(IterationBasedBatchIter(loader,
+                                                          DATA_STEPS))):
+        dev.append(b)
+        losses.append(step(b))
+    counts = _check_counts(ops.values(), per_step, DATA_STEPS, "data")
+    for op, n in counts.items():
+        total[op] += n
+    same = all(torch.equal(d[k].cpu(), h[k]) for d, h in zip(dev, host)
+               for k in h)
+    losses = [float(v) for v in losses]
+    print(f"[data] (c) {len(dev)} loader-fed steps (B={TRAIN_BATCH}, pinned, "
+          f"4 workers): losses {' '.join(f'{v:.4f}' for v in losses)}; "
+          f"device batches bitwise their host batches: {same}", flush=True)
+    if not (same and len(dev) == DATA_STEPS
+            and all(np.isfinite(v) for v in losses)):
+        raise AssertionError("loader-fed steps: batches or losses wrong")
+
+    def fed(n):
+        """(ms a step, ms waiting for the first batch, mean ms waiting for
+        each later one) over ``n`` loader-fed steps."""
+        it = device_prefetch(IterationBasedBatchIter(loader, n))
+        waits = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            tw = time.perf_counter()
+            b = next(it, None)
+            if b is None:
+                break
+            waits.append((time.perf_counter() - tw) * 1e3)
+            step(b)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3 / n, waits[0],
+                statistics.mean(waits[1:]))
+
+    def prestaged(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            step(dev[i % len(dev)])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n, 0.0, 0.0
+    items = train.txt
+    for reps in (1, DATA_EPOCH_REPS):
+        # epochs of 2 batches (the split) and of 16 (its items repeated)
+        train.txt = items * reps
+        loader = DataLoader(train, TRAIN_BATCH, shuffle=True, num_workers=4,
+                            pin_memory=True)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in IterationBasedBatchIter(loader,
+                                                           DATA_TIMED))
+        alone = (time.perf_counter() - t0) * 1e3 / n_batches
+        times = {"loader": [], "staged": []}
+        for label, fn in (("loader", fed), ("staged", prestaged),
+                          ("staged", prestaged), ("loader", fed)):
+            times[label].append(fn(DATA_TIMED))
+
+        def fmt(i, k):
+            return " ".join(f"{t[i]:.1f}" for t in times[k])
+        print(f"[data] (c) epochs of {len(loader)} batches, {DATA_TIMED} "
+              f"steps a window: ms a step fed by the loader {fmt(0, 'loader')}"
+              f" (waiting for the first batch {fmt(1, 'loader')}, for each "
+              f"later one, mean, {fmt(2, 'loader')}); on batches already "
+              f"on the card {fmt(0, 'staged')} (in turns); the loader alone "
+              f"{alone:.1f} ms a batch ({_nvidia_smi()})", flush=True)
+    train.txt = items
+    return total
+
+
+def kernel_ops():
+    """Each ported kernel's wrapper by its id (K1 .. K17)."""
     from lavender_tpu_torch.ops.encoder_attention import (
         encoder_attention_train_bwd, encoder_attention_train_lanes_bwd,
         fused_bert_attn_block, fused_bert_attn_block_kmask,
@@ -3950,6 +4295,27 @@ def main() -> int:
     from lavender_tpu_torch.ops.window_attention import fused_window_attention
     from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
 
+    return {"K1": fused_swin_block_wm, "K2": wm_shift_rows,
+            "K3": fused_ln_mlp_chunked, "K4": fused_bert_attn_block_kmask,
+            "K5": fused_ffn_post_ln, "K6": fused_bert_attn_block,
+            "K7": fused_encoder_attention, "K8a": swin_core_attn,
+            "K8b": swin_core_attn_bwd, "K9": fused_ln_mlp,
+            "K10a": fused_encoder_attention_train_lanes,
+            "K10b": encoder_attention_train_lanes_bwd,
+            "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train,
+            "K13a": fused_encoder_attention_train,
+            "K13b": encoder_attention_train_bwd,
+            "K14a": fused_swin_block_attn, "K14f": fused_swin_block_full,
+            "K15": fused_window_attention,
+            "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
+                         "this check runs only on a CUDA GPU")
+    from lavender_tpu_torch.ops import _build
+
     print(_nvidia_smi(), flush=True)  # the card's name and power limit
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)}", flush=True)
@@ -3961,19 +4327,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s ("
           f"{'found in build/' if prebuilt else 'nvcc'})", flush=True)
 
-    ops = {"K1": fused_swin_block_wm, "K2": wm_shift_rows,
-           "K3": fused_ln_mlp_chunked, "K4": fused_bert_attn_block_kmask,
-           "K5": fused_ffn_post_ln, "K6": fused_bert_attn_block,
-           "K7": fused_encoder_attention, "K8a": swin_core_attn,
-           "K8b": swin_core_attn_bwd, "K9": fused_ln_mlp,
-           "K10a": fused_encoder_attention_train_lanes,
-           "K10b": encoder_attention_train_lanes_bwd,
-           "K11": fused_out_ln_train, "K12": fused_ffn_post_ln_train,
-           "K13a": fused_encoder_attention_train,
-           "K13b": encoder_attention_train_bwd,
-           "K14a": fused_swin_block_attn, "K14f": fused_swin_block_full,
-           "K15": fused_window_attention,
-           "K16": fused_swin_block_wm_shifted, "K17": fused_patch_embed_u8}
+    ops = kernel_ops()
     if sys.argv[1:2] == ["--only"]:  # phase 3 for these kernels alone
         only = set(sys.argv[2:]) - {"--cases"}  # K14a / K14f: "K14" cases
         check_kernels(only | {ops[k].name.split()[0] for k in only
@@ -3997,6 +4351,8 @@ def main() -> int:
     task_counts = run_tasks(ops)
     torch.cuda.empty_cache()
     swinbert_counts = run_swinbert(ops)
+    torch.cuda.empty_cache()
+    data_counts = run_data(ops)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/gemm_tc.cu",
@@ -4052,7 +4408,7 @@ def main() -> int:
             "launches": (serve_counts[op] + train_counts[op]
                          + caption_counts[op] + spatial_counts[op]
                          + route_counts[op] + task_counts[op]
-                         + swinbert_counts[op]),
+                         + swinbert_counts[op] + data_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
@@ -4060,6 +4416,7 @@ def main() -> int:
             "launches_routes": route_counts[op],
             "launches_tasks": task_counts[op],
             "launches_swinbert": swinbert_counts[op],
+            "launches_data": data_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

@@ -3,7 +3,7 @@ ImageNet normalize constants.
 
 The port's own copy of ``lavender_tpu/config.py`` (``SwinConfig``,
 ``BertConfig``, ``ModelConfig``, ``SWIN_PRESETS``, ``TrainConfig``,
-``TASK_TOK2ID``) and of ``IMAGENET_MEAN/STD`` from
+``TASK_TOK2ID``, ``DataConfig``) and of ``IMAGENET_MEAN/STD`` from
 ``lavender_tpu/data/transforms.py``: the port
 imports nothing of the JAX package.  Field names and defaults are the
 same, so a JAX config converts with ``dataclasses.asdict`` and a test
@@ -133,3 +133,22 @@ class TrainConfig:
     p_mask: float = 0.15
     label_smoothing: float = 0.1
     max_iter: int = 0
+
+
+@dataclass
+class DataConfig:
+    """Data pipeline config (reference: dataset.py / utils/args.py)."""
+
+    data_dir: str = "./_datasets"
+    dataset: str = ""
+    task: str = ""
+    size_img: int = 224
+    size_frame: int = 5
+    size_txt: int = 25
+    size_option: int = 5
+    size_vocab: int = -1
+    img_transform: Tuple[str, ...] = ("img_center_crop",)
+    mask_pos: str = "append"
+    data_ratio: float = 1.0
+    n_workers: int = 4
+    vocab_path: str = ""  # WordPiece vocab.txt

@@ -662,7 +662,7 @@ class BasicLayer(nn.Module):
         fingerprints and the record of their sources.  The cache is a
         function of the weights (see ``refresh_serving_cache``)."""
         p = self.blocks[0].attn.relative_position_bias_table
-        self._cache = {}
+        self._cache = {}  # a build that raises leaves no cache
         key = (D, H, W, p.device, p.dtype)
         fold = False
         # outside inference mode (the server may rebuild inside it), and
@@ -673,14 +673,15 @@ class BasicLayer(nn.Module):
                 *geo, _ = self._geometry(D, H, W, p.device, p.dtype)
                 folds = [blk.fold(p.dtype) if fold else None
                          for blk in self.blocks]
-                self._cache[key] = (*geo, folds)
+                cache = (*geo, folds)
             else:
                 geo = self._spatial_geometry(D, H, W, p.device, p.dtype)
-                self._cache[key] = self._spatial_biases(geo, p.dtype)
-            self._cache_size, self._cache_fold = (D, H, W), fold
-            self._cache_sources = self._sources(fold)
+                cache = self._spatial_biases(geo, p.dtype)
             self._cache_fp = self.fingerprint(fold)
+        self._cache_size, self._cache_fold = (D, H, W), fold
+        self._cache_sources = self._sources(fold)
         self._cache_record = _record(self._cache_sources)
+        self._cache = {key: cache}
 
     def _sources(self, fold: bool) -> List[torch.Tensor]:
         """The parameters the cache is computed from."""
@@ -693,9 +694,12 @@ class BasicLayer(nn.Module):
         """f32 staleness fingerprint of the cache's sources on the device:
         ``bias_fingerprint`` of the (no-shift, shift) sides' tables, then
         with ``fold`` ``fold_fingerprint`` of the blocks."""
-        ta = [blk.attn.relative_position_bias_table for blk in self.blocks[0::2]]
-        tb = [blk.attn.relative_position_bias_table for blk in self.blocks[1::2]]
-        fp = bias_fingerprint(torch.stack(ta), torch.stack(tb))
+        p = self.blocks[0].attn.relative_position_bias_table
+        ta, tb = ([blk.attn.relative_position_bias_table for blk in side]
+                  for side in (self.blocks[0::2], self.blocks[1::2]))
+        # a stage of one block has no shift side: its sums are 0
+        fp = bias_fingerprint(torch.stack(ta), torch.stack(tb) if tb
+                              else p.new_zeros(0))
         if fold:
             fp = torch.cat([fp, fold_fingerprint(self.blocks)])
         return fp

@@ -15,12 +15,73 @@ mask [B, Lt], ans_mtm [B, Lt] (-1 = not a target) and optionally vt_mask
 [B, T, 1]."""
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import logging
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from lavender_tpu_torch.config import DataConfig
+from lavender_tpu_torch.data.dataset import VideoTextDataset
+from lavender_tpu_torch.data.tsv import TSVFile
 from lavender_tpu_torch.tasks import common
+
+log = logging.getLogger(__name__)
+
+IMAGE_DATASETS = ("cc3m", "coco", "vg", "cc12m")
+
+
+class PretrainDataset(VideoTextDataset):
+    """One shard (part) of a pretraining corpus.
+
+    The reference hardcodes per-corpus path patterns
+    (main_pretrain_task_specific.py:29-71); here a shard is just
+    (tsv_path, txt dict video->list[caption]).  Image corpora use 1 frame.
+    """
+
+    def __init__(self, cfg: DataConfig, tokzr, split: str, tsv_path: str,
+                 txt: Dict[str, List[str]], dataset_name: str = "",
+                 mlm: bool = True, meta_cols: int = 2):
+        size_frame = 1 if dataset_name in IMAGE_DATASETS else cfg.size_frame
+        super().__init__(cfg, tokzr, split, size_frame)
+        self.tsv = TSVFile(tsv_path)
+        self.txt = txt
+        self.mlm = mlm
+        self.meta_cols = meta_cols  # frames start at this column
+
+    def __len__(self):
+        return len(self.tsv)
+
+    @property
+    def vtm_prompt_text(self):
+        return "is the video-text paired, true or false?"
+
+    @property
+    def cap_prompt_text(self):
+        return "write a description about the video."
+
+    def str2txt(self, s):
+        txt, mask = super().str2txt(s)
+        if self.mlm:
+            txt, mask = self.append_mask_tok2txt(txt, mask)
+        return txt, mask
+
+    def __getitem__(self, idx):
+        row = self.tsv.seek(idx)
+        vid, bufs = row[0], row[self.meta_cols:]
+        raw_txt = ""
+        if vid in self.txt:
+            entry = self.txt[vid]
+            raw_txt = entry[0] if isinstance(entry, (list, tuple)) else entry
+        try:
+            img = self.frames_from_b64(bufs)
+        except Exception as e:  # an undecodable row trains on zero frames
+            log.warning("PretrainDataset row %d (%s): zero frames (%s)",
+                        idx, vid, e)
+            S = self.cfg.size_img
+            img = np.zeros((self.size_frame, S, S, 3), np.uint8)
+        txt, mask = self.str2txt(raw_txt)
+        return {"img": self.pad_frames(img), "txt": txt, "mask": mask}
 
 
 def mask_tokens(txt: np.ndarray, special_ids: Sequence[int],

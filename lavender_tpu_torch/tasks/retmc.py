@@ -10,9 +10,63 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
+from lavender_tpu_torch.data.dataset import TsvTaskDataset
 from lavender_tpu_torch.tasks import common
+
+
+class RetMCDataset(TsvTaskDataset):
+    """Retrieval-style MC dataset (Dataset_RetMC_MLM, main_retmc_mlm.py:
+    11-69): one text per option, each with an appended [MASK] labelled
+    "true" (the answer) or "false"."""
+    mlm = True  # class default (subclasses/tests may bypass __init__)
+
+    def __init__(self, cfg, tokzr, split, img_tsv_path, id2lineidx, txt,
+                 mlm: bool = True, **kw):
+        super().__init__(cfg, tokzr, split, img_tsv_path, id2lineidx, txt, **kw)
+        # mlm=False: scalar-head baseline — no appended [MASK]
+        # (Dataset_RetMC_TS, main_retmc_task_specific.py:12-39)
+        self.mlm = mlm
+
+    @property
+    def prompt_text(self):
+        return "is the video-text matched, true or false?"
+
+    def str2txt(self, s):
+        txt, mask = super().str2txt(s)
+        if not self.mlm:
+            return txt, mask
+        return self.append_mask_tok2txt(txt, mask)
+
+    def __getitem__(self, idx):
+        item = self.txt[idx]
+        img = self.get_video(item["video"])
+        ans_idx = int(item["answer"])
+        q = item.get("question", "")
+        txts, masks, mask_ans = [], [], []
+        for i in range(self.cfg.size_option):
+            option = (q + " " + item[f"option_{i}"]) if q else item[f"option_{i}"]
+            t, m = self.str2txt(option)
+            ma = np.full(t.shape, -1, np.int32)
+            ma[t == self.mask_token_id] = (
+                self.true_token_id if i == ans_idx else self.false_token_id)
+            txts.append(t), masks.append(m), mask_ans.append(ma)
+        out = {"img": self.pad_frames(img),
+               "txt": np.stack(txts), "mask": np.stack(masks),
+               "mask_ans": np.stack(mask_ans), "ans_idx": np.int32(ans_idx)}
+        if not self.mlm:
+            out.pop("mask_ans")
+            out["ans"] = out.pop("ans_idx")
+        return out
+
+
+class QAMCHeadDataset(RetMCDataset):
+    """MC-QA scored per-option as VTM true/false: one (video, question +
+    option) pair per option (Dataset_QAMC_MLM_Head,
+    main_qamc_mlm_head.py:12-96; the TGIF flow that generates the digit
+    instead is ``tasks/qamc.py``)."""
 
 
 def option_logits(model, img: torch.Tensor, txt: torch.Tensor,

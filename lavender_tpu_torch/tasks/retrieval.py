@@ -14,8 +14,58 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from lavender_tpu_torch.data.dataset import TsvTaskDataset
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.tasks import common
+
+
+class RetrievalDataset(TsvTaskDataset):
+    """Retrieval dataset: one (video, caption) per row; train-time random
+    multi-caption concat (main_retrieval_task_specific.py:44-49); MLM
+    variant appends a [MASK] (main_retrieval_mlm.py:20-23)."""
+
+    def __init__(self, cfg, tokzr, split, img_tsv_path, id2lineidx, txt,
+                 mlm: bool = True, **kw):
+        super().__init__(cfg, tokzr, split, img_tsv_path, id2lineidx, txt, **kw)
+        self.mlm = mlm
+        # eval uses one caption per video (main_retrieval_task_specific.py:25-30)
+        if split != "train":
+            seen, first = set(), []
+            for item in self.txt:
+                if item["video"] not in seen:
+                    seen.add(item["video"])
+                    first.append(item)
+            if len(first) < len(self.txt):
+                self.txt = first
+        self.vid2idx = {}
+        for item in self.txt:
+            self.vid2idx.setdefault(item["video"], len(self.vid2idx))
+
+    @property
+    def prompt_text(self):
+        return "is the video-text paired, true or false?"
+
+    def str2txt(self, s):
+        txt, mask = super().str2txt(s)
+        if self.mlm:
+            txt, mask = self.append_mask_tok2txt(txt, mask)
+        return txt, mask
+
+    def __getitem__(self, idx):
+        item = self.txt[idx]
+        vid = item["video"]
+        img = self.get_video(vid)
+        raw = item["caption"]
+        if isinstance(raw, list):
+            if self.split == "train":
+                ids = self.rng.sample(
+                    range(len(raw)), self.rng.randint(1, len(raw)))
+            else:
+                ids = range(len(raw))
+            raw = " ".join(raw[i] for i in ids)
+        txt, mask = self.str2txt(raw)
+        return {"img": self.pad_frames(img), "txt": txt, "mask": mask,
+                "vid": np.int32(self.vid2idx[vid])}
 
 
 def grouped_pairs(x: torch.Tensor, group: int,

@@ -53,7 +53,8 @@ def port_config(cfg):
 
 
 @pytest.mark.parametrize("name", ["SwinConfig", "BertConfig", "ModelConfig",
-                                  "TrainConfig", "SWIN_PRESETS",
+                                  "TrainConfig", "DataConfig",
+                                  "SWIN_PRESETS",
                                   "IMAGENET", "TASK_TOK2ID"])
 def test_port_config_equals_jax(name):
     """The port's copy: same defaults and presets as the JAX package."""
@@ -205,7 +206,9 @@ def test_port_imports_no_jax():
         "          'train.trainer', 'models.heads', 'tasks.qamc',\n"
         "          'tasks.qaoe', 'tasks.retmc', 'tasks.pretrain',\n"
         "          'tasks.task_specific', 'tasks.multi_task',\n"
-        "          'train.checkpoint', 'data.transforms'):\n"
+        "          'train.checkpoint', 'data.transforms',\n"
+        "          'data.tokenizer', 'data.tsv', 'data.native',\n"
+        "          'data.dataset', 'data.loader', 'tasks.eval_retrieval'):\n"
         "    assert 'lavender_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'lavender_tpu'))\n"

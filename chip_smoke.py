@@ -9,6 +9,8 @@
     python3 chip_smoke.py --only K12 K14a K14f  # and K12's and K14's parts
     python3 chip_smoke.py --only K16 K17  # and K16's parts
     python3 chip_smoke.py --only K16 K17 --cases  # their cases alone
+    python3 chip_smoke.py --cli          # phases 1, 2 and 12 (the CLI)
+    python3 chip_smoke.py --dp           # data parallel on 4 GPUs (run_dp)
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -239,14 +241,31 @@ nothing is ever run on the CPU instead:
    batches (the split) and of 16 (its items repeated 8 times), windows of
    16 steps fed by the loader (with the time spent waiting for the first
    batch and the mean wait for each later one) and on batches already
-   on the card, in turns, and the loader's ms a batch alone.
+   on the card, in turns, and the loader's ms a batch alone;
+12. the CLI (``run_cli``; ``python -m lavender_tpu_torch.cli.main``) on
+   ModelConfig() at full width, on the fixture's 8 videos at 5 frames a
+   clip (written to build/cli/): (a) ``retrieval_mlm``, one epoch of 4
+   steps at B=8 and the val eval: ``ls_tr`` finite, ``ac_vl`` in [0, 1],
+   args.json, log.json and the checkpoint written, the serving cache built
+   fresh for the eval (no failed build), the train epoch's launches
+   phase 5 (b)'s x 4, K1-K5 launched in the eval; the same run at rates 0
+   on the kernels and on the plain path: ``ls_tr`` within LOSS_TOL,
+   ``ac_vl`` equal or each flipped clip inside ``_score_tol``'s gate; (b)
+   ``caption``, 2 steps and the KV decode of 8 clips: BLEU-4, CIDEr-D,
+   ROUGE-L finite, the train launches phase 5 (b)'s x 2, K4 and K5 in the
+   decoder (K6 printed); (c) world size 1 on NCCL (hand all-reduce,
+   ZeRO-1): 2 steps against the same without a process group, bitwise or
+   within CLI_DP_TOL, then a consolidated save, a restore into a fresh
+   sharded state and the next loss; (d) printed: the Agent's clips/s and
+   ms a step (host clock), peak memory, the card's name and power.
 
 Every time is the median of five CUDA-event windows of five calls.
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
-phase-6, phase-7, phase-8, phase-9, phase-10 and phase-11 runs, K12's in
-5 (e), each phase's also apart (``launches_swinbert`` phase 10's,
-``launches_data`` phase 11's (b) and (c)); its largest
+phase-6, phase-7, phase-8, phase-9, phase-10, phase-11 and phase-12 runs,
+K12's in 5 (e), each phase's also apart (``launches_swinbert`` phase
+10's, ``launches_data`` phase 11's (b) and (c), ``launches_cli`` phase
+12's (a) and (b)); its largest
 error in phase 3;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
 call x its calls in one serving forward plus one train step plus one
@@ -4276,6 +4295,580 @@ def run_data(ops):
     return total
 
 
+# phase 12: the CLI's dataset (the fixture's 8 videos at 5 frames a clip),
+# its retrieval epoch (32 train clips: 4 steps of B=8; 16 val captions, one
+# a video kept: 1 eval batch) and its caption epoch (2 steps, 8 clips)
+CLI_CAPS_TRAIN, CLI_CAPS_VAL, CLI_STEPS, CLI_CAP_STEPS = 4, 2, 4, 2
+CLI_DP_TOL = 1e-6  # (c): the data-parallel steps at world size 1
+
+
+def _cli_data(root):
+    """Phase 12's dataset in the reference layout under ``root``: the
+    fixture's videos (``tests/data/make_clip_tsv.py``'s frames and
+    captions) at 5 frames a clip, so that the train sampler draws no
+    random frames and two runs see the same batches, each caption one
+    string; ``txt_cli.json`` (4 train and 2 val items a video) and
+    ``txt_cap.json`` (2 train and 1 val item a video)."""
+    import pickle
+
+    from lavender_tpu_torch.data.tsv import tsv_writer
+
+    fx = _fixture_module()
+    os.makedirs(root, exist_ok=True)
+    rows = [[fx.video_id(v), "{}"] + [fx._jpeg_b64(fx.draw_frame(v, f))
+                                      for f in range(FRAMES)]
+            for v in range(fx.N_VIDEOS)]
+    tsv_writer(rows, os.path.join(root, "img_cli.tsv"))
+    with open(os.path.join(root, "img_cli.lineidx")) as f:
+        offsets = [int(line) for line in f]
+    with open(os.path.join(root, "img_cli.id2lineidx.pkl"), "wb") as f:
+        pickle.dump({fx.video_id(v): o for v, o in enumerate(offsets)}, f)
+    for name, n_tr, n_vl in (("cli", CLI_CAPS_TRAIN, CLI_CAPS_VAL),
+                             ("cap", CLI_CAP_STEPS, 1)):
+        items = {split: [{"video": fx.video_id(v),
+                          "caption": fx.captions(v)[k % 3]}
+                         for v in range(fx.N_VIDEOS) for k in range(n)]
+                 for split, n in (("train", n_tr), ("val", n_vl))}
+        with open(os.path.join(root, f"txt_{name}.json"), "w") as f:
+            json.dump(items, f)
+
+
+def _cli_config(root, name, task, rates0=False, batch=TRAIN_BATCH):
+    """A run config of the default model (Swin-B + BERT-base) at 224 px, 5
+    frames, 25 text tokens, ``batch`` clips a GPU (B=8), one epoch;
+    ``rates0``: every dropout and drop-path rate 0."""
+    cfg = {"type": "retrieval", "task": task, "dataset": "cli",
+           "data_dir": root, "size_img": SIZE, "size_frame": FRAMES,
+           "size_txt": TXT_LEN - 1, "size_batch": batch,
+           "size_epoch": 1,
+           "vocab_path": os.path.join(REPO_DIR, "assets", "vocab_30k.txt")}
+    if rates0:
+        cfg["swin"] = {"drop_path_rate": 0.0}
+        cfg["bert"] = {"hidden_dropout_prob": 0.0,
+                       "attention_probs_dropout_prob": 0.0}
+    path = os.path.join(root, f"args_{name}.json")
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+@contextlib.contextmanager
+def _epoch_launches(ops):
+    """The kernel launches of each Agent train and eval epoch run inside:
+    {"train_epoch" | "eval_epoch": {op: launches}}; "agents": the Agents
+    made inside, in order."""
+    from lavender_tpu_torch.train import agent as agent_mod
+
+    record = {n: {op: 0 for op in ops} for n in ("train_epoch",
+                                                  "eval_epoch")}
+    orig = {n: getattr(agent_mod.Agent, n) for n in record}
+    orig["__init__"] = agent_mod.Agent.__init__
+    record["agents"] = []
+
+    def init(self, *args, **kw):
+        orig["__init__"](self, *args, **kw)
+        record["agents"].append(self)
+
+    def wrap(name, fn):
+        def run(self, *args, **kw):
+            torch.cuda.synchronize()
+            before = {op: op.launches for op in ops}
+            out = fn(self, *args, **kw)
+            torch.cuda.synchronize()
+            for op in ops:
+                record[name][op] += op.launches - before[op]
+            return out
+        return run
+    for n in ("train_epoch", "eval_epoch"):
+        setattr(agent_mod.Agent, n, wrap(n, orig[n]))
+    agent_mod.Agent.__init__ = init
+    try:
+        yield record
+    finally:
+        for n, fn in orig.items():
+            setattr(agent_mod.Agent, n, fn)
+
+
+def _cli_run(ops, argv, plain: bool = False):
+    """``cli.main(argv)`` (inside ``plain_path()`` with ``plain``): (its
+    log, its Agent, host seconds, the launches of its train and eval
+    epochs as ``_epoch_launches`` records them)."""
+    from lavender_tpu_torch.cli import main as cli
+    from lavender_tpu_torch.ops._build import plain_path
+
+    t0 = time.perf_counter()
+    with plain_path() if plain else contextlib.nullcontext(), \
+            _epoch_launches(ops) as rec:
+        log = cli.main(argv)
+    torch.cuda.synchronize()
+    (agent,) = rec.pop("agents")
+    return log, agent, time.perf_counter() - t0, rec
+
+
+def _val_scores(agent, root, plain: bool):
+    """The in-batch eval's scores [B, B] and true/false [MASK] logits
+    [B * B, 2] of the val batch on ``agent``'s model, and each clip's
+    true text."""
+    from lavender_tpu_torch.config import DataConfig
+    from lavender_tpu_torch.data.dataset import load_task_data
+    from lavender_tpu_torch.data.tokenizer import BertTokenizer
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.tasks import common, retrieval
+
+    tok = BertTokenizer(os.path.join(REPO_DIR, "assets", "vocab_30k.txt"))
+    ds = load_task_data(DataConfig(data_dir=root, dataset="cli", task="cli",
+                                   size_txt=TXT_LEN - 1), retrieval.
+                        RetrievalDataset, tok)["val"]
+    items = [ds[i] for i in range(len(ds))]
+    b = {k: torch.as_tensor(np.stack([it[k] for it in items]),
+                            device="cuda") for k in ("img", "txt", "mask",
+                                                     "vid")}
+    with plain_path() if plain else contextlib.nullcontext(), \
+            common.evaluating(agent.model):
+        logits, _ = retrieval.pairwise_mlm_logits(agent.model, b["img"],
+                                                  b["txt"], b["mask"])
+    tf = logits[:, -1][:, [ds.true_token_id, ds.false_token_id]].float()
+    B = b["img"].shape[0]
+    score = common.true_score(logits[:, -1], ds.true_token_id,
+                              ds.false_token_id).reshape(B, B)
+    vid = b["vid"]
+    gt = (vid[:, None] == vid[None, :]).int().argmax(-1)
+    return score.cpu().numpy(), tf.cpu().numpy(), gt.cpu().numpy()
+
+
+def run_cli(ops):
+    """Phase 12: the CLI (``python -m lavender_tpu_torch.cli.main``) on the
+    default model at full width.  (a) ``retrieval_mlm``: one epoch of 4
+    steps at B=8 and the val eval; ``ls_tr`` finite, ``ac_vl`` in [0, 1],
+    args.json and the checkpoint written, the serving cache built fresh
+    for the eval (no failed build), the train epoch's launches exactly phase 5
+    (b)'s a step x 4, K1-K5 launched in the eval; then the same run with
+    every rate 0 on the kernels and on the plain path: ``ls_tr`` within
+    LOSS_TOL, ``ac_vl`` equal or each differing clip's ranking within the
+    gate of ``_score_tol``; (b) ``caption``: 2 steps and the decode of 8
+    clips, BLEU-4 / CIDEr-D / ROUGE-L finite, the train launches phase 5
+    (b)'s x 2, K4 and K5 launched by the decoder (K6's count printed);
+    (c) the data-parallel path at world size 1: an NCCL process group, the
+    hand all-reduce and ZeRO-1, two steps on (a)'s first batches against
+    the same two steps without a group (bitwise, or within CLI_DP_TOL
+    relative: the line says which), then a consolidated save, a restore
+    into a fresh sharded state and the next step's loss equal; (d)
+    printed: the Agent's clips/s and ms a step of (a)'s epoch (host
+    clock), the peak memory, the card's name and power limit.  Returns
+    the launches of (a) and (b)."""
+    from lavender_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from lavender_tpu_torch.data.dataset import load_task_data
+    from lavender_tpu_torch.data.loader import DataLoader, device_prefetch
+    from lavender_tpu_torch.data.tokenizer import BertTokenizer
+    from lavender_tpu_torch.models import swin3d
+    from lavender_tpu_torch.parallel import dist as pdist
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train import checkpoint
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step,
+                                                  shard_train_state)
+    from lavender_tpu_torch.utils.profiling import log_memory_string
+    import glob
+    import socket
+
+    root = os.path.join(REPO_DIR, "build", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    _cli_data(root)
+    out = os.path.join(root, "out")
+    mcfg = ModelConfig()
+    depth, n_shift = sum(mcfg.swin.depths), _shifted_blocks(mcfg.swin)
+    layers = mcfg.bert.num_hidden_layers
+    per_step = {ops["K1"]: depth, ops["K2"]: 4 * n_shift,
+                ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth,
+                ops["K10a"]: layers, ops["K10b"]: layers,
+                ops["K11"]: layers}
+    total = {op: 0 for op in ops.values()}
+
+    # (a) retrieval_mlm through main
+    _reset(ops.values())
+    torch.cuda.reset_peak_memory_stats()
+    log, agent, wall, rec = _cli_run(
+        ops.values(), ["--task", "retrieval_mlm", "--config",
+                       _cli_config(root, "a", "cli"), "--path_output", out])
+    torch.cuda.synchronize()
+    for op in ops.values():
+        total[op] += op.launches
+    (run_dir,) = glob.glob(os.path.join(out, "_cli_*"))
+    ls, ac = log["ls_tr"][0], log["ac_vl"][0]
+    written = [os.path.exists(os.path.join(run_dir, f))
+               for f in ("args.json", "log.json", "ckpt_cli_1.pt")]
+    stats = dict(agent.epoch_stats)
+    print(f"[cli] (a) retrieval_mlm: {stats['steps']} steps of "
+          f"B={TRAIN_BATCH}, ls_tr {ls:.6f}, ac_vl {ac:.4f}; args.json, "
+          f"log.json, ckpt_cli_1.pt written: {written}; serving caches "
+          f"built fresh for the eval: {agent.cache_builds}, failed: "
+          f"{agent.cache_failures}, dropped by train(): "
+          f"{not swin3d.check_serving_cache(agent.model)}; {wall:.1f} s in "
+          f"main", flush=True)
+    if not (np.isfinite(ls) and 0.0 <= ac <= 1.0 and all(written)
+            and stats["steps"] == CLI_STEPS and agent.cache_failures == 0
+            and agent.cache_builds == 1):
+        raise AssertionError("cli (a): the run's outputs are wrong")
+    for op in ops.values():
+        tr, ev = rec["train_epoch"][op], rec["eval_epoch"][op]
+        want = per_step.get(op, 0) * CLI_STEPS
+        print(f"[cli] (a) {op.name}: {tr} launches in the train epoch "
+              f"(expected {want}), {ev} in the eval", flush=True)
+        if tr != want:
+            raise AssertionError(f"cli (a): {op.name} launched {tr} times "
+                                 f"in training, expected {want}")
+    silent = [k for k in ("K1", "K2", "K3", "K4", "K5")
+              if rec["eval_epoch"][ops[k]] == 0]
+    if silent:
+        raise AssertionError(f"cli (a): no launch of {silent} in the eval")
+    # (d) the epoch's rates
+    print(f"[cli] (d) the Agent's train epoch: "
+          f"{stats['clips'] / stats['seconds']:.2f} clips/s, "
+          f"{stats['seconds'] / stats['steps'] * 1e3:.1f} ms a step (host "
+          f"clock, {stats['steps']} steps, the first with its warm-up); "
+          f"{log_memory_string(agent.state.step)} ({_nvidia_smi()})",
+          flush=True)
+    del agent
+    torch.cuda.empty_cache()
+
+    # (a) at rates 0: the kernels against the plain path
+    cfg0 = _cli_config(root, "a0", "cli", rates0=True)
+    runs = {}
+    for label, plain in (("kernels", False), ("plain", True)):
+        argv = ["--task", "retrieval_mlm", "--config", cfg0,
+                "--path_output", os.path.join(root, f"out_{label}")]
+        log, agent, wall, _ = _cli_run(ops.values(), argv, plain=plain)
+        runs[label] = (log["ls_tr"][0], log["ac_vl"][0], agent,
+                       *_val_scores(agent, root, plain))
+        print(f"[cli] (a) rates 0, {label}: ls_tr {runs[label][0]:.6f}, "
+              f"ac_vl {runs[label][1]:.4f} ({wall:.1f} s)", flush=True)
+    (lk, ak, _, sk, _, gt), (lp, ap, _, sp, tfp, _) = (runs["kernels"],
+                                                        runs["plain"])
+    del runs
+    torch.cuda.empty_cache()
+    dl = abs(lk - lp)
+    print(f"[cli] (a) rates 0: ls_tr |diff| {dl:.4g} (<= {LOSS_TOL} max(1, "
+          f"|ls_tr|)); ac_vl {ak:.4f} vs {ap:.4f}", flush=True)
+    if not dl <= LOSS_TOL * max(1.0, abs(lp)):
+        raise AssertionError("cli (a): ls_tr, kernels vs plain, disagree")
+    if ak != ap:
+        gate = SLICE_TOL * max(1.0, float(np.abs(tfp).max()))
+        tol = _score_tol(tfp, gate).reshape(sp.shape)
+        flips = _rank_flips(sk, sp, gt, tol)
+        for i, j, gap, g in flips:
+            print(f"[cli] (a) clip {i} text {j}: plain gap {gap:.4g}, gate "
+                  f"{g:.4g}", flush=True)
+        if any(abs(gap) > g for _, _, gap, g in flips):
+            raise AssertionError("cli (a): ac_vl differs beyond the gate")
+
+    # (b) caption through main
+    _reset(ops.values())
+    log, agent, wall, rec = _cli_run(
+        ops.values(), ["--task", "caption", "--config",
+                       _cli_config(root, "b", "cap"), "--path_output", out])
+    torch.cuda.synchronize()
+    counts = {op: op.launches for op in ops.values()}
+    for op in ops.values():
+        total[op] += counts[op]
+    metrics = log["metrics_vl"][0]
+    print(f"[cli] (b) caption: ls_tr {log['ls_tr'][0]:.6f}, val "
+          f"{ {k: round(v, 6) for k, v in metrics.items()} } ({wall:.1f} s)",
+          flush=True)
+    keys = ("Bleu_4", "CIDEr", "ROUGE_L")
+    if not (np.isfinite(log["ls_tr"][0])
+            and all(np.isfinite(metrics[k]) for k in keys)
+            and agent.epoch_stats["steps"] == CLI_CAP_STEPS):
+        raise AssertionError("cli (b): caption loss or metrics not finite")
+    for op in ops.values():
+        tr = rec["train_epoch"][op]
+        want = per_step.get(op, 0) * CLI_CAP_STEPS
+        print(f"[cli] (b) {op.name}: {tr} launches in the train epoch "
+              f"(expected {want}), {counts[op] - tr} in the decode",
+              flush=True)
+        if tr != want:
+            raise AssertionError(f"cli (b): {op.name} launched {tr} times "
+                                 f"in training, expected {want}")
+    decode = {k: counts[ops[k]] - rec["train_epoch"][ops[k]]
+              for k in ("K4", "K5", "K6")}
+    print(f"[cli] (b) the decoder's launches: {decode} (K6: the re-encode "
+          f"route only)", flush=True)
+    if decode["K4"] == 0 or decode["K5"] == 0:
+        raise AssertionError("cli (b): the KV decoder launched no K4 / K5")
+    del agent
+    torch.cuda.empty_cache()
+
+    # (c) the data-parallel path at world size 1
+    tok = BertTokenizer(os.path.join(REPO_DIR, "assets", "vocab_30k.txt"))
+    train = load_task_data(DataConfig(data_dir=root, dataset="cli",
+                                      task="cli", size_txt=TXT_LEN - 1),
+                           retrieval.RetrievalDataset, tok)["train"]
+    loader = DataLoader(train, TRAIN_BATCH, shuffle=True, num_workers=4,
+                        pin_memory=True)
+    loader.set_epoch(1)
+    batches = list(device_prefetch(loader))[:3]
+    tcfg = TrainConfig(max_iter=1000, max_grad_norm=1.0)
+
+    def fresh_state(shard):
+        state = create_train_state(mcfg, tcfg, seed=0)
+        if shard:
+            state = shard_train_state(state, seed=0)
+        return state, make_train_step(retrieval.make_loss_fn(
+            train.true_token_id, train.false_token_id), state)
+
+    def snapshot(state):
+        return [p.detach().clone() for p in state.model.parameters()]
+
+    state, step = fresh_state(False)
+    ref = [float(step(b)) for b in batches[:2]]
+    ref_params = snapshot(state)
+    del state, step
+    port = socket.socket()
+    port.bind(("127.0.0.1", 0))
+    addr = f"127.0.0.1:{port.getsockname()[1]}"
+    port.close()
+    pdist.distributed_init(addr, 1, 0, device="cuda")
+    try:
+        state, step = fresh_state(True)
+        got = [float(step(b)) for b in batches[:2]]
+        worst = max(float(((a - b).norm() / b.norm().clamp_min(1e-30))
+                          .item()) for a, b in zip(snapshot(state),
+                                                   ref_params))
+        same = got == ref and worst == 0.0
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, ref))
+        print(f"[cli] (c) world size 1 (NCCL, hand all-reduce, ZeRO-1): "
+              f"losses {got} vs {ref} without a group; "
+              f"{'bitwise equal' if same else 'not bitwise'}: loss rel "
+              f"{rel:.3g}, worst parameter rel_l2 {worst:.3g} (<= "
+              f"{CLI_DP_TOL})", flush=True)
+        if not same and (rel > CLI_DP_TOL or worst > CLI_DP_TOL):
+            raise AssertionError("cli (c): the data-parallel steps differ")
+        path = os.path.join(root, "state_dp.pt")
+        checkpoint.save_train_state(state, path)
+        nxt = float(step(batches[2]))
+        del state, step
+        state, step = fresh_state(True)
+        checkpoint.restore_train_state(path, state)
+        resumed = float(step(batches[2]))
+        print(f"[cli] (c) consolidated save + restore into a fresh ZeRO-1 "
+              f"state: next loss {resumed} vs {nxt} straight", flush=True)
+        if abs(resumed - nxt) > CLI_DP_TOL * max(1.0, abs(nxt)):
+            raise AssertionError("cli (c): the resumed step differs")
+        del state, step
+    finally:
+        torch.distributed.destroy_process_group()
+    del batches, ref_params
+    torch.cuda.empty_cache()
+    return total
+
+
+# --dp: the data-parallel path on 4 GPUs of one host, 2 clips a GPU (the
+# global batch of phase 12's B=8)
+DP_WORLD, DP_BATCH, DP_STEPS = 4, 2, 3
+
+
+def _rates0_config():
+    from lavender_tpu_torch.config import ModelConfig
+
+    cfg = ModelConfig()
+    return dataclasses.replace(
+        cfg, swin=dataclasses.replace(cfg.swin, drop_path_rate=0.0),
+        bert=dataclasses.replace(cfg.bert, hidden_dropout_prob=0.0,
+                                 attention_probs_dropout_prob=0.0))
+
+
+def _dp_worker(rank: int, world: int, port: int) -> int:
+    """One rank of ``--dp``, on GPU ``rank`` (NCCL): (a) ``cli.main``'s
+    retrieval_mlm data-parallel at rates 0, 2 clips a GPU; (b) phase 12's
+    first B=8 batch, 2 clips a rank: the loss and the all-reduced
+    gradients, on rank 0 against one GPU's on the whole batch with
+    ``group=world`` (the JAX package's global batch of ``world`` data
+    shards), then ``DP_STEPS`` ZeRO-1 steps at 2 and at 8 clips a rank:
+    each rank's AdamW moments, ms a step, rank 0's step under
+    torch.profiler, and rank 0's ms a step without a process group.  Rank
+    0 writes the results to build/cli/dp.json."""
+    from lavender_tpu_torch.cli import main as cli
+    from lavender_tpu_torch.config import DataConfig, TrainConfig
+    from lavender_tpu_torch.data.dataset import load_task_data
+    from lavender_tpu_torch.data.loader import DataLoader
+    from lavender_tpu_torch.data.tokenizer import BertTokenizer
+    from lavender_tpu_torch.parallel import dist as pdist
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step,
+                                                  shard_train_state)
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    pdist.distributed_init(f"127.0.0.1:{port}", world, rank, device="cuda")
+    root = os.path.join(REPO_DIR, "build", "cli")
+    out = {}
+    t0 = time.perf_counter()
+    log = cli.main(["--task", "retrieval_mlm", "--config",
+                    _cli_config(root, "dp", "cli", rates0=True,
+                                batch=DP_BATCH),
+                    "--path_output", os.path.join(root, "out_dp")])
+    out["cli"] = {"ls_tr": log["ls_tr"][0], "ac_vl": log["ac_vl"][0],
+                  "seconds": time.perf_counter() - t0}
+
+    tok = BertTokenizer(os.path.join(REPO_DIR, "assets", "vocab_30k.txt"))
+    train = load_task_data(DataConfig(data_dir=root, dataset="cli",
+                                      task="cli", size_txt=TXT_LEN - 1),
+                           retrieval.RetrievalDataset, tok)["train"]
+    loader = DataLoader(train, TRAIN_BATCH, shuffle=True, num_workers=4)
+    loader.set_epoch(1)
+    host = next(iter(loader))
+    whole = {k: torch.as_tensor(v, device="cuda") for k, v in host.items()}
+    mine = {k: v[rank * DP_BATCH:(rank + 1) * DP_BATCH]
+            for k, v in whole.items()}
+    mcfg, tcfg = _rates0_config(), TrainConfig(max_iter=1000,
+                                               max_grad_norm=1.0)
+    loss_fn = retrieval.make_loss_fn(train.true_token_id,
+                                     train.false_token_id)
+    state = shard_train_state(create_train_state(mcfg, tcfg, seed=0),
+                              seed=0)
+    params = [p for p in state.model.parameters() if p.requires_grad]
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        loss = loss_fn(state.model, mine, state.generator)
+    loss.backward()
+    pdist.all_reduce_grads(params)
+    loss = float(pdist.all_reduce_sum(loss.detach().float())) / world
+    grads = {n: p.grad.detach().clone()
+             for n, p in state.model.named_parameters() if p.grad is not None}
+    groups = _grad_groups(state.model)
+    step = make_train_step(loss_fn, state)
+
+    def timed(fn, batch):
+        fn(batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(DP_STEPS):
+            fn(batch)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) / DP_STEPS * 1e3
+    out["ms_steps"] = pdist.all_gather_obj(timed(step, mine))
+    # and at B=8 a GPU, the train step's batch (32 clips a step)
+    out["ms_steps8"] = pdist.all_gather_obj(timed(step, whole))
+    # where a step's device time goes (rank 0's trace; the ranks step in
+    # lockstep through the collectives)
+    host_ms, busy_ms, _ = _device_profile(lambda: step(mine))
+    names = _kernel_times(lambda: step(mine), 1)
+    out["profile"] = {"host_ms": host_ms, "busy_ms": busy_ms,
+                      "top": sorted(names.items(), key=lambda kv: -kv[1])[:8]}
+    local = state.optimizer.optim.state
+    out["moments"] = pdist.all_gather_obj(sum(
+        t.numel() * t.element_size() for st in local.values()
+        for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")))
+    del state, step
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    if rank == 0:
+        # the same B=2 step without a process group
+        single = create_train_state(mcfg, tcfg, seed=0)
+        step = make_train_step(loss_fn, single)
+        out["ms_single"] = timed(step, mine)
+        out["ms_single8"] = timed(step, whole)
+        del single, step
+        torch.cuda.empty_cache()
+        ref = create_train_state(mcfg, tcfg, seed=0)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            want = retrieval.make_loss_fn(
+                train.true_token_id, train.false_token_id,
+                group=world)(ref.model, whole, ref.generator)
+        want.backward()
+        ref_grads = {n: p.grad.detach()
+                     for n, p in ref.model.named_parameters()
+                     if p.grad is not None}
+        out["loss"], out["want_loss"] = loss, float(want.detach())
+        out["grads_same_keys"] = grads.keys() == ref_grads.keys()
+        out["rel_l2"] = {}
+        for group, names in groups.items():
+            names = [n for n in names if n in ref_grads]
+            k = torch.cat([grads[n].flatten() for n in names])
+            p = torch.cat([ref_grads[n].flatten() for n in names])
+            out["rel_l2"][group] = float((k - p).norm()
+                                         / p.norm().clamp_min(1e-30))
+        with open(os.path.join(root, "dp.json"), "w") as f:
+            json.dump(out, f)
+    return 0
+
+
+def run_dp() -> int:
+    """``--dp``: the data-parallel path across ``DP_WORLD`` GPUs of one host
+    (``_dp_worker`` on each), gated: every rank exits 0, the CLI's
+    ``ls_tr`` finite and ``ac_vl`` in [0, 1], the loss within LOSS_TOL and
+    each gradient group within STEP_GRAD_REL_L2 of one GPU's on the whole
+    batch with ``group=world``, the AdamW moments split over the ranks
+    (the largest share below 1.5 / world of their sum)."""
+    import socket
+    import subprocess
+
+    if torch.cuda.device_count() < DP_WORLD:
+        raise SystemExit(f"chip_smoke --dp: {DP_WORLD} GPUs needed, "
+                         f"{torch.cuda.device_count()} found")
+    root = os.path.join(REPO_DIR, "build", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    _cli_data(root)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         str(DP_WORLD), str(port)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(DP_WORLD)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=900)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        tail = text.strip().splitlines()[-12:]
+        print(f"[dp] rank {r}: exit {p.returncode}; its last lines:",
+              flush=True)
+        for line in tail:
+            print(f"[dp]   {line}", flush=True)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("--dp: a rank failed")
+    with open(os.path.join(root, "dp.json")) as f:
+        res = json.load(f)
+    cli, moments = res["cli"], res["moments"]
+    print(f"[dp] cli.main retrieval_mlm on {DP_WORLD} GPUs x {DP_BATCH} "
+          f"clips, rates 0: ls_tr {cli['ls_tr']:.6f}, ac_vl "
+          f"{cli['ac_vl']:.4f}, {cli['seconds']:.1f} s on rank 0", flush=True)
+    print(f"[dp] the B={TRAIN_BATCH} batch on {DP_WORLD} ranks: loss "
+          f"{res['loss']:.6f} vs {res['want_loss']:.6f} on one GPU with "
+          f"group={DP_WORLD}; gradients rel_l2 {res['rel_l2']} (<= "
+          f"{STEP_GRAD_REL_L2}); AdamW moments a rank "
+          f"{[round(m / 2 ** 20, 1) for m in moments]} MiB of "
+          f"{sum(moments) / 2 ** 20:.1f}; ms a ZeRO-1 step a rank "
+          f"{[round(t, 1) for t in res['ms_steps']]} (the same "
+          f"{DP_BATCH}-clip step without a group {res['ms_single']:.1f}) "
+          f"({_nvidia_smi()})", flush=True)
+    ms8, one8 = max(res["ms_steps8"]), res["ms_single8"]
+    print(f"[dp] {TRAIN_BATCH} clips a GPU: ms a ZeRO-1 step a rank "
+          f"{[round(t, 1) for t in res['ms_steps8']]} against {one8:.1f} "
+          f"without a group: {DP_WORLD * TRAIN_BATCH / ms8 * 1e3:.1f} clips/s "
+          f"on {DP_WORLD} GPUs against {TRAIN_BATCH / one8 * 1e3:.1f} on one "
+          f"({DP_WORLD * one8 / ms8:.2f}x)", flush=True)
+    prof = res["profile"]
+    busy = ("not measured" if prof["busy_ms"] is None
+            else f"{prof['busy_ms']:.1f} ms")
+    print(f"[dp] rank 0's ZeRO-1 step under torch.profiler: host "
+          f"{prof['host_ms']:.1f} ms, device busy {busy}; the largest "
+          f"device activities: "
+          f"{[(n[:60], round(t, 2)) for n, t in prof['top']]}", flush=True)
+    ok = (np.isfinite(cli["ls_tr"]) and 0.0 <= cli["ac_vl"] <= 1.0
+          and res["grads_same_keys"]
+          and abs(res["loss"] - res["want_loss"])
+          <= LOSS_TOL * max(1.0, abs(res["want_loss"]))
+          and all(v <= STEP_GRAD_REL_L2 for v in res["rel_l2"].values())
+          and max(moments) < 1.5 * sum(moments) / DP_WORLD)
+    if not ok:
+        raise AssertionError("--dp: the data-parallel step disagrees")
+    return 0
+
+
 def kernel_ops():
     """Each ported kernel's wrapper by its id (K1 .. K17)."""
     from lavender_tpu_torch.ops.encoder_attention import (
@@ -4314,6 +4907,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this check runs only on a CUDA GPU")
+    if sys.argv[1:2] == ["--dp-worker"]:  # one rank of --dp
+        return _dp_worker(*map(int, sys.argv[2:5]))
     from lavender_tpu_torch.ops import _build
 
     print(_nvidia_smi(), flush=True)  # the card's name and power limit
@@ -4334,6 +4929,12 @@ def main() -> int:
                               if k in ops}, "--cases" not in sys.argv)
         print(_nvidia_smi(), flush=True)
         return 0
+    if sys.argv[1:2] == ["--cli"]:  # phase 12 alone
+        run_cli(ops)
+        print(_nvidia_smi(), flush=True)
+        return 0
+    if sys.argv[1:2] == ["--dp"]:  # the data-parallel path on 4 GPUs
+        return run_dp()
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     server = build_server()
@@ -4353,6 +4954,8 @@ def main() -> int:
     swinbert_counts = run_swinbert(ops)
     torch.cuda.empty_cache()
     data_counts = run_data(ops)
+    torch.cuda.empty_cache()
+    cli_counts = run_cli(ops)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/gemm_tc.cu",
@@ -4408,7 +5011,8 @@ def main() -> int:
             "launches": (serve_counts[op] + train_counts[op]
                          + caption_counts[op] + spatial_counts[op]
                          + route_counts[op] + task_counts[op]
-                         + swinbert_counts[op] + data_counts[op]),
+                         + swinbert_counts[op] + data_counts[op]
+                         + cli_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
@@ -4417,6 +5021,7 @@ def main() -> int:
             "launches_tasks": task_counts[op],
             "launches_swinbert": swinbert_counts[op],
             "launches_data": data_counts[op],
+            "launches_cli": cli_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]

@@ -14,11 +14,12 @@ import torch.nn.functional as F
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
                          ignore_index: int = -1) -> torch.Tensor:
     """Mean token cross-entropy over the labels != ignore_index, in f32
-    (reference agent.py:72); 0 when every label is ignored."""
+    (reference agent.py:72); 0 when every label is ignored.  Labels of any
+    integer dtype (the loader's are int32)."""
     flat = logits.float().reshape(-1, logits.shape[-1])
     labels = labels.reshape(-1)
     valid = labels != ignore_index
-    nll = F.cross_entropy(flat, torch.where(valid, labels, 0),
+    nll = F.cross_entropy(flat, torch.where(valid, labels, 0).long(),
                           reduction="none")
     return torch.where(valid, nll, 0.0).sum() / valid.sum().clamp(min=1)
 

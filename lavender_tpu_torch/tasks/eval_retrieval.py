@@ -16,6 +16,12 @@ Both run in ``eval()`` mode without autograd (bf16 autocast on the card,
 ``tasks.common.evaluating``):
 
     metrics = full_retrieval_eval(model, RetrievalEvalDataset(...))
+
+Under a process group of more than one rank (``parallel.dist``) each rank
+encodes its share of the feat batches (batch i on rank i mod world, JAX
+``_shard_feat``) and scores its share of the pair chunks (chunk c on rank
+c mod world, JAX ``_shard_pair_chunks``); the shares are all-gathered, so
+every rank ends with the one process's features, scores and metrics.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 from lavender_tpu_torch.data import transforms as TF
 from lavender_tpu_torch.data.dataset import TsvTaskDataset
 from lavender_tpu_torch.data.loader import DataLoader, device_prefetch
+from lavender_tpu_torch.parallel import dist as pdist
 from lavender_tpu_torch.tasks import common
 from lavender_tpu_torch.tasks.retrieval import recall_at_k
 
@@ -198,6 +205,49 @@ def _device(model) -> torch.device:
     return next(model.parameters()).device
 
 
+class _Items:
+    """The items ``idx`` of a dataset, in that order."""
+
+    def __init__(self, dataset, idx):
+        self.dataset, self.idx = dataset, list(idx)
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        return self.dataset[self.idx[i]]
+
+
+def _shard_feat(dataset, batch_size: int):
+    """The rank's share of the feat phase (JAX ``_shard_feat``): the items
+    of the batches i = rank mod world of the one-process loader, so that
+    each batch holds what it holds in one process.  One process: the
+    dataset itself."""
+    world, rank = pdist.process_count(), pdist.process_index()
+    if world == 1:
+        return dataset
+    return _Items(dataset, [i for i in range(len(dataset))
+                            if (i // batch_size) % world == rank])
+
+
+def _gather_feats(featv: Dict, featt: Dict, first: Dict, dev):
+    """Every rank's features on every rank (through the CPU): the videos
+    in the order of their first text, as one process lists them."""
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    parts = pdist.all_gather_obj((
+        {v: cpu(d) for v, d in featv.items()},
+        {t: cpu(d) for t, d in featt.items()}, first))
+    allv, allt, allfirst = {}, {}, {}
+    for fv, ft, fi in parts:
+        for v, d in fv.items():
+            if v not in allfirst or fi[v] < allfirst[v]:
+                allv[v], allfirst[v] = d, fi[v]
+        allt.update(ft)
+    to_dev = lambda d: {k: t.to(dev) for k, t in d.items()}
+    return ({v: to_dev(allv[v]) for v in sorted(allv, key=allfirst.get)},
+            {t: to_dev(allt[t]) for t in sorted(allt)})
+
+
 def feat_phase(model, dataset: RetrievalEvalDataset, batch_size: int = 16,
                loader=None, pretext=None) -> Tuple[Dict, Dict]:
     """Encode the corpus: ({video id: {"feat_img", "mask_img"}}, {text id:
@@ -205,14 +255,19 @@ def feat_phase(model, dataset: RetrievalEvalDataset, batch_size: int = 16,
 
     The serving caches (rel-pos biases, shift masks, LN folds) are built
     once up front for the dataset's clip size; a build that fails is
-    logged, and the forward then computes them per call."""
+    logged, and the forward then computes them per call.  Under more than
+    one rank (and no ``loader``) each rank encodes its share of the
+    batches and the features are gathered."""
     dev = _device(model)
     dtype = next(model.parameters()).dtype
     T, S = dataset.size_frame, dataset.cfg.size_img
-    dl = loader or DataLoader(dataset, batch_size, shuffle=False,
-                              num_workers=4, pin_memory=dev.type == "cuda")
+    sharded = loader is None and pdist.process_count() > 1
+    dl = loader or DataLoader(_shard_feat(dataset, batch_size), batch_size,
+                              shuffle=False, num_workers=4,
+                              pin_memory=dev.type == "cuda")
     featv: Dict[str, Dict] = {}
     featt: Dict[int, Dict] = {}
+    first: Dict[str, int] = {}  # each video's first text
     feat_fn = make_feat_fn(model, pretext=pretext)
     with common.evaluating(model):
         try:
@@ -228,7 +283,10 @@ def feat_phase(model, dataset: RetrievalEvalDataset, batch_size: int = 16,
             for i, (tid, vid) in enumerate(zip(batch["tid"], batch["vid"])):
                 if vid not in featv:
                     featv[vid] = {"feat_img": fi[i], "mask_img": mi[i]}
+                    first[vid] = int(tid)
                 featt[int(tid)] = {"feat_txt": ft[i], "mask_txt": mt[i]}
+    if sharded:
+        return _gather_feats(featv, featt, first, dev)
     return featv, featt
 
 
@@ -272,15 +330,37 @@ def cross_phase(model, dataset: RetrievalEvalDataset, featv: Dict,
         n_chunks, pair_batch)
     scan_fn = make_cross_scan_fn(
         model, dataset.true_token_id, dataset.false_token_id, head=head)
-    with common.evaluating(model):
-        s, lg = scan_fn(FV, MV, FT, MT, torch.as_tensor(t_idx, device=dev),
-                        torch.as_tensor(v_idx, device=dev))
-    score[t_rows, v_cols] = s.cpu().numpy().reshape(-1)[:n_pairs]
+    mine = _shard_pair_chunks(n_chunks)
+    s = lg = None
+    if len(mine):
+        with common.evaluating(model):
+            s, lg = scan_fn(FV, MV, FT, MT,
+                            torch.as_tensor(t_idx[mine], device=dev),
+                            torch.as_tensor(v_idx[mine], device=dev))
+        s = s.float().cpu().numpy()
+        lg = None if lg is None else lg.float().cpu().numpy()
+    if len(mine) < n_chunks:  # every rank's chunks, in chunk order
+        s_all = np.zeros((n_chunks, pair_batch), np.float32)
+        lg_all = None if head == "ts" else np.zeros((n_chunks, pair_batch, 2),
+                                                    np.float32)
+        for idx, s_r, lg_r in pdist.all_gather_obj((mine, s, lg)):
+            if len(idx):
+                s_all[idx] = s_r
+                if lg_all is not None:
+                    lg_all[idx] = lg_r
+        s, lg = s_all, lg_all
+    score[t_rows, v_cols] = s.reshape(-1)[:n_pairs]
     gt = np.asarray([vid2idx[dataset.gt_txt2vid[t]] for t in tids])
-    logits = (None if lg is None
-              else lg.cpu().numpy().reshape(-1, 2)[:n_pairs])
+    logits = None if lg is None else lg.reshape(-1, 2)[:n_pairs]
     return {"score": score, "gt": gt, "t_rows": t_rows, "v_cols": v_cols,
             "logits": logits}
+
+
+def _shard_pair_chunks(n_chunks: int) -> np.ndarray:
+    """The rank's pair chunks (JAX ``_shard_pair_chunks``): chunk c on rank
+    c mod world; every chunk in one process."""
+    world, rank = pdist.process_count(), pdist.process_index()
+    return np.arange(rank, n_chunks, world)
 
 
 def full_retrieval_eval(model, dataset: RetrievalEvalDataset,

@@ -1,7 +1,8 @@
 """Unified multi-task fine-tuning (port of lavender_tpu/tasks/multi_task.py;
 reference main_multi_task_mlm.py): one model, one train step per task kind
 over a shared train state, each step's task picked by the caller (the JAX
-package's MetaLoader; the port's data plane is still to come).
+package's MetaLoader: ``data.loader.MetaLoader``, driven by
+``cli.main``).
 """
 from __future__ import annotations
 
@@ -51,8 +52,13 @@ def build_multi_task_evals(true_id: int, false_id: int,
     return evals
 
 
-def make_multi_task_train_steps(losses: Dict[str, Callable],
-                                state) -> Dict[str, Callable]:
+def make_multi_task_train_steps(losses: Dict[str, Callable], state,
+                                count_fns: Optional[Dict[str, Callable]]
+                                = None) -> Dict[str, Callable]:
     """One train step per task (``train.trainer.make_train_step``), all
-    updating the one ``state``: its model, optimizer and schedule."""
-    return {name: make_train_step(fn, state) for name, fn in losses.items()}
+    updating the one ``state``: its model, optimizer and schedule;
+    ``count_fns``: the ``count_fn`` of the tasks whose loss averages over a
+    variable number of labels (the data-parallel global mean)."""
+    counts = count_fns or {}
+    return {name: make_train_step(fn, state, count_fn=counts.get(name))
+            for name, fn in losses.items()}

@@ -8,7 +8,12 @@ masked text) pairs, then a VTM pass over B * O pairs, each clip with its
 own text and O - 1 other texts of the batch, the MLM head applied at the
 appended [MASK] alone.  Negatives come from an explicit
 ``torch.Generator`` (the JAX package draws them with ``top_k`` of
-``jax.random`` noise; the two cannot give the same indices).
+``jax.random`` noise; the two cannot give the same indices).  Under a
+process group the negatives are drawn, as in the JAX package's global
+batch, from the texts of every rank's batch (``batch_negatives``: one
+draw on rank 0; the texts gathered with gradients flowing back,
+``parallel.dist.gather_rows``), and the MLM mean is over every rank's
+masked tokens.
 
 A batch holds img uint8 [B, T, H, W, 3], txt (after ``mask_tokens``) and
 mask [B, Lt], ans_mtm [B, Lt] (-1 = not a target) and optionally vt_mask
@@ -24,6 +29,7 @@ import torch
 from lavender_tpu_torch.config import DataConfig
 from lavender_tpu_torch.data.dataset import VideoTextDataset
 from lavender_tpu_torch.data.tsv import TSVFile
+from lavender_tpu_torch.parallel import dist as pdist
 from lavender_tpu_torch.tasks import common
 
 log = logging.getLogger(__name__)
@@ -114,6 +120,25 @@ def sample_negatives(generator: Optional[torch.Generator], B: int,
     return noise.topk(n_neg, dim=1, largest=False).indices
 
 
+def batch_negatives(generator: Optional[torch.Generator], B: int,
+                    n_neg: int) -> torch.Tensor:
+    """The negatives of this rank's B clips among the texts of every
+    rank's batch (world * B, rank after rank): ``sample_negatives`` over
+    that global batch drawn on rank 0 and broadcast, this rank's rows
+    (``sample_negatives(generator, B, n_neg)`` in one process)."""
+    world = pdist.process_count()
+    if world == 1:
+        return sample_negatives(generator, B, n_neg)
+    rank = pdist.process_index()
+    if rank == 0:
+        idx = sample_negatives(generator, B * world, n_neg)
+    else:
+        idx = torch.empty(B * world, n_neg, dtype=torch.long,
+                          device="cpu" if generator is None
+                          else generator.device)
+    return pdist.broadcast_main(idx)[rank * B:(rank + 1) * B]
+
+
 def pretrain_forward(model, img: torch.Tensor, txt: torch.Tensor,
                      mask: torch.Tensor, neg_idx: torch.Tensor,
                      vt_mask: Optional[torch.Tensor] = None,
@@ -122,10 +147,12 @@ def pretrain_forward(model, img: torch.Tensor, txt: torch.Tensor,
                      generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MLM pass and the VTM pass (LAVENDER_Pretrain_MLM.forward):
-    neg_idx [B, O - 1] the negative texts of each clip; feat_pre /
-    mask_pre (batch B) the VTM pass's pretext (the reference gives the MLM
-    pass none).  Returns (out_mtm [B, Lt, V], out_vtm [B*O, 1, V]), pair
-    (i, 0) the positive and (i, o > 0) text neg_idx[i, o - 1]."""
+    neg_idx [B, O - 1] the negative texts of each clip, indices into every
+    rank's batch (``batch_negatives``; into this batch in one process);
+    feat_pre / mask_pre (batch B) the VTM pass's pretext (the reference
+    gives the MLM pass none).  Returns (out_mtm [B, Lt, V], out_vtm [B*O,
+    1, V]), pair (i, 0) the positive and (i, o > 0) text neg_idx[i, o -
+    1]."""
     B = img.shape[0]
     fi, mi, ft, mt = model.go_feat(img, txt, mask, generator,
                                    vt_mask=vt_mask)
@@ -133,8 +160,10 @@ def pretrain_forward(model, img: torch.Tensor, txt: torch.Tensor,
     out_mtm = model.mlm_head(out[:, fi.shape[1]:])
 
     vft, vmt, _ = common.prepend_pretxt(ft, mt, feat_pre, mask_pre)
+    vft, vmt = pdist.gather_rows(vft), pdist.gather_rows(vmt)
     O = neg_idx.shape[1] + 1
-    own = torch.arange(B, device=neg_idx.device)[:, None]
+    own = pdist.process_index() * B + torch.arange(
+        B, device=neg_idx.device)[:, None]
     flat = torch.cat([own, neg_idx], dim=1).reshape(-1).to(vft.device)
     out = model.go_cross(fi.repeat_interleave(O, 0),
                          mi.repeat_interleave(O, 0), vft[flat], vmt[flat],
@@ -145,8 +174,10 @@ def pretrain_forward(model, img: torch.Tensor, txt: torch.Tensor,
 def make_loss_fn(true_id: int, false_id: int, vtm_batch: int = 4,
                  pretext: Optional[Callable] = None) -> Callable:
     """The pretraining loss ls_mtm + ls_vtm (main_pretrain_mlm.py:158-163)
-    over O = min(B, vtm_batch) VTM pairs a clip; the negatives are drawn
-    from the step's generator before the dropout.  Returns
+    over O = min(B, vtm_batch) VTM pairs a clip (B: every rank's batch);
+    the negatives are drawn from the step's generator before the dropout.
+    Under more than one rank ls_mtm is the rank's share of the mean over
+    every rank's masked tokens (``parallel.dist.mean_weight``).  Returns
     ``loss_fn(model, batch, generator) -> (loss, {"mtm", "vtm"})``, for
     ``make_train_step(..., has_aux=True)``."""
 
@@ -154,13 +185,15 @@ def make_loss_fn(true_id: int, false_id: int, vtm_batch: int = 4,
                 generator: Optional[torch.Generator] = None):
         img, txt = batch["img"], batch["txt"]
         B = img.shape[0]
-        O = min(B, vtm_batch)
-        neg_idx = sample_negatives(generator, B, O - 1)
+        O = min(B * pdist.process_count(), vtm_batch)
+        neg_idx = batch_negatives(generator, B, O - 1)
         fp, mp = common.apply_pretext(pretext, model, B, generator)
         out_mtm, out_vtm = pretrain_forward(
             model, img, txt, batch["mask"], neg_idx, batch.get("vt_mask"),
             fp, mp, generator)
-        ls_mtm = common.cross_entropy_ignore(out_mtm, batch["ans_mtm"])
+        ls_mtm = global_token_mean(
+            common.cross_entropy_ignore(out_mtm, batch["ans_mtm"]),
+            batch["ans_mtm"])
         # "true" for each clip's own text (column 0), "false" for the rest
         labels = torch.full((B, O), false_id, device=img.device)
         labels[:, 0] = true_id
@@ -169,6 +202,15 @@ def make_loss_fn(true_id: int, false_id: int, vtm_batch: int = 4,
         return ls_mtm + ls_vtm, {"mtm": ls_mtm, "vtm": ls_vtm}
 
     return loss_fn
+
+
+def global_token_mean(loss: torch.Tensor,
+                      ans_mtm: torch.Tensor) -> torch.Tensor:
+    """``loss``, the mean over this rank's targets of ``ans_mtm`` (>= 0),
+    as its share of the mean over every rank's (itself in one process)."""
+    if pdist.process_count() == 1:
+        return loss
+    return loss * pdist.mean_weight((ans_mtm >= 0).sum()).to(loss.device)
 
 
 def make_eval_step(true_id: int, false_id: int,
@@ -183,8 +225,8 @@ def make_eval_step(true_id: int, false_id: int,
 
     def step(model, img, txt, mask, ans_mtm, generator=None):
         B = img.shape[0]
-        O = min(B, vtm_batch)
-        neg_idx = sample_negatives(generator, B, O - 1)
+        O = min(B * pdist.process_count(), vtm_batch)
+        neg_idx = batch_negatives(generator, B, O - 1)
         with common.evaluating(model):
             out_mtm, out_vtm = pretrain_forward(model, img, txt, mask,
                                                 neg_idx)

@@ -23,7 +23,9 @@ from lavender_tpu_torch.models.captioning import make_caption_loss_fn
 from lavender_tpu_torch.models.heads import MLPHead
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.tasks import common
-from lavender_tpu_torch.tasks.pretrain import sample_negatives
+from lavender_tpu_torch.parallel import dist as pdist
+from lavender_tpu_torch.tasks.pretrain import (batch_negatives,
+                                               global_token_mean)
 from lavender_tpu_torch.tasks.retrieval import grouped_pairs
 
 
@@ -245,22 +247,25 @@ def make_pretrain_ts_loss(temp: float = 1.0, vtm_batch: int = 4) -> Callable:
     """Pretraining with the scalar VTM head (LAVENDER_Pretrain.forward,
     main_pretrain_task_specific.py:138-180): the MLM loss of the unified
     head plus the cross-entropy of ``fc``'s scores over each clip's 1
-    positive and O - 1 negatives (O = min(B, vtm_batch)), the positive in
-    column 0.  Returns ``loss_fn(model, batch, generator) -> (loss,
-    {"mtm", "vtm"})``."""
+    positive and O - 1 negatives (O = min(B, vtm_batch), B every rank's
+    batch: ``tasks.pretrain.batch_negatives``), the positive in column 0.
+    Returns ``loss_fn(model, batch, generator) -> (loss, {"mtm",
+    "vtm"})``."""
     def loss_fn(model, batch, generator=None):
         img, ans_mtm = batch["img"], batch["ans_mtm"]
         B = img.shape[0]
-        O = min(B, vtm_batch)
-        neg_idx = sample_negatives(generator, B, O - 1)
+        O = min(B * pdist.process_count(), vtm_batch)
+        neg_idx = batch_negatives(generator, B, O - 1)
         fi, mi, ft, mt = model.go_feat(img, batch["txt"], batch["mask"],
                                        generator)
         Lv = fi.shape[1]
         out = model.go_cross(fi, mi, ft, mt, generator)
-        ls_mtm = common.cross_entropy_ignore(model.mlm_head(out[:, Lv:]),
-                                             ans_mtm)
-        own = torch.arange(B, device=neg_idx.device)[:, None]
+        ls_mtm = global_token_mean(common.cross_entropy_ignore(
+            model.mlm_head(out[:, Lv:]), ans_mtm), ans_mtm)
+        own = pdist.process_index() * B + torch.arange(
+            B, device=neg_idx.device)[:, None]
         flat = torch.cat([own, neg_idx], 1).reshape(-1).to(ft.device)
+        ft, mt = pdist.gather_rows(ft), pdist.gather_rows(mt)
         out = model.go_cross(fi.repeat_interleave(O, 0),
                              mi.repeat_interleave(O, 0), ft[flat], mt[flat],
                              generator)

@@ -12,7 +12,11 @@ the reference's ``.pt`` import.
   branch (a stored key of another shape re-seeds the stream) has no
   counterpart: torch has one generator implementation per device type.
   A generator saved on one device restores onto a generator on the same
-  device type only; anything else raises (no silent re-seed).
+  device type only; anything else raises (no silent re-seed).  Under
+  ZeRO-1 (``trainer.shard_train_state``) every rank calls
+  ``save_train_state``: the sharded AdamW state is consolidated on rank
+  0, which alone writes; the file restores into a state of any world
+  size, one process's plain AdamW included.
 - ``save_training_meta`` / ``save_log``: ``args.json`` and ``log.json``
   (agent.py:155-162), the same files as the JAX functions write for equal
   configs.
@@ -39,6 +43,7 @@ from torch import nn
 from lavender_tpu_torch.convert import (
     convert_lavender_checkpoint, load_torch_checkpoint, merge_state_dict,
     remap_swinbert_keys)
+from lavender_tpu_torch.parallel import dist as pdist
 
 
 def _state_dict(obj) -> Mapping[str, torch.Tensor]:
@@ -65,7 +70,12 @@ def load_params(path: str, like: Optional[nn.Module] = None
 def save_train_state(state, path: str):
     """Write a ``trainer.TrainState`` for an exact resume: model,
     optimizer, scheduler, step and the generator's state with its device
-    type."""
+    type.  A ZeRO-1 optimizer is a collective: call on every rank; rank 0
+    writes."""
+    if hasattr(state.optimizer, "consolidate_state_dict"):
+        state.optimizer.consolidate_state_dict(to=0)
+        if pdist.process_index() != 0:
+            return
     os.makedirs(op.dirname(op.abspath(path)), exist_ok=True)
     torch.save({"step": int(state.step),
                 "model": state.model.state_dict(),

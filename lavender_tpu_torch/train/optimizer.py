@@ -8,7 +8,11 @@ a ``LambdaLR`` computes what the JAX package's optax chain
 ``scale_by_adam -> add_decayed_weights -> scale_by_learning_rate`` does:
 p <- p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p), with the schedule
 read at the update's index (0 for the first).  The optional global-norm
-clip is optax's ``clip_by_global_norm``.
+clip is optax's ``clip_by_global_norm``.  Under a process group
+``build_optimizer(..., zero1=True)`` shards the AdamW state over the ranks
+(``torch.distributed.optim.ZeroRedundancyOptimizer``: the JAX package's
+``opt_state_pspecs``, the reference's DeepSpeed stage 1) with the same
+groups and schedule.
 """
 from __future__ import annotations
 
@@ -55,11 +59,14 @@ def param_group_labels(model: nn.Module) -> Dict[str, str]:
     return labels
 
 
-def build_optimizer(model: nn.Module, cfg: TrainConfig
-                    ) -> Tuple[torch.optim.AdamW,
+def build_optimizer(model: nn.Module, cfg: TrainConfig, zero1: bool = False
+                    ) -> Tuple[torch.optim.Optimizer,
                                torch.optim.lr_scheduler.LambdaLR]:
     """AdamW over the four groups and its per-iteration schedule (step the
-    scheduler once after every optimizer step)."""
+    scheduler once after every optimizer step); ``zero1``: each rank of
+    the process group keeps the AdamW state of its share of the
+    parameters only, and the updated parameters are broadcast from their
+    owners after each step."""
     max_iter = max(cfg.max_iter, 1)
     labels = param_group_labels(model)
     members: Dict[str, List[nn.Parameter]] = {g: [] for g in GROUPS}
@@ -77,7 +84,13 @@ def build_optimizer(model: nn.Module, cfg: TrainConfig
         sched = warmup_linear_schedule(lr, max_iter, cfg.warmup_ratio,
                                        cfg.min_lr)
         lambdas.append(lambda step, sched=sched, lr=lr: sched(step) / lr)
-    opt = torch.optim.AdamW(groups, betas=tuple(cfg.betas), eps=1e-8)
+    if zero1:
+        from torch.distributed.optim import ZeroRedundancyOptimizer
+        opt = ZeroRedundancyOptimizer(
+            groups, optimizer_class=torch.optim.AdamW,
+            betas=tuple(cfg.betas), eps=1e-8)
+    else:
+        opt = torch.optim.AdamW(groups, betas=tuple(cfg.betas), eps=1e-8)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
 
 

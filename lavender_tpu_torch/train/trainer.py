@@ -15,6 +15,21 @@ comes back as a device tensor.
                                                    max_grad_norm=1.0), seed=0)
     step = make_train_step(retrieval.make_loss_fn(true_id, false_id), state)
     loss = step({"img": img_u8, "txt": txt, "mask": mask, "vid": vid})
+
+Data parallel (the JAX package's sharded step, DDP + ZeRO-1): under a
+process group (``parallel.dist.distributed_init``) ``shard_train_state``
+places a fresh state (the weights broadcast from rank 0, the AdamW state
+sharded over the ranks, the random stream seeded per rank) and the step
+averages the gradients over the ranks after the backward, in the same
+order on every rank, before the clip and the update.  The task losses
+call model methods other than ``forward`` (``go_feat``, the pair
+functions, the heads), so DDP's forward-armed hooks would miss them; the
+all-reduce is explicit.  A loss that is a mean over a variable number of
+labels (``count_fn``) is scaled by ``world * local / global`` count first,
+so that the ranks together compute the global batch's mean, as the JAX
+step does.  The eval forward needs no placement (JAX
+``make_eval_forward``): each rank scores its own loader shard on its
+replica and the metrics are gathered (``parallel.dist.all_gather_obj``).
 """
 from __future__ import annotations
 
@@ -27,6 +42,7 @@ from torch import nn
 from lavender_tpu_torch.config import ModelConfig, TrainConfig
 from lavender_tpu_torch.convert import from_flax
 from lavender_tpu_torch.models.lavender import LavenderModel, init_weights
+from lavender_tpu_torch.parallel import dist as pdist
 from lavender_tpu_torch.train.optimizer import (build_optimizer,
                                                 clip_by_global_norm)
 
@@ -65,15 +81,57 @@ def create_train_state(config: ModelConfig, train_config: TrainConfig, *,
     return TrainState(model, optimizer, scheduler, generator, train_config)
 
 
+def rank_seed(seed: int, rank: int) -> int:
+    """The random stream's seed of ``rank``: ``seed`` on rank 0 (so one
+    rank draws what a single process draws), distinct on the others."""
+    return seed + (rank << 32)
+
+
+def shard_train_state(state: TrainState, seed: int = 0) -> TrainState:
+    """Place a freshly created state for data-parallel training (JAX
+    ``shard_train_state``): under a process group, the weights and buffers
+    broadcast from rank 0, AdamW rebuilt as ZeRO-1 over the same groups
+    (``build_optimizer(..., zero1=True)``) with a fresh schedule, and the
+    generator seeded from ``(seed, rank)`` (``rank_seed``).  Without a
+    group the state is returned as it is."""
+    if not pdist.is_initialized():
+        return state
+    pdist.broadcast_module(state.model)
+    state.optimizer, state.scheduler = build_optimizer(
+        state.model, state.config, zero1=True)
+    state.generator.manual_seed(rank_seed(seed, pdist.process_index()))
+    return state
+
+
+def label_count(key: str) -> Callable:
+    """``count_fn`` of a loss that averages over the labels of
+    ``batch[key]`` that are >= 0 (``tasks.common.cross_entropy_ignore``,
+    ``label_smoothed_kl_loss``)."""
+
+    def count(batch):
+        return (batch[key] >= 0).sum()
+
+    return count
+
+
 def make_train_step(loss_fn: Callable, state: TrainState,
-                    has_aux: bool = False) -> Callable:
+                    has_aux: bool = False,
+                    count_fn: Optional[Callable] = None) -> Callable:
     """``step(batch) -> loss`` (a detached device scalar) that advances
     ``state`` by one update.  ``loss_fn(model, batch, generator)`` returns
     the loss or, with ``has_aux``, ``(loss, metrics)`` (a dict of scalars,
     JAX ``value_and_grad(has_aux=True)``), and the step then returns
     ``(loss, metrics)``, each detached.  On a CUDA device the loss and its
     backward run under bf16 autocast; on the CPU (the parity tests) in
-    float32."""
+    float32.
+
+    Under a process group the gradients are averaged over the ranks
+    before the clip, and the returned loss is the ranks' mean; with
+    ``count_fn(batch)`` (the number of terms the loss averages, e.g.
+    ``label_count("mask_ans")``) and more than one rank, each rank's loss
+    is first weighted by ``world * count / global count``, so the returned
+    loss and the gradients are the global batch's mean (the metrics of
+    ``has_aux`` stay the rank's own)."""
     params = [p for p in state.model.parameters() if p.requires_grad]
     device_type = params[0].device.type
 
@@ -83,14 +141,23 @@ def make_train_step(loss_fn: Callable, state: TrainState,
                             enabled=device_type == "cuda"):
             out = loss_fn(state.model, batch, state.generator)
         loss, aux = out if has_aux else (out, None)
+        data_parallel = pdist.is_initialized()
+        world = pdist.process_count()
+        if data_parallel and world > 1 and count_fn is not None:
+            loss = loss * pdist.mean_weight(count_fn(batch)).to(loss.device)
         loss.backward()
+        if data_parallel:
+            pdist.all_reduce_grads(params)
         if state.config.max_grad_norm and state.config.max_grad_norm > 0:
             clip_by_global_norm(params, state.config.max_grad_norm)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
+        loss = loss.detach()
+        if data_parallel and world > 1:
+            loss = pdist.all_reduce_sum(loss.clone()) / world
         if has_aux:
-            return loss.detach(), {k: v.detach() for k, v in aux.items()}
-        return loss.detach()
+            return loss, {k: v.detach() for k, v in aux.items()}
+        return loss
 
     return step

@@ -40,6 +40,12 @@ from lavender_tpu_torch.ops.window_attention import fused_window_attention
 from lavender_tpu_torch.ops.wm_permute import wm_shift_rows
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# The Tier-1 suite runs six pytest workers on a machine of a few cores, and
+# torch's default of one intra-op thread per core in each of them
+# oversubscribes it: the port's tests took about three times the worker
+# time.  Every worker imports this module when it collects the suite, and
+# the port's tests import it for ``port_config``: one thread each.
+torch.set_num_threads(1)
 
 
 def port_config(cfg):
@@ -208,7 +214,10 @@ def test_port_imports_no_jax():
         "          'tasks.task_specific', 'tasks.multi_task',\n"
         "          'train.checkpoint', 'data.transforms',\n"
         "          'data.tokenizer', 'data.tsv', 'data.native',\n"
-        "          'data.dataset', 'data.loader', 'tasks.eval_retrieval'):\n"
+        "          'data.dataset', 'data.loader', 'tasks.eval_retrieval',\n"
+        "          'parallel.dist', 'train.agent', 'train.optimizer',\n"
+        "          'cli.main', 'cli.tools', 'utils.logging', 'utils.misc',\n"
+        "          'utils.profiling', 'utils.tb', 'utils.metrics'):\n"
         "    assert 'lavender_tpu_torch.' + m in sys.modules, m\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'lavender_tpu'))\n"

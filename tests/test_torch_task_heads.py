@@ -43,14 +43,27 @@ TS_CASES = {
 }
 
 
+@pytest.fixture(scope="module")
+def head_params():
+    """The JAX twin and its parameter draw per head width, drawn once for
+    the module (the cases of one width share them)."""
+    twins = {}
+
+    def get(head_out):
+        if head_out not in twins:
+            jm = _jax_model(head_out)
+            twins[head_out] = jm, _draw_params(jm, seed=1)
+        return twins[head_out]
+    return get
+
+
 @pytest.mark.parametrize("name", list(TS_CASES))
-def test_task_specific_head_losses_and_evals_match_jax(name):
+def test_task_specific_head_losses_and_evals_match_jax(head_params, name):
     """The heads on the text [CLS]: QA classification through ``fc``
     (head_out 3), NormSoftmax retrieval through the scalar ``fc``, RetMC
     option scores, and a multi-head model's ``fc_qamc``."""
     head_out, jloss, tloss, jeval, teval = TS_CASES[name]
-    jm = _jax_model(head_out)
-    params = _draw_params(jm, seed=1)
+    jm, params = head_params(head_out)
     B = 3
     if name == "retmc":
         txt, mask = _text(B * 2, 6)

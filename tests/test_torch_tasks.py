@@ -306,8 +306,8 @@ def check_pretrain(params, monkeypatch, ts):
         draws.append((B, n))
         return torch.from_numpy(neg.copy())
 
+    # both heads draw through pretrain.batch_negatives
     monkeypatch.setattr(pretrain, "sample_negatives", negatives)
-    monkeypatch.setattr(task_specific, "sample_negatives", negatives)
     tb = _port_batch(batch)
     loss, aux = tloss(model, tb, torch.Generator().manual_seed(0))
     loss.backward()

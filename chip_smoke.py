@@ -11,6 +11,8 @@
     python3 chip_smoke.py --only K16 K17 --cases  # their cases alone
     python3 chip_smoke.py --cli          # phases 1, 2 and 12 (the CLI)
     python3 chip_smoke.py --dp           # data parallel on 4 GPUs (run_dp)
+    python3 chip_smoke.py --tp           # tensor parallel on 4 GPUs (run_tp)
+    python3 chip_smoke.py --only TP      # phase 3's tensor-parallel shapes
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -258,6 +260,18 @@ nothing is ever run on the CPU instead:
    within CLI_DP_TOL, then a consolidated save, a restore into a fresh
    sharded state and the next loss; (d) printed: the Agent's clips/s and
    ms a step (host clock), peak memory, the card's name and power.
+
+Phase 3 also holds the tensor-parallel route's shapes (``_tp_shapes``,
+also alone under ``--only TP``): K8a / K8b at Swin-B's heads / 2 and / 4
+at every stage and K10a / K10b / K13a / K13b at the fusion encoder's 6 and
+3 heads with a head offset, each against its plain version and repeated
+bitwise, the keep masks exactly the offset's and those heads of the
+one-process mask.  ``--tp`` (four GPUs, ``run_tp``, not in the default
+run): (a) tp 4's B=8 step against one GPU's at rates 0 and at the default
+rates, the launches a rank, ms a step, peak memory, moments, the NCCL
+share and one all-reduce alone; (b) ``cli.main`` at dp 2 x tp 2 with its
+checkpoint served on one GPU; (c) tp 4's eval logits against one GPU's
+K1-K5 forward; (d) tp 2's greedy captions against one GPU's.
 
 Every time is the median of five CUDA-event windows of five calls.
 The last lines: the card's name and power limit, then a JSON line of the
@@ -1445,6 +1459,148 @@ def _swin_core_lse_and_dbias(g):
             raise AssertionError("K8b dbias off the f64 sum")
 
 
+def _tp_check(name, op, args, kw, compare):
+    """``op`` twice and its plain version once on the same inputs: within
+    ``compare``'s gate and the two calls bitwise equal."""
+    got = op(*args, **kw)
+    again = op(*args, **kw)
+    want = op.plain(*args, **kw)
+    torch.cuda.synchronize()
+    err, rel, ok, detail = compare(got, want)
+    pairs = zip(got, again) if isinstance(got, tuple) else [(got, again)]
+    same = all(torch.equal(a, b) for a, b in pairs if a is not None)
+    print(f"[kernel] {op.name} {name}: max_abs_err {err:.4g} rel_l2 "
+          f"{rel:.3g}{detail}, a second call "
+          f"{'bitwise equal' if same else 'DIFFERS'}", flush=True)
+    if not (ok and same):
+        raise AssertionError(f"{op.name} {name}: disagrees with its plain "
+                             "version or is not repeatable")
+
+
+def _tp_shapes(g):
+    """The tensor-parallel route's shapes on one GPU (``--tp`` runs them
+    on each rank), each kernel against its plain version, each call
+    repeated and bitwise equal: K8a / K8b at Swin-B's heads / 2 and / 4 at
+    every stage (B=8, shifted and unshifted), on the last rank's heads
+    and their bias rows; K10a / K10b and K13a / K13b at the fusion
+    encoder's 12 heads / 2 and / 4 (nH 6 and 3, C 384 and 192, 64 pairs
+    at L = 276, padded keys), rate 0.1, on the last rank's heads (head0
+    6 and 9 of 12): their keep masks, read back from the kernels, exactly
+    ``dropout.attention_keep`` with that offset and exactly those heads
+    of the one-process mask."""
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build, dropout
+    from lavender_tpu_torch.ops.encoder_attention import (
+        encoder_attention_train_bwd, encoder_attention_train_lanes_bwd,
+        fused_encoder_attention_train, fused_encoder_attention_train_lanes)
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        pad_window_mask, rel_pos_bias_wm)
+    from lavender_tpu_torch.ops.swin_core_attn import (
+        swin_core_attn, swin_core_attn_bwd)
+
+    t0 = time.perf_counter()
+    window, shift, N, Npad, B = (5, 7, 7), (0, 3, 3), 245, 248, TRAIN_BATCH
+    rel_index = relative_position_index((8, 7, 7))
+    for stage, nW, C, nH, side, _ in SWIN_STAGES:
+        hd = C // nH
+        table = _rnd(g, 15 * 13 * 13, nH, std=1.0)
+        masks = [None]
+        if stage < 4:
+            m = compute_shift_mask(5, side, side, window, shift)
+            masks.append(pad_window_mask(torch.as_tensor(m, device="cuda"),
+                                         Npad).to(torch.bfloat16))
+        for tp in (2, 4):
+            held, h0 = nH // tp, nH // tp * (tp - 1)
+            Cl = held * hd
+            bias = rel_pos_bias_wm(table[:, h0:h0 + held], rel_index, N,
+                                   Npad, torch.bfloat16)
+            qkv = _rnd(g, B, nW, Npad, 3 * Cl)
+            for mask in masks:
+                kind = "shifted" if mask is not None else "unshifted"
+                what = (f"tp {tp}: B={B} stage {stage} nH={held} (heads "
+                        f"{h0}.. of {nH}) hd={hd} {kind}")
+                args = (qkv, bias, mask, held, hd ** -0.5)
+                _tp_check(what, swin_core_attn, args, {}, lambda k, p: (
+                    *_compare(k[:, :, :N], p[:, :, :N], TOL, REL_L2), ""))
+                lse = torch.empty(B * nW, held, Npad, device="cuda")
+                out = _build.attention(qkv.view(-1, 3 * Cl), B * nW, Npad,
+                                       held, hd ** -0.5, bias=bias, mask=mask,
+                                       lse=lse).view(B, nW, Npad, Cl)
+                dout = _rnd(g, B, nW, Npad, Cl)
+                dout[:, :, N:] = 0.0
+                _tp_check(what, swin_core_attn_bwd,
+                          (qkv, lse, dout, bias, mask, held, hd ** -0.5),
+                          {"out": out}, _core_compare(Cl))
+    Bp, nH, hd, L, rate = TRAIN_BATCH ** 2, 12, 64, FRAMES * 50 + TXT_LEN, 0.1
+    scale = hd ** -0.5
+    n_txt = torch.randint(5, TXT_LEN + 1, (Bp,), generator=g, device="cuda")
+    pad = torch.arange(L, device="cuda")[None] >= L - TXT_LEN + n_txt[:, None]
+    mask32 = torch.where(pad, -1e4, 0.0)[:, None, :].expand(
+        Bp, L, L).contiguous()
+    mask16 = mask32.to(torch.bfloat16)
+    open_keys = torch.zeros(Bp, L, L, device="cuda")
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    whole = dropout.attention_keep(seed, Bp, nH, L, rate)
+    for tp in (2, 4):
+        held, h0 = nH // tp, nH // tp * (tp - 1)
+        C = held * hd
+        heads = {"head0": h0, "heads_total": nH}
+        what = (f"tp {tp}: B={Bp} L={L} C={C} nH={held} (heads {h0}.. of "
+                f"{nH}) rate {rate}, padded keys")
+        slab = _rnd(g, Bp, L, 3 * C)
+        q, k, v = slab.split(C, dim=-1)
+        _tp_check(what, fused_encoder_attention_train_lanes,
+                  (q, k, v, mask16, seed, scale, rate, held), heads,
+                  lambda a, b: (*_compare(a, b, TOL, REL_L2), ""))
+        lse = torch.empty(Bp, held, L, device="cuda")
+        out = _build.attention(slab.view(Bp * L, 3 * C), Bp, L, held, scale,
+                               mask=mask16, lse=lse, seed=seed, rate=rate,
+                               **heads).view(Bp, L, C)
+        dout = _rnd(g, Bp, L, C)
+        _tp_check(what, encoder_attention_train_lanes_bwd,
+                  (q, k, v, mask16, seed, dout, scale, rate, held),
+                  {"lse": lse, "o": out, **heads}, _grads_compare)
+        qh, kh, vh = slab.view(Bp, L, 3, held, hd).permute(2, 0, 3, 1, 4)
+        _tp_check(what + ", heads views", fused_encoder_attention_train,
+                  (qh, kh, vh, mask32, seed, scale, rate), heads,
+                  lambda a, b: (*_compare(a, b, TOL, REL_L2), ""))
+        lse_h = torch.empty(Bp, held, L, device="cuda")
+        out_h = _build.attention_heads(qh, kh, vh, mask32, scale, lse=lse_h,
+                                       seed=seed, rate=rate, **heads)
+        _tp_check(what + ", heads views", encoder_attention_train_bwd,
+                  (qh, kh, vh, mask32, seed, _rnd(g, Bp, held, L, hd), scale,
+                   rate), {"lse": lse_h, "o": out_h, **heads},
+                  _heads_grads_compare)
+
+        def k13(q, k, v):
+            return fused_encoder_attention_train(
+                q, k, v, open_keys, seed, 1.0, rate, **heads)
+
+        def k10(q, k, v):
+            t = [x.transpose(1, 2).reshape(Bp, L, C) for x in (q, k, v)]
+            o = fused_encoder_attention_train_lanes(
+                *t, open_keys.to(torch.bfloat16), seed, 1.0, rate, held,
+                **heads)
+            return o.view(Bp, L, held, hd).transpose(1, 2)
+
+        want = dropout.attention_keep(seed, Bp, held, L, rate, h0, nH)
+        n_off = int((want != whole[:, h0:h0 + held]).sum())
+        for name, run in (("K10a", k10), ("K13a", k13)):
+            n_diff = int((_probe_keep(run, Bp, held, L, hd) != want).sum())
+            print(f"[kernel] {name} tp {tp}, heads {h0}..{h0 + held - 1} of "
+                  f"{nH}, rate {rate}: the keep mask read back from the "
+                  f"kernel differs from dropout.attention_keep(head0={h0}) "
+                  f"in {n_diff} of {want.numel()}; that mask differs from "
+                  f"those heads of the one-process mask in {n_off}",
+                  flush=True)
+            if n_diff or n_off:
+                raise AssertionError(f"{name} tp {tp}: the head offset's "
+                                     "keep mask is not one process's")
+    print(f"[kernel] tensor-parallel shapes checked in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def _bert_core_vs_sdpa(g, L=FRAMES * 50 + TXT_LEN, padded=True):
     """K4's attention core alone (the part one PyTorch call computes): the
     tensor-core forward on the packed slab with the key-keep vector vs
@@ -2224,12 +2380,15 @@ def check_kernels(only=None, parts: bool = True):
         _k12_k14_parts(g)
     if parts and (not only or only & {"K16", "K17"}):
         _k16_parts(g)
+    if only and "TP" in only:
+        _tp_shapes(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
     _train_fwd_lse(g)
     _swin_core_lse_and_dbias(g)
     _heads_tc_pitch(g)
+    _tp_shapes(g)
     return per_kernel
 
 
@@ -4869,6 +5028,445 @@ def run_dp() -> int:
     return 0
 
 
+TP_WORLD, TP_CLI_BATCH = 4, 4
+
+
+def _plain_step(state, loss_fn):
+    """One GPU's train step without a process group (the trainer's step
+    minus its all-reduces): bf16 autocast, backward, clip, AdamW,
+    schedule."""
+    from lavender_tpu_torch.train.optimizer import clip_by_global_norm
+
+    params = [p for p in state.model.parameters() if p.requires_grad]
+
+    def step(batch):
+        state.optimizer.zero_grad(set_to_none=True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = loss_fn(state.model, batch, state.generator)
+        loss.backward()
+        clip_by_global_norm(params, state.config.max_grad_norm)
+        state.optimizer.step()
+        state.scheduler.step()
+        return loss.detach()
+    return step
+
+
+def _timed_steps(step, batch, n: int = DP_STEPS) -> float:
+    step(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def _nccl_times(group) -> dict:
+    """ms of one f32 all-reduce over ``group`` (median of 10, CUDA events,
+    after 3 warm-ups) at the tp step's sizes: a Swin-B stage-1 and
+    stage-3 slab at B=8 ([8, 64, 248, 128], [8, 4, 248, 512]), the fusion
+    encoder's [64, 276, 768], and the B=4 serving forward's fusion
+    encoder ([4, 276, 768])."""
+    import torch.distributed as tdist
+
+    out = {}
+    for name, shape in (("swin stage 1", (8, 64, 248, 128)),
+                        ("swin stage 3", (8, 4, 248, 512)),
+                        ("bert B=8 step", (64, 276, 768)),
+                        ("bert B=4 serving", (4, 276, 768))):
+        t = torch.ones(shape, device="cuda")
+        times = []
+        for i in range(13):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            tdist.all_reduce(t, group=group)
+            b.record()
+            torch.cuda.synchronize()
+            if i >= 3:
+                times.append(a.elapsed_time(b))
+        out[name] = (t.numel() * 4, statistics.median(times))
+    return out
+
+
+def _tp_worker(rank: int, world: int, port: int) -> int:
+    """One rank of ``--tp``, on GPU ``rank`` (NCCL), the default
+    ``ModelConfig()``: (a) tp 4, one data shard: phase 12's first B=8
+    batch through the retrieval-MLM step at rates 0 and at the default
+    rates (loss and gathered gradients, launches, peak memory, ms a step,
+    AdamW moments, the step's profile), rank 0 against one GPU's; (b)
+    dp 2 x tp 2: ``cli.main`` retrieval_mlm with ``"tp": 2``, its
+    checkpoint served on one GPU; (c) tp 4: the eval forward's MLM logits
+    against one GPU's K1-K5 forward; (d) tp 2: a greedy decode of 4 clips
+    against one GPU's.  Rank 0 writes build/cli/tp.json."""
+    import torch.distributed as tdist
+
+    from lavender_tpu_torch.cli import main as cli
+    from lavender_tpu_torch.config import DataConfig, ModelConfig, TrainConfig
+    from lavender_tpu_torch.data.dataset import load_task_data
+    from lavender_tpu_torch.data.loader import DataLoader
+    from lavender_tpu_torch.data.tokenizer import BertTokenizer
+    from lavender_tpu_torch.models import captioning
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.parallel import dist as pdist
+    from lavender_tpu_torch.parallel import mesh
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train import checkpoint
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step,
+                                                  shard_train_state)
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    pdist.distributed_init(f"127.0.0.1:{port}", world, rank, device="cuda")
+    ops = kernel_ops()
+    root = os.path.join(REPO_DIR, "build", "cli")
+    m4, m2 = mesh.make_mesh(4), mesh.make_mesh(2)
+    out = {"a": {}}
+
+    def gather(obj):  # one entry per rank, over every rank
+        got = [None] * world
+        tdist.all_gather_object(got, obj)
+        return got
+
+    def log(msg):
+        print(f"[tp] rank {rank}: {msg}", flush=True)
+
+    tok = BertTokenizer(os.path.join(REPO_DIR, "assets", "vocab_30k.txt"))
+    train = load_task_data(DataConfig(data_dir=root, dataset="cli",
+                                      task="cli", size_txt=TXT_LEN - 1),
+                           retrieval.RetrievalDataset, tok)["train"]
+    loader = DataLoader(train, TRAIN_BATCH, shuffle=True, num_workers=4)
+    loader.set_epoch(1)
+    whole = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(iter(loader)).items()}
+    loss_fn = retrieval.make_loss_fn(train.true_token_id,
+                                     train.false_token_id)
+    tcfg = TrainConfig(max_iter=1000, max_grad_norm=1.0)
+
+    # (a) tp 4, one data shard, the whole B=8 batch
+    for label, mcfg in (("rates 0", _rates0_config()),
+                        ("default rates", ModelConfig())):
+        mesh.set_global_mesh(m4)
+        state = shard_train_state(create_train_state(mcfg, tcfg, seed=0),
+                                  seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(ops.values())
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            loss = loss_fn(state.model, whole, state.generator)
+        loss.backward()
+        torch.cuda.synchronize()
+        launches = {k: op.launches for k, op in ops.items()}
+        peak_fb = torch.cuda.max_memory_allocated()
+        plan = state.model.tp_plan
+        grads = {n: mesh.gather_full(p.grad, *plan[n]).clone()
+                 for n, p in state.model.named_parameters()
+                 if p.grad is not None}
+        res = {"loss": float(loss.detach()), "launches": gather(launches),
+               "peak_fwd_bwd": gather(peak_fb)}
+        del loss
+        step = make_train_step(loss_fn, state)
+        res["ms_step"] = gather(_timed_steps(step, whole))
+        res["peak_step"] = gather(torch.cuda.max_memory_allocated())
+        local = state.optimizer.optim.state
+        res["moments"] = gather(sum(
+            t.numel() * t.element_size() for st in local.values()
+            for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")))
+        if label == "default rates":  # where a step's device time goes
+            host_ms, busy_ms, _ = _device_profile(lambda: step(whole))
+            names = _kernel_times(lambda: step(whole), 1)
+            comm = sum(t for n, t in names.items() if "nccl" in n.lower())
+            res["profile"] = {
+                "host_ms": host_ms, "busy_ms": busy_ms, "nccl_ms": comm,
+                "device_ms": sum(names.values()),
+                "top": sorted(names.items(), key=lambda kv: -kv[1])[:8]}
+        del state, step
+        torch.cuda.empty_cache()
+        if label == "default rates":  # NCCL alone: the step's all-reduces
+            res["nccl"] = gather(_nccl_times(mesh.model_group()))
+        log(f"(a) {label}: tp 4 step done")
+        tdist.barrier()
+        if rank == 0:
+            mesh.set_global_mesh(None)
+            ref = create_train_state(mcfg, tcfg, seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            gen = torch.Generator("cuda").manual_seed(0)  # rank_seed(0, 0)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                want = loss_fn(ref.model, whole, gen)
+            want.backward()
+            torch.cuda.synchronize()
+            res["peak_fwd_bwd_1"] = torch.cuda.max_memory_allocated()
+            ref_grads = {n: p.grad.detach().clone()
+                         for n, p in ref.model.named_parameters()
+                         if p.grad is not None}
+            _check_step(f"(a) tp 4 vs one GPU, {label}:",
+                        (res["loss"], grads), (float(want.detach()),
+                                               ref_grads),
+                        _grad_groups(ref.model), tag="tp")
+            del want, ref_grads
+            res["ms_step_1"] = _timed_steps(_plain_step(ref, loss_fn), whole)
+            res["peak_step_1"] = torch.cuda.max_memory_allocated()
+            del ref
+            torch.cuda.empty_cache()
+        del grads
+        out["a"][label] = res
+        tdist.barrier()
+
+    # (b) dp 2 x tp 2: cli.main retrieval_mlm with "tp": 2
+    cfg_path = os.path.join(root, "args_tp.json")
+    if rank == 0:  # one writer
+        _cli_config(root, "tp", "cli", batch=TP_CLI_BATCH)
+        with open(cfg_path) as f:
+            raw = json.load(f)
+        with open(cfg_path, "w") as f:
+            json.dump(dict(raw, tp=2), f)
+    tdist.barrier()
+    out_dir = os.path.join(root, "out_tp")
+    t0 = time.perf_counter()
+    log_b = cli.main(["--task", "retrieval_mlm", "--config", cfg_path,
+                      "--path_output", out_dir])
+    out["b"] = {"ls_tr": gather(log_b["ls_tr"][0]),
+                "ac_vl": gather(log_b["ac_vl"][0]),
+                "seconds": time.perf_counter() - t0}
+    log("(b) cli.main done")
+    tdist.barrier()
+
+    # (c) tp 4: the eval forward against one GPU's K1-K5 forward
+    rs = np.random.RandomState(0)
+    img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(np.uint8)
+    lens = rs.randint(5, TXT_LEN + 1, BATCH)
+    lens[0] = TXT_LEN
+    mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
+    txt = rs.randint(1, 30522, (BATCH, TXT_LEN)) * mask
+    mesh.set_global_mesh(m4)
+    server = build_server()
+    mesh.shard_model(server.model)
+    server.model.build_serving_cache(FRAMES, SIZE, SIZE)
+    server(img, txt, mask)  # warm-up
+    _reset(ops.values())
+    logits = server(img, txt, mask).float()
+    torch.cuda.synchronize()
+    out["c"] = {"launches": gather({k: op.launches
+                                    for k, op in ops.items()}),
+                "ms": gather(_ms(lambda: server(img, txt, mask), 5))}
+    del server
+    torch.cuda.empty_cache()
+    log("(c) tp 4 eval forward done")
+
+    # (d) tp 2: greedy captions of 4 clips
+    rs = np.random.RandomState(3)
+    cap_img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(
+        np.uint8)
+    gen_cfg = captioning.GenerateConfig(max_gen_length=GEN_LEN)
+    mesh.set_global_mesh(m2)
+    server = build_server()
+    mesh.shard_model(server.model)
+    server.model.build_serving_cache(FRAMES, SIZE, SIZE)
+    ids_tp, _ = captioning.make_generate_fn(
+        server.model, CLS_ID, SEP_ID, PAD_ID, MASK_ID, gen_cfg)(cap_img)
+    ids_tp = ids_tp.cpu()
+    del server
+    torch.cuda.empty_cache()
+    log("(d) tp 2 decode done")
+    tdist.barrier()
+
+    if rank == 0:
+        mesh.set_global_mesh(None)
+        # (b) the files, written once, and the checkpoint on one GPU
+        runs = os.listdir(out_dir)
+        files = sorted(os.listdir(os.path.join(out_dir, runs[0])))
+        ckpts = [f for f in files if f.startswith("ckpt_")]
+        out["b"].update(runs=runs, files=files)
+        server = build_server()
+        checkpoint.load_params(os.path.join(out_dir, runs[0], ckpts[0]),
+                               server.model)
+        got = server(img, txt, mask)
+        with plain_path():
+            ref = server(img, txt, mask)
+        err, rel, ok = _compare(got, ref, SLICE_TOL, SLICE_REL_L2)
+        out["b"]["served"] = {"err": err, "rel": rel, "ok": ok,
+                              "finite": bool(torch.isfinite(got).all())}
+        del server, got, ref
+        # (c) one GPU's forward (K1-K5) on the same weights
+        server = build_server()
+        want = server(img, txt, mask).float()
+        err, rel, ok = _compare(logits, want, SLICE_TOL, SLICE_REL_L2)
+        out["c"].update(err=err, rel=rel, ok=ok,
+                        max_ref=float(want.abs().max()),
+                        shape=list(logits.shape),
+                        ms_1=_ms(lambda: server(img, txt, mask), 5))
+        # (d) one GPU's decode, its logits at every step
+        steps = []
+        hook = server.model.fc_mtm.register_forward_hook(
+            lambda mod, inp, o: steps.append(o[:, 0].float()))
+        try:
+            ids_1, _ = captioning.make_generate_fn(
+                server.model, CLS_ID, SEP_ID, PAD_ID, MASK_ID,
+                gen_cfg)(cap_img)
+        finally:
+            hook.remove()
+        kv = torch.stack(steps)  # [steps, B, V]
+        n_steps = kv.shape[0]
+        gate = SLICE_TOL * max(1.0, float(kv.abs().max()))
+        top2 = kv.topk(2, dim=-1).values
+        decided = ((top2[..., 0] - top2[..., 1]) > 2 * gate).cpu()
+        running = torch.ones(n_steps, BATCH, dtype=torch.bool)
+        ids_1 = ids_1.cpu()
+        running[1:] = (ids_1[:, 1:n_steps] != SEP_ID).cumprod(1).bool().T
+        differ = (ids_tp[:, 1:n_steps + 1] != ids_1[:, 1:n_steps + 1]).T
+        # a clip whose tokens part at a near-tie decodes other prefixes
+        # from there on: its later steps are exempt too
+        parted = (differ & ~decided).cumsum(0) > 0
+        checked = decided & running & ~parted
+        out["d"] = {"checked": int(checked.sum()),
+                    "running": int(running.sum()),
+                    "near_ties": int((running & ~decided).sum()),
+                    "parted": int((running & decided & parted).sum()),
+                    "mismatch": int((differ & checked).sum()),
+                    "differ": int(differ.sum()), "gate": gate,
+                    "ids_tp": ids_tp.tolist(), "ids_1": ids_1.tolist()}
+        with open(os.path.join(root, "tp.json"), "w") as f:
+            json.dump(out, f)
+    tdist.barrier()
+    tdist.destroy_process_group()
+    return 0
+
+
+def run_tp() -> int:
+    """``--tp``: tensor parallelism across ``TP_WORLD`` GPUs of one host
+    (``_tp_worker`` on each), gated: every rank exits 0; (a) the tp 4 step
+    within LOSS_TOL / STEP_GRAD_REL_L2 of one GPU's at rates 0 and at the
+    default rates (checked on rank 0), K8a / K8b at 24 and K10a / K10b at
+    12 launches a step on every rank, K2 launched, K1, K9 and K11 not;
+    (b) ``ls_tr`` finite and ``ac_vl`` in [0, 1] on every rank, one run
+    directory with one log and one checkpoint, which served on one GPU
+    agrees with the plain path within SLICE_TOL / SLICE_REL_L2; (c) the
+    tp 4 eval forward within SLICE_TOL / SLICE_REL_L2 of one GPU's, K8a
+    24 and K10a 12 launches, no K1 / K4 / K5; (d) the tp 2 greedy tokens
+    equal to one GPU's wherever its top-1 / top-2 gap exceeds twice the
+    gate."""
+    import socket
+    import subprocess
+
+    if torch.cuda.device_count() < TP_WORLD:
+        raise SystemExit(f"chip_smoke --tp: {TP_WORLD} GPUs needed, "
+                         f"{torch.cuda.device_count()} found")
+    root = os.path.join(REPO_DIR, "build", "cli")
+    shutil.rmtree(root, ignore_errors=True)
+    _cli_data(root)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    # each rank's output to a file; a rank that fails stops the others at
+    # once (they would wait in their next collective)
+    logs = [os.path.join(root, f"tp_rank{r}.log") for r in range(TP_WORLD)]
+    procs = []
+    for r in range(TP_WORLD):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--tp-worker",
+                 str(r), str(TP_WORLD), str(port)], stdout=f,
+                stderr=subprocess.STDOUT, text=True))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if (any(p.poll() not in (None, 0) for p in procs)
+                    or time.perf_counter() - t0 > 900):
+                break
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for r, p in enumerate(procs):
+        with open(logs[r]) as f:
+            lines = f.read().strip().splitlines()
+        keep = [l for l in lines if l.startswith("[tp]")] + lines[-12:]
+        print(f"[tp] rank {r}: exit {p.returncode}; its [tp] and last "
+              f"lines:", flush=True)
+        for line in dict.fromkeys(keep):
+            print(f"[tp]   {line}", flush=True)
+    if any(p.returncode != 0 for p in procs):
+        raise AssertionError("--tp: a rank failed")
+    with open(os.path.join(root, "tp.json")) as f:
+        res = json.load(f)
+    smi = _nvidia_smi()
+    ok = True
+    for label, a in res["a"].items():
+        gib = [round(b / 2 ** 30, 2) for b in a["peak_step"]]
+        print(f"[tp] (a) {label}, B={TRAIN_BATCH} on tp 4: ms a step a rank "
+              f"{[round(t, 1) for t in a['ms_step']]} against "
+              f"{a['ms_step_1']:.1f} on one GPU; peak memory a rank {gib} "
+              f"GiB against {a['peak_step_1'] / 2 ** 30:.2f} GiB on one GPU "
+              f"(forward + backward alone {[round(b / 2 ** 30, 2) for b in a['peak_fwd_bwd']]} "
+              f"against {a['peak_fwd_bwd_1'] / 2 ** 30:.2f}); AdamW moments a "
+              f"rank {[round(m / 2 ** 20, 1) for m in a['moments']]} MiB "
+              f"({smi})", flush=True)
+        for r, launches in enumerate(a["launches"]):
+            named = {k: n for k, n in launches.items() if n}
+            print(f"[tp] (a) {label}, rank {r}'s launches in one forward + "
+                  f"backward: {named}", flush=True)
+            ok = ok and all(launches[k] == n for k, n in (
+                ("K8a", 24), ("K8b", 24), ("K10a", 12), ("K10b", 12),
+                ("K1", 0), ("K9", 0), ("K11", 0)))
+            ok = ok and launches["K2"] > 0
+        for r, times in enumerate(a.get("nccl", [])):
+            print(f"[tp] (a) rank {r}: one f32 all-reduce over the 4 ranks "
+                  f"alone: " + ", ".join(
+                      f"{n} {b / 2 ** 20:.1f} MiB {ms:.3f} ms ("
+                      f"{1.5 * b / ms / 1e6:.1f} GB/s bus)"
+                      for n, (b, ms) in times.items()), flush=True)
+        if "profile" in a:
+            p = a["profile"]
+            busy = ("not measured" if p["busy_ms"] is None
+                    else f"{p['busy_ms']:.1f} ms")
+            print(f"[tp] (a) rank 0's tp 4 step under torch.profiler: host "
+                  f"{p['host_ms']:.1f} ms, device busy {busy}, device "
+                  f"activities {p['device_ms']:.1f} ms of which NCCL "
+                  f"{p['nccl_ms']:.1f} ms; the largest: "
+                  f"{[(n[:60], round(t, 2)) for n, t in p['top']]}",
+                  flush=True)
+    b = res["b"]
+    print(f"[tp] (b) cli.main retrieval_mlm, dp 2 x tp 2, {TP_CLI_BATCH} "
+          f"clips a data shard: ls_tr {b['ls_tr']}, ac_vl {b['ac_vl']}, "
+          f"{b['seconds']:.1f} s on rank 0; run directories {b['runs']}, "
+          f"files {b['files']}; its checkpoint served on one GPU vs the "
+          f"plain path: max_abs_err {b['served']['err']:.4g} rel_l2 "
+          f"{b['served']['rel']:.3g}", flush=True)
+    ok = ok and all(np.isfinite(v) for v in b["ls_tr"]) and all(
+        0.0 <= v <= 1.0 for v in b["ac_vl"]) and len(b["runs"]) == 1 and (
+        b["files"].count("log.json") == 1) and sum(
+        f.startswith("ckpt_") for f in b["files"]) == 1 and (
+        b["served"]["ok"] and b["served"]["finite"])
+    c = res["c"]
+    print(f"[tp] (c) eval forward, B={BATCH}, tp 4 vs one GPU's K1-K5 "
+          f"forward: logits {c['shape']} max_abs_err {c['err']:.4g} rel_l2 "
+          f"{c['rel']:.3g} (tol {SLICE_TOL} max(1,max|ref|), {SLICE_REL_L2})"
+          f", max|ref| {c['max_ref']:.3g}; ms a forward a rank "
+          f"{[round(t, 2) for t in c['ms']]} against {c['ms_1']:.2f} on one "
+          f"GPU ({smi})", flush=True)
+    for r, launches in enumerate(c["launches"]):
+        ok = ok and launches["K8a"] == 24 and launches["K10a"] == 12 and all(
+            launches[k] == 0 for k in ("K1", "K3", "K4", "K5"))
+    print(f"[tp] (c) rank 0's launches: "
+          f"{ {k: n for k, n in c['launches'][0].items() if n} }", flush=True)
+    ok = ok and c["ok"] and c["shape"] == [BATCH, TXT_LEN, 30522]
+    d = res["d"]
+    print(f"[tp] (d) greedy captions of {BATCH} clips, tp 2 vs one GPU: "
+          f"{d['checked']} of {d['running']} running steps decided by a "
+          f"top-1/top-2 gap > {2 * d['gate']:.3g}, {d['mismatch']} of them "
+          f"differ ({d['differ']} differ in all); {d['near_ties']} near-ties "
+          f"exempt, and {d['parted']} decided steps after a near-tie that "
+          f"parted the two decodes", flush=True)
+    ok = ok and d["mismatch"] == 0
+    if not ok:
+        raise AssertionError("--tp: the tensor-parallel runs disagree or "
+                             "launched other kernels")
+    return 0
+
+
 def kernel_ops():
     """Each ported kernel's wrapper by its id (K1 .. K17)."""
     from lavender_tpu_torch.ops.encoder_attention import (
@@ -4909,6 +5507,8 @@ def main() -> int:
                          "this check runs only on a CUDA GPU")
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of --dp
         return _dp_worker(*map(int, sys.argv[2:5]))
+    if sys.argv[1:2] == ["--tp-worker"]:  # one rank of --tp
+        return _tp_worker(*map(int, sys.argv[2:5]))
     from lavender_tpu_torch.ops import _build
 
     print(_nvidia_smi(), flush=True)  # the card's name and power limit
@@ -4935,6 +5535,8 @@ def main() -> int:
         return 0
     if sys.argv[1:2] == ["--dp"]:  # the data-parallel path on 4 GPUs
         return run_dp()
+    if sys.argv[1:2] == ["--tp"]:  # tensor parallelism on 4 GPUs
+        return run_tp()
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     server = build_server()

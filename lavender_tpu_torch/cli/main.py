@@ -11,8 +11,13 @@ and without ``--device cpu`` it raises.  Under ``WORLD_SIZE`` / ``RANK`` /
 process drives one GPU (``LOCAL_RANK``) and the run is data-parallel:
 ``size_batch`` per GPU, the loaders split by rank, the gradients averaged
 over the ranks, ZeRO-1 optimizer state (``parallel.dist``,
-``train.trainer``).  ``tp`` > 1 (tensor parallelism) is not ported and
-raises.  In-batch pairs (retrieval, NormSoftmax) stay per rank, as the
+``train.trainer``).  ``"tp": 2`` or ``4`` in the config (tensor
+parallelism, ``parallel.mesh``) splits the ranks into ``world / tp``
+data shards of ``tp`` GPUs, which hold one batch of ``size_batch`` clips
+and a Megatron slice each of the weights (the loaders split by data
+shard; the logs and checkpoints written once, in the full layout).  A
+world that ``tp`` does not divide, or fewer GPUs on a host than its
+ranks, raises.  In-batch pairs (retrieval, NormSoftmax) stay per rank, as the
 JAX package keeps them per data shard: each rank holds its own share of
 the batch, so the losses take ``group=1``.
 
@@ -38,6 +43,7 @@ from lavender_tpu_torch.data.loader import DataLoader
 from lavender_tpu_torch.data.tokenizer import BertTokenizer
 from lavender_tpu_torch.models.lavender import LavenderModel
 from lavender_tpu_torch.parallel import dist as pdist
+from lavender_tpu_torch.parallel import mesh
 from lavender_tpu_torch.tasks import common
 from lavender_tpu_torch.train.agent import Agent, gather_mean, run_finetune
 from lavender_tpu_torch.train.trainer import (create_train_state,
@@ -89,21 +95,44 @@ def _pretext(cfg: RunConfig, ds, task_name: str):
 
 
 def _train_batch(cfg: RunConfig) -> int:
-    """Per-process train loader batch: ``size_batch`` is per GPU (the
-    reference's per-GPU semantics, README.md:91), one GPU a process (JAX
-    scales it by the process's share of its mesh's data axis)."""
+    """Per-process train loader batch: ``size_batch`` per data shard (the
+    reference's per-GPU semantics, README.md:91, and JAX's ``_train_batch``
+    per data-axis row): one GPU a process, and under tensor parallelism
+    the ``tp`` ranks of a data shard load the same batch."""
     return cfg.train.size_batch
 
 
 def _loader(cfg: RunConfig, ds, train: bool, seed: Optional[int] = None):
-    """The rank's loader over ``ds`` (shuffled and full batches only for
-    training), collating into page-locked memory on the card."""
+    """The data shard's loader over ``ds`` (shuffled and full batches only
+    for training), collating into page-locked memory on the card."""
     return DataLoader(
         ds, _train_batch(cfg) if train else cfg.train.size_batch,
         shuffle=train, num_workers=cfg.data.n_workers,
         seed=cfg.train.seed if seed is None else seed,
-        rank=pdist.process_index(), world=pdist.process_count(),
+        rank=pdist.data_index(), world=pdist.data_count(),
         drop_last=train, pin_memory=_device(cfg).type == "cuda")
+
+
+def install_mesh(tp: int, device: str):
+    """The run's (data, model) mesh (JAX ``maybe_make_mesh``): under
+    ``tp`` > 1 the process group's ranks split into data shards of ``tp``
+    model ranks.  Raises where ``tp`` does not divide the world, and on
+    the card where a host has fewer GPUs than its ranks (NCCL refuses two
+    ranks on one GPU)."""
+    if tp <= 1:
+        mesh.set_global_mesh(None)
+        return
+    world = pdist.process_count()
+    if world % tp:
+        raise ValueError(f"tp={tp} does not divide the {world} processes "
+                         f"(launch a multiple of tp, one GPU each)")
+    if device == "cuda" and pdist.local_rank() >= torch.cuda.device_count():
+        raise RuntimeError(f"local rank {pdist.local_rank()} has no GPU of "
+                           f"its own ({torch.cuda.device_count()} visible)")
+    m = mesh.make_mesh(tp)
+    mesh.set_global_mesh(m)
+    LOGGER.info(f"tensor parallel: {m.dp} data shards x tp {m.tp}, data "
+                f"rank {m.data_rank}, model rank {m.model_rank}")
 
 
 def _loaders(cfg: RunConfig, datasets):
@@ -861,10 +890,6 @@ def main(argv=None):
         # sees the checkpoint directory (utils/args.py:245-293)
         _raw["path_ckpt"] = args.path_ckpt
     cfg = load_run_config(_raw)
-    if cfg.tp > 1:
-        raise NotImplementedError(
-            f"tp={cfg.tp}: tensor parallelism is not ported to "
-            f"lavender_tpu_torch (data parallelism only: one GPU a process)")
     cfg.extra["config_path"] = args.config
     cfg.extra["device"] = args.device
     for key in ("size_test", "rerank_top_k"):
@@ -887,6 +912,7 @@ def main(argv=None):
     if pdist.distributed_init(device=args.device):
         LOGGER.info(f"data parallel: {pdist.process_count()} processes, "
                     f"rank {pdist.process_index()}")
+    install_mesh(cfg.tp, args.device)
     tok = BertTokenizer(cfg.data.vocab_path)
     return TASKS[args.task](cfg, tok)
 

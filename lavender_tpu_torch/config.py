@@ -162,8 +162,9 @@ class DataConfig:
 class RunConfig:
     """Top-level run config = model + train + data + task wiring; the
     reference's ``_args/args_*.json`` key names through
-    :func:`load_run_config`.  ``tp``: the tensor-parallel size (the CLI
-    raises for tp > 1: only the data-parallel layer is ported)."""
+    :func:`load_run_config`.  ``tp``: the tensor-parallel size, the model
+    axis of ``parallel.mesh`` (the CLI splits its ranks into data shards
+    of ``tp`` GPUs)."""
 
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)

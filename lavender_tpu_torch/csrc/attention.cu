@@ -29,12 +29,14 @@ namespace {
 int heads_tc(const void* q, const void* k, const void* v, void* out, const long long* st,
              const void* bias, int bias_ld, const void* mask, int mask_ld, bool mask_f32,
              void* lse, int nSeq, int N, int nH, int hd, int nW, float scale, const void* seed,
-             uint32_t thresh, float drop_scale, cudaStream_t s) {
+             uint32_t thresh, float drop_scale, int head0, int heads_total, cudaStream_t s) {
   lvt::TcFwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                 static_cast<const bf16*>(v)},
                static_cast<bf16*>(out), {}, static_cast<float*>(lse), mask,
                static_cast<const bf16*>(bias), static_cast<const int64_t*>(seed), thresh,
                drop_scale, scale, nSeq, N, nH, nW, mask_ld, bias_ld};
+  a.head0 = head0;
+  a.heads_total = heads_total;
   for (int t = 0; t < 4; ++t)
     for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
   return lvt::attention_fwd_tc(a, hd, mask_f32, s);
@@ -52,11 +54,14 @@ int heads_tc(const void* q, const void* k, const void* v, void* out, const long 
 // (attention_fwd_tc.cu; nW must divide nSeq; no bias with dropout; keep
 // only without lse, dropout and bias): K10a with dropout, K8a with a bias,
 // K1 (tensor_cores) with a bias, K4 (tensor_cores) with keep; any other
-// call is refused (cudaErrorInvalidValue).
+// call is refused (cudaErrorInvalidValue).  head0 and heads_total: the
+// dropout stream of (sequence, head) is sequence * heads_total + head0 +
+// head (a tensor-parallel rank's own heads; heads_total 0: nH).
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
-                                  float drop_scale, int tensor_cores, void* stream) {
+                                  float drop_scale, int tensor_cores, int head0, int heads_total,
+                                  void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   if (lse == nullptr && !tensor_cores) return (int)cudaErrorInvalidValue;
   if (keep != nullptr && (lse != nullptr || seed != nullptr || bias != nullptr))
@@ -68,6 +73,8 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
                static_cast<float*>(lse), mask, static_cast<const bf16*>(bias),
                static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW};
   a.keep = static_cast<const uint8_t*>(keep);
+  a.head0 = head0;
+  a.heads_total = heads_total;
   return lvt::attention_fwd_tc(a, hd, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -78,15 +85,17 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
 // rows mask_ld elements apart (null: none).  lse [B, nH, N] f32 (null: not
 // written), seed, thresh and drop_scale as in lvt_attention_bf16 (null
 // seed: no dropout; K7 passes neither, the train attention K13a both).  No
-// bias or key-keep.  hd in {16, 32, 64}.
+// bias or key-keep.  head0, heads_total as in lvt_attention_bf16.  hd in
+// {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bf16(const void* q, const void* k, const void* v, void* out,
                                         const long long* st, const void* mask, int mask_ld,
                                         void* lse, int B, int N, int nH, int hd, float scale,
                                         const void* seed, uint32_t thresh, float drop_scale,
-                                        void* stream) {
+                                        int head0, int heads_total, void* stream) {
   if (B <= 0 || N <= 0 || nH <= 0 || nH > 65535) return (int)cudaErrorInvalidValue;
   return heads_tc(q, k, v, out, st, nullptr, 0, mask, mask_ld, true, lse, B, N, nH, hd, B, scale,
-                  seed, thresh, drop_scale, static_cast<cudaStream_t>(stream));
+                  seed, thresh, drop_scale, head0, heads_total,
+                  static_cast<cudaStream_t>(stream));
 }
 
 // Per-window attention (K15) on the tensor cores: q, k, v -> out, each
@@ -103,5 +112,5 @@ LVT_EXPORT int lvt_window_attention_bf16(const void* q, const void* k, const voi
   if (W <= 0 || N <= 0 || nH <= 0 || nW <= 0 || W % nW != 0 || nH > 65535)
     return (int)cudaErrorInvalidValue;
   return heads_tc(q, k, v, out, st, bias, bias_ld, mask, mask_ld, mask_f32 != 0, nullptr, W, N,
-                  nH, hd, nW, scale, nullptr, 0, 1.0f, static_cast<cudaStream_t>(stream));
+                  nH, hd, nW, scale, nullptr, 0, 1.0f, 0, 0, static_cast<cudaStream_t>(stream));
 }

@@ -101,6 +101,7 @@ struct BwdHeads {
   bf16* dk;
   bf16* dv;
   long long st[7][3];
+  int head0, heads_total;  // the dropout stream (dropout.cuh attention_stream)
 };
 
 // The dropout factor m of probability (i, j): 1 without dropout, else 0 or
@@ -168,7 +169,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int j = threadIdx.x; j < N; j += blockDim.x) lse_s[j] = lse[((size_t)seq * nH + h) * N + j];
     __syncthreads();
     const float* mask_b = mask == nullptr ? nullptr : mask + (size_t)seq * N * N;
-    const uint32_t key = DROP ? lvt::dropout_key(seed32, (uint32_t)(seq * nH + h)) : 0u;
+    const uint32_t key =
+        DROP ? lvt::dropout_key(seed32, lvt::attention_stream(seq, h, hb.head0, hb.heads_total))
+             : 0u;
 #define LVT_SCORE(qk, i, j) \
   ((qk) + (mask_b != nullptr ? mask_b[(size_t)(i) * N + (j)] : 0.0f))
 #define LVT_MFAC(i, j) mfac_of<DROP>(key, (uint32_t)((i) * N + (j)), thresh, drop_scale)
@@ -318,14 +321,14 @@ int launch_drop(const void* q, const void* dout, const void* lse, const void* ma
 // (1 <= nChunks <= nSeq) into part [nChunks, nH, N, N] f32 scratch (both
 // unused without a bias: K10b).  seed (int64 on the device) or null: the
 // forward's dropout (bits >= thresh kept, scaled by drop_scale), never with
-// a bias.  hd in {16, 32, 64}.  Runs on the tensor cores
-// (attention_bwd_tc.cu).
+// a bias; head0 and heads_total its stream, as lvt_attention_bf16's.  hd in
+// {16, 32, 64}.  Runs on the tensor cores (attention_bwd_tc.cu).
 LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const void* lse,
                                       const void* dd, const void* bias, const void* mask,
                                       void* dqkv, void* dbias, void* part, int nSeq, int N,
                                       int nH, int hd, int nW, int nChunks, float scale,
                                       const void* seed, uint32_t thresh, float drop_scale,
-                                      void* stream) {
+                                      int head0, int heads_total, void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535 || nSeq % nW != 0 ||
       (bias == nullptr) != (dbias == nullptr) || dd == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -340,6 +343,8 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
                static_cast<const int64_t*>(seed), thresh, drop_scale, scale, nSeq, N, nH, nW,
                static_cast<const bf16*>(bias), static_cast<float*>(dbias),
                static_cast<float*>(part), nChunks};
+  a.head0 = head0;
+  a.heads_total = heads_total;
   return lvt::attention_bwd_tc(a, hd, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -353,15 +358,19 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
 // scratch [nChunks, B, N, N] (each block takes one sequence and a chunk of
 // its heads, 1 <= nChunks <= nH), without it the tensor-core kernels' D
 // [B, nH, N] as lvt_attention_row_dot_bf16 wrote it (nChunks = nH).  seed,
-// thresh, drop_scale as in lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
+// thresh, drop_scale, head0, heads_total as in lvt_attention_bwd_bf16.  hd
+// in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* mask,
                                             void* dq, void* dk, void* dv, void* dmask, void* part,
                                             const long long* st, int B, int N, int nH, int hd,
                                             int nChunks, float scale, const void* seed,
-                                            uint32_t thresh, float drop_scale, void* stream) {
+                                            uint32_t thresh, float drop_scale, int head0,
+                                            int heads_total, void* stream) {
+  if (heads_total <= 0) heads_total = nH;
   if (B <= 0 || N <= 0 || nH <= 0 || B > 65535 || nChunks < 1 || nChunks > nH ||
-      part == nullptr || (dmask == nullptr && nChunks != nH))
+      part == nullptr || (dmask == nullptr && nChunks != nH) || head0 < 0 ||
+      head0 + nH > heads_total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dmask == nullptr) {  // K13b on the model path: the tensor cores
@@ -371,12 +380,14 @@ LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const 
                  {},
                  static_cast<const float*>(lse), mask, static_cast<const float*>(part),
                  static_cast<const int64_t*>(seed), thresh, drop_scale, scale, B, N, nH, B};
+    a.head0 = head0;
+    a.heads_total = heads_total;
     for (int t = 0; t < 7; ++t)
       for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
     return lvt::attention_bwd_tc(a, hd, true, s);
   }
   BwdHeads hb{static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(dk),
-              static_cast<bf16*>(dv)};
+              static_cast<bf16*>(dv), {}, head0, heads_total};
   for (int t = 0; t < 7; ++t)
     for (int a = 0; a < 3; ++a) hb.st[t][a] = st[3 * t + a];
 #define LVT_HEADS(HD) \

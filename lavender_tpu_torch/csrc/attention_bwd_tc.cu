@@ -4,7 +4,8 @@
 //   ds = p * (dp - D),  dq = ds k * scale,  dk = ds^T q * scale,
 //   dbias[h] = sum over sequences of ds (with a bias),
 // m the dropout factor of each probability, regenerated from the forward's
-// seed by the counter hash of dropout.cuh (stream sequence * nH + head,
+// seed by the counter hash of dropout.cuh (stream sequence * nH + head, or with a head offset
+// sequence * heads_total + head0 + head: dropout.cuh attention_stream;
 // index row * N + key), lse the forward's row log-sum-exp
 // (attention_fwd_tc.cu).
 //
@@ -135,7 +136,10 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dq_kernel(const lvt:
     D[r] = row[r] < N ? a.dd[(size_t)bh * N + row[r]] : 0.0f;
   }
   const float sl2 = a.scale * kLog2e;
-  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*a.seed, (uint32_t)bh) : 0u;
+  const uint32_t key =
+      DROP ? lvt::dropout_key((uint32_t)*a.seed,
+                              lvt::attention_stream(seq, h, a.head0, a.heads_total))
+           : 0u;
 
   float dq[HD / 8][4];
 #pragma unroll
@@ -273,7 +277,10 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) bwd_dkdv_kernel(const lv
   const int col[2] = {j0 + wc, j0 + wc + 8};
   const bool live = j0 + warp * 16 < N;  // the warp has keys to form
   const float sl2 = a.scale * kLog2e;
-  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*a.seed, (uint32_t)bh) : 0u;
+  const uint32_t key =
+      DROP ? lvt::dropout_key((uint32_t)*a.seed,
+                              lvt::attention_stream(seq, h, a.head0, a.heads_total))
+           : 0u;
 
   float dk[HD / 8][4], dv[HD / 8][4];
 #pragma unroll
@@ -531,7 +538,10 @@ int launch_hd(const lvt::TcBwd& a, int hd, cudaStream_t stream) {
 
 }  // namespace
 
-int lvt::attention_bwd_tc(const TcBwd& a, int hd, bool mask_f32, cudaStream_t stream) {
+int lvt::attention_bwd_tc(const TcBwd& call, int hd, bool mask_f32, cudaStream_t stream) {
+  TcBwd a = call;
+  if (a.heads_total <= 0) a.heads_total = a.nH;
+  if (a.head0 < 0 || a.head0 + a.nH > a.heads_total) return (int)cudaErrorInvalidValue;
   if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.nW <= 0 || a.nSeq % a.nW != 0 ||
       (long long)a.nSeq * a.nH > 0x7fffffffLL || a.N > 65535 || a.dd == nullptr)
     return (int)cudaErrorInvalidValue;

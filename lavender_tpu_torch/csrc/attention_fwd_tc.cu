@@ -3,7 +3,8 @@
 //   o = ((m * p) v) / l,  lse = log(l) + max,
 // l the row sum of the undropped p, m the dropout factor of each
 // probability (0 or 1 / (1 - rate)) from the counter hash of dropout.cuh
-// (stream sequence * nH + head, index row * N + key, the logical
+// (stream sequence * nH + head, or with a head offset
+// sequence * heads_total + head0 + head: dropout.cuh attention_stream; index row * N + key, the logical
 // coordinates, never an address): the bits the backward
 // (attention_bwd_tc.cu) regenerates from the seed, which also reads lse
 // and o as this kernel writes them.  lse is stored only where the call
@@ -150,7 +151,10 @@ __global__ void __launch_bounds__(kThreads, kBlocks<M>) fwd_kernel(const lvt::Tc
   const int row[2] = {i0 + wr, i0 + wr + 8};
   const bool live = i0 + warp * 16 < N;  // the warp has rows to form
   const float sl2 = a.scale * kLog2e;
-  const uint32_t key = DROP ? lvt::dropout_key((uint32_t)*a.seed, (uint32_t)bh) : 0u;
+  const uint32_t key =
+      DROP ? lvt::dropout_key((uint32_t)*a.seed,
+                              lvt::attention_stream(seq, h, a.head0, a.heads_total))
+           : 0u;
 
   uint32_t qf[HD / 16][4];  // the warp's rows of Q as A fragments
   float o[HD / 8][4];
@@ -310,6 +314,8 @@ int launch_hd(const lvt::TcFwd& a, int hd, cudaStream_t stream) {
 
 int lvt::attention_fwd_tc(const TcFwd& call, int hd, bool mask_f32, cudaStream_t stream) {
   TcFwd a = call;
+  if (a.heads_total <= 0) a.heads_total = a.nH;
+  if (a.head0 < 0 || a.head0 + a.nH > a.heads_total) return (int)cudaErrorInvalidValue;
   if (a.mask_ld == 0) a.mask_ld = a.N;
   if (a.bias_ld == 0) a.bias_ld = a.N;
   if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.nW <= 0 || a.nSeq % a.nW != 0 ||

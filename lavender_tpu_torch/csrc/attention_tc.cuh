@@ -27,6 +27,9 @@ struct TcFwd {
   int nSeq, N, nH, nW;
   int mask_ld = 0, bias_ld = 0;  // elements between rows of the mask / bias; 0: N
   const uint8_t* keep = nullptr;  // [nSeq, N]: key j of sequence s dropped where 0, or null
+  // the dropout stream of (s, h) is s * heads_total + head0 + h
+  // (dropout.cuh attention_stream); heads_total 0: nH
+  int head0 = 0, heads_total = 0;
 };
 
 // o = ((m * p) v) / l and lse of softmax(q k^T * scale + bias + mask)
@@ -58,6 +61,7 @@ struct TcBwd {
   float* dbias;
   float* part;
   int nChunks;
+  int head0 = 0, heads_total = 0;  // the dropout stream, as TcFwd's
 };
 
 // dq, dk, dv (and dbias) of softmax(q k^T * scale + bias + mask) with

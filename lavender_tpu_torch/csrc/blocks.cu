@@ -63,7 +63,8 @@ LVT_EXPORT int lvt_layernorm_rows_bf16(const void* x, const void* g, const void*
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
                                   const void* keep, void* lse, int nSeq, int N, int nH, int hd,
                                   int nW, float scale, const void* seed, uint32_t thresh,
-                                  float drop_scale, int tensor_cores, void* stream);
+                                  float drop_scale, int tensor_cores, int head0, int heads_total,
+                                  void* stream);
 
 namespace {
 
@@ -138,7 +139,7 @@ LVT_EXPORT int lvt_swin_block_wm_bf16(const void* x, const void* ln_w, const voi
                 qkv, 3 * C, nullptr, 0, M, 3 * C, C, lvt::kEpiBias, bm[0], 1};
   if ((err = lvt::gemm_tc(g, st))) return err;
   if ((err = lvt_attention_bf16(qkv, o, bias, mask, nullptr, nullptr, nSeq, N, nH, C / nH, nW,
-                                scale, nullptr, 0u, 1.0f, 1, stream)))
+                                scale, nullptr, 0u, 1.0f, 1, 0, 0, stream)))
     return err;
   g = {o, C, {static_cast<const bf16*>(wproj)}, {static_cast<const bf16*>(bproj)}, 1, y, C, X, C,
        M, C, C, lvt::kEpiResidual, bm[1], 1};

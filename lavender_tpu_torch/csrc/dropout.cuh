@@ -45,4 +45,14 @@ __host__ __device__ __forceinline__ uint32_t dropout_bits(uint32_t key, uint32_t
   return fmix32(key ^ (index * kIndexMul));
 }
 
+// The attention stream of head h of sequence seq on a call that holds heads
+// head0 .. head0 + nH - 1 of heads_total (a tensor-parallel rank's own
+// heads): seq * heads_total + head0 + h, so that each rank draws what one
+// process draws for those heads.  With head0 = 0 and heads_total = nH it is
+// seq * nH + h.
+__host__ __device__ __forceinline__ uint32_t attention_stream(int seq, int h, int head0,
+                                                              int heads_total) {
+  return (uint32_t)seq * (uint32_t)heads_total + (uint32_t)(head0 + h);
+}
+
 }  // namespace lvt

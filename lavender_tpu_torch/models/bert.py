@@ -31,6 +31,27 @@ under ``LVT_KMASK=0`` a key-padding bias too, broadcast to [B, L, L]; both
 train routes take either.  The two switches are read from the environment
 at each call, as JAX reads them each time it traces (bert.py:173, :285).
 
+Tensor parallelism (``parallel.mesh.tp_active()``, the weights sharded by
+``mesh.shard_model``; JAX's ``_fused_backend_ok`` gates the kernels off
+there, bert.py:30-45): every mode runs the Megatron split.  The attention:
+q, k and v of this rank's heads from one ``F.linear`` over their local
+rows (column-parallel, so that they stay views of one slab), the train
+core K10a / K10b (``LVT_ATTNLANES=0``: K13a / K13b) at nH / tp heads with
+the dropout stream's head offset, so that a rank draws what one process
+draws for those heads; in ``eval()`` K10a at rate 0 under the key-padding
+bias broadcast to [B, L, L]; with ``fused_attn_train`` off the module math,
+its dropout drawn for all nH heads and sliced.  Then
+``attention.output.dense`` (row-parallel: partials summed over the model
+ranks, then the bias) -> hidden dropout (``dropout.row_keep`` from the
+seed K11 would have drawn, or the module math's) -> residual -> LN.  The
+FFN: ``intermediate.dense`` + GELU (column) -> ``output.dense`` (row) ->
+dropout -> residual -> LN.  The KV cache holds this rank's heads.  The
+word embeddings are vocab-parallel (a masked lookup of this rank's rows,
+summed over the ranks), the MLM decoder column-parallel over the vocab,
+gathered, the pad columns dropped.  K4, K5, K6, K11 and K12 do not run
+under tp: each fuses a row-parallel product with the LN after its
+all-reduce.  An attention whose heads do not divide tp stays whole.
+
 Incremental decoding with a static KV cache, as the JAX package has it:
 ``BertEncoder.prefill`` runs the prefix (serving route) and returns each
 layer's K/V in a cache preallocated to its full length; ``decode_step``
@@ -50,12 +71,14 @@ from torch.utils.checkpoint import checkpoint
 
 from lavender_tpu_torch.ops import _build, layer_norm
 from lavender_tpu_torch.ops._build import select
-from lavender_tpu_torch.ops.dropout import draw_seed
+from lavender_tpu_torch.ops.dropout import draw_seed, row_keep
 from lavender_tpu_torch.ops.encoder_attention import (
     fused_bert_attn_block, fused_bert_attn_block_kmask,
     fused_encoder_attention_train, fused_encoder_attention_train_lanes)
 from lavender_tpu_torch.ops.fused_mlp import (
-    fused_ffn_post_ln, fused_ffn_post_ln_train, fused_out_ln_train)
+    _dropout_residual_ln, fused_ffn_post_ln, fused_ffn_post_ln_train,
+    fused_out_ln_train)
+from lavender_tpu_torch.parallel import mesh
 
 def extended_attention_mask(mask: torch.Tensor) -> torch.Tensor:
     """[B, L] or [B, Lq, Lk] (1 = attend, 0 = masked) -> additive
@@ -109,11 +132,24 @@ class BertEmbeddings(nn.Module):
                                         device=input_ids.device)
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
-        x = (self.word_embeddings(input_ids)
+        x = (self._words(input_ids)
              + self.position_embeddings(position_ids)
              + self.token_type_embeddings(token_type_ids))
         return dropout(_ln(x, self.LayerNorm), self.dropout_p, self.training,
                        generator)
+
+    def _words(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """The word embeddings; vocab-parallel where the table is sharded:
+        this rank's rows looked up (the others and the pad rows give 0),
+        then summed over the model ranks."""
+        w = self.word_embeddings.weight
+        if not mesh.is_sharded(w):
+            return self.word_embeddings(input_ids)
+        per = w.shape[0]
+        local = input_ids - mesh.model_rank() * per
+        ok = (local >= 0) & (local < per)
+        e = nn.functional.embedding(local.clamp(0, per - 1), w)
+        return mesh.reduce_from_model(e * ok[..., None].to(e.dtype))
 
 
 KVCache = Tuple[torch.Tensor, torch.Tensor]  # k, v: [B, nH, Lcache, hd]
@@ -127,15 +163,20 @@ class BertSelfAttention(nn.Module):
         self.key = nn.Linear(H, H)
         self.value = nn.Linear(H, H)
         self.num_heads = config.num_attention_heads
+        self.head_dim = H // self.num_heads
 
     def heads(self, t: torch.Tensor) -> torch.Tensor:
+        """[B, L, h * hd] -> [B, h, L, hd] (h: the heads this rank holds)."""
         B, L, C = t.shape
-        return t.view(B, L, self.num_heads, C // self.num_heads).transpose(
-            1, 2)
+        return t.view(B, L, C // self.head_dim, self.head_dim).transpose(1, 2)
+
+    def project(self, x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+        """q, k or v of ``x`` in heads layout (column-parallel under tp)."""
+        return self.heads(mesh.column_parallel(x, lin.weight, lin.bias))
 
     def kv(self, x: torch.Tensor) -> KVCache:
         """K/V of ``x`` [B, L, C] in heads layout, for the cache prefill."""
-        return self.heads(self.key(x)), self.heads(self.value(x))
+        return self.project(x, self.key), self.project(x, self.value)
 
     def decode_step(self, x_new: torch.Tensor, cache: KVCache, slot: int,
                     attn_bias: torch.Tensor) -> torch.Tensor:
@@ -143,15 +184,14 @@ class BertSelfAttention(nn.Module):
         slot..slot+n-1 (in place) and attend over the whole cache with
         ``attn_bias`` [B, 1, n, Lcache]: scores and softmax in f32, as the
         JAX ``_attend``'s XLA branch.  Returns [B, n, C]."""
-        B, n, C = x_new.shape
+        B, n, _ = x_new.shape
         ck, cv = cache
-        q = self.heads(self.query(x_new))
-        ck[:, :, slot:slot + n] = self.heads(self.key(x_new))
-        cv[:, :, slot:slot + n] = self.heads(self.value(x_new))
-        s = (q.float() @ ck.float().transpose(-1, -2)) * (
-            C // self.num_heads) ** -0.5
+        q = self.project(x_new, self.query)
+        ck[:, :, slot:slot + n] = self.project(x_new, self.key)
+        cv[:, :, slot:slot + n] = self.project(x_new, self.value)
+        s = (q.float() @ ck.float().transpose(-1, -2)) * self.head_dim ** -0.5
         p = torch.softmax(s + attn_bias.float(), dim=-1).to(cv.dtype)
-        return (p @ cv).transpose(1, 2).reshape(B, n, C)
+        return (p @ cv).transpose(1, 2).reshape(B, n, -1)
 
 
 class BertSelfOutput(nn.Module):
@@ -187,45 +227,71 @@ class BertAttention(nn.Module):
         self.fused_train = config.fused_attn_train
 
     def _fused_train_forward(self, x, attn_bias, generator):
+        """One qkv product -> K10a / K10b (K13a / K13b under
+        ``LVT_ATTNLANES=0``) -> K11.  Under tensor parallelism (also in
+        ``eval()``, at rate 0) on this rank's heads, q, k and v from one
+        ``F.linear`` over their local rows, the dropout stream offset by
+        the first head; then the out-proj's partials summed, its bias, the
+        hidden dropout with K11's bits from the seed it would have drawn,
+        the residual and the LN."""
         B, L, C = x.shape
         s, o = self.self, self.output
+        tp, train = mesh.tp_active(), self.training
         w = torch.cat([s.query.weight, s.key.weight, s.value.weight])
         b = torch.cat([s.query.bias, s.key.bias, s.value.bias])
-        qkv = F.linear(x, w, b)
-        mask, seed = attn_bias[:, 0].expand(B, L, L), draw_seed(generator,
-                                                                x.device)
+        qkv = F.linear(mesh.copy_to_model(x) if mesh.is_sharded(s.query.weight)
+                       else x, w, b)
+        held = qkv.shape[-1] // 3 // s.head_dim
+        heads = {"head0": mesh.head_offset(self.num_heads, held),
+                 "heads_total": self.num_heads}
+        mask = attn_bias[:, 0].expand(B, L, L)
+        rate = self.attn_dropout_p if train else 0.0
+        seed = (draw_seed(generator, x.device) if train else
+                torch.zeros(1, dtype=torch.int64, device=x.device))
         # the JAX package's switch (lavender_tpu/models/bert.py:173), read
         # per call: the train attention in lanes (K10) or heads layout (K13)
         if os.environ.get("LVT_ATTNLANES", "1") == "1":
-            q, k, v = qkv.split(C, dim=-1)  # views of one slab
+            q, k, v = qkv.split(held * s.head_dim, dim=-1)  # one slab's views
             ctx = select(fused_encoder_attention_train_lanes)(
-                q, k, v, mask, seed, self.scale, self.attn_dropout_p,
-                self.num_heads)
+                q, k, v, mask, seed, self.scale, rate, held, **heads)
         else:
             # [B, nH, L, hd] views of the slab, read in place
-            nH = self.num_heads
-            q, k, v = qkv.view(B, L, 3, nH, C // nH).permute(2, 0, 3, 1, 4)
+            q, k, v = qkv.view(B, L, 3, held, s.head_dim).permute(
+                2, 0, 3, 1, 4)
             ctx = select(fused_encoder_attention_train)(
-                q, k, v, mask, seed, self.scale, self.attn_dropout_p)
+                q, k, v, mask, seed, self.scale, rate, **heads)
             ctx = ctx.transpose(1, 2)
-        out, _ = select(fused_out_ln_train)(
-            ctx.reshape(B * L, C), x.reshape(B * L, C), o.dense.weight,
-            o.dense.bias, o.LayerNorm.weight, o.LayerNorm.bias,
-            draw_seed(generator, x.device), o.LayerNorm.eps,
-            self.hidden_dropout_p)
-        return out.view(B, L, C)
+        ctx, res = ctx.reshape(B * L, -1), x.reshape(B * L, C)
+        ln, p = o.LayerNorm, self.hidden_dropout_p if train else 0.0
+        if not tp:
+            out, _ = select(fused_out_ln_train)(
+                ctx, res, o.dense.weight, o.dense.bias, ln.weight, ln.bias,
+                draw_seed(generator, x.device), ln.eps, p)
+            return out.view(B, L, C)
+        keep = (row_keep(draw_seed(generator, x.device), B * L, C, p)
+                if train else None)
+        return _dropout_residual_ln(mesh.row_parallel(ctx, o.dense), res,
+                                    ln.weight, ln.bias, keep, ln.eps,
+                                    p).view(B, L, C)
 
     def _module_forward(self, x, attn_bias, generator):
-        """The module math (dropout in training only)."""
+        """The module math (dropout in training only); under tp on this
+        rank's heads, the attention dropout drawn for all of them and
+        sliced to its own."""
         B, L, C = x.shape
         s, o = self.self, self.output
-        q, k, v = s.heads(s.query(x)), s.heads(s.key(x)), s.heads(s.value(x))
+        q, k, v = (s.project(x, lin) for lin in (s.query, s.key, s.value))
         scores = (q @ k.transpose(-1, -2)) * self.scale + attn_bias
         p = torch.softmax(scores.float(), dim=-1)
-        p = dropout(p, self.attn_dropout_p, self.training, generator)
-        ctx = (p.to(v.dtype) @ v).transpose(1, 2).reshape(B, L, C)
-        h = dropout(o.dense(ctx), self.hidden_dropout_p, self.training,
-                    generator)
+        held, rate = q.shape[1], self.attn_dropout_p
+        if self.training and rate > 0.0:  # ``dropout``'s draw over all heads
+            keep = torch.rand((B, self.num_heads, L, L), generator=generator,
+                              device=x.device) >= rate
+            h0 = mesh.head_offset(self.num_heads, held)
+            p = p * keep[:, h0:h0 + held].to(p.dtype) / (1.0 - rate)
+        ctx = (p.to(v.dtype) @ v).transpose(1, 2).reshape(B, L, -1)
+        h = dropout(mesh.row_parallel(ctx, o.dense), self.hidden_dropout_p,
+                    self.training, generator)
         return _ln(h + x, o.LayerNorm)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
@@ -236,7 +302,8 @@ class BertAttention(nn.Module):
                 (1, L), (L, L)):
             raise ValueError(f"attn_bias must be [B, 1, 1, {L}] or "
                              f"[B, 1, {L}, {L}], got {tuple(attn_bias.shape)}")
-        if self.training and self.fused_train:
+        if self.training and self.fused_train or (mesh.tp_active()
+                                                  and not self.training):
             return self._fused_train_forward(x, attn_bias, generator)
         if self.training or not self.fused_serve:
             return self._module_forward(x, attn_bias, generator)
@@ -261,7 +328,8 @@ class BertAttention(nn.Module):
                     attn_bias: torch.Tensor) -> torch.Tensor:
         """``BertSelfAttention.decode_step`` -> dense -> LN(+ x_new)."""
         o = self.output
-        h = o.dense(self.self.decode_step(x_new, cache, slot, attn_bias))
+        h = mesh.row_parallel(
+            self.self.decode_step(x_new, cache, slot, attn_bias), o.dense)
         return _ln(h + x_new, o.LayerNorm)
 
 
@@ -303,7 +371,29 @@ class BertLayer(nn.Module):
                     generator)
         return _ln(h + x, o.LayerNorm)
 
+    def _tp_ffn(self, x: torch.Tensor,
+                generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The FFN on the tensor-parallel route: fc1 + GELU column-, fc2
+        row-parallel, then the dropout (K12's bits from its seed with
+        ``fused_ffn_train``, else the module math's), residual and LN."""
+        i, o = self.intermediate.dense, self.output
+        if self.training and self.fused_train:
+            h = F.gelu(mesh.column_parallel(x, i.weight, i.bias).float())
+            h = mesh.row_parallel(h.to(x.dtype), o.dense)
+            keep = row_keep(draw_seed(generator, x.device),
+                            x.numel() // x.shape[-1], x.shape[-1],
+                            self.dropout_p).view(x.shape)
+            return _dropout_residual_ln(h, x, o.LayerNorm.weight,
+                                        o.LayerNorm.bias, keep,
+                                        o.LayerNorm.eps, self.dropout_p)
+        h = F.gelu(mesh.column_parallel(x, i.weight, i.bias))
+        h = dropout(mesh.row_parallel(h, o.dense), self.dropout_p,
+                    self.training, generator)
+        return _ln(h + x, o.LayerNorm)
+
     def _serve_ffn(self, x: torch.Tensor) -> torch.Tensor:
+        if mesh.tp_active():
+            return self._tp_ffn(x, None)
         if not self.fused_serve:
             return self._module_ffn(x, None)
         i, o = self.intermediate.dense, self.output
@@ -324,6 +414,8 @@ class BertLayer(nn.Module):
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         x = self.attention(x, attn_bias, generator)
+        if mesh.tp_active():
+            return self._tp_ffn(x, generator)
         if not self.training:
             return self._serve_ffn(x)
         i, o = self.intermediate.dense, self.output
@@ -435,4 +527,9 @@ class BertMLMHead(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         t = self.predictions.transform
         x = F.gelu(t.dense(x).float()).to(x.dtype)
-        return self.predictions.decoder(_ln(x, t.LayerNorm))
+        dec = self.predictions.decoder
+        if not mesh.is_sharded(dec.weight):
+            return dec(_ln(x, t.LayerNorm))
+        # vocab-parallel: this rank's columns, gathered, the pad dropped
+        part = mesh.column_parallel(_ln(x, t.LayerNorm), dec.weight, dec.bias)
+        return mesh.gather_from_model(part)[..., :dec.out_features]

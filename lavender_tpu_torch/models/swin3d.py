@@ -86,6 +86,22 @@ Two more are read at each call, as JAX reads them:
   torch, the u8 im2col composed with the window partition; K17 is not
   used, as in JAX) and stage 1 skips its ``wm_partition``.
 
+Tensor parallelism (``parallel.mesh.tp_active()``, the weights sharded by
+``mesh.shard_model``): every stage takes the tensor-parallel route
+whatever its ``attn_impl``, the JAX package's ``tp_active`` gate
+(swin3d.py:221).  A wm stage runs ``SwinBlock3D.wm_tp`` on its
+window-major slab: LN1 (replicated) -> ``attn.qkv`` on this rank's heads
+(column-parallel) -> the core ``swin_core_attn`` (K8a, its backward K8b)
+at nH / tp heads with their bias rows -> ``attn.proj`` (row-parallel, its
+partials summed over the model ranks, then the bias) -> drop_path_lerp;
+then LN2 -> ``mlp.fc1`` + GELU (column) -> ``mlp.fc2`` (row) ->
+drop_path, the shift K2 around every second block as before (K16 and the
+fold are off).  Any other stage runs ``spatial_tp``, the module path with
+the same split.  A block whose heads do not divide tp keeps its attention
+whole on every rank (no collective) and splits its MLP.  K1, K3, K9, K14
+and K16 do not run under tp: each fuses a row-parallel product with the
+residual or LN after its all-reduce.
+
 The serving cache is a function of the weights.  Each cached stage keeps
 a fingerprint of its sources (sum and sum of squares of the rel-pos
 tables, and of the fold's LN, qkv and fc1 weights and biases) and a
@@ -106,6 +122,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from torch.utils.checkpoint import checkpoint
@@ -122,10 +139,12 @@ from lavender_tpu_torch.ops.swin_block_attn import (
     fused_swin_block_attn, fused_swin_block_full, fused_swin_block_wm,
     fused_swin_block_wm_shifted, mlp_in_block, pad_window_mask,
     rel_pos_bias_rows, rel_pos_bias_wm, round8, supports_inkernel_shift,
-    window_msa, window_partition, window_reverse, wm_attn_half_train,
-    wm_partition, wm_reverse, wm_shift, wm_shift_roll)
+    window_msa, window_msa_core, window_partition, window_reverse,
+    wm_attn_half_train, wm_partition, wm_reverse, wm_shift, wm_shift_roll)
+from lavender_tpu_torch.ops.swin_core_attn import swin_core_attn
 from lavender_tpu_torch.ops.window_attention import (
     fused_window_attention, window_attention_reference)
+from lavender_tpu_torch.parallel import mesh
 
 # the JAX package's switches (lavender_tpu/models/swin3d.py:36-69), same
 # variables and defaults; see the module notes
@@ -241,7 +260,10 @@ def resolve_attn_impl(impl: str) -> str:
     (swin3d.py:201; it takes "xla" off the TPU only because its kernels
     lower there alone, while the port's run on the card and, as their
     plain versions, on the CPU).  The JAX package's other "auto" case,
-    tensor parallelism, has no counterpart in the port."""
+    tensor parallelism (swin3d.py:221, "xla" under ``tp_active``), is a
+    route of the blocks here: under ``parallel.mesh.tp_active()`` every
+    ``attn_impl`` runs ``SwinBlock3D.wm_tp`` on the window-major stages and
+    ``SwinBlock3D.spatial_tp`` on the others (see the module notes)."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"SwinConfig.attn_impl must be one of {ATTN_IMPLS}, "
                          f"got {impl!r}")
@@ -374,6 +396,8 @@ class SwinBlock3D(nn.Module):
         serving fold cache's tensors (``fold``; serving only);
         ``inkernel_shift`` ((D, H, W), window, shift) for a shifted block
         that takes K16 on the UNSHIFTED layout."""
+        if mesh.tp_active():
+            return self.wm_tp(x, bias, mask, dp_rate, generator)
         Npad, C = x.shape[2:]
         nH = self.attn.num_heads
         block = select(fused_swin_block_wm)
@@ -400,6 +424,43 @@ class SwinBlock3D(nn.Module):
         x = block(x, *args, folded=folded, core_bwd=_COREBWD)
         return select(fused_ln_mlp_chunked)(x.reshape(-1, C), *mlp,
                                             self.norm2.eps).reshape(x.shape)
+
+    def _attn_tp(self, h: torch.Tensor, core) -> torch.Tensor:
+        """proj(attn(h)) of the LN1 output ``h`` [..., C] on the tensor-parallel
+        route: qkv on this rank's heads, ``core(qkv, heads)``, the proj's
+        partials summed over the model ranks, then its bias (the whole
+        attention where the heads do not divide tp)."""
+        a = self.attn
+        qkv = mesh.column_parallel(h, a.qkv.weight, a.qkv.bias)
+        held = qkv.shape[-1] // 3 // (a.qkv.in_features // a.num_heads)
+        return mesh.row_parallel(core(qkv, held), a.proj)
+
+    def _mlp_tp(self, x: torch.Tensor) -> torch.Tensor:
+        """fc2(GELU(fc1(LN2(x)))) with fc1 column- and fc2 row-parallel
+        (``_mlp_plain``'s math)."""
+        fc1 = self.mlp.fc1
+        h = layer_norm(x, self.norm2.weight, self.norm2.bias, self.norm2.eps)
+        h = mesh.column_parallel(h, fc1.weight, fc1.bias)
+        return mesh.row_parallel(F.gelu(h.float()).to(x.dtype), self.mlp.fc2)
+
+    def wm_tp(self, x: torch.Tensor, bias: torch.Tensor,
+              mask: Optional[torch.Tensor], dp_rate: float = 0.0,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """The block on window-major tokens [B, nW, Npad, C] on the
+        tensor-parallel route, serving and training (see the module
+        notes): K8a / K8b on this rank's heads, ``bias`` [heads held, Npad,
+        Npad].  The pad rows carry finite values that the stage exit
+        drops."""
+        scale = self.attn.scale
+
+        def core(qkv, held):
+            return select(swin_core_attn)(qkv, bias, mask, held, scale)
+
+        if not self.training:  # drop-path in training only
+            dp_rate = 0.0
+        h = layer_norm(x, self.norm1.weight, self.norm1.bias, self.norm1.eps)
+        x = drop_path_lerp(x, x + self._attn_tp(h, core), dp_rate, generator)
+        return x + drop_path(self._mlp_tp(x), dp_rate, generator)
 
     def _train_plain_mlp(self, x, full, mlp, dp_rate, generator):
         """The ``LVT_SWINTRAIN`` block's end: x <- drop_path_lerp(x, full),
@@ -462,9 +523,10 @@ class SwinBlock3D(nn.Module):
         eps = self.norm1.eps
         mask = geo.mask if shifted else None
         shift = geo.shift if shifted else (0, 0, 0)
+        tp = mesh.tp_active()
         mlp = self._mlp_args()
         fits = weights_fit_vmem(C, HD)
-        if geo.fused:
+        if geo.fused and not tp:
             args = (x, self.norm1.weight, self.norm1.bias,
                     self.attn.qkv.weight, self.attn.qkv.bias,
                     self.attn.proj.weight, self.attn.proj.bias, bias, mask)
@@ -492,15 +554,25 @@ class SwinBlock3D(nn.Module):
             h = nn.functional.pad(h, (0, 0, 0, Wp - W, 0, Hp - H, 0, Dp - D))
         if shifted:
             h = torch.roll(h, tuple(-s for s in shift), (1, 2, 3))
-        h = self.attn(window_partition(h, geo.window), bias, mask, attn_impl)
+        h = window_partition(h, geo.window)
+        if tp:  # this rank's heads; ``bias`` holds their rows
+            core = (select(fused_window_attention) if attn_impl == "pallas"
+                    else window_attention_reference)
+            h = self._attn_tp(h, lambda qkv, held: window_msa_core(
+                qkv, held, bias, mask, self.attn.scale, core))
+        else:
+            h = self.attn(h, bias, mask, attn_impl)
         h = window_reverse(h, geo.window, B, Dp, Hp, Wp)
         if shifted:
             h = torch.roll(h, tuple(shift), (1, 2, 3))
         x = x + _scaled(h[:, :D, :H, :W].to(x.dtype), coef1)
         flat = x.reshape(-1, C)
-        out = (select(fused_ln_mlp)(flat, *mlp, eps)
-               if attn_impl in ("pallas", "fused") and fits
-               else _mlp_plain(flat, *mlp, eps))
+        if tp:
+            out = self._mlp_tp(flat)
+        elif attn_impl in ("pallas", "fused") and fits:
+            out = select(fused_ln_mlp)(flat, *mlp, eps)
+        else:
+            out = _mlp_plain(flat, *mlp, eps)
         return x + _scaled(out.reshape(x.shape).to(x.dtype), coef2)
 
 
@@ -669,7 +741,10 @@ class BasicLayer(nn.Module):
         # inference_mode(False) enables autograd again
         with torch.inference_mode(False), torch.no_grad():
             if self.wm_ok(D, H, W):
-                fold = _FOLDCACHE
+                # under tp the cache holds this rank's bias rows and no
+                # fold: the fold feeds K1 only (JAX builds it for the wm
+                # kernels that its tp gate turns off)
+                fold = _FOLDCACHE and not mesh.tp_active()
                 *geo, _ = self._geometry(D, H, W, p.device, p.dtype)
                 folds = [blk.fold(p.dtype) if fold else None
                          for blk in self.blocks]
@@ -742,8 +817,9 @@ class BasicLayer(nn.Module):
         shift_fn = _shift_fn()
         # JAX _BlockPairWM: K16 for the shifted block where the gate holds,
         # and then no wm_shift pair around it (swin3d.py:952-965)
-        iks = (shifted and _IKS and supports_inkernel_shift(
-            window, (D, H, W), Npad, C, self.blocks[0].attn.num_heads, nW))
+        iks = (shifted and _IKS and not mesh.tp_active()
+               and supports_inkernel_shift(window, (D, H, W), Npad, C,
+                                           self.blocks[0].attn.num_heads, nW))
         inkernel = ((D, H, W), window, shift) if iks else None
         for k in range(0, len(self.blocks), 2):
             t = self.blocks[k].wm(t, biases[k], None, N, dpr[k], generator,

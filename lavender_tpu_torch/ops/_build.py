@@ -57,20 +57,23 @@ _SIZES = ("lvt_swin_block_wm_scratch", "lvt_bert_attn_block_scratch",
 # the dropout arguments of a kernel: seed pointer (null = no dropout), the
 # keep threshold of the bits, the scale of the kept values
 _DROP = [_P, _U, _F]
+# the attention dropout's stream: the first head of the call and the heads
+# in all (a tensor-parallel rank's own heads; 0: the call's)
+_HEADS = [_I, _I]
 _SIGNATURES = {
     "lvt_layernorm_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     "lvt_layernorm_rows_bf16": [_P, _P, _P, _P, _I, _I, _F, _P, _P],
     "lvt_attention_bf16": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
-                           *_DROP, _I, _P],
+                           *_DROP, _I, *_HEADS, _P],
     "lvt_attention_heads_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
-                                 _I, _I, _F, *_DROP, _P],
+                                 _I, _I, _F, *_DROP, *_HEADS, _P],
     "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _F, *_DROP, _P],
+                               _I, _I, _I, _I, _F, *_DROP, *_HEADS, _P],
     "lvt_attention_heads_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _STRIDES, _I, _I, _I, _I, _I, _F,
-                                     *_DROP, _P],
+                                     *_DROP, *_HEADS, _P],
     "lvt_attention_row_dot_bf16": [_P, _P, _STRIDES, _P, _I, _I, _I, _I, _P],
     "lvt_ffn_post_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _F, _P],
@@ -548,7 +551,8 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
               keep: Optional[torch.Tensor] = None,
               lse: Optional[torch.Tensor] = None,
               seed: Optional[torch.Tensor] = None,
-              rate: float = 0.0, tensor_cores: bool = False) -> torch.Tensor:
+              rate: float = 0.0, tensor_cores: bool = False,
+              head0: int = 0, heads_total: int = 0) -> torch.Tensor:
     """Attention core on the packed qkv slab [n_seq * n_tok, 3C].
 
     bias [nH, N, N], mask [nW, N, N] (sequence s uses window s % nW), keep
@@ -558,8 +562,10 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     log-sum-exp of its scores (what ``attention_bwd`` takes).  At ``rate``
     > 0 the probabilities are dropped by the counter hash of ``seed`` (an
     int64 [1] on the device; ``dropout.attention_keep``) in the P.V sum
-    only.  The core is the tensor cores' (``csrc/attention_fwd_tc.cu``),
-    for a call with ``lse`` (K10a, K8a) or ``tensor_cores`` (K1, K4);
+    only, the stream of (sequence s, head h) s * heads_total + head0 + h
+    (``heads_total`` 0: n_heads; a tensor-parallel rank's own heads).  The
+    core is the tensor cores' (``csrc/attention_fwd_tc.cu``), for a call
+    with ``lse`` (K10a, K8a) or ``tensor_cores`` (K1, K4);
     ``attention_route`` refuses any other.  Returns [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
@@ -586,7 +592,8 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     err = library().lvt_attention_bf16(
         qkv.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(mask), keep_ptr,
         _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale), seed_ptr,
-        thresh, drop_scale, int(tensor_cores), _stream(qkv))
+        thresh, drop_scale, int(tensor_cores), head0, heads_total,
+        _stream(qkv))
     _raise_on(err, "lvt_attention_bf16")
     return out
 
@@ -670,7 +677,8 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     mask: torch.Tensor, scale: float,
                     lse: Optional[torch.Tensor] = None,
                     seed: Optional[torch.Tensor] = None,
-                    rate: float = 0.0) -> torch.Tensor:
+                    rate: float = 0.0, head0: int = 0,
+                    heads_total: int = 0) -> torch.Tensor:
     """The attention core on heads-layout q, k, v [B, nH, L, hd] (bf16, any
     strides with the head dim contiguous, e.g. transposed views of
     [B, L, nH, hd]) under an additive per-sequence f32 mask [B, L, L]
@@ -680,8 +688,8 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     row's log-sum-exp (K13a; K7 passes none); at ``rate`` > 0 the
     probabilities are dropped in the P.V sum by the counter hash of
     ``seed`` at the logical (sequence, head, row, key) (the same bits as
-    ``attention`` on the packed slab).  Returns a contiguous
-    [B, nH, L, hd]."""
+    ``attention`` on the packed slab, ``head0`` and ``heads_total`` as
+    there).  Returns a contiguous [B, nH, L, hd]."""
     _heads_operands((q, k, v), ("q", "k", "v"), "attention_heads")
     B, nH, L, hd = q.shape
     ld = _row_pitch(mask, B, L, (torch.float32,), q.device,
@@ -693,7 +701,8 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = library().lvt_attention_heads_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         _strides(q, k, v, out), mask.data_ptr(), ld, _ptr(lse), B, L, nH, hd,
-        float(scale), seed_ptr, thresh, drop_scale, _stream(q))
+        float(scale), seed_ptr, thresh, drop_scale, head0, heads_total,
+        _stream(q))
     _raise_on(err, "lvt_attention_heads_bf16")
     return out
 
@@ -721,7 +730,8 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: torch.Tensor, scale: float,
                         seed: Optional[torch.Tensor] = None,
                         rate: float = 0.0, dmask: bool = False,
-                        out: Optional[torch.Tensor] = None):
+                        out: Optional[torch.Tensor] = None, head0: int = 0,
+                        heads_total: int = 0):
     """Backward of ``attention_heads`` with dropout: q, k, v and the
     cotangent ``dout`` [B, nH, L, hd] (bf16, strides as there), the
     forward's lse [B, nH, L] and mask [B, L, L] (f32, the same buffer).
@@ -731,7 +741,8 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them), else None.  Without ``dmask`` the tensor-core kernels run
     (``csrc/attention_bwd_tc.cu``) and need the forward's output ``out``
     [B, nH, L, hd] (for D = rowsum(out * dout)); with it the f32-pipe
-    kernel."""
+    kernel.  ``head0`` and ``heads_total``: the dropout's stream, as the
+    forward's."""
     _heads_operands((q, k, v, dout), ("q", "k", "v", "dout"),
                     "attention_heads_bwd")
     B, nH, L, hd = q.shape
@@ -755,7 +766,8 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(dm), _ptr(part),
         _strides(q, k, v, dout, dq, dk, dv), B, L, nH, hd, n_chunks,
-        float(scale), seed_ptr, thresh, drop_scale, _stream(q))
+        float(scale), seed_ptr, thresh, drop_scale, head0, heads_total,
+        _stream(q))
     _raise_on(err, "lvt_attention_heads_bwd_bf16")
     return dq, dk, dv, dm
 
@@ -797,14 +809,15 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   n_seq: int, n_tok: int, n_heads: int, scale: float,
                   out: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   mask: Optional[torch.Tensor] = None,
-                  seed: Optional[torch.Tensor] = None, rate: float = 0.0):
+                  seed: Optional[torch.Tensor] = None, rate: float = 0.0,
+                  head0: int = 0, heads_total: int = 0):
     """Backward of ``attention`` with ``lse`` (no keep vector), on the
     tensor cores (``csrc/attention_bwd_tc.cu``).
 
     qkv [n_seq * N, 3C], dout and the forward's output ``out`` [n_seq * N,
     C] (bf16; D = rowsum(out * dout)), lse the forward's f32 [n_seq, nH,
-    N]; ``seed`` and ``rate`` the forward's dropout, whose bits are
-    regenerated.  Returns (dqkv [n_seq * N, 3C] bf16, dbias [nH, N, N] f32
+    N]; ``seed``, ``rate``, ``head0`` and ``heads_total`` the forward's
+    dropout, whose bits are regenerated.  Returns (dqkv [n_seq * N, 3C] bf16, dbias [nH, N, N] f32
     summed over every sequence, or None without a bias); the mask gets no
     gradient."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
@@ -839,7 +852,7 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
         qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
         _ptr(bias), _ptr(mask), dqkv.data_ptr(), _ptr(dbias), _ptr(part),
         n_seq, n_tok, n_heads, hd, n_win, n_chunks, float(scale), seed_ptr,
-        thresh, drop_scale, _stream(qkv))
+        thresh, drop_scale, head0, heads_total, _stream(qkv))
     _raise_on(err, "lvt_attention_bwd_bf16")
     return dqkv, dbias
 

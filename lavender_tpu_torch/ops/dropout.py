@@ -9,6 +9,9 @@ compute alike: a kernel and its plain version given the same seed drop the
 same elements, and a backward kernel regenerates its forward's mask from
 the seed.  The stream is (sequence, head) for attention probabilities and
 the row for hidden activations; the index is the position inside it.
+A tensor-parallel rank that holds heads head0.. of ``heads_total`` counts
+its attention streams as seq * heads_total + head0 + head, so that it draws
+exactly what one process draws for those heads.
 
     key(seed, stream) = fmix32(fmix32(seed ^ SEED_SALT) ^ stream * STREAM_MUL)
     bits(key, index)  = fmix32(key ^ index * INDEX_MUL)
@@ -75,12 +78,21 @@ def keep_mask(seed: torch.Tensor, stream: torch.Tensor, index: torch.Tensor,
 
 
 def attention_keep(seed: torch.Tensor, n_seq: int, n_heads: int, n_tok: int,
-                   rate: float) -> torch.Tensor:
+                   rate: float, head0: int = 0,
+                   heads_total: int = 0) -> torch.Tensor:
     """[n_seq, nH, N, N] keep mask of attention probabilities: stream
-    seq * nH + head, index row * N + col (the K10 kernels' counter)."""
+    seq * nH + head, index row * N + col (the K10 kernels' counter).  A
+    tensor-parallel rank holding heads head0 .. head0 + nH - 1 of
+    ``heads_total`` (0: nH) draws stream seq * heads_total + head0 + head,
+    which is those heads' slice of one process's mask."""
     dev = seed.device
-    stream = torch.arange(n_seq * n_heads, device=dev).view(n_seq, n_heads,
-                                                            1, 1)
+    total = heads_total or n_heads
+    if head0 < 0 or head0 + n_heads > total:
+        raise ValueError(f"attention_keep: heads {head0}..{head0 + n_heads} "
+                         f"outside {total}")
+    stream = (torch.arange(n_seq, device=dev).view(n_seq, 1, 1, 1) * total
+              + head0 + torch.arange(n_heads, device=dev).view(1, n_heads,
+                                                                1, 1))
     index = torch.arange(n_tok * n_tok, device=dev).view(1, 1, n_tok, n_tok)
     return keep_mask(seed, stream, index, rate)
 

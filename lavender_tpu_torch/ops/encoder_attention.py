@@ -87,7 +87,10 @@ backward, each operand read by its own
 under the f32 [B, L, L] mask that forward and backward both read (never a
 bf16 copy: its -1e4 would round), with the bits of K10's hash at the logical
 (sequence, head, row, key), so K13 on heads views and K10 on the [B, L, C]
-tensors they view drop the same probabilities.  K13b also forms, where the
+tensors they view drop the same probabilities.  Under tensor parallelism
+K10 and K13 take a rank's own heads with ``head0`` (the first of them) and
+``heads_total``: their dropout streams are then seq * heads_total + head0 +
+h, those heads' streams in one process.  K13b also forms, where the
 mask requires grad, the TPU kernel's dmask = the sum over heads of the
 scores' gradient, zeroed where the mask is <= -1e4 (its wrapper's rule,
 :715), on the f32-pipe backward of ``csrc/attention_bwd.cu``; the model's
@@ -227,13 +230,15 @@ fused_bert_attn_block = _build.KernelOp(
     recompute_vjp=True)
 
 
-def _lanes_plain(q, k, v, mask, seed, scale, rate, nH):
+def _lanes_plain(q, k, v, mask, seed, scale, rate, nH, head0=0,
+                 heads_total=0):
     """Plain PyTorch version of ``fused_encoder_attention_train_lanes``.
 
     q, k, v [B, L, C] (heads are column slices); mask [B, L, L] additive,
     clamped at -1e4 as the JAX kernel does; seed int64 [1]; rate the
     dropout of the probabilities (``dropout.attention_keep``), kept ones
-    scaled by 1 / (1 - rate).  Scores, softmax and products in f32;
+    scaled by 1 / (1 - rate); ``head0`` / ``heads_total`` its stream (a
+    tensor-parallel rank's heads).  Scores, softmax and products in f32;
     returns [B, L, C] in q's dtype."""
     B, L, C = q.shape
     hd = C // nH
@@ -244,21 +249,23 @@ def _lanes_plain(q, k, v, mask, seed, scale, rate, nH):
     s = (heads(q) * scale) @ heads(k).transpose(-1, -2)
     p = torch.softmax(s + mask.float().clamp_min(-1e4)[:, None], dim=-1)
     if rate > 0.0:
-        keep = dropout.attention_keep(seed, B, nH, L, rate)
+        keep = dropout.attention_keep(seed, B, nH, L, rate, head0,
+                                      heads_total)
         p = p * keep.float() * (1.0 / (1.0 - rate))
     o = (p @ heads(v)).transpose(1, 2).reshape(B, L, C)
     return o.to(q.dtype)
 
 
 def _lanes_bwd_plain(q, k, v, mask, seed, g, scale, rate, nH, lse=None,
-                     o=None):
+                     o=None, head0=0, heads_total=0):
     """Plain PyTorch version of ``encoder_attention_train_lanes_bwd``:
     autograd of ``_lanes_plain`` (``lse`` and ``o``, the kernel forward's
     row log-sum-exp and output, are not needed here).  Returns (dq, dk,
     dv)."""
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        o = _lanes_plain(*ins, mask, seed, scale, rate, nH)
+        o = _lanes_plain(*ins, mask, seed, scale, rate, nH, head0,
+                         heads_total)
         return torch.autograd.grad(o, ins, g.to(o.dtype))
 
 
@@ -285,7 +292,8 @@ def _check_lanes(q, k, v, mask, nH, what):
 
 def _lanes_bwd_cuda(q, k, v, mask, seed, g, scale, rate, nH,
                     lse: Optional[torch.Tensor] = None,
-                    o: Optional[torch.Tensor] = None):
+                    o: Optional[torch.Tensor] = None, head0: int = 0,
+                    heads_total: int = 0):
     _check_lanes(q, k, v, mask, nH, "encoder_attention_train_lanes_bwd")
     if lse is None or o is None:
         raise ValueError("encoder_attention_train_lanes_bwd: the forward's "
@@ -294,7 +302,8 @@ def _lanes_bwd_cuda(q, k, v, mask, seed, g, scale, rate, nH,
     dqkv, _ = _build.attention_bwd(
         _packed(q, k, v), lse, g.contiguous().view(B * L, C), B, L, nH, scale,
         mask=mask.contiguous(), seed=seed, rate=rate,
-        out=o.contiguous().view(B * L, C))
+        out=o.contiguous().view(B * L, C), head0=head0,
+        heads_total=heads_total)
     d = dqkv.view(B, L, 3 * C)
     return d[..., :C], d[..., C:2 * C], d[..., 2 * C:]
 
@@ -313,63 +322,69 @@ class _LanesFn(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
-    def forward(ctx, q, k, v, mask, seed, scale, rate, nH):
+    def forward(ctx, q, k, v, mask, seed, scale, rate, nH, head0, heads_total):
         _check_lanes(q, k, v, mask, nH, "fused_encoder_attention_train_lanes")
         B, L, C = q.shape
         qkv, mask = _packed(q, k, v), mask.contiguous()
         lse = torch.empty(B, nH, L, dtype=torch.float32, device=q.device)
         out = _build.attention(qkv, B, L, nH, scale, mask=mask, lse=lse,
-                               seed=seed, rate=rate)
+                               seed=seed, rate=rate, head0=head0,
+                               heads_total=heads_total)
         out = out.view(B, L, C)
         ctx.save_for_backward(qkv, mask, lse, out, seed)
-        ctx.args = (scale, rate, nH)
+        ctx.args = (scale, rate, nH, head0, heads_total)
         return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
         qkv, mask, lse, out, seed = ctx.saved_tensors
-        scale, rate, nH = ctx.args
+        scale, rate, nH, head0, heads_total = ctx.args
         B, L, C = g.shape
         q, k, v = qkv.view(B, L, 3 * C).split(C, dim=-1)
         dq, dk, dv = encoder_attention_train_lanes_bwd(
             q, k, v, mask, seed, g.to(qkv.dtype), scale, rate, nH, lse=lse,
-            o=out)
-        return dq, dk, dv, None, None, None, None, None
+            o=out, head0=head0, heads_total=heads_total)
+        return dq, dk, dv, None, None, None, None, None, None, None
 
 
-def _lanes_cuda(q, k, v, mask, seed, scale, rate, nH):
-    # clamped before the Function casts it to bf16, where finfo(f32).min
-    # would become -inf (the plain version clamps after that cast)
-    return _LanesFn.apply(q, k, v, mask.clamp_min(-1e4), seed, scale, rate,
-                          nH)
+def _lanes_cuda(q, k, v, mask, seed, scale, rate, nH, head0=0,
+                heads_total=0):
+    # clamped before the cast to bf16 (the Function's under autocast, else
+    # here to q's dtype), where finfo(f32).min would become -inf (the plain
+    # version clamps after that cast)
+    return _LanesFn.apply(q, k, v, mask.clamp_min(-1e4).to(q.dtype), seed,
+                          scale, rate, nH, head0, heads_total)
 
 
 fused_encoder_attention_train_lanes = _build.KernelOp(
     "K10a fused_encoder_attention_train_lanes", _lanes_plain, _lanes_cuda)
 
 
-def _heads_train_plain(q, k, v, mask, seed, scale, rate):
+def _heads_train_plain(q, k, v, mask, seed, scale, rate, head0=0,
+                       heads_total=0):
     """Plain PyTorch version of ``fused_encoder_attention_train``.
 
     q, k, v [B, nH, L, hd]; mask [B, L, L] additive, taken as max(mask,
     -1e4) with its gradient only above -1e4 (the JAX kernel's clamp and
     its wrapper's dmask rule); seed int64 [1]; rate the dropout of the
     probabilities (``dropout.attention_keep``: stream b * nH + h, index
-    row * L + key), kept ones scaled by 1 / (1 - rate).  Scores, softmax
-    and products in f32; returns [B, nH, L, hd] in q's dtype."""
+    row * L + key; with a head offset, as ``_lanes_plain``), kept ones
+    scaled by 1 / (1 - rate).  Scores, softmax and products in f32;
+    returns [B, nH, L, hd] in q's dtype."""
     B, nH, L, _ = q.shape
     s = (q.float() @ k.float().transpose(-1, -2)) * scale
     m = mask.float()
     p = torch.softmax(s + torch.where(m > -1e4, m, -1e4)[:, None], dim=-1)
     if rate > 0.0:
-        keep = dropout.attention_keep(seed, B, nH, L, rate)
+        keep = dropout.attention_keep(seed, B, nH, L, rate, head0,
+                                      heads_total)
         p = p * keep.float() * (1.0 / (1.0 - rate))
     return (p @ v.float()).to(q.dtype)
 
 
 def _heads_train_bwd_plain(q, k, v, mask, seed, g, scale, rate, lse=None,
-                           dmask=False, o=None):
+                           dmask=False, o=None, head0=0, heads_total=0):
     """Plain PyTorch version of ``encoder_attention_train_bwd``: autograd of
     ``_heads_train_plain`` (``lse`` and ``o``, the kernel forward's row
     log-sum-exp and output, are not needed here).  Returns (dq, dk, dv,
@@ -377,7 +392,8 @@ def _heads_train_bwd_plain(q, k, v, mask, seed, g, scale, rate, lse=None,
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
         m = mask.detach().float().requires_grad_(dmask)
-        o = _heads_train_plain(*ins, m, seed, scale, rate)
+        o = _heads_train_plain(*ins, m, seed, scale, rate, head0,
+                               heads_total)
         got = torch.autograd.grad(o, ins + ([m] if dmask else []),
                                   g.to(o.dtype))
     return (*got[:3], got[3] if dmask else None)
@@ -398,7 +414,7 @@ def _clamped_mask(mask):
 
 
 def _heads_train_bwd_cuda(q, k, v, mask, seed, g, scale, rate, lse=None,
-                          dmask=False, o=None):
+                          dmask=False, o=None, head0=0, heads_total=0):
     _check_heads(q, k, v, mask, "encoder_attention_train_bwd")
     if lse is None or (o is None and not dmask):
         raise ValueError("encoder_attention_train_bwd: the forward's lse "
@@ -408,7 +424,7 @@ def _heads_train_bwd_cuda(q, k, v, mask, seed, g, scale, rate, lse=None,
     bf = torch.bfloat16
     dq, dk, dv, dm = _build.attention_heads_bwd(
         q.to(bf), k.to(bf), v.to(bf), g.to(bf), lse, m, scale, seed=seed,
-        rate=rate, dmask=dmask, out=o)
+        rate=rate, dmask=dmask, out=o, head0=head0, heads_total=heads_total)
     if dm is not None:
         dm.masked_fill_(m <= -1e4, 0.0)
     return dq, dk, dv, dm
@@ -428,31 +444,35 @@ class _HeadsTrainFn(torch.autograd.Function):
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, q, k, v, mask, seed, scale, rate):
+    def forward(ctx, q, k, v, mask, seed, scale, rate, head0, heads_total):
         _check_heads(q, k, v, mask, "fused_encoder_attention_train")
         B, nH, L, _ = q.shape
         bf = torch.bfloat16
         q, k, v, m = q.to(bf), k.to(bf), v.to(bf), _clamped_mask(mask)
         lse = torch.empty(B, nH, L, dtype=torch.float32, device=q.device)
         out = _build.attention_heads(q, k, v, m, scale, lse=lse, seed=seed,
-                                     rate=rate)
+                                     rate=rate, head0=head0,
+                                     heads_total=heads_total)
         ctx.save_for_backward(q, k, v, m, lse, out, seed)
-        ctx.args = (scale, rate)
+        ctx.args = (scale, rate, head0, heads_total)
         return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
         q, k, v, m, lse, out, seed = ctx.saved_tensors
-        scale, rate = ctx.args
+        scale, rate, head0, heads_total = ctx.args
         dq, dk, dv, dm = encoder_attention_train_bwd(
             q, k, v, m, seed, g, scale, rate, lse=lse,
-            dmask=ctx.needs_input_grad[3], o=out)
-        return dq, dk, dv, dm, None, None, None
+            dmask=ctx.needs_input_grad[3], o=out, head0=head0,
+            heads_total=heads_total)
+        return dq, dk, dv, dm, None, None, None, None, None
 
 
-def _heads_train_cuda(q, k, v, mask, seed, scale, rate):
-    return _HeadsTrainFn.apply(q, k, v, mask, seed, scale, rate)
+def _heads_train_cuda(q, k, v, mask, seed, scale, rate, head0=0,
+                      heads_total=0):
+    return _HeadsTrainFn.apply(q, k, v, mask, seed, scale, rate, head0,
+                               heads_total)
 
 
 fused_encoder_attention_train = _build.KernelOp(

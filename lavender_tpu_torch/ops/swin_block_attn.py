@@ -547,14 +547,24 @@ def window_msa(x: torch.Tensor, wqkv: torch.Tensor,
                mask: Optional[torch.Tensor], nH: int, scale: float,
                core: Callable = window_attention_reference) -> torch.Tensor:
     """Window multi-head self-attention of windows x [B * nW, N, C]: qkv
-    -> heads [B * nW, nH, N, hd] -> ``core(q, k, v, bias, mask, scale)``
-    -> proj (JAX ``WindowAttention3D``, swin3d.py:340; ``core`` is the
-    plain attention, or K15 under ``attn_impl="pallas"``)."""
-    B_, N, C = x.shape
-    qkv = F.linear(x, wqkv, bqkv).reshape(B_, N, 3, nH, C // nH)
-    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    -> ``window_msa_core`` -> proj (JAX ``WindowAttention3D``,
+    swin3d.py:340; ``core`` is the plain attention, or K15 under
+    ``attn_impl="pallas"``)."""
+    o = window_msa_core(F.linear(x, wqkv, bqkv), nH, bias, mask, scale,
+                        core)
+    return F.linear(o, wproj, bproj)
+
+
+def window_msa_core(qkv: torch.Tensor, nH: int, bias: torch.Tensor,
+                    mask: Optional[torch.Tensor], scale: float,
+                    core: Callable = window_attention_reference
+                    ) -> torch.Tensor:
+    """The windows' packed q | k | v [B * nW, N, 3C] -> heads [B * nW, nH,
+    N, hd] -> ``core(q, k, v, bias, mask, scale)`` -> [B * nW, N, C]."""
+    B_, N, C3 = qkv.shape
+    q, k, v = qkv.reshape(B_, N, 3, nH, C3 // 3 // nH).permute(2, 0, 3, 1, 4)
     o = core(q, k, v, bias, mask, scale)
-    return F.linear(o.transpose(1, 2).reshape(B_, N, C), wproj, bproj)
+    return o.transpose(1, 2).reshape(B_, N, C3 // 3)
 
 
 @functools.lru_cache(maxsize=64)

@@ -223,7 +223,7 @@ def _shard_feat(dataset, batch_size: int):
     of the batches i = rank mod world of the one-process loader, so that
     each batch holds what it holds in one process.  One process: the
     dataset itself."""
-    world, rank = pdist.process_count(), pdist.process_index()
+    world, rank = pdist.data_count(), pdist.data_index()
     if world == 1:
         return dataset
     return _Items(dataset, [i for i in range(len(dataset))
@@ -261,7 +261,7 @@ def feat_phase(model, dataset: RetrievalEvalDataset, batch_size: int = 16,
     dev = _device(model)
     dtype = next(model.parameters()).dtype
     T, S = dataset.size_frame, dataset.cfg.size_img
-    sharded = loader is None and pdist.process_count() > 1
+    sharded = loader is None and pdist.data_count() > 1
     dl = loader or DataLoader(_shard_feat(dataset, batch_size), batch_size,
                               shuffle=False, num_workers=4,
                               pin_memory=dev.type == "cuda")
@@ -359,7 +359,7 @@ def cross_phase(model, dataset: RetrievalEvalDataset, featv: Dict,
 def _shard_pair_chunks(n_chunks: int) -> np.ndarray:
     """The rank's pair chunks (JAX ``_shard_pair_chunks``): chunk c on rank
     c mod world; every chunk in one process."""
-    world, rank = pdist.process_count(), pdist.process_index()
+    world, rank = pdist.data_count(), pdist.data_index()
     return np.arange(rank, n_chunks, world)
 
 

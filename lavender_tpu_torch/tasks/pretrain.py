@@ -10,7 +10,8 @@ appended [MASK] alone.  Negatives come from an explicit
 ``torch.Generator`` (the JAX package draws them with ``top_k`` of
 ``jax.random`` noise; the two cannot give the same indices).  Under a
 process group the negatives are drawn, as in the JAX package's global
-batch, from the texts of every rank's batch (``batch_negatives``: one
+batch, from the texts of every rank's batch (every data shard's under
+tensor parallelism) (``batch_negatives``: one
 draw on rank 0; the texts gathered with gradients flowing back,
 ``parallel.dist.gather_rows``), and the MLM mean is over every rank's
 masked tokens.
@@ -126,10 +127,10 @@ def batch_negatives(generator: Optional[torch.Generator], B: int,
     rank's batch (world * B, rank after rank): ``sample_negatives`` over
     that global batch drawn on rank 0 and broadcast, this rank's rows
     (``sample_negatives(generator, B, n_neg)`` in one process)."""
-    world = pdist.process_count()
+    world = pdist.data_count()
     if world == 1:
         return sample_negatives(generator, B, n_neg)
-    rank = pdist.process_index()
+    rank = pdist.data_index()
     if rank == 0:
         idx = sample_negatives(generator, B * world, n_neg)
     else:
@@ -162,7 +163,7 @@ def pretrain_forward(model, img: torch.Tensor, txt: torch.Tensor,
     vft, vmt, _ = common.prepend_pretxt(ft, mt, feat_pre, mask_pre)
     vft, vmt = pdist.gather_rows(vft), pdist.gather_rows(vmt)
     O = neg_idx.shape[1] + 1
-    own = pdist.process_index() * B + torch.arange(
+    own = pdist.data_index() * B + torch.arange(
         B, device=neg_idx.device)[:, None]
     flat = torch.cat([own, neg_idx], dim=1).reshape(-1).to(vft.device)
     out = model.go_cross(fi.repeat_interleave(O, 0),
@@ -185,7 +186,7 @@ def make_loss_fn(true_id: int, false_id: int, vtm_batch: int = 4,
                 generator: Optional[torch.Generator] = None):
         img, txt = batch["img"], batch["txt"]
         B = img.shape[0]
-        O = min(B * pdist.process_count(), vtm_batch)
+        O = min(B * pdist.data_count(), vtm_batch)
         neg_idx = batch_negatives(generator, B, O - 1)
         fp, mp = common.apply_pretext(pretext, model, B, generator)
         out_mtm, out_vtm = pretrain_forward(
@@ -208,7 +209,7 @@ def global_token_mean(loss: torch.Tensor,
                       ans_mtm: torch.Tensor) -> torch.Tensor:
     """``loss``, the mean over this rank's targets of ``ans_mtm`` (>= 0),
     as its share of the mean over every rank's (itself in one process)."""
-    if pdist.process_count() == 1:
+    if pdist.data_count() == 1:
         return loss
     return loss * pdist.mean_weight((ans_mtm >= 0).sum()).to(loss.device)
 
@@ -225,7 +226,7 @@ def make_eval_step(true_id: int, false_id: int,
 
     def step(model, img, txt, mask, ans_mtm, generator=None):
         B = img.shape[0]
-        O = min(B * pdist.process_count(), vtm_batch)
+        O = min(B * pdist.data_count(), vtm_batch)
         neg_idx = batch_negatives(generator, B, O - 1)
         with common.evaluating(model):
             out_mtm, out_vtm = pretrain_forward(model, img, txt, mask,

@@ -254,7 +254,7 @@ def make_pretrain_ts_loss(temp: float = 1.0, vtm_batch: int = 4) -> Callable:
     def loss_fn(model, batch, generator=None):
         img, ans_mtm = batch["img"], batch["ans_mtm"]
         B = img.shape[0]
-        O = min(B * pdist.process_count(), vtm_batch)
+        O = min(B * pdist.data_count(), vtm_batch)
         neg_idx = batch_negatives(generator, B, O - 1)
         fi, mi, ft, mt = model.go_feat(img, batch["txt"], batch["mask"],
                                        generator)
@@ -262,7 +262,7 @@ def make_pretrain_ts_loss(temp: float = 1.0, vtm_batch: int = 4) -> Callable:
         out = model.go_cross(fi, mi, ft, mt, generator)
         ls_mtm = global_token_mean(common.cross_entropy_ignore(
             model.mlm_head(out[:, Lv:]), ans_mtm), ans_mtm)
-        own = pdist.process_index() * B + torch.arange(
+        own = pdist.data_index() * B + torch.arange(
             B, device=neg_idx.device)[:, None]
         flat = torch.cat([own, neg_idx], 1).reshape(-1).to(ft.device)
         ft, mt = pdist.gather_rows(ft), pdist.gather_rows(mt)

@@ -10,7 +10,9 @@ page-locked memory (``pin_memory=True`` on the card) and
 Under a process group (``parallel.dist.distributed_init``) the state is
 placed by ``trainer.shard_train_state`` (ZeRO-1) and the step averages
 the gradients over the ranks; each rank evaluates its loader shard and the
-metrics are gathered with ``all_gather_obj``; rank 0 alone writes files.
+metrics are gathered with ``all_gather_obj`` (once per data shard under
+tensor parallelism); rank 0 alone writes files, the weights in the full
+layout.
 
     agent = Agent(cfg, state, loss_fn, eval_step=_wrap_eval(step, keys))
     log = run_finetune(agent, dl_tr, dl_vl, dl_ts, cfg.train.size_epoch)
@@ -30,6 +32,7 @@ from lavender_tpu_torch.config import RunConfig
 from lavender_tpu_torch.data.loader import device_prefetch
 from lavender_tpu_torch.models import swin3d
 from lavender_tpu_torch.parallel import dist as pdist
+from lavender_tpu_torch.parallel import mesh
 from lavender_tpu_torch.tasks import common
 from lavender_tpu_torch.train import checkpoint as ckpt_lib
 from lavender_tpu_torch.train import trainer
@@ -99,11 +102,17 @@ class Agent:
 
     def batches(self, dl, prep: Optional[Callable] = None):
         """The loader's batches on the device, ``prep`` applied on the
-        host first; copied ahead of the consumer (``device_prefetch``)."""
+        host first; copied ahead of the consumer (``device_prefetch``).
+        Under tensor parallelism each batch is then broadcast from model
+        rank 0 of the data shard (``mesh.broadcast_batch``): the host's
+        frame sampling and masking are per-process draws."""
         def host():
             for b in dl:
                 yield b if prep is None else host_prep(b, prep)
-        return device_prefetch(host(), self.device)
+        staged = device_prefetch(host(), self.device)
+        if not mesh.tp_active():
+            return staged
+        return (mesh.broadcast_batch(b) for b in staged)
 
     # ---- loops (go_dl equivalent) ----
 
@@ -190,11 +199,13 @@ class Agent:
 
     def save_model(self, ep: int):
         """Rank 0 writes the weights (``ckpt_<task>_<ep>.pt``, the
-        reference's per-epoch snapshot) and ``log.json``."""
+        reference's per-epoch snapshot, in the full layout: every rank
+        calls, a collective under tensor parallelism) and ``log.json``."""
+        weights = mesh.full_state_dict(self.model)
         if pdist.is_main_process():
             path = op.join(self.cfg.path_output,
                            f"ckpt_{self.cfg.data.task or 'model'}_{ep}.pt")
-            ckpt_lib.save_params(self.model, path)
+            ckpt_lib.save_params(weights, path)
             ckpt_lib.save_log(dict(self.log), self.cfg.path_output)
 
     def best_epoch(self):
@@ -211,12 +222,12 @@ class Agent:
 
     def maybe_resume(self, path: str) -> bool:
         """Restore a full train state if a snapshot exists; returns True on
-        resume.  Ranks other than 0 re-seed their random stream from
-        (seed + step, rank): the file holds rank 0's."""
+        resume.  Data shards other than 0 re-seed their random stream from
+        (seed + step, data rank): the file holds shard 0's."""
         if not op.exists(path):
             return False
         ckpt_lib.restore_train_state(path, self.state)
-        rank = pdist.process_index()
+        rank = pdist.data_index()
         if rank:
             self.state.generator.manual_seed(trainer.rank_seed(
                 self.tcfg.seed + self.state.step, rank))

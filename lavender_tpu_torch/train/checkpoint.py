@@ -16,7 +16,12 @@ the reference's ``.pt`` import.
   ZeRO-1 (``trainer.shard_train_state``) every rank calls
   ``save_train_state``: the sharded AdamW state is consolidated on rank
   0, which alone writes; the file restores into a state of any world
-  size, one process's plain AdamW included.
+  size, one process's plain AdamW included.  Under tensor parallelism
+  (``parallel.mesh``) the consolidation runs within each data group, the
+  weights and the AdamW moments are gathered into the full layout over
+  the model group (``mesh.full_state_dict``), and global rank 0 writes:
+  the file is the one a single process writes, and restores at any
+  ``tp`` (``restore_train_state`` slices it onto a sharded state).
 - ``save_training_meta`` / ``save_log``: ``args.json`` and ``log.json``
   (agent.py:155-162), the same files as the JAX functions write for equal
   configs.
@@ -44,6 +49,9 @@ from lavender_tpu_torch.convert import (
     convert_lavender_checkpoint, load_torch_checkpoint, merge_state_dict,
     remap_swinbert_keys)
 from lavender_tpu_torch.parallel import dist as pdist
+from lavender_tpu_torch.parallel import mesh
+
+_MOMENTS = ("exp_avg", "exp_avg_sq")
 
 
 def _state_dict(obj) -> Mapping[str, torch.Tensor]:
@@ -67,19 +75,46 @@ def load_params(path: str, like: Optional[nn.Module] = None
     return sd
 
 
+def _optimizer_names(state):
+    """The parameter name of each index of the optimizer's state dict."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return mesh.names_in_order(params, state.model)
+
+
+def _map_moments(opt_sd, names, fn):
+    """``opt_sd`` with each AdamW moment replaced by ``fn(name, moment)``,
+    in index order."""
+    out = dict(opt_sd)
+    out["state"] = {i: {k: fn(names[i], v) if k in _MOMENTS else v
+                        for k, v in opt_sd["state"][i].items()}
+                    for i in sorted(opt_sd["state"])}
+    return out
+
+
 def save_train_state(state, path: str):
     """Write a ``trainer.TrainState`` for an exact resume: model,
     optimizer, scheduler, step and the generator's state with its device
-    type.  A ZeRO-1 optimizer is a collective: call on every rank; rank 0
-    writes."""
+    type.  A ZeRO-1 optimizer (and a model sharded by tensor parallelism)
+    is a collective: call on every rank; global rank 0 writes, in the full
+    layout."""
+    model_sd = mesh.full_state_dict(state.model)
     if hasattr(state.optimizer, "consolidate_state_dict"):
         state.optimizer.consolidate_state_dict(to=0)
-        if pdist.process_index() != 0:
+        if pdist.data_index() != 0:
             return
+    opt_sd = state.optimizer.state_dict()
+    plan = getattr(state.model, "tp_plan", {})
+    if plan:  # data shard 0's model ranks gather the moments
+        dev = pdist._comm_device()
+        opt_sd = _map_moments(
+            opt_sd, _optimizer_names(state),
+            lambda n, v: mesh.gather_full(v.to(dev), *plan[n]).cpu())
+    if pdist.process_index() != 0:
+        return
     os.makedirs(op.dirname(op.abspath(path)), exist_ok=True)
     torch.save({"step": int(state.step),
-                "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict(),
+                "model": model_sd,
+                "optimizer": opt_sd,
                 "scheduler": state.scheduler.state_dict(),
                 "generator": state.generator.get_state(),
                 "generator_device": state.generator.device.type}, path)
@@ -88,15 +123,24 @@ def save_train_state(state, path: str):
 def restore_train_state(path: str, like_state):
     """Restore the state written by ``save_train_state`` into
     ``like_state`` (a freshly created ``TrainState`` of the same config,
-    e.g. ``create_train_state``) and return it.  Raises ValueError when
-    its generator lives on another device type than the saved one."""
+    e.g. ``create_train_state``) and return it; a state sharded by tensor
+    parallelism takes its slices of the weights and moments.  Raises
+    ValueError when its generator lives on another device type than the
+    saved one."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     saved, have = payload["generator_device"], like_state.generator.device.type
     if saved != have:
         raise ValueError(f"restore_train_state: the generator was saved on "
                          f"{saved!r} and cannot continue on {have!r}")
-    like_state.model.load_state_dict(payload["model"], strict=True)
-    like_state.optimizer.load_state_dict(payload["optimizer"])
+    mesh.load_full_state_dict(like_state.model, payload["model"])
+    opt_sd = payload["optimizer"]
+    plan = getattr(like_state.model, "tp_plan", {})
+    if plan:
+        opt_sd = _map_moments(
+            opt_sd, _optimizer_names(like_state),
+            lambda n, v: mesh.shard_tensor(v, plan[n][0], mesh.model_rank(),
+                                           mesh.model_size()).clone())
+    like_state.optimizer.load_state_dict(opt_sd)
     like_state.scheduler.load_state_dict(payload["scheduler"])
     like_state.generator.set_state(payload["generator"])
     like_state.step = payload["step"]

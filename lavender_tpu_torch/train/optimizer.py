@@ -12,7 +12,8 @@ clip is optax's ``clip_by_global_norm``.  Under a process group
 ``build_optimizer(..., zero1=True)`` shards the AdamW state over the ranks
 (``torch.distributed.optim.ZeroRedundancyOptimizer``: the JAX package's
 ``opt_state_pspecs``, the reference's DeepSpeed stage 1) with the same
-groups and schedule.
+groups and schedule; under tensor parallelism over the data group only,
+each model slice's moments split over its data shards.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from lavender_tpu_torch.config import TrainConfig
+from lavender_tpu_torch.parallel import mesh
 
 GROUPS = ("swin_decay", "swin_nodecay", "other_decay", "other_nodecay")
 
@@ -64,9 +66,9 @@ def build_optimizer(model: nn.Module, cfg: TrainConfig, zero1: bool = False
                                torch.optim.lr_scheduler.LambdaLR]:
     """AdamW over the four groups and its per-iteration schedule (step the
     scheduler once after every optimizer step); ``zero1``: each rank of
-    the process group keeps the AdamW state of its share of the
-    parameters only, and the updated parameters are broadcast from their
-    owners after each step."""
+    its data group keeps the AdamW state of its share of the parameters
+    only, and the updated parameters are broadcast from their owners
+    after each step."""
     max_iter = max(cfg.max_iter, 1)
     labels = param_group_labels(model)
     members: Dict[str, List[nn.Parameter]] = {g: [] for g in GROUPS}
@@ -88,7 +90,8 @@ def build_optimizer(model: nn.Module, cfg: TrainConfig, zero1: bool = False
         from torch.distributed.optim import ZeroRedundancyOptimizer
         opt = ZeroRedundancyOptimizer(
             groups, optimizer_class=torch.optim.AdamW,
-            betas=tuple(cfg.betas), eps=1e-8)
+            process_group=mesh.data_group(), betas=tuple(cfg.betas),
+            eps=1e-8)
     else:
         opt = torch.optim.AdamW(groups, betas=tuple(cfg.betas), eps=1e-8)
     return opt, torch.optim.lr_scheduler.LambdaLR(opt, lambdas)
@@ -99,10 +102,20 @@ def clip_by_global_norm(params: Iterable[nn.Parameter],
                         max_norm: float) -> torch.Tensor:
     """Scale every gradient by max_norm / max(norm, max_norm), norm being
     the global L2 norm of all of them (optax ``clip_by_global_norm``), on
-    the device and without a host sync.  Returns the norm."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    the device and without a host sync.  Returns the norm.  Under tensor
+    parallelism the squares of the sharded gradients are summed over the
+    model ranks and each replicated gradient counted once."""
+    params = [p for p in params if p.grad is not None]
+    grads = [p.grad for p in params]
+    norms = torch.stack([torch.linalg.vector_norm(g.float()) for g in grads])
+    sharded = [mesh.is_sharded(p) for p in params]
+    if any(sharded):
+        split = torch.tensor(sharded, device=norms.device)
+        sq = (norms.square() * split).sum()
+        torch.distributed.all_reduce(sq, group=mesh.model_group())
+        norm = (sq + (norms.square() * ~split).sum()).sqrt()
+    else:
+        norm = torch.linalg.vector_norm(norms)
     torch._foreach_mul_(grads, max_norm / torch.maximum(
         norm, torch.tensor(max_norm, device=norm.device)))
     return norm

@@ -30,6 +30,16 @@ so that the ranks together compute the global batch's mean, as the JAX
 step does.  The eval forward needs no placement (JAX
 ``make_eval_forward``): each rank scores its own loader shard on its
 replica and the metrics are gathered (``parallel.dist.all_gather_obj``).
+
+Tensor parallel (``parallel.mesh``, a mesh installed with ``tp`` > 1):
+``shard_train_state`` first slices the weights onto this rank's model
+slice (``mesh.shard_model``), then broadcasts them within its data group,
+builds ZeRO-1 over the data group and seeds the random stream by the DATA
+rank, so that the ``tp`` ranks of one data shard draw the same dropout and
+drop-path masks (the attention kernels offset their streams by head).  The
+loss of a data shard is the same on its ``tp`` ranks; the loss mean and
+the gradient average run over the data group, and the clip's norm sums
+the sharded gradients' squares over the model group.
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from lavender_tpu_torch.config import ModelConfig, TrainConfig
 from lavender_tpu_torch.convert import from_flax
 from lavender_tpu_torch.models.lavender import LavenderModel, init_weights
 from lavender_tpu_torch.parallel import dist as pdist
+from lavender_tpu_torch.parallel import mesh
 from lavender_tpu_torch.train.optimizer import (build_optimizer,
                                                 clip_by_global_norm)
 
@@ -89,17 +100,20 @@ def rank_seed(seed: int, rank: int) -> int:
 
 def shard_train_state(state: TrainState, seed: int = 0) -> TrainState:
     """Place a freshly created state for data-parallel training (JAX
-    ``shard_train_state``): under a process group, the weights and buffers
-    broadcast from rank 0, AdamW rebuilt as ZeRO-1 over the same groups
-    (``build_optimizer(..., zero1=True)``) with a fresh schedule, and the
-    generator seeded from ``(seed, rank)`` (``rank_seed``).  Without a
-    group the state is returned as it is."""
+    ``shard_train_state``): under a process group, the weights sliced to
+    this rank's model slice where a mesh with tp > 1 is installed
+    (``mesh.shard_model``), the weights and buffers broadcast from data
+    shard 0 of this rank's data group, AdamW rebuilt as ZeRO-1 over the
+    data group (``build_optimizer(..., zero1=True)``) with a fresh
+    schedule, and the generator seeded from ``(seed, data rank)``
+    (``rank_seed``).  Without a group the state is returned as it is."""
     if not pdist.is_initialized():
         return state
+    mesh.shard_model(state.model)
     pdist.broadcast_module(state.model)
     state.optimizer, state.scheduler = build_optimizer(
         state.model, state.config, zero1=True)
-    state.generator.manual_seed(rank_seed(seed, pdist.process_index()))
+    state.generator.manual_seed(rank_seed(seed, pdist.data_index()))
     return state
 
 
@@ -125,8 +139,8 @@ def make_train_step(loss_fn: Callable, state: TrainState,
     backward run under bf16 autocast; on the CPU (the parity tests) in
     float32.
 
-    Under a process group the gradients are averaged over the ranks
-    before the clip, and the returned loss is the ranks' mean; with
+    Under a process group the gradients are averaged over the data shards
+    before the clip, and the returned loss is the shards' mean; with
     ``count_fn(batch)`` (the number of terms the loss averages, e.g.
     ``label_count("mask_ans")``) and more than one rank, each rank's loss
     is first weighted by ``world * count / global count``, so the returned
@@ -142,7 +156,7 @@ def make_train_step(loss_fn: Callable, state: TrainState,
             out = loss_fn(state.model, batch, state.generator)
         loss, aux = out if has_aux else (out, None)
         data_parallel = pdist.is_initialized()
-        world = pdist.process_count()
+        world = pdist.data_count()
         if data_parallel and world > 1 and count_fn is not None:
             loss = loss * pdist.mean_weight(count_fn(batch)).to(loss.device)
         loss.backward()

@@ -208,8 +208,11 @@ def test_cli_needs_a_gpu_unless_told_cpu(data_dir, tmp_path, monkeypatch):
 
 
 def test_tensor_parallel_is_not_ported(data_dir, tmp_path):
+    """``"tp": 2`` in one process: no layout of one rank holds two model
+    ranks, so the CLI raises before it builds anything (the runs on four
+    ranks are tests/test_torch_tensor_parallel.py's)."""
     from lavender_tpu_torch.cli.main import main
-    with pytest.raises(NotImplementedError, match="tp=2"):
+    with pytest.raises(ValueError, match="tp=2"):
         main(["--task", "retrieval_mlm", "--config",
               _config(data_dir, "toyret", name="tp2", tp=2),
               "--path_output", str(tmp_path), "--device", "cpu"])

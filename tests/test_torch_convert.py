@@ -418,7 +418,13 @@ def test_plain_as_launched_casts_keyword_arguments(monkeypatch):
     op = _build.KernelOp("K0 probe", lambda x, mlp=None: seen.append(
         (x.dtype, [t.dtype for t in mlp])), lambda *a, **k: None)
     t, i = torch.zeros(2), torch.zeros(2, dtype=torch.long)
-    op.plain_as_launched(t, mlp=(t, i))
+    try:
+        op.plain_as_launched(t, mlp=(t, i))
+    finally:
+        # autocast's exit restores the state the patched query reported:
+        # without this the process keeps CUDA autocast on, and the next
+        # test file's spatial Swin stages cast their biases to bf16
+        torch.set_autocast_enabled("cuda", False)
     assert seen == [(torch.bfloat16, [torch.bfloat16, torch.long])]
     x, mlp = _build.autocast_inputs(t, (t, None))
     assert x.dtype == mlp[0].dtype == torch.bfloat16 and mlp[1] is None

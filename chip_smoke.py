@@ -12,7 +12,9 @@
     python3 chip_smoke.py --cli          # phases 1, 2 and 12 (the CLI)
     python3 chip_smoke.py --dp           # data parallel on 4 GPUs (run_dp)
     python3 chip_smoke.py --tp           # tensor parallel on 4 GPUs (run_tp)
+    python3 chip_smoke.py --tp SWINL     # its Swin-L-384 tp 2 step (e) alone
     python3 chip_smoke.py --only TP      # phase 3's tensor-parallel shapes
+    python3 chip_smoke.py --only SWINL   # Swin-L-384: its phase-3 cases, 13
 
 Phases, each printed as it ends; any failure raises (exit code != 0) and
 nothing is ever run on the CPU instead:
@@ -259,7 +261,27 @@ nothing is ever run on the CPU instead:
    ZeRO-1): 2 steps against the same without a process group, bitwise or
    within CLI_DP_TOL, then a consolidated save, a restore into a fresh
    sharded state and the next loss; (d) printed: the Agent's clips/s and
-   ms a step (host clock), peak memory, the card's name and power.
+   ms a step (host clock), peak memory, the card's name and power;
+13. Swin-L-384 (``run_swinl``; the ``large_384`` preset: embed 192,
+   depths 2/2/18/2, heads 6/12/24/48, window 8 x 12 x 12, so N = Npad =
+   720 and the fusion sequence L = 5 x (1 + 12 x 12) + 26 = 751) at full
+   width and depth, seeded weights: (a) serving, B=4 uint8 clips of 5 x
+   384 x 384, 3 requests against the plain path, the launches a forward
+   from the routing predicates, ms a forward, its device time and largest
+   activities, peak memory; (b) the retrieval-MLM step at B=8 (kernels
+   vs plain at SWINL_COMPARE_BATCH = 4, the largest B whose plain path
+   fits), launches, ms a step, device time, peak memory; (c) ``cli.main``
+   retrieval_mlm at ``vis_backbone_size: "large", size_img: 384``: 2 steps
+   and one eval batch.  Phase 3 holds every kernel of this path at its
+   shapes (``_swinl_cases``: K1 at the four stages, B=4 and B=8, and the
+   stage-4 fold; K8a / K8b, K9 and K3; K2 at Npad = 720; K4, K5, K10a /
+   K10b and K11 at L = 751; K11's row kernel also at C = 1536 and 2048;
+   K14 and K16 at C = 1536, checked only) and the row primitives at C =
+   1536 and 2048 (``_swinl_rows``: both LNs, the row kernel's LN and sum
+   modes), each against its plain version with a second call bitwise
+   equal and its bound, K2 / K8a / K8b / K10a / K10b also against one
+   PyTorch call (index_select, scaled_dot_product_attention and its
+   backward).
 
 Phase 3 also holds the tensor-parallel route's shapes (``_tp_shapes``,
 also alone under ``--only TP``): K8a / K8b at Swin-B's heads / 2 and / 4
@@ -271,16 +293,19 @@ run): (a) tp 4's B=8 step against one GPU's at rates 0 and at the default
 rates, the launches a rank, ms a step, peak memory, moments, the NCCL
 share and one all-reduce alone; (b) ``cli.main`` at dp 2 x tp 2 with its
 checkpoint served on one GPU; (c) tp 4's eval logits against one GPU's
-K1-K5 forward; (d) tp 2's greedy captions against one GPU's.
+K1-K5 forward; (d) tp 2's greedy captions against one GPU's; (e)
+Swin-L-384's B=8 step at dp 2 x tp 2 against one GPU's (also alone:
+``--tp SWINL``).
 
 Every time is the median of five CUDA-event windows of five calls.
 The last lines: the card's name and power limit, then a JSON line of the
 kernels (per kernel: launches in the phase-4, phase-5 (b), the checked
-phase-6, phase-7, phase-8, phase-9, phase-10, phase-11 and phase-12 runs,
-K12's in 5 (e), each phase's also apart (``launches_swinbert`` phase
-10's, ``launches_data`` phase 11's (b) and (c), ``launches_cli`` phase
-12's (a) and (b)); its largest
-error in phase 3;
+phase-6, phase-7, phase-8, phase-9, phase-10, phase-11, phase-12 and
+phase-13 runs, K12's in 5 (e), each phase's also apart
+(``launches_swinbert`` phase 10's, ``launches_data`` phase 11's (b) and
+(c), ``launches_cli`` phase 12's (a) and (b), ``launches_swinl`` phase
+13's (a), (b) and (c)); its largest error in phase 3, the Swin-L-384
+cases' included;
 ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms``, each the time per
 call x its calls in one serving forward plus one train step plus one
 seq2seq forward (K7: as if in each of its 12 layers) plus the text part
@@ -288,7 +313,9 @@ of one KV decode (K4 and K5 in the prefill, K5 in the 19 steps) plus one
 "fused" and one "pallas" serving forward and one remat train step (K14,
 K15) plus one ``_PEK`` serving forward (K17) and one ``_IKS`` serving
 forward and train step (K16) plus one retrieval step under
-LVT_ATTNLANES=0 (K13a, K13b), summed over the shapes;
+LVT_ATTNLANES=0 (K13a, K13b), summed over the shapes; ``swinl_ms``,
+``swinl_plain_ms``, ``swinl_library_ms`` and ``swinl_bound_ms`` the same
+over one Swin-L-384 serving forward and one train step (phase 13);
 ``bound_ms`` is the larger of the bytes over 3.35 TB/s and the FLOPs over
 989 TFLOP/s), then the device line.
 """
@@ -408,21 +435,25 @@ class Case:
     bitwise_repeat: bool = False  # a second call must give the same bits
     device_ms: bool = False  # also the device time a call (torch.profiler)
     graph_ms: bool = False  # also the device time a call (a CUDA graph)
+    # a Swin-L-384 shape: ``count`` then is the calls in one Swin-L
+    # serving forward and train step, summed apart (the "swinl_*" keys)
+    swinl: bool = False
 
 
 def _rnd(g, *shape, std=1.0, dtype=torch.bfloat16):
     return (torch.randn(*shape, generator=g, device="cuda") * std).to(dtype)
 
 
-def _core_compare(C):
-    """K8b: dq, dk, dv and dbias each against the plain version's."""
+def _core_compare(C, N=245):
+    """K8b: dq, dk, dv and dbias each against the plain version's, on the
+    N valid rows of a window."""
     def compare(got, want):
         (dq_k, db_k), (dq_p, db_p) = got, want
-        rows, parts = slice(0, 245), []
+        rows, parts = slice(0, N), []
         for i, nm in enumerate(("dq", "dk", "dv")):
             sl = slice(i * C, (i + 1) * C)
             parts.append((nm, dq_k[:, :, rows, sl], dq_p[:, :, rows, sl]))
-        parts.append(("dbias", db_k[:, :245, :245], db_p[:, :245, :245]))
+        parts.append(("dbias", db_k[:, :N, :N], db_p[:, :N, :N]))
         results = [(nm, *_compare(a, b, TOL, GRAD_REL_L2))
                    for nm, a, b in parts]
         detail = ", ".join(f"{nm} {e:.3g}/{r:.3g}"
@@ -827,7 +858,8 @@ def _shifted_compare(x, N):
         r = x[v].float()
         d_got, d_want = got[v].float() - r, want[v].float() - r
         d_rel = float((d_got - d_want).norm() / d_want.norm())
-        pad = float(got[:, :, N:].float().abs().max())
+        tail = got[:, :, N:]  # none where N = Npad (Swin-L's 720)
+        pad = float(tail.float().abs().max()) if tail.numel() else 0.0
         ok = ok and d_rel <= DELTA_REL_L2 and pad == 0.0
         return err, rel, ok, (f", minus residual rel_l2 {d_rel:.3g} (<= "
                               f"{DELTA_REL_L2}), pad rows max|k| {pad} (== 0)")
@@ -2292,13 +2324,20 @@ def check_kernels(only=None, parts: bool = True):
     (kernel ids such as "K2") keeps those kernels' cases and skips the
     checks beside them; ``parts`` False also skips their parts and
     kernel-name checks, which call this tree's primitives (so the cases
-    alone also run on an older tree's package)."""
+    alone also run on an older tree's package).  The Swin-L-384 cases
+    (``_swinl_cases``; with ``only``, under "SWINL" alone) sum into the
+    "swinl_*" keys, and with ``parts`` the row primitives at C = 1536 and
+    2048 (``_swinl_rows``) follow them."""
+    import itertools
+
     g = torch.Generator(device="cuda").manual_seed(0)
     if parts and (not only or only & {"K12", "K14a", "K14f", "K16"}):
         _kernel_names(g, only)
     per_kernel = {}
-    for c in _kernel_cases(g):
-        if only and c.op.name.split()[0] not in only:
+    swinl = _swinl_cases(g) if not only or "SWINL" in only else ()
+    for c in itertools.chain(_kernel_cases(g), swinl):
+        if only and ("SWINL" not in only if c.swinl
+                     else c.op.name.split()[0] not in only):
             continue
         got = c.op(*c.args, **c.kw)
         want = c.op.plain(*c.args, **c.kw)
@@ -2361,15 +2400,20 @@ def check_kernels(only=None, parts: bool = True):
         k = per_kernel.setdefault(c.op, {
             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
             "library_ms": None, "bound_ms": 0.0, "t_bytes": 0.0,
-            "t_flops": 0.0})
+            "t_flops": 0.0, "swinl_ms": 0.0, "swinl_plain_ms": 0.0,
+            "swinl_library_ms": None, "swinl_bound_ms": 0.0})
         k["max_abs_err"] = max(k["max_abs_err"], err)
-        k["ms"] += c.count * ms
-        k["plain_ms"] += c.count * plain_ms
-        k["bound_ms"] += c.count * bound
-        k["t_bytes"] += c.count * t_bytes
-        k["t_flops"] += c.count * t_flops
+        pre = "swinl_" if c.swinl else ""
+        k[pre + "ms"] += c.count * ms
+        k[pre + "plain_ms"] += c.count * plain_ms
+        k[pre + "bound_ms"] += c.count * bound
+        if not c.swinl:
+            k["t_bytes"] += c.count * t_bytes
+            k["t_flops"] += c.count * t_flops
         if lib_ms is not None:
-            k["library_ms"] = (k["library_ms"] or 0.0) + c.count * lib_ms
+            k[pre + "library_ms"] = ((k[pre + "library_ms"] or 0.0)
+                                     + c.count * lib_ms)
+        del c
     if parts and (not only or only & {"K1", "K4"}):
         _k1_k4_parts(g)
     if parts and (not only or only & {"K3", "K9"}):
@@ -2382,6 +2426,8 @@ def check_kernels(only=None, parts: bool = True):
         _k16_parts(g)
     if only and "TP" in only:
         _tp_shapes(g)
+    if parts and (not only or "SWINL" in only):
+        _swinl_rows(g)
     if only:
         return per_kernel
     _heads_vs_lanes(g)
@@ -2411,11 +2457,12 @@ def _check_counts(ops, expected, runs, label):
     return counts
 
 
-def _shifted_blocks(swin) -> int:
+def _shifted_blocks(swin, size: int = SIZE) -> int:
     """Blocks that sit between a shift and its inverse: the second of each
     pair at every stage whose map is larger than the window (stage 4's
-    7 x 7 map at 224 x 224 fills its window, so it is not shifted)."""
-    side, n = SIZE // 4, 0
+    7 x 7 map at 224 x 224 fills its window, so it is not shifted; so does
+    Swin-L-384's 12 x 12 one)."""
+    side, n = size // 4, 0
     for i, depth in enumerate(swin.depths):
         if side > swin.window_size[1]:
             n += depth // 2
@@ -2423,17 +2470,23 @@ def _shifted_blocks(swin) -> int:
     return n
 
 
-def _video_counts(ops, cfg):
-    """Launches of one Swin-B pass over B clips in serving (go_feat)."""
+def _video_counts(ops, cfg, size: int = SIZE):
+    """Launches of one Swin pass over B clips of ``size`` x ``size`` in
+    serving (go_feat), from the routing predicates: K1 every block, K2
+    around each shifted one, K3 where the MLP is not in K1's block
+    (``mlp_in_block`` at the window's Npad: the window's FRAMES x wh x
+    ww tokens rounded up to 8)."""
     from lavender_tpu_torch.ops.swin_block_attn import mlp_in_block
 
     s = cfg.swin
-    return {ops["K1"]: sum(s.depths), ops["K2"]: 2 * _shifted_blocks(s),
+    wd, wh, ww = s.window_size
+    npad = -(-min(wd, FRAMES) * wh * ww // 8) * 8
+    return {ops["K1"]: sum(s.depths), ops["K2"]: 2 * _shifted_blocks(s, size),
             ops["K3"]: sum(d for i, d in enumerate(s.depths)
                            if not mlp_in_block(s.embed_dim * 2 ** i,
                                                int(s.embed_dim * 2 ** i
                                                    * s.mlp_ratio),
-                                               s.num_heads[i], 248))}
+                                               s.num_heads[i], npad))}
 
 
 @torch.no_grad()
@@ -2463,6 +2516,23 @@ def build_server():
     return server
 
 
+def _requests(vocab: int, size: int = SIZE, seed: int = 0):
+    """N_REQUESTS seeded requests of BATCH uint8 clips of FRAMES x size x
+    size and TXT_LEN tokens (lengths 5 to TXT_LEN, the first full):
+    (img, txt, mask) numpy arrays each."""
+    rs = np.random.RandomState(seed)
+    requests = []
+    for _ in range(N_REQUESTS):
+        img = rs.randint(0, 256, (BATCH, FRAMES, size, size, 3)).astype(
+            np.uint8)
+        lens = rs.randint(5, TXT_LEN + 1, BATCH)
+        lens[0] = TXT_LEN
+        mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
+        txt = rs.randint(1, vocab, (BATCH, TXT_LEN)) * mask
+        requests.append((img, txt, mask))
+    return requests
+
+
 def run_serving(ops, server):
     """Phase 4: the serving forward through the kernels, with counts."""
     from lavender_tpu_torch.ops._build import plain_path
@@ -2473,16 +2543,7 @@ def run_serving(ops, server):
         with plain_path():
             return server(*request)
 
-    rs = np.random.RandomState(0)
-    requests = []
-    for _ in range(N_REQUESTS):
-        img = rs.randint(0, 256, (BATCH, FRAMES, SIZE, SIZE, 3)).astype(np.uint8)
-        lens = rs.randint(5, TXT_LEN + 1, BATCH)
-        lens[0] = TXT_LEN
-        mask = (np.arange(TXT_LEN)[None] < lens[:, None]).astype(np.int64)
-        txt = rs.randint(1, cfg.bert.vocab_size, (BATCH, TXT_LEN)) * mask
-        requests.append((img, txt, mask))
-
+    requests = _requests(cfg.bert.vocab_size)
     per_fwd = {**_video_counts(ops, cfg),
                ops["K4"]: cfg.bert.num_hidden_layers,
                ops["K5"]: cfg.bert.num_hidden_layers}
@@ -2549,16 +2610,15 @@ def _eval_loss_and_grads(server, request, plain: bool):
     return float(loss.detach()), grads
 
 
-def _train_batch(vocab: int):
+def _train_batch(vocab: int, size: int = SIZE, batch: int = TRAIN_BATCH):
     rs = np.random.RandomState(1)
-    img = rs.randint(0, 256, (TRAIN_BATCH, FRAMES, SIZE, SIZE, 3))
+    img = rs.randint(0, 256, (batch, FRAMES, size, size, 3))
     return {"img": torch.as_tensor(img.astype(np.uint8), device="cuda"),
-            "txt": torch.as_tensor(rs.randint(1, vocab, (TRAIN_BATCH,
-                                                         TXT_LEN)),
+            "txt": torch.as_tensor(rs.randint(1, vocab, (batch, TXT_LEN)),
                                    device="cuda"),
-            "mask": torch.ones(TRAIN_BATCH, TXT_LEN, dtype=torch.long,
+            "mask": torch.ones(batch, TXT_LEN, dtype=torch.long,
                                device="cuda"),
-            "vid": torch.arange(TRAIN_BATCH, device="cuda")}
+            "vid": torch.arange(batch, device="cuda")}
 
 
 def _grad_groups(model):
@@ -4458,6 +4518,7 @@ def run_data(ops):
 # its retrieval epoch (32 train clips: 4 steps of B=8; 16 val captions, one
 # a video kept: 1 eval batch) and its caption epoch (2 steps, 8 clips)
 CLI_CAPS_TRAIN, CLI_CAPS_VAL, CLI_STEPS, CLI_CAP_STEPS = 4, 2, 4, 2
+SWINL_CLI_STEPS = 2  # phase 13 (c): 2 train captions a video, B=8
 CLI_DP_TOL = 1e-6  # (c): the data-parallel steps at world size 1
 
 
@@ -4466,8 +4527,9 @@ def _cli_data(root):
     fixture's videos (``tests/data/make_clip_tsv.py``'s frames and
     captions) at 5 frames a clip, so that the train sampler draws no
     random frames and two runs see the same batches, each caption one
-    string; ``txt_cli.json`` (4 train and 2 val items a video) and
-    ``txt_cap.json`` (2 train and 1 val item a video)."""
+    string; ``txt_cli.json`` (4 train and 2 val items a video),
+    ``txt_cap.json`` and ``txt_clil.json`` (2 train and 1 val item a
+    video)."""
     import pickle
 
     from lavender_tpu_torch.data.tsv import tsv_writer
@@ -4483,7 +4545,8 @@ def _cli_data(root):
     with open(os.path.join(root, "img_cli.id2lineidx.pkl"), "wb") as f:
         pickle.dump({fx.video_id(v): o for v, o in enumerate(offsets)}, f)
     for name, n_tr, n_vl in (("cli", CLI_CAPS_TRAIN, CLI_CAPS_VAL),
-                             ("cap", CLI_CAP_STEPS, 1)):
+                             ("cap", CLI_CAP_STEPS, 1),
+                             ("clil", SWINL_CLI_STEPS, 1)):
         items = {split: [{"video": fx.video_id(v),
                           "caption": fx.captions(v)[k % 3]}
                          for v in range(fx.N_VIDEOS) for k in range(n)]
@@ -5088,7 +5151,159 @@ def _nccl_times(group) -> dict:
     return out
 
 
-def _tp_worker(rank: int, world: int, port: int) -> int:
+def _tp_step(gather, mcfg, tcfg, loss_fn, batch, profile: bool):
+    """One forward + backward of ``loss_fn`` on ``batch`` under the global
+    mesh, then timed steps: (res, the gathered full gradients).  ``res``
+    holds this rank's loss and, over every rank, the launches of the
+    forward + backward, its peak memory, ms a step, the peak with the
+    steps, the AdamW moments and (with ``profile``) one step's device
+    profile under torch.profiler."""
+    from lavender_tpu_torch.parallel import mesh
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step,
+                                                  shard_train_state)
+
+    ops = kernel_ops()
+    state = shard_train_state(create_train_state(mcfg, tcfg, seed=0), seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(ops.values())
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        loss = loss_fn(state.model, batch, state.generator)
+    loss.backward()
+    torch.cuda.synchronize()
+    launches = {k: op.launches for k, op in ops.items()}
+    peak_fb = torch.cuda.max_memory_allocated()
+    plan = state.model.tp_plan
+    grads = {n: mesh.gather_full(p.grad, *plan[n]).clone()
+             for n, p in state.model.named_parameters()
+             if p.grad is not None}
+    res = {"loss": float(loss.detach()), "launches": gather(launches),
+           "peak_fwd_bwd": gather(peak_fb)}
+    del loss
+    step = make_train_step(loss_fn, state)
+    res["ms_step"] = gather(_timed_steps(step, batch))
+    res["peak_step"] = gather(torch.cuda.max_memory_allocated())
+    local = state.optimizer.optim.state
+    res["moments"] = gather(sum(
+        t.numel() * t.element_size() for st in local.values()
+        for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")))
+    if profile:  # where a step's device time goes
+        host_ms, busy_ms, _ = _device_profile(lambda: step(batch))
+        names = _kernel_times(lambda: step(batch), 1)
+        res["profile"] = gather({
+            "host_ms": host_ms, "busy_ms": busy_ms,
+            "nccl_ms": sum(t for n, t in names.items()
+                           if "nccl" in n.lower()),
+            "device_ms": sum(names.values()),
+            "top": sorted(names.items(), key=lambda kv: -kv[1])[:6]})
+    del state, step
+    torch.cuda.empty_cache()
+    return res, grads
+
+
+def _tp_vs_one_gpu(res, grads, mcfg, tcfg, loss_fn, batch, label):
+    """On rank 0 after ``_tp_step``: one GPU's forward + backward on the
+    same batch and seed (rank_seed(0, 0)) against the tp one (LOSS_TOL /
+    STEP_GRAD_REL_L2; raises), and one GPU's peak memory and ms a step
+    into ``res``."""
+    from lavender_tpu_torch.parallel import mesh
+    from lavender_tpu_torch.train.trainer import create_train_state
+
+    mesh.set_global_mesh(None)
+    ref = create_train_state(mcfg, tcfg, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator("cuda").manual_seed(0)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        want = loss_fn(ref.model, batch, gen)
+    want.backward()
+    torch.cuda.synchronize()
+    res["peak_fwd_bwd_1"] = torch.cuda.max_memory_allocated()
+    ref_grads = {n: p.grad.detach().clone()
+                 for n, p in ref.model.named_parameters()
+                 if p.grad is not None}
+    _check_step(label, (res["loss"], grads),
+                (float(want.detach()), ref_grads), _grad_groups(ref.model),
+                tag="tp")
+    del want, ref_grads
+    res["ms_step_1"] = _timed_steps(_plain_step(ref, loss_fn), batch)
+    res["peak_step_1"] = torch.cuda.max_memory_allocated()
+    del ref
+    torch.cuda.empty_cache()
+
+
+def _tp_swinl(rank: int, gather, log) -> dict:
+    """``--tp`` (e): Swin-L-384 (the ``large_384`` preset, for which the JAX
+    package's model axis was written) at dp 2 x tp 2, each data shard the
+    same B=8 batch of 5 x 384 x 384 clips (phase 13 (b)'s, drop-path 0.2,
+    dropout 0.1): ``_tp_step`` with its profile, then on rank 0 against
+    one GPU."""
+    import torch.distributed as tdist
+
+    from lavender_tpu_torch.config import TrainConfig
+    from lavender_tpu_torch.parallel import mesh
+    from lavender_tpu_torch.tasks import retrieval
+
+    cfg = _swinl_config()
+    tcfg = TrainConfig(max_iter=1000, max_grad_norm=1.0)
+    loss_fn = retrieval.make_loss_fn(TRUE_ID, FALSE_ID)
+    batch = _swinl_batch(cfg.bert.vocab_size)
+    mesh.set_global_mesh(mesh.make_mesh(2))
+    res, grads = _tp_step(gather, cfg, tcfg, loss_fn, batch, profile=True)
+    log("(e) Swin-L-384 tp 2 step done")
+    tdist.barrier()
+    if rank == 0:
+        _tp_vs_one_gpu(res, grads, cfg, tcfg, loss_fn, batch,
+                       f"(e) Swin-L-384 tp 2 vs one GPU, "
+                       f"B={SWINL_TRAIN_BATCH}:")
+    del grads
+    torch.cuda.empty_cache()
+    tdist.barrier()
+    return res
+
+
+def _print_tp_profiles(tag: str, profiles):
+    """Prints each rank's one-step profile of ``_tp_step``."""
+    for r, p in enumerate(profiles):
+        busy = ("not measured" if p["busy_ms"] is None
+                else f"{p['busy_ms']:.1f} ms")
+        print(f"[tp] {tag} rank {r}'s step under torch.profiler: host "
+              f"{p['host_ms']:.1f} ms, device busy {busy}, device "
+              f"activities {p['device_ms']:.1f} ms of which NCCL "
+              f"{p['nccl_ms']:.1f} ms "
+              f"({100 * p['nccl_ms'] / max(p['device_ms'], 1e-9):.1f}%); the "
+              f"largest {[(n[:50], round(t, 2)) for n, t in p['top']]}",
+              flush=True)
+
+
+def _report_tp_swinl(e, smi) -> bool:
+    """Prints ``--tp`` (e) and returns whether its launches are the tp
+    route's (K8a / K8b 24, K10a / K10b 12, K2 launched, no K1 / K9 /
+    K11) on every rank (rank 0's comparison raised there already)."""
+    gib = [round(b / 2 ** 30, 2) for b in e["peak_step"]]
+    print(f"[tp] (e) Swin-L-384, B={SWINL_TRAIN_BATCH} on dp 2 x tp 2: ms a "
+          f"step a rank {[round(t, 1) for t in e['ms_step']]} against "
+          f"{e['ms_step_1']:.1f} on one GPU; peak memory a rank {gib} GiB "
+          f"against {e['peak_step_1'] / 2 ** 30:.2f} GiB on one GPU "
+          f"(forward + backward alone "
+          f"{[round(b / 2 ** 30, 2) for b in e['peak_fwd_bwd']]} against "
+          f"{e['peak_fwd_bwd_1'] / 2 ** 30:.2f}); loss {e['loss']:.6f} "
+          f"({smi})", flush=True)
+    _print_tp_profiles("(e)", e["profile"])
+    ok = True
+    for r, launches in enumerate(e["launches"]):
+        print(f"[tp] (e) rank {r}'s launches in one forward + backward: "
+              f"{ {k: n for k, n in launches.items() if n} }", flush=True)
+        ok = ok and launches["K2"] > 0 and all(
+            launches[k] == n for k, n in (
+                ("K8a", 24), ("K8b", 24), ("K10a", 12), ("K10b", 12),
+                ("K1", 0), ("K9", 0), ("K11", 0)))
+    return ok
+
+
+def _tp_worker(rank: int, world: int, port: int,
+               swinl_only: bool = False) -> int:
     """One rank of ``--tp``, on GPU ``rank`` (NCCL), the default
     ``ModelConfig()``: (a) tp 4, one data shard: phase 12's first B=8
     batch through the retrieval-MLM step at rates 0 and at the default
@@ -5097,7 +5312,8 @@ def _tp_worker(rank: int, world: int, port: int) -> int:
     dp 2 x tp 2: ``cli.main`` retrieval_mlm with ``"tp": 2``, its
     checkpoint served on one GPU; (c) tp 4: the eval forward's MLM logits
     against one GPU's K1-K5 forward; (d) tp 2: a greedy decode of 4 clips
-    against one GPU's.  Rank 0 writes build/cli/tp.json."""
+    against one GPU's; (e) Swin-L-384's step at tp 2 (``_tp_swinl``;
+    alone with ``swinl_only``).  Rank 0 writes build/cli/tp.json."""
     import torch.distributed as tdist
 
     from lavender_tpu_torch.cli import main as cli
@@ -5111,9 +5327,6 @@ def _tp_worker(rank: int, world: int, port: int) -> int:
     from lavender_tpu_torch.parallel import mesh
     from lavender_tpu_torch.tasks import retrieval
     from lavender_tpu_torch.train import checkpoint
-    from lavender_tpu_torch.train.trainer import (create_train_state,
-                                                  make_train_step,
-                                                  shard_train_state)
 
     os.environ["LOCAL_RANK"] = str(rank)
     pdist.distributed_init(f"127.0.0.1:{port}", world, rank, device="cuda")
@@ -5129,6 +5342,15 @@ def _tp_worker(rank: int, world: int, port: int) -> int:
 
     def log(msg):
         print(f"[tp] rank {rank}: {msg}", flush=True)
+
+    if swinl_only:
+        out = {"e": _tp_swinl(rank, gather, log)}
+        if rank == 0:
+            with open(os.path.join(root, "tp.json"), "w") as f:
+                json.dump(out, f)
+        tdist.barrier()
+        tdist.destroy_process_group()
+        return 0
 
     tok = BertTokenizer(os.path.join(REPO_DIR, "assets", "vocab_30k.txt"))
     train = load_task_data(DataConfig(data_dir=root, dataset="cli",
@@ -5146,68 +5368,15 @@ def _tp_worker(rank: int, world: int, port: int) -> int:
     for label, mcfg in (("rates 0", _rates0_config()),
                         ("default rates", ModelConfig())):
         mesh.set_global_mesh(m4)
-        state = shard_train_state(create_train_state(mcfg, tcfg, seed=0),
-                                  seed=0)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        _reset(ops.values())
-        with torch.autocast("cuda", dtype=torch.bfloat16):
-            loss = loss_fn(state.model, whole, state.generator)
-        loss.backward()
-        torch.cuda.synchronize()
-        launches = {k: op.launches for k, op in ops.items()}
-        peak_fb = torch.cuda.max_memory_allocated()
-        plan = state.model.tp_plan
-        grads = {n: mesh.gather_full(p.grad, *plan[n]).clone()
-                 for n, p in state.model.named_parameters()
-                 if p.grad is not None}
-        res = {"loss": float(loss.detach()), "launches": gather(launches),
-               "peak_fwd_bwd": gather(peak_fb)}
-        del loss
-        step = make_train_step(loss_fn, state)
-        res["ms_step"] = gather(_timed_steps(step, whole))
-        res["peak_step"] = gather(torch.cuda.max_memory_allocated())
-        local = state.optimizer.optim.state
-        res["moments"] = gather(sum(
-            t.numel() * t.element_size() for st in local.values()
-            for k, t in st.items() if k in ("exp_avg", "exp_avg_sq")))
-        if label == "default rates":  # where a step's device time goes
-            host_ms, busy_ms, _ = _device_profile(lambda: step(whole))
-            names = _kernel_times(lambda: step(whole), 1)
-            comm = sum(t for n, t in names.items() if "nccl" in n.lower())
-            res["profile"] = {
-                "host_ms": host_ms, "busy_ms": busy_ms, "nccl_ms": comm,
-                "device_ms": sum(names.values()),
-                "top": sorted(names.items(), key=lambda kv: -kv[1])[:8]}
-        del state, step
-        torch.cuda.empty_cache()
+        res, grads = _tp_step(gather, mcfg, tcfg, loss_fn, whole,
+                              profile=label == "default rates")
         if label == "default rates":  # NCCL alone: the step's all-reduces
             res["nccl"] = gather(_nccl_times(mesh.model_group()))
         log(f"(a) {label}: tp 4 step done")
         tdist.barrier()
         if rank == 0:
-            mesh.set_global_mesh(None)
-            ref = create_train_state(mcfg, tcfg, seed=0)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            gen = torch.Generator("cuda").manual_seed(0)  # rank_seed(0, 0)
-            with torch.autocast("cuda", dtype=torch.bfloat16):
-                want = loss_fn(ref.model, whole, gen)
-            want.backward()
-            torch.cuda.synchronize()
-            res["peak_fwd_bwd_1"] = torch.cuda.max_memory_allocated()
-            ref_grads = {n: p.grad.detach().clone()
-                         for n, p in ref.model.named_parameters()
-                         if p.grad is not None}
-            _check_step(f"(a) tp 4 vs one GPU, {label}:",
-                        (res["loss"], grads), (float(want.detach()),
-                                               ref_grads),
-                        _grad_groups(ref.model), tag="tp")
-            del want, ref_grads
-            res["ms_step_1"] = _timed_steps(_plain_step(ref, loss_fn), whole)
-            res["peak_step_1"] = torch.cuda.max_memory_allocated()
-            del ref
-            torch.cuda.empty_cache()
+            _tp_vs_one_gpu(res, grads, mcfg, tcfg, loss_fn, whole,
+                           f"(a) tp 4 vs one GPU, {label}:")
         del grads
         out["a"][label] = res
         tdist.barrier()
@@ -5269,6 +5438,7 @@ def _tp_worker(rank: int, world: int, port: int) -> int:
     torch.cuda.empty_cache()
     log("(d) tp 2 decode done")
     tdist.barrier()
+    out["e"] = _tp_swinl(rank, gather, log)
 
     if rank == 0:
         mesh.set_global_mesh(None)
@@ -5332,9 +5502,10 @@ def _tp_worker(rank: int, world: int, port: int) -> int:
     return 0
 
 
-def run_tp() -> int:
+def run_tp(swinl_only: bool = False) -> int:
     """``--tp``: tensor parallelism across ``TP_WORLD`` GPUs of one host
-    (``_tp_worker`` on each), gated: every rank exits 0; (a) the tp 4 step
+    (``_tp_worker`` on each; ``swinl_only`` (``--tp SWINL``): (e) alone),
+    gated: every rank exits 0; (a) the tp 4 step
     within LOSS_TOL / STEP_GRAD_REL_L2 of one GPU's at rates 0 and at the
     default rates (checked on rank 0), K8a / K8b at 24 and K10a / K10b at
     12 launches a step on every rank, K2 launched, K1, K9 and K11 not;
@@ -5344,7 +5515,9 @@ def run_tp() -> int:
     tp 4 eval forward within SLICE_TOL / SLICE_REL_L2 of one GPU's, K8a
     24 and K10a 12 launches, no K1 / K4 / K5; (d) the tp 2 greedy tokens
     equal to one GPU's wherever its top-1 / top-2 gap exceeds twice the
-    gate."""
+    gate; (e) Swin-L-384's tp 2 step within LOSS_TOL / STEP_GRAD_REL_L2
+    of one GPU's (checked on rank 0), the tp route's launches on every
+    rank."""
     import socket
     import subprocess
 
@@ -5366,13 +5539,14 @@ def run_tp() -> int:
         with open(logs[r], "w") as f:
             procs.append(subprocess.Popen(
                 [sys.executable, os.path.abspath(__file__), "--tp-worker",
-                 str(r), str(TP_WORLD), str(port)], stdout=f,
+                 str(r), str(TP_WORLD), str(port)]
+                + (["SWINL"] if swinl_only else []), stdout=f,
                 stderr=subprocess.STDOUT, text=True))
     t0 = time.perf_counter()
     try:
         while any(p.poll() is None for p in procs):
             if (any(p.poll() not in (None, 0) for p in procs)
-                    or time.perf_counter() - t0 > 900):
+                    or time.perf_counter() - t0 > 1200):
                 break
             time.sleep(1.0)
     finally:
@@ -5393,7 +5567,11 @@ def run_tp() -> int:
     with open(os.path.join(root, "tp.json")) as f:
         res = json.load(f)
     smi = _nvidia_smi()
-    ok = True
+    ok = _report_tp_swinl(res["e"], smi)
+    if swinl_only:
+        if not ok:
+            raise AssertionError("--tp SWINL: a rank launched other kernels")
+        return 0
     for label, a in res["a"].items():
         gib = [round(b / 2 ** 30, 2) for b in a["peak_step"]]
         print(f"[tp] (a) {label}, B={TRAIN_BATCH} on tp 4: ms a step a rank "
@@ -5419,15 +5597,7 @@ def run_tp() -> int:
                       f"{1.5 * b / ms / 1e6:.1f} GB/s bus)"
                       for n, (b, ms) in times.items()), flush=True)
         if "profile" in a:
-            p = a["profile"]
-            busy = ("not measured" if p["busy_ms"] is None
-                    else f"{p['busy_ms']:.1f} ms")
-            print(f"[tp] (a) rank 0's tp 4 step under torch.profiler: host "
-                  f"{p['host_ms']:.1f} ms, device busy {busy}, device "
-                  f"activities {p['device_ms']:.1f} ms of which NCCL "
-                  f"{p['nccl_ms']:.1f} ms; the largest: "
-                  f"{[(n[:60], round(t, 2)) for n, t in p['top']]}",
-                  flush=True)
+            _print_tp_profiles(f"(a) {label},", a["profile"])
     b = res["b"]
     print(f"[tp] (b) cli.main retrieval_mlm, dp 2 x tp 2, {TP_CLI_BATCH} "
           f"clips a data shard: ls_tr {b['ls_tr']}, ac_vl {b['ac_vl']}, "
@@ -5465,6 +5635,607 @@ def run_tp() -> int:
         raise AssertionError("--tp: the tensor-parallel runs disagree or "
                              "launched other kernels")
     return 0
+
+
+# ---- Swin-L at 384 x 384 (the large_384 preset) ----------------------------
+
+SWINL_PRESET, SWINL_SIZE, SWINL_TRAIN_BATCH = "large_384", 384, 8
+# phase 13 (b)'s kernels-vs-plain step: the plain path's B=5 to 8 steps
+# ran out of an H100 80GB HBM3's memory (they keep every block's f32
+# [B nW, nH, 720, 720] softmax for the backward), its B=4 step fits
+SWINL_COMPARE_BATCH = 4
+# Swin-L at T=5, 384 x 384: (stage, windows nW, C, heads, map side, block
+# pairs); the window (5, 12, 12) holds N = Npad = 720 tokens (no tail pad)
+SWINL_STAGES = ((1, 64, 192, 6, 96, 1), (2, 16, 384, 12, 48, 1),
+                (3, 4, 768, 24, 24, 9), (4, 1, 1536, 48, 12, 1))
+SWINL_WINDOW, SWINL_SHIFT, SWINL_N = (5, 12, 12), (0, 6, 6), 720
+# the fusion sequence: 5 x (1 + 12 x 12) video tokens + 26 text tokens
+SWINL_L = FRAMES * (1 + 12 * 12) + TXT_LEN
+# the row-resident primitives' widths beyond Swin-B's 1024: Swin-L's
+# stage 4 and the instances' limit
+SWINL_ROW_WIDTHS = (1536, 2048)
+
+
+def _swinl_config():
+    from lavender_tpu_torch.config import SWIN_PRESETS, ModelConfig
+
+    return ModelConfig(swin=SWIN_PRESETS[SWINL_PRESET])
+
+
+def _swinl_cases(g):
+    """Phase 3's cases at Swin-L-384's shapes, made one at a time (the
+    stage-1 yardsticks hold GBs): every shape the Swin-L serving forward
+    (B=4) and train step (B=8) give K1 (whole block where
+    ``mlp_in_block``, else the attention half; at stage 4 also with the
+    fold cache's weights and pure normalize), K8a / K8b, K9, K3 and K2 at
+    N = Npad = 720, and K4, K5, K10a / K10b (rate 0.1) and K11 at L = 751;
+    ``Case.count`` the calls in one Swin-L serving forward plus one train
+    step.  K8a / K8b / K10a / K10b each beside its one-call counterpart
+    (scaled_dot_product_attention, with the bias + shift mask as one
+    additive mask, or under dropout 0.1, and its backward), as at Swin-B's
+    shapes; then K14 and K16 at C = 1536 (``_swinl_wide_blocks``)."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.encoder_attention import (
+        encoder_attention_train_lanes_bwd, fused_bert_attn_block_kmask,
+        fused_encoder_attention_train_lanes)
+    from lavender_tpu_torch.ops.fused_mlp import (
+        fused_ffn_post_ln, fused_ln_mlp, fused_ln_mlp_chunked,
+        fused_out_ln_train)
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_wm, mlp_in_block, rel_pos_bias_wm)
+    from lavender_tpu_torch.ops.swin_core_attn import (
+        swin_core_attn, swin_core_attn_bwd)
+    from lavender_tpu_torch.ops.wm_permute import shift_index, wm_shift_rows
+
+    N = Npad = SWINL_N
+    wd, wh, ww = SWINL_WINDOW
+
+    def lin(n_out, n_in):
+        return _rnd(g, n_out, n_in, std=n_in ** -0.5), _rnd(g, n_out, std=0.02)
+
+    def ln(c):
+        return 1.0 + _rnd(g, c, std=0.1), _rnd(g, c, std=0.1)
+
+    for stage, nW, C, nH, side, pairs in SWINL_STAGES:
+        hd = C // nH
+        table = _rnd(g, 15 * 23 * 23, nH, std=1.0)
+        bias = rel_pos_bias_wm(table, relative_position_index((8, wh, ww)),
+                               N, Npad, torch.bfloat16)
+        wqkv, bqkv = lin(3 * C, C)
+        wproj, bproj = lin(C, C)
+        n1w, n1b = ln(C)
+        mlp = (*ln(C), *lin(4 * C, C), *lin(C, 4 * C))
+        shifted = stage < 4  # stage 4's 12 x 12 window covers its map
+        masks = [None]
+        if shifted:
+            masks.append(torch.as_tensor(compute_shift_mask(
+                wd, side, side, SWINL_WINDOW, SWINL_SHIFT),
+                device="cuda").to(torch.bfloat16))
+        in_block = mlp_in_block(C, 4 * C, nH, Npad)
+        w_bytes = (4 * C * C + 4 * C) * 2
+        mlp_bytes = (8 * C * C + 7 * C) * 2
+        for B, train in ((BATCH, False), (SWINL_TRAIN_BATCH, True)):
+            M = B * nW * Npad
+            x = _rnd(g, B, nW, Npad, C)
+            core_flops = 4.0 * B * nW * nH * Npad * Npad * hd
+            for mask in masks:
+                blocks = pairs if shifted else 2 * pairs
+                mask_bytes = 0 if mask is None else mask.numel() * 2
+                kind = "shifted" if mask is not None else "unshifted"
+                with_mlp = in_block and not train
+                args = (x, n1w, n1b, wqkv, bqkv, wproj, bproj, bias, mask, nH,
+                        hd ** -0.5, 1e-5)
+                flops = 2.0 * M * C * 4 * C + core_flops + (
+                    16.0 * M * C * C if with_mlp else 0.0)
+                nbytes = 2 * M * C * 2 + w_bytes + bias.numel() * 2 + (
+                    mask_bytes + (mlp_bytes if with_mlp else 0))
+                name = (f"Swin-L B={B} stage {stage} C={C} nH={nH} N={N} "
+                        f"{kind}" + (" +MLP" if with_mlp else
+                                     " attention half"))
+                yield Case(fused_swin_block_wm, name, blocks, args, flops,
+                           nbytes, kw={"mlp": mlp} if with_mlp else {},
+                           residual=x, bitwise_repeat=True, graph_ms=True,
+                           swinl=True)
+                if stage == 4 and not train:  # the serving fold cache's
+                    folded = (_rnd(g, 3 * C, C, std=C ** -0.5),
+                              _rnd(g, 3 * C, std=0.02), None, None)
+                    yield Case(fused_swin_block_wm, name + ", folded (pure "
+                               "normalize)", 0, args, flops, nbytes,
+                               kw={"folded": folded}, residual=x,
+                               bitwise_repeat=True, graph_ms=True,
+                               swinl=True)
+                if not train:
+                    continue
+                qkv = _rnd(g, B, nW, Npad, 3 * C)
+                qkv_bytes = qkv.numel() * 2
+                heads = qkv.view(B * nW, Npad, 3, nH, hd).permute(2, 0, 3, 1,
+                                                                  4)
+                full_mask = bias[None].expand(B * nW, nH, Npad, Npad)
+                if mask is not None:
+                    full_mask = (full_mask.view(B, nW, nH, Npad, Npad)
+                                 + mask[None, :, None]).view_as(full_mask)
+                full_mask = full_mask.contiguous()
+                yield Case(
+                    swin_core_attn, f"Swin-L B={B} stage {stage} C={C} "
+                    f"nH={nH} N={N} {kind}", blocks,
+                    (qkv, bias, mask, nH, hd ** -0.5), core_flops,
+                    qkv_bytes * 4 // 3 + bias.numel() * 2 + mask_bytes
+                    + M * nH * 4, bitwise_repeat=True, swinl=True,
+                    library=lambda h=heads, m=full_mask, s=hd ** -0.5:
+                    F.scaled_dot_product_attention(*h, attn_mask=m, scale=s))
+                del full_mask
+                lse = torch.empty(B * nW, nH, Npad, device="cuda")
+                out = _build.attention(qkv.view(-1, 3 * C), B * nW, Npad, nH,
+                                       hd ** -0.5, bias=bias, mask=mask,
+                                       lse=lse).view(B, nW, Npad, C)
+                dout = _rnd(g, B, nW, Npad, C)
+                yield Case(
+                    swin_core_attn_bwd, f"Swin-L B={B} stage {stage} C={C} "
+                    f"nH={nH} N={N} {kind}", blocks,
+                    (qkv, lse, dout, bias, mask, nH, hd ** -0.5),
+                    2.5 * core_flops, 2 * qkv_bytes + M * C * 2
+                    + M * nH * 4 + bias.numel() * 6 + mask_bytes,
+                    kw={"out": out}, compare=_core_compare(C, N),
+                    library=_sdpa_bias_backward(heads, bias, mask, dout, B,
+                                                nW, nH, hd),
+                    bitwise_repeat=True, swinl=True)
+                del qkv, heads, lse, out, dout
+            rows = x.reshape(-1, C)
+            if train:  # K9: the MLP of every train block
+                yield Case(
+                    fused_ln_mlp, f"Swin-L B={B} stage {stage} M={M} C={C} "
+                    f"HD={4 * C}", 2 * pairs, (rows, *mlp, 1e-5),
+                    16.0 * M * C * C, 2 * M * C * 2 + mlp_bytes,
+                    bitwise_repeat=True, graph_ms=True, swinl=True)
+            elif not in_block:  # K3: the serving MLP + residual
+                yield Case(
+                    fused_ln_mlp_chunked, f"Swin-L B={B} stage {stage} M={M} "
+                    f"C={C} HD={4 * C}", 2 * pairs, (rows, *mlp, 1e-5),
+                    16.0 * M * C * C, 2 * M * C * 2 + mlp_bytes,
+                    residual=rows, bitwise_repeat=True, graph_ms=True,
+                    swinl=True)
+            if not shifted:
+                continue
+            # K2: bf16 in serving, the f32 residual stream in training
+            dt = torch.float32 if train else torch.bfloat16
+            t = _rnd(g, B, nW, Npad, C, dtype=dt)
+            for inverse in (False, True):
+                idx, inv = (torch.as_tensor(shift_index(
+                    SWINL_WINDOW, wd, side, side, Npad, SWINL_SHIFT, i),
+                    device="cuda") for i in (inverse, not inverse))
+                src, rows_idx = t.view(B, nW * Npad, C), idx.clamp(min=0).long()
+                yield Case(
+                    wm_shift_rows, f"Swin-L B={B} stage {stage} C={C} "
+                    f"Npad={Npad} {dt} "
+                    + ("inverse" if inverse else "forward"),
+                    pairs * (2 if train else 1), (t, idx, inv), 0.0,
+                    2 * t.numel() * t.element_size() + idx.numel() * 4,
+                    library=lambda s=src, i=rows_idx: s.index_select(1, i),
+                    swinl=True)
+            del t, x, rows
+    yield from _swinl_wide_blocks(g, lin, ln)
+
+    # the fusion encoder at L = 751: serving B=4 (K4, K5), the step's 64
+    # pairs (K10a / K10b at rate 0.1, K11)
+    C, nH, L, layers = 768, 12, SWINL_L, 12
+    hd, scale = C // nH, (C // nH) ** -0.5
+    (wq, bq), (wk, bk), (wv, bv), (wo, bo) = (lin(C, C) for _ in range(4))
+    lw, lb = ln(C)
+    x = _rnd(g, BATCH, L, C)
+    keep = torch.ones(BATCH, L, dtype=torch.bool, device="cuda")
+    for i, n_txt in zip(range(BATCH), (26, 20, 12, 5)):  # padded tails
+        keep[i, L - TXT_LEN + n_txt:] = False
+    M = BATCH * L
+    yield Case(
+        fused_bert_attn_block_kmask, f"Swin-L B={BATCH} L={L} C={C} "
+        f"nH={nH}, padded keys", layers,
+        (x, wq, wk, wv, bq, bk, bv, wo, bo, lw, lb, keep, nH, scale, 1e-12),
+        8.0 * M * C * C + 4.0 * BATCH * L * L * C,
+        2 * M * C * 2 + 4 * C * C * 2 + BATCH * L, bitwise_repeat=True,
+        graph_ms=True, swinl=True)
+    w1, b1 = lin(3072, C)
+    w2, b2 = lin(C, 3072)
+    yield Case(
+        fused_ffn_post_ln, f"Swin-L M={M} C={C} HD=3072", layers,
+        (x.reshape(-1, C), w1, b1, w2, b2, lw, lb, 1e-12),
+        4.0 * M * C * 3072, 2 * M * C * 2 + 2 * C * 3072 * 2,
+        bitwise_repeat=True, swinl=True)
+    del x
+    B = SWINL_TRAIN_BATCH ** 2
+    slab = _rnd(g, B, L, 3 * C)
+    q, k, v = slab.split(C, dim=-1)
+    n_txt = torch.randint(5, TXT_LEN + 1, (B,), generator=g, device="cuda")
+    pad = torch.arange(L, device="cuda")[None] >= L - TXT_LEN + n_txt[:, None]
+    mask = (pad.float() * -1e4)[:, None, :].expand(B, L, L).to(
+        torch.bfloat16).contiguous()
+    seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=g, device="cuda")
+    rate = 0.1
+    core_flops = 4.0 * B * nH * L * L * hd
+    slab_bytes = B * L * C * 2
+    sdpa = [t.view(B, L, nH, hd).transpose(1, 2) for t in (q, k, v)]
+    yield Case(
+        fused_encoder_attention_train_lanes, f"Swin-L B={B} L={L} C={C} "
+        f"nH={nH} rate {rate}, padded keys", layers,
+        (q, k, v, mask, seed, scale, rate, nH), core_flops,
+        4 * slab_bytes + mask.numel() * 2 + B * nH * L * 4,
+        library=lambda: F.scaled_dot_product_attention(
+            *sdpa, attn_mask=mask[:, None], dropout_p=rate, scale=scale),
+        bitwise_repeat=True, swinl=True)
+    lse = torch.empty(B, nH, L, device="cuda")
+    out = _build.attention(slab.view(B * L, 3 * C), B, L, nH, scale,
+                           mask=mask, lse=lse, seed=seed,
+                           rate=rate).view(B, L, C)
+    dout = _rnd(g, B, L, C)
+    # SDPA's backward alone: autograd of one forward, replayed
+    leaves = [t.detach().requires_grad_(True) for t in sdpa]
+    o = F.scaled_dot_product_attention(*leaves, attn_mask=mask[:, None],
+                                       dropout_p=rate, scale=scale)
+    d_heads = dout.view(B, L, nH, hd).transpose(1, 2)
+    yield Case(
+        encoder_attention_train_lanes_bwd, f"Swin-L B={B} L={L} C={C} "
+        f"nH={nH} rate {rate}, padded keys", layers,
+        (q, k, v, mask, seed, dout, scale, rate, nH),
+        2.5 * core_flops, 7 * slab_bytes + mask.numel() * 2 + B * nH * L * 4,
+        kw={"lse": lse, "o": out}, compare=_grads_compare,
+        library=lambda: torch.autograd.grad(o, leaves, d_heads,
+                                            retain_graph=True),
+        bitwise_repeat=True, swinl=True)
+    del slab, q, k, v, mask, lse, out, dout, sdpa, leaves, o, d_heads
+    M = B * L
+    yield Case(
+        fused_out_ln_train, f"Swin-L M={M} C={C} rate {rate}, train step",
+        layers, (_rnd(g, M, C), _rnd(g, M, C), wo, bo, lw, lb, seed, 1e-12,
+                 rate), 2.0 * M * C * C, 3 * M * C * 2 + M * C + C * C * 2,
+        compare=_keep_compare, bitwise_repeat=True, graph_ms=True,
+        swinl=True)
+    # the row kernel's dropout mode at the widths beyond 1024 (checked)
+    for C in SWINL_ROW_WIDTHS:
+        M = 4 * SWINL_N * 2
+        (wo, bo), (lw, lb) = lin(C, C), ln(C)
+        yield Case(
+            fused_out_ln_train, f"Swin-L rows M={M} C={C} rate {rate}, the "
+            "row kernel's wide instance", 0,
+            (_rnd(g, M, C), _rnd(g, M, C), wo, bo, lw, lb, seed, 1e-5, rate),
+            2.0 * M * C * C, 3 * M * C * 2 + M * C + C * C * 2,
+            compare=_keep_compare, bitwise_repeat=True, graph_ms=True,
+            swinl=True)
+
+
+def _swinl_wide_blocks(g, lin, ln):
+    """K14 (whole block and attention half) and K16 at Swin-L's stage-4
+    width, C = 1536, 48 heads, B=4, window (5, 12, 12): N = Npad = 720,
+    checked only (on no default route; ``attn_impl="fused"`` runs K14 on
+    the large_384 preset, and K16 is a direct call at this width: its
+    ``LVT_IKS`` route takes no Swin-L stage).  K14 on the spatial rows
+    [4, 5, 12, 12, C], unshifted as stage 4 runs; K16 on the window-major
+    slab [4, 1, 720, C] with the cyclic shift (0, 6, 6) inside (stage 4's
+    window covers its map, so no model path shifts it: the case drives
+    the gather and the zeroing scatter at this width), its mask the shift
+    mask of that one window."""
+    from lavender_tpu_torch.models.swin3d import (
+        compute_shift_mask, relative_position_index)
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.swin_block_attn import (
+        fused_swin_block_attn, fused_swin_block_full,
+        fused_swin_block_wm_shifted, rel_pos_bias_wm)
+
+    _, nW, C, nH, side, _ = SWINL_STAGES[3]
+    N = Npad = SWINL_N
+    wd, wh, ww = SWINL_WINDOW
+    hd, HD, B = C // nH, 4 * C, BATCH
+    M = B * nW * N
+    bias = rel_pos_bias_wm(_rnd(g, 15 * 23 * 23, nH, std=1.0),
+                           relative_position_index((8, wh, ww)), N, Npad,
+                           torch.bfloat16)
+    (wqkv, bqkv), (wproj, bproj), (n1w, n1b) = lin(3 * C, C), lin(C, C), ln(C)
+    mlp = (*ln(C), *lin(HD, C), *lin(C, HD))
+    params = (n1w, n1b, wqkv, bqkv, wproj, bproj)
+    flops = 2.0 * M * C * 4 * C + 4.0 * B * nW * nH * N * N * hd
+    nbytes = 2 * M * C * 2 + (4 * C * C + 4 * C) * 2 + bias.numel() * 2
+    scale, at = hd ** -0.5, f"Swin-L B={B} stage 4 C={C} nH={nH} N={N}"
+    x = _rnd(g, B, wd, side, side, C)
+    b14 = _build.with_padded_rows(bias)
+    statics = (SWINL_WINDOW, (0, 0, 0), nH, scale, 1e-5)
+    yield Case(fused_swin_block_full, f"{at} unshifted +MLP", 0,
+               (x, *params, b14, None, *mlp, *statics),
+               flops + 16.0 * M * C * C, nbytes + (8 * C * C + 7 * C) * 2,
+               residual=x, bitwise_repeat=True, graph_ms=True, swinl=True)
+    yield Case(fused_swin_block_attn, f"{at} unshifted attention half", 0,
+               (x, *params, b14, None, *statics), flops, nbytes,
+               residual=x, bitwise_repeat=True, graph_ms=True, swinl=True)
+    shift = (0, wh // 2, ww // 2)
+    mask = torch.as_tensor(compute_shift_mask(wd, side, side, SWINL_WINDOW,
+                                              shift),
+                           device="cuda").to(torch.bfloat16)
+    xw = _rnd(g, B, nW, Npad, C)
+    yield Case(fused_swin_block_wm_shifted, f"{at} shifted {shift}, shift "
+               "inside", 0, (xw, *params, bias, mask, (wd, side, side),
+                             SWINL_WINDOW, shift, nH, scale, 1e-5),
+               flops, nbytes + mask.numel() * 2,
+               compare=_shifted_compare(xw, N), bitwise_repeat=True,
+               graph_ms=True, swinl=True)
+
+
+def _prim_check(name, fn, ref, nbytes, flops, tol=TOL, rel_l2=REL_L2):
+    """A primitive against its plain version: within (tol, rel_l2), a
+    second call bitwise equal; event ms, device ms a call in a CUDA graph
+    and the bound printed.  Raises when it disagrees."""
+    got, want = fn(), ref()
+    err, rel, ok = _compare(got, want, tol, rel_l2)
+    same = torch.equal(got, fn())
+    ms, dev = _time_ms(fn), _graph_ms(fn)
+    t_bytes, t_flops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound = max(t_bytes, t_flops)
+    print(f"[swinl] (d) {name}: max_abs_err {err:.4g} rel_l2 {rel:.3g} (tol "
+          f"{tol} max(1,max|ref|), {rel_l2}), a second call "
+          f"{'bitwise equal' if same else 'DIFFERS'}; {ms:.4f} ms (device "
+          f"{dev:.4f} ms a call in a CUDA graph), bound {bound:.4f} ms "
+          f"({'bytes' if t_bytes >= t_flops else 'FLOPs'}, "
+          f"{100 * bound / dev:.1f}% of it) ({_nvidia_smi()})", flush=True)
+    if not (ok and same):
+        raise AssertionError(f"swinl (d) {name}: the primitive disagrees "
+                             "with its plain version or between two calls")
+
+
+def _swinl_rows(g):
+    """Phase 3 (d): the row-resident primitives at C = 1536 and 2048 (the
+    template instances beyond Swin-B's 1024), rows as Swin-L's B=8 stage
+    4 gives them (5,760): the scalar LN (affine and pure normalize), the
+    chunk LN (and its gathering mode), and the tile GEMM's row kernel in
+    its LN mode (``gemm_tc_ln``: the proj's f32 K-slices + bias +
+    residual + LN) and its sum mode (``ln_mlp`` with fc2 cut into 4
+    K-slices); the dropout mode is K11's case above."""
+    import torch.nn.functional as F
+
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.fused_mlp import _mlp_plain
+
+    M = SWINL_TRAIN_BATCH * SWINL_N
+    for C in SWINL_ROW_WIDTHS:
+        x = _rnd(g, M, C, std=3.0)
+        w, b = 1.0 + _rnd(g, C, std=0.1), _rnd(g, C, std=0.1)
+        rows = torch.randperm(M, generator=g, device="cuda").to(torch.int32)
+        rows[::7] = -1  # pad rows: zeros
+
+        def plain_ln(t, w=None, b=None):
+            return F.layer_norm(t.float(), (C,), None if w is None
+                                else w.float(), None if b is None
+                                else b.float(), 1e-5).to(torch.bfloat16)
+
+        def gathered(t):
+            out = plain_ln(t[rows.clamp(min=0).long()], w, b)
+            out[rows < 0] = 0
+            return out
+        ln_bytes = 2 * M * C * 2
+        for label, fn, ref in (
+                ("scalar LN", lambda: _build.layernorm(x, w, b, 1e-5),
+                 lambda: plain_ln(x, w, b)),
+                ("scalar LN, pure normalize",
+                 lambda: _build.layernorm(x, None, None, 1e-5),
+                 lambda: plain_ln(x)),
+                ("chunk LN", lambda: _build.layernorm_rows(x, w, b, 1e-5),
+                 lambda: plain_ln(x, w, b)),
+                ("chunk LN, gathering",
+                 lambda: _build.layernorm_rows(x, w, b, 1e-5, rows=rows),
+                 lambda: gathered(x))):
+            _prim_check(f"{label} M={M} C={C}", fn, ref, ln_bytes, 0.0)
+        # the row kernel's LN mode: LN(residual + a @ w.T + bias)
+        a = _rnd(g, M, C)
+        wp, bp = _rnd(g, C, C, std=C ** -0.5), _rnd(g, C, std=0.02)
+        res = _rnd(g, M, C)
+        plan = _build.gemm_tc_plan(M, C, C, split=True)
+        _prim_check(
+            f"row kernel LN mode (gemm_tc_ln, {plan.splits} K-slices) M={M} "
+            f"C={C}", lambda: _build.gemm_tc_ln(a, wp, bp, res, w, b, 1e-5),
+            lambda: plain_ln(res.float() + F.linear(a.float(), wp.float(),
+                                                    bp.float()), w, b),
+            (2 * M * C + C * C) * 2 + M * C * 2, 2.0 * M * C * C)
+        # the row kernel's sum mode: the LN + MLP with fc2 in 4 K-slices
+        HD = 4 * C
+        w1, b1 = _rnd(g, HD, C, std=C ** -0.5), _rnd(g, HD, std=0.02)
+        w2, b2 = _rnd(g, C, HD, std=HD ** -0.5), _rnd(g, C, std=0.02)
+        auto = _build.ln_mlp_plan(M, C, HD, True)
+        plan = _build.LnMlpPlan(auto.fc1_bm, 128, 4,
+                                _build.library().lvt_ln_mlp_scratch(
+                                    M, C, HD, 4))
+        xr = _rnd(g, M, C)
+        _prim_check(
+            f"row kernel sum mode (ln_mlp, fc2 in 4 K-slices) M={M} C={C} "
+            f"HD={HD}",
+            lambda: _build.ln_mlp(xr, w, b, w1, b1, w2, b2, 1e-5, True,
+                                  plan=plan),
+            lambda: _mlp_plain(xr, w, b, w1, b1, w2, b2, 1e-5, True),
+            2 * M * C * 2 + (2 * C * HD + HD + 3 * C) * 2,
+            4.0 * M * C * HD)
+        del x, a, res, xr
+
+
+def _swinl_batch(vocab: int, batch: int = SWINL_TRAIN_BATCH):
+    """Phase 5's batch at Swin-L-384's clips: ``batch`` clips of 5 x 384 x
+    384, 26 tokens, seeded."""
+    return _train_batch(vocab, size=SWINL_SIZE, batch=batch)
+
+
+def _swinl_per_step(ops, cfg):
+    """Launches of one retrieval-MLM train step on the wm route."""
+    depth, layers = sum(cfg.swin.depths), cfg.bert.num_hidden_layers
+    return {ops["K1"]: depth,
+            ops["K2"]: 4 * _shifted_blocks(cfg.swin, SWINL_SIZE),
+            ops["K8a"]: depth, ops["K8b"]: depth, ops["K9"]: depth,
+            ops["K10a"]: layers, ops["K10b"]: layers, ops["K11"]: layers}
+
+
+def _top_ops(fn, n: int = 8):
+    """(device ms a call summed over its activities, the n largest by
+    name) of one call of ``fn`` under torch.profiler."""
+    names = _kernel_times(fn, 1)
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:n]
+    return sum(names.values()), [(k[:60], round(t, 3)) for k, t in top]
+
+
+def run_swinl(ops):
+    """Phase 13: the ``large_384`` preset (Swin-L, window 8 x 12 x 12, at
+    384 x 384; BERT-base) at full width and depth, seeded weights.  (a)
+    ``LavenderServer`` with the LN-fold serving cache and drawn Swin LN
+    affines: 3 requests of B=4 uint8 clips of 5 x 384 x 384 and 26 text
+    tokens against the plain path (SLICE_TOL / SLICE_REL_L2), the launches a
+    forward from the routing predicates (``_video_counts``), ms a forward
+    (host clock), its device time and largest activities under
+    torch.profiler, peak memory; (b) the retrieval-MLM step through
+    ``create_train_state`` / ``make_train_step`` at B=8 (64 pairs at L =
+    751, drop-path 0.2, dropout 0.1): loss and gradient groups kernels vs
+    plain (LOSS_TOL / STEP_GRAD_REL_L2) at B = SWINL_COMPARE_BATCH (the
+    largest whose plain path fits the card), the launches of one step, ms
+    a step, its device time, peak memory; (c) ``cli.main`` retrieval_mlm
+    with ``vis_backbone_size: "large", size_img: 384`` on the fixture's
+    videos: 2 train steps at B=8 and one eval batch, ``ls_tr`` finite,
+    ``ac_vl`` in [0, 1], the train epoch's launches (b)'s x 2, K1-K5 in
+    the eval.  Returns the launches of (a), (b) and (c)."""
+    from lavender_tpu_torch.config import TrainConfig
+    from lavender_tpu_torch.ops._build import plain_path
+    from lavender_tpu_torch.serve import LavenderServer
+    from lavender_tpu_torch.tasks import retrieval
+    from lavender_tpu_torch.train.trainer import (create_train_state,
+                                                  make_train_step)
+
+    smi = _nvidia_smi()
+    cfg = _swinl_config()
+    total = {op: 0 for op in ops.values()}
+
+    # (a) serving
+    t0 = time.perf_counter()
+    server = _swin_layer_norms(LavenderServer(cfg, seed=0, frames=FRAMES,
+                                              size=SWINL_SIZE), 11)
+    server.model.build_serving_cache(FRAMES, SWINL_SIZE, SWINL_SIZE)
+    torch.cuda.synchronize()
+    print(f"[swinl] (a) server built ({SWINL_PRESET}: embed "
+          f"{cfg.swin.embed_dim}, depths {cfg.swin.depths}, heads "
+          f"{cfg.swin.num_heads}, window {cfg.swin.window_size}; bf16, "
+          f"serving caches) in {time.perf_counter() - t0:.1f} s", flush=True)
+    requests = _requests(cfg.bert.vocab_size, SWINL_SIZE, seed=5)
+    per_fwd = {**_video_counts(ops, cfg, SWINL_SIZE),
+               ops["K4"]: cfg.bert.num_hidden_layers,
+               ops["K5"]: cfg.bert.num_hidden_layers}
+    server(*requests[0])  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    _reset(ops.values())
+    outs = [server(*r) for r in requests]
+    counts = _check_counts(ops.values(), per_fwd, N_REQUESTS, "swinl (a)")
+    peak = torch.cuda.max_memory_allocated()
+    for op in ops.values():
+        total[op] += counts[op]
+    want_shape = (BATCH, TXT_LEN, cfg.bert.vocab_size)
+    for i, (out, req) in enumerate(zip(outs, requests)):
+        with plain_path():
+            ref = server(*req)
+        err, rel, ok = _compare(out, ref, SLICE_TOL, SLICE_REL_L2)
+        print(f"[swinl] (a) request {i}: logits {tuple(out.shape)} vs plain "
+              f"path max_abs_err {err:.4g} rel_l2 {rel:.3g} (tol {SLICE_TOL}"
+              f" max(1,max|ref|), {SLICE_REL_L2}), max|ref| "
+              f"{float(ref.float().abs().max()):.3g}", flush=True)
+        if tuple(out.shape) != want_shape or not ok:
+            raise AssertionError(f"swinl (a) request {i}: the logits are "
+                                 "wrong or disagree with the plain path")
+    del outs
+    ms = _ms(lambda: server(*requests[0]), 10)
+    host_ms, busy_ms, n_dev = _device_profile(lambda: server(*requests[0]))
+    dev_ms, top = _top_ops(lambda: server(*requests[0]))
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.3f} ms"
+    print(f"[swinl] (a) {ms:.2f} ms a forward (host clock), "
+          f"{BATCH / ms * 1e3:.2f} clips/s at B={BATCH}; under "
+          f"torch.profiler device busy {busy} of {host_ms:.2f} host ms in "
+          f"{n_dev} device activities, their sum {dev_ms:.3f} ms, the "
+          f"largest {top}; peak {peak / 2 ** 30:.2f} GiB ({smi})",
+          flush=True)
+    del server
+    torch.cuda.empty_cache()
+
+    # (b) the train step; kernels vs plain at SWINL_COMPARE_BATCH
+    loss_fn = retrieval.make_loss_fn(TRUE_ID, FALSE_ID)
+    state = create_train_state(cfg, TrainConfig(max_iter=1000,
+                                                max_grad_norm=1.0), seed=0)
+    sub = _swinl_batch(cfg.bert.vocab_size, SWINL_COMPARE_BATCH)
+    kernels = _loss_and_grads(state, loss_fn, sub, False)
+    plain = _loss_and_grads(state, loss_fn, sub, True)
+    _check_step(f"(b) B={SWINL_COMPARE_BATCH} kernels vs plain:", kernels,
+                plain, _grad_groups(state.model), tag="swinl")
+    del kernels, plain, sub
+    torch.cuda.empty_cache()
+    batch = _swinl_batch(cfg.bert.vocab_size)
+    step = make_train_step(loss_fn, state)
+    per_step = _swinl_per_step(ops, cfg)
+    torch.cuda.reset_peak_memory_stats()
+    _reset(ops.values())
+    loss = float(step(batch))
+    counts = _check_counts(ops.values(), per_step, 1, "swinl (b)")
+    peak = torch.cuda.max_memory_allocated()
+    for op in ops.values():
+        total[op] += counts[op]
+    ms = _ms(lambda: step(batch), 3)
+    host_ms, busy_ms, n_dev = _device_profile(lambda: step(batch))
+    dev_ms, top = _top_ops(lambda: step(batch))
+    busy = "not measured" if busy_ms is None else f"{busy_ms:.2f} ms"
+    print(f"[swinl] (b) one step: loss {loss:.6f}; {ms:.1f} ms a step (host "
+          f"clock), {SWINL_TRAIN_BATCH / ms * 1e3:.2f} train clips/s at "
+          f"B={SWINL_TRAIN_BATCH} ({SWINL_TRAIN_BATCH ** 2} pairs at L="
+          f"{SWINL_L}); under torch.profiler device busy {busy} of "
+          f"{host_ms:.1f} host ms in {n_dev} device activities, their sum "
+          f"{dev_ms:.2f} ms, the largest {top}; peak "
+          f"{peak / 2 ** 30:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.1f}"
+          f" ({smi})", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # (c) the CLI at vis_backbone_size "large", size_img 384
+    root = os.path.join(REPO_DIR, "build", "cli_swinl")
+    shutil.rmtree(root, ignore_errors=True)
+    _cli_data(root)
+    path = _cli_config(root, "swinl", "clil")
+    with open(path) as f:
+        raw = json.load(f)
+    with open(path, "w") as f:
+        json.dump(dict(raw, vis_backbone_size="large", size_img=SWINL_SIZE),
+                  f)
+    _reset(ops.values())
+    log, agent, wall, rec = _cli_run(
+        ops.values(), ["--task", "retrieval_mlm", "--config", path,
+                       "--path_output", os.path.join(root, "out")])
+    for op in ops.values():
+        total[op] += op.launches
+    ls, ac = log["ls_tr"][0], log["ac_vl"][0]
+    stats = dict(agent.epoch_stats)
+    swin = agent.cfg.model.swin
+    print(f"[swinl] (c) cli.main retrieval_mlm on {swin.embed_dim} x "
+          f"{swin.depths} window {swin.window_size} at {SWINL_SIZE} px: "
+          f"{stats['steps']} steps of B={TRAIN_BATCH}, ls_tr {ls:.6f}, "
+          f"ac_vl {ac:.4f}; {stats['seconds'] / stats['steps'] * 1e3:.1f} ms "
+          f"a step (host clock, the first with its warm-up); {wall:.1f} s in "
+          f"main ({smi})", flush=True)
+    if not (np.isfinite(ls) and 0.0 <= ac <= 1.0
+            and stats["steps"] == SWINL_CLI_STEPS
+            and (swin.embed_dim, swin.depths, swin.window_size)
+            == (cfg.swin.embed_dim, cfg.swin.depths, cfg.swin.window_size)):
+        raise AssertionError("swinl (c): the run's outputs are wrong")
+    for op in ops.values():
+        tr, ev = rec["train_epoch"][op], rec["eval_epoch"][op]
+        want = per_step.get(op, 0) * SWINL_CLI_STEPS
+        print(f"[swinl] (c) {op.name}: {tr} launches in the train epoch "
+              f"(expected {want}), {ev} in the eval", flush=True)
+        if tr != want:
+            raise AssertionError(f"swinl (c): {op.name} launched {tr} times "
+                                 f"in training, expected {want}")
+    silent = [k for k in ("K1", "K2", "K3", "K4", "K5")
+              if rec["eval_epoch"][ops[k]] == 0]
+    if silent:
+        raise AssertionError(f"swinl (c): no launch of {silent} in the eval")
+    del agent
+    torch.cuda.empty_cache()
+    return total
 
 
 def kernel_ops():
@@ -5508,7 +6279,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp-worker"]:  # one rank of --dp
         return _dp_worker(*map(int, sys.argv[2:5]))
     if sys.argv[1:2] == ["--tp-worker"]:  # one rank of --tp
-        return _tp_worker(*map(int, sys.argv[2:5]))
+        return _tp_worker(*map(int, sys.argv[2:5]),
+                          swinl_only=sys.argv[5:6] == ["SWINL"])
     from lavender_tpu_torch.ops import _build
 
     print(_nvidia_smi(), flush=True)  # the card's name and power limit
@@ -5527,6 +6299,9 @@ def main() -> int:
         only = set(sys.argv[2:]) - {"--cases"}  # K14a / K14f: "K14" cases
         check_kernels(only | {ops[k].name.split()[0] for k in only
                               if k in ops}, "--cases" not in sys.argv)
+        if "SWINL" in only:  # and phase 13
+            torch.cuda.empty_cache()
+            run_swinl(ops)
         print(_nvidia_smi(), flush=True)
         return 0
     if sys.argv[1:2] == ["--cli"]:  # phase 12 alone
@@ -5536,7 +6311,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--dp"]:  # the data-parallel path on 4 GPUs
         return run_dp()
     if sys.argv[1:2] == ["--tp"]:  # tensor parallelism on 4 GPUs
-        return run_tp()
+        return run_tp(sys.argv[2:3] == ["SWINL"])
     per_kernel = check_kernels()
     torch.cuda.empty_cache()
     server = build_server()
@@ -5558,6 +6333,8 @@ def main() -> int:
     data_counts = run_data(ops)
     torch.cuda.empty_cache()
     cli_counts = run_cli(ops)
+    torch.cuda.empty_cache()
+    swinl_counts = run_swinl(ops)
 
     meta = {
         "K1": ("lavender_tpu_torch/csrc/gemm_tc.cu",
@@ -5614,7 +6391,7 @@ def main() -> int:
                          + caption_counts[op] + spatial_counts[op]
                          + route_counts[op] + task_counts[op]
                          + swinbert_counts[op] + data_counts[op]
-                         + cli_counts[op]),
+                         + cli_counts[op] + swinl_counts[op]),
             "launches_serving": serve_counts[op],
             "launches_train_step": train_counts[op],
             "launches_captioning": caption_counts[op],
@@ -5624,11 +6401,15 @@ def main() -> int:
             "launches_swinbert": swinbert_counts[op],
             "launches_data": data_counts[op],
             "launches_cli": cli_counts[op],
+            "launches_swinl": swinl_counts[op],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": ("bytes" if k["t_bytes"] >= k["t_flops"]
                          else "operations"),
-            "library_ms": k["library_ms"]})
+            "library_ms": k["library_ms"],
+            **{key: k[key] for key in ("swinl_ms", "swinl_plain_ms",
+                                       "swinl_bound_ms",
+                                       "swinl_library_ms")}})
     print(_nvidia_smi(), flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -108,6 +108,8 @@ int run_mlp(const bf16* h, const void* w1, const void* b1, const void* w2, const
 // bqkv, wproj [C, C], bproj, bias [nH, N, N], mask [nW, N, N] or null; with
 // w1 non-null the MLP: n2w, n2b (both null: pure), w1 [HD, C], b1, w2 [C,
 // HD], b2.  bm[4]: the tile heights of qkv, proj, fc1, fc2 (host memory).
+// C <= lvt::kMaxRowC (the scalar LN's instances; Swin-L's stage 4 at C =
+// 1536 takes the 64-a-lane one), head dim 16, 32 or 64.
 // scratch: lvt_swin_block_wm_scratch(M, C, HD) bytes.
 LVT_EXPORT long long lvt_swin_block_wm_scratch(int M, int C, int HD) {
   const long long r = ((long long)M * C * 2 + 255) / 256 * 256;  // h, qkv (3), o, y
@@ -153,7 +155,8 @@ LVT_EXPORT int lvt_swin_block_wm_bf16(const void* x, const void* ln_w, const voi
 // K3 and K9: out [M, C] = fc2(GELU(fc1(LN(x)))) + b2 (+ x with residual)
 // for x [M, C] contiguous: ln_w, ln_b (both null: the pure normalize), w1
 // [HD, C], b1, w2 [C, HD], b2, all bf16, contiguous and 16-byte aligned,
-// C a multiple of 8 and <= 1024; bm1 and bm2 the
+// C a multiple of 8 and <= lvt::kMaxRowC (the chunk LN's and the row
+// kernel's instances: Swin-L's stage 4 runs C = 1536); bm1 and bm2 the
 // tile heights of fc1 and fc2, S fc2's K-slices (whole 64-deep steps
 // each).  scratch: at least lvt_ln_mlp_scratch(M, C, HD, S) bytes, given
 // as scratch_bytes.
@@ -281,8 +284,8 @@ LVT_EXPORT int lvt_bert_attn_block_mask_bf16(const void* x, const void* wq, cons
 // pure normalize); bias [nH, N, N] rows bias_ld elements apart, mask [nW,
 // N, N] (bf16, or f32 where mask_f32; sequence s reads window s % nW) rows
 // mask_ld apart, or null (nW = 1).  bm_*: the tile heights of qkv, proj,
-// fc1, fc2; S fc2's K-slices.  C a multiple of 8 and <= 1024, head dim 16,
-// 32 or 64.  scratch: at least lvt_swin_block_spatial_scratch(M, C, HD, S)
+// fc1, fc2; S fc2's K-slices.  C a multiple of 8 and <= lvt::kMaxRowC,
+// head dim 16, 32 or 64.  scratch: at least lvt_swin_block_spatial_scratch(M, C, HD, S)
 // bytes (HD 0 without the MLP), given as scratch_bytes.
 LVT_EXPORT long long lvt_swin_block_spatial_scratch(int M, int C, int HD, int S) {
   const long long r = round256((long long)M * C * 2);  // h, qkv (3), o

@@ -16,6 +16,13 @@ typedef __nv_bfloat16 bf16;
 
 namespace lvt {
 
+// The widest row of the row-resident primitives: the scalar and chunk LNs
+// (layernorm.cu) and the tile GEMM's row kernel (gemm_tc.cu) each have a
+// template instance for C <= 1024 (Swin-B) and one for C <= kMaxRowC
+// (Swin-L's stage 4, C = 1536); wider rows are refused.  Mirrored by
+// lavender_tpu_torch/ops/_build.py MAX_ROW_C.
+constexpr int kMaxRowC = 2048;
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -366,7 +366,11 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 enum RowsMode { kRowsSum = 0, kRowsLn = 1, kRowsDropLn = 2 };
 
 // out[row] = LN(sum_s P[s, row] + b + x[row]), 4 columns a thread (C / 4
-// threads, rounded up to whole warps; the rest add zeros to the sums).
+// threads, rounded up to whole warps; the rest add zeros to the sums), at
+// most THREADS of them: 256 for C <= 1024, and for C <= kMaxRowC (Swin-L's
+// stage 4, C = 1536) an instance of its own of up to 512, so that the
+// narrower rows keep their code.  Each column sums its slices in the
+// order s = 0..S-1 in every instance.
 // kRowsSum: out[row] = sum_s P[s, row] + b + x[row] rounded to bf16, b
 // and x each may be null (ln_w, ln_b and eps unread).  kRowsDropLn:
 // out[row] = LN(x[row] + m * (sum_s P[s, row] + b)), m the dropout of
@@ -374,14 +378,14 @@ enum RowsMode { kRowsSum = 0, kRowsLn = 1, kRowsDropLn = 2 };
 // bits dropout.row_keep draws), kept values scaled by drop_scale, and the
 // keep mask written as one byte an element (all ones without a seed);
 // the other modes read none of keep, seed, thresh and drop_scale.
-template <int MODE>
-__global__ void __launch_bounds__(256)
+template <int MODE, int THREADS>
+__global__ void __launch_bounds__(THREADS)
     rows_kernel(const float* __restrict__ P, int S, const bf16* __restrict__ x,
                 const bf16* __restrict__ b2, const bf16* __restrict__ ln_w,
                 const bf16* __restrict__ ln_b, bf16* __restrict__ out, int M, int C, float eps,
                 uint8_t* __restrict__ keep, const int64_t* __restrict__ seed, uint32_t thresh,
                 float drop_scale) {
-  __shared__ float red[8];
+  __shared__ float red[THREADS / 32];
   const bool on = (int)threadIdx.x * 4 < C;
   const int c = on ? (int)threadIdx.x * 4 : 0;  // an idle thread reads column 0
   const size_t off = (size_t)blockIdx.x * C + c;
@@ -523,32 +527,48 @@ int lvt::gemm_tc(const GemmTc& g, cudaStream_t st) {
   return (int)e;
 }
 
+namespace {
+
+// The row kernel of mode MODE over M rows of C columns: the 256-thread
+// instance up to C = 1024, the 512-thread one up to lvt::kMaxRowC.
+template <int MODE>
+cudaError_t launch_rows(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
+                        const bf16* ln_b, bf16* out, int M, int C, float eps, uint8_t* keep,
+                        const int64_t* seed, uint32_t thresh, float drop_scale,
+                        cudaStream_t st) {
+  static_assert(512 * 4 == lvt::kMaxRowC, "the widest instance covers kMaxRowC");
+  if (M <= 0 || C <= 0 || C % 4 || C > lvt::kMaxRowC || S < 1) return cudaErrorInvalidValue;
+  const int threads = (C / 4 + 31) / 32 * 32;
+  if (threads <= 256)
+    rows_kernel<MODE, 256><<<M, threads, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C, eps, keep,
+                                                  seed, thresh, drop_scale);
+  else
+    rows_kernel<MODE, 512><<<M, threads, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C, eps, keep,
+                                                  seed, thresh, drop_scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
 int lvt::rows_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
                  const bf16* ln_b, bf16* out, int M, int C, float eps, cudaStream_t st) {
-  if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1) return (int)cudaErrorInvalidValue;
-  rows_kernel<kRowsLn><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, ln_w, ln_b, out, M, C,
-                                                             eps, nullptr, nullptr, 0u, 1.0f);
-  return (int)cudaGetLastError();
+  return (int)launch_rows<kRowsLn>(part, S, x, b, ln_w, ln_b, out, M, C, eps, nullptr, nullptr,
+                                   0u, 1.0f, st);
 }
 
 int lvt::rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, int M, int C,
                   cudaStream_t st) {
-  if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1) return (int)cudaErrorInvalidValue;
-  rows_kernel<kRowsSum><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(part, S, x, b, nullptr, nullptr, out,
-                                                              M, C, 0.0f, nullptr, nullptr, 0u,
-                                                              1.0f);
-  return (int)cudaGetLastError();
+  return (int)launch_rows<kRowsSum>(part, S, x, b, nullptr, nullptr, out, M, C, 0.0f, nullptr,
+                                    nullptr, 0u, 1.0f, st);
 }
 
 int lvt::rows_dropout_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
                          const bf16* ln_b, bf16* out, uint8_t* keep, int M, int C, float eps,
                          const int64_t* seed, uint32_t thresh, float drop_scale,
                          cudaStream_t st) {
-  if (M <= 0 || C <= 0 || C % 4 || C > 1024 || S < 1 || keep == nullptr)
-    return (int)cudaErrorInvalidValue;
-  rows_kernel<kRowsDropLn><<<M, (C / 4 + 31) / 32 * 32, 0, st>>>(
-      part, S, x, b, ln_w, ln_b, out, M, C, eps, keep, seed, thresh, drop_scale);
-  return (int)cudaGetLastError();
+  if (keep == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch_rows<kRowsDropLn>(part, S, x, b, ln_w, ln_b, out, M, C, eps, keep, seed,
+                                       thresh, drop_scale, st);
 }
 
 // out = epi(a [M, K] . w_g [N, K]^T + b_g) for the G (1..3) weights w0..,

@@ -56,14 +56,14 @@ int gemm_tc(const GemmTc& g, cudaStream_t stream);
 
 // out[row] = LN(sum_s part[s, row] + b + x[row]) * ln_w + ln_b, the S f32
 // slices [S, M, C] summed in the order s = 0..S-1, LN in f32 (two-pass
-// variance); x, b, ln_w, ln_b, out bf16, C % 4 == 0, C <= 1024.  Returns a
+// variance); x, b, ln_w, ln_b, out bf16, C % 4 == 0, C <= kMaxRowC.  Returns a
 // cudaError_t.
 int rows_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
             const bf16* ln_b, bf16* out, int M, int C, float eps, cudaStream_t stream);
 
 // The same row kernel without the LN: out[row] = sum_s part[s, row] + b +
 // x[row] in f32 (the slices in the order s = 0..S-1), rounded to bf16; x
-// and b each may be null.  C % 4 == 0, C <= 1024.  Returns a cudaError_t.
+// and b each may be null.  C % 4 == 0, C <= kMaxRowC.  Returns a cudaError_t.
 int rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, int M, int C,
              cudaStream_t stream);
 
@@ -73,7 +73,7 @@ int rows_sum(const float* part, int S, const bf16* x, const bf16* b, bf16* out, 
 // (stream row, index col), kept iff its bits >= thresh and scaled by
 // drop_scale; keep [M, C] receives m != 0 as one byte an element (all
 // ones where seed, an int64 on the device, is null: no dropout).  C % 4
-// == 0, C <= 1024.  Returns a cudaError_t.
+// == 0, C <= kMaxRowC.  Returns a cudaError_t.
 int rows_dropout_ln(const float* part, int S, const bf16* x, const bf16* b, const bf16* ln_w,
                     const bf16* ln_b, bf16* out, uint8_t* keep, int M, int C, float eps,
                     const int64_t* seed, uint32_t thresh, float drop_scale, cudaStream_t stream);

@@ -6,7 +6,10 @@
 // _ffn_post_ln_kernel and encoder_attention.py _attn_block_kernel_kmask).
 // Bound on the card: device-memory bandwidth (one read and one write of
 // the row, 2 bytes each).  Design: one warp per row with the row held in
-// registers (C <= 1024, 32 values per lane), so the row is read once;
+// registers (C <= 1024, 32 values per lane; C <= lvt::kMaxRowC = 2048,
+// Swin-L's stage 4 at C = 1536, as a template instance of its own with 64
+// a lane, so that the narrower rows keep their code), so the row is read
+// once;
 // statistics in f32, two-pass variance (no E[x^2] - mean^2 cancellation).
 // An optional row index gathers the input: output row m is the LN of input
 // row rows[m], and a zero row where rows[m] < 0 (no model path gathers
@@ -19,7 +22,8 @@
 // lvt_layernorm_rows_bf16 is the same LN on 16-byte chunks, for rows whose
 // width is a multiple of 8 (the LN of K3's and K9's LN + MLP and both LNs
 // of the spatial Swin block K14, blocks.cu): a row's chunks spread over a
-// group of 8, 16 or 32 lanes (one to four chunks a lane), so that each load
+// group of 8, 16 or 32 lanes (one to four chunks a lane; six or eight for
+// C up to 1536 or lvt::kMaxRowC, Swin-L's stage 4), so that each load
 // and store is 16 bytes and a warp moves whole 512-byte runs.  The scalar
 // kernel above moves 2 bytes a lane an instruction and reached about 0.4
 // TB/s at C = 128 on an H100 SXM at 700 W (126,976 rows, the B = 8 stage-1
@@ -38,8 +42,9 @@
 namespace {
 
 constexpr int kRowsPerBlock = 8;  // 8 warps
-constexpr int kMaxPerLane = 32;   // C <= 1024
 
+// PER: values a lane, C <= 32 * PER (32: C <= 1024; 64: C <= kMaxRowC)
+template <int PER>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     layernorm_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                           const bf16* __restrict__ b, bf16* __restrict__ y, int M, int C,
@@ -54,10 +59,10 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
     return;
   }
   const bf16* xr = x + (size_t)src * C;
-  float v[kMaxPerLane];
+  float v[PER];
   float s = 0.0f;
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     const int c = lane + t * 32;
     v[t] = c < C ? __bfloat162float(xr[c]) : 0.0f;
     s += v[t];
@@ -65,7 +70,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   const float mean = lvt::warp_sum(s) / C;
   float q = 0.0f;
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     const int c = lane + t * 32;
     const float d = c < C ? v[t] - mean : 0.0f;
     q += d * d;
@@ -73,7 +78,7 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   const float rstd = rsqrtf(lvt::warp_sum(q) / C + eps);
   const bool affine = g != nullptr;
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     const int c = lane + t * 32;
     if (c < C) {
       const float n = (v[t] - mean) * rstd;
@@ -168,13 +173,13 @@ cudaError_t launch_rows(const bf16* x, const bf16* g, const bf16* b, bf16* y, in
 }  // namespace
 
 // y [M, C] = LayerNorm(x) (* g + b; both null: the pure normalize), rows
-// contiguous, C a multiple of 8 and <= 1024, x, y, g and b 16-byte
-// aligned, on 16-byte chunks (see layernorm_rows_kernel); rows (int32 [M],
+// contiguous, C a multiple of 8 and <= lvt::kMaxRowC, x, y, g and b
+// 16-byte aligned, on 16-byte chunks (see layernorm_rows_kernel); rows (int32 [M],
 // indices of x's rows, or null): y[m] = LayerNorm(x[rows[m]]), zeros where
 // rows[m] < 0.
 LVT_EXPORT int lvt_layernorm_rows_bf16(const void* x, const void* g, const void* b, void* y,
                                        int M, int C, float eps, const void* rows, void* stream) {
-  if (M <= 0 || C <= 0 || C % 8 || C > 1024 || (g == nullptr) != (b == nullptr))
+  if (M <= 0 || C <= 0 || C % 8 || C > lvt::kMaxRowC || (g == nullptr) != (b == nullptr))
     return (int)cudaErrorInvalidValue;
   const auto X = static_cast<const bf16*>(x);
   const auto G = static_cast<const bf16*>(g);
@@ -183,25 +188,37 @@ LVT_EXPORT int lvt_layernorm_rows_bf16(const void* x, const void* g, const void*
   const auto R = static_cast<const int*>(rows);
   const auto st = static_cast<cudaStream_t>(stream);
   const int n = C / 8;  // chunks a row
-  const cudaError_t e = n <= 8    ? launch_rows<8, 1>(X, G, B, Y, M, C, eps, R, st)
-                        : n <= 16 ? launch_rows<16, 1>(X, G, B, Y, M, C, eps, R, st)
-                        : n <= 32 ? launch_rows<32, 1>(X, G, B, Y, M, C, eps, R, st)
-                        : n <= 64 ? launch_rows<32, 2>(X, G, B, Y, M, C, eps, R, st)
-                        : n <= 96 ? launch_rows<32, 3>(X, G, B, Y, M, C, eps, R, st)
-                                  : launch_rows<32, 4>(X, G, B, Y, M, C, eps, R, st);
+  // each instance covers LANES x CH chunks; past 256 none does
+  const cudaError_t e = n <= 8     ? launch_rows<8, 1>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 16  ? launch_rows<16, 1>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 32  ? launch_rows<32, 1>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 64  ? launch_rows<32, 2>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 96  ? launch_rows<32, 3>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 128 ? launch_rows<32, 4>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 192 ? launch_rows<32, 6>(X, G, B, Y, M, C, eps, R, st)
+                        : n <= 256 ? launch_rows<32, 8>(X, G, B, Y, M, C, eps, R, st)
+                                   : cudaErrorInvalidValue;
   return (int)e;
 }
 
 // y[M, C] = LayerNorm(x[M, C]) with affine g, b, or the pure normalize when
-// both are null; rows contiguous, C <= 1024; rows (int32 [M], indices of x's
-// rows, or null): y[m] = LayerNorm(x[rows[m]]), zeros where rows[m] < 0.
+// both are null; rows contiguous, C <= lvt::kMaxRowC; rows (int32 [M],
+// indices of x's rows, or null): y[m] = LayerNorm(x[rows[m]]), zeros where rows[m] < 0.
 LVT_EXPORT int lvt_layernorm_bf16(const void* x, const void* g, const void* b, void* y, int M,
                                   int C, float eps, const void* rows, void* stream) {
-  if (M <= 0 || C <= 0 || C > 32 * kMaxPerLane) return (int)cudaErrorInvalidValue;
+  static_assert(32 * 64 == lvt::kMaxRowC, "the widest instance covers kMaxRowC");
+  if (M <= 0 || C <= 0 || C > lvt::kMaxRowC) return (int)cudaErrorInvalidValue;
   if ((g == nullptr) != (b == nullptr)) return (int)cudaErrorInvalidValue;
   const int blocks = (M + kRowsPerBlock - 1) / kRowsPerBlock;
-  layernorm_bf16_kernel<<<blocks, kRowsPerBlock * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(g), static_cast<const bf16*>(b),
-      static_cast<bf16*>(y), M, C, eps, static_cast<const int*>(rows));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto X = static_cast<const bf16*>(x);
+  const auto G = static_cast<const bf16*>(g);
+  const auto B = static_cast<const bf16*>(b);
+  const auto Y = static_cast<bf16*>(y);
+  const auto R = static_cast<const int*>(rows);
+  if (C <= 32 * 32)
+    layernorm_bf16_kernel<32><<<blocks, kRowsPerBlock * 32, 0, st>>>(X, G, B, Y, M, C, eps, R);
+  else
+    layernorm_bf16_kernel<64><<<blocks, kRowsPerBlock * 32, 0, st>>>(X, G, B, Y, M, C, eps, R);
   return (int)cudaGetLastError();
 }

@@ -430,16 +430,23 @@ def dropout_bits(seed: torch.Tensor, n_stream: int,
     return out.to(torch.int64) & 0xFFFFFFFF
 
 
+# the widest row of the row-resident primitives (the scalar and chunk LNs,
+# the tile GEMM's row kernel): csrc/common.cuh kMaxRowC (Swin-L's stage 4
+# runs C = 1536); wider rows raise
+MAX_ROW_C = 2048
+
+
 def layernorm(x: torch.Tensor, weight: Optional[torch.Tensor],
               bias: Optional[torch.Tensor], eps: float,
               rows: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Row LayerNorm of contiguous x [M, C], C <= 1024; ``weight`` and
+    """Row LayerNorm of contiguous x [M, C], C <= MAX_ROW_C; ``weight`` and
     ``bias`` both None: the pure normalize (the serving fold cache's LN).
     ``rows`` (int32 [M'], indices into x's rows) gathers: out[m] =
     LN(x[rows[m]]), a zero row where rows[m] < 0."""
     _check(x, "layernorm x")
-    if not x.is_contiguous() or x.shape[1] > 1024:
-        raise ValueError("layernorm: x must be contiguous with C <= 1024")
+    if not x.is_contiguous() or x.shape[1] > MAX_ROW_C:
+        raise ValueError(f"layernorm: x must be contiguous with C <= "
+                         f"{MAX_ROW_C}")
     if (weight is None) != (bias is None):
         raise ValueError("layernorm: weight and bias are both given or both "
                          "None")
@@ -460,13 +467,13 @@ def layernorm_rows(x: torch.Tensor, weight: Optional[torch.Tensor],
                    rows: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``layernorm`` on 16-byte chunks (``lvt_layernorm_rows_bf16``, the
     LN of K3, K9 and K14): x [M, C] contiguous, C a multiple of 8 and <=
-    1024, the affine (both or neither) contiguous and 16-byte aligned;
+    MAX_ROW_C, the affine (both or neither) contiguous and 16-byte aligned;
     ``rows`` gathers as ``layernorm``'s does."""
     _check(x, "layernorm_rows x")
     M, C = x.shape
-    if not x.is_contiguous() or C % 8 or C > 1024:
+    if not x.is_contiguous() or C % 8 or C > MAX_ROW_C:
         raise ValueError(f"layernorm_rows: x {tuple(x.shape)} must be "
-                         "contiguous with C % 8 == 0, C <= 1024")
+                         f"contiguous with C % 8 == 0, C <= {MAX_ROW_C}")
     if (weight is None) != (bias is None):
         raise ValueError("layernorm_rows: weight and bias are both given or "
                          "both None")
@@ -1036,9 +1043,9 @@ def _gemm_tc_ln_args(a, w, bias, residual, ln_w, ln_b, what):
     K, the split plan, the stream, the address of the f32 slices)."""
     M, K = a.shape
     C = w.shape[0]
-    if C % 8 or K % 8 or C > 1024:
+    if C % 8 or K % 8 or C > MAX_ROW_C:
         raise ValueError(f"{what}: unsupported C={C}, K={K} (multiples of "
-                         "8, C <= 1024)")
+                         f"8, C <= {MAX_ROW_C})")
     _tc_rows(a, M, K, f"{what} a")
     dev = a.device
     _tc_operand(w, (C, K), dev, f"{what} w")
@@ -1059,7 +1066,7 @@ def gemm_tc_ln(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     of ``gemm_tc_plan(..., split=True)``) into scratch, then gemm_tc.cu's
     row kernel sums them in slice order, adds bias and residual and applies
     the LN in f32.  a [M, K] (rows contiguous), w [C, K], residual [M, C]
-    contiguous, bias, ln_w, ln_b [C]; C % 8 == 0, C <= 1024.  Two
+    contiguous, bias, ln_w, ln_b [C]; C % 8 == 0, C <= MAX_ROW_C.  Two
     launches, one C call."""
     M, C, K, plan, stream, part = _gemm_tc_ln_args(
         a, w, bias, residual, ln_w, ln_b, "gemm_tc_ln")
@@ -1158,17 +1165,17 @@ def ln_mlp(x: torch.Tensor, ln_w, ln_b, w1: torch.Tensor, b1,
     possibly as f32 K-slices that the row kernel sums in order with bias
     and residual; ``plan`` (default ``ln_mlp_plan``) the tile rows and
     slices.  LN affines None: the pure normalize; biases may be None.
-    All bf16, contiguous, on one card; C <= 1024, C and HD multiples of
-    8.  The checks are one pass of cheap attribute reads: they run on
+    All bf16, contiguous, on one card; C <= MAX_ROW_C, C and HD multiples
+    of 8.  The checks are one pass of cheap attribute reads: they run on
     every launch."""
     _check(x, "ln_mlp x")
     M, C = x.shape
     HD = w1.shape[0]
     dev = x.device
-    if not x.is_contiguous() or C % 8 or C > 1024 or HD % 8:
+    if not x.is_contiguous() or C % 8 or C > MAX_ROW_C or HD % 8:
         raise ValueError(f"ln_mlp: unsupported x {tuple(x.shape)} "
                          f"(contiguous), MLP width {HD} (C and HD "
-                         "multiples of 8, C <= 1024)")
+                         f"multiples of 8, C <= {MAX_ROW_C})")
     _tc_operand(w1, (HD, C), dev, "ln_mlp w1")
     _tc_operand(w2, (C, HD), dev, "ln_mlp w2")
     for t, n, what in ((ln_w, C, "ln_w"), (ln_b, C, "ln_b"), (b1, HD, "b1"),
@@ -1195,19 +1202,19 @@ def ln_mlp(x: torch.Tensor, ln_w, ln_b, w1: torch.Tensor, b1,
 def _swin_block_args(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, n_seq, n_tok,
                      n_heads, mlp, what):
     """Checks of a Swin block's C call (K1, K14): x [n_seq * n_tok, C]
-    contiguous bf16 on the card, C <= 1024 and a multiple of 8, head dim 16,
-    32 or 64, the weights contiguous and 16-byte aligned, each LN affine
-    both or neither.  Returns (M, C, HD, mlp), HD 0 and mlp six Nones
+    contiguous bf16 on the card, C <= MAX_ROW_C and a multiple of 8, head
+    dim 16, 32 or 64, the weights contiguous and 16-byte aligned, each LN
+    affine both or neither.  Returns (M, C, HD, mlp), HD 0 and mlp six Nones
     without the MLP."""
     _check(x, f"{what} x")
     M, C = x.shape
     hd = C // n_heads
     dev = x.device
-    if (not x.is_contiguous() or M != n_seq * n_tok or C % 8 or C > 1024
-            or hd * n_heads != C or hd not in (16, 32, 64)):
+    if (not x.is_contiguous() or M != n_seq * n_tok or C % 8
+            or C > MAX_ROW_C or hd * n_heads != C or hd not in (16, 32, 64)):
         raise ValueError(f"{what}: unsupported x {tuple(x.shape)} for "
                          f"{n_seq} x {n_tok} rows, {n_heads} heads (C % 8 "
-                         f"== 0, C <= 1024, head dim 16/32/64)")
+                         f"== 0, C <= {MAX_ROW_C}, head dim 16/32/64)")
     n2w = n2b = w1 = b1 = w2 = b2 = None
     HD = 0
     if mlp is not None:
@@ -1249,7 +1256,7 @@ def swin_block_wm(x: torch.Tensor, ln_w, ln_b, wqkv: torch.Tensor, bqkv,
     the MLP, each the primitive ``layernorm`` / ``gemm_tc`` /
     ``attention(tensor_cores=True)`` launches, from one C call.  LN
     affines None: the pure normalize.  All bf16, contiguous, on one card;
-    C <= 1024 and a multiple of 8, head dim 16, 32 or 64."""
+    C <= MAX_ROW_C and a multiple of 8, head dim 16, 32 or 64."""
     M, C, HD, mlp = _swin_block_args(x, ln_w, ln_b, wqkv, bqkv, wproj,
                                      bproj, n_seq, n_tok, n_heads, mlp,
                                      "swin_block_wm")

@@ -3,11 +3,14 @@ CUDA GPU.
 
     python -m lavender_tpu_torch.profile_serving [--batch 4 8 16 32]
         [--iters 5] [--top 15] [--train [--remat] [--ffn-train] |
-        --seq2seq] [--impl auto|wm|fused|pallas]
+        --seq2seq] [--impl auto|wm|fused|pallas] [--swin PRESET]
+        [--size 224]
 
 Builds the default server (Swin-B + BERT-base, seeded random weights,
-bf16, clips of 5 x 224 x 224, 26 text tokens) and prints, after the
-card's name and power limit as nvidia-smi reports them:
+bf16, clips of 5 x 224 x 224, 26 text tokens; ``--swin`` another of
+``config.SWIN_PRESETS``' backbones, ``--size`` another clip side, e.g.
+``--swin large_384 --size 384`` for Swin-L at 384 x 384) and prints,
+after the card's name and power limit as nvidia-smi reports them:
 
 1. per batch size: ms per forward and clips/s on the host clock (``iters``
    forwards ending in ``torch.cuda.synchronize()``), and the peak
@@ -57,25 +60,27 @@ DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def _requests(batch: int, vocab: int, seed: int = 0,
-              txt_len: int = TXT_LEN):
+              txt_len: int = TXT_LEN, size: int = SIZE):
     rs = np.random.RandomState(seed)
-    img = rs.randint(0, 256, (batch, FRAMES, SIZE, SIZE, 3)).astype(np.uint8)
+    img = rs.randint(0, 256, (batch, FRAMES, size, size, 3)).astype(np.uint8)
     lens = rs.randint(5, txt_len + 1, batch)
     mask = (np.arange(txt_len)[None] < lens[:, None]).astype(np.int64)
     txt = rs.randint(1, vocab, (batch, txt_len)) * mask
     return img, txt, mask
 
 
-def serving_runner(server, batch: int, seq2seq: bool = False):
-    """(forward closure, unit) for ``batch`` clips on ``server``: the
-    full-mask forward on TXT_LEN text tokens or, with ``seq2seq``, the
-    captioning forward on CAP_LEN (``attn_mask_type="seq2seq"``)."""
+def serving_runner(server, batch: int, seq2seq: bool = False,
+                   size: int = SIZE):
+    """(forward closure, unit) for ``batch`` clips of ``size`` x ``size``
+    on ``server``: the full-mask forward on TXT_LEN text tokens or, with
+    ``seq2seq``, the captioning forward on CAP_LEN
+    (``attn_mask_type="seq2seq"``)."""
     vocab = server.config.bert.vocab_size
     if seq2seq:
-        req = _requests(batch, vocab, txt_len=CAP_LEN)
+        req = _requests(batch, vocab, txt_len=CAP_LEN, size=size)
         return (lambda: server(*req, attn_mask_type="seq2seq"),
                 "seq2seq forward")
-    req = _requests(batch, vocab)
+    req = _requests(batch, vocab, size=size)
     return lambda: server(*req), "forward"
 
 
@@ -137,22 +142,23 @@ def profile(run, iters: int, top: int, host_ms: float, unit: str):
 
 
 def _config(impl: str = "auto", remat: bool = False,
-            ffn_train: bool = False):
-    """``ModelConfig()`` with the Swin stages' ``attn_impl`` and ``remat``
-    and the fusion encoder's ``fused_ffn_train`` set."""
+            ffn_train: bool = False, swin: str = "base"):
+    """``ModelConfig()`` on the ``swin`` preset, with the Swin stages'
+    ``attn_impl`` and ``remat`` and the fusion encoder's
+    ``fused_ffn_train`` set."""
     import dataclasses
 
-    from lavender_tpu_torch.config import ModelConfig
+    from lavender_tpu_torch.config import SWIN_PRESETS, ModelConfig
 
-    cfg = ModelConfig()
+    cfg = ModelConfig(swin=SWIN_PRESETS[swin])
     return dataclasses.replace(
         cfg, swin=dataclasses.replace(cfg.swin, attn_impl=impl, remat=remat),
         bert=dataclasses.replace(cfg.bert, fused_ffn_train=ffn_train))
 
 
-def _train_runner(batch: int, cfg):
+def _train_runner(batch: int, cfg, size: int = SIZE):
     """(step closure, "step") for the retrieval-MLM train step at B clips
-    on ``cfg``."""
+    of ``size`` x ``size`` on ``cfg``."""
     from lavender_tpu_torch.config import TrainConfig
     from lavender_tpu_torch.tasks import retrieval
     from lavender_tpu_torch.train.trainer import (create_train_state,
@@ -161,7 +167,7 @@ def _train_runner(batch: int, cfg):
     state = create_train_state(cfg, TrainConfig(max_iter=1000,
                                                 max_grad_norm=1.0), seed=0)
     step = make_train_step(retrieval.make_loss_fn(2081, 6270), state)
-    img, txt, mask = _requests(batch, cfg.bert.vocab_size)
+    img, txt, mask = _requests(batch, cfg.bert.vocab_size, size=size)
     data = {"img": torch.as_tensor(img, device="cuda"),
             "txt": torch.as_tensor(txt, device="cuda"),
             "mask": torch.as_tensor(mask, device="cuda"),
@@ -186,6 +192,11 @@ def main() -> int:
                     help="--train: SwinConfig.remat (the spatial K14 route)")
     ap.add_argument("--ffn-train", action="store_true",
                     help="--train: BertConfig.fused_ffn_train (K12)")
+    ap.add_argument("--swin", default="base",
+                    help="the Swin preset (config.SWIN_PRESETS), e.g. "
+                    "large_384")
+    ap.add_argument("--size", type=int, default=SIZE,
+                    help="the clips' side in pixels (384 for large_384)")
     args = ap.parse_args()
     if (args.remat or args.ffn_train) and not args.train:
         ap.error("--remat and --ffn-train go with --train")
@@ -196,15 +207,16 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip())
 
-    cfg = _config(args.impl, args.remat, args.ffn_train)
-    print(f"attn_impl={args.impl!r}"
+    cfg = _config(args.impl, args.remat, args.ffn_train, args.swin)
+    print(f"swin={args.swin!r} size={args.size} attn_impl={args.impl!r}"
           + (f" remat={args.remat} fused_ffn_train={args.ffn_train}"
              if args.train else ""), flush=True)
     if args.train:
-        runners = [(b, *_train_runner(b, cfg)) for b in args.batch[:1]]
+        runners = [(b, *_train_runner(b, cfg, args.size))
+                   for b in args.batch[:1]]
     else:
-        server = LavenderServer(cfg, seed=0, frames=FRAMES, size=SIZE)
-        runners = [(b, *serving_runner(server, b, args.seq2seq))
+        server = LavenderServer(cfg, seed=0, frames=FRAMES, size=args.size)
+        runners = [(b, *serving_runner(server, b, args.seq2seq, args.size))
                    for b in args.batch]
     host_ms = []
     for b, run, unit in runners:

@@ -79,7 +79,10 @@ stages against its plain version (shifted and unshifted, with and
 without its MLP, the bias and a bf16 or f32 mask in rows padded to 16
 bytes or at N's own pitch), a second call bitwise equal; K12's one C
 call off the tile and at the step's rows, rates 0, 0.1 and 0.5, its
-keep mask exactly ``dropout.row_keep``, a second call bitwise equal.
+keep mask exactly ``dropout.row_keep``, a second call bitwise equal; the
+row primitives past 1024 (the scalar and chunk LNs, their gather and pure
+normalize, the row kernel's LN mode at 1032, 1536 and 2048), each a
+second call bitwise equal, and each wrapper raising at 2056.
 
 Needs a CUDA device and nvcc; skipped elsewhere.  This file imports no JAX,
 so on a machine without it run it without the suite's conftest:
@@ -144,10 +147,46 @@ def _close(got, want, rel_l2=None):
         assert rel <= rel_l2, rel
 
 
-@pytest.mark.parametrize("M,C", [(1, 8), (37, 96), (300, 1000), (5, 1024)])
+@pytest.mark.parametrize("M,C", [(1, 8), (37, 96), (300, 1000), (5, 1024),
+                                 (2, 1032), (7, 1536), (3, 2048)])
 def test_layernorm_matches_plain(gen, M, C):
     x, w, b = _rnd(gen, M, C, std=3.0), _rnd(gen, C), _rnd(gen, C)
     _close(_build.layernorm(x, w, b, 1e-5), layer_norm(x, w, b, 1e-5))
+
+
+@pytest.mark.parametrize("C", [1032, 1536, 2048])
+def test_wide_rows_match_plain_and_wider_raise(gen, C):
+    """The row primitives' instances past Swin-B's 1024 (Swin-L's stage 4
+    at 1536, up to 2048): the chunk LN (plain rows and gathered, a pad
+    row zero), the pure normalize of the scalar LN, the row kernel's LN
+    mode; each a second call bitwise equal.  At 2056 every wrapper
+    raises."""
+    M = 301
+    x, w, b = _rnd(gen, M, C, std=3.0), _rnd(gen, C), _rnd(gen, C)
+    rows = torch.randperm(M, generator=gen, device="cuda").to(torch.int32)
+    rows[5] = -1
+    want = layer_norm(x[rows.clamp(min=0).long()], w, b, 1e-5)
+    want[5] = 0
+    _close(_build.layernorm_rows(x, w, b, 1e-5), layer_norm(x, w, b, 1e-5))
+    got = _build.layernorm_rows(x, w, b, 1e-5, rows=rows)
+    _close(got, want)
+    assert torch.equal(got, _build.layernorm_rows(x, w, b, 1e-5, rows=rows))
+    assert not got[5].any()
+    got = _build.layernorm(x, None, None, 1e-5)
+    _close(got, layer_norm(x, None, None, 1e-5))
+    assert torch.equal(got, _build.layernorm(x, None, None, 1e-5))
+    a, wp = _rnd(gen, M, C), _rnd(gen, C, C, std=C ** -0.5)
+    got = _build.gemm_tc_ln(a, wp, b, x, w, b, 1e-5)
+    _close(got, layer_norm(x.float() + _linear_f32(a, wp, b, "bias"),
+                           w.float(), b.float(), 1e-5), rel_l2=1e-2)
+    assert torch.equal(got, _build.gemm_tc_ln(a, wp, b, x, w, b, 1e-5))
+    xw, ww = _rnd(gen, 8, 2056), _rnd(gen, 2056)
+    for bad in (lambda: _build.layernorm(xw, ww, ww, 1e-5),
+                lambda: _build.layernorm_rows(xw, ww, ww, 1e-5),
+                lambda: _build.gemm_tc_ln(xw, _rnd(gen, 2056, 2056), ww, xw,
+                                          ww, ww, 1e-5)):
+        with pytest.raises(ValueError):
+            bad()
 
 
 def _attention_plain(qkv, n_seq, N, nH, scale, bias, mask, keep):
@@ -1339,7 +1378,8 @@ def test_gemm_tc_three_weights_into_a_slab(gen, M, C):
 
 
 @pytest.mark.parametrize("M,C,K", [(37, 64, 192), (1000, 768, 768),
-                                   (1104, 768, 768), (300, 1024, 4096)])
+                                   (1104, 768, 768), (300, 1024, 4096),
+                                   (300, 1536, 1536), (37, 2048, 512)])
 def test_gemm_tc_ln_matches_plain(gen, M, C, K):
     """K4's proj: the product as f32 K-slices of the plan, summed in order
     by the row kernel with bias and residual, then the LN; a second call

@@ -37,7 +37,8 @@ nothing is ever run on the CPU instead:
    keep masks exactly equal, K12 at rate 0.1 and 0.5, each call repeated
    and required bitwise equal, with its device time a call in a CUDA
    graph), on a key mask with padded captions; K10a
-   and K10b (the tensor-core forward and backward) also at rate 0.5 and
+   and K10b (the tensor-core forward, the wgmma + TMA backward) also at
+   rate 0.5 and
    under the seq2seq mask at L=276 and the caption step's L=275, each
    call repeated and required bitwise equal; K6 (the
    sub-block under a full mask) and K7 (the heads-layout core) at the
@@ -65,10 +66,16 @@ nothing is ever run on the CPU instead:
    zeroing scatter epilogue against F.linear, its core against
    scaled_dot_product_attention with the bias and mask rows at 248
    elements, and the whole call's device time beside its parts' sum;
-   first in the phase, by kernel name under torch.profiler, that K14a,
-   K14f, K16 and K12 launch the tile GEMM (K14 and K16 also the chunk LN
-   and the tensor-core forward) and no wmma GEMM, f32-pipe core (both
-   gone) or scalar LN;
+   first in the phase, from the library's SASS, that every instance of the
+   wgmma backward of K10b / K13b runs its products as HGMMA and its Q, G,
+   K and V loads as UTMALDG (the TMA), with no HMMA, and that the mma.sync
+   dq and dk/dv kernels remain only as K8b's bias instances; then by
+   kernel name under torch.profiler, that K14a, K14f, K16 and K12 launch
+   the tile GEMM (K14 and K16 also the chunk LN and the tensor-core
+   forward), K10b and K13b the wgmma backward, and none of them a wmma
+   GEMM, f32-pipe core (both gone), scalar LN or mma.sync dq / dk/dv
+   kernel; K10b's and K13b's counted cases (and Swin-L's K10b) also list
+   their device activities and those of SDPA's backward by name;
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
    rows), K5 each call repeated and required bitwise equal; K2 and K5
    also with their device time a call under torch.profiler beside the
@@ -96,8 +103,8 @@ nothing is ever run on the CPU instead:
    K13a / K13b (the heads-layout train attention of LVT_ATTNLANES=0) at
    the retrieval step's 64 pairs, L=276, rate 0.1, on heads views of one
    qkv slab, under a padding and a seq2seq mask (f32), K13a and K13b
-   (the tensor-core forward and backward) also at rate 0.5 and at L=275
-   under the seq2seq mask, each call repeated and required bitwise
+   (the tensor-core forward, the wgmma backward) also at rate 0.5 and at
+   L=275 under the seq2seq mask, each call repeated and required bitwise
    equal, K13b also with the mask's gradient (the f32-pipe kernel); the
    lse K10a and K13a write against the logsumexp of the plain scores
    (f64, within 1e-3) at rates 0.1 and 0.5 under both masks and at
@@ -435,6 +442,9 @@ class Case:
     bitwise_repeat: bool = False  # a second call must give the same bits
     device_ms: bool = False  # also the device time a call (torch.profiler)
     graph_ms: bool = False  # also the device time a call (a CUDA graph)
+    # also the device activities of a call and of ``library`` by name
+    # (torch.profiler): which kernels the library's call ran as
+    trace: bool = False
     # a Swin-L-384 shape: ``count`` then is the calls in one Swin-L
     # serving forward and train step, summed apart (the "swinl_*" keys)
     swinl: bool = False
@@ -1125,7 +1135,7 @@ def _bert_train_cases(g, lin, ln):
                 bitwise_repeat=True))
 
     def bwd_case(n_tok, kind, mask, rate, count, library=None):
-        """K10b (the tensor-core backward) on a slab of n_tok tokens, its
+        """K10b (the wgmma backward) on a slab of n_tok tokens, its
         lse from K10a's forward; checked twice for the same bits."""
         slab_t = slab if n_tok == L else _rnd(g, B, n_tok, 3 * C)
         lse = torch.empty(B, nH, n_tok, device="cuda")
@@ -1140,7 +1150,7 @@ def _bert_train_cases(g, lin, ln):
             (*slab_t.split(C, dim=-1), mask, seed, dout, scale, rate, nH),
             flops, 7 * B * n_tok * C * 2 + mask.numel() * 2 + B * nH * n_tok
             * 4, kw={"lse": lse, "o": out}, compare=_grads_compare,
-            library=library, bitwise_repeat=True)
+            library=library, bitwise_repeat=True, trace=library is not None)
 
     dout_l = _rnd(g, B, L, C)
     # SDPA's backward alone: autograd of one forward, replayed
@@ -1248,7 +1258,7 @@ def _heads_train_cases(g):
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=sdpa_mask,
                                            dropout_p=rate, scale=scale)
-        for r in (rate, 0.5):  # the tensor-core backward; 0.5 checked only
+        for r in (rate, 0.5):  # the wgmma backward; 0.5 checked only
             # its D = rowsum(out * dout) needs the output of this rate
             out = _build.attention_heads(q, k, v, mask.clamp_min(-1e4), scale,
                                          lse=lse, seed=seed, rate=r)
@@ -1259,6 +1269,7 @@ def _heads_train_cases(g):
                 7 * slab_bytes + mask_bytes + lse_bytes,
                 kw={"lse": lse, "o": out},
                 compare=_heads_grads_compare, bitwise_repeat=True,
+                trace=r == rate and kind == "padded keys",
                 library=None if r != rate else (
                     lambda o=o, leaves=leaves: torch.autograd.grad(
                         o, leaves, dout, retain_graph=True))))
@@ -2165,18 +2176,22 @@ def _k16_parts(g):
 
 def _kernel_names(g, only=None):
     """One call each of K14a and K14f (B=4, Swin-B stage 1, shifted), K16
-    (B=4, stage 3) and K12 (1,104 rows) under torch.profiler, those in
-    ``only`` where given, first in phase 3 (the profiler's records thin
-    out once a process has traced many windows): their kernels' names
-    must include the tile GEMM and (K14, K16) the chunk LN and the
-    tensor-core forward, (K12) the row kernel, and none of the wmma GEMM
-    (gemm_bf16_kernel) and the f32-pipe core (attention_kernel), both
-    gone, or the scalar LN (layernorm_bf16_kernel).  A call is traced up
+    (B=4, stage 3), K12 (1,104 rows), K10b and K13b (64 pairs, L = 276)
+    under torch.profiler, those in ``only`` where given, first in phase 3
+    (the profiler's records thin out once a process has traced many
+    windows): their kernels' names must include the tile GEMM and (K14,
+    K16) the chunk LN and the tensor-core forward, (K12) the row kernel,
+    (K10b, K13b) the wgmma backward and the row-dot pass before it, and
+    none of the wmma GEMM (gemm_bf16_kernel) and the f32-pipe core
+    (attention_kernel), both gone, the scalar LN (layernorm_bf16_kernel)
+    or the mma.sync dq and dk/dv kernels (K8b's alone).  A call is traced up
     to three times, its names the union: a process's first traced window
     has dropped the first kernel's record (the chunk LN of K14a)."""
     from lavender_tpu_torch.models.swin3d import (
         compute_shift_mask, relative_position_index)
     from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.ops.encoder_attention import (
+        encoder_attention_train_bwd, encoder_attention_train_lanes_bwd)
     from lavender_tpu_torch.ops.fused_mlp import fused_ffn_post_ln_train
     from lavender_tpu_torch.ops.swin_block_attn import (
         fused_swin_block_attn, fused_swin_block_full,
@@ -2202,6 +2217,20 @@ def _kernel_names(g, only=None):
     params16, statics16, (nW16, C16, _, _, Npad16, _) = _stage3_block(
         g, lin, lambda c: (1.0 + _rnd(g, c, std=0.1), _rnd(g, c, std=0.1)))
     x16 = _rnd(g, BATCH, nW16, Npad16, C16)
+    # K10b and K13b at the train step's 64 pairs, L = 276, rate 0.1
+    Bp, nHb, hdb, Lb = TRAIN_BATCH ** 2, 12, 64, FRAMES * 50 + TXT_LEN
+    Cb = nHb * hdb
+    slab = _rnd(g, Bp, Lb, 3 * Cb)
+    seed = torch.tensor([11], device="cuda")
+    mask_b = torch.zeros(Bp, Lb, Lb, device="cuda")
+    lse_b, lse_h = (torch.empty(Bp, nHb, Lb, device="cuda") for _ in range(2))
+    out_b = _build.attention(slab.view(-1, 3 * Cb), Bp, Lb, nHb, hdb ** -0.5,
+                             mask=mask_b.to(torch.bfloat16), lse=lse_b,
+                             seed=seed, rate=0.1).view(Bp, Lb, Cb)
+    qh, kh, vh = slab.view(Bp, Lb, 3, nHb, hdb).permute(2, 0, 3, 1, 4)
+    out_h = _build.attention_heads(qh, kh, vh, mask_b, hdb ** -0.5,
+                                   lse=lse_h, seed=seed, rate=0.1)
+    dout_b = _rnd(g, Bp, Lb, Cb)
     need = ("tile_kernel", "layernorm_rows_kernel", "fwd_kernel")
     for kid, fn, want in (
             ("K14a", lambda: fused_swin_block_attn(*args, *statics), need),
@@ -2210,7 +2239,14 @@ def _kernel_names(g, only=None):
             ("K16", lambda: fused_swin_block_wm_shifted(x16, *params16,
                                                         *statics16), need),
             ("K12", lambda: fused_ffn_post_ln_train(*ffn),
-             ("tile_kernel", "rows_kernel"))):
+             ("tile_kernel", "rows_kernel")),
+            ("K10b", lambda: encoder_attention_train_lanes_bwd(
+                *slab.split(Cb, dim=-1), mask_b.to(torch.bfloat16), seed,
+                dout_b, hdb ** -0.5, 0.1, nHb, lse=lse_b, o=out_b),
+             ("bwd_wg_kernel", "row_dot_kernel")),
+            ("K13b", lambda: encoder_attention_train_bwd(
+                qh, kh, vh, mask_b, seed, out_h, hdb ** -0.5, 0.1,
+                lse=lse_h, o=out_h), ("bwd_wg_kernel", "row_dot_kernel"))):
         if only and kid not in only:
             continue
         fn()  # warm: the first call builds the row index and the scratch
@@ -2221,7 +2257,9 @@ def _kernel_names(g, only=None):
                 break
         bad = [n for n in names for old in ("gemm_bf16_kernel",
                                             "attention_kernel",
-                                            "layernorm_bf16_kernel")
+                                            "layernorm_bf16_kernel",
+                                            "bwd_dq_kernel",
+                                            "bwd_dkdv_kernel")
                if old in n]
         missing = [p for p in want if not any(p in n for n in names)]
         print(f"[kernel] {kid} one call launches {len(names)} kernel(s): "
@@ -2229,6 +2267,42 @@ def _kernel_names(g, only=None):
         if bad or missing:
             raise AssertionError(f"{kid}: old kernels {bad}, missing "
                                  f"{missing}")
+
+
+def _wgmma_sass():
+    """The SASS of the built library (cuobjdump, beside nvcc): each of the
+    12 instances of the fusion encoder's wgmma backward (K10b, K13b) runs
+    its products as HGMMA and loads Q, G, K and V by UTMALDG (the TMA),
+    with no HMMA (mma.sync); the mma.sync dq and dk/dv kernels are left
+    only as K8b's bias instances (template arguments DROP = false, BIAS =
+    true)."""
+    from lavender_tpu_torch.ops import _build
+    from lavender_tpu_torch.sass_diff import functions
+
+    fns = functions(str(_build.library_path()))
+
+    def count(lines, op):
+        return sum(any(w == op or w.startswith(op + ".") for w in ln.split())
+                   for ln in lines)
+
+    wg = {n: v for n, v in fns.items() if "bwd_wg_kernel" in n}
+    bad = [n for n, v in wg.items()
+           if not count(v, "HGMMA") or not count(v, "UTMALDG")
+           or count(v, "HMMA")]
+    mma = [n for n in fns if "bwd_dq_kernel" in n or "bwd_dkdv_kernel" in n]
+    stale = [n for n in mma if "Lb0ELb1EE" not in n]
+    for n, v in sorted(wg.items()):
+        print(f"[sass] {n}: HGMMA {count(v, 'HGMMA')}, UTMALDG "
+              f"{count(v, 'UTMALDG')}, HMMA {count(v, 'HMMA')}", flush=True)
+    print(f"[sass] the wgmma backward: {len(wg)} instances; the mma.sync dq "
+          f"and dk/dv kernels: {len(mma)} instances, {len(stale)} without "
+          "the bias", flush=True)
+    # hd 16 / 32 / 64, a bf16 or f32 mask, dropout or not
+    if len(wg) != 12 or bad or stale:
+        raise AssertionError(f"wgmma backward SASS: {len(wg)} instances, "
+                             f"without HGMMA / UTMALDG or with HMMA {bad}; "
+                             f"mma.sync backward instances without the "
+                             f"bias {stale}")
 
 
 def _heads_tc_pitch(g):
@@ -2331,7 +2405,10 @@ def check_kernels(only=None, parts: bool = True):
     import itertools
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    if parts and (not only or only & {"K12", "K14a", "K14f", "K16"}):
+    if parts and (not only or only & {"K10b", "K13b"}):
+        _wgmma_sass()
+    if parts and (not only or only & {"K12", "K14a", "K14f", "K16", "K10b",
+                                      "K13b"}):
         _kernel_names(g, only)
     per_kernel = {}
     swinl = _swinl_cases(g) if not only or "SWINL" in only else ()
@@ -2394,6 +2471,15 @@ def check_kernels(only=None, parts: bool = True):
             print(f"[kernel] {c.op.name} {c.name}: device {dev:.4f} ms a "
                   f"call (event {ms:.4f} ms) vs {other} of device time "
                   f"({_nvidia_smi()})", flush=True)
+        if c.trace:
+            for who, fn in (("kernel", lambda: c.op(*c.args, **c.kw)),
+                            ("library", c.library)):
+                acts = _kernel_times(fn, 3)
+                print(f"[kernel] {c.op.name} {c.name}: {who}'s device "
+                      "activities, ms a call: " + "; ".join(
+                          f"{n[:100]} {ms_:.4f}" for n, ms_ in sorted(
+                              acts.items(), key=lambda kv: -kv[1])),
+                      flush=True)
         if not ok:
             raise AssertionError(f"{c.op.name} {c.name}: kernel disagrees "
                                  f"with its plain version (max_abs_err {err})")
@@ -5883,7 +5969,7 @@ def _swinl_cases(g):
         kw={"lse": lse, "o": out}, compare=_grads_compare,
         library=lambda: torch.autograd.grad(o, leaves, d_heads,
                                             retain_graph=True),
-        bitwise_repeat=True, swinl=True)
+        bitwise_repeat=True, swinl=True, trace=True)
     del slab, q, k, v, mask, lse, out, dout, sdpa, leaves, o, d_heads
     M = B * L
     yield Case(
@@ -6359,7 +6445,7 @@ def main() -> int:
                "lavender_tpu/ops/fused_mlp.py:91"),
         "K10a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:750"),
-        "K10b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
+        "K10b": ("lavender_tpu_torch/csrc/attention_bwd_wgmma.cu",
                  "lavender_tpu/ops/encoder_attention.py:780"),
         "K11": ("lavender_tpu_torch/csrc/gemm_tc.cu",
                 "lavender_tpu/ops/fused_mlp.py:505"),
@@ -6367,7 +6453,7 @@ def main() -> int:
                 "lavender_tpu/ops/fused_mlp.py:379"),
         "K13a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                  "lavender_tpu/ops/encoder_attention.py:526"),
-        "K13b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
+        "K13b": ("lavender_tpu_torch/csrc/attention_bwd_wgmma.cu",
                  "lavender_tpu/ops/encoder_attention.py:555"),
         "K14a": ("lavender_tpu_torch/csrc/blocks.cu",
                  "lavender_tpu/ops/swin_block_attn.py:468"),

@@ -5,12 +5,14 @@
 //   dq = ds k * scale,  dk = ds^T q * scale,  dmask[b] = sum over heads of ds,
 // m the dropout factor of each probability.
 //
-// Every call on a model path runs on the tensor cores (attention_bwd_tc.cu):
-// lvt_attention_bwd_bf16 on the packed qkv slab (K10b,
-// lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_bwd_kernel,
-// and K8b, lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel, with its
-// dbias) and lvt_attention_heads_bwd_bf16 without dmask (K13b,
-// _enc_attn_train_bwd_kernel).  The kernel below is K13b's dmask option
+// Every call on a model path runs on the tensor cores: lvt_attention_bwd_bf16
+// on the packed qkv slab without a bias (K10b,
+// lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_bwd_kernel)
+// and lvt_attention_heads_bwd_bf16 without dmask (K13b,
+// _enc_attn_train_bwd_kernel) on the wgmma + TMA kernel of
+// attention_bwd_wgmma.cu, lvt_attention_bwd_bf16 with a bias (K8b,
+// lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel, with its dbias) on
+// the mma.sync kernels of attention_bwd_tc.cu.  The kernel below is K13b's dmask option
 // (the TPU kernel's; on no model path: the caller zeroes it where the mask
 // is <= -1e4): q, k, v, do, dq, dk and dv [B, nH, N, hd], each by its own
 // (sequence, head, row) strides, the f32 [B, N, N] mask the forward read,
@@ -322,13 +324,18 @@ int launch_drop(const void* q, const void* dout, const void* lse, const void* ma
 // unused without a bias: K10b).  seed (int64 on the device) or null: the
 // forward's dropout (bits >= thresh kept, scaled by drop_scale), never with
 // a bias; head0 and heads_total its stream, as lvt_attention_bf16's.  hd in
-// {16, 32, 64}.  Runs on the tensor cores (attention_bwd_tc.cu).
+// {16, 32, 64}.  Without a bias (K10b) the wgmma kernel
+// (attention_bwd_wgmma.cu) runs, with acc and sem its scratch (f32 [nSeq *
+// nH * T * 64 * hd] and int32 [nSeq * nH * T] at 0, T = ceil(N / 64));
+// with one (K8b) the mma.sync kernels (attention_bwd_tc.cu), acc and sem
+// unused.
 LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const void* lse,
                                       const void* dd, const void* bias, const void* mask,
                                       void* dqkv, void* dbias, void* part, int nSeq, int N,
                                       int nH, int hd, int nW, int nChunks, float scale,
                                       const void* seed, uint32_t thresh, float drop_scale,
-                                      int head0, int heads_total, void* stream) {
+                                      int head0, int heads_total, void* acc, void* sem,
+                                      void* stream) {
   if (nSeq <= 0 || N <= 0 || nH <= 0 || nW <= 0 || nH > 65535 || nSeq % nW != 0 ||
       (bias == nullptr) != (dbias == nullptr) || dd == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -345,6 +352,9 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
                static_cast<float*>(part), nChunks};
   a.head0 = head0;
   a.heads_total = heads_total;
+  if (bias == nullptr)
+    return lvt::attention_bwd_wgmma(a, static_cast<float*>(acc), static_cast<int*>(sem), hd,
+                                    false, static_cast<cudaStream_t>(stream));
   return lvt::attention_bwd_tc(a, hd, false, static_cast<cudaStream_t>(stream));
 }
 
@@ -354,26 +364,28 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
 // every stride a multiple of 8 and every pointer 16-byte aligned; lse
 // [B, nH, N] f32 (the forward's), mask [B, N, N] f32 (the forward's) or
 // null.  dmask [B, N, N] f32 = the sum over heads of ds, or null: not
-// formed, and the call runs on the tensor cores.  part is f32: with dmask
-// scratch [nChunks, B, N, N] (each block takes one sequence and a chunk of
-// its heads, 1 <= nChunks <= nH), without it the tensor-core kernels' D
-// [B, nH, N] as lvt_attention_row_dot_bf16 wrote it (nChunks = nH).  seed,
-// thresh, drop_scale, head0, heads_total as in lvt_attention_bwd_bf16.  hd
-// in {16, 32, 64}.
+// formed, and the call runs on the wgmma kernel (attention_bwd_wgmma.cu,
+// acc and sem its scratch as in lvt_attention_bwd_bf16).  part is f32:
+// with dmask scratch [nChunks, B, N, N] (each block takes one sequence and
+// a chunk of its heads, 1 <= nChunks <= nH), without it the tensor-core
+// kernels' D [B, nH, N] as lvt_attention_row_dot_bf16 wrote it (nChunks =
+// nH).  seed, thresh, drop_scale, head0, heads_total as in
+// lvt_attention_bwd_bf16.  hd in {16, 32, 64}.
 LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* mask,
                                             void* dq, void* dk, void* dv, void* dmask, void* part,
                                             const long long* st, int B, int N, int nH, int hd,
                                             int nChunks, float scale, const void* seed,
                                             uint32_t thresh, float drop_scale, int head0,
-                                            int heads_total, void* stream) {
+                                            int heads_total, void* acc, void* sem,
+                                            void* stream) {
   if (heads_total <= 0) heads_total = nH;
   if (B <= 0 || N <= 0 || nH <= 0 || B > 65535 || nChunks < 1 || nChunks > nH ||
       part == nullptr || (dmask == nullptr && nChunks != nH) || head0 < 0 ||
       head0 + nH > heads_total)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dmask == nullptr) {  // K13b on the model path: the tensor cores
+  if (dmask == nullptr) {  // K13b on the model path: the wgmma kernel
     lvt::TcBwd a{{static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                   static_cast<const bf16*>(v), static_cast<const bf16*>(dout)},
                  {static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv)},
@@ -384,7 +396,8 @@ LVT_EXPORT int lvt_attention_heads_bwd_bf16(const void* q, const void* k, const 
     a.heads_total = heads_total;
     for (int t = 0; t < 7; ++t)
       for (int i = 0; i < 3; ++i) a.st[t][i] = st[3 * t + i];
-    return lvt::attention_bwd_tc(a, hd, true, s);
+    return lvt::attention_bwd_wgmma(a, static_cast<float*>(acc), static_cast<int*>(sem), hd, true,
+                                    s);
   }
   BwdHeads hb{static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(dk),
               static_cast<bf16*>(dv), {}, head0, heads_total};

@@ -1,36 +1,26 @@
-// Tensor-core backward of the train attention cores:
-//   s = q k^T * scale + bias[h] + mask[w],  p = exp(s - lse),  o = (m * p) v
-//   dv = (m * p)^T g,  dp = m * (g v^T),  D = rowsum(p * dp) = rowsum(o * g),
+// Tensor-core backward of the Swin window core, and D for every tensor-core
+// backward:
+//   s = q k^T * scale + bias[h] + mask[w],  p = exp(s - lse),  o = p v
+//   dv = p^T g,  dp = g v^T,  D = rowsum(p * dp) = rowsum(o * g),
 //   ds = p * (dp - D),  dq = ds k * scale,  dk = ds^T q * scale,
-//   dbias[h] = sum over sequences of ds (with a bias),
-// m the dropout factor of each probability, regenerated from the forward's
-// seed by the counter hash of dropout.cuh (stream sequence * nH + head, or with a head offset
-// sequence * heads_total + head0 + head: dropout.cuh attention_stream;
-// index row * N + key), lse the forward's row log-sum-exp
-// (attention_fwd_tc.cu).
+//   dbias[h] = sum over sequences of ds,
+// lse the forward's row log-sum-exp (attention_fwd_tc.cu).
 //
-// Replaces lavender_tpu/ops/encoder_attention.py
-// _enc_attn_train_lanes_bwd_kernel (:780, K10b: q, k, v column slices of
-// the packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask, dropout),
-// _enc_attn_train_bwd_kernel (:555, K13b without the mask's gradient: q, k,
-// v and g [B, nH, L, hd] by their strides, the f32 [B, L, L] mask the
-// forward read, dropout) and lavender_tpu/ops/swin_core_attn.py
-// _core_bwd_kernel (:147, K8b: the packed slab of the Swin backward's
-// recompute, a bf16 rel-pos bias [nH, Npad, Npad] and its gradient summed
-// over every (batch, window) in f32, a bf16 shift mask or none, no
-// dropout).  All reach it through the C entries of attention_bwd.cu, which
-// keep the f32-pipe kernel only for K13b's dmask option (on no model path).
+// Replaces lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel (:147, K8b:
+// the packed slab of the Swin backward's recompute, a bf16 rel-pos bias
+// [nH, Npad, Npad] and its gradient summed over every (batch, window) in
+// f32, a bf16 shift mask or none, no dropout), through lvt_attention_bwd_bf16
+// of attention_bwd.cu.  The fusion encoder's backwards (K10b, K13b) run on
+// attention_bwd_wgmma.cu; this file's row_dot_kernel forms their D too.
+// Only the bias's instances are built (a bf16 mask or none, no dropout);
+// the templates' dropout and no-bias branches are never instantiated.
 //
-// Bound on the card: device memory.  At the train step's 64 pairs, L =
-// 276, 12 heads of 64 (K10b), each input read once and each output written
-// once is 7 bf16 [B*L, C] slabs (q, k, v, g, dq, dk, dv) + the mask + lse,
-// 200.5 MB (K10b; the f32 mask of K13b 210.3 MB): 0.060 ms at 3.35 TB/s;
-// the five products are 37.4 GFLOP, 0.038 ms at 989 TFLOP/s in bf16.  K8b
-// at B = 8, Swin-B stage 1 (512 windows of 248 rows, 4 heads of 32): 7
-// slabs of C = 128 columns + lse, bias and dbias, 231 MB unshifted and 239
-// MB with the shift mask (0.069 / 0.071 ms); 40.3 GFLOP in its five
-// products.  (The design below also reads the forward's output
-// o, an eighth slab.)
+// Bound on the card: device memory.  K8b at B = 8, Swin-B stage 1 (512
+// windows of 248 rows, 4 heads of 32): 7 slabs of C = 128 columns (q, k,
+// v, g, dq, dk, dv) + lse, bias and dbias, 231 MB unshifted and 239 MB
+// with the shift mask (0.069 / 0.071 ms at 3.35 TB/s); 40.3 GFLOP in its
+// five products.  (The design below also reads the forward's output o, an
+// eighth slab.)
 //
 // Design.  Every product runs on the tensor cores (mma.sync m16n8k16, bf16
 // operands, f32 accumulation; operands from shared memory by ldmatrix,
@@ -39,14 +29,14 @@
 // through a two-stage cp.async ring (the next tiles, their mask and bias
 // tiles included, load while the current ones multiply; the bias tile is
 // staged as a mask tile of the [nH, N, N] buffer, the head in the window's
-// place).  p, m and ds are formed on the accumulator fragments in
-// registers and rounded to bf16 as the next product's A operand (as the
-// JAX kernel rounds p * m and ds), so nothing [N, N]-shaped leaves
-// registers.  FlashAttention-2's two loops as two kernels, so that every
-// output element is summed by one thread in a fixed order (no atomics: the
-// same bits on every run), after a pass forming D:
+// place).  p and ds are formed on the accumulator fragments in registers
+// and rounded to bf16 as the next product's A operand, so nothing
+// [N, N]-shaped leaves registers.  FlashAttention-2's two loops as two
+// kernels, so that every output element is summed by one thread in a
+// fixed order (no atomics: the same bits on every run), after a pass
+// forming D:
 //   row_dot_kernel: D = rowsum(o * g) in f32 (FlashAttention-2's D; equal
-//     to rowsum(p * dp) up to o's bf16 rounding; the JAX kernel sums the
+//     to rowsum(p * dp) up to o's bf16 rounding; the JAX kernels sum the
 //     latter exactly, and a first sweep of the dq kernel over the keys for
 //     it measured slower on the card, PERF.md);
 //   dq kernel, a block per (query tile, sequence, head): one sweep over the
@@ -54,26 +44,24 @@
 //   dk/dv kernel, a block per (key tile, sequence, head): one sweep over the
 //     query tiles, each taken in two halves of 32 so that half the score
 //     accumulators are live (4 products);
-//   with a bias, dbias kernel, a block per (query tile x key tile, head,
-//     chunk of sequences): S and dP once more (2 products) for each
-//     sequence of the chunk, dS summed in f32 registers in the chunk's
-//     order into the chunk's slice of a scratch buffer, then sum_chunks
-//     adds the slices in chunk order.  dbias is the same on every run; no
-//     atomics, and no [N, 64] f32 accumulator in shared memory (which
-//     folding dS into the dk/dv kernel would need, at one block an SM).
-// All recompute s and p from lse.  The ragged edge (N = 276 = 4 * 64 + 20,
-// Npad = 248) is zero-filled by the copies' source size and predicated: p
-// = 0 for a row or key >= N (never by -inf arithmetic), and rows >= N are
-// never stored (in the packed slab they are the next sequence's); a warp
-// whose 16 rows all lie past N skips its products.  The dq and dbias
-// kernels form S as the forward forms it (the same mma_abt, Q against a
-// key tile, scaled in f32 after the product): the same bits, so their p
-// differs from the forward's only through lse against the forward's
-// running max; the dk/dv kernel forms S^T, equal up to the order of the
-// tensor cores' sums.  The tile helpers are mma_tile.cuh's.  Registers are
-// cut to 168 a thread, so 3 blocks (12 warps) share an SM (72-75 KB of
-// shared memory each with a bf16 mask at hd 64; an f32 mask's tiles take
-// 90 KB, so K13b runs 2).
+//   dbias kernel, a block per (query tile x key tile, head, chunk of
+//     sequences): S and dP once more (2 products) for each sequence of the
+//     chunk, dS summed in f32 registers in the chunk's order into the
+//     chunk's slice of a scratch buffer, then sum_chunks adds the slices
+//     in chunk order.  dbias is the same on every run; no atomics, and no
+//     [N, 64] f32 accumulator in shared memory (which folding dS into the
+//     dk/dv kernel would need, at one block an SM).
+// All recompute s and p from lse.  The ragged edge (N = 245, Npad = 248)
+// is zero-filled by the copies' source size and predicated: p = 0 for a
+// row or key >= N (never by -inf arithmetic), and rows >= N are never
+// stored (in the packed slab they are the next sequence's); a warp whose
+// 16 rows all lie past N skips its products.  The dq and dbias kernels
+// form S as the forward forms it (the same mma_abt, Q against a key tile,
+// scaled in f32 after the product): the same bits, so their p differs from
+// the forward's only through lse against the forward's running max; the
+// dk/dv kernel forms S^T, equal up to the order of the tensor cores' sums.
+// The tile helpers are mma_tile.cuh's.  Registers are cut to 168 a thread,
+// so 3 blocks (12 warps) share an SM.
 #include "attention_tc.cuh"
 #include "mma_tile.cuh"
 
@@ -514,24 +502,12 @@ int launch_row_dot(const lvt::RowDot& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// A bias (K8b) comes with a bf16 mask or none and no dropout.
-template <int HD, typename M>
-int launch_drop(const lvt::TcBwd& a, cudaStream_t stream) {
-  if (a.bias != nullptr) {
-    if constexpr (sizeof(M) == 2)
-      if (a.seed == nullptr) return launch<HD, M, false, true>(a, stream);
-    return (int)cudaErrorInvalidValue;
-  }
-  return a.seed != nullptr ? launch<HD, M, true, false>(a, stream)
-                           : launch<HD, M, false, false>(a, stream);
-}
-
-template <typename M>
+// The bias's instances alone (K8b): a bf16 mask or none, no dropout.
 int launch_hd(const lvt::TcBwd& a, int hd, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_drop<16, M>(a, stream);
-    case 32: return launch_drop<32, M>(a, stream);
-    case 64: return launch_drop<64, M>(a, stream);
+    case 16: return launch<16, bf16, false, true>(a, stream);
+    case 32: return launch<32, bf16, false, true>(a, stream);
+    case 64: return launch<64, bf16, false, true>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -545,11 +521,11 @@ int lvt::attention_bwd_tc(const TcBwd& call, int hd, bool mask_f32, cudaStream_t
   if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.nW <= 0 || a.nSeq % a.nW != 0 ||
       (long long)a.nSeq * a.nH > 0x7fffffffLL || a.N > 65535 || a.dd == nullptr)
     return (int)cudaErrorInvalidValue;
-  if (a.bias != nullptr &&
-      (a.dbias == nullptr || a.part == nullptr || a.nChunks < 1 || a.nChunks > a.nSeq ||
-       a.nChunks > 65535 || a.nH > 65535))
+  if (a.bias == nullptr || mask_f32 || a.seed != nullptr || a.dbias == nullptr ||
+      a.part == nullptr || a.nChunks < 1 || a.nChunks > a.nSeq || a.nChunks > 65535 ||
+      a.nH > 65535)
     return (int)cudaErrorInvalidValue;
-  return mask_f32 ? launch_hd<float>(a, hd, stream) : launch_hd<bf16>(a, hd, stream);
+  return launch_hd(a, hd, stream);
 }
 
 int lvt::sum_chunks(const float* part, float* out, int nChunks, size_t n, cudaStream_t stream) {

@@ -14,8 +14,9 @@ its affine, optionally gathering its rows, in scalar or 16-byte-chunk
 loads, attention core (on the tensor cores, the
 packed slab or strided heads-layout q, k, v, with a per-head bias, a
 per-window mask whose rows may be padded or a key-keep vector, with
-dropout and the rows' log-sum-exp where asked) and its backward (with the
-bias's gradient), both with optional dropout,
+dropout and the rows' log-sum-exp where asked) and its backwards (wgmma +
+TMA without a bias, mma.sync with the bias's gradient), both with optional
+dropout,
 row permutation, and a probe of the dropout hash) are what the ports of
 the TPU kernels are composed from, see ``swin_block_attn.py``,
 ``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
@@ -70,10 +71,11 @@ _SIGNATURES = {
     "lvt_window_attention_bf16": [_P, _P, _P, _P, _STRIDES, _P, _I, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _F, _P],
     "lvt_attention_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                               _I, _I, _I, _I, _F, *_DROP, *_HEADS, _P],
+                               _I, _I, _I, _I, _F, *_DROP, *_HEADS, _P, _P,
+                               _P],
     "lvt_attention_heads_bwd_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                      _P, _STRIDES, _I, _I, _I, _I, _I, _F,
-                                     *_DROP, *_HEADS, _P],
+                                     *_DROP, *_HEADS, _P, _P, _P],
     "lvt_attention_row_dot_bf16": [_P, _P, _STRIDES, _P, _I, _I, _I, _I, _P],
     "lvt_ffn_post_ln_bf16": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                              _I, _I, _I, _F, _P],
@@ -714,6 +716,92 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+# the wgmma backward's tile (csrc/attention_bwd_wgmma.cu kT): 64 keys a
+# CTA, 64 queries a step of its sweep
+ATTN_BWD_TILE = 64
+
+
+class AttnBwdPlan(NamedTuple):
+    tiles: int      # T: 64-row key tiles of a sequence (as many query tiles)
+    ctas: int       # one a (key tile, sequence, head), two an SM
+    stages: int     # query tiles in the ring
+    smem: int       # dynamic shared memory a CTA, bytes
+    acc_bytes: int  # the f32 dQ sums, T x 64 x hd a (sequence, head); 0 at
+    #                 T = 1
+    sems: int       # int32 turn counters, one a (sequence, head, query
+    #                 tile); 0 at T = 1
+
+
+def attention_bwd_plan(n_seq: int, n_tok: int, n_heads: int, hd: int,
+                       mask_f32: bool, strides=(), ptrs=(),
+                       sms: int = H100_SMS) -> AttnBwdPlan:
+    """The launch of the wgmma + TMA backward of K10b / K13b
+    (``csrc/attention_bwd_wgmma.cu``) on n_seq sequences of n_tok tokens
+    and n_heads heads of hd, as its C entry sizes it: key tiles, CTAs, the
+    ring's stages, shared memory, the dQ sums' scratch and the turn
+    counters (both unused at one tile).  ``strides``: the element strides
+    the kernel steps (the operands' sequence, head and row strides whose
+    extent is over 1), ``ptrs``: the operands' addresses.  Raises where
+    the kernel does not run: hd outside {16, 32, 64}, a stride that is no
+    multiple of 8 elements or a pointer that is not 16-byte aligned (the
+    tensor maps' rule), more key tiles than two CTAs on each of ``sms``
+    SMs (a key tile's CTA waits on the next one's, so all must be resident
+    at once).  Pure arithmetic."""
+    if hd not in (16, 32, 64):
+        raise ValueError(f"attention backward: head dim {hd} unsupported "
+                         "(16/32/64)")
+    bad = [st for st in strides if st % 8]
+    if bad:
+        raise ValueError(f"attention backward: strides {bad} are not "
+                         "multiples of 8 elements (16 bytes)")
+    bad = [hex(pt) for pt in ptrs if pt % 16]
+    if bad:
+        raise ValueError(f"attention backward: pointers {bad} are not "
+                         "16-byte aligned")
+    tiles = -(-n_tok // ATTN_BWD_TILE)
+    if tiles > 2 * sms:
+        raise ValueError(f"attention backward: {n_tok} tokens make {tiles} "
+                         f"key tiles, more than the {2 * sms} CTAs the card "
+                         "holds at once")
+    stages = 2
+    tile = ATTN_BWD_TILE * 2 * hd
+    mask = ATTN_BWD_TILE * (ATTN_BWD_TILE * (4 if mask_f32 else 2) + 16)
+    # K, V, each stage's Q and G, dS^T, dQ_t's f32 hand-off, each stage's
+    # mask tile and lse / D rows, 1 KB to align
+    smem = ((2 + 2 * stages) * tile + ATTN_BWD_TILE * 128
+            + ATTN_BWD_TILE * hd * 4 + stages * (mask + 2 * ATTN_BWD_TILE * 4)
+            + 1024)
+    pairs = n_seq * n_heads
+    acc = pairs * tiles * ATTN_BWD_TILE * hd * 4 if tiles > 1 else 0
+    return AttnBwdPlan(tiles, pairs * tiles, stages, smem, acc,
+                       pairs * tiles if tiles > 1 else 0)
+
+
+# the wgmma backward's turn counters per (device, stream): int32, 0 between
+# calls (each call's last adder of a tile resets its counter), grown on demand
+_sem_bufs: dict = {}
+
+
+def _bwd_scratch(x: torch.Tensor, stream: int, plan: AttnBwdPlan):
+    """(acc, sem) addresses of the wgmma backward's scratch for ``plan``
+    on x's device (both None at one key tile)."""
+    if plan.sems == 0:
+        return None, None
+    key = (x.get_device(), stream)
+    sem = _sem_bufs.get(key)
+    if sem is None or sem.numel() < plan.sems:
+        with torch.inference_mode(False):
+            sem = _sem_bufs[key] = torch.zeros(plan.sems, dtype=torch.int32,
+                                               device=x.device)
+    return _scratch(x, stream, plan.acc_bytes), sem.data_ptr()
+
+
+def _stepped(extents, *strides) -> tuple:
+    """The strides of (sequence, head, row) triples whose extent is over 1."""
+    return tuple(st for triple in strides for st, n in zip(triple, extents)
+                 if n > 1)
+
+
 def _row_dot(out: Optional[torch.Tensor], dout: torch.Tensor,
              what: str) -> torch.Tensor:
     """D = rowsum(out * dout) in f32 [S, nH, L] of heads-layout out and dout
@@ -745,11 +833,11 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Returns (dq, dk, dv) contiguous [B, nH, L, hd] bf16 and, with
     ``dmask``, the f32 [B, L, L] sum over heads of the scores' gradient
     (the same on every run: per-chunk partial sums, then one pass adding
-    them), else None.  Without ``dmask`` the tensor-core kernels run
-    (``csrc/attention_bwd_tc.cu``) and need the forward's output ``out``
-    [B, nH, L, hd] (for D = rowsum(out * dout)); with it the f32-pipe
-    kernel.  ``head0`` and ``heads_total``: the dropout's stream, as the
-    forward's."""
+    them), else None.  Without ``dmask`` the wgmma + TMA kernel runs
+    (``csrc/attention_bwd_wgmma.cu``, as ``attention_bwd_plan`` sizes it)
+    and needs the forward's output ``out`` [B, nH, L, hd] (for D =
+    rowsum(out * dout)); with it the f32-pipe kernel.  ``head0`` and
+    ``heads_total``: the dropout's stream, as the forward's."""
     _heads_operands((q, k, v, dout), ("q", "k", "v", "dout"),
                     "attention_heads_bwd")
     B, nH, L, hd = q.shape
@@ -758,9 +846,17 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, q.device)
     dq, dk, dv = (torch.empty(B, nH, L, hd, dtype=q.dtype, device=q.device)
                   for _ in range(3))
+    acc = sem = None
     if not dmask:
         n_chunks, dm = nH, None
+        outs = (dq, dk, dv)
+        plan = attention_bwd_plan(
+            B, L, nH, hd, True,
+            _stepped((B, nH, L), *(t.stride()[:3] for t in (q, k, v, dout,
+                                                             *outs))),
+            tuple(t.data_ptr() for t in (q, k, v, dout, *outs, mask)))
         part = _row_dot(out, dout, "attention_heads_bwd")
+        acc, sem = _bwd_scratch(q, _stream(q), plan)
     else:
         # one block per (sequence, chunk of heads): enough chunks for two
         # blocks per SM, each summing its heads into its own f32 slice
@@ -773,8 +869,8 @@ def attention_heads_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lse.data_ptr(), mask.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), _ptr(dm), _ptr(part),
         _strides(q, k, v, dout, dq, dk, dv), B, L, nH, hd, n_chunks,
-        float(scale), seed_ptr, thresh, drop_scale, head0, heads_total,
-        _stream(q))
+        float(scale), seed_ptr, thresh, drop_scale, head0, heads_total, acc,
+        sem, _stream(q))
     _raise_on(err, "lvt_attention_heads_bwd_bf16")
     return dq, dk, dv, dm
 
@@ -819,7 +915,10 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   seed: Optional[torch.Tensor] = None, rate: float = 0.0,
                   head0: int = 0, heads_total: int = 0):
     """Backward of ``attention`` with ``lse`` (no keep vector), on the
-    tensor cores (``csrc/attention_bwd_tc.cu``).
+    tensor cores: without a bias (K10b) the wgmma + TMA kernel
+    (``csrc/attention_bwd_wgmma.cu``, launched as ``attention_bwd_plan``
+    sizes it), with one (K8b) the mma.sync kernels
+    (``csrc/attention_bwd_tc.cu``).
 
     qkv [n_seq * N, 3C], dout and the forward's output ``out`` [n_seq * N,
     C] (bf16; D = rowsum(out * dout)), lse the forward's f32 [n_seq, nH,
@@ -843,8 +942,19 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     def heads(t):
         return t.view(n_seq, n_tok, n_heads, hd).transpose(1, 2)
     dd = _row_dot(heads(out), heads(dout), "attention_bwd")
-    n_chunks, dbias, part = 1, None, None
-    if bias is not None:
+    n_chunks, dbias, part, acc, sem = 1, None, None, None, None
+    if bias is None:  # K10b: the wgmma kernel
+        slab, cols = (n_tok * 3 * C, hd, 3 * C), (n_tok * C, hd, C)
+        e = qkv.element_size()
+        plan = attention_bwd_plan(
+            n_seq, n_tok, n_heads, hd, False,
+            _stepped((n_seq, n_heads, n_tok), slab, cols),
+            (qkv.data_ptr(), qkv.data_ptr() + C * e,
+             qkv.data_ptr() + 2 * C * e, dout.data_ptr(), dqkv.data_ptr(),
+             dqkv.data_ptr() + C * e, dqkv.data_ptr() + 2 * C * e)
+            + (() if mask is None else (mask.data_ptr(),)))
+        acc, sem = _bwd_scratch(qkv, _stream(qkv), plan)
+    else:
         # dbias: one block per (64 x 64 tile, head, chunk of sequences), each
         # chunk summed into its own f32 slice, then the slices added in order
         # (no atomics: the same bits on every run); about 4 waves of 3
@@ -859,7 +969,7 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
         qkv.data_ptr(), dout.data_ptr(), lse.data_ptr(), dd.data_ptr(),
         _ptr(bias), _ptr(mask), dqkv.data_ptr(), _ptr(dbias), _ptr(part),
         n_seq, n_tok, n_heads, hd, n_win, n_chunks, float(scale), seed_ptr,
-        thresh, drop_scale, head0, heads_total, _stream(qkv))
+        thresh, drop_scale, head0, heads_total, acc, sem, _stream(qkv))
     _raise_on(err, "lvt_attention_bwd_bf16")
     return dqkv, dbias
 

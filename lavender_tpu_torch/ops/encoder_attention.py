@@ -63,11 +63,14 @@ train route's attention o = (m * softmax(q k^T * scale + max(mask, -1e4)))
 v on q, k, v in lanes layout [B, L, C] (head h = columns h*hd..), with
 dropout m on the probabilities drawn from ``seed`` by the counter hash of
 ``dropout.py``, and its vjp, which regenerates m from the seed.  On the
-card both run on the tensor cores (mma.sync tiles): the forward in
-``csrc/attention_fwd_tc.cu`` (FlashAttention-2's forward, the online
-softmax on the accumulator fragments), the backward in
-``csrc/attention_bwd_tc.cu`` (D = rowsum(o * g) from the forward's output,
-as FlashAttention-2 forms it), both on the packed qkv slab [B*L, 3C]: where
+card both run on the tensor cores: the forward in
+``csrc/attention_fwd_tc.cu`` (FlashAttention-2's forward on mma.sync
+tiles, the online softmax on the accumulator fragments), the backward in
+``csrc/attention_bwd_wgmma.cu`` (D = rowsum(o * g) from the forward's
+output, as FlashAttention-2 forms it; then one CTA a 64-key tile sweeping
+the query tiles, Q and G by TMA, five wgmma products a tile pair, dQ
+summed across the key tiles in a fixed order), both on the packed qkv
+slab [B*L, 3C]: where
 q, k and v are column views of one such slab (the model's single qkv
 GEMM) it is passed without a copy.  The forward writes each row's
 log-sum-exp of the undropped scores; the backward takes it, the output
@@ -82,7 +85,7 @@ wrapper ``fused_encoder_attention_train`` :670) and
 (K13b, :555, ``_train_bwd`` :696): the same train attention and vjp on q,
 k, v in heads layout [B, nH, L, hd], which the fusion encoder runs under
 ``LVT_ATTNLANES=0``.  On the card: the same tensor-core forward and
-backward, each operand read by its own
+wgmma backward, each operand read by its own
 (sequence, head, row) strides (strided views of one qkv product in place),
 under the f32 [B, L, L] mask that forward and backward both read (never a
 bf16 copy: its -1e4 would round), with the bits of K10's hash at the logical

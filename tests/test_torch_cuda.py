@@ -35,10 +35,12 @@ kernels and equal to ``dropout.attention_keep`` bit for bit, and the raise
 on what the K13 kernels do not take (and K7 at L = 1000); K1 launched
 outside autograd under bf16 autocast on f32 inputs (a model in ``eval()``
 mode over f32 weights), cast as its autograd Function casts; the
-tensor-core backward of K10b / K13b at lengths across its 64-row tiles
-(1 to 276), head dims 16/32/64, the packed slab, heads views and
-contiguous heads, rates 0 / 0.1 / 0.5, padded-key and seq2seq masks with
-a fully masked row, each call repeated and bitwise equal; the same for
+wgmma backward of K10b / K13b at lengths across its 64-row tiles (1 to
+751), head dims 16/32/64, the packed slab, heads views and contiguous
+heads, rates 0 / 0.1 / 0.5 and a head offset, padded-key and seq2seq
+masks with a fully masked row and keys masked inside the sequence, each
+call repeated and bitwise equal, and its keep bits read back against
+``dropout.attention_keep``; the same for
 the tensor-core forward of K10a / K13a (1 to 1000 tokens), its output,
 its lse against an f64 logsumexp and its keep masks at rates 0.1 and 0.5;
 and the tensor-core Swin window core K8a / K8b (per-head bias, dbias) at
@@ -1187,18 +1189,33 @@ def _train_bwd_masks(B, L):
     return {"padded keys": pad, "seq2seq": s2s}
 
 
-@pytest.mark.parametrize("L", [1, 17, 63, 64, 65, 275, 276])
+def _inner_keys_mask(B, L):
+    """The SwinBERT mask's shape: keys 0, 50, 100, .. masked (at
+    finfo(f32).min) for every query, inside the sequence, and sequence 1's
+    last sixth of keys padded."""
+    big_neg = torch.finfo(torch.float32).min
+    m = torch.zeros(B, L, L, device="cuda")
+    m[:, :, ::50] = big_neg
+    m[1 % B, :, L - L // 6:] = big_neg
+    return m
+
+
+@pytest.mark.parametrize("L", [1, 17, 63, 64, 65, 127, 128, 129, 275, 276,
+                               320, 751])
 @pytest.mark.parametrize("hd", [16, 32, 64])
 @pytest.mark.parametrize("layout", ["packed", "heads views", "heads"])
 def test_train_attention_bwd_tensor_cores_match_plain(gen, L, hd, layout):
     """K10b (the packed slab, bf16 mask) and K13b without dmask (heads
-    views of a slab or contiguous heads, f32 mask) on the tensor-core
-    kernels: at lengths that cross the 64-row tiles' edges, each head dim,
-    rates 0, 0.1 and 0.5, a padded-key and a seq2seq mask with a fully
-    masked row: dq, dk and dv each against the plain version, and a second
-    call bitwise equal (no atomics).  At L = 1 dq and dk are exactly 0 (a
-    softmax over one key has no gradient), both sides round to ~1e-8, and
-    only their largest error is held to the bound."""
+    views of a slab or contiguous heads, f32 mask) on the wgmma kernel: at
+    lengths that cross the 64-row tiles' edges (and 127-129, 320, Swin-L's
+    751), each head dim, rates 0, 0.1 and 0.5, a padded-key and a seq2seq
+    mask with a fully masked row and keys masked inside the sequence
+    (SwinBERT's 0, 50, ..), at rate 0.1 also on heads 1-2 of 4 (a
+    tensor-parallel rank's head offset): dq, dk and dv each against the
+    plain version, and a second call bitwise equal (no atomics).  At L = 1
+    dq and dk are exactly 0 (a softmax over one key has no gradient), both
+    sides round to ~1e-8, and only their largest error is held to the
+    bound."""
     B, nH = 3, 2
     C = nH * hd
     scale = hd ** -0.5
@@ -1214,30 +1231,78 @@ def test_train_attention_bwd_tensor_cores_match_plain(gen, L, hd, layout):
         q, k, v = (t.view(B, L, nH, hd).transpose(1, 2).contiguous()
                    for t in slab.split(C, dim=-1))
         g = g.view(B, L, nH, hd).transpose(1, 2).contiguous()
-    for kind, mask in _train_bwd_masks(B, L).items():
-        for rate in (0.0, 0.1, 0.5):
+    masks = {**_train_bwd_masks(B, L), "inner keys": _inner_keys_mask(B, L)}
+    runs = [(r, {}) for r in (0.0, 0.1, 0.5)] + [
+        (0.1, {"head0": 1, "heads_total": 4})]
+    for kind, mask in masks.items():
+        for rate, heads in runs:
             lse = torch.empty(B, nH, L, device="cuda")
             if layout == "packed":
                 m = mask.clamp_min(-1e4).to(torch.bfloat16)
                 o = _build.attention(slab.view(B * L, 3 * C), B, L, nH, scale,
-                                     mask=m, lse=lse, seed=seed, rate=rate)
+                                     mask=m, lse=lse, seed=seed, rate=rate,
+                                     **heads)
                 op, args = encoder_attention_train_lanes_bwd, (
                     q, k, v, m, seed, g, scale, rate, nH)
                 o = o.view(B, L, C)
             else:
                 o = _build.attention_heads(q, k, v, mask.clamp_min(-1e4),
                                            scale, lse=lse, seed=seed,
-                                           rate=rate)
+                                           rate=rate, **heads)
                 op, args = encoder_attention_train_bwd, (
                     q, k, v, mask, seed, g, scale, rate)
             before = op.launches
-            got = op(*args, lse=lse, o=o)[:3]
-            again = op(*args, lse=lse, o=o)[:3]
+            got = op(*args, lse=lse, o=o, **heads)[:3]
+            again = op(*args, lse=lse, o=o, **heads)[:3]
             assert op.launches == before + 2
-            want = op.plain(*args, lse=lse, o=o)[:3]
+            want = op.plain(*args, lse=lse, o=o, **heads)[:3]
             for name, a, b, c in zip(("dq", "dk", "dv"), got, again, want):
-                assert torch.equal(a, b), (kind, rate, name)
+                assert torch.equal(a, b), (kind, rate, heads, name)
                 _close(a, c, rel_l2=5e-2 if L > 1 or name == "dv" else None)
+
+
+@pytest.mark.parametrize("layout", ["packed", "heads views"])
+@pytest.mark.parametrize("head0,heads_total", [(0, 0), (2, 5)])
+def test_train_attention_bwd_keep_bits(gen, layout, head0, heads_total):
+    """The keep bits the wgmma backward regenerates, read back exactly and
+    equal to ``dropout.attention_keep`` (the forward's): with q = k = 0
+    every probability is 1 / L, and g one-hot in query i = off + d puts
+    m * p of (query i, key j) at dv[j, d], 0 where dropped.  L = 200 (four
+    key tiles, the last ragged), rate 0.5, with and without a head
+    offset."""
+    B, nH, hd, L, rate = 2, 3, 64, 200, 0.5
+    C = nH * hd
+    seed = torch.tensor([97531], device="cuda")
+    slab = torch.zeros(B, L, 3 * C, dtype=torch.bfloat16, device="cuda")
+    mask = torch.zeros(B, L, L, device="cuda")
+    heads = {"head0": head0, "heads_total": heads_total}
+    want = dropout.attention_keep(seed, B, nH, L, rate, head0, heads_total)
+    got = torch.zeros_like(want)
+    for off in range(0, L, hd):
+        n = min(hd, L - off)
+        gh = torch.zeros(B, nH, L, hd, dtype=torch.bfloat16, device="cuda")
+        gh[:, :, off:off + n].copy_(torch.eye(n, hd, device="cuda"))
+        lse = torch.empty(B, nH, L, device="cuda")
+        if layout == "packed":
+            q, k, v = slab.split(C, dim=-1)
+            m = mask.to(torch.bfloat16)
+            o = _build.attention(slab.view(B * L, 3 * C), B, L, nH, 1.0,
+                                 mask=m, lse=lse, seed=seed, rate=rate,
+                                 **heads).view(B, L, C)
+            g = gh.transpose(1, 2).reshape(B, L, C)
+            dv = encoder_attention_train_lanes_bwd(
+                q, k, v, m, seed, g, 1.0, rate, nH, lse=lse, o=o,
+                **heads)[2].view(B, L, nH, hd).transpose(1, 2)
+        else:
+            q, k, v = slab.view(B, L, 3, nH, hd).permute(2, 0, 3, 1, 4)
+            o = _build.attention_heads(q, k, v, mask, 1.0, lse=lse,
+                                       seed=seed, rate=rate, **heads)
+            dv = encoder_attention_train_bwd(
+                q, k, v, mask, seed, gh, 1.0, rate, lse=lse, o=o,
+                **heads)[2]
+        # dv[b, h, j, d] = m * p of (query off + d, key j)
+        got[..., off:off + n, :] = (dv[..., :n] > 0).transpose(-1, -2)
+    assert torch.equal(got, want)
 
 
 def _train_fwd_operands(gen, B, L, nH, hd, layout):

@@ -67,14 +67,16 @@ nothing is ever run on the CPU instead:
    scaled_dot_product_attention with the bias and mask rows at 248
    elements, and the whole call's device time beside its parts' sum;
    first in the phase, from the library's SASS, that every instance of the
-   wgmma backward of K10b / K13b runs its products as HGMMA and its Q, G,
-   K and V loads as UTMALDG (the TMA), with no HMMA, and that the mma.sync
-   dq and dk/dv kernels remain only as K8b's bias instances; then by
-   kernel name under torch.profiler, that K14a, K14f, K16 and K12 launch
-   the tile GEMM (K14 and K16 also the chunk LN and the tensor-core
-   forward), K10b and K13b the wgmma backward, and none of them a wmma
-   GEMM, f32-pipe core (both gone), scalar LN or mma.sync dq / dk/dv
-   kernel; K10b's and K13b's counted cases (and Swin-L's K10b) also list
+   wgmma backward of K10b / K13b and K8b, of K8b's dbias kernel and of
+   K8a's wgmma forward runs its products as HGMMA and its tile loads as
+   UTMALDG (the TMA), with no HMMA, and that no mma.sync dq, dk/dv or
+   dbias kernel is left; then by kernel name under torch.profiler, that
+   K14a, K14f, K16 and K12 launch the tile GEMM (K14 and K16 also the
+   chunk LN and the tensor-core forward), K10b and K13b the wgmma
+   backward, K8a the wgmma forward (not the mma.sync one), K8b the wgmma
+   backward, its dbias kernel and the chunks' sum, and none of them a
+   wmma GEMM, f32-pipe core (both gone), scalar LN or mma.sync dq / dk/dv
+   / dbias kernel; K10b's and K13b's counted cases (and Swin-L's K10b) also list
    their device activities and those of SDPA's backward by name;
    K4 and K5 at the KV decoder's prefill (L=250) and K5 at its step (M=8
    rows), K5 each call repeated and required bitwise equal; K2 and K5
@@ -113,7 +115,7 @@ nothing is ever run on the CPU instead:
    ``dropout.attention_keep``, and
    their outputs equal to bf16 rounding; K13's one-call yardstick is
    scaled_dot_product_attention with the float mask and dropout_p (and
-   its backward); K8a and K8b (the Swin window core on the tensor cores,
+   its backward); K8a and K8b (the Swin window core on wgmma + TMA,
    its per-head bias and dbias) each call repeated and required bitwise
    equal, the lse K8a writes against the f64 logsumexp of the plain scores
    (within 1e-3) at every stage, shifted and unshifted, and at the spatial
@@ -332,6 +334,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1424,8 +1427,8 @@ def _train_fwd_lse(g):
 
 
 def _swin_core_lse_and_dbias(g):
-    """K8a's row log-sum-exp (the tensor-core forward with the per-head
-    bias) against torch.logsumexp of the plain scores q k^T * scale + bias
+    """K8a's row log-sum-exp (the wgmma forward with the per-head bias)
+    against torch.logsumexp of the plain scores q k^T * scale + bias
     + mask in f64, at the train step's B=8 at every Swin-B stage, shifted
     and unshifted, and at the spatial route's unpadded N = 245 (stages 1
     and 3, shifted): max |lse - want| <= 1e-3 and a second call bitwise
@@ -2176,17 +2179,20 @@ def _k16_parts(g):
 
 def _kernel_names(g, only=None):
     """One call each of K14a and K14f (B=4, Swin-B stage 1, shifted), K16
-    (B=4, stage 3), K12 (1,104 rows), K10b and K13b (64 pairs, L = 276)
-    under torch.profiler, those in ``only`` where given, first in phase 3
-    (the profiler's records thin out once a process has traced many
-    windows): their kernels' names must include the tile GEMM and (K14,
-    K16) the chunk LN and the tensor-core forward, (K12) the row kernel,
-    (K10b, K13b) the wgmma backward and the row-dot pass before it, and
+    (B=4, stage 3), K12 (1,104 rows), K10b and K13b (64 pairs, L = 276),
+    K8a and K8b (B=8, stage 1, shifted) under torch.profiler, those in
+    ``only`` where given, first in phase 3 (the profiler's records thin
+    out once a process has traced many windows): their kernels' names must
+    include the tile GEMM and (K14, K16) the chunk LN and the tensor-core
+    forward, (K12) the row kernel, (K10b, K13b) the wgmma backward and the
+    row-dot pass before it, (K8a) the wgmma forward, (K8b) the wgmma
+    backward, the row-dot pass, the dbias kernel and the chunks' sum, and
     none of the wmma GEMM (gemm_bf16_kernel) and the f32-pipe core
     (attention_kernel), both gone, the scalar LN (layernorm_bf16_kernel)
-    or the mma.sync dq and dk/dv kernels (K8b's alone).  A call is traced up
-    to three times, its names the union: a process's first traced window
-    has dropped the first kernel's record (the chunk LN of K14a)."""
+    or the mma.sync dq, dk/dv and dbias kernels (gone with K8b's move).  A
+    call is traced up to three times, its names the union: a process's
+    first traced window has dropped the first kernel's record (the chunk LN
+    of K14a)."""
     from lavender_tpu_torch.models.swin3d import (
         compute_shift_mask, relative_position_index)
     from lavender_tpu_torch.ops import _build
@@ -2195,7 +2201,10 @@ def _kernel_names(g, only=None):
     from lavender_tpu_torch.ops.fused_mlp import fused_ffn_post_ln_train
     from lavender_tpu_torch.ops.swin_block_attn import (
         fused_swin_block_attn, fused_swin_block_full,
-        fused_swin_block_wm_shifted, rel_pos_bias_rows)
+        fused_swin_block_wm_shifted, pad_window_mask, rel_pos_bias_rows,
+        rel_pos_bias_wm)
+    from lavender_tpu_torch.ops.swin_core_attn import (
+        swin_core_attn, swin_core_attn_bwd)
 
     _, _, C, nH, side, _ = SWIN_STAGES[0]
     window, shift = (5, 7, 7), (0, 3, 3)
@@ -2231,7 +2240,22 @@ def _kernel_names(g, only=None):
     out_h = _build.attention_heads(qh, kh, vh, mask_b, hdb ** -0.5,
                                    lse=lse_h, seed=seed, rate=0.1)
     dout_b = _rnd(g, Bp, Lb, Cb)
+    # K8a and K8b at B=8, stage 1, shifted (Npad = 248)
+    Np = 248
+    bias8 = rel_pos_bias_wm(_rnd(g, 15 * 13 * 13, nH),
+                            relative_position_index((8, 7, 7)), 245, Np,
+                            torch.bfloat16)
+    mask8 = pad_window_mask(torch.as_tensor(compute_shift_mask(
+        5, side, side, window, shift), device="cuda"), Np).to(torch.bfloat16)
+    nW8 = mask8.shape[0]
+    qkv8 = _rnd(g, TRAIN_BATCH, nW8, Np, 3 * C)
+    lse8 = torch.empty(TRAIN_BATCH * nW8, nH, Np, device="cuda")
+    out8 = _build.attention(qkv8.view(-1, 3 * C), TRAIN_BATCH * nW8, Np, nH,
+                            (C // nH) ** -0.5, bias=bias8, mask=mask8,
+                            lse=lse8).view(TRAIN_BATCH, nW8, Np, C)
+    dout8 = _rnd(g, TRAIN_BATCH, nW8, Np, C)
     need = ("tile_kernel", "layernorm_rows_kernel", "fwd_kernel")
+    avoid = {"K8a": ("fwd_kernel",)}  # the mma.sync forward: not K8a's now
     for kid, fn, want in (
             ("K14a", lambda: fused_swin_block_attn(*args, *statics), need),
             ("K14f", lambda: fused_swin_block_full(*args, *mlp, *statics),
@@ -2246,7 +2270,14 @@ def _kernel_names(g, only=None):
              ("bwd_wg_kernel", "row_dot_kernel")),
             ("K13b", lambda: encoder_attention_train_bwd(
                 qh, kh, vh, mask_b, seed, out_h, hdb ** -0.5, 0.1,
-                lse=lse_h, o=out_h), ("bwd_wg_kernel", "row_dot_kernel"))):
+                lse=lse_h, o=out_h), ("bwd_wg_kernel", "row_dot_kernel")),
+            ("K8a", lambda: swin_core_attn(qkv8, bias8, mask8, nH,
+                                           (C // nH) ** -0.5),
+             ("fwd_wg_kernel",)),
+            ("K8b", lambda: swin_core_attn_bwd(
+                qkv8, lse8, dout8, bias8, mask8, nH, (C // nH) ** -0.5,
+                out=out8), ("bwd_wg_kernel", "row_dot_kernel",
+                            "dbias_wg_kernel", "sum_chunks_kernel"))):
         if only and kid not in only:
             continue
         fn()  # warm: the first call builds the row index and the scratch
@@ -2259,7 +2290,9 @@ def _kernel_names(g, only=None):
                                             "attention_kernel",
                                             "layernorm_bf16_kernel",
                                             "bwd_dq_kernel",
-                                            "bwd_dkdv_kernel")
+                                            "bwd_dkdv_kernel",
+                                            "bwd_dbias_kernel",
+                                            *avoid.get(kid, ()))
                if old in n]
         missing = [p for p in want if not any(p in n for n in names)]
         print(f"[kernel] {kid} one call launches {len(names)} kernel(s): "
@@ -2270,12 +2303,15 @@ def _kernel_names(g, only=None):
 
 
 def _wgmma_sass():
-    """The SASS of the built library (cuobjdump, beside nvcc): each of the
-    12 instances of the fusion encoder's wgmma backward (K10b, K13b) runs
-    its products as HGMMA and loads Q, G, K and V by UTMALDG (the TMA),
-    with no HMMA (mma.sync); the mma.sync dq and dk/dv kernels are left
-    only as K8b's bias instances (template arguments DROP = false, BIAS =
-    true)."""
+    """The SASS of the built library (cuobjdump, beside nvcc): each
+    instance of the Hopper attention kernels, the backward of K10b / K13b
+    (12: hd 16 / 32 / 64, a bf16 or f32 mask, dropout or not) and of K8b
+    (6: its bias instances, template arguments DROP = false, BIAS = true,
+    the bias and mask tiles by TMA or by cp.async), K8b's dbias kernel (12:
+    hd, a mask or none, TMA or cp.async tiles) and K8a's forward (24: hd, a
+    mask or none, key blocks of 256 or 128, TMA or cp.async tiles), runs its products as HGMMA and loads its operands by
+    UTMALDG (the TMA), with no HMMA (mma.sync); and no mma.sync dq, dk/dv
+    or dbias kernel is left."""
     from lavender_tpu_torch.ops import _build
     from lavender_tpu_torch.sass_diff import functions
 
@@ -2285,24 +2321,27 @@ def _wgmma_sass():
         return sum(any(w == op or w.startswith(op + ".") for w in ln.split())
                    for ln in lines)
 
-    wg = {n: v for n, v in fns.items() if "bwd_wg_kernel" in n}
+    want = {"bwd_wg_kernel": 18, "dbias_wg_kernel": 12, "fwd_wg_kernel": 24}
+    wg = {n: v for n, v in fns.items() if any(k in n for k in want)}
     bad = [n for n, v in wg.items()
            if not count(v, "HGMMA") or not count(v, "UTMALDG")
            or count(v, "HMMA")]
-    mma = [n for n in fns if "bwd_dq_kernel" in n or "bwd_dkdv_kernel" in n]
-    stale = [n for n in mma if "Lb0ELb1EE" not in n]
+    found = {k: sum(k in n for n in wg) for k in want}
+    bias = sum(bool(re.search(r"bwd_wg_kernelILi\d+E13__nv_bfloat16Lb0ELb1E", n))
+               for n in wg)
+    mma = [n for n in fns if any(k in n for k in (
+        "bwd_dq_kernel", "bwd_dkdv_kernel", "bwd_dbias_kernel"))]
     for n, v in sorted(wg.items()):
         print(f"[sass] {n}: HGMMA {count(v, 'HGMMA')}, UTMALDG "
               f"{count(v, 'UTMALDG')}, HMMA {count(v, 'HMMA')}", flush=True)
-    print(f"[sass] the wgmma backward: {len(wg)} instances; the mma.sync dq "
-          f"and dk/dv kernels: {len(mma)} instances, {len(stale)} without "
-          "the bias", flush=True)
-    # hd 16 / 32 / 64, a bf16 or f32 mask, dropout or not
-    if len(wg) != 12 or bad or stale:
-        raise AssertionError(f"wgmma backward SASS: {len(wg)} instances, "
+    print(f"[sass] the wgmma attention kernels' instances: {found} ({bias} "
+          f"of the backward's with the bias); the mma.sync dq, dk/dv and "
+          f"dbias kernels: {len(mma)} instances", flush=True)
+    if found != want or bias != 6 or bad or mma:
+        raise AssertionError(f"wgmma attention SASS: instances {found} "
+                             f"(want {want}), {bias} with the bias; "
                              f"without HGMMA / UTMALDG or with HMMA {bad}; "
-                             f"mma.sync backward instances without the "
-                             f"bias {stale}")
+                             f"mma.sync backward instances {mma}")
 
 
 def _heads_tc_pitch(g):
@@ -2405,10 +2444,10 @@ def check_kernels(only=None, parts: bool = True):
     import itertools
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    if parts and (not only or only & {"K10b", "K13b"}):
+    if parts and (not only or only & {"K8a", "K8b", "K10b", "K13b"}):
         _wgmma_sass()
-    if parts and (not only or only & {"K12", "K14a", "K14f", "K16", "K10b",
-                                      "K13b"}):
+    if parts and (not only or only & {"K8a", "K8b", "K12", "K14a", "K14f",
+                                      "K16", "K10b", "K13b"}):
         _kernel_names(g, only)
     per_kernel = {}
     swinl = _swinl_cases(g) if not only or "SWINL" in only else ()
@@ -6437,9 +6476,9 @@ def main() -> int:
                "lavender_tpu/ops/encoder_attention.py:242"),
         "K7": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
                "lavender_tpu/ops/encoder_attention.py:75"),
-        "K8a": ("lavender_tpu_torch/csrc/attention_fwd_tc.cu",
+        "K8a": ("lavender_tpu_torch/csrc/attention_fwd_wgmma.cu",
                 "lavender_tpu/ops/swin_core_attn.py:112"),
-        "K8b": ("lavender_tpu_torch/csrc/attention_bwd_tc.cu",
+        "K8b": ("lavender_tpu_torch/csrc/attention_bwd_wgmma.cu",
                 "lavender_tpu/ops/swin_core_attn.py:147"),
         "K9": ("lavender_tpu_torch/csrc/blocks.cu",
                "lavender_tpu/ops/fused_mlp.py:91"),

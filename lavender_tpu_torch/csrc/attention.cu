@@ -1,13 +1,15 @@
 // The attention cores' C entries: the packed qkv slab [nSeq * N, 3C] that
 // the qkv GEMM writes (columns s*C + h*hd + d, the JAX qkv layout), the
 // heads layout (q, k, v [B, nH, N, hd] by their strides) and the per-window
-// layout, each handed to the tensor-core forward (attention_fwd_tc.cu).
+// layout, each handed to a tensor-core forward.
 //
-// Every caller runs there: the calls that write each row's log-sum-exp for
-// a backward (K10a, lavender_tpu/ops/encoder_attention.py
-// _enc_attn_train_lanes_kernel, and K13a, _enc_attn_train_kernel, with
-// dropout; the Swin window core K8a, lavender_tpu/ops/swin_core_attn.py
-// _core_fwd_kernel, with its per-head bias), the heads-layout calls
+// The Swin window core K8a (lavender_tpu/ops/swin_core_attn.py
+// _core_fwd_kernel: lse with its per-head bias) runs on the wgmma + TMA
+// forward of attention_fwd_wgmma.cu.  Every other caller runs on the
+// mma.sync forward of attention_fwd_tc.cu: the calls that write each row's
+// log-sum-exp for a backward without a bias (K10a,
+// lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_kernel, and
+// K13a, _enc_attn_train_kernel, with dropout), the heads-layout calls
 // without lse: K7 (encoder_attention.py _enc_attn_kernel, under an f32
 // [B, N, N] mask) and K15 (lavender_tpu/ops/window_attention.py
 // _attn_kernel, under a per-head bias and a per-window mask, bf16 or
@@ -50,11 +52,14 @@ int heads_tc(const void* q, const void* k, const void* v, void* out, const long 
 // N] f32 (each row's log-sum-exp of its scores), seed (int64 on the
 // device: dropout of the probabilities, element (i, j) kept iff its bits
 // >= thresh, kept ones scaled by drop_scale).  hd in {16, 32, 64}.  A call
-// with lse or tensor_cores != 0 runs on the tensor cores
-// (attention_fwd_tc.cu; nW must divide nSeq; no bias with dropout; keep
-// only without lse, dropout and bias): K10a with dropout, K8a with a bias,
-// K1 (tensor_cores) with a bias, K4 (tensor_cores) with keep; any other
-// call is refused (cudaErrorInvalidValue).  head0 and heads_total: the
+// with lse and a bias (K8a) runs on the wgmma + TMA forward
+// (attention_fwd_wgmma.cu: no dropout, a bf16 mask or none, the slab's
+// strides multiples of 8, pointers 16-byte aligned); any other call with
+// lse or tensor_cores != 0 on the mma.sync forward (attention_fwd_tc.cu;
+// nW must divide nSeq; no bias with dropout; keep only without lse,
+// dropout and bias): K10a with dropout, K1 (tensor_cores) with a bias, K4
+// (tensor_cores) with keep; any other call is refused
+// (cudaErrorInvalidValue).  head0 and heads_total: the
 // dropout stream of (sequence, head) is sequence * heads_total + head0 +
 // head (a tensor-parallel rank's own heads; heads_total 0: nH).
 LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, const void* mask,
@@ -75,6 +80,8 @@ LVT_EXPORT int lvt_attention_bf16(const void* qkv, void* out, const void* bias, 
   a.keep = static_cast<const uint8_t*>(keep);
   a.head0 = head0;
   a.heads_total = heads_total;
+  if (lse != nullptr && bias != nullptr)  // K8a
+    return lvt::attention_fwd_wgmma(a, hd, static_cast<cudaStream_t>(stream));
   return lvt::attention_fwd_tc(a, hd, false, static_cast<cudaStream_t>(stream));
 }
 

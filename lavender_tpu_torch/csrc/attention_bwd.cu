@@ -5,14 +5,13 @@
 //   dq = ds k * scale,  dk = ds^T q * scale,  dmask[b] = sum over heads of ds,
 // m the dropout factor of each probability.
 //
-// Every call on a model path runs on the tensor cores: lvt_attention_bwd_bf16
-// on the packed qkv slab without a bias (K10b,
-// lavender_tpu/ops/encoder_attention.py _enc_attn_train_lanes_bwd_kernel)
-// and lvt_attention_heads_bwd_bf16 without dmask (K13b,
-// _enc_attn_train_bwd_kernel) on the wgmma + TMA kernel of
-// attention_bwd_wgmma.cu, lvt_attention_bwd_bf16 with a bias (K8b,
-// lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel, with its dbias) on
-// the mma.sync kernels of attention_bwd_tc.cu.  The kernel below is K13b's dmask option
+// Every call on a model path runs on the wgmma + TMA kernels of
+// attention_bwd_wgmma.cu: lvt_attention_bwd_bf16 on the packed qkv slab
+// without a bias (K10b, lavender_tpu/ops/encoder_attention.py
+// _enc_attn_train_lanes_bwd_kernel) and with one (K8b,
+// lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel, with its dbias), and
+// lvt_attention_heads_bwd_bf16 without dmask (K13b,
+// _enc_attn_train_bwd_kernel).  The kernel below is K13b's dmask option
 // (the TPU kernel's; on no model path: the caller zeroes it where the mask
 // is <= -1e4): q, k, v, do, dq, dk and dv [B, nH, N, hd], each by its own
 // (sequence, head, row) strides, the f32 [B, N, N] mask the forward read,
@@ -324,11 +323,10 @@ int launch_drop(const void* q, const void* dout, const void* lse, const void* ma
 // unused without a bias: K10b).  seed (int64 on the device) or null: the
 // forward's dropout (bits >= thresh kept, scaled by drop_scale), never with
 // a bias; head0 and heads_total its stream, as lvt_attention_bf16's.  hd in
-// {16, 32, 64}.  Without a bias (K10b) the wgmma kernel
-// (attention_bwd_wgmma.cu) runs, with acc and sem its scratch (f32 [nSeq *
-// nH * T * 64 * hd] and int32 [nSeq * nH * T] at 0, T = ceil(N / 64));
-// with one (K8b) the mma.sync kernels (attention_bwd_tc.cu), acc and sem
-// unused.
+// {16, 32, 64}.  The wgmma kernels (attention_bwd_wgmma.cu) run, with acc
+// and sem their scratch (f32 [nSeq * nH * T * 64 * hd] and int32 [nSeq *
+// nH * T] at 0, T = ceil(N / 64)); with a bias (K8b) also the dbias kernel
+// over nChunks chunks of sequences and the chunks' sum.
 LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const void* lse,
                                       const void* dd, const void* bias, const void* mask,
                                       void* dqkv, void* dbias, void* part, int nSeq, int N,
@@ -352,10 +350,8 @@ LVT_EXPORT int lvt_attention_bwd_bf16(const void* qkv, const void* dout, const v
                static_cast<float*>(part), nChunks};
   a.head0 = head0;
   a.heads_total = heads_total;
-  if (bias == nullptr)
-    return lvt::attention_bwd_wgmma(a, static_cast<float*>(acc), static_cast<int*>(sem), hd,
-                                    false, static_cast<cudaStream_t>(stream));
-  return lvt::attention_bwd_tc(a, hd, false, static_cast<cudaStream_t>(stream));
+  return lvt::attention_bwd_wgmma(a, static_cast<float*>(acc), static_cast<int*>(sem), hd, false,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // The heads layout (K13b): q, k, v, dout -> dq, dk, dv, each [B, nH, N, hd]

@@ -1,29 +1,38 @@
-// The Hopper backward of the fusion encoder's train attention:
-//   s = q k^T * scale + mask,  p = exp(s - lse),  o = (m * p) v
+// The Hopper backwards of the fusion encoder's train attention and of the
+// Swin window core:
+//   s = q k^T * scale + bias[h] + mask,  p = exp(s - lse),  o = (m * p) v
 //   dv = (m * p)^T g,  dp = m * (g v^T),  ds = p * (dp - D),
 //   dq = ds k * scale,  dk = ds^T q * scale,
-// D = rowsum(o * g) from the forward's bf16 output (row_dot_kernel of
-// attention_bwd_tc.cu), m the dropout factor of each probability,
-// regenerated from the forward's seed by the counter hash of dropout.cuh
-// (stream dropout.cuh attention_stream(sequence, head, head0, heads_total),
-// index row * N + key), lse the forward's row log-sum-exp
-// (attention_fwd_tc.cu).
+//   dbias[h] = the sum of ds over every sequence (f32, from f32 ds),
+// D = rowsum(o * g) from the forward's bf16 output (row_dot_kernel below),
+// m the dropout factor of each probability, regenerated from the forward's
+// seed by the counter hash of dropout.cuh (stream dropout.cuh
+// attention_stream(sequence, head, head0, heads_total), index row * N +
+// key), lse the forward's row log-sum-exp (attention_fwd_tc.cu,
+// attention_fwd_wgmma.cu).
 //
 // Replaces lavender_tpu/ops/encoder_attention.py
 // _enc_attn_train_lanes_bwd_kernel (:780, K10b: q, k, v column slices of
 // the packed qkv slab [B*L, 3C], a bf16 [B, L, L] mask) and
 // _enc_attn_train_bwd_kernel (:555, K13b without the mask's gradient: q, k,
 // v and g [B, nH, L, hd] by their strides, the f32 [B, L, L] mask clamped
-// at -1e4), both with dropout, through the C entries of attention_bwd.cu.
-// It computes what they compute, not their blocks.
+// at -1e4), both with dropout and no bias, and
+// lavender_tpu/ops/swin_core_attn.py _core_bwd_kernel (:147, K8b: the
+// packed slab [B*nW*Npad, 3C] of the Swin backward's recompute, a bf16
+// rel-pos bias [nH, Npad, Npad] and its gradient dbias, a bf16 shift mask
+// [nW, Npad, Npad] or none, no dropout), through the C entries of
+// attention_bwd.cu.  It computes what they compute, not their blocks.
 //
 // Bound on the card: at the default train step (64 pairs, L = 276, 12
 // heads of 64) device memory, 200.5 MB (7 bf16 [B*L, C] slabs, the mask,
 // lse) = 0.060 ms at 3.35 TB/s against 37.4 GFLOP = 0.038 ms of products;
 // at Swin-L's L = 751 the products, 277 GFLOP = 0.280 ms at 989 TFLOP/s.
-// Under both sit about 30 instructions of softmax, dropout hash and
-// rounding for every score, which the card issues at 4 warp instructions a
-// clock an SM: at 64 x 64 tiles they take longer than the five products.
+// K8b at B = 8, Swin-B stage 1 shifted (512 windows of 248 rows, 4 heads
+// of 32): 7 slabs of C = 128 columns + lse, bias, dbias and mask, 239 MB =
+// 0.071 ms; 40.3 GFLOP.  Under both sit about 30 instructions of softmax,
+// dropout hash and rounding for every score (about 20 without the hash,
+// with the bias), which the card issues at 4 warp instructions a clock an
+// SM: at 64 x 64 tiles they take longer than the five products.
 //
 // Design.  A CTA owns one 64-key tile of one (sequence, head) and is one
 // warpgroup (128 threads, two key rows a thread), two CTAs an SM (up to 255
@@ -76,8 +85,25 @@
 // warpgroup 1's dQ_t before the hand-off: half the hand-offs and half the
 // query tiles' loads a key) was built and measured too, and ran slower at
 // L = 276 and at 751 (PERF.md).
-#include "attention_tc.cuh"
-#include "gemm_tc.cuh"
+//
+// K8b: the same kernel's BIAS instance, which stages each step's bias tile
+// (64 query rows x 64 keys of head h's [N, N]) beside its mask tile and
+// adds it before the mask in f32, as the forward does: both by TMA as 64 x
+// 64 boxes of 2-D maps in the 128-byte swizzle where the rows are 16-byte
+// aligned (N % 8 == 0: Npad = 248, 720), else by the loading warps'
+// 16-byte cp.async chunks (the spatial route's N = 245).  Then dbias, in a
+// kernel of its own: a CTA a (query tile, key tile, head, chunk of
+// sequences) forms S^T and dP^T once more on wgmma for each sequence of its
+// chunk (K, V, Q and G by TMA through a two-stage ring), p and ds = p * (dp
+// - D) in f32 exactly as the backward forms them, and sums ds in f32
+// registers in the chunk's order (window-major, so that the mask tile
+// changes only with the window); the chunks' slices are then added in
+// chunk order (sum_chunks).  Seven products in two launches where the
+// mma.sync kernels this replaces took nine in four; no atomics: the same
+// bits on every run.  Folding dbias into the backward would need a 64 x
+// Npad f32 partial in shared memory (63.5 KB at 248, 184 KB at 720): one
+// CTA an SM at Swin-B, none at Swin-L.
+#include "attention_wg.cuh"
 
 namespace lvt {
 
@@ -95,17 +121,24 @@ struct TcBwdWg {
   uint32_t thresh;
   float drop_scale, scale;
   int N, nH, nW, nT, head0, heads_total;
+  // K8b: the bf16 bias [nH, N, N] (head h reads bias[h]), and dbias's
+  // partial sums part [nChunks, nH, N, N] f32, chunk c summing the
+  // sequences [c * nSeq / nChunks, (c + 1) * nSeq / nChunks) in order
+  const bf16* bias;
+  float* part;
+  int nSeq, nChunks;
+  // K8b where the rows are 16-byte aligned (N % 8 == 0): the bias [nH N, N]
+  // and the mask [nW N, N] as 2-D maps of 64 x 64 boxes in the 128-byte
+  // swizzle, their tiles by TMA
+  CUtensorMap bm[2];
 };
 
 }  // namespace lvt
 
 namespace {
 
-using namespace lvt::tc;
 namespace wg = lvt::wg;
 
-constexpr int kT = 64;      // rows of a key tile and of a query tile
-constexpr int kCons = 128;  // the CTA: one warpgroup
 // Warps 0-2 load the query tiles' mask, lse and D rows; warp 3's lane 0
 // hands the dQ sums on (its fence then waits on no load of its own).
 constexpr int kLoaders = 96, kHander = 96;
@@ -113,151 +146,26 @@ constexpr int kLoaders = 96, kHander = 96;
 // The shared memory of one CTA: K, V, then Q and G of each stage (all in
 // the swizzle of their row width, 2 * HD bytes), the dS^T tile, dQ_t's f32
 // hand-off, the mask tile and the (lse, D) rows of each stage.
-template <int HD, typename M>
+template <int HD, typename M, bool BIAS, bool TMB>
 struct Smem {
   static constexpr int kStages = 2;
   static constexpr int kSw = 2 * HD;
   static constexpr int kTile = kT * kSw;
-  static constexpr int kMask = MaskTile<M>::kBytes;
+  // a mask or bias tile: by cp.async (a row 64 elements + 16 bytes) or by
+  // TMA (TMB: a 64 x 64 box in the 128-byte swizzle)
+  static constexpr int kMask = TMB ? kT * 128 : MaskTile<M>::kBytes;
+  static constexpr int kBiasTile = TMB ? kT * 128 : MaskTile<bf16>::kBytes;
   static constexpr int kLd = 2 * kT * 4;
   static constexpr int kQ = 2 * kTile;
   static constexpr int kDs = kQ + 2 * kStages * kTile;
   static constexpr int kHand = kDs + kT * 128;
   static constexpr int kMaskOff = kHand + kT * HD * 4;
   static constexpr int kLdOff = kMaskOff + kStages * kMask;
-  static constexpr size_t kBytes = kLdOff + kStages * kLd + 1024;  // + 1 KB to align
+  // BIAS: each stage's bias tile, a bf16 mask tile of head h's [N, N]
+  static constexpr int kBiasOff = kLdOff + kStages * kLd;
+  static constexpr size_t kBytes =
+      kBiasOff + (BIAS ? kStages * kBiasTile : 0) + 1024;  // + 1 KB to align
 };
-
-// wgmma's descriptor of a tile whose rows are sw bytes (128, 64 or 32) in
-// the swizzle of that width, its 8-row groups 8 * sw bytes apart.  K-major:
-// the product's depth along the row (the leading offset unused);
-// MN-major (mn): the depth down the rows, the leading offset being the
-// next swizzle atom along the row, which an operand one atom wide (64 x
-// 64, 32 or 16) never reaches: set to the group offset as well.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, int sw, bool mn) {
-  const uint64_t mode = sw == 128 ? 1 : (sw == 64 ? 2 : 3);
-  const uint64_t sbo = (uint64_t)(8 * sw) >> 4, lbo = mn ? sbo : 1;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (lbo << 16) | (sbo << 32) | (mode << 62);
-}
-
-// d (64 x N f32 of the warpgroup) += A (64 x 16) . B (16 x N): ss with A
-// and B in shared memory (TA / TB 1: MN-major), rs with A from registers
-// (the m16n8k16 A fragment of each warp's 16 rows); acc 0: d = A . B.
-template <int TA, int TB>
-__device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, %19, %20;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, %35, %36;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
-}
-
-template <int TB>
-__device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Tie registers to this point of the instruction stream: wgmma reads and
-// writes them asynchronously, until its wait_group.
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// The box of a 4-D tensor map at (c0, c1, c2, c3) by the TMA; its bytes
-// count towards the barrier.
-__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
 
 // The bulk copies of one 16-byte-aligned run shared -> global: a store, or
 // an f32 add performed in L2; committed as a group, waited for whole (their
@@ -284,13 +192,6 @@ __device__ __forceinline__ void bulk_wait() {
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// An arrival on the barrier once this thread's cp.async copies so far have
-// landed (its count includes it).
-__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
 __device__ __forceinline__ int ld_acquire(const int* p) {
   int v;
   asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
@@ -308,6 +209,7 @@ __device__ __forceinline__ float4 ld_cg(const float4* p) {
                : "memory");
   return v;
 }
+
 
 // The mask tile (64 query rows from r0 x 64 keys from c0 of window w) by
 // the loading threads (tid < kLoaders) in 16-byte copies: each row as the
@@ -334,14 +236,16 @@ __device__ __forceinline__ void load_mask_tile(uint32_t* s, const void* m, long 
   }
 }
 
-// p = exp2(s * scale * log2(e) + (mask - lse) * log2(e)) on the keys and
-// queries < N, 0 elsewhere, into sc; element 4n + 2r + c of the
-// accumulators is (key jr0 + 8r, query 8n + 2tq + c).  No branch: every
-// element's loads and ex2 issue back to back, and the edge is a select.
-template <typename M, bool MASK>
+// p = exp2(s * scale * log2(e) + (bias + mask - lse) * log2(e)) on the
+// keys and queries < N, 0 elsewhere, into sc; element 4n + 2r + c of the
+// accumulators is (key jr0 + 8r, query 8n + 2tq + c).  BIAS: the bias tile
+// cB (row lead blead0 of its first row), added before the mask in f32, as
+// the forward adds them.  No branch: every element's loads and ex2 issue
+// back to back, and the edge is a select.
+template <typename M, bool MASK, bool BIAS = false, bool TMB = false>
 __device__ __forceinline__ void probs(float (&sc)[32], const uint32_t* cM, const float* cL,
                                       int lead0, int i0, int j0, int jr0, int tq, int N,
-                                      float sl2) {
+                                      float sl2, const uint32_t* cB = nullptr, int blead0 = 0) {
   const bool kok[2] = {j0 + jr0 < N, j0 + jr0 + 8 < N};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
@@ -351,9 +255,18 @@ __device__ __forceinline__ void probs(float (&sc)[32], const uint32_t* cM, const
       const bool qok = i0 + ic < N;
       const float l2 = cL[ic] * kLog2e;
       const int lead = MASK ? (lead0 + ic * N * (int)sizeof(M)) & 15 : 0;
+      const int blead = BIAS ? (blead0 + ic * N * 2) & 15 : 0;
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const float b = MASK ? mask_in<M>(cM, ic, lead, jr0 + 8 * r) : 0.0f;
+        float b;
+        if constexpr (BIAS && TMB)
+          b = box_in(reinterpret_cast<const char*>(cB), ic, jr0 + 8 * r) +
+              (MASK ? box_in(reinterpret_cast<const char*>(cM), ic, jr0 + 8 * r) : 0.0f);
+        else if constexpr (BIAS)
+          b = mask_in<bf16>(cB, ic, blead, jr0 + 8 * r) +
+              (MASK ? mask_in<M>(cM, ic, lead, jr0 + 8 * r) : 0.0f);
+        else
+          b = MASK ? mask_in<M>(cM, ic, lead, jr0 + 8 * r) : 0.0f;
         const float pv = ex2(fmaf(sc[4 * n + 2 * r + c], sl2, fmaf(b, kLog2e, -l2)));
         sc[4 * n + 2 * r + c] = qok && kok[r] ? pv : 0.0f;
       }
@@ -362,10 +275,11 @@ __device__ __forceinline__ void probs(float (&sc)[32], const uint32_t* cM, const
 }
 
 // One (key tile, sequence, head) of the backward: blockIdx.x = (sequence *
-// nH + head) * T + key tile.
-template <int HD, typename M, bool DROP>
+// nH + head) * T + key tile.  BIAS (K8b): each step's bias tile beside its
+// mask tile (a bf16 mask or none, no dropout), both by TMA where TMB.
+template <int HD, typename M, bool DROP, bool BIAS, bool TMB = false>
 __global__ void __launch_bounds__(kCons, 2) bwd_wg_kernel(const __grid_constant__ lvt::TcBwdWg p) {
-  using L = Smem<HD, M>;
+  using L = Smem<HD, M, BIAS, TMB>;
   constexpr int ST = L::kStages, SW = L::kSw, R = HD / 2, V4 = HD / 8;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full[ST], kv_full;
@@ -381,8 +295,9 @@ __global__ void __launch_bounds__(kCons, 2) bwd_wg_kernel(const __grid_constant_
     for (int s = 0; s < ST; ++s) wg::mbar_init(&full[s], 1 + kCons);  // TMA + cp.async
     wg::mbar_init(&kv_full, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    for (int i = 0; i < 4; ++i)  // the tensor maps into the TMA unit's cache
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&p.x[i]))
+    for (int i = 0; i < (TMB ? 6 : 4); ++i)  // the tensor maps into the TMA unit's cache
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(
+                       i < 4 ? &p.x[i] : &p.bm[i - 4]))
                    : "memory");
   }
   __syncthreads();
@@ -390,20 +305,29 @@ __global__ void __launch_bounds__(kCons, 2) bwd_wg_kernel(const __grid_constant_
   // step s's query tile (Q and G by TMA, its mask tile, lse and D rows by
   // cp.async) into stage s % ST, all reported to its barrier
   const long long m_bytes = (long long)p.nW * N * N * (long long)sizeof(M);
+  const long long b_bytes = (long long)p.nH * N * N * 2;
   const float* lse_bh = p.lse + (size_t)bh * N;
   const float* dd_bh = p.dd + (size_t)bh * N;
   auto issue = [&](int s) {
     const int slot = s % ST, i0 = ((t + s) % nT) * kT;
     char* q = base + L::kQ + 2 * slot * L::kTile;
+    char* sMk = base + L::kMaskOff + slot * L::kMask;
+    char* sBk = base + L::kBiasOff + slot * L::kBiasTile;
     if (tid == 0) {
-      wg::mbar_expect(&full[slot], 2 * L::kTile);
+      wg::mbar_expect(&full[slot], 2 * L::kTile + (TMB ? (has_mask ? 2 : 1) * L::kBiasTile : 0));
       tma_load_4d(q, &p.x[0], &full[slot], 0, i0, h, seq);
       tma_load_4d(q + L::kTile, &p.x[3], &full[slot], 0, i0, h, seq);
+      if constexpr (TMB) {
+        wg::tma_load(sBk, &p.bm[0], &full[slot], j0, h * N + i0);
+        if (has_mask) wg::tma_load(sMk, &p.bm[1], &full[slot], j0, w * N + i0);
+      }
     }
     if (tid < kLoaders) {
-      if (has_mask)
-        load_mask_tile<M>(reinterpret_cast<uint32_t*>(base + L::kMaskOff + slot * L::kMask),
-                          p.mask, m_bytes, w, i0, j0, N, tid);
+      if (has_mask && !TMB)
+        load_mask_tile<M>(reinterpret_cast<uint32_t*>(sMk), p.mask, m_bytes, w, i0, j0, N, tid);
+      if constexpr (BIAS && !TMB)
+        load_mask_tile<bf16>(reinterpret_cast<uint32_t*>(sBk), p.bias, b_bytes, h, i0, j0, N,
+                             tid);
       float* ld = reinterpret_cast<float*>(base + L::kLdOff + slot * L::kLd);
       for (int c = tid; c < 2 * kT; c += kLoaders) {  // lse rows, then D rows
         const int r = c % kT;
@@ -464,10 +388,20 @@ __global__ void __launch_bounds__(kCons, 2) bwd_wg_kernel(const __grid_constant_
     }
     wgmma_wait<1>();
     fence_regs(sc);
-    if (has_mask)
+    if constexpr (BIAS) {
+      const uint32_t* cB =
+          reinterpret_cast<const uint32_t*>(base + L::kBiasOff + slot * L::kBiasTile);
+      const int blead0 = TMB ? 0 : (int)(mask_byte<bf16>(h, i0, j0, N) & 15);
+      if (has_mask)
+        probs<M, true, true, TMB>(sc, cM, cL, TMB ? 0 : (int)(mask_byte<M>(w, i0, j0, N) & 15),
+                                  i0, j0, jr0, tq, N, sl2, cB, blead0);
+      else
+        probs<M, false, true, TMB>(sc, cM, cL, 0, i0, j0, jr0, tq, N, sl2, cB, blead0);
+    } else if (has_mask) {
       probs<M, true>(sc, cM, cL, (int)(mask_byte<M>(w, i0, j0, N) & 15), i0, j0, jr0, tq, N, sl2);
-    else
+    } else {
       probs<M, false>(sc, cM, cL, 0, i0, j0, jr0, tq, N, sl2);
+    }
     wgmma_wait<0>();
     fence_regs(dp);
     // m * p (into sc) and ds = p * (m * dp - D) (into dp), m from the hash
@@ -603,41 +537,201 @@ __global__ void __launch_bounds__(kCons, 2) bwd_wg_kernel(const __grid_constant_
   }
 }
 
-// The 4-D tensor map (hd, N, nH, nSeq) of one bf16 operand, row r of
-// (sequence s, head h) at ptr + s * st[0] + h * st[1] + r * st[2]
-// elements, boxes of 64 rows x hd in the swizzle of 2 * hd bytes; rows
-// past N zero-filled.  An extent-1 dimension is never stepped, so its
-// stride is replaced by a legal one.  False where the driver refuses it.
-bool head_map(CUtensorMap* map, const bf16* ptr, const long long (&st)[3], int nSeq, int nH, int N,
-              int hd) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      return false;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+
+// The shared memory of one dbias CTA: each stage's K, V, Q and G tiles (in
+// the swizzle of their row width), then each stage's mask tile and (lse, D)
+// rows, and the bias tile, which is the same for every sequence of a head.
+template <int HD, bool TMB>
+struct DbSmem {
+  static constexpr int kStages = 2;
+  static constexpr int kSw = 2 * HD;
+  static constexpr int kTile = kT * kSw;
+  static constexpr int kMask = TMB ? kT * 128 : MaskTile<bf16>::kBytes;
+  static constexpr int kLd = 2 * kT * 4;
+  static constexpr int kMaskOff = kStages * 4 * kTile;
+  static constexpr int kLdOff = kMaskOff + kStages * kMask;
+  static constexpr int kBiasOff = kLdOff + kStages * kLd;
+  static constexpr size_t kBytes = kBiasOff + kMask + 1024;  // + 1 KB to align
+};
+
+// dbias of K8b: one (query tile, key tile) of head h summed over a chunk of
+// sequences, blockIdx = (query tile * T + key tile, head, chunk).  The
+// sequences are taken window-major (k = w * (nSeq / nW) + b for sequence b
+// * nW + w), so that the mask tile changes only with the window, and the
+// chunks are runs of k.  For each sequence of the chunk in order: S^T = K
+// Q^T and dP^T = V G^T on wgmma, p as bwd_wg_kernel forms it (the same
+// bits), ds = p * (dp - D) in f32 added to the thread's 32 sums; then the
+// chunk's sums into its slice of part, which sum_chunks adds in chunk
+// order.  A two-stage ring brings the next sequence's K, V, Q and G by TMA
+// and its (lse, D) rows by cp.async while the current one multiplies, and
+// its mask tile where the stage held another window's; the bias tile comes
+// once.
+template <int HD, bool MASK, bool TMB>
+__global__ void __launch_bounds__(kCons, 2) dbias_wg_kernel(const __grid_constant__ lvt::TcBwdWg p) {
+  using L = DbSmem<HD, TMB>;
+  constexpr int ST = L::kStages, SW = L::kSw;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[ST];
+  char* base = reinterpret_cast<char*>(smem_raw) + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int nT = p.nT, N = p.N, t = blockIdx.x % nT, it = blockIdx.x / nT, h = blockIdx.y;
+  const int j0 = t * kT, i0 = it * kT;
+  const int k0 = (int)((long long)blockIdx.z * p.nSeq / p.nChunks);
+  const int n = (int)((long long)(blockIdx.z + 1) * p.nSeq / p.nChunks) - k0;
+  const int per_w = p.nSeq / p.nW;  // sequences a window
+  auto w_of = [&](int k) { return (k0 + k) / per_w; };
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int jr0 = warp * 16 + g;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) wg::mbar_init(&full[s], 1 + kCons);  // TMA + cp.async
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < (TMB ? 6 : 4); ++i)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(
+                       i < 4 ? &p.x[i] : &p.bm[i - 4]))
+                   : "memory");
   }
-  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)N, (cuuint64_t)nH, (cuuint64_t)nSeq};
-  cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
-  const int ext[3] = {N, nH, nSeq};
-  for (int i = 0; i < 3; ++i)
-    if (ext[i] == 1) strides[i] = i == 0 ? 2 * (cuuint64_t)hd : strides[i - 1];
-  const cuuint32_t box[4] = {(cuuint32_t)hd, kT, 1, 1}, unit[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle sw = hd == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                         : (hd == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                     : CU_TENSOR_MAP_SWIZZLE_32B);
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(ptr), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  __syncthreads();
+
+  const long long m_bytes = (long long)p.nW * N * N * 2, b_bytes = (long long)p.nH * N * N * 2;
+  uint32_t* sB = reinterpret_cast<uint32_t*>(base + L::kBiasOff);
+  // the chunk's k-th sequence's tiles into stage k % ST, all reported to its barrier
+  // (the bias tile with stage 0's)
+  auto issue = [&](int k) {
+    const int slot = k % ST, w = w_of(k), seq = (k0 + k - w * per_w) * p.nW + w;
+    char* st = base + slot * 4 * L::kTile;
+    char* sMk = base + L::kMaskOff + slot * L::kMask;
+    const bool new_mask = MASK && (k < ST || w != w_of(k - ST));  // the stage held another window's
+    if (tid == 0) {
+      wg::mbar_expect(&full[slot], 4 * L::kTile + (TMB ? ((k == 0) + new_mask) * L::kMask : 0));
+      tma_load_4d(st, &p.x[1], &full[slot], 0, j0, h, seq);
+      tma_load_4d(st + L::kTile, &p.x[2], &full[slot], 0, j0, h, seq);
+      tma_load_4d(st + 2 * L::kTile, &p.x[0], &full[slot], 0, i0, h, seq);
+      tma_load_4d(st + 3 * L::kTile, &p.x[3], &full[slot], 0, i0, h, seq);
+      if constexpr (TMB) {
+        if (k == 0) wg::tma_load(sB, &p.bm[0], &full[slot], j0, h * N + i0);
+        if (new_mask) wg::tma_load(sMk, &p.bm[1], &full[slot], j0, w * N + i0);
+      }
+    }
+    if (tid < kLoaders) {
+      if (new_mask && !TMB)
+        load_mask_tile<bf16>(reinterpret_cast<uint32_t*>(sMk), p.mask, m_bytes, w, i0, j0, N, tid);
+      if (k == 0 && !TMB) load_mask_tile<bf16>(sB, p.bias, b_bytes, h, i0, j0, N, tid);
+      const size_t bh = (size_t)seq * p.nH + h;
+      float* ld = reinterpret_cast<float*>(base + L::kLdOff + slot * L::kLd);
+      for (int c = tid; c < 2 * kT; c += kLoaders) {  // lse rows, then D rows
+        const int r = c % kT;
+        const bool ok = i0 + r < N;
+        cp_async<4>(ld + c, (c < kT ? p.lse : p.dd) + bh * N + (ok ? i0 + r : 0), ok ? 4 : 0);
+      }
+    }
+    cp_async_arrive(&full[slot]);
+  };
+  if (n > 0) issue(0);
+
+  const float sl2 = p.scale * kLog2e;
+  const int blead0 = TMB ? 0 : (int)(mask_byte<bf16>(h, i0, j0, N) & 15);
+  float db[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) db[i] = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    const int slot = k % ST, w = w_of(k);
+    const uint32_t aK = smem_addr(base + slot * 4 * L::kTile), aV = aK + L::kTile,
+                   aQ = aV + L::kTile, aG = aQ + L::kTile;
+    const uint32_t* cM = reinterpret_cast<const uint32_t*>(base + L::kMaskOff + slot * L::kMask);
+    const float* cL = reinterpret_cast<const float*>(base + L::kLdOff + slot * L::kLd);
+    wg::mbar_wait(&full[slot], (k / ST) & 1);
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ss<0, 0>(sc, desc(aK + 32 * kk, SW, false), desc(aQ + 32 * kk, SW, false), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+      ss<0, 0>(dp, desc(aV + 32 * kk, SW, false), desc(aG + 32 * kk, SW, false), kk);
+    wgmma_commit();
+    // while they run: every thread is past sequence k - 1 (the loop's
+    // barrier), so its stage takes sequence k + 1
+    if (k + 1 < n) issue(k + 1);
+    wgmma_wait<1>();
+    fence_regs(sc);
+    probs<bf16, MASK, true, TMB>(sc, cM, cL,
+                                 MASK && !TMB ? (int)(mask_byte<bf16>(w, i0, j0, N) & 15) : 0,
+                                 i0, j0, jr0, tq, N, sl2, sB, blead0);
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int nn = 0; nn < 8; ++nn) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float D = cL[kT + 8 * nn + 2 * tq + c];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int x = 4 * nn + 2 * r + c;
+          db[x] += sc[x] * (dp[x] - D);
+        }
+      }
+    }
+    __syncthreads();  // this stage is read: sequence k + 2 may take it
+  }
+
+  // dbias[h][query][key] of the chunk, queries and keys < N
+  float* out = p.part + ((size_t)blockIdx.z * p.nH + h) * N * N;
+#pragma unroll
+  for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int i = i0 + 8 * nn + 2 * tq + c;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = j0 + jr0 + 8 * r;
+        if (i < N && j < N) out[(size_t)i * N + j] = db[4 * nn + 2 * r + c];
+      }
+    }
 }
 
-template <int HD, typename M, bool DROP>
+// D = rowsum(o * g) of each (sequence, head, row) in f32, o the forward's
+// output: HD / 8 lanes a row, 8 products each, then a fixed butterfly (the
+// same bits on every run).
+template <int HD>
+__global__ void __launch_bounds__(256) row_dot_kernel(const lvt::RowDot a) {
+  constexpr int LANES = HD / 8;
+  const long long rows = (long long)a.nSeq * a.nH * a.N;
+  const long long r = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  const int l = threadIdx.x % LANES;
+  float acc = 0.0f;
+  if (r < rows) {
+    const long long bh = r / a.N;
+    const int i = (int)(r - bh * a.N), seq = (int)(bh / a.nH), h = (int)(bh - (long long)seq * a.nH);
+    float fo[8], fg[8];
+    lvt::unpack8(*reinterpret_cast<const uint4*>(a.o + seq * a.st[0][0] + h * a.st[0][1] +
+                                                 i * a.st[0][2] + l * 8),
+                 fo);
+    lvt::unpack8(*reinterpret_cast<const uint4*>(a.g + seq * a.st[1][0] + h * a.st[1][1] +
+                                                 i * a.st[1][2] + l * 8),
+                 fg);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc = fmaf(fo[e], fg[e], acc);
+  }
+#pragma unroll
+  for (int off = LANES / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (r < rows && l == 0) a.dd[r] = acc;
+}
+
+// sum_chunks' pass: out[e] = sum over chunks of part[chunk][e], in order.
+__global__ void sum_chunks_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                  int nChunks, size_t n) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.0f;
+    for (int c = 0; c < nChunks; ++c) s += part[(size_t)c * n + e];
+    out[e] = s;
+  }
+}
+
+template <int HD, typename M, bool DROP, bool BIAS, bool TMB = false>
 int launch(const lvt::TcBwdWg& p, int nSeq, cudaStream_t stream) {
-  using L = Smem<HD, M>;
-  auto kernel = bwd_wg_kernel<HD, M, DROP>;
+  using L = Smem<HD, M, BIAS, TMB>;
+  auto kernel = bwd_wg_kernel<HD, M, DROP, BIAS, TMB>;
   static int ready = -1, resident = 0;  // the device the opt-in was made on; CTAs it holds
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -662,7 +756,8 @@ int launch(const lvt::TcBwdWg& p, int nSeq, cudaStream_t stream) {
 
 template <int HD, typename M>
 int launch_drop(const lvt::TcBwdWg& p, int nSeq, bool drop, cudaStream_t stream) {
-  return drop ? launch<HD, M, true>(p, nSeq, stream) : launch<HD, M, false>(p, nSeq, stream);
+  return drop ? launch<HD, M, true, false>(p, nSeq, stream)
+              : launch<HD, M, false, false>(p, nSeq, stream);
 }
 
 template <typename M>
@@ -675,6 +770,30 @@ int launch_hd(const lvt::TcBwdWg& p, int nSeq, int hd, bool drop, cudaStream_t s
   }
 }
 
+// K8b: the backward with the bias, then dbias by chunks of sequences and
+// the chunks' sum; TMB: the bias and mask tiles by TMA.
+template <int HD, bool TMB>
+int launch_bias(const lvt::TcBwdWg& p, float* dbias, cudaStream_t stream) {
+  int e = launch<HD, bf16, false, true, TMB>(p, p.nSeq, stream);
+  if (e != 0) return e;
+  using L = DbSmem<HD, TMB>;
+  const bool mask = p.mask != nullptr;
+  auto kernel = mask ? dbias_wg_kernel<HD, true, TMB> : dbias_wg_kernel<HD, false, TMB>;
+  cudaError_t err = allow_smem(kernel, L::kBytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(p.nT * p.nT, p.nH, p.nChunks), kCons, L::kBytes, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return lvt::sum_chunks(p.part, dbias, p.nChunks, (size_t)p.nH * p.N * p.N, stream);
+}
+
+template <int HD>
+int launch_row_dot(const lvt::RowDot& a, cudaStream_t stream) {
+  const long long threads = (long long)a.nSeq * a.nH * a.N * (HD / 8);
+  row_dot_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int lvt::attention_bwd_wgmma(const TcBwd& a, float* acc, int* sem, int hd, bool mask_f32,
@@ -682,7 +801,13 @@ int lvt::attention_bwd_wgmma(const TcBwd& a, float* acc, int* sem, int hd, bool 
   const int heads_total = a.heads_total <= 0 ? a.nH : a.heads_total;
   if (a.head0 < 0 || a.head0 + a.nH > heads_total || a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 ||
       a.nW <= 0 || a.nSeq % a.nW != 0 || a.N > 65535 || a.dd == nullptr || a.lse == nullptr ||
-      a.bias != nullptr || (hd != 16 && hd != 32 && hd != 64))
+      (hd != 16 && hd != 32 && hd != 64))
+    return (int)cudaErrorInvalidValue;
+  const bool bias = a.bias != nullptr;
+  // K8b: a bf16 mask or none, no dropout, dbias and its chunks' scratch
+  if (bias && (mask_f32 || a.seed != nullptr || a.dbias == nullptr || a.part == nullptr ||
+               a.nChunks < 1 || a.nChunks > a.nSeq || a.nChunks > 65535 || a.nH > 65535 ||
+               reinterpret_cast<uintptr_t>(a.bias) % 16))
     return (int)cudaErrorInvalidValue;
   const int nT = (a.N + kT - 1) / kT;
   if ((long long)a.nSeq * a.nH * nT > 0x7fffffffLL ||
@@ -721,7 +846,43 @@ int lvt::attention_bwd_wgmma(const TcBwd& a, float* acc, int* sem, int hd, bool 
   p.nT = nT;
   p.head0 = a.head0;
   p.heads_total = heads_total;
+  p.bias = a.bias;
+  p.part = a.part;
+  p.nSeq = a.nSeq;
+  p.nChunks = a.nChunks;
+  if (bias) {
+    // the bias's and mask's rows 16-byte aligned: their tiles by TMA
+    const bool tmb = a.N % 8 == 0;
+    if (tmb && (!wg::tile_map(&p.bm[0], a.bias, a.nH * a.N, a.N, a.N, kT) ||
+                (a.mask != nullptr &&
+                 !wg::tile_map(&p.bm[1], a.mask, a.nW * a.N, a.N, a.N, kT))))
+      return (int)cudaErrorInvalidValue;
+    switch (hd) {
+      case 16: return tmb ? launch_bias<16, true>(p, a.dbias, stream)
+                          : launch_bias<16, false>(p, a.dbias, stream);
+      case 32: return tmb ? launch_bias<32, true>(p, a.dbias, stream)
+                          : launch_bias<32, false>(p, a.dbias, stream);
+      default: return tmb ? launch_bias<64, true>(p, a.dbias, stream)
+                          : launch_bias<64, false>(p, a.dbias, stream);
+    }
+  }
   const bool drop = a.seed != nullptr;
   return mask_f32 ? launch_hd<float>(p, a.nSeq, hd, drop, stream)
                   : launch_hd<bf16>(p, a.nSeq, hd, drop, stream);
+}
+
+int lvt::sum_chunks(const float* part, float* out, int nChunks, size_t n, cudaStream_t stream) {
+  const size_t blocks = (n + 255) / 256 < 132 * 8 ? (n + 255) / 256 : 132 * 8;
+  sum_chunks_kernel<<<(unsigned)blocks, 256, 0, stream>>>(part, out, nChunks, n);
+  return (int)cudaGetLastError();
+}
+
+int lvt::attention_row_dot(const RowDot& a, int hd, cudaStream_t stream) {
+  if (a.nSeq <= 0 || a.N <= 0 || a.nH <= 0 || a.dd == nullptr) return (int)cudaErrorInvalidValue;
+  switch (hd) {
+    case 16: return launch_row_dot<16>(a, stream);
+    case 32: return launch_row_dot<32>(a, stream);
+    case 64: return launch_row_dot<64>(a, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -6,7 +6,7 @@
 // (stream sequence * nH + head, or with a head offset
 // sequence * heads_total + head0 + head: dropout.cuh attention_stream; index row * N + key, the logical
 // coordinates, never an address): the bits the backward
-// (attention_bwd_tc.cu) regenerates from the seed, which also reads lse
+// (attention_bwd_wgmma.cu) regenerates from the seed, which also reads lse
 // and o as this kernel writes them.  lse is stored only where the call
 // gives it a buffer.
 //
@@ -16,23 +16,21 @@
 // _enc_attn_train_kernel (:526, K13a: q, k, v [B, nH, L, hd] by their
 // strides, views of one qkv product, an f32 [B, L, L] mask, dropout),
 // _enc_attn_kernel (:75, K7: the same layout and mask, no dropout, no
-// lse), lavender_tpu/ops/swin_core_attn.py _core_fwd_kernel (:112, K8a:
-// the packed slab [B*nW*Npad, 3C] of the Swin backward's recompute, a
-// bf16 rel-pos bias [nH, Npad, Npad] and a bf16 shift mask [nW, Npad,
-// Npad] or none, no dropout) and lavender_tpu/ops/window_attention.py
+// lse) and lavender_tpu/ops/window_attention.py
 // _attn_kernel (:49, K15: q, k, v [W, nH, N, hd], strided views of the
 // module path's qkv product, a bf16 rel-pos bias [nH, N, N] and a bf16 or
 // f32 shift mask [nW, N, N] or none, no lse), and the cores of two
 // whole-block kernels: lavender_tpu/ops/swin_block_attn.py
 // _block_kernel_wm (:954, K1: the packed slab with the rel-pos bias and
-// the bf16 shift mask or none, K8a's instantiation without lse) and
+// the bf16 shift mask or none, the BIAS instance) and
 // lavender_tpu/ops/encoder_attention.py _attn_block_kernel_kmask (:322,
 // K4: the packed slab [B*L, 3C] with a key-keep vector [B, L], the KEEP
 // variant) and _attn_block_kernel (:242, K6: the packed slab under a bf16
 // [B, L, L] mask, clamped at -1e4, one mask a sequence, no key skipped).
 // All reach it through the C entries of attention.cu (every call that
-// writes lse, every heads-layout call, and the packed calls that select
-// it, K1 and K4) but K6, K14 and K16, whose C entries in blocks.cu call
+// writes lse without a bias, every heads-layout call, and the packed calls
+// that select it, K1 and K4; the Swin window core K8a, lse with its bias,
+// runs on attention_fwd_wgmma.cu) but K6, K14 and K16, whose C entries in blocks.cu call
 // it directly with the mask's and the bias's pitch.  The rows of the mask
 // and of the bias lie
 // mask_ld / bias_ld elements apart (N, or a pitch a wrapper rounded up to
@@ -43,9 +41,7 @@
 // written once is 4 bf16 [B*L, C] slabs (q, k, v, o) + the mask + lse,
 // 119.1 MB with K10a's bf16 mask (0.036 ms at 3.35 TB/s) and 128.9 MB with
 // K13a's f32 one (0.038 ms); the two products are 15.0 GFLOP, 0.015 ms at
-// 989 TFLOP/s in bf16.  K8a at B = 8, Swin-B stage 1 (512 windows of 248
-// rows, 4 heads of 32): 132.5 MB of slabs, lse and bias unshifted (0.040
-// ms), 16.1 GFLOP (0.016 ms); K15 at the "pallas" serving forward's B = 4,
+// 989 TFLOP/s in bf16.  K15 at the "pallas" serving forward's B = 4,
 // stage 1 (256 windows of 245 rows, 4 heads of 32, the f32 shift mask):
 // 80.1 MB (0.024 ms), 7.9 GFLOP; K7 at B = 4, L = 275, 12 heads of 64: 8.0
 // MB (0.0024 ms); K1 at B = 4, stage 1 (256 windows of 248 rows, bias
@@ -282,7 +278,7 @@ int launch(const lvt::TcFwd& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// A bias (K1, K8a, K15) comes without dropout; a keep vector (K4) without
+// A bias (K1, K14, K15, K16) comes without dropout; a keep vector (K4) without
 // bias, dropout or lse, under a bf16 mask or none.
 template <int HD, typename M>
 int launch_drop(const lvt::TcFwd& a, cudaStream_t stream) {

@@ -1,9 +1,9 @@
-// The tensor-core forward (attention_fwd_tc.cu) and backwards
-// (attention_bwd_wgmma.cu: the fusion encoder's K10 and K13;
-// attention_bwd_tc.cu: the Swin window core K8 with its per-head bias) of
-// the train attention cores, the forward also of the heads-layout cores
-// K7 and K15, as the C entries of attention.cu and attention_bwd.cu call
-// them.
+// The tensor-core forwards (attention_fwd_tc.cu; attention_fwd_wgmma.cu:
+// the Swin window core K8a with its per-head bias) and backwards
+// (attention_bwd_wgmma.cu: the fusion encoder's K10b and K13b, and K8b
+// with its dbias) of the train attention cores, the first forward also of
+// the heads-layout cores K7 and K15, as the C entries of attention.cu and
+// attention_bwd.cu call them.
 #pragma once
 
 #include "common.cuh"
@@ -41,6 +41,13 @@ struct TcFwd {
 // dropped is 0).  Returns a cudaError_t.
 int attention_fwd_tc(const TcFwd& a, int hd, bool mask_f32, cudaStream_t stream);
 
+// o and lse of softmax(q k^T * scale + bias + mask) on wgmma + TMA (K8a):
+// lse and the bias required, a bf16 mask or none, no dropout and no
+// key-keep, the mask's and the bias's rows N elements apart; hd in {16,
+// 32, 64}; every stride a multiple of 8 elements where its extent is over
+// 1, every pointer 16-byte aligned.  Returns a cudaError_t.
+int attention_fwd_wgmma(const TcFwd& a, int hd, cudaStream_t stream);
+
 // Operands of one backward call, addressed as TcFwd's; t in order q, k,
 // v, g (the cotangent of o), dq, dk, dv.
 struct TcBwd {
@@ -65,16 +72,12 @@ struct TcBwd {
   int head0 = 0, heads_total = 0;  // the dropout stream, as TcFwd's
 };
 
-// dq, dk, dv and dbias of softmax(q k^T * scale + bias + mask), the bias
-// required, the mask bf16 or none, no dropout (K8b), on the mma.sync
-// kernels of attention_bwd_tc.cu; hd in {16, 32, 64}.  Returns a
-// cudaError_t.
-int attention_bwd_tc(const TcBwd& a, int hd, bool mask_f32, cudaStream_t stream);
-
 // dq, dk, dv of softmax(q k^T * scale + mask) with dropout, no bias (K10b,
-// K13b), on the wgmma + TMA kernel of attention_bwd_wgmma.cu; hd in {16,
-// 32, 64}; the mask bf16, or f32 where mask_f32; every stride a multiple of
-// 8 elements where its extent is over 1, every pointer 16-byte aligned.
+// K13b), or of softmax(q k^T * scale + bias + mask) with dbias, no dropout
+// (K8b: a bf16 mask or none, dbias by the chunks of part), on the wgmma +
+// TMA kernels of attention_bwd_wgmma.cu; hd in {16, 32, 64}; the mask
+// bf16, or f32 where mask_f32; every stride a multiple of 8 elements where
+// its extent is over 1, every pointer 16-byte aligned.
 // acc: f32 scratch of nSeq * nH * T * 64 * hd floats (T = ceil(N / 64)),
 // sem: int32 [nSeq * nH * T], all 0 before the call and 0 after it (both
 // unused where T = 1).  Returns a cudaError_t.

@@ -1,9 +1,10 @@
-// The tensor-core tile helpers of the fusion encoder's train attention,
-// shared by its forward (attention_fwd_tc.cu) and its backward
-// (attention_bwd_tc.cu): a block of kThreads = 4 warps owns a 64-row tile
+// The tensor-core tile helpers of the attention cores' mma.sync forward
+// (attention_fwd_tc.cu): a block of kThreads = 4 warps owns a 64-row tile
 // of one (sequence, head), each warp 16 rows, and sweeps 64-row tiles of
 // the other side staged in shared memory by cp.async; products run as
-// mma.sync m16n8k16 (bf16 operands from ldmatrix, f32 accumulation).
+// mma.sync m16n8k16 (bf16 operands from ldmatrix, f32 accumulation).  The
+// wgmma kernels (attention_wg.cuh) share its cp.async, mask-tile and ex2
+// pieces.
 #pragma once
 
 #include "common.cuh"

@@ -14,9 +14,9 @@ its affine, optionally gathering its rows, in scalar or 16-byte-chunk
 loads, attention core (on the tensor cores, the
 packed slab or strided heads-layout q, k, v, with a per-head bias, a
 per-window mask whose rows may be padded or a key-keep vector, with
-dropout and the rows' log-sum-exp where asked) and its backwards (wgmma +
-TMA without a bias, mma.sync with the bias's gradient), both with optional
-dropout,
+dropout and the rows' log-sum-exp where asked; wgmma + TMA for the Swin
+window core's lse with its bias) and its backwards (wgmma + TMA, with the
+bias's gradient where there is a bias), both with optional dropout,
 row permutation, and a probe of the dropout hash) are what the ports of
 the TPU kernels are composed from, see ``swin_block_attn.py``,
 ``window_attention.py``, ``swin_core_attn.py``, ``wm_permute.py``,
@@ -534,10 +534,11 @@ def attention_route(*, tensor_cores: bool = False, lse: bool = False,
                     keep: bool = False, bias: bool = False,
                     dropout: bool = False) -> str:
     """The core a packed-slab ``attention`` call runs on, from what it
-    carries: "tensor_cores" (``csrc/attention_fwd_tc.cu``), the one core
-    left, where the caller selects it (K1, K4) or asks for lse (K8a,
-    K10a).  A call that does neither raises: the f32-pipe core that took
-    such calls is gone, and a caller written for it is refused rather than
+    carries: "tensor_cores", where the caller selects them (K1, K4) or asks
+    for lse (K10a: ``csrc/attention_fwd_tc.cu``; with a bias, K8a:
+    ``csrc/attention_fwd_wgmma.cu``, as ``attention_fwd_plan`` sizes it).
+    A call that does neither raises: the f32-pipe core that took such
+    calls is gone, and a caller written for it is refused rather than
     moved silently.  Raises also on what the core does not take: dropout
     without lse or with a bias, a keep vector with lse, dropout or a
     bias."""
@@ -573,9 +574,12 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
     int64 [1] on the device; ``dropout.attention_keep``) in the P.V sum
     only, the stream of (sequence s, head h) s * heads_total + head0 + h
     (``heads_total`` 0: n_heads; a tensor-parallel rank's own heads).  The
-    core is the tensor cores' (``csrc/attention_fwd_tc.cu``), for a call
-    with ``lse`` (K10a, K8a) or ``tensor_cores`` (K1, K4);
-    ``attention_route`` refuses any other.  Returns [n_seq * n_tok, C]."""
+    core is the tensor cores', for a call with ``lse`` (K10a, K8a) or
+    ``tensor_cores`` (K1, K4); ``attention_route`` refuses any other.  A
+    call with ``lse`` and ``bias`` (K8a) runs on the wgmma + TMA forward
+    (``csrc/attention_fwd_wgmma.cu``; ``attention_fwd_plan`` raises where
+    it does not run), the others on ``csrc/attention_fwd_tc.cu``.  Returns
+    [n_seq * n_tok, C]."""
     C, hd, n_win = _attention_args(qkv, n_seq, n_tok, n_heads, bias, mask,
                                    "attention")
     attention_route(tensor_cores=tensor_cores, lse=lse is not None,
@@ -598,6 +602,15 @@ def attention(qkv: torch.Tensor, n_seq: int, n_tok: int, n_heads: int,
         keep_ptr = keep.data_ptr()
     seed_ptr, thresh, drop_scale = _dropout_args(seed, rate, qkv.device)
     out = torch.empty(qkv.shape[0], C, dtype=qkv.dtype, device=qkv.device)
+    if lse is not None and bias is not None:  # K8a: the wgmma forward
+        e = qkv.element_size()
+        attention_fwd_plan(
+            n_seq, n_tok, n_heads, hd,
+            _stepped((n_seq, n_heads, n_tok), (n_tok * 3 * C, hd, 3 * C),
+                     (n_tok * C, hd, C)),
+            (qkv.data_ptr(), qkv.data_ptr() + C * e,
+             qkv.data_ptr() + 2 * C * e, out.data_ptr(), bias.data_ptr())
+            + (() if mask is None else (mask.data_ptr(),)))
     err = library().lvt_attention_bf16(
         qkv.data_ptr(), out.data_ptr(), _ptr(bias), _ptr(mask), keep_ptr,
         _ptr(lse), n_seq, n_tok, n_heads, hd, n_win, float(scale), seed_ptr,
@@ -716,9 +729,78 @@ def attention_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-# the wgmma backward's tile (csrc/attention_bwd_wgmma.cu kT): 64 keys a
-# CTA, 64 queries a step of its sweep
+# the wgmma kernels' tile (csrc/attention_wg.cuh kT): 64 query rows a
+# forward CTA, 64 keys a backward CTA, 64 queries a step of its sweep
 ATTN_BWD_TILE = 64
+# the wgmma forward's warpgroups a CTA (csrc/attention_fwd_wgmma.cu kWGs)
+ATTN_FWD_WGS = 2
+# the shared memory one CTA may take (227 KB of an SM's 228)
+CTA_SMEM = 227 * 1024
+
+
+def _wg_operands(what: str, hd: int, strides, ptrs):
+    """The wgmma kernels' rules: hd in {16, 32, 64}, every stepped stride
+    a multiple of 8 elements and every pointer 16-byte aligned (the tensor
+    maps' rule, and the 16-byte copies of the bias and mask)."""
+    if hd not in (16, 32, 64):
+        raise ValueError(f"{what}: head dim {hd} unsupported (16/32/64)")
+    bad = [st for st in strides if st % 8]
+    if bad:
+        raise ValueError(f"{what}: strides {bad} are not multiples of 8 "
+                         "elements (16 bytes)")
+    bad = [hex(pt) for pt in ptrs if pt % 16]
+    if bad:
+        raise ValueError(f"{what}: pointers {bad} are not 16-byte aligned")
+
+
+class AttnFwdPlan(NamedTuple):
+    q_tiles: int     # 64-row query tiles of a sequence
+    keys: int        # keys a block: 256 up to 256 tokens, else 128
+    key_blocks: int  # blocks of a query tile's row (1: the softmax exact,
+    #                  no running rescale)
+    ctas: int        # one a (sequence, head), two warpgroups each
+    smem: int        # dynamic shared memory a CTA, bytes
+    tma_tiles: bool  # the bias and mask tiles by TMA (rows 16-byte
+    #                  aligned: N % 8 == 0), else by cp.async
+
+
+def attention_fwd_plan(n_seq: int, n_tok: int, n_heads: int, hd: int,
+                       strides=(), ptrs=()) -> AttnFwdPlan:
+    """The launch of the wgmma + TMA forward of K8a
+    (``csrc/attention_fwd_wgmma.cu``: lse with a per-head bias, a bf16
+    mask or none) on n_seq sequences of n_tok tokens and n_heads heads of
+    hd, as its C entry sizes it: query tiles, the key block (256 keys up to
+    256 tokens, else 128), key blocks, CTAs (a (sequence, head) each, its
+    two warpgroups taking alternate query tiles), shared memory (each
+    warpgroup's Q tile and 64-row bias and mask tiles of a key block, the
+    sequence's K and V whole), and whether the bias and mask tiles come by
+    TMA (their rows 16-byte aligned) or by cp.async (rows padded by 16
+    bytes for the lead).  ``strides``: the element strides the kernel
+    steps, ``ptrs``: the operands' addresses.  Raises where the kernel does
+    not run: hd outside {16, 32, 64}, a stride that is no multiple of 8
+    elements or a pointer that is not 16-byte aligned, more tokens than
+    65535 or than K and V that fit beside the tiles in a CTA's 227 KB
+    (1152 at hd 32, 512 at hd 64), more CTAs than a launch takes.  Pure
+    arithmetic."""
+    what = "attention forward (wgmma)"
+    _wg_operands(what, hd, strides, ptrs)
+    if not 0 < n_tok <= 65535:
+        raise ValueError(f"{what}: {n_tok} tokens, outside 1..65535")
+    keys = 256 if n_tok <= 256 else 128
+    tma_tiles = n_tok % 8 == 0
+    tile = ATTN_BWD_TILE * 2 * hd
+    wide = ATTN_BWD_TILE * (2 * keys + (0 if tma_tiles else 16))
+    q_tiles = -(-n_tok // ATTN_BWD_TILE)
+    smem = ATTN_FWD_WGS * (tile + 2 * wide) + 2 * q_tiles * tile + 1024
+    if smem > CTA_SMEM:
+        raise ValueError(f"{what}: {n_tok} tokens' K and V do not fit "
+                         f"beside the tiles ({smem} bytes of shared memory "
+                         f"at hd {hd}, over {CTA_SMEM})")
+    ctas = n_seq * n_heads
+    if ctas > 2 ** 31 - 1:
+        raise ValueError(f"{what}: {ctas} CTAs, more than a launch takes")
+    return AttnFwdPlan(q_tiles, keys, -(-n_tok // keys), ctas, smem,
+                       tma_tiles)
 
 
 class AttnBwdPlan(NamedTuple):
@@ -730,51 +812,76 @@ class AttnBwdPlan(NamedTuple):
     #                 T = 1
     sems: int       # int32 turn counters, one a (sequence, head, query
     #                 tile); 0 at T = 1
+    # with a bias (K8b): the dbias kernel's chunks of sequences, CTAs (one a
+    # (query tile, key tile, head, chunk)) and shared memory, and its f32
+    # partial sums [chunks, heads, N, N]; 0 without; whether the bias and
+    # mask tiles come by TMA (rows 16-byte aligned: N % 8 == 0)
+    dbias_chunks: int = 0
+    dbias_ctas: int = 0
+    dbias_smem: int = 0
+    part_bytes: int = 0
+    tma_tiles: bool = False
 
 
 def attention_bwd_plan(n_seq: int, n_tok: int, n_heads: int, hd: int,
                        mask_f32: bool, strides=(), ptrs=(),
-                       sms: int = H100_SMS) -> AttnBwdPlan:
-    """The launch of the wgmma + TMA backward of K10b / K13b
-    (``csrc/attention_bwd_wgmma.cu``) on n_seq sequences of n_tok tokens
-    and n_heads heads of hd, as its C entry sizes it: key tiles, CTAs, the
-    ring's stages, shared memory, the dQ sums' scratch and the turn
-    counters (both unused at one tile).  ``strides``: the element strides
-    the kernel steps (the operands' sequence, head and row strides whose
-    extent is over 1), ``ptrs``: the operands' addresses.  Raises where
-    the kernel does not run: hd outside {16, 32, 64}, a stride that is no
-    multiple of 8 elements or a pointer that is not 16-byte aligned (the
-    tensor maps' rule), more key tiles than two CTAs on each of ``sms``
-    SMs (a key tile's CTA waits on the next one's, so all must be resident
-    at once).  Pure arithmetic."""
-    if hd not in (16, 32, 64):
-        raise ValueError(f"attention backward: head dim {hd} unsupported "
-                         "(16/32/64)")
-    bad = [st for st in strides if st % 8]
-    if bad:
-        raise ValueError(f"attention backward: strides {bad} are not "
-                         "multiples of 8 elements (16 bytes)")
-    bad = [hex(pt) for pt in ptrs if pt % 16]
-    if bad:
-        raise ValueError(f"attention backward: pointers {bad} are not "
-                         "16-byte aligned")
+                       sms: int = H100_SMS,
+                       bias: bool = False) -> AttnBwdPlan:
+    """The launch of the wgmma + TMA backward of K10b / K13b, and with
+    ``bias`` of K8b (``csrc/attention_bwd_wgmma.cu``) on n_seq sequences of
+    n_tok tokens and n_heads heads of hd, as its C entry sizes it: key
+    tiles, CTAs, the ring's stages, shared memory (with the bias, each
+    stage's bias tile too), the dQ sums' scratch and the turn counters
+    (both unused at one tile), and with the bias the dbias kernel's chunks
+    of sequences (enough for eight CTAs on each of ``sms`` SMs, at most
+    n_seq), CTAs, shared memory and partial sums, and whether the bias and
+    mask tiles come by TMA (64 x 64 boxes, where N % 8 == 0) or by cp.async
+    (rows padded by 16 bytes for their lead).  ``strides``: the element
+    strides the kernel steps (the operands' sequence, head and row strides
+    whose extent is over 1), ``ptrs``: the operands' addresses.  Raises
+    where the kernel does not run: hd outside {16, 32, 64}, a stride that
+    is no multiple of 8 elements or a pointer that is not 16-byte aligned
+    (the tensor maps' rule), more key tiles than two CTAs on each of
+    ``sms`` SMs (a key tile's CTA waits on the next one's, so all must be
+    resident at once), more than 65535 tokens, a bias under an f32 mask.
+    Pure arithmetic."""
+    what = "attention backward"
+    _wg_operands(what, hd, strides, ptrs)
+    if not 0 < n_tok <= 65535:
+        raise ValueError(f"{what}: {n_tok} tokens, outside 1..65535")
+    if bias and mask_f32:
+        raise ValueError(f"{what}: the bias's backward takes a bf16 mask")
     tiles = -(-n_tok // ATTN_BWD_TILE)
     if tiles > 2 * sms:
-        raise ValueError(f"attention backward: {n_tok} tokens make {tiles} "
+        raise ValueError(f"{what}: {n_tok} tokens make {tiles} "
                          f"key tiles, more than the {2 * sms} CTAs the card "
                          "holds at once")
     stages = 2
     tile = ATTN_BWD_TILE * 2 * hd
-    mask = ATTN_BWD_TILE * (ATTN_BWD_TILE * (4 if mask_f32 else 2) + 16)
+    tma_tiles = bias and n_tok % 8 == 0
+    mask_tile = ATTN_BWD_TILE * (ATTN_BWD_TILE * 2 + (0 if tma_tiles else 16))
+    mask = ATTN_BWD_TILE * (ATTN_BWD_TILE * (4 if mask_f32 else 2)
+                            + (0 if tma_tiles else 16))
+    rows = 2 * ATTN_BWD_TILE * 4  # a stage's lse and D rows
     # K, V, each stage's Q and G, dS^T, dQ_t's f32 hand-off, each stage's
-    # mask tile and lse / D rows, 1 KB to align
+    # mask tile and lse / D rows (and bias tile), 1 KB to align
     smem = ((2 + 2 * stages) * tile + ATTN_BWD_TILE * 128
-            + ATTN_BWD_TILE * hd * 4 + stages * (mask + 2 * ATTN_BWD_TILE * 4)
-            + 1024)
+            + ATTN_BWD_TILE * hd * 4 + stages * (mask + rows)
+            + (stages * mask_tile if bias else 0) + 1024)
     pairs = n_seq * n_heads
     acc = pairs * tiles * ATTN_BWD_TILE * hd * 4 if tiles > 1 else 0
-    return AttnBwdPlan(tiles, pairs * tiles, stages, smem, acc,
+    plan = AttnBwdPlan(tiles, pairs * tiles, stages, smem, acc,
                        pairs * tiles if tiles > 1 else 0)
+    if not bias:
+        return plan
+    base = tiles * tiles * n_heads
+    chunks = max(1, min(n_seq, 65535, -(-8 * sms // base)))
+    # each stage's K, V, Q and G, mask tile and lse / D rows, the bias tile
+    db_smem = stages * (4 * tile + mask_tile + rows) + mask_tile + 1024
+    return plan._replace(dbias_chunks=chunks, dbias_ctas=base * chunks,
+                         dbias_smem=db_smem,
+                         part_bytes=chunks * n_heads * n_tok * n_tok * 4,
+                         tma_tiles=tma_tiles)
 
 
 # the wgmma backward's turn counters per (device, stream): int32, 0 between
@@ -915,10 +1022,10 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
                   seed: Optional[torch.Tensor] = None, rate: float = 0.0,
                   head0: int = 0, heads_total: int = 0):
     """Backward of ``attention`` with ``lse`` (no keep vector), on the
-    tensor cores: without a bias (K10b) the wgmma + TMA kernel
-    (``csrc/attention_bwd_wgmma.cu``, launched as ``attention_bwd_plan``
-    sizes it), with one (K8b) the mma.sync kernels
-    (``csrc/attention_bwd_tc.cu``).
+    wgmma + TMA kernels (``csrc/attention_bwd_wgmma.cu``, launched as
+    ``attention_bwd_plan`` sizes them): without a bias (K10b) the
+    backward, with one (K8b) the backward with the bias tile, then the
+    dbias kernel by chunks of sequences and the chunks' sum in order.
 
     qkv [n_seq * N, 3C], dout and the forward's output ``out`` [n_seq * N,
     C] (bf16; D = rowsum(out * dout)), lse the forward's f32 [n_seq, nH,
@@ -942,25 +1049,20 @@ def attention_bwd(qkv: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor,
     def heads(t):
         return t.view(n_seq, n_tok, n_heads, hd).transpose(1, 2)
     dd = _row_dot(heads(out), heads(dout), "attention_bwd")
-    n_chunks, dbias, part, acc, sem = 1, None, None, None, None
-    if bias is None:  # K10b: the wgmma kernel
-        slab, cols = (n_tok * 3 * C, hd, 3 * C), (n_tok * C, hd, C)
-        e = qkv.element_size()
-        plan = attention_bwd_plan(
-            n_seq, n_tok, n_heads, hd, False,
-            _stepped((n_seq, n_heads, n_tok), slab, cols),
-            (qkv.data_ptr(), qkv.data_ptr() + C * e,
-             qkv.data_ptr() + 2 * C * e, dout.data_ptr(), dqkv.data_ptr(),
-             dqkv.data_ptr() + C * e, dqkv.data_ptr() + 2 * C * e)
-            + (() if mask is None else (mask.data_ptr(),)))
-        acc, sem = _bwd_scratch(qkv, _stream(qkv), plan)
-    else:
-        # dbias: one block per (64 x 64 tile, head, chunk of sequences), each
-        # chunk summed into its own f32 slice, then the slices added in order
-        # (no atomics: the same bits on every run); about 4 waves of 3
-        # blocks on each of the H100's 132 SMs
-        n_t = -(-n_tok // 64)
-        n_chunks = max(1, min(n_seq, -(-1584 // (n_heads * n_t * n_t))))
+    slab, cols = (n_tok * 3 * C, hd, 3 * C), (n_tok * C, hd, C)
+    e = qkv.element_size()
+    plan = attention_bwd_plan(
+        n_seq, n_tok, n_heads, hd, False,
+        _stepped((n_seq, n_heads, n_tok), slab, cols),
+        (qkv.data_ptr(), qkv.data_ptr() + C * e, qkv.data_ptr() + 2 * C * e,
+         dout.data_ptr(), dqkv.data_ptr(), dqkv.data_ptr() + C * e,
+         dqkv.data_ptr() + 2 * C * e)
+        + tuple(t.data_ptr() for t in (bias, mask) if t is not None),
+        bias=bias is not None)
+    acc, sem = _bwd_scratch(qkv, _stream(qkv), plan)
+    n_chunks, dbias, part = 1, None, None
+    if bias is not None:  # K8b: dbias by chunks of sequences, summed in order
+        n_chunks = plan.dbias_chunks
         part = torch.empty(n_chunks, n_heads, n_tok, n_tok,
                            dtype=torch.float32, device=qkv.device)
         dbias = torch.empty(n_heads, n_tok, n_tok, dtype=torch.float32,

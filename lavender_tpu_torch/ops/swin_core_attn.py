@@ -9,18 +9,23 @@ on the packed qkv slab [B, nW, Npad, 3C], and its vjp.  The K1 block's
 backward recomputes through it (``swin_block_attn._block_attn_recompute``,
 the JAX ``_wm_ref_core``).
 
-On the card both run on the tensor cores: K8a is the forward of
-``csrc/attention_fwd_tc.cu`` with the per-head bias tile, which also writes
-each query row's log-sum-exp; K8b is ``csrc/attention_bwd_tc.cu``'s dq and
-dk/dv kernels and its dbias kernel, which take the lse instead of
-recomputing the row sums and D = rowsum(o * g) from the forward's output
-(which the autograd Function saves: the proj that follows holds it anyway).
-Scores and probabilities stay on chip in both directions; device memory
-sees the qkv, output and cotangent slabs and the [nH, Npad, Npad] dbias.
-dbias is summed over every (batch, window) in f32, in chunks of sequences
-added in a fixed order; the mask's cotangent is zero (it is geometry).  Pad
-keys must carry a strongly negative bias (``rel_pos_bias_wm`` writes -100),
-as in the JAX package.
+On the card both run on wgmma + TMA: K8a is ``csrc/attention_fwd_wgmma.cu``
+(a CTA a (window, head), its K and V whole in shared memory, two
+warpgroups over its 64-row query tiles, the bias and mask tiles by TMA
+where their rows are 16-byte aligned), which also writes each query row's
+log-sum-exp; K8b is the bias instance of ``csrc/attention_bwd_wgmma.cu``'s
+backward (one pass of five products a tile pair, dQ summed across key
+tiles in a fixed order) and its dbias kernel, which take the lse instead
+of recomputing the row sums and D = rowsum(o * g) from the forward's
+output (which the autograd Function saves: the proj that follows holds it
+anyway).  ``_build.attention_fwd_plan`` and ``attention_bwd_plan(...,
+bias=True)`` size both and raise where they do not run.  Scores and
+probabilities stay on chip in both directions; device memory sees the
+qkv, output and cotangent slabs and the [nH, Npad, Npad] dbias.  dbias is
+summed over every (batch, window) in f32, in chunks of sequences added in
+a fixed order; the mask's cotangent is zero (it is geometry).  Pad keys
+must carry a strongly negative bias (``rel_pos_bias_wm`` writes -100), as
+in the JAX package.
 """
 from __future__ import annotations
 
